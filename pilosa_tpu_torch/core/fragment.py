@@ -1,0 +1,473 @@
+"""Fragment — one (field, view, shard) bitmap matrix, set-field subset.
+
+The port's counterpart of pilosa_tpu/core/fragment.py. Reference:
+fragment.go (struct :100, setBit/clearBit :645/:729, row :602, top :1570,
+bulkImport :1997).
+
+Design split, as in the JAX package:
+- **Host truth**: ``rows[row_id] -> HostRow`` — sparse positions at rest,
+  dense past cutoff. Mutations are host ops.
+- **Device cache**: dense int32 bit-pattern blocks uploaded lazily per row
+  / per row stack to ``self.device``, invalidated by a generation counter.
+  Query math (set algebra, popcounts) runs on the device over these blocks.
+- **Row-count vector**: per-row popcounts maintained on the host; TopN
+  without a filter reads it directly (the reference's rankCache,
+  cache.go:136, made exact).
+
+BSI values, mutex/bool fields, roaring import/export, checksums and the
+WAL hook belong to later slices of the port (ROADMAP.md Queue 1).
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Iterable
+
+import numpy as np
+import torch
+
+from pilosa_tpu_torch.config import DEFAULT_CACHE_SIZE, SHARD_WIDTH, WORDS_PER_SHARD
+from pilosa_tpu_torch.core.hostrow import HostRow
+from pilosa_tpu_torch.core.row import Row
+from pilosa_tpu_torch.errors import QueryError
+from pilosa_tpu_torch.ops import bitops, kernels
+from pilosa_tpu_torch.pql import Call
+
+#: Row-group tiling: streaming count paths materialize at most this many
+#: rows on the device at once, so TopN over huge fields runs in O(tile)
+#: device memory instead of O(rows) — the reference's analog is
+#: per-container iteration (fragment.go:1570-1740).
+ROW_TILE = 512
+#: Row sets at or below this size use the cached whole-stack fast path
+#: (repeat queries hit device-resident blocks with zero re-upload).
+STACK_CACHE_MAX_ROWS = 1024
+#: With ``reuse=True``, up to this many streamed tiles stay device-resident
+#: so repeated sweeps over the same row set skip re-materialization; larger
+#: sets fall back to pure streaming.
+MAX_RESIDENT_TILES = 8
+
+
+class Fragment:
+    """One shard of one view of one field."""
+
+    def __init__(self, index: str, field: str, view: str, shard: int,
+                 device: torch.device, cache_type: str = "ranked",
+                 cache_size: int = DEFAULT_CACHE_SIZE, epoch=None):
+        self.index = index
+        self.field = field
+        self.view = view
+        self.shard = shard
+        #: where device rows and stacks live (carried down from the Holder).
+        self.device = device
+        self.cache_type = cache_type
+        self.cache_size = cache_size
+        #: index-level Epoch (core.index): bumped on every mutation so
+        #: index-wide caches (planner leaf stacks) validate in O(1).
+        self.epoch = epoch
+
+        self.rows: dict[int, HostRow] = {}
+        self.generation = 0
+        #: generation-stamped (gen, ids, counts) — see row_counts().
+        self._count_cache: tuple | None = None
+        #: generation-stamped (gen, ids, counts) sorted by count desc.
+        self._top_cache: tuple | None = None
+        #: generation-stamped concatenated sparse-row index.
+        self._sparse_cache: tuple | None = None
+        self._lock = threading.RLock()
+        # device caches: row_id -> (gen, Tensor[W]); key -> (gen, ids, Tensor[n, W])
+        self._dev_rows: dict[int, tuple[int, torch.Tensor]] = {}
+        self._dev_stacks: dict[object, tuple[int, tuple, torch.Tensor]] = {}
+
+    # -- position encoding -------------------------------------------------
+
+    def _local(self, column_id: int) -> int:
+        lo = self.shard * SHARD_WIDTH
+        if not (lo <= column_id < lo + SHARD_WIDTH):
+            raise ValueError(f"column:{column_id} out of bounds")
+        return column_id - lo
+
+    # -- mutation ----------------------------------------------------------
+
+    def _invalidate(self) -> None:
+        self.generation += 1
+        if self.epoch is not None:
+            self.epoch.bump()
+        # Stale device blocks would never be re-hit (generation mismatch)
+        # but would pin device memory; drop them eagerly.
+        self._dev_rows.clear()
+        self._dev_stacks.clear()
+
+    def set_bit(self, row_id: int, column_id: int) -> bool:
+        with self._lock:
+            pos = self._local(column_id)
+            hr = self.rows.get(row_id)
+            if hr is None:
+                hr = self.rows[row_id] = HostRow()
+            changed = hr.add(pos)
+            if changed:
+                self._invalidate()
+            return changed
+
+    def clear_bit(self, row_id: int, column_id: int) -> bool:
+        with self._lock:
+            pos = self._local(column_id)
+            hr = self.rows.get(row_id)
+            if hr is None:
+                return False
+            changed = hr.remove(pos)
+            if changed:
+                self._invalidate()
+            return changed
+
+    def bulk_import_sorted_local(self, row_ids: np.ndarray,
+                                 local: np.ndarray, clear: bool = False) -> int:
+        """Bulk set/clear of shard-relative positions PRE-SORTED by
+        (row, pos) — the core of the import path (reference
+        importPositions fragment.go:2053). Boundary-scans row groups,
+        dedupes each group's sorted positions with one diff pass, and
+        hands them to HostRow without any further sort."""
+        with self._lock:
+            n = len(row_ids)
+            if n == 0:
+                return 0
+            row_ids = np.asarray(row_ids, dtype=np.int64)
+            local = np.asarray(local, dtype=np.uint32)
+            cut = np.flatnonzero(row_ids[1:] != row_ids[:-1]) + 1
+            bounds = np.concatenate(([0], cut, [n]))
+            changed = 0
+            for i in range(len(bounds) - 1):
+                lo, hi = int(bounds[i]), int(bounds[i + 1])
+                rid = int(row_ids[lo])
+                seg = local[lo:hi]
+                if hi - lo > 1:  # drop duplicate positions (sorted input)
+                    keep = np.empty(hi - lo, dtype=bool)
+                    keep[0] = True
+                    np.not_equal(seg[1:], seg[:-1], out=keep[1:])
+                    if not keep.all():
+                        seg = seg[keep]
+                hr = self.rows.get(rid)
+                if hr is None:
+                    if clear:
+                        continue
+                    hr = self.rows[rid] = HostRow()
+                if clear:
+                    changed += hr.remove_many_sorted_unique(seg)
+                else:
+                    changed += hr.add_many_sorted_unique(seg)
+            if changed:
+                self._invalidate()
+            return changed
+
+    def set_row_words(self, row_id: int, words: np.ndarray) -> None:
+        """Replace one row with a dense uint32 word block (the data
+        hand-over of pilosa_tpu_torch.interop)."""
+        words = np.asarray(words, dtype=np.uint32)
+        if words.shape != (WORDS_PER_SHARD,):
+            raise ValueError(f"row words must have shape ({WORDS_PER_SHARD},), "
+                             f"got {words.shape}")
+        with self._lock:
+            self.rows[row_id] = HostRow.from_words(words)
+            self._invalidate()
+
+    # -- reads -------------------------------------------------------------
+
+    def row_ids(self) -> list[int]:
+        return sorted(self.rows)
+
+    def row_words(self, row_id: int) -> np.ndarray:
+        """Host dense uint32 block for one row (zeros if absent). Locked:
+        the materialization may flush pending adds (hostrow._flush)."""
+        with self._lock:
+            hr = self.rows.get(row_id)
+            if hr is None:
+                return bitops.np_zero_row()
+            return hr.to_words()
+
+    def device_row(self, row_id: int) -> torch.Tensor:
+        """Device block for one row, cached until next mutation."""
+        with self._lock:
+            ent = self._dev_rows.get(row_id)
+            if ent is not None and ent[0] == self.generation:
+                return ent[1]
+            arr = bitops.to_device_words(self.row_words(row_id), self.device)
+            self._dev_rows[row_id] = (self.generation, arr)
+            return arr
+
+    def device_stack(self, row_ids: tuple[int, ...], key: object = None) -> torch.Tensor:
+        """[len(row_ids), W] device block stack; cached by key until
+        mutation. This is the unit the count kernels consume."""
+        key = key if key is not None else row_ids
+        with self._lock:
+            ent = self._dev_stacks.get(key)
+            if ent is not None and ent[0] == self.generation and ent[1] == row_ids:
+                return ent[2]
+            mat = np.zeros((len(row_ids), WORDS_PER_SHARD), dtype=np.uint32)
+            for i, r in enumerate(row_ids):
+                mat[i] = self.row_words(r)
+            arr = bitops.to_device_words(mat, self.device)
+            self._dev_stacks[key] = (self.generation, row_ids, arr)
+            return arr
+
+    def row(self, row_id: int) -> Row:
+        """Row result for one bitmap row (reference fragment.row :602)."""
+        return Row({self.shard: self.device_row(row_id)})
+
+    def intersection_counts(self, row_ids, seg: torch.Tensor) -> np.ndarray:
+        """popcount(row & seg) for each row id — the exact-count engine
+        behind TopN. Resolves every device part in one transfer."""
+        out, parts = self.intersection_counts_async(row_ids, seg)
+        resolve_counts([(out, slots, dev) for slots, dev in parts])
+        return out
+
+    def intersection_counts_async(self, row_ids, seg: torch.Tensor,
+                                  reuse: bool = False,
+                                  seg_host: np.ndarray | None = None):
+        """Two-tier counts, matching the storage split: returns (counts,
+        parts) where ``counts`` already holds the host-tier (sparse)
+        results and ``parts`` is [(slot_indices, device_counts), ...] —
+        kernels launched but not synced, so a caller sweeping many
+        fragments resolves every part in one transfer.
+
+        SPARSE rows (position arrays) are counted on the host by
+        vectorized membership against one host copy of the filter — the
+        analog of roaring's array-container intersection (roaring.go:3121).
+        DENSE rows go to the device through ``pair_count``: small sets ride
+        the cached stack, large ones stream fixed [ROW_TILE, W] tiles with
+        zero pad rows (which count 0), so device memory is O(tile).
+
+        ``reuse=True`` keeps up to MAX_RESIDENT_TILES streamed tiles
+        device-resident (generation-checked). ``seg_host`` is the filter's
+        uint32 host copy when the caller already has one.
+
+        The lock spans the whole sweep, so the counts reflect one atomic
+        fragment state (the reference's fragment.top holds f.mu for its
+        whole walk, fragment.go:1570)."""
+        ids = [int(r) for r in row_ids]
+        if not ids:
+            return np.empty(0, dtype=np.int64), []
+        out = np.zeros(len(ids), dtype=np.int64)
+        parts: list[tuple[np.ndarray, torch.Tensor]] = []
+        ids_arr = np.asarray(ids, dtype=np.int64)
+        with self._lock:
+            s_ids, concat, starts, lens = self._sparse_index()
+            dense_ids: list[int] = []
+            dense_slots: list[int] = []
+            if len(s_ids):
+                at = np.searchsorted(s_ids, ids_arr)
+                at_c = np.minimum(at, len(s_ids) - 1)
+                is_sparse = s_ids[at_c] == ids_arr
+            else:
+                at_c = np.zeros(len(ids_arr), dtype=np.int64)
+                is_sparse = np.zeros(len(ids_arr), dtype=bool)
+            for i in np.flatnonzero(~is_sparse).tolist():
+                hr = self.rows.get(ids[i])
+                if hr is not None and hr.is_dense:
+                    dense_ids.append(ids[i])
+                    dense_slots.append(i)
+                # else: absent/empty row, count stays 0
+
+            sparse_slots = np.flatnonzero(is_sparse)
+            if len(sparse_slots):
+                if seg_host is None:
+                    seg_host = bitops.to_host_words(seg)
+                sel = at_c[sparse_slots]
+                if len(sel) == len(s_ids) and np.array_equal(
+                        sel, np.arange(len(s_ids))):
+                    pos = concat            # whole-index sweep: no gather
+                    offsets = starts
+                else:
+                    l_sel = lens[sel]
+                    s_sel = starts[sel]
+                    total = int(l_sel.sum())
+                    # Ragged gather without a per-row loop: ones with
+                    # jumps at group heads, cumsum = flat indices.
+                    step = np.ones(total, dtype=np.int64)
+                    head = np.zeros(len(l_sel), dtype=np.int64)
+                    np.cumsum(l_sel[:-1], out=head[1:])
+                    step[head[0]] = s_sel[0]
+                    if len(l_sel) > 1:
+                        step[head[1:]] = (s_sel[1:] - s_sel[:-1]
+                                          - l_sel[:-1] + 1)
+                    pos = concat[np.cumsum(step)]
+                    offsets = head
+                word = (pos >> np.uint64(5)).astype(np.int64)
+                bit = np.left_shift(
+                    np.uint32(1), (pos & np.uint64(31)).astype(np.uint32))
+                hits = ((seg_host[word] & bit) != 0).astype(np.int64)
+                # All lens > 0, so every reduceat offset is < len(hits).
+                out[sparse_slots] = np.add.reduceat(hits, offsets)
+
+            if dense_ids:
+                if len(dense_ids) <= STACK_CACHE_MAX_ROWS:
+                    stack = self.device_stack(tuple(dense_ids))
+                    parts.append((np.asarray(dense_slots, dtype=np.int64),
+                                  kernels.pair_count(stack, seg, "and")))
+                else:
+                    n_tiles = (len(dense_ids) + ROW_TILE - 1) // ROW_TILE
+                    cache_tiles = reuse and n_tiles <= MAX_RESIDENT_TILES
+                    # Fixed tile shape (zero-padded tail). Tile keys are
+                    # positional ("ic_tile", lo), NOT id-set-keyed, so a
+                    # fragment never pins more than MAX_RESIDENT_TILES
+                    # tiles: a different id set replaces them
+                    # (device_stack verifies stored ids).
+                    dense_slots_a = np.asarray(dense_slots, dtype=np.int64)
+                    for lo in range(0, len(dense_ids), ROW_TILE):
+                        chunk = dense_ids[lo:lo + ROW_TILE]
+                        if cache_tiles:
+                            arr = self.device_stack(tuple(chunk),
+                                                    key=("ic_tile", lo))
+                        else:
+                            # A fresh tile per launch: the kernel runs
+                            # asynchronously, so a reused host buffer
+                            # could change under a pending copy.
+                            mat = np.zeros((ROW_TILE, WORDS_PER_SHARD),
+                                           dtype=np.uint32)
+                            for i, r in enumerate(chunk):
+                                mat[i] = self.row_words(r)
+                            arr = bitops.to_device_words(mat, self.device)
+                        parts.append(
+                            (dense_slots_a[lo:lo + len(chunk)],
+                             kernels.pair_count(arr, seg, "and")))
+        return out, parts
+
+    def _sparse_index(self):
+        """(row_ids, concat_positions, starts, lens) over every non-empty
+        SPARSE row, cached per generation — one build per mutation, then
+        every TopN sweep is pure vectorized numpy. Caller must hold the
+        fragment lock."""
+        if self._sparse_cache is not None and \
+                self._sparse_cache[0] == self.generation:
+            return self._sparse_cache[1:]
+        ids: list[int] = []
+        bufs: list[np.ndarray] = []
+        for rid in sorted(self.rows):
+            hr = self.rows[rid]
+            if hr.is_dense or hr.n == 0:
+                continue
+            hr._flush()
+            ids.append(rid)
+            bufs.append(hr.positions)  # no copy: generation guards reuse
+        ids_a = np.asarray(ids, dtype=np.int64)
+        lens = np.fromiter((len(b) for b in bufs), dtype=np.int64,
+                           count=len(bufs))
+        concat = (np.concatenate(bufs) if bufs
+                  else np.empty(0, dtype=np.uint64))
+        starts = np.zeros(len(lens), dtype=np.int64)
+        if len(lens) > 1:
+            np.cumsum(lens[:-1], out=starts[1:])
+        self._sparse_cache = (self.generation, ids_a, concat, starts, lens)
+        return ids_a, concat, starts, lens
+
+    def row_counts(self) -> tuple[np.ndarray, np.ndarray]:
+        """(row_ids, counts), cached per generation — the exact
+        replacement for the reference's rankCache (cache.go:136)."""
+        with self._lock:
+            if self._count_cache is not None and \
+                    self._count_cache[0] == self.generation:
+                return self._count_cache[1], self._count_cache[2]
+            ids = np.asarray(sorted(self.rows), dtype=np.uint64)
+            counts = np.asarray([self.rows[int(i)].count() for i in ids],
+                                dtype=np.int64)
+            self._count_cache = (self.generation, ids, counts)
+            return ids, counts
+
+    def top_counts(self) -> tuple[np.ndarray, np.ndarray]:
+        """(ids, counts) sorted by count desc then id asc, cached per
+        generation."""
+        with self._lock:
+            if self._top_cache is not None and \
+                    self._top_cache[0] == self.generation:
+                return self._top_cache[1], self._top_cache[2]
+            ids, counts = self.row_counts()
+            order = np.lexsort((ids, -counts))
+            ids, counts = ids[order], counts[order]
+            self._top_cache = (self.generation, ids, counts)
+            return ids, counts
+
+    def _filter_seg(self, filter_row: Row) -> torch.Tensor:
+        seg = filter_row.segment(self.shard)
+        if seg is None:
+            return torch.zeros(WORDS_PER_SHARD, dtype=torch.int32,
+                               device=self.device)
+        if isinstance(seg, torch.Tensor):
+            return seg
+        return bitops.to_device_words(seg, self.device)
+
+    # -- TopN --------------------------------------------------------------
+
+    def top(self, n: int = 0, src: Row | None = None,
+            row_ids: Iterable[int] | None = None) -> list[tuple[int, int]]:
+        """Top rows by count, optionally filtered to rows intersecting src
+        or an explicit row-id set. Exact (device intersection counts), not
+        cache-approximate like the reference (fragment.go:1570).
+        Returns [(row_id, count)] sorted by count desc, id asc."""
+        presorted = False
+        if row_ids is not None:
+            ids = np.asarray(sorted(set(int(r) for r in row_ids)), dtype=np.uint64)
+            if len(ids) == 0:
+                return []
+            if src is not None:
+                counts = self.intersection_counts(ids, self._filter_seg(src))
+            else:
+                counts = np.asarray(
+                    [self.rows[int(i)].count() if int(i) in self.rows else 0
+                     for i in ids], dtype=np.int64)
+        else:
+            if src is not None:
+                ids = np.asarray(sorted(self.rows), dtype=np.uint64)
+                if len(ids) == 0:
+                    return []
+                counts = self.intersection_counts(ids, self._filter_seg(src))
+            else:
+                ids, counts = self.top_counts()  # cached sorted order
+                if len(ids) == 0:
+                    return []
+                presorted = True
+        if presorted:
+            keep = counts > 0
+            ids, counts = ids[keep], counts[keep]
+            limit = n if n > 0 else len(ids)
+            return [(int(r), int(cnt))
+                    for r, cnt in zip(ids[:limit].tolist(),
+                                      counts[:limit].tolist())]
+        order = np.lexsort((ids, -counts))
+        pairs = [(int(ids[i]), int(counts[i])) for i in order if counts[i] > 0]
+        if n > 0:
+            pairs = pairs[:n]
+        return pairs
+
+    # -- stats -------------------------------------------------------------
+
+    def bit_count(self) -> int:
+        return sum(hr.count() for hr in self.rows.values())
+
+    def __repr__(self):
+        return (f"Fragment({self.index}/{self.field}/{self.view}/{self.shard} "
+                f"rows={len(self.rows)} bits={self.bit_count()})")
+
+
+def resolve_counts(parts: list[tuple[np.ndarray, np.ndarray, torch.Tensor]]) -> None:
+    """For each (counts, slots, device_counts) of ``parts`` — the device
+    halves of any number of intersection_counts_async calls — write
+    ``counts[slots] = device_counts[:len(slots)]``, with ONE device->host
+    copy for all of them (the count tensors are concatenated on the device
+    first)."""
+    if not parts:
+        return
+    host = torch.cat([dev.reshape(-1) for _, _, dev in parts]).cpu().numpy()
+    at = 0
+    for counts, slots, dev in parts:
+        counts[slots] = host[at:at + len(slots)]
+        at += dev.numel()
+
+
+def row_id_arg(c: Call, field_name: str) -> int:
+    """The row id of ``Row(field=...)``/``Set``/``Clear``; ``true``/``false``
+    is sugar for rows 1/0 (reference executeRowShard, executor.go:1441)."""
+    val = c.args.get(field_name)
+    if isinstance(val, bool):
+        return 1 if val else 0
+    row_id, ok = c.uint_arg(field_name)
+    if not ok:
+        raise QueryError(f"{c.name}() must specify row")
+    return row_id

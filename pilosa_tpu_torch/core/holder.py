@@ -1,0 +1,64 @@
+"""Holder — the root registry of all indexes on a node, and the owner of
+the device every index, field, fragment and planner under it uses.
+
+The port's counterpart of pilosa_tpu/core/holder.py. Reference: holder.go
+(struct :50, fragment accessor :496).
+"""
+
+from __future__ import annotations
+
+import threading
+
+import torch
+
+from pilosa_tpu_torch.core.field import Field
+from pilosa_tpu_torch.core.fragment import Fragment
+from pilosa_tpu_torch.core.index import Index, IndexOptions
+from pilosa_tpu_torch.device import resolve_device
+from pilosa_tpu_torch.errors import IndexExistsError, IndexNotFoundError
+
+
+class Holder:
+    """Reference Holder (holder.go:50). ``device`` defaults to ``cuda`` and
+    raises when there is no card; pass ``device="cpu"`` for the CPU."""
+
+    def __init__(self, device: str | torch.device | None = None):
+        self.device = resolve_device(device)
+        self.indexes: dict[str, Index] = {}
+        self._lock = threading.RLock()
+
+    def index(self, name: str) -> Index | None:
+        return self.indexes.get(name)
+
+    def create_index(self, name: str, options: IndexOptions | None = None) -> Index:
+        with self._lock:
+            if name in self.indexes:
+                raise IndexExistsError()
+            idx = Index(name, self.device, options)
+            self.indexes[name] = idx
+            return idx
+
+    def create_index_if_not_exists(self, name: str,
+                                   options: IndexOptions | None = None) -> Index:
+        with self._lock:
+            return self.indexes.get(name) or self.create_index(name, options)
+
+    def delete_index(self, name: str) -> None:
+        with self._lock:
+            if name not in self.indexes:
+                raise IndexNotFoundError()
+            del self.indexes[name]
+
+    def field(self, index: str, field: str) -> Field | None:
+        idx = self.index(index)
+        return idx.field(field) if idx else None
+
+    def fragment(self, index: str, field: str, view: str, shard: int) -> Fragment | None:
+        f = self.field(index, field)
+        if f is None:
+            return None
+        v = f.view(view)
+        return v.fragment(shard) if v else None
+
+    def __repr__(self):
+        return f"Holder(device={self.device}, indexes={sorted(self.indexes)})"

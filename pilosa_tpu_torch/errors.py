@@ -1,0 +1,80 @@
+"""Error types + name validation: the subset of pilosa_tpu/errors.py that
+the set-field slice raises, plus ``NotPortedError`` for the parts of the
+JAX package that later slices of the port bring over.
+
+Reference: pilosa.go (public Err* values :40-117, nameRegexp :119,
+validateName :155).
+"""
+
+from __future__ import annotations
+
+import re
+
+
+class PilosaError(Exception):
+    """Base class; .message matches the reference's error strings so HTTP
+    responses can be byte-compatible."""
+
+    message = "pilosa error"
+
+    def __init__(self, message: str | None = None):
+        super().__init__(message or self.message)
+
+
+class IndexNotFoundError(PilosaError):
+    message = "index not found"
+
+
+class IndexExistsError(PilosaError):
+    message = "index already exists"
+
+
+class FieldNotFoundError(PilosaError):
+    message = "field not found"
+
+
+class FieldExistsError(PilosaError):
+    message = "field already exists"
+
+
+class InvalidCacheTypeError(PilosaError):
+    message = "invalid cache type"
+
+
+class InvalidFieldTypeError(PilosaError):
+    message = "invalid field type"
+
+
+class NameError_(PilosaError):
+    message = "invalid name"
+
+
+class QueryError(PilosaError):
+    message = "invalid query"
+
+
+#: The later slices of the port, by their heading in ROADMAP.md Queue 1.
+SLICE_EXECUTOR = "executor remainder"
+SLICE_BSI = "BSI, packed residency, time, GroupBy"
+SLICE_KEYS = "keys and sketches"
+
+
+class NotPortedError(PilosaError):
+    """A feature of the JAX package that this slice of the port does not
+    carry yet. The message names the ROADMAP.md slice that brings it."""
+
+    message = "not ported"
+
+    def __init__(self, what: str, slice_name: str):
+        super().__init__(f"{what} is not ported to pilosa_tpu_torch yet "
+                         f"(ROADMAP.md Queue 1: {slice_name})")
+
+
+# Reference: pilosa.go:119 — lowercase start, [a-z0-9_-], max 64 chars.
+_NAME_RE = re.compile(r"^[a-z][a-z0-9_-]{0,63}$")
+
+
+def validate_name(name: str) -> None:
+    """Reference validateName (pilosa.go:155)."""
+    if not _NAME_RE.match(name):
+        raise NameError_(f"invalid index or field name: {name!r}")

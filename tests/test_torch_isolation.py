@@ -1,0 +1,66 @@
+"""pilosa_tpu_torch stands alone: it imports neither JAX nor the JAX
+package, and its entry points run on the card unless asked for the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import pilosa_tpu_torch
+from pilosa_tpu_torch.core import Holder
+from pilosa_tpu_torch.device import resolve_device
+
+PKG = Path(pilosa_tpu_torch.__file__).resolve().parent
+ROOT = PKG.parent
+FORBIDDEN = ("jax", "jaxlib", "pilosa_tpu")
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_imports(path):
+    assert not (_imported_roots(path) & set(FORBIDDEN))
+
+
+def test_import_pulls_in_no_jax():
+    """Importing every module of the package, in a fresh interpreter,
+    loads no JAX module."""
+    code = (
+        "import pkgutil, sys, pilosa_tpu_torch\n"
+        "for m in pkgutil.walk_packages(pilosa_tpu_torch.__path__, 'pilosa_tpu_torch.'):\n"
+        "    __import__(m.name)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'pilosa_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_default_device_without_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Holder()
+    with pytest.raises(RuntimeError):
+        Holder(device="cuda")
+    assert Holder(device="cpu").device == torch.device("cpu")
+
+
+def test_unsupported_device_refused():
+    with pytest.raises(ValueError):
+        resolve_device("meta")
