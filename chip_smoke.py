@@ -3,18 +3,23 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA count kernels from ``pilosa_tpu_torch/csrc`` into
-``build/kernels/``, checks each kernel against its plain PyTorch version
-on the card (exact), then drives the port's main path through its public
-entry points, ``Holder(device="cuda")`` -> ``Executor(planner=Planner)``:
+Builds the CUDA kernels from ``pilosa_tpu_torch/csrc`` into
+``build/kernels/`` (one nvcc per source, all at once), checks each kernel
+against its plain PyTorch version on the card (exact), then drives the
+port's paths through its public entry points, ``Holder(device="cuda")`` ->
+``Executor(planner=Planner)``:
 
-- ``Count`` over a set field of 954 shards (1,000,341,504 columns) with two
-  rows at 5% density, imported from seeded random positions;
-- filtered ``TopN`` over a 10M-column field of 1,536 dense rows, which
-  streams through three 512-row tiles per shard.
+- main path: ``Count`` over a set field of 954 shards (1,000,341,504
+  columns) with two rows at 5% density, imported from seeded random
+  positions; filtered ``TopN`` over a 10M-column field of 1,536 dense rows,
+  which streams through three 512-row tiles per shard;
+- BSI path: bench.py's config 3 at the same 1B columns: an int field in
+  [-100000, 100000) on 2% of the columns and a filter row of 5M bits,
+  asked ``Sum``/``Min``/``Max`` (with and without filters, one of them a
+  BSI condition) and ``Count`` of range conditions.
 
-Every answer is held against a numpy oracle, and the kernels' launch
-counters must rise while the main path runs. The script prints the
+Every answer is held against a numpy oracle, and each path's kernel launch
+counters are zeroed before it and must show its kernels launched. The script prints the
 toolchain, per-kernel times beside their bounds, the query latencies, the
 card's name and power limit, a ``{"kernels": [...]}`` JSON line, and as its
 last line ``{"ok": true, "device": {...}}``. It exits non-zero, without
@@ -57,6 +62,28 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 #: per word: one bitwise op, one popcount, one add.
 OPS_PER_WORD = 3
+
+#: bench.py's config 3 (bench.py:870-949) at the Count path's column space:
+#: 2M values over 100M columns and a 500K-bit filter there, scaled x10.
+BSI_SHARDS = COUNT_SHARDS
+BSI_DENSITY = 0.02
+BSI_MIN, BSI_MAX = -100000, 100000
+BSI_FILTER_BITS = 5_000_000
+#: shards whose values also go through Field.import_values as a check.
+BSI_IMPORT_SHARDS = 8
+#: import every value through Field.import_values when 8 shards' import
+#: projects under this many seconds for the whole field.
+BSI_FULL_IMPORT_S = 60.0
+BSI_QUERIES = {
+    "sum": "Sum(field=v)",
+    "min": "Min(field=v)",
+    "max": "Max(field=v)",
+    "sum_filtered": "Sum(Row(f=1), field=v)",
+    "count_gt": "Count(Row(v > 50000))",
+    "count_between": "Count(Row(-1000 <= v <= 1000))",
+    "max_of_negatives": "Max(Row(v < 0), field=v)",
+}
+BSI_PROFILED = ("sum_filtered", "count_gt")
 
 COUNT_QUERIES = {
     "count_intersect": "Count(Intersect(Row(f=1), Row(g=2)))",
@@ -168,7 +195,7 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
     def t(words):
         return torch.from_numpy(np.ascontiguousarray(words).view(np.int32)).to(dev)
 
-    errs = {"pair_count": 0, "row_counts": 0}
+    errs = {"pair_count": 0, "row_counts": 0, "bsi_compare": 0, "bsi_minmax": 0}
 
     def check_pair(a, b, op, what):
         got = kernels.pair_count(a, b, op)
@@ -181,6 +208,27 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
         errs["pair_count"] = max(errs["pair_count"], err)
         if err:
             raise AssertionError(f"pair_count {what} op={op}: max |err| {err}")
+
+    def check_compare(bits, filt, lo, hi, depth, op, allow_eq, what):
+        got = kernels.bsi_compare(bits, filt, lo, hi, depth, op, allow_eq)
+        want = kernels.bsi_compare_plain(bits, filt, lo, hi, depth, op, allow_eq)
+        torch.cuda.synchronize()
+        # Words are bit patterns: count the differing bits.
+        err = int(kernels.row_counts_plain(got ^ want).long().sum())
+        errs["bsi_compare"] = max(errs["bsi_compare"], err)
+        if got.shape != want.shape or err:
+            raise AssertionError(f"bsi_compare {what} {op} allow_eq={allow_eq} "
+                                 f"pred=({lo}, {hi}): {err} bits differ")
+
+    def check_minmax(bits, filt, depth, is_max, what):
+        got = kernels.bsi_minmax(bits, filt, depth, is_max)
+        want = kernels.bsi_minmax_plain(bits, filt, depth, is_max)
+        torch.cuda.synchronize()
+        err = max(int((g.long() - v.long()).abs().max()) if g.numel() else 0
+                  for g, v in zip(got, want))
+        errs["bsi_minmax"] = max(errs["bsi_minmax"], err)
+        if any(g.shape != v.shape for g, v in zip(got, want)) or err:
+            raise AssertionError(f"bsi_minmax {what} is_max={is_max}: max |err| {err}")
 
     def check_rows(a, what):
         got = kernels.row_counts(a)
@@ -195,10 +243,10 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
     big_a, big_b = t(seeded_words(rng, (1024, w))), t(seeded_words(rng, (1024, w)))
     stack = t(seeded_words(rng, (512, w)))
     filt_stack = t(seeded_words(rng, (16, w)))
-    filt = filt_stack[3]  # a filter row sliced out of a stack, as TopN's
     for op in ("and", "or", "xor", "andnot"):
         check_pair(big_a, big_b, op, "[1024, 32768] x [1024, 32768]")
-        check_pair(stack, filt, op, "[512, 32768] x [32768]")
+        # a filter row sliced out of a stack, as TopN's
+        check_pair(stack, filt_stack[3], op, "[512, 32768] x [32768]")
     check_rows(big_a, "[1024, 32768]")
     # Ragged shapes: a word count that is not a multiple of 4 (scalar
     # loop), rows starting off 16-byte alignment, a single row with a
@@ -220,13 +268,61 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
         check_pair(off_a[:, 1:], off_b[2, 1:], op, "unaligned broadcast")
     check_rows(off_a[:, 1:], "unaligned [5, 4100]")
     check_rows(t(seeded_words(rng, (70003,))), "[70003]")
-    log(f"kernel checks: exact on all four ops; max |err| {errs}")
 
-    # Times at the shapes of the main path: the 2-leaf and bare-leaf Count
-    # over 954 shards padded to 1024, and a TopN tile against its filter.
-    # "ms" is the wrapper's device time per call (the kernel and its
-    # zero-filled output), median of KERNEL_RUNS.
+    # pair_count on BSI Sum's shape: the [17, 1024, W] cube against one
+    # [1024, W] class row per shard (the repeat kernel), either side, and
+    # suffix broadcasts that take the general kernel (ragged W, unaligned).
+    cube = t(seeded_words(rng, (17, 1024, w)))
+    cls = big_a
+    for op in ("and", "andnot"):
+        check_pair(cube, cls, op, "[17, 1024, 32768] x [1024, 32768]")
+        check_pair(cls, cube, op, "[1024, 32768] x [17, 1024, 32768]")
+    small_cube, small_rows = t(seeded_words(rng, (3, 5, 6243))), t(seeded_words(rng, (5, 6243)))
+    check_pair(small_cube, small_rows, "xor", "[3, 5, 6243] x [5, 6243]")
+    check_pair(t(seeded_words(rng, (2, 3, 4100))), off_a[:3, 1:], "or",
+               "[2, 3, 4100] x unaligned [3, 4100]")
+    check_pair(t(seeded_words(rng, (4, 3, 8200))), t(seeded_words(rng, (3, 8200))),
+               "and", "[4, 3, 8200] x [3, 8200]")
+
+    # bsi_compare and bsi_minmax against their plain versions: every op
+    # and allow_eq at depth 17 on the 1B-column cube, depth 40 (predicate
+    # bits in both halves) on a 64-shard cube, a ragged word count (scalar
+    # path), and the descent with empty (pad) rows and a non-register row.
+    filt = big_b
+    top17 = (1 << 17) - 1
+    for upred in (0, 1, 50000, top17):
+        lo, hi = upred & 0xFFFFFFFF, upred >> 32
+        for op in ("lt", "gt", "eq"):
+            for allow_eq in (False, True):
+                check_compare(cube, filt, lo, hi, 17, op, allow_eq, "[17, 1024, 32768]")
+    cube40 = t(seeded_words(rng, (40, 64, w)))
+    for upred in (0, (1 << 31) | 3, (1 << 33) + 5, (1 << 40) - 1):
+        lo, hi = upred & 0xFFFFFFFF, upred >> 32
+        for op in ("lt", "gt", "eq"):
+            check_compare(cube40, cube40[0], lo, hi, 40, op, op != "eq", "[40, 64, 32768]")
+    check_compare(small_cube, small_rows, 5, 0, 3, "lt", True, "[3, 5, 6243]")
+    check_compare(cube, filt, 7, 0, 0, "gt", True, "depth 0")
+    mm_filt = filt.clone()
+    mm_filt[1000:] = 0  # pad rows: an empty candidate set
+    mm_filt[999] = 0
+    mm_filt[999, 5] = -2**31  # one column, bit 31
+    for is_max in (False, True):
+        check_minmax(cube, mm_filt, 17, is_max, "[17, 1024, 32768]")
+        check_minmax(cube40, cube40[1], 40, is_max, "[40, 64, 32768]")
+        check_minmax(small_cube, small_rows, 3, is_max, "[3, 5, 6243] (scratch)")
+        check_minmax(t(seeded_words(rng, (2, 3, 40000))), t(seeded_words(rng, (3, 40000))),
+                     2, is_max, "[2, 3, 40000] (scratch)")
+        check_minmax(cube, mm_filt, 0, is_max, "depth 0")
+    log(f"kernel checks: exact on every op and shape; max |err| {errs}")
+
+    # Times at the shapes of the paths: the 2-leaf and bare-leaf Count
+    # over 954 shards padded to 1024, a TopN tile against its filter, and
+    # the BSI path's depth-17 cube against its filter or class row. "ms" is
+    # the wrapper's device time per call (the kernel and its output
+    # allocation), median of KERNEL_RUNS.
     rows = 1024
+    plane = rows * w * 4
+    bsi_pred = 50000
     cases = [
         ("pair_count", "[1024, 32768] x [1024, 32768]",
          lambda: kernels.pair_count(big_a, big_b, "and"),
@@ -237,9 +333,23 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
          lambda: kernels.row_counts_plain(big_a),
          rows * w * 4 + rows * 4, 2 * rows * w),
         ("pair_count", "[512, 32768] x [32768]",
-         lambda: kernels.pair_count(stack, filt, "and"),
-         lambda: kernels.pair_count_plain(stack, filt, "and"),
+         lambda: kernels.pair_count(stack, filt_stack[3], "and"),
+         lambda: kernels.pair_count_plain(stack, filt_stack[3], "and"),
          512 * w * 4 + w * 4 + 512 * 4, OPS_PER_WORD * 512 * w),
+        ("pair_count", "[17, 1024, 32768] x [1024, 32768]",
+         lambda: kernels.pair_count(cube, cls, "and"),
+         lambda: kernels.pair_count_plain(cube, cls, "and"),
+         18 * plane + 17 * rows * 4, OPS_PER_WORD * 17 * rows * w),
+        # per word and plane: 2 ops for the predicate mask, 7 for lt/gt/eq
+        ("bsi_compare", "[17, 1024, 32768] x [1024, 32768]",
+         lambda: kernels.bsi_compare(cube, filt, bsi_pred, 0, 17, "gt", False),
+         lambda: kernels.bsi_compare_plain(cube, filt, bsi_pred, 0, 17, "gt", False),
+         19 * plane, 9 * 17 * rows * w),
+        # per word and plane: narrow, popcount, add
+        ("bsi_minmax", "[17, 1024, 32768] x [1024, 32768]",
+         lambda: kernels.bsi_minmax(cube, filt, 17, True),
+         lambda: kernels.bsi_minmax_plain(cube, filt, 17, True),
+         18 * plane + 3 * rows * 4, OPS_PER_WORD * 17 * rows * w),
     ]
     timings = {}
     for name, shape, fn, plain_fn, nbytes, ops in cases:
@@ -249,7 +359,8 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
         log(f"kernel {name} {shape}: {ms:.4f} ms, bound {bound:.4f} ms ({by}), "
             f"{bound / ms:.1%} of bound; plain {plain:.4f} ms  [{card}]")
         timings.setdefault(name, (ms, plain, bound, by))
-    log("kernels: [\"pair_count\", \"row_counts\"]")
+    del cube, cube40
+    log(f"kernels: {json.dumps(sorted(errs))}")
     return {"timings": timings, "errs": errs}
 
 
@@ -333,13 +444,15 @@ def topn_oracle(data: dict, n: int) -> list[tuple[int, int]]:
     return ranked[:n]
 
 
-def p50_ms(fn, runs: int) -> tuple[float, list[float]]:
+def p50_ms(fn, runs: int) -> tuple[float, str]:
+    """(median ms, "p25 x, p75 y" spread) of ``runs`` host-clock calls."""
     times = []
     for _ in range(runs):
         t0 = time.perf_counter()
         fn()
         times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times), times
+    q1, _, q3 = statistics.quantiles(times, n=4)
+    return statistics.median(times), f"p25 {q1:.4f}, p75 {q3:.4f}"
 
 
 def device_busy_ms(torch, fn, runs: int) -> tuple[float, float]:
@@ -374,6 +487,8 @@ def phase_main_path(torch, card: str, device: str = "cuda",
     from pilosa_tpu_torch.ops import kernels
     from pilosa_tpu_torch.parallel import Planner
 
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
     h = Holder(device=device)
     n_cols, n_bits, import_s = build_count_index(h, count_shards, COUNT_DENSITY, SEED)
     log(f"count index: {count_shards} shards, {n_cols} columns, 2 rows x "
@@ -424,20 +539,20 @@ def phase_main_path(torch, card: str, device: str = "cuda",
     main_launches = dict(kernels.LAUNCHES)
     log(f"main path launches: {main_launches}")
     if device == "cuda":
-        for k, v in main_launches.items():
-            if v < 1:
+        for k in ("pair_count", "row_counts"):
+            if main_launches[k] < 1:
                 raise AssertionError(f"kernel {k} was not launched on the main path")
     log(f"first-run ms (stacks built and uploaded): "
         f"{json.dumps({k: round(v, 3) for k, v in first_ms.items()})}")
 
     lat = {}
     for name, q in COUNT_QUERIES.items():
-        lat[name], _ = p50_ms(lambda q=q: ex.execute("bench", q), runs)
-    lat["topn"], _ = p50_ms(lambda: ex.execute("topn", TOPN_QUERY), runs)
-    for name, ms in lat.items():
+        lat[name] = p50_ms(lambda q=q: ex.execute("bench", q), runs)
+    lat["topn"] = p50_ms(lambda: ex.execute("topn", TOPN_QUERY), runs)
+    for name, (ms, spread) in lat.items():
         q = COUNT_QUERIES.get(name, TOPN_QUERY)
-        log(f"p50 {q}: {ms:.4f} ms over {runs} runs, warm stacks, host clock "
-            f"to the answer on the host  [{card}]")
+        log(f"p50 {q}: {ms:.4f} ms ({spread}) over {runs} runs, warm stacks, "
+            f"host clock to the answer on the host  [{card}]")
     if device == "cuda":
         log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
         for index, q in (("bench", COUNT_QUERIES["count_intersect"]), ("topn", TOPN_QUERY)):
@@ -447,6 +562,174 @@ def phase_main_path(torch, card: str, device: str = "cuda",
             log(f"profile {q}: device {busy:.4f} ms of {wall:.4f} ms wall per query "
                 f"({share}), torch.profiler over {PROFILE_RUNS} runs  [{card}]")
     return {"launches": main_launches}
+
+
+# -- phase 4: the BSI path at full size --------------------------------------
+
+
+def bsi_data(n_shards: int, seed: int):
+    """bench.py's config 3 at ``n_shards`` shards: sorted distinct columns
+    on BSI_DENSITY of the column space with values uniform in [BSI_MIN,
+    BSI_MAX), and BSI_FILTER_BITS (scaled to the shards) random filter
+    positions."""
+    from pilosa_tpu_torch.config import SHARD_WIDTH
+
+    n_cols = n_shards * SHARD_WIDTH
+    k = int(n_cols * BSI_DENSITY)
+    rng = np.random.default_rng(seed)
+    # distinct columns without a 1B-entry permutation: oversample, dedupe,
+    # keep k of them at random
+    u = np.unique(rng.integers(0, n_cols, int(k * 1.05) + 16, dtype=np.int64))
+    cols = np.sort(u[rng.permutation(len(u))[:k]])
+    vals = rng.integers(BSI_MIN, BSI_MAX, k, dtype=np.int64)
+    n_filt = max(1, BSI_FILTER_BITS * n_shards // COUNT_SHARDS)
+    fpos = rng.integers(0, n_cols, n_filt, dtype=np.int64)
+    return n_cols, cols, vals, fpos
+
+
+def bsi_planes(cols: np.ndarray, vals: np.ndarray, n_shards: int, depth: int):
+    """[2 + depth, n_shards, W] uint32 planes (exists, sign, magnitude
+    bits) of distinct columns, built with one bincount per plane: the bits
+    of a word are distinct, so their sum is their OR."""
+    from pilosa_tpu_torch.config import WORDS_PER_SHARD
+
+    gword = cols >> 5  # column // 32 is (shard, word) in row-major order
+    bit = np.left_shift(np.uint64(1), (cols & 31).astype(np.uint64)).astype(np.float64)
+    mag = np.abs(vals)
+    masks = [None, vals < 0] + [((mag >> i) & 1) == 1 for i in range(depth)]
+    out = np.empty((2 + depth, n_shards, WORDS_PER_SHARD), dtype=np.uint32)
+    for j, m in enumerate(masks):
+        w = np.bincount(gword if m is None else gword[m],
+                        weights=bit if m is None else bit[m],
+                        minlength=n_shards * WORDS_PER_SHARD)
+        out[j] = w.astype(np.uint32).reshape(n_shards, WORDS_PER_SHARD)
+    return out
+
+
+def extreme_oracle(shards: np.ndarray, vals: np.ndarray, is_min: bool):
+    """The executor's Min/Max over values grouped by (ascending) shard:
+    each shard's extreme and how many of its values equal it; the global
+    extreme takes the count of the FIRST shard holding it (counts do not
+    add across shards, reference ValCount.smaller/larger)."""
+    if len(vals) == 0:
+        return {"value": 0, "count": 0}
+    starts = np.flatnonzero(np.r_[True, shards[1:] != shards[:-1]])
+    ext = (np.minimum if is_min else np.maximum).reduceat(vals, starts)
+    per_val = np.repeat(ext, np.diff(np.r_[starts, len(vals)]))
+    counts = np.add.reduceat((vals == per_val).astype(np.int64), starts)
+    best = ext.min() if is_min else ext.max()
+    first = int(np.flatnonzero(ext == best)[0])
+    return {"value": int(best), "count": int(counts[first])}
+
+
+def phase_bsi(torch, card: str, device: str = "cuda", n_shards: int = BSI_SHARDS,
+              runs: int = QUERY_RUNS) -> dict:
+    from pilosa_tpu_torch import interop
+    from pilosa_tpu_torch.config import SHARD_WIDTH
+    from pilosa_tpu_torch.core import FieldOptions, Holder
+    from pilosa_tpu_torch.exec import Executor, result_to_json
+    from pilosa_tpu_torch.ops import kernels
+    from pilosa_tpu_torch.parallel import Planner
+
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    n_cols, cols, vals, fpos = bsi_data(n_shards, SEED + 2)
+    opts = FieldOptions(type="int", min=BSI_MIN, max=BSI_MAX)
+    h = Holder(device=device)
+    idx = h.create_index("bsi")
+    depth = idx.create_field("v", opts).bsi_group.bit_depth
+    planes = bsi_planes(cols, vals, n_shards, depth)
+    for shard in range(n_shards):
+        interop.load_bsi_planes(h, "bsi", "v", shard, planes[:, shard], opts)
+    idx.create_field("f").import_bits(np.ones(len(fpos), dtype=np.uint64),
+                                      fpos.astype(np.uint64))
+    log(f"bsi index: {n_shards} shards, {n_cols} columns, {len(vals)} values in "
+        f"[{BSI_MIN}, {BSI_MAX}) at depth {depth}, filter of {len(fpos)} positions; "
+        f"made and loaded through interop in {time.perf_counter() - t0:.3f} s (host)")
+
+    # Field.import_values writes the same planes: BSI_IMPORT_SHARDS shards,
+    # or every shard when that projects under BSI_FULL_IMPORT_S.
+    shard_of = cols >> SHARD_WIDTH.bit_length() - 1
+    vi = idx.create_field("vi", FieldOptions(type="int", min=BSI_MIN, max=BSI_MAX))
+    cut = int(np.searchsorted(shard_of, BSI_IMPORT_SHARDS))
+    t0 = time.perf_counter()
+    vi.import_values(cols[:cut], vals[:cut])
+    part_s = time.perf_counter() - t0
+    projected = part_s * n_shards / BSI_IMPORT_SHARDS
+    checked = min(BSI_IMPORT_SHARDS, n_shards)
+    if projected < BSI_FULL_IMPORT_S and n_shards > BSI_IMPORT_SHARDS:
+        t0 = time.perf_counter()
+        vi.import_values(cols[cut:], vals[cut:])
+        part_s += time.perf_counter() - t0
+        checked = n_shards
+    for shard in range(checked):
+        a = h.fragment("bsi", "v", "bsig_v", shard)
+        b = h.fragment("bsi", "vi", "bsig_vi", shard)
+        for r in range(2 + depth):
+            if not np.array_equal(a.row_words(r), b.row_words(r)):
+                raise AssertionError(f"import_values plane {r} of shard {shard} "
+                                     "differs from the interop planes")
+    scope = "all" if checked == n_shards else f"projected {projected:.3f} s for all"
+    log(f"Field.import_values: {checked} of {n_shards} shards ({scope}) "
+        f"in {part_s:.3f} s (host); planes equal to the interop planes")
+    del planes
+    idx.delete_field("vi")
+
+    shards = cols >> SHARD_WIDTH.bit_length() - 1
+    in_f = np.isin(cols, fpos)
+    neg = vals < 0
+    want = {
+        "sum": {"value": int(vals.sum()), "count": len(vals)},
+        "min": extreme_oracle(shards, vals, True),
+        "max": extreme_oracle(shards, vals, False),
+        "sum_filtered": {"value": int(vals[in_f].sum()), "count": int(in_f.sum())},
+        "count_gt": int((vals > 50000).sum()),
+        "count_between": int(((vals >= -1000) & (vals <= 1000)).sum()),
+        "max_of_negatives": extreme_oracle(shards[neg], vals[neg], False),
+    }
+    del cols, vals, fpos, shards, in_f, neg
+
+    ex = Executor(h, planner=Planner(h))
+    launches, first_ms = {}, {}
+    # The BSI path's run: counters at 0 just before, read just after.
+    kernels.reset_launches()
+    for name, q in BSI_QUERIES.items():
+        before = dict(kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        (got,) = ex.execute("bsi", q)
+        first_ms[name] = (time.perf_counter() - t0) * 1e3
+        launches[name] = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+        got = result_to_json(got)
+        if got != want[name]:
+            raise AssertionError(f"{q}: got {got}, numpy oracle {want[name]}")
+        log(f"{q} = {got} (numpy oracle equal), launches {launches[name]}")
+    path_launches = dict(kernels.LAUNCHES)
+    log(f"bsi path launches: {path_launches}")
+    if device == "cuda":
+        for k, v in path_launches.items():
+            if v < 1:
+                raise AssertionError(f"kernel {k} was not launched on the BSI path")
+        # Sum's per-plane counts are the only pair_count calls of a Sum:
+        # the cube against a class row, the broadcast shape.
+        if launches["sum"]["pair_count"] < 2:
+            raise AssertionError("Sum did not count its cube with pair_count")
+    log(f"bsi first-run ms (stacks and cube built and uploaded): "
+        f"{json.dumps({k: round(v, 3) for k, v in first_ms.items()})}")
+    for name, q in BSI_QUERIES.items():
+        ms, spread = p50_ms(lambda q=q: ex.execute("bsi", q), runs)
+        log(f"p50 {q}: {ms:.4f} ms ({spread}) over {runs} runs, warm stacks, "
+            f"host clock to the answer on the host  [{card}]")
+    if device == "cuda":
+        log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        for name in BSI_PROFILED:
+            q = BSI_QUERIES[name]
+            busy, wall = device_busy_ms(torch, lambda q=q: ex.execute("bsi", q),
+                                        PROFILE_RUNS)
+            share = f"{busy / wall:.1%} busy" if busy else "device time not measured"
+            log(f"profile {q}: device {busy:.4f} ms of {wall:.4f} ms wall per query "
+                f"({share}), torch.profiler over {PROFILE_RUNS} runs  [{card}]")
+    return {"launches": path_launches}
 
 
 # -- main ---------------------------------------------------------------------
@@ -466,7 +749,7 @@ def main() -> int:
     results: dict = {}
     failed: list[str] = []
     for name, phase in (("toolchain", phase_toolchain), ("kernels", phase_kernels),
-                        ("main_path", phase_main_path)):
+                        ("main_path", phase_main_path), ("bsi", phase_bsi)):
         log(f"== phase {name}")
         try:
             results[name] = phase(torch, card)
@@ -482,14 +765,22 @@ def main() -> int:
 
     timings = results["kernels"]["timings"]
     errs = results["kernels"]["errs"]
-    launches = results["main_path"]["launches"]
-    source = "pilosa_tpu_torch/csrc/count_kernels.cu"
+    launches = {k: results["main_path"]["launches"][k] + results["bsi"]["launches"][k]
+                for k in errs}
+    sources = {"pair_count": "pilosa_tpu_torch/csrc/count_kernels.cu",
+               "row_counts": "pilosa_tpu_torch/csrc/count_kernels.cu",
+               "bsi_compare": "pilosa_tpu_torch/csrc/bsi_kernels.cu",
+               "bsi_minmax": "pilosa_tpu_torch/csrc/bsi_kernels.cu"}
     replaces = {"pair_count": "pilosa_tpu/ops/pallas_kernels.py:104",
-                "row_counts": "pilosa_tpu/ops/pallas_kernels.py:124"}
+                "row_counts": "pilosa_tpu/ops/pallas_kernels.py:124",
+                "bsi_compare": "pilosa_tpu/ops/bsi.py:50-79 compare_unsigned + "
+                               "_compare_select (XLA-fused, no pallas_call)",
+                "bsi_minmax": "pilosa_tpu/ops/bsi.py:208-257 _min_unsigned / "
+                              "_max_unsigned (XLA-fused, no pallas_call)"}
     entries = []
-    for name in ("pair_count", "row_counts"):
+    for name in sources:
         ms, plain, bound, by = timings[name]
-        entries.append({"name": name, "route": "cuda", "source": source,
+        entries.append({"name": name, "route": "cuda", "source": sources[name],
                         "replaces": replaces[name], "launches": launches[name],
                         "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
                         "bound_ms": bound, "bound_by": by, "library_ms": None})

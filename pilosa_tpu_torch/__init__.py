@@ -1,11 +1,12 @@
 """pilosa_tpu_torch — the PyTorch/CUDA port of pilosa_tpu.
 
 A bitmap index whose rows live as dense 32-bit word blocks on an NVIDIA
-GPU, with set algebra in PyTorch and the two count kernels (per-row
-``popcount(op(a, b))`` and per-row popcount) written by hand in CUDA C++
-for Hopper (``csrc/count_kernels.cu``). It imports ``torch`` and never
-``jax`` or the ``pilosa_tpu`` package, which stays beside it as the
-reference.
+GPU, with set algebra in PyTorch and its kernels written by hand in CUDA
+C++ for Hopper: the two count kernels (per-row ``popcount(op(a, b))`` and
+per-row popcount, ``csrc/count_kernels.cu``) and the bit-sliced integer
+comparator and min/max descent (``csrc/bsi_kernels.cu``). It imports
+``torch`` and never ``jax`` or the ``pilosa_tpu`` package, which stays
+beside it as the reference.
 
 Entry point: ``Holder(device=...)`` -> ``Executor(holder,
 planner=Planner(holder)).execute(index, pql)``. The device defaults to
@@ -14,7 +15,7 @@ kernels' plain PyTorch versions on the CPU.
 
 Layering, as in pilosa_tpu:
 
-- :mod:`pilosa_tpu_torch.ops`      — bitmap math and the count kernels
+- :mod:`pilosa_tpu_torch.ops`      — bitmap math, BSI queries and the kernels
 - :mod:`pilosa_tpu_torch.core`     — fragment/row/view/field/index/holder
 - :mod:`pilosa_tpu_torch.pql`      — PQL parser
 - :mod:`pilosa_tpu_torch.exec`     — query executor

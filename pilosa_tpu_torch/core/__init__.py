@@ -1,5 +1,5 @@
 """Data model: Holder -> Index -> Field -> View -> Fragment, plus the Row
-result algebra (set-field subset of pilosa_tpu.core)."""
+result algebra (the set- and int-field subset of pilosa_tpu.core)."""
 
 from pilosa_tpu_torch.core.field import Field, FieldOptions
 from pilosa_tpu_torch.core.fragment import Fragment

@@ -1,8 +1,8 @@
-"""Fragment — one (field, view, shard) bitmap matrix, set-field subset.
+"""Fragment — one (field, view, shard) bitmap matrix: set rows and BSI values.
 
 The port's counterpart of pilosa_tpu/core/fragment.py. Reference:
 fragment.go (struct :100, setBit/clearBit :645/:729, row :602, top :1570,
-bulkImport :1997).
+bulkImport :1997, BSI values :897-1536, importValue :2205).
 
 Design split, as in the JAX package:
 - **Host truth**: ``rows[row_id] -> HostRow`` — sparse positions at rest,
@@ -14,8 +14,10 @@ Design split, as in the JAX package:
   without a filter reads it directly (the reference's rankCache,
   cache.go:136, made exact).
 
-BSI values, mutex/bool fields, roaring import/export, checksums and the
-WAL hook belong to later slices of the port (ROADMAP.md Queue 1).
+A BSI fragment keeps a bit-sliced integer per column in rows: exists, sign,
+then magnitude bits (``BSI_*`` below). Mutex/bool fields, roaring
+import/export, checksums and the WAL hook belong to later slices of the
+port (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -31,7 +33,13 @@ from pilosa_tpu_torch.core.hostrow import HostRow
 from pilosa_tpu_torch.core.row import Row
 from pilosa_tpu_torch.errors import QueryError
 from pilosa_tpu_torch.ops import bitops, kernels
+from pilosa_tpu_torch.ops import bsi as bsi_ops
 from pilosa_tpu_torch.pql import Call
+
+# BSI row layout, reference fragment.go:87-93.
+BSI_EXISTS_BIT = 0
+BSI_SIGN_BIT = 1
+BSI_OFFSET_BIT = 2
 
 #: Row-group tiling: streaming count paths materialize at most this many
 #: rows on the device at once, so TopN over huge fields runs in O(tile)
@@ -170,6 +178,10 @@ class Fragment:
             self._invalidate()
 
     # -- reads -------------------------------------------------------------
+
+    def contains(self, row_id: int, column_id: int) -> bool:
+        hr = self.rows.get(row_id)
+        return hr is not None and hr.contains(self._local(column_id))
 
     def row_ids(self) -> list[int]:
         return sorted(self.rows)
@@ -384,7 +396,12 @@ class Fragment:
             self._top_cache = (self.generation, ids, counts)
             return ids, counts
 
-    def _filter_seg(self, filter_row: Row) -> torch.Tensor:
+    def _filter_seg(self, filter_row: Row | None) -> torch.Tensor:
+        """The filter's block for this shard: all ones without a filter,
+        zeros where the filter has no segment here."""
+        if filter_row is None:
+            return torch.full((WORDS_PER_SHARD,), -1, dtype=torch.int32,
+                              device=self.device)
         seg = filter_row.segment(self.shard)
         if seg is None:
             return torch.zeros(WORDS_PER_SHARD, dtype=torch.int32,
@@ -392,6 +409,133 @@ class Fragment:
         if isinstance(seg, torch.Tensor):
             return seg
         return bitops.to_device_words(seg, self.device)
+
+    # -- BSI ---------------------------------------------------------------
+
+    def _bsi_stacks(self, bit_depth: int):
+        """(exists [W], sign [W], bits [depth, W]) device blocks."""
+        ids = tuple(range(BSI_OFFSET_BIT, BSI_OFFSET_BIT + bit_depth))
+        bits = self.device_stack(ids, key=("bsi", bit_depth))
+        return self.device_row(BSI_EXISTS_BIT), self.device_row(BSI_SIGN_BIT), bits
+
+    def set_value(self, column_id: int, bit_depth: int, value: int) -> bool:
+        """Sign-magnitude BSI write (reference setValueBase fragment.go:939)."""
+        with self._lock:
+            changed = self.set_bit(BSI_EXISTS_BIT, column_id)
+            if value < 0:
+                changed |= self.set_bit(BSI_SIGN_BIT, column_id)
+            else:
+                changed |= self.clear_bit(BSI_SIGN_BIT, column_id)
+            mag = abs(value)
+            for i in range(bit_depth):
+                if (mag >> i) & 1:
+                    changed |= self.set_bit(BSI_OFFSET_BIT + i, column_id)
+                else:
+                    changed |= self.clear_bit(BSI_OFFSET_BIT + i, column_id)
+            return changed
+
+    def value(self, column_id: int, bit_depth: int) -> tuple[int, bool]:
+        """(value, exists) — reference fragment.value (fragment.go:897)."""
+        with self._lock:
+            if not self.contains(BSI_EXISTS_BIT, column_id):
+                return 0, False
+            mag = 0
+            for i in range(bit_depth):
+                if self.contains(BSI_OFFSET_BIT + i, column_id):
+                    mag |= 1 << i
+            return (-mag if self.contains(BSI_SIGN_BIT, column_id) else mag), True
+
+    def import_values(self, column_ids, values, bit_depth: int,
+                      clear: bool = False) -> None:
+        """Batched BSI write (reference importValue fragment.go:2205),
+        vectorized by bit plane: the batch becomes ONE bulk clear + ONE bulk
+        set across the exists/sign/magnitude rows, fed through the
+        pre-sorted bulk path. Last write per column wins, like sequential
+        writes. (The JAX package's device transpose for large batches,
+        exec/ingest_transpose.py, writes the same planes; it is not
+        ported.)"""
+        cols = np.asarray(column_ids, dtype=np.int64)
+        if len(cols) == 0:
+            return
+        local_all = (cols & (SHARD_WIDTH - 1)).astype(np.uint32)
+        if clear:
+            o = np.argsort(local_all, kind="stable")
+            self.bulk_import_sorted_local(
+                np.full(len(cols), BSI_EXISTS_BIT, dtype=np.int64),
+                local_all[o], clear=True)
+            return
+        vals = np.asarray(values, dtype=np.int64)
+        # Keep the LAST occurrence of each duplicated column.
+        local_u, idx = np.unique(local_all[::-1], return_index=True)
+        vals_u = vals[::-1][idx]
+        neg = vals_u < 0
+        mag = np.abs(vals_u).astype(np.uint64)
+        set_rows, set_cols = [], []
+        clr_rows, clr_cols = [], []
+
+        def _add(bucket_r, bucket_c, row_id, mask):
+            n = int(mask.sum())
+            if n:
+                bucket_r.append(np.full(n, row_id, dtype=np.int64))
+                bucket_c.append(local_u[mask])
+
+        _add(set_rows, set_cols, BSI_EXISTS_BIT, np.ones(len(local_u), dtype=bool))
+        _add(set_rows, set_cols, BSI_SIGN_BIT, neg)
+        _add(clr_rows, clr_cols, BSI_SIGN_BIT, ~neg)
+        for i in range(bit_depth):
+            on = ((mag >> np.uint64(i)) & np.uint64(1)) == 1
+            _add(set_rows, set_cols, BSI_OFFSET_BIT + i, on)
+            _add(clr_rows, clr_cols, BSI_OFFSET_BIT + i, ~on)
+        with self._lock:  # one atomic overwrite, clears before sets
+            # Plane buckets are row-ascending with sorted positions inside
+            # each (local_u is sorted): already (row, pos)-sorted.
+            if clr_rows:
+                self.bulk_import_sorted_local(np.concatenate(clr_rows),
+                                              np.concatenate(clr_cols), clear=True)
+            if set_rows:
+                self.bulk_import_sorted_local(np.concatenate(set_rows),
+                                              np.concatenate(set_cols))
+
+    def sum(self, filter_row: Row | None, bit_depth: int) -> tuple[int, int]:
+        """(sum, count) — reference fragment.sum (fragment.go:1111)."""
+        exists, sign, bits = self._bsi_stacks(bit_depth)
+        return bsi_ops.host_sum(exists, sign, bits, self._filter_seg(filter_row),
+                                bit_depth)
+
+    def min(self, filter_row: Row | None, bit_depth: int) -> tuple[int, int]:
+        exists, sign, bits = self._bsi_stacks(bit_depth)
+        return bsi_ops.host_min(exists, sign, bits, self._filter_seg(filter_row),
+                                bit_depth)
+
+    def max(self, filter_row: Row | None, bit_depth: int) -> tuple[int, int]:
+        exists, sign, bits = self._bsi_stacks(bit_depth)
+        return bsi_ops.host_max(exists, sign, bits, self._filter_seg(filter_row),
+                                bit_depth)
+
+    def range_op(self, op: str, bit_depth: int, predicate: int) -> Row:
+        """op in {eq, neq, lt, lte, gt, gte} (reference rangeOp :1274)."""
+        exists, sign, bits = self._bsi_stacks(bit_depth)
+        if op == "eq":
+            seg = bsi_ops.range_eq(exists, sign, bits, predicate, bit_depth)
+        elif op == "neq":
+            seg = bsi_ops.range_neq(exists, sign, bits, predicate, bit_depth)
+        elif op in ("lt", "lte"):
+            seg = bsi_ops.range_lt(exists, sign, bits, predicate, bit_depth,
+                                   op == "lte")
+        elif op in ("gt", "gte"):
+            seg = bsi_ops.range_gt(exists, sign, bits, predicate, bit_depth,
+                                   op == "gte")
+        else:
+            raise ValueError(f"invalid range op {op!r}")
+        return Row({self.shard: seg})
+
+    def range_between(self, bit_depth: int, pmin: int, pmax: int) -> Row:
+        exists, sign, bits = self._bsi_stacks(bit_depth)
+        return Row({self.shard: bsi_ops.range_between(exists, sign, bits, pmin,
+                                                      pmax, bit_depth)})
+
+    def not_null(self) -> Row:
+        return self.row(BSI_EXISTS_BIT)
 
     # -- TopN --------------------------------------------------------------
 

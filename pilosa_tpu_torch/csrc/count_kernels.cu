@@ -29,9 +29,18 @@
 //    o_ref) becomes a loop over the chunk inside the block plus one
 //    atomicAdd per block into an output the wrapper zeroes. The chunk
 //    (8192 words) gives [1024, 32768] 4096 blocks: enough to fill the card.
-//  * Each operand has its own row stride. A [W] filter counted against an
-//    [M, W] stack has stride 0: the broadcast is never materialised, and
-//    the filter's 128 KiB stays in L2 while every row streams past it.
+//  * Each operand has its own row stride and row count: row r of the
+//    broadcast reads row r mod rows of an operand. A [W] filter counted
+//    against an [M, W] stack has one row: the broadcast is never
+//    materialised, and the filter's 128 KiB stays in L2 while every row
+//    streams past it.
+//  * An operand whose leading shape is a proper suffix of the other's (BSI
+//    Sum's [S, W] class row against the [depth, S, W] magnitude cube) is
+//    too large for L2 (128 MB at S = 1024), so re-reading it for every
+//    plane would move 2 x depth planes. The repeat kernel gives each block
+//    one (row, chunk) of the small operand, keeps that chunk in registers
+//    (8 x 16 bytes a thread), and loops over the planes inside the block:
+//    every word of both operands is read once, depth + 1 planes in all.
 //  * Warp-shuffle reduction, then one shared-memory step across the
 //    block's 8 warps: one atomic per block.
 //  * Rows whose start is not 16-byte aligned (or row strides that are not
@@ -64,17 +73,46 @@ __device__ __forceinline__ int popc4(const uint4& a, const uint4& b) {
          __popc(apply_op<OP>(a.z, b.z)) + __popc(apply_op<OP>(a.w, b.w));
 }
 
-// grid = (rows, chunks). out[row] += popcount(op(a[row, lo:hi], b[row, lo:hi])).
+// Sum of `acc` over the block, valid in thread 0. The trailing barrier
+// lets a block call it again (warp_sums is reused).
+__device__ __forceinline__ int block_sum(int acc, int* warp_sums) {
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_down_sync(0xffffffffu, acc, off);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) warp_sums[warp] = acc;
+  __syncthreads();
+  if (warp == 0) {
+    acc = lane < kThreads / 32 ? warp_sums[lane] : 0;
+    for (int off = 16; off > 0; off >>= 1)
+      acc += __shfl_down_sync(0xffffffffu, acc, off);
+  }
+  __syncthreads();
+  return acc;
+}
+
+__device__ __forceinline__ void store_count(int* out, int64_t row, int acc,
+                                            int accumulate) {
+  if (threadIdx.x != 0) return;
+  if (accumulate)
+    atomicAdd(out + row, acc);
+  else
+    out[row] = acc;
+}
+
+// grid = (rows, chunks). out[row] += popcount(op(a[row % a_rows, lo:hi],
+// b[row % b_rows, lo:hi])).
 template <int OP, bool VEC>
 __global__ void __launch_bounds__(kThreads)
 count_rows_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
                   int* __restrict__ out, int64_t words, int64_t a_stride,
-                  int64_t b_stride, int64_t chunk, int accumulate) {
+                  int64_t b_stride, int64_t a_rows, int64_t b_rows,
+                  int64_t chunk, int accumulate) {
   const int64_t row = blockIdx.x;
   const int64_t lo = static_cast<int64_t>(blockIdx.y) * chunk;
   const int64_t hi = lo + chunk < words ? lo + chunk : words;
-  const uint32_t* pa = a + row * a_stride;
-  const uint32_t* pb = (OP == OP_NONE) ? pa : b + row * b_stride;
+  const uint32_t* pa = a + (row % a_rows) * a_stride;
+  const uint32_t* pb = (OP == OP_NONE) ? pa : b + (row % b_rows) * b_stride;
 
   int acc = 0;
   int64_t tail = lo;
@@ -96,72 +134,128 @@ count_rows_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b
     const uint32_t y = (OP == OP_NONE) ? x : __ldg(pb + i);
     acc += __popc(apply_op<OP>(x, y));
   }
-
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_down_sync(0xffffffffu, acc, off);
   __shared__ int warp_sums[kThreads / 32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) warp_sums[warp] = acc;
-  __syncthreads();
-  if (warp == 0) {
-    acc = lane < kThreads / 32 ? warp_sums[lane] : 0;
-    for (int off = 16; off > 0; off >>= 1)
-      acc += __shfl_down_sync(0xffffffffu, acc, off);
-    if (lane == 0) {
-      if (accumulate)
-        atomicAdd(out + row, acc);
-      else
-        out[row] = acc;
+  store_count(out, row, block_sum(acc, warp_sums), accumulate);
+}
+
+// uint4 loads a thread keeps in registers: one kChunkWords chunk per block.
+constexpr int kRegVecs = static_cast<int>(kChunkWords / 4 / kThreads);
+
+// The repeat kernel: rows = outer x inner, and the repeated operand (a when
+// REP_A, else b) has `inner` rows, one for each row of every outer slice.
+// grid = (inner, chunks). The block loads its chunk of the repeated row
+// once, then for o in [0, outer) counts it against row o * inner + r of
+// the other operand. VEC only: both operands 16-byte aligned row by row,
+// and the chunk is kChunkWords.
+template <int OP, bool REP_A>
+__global__ void __launch_bounds__(kThreads)
+count_repeat_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
+                    int* __restrict__ out, int64_t words, int64_t a_stride,
+                    int64_t b_stride, int64_t inner, int64_t outer,
+                    int accumulate) {
+  const int64_t r = blockIdx.x;
+  const int64_t lo = static_cast<int64_t>(blockIdx.y) * kChunkWords;
+  const int64_t hi = lo + kChunkWords < words ? lo + kChunkWords : words;
+  const int64_t n4 = (hi - lo) >> 2;
+  const int64_t tail = lo + (n4 << 2);
+  const uint32_t* rep = REP_A ? a + r * a_stride : b + r * b_stride;
+  const uint4* rep4 = reinterpret_cast<const uint4*>(rep + lo);
+  uint4 keep[kRegVecs];
+#pragma unroll
+  for (int k = 0; k < kRegVecs; ++k) {
+    const int64_t i = threadIdx.x + static_cast<int64_t>(k) * kThreads;
+    keep[k] = i < n4 ? __ldg(rep4 + i) : make_uint4(0u, 0u, 0u, 0u);
+  }
+  __shared__ int warp_sums[kThreads / 32];
+  for (int64_t o = 0; o < outer; ++o) {
+    const int64_t row = o * inner + r;
+    const uint32_t* var = REP_A ? b + row * b_stride : a + row * a_stride;
+    const uint4* var4 = reinterpret_cast<const uint4*>(var + lo);
+    int acc = 0;
+#pragma unroll
+    for (int k = 0; k < kRegVecs; ++k) {
+      const int64_t i = threadIdx.x + static_cast<int64_t>(k) * kThreads;
+      if (i < n4) {
+        const uint4 x = __ldg(var4 + i);
+        acc += REP_A ? popc4<OP>(keep[k], x) : popc4<OP>(x, keep[k]);
+      }
     }
+    for (int64_t i = tail + threadIdx.x; i < hi; i += kThreads) {
+      const uint32_t x = __ldg(var + i);
+      const uint32_t y = __ldg(rep + i);
+      acc += __popc(REP_A ? apply_op<OP>(y, x) : apply_op<OP>(x, y));
+    }
+    store_count(out, row, block_sum(acc, warp_sums), accumulate);
   }
 }
 
 template <int OP>
 int launch(const uint32_t* a, const uint32_t* b, int* out, int64_t rows,
-           int64_t words, int64_t a_stride, int64_t b_stride, int vec,
-           cudaStream_t stream) {
-  if (rows <= 0 || words <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (rows > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+           int64_t words, int64_t a_stride, int64_t b_stride, int64_t a_rows,
+           int64_t b_rows, int vec, cudaStream_t stream) {
+  if (rows <= 0 || words <= 0 || a_rows <= 0 || b_rows <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (rows > 0x7fffffffLL || rows % a_rows || rows % b_rows)
+    return static_cast<int>(cudaErrorInvalidValue);
   int64_t chunk = kChunkWords;
   int64_t chunks = (words + chunk - 1) / chunk;
   if (chunks > kMaxGridY) {
     chunk = ((words + kMaxGridY - 1) / kMaxGridY + 3) & ~int64_t(3);
     chunks = (words + chunk - 1) / chunk;
   }
-  const dim3 grid(static_cast<unsigned>(rows), static_cast<unsigned>(chunks));
   const int accumulate = chunks > 1;
+  // One operand repeats across an outer axis with more than one row per
+  // repeat (never a single broadcast row: that one stays in L2).
+  const bool rep_a = a_rows > 1 && a_rows < rows && b_rows == rows;
+  const bool rep_b = b_rows > 1 && b_rows < rows && a_rows == rows;
+  if (vec && chunk == kChunkWords && (rep_a || rep_b)) {
+    const int64_t inner = rep_a ? a_rows : b_rows;
+    const dim3 grid(static_cast<unsigned>(inner), static_cast<unsigned>(chunks));
+    if (rep_a)
+      count_repeat_kernel<OP, true><<<grid, kThreads, 0, stream>>>(
+          a, b, out, words, a_stride, b_stride, inner, rows / inner, accumulate);
+    else
+      count_repeat_kernel<OP, false><<<grid, kThreads, 0, stream>>>(
+          a, b, out, words, a_stride, b_stride, inner, rows / inner, accumulate);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const dim3 grid(static_cast<unsigned>(rows), static_cast<unsigned>(chunks));
   if (vec)
     count_rows_kernel<OP, true><<<grid, kThreads, 0, stream>>>(
-        a, b, out, words, a_stride, b_stride, chunk, accumulate);
+        a, b, out, words, a_stride, b_stride, a_rows, b_rows, chunk, accumulate);
   else
     count_rows_kernel<OP, false><<<grid, kThreads, 0, stream>>>(
-        a, b, out, words, a_stride, b_stride, chunk, accumulate);
+        a, b, out, words, a_stride, b_stride, a_rows, b_rows, chunk, accumulate);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// out[r] = popcount(op(a[r], b[r])) for r in [0, rows); a[r] starts at
-// a + r * a_stride words (b likewise; stride 0 broadcasts one row). out must
-// hold `rows` int32 zeros. Returns cudaGetLastError() after the launch.
+// out[r] = popcount(op(a[r % a_rows], b[r % b_rows])) for r in [0, rows);
+// row i of a starts at a + i * a_stride words (b likewise). rows must be a
+// multiple of a_rows and of b_rows. out must hold `rows` int32 zeros.
+// Returns cudaGetLastError() after the launch.
 extern "C" int pilosa_pair_count(const void* a, const void* b, void* out,
                                  int64_t rows, int64_t words, int64_t a_stride,
-                                 int64_t b_stride, int op, int vec,
-                                 void* stream) {
+                                 int64_t b_stride, int64_t a_rows,
+                                 int64_t b_rows, int op, int vec, void* stream) {
   const auto* pa = static_cast<const uint32_t*>(a);
   const auto* pb = static_cast<const uint32_t*>(b);
   auto* po = static_cast<int*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   switch (op) {
     case OP_AND:
-      return launch<OP_AND>(pa, pb, po, rows, words, a_stride, b_stride, vec, s);
+      return launch<OP_AND>(pa, pb, po, rows, words, a_stride, b_stride,
+                            a_rows, b_rows, vec, s);
     case OP_OR:
-      return launch<OP_OR>(pa, pb, po, rows, words, a_stride, b_stride, vec, s);
+      return launch<OP_OR>(pa, pb, po, rows, words, a_stride, b_stride,
+                           a_rows, b_rows, vec, s);
     case OP_XOR:
-      return launch<OP_XOR>(pa, pb, po, rows, words, a_stride, b_stride, vec, s);
+      return launch<OP_XOR>(pa, pb, po, rows, words, a_stride, b_stride,
+                            a_rows, b_rows, vec, s);
     case OP_ANDNOT:
-      return launch<OP_ANDNOT>(pa, pb, po, rows, words, a_stride, b_stride, vec, s);
+      return launch<OP_ANDNOT>(pa, pb, po, rows, words, a_stride, b_stride,
+                               a_rows, b_rows, vec, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -173,5 +267,5 @@ extern "C" int pilosa_row_counts(const void* a, void* out, int64_t rows,
                                  void* stream) {
   const auto* pa = static_cast<const uint32_t*>(a);
   return launch<OP_NONE>(pa, pa, static_cast<int*>(out), rows, words, a_stride,
-                         0, vec, static_cast<cudaStream_t>(stream));
+                         0, rows, rows, vec, static_cast<cudaStream_t>(stream));
 }

@@ -1,6 +1,6 @@
 """Error types + name validation: the subset of pilosa_tpu/errors.py that
-the set-field slice raises, plus ``NotPortedError`` for the parts of the
-JAX package that later slices of the port bring over.
+the ported slices raise, plus ``NotPortedError`` for the parts of the JAX
+package that later slices of the port bring over.
 
 Reference: pilosa.go (public Err* values :40-117, nameRegexp :119,
 validateName :155).
@@ -37,6 +37,22 @@ class FieldExistsError(PilosaError):
     message = "field already exists"
 
 
+class BSIGroupNotFoundError(PilosaError):
+    message = "bsigroup not found"
+
+
+class BSIGroupValueTooLowError(PilosaError):
+    message = "value too low for bsigroup"
+
+
+class BSIGroupValueTooHighError(PilosaError):
+    message = "value too high for bsigroup"
+
+
+class InvalidBSIGroupRangeError(PilosaError):
+    message = "invalid bsigroup range"
+
+
 class InvalidCacheTypeError(PilosaError):
     message = "invalid cache type"
 
@@ -55,7 +71,7 @@ class QueryError(PilosaError):
 
 #: The later slices of the port, by their heading in ROADMAP.md Queue 1.
 SLICE_EXECUTOR = "executor remainder"
-SLICE_BSI = "BSI, packed residency, time, GroupBy"
+SLICE_FIELDS = "packed residency, time, mutex and bool fields, GroupBy"
 SLICE_KEYS = "keys and sketches"
 
 

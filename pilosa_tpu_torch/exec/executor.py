@@ -1,20 +1,22 @@
-"""The PQL executor, set-field subset: a recursive call-tree interpreter
-with per-shard map functions and a map/reduce spine.
+"""The PQL executor over set and int fields: a recursive call-tree
+interpreter with per-shard map functions and a map/reduce spine.
 
 The port's counterpart of pilosa_tpu/exec/executor.py. Reference:
-executor.go — dispatch (:293-338), bitmap calls (:659-676, :1441), Count,
-TopN two-pass (:857-999), writes (:2067), mapReduce (:2455).
+executor.go — dispatch (:293-338), Sum/Min/Max (:406-520), bitmap calls
+(:659-676, :1441), BSI conditions (:1536), Count, TopN two-pass
+(:857-999), writes (:2067), mapReduce (:2455).
 
 As in the JAX package, TopN is exact: per-shard batched intersection
 counts on the device (``pair_count`` over a row stack) instead of the
 reference's threshold-gated rank-cache walk. With a ``Planner`` attached,
-plannable bitmap trees, ``Count`` and ``TopN`` run over all shards at once
-as ``[S_pad, W]`` stacks; without one, shard by shard.
+plannable bitmap trees (BSI conditions included), ``Count``, ``TopN`` and
+``Sum``/``Min``/``Max`` run over all shards at once as ``[S_pad, W]``
+stacks; without one, shard by shard.
 
 Calls of later slices raise ``NotPortedError`` naming the slice in
-ROADMAP.md: BSI and time (``Range``, ``Sum``/``Min``/``Max``, conditions,
-``from``/``to``), ``Not``/``Shift``, ``Rows``/``GroupBy``/``Distinct``,
-attrs, ``Options``, keys. There is no result cache, batcher, coalescer,
+ROADMAP.md: time views (``from``/``to``), ``MinRow``/``MaxRow``,
+``Not``/``Shift``, ``Rows``/``GroupBy``/``Distinct``, attrs, ``Options``,
+keys. There is no result cache, batcher, coalescer,
 prefetcher or ``execute_async``: every query runs on the device and ends
 in a synchronising copy of its counts or columns to the host.
 """
@@ -23,22 +25,25 @@ from __future__ import annotations
 
 from typing import Any, Callable, Iterable
 
-from pilosa_tpu_torch.core.fragment import row_id_arg
+from pilosa_tpu_torch.config import SHARD_WIDTH
+from pilosa_tpu_torch.core.field import FIELD_TYPE_INT, op_name
+from pilosa_tpu_torch.core.fragment import BSI_EXISTS_BIT, row_id_arg
 from pilosa_tpu_torch.core.holder import Holder
 from pilosa_tpu_torch.core.index import Index
 from pilosa_tpu_torch.core.row import Row
-from pilosa_tpu_torch.core.view import VIEW_STANDARD
+from pilosa_tpu_torch.core.view import VIEW_STANDARD, view_bsi_name
 from pilosa_tpu_torch.errors import (
-    SLICE_BSI,
     SLICE_EXECUTOR,
+    SLICE_FIELDS,
     SLICE_KEYS,
+    BSIGroupNotFoundError,
     FieldNotFoundError,
     IndexNotFoundError,
     NotPortedError,
     QueryError,
 )
-from pilosa_tpu_torch.exec.result import Pair, merge_pairs, sort_pairs
-from pilosa_tpu_torch.pql import Call, Query, parse
+from pilosa_tpu_torch.exec.result import Pair, ValCount, merge_pairs, sort_pairs
+from pilosa_tpu_torch.pql import BETWEEN, GT, GTE, LT, LTE, NEQ, Call, Condition, Query, parse
 
 #: reference defaultMinThreshold (executor.go:90).
 DEFAULT_MIN_THRESHOLD = 1
@@ -48,9 +53,7 @@ _NARY_CALLS = {"Intersect": "intersect", "Union": "union",
 
 #: calls of the JAX executor that later slices port, by ROADMAP.md slice.
 _NOT_PORTED = {
-    "Sum": SLICE_BSI, "Min": SLICE_BSI, "Max": SLICE_BSI,
-    "MinRow": SLICE_BSI, "MaxRow": SLICE_BSI, "Range": SLICE_BSI,
-    "GroupBy": SLICE_BSI,
+    "MinRow": SLICE_FIELDS, "MaxRow": SLICE_FIELDS, "GroupBy": SLICE_FIELDS,
     "Not": SLICE_EXECUTOR, "Shift": SLICE_EXECUTOR,
     "ClearRow": SLICE_EXECUTOR, "Store": SLICE_EXECUTOR,
     "Rows": SLICE_EXECUTOR, "Options": SLICE_EXECUTOR,
@@ -106,7 +109,11 @@ class Executor:
             return self._execute_clear_bit(idx, c)
         if name == "TopN":
             return self._execute_top_n(idx, c, shards)
-        if name == "Row" or name in _NARY_CALLS:
+        if name == "Sum":
+            return self._execute_sum(idx, c, shards)
+        if name in ("Min", "Max"):
+            return self._execute_min_max(idx, c, shards, is_min=name == "Min")
+        if name in ("Row", "Range") or name in _NARY_CALLS:
             return self._execute_bitmap_call(idx, c, shards)
         if name in _NOT_PORTED:
             raise NotPortedError(f"{name}()", _NOT_PORTED[name])
@@ -151,7 +158,7 @@ class Executor:
     def _bitmap_call_shard(self, idx: Index, c: Call, shard: int) -> Row:
         """Reference executeBitmapCallShard (executor.go:659)."""
         name = c.name
-        if name == "Row":
+        if name in ("Row", "Range"):
             return self._row_shard(idx, c, shard)
         if name in _NARY_CALLS:
             return self._nary_shard(idx, c, shard, _NARY_CALLS[name])
@@ -169,17 +176,150 @@ class Executor:
         return acc
 
     def _row_shard(self, idx: Index, c: Call, shard: int) -> Row:
-        """Reference executeRowShard (executor.go:1441), standard view."""
+        """Reference executeRowShard (executor.go:1441): the standard view,
+        or a BSI condition."""
         if c.has_condition_arg():
-            raise NotPortedError("Row() with a BSI condition", SLICE_BSI)
-        if "from" in c.args or "to" in c.args:
-            raise NotPortedError("Row() over time views", SLICE_BSI)
+            return self._row_bsi_shard(idx, c, shard)
+        if c.name == "Range" or "from" in c.args or "to" in c.args:
+            raise NotPortedError(f"{c.name}() over time views", SLICE_FIELDS)
         field_name = c.field_arg()
         if idx.field(field_name) is None:
             raise FieldNotFoundError(f"field not found: {field_name!r}")
         row_id = row_id_arg(c, field_name)
         frag = self.holder.fragment(idx.name, field_name, VIEW_STANDARD, shard)
         return frag.row(row_id) if frag else Row()
+
+    def _row_bsi_shard(self, idx: Index, c: Call, shard: int) -> Row:
+        """Reference executeRowBSIGroupShard (executor.go:1536)."""
+        if len(c.args) > 1:
+            raise QueryError("Row(): too many arguments")
+        (field_name, cond), = c.args.items()
+        if not isinstance(cond, Condition):
+            raise QueryError("Row(): expected condition argument")
+        f = idx.field(field_name)
+        if f is None:
+            raise FieldNotFoundError(f"field not found: {field_name!r}")
+        bsig = f.bsi_group
+        if bsig is None:
+            raise BSIGroupNotFoundError()
+        frag = self.holder.fragment(idx.name, field_name,
+                                    view_bsi_name(field_name), shard)
+
+        if cond.op == NEQ and cond.value is None:  # `!= null`: not-null
+            return frag.not_null() if frag else Row()
+
+        if cond.op == BETWEEN:
+            predicates = cond.int_slice_value()
+            if len(predicates) != 2:
+                raise QueryError(
+                    "Row(): BETWEEN condition requires exactly two integer values")
+            lo, hi, out_of_range = bsig.base_value_between(*predicates)
+            if out_of_range or frag is None:
+                return Row()
+            if predicates[0] <= bsig.min and predicates[1] >= bsig.max:
+                return frag.not_null()
+            return frag.range_between(bsig.bit_depth, lo, hi)
+
+        value = cond.value
+        if not isinstance(value, int) or isinstance(value, bool):
+            raise QueryError("Row(): conditions only support integer values")
+        base_value, out_of_range = bsig.base_value(cond.op, value)
+        if out_of_range and cond.op != NEQ:
+            return Row()
+        if frag is None:
+            return Row()
+        # Fully-encompassing LT/GT, or a NEQ out of range: every value
+        # (executor.go:1648-1652).
+        if ((cond.op == LT and value > bsig.max)
+                or (cond.op == LTE and value >= bsig.max)
+                or (cond.op == GT and value < bsig.min)
+                or (cond.op == GTE and value <= bsig.min)
+                or out_of_range):
+            return frag.not_null()
+        return frag.range_op(op_name(cond.op), bsig.bit_depth, base_value)
+
+    # ------------------------------------------------------------------
+    # Sum / Min / Max (reference executor.go:406-520)
+    # ------------------------------------------------------------------
+
+    def _agg_filter(self, idx: Index, c: Call, shard: int) -> Row | None:
+        if len(c.children) > 1:
+            raise QueryError(f"{c.name}() only accepts a single bitmap input")
+        if len(c.children) == 1:
+            return self._bitmap_call_shard(idx, c.children[0], shard)
+        return None
+
+    def _bsi_fragment(self, idx: Index, field_name: str, shard: int):
+        f = idx.field(field_name)
+        if f is None or f.bsi_group is None:
+            return None, None
+        frag = self.holder.fragment(idx.name, field_name,
+                                    view_bsi_name(field_name), shard)
+        return f, frag
+
+    def _agg_field(self, c: Call) -> str:
+        field_name, ok = c.string_arg("field")
+        if not ok:
+            raise QueryError(f"{c.name}(): field required")
+        return field_name
+
+    def _execute_sum(self, idx: Index, c: Call, shards: list[int]) -> ValCount:
+        field_name = self._agg_field(c)
+
+        def map_fn(shard):
+            f, frag = self._bsi_fragment(idx, field_name, shard)
+            if frag is None:
+                return ValCount()
+            filt = self._agg_filter(idx, c, shard)
+            s, cnt = frag.sum(filt, f.bsi_group.bit_depth)
+            return ValCount(s + cnt * f.bsi_group.base, cnt)
+
+        local_batch = None
+        if self.planner is not None and self.planner.supports_aggregate(idx, c):
+            base = idx.field(field_name).bsi_group.base
+
+            def local_batch(shs):
+                s, cnt = self.planner.execute_sum(idx, c, list(shs))
+                return ValCount(s + cnt * base, cnt)
+
+        result = self.map_reduce(shards, map_fn,
+                                 lambda p, v: v if p is None else p.add(v),
+                                 local_batch_fn=local_batch) or ValCount()
+        return ValCount() if result.count == 0 else result
+
+    def _execute_min_max(self, idx: Index, c: Call, shards: list[int],
+                         is_min: bool) -> ValCount:
+        field_name = self._agg_field(c)
+
+        def map_fn(shard):
+            f, frag = self._bsi_fragment(idx, field_name, shard)
+            if frag is None:
+                return ValCount()
+            filt = self._agg_filter(idx, c, shard)
+            if is_min:
+                v, cnt = frag.min(filt, f.bsi_group.bit_depth)
+            else:
+                v, cnt = frag.max(filt, f.bsi_group.bit_depth)
+            if cnt == 0:
+                return ValCount()
+            return ValCount(v + f.bsi_group.base, cnt)
+
+        def reduce_fn(p, v):
+            if p is None:
+                return v
+            return p.smaller(v) if is_min else p.larger(v)
+
+        local_batch = None
+        if self.planner is not None and self.planner.supports_aggregate(idx, c):
+            base = idx.field(field_name).bsi_group.base
+
+            def local_batch(shs):
+                v, cnt = self.planner.execute_min_max(idx, c, list(shs), is_min)
+                return ValCount(v + base, cnt) if cnt else ValCount()
+
+        result = self.map_reduce(shards, map_fn, reduce_fn,
+                                 local_batch_fn=local_batch) or ValCount()
+        return ValCount() if result.count == 0 else result
 
     # ------------------------------------------------------------------
     # Count
@@ -319,7 +459,7 @@ class Executor:
     # ------------------------------------------------------------------
 
     def _write_target(self, idx: Index, c: Call, what: str):
-        """(field, row id, column id) of a Set()/Clear() call."""
+        """(field, column id) of a Set()/Clear() call."""
         col_id, ok = c.uint_arg("_col")
         if not ok:
             raise QueryError(f"{what}() column argument 'col' required")
@@ -328,16 +468,28 @@ class Executor:
         if f is None:
             raise FieldNotFoundError(f"field not found: {field_name!r}")
         if "_timestamp" in c.args:
-            raise NotPortedError(f"{what}() with a timestamp", SLICE_BSI)
-        return f, row_id_arg(c, field_name), col_id
+            raise NotPortedError(f"{what}() with a timestamp", SLICE_FIELDS)
+        return f, col_id
 
     def _execute_set(self, idx: Index, c: Call) -> bool:
-        """Reference executeSet (executor.go:2067)."""
-        f, row_id, col_id = self._write_target(idx, c, "Set")
+        """Reference executeSet (executor.go:2067): a bit, or an int
+        field's value."""
+        f, col_id = self._write_target(idx, c, "Set")
         idx.add_existence([col_id])
-        return f.set_bit(row_id, col_id)
+        if f.field_type == FIELD_TYPE_INT:
+            value, ok = c.int_arg(f.name)
+            if not ok:
+                raise QueryError("Set() row argument 'row' required")
+            return f.set_value(col_id, value)
+        return f.set_bit(row_id_arg(c, f.name), col_id)
 
     def _execute_clear_bit(self, idx: Index, c: Call) -> bool:
-        f, row_id, col_id = self._write_target(idx, c, "Clear")
-        return f.clear_bit(row_id, col_id)
+        """Clearing an int field's value clears its exists bit."""
+        f, col_id = self._write_target(idx, c, "Clear")
+        row_id = row_id_arg(c, f.name)
+        if f.field_type != FIELD_TYPE_INT:
+            return f.clear_bit(row_id, col_id)
+        v = f.bsi_view()
+        frag = v.fragment(col_id // SHARD_WIDTH) if v is not None else None
+        return frag.clear_bit(BSI_EXISTS_BIT, col_id) if frag is not None else False
 

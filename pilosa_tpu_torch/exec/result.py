@@ -1,8 +1,9 @@
-"""Query result types and their wire (JSON) shapes, set-field subset.
+"""Query result types and their wire (JSON) shapes: rows, counts, TopN
+pairs and Sum/Min/Max value counts.
 
 The port's counterpart of pilosa_tpu/exec/result.py. Reference:
-executor.go (Pair pilosa.go) and the JSON encoding in http/handler.go /
-row.go MarshalJSON.
+executor.go (ValCount :2380, Pair pilosa.go) and the JSON encoding in
+http/handler.go / row.go MarshalJSON.
 """
 
 from __future__ import annotations
@@ -11,6 +12,32 @@ from dataclasses import dataclass
 from typing import Any
 
 from pilosa_tpu_torch.core.row import Row
+
+
+@dataclass
+class ValCount:
+    """(value, count) aggregate result (reference ValCount)."""
+
+    val: int = 0
+    count: int = 0
+
+    def add(self, o: "ValCount") -> "ValCount":
+        return ValCount(self.val + o.val, self.count + o.count)
+
+    def smaller(self, o: "ValCount") -> "ValCount":
+        """Min-merge (reference ValCount.smaller): a zero-count side loses,
+        and on a tie the receiver's count stands (counts do not add)."""
+        if self.count == 0 or (o.count != 0 and o.val < self.val):
+            return o
+        return self
+
+    def larger(self, o: "ValCount") -> "ValCount":
+        if self.count == 0 or (o.count != 0 and o.val > self.val):
+            return o
+        return self
+
+    def to_json(self) -> dict:
+        return {"value": self.val, "count": self.count}
 
 
 @dataclass
@@ -39,7 +66,7 @@ def sort_pairs(pairs: list[Pair]) -> list[Pair]:
 
 def result_to_json(result: Any) -> Any:
     """Serialize any executor result to the reference's response JSON."""
-    if isinstance(result, (Row, Pair)):
+    if isinstance(result, (Row, Pair, ValCount)):
         return result.to_json()
     if isinstance(result, list):
         return [result_to_json(r) for r in result]

@@ -9,16 +9,18 @@ from __future__ import annotations
 
 import numpy as np
 
+from pilosa_tpu_torch.core.field import FIELD_TYPE_INT, FieldOptions
+from pilosa_tpu_torch.core.fragment import BSI_EXISTS_BIT
 from pilosa_tpu_torch.core.holder import Holder
-from pilosa_tpu_torch.core.view import VIEW_STANDARD
+from pilosa_tpu_torch.core.view import VIEW_STANDARD, view_bsi_name
 
 
 def load_fragment_words(holder: Holder, index: str, field: str, shard: int,
-                        row_ids, words: np.ndarray) -> None:
-    """Replace rows ``row_ids`` of the standard-view fragment
-    (``index``, ``field``, ``shard``) with ``words[i]``, a uint32 block of
-    ``WORDS_PER_SHARD`` words per row. The index and set field are created
-    when absent."""
+                        row_ids, words: np.ndarray, view: str = VIEW_STANDARD) -> None:
+    """Replace rows ``row_ids`` of the fragment (``index``, ``field``,
+    ``view``, ``shard``) with ``words[i]``, a uint32 block of
+    ``WORDS_PER_SHARD`` words per row. The index and a set field are
+    created when absent."""
     words = np.asarray(words)
     if words.dtype != np.uint32:
         raise TypeError(f"words must be uint32, got {words.dtype}")
@@ -27,8 +29,30 @@ def load_fragment_words(holder: Holder, index: str, field: str, shard: int,
         raise ValueError(f"words must be [len(row_ids), W], got {words.shape} "
                          f"for {len(row_ids)} rows")
     idx = holder.create_index_if_not_exists(index)
-    view = idx.create_field_if_not_exists(field).create_view_if_not_exists(
-        VIEW_STANDARD)
-    frag = view.create_fragment_if_not_exists(int(shard))
+    frag = idx.create_field_if_not_exists(field).create_view_if_not_exists(
+        view).create_fragment_if_not_exists(int(shard))
     for rid, w in zip(row_ids, words):
         frag.set_row_words(rid, w)
+
+
+def load_bsi_planes(holder: Holder, index: str, field: str, shard: int,
+                    planes: np.ndarray, options: FieldOptions) -> None:
+    """Load one shard of an int field: ``planes`` is ``[2 + depth, W]``
+    uint32 words (exists, sign, then magnitude bit i at ``planes[2 + i]``,
+    values relative to the field's base) into the field's
+    ``bsig_<field>`` view. The index and the int field (with ``options``)
+    are created when absent; the field's bit depth grows to ``depth``."""
+    planes = np.asarray(planes)
+    if planes.ndim != 2 or planes.shape[0] < 2:
+        raise ValueError(f"planes must be [2 + depth, W], got {planes.shape}")
+    idx = holder.create_index_if_not_exists(index)
+    f = idx.field(field)
+    if f is None:
+        if options.type != FIELD_TYPE_INT:
+            raise ValueError(f"options must be an int field's, got {options.type!r}")
+        f = idx.create_field(field, options)
+    bsig = f._require_bsi()
+    f._grow_bit_depth(planes.shape[0] - 2)
+    load_fragment_words(holder, index, field, shard,
+                        range(BSI_EXISTS_BIT, BSI_EXISTS_BIT + len(planes)), planes,
+                        view=view_bsi_name(bsig.name))

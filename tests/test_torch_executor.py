@@ -201,12 +201,12 @@ def test_cpu_queries_launch_no_kernel(parity):
     kernels.reset_launches()
     for e in texecs:
         e.execute("i", "Count(Intersect(Row(f=0), Row(g=0))) TopN(f, Row(g=0), n=2)")
-    assert kernels.LAUNCHES == {"pair_count": 0, "row_counts": 0}
+    assert not any(kernels.LAUNCHES.values())
 
 
 @pytest.mark.parametrize("query", [
     "Not(Row(f=0))", "Shift(Row(f=0), n=1)", "Count(Not(Row(f=0)))",
-    "Sum(field=f)", "Row(f > 3)", "Rows(f)", "GroupBy(Rows(f))",
+    "MinRow(field=f)", "Range(f=0)", "Rows(f)", "GroupBy(Rows(f))",
     "Row(f=0, from='2020-01-01T00:00', to='2021-01-01T00:00')",
     "TopN(f, n=2, attrName=x, attrValues=[1])",
 ])
