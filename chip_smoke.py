@@ -5,25 +5,43 @@
 
 Builds the CUDA kernels from ``pilosa_tpu_torch/csrc`` into
 ``build/kernels/`` (one nvcc per source, all at once), checks each kernel
-against its plain PyTorch version on the card (exact), then drives the
-port's paths through its public entry points, ``Holder(device="cuda")`` ->
-``Executor(planner=Planner)``:
+against its plain PyTorch version on the card (exact), then boots a
+standalone ``ServerNode(device="cuda")`` on loopback, creates its schema
+over HTTP, loads three datasets into ``node.holder`` once, and drives the
+port's paths:
 
-- main path: ``Count`` over a set field of 954 shards (1,000,341,504
-  columns) with two rows at 5% density, imported from seeded random
-  positions; filtered ``TopN`` over a 10M-column field of 1,536 dense rows,
-  which streams through three 512-row tiles per shard;
-- BSI path: bench.py's config 3 at the same 1B columns: an int field in
-  [-100000, 100000) on 2% of the columns and a filter row of 5M bits,
-  asked ``Sum``/``Min``/``Max`` (with and without filters, one of them a
-  BSI condition) and ``Count`` of range conditions.
+- main path, in process (``Executor(holder, planner=Planner(holder))``):
+  ``Count`` over a set field of 954 shards (1,000,341,504 columns) with two
+  rows at 5% density, imported from seeded random positions; filtered
+  ``TopN`` over a 10M-column field of 1,536 dense rows, which streams
+  through three 512-row tiles per shard;
+- BSI path, in process: bench.py's config 3 at the same 1B columns: an int
+  field in [-100000, 100000) on 2% of the columns and a filter row of 5M
+  bits, asked ``Sum``/``Min``/``Max`` (with and without filters, one of
+  them a BSI condition) and ``Count`` of range conditions;
+- HTTP path: every query of both through ``POST /index/{i}/query`` on a
+  keep-alive connection, each body held to the oracle and byte for byte
+  to the in-process JSON with the same launches; warm latencies beside the
+  in-process ones; a JSON import of 200k bits and 200k values; 8
+  concurrent clients; the 404/400/504/501 statuses; ``/metrics``.
 
 Every answer is held against a numpy oracle, and each path's kernel launch
-counters are zeroed before it and must show its kernels launched. The script prints the
-toolchain, per-kernel times beside their bounds, the query latencies, the
-card's name and power limit, a ``{"kernels": [...]}`` JSON line, and as its
-last line ``{"ok": true, "device": {...}}``. It exits non-zero, without
-that line, when there is no CUDA device or any phase fails.
+counters are zeroed before it and must show its kernels launched. The
+script prints the toolchain, per-kernel times beside their bounds, the
+query latencies, the card's name and power limit, a ``{"kernels": [...]}``
+JSON line, and as its last line ``{"ok": true, "device": {...}}``. It
+exits non-zero, without that line, when there is no CUDA device or any
+phase fails.
+
+CPU rehearsal at a small size (plain kernel versions, no launch counts)::
+
+    import torch, chip_smoke as c
+    d = {}
+    c.phase_data(torch, "cpu", d, device="cpu", count_shards=5,
+                 topn_cols=3 * 2**20, topn_rows=1100, bsi_shards=5)
+    for p in (c.phase_main_path, c.phase_bsi, c.phase_http):
+        p(torch, "cpu", d, runs=2)
+    d["node"].close()
 """
 
 from __future__ import annotations
@@ -91,6 +109,24 @@ COUNT_QUERIES = {
     "count_3leaf": "Count(Union(Intersect(Row(f=1), Row(g=2)), Row(g=2)))",
 }
 TOPN_QUERY = "TopN(f2, Row(g=0), n=10)"
+
+#: the schema the node gets over HTTP before build_*_index load its data:
+#: (path, field options or None), one index per dataset.
+SCHEMA = [
+    ("/index/bench", None), ("/index/bench/field/f", None),
+    ("/index/bench/field/g", None),
+    ("/index/topn", None), ("/index/topn/field/f2", None),
+    ("/index/topn/field/g", None),
+    ("/index/bsi", None), ("/index/bsi/field/f", None),
+    ("/index/bsi/field/v", {"type": "int", "min": BSI_MIN, "max": BSI_MAX}),
+]
+#: bits, and about as many values, in the JSON import through HTTP.
+HTTP_IMPORT_N = 200_000
+#: concurrent clients and requests per client behind the HTTP edge.
+HTTP_THREADS = 8
+HTTP_PER_THREAD = 25
+#: client socket timeout: the first BSI request builds the cube.
+HTTP_TIMEOUT_S = 300
 
 
 def log(msg: str) -> None:
@@ -364,7 +400,28 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
     return {"timings": timings, "errs": errs}
 
 
-# -- phase 3: the main path at full size -------------------------------------
+# -- phase 3: the node and its data, built once -------------------------------
+
+
+def http_client(port: int):
+    """One keep-alive HTTP/1.1 connection to the node on loopback."""
+    import http.client
+    return http.client.HTTPConnection("127.0.0.1", port, timeout=HTTP_TIMEOUT_S)
+
+
+def request(conn, method: str, path: str, body=None, headers=None) -> tuple[int, bytes]:
+    if isinstance(body, (dict, list)):
+        body = json.dumps(body)
+    conn.request(method, path, body=body, headers=headers or {})
+    r = conn.getresponse()
+    return r.status, r.read()
+
+
+def expect_ok(conn, method: str, path: str, body=None) -> bytes:
+    status, out = request(conn, method, path, body)
+    if status != 200:
+        raise AssertionError(f"{method} {path}: HTTP {status} {out[:300]!r}")
+    return out
 
 
 def build_count_index(h, n_shards: int, density: float, seed: int):
@@ -374,13 +431,13 @@ def build_count_index(h, n_shards: int, density: float, seed: int):
     after each import."""
     from pilosa_tpu_torch.config import SHARD_WIDTH
 
-    idx = h.create_index("bench")
+    idx = h.create_index_if_not_exists("bench")
     n_cols = n_shards * SHARD_WIDTH
     n_bits = int(n_cols * density)
     rng = np.random.default_rng(seed)
     import_s = 0.0
     for field, row in (("f", 1), ("g", 2)):
-        fld = idx.create_field(field)
+        fld = idx.create_field_if_not_exists(field)
         pos = rng.integers(0, n_cols, n_bits, dtype=np.uint64)
         t0 = time.perf_counter()
         fld.import_bits(np.broadcast_to(np.uint64(row), n_bits), pos)
@@ -399,7 +456,7 @@ def build_topn_index(torch, h, n_cols: int, n_rows: int, seed: int):
     from pilosa_tpu_torch.config import SHARD_WIDTH, WORDS_PER_SHARD
     from pilosa_tpu_torch.ops import bitops
 
-    h.create_index("topn")
+    h.create_index_if_not_exists("topn")
     gen = torch.Generator(device=h.device)
     gen.manual_seed(seed)
     n_shards = (n_cols + SHARD_WIDTH - 1) // SHARD_WIDTH
@@ -442,129 +499,6 @@ def topn_oracle(data: dict, n: int) -> list[tuple[int, int]]:
     ranked = sorted(((i, c) for i, c in totals.items() if c > 0),
                     key=lambda p: (-p[1], p[0]))
     return ranked[:n]
-
-
-def p50_ms(fn, runs: int) -> tuple[float, str]:
-    """(median ms, "p25 x, p75 y" spread) of ``runs`` host-clock calls."""
-    times = []
-    for _ in range(runs):
-        t0 = time.perf_counter()
-        fn()
-        times.append((time.perf_counter() - t0) * 1e3)
-    q1, _, q3 = statistics.quantiles(times, n=4)
-    return statistics.median(times), f"p25 {q1:.4f}, p75 {q3:.4f}"
-
-
-def device_busy_ms(torch, fn, runs: int) -> tuple[float, float]:
-    """(device ms, wall ms) per call of ``fn`` under torch.profiler: the
-    device time is the sum of every kernel's and copy's own time on the
-    card; the wall time, host clock around the traced calls, includes the
-    profiler's own overhead."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / runs
-    # Only the device-side events: a CPU op's device total repeats the
-    # time of the kernels it launched.
-    busy_us = sum(e.device_time_total for e in prof.events()
-                  if e.device_type == DeviceType.CUDA)
-    return busy_us / 1e3 / runs, wall
-
-
-def phase_main_path(torch, card: str, device: str = "cuda",
-                    count_shards: int = COUNT_SHARDS,
-                    topn_cols: int = TOPN_COLS, topn_rows: int = TOPN_ROWS,
-                    runs: int = QUERY_RUNS) -> dict:
-    from pilosa_tpu_torch.core import Holder
-    from pilosa_tpu_torch.exec import Executor
-    from pilosa_tpu_torch.ops import kernels
-    from pilosa_tpu_torch.parallel import Planner
-
-    if device == "cuda":
-        torch.cuda.reset_peak_memory_stats()
-    h = Holder(device=device)
-    n_cols, n_bits, import_s = build_count_index(h, count_shards, COUNT_DENSITY, SEED)
-    log(f"count index: {count_shards} shards, {n_cols} columns, 2 rows x "
-        f"{n_bits} random positions; import_bits {import_s:.3f} s (host)")
-    t0 = time.perf_counter()
-    data = build_topn_index(torch, h, topn_cols, topn_rows, SEED + 1)
-    log(f"topn index: {len(data)} shards, {topn_cols} columns, {topn_rows} "
-        f"rows; made and loaded in {time.perf_counter() - t0:.3f} s")
-
-    # numpy oracles over the fragments' host words.
-    fw = np.stack([h.fragment("bench", "f", "standard", s).row_words(1)
-                   for s in range(count_shards)])
-    gw = np.stack([h.fragment("bench", "g", "standard", s).row_words(2)
-                   for s in range(count_shards)])
-    want = {
-        "count_intersect": int(popcount_rows(fw & gw).sum()),
-        "count_row": int(popcount_rows(fw).sum()),
-        "count_3leaf": int(popcount_rows((fw & gw) | gw).sum()),
-    }
-    del fw, gw
-    want_topn = topn_oracle(data, 10)
-    assert all(h.fragment("topn", "f2", "standard", 0).rows[r].is_dense
-               for r in range(topn_rows)), "TopN rows must be dense"
-
-    ex = Executor(h, planner=Planner(h))
-    launches = {}
-    first_ms = {}
-    # The main path's run: counters at 0 just before, read just after.
-    kernels.reset_launches()
-    for name, q in COUNT_QUERIES.items():
-        before = dict(kernels.LAUNCHES)
-        t0 = time.perf_counter()
-        (got,) = ex.execute("bench", q)
-        first_ms[name] = (time.perf_counter() - t0) * 1e3
-        launches[name] = {k: kernels.LAUNCHES[k] - before[k] for k in before}
-        if got != want[name]:
-            raise AssertionError(f"{q}: got {got}, numpy oracle {want[name]}")
-        log(f"{q} = {got} (numpy oracle {want[name]}), launches {launches[name]}")
-    before = dict(kernels.LAUNCHES)
-    t0 = time.perf_counter()
-    (pairs,) = ex.execute("topn", TOPN_QUERY)
-    first_ms["topn"] = (time.perf_counter() - t0) * 1e3
-    launches["topn"] = {k: kernels.LAUNCHES[k] - before[k] for k in before}
-    got_topn = [(p.id, p.count) for p in pairs]
-    if got_topn != want_topn:
-        raise AssertionError(f"{TOPN_QUERY}: got {got_topn}, oracle {want_topn}")
-    log(f"{TOPN_QUERY} = {got_topn} (numpy oracle equal), launches {launches['topn']}")
-    main_launches = dict(kernels.LAUNCHES)
-    log(f"main path launches: {main_launches}")
-    if device == "cuda":
-        for k in ("pair_count", "row_counts"):
-            if main_launches[k] < 1:
-                raise AssertionError(f"kernel {k} was not launched on the main path")
-    log(f"first-run ms (stacks built and uploaded): "
-        f"{json.dumps({k: round(v, 3) for k, v in first_ms.items()})}")
-
-    lat = {}
-    for name, q in COUNT_QUERIES.items():
-        lat[name] = p50_ms(lambda q=q: ex.execute("bench", q), runs)
-    lat["topn"] = p50_ms(lambda: ex.execute("topn", TOPN_QUERY), runs)
-    for name, (ms, spread) in lat.items():
-        q = COUNT_QUERIES.get(name, TOPN_QUERY)
-        log(f"p50 {q}: {ms:.4f} ms ({spread}) over {runs} runs, warm stacks, "
-            f"host clock to the answer on the host  [{card}]")
-    if device == "cuda":
-        log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-        for index, q in (("bench", COUNT_QUERIES["count_intersect"]), ("topn", TOPN_QUERY)):
-            busy, wall = device_busy_ms(torch, lambda index=index, q=q: ex.execute(index, q),
-                                        PROFILE_RUNS)
-            share = f"{busy / wall:.1%} busy" if busy else "device time not measured"
-            log(f"profile {q}: device {busy:.4f} ms of {wall:.4f} ms wall per query "
-                f"({share}), torch.profiler over {PROFILE_RUNS} runs  [{card}]")
-    return {"launches": main_launches}
-
-
-# -- phase 4: the BSI path at full size --------------------------------------
 
 
 def bsi_data(n_shards: int, seed: int):
@@ -622,34 +556,208 @@ def extreme_oracle(shards: np.ndarray, vals: np.ndarray, is_min: bool):
     return {"value": int(best), "count": int(counts[first])}
 
 
-def phase_bsi(torch, card: str, device: str = "cuda", n_shards: int = BSI_SHARDS,
-              runs: int = QUERY_RUNS) -> dict:
-    from pilosa_tpu_torch import interop
+def phase_data(torch, card: str, data: dict, device: str = "cuda",
+               count_shards: int = COUNT_SHARDS, topn_cols: int = TOPN_COLS,
+               topn_rows: int = TOPN_ROWS, bsi_shards: int = BSI_SHARDS) -> dict:
+    """Boot the node, create the schema over HTTP, load the three datasets
+    into ``node.holder`` with ``build_*_index`` and compute the numpy oracles.
+    Every later phase reads ``data``: the in-process phases through their
+    own ``Executor``, the HTTP phase through the node."""
     from pilosa_tpu_torch.config import SHARD_WIDTH
-    from pilosa_tpu_torch.core import FieldOptions, Holder
+    from pilosa_tpu_torch.server import ServerNode
+
+    t0 = time.perf_counter()
+    node = data["node"] = ServerNode(bind="127.0.0.1:0", device=device)
+    node.open()
+    data["device"] = device
+    h = data["holder"] = node.holder
+    log(f"node: {node.address} on {h.device}, booted in "
+        f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
+    conn = http_client(node.port)
+    for path, opts in SCHEMA:
+        expect_ok(conn, "POST", path, {"options": opts} if opts else None)
+    schema = json.loads(expect_ok(conn, "GET", "/schema"))
+    fields = {i["name"]: [f["name"] for f in i["fields"]] for i in schema["indexes"]}
+    if fields != {"bench": ["f", "g"], "bsi": ["f", "v"], "topn": ["f2", "g"]}:
+        raise AssertionError(f"schema over HTTP: {fields}")
+    conn.close()
+    log(f"schema over HTTP: {fields}")
+
+    n_cols, n_bits, import_s = build_count_index(h, count_shards, COUNT_DENSITY, SEED)
+    log(f"count index: {count_shards} shards, {n_cols} columns, 2 rows x "
+        f"{n_bits} random positions; import_bits {import_s:.3f} s (host)")
+    fw = np.stack([h.fragment("bench", "f", "standard", s).row_words(1)
+                   for s in range(count_shards)])
+    gw = np.stack([h.fragment("bench", "g", "standard", s).row_words(2)
+                   for s in range(count_shards)])
+    data["want_count"] = {
+        "count_intersect": int(popcount_rows(fw & gw).sum()),
+        "count_row": int(popcount_rows(fw).sum()),
+        "count_3leaf": int(popcount_rows((fw & gw) | gw).sum()),
+    }
+    data["count_cols"] = n_cols
+    del fw, gw
+
+    t0 = time.perf_counter()
+    words = build_topn_index(torch, h, topn_cols, topn_rows, SEED + 1)
+    log(f"topn index: {len(words)} shards, {topn_cols} columns, {topn_rows} "
+        f"rows; made and loaded in {time.perf_counter() - t0:.3f} s")
+    data["want_topn"] = topn_oracle(words, 10)
+    del words
+    if not all(h.fragment("topn", "f2", "standard", 0).rows[r].is_dense
+               for r in range(topn_rows)):
+        raise AssertionError("TopN rows must be dense")
+
+    t0 = time.perf_counter()
+    n_cols, cols, vals, fpos = bsi_data(bsi_shards, SEED + 2)
+    idx = h.index_or_raise("bsi")
+    opts = idx.field("v").options
+    planes = bsi_planes(cols, vals, bsi_shards, idx.field("v").bsi_group.bit_depth)
+    from pilosa_tpu_torch import interop
+    for shard in range(bsi_shards):
+        interop.load_bsi_planes(h, "bsi", "v", shard, planes[:, shard], opts)
+    del planes
+    idx.field("f").import_bits(np.ones(len(fpos), dtype=np.uint64),
+                               fpos.astype(np.uint64))
+    log(f"bsi index: {bsi_shards} shards, {n_cols} columns, {len(vals)} values in "
+        f"[{BSI_MIN}, {BSI_MAX}) at depth {idx.field('v').bsi_group.bit_depth}, "
+        f"filter of {len(fpos)} positions; made and loaded through interop in "
+        f"{time.perf_counter() - t0:.3f} s (host)")
+    shards = cols >> SHARD_WIDTH.bit_length() - 1
+    in_f = np.isin(cols, fpos)
+    neg = vals < 0
+    data["want_bsi"] = {
+        "sum": {"value": int(vals.sum()), "count": len(vals)},
+        "min": extreme_oracle(shards, vals, True),
+        "max": extreme_oracle(shards, vals, False),
+        "sum_filtered": {"value": int(vals[in_f].sum()), "count": int(in_f.sum())},
+        "count_gt": int((vals > 50000).sum()),
+        "count_between": int(((vals >= -1000) & (vals <= 1000)).sum()),
+        "max_of_negatives": extreme_oracle(shards[neg], vals[neg], False),
+    }
+    data["bsi_values"] = (cols, vals)  # for the import_values check; freed there
+    data["bsi_shards"], data["bsi_cols"] = bsi_shards, n_cols
+    return {}
+
+
+# -- phase 4: the main path in process ----------------------------------------
+
+
+def p50_ms(fn, runs: int) -> tuple[float, str]:
+    """(median ms, "p25 x, p75 y" spread) of ``runs`` host-clock calls."""
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    q1, _, q3 = statistics.quantiles(times, n=4)
+    return statistics.median(times), f"p25 {q1:.4f}, p75 {q3:.4f}"
+
+
+def device_busy_ms(torch, fn, runs: int) -> tuple[float, float]:
+    """(device ms, wall ms) per call of ``fn`` under torch.profiler: the
+    device time is the sum of every kernel's and copy's own time on the
+    card; the wall time, host clock around the traced calls, includes the
+    profiler's own overhead."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / runs
+    # Only the device-side events: a CPU op's device total repeats the
+    # time of the kernels it launched.
+    busy_us = sum(e.device_time_total for e in prof.events()
+                  if e.device_type == DeviceType.CUDA)
+    return busy_us / 1e3 / runs, wall
+
+
+def phase_main_path(torch, card: str, data: dict, runs: int = QUERY_RUNS) -> dict:
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.ops import kernels
+    from pilosa_tpu_torch.parallel import Planner
+
+    device, h = data["device"], data["holder"]
+    want, want_topn = data["want_count"], data["want_topn"]
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    ex = Executor(h, planner=Planner(h))
+    launches = {}
+    first_ms = {}
+    # The main path's run: counters at 0 just before, read just after.
+    kernels.reset_launches()
+    for name, q in COUNT_QUERIES.items():
+        before = dict(kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        (got,) = ex.execute("bench", q)
+        first_ms[name] = (time.perf_counter() - t0) * 1e3
+        launches[name] = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+        if got != want[name]:
+            raise AssertionError(f"{q}: got {got}, numpy oracle {want[name]}")
+        log(f"{q} = {got} (numpy oracle {want[name]}), launches {launches[name]}")
+    before = dict(kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    (pairs,) = ex.execute("topn", TOPN_QUERY)
+    first_ms["topn"] = (time.perf_counter() - t0) * 1e3
+    launches["topn"] = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+    got_topn = [(p.id, p.count) for p in pairs]
+    if got_topn != want_topn:
+        raise AssertionError(f"{TOPN_QUERY}: got {got_topn}, oracle {want_topn}")
+    log(f"{TOPN_QUERY} = {got_topn} (numpy oracle equal), launches {launches['topn']}")
+    main_launches = dict(kernels.LAUNCHES)
+    log(f"main path launches: {main_launches}")
+    if device == "cuda":
+        for k in ("pair_count", "row_counts"):
+            if main_launches[k] < 1:
+                raise AssertionError(f"kernel {k} was not launched on the main path")
+    log(f"first-run ms (stacks built and uploaded): "
+        f"{json.dumps({k: round(v, 3) for k, v in first_ms.items()})}")
+
+    lat = {}
+    for name, q in COUNT_QUERIES.items():
+        lat[name] = p50_ms(lambda q=q: ex.execute("bench", q), runs)
+    lat["topn"] = p50_ms(lambda: ex.execute("topn", TOPN_QUERY), runs)
+    for name, (ms, spread) in lat.items():
+        q = COUNT_QUERIES.get(name, TOPN_QUERY)
+        log(f"p50 {q}: {ms:.4f} ms ({spread}) over {runs} runs, warm stacks, "
+            f"host clock to the answer on the host  [{card}]")
+    if device == "cuda":
+        log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        for index, q in (("bench", COUNT_QUERIES["count_intersect"]), ("topn", TOPN_QUERY)):
+            busy, wall = device_busy_ms(torch, lambda index=index, q=q: ex.execute(index, q),
+                                        PROFILE_RUNS)
+            share = f"{busy / wall:.1%} busy" if busy else "device time not measured"
+            log(f"profile {q}: device {busy:.4f} ms of {wall:.4f} ms wall per query "
+                f"({share}), torch.profiler over {PROFILE_RUNS} runs  [{card}]")
+    return {"launches": main_launches}
+
+
+# -- phase 5: the BSI path in process -----------------------------------------
+
+
+def phase_bsi(torch, card: str, data: dict, runs: int = QUERY_RUNS) -> dict:
+    from pilosa_tpu_torch.config import SHARD_WIDTH
+    from pilosa_tpu_torch.core import FieldOptions
     from pilosa_tpu_torch.exec import Executor, result_to_json
     from pilosa_tpu_torch.ops import kernels
     from pilosa_tpu_torch.parallel import Planner
 
+    device, h, want = data["device"], data["holder"], data["want_bsi"]
+    n_shards = data["bsi_shards"]
+    cols, vals = data.pop("bsi_values")
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    n_cols, cols, vals, fpos = bsi_data(n_shards, SEED + 2)
-    opts = FieldOptions(type="int", min=BSI_MIN, max=BSI_MAX)
-    h = Holder(device=device)
-    idx = h.create_index("bsi")
-    depth = idx.create_field("v", opts).bsi_group.bit_depth
-    planes = bsi_planes(cols, vals, n_shards, depth)
-    for shard in range(n_shards):
-        interop.load_bsi_planes(h, "bsi", "v", shard, planes[:, shard], opts)
-    idx.create_field("f").import_bits(np.ones(len(fpos), dtype=np.uint64),
-                                      fpos.astype(np.uint64))
-    log(f"bsi index: {n_shards} shards, {n_cols} columns, {len(vals)} values in "
-        f"[{BSI_MIN}, {BSI_MAX}) at depth {depth}, filter of {len(fpos)} positions; "
-        f"made and loaded through interop in {time.perf_counter() - t0:.3f} s (host)")
+    idx = h.index_or_raise("bsi")
+    depth = idx.field("v").bsi_group.bit_depth
 
-    # Field.import_values writes the same planes: BSI_IMPORT_SHARDS shards,
-    # or every shard when that projects under BSI_FULL_IMPORT_S.
+    # Field.import_values writes the same planes as the interop load:
+    # BSI_IMPORT_SHARDS shards, or every shard when that projects under
+    # BSI_FULL_IMPORT_S.
     shard_of = cols >> SHARD_WIDTH.bit_length() - 1
     vi = idx.create_field("vi", FieldOptions(type="int", min=BSI_MIN, max=BSI_MAX))
     cut = int(np.searchsorted(shard_of, BSI_IMPORT_SHARDS))
@@ -673,22 +781,8 @@ def phase_bsi(torch, card: str, device: str = "cuda", n_shards: int = BSI_SHARDS
     scope = "all" if checked == n_shards else f"projected {projected:.3f} s for all"
     log(f"Field.import_values: {checked} of {n_shards} shards ({scope}) "
         f"in {part_s:.3f} s (host); planes equal to the interop planes")
-    del planes
+    del cols, vals, shard_of
     idx.delete_field("vi")
-
-    shards = cols >> SHARD_WIDTH.bit_length() - 1
-    in_f = np.isin(cols, fpos)
-    neg = vals < 0
-    want = {
-        "sum": {"value": int(vals.sum()), "count": len(vals)},
-        "min": extreme_oracle(shards, vals, True),
-        "max": extreme_oracle(shards, vals, False),
-        "sum_filtered": {"value": int(vals[in_f].sum()), "count": int(in_f.sum())},
-        "count_gt": int((vals > 50000).sum()),
-        "count_between": int(((vals >= -1000) & (vals <= 1000)).sum()),
-        "max_of_negatives": extreme_oracle(shards[neg], vals[neg], False),
-    }
-    del cols, vals, fpos, shards, in_f, neg
 
     ex = Executor(h, planner=Planner(h))
     launches, first_ms = {}, {}
@@ -732,6 +826,241 @@ def phase_bsi(torch, card: str, device: str = "cuda", n_shards: int = BSI_SHARDS
     return {"launches": path_launches}
 
 
+# -- phase 6: every query through the HTTP edge -------------------------------
+
+
+def http_queries(data: dict) -> list[tuple[str, str, str, object]]:
+    """(index, name, PQL, oracle result) of every query the paths ask."""
+    out = [("bench", name, q, data["want_count"][name]) for name, q in COUNT_QUERIES.items()]
+    out.append(("topn", "topn", TOPN_QUERY,
+                [{"id": i, "count": c} for i, c in data["want_topn"]]))
+    out += [("bsi", name, q, data["want_bsi"][name]) for name, q in BSI_QUERIES.items()]
+    return out
+
+
+def spread_ms(times: list[float]) -> str:
+    q1, q2, q3 = statistics.quantiles(times, n=4)
+    return f"p50 {q2:.4f} (p25 {q1:.4f}, p75 {q3:.4f})"
+
+
+
+
+def http_import_check(conn, data: dict, card: str) -> None:
+    """One JSON import of HTTP_IMPORT_N bits into a new set field and one
+    of about HTTP_IMPORT_N values into a new int field, each checked by
+    Count over HTTP against numpy."""
+    rng = np.random.default_rng(SEED + 3)
+    n_cols = data["count_cols"]
+    rows = rng.integers(0, 4, HTTP_IMPORT_N, dtype=np.int64)
+    cols = rng.integers(0, n_cols, HTTP_IMPORT_N, dtype=np.int64)
+    expect_ok(conn, "POST", "/index/bench/field/h")
+    body = json.dumps({"rowIDs": rows.tolist(), "columnIDs": cols.tolist()})
+    t0 = time.perf_counter()
+    expect_ok(conn, "POST", "/index/bench/field/h/import", body)
+    bits_ms = (time.perf_counter() - t0) * 1e3
+    pairs = np.unique(rows * n_cols + cols)
+    checks = [("bench", f"Count(Row(h={r}))", int((pairs // n_cols == r).sum()))
+              for r in range(4)]
+
+    vcols = np.unique(rng.integers(0, data["bsi_cols"], HTTP_IMPORT_N, dtype=np.int64))
+    vals = rng.integers(BSI_MIN, BSI_MAX, len(vcols), dtype=np.int64)
+    expect_ok(conn, "POST", "/index/bsi/field/w",
+              {"options": {"type": "int", "min": BSI_MIN, "max": BSI_MAX}})
+    body = json.dumps({"columnIDs": vcols.tolist(), "values": vals.tolist()})
+    t0 = time.perf_counter()
+    expect_ok(conn, "POST", "/index/bsi/field/w/import", body)
+    vals_ms = (time.perf_counter() - t0) * 1e3
+    checks += [("bsi", "Count(Row(w != null))", len(vcols)),
+               ("bsi", "Count(Row(w > 50000))", int((vals > 50000).sum())),
+               ("bsi", "Sum(field=w)", {"value": int(vals.sum()), "count": len(vcols)})]
+    for index, q, want in checks:
+        got = json.loads(expect_ok(conn, "POST", f"/index/{index}/query", q))["results"][0]
+        if got != want:
+            raise AssertionError(f"{q} after the HTTP import: {got}, numpy {want}")
+    log(f"HTTP JSON import: {HTTP_IMPORT_N} bits in {bits_ms:.3f} ms, {len(vcols)} "
+        f"values in {vals_ms:.3f} ms (client clock); {len(checks)} Counts over HTTP "
+        f"equal to numpy  [{card}]")
+
+
+def run_clients(port: int, mix: list, launches_of: dict, clients: int,
+                per_client: int):
+    """``clients`` threads, each sending ``per_client`` requests of ``mix``
+    ((index, PQL, expected body)) in turn on its own connection. Returns
+    (latencies ms, wall s, launches counted, launches expected); raises
+    if any answer differs from its expected body."""
+    import threading
+
+    from pilosa_tpu_torch.ops import kernels
+
+    lat, errors = [], []
+    lock = threading.Lock()
+
+    def client(k):
+        c = http_client(port)
+        try:
+            for i in range(per_client):
+                index, q, want_body = mix[(k + i) % len(mix)]
+                t0 = time.perf_counter()
+                status, body = request(c, "POST", f"/index/{index}/query", q)
+                ms = (time.perf_counter() - t0) * 1e3
+                with lock:
+                    lat.append(ms)
+                    if status != 200 or body != want_body:
+                        errors.append((q, status, body[:200]))
+        except Exception as e:  # reported below, as a failed answer
+            with lock:
+                errors.append(("client", k, repr(e)))
+        finally:
+            c.close()
+
+    want = dict.fromkeys(kernels.LAUNCHES, 0)
+    for k in range(clients):
+        for i in range(per_client):
+            for kern, v in launches_of[mix[(k + i) % len(mix)][1]].items():
+                want[kern] += v
+    kernels.reset_launches()
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise AssertionError(f"{len(errors)} of {clients} clients' answers wrong: "
+                             f"{errors[:3]}")
+    return lat, wall, dict(kernels.LAUNCHES), want
+
+
+def phase_http(torch, card: str, data: dict, runs: int = QUERY_RUNS,
+               n_threads: int = HTTP_THREADS, per_thread: int = HTTP_PER_THREAD) -> dict:
+    """Every query of the paths through ``POST /index/{i}/query`` on the
+    node: each body equal to the numpy oracle and byte-equal to the JSON of
+    ``node.executor.execute`` on the same holder, with the same launches per
+    request; warm latencies beside the in-process ones; /metrics; 8
+    concurrent clients; a JSON import; the error statuses."""
+    from pilosa_tpu_torch.exec import result_to_json
+    from pilosa_tpu_torch.ops import kernels
+
+    device, node = data["device"], data["node"]
+    ex = node.executor
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    conn = http_client(node.port)
+    queries = http_queries(data)
+
+    def inproc_body(index, q) -> bytes:
+        results = ex.execute(index, q)
+        return (json.dumps({"results": [result_to_json(r) for r in results]})
+                + "\n").encode()
+
+    # The serial run: counters at 0 just before, read just after; each
+    # request's launches beside the same query's in process.
+    per_query = {}
+    first_ms = {}
+    http_launches = dict.fromkeys(kernels.LAUNCHES, 0)
+    kernels.reset_launches()
+    for index, name, q, want in queries:
+        before = dict(kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        status, body = request(conn, "POST", f"/index/{index}/query", q)
+        first_ms[name] = (time.perf_counter() - t0) * 1e3
+        over_http = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+        before = dict(kernels.LAUNCHES)
+        direct = inproc_body(index, q)
+        in_process = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+        if status != 200:
+            raise AssertionError(f"{q}: HTTP {status} {body[:300]!r}")
+        got = json.loads(body)["results"]
+        if got != [want]:
+            raise AssertionError(f"{q} over HTTP: {got}, numpy oracle {[want]}")
+        if body != direct:
+            raise AssertionError(f"{q}: HTTP body {body[:200]!r} is not the "
+                                 f"in-process JSON {direct[:200]!r}")
+        if over_http != in_process:
+            raise AssertionError(f"{q}: launches over HTTP {over_http}, "
+                                 f"in process {in_process}")
+        per_query[name] = over_http
+        for k, v in over_http.items():
+            http_launches[k] += v
+        log(f"HTTP {q} = oracle, body byte-equal to in-process, launches {over_http}")
+    if device == "cuda":
+        for k, v in http_launches.items():
+            if v < 1:
+                raise AssertionError(f"kernel {k} was not launched behind the HTTP edge")
+        if per_query["count_intersect"] != {"pair_count": 1, "row_counts": 0,
+                                            "bsi_compare": 0, "bsi_minmax": 0}:
+            raise AssertionError(f"Count(Intersect) over HTTP launched "
+                                 f"{per_query['count_intersect']}")
+    log(f"http path launches: {http_launches}")
+    log(f"first request on the node's cold planner: "
+        f"{first_ms['count_intersect']:.3f} ms ({COUNT_QUERIES['count_intersect']}, "
+        f"stacks built from the holder's host rows and uploaded)")
+    log(f"first-request ms per query: "
+        f"{json.dumps({k: round(v, 3) for k, v in first_ms.items()})}")
+
+    # Warm latencies on the client's clock beside in-process Executor.execute.
+    for index, name, q, _ in queries:
+        times = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            status, _body = request(conn, "POST", f"/index/{index}/query", q)
+            times.append((time.perf_counter() - t0) * 1e3)
+            if status != 200:
+                raise AssertionError(f"{q}: HTTP {status}")
+        direct, spread = p50_ms(lambda index=index, q=q: ex.execute(index, q), runs)
+        edge = statistics.median(times) - direct
+        log(f"HTTP {q}: {spread_ms(times)} ms over {runs} requests, keep-alive "
+            f"loopback, client clock; in process p50 {direct:.4f} ms ({spread}); "
+            f"edge {edge:.4f} ms  [{card}]")
+
+    metrics = expect_ok(conn, "GET", "/metrics").decode()
+    line = next((ln for ln in metrics.splitlines() if ln.startswith(
+        'pilosa_qos_service_seconds_count{class="interactive"}')), None)
+    if line is None:
+        raise AssertionError("/metrics has no qos_serviceSeconds for class interactive")
+    log(f"/metrics: {line}")
+
+    # Clients each on their own keep-alive connection, mixing three
+    # queries; every answer must be the serial one, and the launches the
+    # serial ones summed. One client first, as the serial baseline.
+    mix = [(i, q, (json.dumps({"results": [w]}) + "\n").encode())
+           for i, name, q, w in queries if name in ("count_intersect", "topn", "sum_filtered")]
+    launches_of = {q: per_query[name] for _, name, q, _ in queries}
+    for clients in (1, n_threads):
+        lat, wall, got_launches, want_launches = run_clients(
+            node.port, mix, launches_of, clients, per_thread)
+        if got_launches != want_launches:
+            raise AssertionError(f"{clients} clients launched {got_launches}, "
+                                 f"serial sum {want_launches}")
+        p99 = statistics.quantiles(lat, n=100)[98]
+        log(f"concurrent: {clients} client(s) x {per_thread} requests "
+            f"(Count(Intersect), filtered TopN, Sum(Row(f=1))), all {len(lat)} answers "
+            f"correct; {len(lat) / wall:.3f} queries/s, p50 {statistics.median(lat):.4f} "
+            f"ms, p99 {p99:.4f} ms; launches {got_launches} = serial sum  [{card}]")
+
+    conn.close()
+    conn = http_client(node.port)  # the serial one may have idled out
+    # After the timed runs: the new int field's cube can push the v cube
+    # out of the planner's budget.
+    http_import_check(conn, data, card)
+    for what, path, q, headers, want in (
+            ("unknown index", "/index/nope/query", "Count(Row(f=1))", None, 404),
+            ("parse error", "/index/bench/query", "Count(Row(f=1)", None, 400),
+            ("expired X-Deadline", "/index/bench/query", COUNT_QUERIES["count_intersect"],
+             {"X-Deadline": f"{time.time() - 1:.6f}"}, 504),
+            ("Not()", "/index/bench/query", "Count(Not(Row(f=1)))", None, 501)):
+        status, body = request(conn, "POST", path, q, headers)
+        if status != want:
+            raise AssertionError(f"{what}: HTTP {status}, expected {want}: {body!r}")
+        log(f"{what}: HTTP {status} {body.decode().strip()}")
+    conn.close()
+    if device == "cuda":
+        log(f"peak device memory of the http phase: "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    return {"launches": http_launches}
+
+
 # -- main ---------------------------------------------------------------------
 
 
@@ -748,24 +1077,36 @@ def main() -> int:
     card = card_line()
     results: dict = {}
     failed: list[str] = []
-    for name, phase in (("toolchain", phase_toolchain), ("kernels", phase_kernels),
-                        ("main_path", phase_main_path), ("bsi", phase_bsi)):
-        log(f"== phase {name}")
-        try:
-            results[name] = phase(torch, card)
-        except Exception:  # report every phase, then fail as a whole
-            traceback.print_exc()
-            sys.stdout.flush()
-            failed.append(name)
-            if name == "toolchain":
-                break
+    data: dict = {}
+    phases = (("toolchain", lambda: phase_toolchain(torch, card)),
+              ("kernels", lambda: phase_kernels(torch, card)),
+              ("data", lambda: phase_data(torch, card, data)),
+              ("main_path", lambda: phase_main_path(torch, card, data)),
+              ("bsi", lambda: phase_bsi(torch, card, data)),
+              ("http", lambda: phase_http(torch, card, data)))
+    try:
+        for name, phase in phases:
+            log(f"== phase {name}")
+            t0 = time.perf_counter()
+            try:
+                results[name] = phase()
+            except Exception:  # report every phase, then fail as a whole
+                traceback.print_exc()
+                sys.stdout.flush()
+                failed.append(name)
+                if name in ("toolchain", "data"):
+                    break
+            log(f"phase {name}: {time.perf_counter() - t0:.3f} s")
+    finally:
+        if "node" in data:
+            data["node"].close()
     if failed:
         print(f"chip_smoke: phases failed: {failed}", file=sys.stderr)
         return 1
 
     timings = results["kernels"]["timings"]
     errs = results["kernels"]["errs"]
-    launches = {k: results["main_path"]["launches"][k] + results["bsi"]["launches"][k]
+    launches = {k: sum(results[p]["launches"][k] for p in ("main_path", "bsi", "http"))
                 for k in errs}
     sources = {"pair_count": "pilosa_tpu_torch/csrc/count_kernels.cu",
                "row_counts": "pilosa_tpu_torch/csrc/count_kernels.cu",

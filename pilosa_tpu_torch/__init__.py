@@ -23,3 +23,5 @@ Layering, as in pilosa_tpu:
 """
 
 from pilosa_tpu_torch.config import SHARD_WIDTH, shard_width_exponent  # noqa: F401
+
+__version__ = "0.1.0"

@@ -2,10 +2,11 @@
 an int field (bit-sliced integers in the ``bsig_<field>`` view).
 
 The port's counterpart of pilosa_tpu/core/field.py, set and int fields.
-Reference: field.go (FieldOptions :1419, SetBit :927, ClearBit :967,
-SetValue :1075, Sum/Min/Max/Range :1121-1201, Import :1204, importValue
-:1285, bsiGroup :1561-1643). Time, mutex and bool fields and keyed fields
-raise ``NotPortedError`` naming the slice of ROADMAP.md that ports them.
+Reference: field.go (FieldOptions :1419, deleteView :889, SetBit :927,
+ClearBit :967, SetValue :1075, Sum/Min/Max/Range :1121-1201, Import :1204,
+importValue :1285, bsiGroup :1561-1643). Time, mutex and bool fields and
+keyed fields raise ``NotPortedError`` naming the slice of ROADMAP.md that
+ports them.
 """
 
 from __future__ import annotations
@@ -91,6 +92,21 @@ class FieldOptions:
                     "max": self.max, "keys": self.keys}
         return {"type": self.type, "cacheType": self.cache_type,
                 "cacheSize": self.cache_size, "keys": self.keys}
+
+    @classmethod
+    def from_json(cls, d: dict) -> "FieldOptions":
+        """The JSON options of ``POST /index/{i}/field/{f}``. Time views
+        (``timeQuantum``, ``noStandardView``) come with a later slice."""
+        if d.get("timeQuantum") or d.get("noStandardView"):
+            raise NotPortedError("a field with time views", SLICE_FIELDS)
+        return cls(
+            type=d.get("type", FIELD_TYPE_SET),
+            cache_type=d.get("cacheType", CACHE_TYPE_RANKED),
+            cache_size=d.get("cacheSize", DEFAULT_CACHE_SIZE),
+            min=d.get("min", 0), max=d.get("max", 0),
+            base=d.get("base", 0), bit_depth=d.get("bitDepth", 0),
+            keys=d.get("keys", False),
+        )
 
 
 @dataclass
@@ -196,6 +212,22 @@ class Field:
 
     def view(self, name: str) -> View | None:
         return self.views.get(name)
+
+    def view_names(self) -> list[str]:
+        return sorted(self.views)
+
+    def delete_view(self, name: str) -> list[int]:
+        """Drop one view and its fragments (reference Field.deleteView,
+        field.go:889). Returns the shards the view held; a missing view is
+        a no-op."""
+        with self._lock:
+            v = self.views.pop(name, None)
+            if v is None:
+                return []
+            shards = sorted(v.fragments)
+        if self.epoch is not None:
+            self.epoch.bump()
+        return shards
 
     def create_view_if_not_exists(self, name: str) -> View:
         with self._lock:
@@ -401,6 +433,9 @@ class Field:
             frag = view.create_fragment_if_not_exists(int(shards[lo]))
             frag.import_values(cols[lo:hi], vals[lo:hi], bsig.bit_depth,
                                clear=clear)
+
+    def info(self) -> dict:
+        return {"name": self.name, "options": self.options.to_json()}
 
     def __repr__(self):
         return f"Field({self.index}/{self.name} type={self.options.type})"

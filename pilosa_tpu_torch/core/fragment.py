@@ -22,6 +22,7 @@ port (ROADMAP.md Queue 1).
 
 from __future__ import annotations
 
+import itertools
 import threading
 from typing import Iterable
 
@@ -55,6 +56,9 @@ STACK_CACHE_MAX_ROWS = 1024
 MAX_RESIDENT_TILES = 8
 
 
+_instance_counter = itertools.count(1)
+
+
 class Fragment:
     """One shard of one view of one field."""
 
@@ -73,6 +77,10 @@ class Fragment:
         #: index-wide caches (planner leaf stacks) validate in O(1).
         self.epoch = epoch
 
+        #: process-unique identity: a fragment of a deleted and recreated
+        #: field or view restarts its generation, so caches validated by
+        #: generation also compare this.
+        self.instance_id = next(_instance_counter)
         self.rows: dict[int, HostRow] = {}
         self.generation = 0
         #: generation-stamped (gen, ids, counts) — see row_counts().
@@ -185,6 +193,13 @@ class Fragment:
 
     def row_ids(self) -> list[int]:
         return sorted(self.rows)
+
+    def rows_snapshot(self) -> list[tuple[int, np.ndarray]]:
+        """Atomic [(row_id, positions)] snapshot of every row, sorted by
+        id: the shard-relative sorted positions, for ``GET /export``."""
+        with self._lock:
+            return [(rid, self.rows[rid].to_positions())
+                    for rid in sorted(self.rows)]
 
     def row_words(self, row_id: int) -> np.ndarray:
         """Host dense uint32 block for one row (zeros if absent). Locked:

@@ -2,7 +2,7 @@
 the device every index, field, fragment and planner under it uses.
 
 The port's counterpart of pilosa_tpu/core/holder.py. Reference: holder.go
-(struct :50, fragment accessor :496).
+(struct :50, Schema/applySchema :284/:327, fragment accessor :496).
 """
 
 from __future__ import annotations
@@ -11,7 +11,7 @@ import threading
 
 import torch
 
-from pilosa_tpu_torch.core.field import Field
+from pilosa_tpu_torch.core.field import Field, FieldOptions
 from pilosa_tpu_torch.core.fragment import Fragment
 from pilosa_tpu_torch.core.index import Index, IndexOptions
 from pilosa_tpu_torch.device import resolve_device
@@ -29,6 +29,12 @@ class Holder:
 
     def index(self, name: str) -> Index | None:
         return self.indexes.get(name)
+
+    def index_or_raise(self, name: str) -> Index:
+        idx = self.indexes.get(name)
+        if idx is None:
+            raise IndexNotFoundError(f"index not found: {name!r}")
+        return idx
 
     def create_index(self, name: str, options: IndexOptions | None = None) -> Index:
         with self._lock:
@@ -59,6 +65,23 @@ class Holder:
             return None
         v = f.view(view)
         return v.fragment(shard) if v else None
+
+    # -- schema (reference holder.go:284 Schema, :327 applySchema) ---------
+
+    def schema(self) -> list[dict]:
+        return [idx.info() for _, idx in sorted(self.indexes.items())]
+
+    def apply_schema(self, schema: list[dict]) -> None:
+        """Create any missing indexes/fields described by a schema dump."""
+        for idx_info in schema:
+            idx = self.create_index_if_not_exists(
+                idx_info["name"], IndexOptions.from_json(idx_info.get("options", {})))
+            for f_info in idx_info.get("fields", []):
+                idx.create_field_if_not_exists(
+                    f_info["name"], FieldOptions.from_json(f_info.get("options", {})))
+
+    def index_names(self) -> list[str]:
+        return sorted(self.indexes)
 
     def __repr__(self):
         return f"Holder(device={self.device}, indexes={sorted(self.indexes)})"

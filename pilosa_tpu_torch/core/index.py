@@ -34,6 +34,14 @@ class IndexOptions:
     keys: bool = False
     track_existence: bool = True
 
+    def to_json(self) -> dict:
+        return {"keys": self.keys, "trackExistence": self.track_existence}
+
+    @classmethod
+    def from_json(cls, d: dict) -> "IndexOptions":
+        return cls(keys=d.get("keys", False),
+                   track_existence=d.get("trackExistence", True))
+
 
 class Epoch:
     """Monotonic mutation counter for one index.
@@ -92,6 +100,10 @@ class Index:
     def existence_field(self) -> Field | None:
         return self.fields.get(EXISTENCE_FIELD_NAME)
 
+    def public_fields(self) -> list[Field]:
+        return [f for n, f in sorted(self.fields.items())
+                if n != EXISTENCE_FIELD_NAME]
+
     def create_field(self, name: str, options: FieldOptions | None = None) -> Field:
         with self._lock:
             if name in self.fields:
@@ -135,6 +147,13 @@ class Index:
         out = out or {0}
         self._avail_shards_cache = (stamp, frozenset(out))
         return out
+
+    def info(self) -> dict:
+        return {
+            "name": self.name,
+            "options": self.options.to_json(),
+            "fields": [f.info() for f in self.public_fields()],
+        }
 
     def __repr__(self):
         return f"Index({self.name} fields={sorted(self.fields)})"

@@ -1,6 +1,7 @@
 """Error types + name validation: the subset of pilosa_tpu/errors.py that
-the ported slices raise, plus ``NotPortedError`` for the parts of the JAX
-package that later slices of the port bring over.
+the ported slices raise or the HTTP edge maps, plus ``NotPortedError``
+for the parts of the JAX package that later slices of the port bring over
+(the HTTP edge answers it with 501).
 
 Reference: pilosa.go (public Err* values :40-117, nameRegexp :119,
 validateName :155).
@@ -69,10 +70,25 @@ class QueryError(PilosaError):
     message = "invalid query"
 
 
+class ApiMethodNotAllowedError(PilosaError):
+    """Reference newAPIMethodNotAllowedError (api.go:124): the cluster's
+    state refuses this operation right now (HTTP 405). A standalone node is
+    always in the NORMAL state and never raises it; the HTTP edge maps it
+    all the same."""
+
+    message = "api method not allowed"
+
+
+class FragmentNotFoundError(PilosaError):
+    message = "fragment not found"
+
+
 #: The later slices of the port, by their heading in ROADMAP.md Queue 1.
 SLICE_EXECUTOR = "executor remainder"
 SLICE_FIELDS = "packed residency, time, mutex and bool fields, GroupBy"
 SLICE_KEYS = "keys and sketches"
+SLICE_PERSISTENCE = "persistence and the rest of the data model"
+SLICE_CLUSTER = "cluster and operations"
 
 
 class NotPortedError(PilosaError):

@@ -19,10 +19,17 @@ ROADMAP.md: time views (``from``/``to``), ``MinRow``/``MaxRow``,
 keys. There is no result cache, batcher, coalescer,
 prefetcher or ``execute_async``: every query runs on the device and ends
 in a synchronising copy of its counts or columns to the host.
+
+The active deadline (``qos.deadline``, set by the HTTP edge) is checked
+between the query's calls and before each shard or shard batch, as in the
+JAX executor, so an expired query stops at the next step and never returns
+a partial result.
 """
 
 from __future__ import annotations
 
+import time
+from dataclasses import dataclass
 from typing import Any, Callable, Iterable
 
 from pilosa_tpu_torch.config import SHARD_WIDTH
@@ -43,7 +50,10 @@ from pilosa_tpu_torch.errors import (
     QueryError,
 )
 from pilosa_tpu_torch.exec.result import Pair, ValCount, merge_pairs, sort_pairs
+from pilosa_tpu_torch.obs import NopStats
+from pilosa_tpu_torch.obs import profile as _profile
 from pilosa_tpu_torch.pql import BETWEEN, GT, GTE, LT, LTE, NEQ, Call, Condition, Query, parse
+from pilosa_tpu_torch.qos.deadline import check_current as check_deadline
 
 #: reference defaultMinThreshold (executor.go:90).
 DEFAULT_MIN_THRESHOLD = 1
@@ -65,14 +75,29 @@ _NOT_PORTED = {
 _TOPN_NOT_PORTED = ("attrName", "attrValues", "tanimotoThreshold")
 
 
+@dataclass
+class ExecOptions:
+    """Reference execOptions (executor.go:62), without the cluster's
+    ``remote`` leg flag. Rows carry no attrs yet, so ``exclude_row_attrs``
+    changes nothing and ``column_attrs`` raises (ROADMAP.md Queue 1:
+    executor remainder)."""
+
+    exclude_row_attrs: bool = False
+    exclude_columns: bool = False
+    column_attrs: bool = False
+
+
 class Executor:
     """Reference executor (executor.go:72). ``planner`` (a
     ``pilosa_tpu_torch.parallel.Planner``) runs plannable calls over all
-    shards at once; without one every call runs shard by shard."""
+    shards at once; without one every call runs shard by shard. ``stats``
+    receives the node's per-class service times (the HTTP edge records
+    them through ``executor.stats``)."""
 
-    def __init__(self, holder: Holder, planner=None):
+    def __init__(self, holder: Holder, planner=None, stats=None):
         self.holder = holder
         self.planner = planner
+        self.stats = stats or NopStats()
 
     def _planner_for(self, c: Call):
         if self.planner is None:
@@ -84,11 +109,21 @@ class Executor:
     # ------------------------------------------------------------------
 
     def execute(self, index_name: str, query: Query | str,
-                shards: Iterable[int] | None = None) -> list[Any]:
+                shards: Iterable[int] | None = None,
+                opt: ExecOptions | None = None,
+                cache: bool = True) -> list[Any]:
         """Reference executor.Execute (executor.go:113): one result per
-        top-level call."""
+        top-level call. ``cache`` is accepted for the JAX executor's
+        signature; there is no result cache yet, so every query runs."""
         if isinstance(query, str):
+            prof = _profile.current()
+            t0 = time.perf_counter()
             query = parse(query)
+            if prof is not None:
+                prof.add_ms("parseMs", (time.perf_counter() - t0) * 1e3)
+        opt = opt or ExecOptions()
+        if opt.column_attrs:
+            raise NotPortedError("columnAttrs", SLICE_EXECUTOR)
         idx = self.holder.index(index_name)
         if idx is None:
             raise IndexNotFoundError(f"index not found: {index_name!r}")
@@ -96,10 +131,16 @@ class Executor:
         if shards is None and needs_shards:
             shards = sorted(idx.available_shards())
         shards = list(shards) if shards is not None else []
-        return [self._execute_call(idx, call.clone(), shards)
-                for call in query.calls]
+        results = []
+        for call in query.calls:
+            # Between plan steps: an expired deadline stops the query
+            # before it spends more device time.
+            check_deadline()
+            results.append(self._execute_call(idx, call.clone(), shards, opt))
+        return results
 
-    def _execute_call(self, idx: Index, c: Call, shards: list[int]) -> Any:
+    def _execute_call(self, idx: Index, c: Call, shards: list[int],
+                      opt: ExecOptions) -> Any:
         name = c.name
         if name == "Count":
             return self._execute_count(idx, c, shards)
@@ -114,7 +155,10 @@ class Executor:
         if name in ("Min", "Max"):
             return self._execute_min_max(idx, c, shards, is_min=name == "Min")
         if name in ("Row", "Range") or name in _NARY_CALLS:
-            return self._execute_bitmap_call(idx, c, shards)
+            row = self._execute_bitmap_call(idx, c, shards)
+            if opt.exclude_columns:
+                row.segments = {}
+            return row
         if name in _NOT_PORTED:
             raise NotPortedError(f"{name}()", _NOT_PORTED[name])
         raise QueryError(f"unknown call: {name}")
@@ -130,9 +174,12 @@ class Executor:
         whole shard batch at once; otherwise map_fn runs per shard and
         reduce_fn folds the results."""
         if local_batch_fn is not None:
+            check_deadline()
             return local_batch_fn(list(shards))
         acc = None
         for shard in shards:
+            # Per-shard cancellation point.
+            check_deadline()
             acc = reduce_fn(acc, map_fn(shard))
         return acc
 

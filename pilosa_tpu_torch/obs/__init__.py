@@ -1,0 +1,49 @@
+"""Observability: stats, tracing, logging, query profiles.
+
+The port's copy of pilosa_tpu/obs/ without ``heap.py`` and ``runtime.py``
+(both read the shared native library, whose loader comes with ROADMAP.md
+Queue 1: persistence) and ``otlp.py`` (the trace exporter, Queue 1:
+cluster and operations).
+
+Reference: stats/ (StatsClient stats.go:31, expvar default, statsd/,
+prometheus/), tracing/ (Tracer/Span tracing.go:32, global singleton :23),
+logger/ (logger.go).
+"""
+
+from pilosa_tpu_torch.obs.histogram import (
+    SECONDS_BOUNDS,
+    WIDTH_BOUNDS,
+    LogHistogram,
+)
+from pilosa_tpu_torch.obs.logger import Logger, NopLogger, StandardLogger
+from pilosa_tpu_torch.obs.profile import ProfileRing, QueryProfile
+from pilosa_tpu_torch.obs.profiler import sample_profile
+from pilosa_tpu_torch.obs.stats import (
+    MemoryStats,
+    NopStats,
+    StatsClient,
+    StatsdStats,
+    prometheus_text,
+)
+from pilosa_tpu_torch.obs.tracing import (
+    NopTracer,
+    SimpleTracer,
+    Span,
+    Tracer,
+    current_trace_id,
+    get_tracer,
+    new_trace_id,
+    set_tracer,
+    start_span,
+)
+
+__all__ = [
+    "Logger", "NopLogger", "StandardLogger",
+    "LogHistogram", "SECONDS_BOUNDS", "WIDTH_BOUNDS",
+    "MemoryStats", "NopStats", "StatsClient", "StatsdStats",
+    "ProfileRing", "QueryProfile",
+    "prometheus_text",
+    "NopTracer", "SimpleTracer", "Span", "Tracer",
+    "current_trace_id", "get_tracer", "new_trace_id", "sample_profile",
+    "set_tracer", "start_span",
+]

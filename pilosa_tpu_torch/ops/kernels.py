@@ -15,20 +15,25 @@ plain version.
 
 Each wrapper adds one to ``LAUNCHES[name]`` where it launches its kernel,
 and nowhere else, so a run can show that its queries went through the
-kernels (``reset_launches()`` zeroes the counts).
+kernels (``reset_launches()`` zeroes the counts). The HTTP edge launches
+from many handler threads at once, so the counts change under a lock and
+stay exact.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import threading
 
 import torch
 
 from pilosa_tpu_torch.ops import bitops
 
-#: kernel launches since the last reset_launches(), by wrapper name.
+#: kernel launches since the last reset_launches(), by wrapper name; read
+#: it, and change it only through _count_launch and reset_launches.
 LAUNCHES = {"pair_count": 0, "row_counts": 0, "bsi_compare": 0, "bsi_minmax": 0}
+_launch_lock = threading.Lock()
 
 _OP_CODES = {"and": 0, "or": 1, "xor": 2, "andnot": 3}
 _CMP_CODES = {"lt": 0, "gt": 1, "eq": 2}
@@ -61,8 +66,14 @@ _libs: dict[str, ctypes.CDLL] = {}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _launch_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def _count_launch(name: str) -> None:
+    with _launch_lock:
+        LAUNCHES[name] += 1
 
 
 def _library(source: str = "count_kernels.cu") -> ctypes.CDLL:
@@ -271,7 +282,7 @@ def pair_count(a: torch.Tensor, b: torch.Tensor, op: str = "and") -> torch.Tenso
             ra, rb, _OP_CODES[op], int(vec), _stream(a.device))
     if err:
         raise RuntimeError(f"pair_count kernel launch failed: CUDA error {err}")
-    LAUNCHES["pair_count"] += 1
+    _count_launch("pair_count")
     return out.reshape(lead)
 
 
@@ -293,7 +304,7 @@ def row_counts(a: torch.Tensor) -> torch.Tensor:
             _stream(a.device))
     if err:
         raise RuntimeError(f"row_counts kernel launch failed: CUDA error {err}")
-    LAUNCHES["row_counts"] += 1
+    _count_launch("row_counts")
     return out.reshape(lead)
 
 
@@ -325,7 +336,7 @@ def bsi_compare(bits: torch.Tensor, filt: torch.Tensor, lo: int, hi: int,
             lo, hi, _CMP_CODES[op], int(allow_eq), int(vec), _stream(filt.device))
     if err:
         raise RuntimeError(f"bsi_compare kernel launch failed: CUDA error {err}")
-    LAUNCHES["bsi_compare"] += 1
+    _count_launch("bsi_compare")
     return out
 
 
@@ -361,5 +372,5 @@ def bsi_minmax(bits: torch.Tensor, filt: torch.Tensor, depth: int,
             depth, int(is_max), int(reg), _stream(filt.device))
     if err:
         raise RuntimeError(f"bsi_minmax kernel launch failed: CUDA error {err}")
-    LAUNCHES["bsi_minmax"] += 1
+    _count_launch("bsi_minmax")
     return lo.reshape(lead), hi.reshape(lead), count.reshape(lead)

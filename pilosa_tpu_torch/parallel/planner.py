@@ -89,6 +89,8 @@ class Planner:
         self.uploads = 0
         self.upload_bytes = 0
         self._cache_lock = threading.Lock()
+        #: key -> event set when the build of that key in flight ends.
+        self._building: dict[tuple, threading.Event] = {}
         #: structural signature -> count program
         self._fn_cache: dict[tuple, Callable] = {}
 
@@ -377,10 +379,13 @@ class Planner:
 
     def _gens(self, index_name: str, field_name: str, view: str,
               shards: tuple) -> tuple:
+        """Each shard's (fragment identity, generation), -1 where there is
+        no fragment: a recreated field's fragments restart at generation 0
+        and must not match a stack built from the old ones."""
         out = []
         for shard in shards:
             frag = self.holder.fragment(index_name, field_name, view, shard)
-            out.append(-1 if frag is None else frag.generation)
+            out.append(-1 if frag is None else (frag.instance_id, frag.generation))
         return tuple(out)
 
     def _fetch_leaf(self, idx: Index, leaf: tuple, shards: tuple):
@@ -434,28 +439,42 @@ class Planner:
         cached until any involved fragment mutates. Validation is two-tier:
         an O(1) index-epoch compare, then (only when the epoch moved) the
         per-fragment generation walk — if that shows the fragments
-        unchanged the entry is re-stamped instead of re-uploaded."""
+        unchanged the entry is re-stamped instead of re-uploaded.
+
+        One build per key at a time: a thread that misses while another
+        builds the same key waits for it and looks again, so concurrent
+        queries on a cold 2 GiB cube share one build and one upload."""
         key = (idx.name, idx.instance_id, field_name, view, tag, shards)
-        epoch = idx.epoch.value
-        with self._cache_lock:
-            hit = self._stack_cache.get(key)
-            gens = None
-            if hit is not None:
-                if hit[0] == epoch:
-                    self._stack_cache.move_to_end(key)
-                    return hit[2]
-                gens = self._gens(idx.name, field_name, view, shards)
-                if gens == hit[1]:
-                    self._stack_cache[key] = (epoch, gens, hit[2])
-                    self._stack_cache.move_to_end(key)
-                    return hit[2]
+        while True:
+            epoch = idx.epoch.value
+            with self._cache_lock:
+                hit = self._stack_cache.get(key)
+                gens = None
+                if hit is not None:
+                    if hit[0] == epoch:
+                        self._stack_cache.move_to_end(key)
+                        return hit[2]
+                    gens = self._gens(idx.name, field_name, view, shards)
+                    if gens == hit[1]:
+                        self._stack_cache[key] = (epoch, gens, hit[2])
+                        self._stack_cache.move_to_end(key)
+                        return hit[2]
+                building = self._building.get(key)
+                if building is None:
+                    building = self._building[key] = threading.Event()
+                    break
+            building.wait()
         # Build outside the lock: row materialization and the upload can
-        # be slow. Two threads may race to build one stack; the second
-        # insert simply wins.
-        if gens is None:
-            gens = self._gens(idx.name, field_name, view, shards)
-        arr = build()
-        self._insert_stack(key, epoch, gens, arr)
+        # be slow.
+        try:
+            if gens is None:
+                gens = self._gens(idx.name, field_name, view, shards)
+            arr = build()
+            self._insert_stack(key, epoch, gens, arr)
+        finally:
+            with self._cache_lock:
+                del self._building[key]
+            building.set()
         return arr
 
     def _insert_stack(self, key: tuple, epoch: int, gens: tuple,
