@@ -23,7 +23,18 @@ port's paths:
   keep-alive connection, each body held to the oracle and byte for byte
   to the in-process JSON with the same launches; warm latencies beside the
   in-process ones; a JSON import of 200k bits and 200k values; 8
-  concurrent clients; the 404/400/504/501 statuses; ``/metrics``.
+  concurrent clients; the 404/400/504/501 statuses; ``/metrics``;
+- persist path: a second node with ``data_dir`` under
+  ``build/chip_smoke_data/`` takes the 1B-column ``bench`` and ``bsi``
+  indexes the way Pilosa's clients bulk-load (one ``import-roaring`` per
+  field and shard, bodies from the first node's ``Fragment.to_roaring``;
+  the BSI planes in process through ``interop.load_bsi_planes``), is
+  closed (schema, snapshots, WAL truncate), and a third node reopens the
+  dir: every Count and BSI query over HTTP equals the oracle and the first
+  node's body byte for byte, with the same launches; then a CLI node with
+  ``--data-dir`` is SIGKILLed after acknowledged writes and must read them
+  back from its WAL, and a bit-flipped snapshot must be quarantined with a
+  503 on its shard.
 
 Every answer is held against a numpy oracle, and each path's kernel launch
 counters are zeroed before it and must show its kernels launched. The
@@ -39,7 +50,7 @@ CPU rehearsal at a small size (plain kernel versions, no launch counts)::
     d = {}
     c.phase_data(torch, "cpu", d, device="cpu", count_shards=5,
                  topn_cols=3 * 2**20, topn_rows=1100, bsi_shards=5)
-    for p in (c.phase_main_path, c.phase_bsi, c.phase_http):
+    for p in (c.phase_main_path, c.phase_bsi, c.phase_http, c.phase_persist):
         p(torch, "cpu", d, runs=2)
     d["node"].close()
 """
@@ -48,11 +59,16 @@ from __future__ import annotations
 
 import json
 import os
+import re
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import traceback
+from pathlib import Path
 
 import numpy as np
 
@@ -127,6 +143,13 @@ HTTP_THREADS = 8
 HTTP_PER_THREAD = 25
 #: client socket timeout: the first BSI request builds the cube.
 HTTP_TIMEOUT_S = 300
+#: where the persist phase keeps its data dirs (removed at its end).
+PERSIST_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_data"
+#: free space the persist phase needs under build/: the 1B-column WAL and
+#: snapshots, plus the TopN shard's.
+PERSIST_MIN_FREE_GIB = 12
+#: the crash check's shard count: its semantics do not depend on size.
+CRASH_SHARDS = 3
 
 
 def log(msg: str) -> None:
@@ -888,8 +911,6 @@ def run_clients(port: int, mix: list, launches_of: dict, clients: int,
     ((index, PQL, expected body)) in turn on its own connection. Returns
     (latencies ms, wall s, launches counted, launches expected); raises
     if any answer differs from its expected body."""
-    import threading
-
     from pilosa_tpu_torch.ops import kernels
 
     lat, errors = [], []
@@ -1061,6 +1082,338 @@ def phase_http(torch, card: str, data: dict, runs: int = QUERY_RUNS,
     return {"launches": http_launches}
 
 
+# -- phase 7: persistence: bulk load, close, recover, crash ---------------------
+
+
+def dir_bytes(path: Path, suffix: str = "") -> int:
+    return sum(f.stat().st_size for f in path.rglob(f"*{suffix}") if f.is_file())
+
+
+def launches_of(fn):
+    """(result of fn(), kernel launches it made)."""
+    from pilosa_tpu_torch.ops import kernels
+    before = dict(kernels.LAUNCHES)
+    out = fn()
+    return out, {k: kernels.LAUNCHES[k] - before[k] for k in before}
+
+
+def persist_load(node_a, port: int, data: dict, card: str) -> None:
+    """Node B's bulk load: import-roaring for every (field, shard) of bench
+    f and g and bsi f, each body node A's Fragment.to_roaring(); then bsi's
+    planes through interop.load_bsi_planes, each plane row one setRow."""
+    from pilosa_tpu_torch import interop
+
+    ha = node_a.holder
+    conn = http_client(port)
+    for path, opts in SCHEMA:
+        if path.startswith(("/index/bench", "/index/bsi")):
+            expect_ok(conn, "POST", path, {"options": opts} if opts else None)
+    n_req = n_body = 0
+    export_s = post_s = 0.0
+    for index, fields in (("bench", ("f", "g")), ("bsi", ("f",))):
+        for field in fields:
+            view = ha.field(index, field).view("standard")
+            for shard in sorted(view.fragments):
+                t0 = time.perf_counter()
+                body = view.fragments[shard].to_roaring()
+                t1 = time.perf_counter()
+                expect_ok(conn, "POST",
+                          f"/index/{index}/field/{field}/import-roaring/{shard}", body)
+                post_s += time.perf_counter() - t1
+                export_s += t1 - t0
+                n_req += 1
+                n_body += len(body)
+    conn.close()
+    log(f"bulk load over HTTP: {n_req} import-roaring requests, {n_body} body "
+        f"bytes in {post_s:.3f} s ({n_body / post_s / 1e6:.3f} MB/s, client clock, "
+        f"export by Fragment.to_roaring {export_s:.3f} s apart)  [{card}]")
+    data["persist_bulk"] = (n_req, n_body, post_s)
+
+    fv = ha.field("bsi", "v")
+    depth = fv.bsi_group.bit_depth
+    view = fv.bsi_view()
+    t0 = time.perf_counter()
+    n_planes = 0
+    for shard in sorted(view.fragments):
+        frag = view.fragments[shard]
+        planes = np.stack([frag.row_words(r) for r in range(2 + depth)])
+        interop.load_bsi_planes(data["node_b"].holder, "bsi", "v", shard, planes,
+                                fv.options)
+        n_planes += len(planes)
+    secs = time.perf_counter() - t0
+    log(f"bsi planes in process: {n_planes} plane rows of {len(view.fragments)} "
+        f"shards through interop.load_bsi_planes in {secs:.3f} s "
+        f"({n_planes * planes.shape[1] * 4 / secs / 1e6:.3f} MB/s of words)")
+
+
+def persist_queries(node_a, node_c, data: dict, card: str, runs: int) -> dict:
+    """Every Count and BSI query over HTTP on the reopened node C: equal to
+    the oracle, byte-equal to node A's body, the same launches per request.
+    Returns the launches of node C's serial run."""
+    from pilosa_tpu_torch.ops import kernels
+
+    ca, cc = http_client(node_a.port), http_client(node_c.port)
+    queries = [q for q in http_queries(data) if q[0] in ("bench", "bsi")]
+    want_bodies, want_launches = {}, {}
+    for index, name, q, _ in queries:
+        (status, body), l_a = launches_of(
+            lambda index=index, q=q: request(ca, "POST", f"/index/{index}/query", q))
+        if status != 200:
+            raise AssertionError(f"node A {q}: HTTP {status} {body[:300]!r}")
+        want_bodies[name], want_launches[name] = body, l_a
+    first_ms = {}
+    kernels.reset_launches()  # the persist path's run: node C's requests
+    for index, name, q, want in queries:
+        t0 = time.perf_counter()
+        (status, body), l_c = launches_of(
+            lambda index=index, q=q: request(cc, "POST", f"/index/{index}/query", q))
+        first_ms[name] = (time.perf_counter() - t0) * 1e3
+        if status != 200 or json.loads(body)["results"] != [want]:
+            raise AssertionError(f"reopened {q}: HTTP {status} {body[:300]!r}, "
+                                 f"oracle {want}")
+        if body != want_bodies[name]:
+            raise AssertionError(f"reopened {q}: body {body[:200]!r} is not node A's "
+                                 f"{want_bodies[name][:200]!r}")
+        if l_c != want_launches[name]:
+            raise AssertionError(f"reopened {q}: launches {l_c}, node A {want_launches[name]}")
+        log(f"reopened HTTP {q} = oracle, body byte-equal to node A's, launches {l_c}")
+    path_launches = dict(kernels.LAUNCHES)
+    log(f"persist path launches: {path_launches}")
+    if data["device"] == "cuda":
+        for k, v in path_launches.items():
+            if v < 1:
+                raise AssertionError(f"kernel {k} was not launched on the reloaded data")
+    log(f"cold first request on the reopened node: {first_ms['count_intersect']:.3f} ms "
+        f"(Count(Intersect), stacks rebuilt from reloaded host rows), "
+        f"{first_ms['sum']:.3f} ms (Sum, the cube rebuilt)  [{card}]")
+    log(f"reopened first-request ms per query: "
+        f"{json.dumps({k: round(v, 3) for k, v in first_ms.items()})}")
+    for index, name, q, _ in queries:
+        times = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            status, _ = request(cc, "POST", f"/index/{index}/query", q)
+            times.append((time.perf_counter() - t0) * 1e3)
+            if status != 200:
+                raise AssertionError(f"reopened {q}: HTTP {status}")
+        log(f"reopened HTTP {q}: {spread_ms(times)} ms over {runs} requests, "
+            f"keep-alive loopback, client clock  [{card}]")
+    ca.close()
+    cc.close()
+    return path_launches
+
+
+def persist_topn_shard(node_a, root: Path, card: str) -> None:
+    """The topn index is not persisted whole (1,536 dense rows x 10 shards
+    of 8-byte snapshot positions, about 4 GB raw): one shard of it goes
+    through a store of its own, WAL, snapshot and reload, rows held equal."""
+    from pilosa_tpu_torch import interop
+    from pilosa_tpu_torch.core import Holder
+    from pilosa_tpu_torch.storage import DiskStore
+
+    frag = node_a.holder.fragment("topn", "f2", "standard", 0)
+    ids = sorted(frag.rows)
+    d = root / "topn"
+    h = Holder(device=node_a.holder.device)
+    store = DiskStore(str(d), h)
+    store.open()
+    t0 = time.perf_counter()
+    interop.load_fragment_words(h, "topn", "f2", 0, ids,
+                                np.stack([frag.row_words(r) for r in ids]))
+    load_s = time.perf_counter() - t0
+    wal = dir_bytes(d, ".wal")
+    t0 = time.perf_counter()
+    store.close()
+    close_s = time.perf_counter() - t0
+    snap = dir_bytes(d, ".snap")
+    t0 = time.perf_counter()
+    h2 = Holder(device=node_a.holder.device)
+    store2 = DiskStore(str(d), h2)
+    store2.open()
+    open_s = time.perf_counter() - t0
+    back = h2.fragment("topn", "f2", "standard", 0)
+    if sorted(back.rows) != ids or any(
+            not np.array_equal(back.row_words(r), frag.row_words(r)) for r in ids):
+        raise AssertionError("topn shard 0 rows differ after the reload")
+    store2.close()
+    log(f"topn shard 0 ({len(ids)} rows, {frag.bit_count()} bits): setRow WAL "
+        f"{wal} bytes in {load_s:.3f} s, close (snapshot) {close_s:.3f} s to {snap} "
+        f"bytes, reopen {open_s:.3f} s; rows equal  [{card}]")
+
+
+def cli_node(data_dir: Path, device: str):
+    """``python -m pilosa_tpu_torch.cli server --data-dir`` on a free port;
+    returns (process, port) once it serves."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("PILOSA_TPU_")}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "pilosa_tpu_torch.cli", "server", "--bind",
+         "127.0.0.1:0", "--data-dir", str(data_dir), "--device", device],
+        cwd=Path(__file__).resolve().parent, env=env, stderr=subprocess.PIPE, text=True)
+    seen = []
+    for line in proc.stderr:  # boot logs (quarantine notes) come first
+        seen.append(line)
+        m = re.search(r"serving at http://127\.0\.0\.1:(\d+) on ", line)
+        if m:
+            break
+    else:
+        proc.wait()
+        raise AssertionError(f"CLI node did not start: {''.join(seen)[-2000:]}")
+    for line in seen[:-1]:
+        log(f"CLI node: {line.rstrip()}")
+    # Keep reading its log so a full pipe never blocks the node.
+    threading.Thread(target=lambda: [None for _ in proc.stderr], daemon=True).start()
+    return proc, int(m.group(1))
+
+
+def persist_crash(root: Path, device: str, card: str) -> None:
+    """Acknowledged writes of a SIGKILLed CLI node read back from its WAL;
+    then a bit-flipped snapshot is quarantined with a 503 on its shard."""
+    from pilosa_tpu_torch import native
+    from pilosa_tpu_torch.config import SHARD_WIDTH
+    from pilosa_tpu_torch.storage.faults import corrupt_file
+
+    d = root / "crash"
+    rng = np.random.default_rng(SEED + 4)
+    n_cols = CRASH_SHARDS * SHARD_WIDTH
+    bits: set[tuple[int, int]] = set()
+    values: dict[int, int] = {}
+    proc, port = cli_node(d, device)
+    try:
+        c = http_client(port)
+        for path in ("/index/c", "/index/c/field/f"):
+            expect_ok(c, "POST", path)
+        expect_ok(c, "POST", "/index/c/field/v",
+                  {"options": {"type": "int", "min": -1000, "max": 1000}})
+        sets = [(1, int(x)) for x in rng.integers(0, n_cols, 20)]
+        expect_ok(c, "POST", "/index/c/query",
+                  " ".join(f"Set({col}, f={row})" for row, col in sets))
+        bits.update(sets)
+        rows = rng.integers(0, 4, 20000)
+        cols = rng.integers(0, n_cols, 20000)
+        expect_ok(c, "POST", "/index/c/field/f/import",
+                  {"rowIDs": rows.tolist(), "columnIDs": cols.tolist()})
+        bits.update(zip(rows.tolist(), cols.tolist()))
+        vcols = rng.integers(0, n_cols, 5000)
+        vals = rng.integers(-1000, 1001, 5000)
+        expect_ok(c, "POST", "/index/c/field/v/import",
+                  {"columnIDs": vcols.tolist(), "values": vals.tolist()})
+        values.update(zip(vcols.tolist(), vals.tolist()))
+        local = np.unique(rng.integers(0, SHARD_WIDTH, 3000).astype(np.uint64))
+        expect_ok(c, "POST", "/index/c/field/f/import-roaring/1",
+                  native.encode_roaring(np.uint64(5 * SHARD_WIDTH) + local))
+        bits.update((5, SHARD_WIDTH + int(x)) for x in local)
+        c.close()
+        proc.send_signal(signal.SIGKILL)  # no flush: the WAL alone
+        proc.wait(timeout=60)
+        wal = dir_bytes(d, ".wal")
+        snaps = dir_bytes(d, ".snap")
+        proc, port = cli_node(d, device)
+        c = http_client(port)
+        vs = list(values.values())
+        checks = [(f"Count(Row(f={r}))", sum(1 for b in bits if b[0] == r)) for r in range(6)]
+        checks += [("Sum(field=v)", {"value": sum(vs), "count": len(vs)}),
+                   ("Count(Row(v > 500))", sum(1 for v in vs if v > 500))]
+        for q, want in checks:
+            got = json.loads(expect_ok(c, "POST", "/index/c/query", q))["results"][0]
+            if got != want:
+                raise AssertionError(f"after SIGKILL {q}: {got}, acknowledged {want}")
+        c.close()
+        proc.send_signal(signal.SIGTERM)  # clean: snapshots, WAL truncated
+        if proc.wait(timeout=120) != 0:
+            raise AssertionError("CLI node did not exit 0 on SIGTERM")
+        log(f"crash: {len(bits)} bits and {len(values)} values acknowledged over HTTP "
+            f"(Set, JSON import, import-roaring), SIGKILL with {wal} WAL bytes and "
+            f"{snaps} snapshot bytes on disk; all {len(checks)} checks read back "
+            f"after restart")
+
+        snap = d / "c" / "f" / "standard" / "1.snap"
+        corrupt_file(str(snap), "bitflip")
+        proc, port = cli_node(d, device)
+        c = http_client(port)
+        q = json.loads(expect_ok(c, "GET", "/debug/quarantine"))
+        if q["count"] != 1 or (q["entries"][0]["field"], q["entries"][0]["shard"]) != ("f", 1):
+            raise AssertionError(f"/debug/quarantine after the bit flip: {q}")
+        status, err = request(c, "POST", "/index/c/query", "Count(Row(f=1))")
+        if status != 503 or b"quarantined" not in err:
+            raise AssertionError(f"query over the quarantined shard: HTTP {status} {err!r}")
+        status, body = request(c, "POST", "/index/c/query?shards=0", "Count(Row(f=1))")
+        if status != 200:
+            raise AssertionError(f"query avoiding the shard: HTTP {status} {body!r}")
+        c.close()
+        log(f"corrupt snapshot: /debug/quarantine lists c/f/standard/1 "
+            f"({q['entries'][0]['state']}); Count over it HTTP 503 "
+            f"{err.decode().strip()}; shard 0 alone HTTP 200")
+    finally:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+            try:
+                proc.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+
+
+def phase_persist(torch, card: str, data: dict, runs: int = 10) -> dict:
+    """Node B with a data dir bulk-loads bench and bsi, closes; node C
+    reopens the dir and answers every query as node A does; then the crash
+    and corruption checks on a small dir of a CLI node. The data dirs are
+    removed at the end, also when a step fails."""
+    from pilosa_tpu_torch import native
+    from pilosa_tpu_torch.server import ServerNode
+
+    device, node_a = data["device"], data["node"]
+    log(f"native: {native.status()}; g++ {shutil.which('g++')}, "
+        f"make {shutil.which('make')}")
+    shutil.rmtree(PERSIST_DIR, ignore_errors=True)
+    PERSIST_DIR.mkdir(parents=True)
+    free = shutil.disk_usage(PERSIST_DIR).free
+    log(f"free under {PERSIST_DIR.parent}: {free / 2**30:.3f} GiB")
+    if free < PERSIST_MIN_FREE_GIB * 2**30:
+        raise AssertionError(f"{free / 2**30:.3f} GiB free under build/, the persist "
+                             f"phase needs {PERSIST_MIN_FREE_GIB}")
+    big = PERSIST_DIR / "big"
+    try:
+        t0 = time.perf_counter()
+        node_b = data["node_b"] = ServerNode(bind="127.0.0.1:0", device=device,
+                                             data_dir=str(big))
+        node_b.open()
+        log(f"node B: {node_b.address}, data dir {big}, booted in "
+            f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
+        persist_load(node_a, node_b.port, data, card)
+        log(f"WAL on disk after the load: {dir_bytes(big, '.wal')} bytes")
+        t0 = time.perf_counter()
+        node_b.close()
+        close_s = time.perf_counter() - t0
+        del data["node_b"], node_b
+        log(f"node B close (schema, every fragment snapshotted, WALs truncated): "
+            f"{close_s:.3f} s; {dir_bytes(big)} bytes on disk "
+            f"({dir_bytes(big, '.snap')} in snapshots, {dir_bytes(big, '.wal')} in WALs)"
+            f"  [{card}]")
+
+        t0 = time.perf_counter()
+        node_c = data["node_c"] = ServerNode(bind="127.0.0.1:0", device=device,
+                                             data_dir=str(big))
+        node_c.open()
+        open_s = time.perf_counter() - t0
+        q = node_c.store.quarantine
+        log(f"recover: node C on the same dir serving in {open_s:.3f} s (data-dir "
+            f"walk, {sum(1 for _ in node_c.store._all_keys())} fragments' snapshots "
+            f"read and verified, WAL replay); quarantine entries {len(q)}  [{card}]")
+        if len(q):
+            raise AssertionError(f"clean reopen quarantined {q.entries()}")
+        launches = persist_queries(node_a, node_c, data, card, runs)
+        node_c.close()
+        del data["node_c"], node_c
+        persist_topn_shard(node_a, PERSIST_DIR, card)
+        persist_crash(PERSIST_DIR, device, card)
+    finally:
+        for k in ("node_b", "node_c"):
+            if k in data:
+                data.pop(k).close()
+        shutil.rmtree(PERSIST_DIR, ignore_errors=True)
+    return {"launches": launches}
+
+
 # -- main ---------------------------------------------------------------------
 
 
@@ -1083,7 +1436,8 @@ def main() -> int:
               ("data", lambda: phase_data(torch, card, data)),
               ("main_path", lambda: phase_main_path(torch, card, data)),
               ("bsi", lambda: phase_bsi(torch, card, data)),
-              ("http", lambda: phase_http(torch, card, data)))
+              ("http", lambda: phase_http(torch, card, data)),
+              ("persist", lambda: phase_persist(torch, card, data)))
     try:
         for name, phase in phases:
             log(f"== phase {name}")
@@ -1106,7 +1460,8 @@ def main() -> int:
 
     timings = results["kernels"]["timings"]
     errs = results["kernels"]["errs"]
-    launches = {k: sum(results[p]["launches"][k] for p in ("main_path", "bsi", "http"))
+    launches = {k: sum(results[p]["launches"][k]
+                       for p in ("main_path", "bsi", "http", "persist"))
                 for k in errs}
     sources = {"pair_count": "pilosa_tpu_torch/csrc/count_kernels.cu",
                "row_counts": "pilosa_tpu_torch/csrc/count_kernels.cu",

@@ -20,6 +20,8 @@ Layering, as in pilosa_tpu:
 - :mod:`pilosa_tpu_torch.pql`      — PQL parser
 - :mod:`pilosa_tpu_torch.exec`     — query executor
 - :mod:`pilosa_tpu_torch.parallel` — the all-shards planner on one GPU
+- :mod:`pilosa_tpu_torch.storage`  — WAL, snapshots, reload, quarantine
+- :mod:`pilosa_tpu_torch.server`   — the HTTP edge of a standalone node
 """
 
 from pilosa_tpu_torch.config import SHARD_WIDTH, shard_width_exponent  # noqa: F401

@@ -1,17 +1,21 @@
-"""Command-line interface of the port: run a standalone node.
+"""Command-line interface of the port: run a standalone node, and check
+or inspect a data dir offline.
 
-The port's counterpart of pilosa_tpu/cli.py's ``server`` command
-(cmd_server and its parser). It takes the same flags, plus ``--device``;
+The port's counterpart of pilosa_tpu/cli.py's ``server``, ``check`` and
+``inspect`` commands. ``server`` takes the same flags, plus ``--device``;
 a flag of a feature this slice does not carry exits with status 2 and
 names the ROADMAP.md slice that brings it. Config precedence is the JAX
 package's: flags > env (``PILOSA_TPU_*``) > TOML file (``--config``).
 
 Usage::
 
-    python -m pilosa_tpu_torch.cli server --bind 127.0.0.1:10101 [--device cuda|cpu]
+    python -m pilosa_tpu_torch.cli server --bind 127.0.0.1:10101 \
+        [--device cuda|cpu] [--data-dir DIR]
+    python -m pilosa_tpu_torch.cli check DIR [--repair]
+    python -m pilosa_tpu_torch.cli inspect DIR
 
-The JAX CLI's other commands (import, export, check, backup, restore,
-backup-verify, inspect, config, generate-config) are not ported yet.
+The JAX CLI's other commands (import, export, backup, restore,
+backup-verify, config, generate-config) are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,11 +27,11 @@ import sys
 import threading
 
 from pilosa_tpu_torch.errors import (
+    SLICE_BACKUP,
     SLICE_CLUSTER,
     SLICE_EXECUTOR,
     SLICE_FIELDS,
     SLICE_KEYS,
-    SLICE_PERSISTENCE,
 )
 
 #: the ported knobs and their CLI defaults (the JAX CLI's).
@@ -49,18 +53,21 @@ _DEFAULTS = {
     "qos_tenant_burst": 0.0,
     "profile_ring_n": 64,
     "profile_queries": True,
+    "data_dir": "",
+    # WAL records per fragment before a snapshot triggers.
+    "max_op_n": 10_000,
+    # preserved *.quarantine evidence files per fragment (0 keeps all).
+    "quarantine_keep_n": 0,
+    "wal_group_commit_ms": 0.0,
+    "import_pool_mb": 512,
 }
 
 #: server flags (by argparse dest) of features later slices bring, each
 #: with the ROADMAP.md Queue 1 slice that ports it.
 _UNPORTED = {
-    "data_dir": SLICE_PERSISTENCE, "import_pool_mb": SLICE_PERSISTENCE,
-    "backup_interval": SLICE_PERSISTENCE, "archive_url": SLICE_PERSISTENCE,
-    "backup_full_every": SLICE_PERSISTENCE,
-    "backup_keep_chains": SLICE_PERSISTENCE,
-    "scrub_interval": SLICE_PERSISTENCE, "max_op_n": SLICE_PERSISTENCE,
-    "quarantine_keep_n": SLICE_PERSISTENCE,
-    "wal_group_commit_ms": SLICE_PERSISTENCE,
+    "backup_interval": SLICE_BACKUP, "archive_url": SLICE_BACKUP,
+    "backup_full_every": SLICE_BACKUP, "backup_keep_chains": SLICE_BACKUP,
+    "scrub_interval": SLICE_CLUSTER,
     "peers": SLICE_CLUSTER, "replica_n": SLICE_CLUSTER, "join": SLICE_CLUSTER,
     "tls_ca_cert": SLICE_CLUSTER, "tls_skip_verify": SLICE_CLUSTER,
     "breaker_threshold": SLICE_CLUSTER, "breaker_cooldown": SLICE_CLUSTER,
@@ -143,6 +150,16 @@ def cmd_server(args, parser: argparse.ArgumentParser) -> int:
         cfg["profile_ring_n"] = args.profile_ring
     if args.profile_queries is not None:
         cfg["profile_queries"] = args.profile_queries
+    if args.data_dir:
+        cfg["data_dir"] = args.data_dir
+    if args.max_op_n is not None:
+        cfg["max_op_n"] = args.max_op_n
+    if args.quarantine_keep_n is not None:
+        cfg["quarantine_keep_n"] = args.quarantine_keep_n
+    if args.wal_group_commit_ms is not None:
+        cfg["wal_group_commit_ms"] = args.wal_group_commit_ms
+    if args.import_pool_mb is not None:
+        cfg["import_pool_mb"] = args.import_pool_mb
 
     from pilosa_tpu_torch.server.node import ServerNode
     node = ServerNode(
@@ -162,10 +179,16 @@ def cmd_server(args, parser: argparse.ArgumentParser) -> int:
         profile_ring_n=int(cfg["profile_ring_n"]),
         profile_queries=(str(cfg["profile_queries"]).lower()
                          in ("1", "true", "yes", "on")),
+        data_dir=str(cfg["data_dir"]) or None,
+        max_op_n=int(cfg["max_op_n"]),
+        quarantine_keep_n=int(cfg["quarantine_keep_n"]),
+        wal_group_commit_ms=float(cfg["wal_group_commit_ms"]),
+        import_pool_mb=int(cfg["import_pool_mb"]),
     )
     node.open()
+    where = f", data dir {cfg['data_dir']}" if cfg["data_dir"] else ""
     print(f"pilosa-tpu-torch serving at {node.address} on "
-          f"{node.holder.device}", file=sys.stderr)
+          f"{node.holder.device}{where}", file=sys.stderr, flush=True)
     # Orchestrators stop nodes with SIGTERM; ctrl-C keeps its
     # KeyboardInterrupt path.
     stop = threading.Event()
@@ -176,6 +199,104 @@ def cmd_server(args, parser: argparse.ArgumentParser) -> int:
         pass
     finally:
         node.close()
+    return 0
+
+
+def cmd_check(args, parser: argparse.ArgumentParser) -> int:
+    """Offline integrity check of a data dir (ctl/check.go:30): verify
+    snapshot footer CRCs, WAL op checksums (torn tail vs mid-file
+    corruption), and jsonl line frames; report quarantined evidence
+    files. ``--repair`` sweeps stale ``*.tmp`` crash leftovers. Exits
+    non-zero when anything is BAD; the same lines as the JAX CLI's."""
+    from pilosa_tpu_torch.storage.diskstore import read_snapshot
+    from pilosa_tpu_torch.storage.integrity import LineCorruptError, parse_line
+    from pilosa_tpu_torch.storage.wal import scan_wal
+    if args.archive:
+        parser.error("--archive is not ported to pilosa_tpu_torch yet "
+                     f"(ROADMAP.md Queue 1: {SLICE_BACKUP})")
+    if not args.data_dir:
+        print("check: a data dir or --archive is required", file=sys.stderr)
+        return 1
+    bad = 0
+    for root, _, files in os.walk(args.data_dir):
+        for fn in sorted(files):
+            p = os.path.join(root, fn)
+            if fn.endswith(".wal"):
+                info = scan_wal(p)
+                if info["corrupt"]:
+                    print(f"BAD wal  {p}: corrupt record mid-file "
+                          f"({info['ops']} ops salvageable, "
+                          f"{info['total_bytes'] - info['valid_bytes']} "
+                          f"bytes damaged)")
+                    bad += 1
+                elif info["torn"]:
+                    print(f"ok wal   {p} ({info['ops']} ops; torn tail of "
+                          f"{info['total_bytes'] - info['valid_bytes']} "
+                          f"bytes — normal crash shape, replay truncates)")
+                else:
+                    print(f"ok wal   {p} ({info['ops']} ops)")
+            elif fn.endswith(".snap"):
+                arrays, meta, status = read_snapshot(p)
+                if status == "bad":
+                    print(f"BAD snap {p}: {meta['error']}")
+                    bad += 1
+                elif status == "legacy":
+                    print(f"ok snap  {p} ({len(arrays['row_ids'])} rows; "
+                          f"legacy unframed — re-snapshot to checksum)")
+                else:
+                    print(f"ok snap  {p} ({meta['rows']} rows, "
+                          f"{meta['bits']} bits, crc verified)")
+            elif fn.endswith(".jsonl"):
+                n_ok = n_legacy = n_bad = 0
+                with open(p) as f:
+                    for line in f:
+                        line = line.rstrip("\n")
+                        if not line.strip():
+                            continue
+                        try:
+                            _, verified = parse_line(line)
+                            if verified:
+                                n_ok += 1
+                            else:
+                                n_legacy += 1
+                        except LineCorruptError:
+                            n_bad += 1
+                if n_bad:
+                    print(f"BAD jsonl {p}: {n_bad} corrupt line(s) "
+                          f"({n_ok} verified, {n_legacy} unframed)")
+                    bad += 1
+                else:
+                    print(f"ok jsonl {p} ({n_ok} verified, "
+                          f"{n_legacy} unframed)")
+            elif fn.endswith(".quarantine") or ".quarantine." in fn:
+                print(f"quarantined {p} (preserved corruption evidence)")
+            elif fn.endswith(".tmp"):
+                if args.repair:
+                    try:
+                        os.remove(p)
+                        print(f"repaired {p} (stale tmp removed)")
+                    except OSError as e:
+                        print(f"BAD tmp  {p}: cannot remove: {e}")
+                        bad += 1
+                else:
+                    print(f"stale tmp {p} (crash leftover; "
+                          f"--repair removes)")
+    return 1 if bad else 0
+
+
+def cmd_inspect(args, parser: argparse.ArgumentParser) -> int:
+    """Per-fragment stats of a data dir (ctl/inspect.go analog)."""
+    import numpy as np
+    for root, _, files in os.walk(args.data_dir):
+        for fn in sorted(files):
+            if not fn.endswith(".snap"):
+                continue
+            p = os.path.join(root, fn)
+            with np.load(p) as z:
+                rows = len(z["row_ids"])
+                bits = len(z["positions"])
+            rel = os.path.relpath(p, args.data_dir)
+            print(f"{rel}: rows={rows} bits={bits}")
     return 0
 
 
@@ -262,15 +383,29 @@ def _server_parser(sub) -> argparse.ArgumentParser:
                         "(default true; false limits profiling to "
                         "?profile=true requests)")
     s.add_argument("--config", default=None)
+    s.set_defaults(fn=cmd_server)
     return s
 
 
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(prog="pilosa-tpu-torch")
     sub = p.add_subparsers(dest="cmd", required=True)
-    server = _server_parser(sub)
+    _server_parser(sub)
+
+    s = sub.add_parser("check", help="offline data-dir consistency check")
+    s.add_argument("data_dir", nargs="?", default="")
+    s.add_argument("--repair", action="store_true",
+                   help="sweep stale .tmp crash leftovers")
+    s.add_argument("--archive", default=None,
+                   help="also verify a backup archive (not ported yet)")
+    s.set_defaults(fn=cmd_check)
+
+    s = sub.add_parser("inspect", help="data-dir fragment stats")
+    s.add_argument("data_dir")
+    s.set_defaults(fn=cmd_inspect)
+
     args = p.parse_args(argv)
-    return cmd_server(args, server)
+    return args.fn(args, sub.choices[args.cmd])
 
 
 if __name__ == "__main__":

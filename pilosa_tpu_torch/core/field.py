@@ -13,15 +13,19 @@ from __future__ import annotations
 
 import threading
 from dataclasses import dataclass
+from typing import Callable
 
 import numpy as np
 import torch
 
+from pilosa_tpu_torch import native
 from pilosa_tpu_torch.config import (
     DEFAULT_CACHE_SIZE,
     EXISTENCE_FIELD_NAME,
     SHARD_WIDTH,
+    WORDS_PER_SHARD,
 )
+from pilosa_tpu_torch.core.attrs import AttrStore
 from pilosa_tpu_torch.core.row import Row
 from pilosa_tpu_torch.core.view import VIEW_STANDARD, View, view_bsi_name
 from pilosa_tpu_torch.errors import (
@@ -170,7 +174,8 @@ class Field:
     """Set or int field (reference Field field.go:65)."""
 
     def __init__(self, index: str, name: str, device: torch.device,
-                 options: FieldOptions | None = None, epoch=None):
+                 options: FieldOptions | None = None, epoch=None,
+                 op_writer_factory: Callable | None = None):
         # The internal existence field is the one reserved name allowed to
         # bypass validation (reference index.go:336).
         if name != EXISTENCE_FIELD_NAME:
@@ -181,7 +186,11 @@ class Field:
         self.options = options or FieldOptions()
         self._validate_options()
         self.epoch = epoch
+        self.op_writer_factory = op_writer_factory
         self.views: dict[str, View] = {}
+        #: row attrs: a file store on a node with a data dir, carried
+        #: through unchanged (the attr queries are not ported yet).
+        self.row_attr_store = AttrStore(epoch=epoch)
         self._lock = threading.RLock()
 
         self.bsi_group: BSIGroup | None = None
@@ -235,7 +244,8 @@ class Field:
             if v is None:
                 v = View(self.index, self.name, name, self.device,
                          cache_type=self.options.cache_type,
-                         cache_size=self.options.cache_size, epoch=self.epoch)
+                         cache_size=self.options.cache_size, epoch=self.epoch,
+                         op_writer_factory=self.op_writer_factory)
                 self.views[name] = v
             return v
 
@@ -371,9 +381,12 @@ class Field:
 
     def import_bits(self, row_ids, column_ids, clear: bool = False) -> None:
         """Reference Field.Import (field.go:1204): group bits by shard, then
-        bulk-import per fragment. The by-shard split is one stable integer
-        argsort and a boundary scan, not a per-bit Python loop; each shard
-        slice reaches its fragment (row, pos)-sorted."""
+        bulk-import per fragment. A large batch of few rows takes the
+        native scatter (``_scatter_import``); otherwise, and without the
+        native codec, the by-shard split is one stable integer argsort and
+        a boundary scan, and each shard slice reaches its fragment
+        (row, pos)-sorted. Either path writes the JAX package's WAL
+        records for the same batch."""
         row_ids = np.asarray(row_ids, dtype=np.uint64)
         column_ids = np.asarray(column_ids, dtype=np.uint64)
         if len(row_ids) != len(column_ids):
@@ -381,6 +394,9 @@ class Field:
         if len(row_ids) == 0:
             return
         view = self.create_view_if_not_exists(VIEW_STANDARD)
+        if (not clear and len(row_ids) >= 65536
+                and self._scatter_import(view, row_ids, column_ids)):
+            return
         cols = column_ids.astype(np.int64, copy=False)
         rows = row_ids.astype(np.int64, copy=False)
         exp = SHARD_WIDTH.bit_length() - 1
@@ -400,12 +416,79 @@ class Field:
             frag.bulk_import_sorted_local(seg_rows[sub], seg_local[sub],
                                           clear=clear)
 
+    #: the scatter import applies when the batch has at most this many
+    #: distinct rows (each row costs one O(n) mask + one scatter).
+    _SCATTER_MAX_ROWS = 8
+    #: refuse to allocate more than this much dense block buffer per row.
+    _SCATTER_MAX_BYTES = 1 << 30
+
+    def _scatter_import(self, view: View, row_ids: np.ndarray,
+                        column_ids: np.ndarray) -> bool:
+        """Sort-free bulk import for batches of few rows (the bulk-load
+        shape; the JAX package's ``Field._scatter_import``): one native
+        O(n) pass scatters each row's columns into dense per-shard blocks,
+        which the fragments adopt or OR in. Returns False, with nothing
+        changed, when the shape does not fit (many distinct rows, a huge
+        shard span, no native codec)."""
+        if not native.available():
+            return False
+        distinct = np.unique(row_ids[:4096])
+        if len(distinct) > self._SCATTER_MAX_ROWS:
+            return False
+        if len(distinct) == 1:
+            # Single-row batch: a min/max scan proves coverage without a
+            # mask array.
+            rid = int(distinct[0])
+            if int(row_ids.min()) != rid or int(row_ids.max()) != rid:
+                return False
+            masks: list = [None]
+        else:
+            masks = [row_ids == rid for rid in distinct.tolist()]
+            if int(sum(m.sum() for m in masks)) != len(row_ids):
+                return False  # the sample missed rows
+        exp = SHARD_WIDTH.bit_length() - 1
+        n_shards = (int(column_ids.max()) >> exp) + 1
+        if n_shards * WORDS_PER_SHARD * 4 > self._SCATTER_MAX_BYTES:
+            return False
+        merged_any = False
+        try:
+            for rid, mask in zip(distinct.tolist(), masks):
+                blocks, touched, counts = native.scatter_row_blocks(
+                    column_ids if mask is None else column_ids[mask],
+                    exp, n_shards, WORDS_PER_SHARD)
+                shards = np.flatnonzero(touched)
+                # Dense batches hand fragments VIEWS into the buffer (the
+                # slices are disjoint); sparse ones copy, so a few live
+                # rows cannot pin a huge base array.
+                adopt = len(shards) * WORDS_PER_SHARD * 4 * 2 >= blocks.nbytes
+                for shard in shards.tolist():
+                    frag = view.create_fragment_if_not_exists(int(shard))
+                    row = blocks[shard] if adopt else blocks[shard].copy()
+                    frag.merge_row_words(int(rid), row,
+                                         bit_count=int(counts[shard]),
+                                         bump_epoch=False)
+                    merged_any = True
+        finally:
+            # ONE index-epoch bump for the whole batch, also when a later
+            # row fails after earlier rows merged.
+            if merged_any and self.epoch is not None:
+                self.epoch.bump()
+        return True
+
+    def import_roaring(self, shard: int, data: bytes, view: str = VIEW_STANDARD,
+                       clear: bool = False) -> int:
+        """Reference Field.importRoaring (field.go:1374): a serialized
+        roaring bitmap of one shard's pos-encoded bits into one view."""
+        v = self.create_view_if_not_exists(view)
+        frag = v.create_fragment_if_not_exists(shard)
+        return frag.import_roaring(data, clear=clear)
+
     def import_values(self, column_ids, values, clear: bool = False) -> None:
         """Reference importValue (field.go:1285): validates the range, grows
         the bit depth once for the batch, then splits the batch by shard
         with one stable integer argsort. (The JAX package's native
-        sort-free scatter for fresh views writes the same planes; it comes
-        with the native loader, ROADMAP.md Queue 1.)"""
+        sort-free value scatter for fresh views writes the same planes; it
+        is ROADMAP.md Queue 1 item 4.)"""
         bsig = self._require_bsi()
         values_arr = np.asarray(values, dtype=np.int64)
         if not clear and len(values_arr):

@@ -15,20 +15,24 @@ Design split, as in the JAX package:
   cache.go:136, made exact).
 
 A BSI fragment keeps a bit-sliced integer per column in rows: exists, sign,
-then magnitude bits (``BSI_*`` below). Mutex/bool fields, roaring
-import/export, checksums and the WAL hook belong to later slices of the
-port (ROADMAP.md Queue 1).
+then magnitude bits (``BSI_*`` below). Every mutation calls the WAL hook
+``op_writer(op, rows, cols)`` with the JAX fragment's records, in its
+order, with absolute column ids and numpy arrays (storage/diskstore.py
+binds it); roaring import/export goes through the native codec. Mutex and
+bool fields and block checksums belong to later slices of the port
+(ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
 
 import itertools
 import threading
-from typing import Iterable
+from typing import Callable, Iterable
 
 import numpy as np
 import torch
 
+from pilosa_tpu_torch import native
 from pilosa_tpu_torch.config import DEFAULT_CACHE_SIZE, SHARD_WIDTH, WORDS_PER_SHARD
 from pilosa_tpu_torch.core.hostrow import HostRow
 from pilosa_tpu_torch.core.row import Row
@@ -64,7 +68,8 @@ class Fragment:
 
     def __init__(self, index: str, field: str, view: str, shard: int,
                  device: torch.device, cache_type: str = "ranked",
-                 cache_size: int = DEFAULT_CACHE_SIZE, epoch=None):
+                 cache_size: int = DEFAULT_CACHE_SIZE, epoch=None,
+                 op_writer: Callable | None = None):
         self.index = index
         self.field = field
         self.view = view
@@ -76,6 +81,8 @@ class Fragment:
         #: index-level Epoch (core.index): bumped on every mutation so
         #: index-wide caches (planner leaf stacks) validate in O(1).
         self.epoch = epoch
+        #: WAL hook: called as op_writer(op, rows, cols) on mutation.
+        self.op_writer = op_writer
 
         #: process-unique identity: a fragment of a deleted and recreated
         #: field or view restarts its generation, so caches validated by
@@ -104,9 +111,9 @@ class Fragment:
 
     # -- mutation ----------------------------------------------------------
 
-    def _invalidate(self) -> None:
+    def _invalidate(self, bump_epoch: bool = True) -> None:
         self.generation += 1
-        if self.epoch is not None:
+        if bump_epoch and self.epoch is not None:
             self.epoch.bump()
         # Stale device blocks would never be re-hit (generation mismatch)
         # but would pin device memory; drop them eagerly.
@@ -122,6 +129,8 @@ class Fragment:
             changed = hr.add(pos)
             if changed:
                 self._invalidate()
+                if self.op_writer:
+                    self.op_writer("add", [row_id], [column_id])
             return changed
 
     def clear_bit(self, row_id: int, column_id: int) -> bool:
@@ -133,6 +142,38 @@ class Fragment:
             changed = hr.remove(pos)
             if changed:
                 self._invalidate()
+                if self.op_writer:
+                    self.op_writer("remove", [row_id], [column_id])
+            return changed
+
+    def bulk_import(self, row_ids: np.ndarray, column_ids: np.ndarray,
+                    clear: bool = False) -> int:
+        """Batched set/clear of absolute columns in any order (reference
+        bulkImport fragment.go:1997): the WAL replay's and the roaring
+        import's entry. Sorts by (row, pos) and takes the pre-sorted
+        path; the WAL record holds the arrays as given, as the JAX
+        fragment's does. Returns the number of changed bits."""
+        with self._lock:
+            row_ids = np.asarray(row_ids, dtype=np.uint64)
+            column_ids = np.asarray(column_ids, dtype=np.uint64)
+            if len(row_ids) != len(column_ids):
+                raise ValueError("row/column length mismatch")
+            if len(row_ids) == 0:
+                return 0
+            local = column_ids - np.uint64(self.shard * SHARD_WIDTH)
+            if (local >= SHARD_WIDTH).any():
+                raise ValueError("column out of shard bounds")
+            rows = row_ids.astype(np.int64)
+            local = local.astype(np.uint32)
+            if len(rows) > 1 and not _is_sorted_pairs(rows, local):
+                order = np.lexsort((local, rows))
+                rows, local = rows[order], local[order]
+            changed = self._import_sorted_local(rows, local, clear)
+            if changed:
+                self._invalidate()
+                if self.op_writer:
+                    self.op_writer("removeBatch" if clear else "addBatch",
+                                   row_ids, column_ids)
             return changed
 
     def bulk_import_sorted_local(self, row_ids: np.ndarray,
@@ -143,40 +184,55 @@ class Fragment:
         dedupes each group's sorted positions with one diff pass, and
         hands them to HostRow without any further sort."""
         with self._lock:
-            n = len(row_ids)
-            if n == 0:
+            if len(row_ids) == 0:
                 return 0
             row_ids = np.asarray(row_ids, dtype=np.int64)
             local = np.asarray(local, dtype=np.uint32)
-            cut = np.flatnonzero(row_ids[1:] != row_ids[:-1]) + 1
-            bounds = np.concatenate(([0], cut, [n]))
-            changed = 0
-            for i in range(len(bounds) - 1):
-                lo, hi = int(bounds[i]), int(bounds[i + 1])
-                rid = int(row_ids[lo])
-                seg = local[lo:hi]
-                if hi - lo > 1:  # drop duplicate positions (sorted input)
-                    keep = np.empty(hi - lo, dtype=bool)
-                    keep[0] = True
-                    np.not_equal(seg[1:], seg[:-1], out=keep[1:])
-                    if not keep.all():
-                        seg = seg[keep]
-                hr = self.rows.get(rid)
-                if hr is None:
-                    if clear:
-                        continue
-                    hr = self.rows[rid] = HostRow()
-                if clear:
-                    changed += hr.remove_many_sorted_unique(seg)
-                else:
-                    changed += hr.add_many_sorted_unique(seg)
+            changed = self._import_sorted_local(row_ids, local, clear)
             if changed:
                 self._invalidate()
+                if self.op_writer:
+                    base = np.uint64(self.shard * SHARD_WIDTH)
+                    self.op_writer("removeBatch" if clear else "addBatch",
+                                   row_ids.astype(np.uint64),
+                                   local.astype(np.uint64) + base)
             return changed
+
+    def _import_sorted_local(self, row_ids: np.ndarray, local: np.ndarray,
+                             clear: bool) -> int:
+        """The row-group walk of the bulk paths, under the caller's lock;
+        returns the changed bits and leaves invalidation and the WAL
+        record to the caller."""
+        n = len(row_ids)
+        cut = np.flatnonzero(row_ids[1:] != row_ids[:-1]) + 1
+        bounds = np.concatenate(([0], cut, [n]))
+        changed = 0
+        for i in range(len(bounds) - 1):
+            lo, hi = int(bounds[i]), int(bounds[i + 1])
+            rid = int(row_ids[lo])
+            seg = local[lo:hi]
+            if hi - lo > 1:  # drop duplicate positions (sorted input)
+                keep = np.empty(hi - lo, dtype=bool)
+                keep[0] = True
+                np.not_equal(seg[1:], seg[:-1], out=keep[1:])
+                if not keep.all():
+                    seg = seg[keep]
+            hr = self.rows.get(rid)
+            if hr is None:
+                if clear:
+                    continue
+                hr = self.rows[rid] = HostRow()
+            if clear:
+                changed += hr.remove_many_sorted_unique(seg)
+            else:
+                changed += hr.add_many_sorted_unique(seg)
+        return changed
 
     def set_row_words(self, row_id: int, words: np.ndarray) -> None:
         """Replace one row with a dense uint32 word block (the data
-        hand-over of pilosa_tpu_torch.interop)."""
+        hand-over of pilosa_tpu_torch.interop), logged as one ``setRow``
+        record as the JAX fragment's ``set_row`` is, so the row survives
+        a restart."""
         words = np.asarray(words, dtype=np.uint32)
         if words.shape != (WORDS_PER_SHARD,):
             raise ValueError(f"row words must have shape ({WORDS_PER_SHARD},), "
@@ -184,6 +240,65 @@ class Fragment:
         with self._lock:
             self.rows[row_id] = HostRow.from_words(words)
             self._invalidate()
+            if self.op_writer:
+                cols = (native.words_to_positions(words)
+                        + np.uint64(self.shard * SHARD_WIDTH))
+                self.op_writer("setRow", np.asarray([row_id], dtype=np.uint64),
+                               cols)
+
+    def merge_row_words(self, row_id: int, words: np.ndarray,
+                        bit_count: int | None = None,
+                        bump_epoch: bool = True) -> int:
+        """Merge a freshly-scattered dense word block into one row: the
+        landing half of the native bulk-import scatter (reference
+        importRoaringBits' container merge, roaring.go:1511). ``words``
+        ownership transfers to the fragment; returns bits added. Bulk
+        callers landing many rows pass bump_epoch=False and bump the
+        index epoch once at the end."""
+        with self._lock:
+            if bit_count is None:
+                bit_count = native.popcount_words(words)
+            if bit_count == 0:
+                return 0
+            hr = self.rows.get(row_id)
+            if hr is None or hr.n == 0:
+                self.rows[row_id] = HostRow.adopt_words(words, bit_count)
+                changed = bit_count
+            else:
+                changed = hr.merge_words(words)
+            if changed:
+                self._invalidate(bump_epoch=bump_epoch)
+                if self.op_writer:
+                    pos = native.words_to_positions(words)
+                    base = np.uint64(self.shard * SHARD_WIDTH)
+                    self.op_writer("addBatch",
+                                   np.full(len(pos), row_id, dtype=np.uint64),
+                                   pos + base)
+            return changed
+
+    def import_roaring(self, data: bytes, clear: bool = False) -> int:
+        """Merge a serialized roaring bitmap of pos-encoded bits
+        (pos = row*ShardWidth + col_local, fragment.go:3090) into this
+        fragment (reference importRoaring fragment.go:2255 ->
+        ImportRoaringBits roaring.go:1511). Returns the changed-bit count.
+        Decoded positions ascend, so the rows and columns reach the bulk
+        path already (row, pos)-sorted."""
+        positions = native.decode_roaring(data)
+        if len(positions) == 0:
+            return 0
+        rows = positions // np.uint64(SHARD_WIDTH)
+        cols = positions % np.uint64(SHARD_WIDTH) + np.uint64(self.shard * SHARD_WIDTH)
+        return self.bulk_import(rows, cols, clear=clear)
+
+    def to_roaring(self) -> bytes:
+        """Every bit of the fragment in the reference's pos-encoded
+        roaring format (the fragment-data transfer format,
+        fragment.go:2436): the body of ``import-roaring``."""
+        parts = [pos + np.uint64(rid * SHARD_WIDTH)
+                 for rid, pos in self.rows_snapshot()]
+        positions = (np.concatenate(parts) if parts
+                     else np.empty(0, dtype=np.uint64))
+        return native.encode_roaring(positions)
 
     # -- reads -------------------------------------------------------------
 
@@ -466,8 +581,12 @@ class Fragment:
         vectorized by bit plane: the batch becomes ONE bulk clear + ONE bulk
         set across the exists/sign/magnitude rows, fed through the
         pre-sorted bulk path. Last write per column wins, like sequential
-        writes. (The JAX package's device transpose for large batches,
-        exec/ingest_transpose.py, writes the same planes; it is not
+        writes. The two bulk passes log the WAL records of the JAX
+        fragment's host path, which its device transpose
+        (``_emit_value_wal``) also writes: one ``removeBatch`` of every
+        (plane, column) bit off in the new values, then one ``addBatch``
+        of every bit on, each only when its pass changed bits. (The
+        device transpose itself, exec/ingest_transpose.py, is not
         ported.)"""
         cols = np.asarray(column_ids, dtype=np.int64)
         if len(cols) == 0:
@@ -603,6 +722,15 @@ class Fragment:
     def __repr__(self):
         return (f"Fragment({self.index}/{self.field}/{self.view}/{self.shard} "
                 f"rows={len(self.rows)} bits={self.bit_count()})")
+
+
+def _is_sorted_pairs(rows: np.ndarray, local: np.ndarray) -> bool:
+    """True when (rows, local) ascend lexicographically."""
+    dr = np.diff(rows)
+    if (dr < 0).any():
+        return False
+    same = dr == 0
+    return not (same & (local[1:] < local[:-1])).any()
 
 
 def resolve_counts(parts: list[tuple[np.ndarray, np.ndarray, torch.Tensor]]) -> None:

@@ -22,9 +22,16 @@ class Holder:
     """Reference Holder (holder.go:50). ``device`` defaults to ``cuda`` and
     raises when there is no card; pass ``device="cpu"`` for the CPU."""
 
-    def __init__(self, device: str | torch.device | None = None):
+    def __init__(self, device: str | torch.device | None = None,
+                 op_writer_factory=None):
         self.device = resolve_device(device)
         self.indexes: dict[str, Index] = {}
+        #: factory(index, field, view, shard) -> the fragment's WAL hook,
+        #: set by storage.DiskStore.open() before the schema loads.
+        self.op_writer_factory = op_writer_factory
+        #: the store's QuarantineRegistry once a DiskStore opened; the
+        #: executor refuses shards it blocks.
+        self.quarantine = None
         self._lock = threading.RLock()
 
     def index(self, name: str) -> Index | None:
@@ -40,7 +47,8 @@ class Holder:
         with self._lock:
             if name in self.indexes:
                 raise IndexExistsError()
-            idx = Index(name, self.device, options)
+            idx = Index(name, self.device, options,
+                        op_writer_factory=self.op_writer_factory)
             self.indexes[name] = idx
             return idx
 

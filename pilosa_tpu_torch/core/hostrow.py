@@ -1,8 +1,8 @@
 """Host-side row storage: sparse positions at rest, dense words when hot.
 
-The port's copy of pilosa_tpu/core/hostrow.py, less the native-codec
-merge/adopt paths of the scatter import (the port imports through the
-numpy bulk path).
+The port's copy of pilosa_tpu/core/hostrow.py. The dense/sparse
+conversions of the reload and scatter-import paths go through the native
+codec (``pilosa_tpu_torch.native``), which falls back to numpy.
 
 This replaces roaring's array/bitmap/run container adaptivity
 (roaring/container_stash.go:39, conversions roaring.go:2599-2878) with a
@@ -17,7 +17,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from pilosa_tpu_torch.config import DENSE_CUTOFF
+from pilosa_tpu_torch import native
+from pilosa_tpu_torch.config import DENSE_CUTOFF, WORDS_PER_SHARD
 from pilosa_tpu_torch.ops import bitops
 
 
@@ -47,7 +48,7 @@ class HostRow:
 
     def _maybe_densify(self) -> None:
         if self.positions is not None and len(self.positions) > DENSE_CUTOFF:
-            self.dense = bitops.positions_to_words(self.positions)
+            self.dense = native.positions_to_words(self.positions, WORDS_PER_SHARD)
             self.positions = None
 
     def _flush(self) -> None:
@@ -126,7 +127,7 @@ class HostRow:
                 self.positions = merged
                 self.n = len(merged)
                 return changed
-            self.dense = bitops.positions_to_words(self.positions)
+            self.dense = native.positions_to_words(self.positions, WORDS_PER_SHARD)
             self.positions = None
         word_idx = (pos64 >> np.uint64(5)).astype(np.int64)
         bit = np.left_shift(np.uint32(1),
@@ -179,22 +180,80 @@ class HostRow:
         if self.dense is not None:
             return self.dense.copy()
         self._flush()
-        return bitops.positions_to_words(self.positions)
+        return native.positions_to_words(self.positions, WORDS_PER_SHARD)
 
     def to_positions(self) -> np.ndarray:
         if self.dense is not None:
-            return bitops.words_to_positions(self.dense)
+            return native.words_to_positions(self.dense)
         self._flush()
         return self.positions.copy()
 
     @classmethod
+    def from_positions(cls, positions: np.ndarray) -> "HostRow":
+        """A row from shard-relative positions in any order, duplicates
+        allowed (a snapshot's or a setRow record's); strictly ascending
+        input, what the writers produce, skips the sort."""
+        r = cls()
+        positions = np.asarray(positions, dtype=np.uint64)
+        if len(positions) > 1 and not (positions[1:] > positions[:-1]).all():
+            positions = np.unique(positions)
+        if len(positions) > DENSE_CUTOFF:
+            r.dense = native.positions_to_words(positions, WORDS_PER_SHARD)
+            r.positions = None
+        else:
+            r.positions = positions
+        r.n = len(positions)
+        return r
+
+    def merge_words(self, words: np.ndarray) -> int:
+        """OR a dense word block into this row; returns bits added. The
+        scatter-import path's merge step (its blocks arrive unsorted and
+        whole, so position-level merging would just re-derive this)."""
+        self._flush()
+        base = self.dense if self.dense is not None \
+            else native.positions_to_words(self.positions, WORDS_PER_SHARD)
+        merged = np.bitwise_or(base, words)
+        n = native.popcount_words(merged)
+        # The bulk paths keep moderately-sparse rows dense (half the
+        # usual cutoff): below DENSE_CUTOFF the position form saves
+        # little memory and the conversion walk dominates import time.
+        if n > DENSE_CUTOFF // 2:
+            self.dense = merged
+            self.positions = None
+        else:
+            self.positions = native.words_to_positions(merged)
+            self.dense = None
+        added = n - self.n
+        self.n = n
+        return added
+
+    @classmethod
+    def adopt_words(cls, words: np.ndarray, n: int | None = None,
+                    prefer_dense: bool = False) -> "HostRow":
+        """Build a row AROUND a freshly-scattered dense block (the caller
+        gives up ownership: no copy for dense rows). prefer_dense skips
+        the sparse conversion even for near-empty rows, right when
+        ``words`` is a view whose backing chunk stays pinned by sibling
+        rows regardless."""
+        r = cls()
+        if n is None:
+            n = native.popcount_words(words)
+        if prefer_dense or n > DENSE_CUTOFF // 2:  # see merge_words
+            r.dense = words
+            r.positions = None
+        else:
+            r.positions = native.words_to_positions(words)
+        r.n = n
+        return r
+
+    @classmethod
     def from_words(cls, words: np.ndarray) -> "HostRow":
         r = cls()
-        n = bitops.np_count(words)
+        n = native.popcount_words(words)
         if n > DENSE_CUTOFF:
             r.dense = np.array(words, dtype=np.uint32)
             r.positions = None
         else:
-            r.positions = bitops.words_to_positions(words)
+            r.positions = native.words_to_positions(words)
         r.n = n
         return r

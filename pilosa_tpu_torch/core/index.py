@@ -2,8 +2,9 @@
 
 The port's counterpart of pilosa_tpu/core/index.py. Reference: index.go
 (struct :37, createField :416, DeleteField :471, AvailableShards :292) and
-holder.go:46 (existence field ``_exists``). Keyed indexes and column attrs
-raise ``NotPortedError``.
+holder.go:46 (existence field ``_exists``). Keyed indexes raise
+``NotPortedError``; the column-attr store persists with the data dir, and
+the queries that use it come with a later slice.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from pilosa_tpu_torch.config import EXISTENCE_FIELD_NAME
+from pilosa_tpu_torch.core.attrs import AttrStore
 from pilosa_tpu_torch.core.field import Field, FieldOptions
 from pilosa_tpu_torch.errors import (
     SLICE_KEYS,
@@ -74,7 +76,7 @@ class Index:
     """Reference Index (index.go:37)."""
 
     def __init__(self, name: str, device: torch.device,
-                 options: IndexOptions | None = None):
+                 options: IndexOptions | None = None, op_writer_factory=None):
         validate_name(name)
         self.name = name
         self.device = device
@@ -84,7 +86,11 @@ class Index:
         self.options = options or IndexOptions()
         if self.options.keys:
             raise NotPortedError("a keyed index", SLICE_KEYS)
+        self.op_writer_factory = op_writer_factory
         self.epoch = Epoch()
+        #: column attrs: a file store on a node with a data dir, carried
+        #: through unchanged (the attr queries are not ported yet).
+        self.column_attr_store = AttrStore(epoch=self.epoch)
         #: (epoch stamp, frozenset) memo for available_shards().
         self._avail_shards_cache: tuple | None = None
         self.fields: dict[str, Field] = {}
@@ -92,7 +98,8 @@ class Index:
         if self.options.track_existence:
             self.fields[EXISTENCE_FIELD_NAME] = Field(
                 self.name, EXISTENCE_FIELD_NAME, device,
-                FieldOptions(cache_type="none", cache_size=0), epoch=self.epoch)
+                FieldOptions(cache_type="none", cache_size=0), epoch=self.epoch,
+                op_writer_factory=op_writer_factory)
 
     def field(self, name: str) -> Field | None:
         return self.fields.get(name)
@@ -108,7 +115,8 @@ class Index:
         with self._lock:
             if name in self.fields:
                 raise FieldExistsError()
-            f = Field(self.name, name, self.device, options, epoch=self.epoch)
+            f = Field(self.name, name, self.device, options, epoch=self.epoch,
+                      op_writer_factory=self.op_writer_factory)
             self.fields[name] = f
             self.epoch.bump()
             return f

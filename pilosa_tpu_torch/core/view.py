@@ -10,6 +10,7 @@ CreateFragmentIfNotExists :263, setBit :367, setValue/sum/min/max/rangeOp
 from __future__ import annotations
 
 import threading
+from typing import Callable
 
 import torch
 
@@ -30,7 +31,7 @@ class View:
 
     def __init__(self, index: str, field: str, name: str, device: torch.device,
                  cache_type: str = "ranked", cache_size: int = DEFAULT_CACHE_SIZE,
-                 epoch=None):
+                 epoch=None, op_writer_factory: Callable | None = None):
         self.index = index
         self.field = field
         self.name = name
@@ -38,6 +39,8 @@ class View:
         self.cache_type = cache_type
         self.cache_size = cache_size
         self.epoch = epoch
+        #: factory(index, field, view, shard) -> op_writer for WAL wiring.
+        self.op_writer_factory = op_writer_factory
         self.fragments: dict[int, Fragment] = {}
         self._lock = threading.RLock()
 
@@ -48,9 +51,13 @@ class View:
         with self._lock:
             frag = self.fragments.get(shard)
             if frag is None:
+                op_writer = (self.op_writer_factory(self.index, self.field,
+                                                    self.name, shard)
+                             if self.op_writer_factory else None)
                 frag = Fragment(self.index, self.field, self.name, shard,
                                 self.device, cache_type=self.cache_type,
-                                cache_size=self.cache_size, epoch=self.epoch)
+                                cache_size=self.cache_size, epoch=self.epoch,
+                                op_writer=op_writer)
                 self.fragments[shard] = frag
                 # Registration changes the shard set even with zero bits;
                 # the index's available_shards() memo keys on the epoch.

@@ -87,7 +87,7 @@ class FragmentNotFoundError(PilosaError):
 SLICE_EXECUTOR = "executor remainder"
 SLICE_FIELDS = "packed residency, time, mutex and bool fields, GroupBy"
 SLICE_KEYS = "keys and sketches"
-SLICE_PERSISTENCE = "persistence and the rest of the data model"
+SLICE_BACKUP = "backup and restore"
 SLICE_CLUSTER = "cluster and operations"
 
 

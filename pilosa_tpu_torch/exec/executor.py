@@ -54,6 +54,7 @@ from pilosa_tpu_torch.obs import NopStats
 from pilosa_tpu_torch.obs import profile as _profile
 from pilosa_tpu_torch.pql import BETWEEN, GT, GTE, LT, LTE, NEQ, Call, Condition, Query, parse
 from pilosa_tpu_torch.qos.deadline import check_current as check_deadline
+from pilosa_tpu_torch.storage.quarantine import ShardCorruptError
 
 #: reference defaultMinThreshold (executor.go:90).
 DEFAULT_MIN_THRESHOLD = 1
@@ -167,12 +168,20 @@ class Executor:
     # map/reduce spine (reference mapReduce executor.go:2455)
     # ------------------------------------------------------------------
 
-    def map_reduce(self, shards: list[int], map_fn: Callable[[int], Any],
+    def map_reduce(self, idx: Index, shards: list[int],
+                   map_fn: Callable[[int], Any],
                    reduce_fn: Callable[[Any, Any], Any],
                    local_batch_fn: Callable[[list[int]], Any] | None = None) -> Any:
         """Single-node spine: ``local_batch_fn`` (the planner) takes the
         whole shard batch at once; otherwise map_fn runs per shard and
-        reduce_fn folds the results."""
+        reduce_fn folds the results. A shard whose local data the store
+        quarantined is refused with ``ShardCorruptError``, never served
+        as zeros."""
+        q = getattr(self.holder, "quarantine", None)
+        if q is not None and len(q):
+            blocked = q.blocked_shards(idx.name)
+            if blocked and any(s in blocked for s in shards):
+                raise ShardCorruptError()
         if local_batch_fn is not None:
             check_deadline()
             return local_batch_fn(list(shards))
@@ -199,7 +208,7 @@ class Executor:
         local_batch = None
         if planner is not None:
             local_batch = lambda shs: planner.execute_bitmap(idx, c, shs)
-        return self.map_reduce(shards, map_fn, reduce_fn,
+        return self.map_reduce(idx, shards, map_fn, reduce_fn,
                                local_batch_fn=local_batch) or Row()
 
     def _bitmap_call_shard(self, idx: Index, c: Call, shard: int) -> Row:
@@ -329,7 +338,7 @@ class Executor:
                 s, cnt = self.planner.execute_sum(idx, c, list(shs))
                 return ValCount(s + cnt * base, cnt)
 
-        result = self.map_reduce(shards, map_fn,
+        result = self.map_reduce(idx, shards, map_fn,
                                  lambda p, v: v if p is None else p.add(v),
                                  local_batch_fn=local_batch) or ValCount()
         return ValCount() if result.count == 0 else result
@@ -364,7 +373,7 @@ class Executor:
                 v, cnt = self.planner.execute_min_max(idx, c, list(shs), is_min)
                 return ValCount(v + base, cnt) if cnt else ValCount()
 
-        result = self.map_reduce(shards, map_fn, reduce_fn,
+        result = self.map_reduce(idx, shards, map_fn, reduce_fn,
                                  local_batch_fn=local_batch) or ValCount()
         return ValCount() if result.count == 0 else result
 
@@ -386,7 +395,7 @@ class Executor:
         local_batch = None
         if planner is not None:
             local_batch = lambda shs: planner.execute_count(idx, child, shs)
-        return self.map_reduce(shards, map_fn, lambda p, v: (p or 0) + v,
+        return self.map_reduce(idx, shards, map_fn, lambda p, v: (p or 0) + v,
                                local_batch_fn=local_batch) or 0
 
     # ------------------------------------------------------------------
@@ -417,7 +426,7 @@ class Executor:
             return merge_pairs(p or [], v)
 
         merged = self.map_reduce(
-            shards, lambda shard: self._top_n_shard(idx, c, shard), reduce_fn,
+            idx, shards, lambda shard: self._top_n_shard(idx, c, shard), reduce_fn,
             local_batch_fn=self._topn_batch_fn(idx, c)) or []
         return sort_pairs(merged)
 

@@ -1,9 +1,9 @@
 """Observability: stats, tracing, logging, query profiles.
 
-The port's copy of pilosa_tpu/obs/ without ``heap.py`` and ``runtime.py``
-(both read the shared native library, whose loader comes with ROADMAP.md
-Queue 1: persistence) and ``otlp.py`` (the trace exporter, Queue 1:
-cluster and operations).
+The port's copy of pilosa_tpu/obs/ (``heap.py`` and ``runtime.py`` read
+the codec's pool through the port's own loader, pilosa_tpu_torch.native),
+without ``otlp.py`` (the trace exporter, ROADMAP.md Queue 1: cluster and
+operations).
 
 Reference: stats/ (StatsClient stats.go:31, expvar default, statsd/,
 prometheus/), tracing/ (Tracer/Span tracing.go:32, global singleton :23),

@@ -88,6 +88,8 @@ class Planner:
         #: lifetime host->device stack builds and their bytes.
         self.uploads = 0
         self.upload_bytes = 0
+        #: lifetime LRU evictions past the budget.
+        self.evictions = 0
         self._cache_lock = threading.Lock()
         #: key -> event set when the build of that key in flight ends.
         self._building: dict[tuple, threading.Event] = {}
@@ -493,6 +495,19 @@ class Planner:
                    and len(self._stack_cache) > 1):
                 _, (_, _, dropped) = self._stack_cache.popitem(last=False)
                 self._cache_bytes -= dropped.numel() * dropped.element_size()
+                self.evictions += 1
+
+    def cache_stats(self) -> dict:
+        """Locked snapshot of the stack cache's device-memory occupancy,
+        for /debug/heap and the runtime gauges."""
+        with self._cache_lock:
+            return {"bytes": self._cache_bytes,
+                    "budget_bytes": self.max_cache_bytes,
+                    "entries": len(self._stack_cache),
+                    "evictions": self.evictions,
+                    "uploads": self.uploads,
+                    "upload_bytes": self.upload_bytes,
+                    "programs": len(self._fn_cache)}
 
     def _plane_words(self, idx: Index, field_name: str, view: str,
                      row_id: int, shards: tuple) -> np.ndarray:

@@ -6,10 +6,15 @@ only. Reference: api.go (API struct :42, Query :135, index/field CRUD
 Status :1129-1260). The HTTP layer is a thin router over these methods.
 
 A standalone node is always in the NORMAL state, so no method is gated
-on the cluster's state. Imports by keys or with timestamps and remote
+on the cluster's state. With a data dir, ``store`` is the node's
+``storage.DiskStore``: creating an index or field writes ``schema.json``
+at once, so the WAL records of a node killed before its first flush are
+found again at boot (the JAX node writes the schema only when it flushes
+or deletes: ROADMAP.md Queue 3); deleting an index, field or view
+unlinks its files too. Imports by keys or with timestamps and remote
 (cluster-leg) queries raise ``NotPortedError`` naming the ROADMAP.md
-slice that brings them; key translation, attrs, roaring imports and
-block sync have no method yet (their routes answer 501).
+slice that brings them; key translation, attrs and block sync have no
+method yet (their routes answer 501).
 """
 
 from __future__ import annotations
@@ -45,6 +50,8 @@ class API:
     def __init__(self, holder: Holder, executor: Executor):
         self.holder = holder
         self.executor = executor
+        #: the node's storage.DiskStore, or None without a data dir.
+        self.store = None
         #: this server's own ring entry (cluster.node.Node), set by
         #: ServerNode once its listener has a port.
         self.local_node = None
@@ -78,19 +85,32 @@ class API:
     # -- schema CRUD (api.go:162-467) --------------------------------------
 
     def create_index(self, name: str, options: dict | None = None):
-        return self.holder.create_index(
-            name, IndexOptions.from_json(options or {}))
+        idx = self.holder.create_index(name, IndexOptions.from_json(options or {}))
+        self._save_schema()
+        return idx
+
+    def _save_schema(self) -> None:
+        if self.store is not None:
+            self.store.save_schema()
 
     def delete_index(self, name: str) -> None:
         self.holder.delete_index(name)
+        if self.store is not None:
+            # Unlink the on-disk tree too: recreating the name must not
+            # resurrect deleted data on the next restart.
+            self.store.delete_subtree_files(name)
 
     def create_field(self, index: str, field: str,
                      options: dict | None = None):
         idx = self.holder.index_or_raise(index)
-        return idx.create_field(field, FieldOptions.from_json(options or {}))
+        f = idx.create_field(field, FieldOptions.from_json(options or {}))
+        self._save_schema()
+        return f
 
     def delete_field(self, index: str, field: str) -> None:
         self.holder.index_or_raise(index).delete_field(field)
+        if self.store is not None:
+            self.store.delete_subtree_files(index, field)
 
     def views(self, index: str, field: str) -> list[str]:
         """Reference API.Views (api.go:760)."""
@@ -99,6 +119,8 @@ class API:
     def delete_view(self, index: str, field: str, view: str) -> None:
         """Reference API.DeleteView (api.go:779)."""
         self._field_or_raise(index, field).delete_view(view)
+        if self.store is not None:
+            self.store.delete_subtree_files(index, field, view)
 
     def _field_or_raise(self, index: str, field: str):
         f = self.holder.index_or_raise(index).field(field)
@@ -113,6 +135,7 @@ class API:
         """Reference API.ApplySchema (api.go:738); standalone there are no
         peers to fan the schema out to."""
         self.holder.apply_schema(schema)
+        self._save_schema()
 
     def index_info(self, index: str) -> dict:
         return self.holder.index_or_raise(index).info()
@@ -154,6 +177,15 @@ class API:
         column_ids = list(column_ids)
         f.import_values(column_ids, list(values), clear=clear)
         idx.add_existence(column_ids)
+
+    def import_roaring(self, index: str, field: str, shard: int,
+                       data: bytes, clear: bool = False) -> None:
+        """Reference API.ImportRoaring (api.go:368): one shard's bits as a
+        serialized roaring bitmap into the standard view."""
+        f = self.holder.index_or_raise(index).field(field)
+        if f is None:
+            raise FieldNotFoundError()
+        f.import_roaring(shard, data, clear=clear)
 
     # -- export (api.go:500) -----------------------------------------------
 

@@ -5,9 +5,8 @@ http/handler.go (newRouter :274-318). Implemented on the stdlib
 ThreadingHTTPServer, one thread per connection. Every route of the JAX
 node's table is mounted in the same order and matched by the same
 pattern; the routes a standalone node of this slice does not serve
-(cluster RPC, persistence, backup, key translation, attrs, device and
-cache telemetry) answer 501 with a body that names the ROADMAP.md slice
-that brings them.
+(cluster RPC, backup, key translation, attrs, device and cache telemetry)
+answer 501 with a body that names the ROADMAP.md slice that brings them.
 """
 
 from __future__ import annotations
@@ -21,10 +20,10 @@ from urllib.parse import parse_qs, urlparse
 
 from pilosa_tpu_torch.cache.tenant import reset_current_tenant, set_current_tenant
 from pilosa_tpu_torch.errors import (
+    SLICE_BACKUP,
     SLICE_CLUSTER,
     SLICE_EXECUTOR,
     SLICE_KEYS,
-    SLICE_PERSISTENCE,
     ApiMethodNotAllowedError,
     FieldExistsError,
     FieldNotFoundError,
@@ -46,6 +45,7 @@ from pilosa_tpu_torch.qos import (
 )
 from pilosa_tpu_torch.qos import deadline as qos_deadline
 from pilosa_tpu_torch.server.api import API
+from pilosa_tpu_torch.storage.quarantine import ShardCorruptError
 
 _CONFLICTS = (IndexExistsError, FieldExistsError)
 _NOT_FOUND = (IndexNotFoundError, FieldNotFoundError, FragmentNotFoundError)
@@ -178,9 +178,12 @@ def _make_handler(api: API):
                     status, payload = 404, {"error": str(e)}
                 except ApiMethodNotAllowedError as e:
                     status, payload = 405, {"error": str(e)}
-                # The JAX ladder's 503 clauses for ShardCorruptError,
-                # ClusterFencedError and ShardUnavailableError come with
-                # the slices that raise them (persistence; cluster).
+                except ShardCorruptError as e:
+                    # 503, NOT 400 (before the PilosaError catch-all): the
+                    # data exists but this node's copy is quarantined.
+                    status, payload = 503, {"error": str(e)}
+                # The JAX ladder's 503 clauses for ClusterFencedError and
+                # ShardUnavailableError come with the cluster slice.
                 except NotPortedError as e:
                     # Before the PilosaError catch-all: a feature of a
                     # later slice is not a bad request.
@@ -358,7 +361,10 @@ def _build_routes(api: API):
                         resp = api.query(pv["index"], body.decode(), **kwargs)
                 else:
                     resp = api.query(pv["index"], body.decode(), **kwargs)
-            except _NOT_FOUND + (ApiMethodNotAllowedError, NotPortedError):
+            except _NOT_FOUND + (ApiMethodNotAllowedError, NotPortedError,
+                                 ShardCorruptError):
+                # Past the PilosaError catch below: the dispatch ladder
+                # maps each to its own status (503 for a quarantined shard).
                 status = "error"
                 raise
             except (QueryShedError, DeadlineExceededError,
@@ -401,6 +407,19 @@ def _build_routes(api: API):
         if want_inline_profile and prof_doc is not None:
             resp["profile"] = prof_doc
         return 200, resp
+
+    def post_import_roaring(pv, params, body):
+        clear = params.get("clear") == "true"
+        # remote=true marks a forwarded replica write: apply locally only.
+        if params.get("remote") == "true":
+            f = api.holder.field(pv["index"], pv["field"])
+            if f is None:
+                raise FieldNotFoundError()
+            f.import_roaring(int(pv["shard"]), body, clear=clear)
+        else:
+            api.import_roaring(pv["index"], pv["field"], int(pv["shard"]),
+                               body, clear=clear)
+        return 200, {}
 
     def get_export(pv, params, body):
         return 200, api.export_csv(params["index"], params["field"],
@@ -489,6 +508,25 @@ def _build_routes(api: API):
             "cache": None,
         }
 
+    def get_debug_quarantine(pv, params, body):
+        """Corruption quarantine view: which fragments failed integrity
+        verification, their serving state, and the preserved evidence
+        files (``*.quarantine``)."""
+        q = api.store.quarantine if api.store is not None else None
+        if q is None:
+            return 200, {"entries": [], "count": 0}
+        entries = q.entries()
+        return 200, {"entries": entries, "count": len(entries)}
+
+    def get_debug_heap(pv, params, body):
+        """One-stop memory accounting: tracemalloc top sites, the native
+        pool, the planner's device stack cache, per-index host-row bytes
+        (reference /debug/pprof heap, http/handler.go:281)."""
+        from pilosa_tpu_torch.obs.heap import heap_stats
+        top_n = min(max(int(params.get("top", 25)), 1), 200)
+        return 200, heap_stats(api.holder, planner=api.executor.planner,
+                               top_n=top_n)
+
     def get_debug_threads(pv, params, body):
         """Thread stack dump (reference /debug/pprof goroutines)."""
         import sys
@@ -532,7 +570,7 @@ def _build_routes(api: API):
         return 200, {}
 
     cluster = SLICE_CLUSTER
-    persistence = SLICE_PERSISTENCE
+    backup = SLICE_BACKUP
     table = [
         (r"/", {"GET": home}),
         (r"/index", {"GET": get_indexes}),
@@ -541,7 +579,7 @@ def _build_routes(api: API):
          {"POST": post_import}),
         (r"/index/(?P<index>[^/]+)/field/(?P<field>[^/]+)/import-roaring/"
          r"(?P<shard>[0-9]+)",
-         {"POST": _not_ported("a roaring import", persistence)}),
+         {"POST": post_import_roaring}),
         (r"/index/(?P<index>[^/]+)/field/(?P<field>[^/]+)/views",
          {"GET": get_views}),
         (r"/index/(?P<index>[^/]+)/field/(?P<field>[^/]+)/view/"
@@ -571,23 +609,21 @@ def _build_routes(api: API):
         (r"/debug/overload", {"GET": get_debug_overload}),
         (r"/debug/cache",
          {"GET": _not_ported("GET /debug/cache", SLICE_EXECUTOR)}),
-        (r"/debug/quarantine",
-         {"GET": _not_ported("GET /debug/quarantine", persistence)}),
+        (r"/debug/quarantine", {"GET": get_debug_quarantine}),
         (r"/debug/threads", {"GET": get_debug_threads}),
         (r"/debug/profile", {"GET": get_debug_profile}),
-        (r"/debug/heap",
-         {"GET": _not_ported("GET /debug/heap", persistence)}),
+        (r"/debug/heap", {"GET": get_debug_heap}),
         (r"/recalculate-caches", {"POST": post_recalculate}),
-        (r"/backup", {"POST": _not_ported("POST /backup", persistence)}),
+        (r"/backup", {"POST": _not_ported("POST /backup", backup)}),
         (r"/backup/status",
-         {"GET": _not_ported("GET /backup/status", persistence)}),
-        (r"/restore", {"POST": _not_ported("POST /restore", persistence)}),
+         {"GET": _not_ported("GET /backup/status", backup)}),
+        (r"/restore", {"POST": _not_ported("POST /restore", backup)}),
         (r"/restore/status",
-         {"GET": _not_ported("GET /restore/status", persistence)}),
+         {"GET": _not_ported("GET /restore/status", backup)}),
         (r"/internal/backup/keys",
-         {"GET": _not_ported("GET /internal/backup/keys", persistence)}),
+         {"GET": _not_ported("GET /internal/backup/keys", backup)}),
         (r"/internal/backup/fragment",
-         {"GET": _not_ported("GET /internal/backup/fragment", persistence)}),
+         {"GET": _not_ported("GET /internal/backup/fragment", backup)}),
         (r"/internal/shards/max", {"GET": get_shards_max}),
         (r"/internal/availability",
          {"GET": _not_ported("GET /internal/availability", cluster)}),
@@ -603,7 +639,7 @@ def _build_routes(api: API):
         (r"/debug/resize",
          {"GET": _not_ported("GET /debug/resize", cluster)}),
         (r"/debug/backup",
-         {"GET": _not_ported("GET /debug/backup", persistence)}),
+         {"GET": _not_ported("GET /debug/backup", backup)}),
         (r"/internal/index/(?P<index>[^/]+)/field/(?P<field>[^/]+)"
          r"/remote-available-shards/(?P<shard>[0-9]+)",
          {"DELETE": _not_ported("remote available shards", cluster)}),

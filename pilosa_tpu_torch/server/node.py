@@ -3,13 +3,16 @@
 The port's counterpart of pilosa_tpu/server/node.py for a node with no
 peers: Holder (on the card by default) + Executor (+ Planner) + API +
 HTTPServer, with the QoS front (admission gate, default deadline,
-slow-query log, adaptive limit, tenant quotas) and the query-profile
-ring. Peers, joins, persistence, backups and the background sweeps come
-with later slices (ROADMAP.md Queue 1: persistence; cluster and
-operations).
+slow-query log, adaptive limit, tenant quotas), the query-profile ring,
+the runtime gauges and, with ``data_dir``, the ``storage.DiskStore`` that
+logs every write, snapshots and reloads the data dir at boot. Peers,
+joins, backups, scrubs and the other background sweeps come with later
+slices (ROADMAP.md Queue 1: backup and restore; cluster and operations).
 """
 
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -17,6 +20,7 @@ from pilosa_tpu_torch.cluster.node import URI, Node
 from pilosa_tpu_torch.core.holder import Holder
 from pilosa_tpu_torch.exec.executor import Executor
 from pilosa_tpu_torch.obs import MemoryStats, ProfileRing
+from pilosa_tpu_torch.obs.runtime import RuntimeMonitor
 from pilosa_tpu_torch.parallel import Planner
 from pilosa_tpu_torch.qos import (
     AdaptiveLimit,
@@ -32,7 +36,11 @@ class ServerNode:
     """A runnable standalone node (reference ``pilosa server``,
     cmd/server.go:64). ``device`` defaults to ``cuda`` and raises without
     a card, as ``Holder`` does; ``device="cpu"`` runs the kernels' plain
-    versions on the CPU."""
+    versions on the CPU. ``data_dir`` opens (or creates) a data dir
+    before the node serves; ``close()`` flushes it."""
+
+    #: seconds between import-pool top-up checks.
+    POOL_TOPUP_INTERVAL = 30.0
 
     def __init__(self, bind: str = "127.0.0.1:10101",
                  device: str | torch.device | None = "cuda",
@@ -49,7 +57,12 @@ class ServerNode:
                  qos_tenant_rate: float = 0.0,
                  qos_tenant_burst: float = 0.0,
                  profile_ring_n: int = 64,
-                 profile_queries: bool = True):
+                 profile_queries: bool = True,
+                 data_dir: str | None = None,
+                 max_op_n: int | None = None,
+                 quarantine_keep_n: int = 0,
+                 wal_group_commit_ms: float = 0.0,
+                 import_pool_mb: int = 0):
         host, _, port = bind.partition(":")
         self.host, self.port = host or "127.0.0.1", int(port or 10101)
         self.stats = MemoryStats()
@@ -58,6 +71,20 @@ class ServerNode:
         self.executor = Executor(self.holder, planner=planner,
                                  stats=self.stats)
         self.api = API(self.holder, self.executor)
+        if data_dir:
+            from pilosa_tpu_torch.storage.diskstore import DiskStore
+            kw = {} if max_op_n is None else {"max_op_n": max_op_n}
+            self.store = DiskStore(data_dir, self.holder, stats=self.stats,
+                                   quarantine_keep_n=quarantine_keep_n,
+                                   wal_group_window=wal_group_commit_ms / 1000.0,
+                                   **kw)
+            self.store.open()
+        else:
+            self.store = None
+        self.api.store = self.store
+        self._import_pool_mb = int(import_pool_mb)
+        self._pool_stop = threading.Event()
+        self.runtime_monitor = None
         # QoS front: max_concurrent=0 (the constructor default) leaves the
         # gate open — metrics and slow log only.
         adaptive = None
@@ -103,9 +130,35 @@ class ServerNode:
 
     def open(self) -> None:
         self.http.serve_background()
+        if self._import_pool_mb > 0:
+            # Fault the codec's import buffer pool off the serving path,
+            # then keep it topped up: dense imports adopt pool-backed
+            # blocks as fragment storage, draining the free list.
+            def _warm(mb: int = self._import_pool_mb) -> None:
+                from pilosa_tpu_torch import native
+                target = mb << 20
+                native.pool_reserve(target)
+                while not self._pool_stop.wait(self.POOL_TOPUP_INTERVAL):
+                    stats = native.pool_stats()
+                    if stats is None:
+                        return
+                    deficit = target - stats["free_bytes"]
+                    if deficit > target // 2:
+                        native.pool_reserve(deficit)
+            threading.Thread(target=_warm, daemon=True,
+                             name="pool-warm").start()
+        self.runtime_monitor = RuntimeMonitor(self.stats,
+                                              self.executor.planner,
+                                              qos=self.qos)
+        self.runtime_monitor.start()
 
     def close(self) -> None:
+        self._pool_stop.set()
         self.http.close()
+        if self.runtime_monitor is not None:
+            self.runtime_monitor.close()
+        if self.store is not None:
+            self.store.close()
 
     @property
     def address(self) -> str:

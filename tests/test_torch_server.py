@@ -356,7 +356,9 @@ def _served(path: str) -> bool:
         "/status", "/info", "/version", "/metrics", "/debug/vars",
         "/debug/queries/{trace}", "/debug/queries", "/debug/slow-queries",
         "/debug/overload", "/debug/threads", "/debug/profile",
-        "/recalculate-caches", "/internal/fragment/nodes", "/internal/shards/max"}
+        "/recalculate-caches", "/internal/fragment/nodes", "/internal/shards/max",
+        "/index/{index}/field/{field}/import-roaring/{shard}", "/debug/quarantine",
+        "/debug/heap"}
 
 
 def _unported_routes():
@@ -622,8 +624,9 @@ def test_node_defaults_to_the_card(monkeypatch):
 @pytest.mark.parametrize("argv,slice_name", [
     (["--peers", "127.0.0.1:1"], "cluster and operations"),
     (["--join", "127.0.0.1:1"], "cluster and operations"),
-    (["--data-dir", "/nonexistent"], "persistence"),
-    (["--archive-url", "x"], "persistence"),
+    (["--backup-interval", "1"], "backup and restore"),
+    (["--archive-url", "x"], "backup and restore"),
+    (["--scrub-interval", "1"], "cluster and operations"),
     (["--trace-endpoint", "http://127.0.0.1:1"], "cluster and operations"),
     (["--qos-warmup", "count"], "executor remainder"),
     (["--result-cache-mb", "0"], "executor remainder"),
