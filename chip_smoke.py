@@ -34,10 +34,18 @@ port's paths:
   node's body byte for byte, with the same launches; then a CLI node with
   ``--data-dir`` is SIGKILLed after acknowledged writes and must read them
   back from its WAL, and a bit-flipped snapshot must be quarantined with a
-  503 on its shard.
+  503 on its shard;
+- pql path: on the 1B-column ``bench`` index (with its existence row and a
+  third row ``h=3`` at 5% written first) ``Not``, ``Shift``, 3- and 4-leaf
+  Counts (each ONE ``tree_count`` launch), ``Rows``, ``Options``,
+  ``Store`` then ``ClearRow``, and on the TopN index ``SetRowAttrs`` and
+  TopN with ``attrName`` and with ``tanimotoThreshold``, in process and
+  over HTTP; then a repeated Count that the result cache answers with no
+  launch, and that misses after a ``Set``.
 
 Every answer is held against a numpy oracle, and each path's kernel launch
-counters are zeroed before it and must show its kernels launched. The
+counters are zeroed before it and must show its kernels launched. Timed
+requests bypass the result cache (``?noCache=true``, ``cache=False``). The
 script prints the toolchain, per-kernel times beside their bounds, the
 query latencies, the card's name and power limit, a ``{"kernels": [...]}``
 JSON line, and as its last line ``{"ok": true, "device": {...}}``. It
@@ -50,7 +58,8 @@ CPU rehearsal at a small size (plain kernel versions, no launch counts)::
     d = {}
     c.phase_data(torch, "cpu", d, device="cpu", count_shards=5,
                  topn_cols=3 * 2**20, topn_rows=1100, bsi_shards=5)
-    for p in (c.phase_main_path, c.phase_bsi, c.phase_http, c.phase_persist):
+    for p in (c.phase_main_path, c.phase_bsi, c.phase_http, c.phase_persist,
+              c.phase_pql):
         p(torch, "cpu", d, runs=2)
     d["node"].close()
 """
@@ -125,6 +134,12 @@ COUNT_QUERIES = {
     "count_3leaf": "Count(Union(Intersect(Row(f=1), Row(g=2)), Row(g=2)))",
 }
 TOPN_QUERY = "TopN(f2, Row(g=0), n=10)"
+#: the kernels the BSI queries run, and those behind the HTTP edge.
+BSI_KERNELS = ("pair_count", "row_counts", "bsi_compare", "bsi_minmax", "tree_count")
+HTTP_KERNELS = BSI_KERNELS
+#: measured requests bypass the result cache, so each one runs its kernels
+#: (the pql phase checks the cache on its own).
+QUERY_PATH = "/index/{}/query?noCache=true"
 
 #: the schema the node gets over HTTP before build_*_index load its data:
 #: (path, field options or None), one index per dataset.
@@ -254,7 +269,7 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
     def t(words):
         return torch.from_numpy(np.ascontiguousarray(words).view(np.int32)).to(dev)
 
-    errs = {"pair_count": 0, "row_counts": 0, "bsi_compare": 0, "bsi_minmax": 0}
+    errs = dict.fromkeys(kernels.LAUNCHES, 0)
 
     def check_pair(a, b, op, what):
         got = kernels.pair_count(a, b, op)
@@ -288,6 +303,30 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
         errs["bsi_minmax"] = max(errs["bsi_minmax"], err)
         if any(g.shape != v.shape for g, v in zip(got, want)) or err:
             raise AssertionError(f"bsi_minmax {what} is_max={is_max}: max |err| {err}")
+
+    def check_tree(leaves, tape, what):
+        for plane in (False, True):
+            got = kernels.tree_count(leaves, tape, plane)
+            want = kernels.tree_count_plain(leaves, tape, plane)
+            torch.cuda.synchronize()
+            got, want = (got, want) if plane else ((got,), (want,))
+            err = int((got[0].long() - want[0].long()).abs().max())
+            if plane:  # words are bit patterns: count the differing bits
+                err = max(err, int(kernels.row_counts_plain(got[1] ^ want[1])
+                                   .long().sum()))
+            errs["tree_count"] = max(errs["tree_count"], err)
+            if any(g.shape != v.shape for g, v in zip(got, want)) or err:
+                raise AssertionError(f"tree_count {what} plane={plane} "
+                                     f"tape={tape}: max |err| {err}")
+
+    def check_shift(a, n, what):
+        got = kernels.shift_left(a, n)
+        want = kernels.shift_left_plain(a, n)
+        torch.cuda.synchronize()
+        err = int(kernels.row_counts_plain(got ^ want).long().sum())
+        errs["shift_left"] = max(errs["shift_left"], err)
+        if got.shape != want.shape or err:
+            raise AssertionError(f"shift_left {what} n={n}: {err} bits differ")
 
     def check_rows(a, what):
         got = kernels.row_counts(a)
@@ -372,6 +411,34 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
         check_minmax(t(seeded_words(rng, (2, 3, 40000))), t(seeded_words(rng, (3, 40000))),
                      2, is_max, "[2, 3, 40000] (scratch)")
         check_minmax(cube, mm_filt, 0, is_max, "depth 0")
+    # tree_count: tapes of 3, 4 and 9 leaves with andnot and a duplicate
+    # leaf, a tape past the kernel's stack limit (cut into sub-tapes), a
+    # [W] leaf against [1024, W] stacks, and ragged and unaligned leaves;
+    # shift_left at the word and shard edges, on a stack and a [W] leaf.
+    from pilosa_tpu_torch.config import SHARD_WIDTH
+    leaves9 = [big_a, big_b, filt_stack[3]] + [
+        t(seeded_words(rng, (1024, w))) for _ in range(6)]
+    tapes = {
+        "3 leaves": [0, 1, "and", 2, "and"],
+        "4 leaves, andnot": [0, 1, "or", 3, "andnot", 2, "xor"],
+        "9 leaves, a duplicate": [0, 1, "and", 2, "or", 0, "andnot", 3, "xor",
+                                  4, "and", 5, "or", 6, "and", 7, "or", 8,
+                                  "andnot"],
+        "9 deep (cut)": list(range(9)) + ["xor", "and", "or", "andnot"] * 2,
+    }
+    for what, tape in tapes.items():
+        check_tree(leaves9, tape, f"[1024, 32768] x 9 ({what})")
+    vec = [t(seeded_words(rng, (32768,))) for _ in range(3)]
+    check_tree(vec, [0, 1, "and", 2, "andnot"], "[32768] x 3")
+    ragged_a, ragged_b = t(seeded_words(rng, (7, 6243))), t(seeded_words(rng, (6243,)))
+    check_tree([ragged_a, ragged_b], [0, 1, "xor", 0, "and"], "[7, 6243] x [6243]")
+    check_tree([off_a[:, 1:], off_b[2, 1:], off_b[:, 1:]], [0, 1, "andnot", 2, "or"],
+               "unaligned [5, 4100]")
+    for n in (0, 1, 31, 32, 33, 1000, SHARD_WIDTH - 1, SHARD_WIDTH):
+        check_shift(big_a, n, "[1024, 32768]")
+        check_shift(vec[0], n, "[32768]")
+        check_shift(off_a[:, 1:], n, "unaligned [5, 4100]")
+    del leaves9
     log(f"kernel checks: exact on every op and shape; max |err| {errs}")
 
     # Times at the shapes of the paths: the 2-leaf and bare-leaf Count
@@ -409,7 +476,28 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
          lambda: kernels.bsi_minmax(cube, filt, 17, True),
          lambda: kernels.bsi_minmax_plain(cube, filt, 17, True),
          18 * plane + 3 * rows * 4, OPS_PER_WORD * 17 * rows * w),
+        # per word: two ands, a popcount, an add
+        ("tree_count", "3 x [1024, 32768] (and, and)",
+         lambda: kernels.tree_count(tree3, [0, 1, "and", 2, "and"]),
+         lambda: kernels.tree_count_plain(tree3, [0, 1, "and", 2, "and"]),
+         3 * plane + rows * 4, 4 * rows * w),
+        ("tree_count", "3 x [1024, 32768] (and, and), plane written",
+         lambda: kernels.tree_count(tree3, [0, 1, "and", 2, "and"], True),
+         lambda: kernels.tree_count_plain(tree3, [0, 1, "and", 2, "and"], True),
+         4 * plane + rows * 4, 4 * rows * w),
+        # per word: two shifts, an or
+        ("shift_left", "[1024, 32768], n = 33",
+         lambda: kernels.shift_left(big_a, 33),
+         lambda: kernels.shift_left_plain(big_a, 33),
+         2 * plane, 3 * rows * w),
     ]
+    tree3 = [big_a, big_b, t(seeded_words(rng, (1024, w)))]
+    # The path the 3-leaf Count took before tree_count: two elementwise
+    # torch ops writing 128 MiB planes, then row_counts.
+    torch_ms = time_cuda_ms(torch, lambda: kernels.row_counts(
+        (tree3[0] & tree3[1]) & tree3[2]), KERNEL_RUNS)
+    log(f"3-leaf Count on the torch-ops path (and, and, row_counts): "
+        f"{torch_ms:.4f} ms, 7 planes moved  [{card}]")
     timings = {}
     for name, shape, fn, plain_fn, nbytes, ops in cases:
         ms = time_cuda_ms(torch, fn, KERNEL_RUNS)
@@ -418,9 +506,9 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
         log(f"kernel {name} {shape}: {ms:.4f} ms, bound {bound:.4f} ms ({by}), "
             f"{bound / ms:.1%} of bound; plain {plain:.4f} ms  [{card}]")
         timings.setdefault(name, (ms, plain, bound, by))
-    del cube, cube40
+    del cube, cube40, tree3
     log(f"kernels: {json.dumps(sorted(errs))}")
-    return {"timings": timings, "errs": errs}
+    return {"timings": timings, "errs": errs, "torch_3leaf_ms": torch_ms}
 
 
 # -- phase 3: the node and its data, built once -------------------------------
@@ -507,20 +595,40 @@ def build_topn_index(torch, h, n_cols: int, n_rows: int, seed: int):
     return data
 
 
-def topn_oracle(data: dict, n: int) -> list[tuple[int, int]]:
-    """The executor's two-pass TopN (reference executor.go:857) in numpy:
-    pass 1 takes each shard's top ``n`` rows with count >= 1 (count desc,
-    id asc) as candidates; pass 2 sums every candidate's exact count over
+def topn_counts(data: dict) -> dict:
+    """shard -> (popcount(f2 row & g) per row, popcount(f2 row) per row,
+    popcount(g)), int64, from the host words of build_topn_index."""
+    return {s: (popcount_rows(f2 & g[None, :]), popcount_rows(f2),
+                int(popcount_rows(g)))
+            for s, (f2, g) in data.items()}
+
+
+def topn_oracle(counts: dict, n: int, keep=None) -> list[tuple[int, int]]:
+    """The executor's two-pass TopN (reference executor.go:857) in numpy,
+    over ``topn_counts``: pass 1 takes each shard's top ``n`` rows with a
+    count >= 1 that ``keep(shard, ids, counts)`` admits (count desc, id
+    asc) as candidates; pass 2 sums every candidate's admitted counts over
     all shards and keeps the top ``n``."""
-    per_shard = {s: popcount_rows(f2 & g[None, :]) for s, (f2, g) in data.items()}
+    def admitted(s, ids):
+        c = counts[s][0][ids]
+        m = c > 0
+        if keep is not None:
+            m &= keep(s, ids, c)
+        return ids[m], c[m]
+
     cands: set[int] = set()
-    for counts in per_shard.values():
-        ids = np.arange(len(counts))
-        order = np.lexsort((ids, -counts))
-        cands.update(int(i) for i in order[:n] if counts[i] > 0)
-    totals = {i: int(sum(c[i] for c in per_shard.values())) for i in cands}
-    ranked = sorted(((i, c) for i, c in totals.items() if c > 0),
-                    key=lambda p: (-p[1], p[0]))
+    for s, (inter, _, _) in counts.items():
+        ids, c = admitted(s, np.arange(len(inter)))
+        order = np.lexsort((ids, -c))
+        cands.update(int(i) for i in ids[order][:n])
+    if not cands:
+        return []
+    cand = np.array(sorted(cands))
+    totals: dict[int, int] = {}
+    for s in counts:
+        for i, c in zip(*admitted(s, cand)):
+            totals[int(i)] = totals.get(int(i), 0) + int(c)
+    ranked = sorted(totals.items(), key=lambda p: (-p[1], p[0]))
     return ranked[:n]
 
 
@@ -618,14 +726,15 @@ def phase_data(torch, card: str, data: dict, device: str = "cuda",
         "count_row": int(popcount_rows(fw).sum()),
         "count_3leaf": int(popcount_rows((fw & gw) | gw).sum()),
     }
-    data["count_cols"] = n_cols
+    data["count_cols"], data["count_shards"] = n_cols, count_shards
     del fw, gw
 
     t0 = time.perf_counter()
     words = build_topn_index(torch, h, topn_cols, topn_rows, SEED + 1)
     log(f"topn index: {len(words)} shards, {topn_cols} columns, {topn_rows} "
         f"rows; made and loaded in {time.perf_counter() - t0:.3f} s")
-    data["want_topn"] = topn_oracle(words, 10)
+    data["topn_counts"] = topn_counts(words)
+    data["want_topn"] = topn_oracle(data["topn_counts"], 10)
     del words
     if not all(h.fragment("topn", "f2", "standard", 0).rows[r].is_dense
                for r in range(topn_rows)):
@@ -709,7 +818,7 @@ def phase_main_path(torch, card: str, data: dict, runs: int = QUERY_RUNS) -> dic
     want, want_topn = data["want_count"], data["want_topn"]
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    ex = Executor(h, planner=Planner(h))
+    ex = Executor(h, planner=Planner(h), result_cache=False)
     launches = {}
     first_ms = {}
     # The main path's run: counters at 0 just before, read just after.
@@ -735,9 +844,13 @@ def phase_main_path(torch, card: str, data: dict, runs: int = QUERY_RUNS) -> dic
     main_launches = dict(kernels.LAUNCHES)
     log(f"main path launches: {main_launches}")
     if device == "cuda":
-        for k in ("pair_count", "row_counts"):
+        for k in ("pair_count", "row_counts", "tree_count"):
             if main_launches[k] < 1:
                 raise AssertionError(f"kernel {k} was not launched on the main path")
+        three = launches["count_3leaf"]
+        if three["tree_count"] != 1 or three["row_counts"] or three["pair_count"]:
+            raise AssertionError(f"the 3-leaf Count launched {three}, not one "
+                                 "tree_count")
     log(f"first-run ms (stacks built and uploaded): "
         f"{json.dumps({k: round(v, 3) for k, v in first_ms.items()})}")
 
@@ -807,7 +920,7 @@ def phase_bsi(torch, card: str, data: dict, runs: int = QUERY_RUNS) -> dict:
     del cols, vals, shard_of
     idx.delete_field("vi")
 
-    ex = Executor(h, planner=Planner(h))
+    ex = Executor(h, planner=Planner(h), result_cache=False)
     launches, first_ms = {}, {}
     # The BSI path's run: counters at 0 just before, read just after.
     kernels.reset_launches()
@@ -824,8 +937,8 @@ def phase_bsi(torch, card: str, data: dict, runs: int = QUERY_RUNS) -> dict:
     path_launches = dict(kernels.LAUNCHES)
     log(f"bsi path launches: {path_launches}")
     if device == "cuda":
-        for k, v in path_launches.items():
-            if v < 1:
+        for k in BSI_KERNELS:
+            if path_launches[k] < 1:
                 raise AssertionError(f"kernel {k} was not launched on the BSI path")
         # Sum's per-plane counts are the only pair_count calls of a Sum:
         # the cube against a class row, the broadcast shape.
@@ -876,13 +989,13 @@ def http_import_check(conn, data: dict, card: str) -> None:
     n_cols = data["count_cols"]
     rows = rng.integers(0, 4, HTTP_IMPORT_N, dtype=np.int64)
     cols = rng.integers(0, n_cols, HTTP_IMPORT_N, dtype=np.int64)
-    expect_ok(conn, "POST", "/index/bench/field/h")
+    expect_ok(conn, "POST", "/index/bench/field/j")
     body = json.dumps({"rowIDs": rows.tolist(), "columnIDs": cols.tolist()})
     t0 = time.perf_counter()
-    expect_ok(conn, "POST", "/index/bench/field/h/import", body)
+    expect_ok(conn, "POST", "/index/bench/field/j/import", body)
     bits_ms = (time.perf_counter() - t0) * 1e3
     pairs = np.unique(rows * n_cols + cols)
-    checks = [("bench", f"Count(Row(h={r}))", int((pairs // n_cols == r).sum()))
+    checks = [("bench", f"Count(Row(j={r}))", int((pairs // n_cols == r).sum()))
               for r in range(4)]
 
     vcols = np.unique(rng.integers(0, data["bsi_cols"], HTTP_IMPORT_N, dtype=np.int64))
@@ -897,7 +1010,7 @@ def http_import_check(conn, data: dict, card: str) -> None:
                ("bsi", "Count(Row(w > 50000))", int((vals > 50000).sum())),
                ("bsi", "Sum(field=w)", {"value": int(vals.sum()), "count": len(vcols)})]
     for index, q, want in checks:
-        got = json.loads(expect_ok(conn, "POST", f"/index/{index}/query", q))["results"][0]
+        got = json.loads(expect_ok(conn, "POST", QUERY_PATH.format(index), q))["results"][0]
         if got != want:
             raise AssertionError(f"{q} after the HTTP import: {got}, numpy {want}")
     log(f"HTTP JSON import: {HTTP_IMPORT_N} bits in {bits_ms:.3f} ms, {len(vcols)} "
@@ -922,7 +1035,7 @@ def run_clients(port: int, mix: list, launches_of: dict, clients: int,
             for i in range(per_client):
                 index, q, want_body = mix[(k + i) % len(mix)]
                 t0 = time.perf_counter()
-                status, body = request(c, "POST", f"/index/{index}/query", q)
+                status, body = request(c, "POST", QUERY_PATH.format(index), q)
                 ms = (time.perf_counter() - t0) * 1e3
                 with lock:
                     lat.append(ms)
@@ -971,7 +1084,7 @@ def phase_http(torch, card: str, data: dict, runs: int = QUERY_RUNS,
     queries = http_queries(data)
 
     def inproc_body(index, q) -> bytes:
-        results = ex.execute(index, q)
+        results = ex.execute(index, q, cache=False)
         return (json.dumps({"results": [result_to_json(r) for r in results]})
                 + "\n").encode()
 
@@ -984,7 +1097,7 @@ def phase_http(torch, card: str, data: dict, runs: int = QUERY_RUNS,
     for index, name, q, want in queries:
         before = dict(kernels.LAUNCHES)
         t0 = time.perf_counter()
-        status, body = request(conn, "POST", f"/index/{index}/query", q)
+        status, body = request(conn, "POST", QUERY_PATH.format(index), q)
         first_ms[name] = (time.perf_counter() - t0) * 1e3
         over_http = {k: kernels.LAUNCHES[k] - before[k] for k in before}
         before = dict(kernels.LAUNCHES)
@@ -1006,11 +1119,11 @@ def phase_http(torch, card: str, data: dict, runs: int = QUERY_RUNS,
             http_launches[k] += v
         log(f"HTTP {q} = oracle, body byte-equal to in-process, launches {over_http}")
     if device == "cuda":
-        for k, v in http_launches.items():
-            if v < 1:
+        for k in HTTP_KERNELS:
+            if http_launches[k] < 1:
                 raise AssertionError(f"kernel {k} was not launched behind the HTTP edge")
-        if per_query["count_intersect"] != {"pair_count": 1, "row_counts": 0,
-                                            "bsi_compare": 0, "bsi_minmax": 0}:
+        if per_query["count_intersect"] != dict(dict.fromkeys(kernels.LAUNCHES, 0),
+                                                pair_count=1):
             raise AssertionError(f"Count(Intersect) over HTTP launched "
                                  f"{per_query['count_intersect']}")
     log(f"http path launches: {http_launches}")
@@ -1025,11 +1138,12 @@ def phase_http(torch, card: str, data: dict, runs: int = QUERY_RUNS,
         times = []
         for _ in range(runs):
             t0 = time.perf_counter()
-            status, _body = request(conn, "POST", f"/index/{index}/query", q)
+            status, _body = request(conn, "POST", QUERY_PATH.format(index), q)
             times.append((time.perf_counter() - t0) * 1e3)
             if status != 200:
                 raise AssertionError(f"{q}: HTTP {status}")
-        direct, spread = p50_ms(lambda index=index, q=q: ex.execute(index, q), runs)
+        direct, spread = p50_ms(
+            lambda index=index, q=q: ex.execute(index, q, cache=False), runs)
         edge = statistics.median(times) - direct
         log(f"HTTP {q}: {spread_ms(times)} ms over {runs} requests, keep-alive "
             f"loopback, client clock; in process p50 {direct:.4f} ms ({spread}); "
@@ -1070,7 +1184,7 @@ def phase_http(torch, card: str, data: dict, runs: int = QUERY_RUNS,
             ("parse error", "/index/bench/query", "Count(Row(f=1)", None, 400),
             ("expired X-Deadline", "/index/bench/query", COUNT_QUERIES["count_intersect"],
              {"X-Deadline": f"{time.time() - 1:.6f}"}, 504),
-            ("Not()", "/index/bench/query", "Count(Not(Row(f=1)))", None, 501)):
+            ("MinRow()", "/index/bench/query", "MinRow(field=f)", None, 501)):
         status, body = request(conn, "POST", path, q, headers)
         if status != want:
             raise AssertionError(f"{what}: HTTP {status}, expected {want}: {body!r}")
@@ -1157,7 +1271,7 @@ def persist_queries(node_a, node_c, data: dict, card: str, runs: int) -> dict:
     want_bodies, want_launches = {}, {}
     for index, name, q, _ in queries:
         (status, body), l_a = launches_of(
-            lambda index=index, q=q: request(ca, "POST", f"/index/{index}/query", q))
+            lambda index=index, q=q: request(ca, "POST", QUERY_PATH.format(index), q))
         if status != 200:
             raise AssertionError(f"node A {q}: HTTP {status} {body[:300]!r}")
         want_bodies[name], want_launches[name] = body, l_a
@@ -1166,7 +1280,7 @@ def persist_queries(node_a, node_c, data: dict, card: str, runs: int) -> dict:
     for index, name, q, want in queries:
         t0 = time.perf_counter()
         (status, body), l_c = launches_of(
-            lambda index=index, q=q: request(cc, "POST", f"/index/{index}/query", q))
+            lambda index=index, q=q: request(cc, "POST", QUERY_PATH.format(index), q))
         first_ms[name] = (time.perf_counter() - t0) * 1e3
         if status != 200 or json.loads(body)["results"] != [want]:
             raise AssertionError(f"reopened {q}: HTTP {status} {body[:300]!r}, "
@@ -1180,8 +1294,8 @@ def persist_queries(node_a, node_c, data: dict, card: str, runs: int) -> dict:
     path_launches = dict(kernels.LAUNCHES)
     log(f"persist path launches: {path_launches}")
     if data["device"] == "cuda":
-        for k, v in path_launches.items():
-            if v < 1:
+        for k in HTTP_KERNELS:
+            if path_launches[k] < 1:
                 raise AssertionError(f"kernel {k} was not launched on the reloaded data")
     log(f"cold first request on the reopened node: {first_ms['count_intersect']:.3f} ms "
         f"(Count(Intersect), stacks rebuilt from reloaded host rows), "
@@ -1192,7 +1306,7 @@ def persist_queries(node_a, node_c, data: dict, card: str, runs: int) -> dict:
         times = []
         for _ in range(runs):
             t0 = time.perf_counter()
-            status, _ = request(cc, "POST", f"/index/{index}/query", q)
+            status, _ = request(cc, "POST", QUERY_PATH.format(index), q)
             times.append((time.perf_counter() - t0) * 1e3)
             if status != 200:
                 raise AssertionError(f"reopened {q}: HTTP {status}")
@@ -1414,6 +1528,245 @@ def phase_persist(torch, card: str, data: dict, runs: int = 10) -> dict:
     return {"launches": launches}
 
 
+# -- phase 8: the rest of PQL: Not, Shift, Rows, Store, ClearRow, Options,
+# attrs, tanimoto, the result cache -------------------------------------------
+
+
+#: the pql phase's reads on the bench index: (name, PQL). Each 3+-leaf
+#: Count must be ONE tree_count launch.
+PQL_READS = {
+    "count_3leaf": "Count(Intersect(Row(f=1), Row(g=2), Row(h=3)))",
+    "count_4leaf": "Count(Difference(Union(Row(f=1), Row(g=2)), Xor(Row(h=3), Row(f=1))))",
+    "count_not": "Count(Not(Row(f=1)))",
+    "count_shift1": "Count(Shift(Row(f=1), n=1))",
+    "count_shift33": "Count(Intersect(Shift(Row(f=1), n=33), Row(g=2)))",
+    "rows": "Rows(f)",
+    "options": "Options(Count(Row(f=1)), shards=[0, 1])",
+}
+PQL_ONE_TREE = ("count_3leaf", "count_4leaf")
+PQL_TANIMOTO = "TopN(f2, Row(g=0), n=10, tanimotoThreshold=3)"
+PQL_ATTR = 'TopN(f2, Row(g=0), n=10, attrName="cat", attrValues=["x"])'
+#: the kernels the pql phase's run must launch.
+PQL_KERNELS = ("pair_count", "row_counts", "tree_count", "shift_left")
+
+
+def shifted_and_count(a: np.ndarray, b: np.ndarray | None, n: int,
+                      chunk: int = 64) -> int:
+    """numpy oracle of Count(Intersect(Shift(a, n), b)) (b None: of
+    Count(Shift(a, n))) over [S, W] uint32 shard rows: every set bit of a
+    moves n columns up within its shard, bits past the shard's end falling
+    off, on unpacked bit arrays, ``chunk`` shards at a time."""
+    total = 0
+    for lo in range(0, len(a), chunk):
+        ab = np.unpackbits(a[lo:lo + chunk].view(np.uint8), axis=1,
+                           bitorder="little")
+        moved = ab[:, :ab.shape[1] - n]
+        if b is None:
+            total += int(moved.sum(dtype=np.int64))
+        else:
+            bb = np.unpackbits(b[lo:lo + chunk].view(np.uint8), axis=1,
+                               bitorder="little")
+            total += int((moved & bb[:, n:]).sum(dtype=np.int64))
+    return total
+
+
+def phase_pql(torch, card: str, data: dict, runs: int = QUERY_RUNS) -> dict:
+    """Not, Shift, Rows, Store, ClearRow, Options, row attrs, TopN's
+    tanimotoThreshold and attrName, and the result cache at 1B columns, in
+    process (``node.executor``, cache bypassed) and over HTTP: each answer
+    equal to its numpy oracle, each body byte-equal to the in-process JSON
+    with the same launches. Set-up: the existence row (the data phase's
+    import_bits bypasses add_existence) and a third row h=3 at 5%."""
+    from pilosa_tpu_torch import interop
+    from pilosa_tpu_torch.exec import result_to_json
+    from pilosa_tpu_torch.ops import kernels
+
+    device, node, h = data["device"], data["node"], data["holder"]
+    ex = node.executor
+    n_shards = data["count_shards"]
+    conn = http_client(node.port)
+    t0 = time.perf_counter()
+    expect_ok(conn, "POST", "/index/bench/field/h")
+    rng = np.random.default_rng(SEED + 4)
+    n_cols = data["count_cols"]
+    pos = rng.integers(0, n_cols, int(n_cols * COUNT_DENSITY), dtype=np.uint64)
+    h.field("bench", "h").import_bits(np.full(len(pos), 3, dtype=np.uint64), pos)
+    del pos
+
+    def words(field, row):
+        return np.stack([h.fragment("bench", field, "standard", s).row_words(row)
+                         for s in range(n_shards)])
+
+    fw, gw, hw = words("f", 1), words("g", 2), words("h", 3)
+    exists = fw | gw | hw
+    for s in range(n_shards):
+        interop.load_fragment_words(h, "bench", "_exists", s, [0], exists[s][None])
+    want = {
+        "count_3leaf": int(popcount_rows(fw & gw & hw).sum()),
+        "count_4leaf": int(popcount_rows((fw | gw) & ~(hw ^ fw)).sum()),
+        "count_not": int(popcount_rows(exists & ~fw).sum()),
+        "count_shift1": shifted_and_count(fw, None, 1),
+        "count_shift33": shifted_and_count(fw, gw, 33),
+        "rows": {"rows": [1]},
+        "options": int(popcount_rows(fw[:2]).sum()),
+    }
+    want_store = int(popcount_rows(fw & gw).sum())
+    # A column in f and g but not h: Set(col, h=3) moves count_3leaf by one.
+    fgh = fw & gw & ~hw
+    shard = int(np.flatnonzero(fgh.any(axis=1))[0])
+    word = int(np.flatnonzero(fgh[shard])[0])
+    bit = (int(fgh[shard, word]) & -int(fgh[shard, word])).bit_length() - 1
+    miss_col = shard * (n_cols // n_shards) + word * 32 + bit
+    del fw, gw, hw, exists, fgh
+    log(f"pql set-up: field h row 3 at {COUNT_DENSITY:.0%} and the existence row "
+        f"of {n_shards} shards in {time.perf_counter() - t0:.3f} s (host)")
+
+    counts = data["topn_counts"]
+
+    def tanimoto_keep(s, ids, c):
+        base, src = counts[s][1][ids], counts[s][2]
+        return -(-c * 100 // (base + src - c)) > 3
+
+    kept = sum(int(tanimoto_keep(s, np.arange(len(c[0])), c[0]).sum())
+               for s, c in counts.items())
+    log(f"tanimotoThreshold=3 keeps {kept} of "
+        f"{sum(len(c[0]) for c in counts.values())} (shard, row) counts")
+
+    # SetRowAttrs over HTTP: every fifth row "x", the next one "y".
+    attrs = " ".join(f'SetRowAttrs(f2, {r}, cat="{"x" if r % 5 == 0 else "y"}")'
+                     for r in range(TOPN_ROWS) if r % 5 in (0, 1))
+    body = expect_ok(conn, "POST", "/index/topn/query", attrs)
+    if json.loads(body)["results"] != [None] * attrs.count("SetRowAttrs"):
+        raise AssertionError(f"SetRowAttrs over HTTP: {body[:200]!r}")
+    allowed = np.arange(TOPN_ROWS) % 5 == 0
+    topn_want = {
+        "tanimoto": [{"id": i, "count": c}
+                     for i, c in topn_oracle(counts, 10, tanimoto_keep)],
+        "attr": [{"id": i, "count": c}
+                 for i, c in topn_oracle(counts, 10, lambda s, ids, c: allowed[ids])],
+    }
+
+    def inproc(index, q):
+        before = dict(kernels.LAUNCHES)
+        results = ex.execute(index, q, cache=False)
+        body = (json.dumps({"results": [result_to_json(r) for r in results]})
+                + "\n").encode()
+        return body, {k: kernels.LAUNCHES[k] - before[k] for k in before}
+
+    def over_http(index, q, path=QUERY_PATH):
+        before = dict(kernels.LAUNCHES)
+        status, body = request(conn, "POST", path.format(index), q)
+        if status != 200:
+            raise AssertionError(f"{q}: HTTP {status} {body[:300]!r}")
+        return body, {k: kernels.LAUNCHES[k] - before[k] for k in before}
+
+    def both(index, name, q, want_result, launches=None):
+        """q in process, then over HTTP: the oracle, byte-equal bodies,
+        equal launches (and the expected ones, on the card)."""
+        body, l_in = inproc(index, q)
+        got = json.loads(body)["results"]
+        if got != [want_result]:
+            raise AssertionError(f"{q}: {got}, numpy oracle {[want_result]}")
+        hbody, l_http = over_http(index, q)
+        if hbody != body:
+            raise AssertionError(f"{q}: HTTP body {hbody[:200]!r} is not the "
+                                 f"in-process JSON {body[:200]!r}")
+        if l_http != l_in:
+            raise AssertionError(f"{q}: launches over HTTP {l_http}, in process {l_in}")
+        if device == "cuda" and launches is not None:
+            expect = dict(dict.fromkeys(kernels.LAUNCHES, 0), **launches)
+            if l_in != expect:
+                raise AssertionError(f"{q}: launched {l_in}, expected {expect}")
+        log(f"pql {q} = oracle, HTTP body byte-equal, launches "
+            f"{ {k: v for k, v in l_in.items() if v} }  [{card}]")
+        return l_in
+
+    expected = {"count_3leaf": {"tree_count": 1}, "count_4leaf": {"tree_count": 1},
+                "count_not": {"pair_count": 1},
+                "count_shift1": {"shift_left": 1, "row_counts": 1},
+                "count_shift33": {"shift_left": 1, "pair_count": 1},
+                "rows": {}, "options": {"row_counts": 1}}
+    per_query, timed = {}, []
+    # The pql path's run: counters at 0 just before, read just after.
+    kernels.reset_launches()
+    for name, q in PQL_READS.items():
+        per_query[name] = both("bench", name, q, want[name], expected[name])
+        timed.append(("bench", q))
+
+    t0 = time.perf_counter()
+    body, l_store = inproc("bench", "Store(Intersect(Row(f=1), Row(g=2)), h=9)")
+    store_ms = (time.perf_counter() - t0) * 1e3
+    if json.loads(body)["results"] != [True]:
+        raise AssertionError(f"Store: {body[:200]!r}")
+    if device == "cuda" and l_store["tree_count"] != 1:
+        raise AssertionError(f"Store's source row launched {l_store}")
+    log(f"pql Store(Intersect(Row(f=1), Row(g=2)), h=9) in process: {store_ms:.3f} ms "
+        f"over {n_shards} shards, launches { {k: v for k, v in l_store.items() if v} }"
+        f"  [{card}]")
+    both("bench", "stored", "Count(Row(h=9))", want_store, {"row_counts": 1})
+    both("bench", "rows_h", "Rows(h)", {"rows": [3, 9]}, {})
+    t0 = time.perf_counter()
+    body, _ = over_http("bench", "ClearRow(h=9)")
+    clear_ms = (time.perf_counter() - t0) * 1e3
+    if json.loads(body)["results"] != [True]:
+        raise AssertionError(f"ClearRow over HTTP: {body[:200]!r}")
+    log(f"pql ClearRow(h=9) over HTTP: {clear_ms:.3f} ms over {n_shards} shards  [{card}]")
+    both("bench", "cleared", "Count(Row(h=9))", 0, {"row_counts": 1})
+
+    both("topn", "tanimoto", PQL_TANIMOTO, topn_want["tanimoto"])
+    both("topn", "attr", PQL_ATTR, topn_want["attr"])
+    timed += [("topn", PQL_TANIMOTO), ("topn", PQL_ATTR)]
+    path_launches = dict(kernels.LAUNCHES)
+    log(f"pql path launches: {path_launches}  [{card}]")
+    if device == "cuda":
+        for k in PQL_KERNELS:
+            if path_launches[k] < 1:
+                raise AssertionError(f"kernel {k} was not launched on the pql path")
+
+    # The result cache over HTTP: a repeated Count is answered with no
+    # launch, and misses after a Set to a shard it reads.
+    q3 = PQL_READS["count_3leaf"]
+    cached = "/index/{}/query"
+    b1, l1 = over_http("bench", q3, cached)
+    b2, l2 = over_http("bench", q3, cached)
+    if b2 != b1 or json.loads(b1)["results"] != [want["count_3leaf"]] or any(l2.values()):
+        raise AssertionError(f"cache hit: {b2[:100]!r} launches {l2}, first {b1[:100]!r}")
+    cache_ms = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        over_http("bench", q3, cached)
+        cache_ms.append((time.perf_counter() - t0) * 1e3)
+    hit_ms, hit_spread = p50_ms(lambda: ex.execute("bench", q3), runs)
+    body, _ = over_http("bench", f"Set({miss_col}, h=3)")
+    if json.loads(body)["results"] != [True]:
+        raise AssertionError(f"Set({miss_col}, h=3): {body[:200]!r}")
+    b3, l3 = over_http("bench", q3, cached)
+    if json.loads(b3)["results"] != [want["count_3leaf"] + 1] or (
+            device == "cuda" and l3["tree_count"] != 1):
+        raise AssertionError(f"after a Set: {b3[:100]!r}, launches {l3}; expected "
+                             f"{want['count_3leaf'] + 1} and one tree_count")
+    log(f"result cache: {q3} repeated over HTTP with 0 launches, p50 "
+        f"{spread_ms(cache_ms)} ms; in process p50 {hit_ms:.4f} ms ({hit_spread}); "
+        f"after Set({miss_col}, h=3) a miss with launches "
+        f"{ {k: v for k, v in l3.items() if v} } and count + 1  [{card}]")
+    snap = json.loads(expect_ok(conn, "GET", "/debug/cache"))
+    log(f"/debug/cache: hits {snap['hits']}, misses {snap['misses']}, entries "
+        f"{snap['entries']}, bytes {snap['bytes']}")
+
+    for index, q in timed:
+        times = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            over_http(index, q)
+            times.append((time.perf_counter() - t0) * 1e3)
+        direct, spread = p50_ms(
+            lambda index=index, q=q: ex.execute(index, q, cache=False), runs)
+        log(f"pql {q}: HTTP {spread_ms(times)} ms over {runs} requests; in process "
+            f"p50 {direct:.4f} ms ({spread})  [{card}]")
+    conn.close()
+    return {"launches": path_launches}
+
+
 # -- main ---------------------------------------------------------------------
 
 
@@ -1437,7 +1790,8 @@ def main() -> int:
               ("main_path", lambda: phase_main_path(torch, card, data)),
               ("bsi", lambda: phase_bsi(torch, card, data)),
               ("http", lambda: phase_http(torch, card, data)),
-              ("persist", lambda: phase_persist(torch, card, data)))
+              ("persist", lambda: phase_persist(torch, card, data)),
+              ("pql", lambda: phase_pql(torch, card, data)))
     try:
         for name, phase in phases:
             log(f"== phase {name}")
@@ -1461,18 +1815,25 @@ def main() -> int:
     timings = results["kernels"]["timings"]
     errs = results["kernels"]["errs"]
     launches = {k: sum(results[p]["launches"][k]
-                       for p in ("main_path", "bsi", "http", "persist"))
+                       for p in ("main_path", "bsi", "http", "persist", "pql"))
                 for k in errs}
     sources = {"pair_count": "pilosa_tpu_torch/csrc/count_kernels.cu",
                "row_counts": "pilosa_tpu_torch/csrc/count_kernels.cu",
                "bsi_compare": "pilosa_tpu_torch/csrc/bsi_kernels.cu",
-               "bsi_minmax": "pilosa_tpu_torch/csrc/bsi_kernels.cu"}
+               "bsi_minmax": "pilosa_tpu_torch/csrc/bsi_kernels.cu",
+               "tree_count": "pilosa_tpu_torch/csrc/tree_kernels.cu",
+               "shift_left": "pilosa_tpu_torch/csrc/tree_kernels.cu"}
     replaces = {"pair_count": "pilosa_tpu/ops/pallas_kernels.py:104",
                 "row_counts": "pilosa_tpu/ops/pallas_kernels.py:124",
                 "bsi_compare": "pilosa_tpu/ops/bsi.py:50-79 compare_unsigned + "
                                "_compare_select (XLA-fused, no pallas_call)",
                 "bsi_minmax": "pilosa_tpu/ops/bsi.py:208-257 _min_unsigned / "
-                              "_max_unsigned (XLA-fused, no pallas_call)"}
+                              "_max_unsigned (XLA-fused, no pallas_call)",
+                "tree_count": "pilosa_tpu/parallel/planner.py:1932-1957 _eval_node + "
+                              "bitops.count under _compiled(reduce='per_shard') "
+                              ":1814-1819 (XLA-fused, no pallas_call)",
+                "shift_left": "pilosa_tpu/ops/bitops.py:167-195 shift_left "
+                              "(XLA-fused, no pallas_call)"}
     entries = []
     for name in sources:
         ms, plain, bound, by = timings[name]

@@ -3,8 +3,10 @@
 A bitmap index whose rows live as dense 32-bit word blocks on an NVIDIA
 GPU, with set algebra in PyTorch and its kernels written by hand in CUDA
 C++ for Hopper: the two count kernels (per-row ``popcount(op(a, b))`` and
-per-row popcount, ``csrc/count_kernels.cu``) and the bit-sliced integer
-comparator and min/max descent (``csrc/bsi_kernels.cu``). It imports
+per-row popcount, ``csrc/count_kernels.cu``), the bit-sliced integer
+comparator and min/max descent (``csrc/bsi_kernels.cu``), and the bitmap
+tree evaluator over an op tape and the carried shift
+(``csrc/tree_kernels.cu``). It imports
 ``torch`` and never ``jax`` or the ``pilosa_tpu`` package, which stays
 beside it as the reference.
 
@@ -19,6 +21,7 @@ Layering, as in pilosa_tpu:
 - :mod:`pilosa_tpu_torch.core`     — fragment/row/view/field/index/holder
 - :mod:`pilosa_tpu_torch.pql`      — PQL parser
 - :mod:`pilosa_tpu_torch.exec`     — query executor
+- :mod:`pilosa_tpu_torch.cache`    — plan-keyed result cache
 - :mod:`pilosa_tpu_torch.parallel` — the all-shards planner on one GPU
 - :mod:`pilosa_tpu_torch.storage`  — WAL, snapshots, reload, quarantine
 - :mod:`pilosa_tpu_torch.server`   — the HTTP edge of a standalone node

@@ -28,8 +28,8 @@ import threading
 
 from pilosa_tpu_torch.errors import (
     SLICE_BACKUP,
+    SLICE_ASYNC,
     SLICE_CLUSTER,
-    SLICE_EXECUTOR,
     SLICE_FIELDS,
     SLICE_KEYS,
 )
@@ -60,6 +60,17 @@ _DEFAULTS = {
     "quarantine_keep_n": 0,
     "wal_group_commit_ms": 0.0,
     "import_pool_mb": 512,
+    # Kernel warmup at node start: kernel families ("" disables), built
+    # and launched once for each shard-count bucket.
+    "qos_warmup": "count,topn,bsi",
+    "qos_warmup_shards": "1,8,32",
+    # Stack-height bucketing of the planner ("pow2" | "none").
+    "plan_buckets": "pow2",
+    # Plan-keyed result cache size (0 disables) and TTL backstop seconds.
+    "result_cache_mb": 64,
+    "result_cache_ttl": 0.0,
+    # Partial fusion of mixed call trees ("on" | "off" | "auto").
+    "dispatch_fuse": "auto",
 }
 
 #: server flags (by argparse dest) of features later slices bring, each
@@ -76,12 +87,9 @@ _UNPORTED = {
     "chaos_faults": SLICE_CLUSTER, "trace_endpoint": SLICE_CLUSTER,
     "device_reduce": SLICE_CLUSTER, "multiplex": SLICE_CLUSTER,
     "ingest_max_inflight_mb": SLICE_CLUSTER,
-    "qos_warmup": SLICE_EXECUTOR, "compile_cache_dir": SLICE_EXECUTOR,
-    "plan_buckets": SLICE_EXECUTOR, "result_cache_mb": SLICE_EXECUTOR,
-    "result_cache_ttl": SLICE_EXECUTOR, "dispatch_fuse": SLICE_EXECUTOR,
-    "dispatch_coalesce": SLICE_EXECUTOR,
-    "dispatch_coalesce_us": SLICE_EXECUTOR,
-    "inline_transfer": SLICE_EXECUTOR, "prefetch": SLICE_EXECUTOR,
+    "compile_cache_dir": SLICE_ASYNC,
+    "dispatch_coalesce": SLICE_ASYNC, "dispatch_coalesce_us": SLICE_ASYNC,
+    "inline_transfer": SLICE_ASYNC, "prefetch": SLICE_ASYNC,
     "residency_packed": SLICE_FIELDS, "ingest_transpose": SLICE_FIELDS,
     "translate_planes": SLICE_KEYS, "sketch_precision": SLICE_KEYS,
     "sketch_exact_threshold": SLICE_KEYS,
@@ -160,6 +168,18 @@ def cmd_server(args, parser: argparse.ArgumentParser) -> int:
         cfg["wal_group_commit_ms"] = args.wal_group_commit_ms
     if args.import_pool_mb is not None:
         cfg["import_pool_mb"] = args.import_pool_mb
+    if args.qos_warmup is not None:
+        cfg["qos_warmup"] = args.qos_warmup
+    if args.qos_warmup_shards is not None:
+        cfg["qos_warmup_shards"] = args.qos_warmup_shards
+    if args.plan_buckets is not None:
+        cfg["plan_buckets"] = args.plan_buckets
+    if args.result_cache_mb is not None:
+        cfg["result_cache_mb"] = args.result_cache_mb
+    if args.result_cache_ttl is not None:
+        cfg["result_cache_ttl"] = args.result_cache_ttl
+    if args.dispatch_fuse is not None:
+        cfg["dispatch_fuse"] = args.dispatch_fuse
 
     from pilosa_tpu_torch.server.node import ServerNode
     node = ServerNode(
@@ -184,6 +204,12 @@ def cmd_server(args, parser: argparse.ArgumentParser) -> int:
         quarantine_keep_n=int(cfg["quarantine_keep_n"]),
         wal_group_commit_ms=float(cfg["wal_group_commit_ms"]),
         import_pool_mb=int(cfg["import_pool_mb"]),
+        qos_warmup=str(cfg["qos_warmup"]),
+        qos_warmup_shards=str(cfg["qos_warmup_shards"]),
+        plan_buckets=str(cfg["plan_buckets"]) or "pow2",
+        result_cache_mb=int(cfg["result_cache_mb"]),
+        result_cache_ttl=float(cfg["result_cache_ttl"]),
+        dispatch_fuse=str(cfg["dispatch_fuse"]) or "auto",
     )
     node.open()
     where = f", data dir {cfg['data_dir']}" if cfg["data_dir"] else ""
@@ -324,7 +350,11 @@ def _server_parser(sub) -> argparse.ArgumentParser:
                    help="bounded admission queue; excess load sheds w/ 503")
     s.add_argument("--qos-default-deadline", type=float, default=None,
                    help="default per-query deadline, seconds (0 = none)")
-    s.add_argument("--qos-warmup", default=None)
+    s.add_argument("--qos-warmup", default=None,
+                   help='kernel warmup set, e.g. "count,topn,bsi" '
+                        '("" disables)')
+    s.add_argument("--qos-warmup-shards", default=None,
+                   help='shard-count buckets warmup runs, e.g. "1,8,32"')
     s.add_argument("--import-pool-mb", type=int, default=None)
     s.add_argument("--backup-interval", type=float, default=None)
     s.add_argument("--archive-url", default=None)
@@ -350,9 +380,12 @@ def _server_parser(sub) -> argparse.ArgumentParser:
     s.add_argument("--chaos-faults", action="store_true")
     s.add_argument("--trace-endpoint", default="")
     s.add_argument("--compile-cache-dir", default=None)
-    s.add_argument("--plan-buckets", choices=("pow2", "none"), default=None)
-    s.add_argument("--result-cache-mb", type=int, default=None)
-    s.add_argument("--result-cache-ttl", type=float, default=None)
+    s.add_argument("--plan-buckets", choices=("pow2", "none"), default=None,
+                   help="stack-height bucketing of the planner")
+    s.add_argument("--result-cache-mb", type=int, default=None,
+                   help="result cache size, MB (0 disables)")
+    s.add_argument("--result-cache-ttl", type=float, default=None,
+                   help="result cache entry TTL, seconds (0 = none)")
     s.add_argument("--device-reduce", choices=("on", "off", "auto"),
                    default=None)
     s.add_argument("--multiplex", choices=("on", "off"), default=None)

@@ -4,10 +4,8 @@ The port's copy of pilosa_tpu/core/attrs.py. Reference: attr.go
 (AttrStore :34, AttrBlocks/Diff :80-110) with the boltdb implementation
 (boltdb/attrstore.go). Here: an in-memory dict with optional JSON-lines
 persistence (durability handled by the holder's snapshot cycle), plus the
-same 100-id checksummed block protocol used by anti-entropy sync. The
-data dir carries these files through the port unchanged; the queries that
-read and write attrs (``SetRowAttrs``, ``SetColumnAttrs``, TopN
-``attrName``) come with the executor remainder (ROADMAP.md Queue 1).
+same 100-id checksummed block protocol used by anti-entropy sync
+(``GET /internal/attr/blocks`` and ``/internal/attr/data``).
 """
 
 from __future__ import annotations

@@ -175,7 +175,8 @@ class Field:
 
     def __init__(self, index: str, name: str, device: torch.device,
                  options: FieldOptions | None = None, epoch=None,
-                 op_writer_factory: Callable | None = None):
+                 op_writer_factory: Callable | None = None,
+                 schema_epoch=None):
         # The internal existence field is the one reserved name allowed to
         # bypass validation (reference index.go:336).
         if name != EXISTENCE_FIELD_NAME:
@@ -186,10 +187,13 @@ class Field:
         self.options = options or FieldOptions()
         self._validate_options()
         self.epoch = epoch
+        #: the index's structure epoch: bumped where plans bake this
+        #: field's structure (view deletion, bit-depth growth).
+        self.schema_epoch = schema_epoch
         self.op_writer_factory = op_writer_factory
         self.views: dict[str, View] = {}
-        #: row attrs: a file store on a node with a data dir, carried
-        #: through unchanged (the attr queries are not ported yet).
+        #: row attrs (SetRowAttrs, attached to Row results, TopN attrName):
+        #: a file store on a node with a data dir.
         self.row_attr_store = AttrStore(epoch=epoch)
         self._lock = threading.RLock()
 
@@ -236,6 +240,8 @@ class Field:
             shards = sorted(v.fragments)
         if self.epoch is not None:
             self.epoch.bump()
+        if self.schema_epoch is not None:
+            self.schema_epoch.bump()
         return shards
 
     def create_view_if_not_exists(self, name: str) -> View:
@@ -288,6 +294,8 @@ class Field:
         if required > bsig.bit_depth:
             bsig.bit_depth = required
             self.options.bit_depth = required
+            if self.schema_epoch is not None:  # plans bake the depth
+                self.schema_epoch.bump()
 
     def bsi_view(self) -> View | None:
         return self.view(view_bsi_name(self.name))
@@ -450,7 +458,7 @@ class Field:
         n_shards = (int(column_ids.max()) >> exp) + 1
         if n_shards * WORDS_PER_SHARD * 4 > self._SCATTER_MAX_BYTES:
             return False
-        merged_any = False
+        touched_shards: set[int] = set()
         try:
             for rid, mask in zip(distinct.tolist(), masks):
                 blocks, touched, counts = native.scatter_row_blocks(
@@ -467,12 +475,13 @@ class Field:
                     frag.merge_row_words(int(rid), row,
                                          bit_count=int(counts[shard]),
                                          bump_epoch=False)
-                    merged_any = True
+                    touched_shards.add(int(shard))
         finally:
             # ONE index-epoch bump for the whole batch, also when a later
-            # row fails after earlier rows merged.
-            if merged_any and self.epoch is not None:
-                self.epoch.bump()
+            # row fails after earlier rows merged; shard-tagged, so cached
+            # results over other shards stay valid.
+            if touched_shards and self.epoch is not None:
+                self.epoch.bump_shards(sorted(touched_shards))
         return True
 
     def import_roaring(self, shard: int, data: bytes, view: str = VIEW_STANDARD,

@@ -114,7 +114,9 @@ class Fragment:
     def _invalidate(self, bump_epoch: bool = True) -> None:
         self.generation += 1
         if bump_epoch and self.epoch is not None:
-            self.epoch.bump()
+            # Shard-tagged: cached results of plans over other shards
+            # stay valid (Epoch.max_shard_epoch).
+            self.epoch.bump(shard=self.shard)
         # Stale device blocks would never be re-hit (generation mismatch)
         # but would pin device memory; drop them eagerly.
         self._dev_rows.clear()
@@ -145,6 +147,30 @@ class Fragment:
                 if self.op_writer:
                     self.op_writer("remove", [row_id], [column_id])
             return changed
+
+    def clear_row(self, row_id: int) -> bool:
+        """Drop one row (reference clearRow, under ClearRow): True when it
+        held bits, logged as one ``removeBatch`` of its columns."""
+        with self._lock:
+            hr = self.rows.pop(row_id, None)
+            if hr is None or hr.count() == 0:
+                return False
+            self._invalidate()
+            if self.op_writer:
+                cols = hr.to_positions() + np.uint64(self.shard * SHARD_WIDTH)
+                self.op_writer("removeBatch",
+                               np.full(len(cols), row_id, dtype=np.uint64), cols)
+            return True
+
+    def set_row(self, row: Row, row_id: int) -> bool:
+        """Replace one row with this shard's segment of ``row`` (zeros
+        without one) -- reference setRow, under Store -- logged as one
+        ``setRow`` record."""
+        seg = row.segment(self.shard)
+        words = (bitops.to_host_words(seg).copy() if seg is not None
+                 else bitops.np_zero_row())
+        self.set_row_words(row_id, words)
+        return True
 
     def bulk_import(self, row_ids: np.ndarray, column_ids: np.ndarray,
                     clear: bool = False) -> int:
@@ -315,6 +341,22 @@ class Fragment:
         with self._lock:
             return [(rid, self.rows[rid].to_positions())
                     for rid in sorted(self.rows)]
+
+    def rows_list(self, start_row: int = 0, column: int | None = None,
+                  limit: int | None = None) -> list[int]:
+        """Ids of the rows holding bits, ascending from ``start_row``,
+        optionally only rows with a bit in ``column``, at most ``limit``
+        (reference rows + rowFilters, fragment.go:2618-2724)."""
+        out = []
+        for r in sorted(self.rows):
+            if r < start_row or self.rows[r].n == 0:
+                continue
+            if column is not None and not self.rows[r].contains(self._local(column)):
+                continue
+            out.append(r)
+            if limit is not None and len(out) >= limit:
+                break
+        return out
 
     def row_words(self, row_id: int) -> np.ndarray:
         """Host dense uint32 block for one row (zeros if absent). Locked:

@@ -3,8 +3,7 @@
 The port's counterpart of pilosa_tpu/core/index.py. Reference: index.go
 (struct :37, createField :416, DeleteField :471, AvailableShards :292) and
 holder.go:46 (existence field ``_exists``). Keyed indexes raise
-``NotPortedError``; the column-attr store persists with the data dir, and
-the queries that use it come with a later slice.
+``NotPortedError``; the column-attr store persists with the data dir.
 """
 
 from __future__ import annotations
@@ -46,27 +45,70 @@ class IndexOptions:
 
 
 class Epoch:
-    """Monotonic mutation counter for one index.
+    """Monotonic mutation counter for one index, with per-shard grain.
 
-    Bumped by every fragment mutation anywhere under the index; the
-    planner's leaf-stack cache validates with ONE epoch compare instead of
-    walking per-fragment generations, and walks them only when the epoch
-    moved. (The JAX package's per-shard grain and listeners serve its
-    result cache and cluster broadcasts, which later slices port.)"""
+    Bumped by every fragment/attr mutation anywhere under the index; the
+    planner's leaf-stack cache and the executor's result cache validate
+    with ONE epoch compare instead of walking per-fragment generations,
+    and walk them only when the epoch moved.
 
-    __slots__ = ("_value", "_lock")
+    Shard grain (the JAX package's): a bump that knows which shard
+    mutated records that shard's position in the global sequence, so a
+    plan touching shards S stamps itself with ``max_shard_epoch(S)`` --
+    writes to shards outside S advance ``value`` but leave that max
+    unchanged. A shardless ``bump()`` (attrs, field and view changes)
+    raises the floor under every shard instead. The JAX package's
+    listeners serve cluster broadcasts, which a later slice ports."""
+
+    __slots__ = ("_value", "_floor", "_shards", "_lock")
 
     def __init__(self):
         self._value = 0
+        #: every shard's epoch is at least this (index-wide bumps land here).
+        self._floor = 0
+        #: shard -> sequence position of its last shard-tagged bump.
+        self._shards: dict[int, int] = {}
         self._lock = threading.Lock()
 
-    def bump(self) -> None:
+    def bump(self, shard: int | None = None) -> None:
         with self._lock:
             self._value += 1
+            if shard is None:
+                self._floor = self._value
+                self._shards.clear()  # all <= floor now: drop the detail
+            else:
+                self._shards[shard] = self._value
+
+    def bump_shards(self, shards: Iterable[int]) -> None:
+        """One sequence increment covering a whole shard batch (bulk
+        imports: one cache invalidation per batch, not one per shard)."""
+        shards = [int(s) for s in shards]
+        if not shards:
+            return
+        with self._lock:
+            self._value += 1
+            for s in shards:
+                self._shards[s] = self._value
 
     @property
     def value(self) -> int:
         return self._value
+
+    def shard_epoch(self, shard: int) -> int:
+        with self._lock:
+            return max(self._shards.get(shard, 0), self._floor)
+
+    def max_shard_epoch(self, shards: Iterable[int]) -> int:
+        """Stamp for a plan touching ``shards``: strictly increases when
+        any of them mutates, holds still when only other shards do."""
+        with self._lock:
+            m = self._floor
+            get = self._shards.get
+            for s in shards:
+                v = get(s, 0)
+                if v > m:
+                    m = v
+            return m
 
 
 _instance_counter = itertools.count(1)
@@ -88,8 +130,12 @@ class Index:
             raise NotPortedError("a keyed index", SLICE_KEYS)
         self.op_writer_factory = op_writer_factory
         self.epoch = Epoch()
-        #: column attrs: a file store on a node with a data dir, carried
-        #: through unchanged (the attr queries are not ported yet).
+        #: bumped on structural changes (field create/delete, BSI bit-depth
+        #: growth): prepared plans bake field structure, so the planner's
+        #: plan cache and the result cache key on it beside the data epoch.
+        self.schema_epoch = Epoch()
+        #: column attrs (SetColumnAttrs, ?columnAttrs=true): a file store
+        #: on a node with a data dir.
         self.column_attr_store = AttrStore(epoch=self.epoch)
         #: (epoch stamp, frozenset) memo for available_shards().
         self._avail_shards_cache: tuple | None = None
@@ -99,7 +145,8 @@ class Index:
             self.fields[EXISTENCE_FIELD_NAME] = Field(
                 self.name, EXISTENCE_FIELD_NAME, device,
                 FieldOptions(cache_type="none", cache_size=0), epoch=self.epoch,
-                op_writer_factory=op_writer_factory)
+                op_writer_factory=op_writer_factory,
+                schema_epoch=self.schema_epoch)
 
     def field(self, name: str) -> Field | None:
         return self.fields.get(name)
@@ -116,9 +163,11 @@ class Index:
             if name in self.fields:
                 raise FieldExistsError()
             f = Field(self.name, name, self.device, options, epoch=self.epoch,
-                      op_writer_factory=self.op_writer_factory)
+                      op_writer_factory=self.op_writer_factory,
+                      schema_epoch=self.schema_epoch)
             self.fields[name] = f
             self.epoch.bump()
+            self.schema_epoch.bump()
             return f
 
     def create_field_if_not_exists(self, name: str,
@@ -132,6 +181,7 @@ class Index:
                 raise FieldNotFoundError()
             del self.fields[name]
             self.epoch.bump()
+            self.schema_epoch.bump()
 
     def add_existence(self, column_ids: Iterable[int]) -> None:
         """Mark columns existing (reference executeSet's existence write,

@@ -102,6 +102,20 @@ class Row:
                 out[shard] = a[shard] if shard in a else b[shard]
         return Row(out)
 
+    def shift(self, n: int = 1) -> "Row":
+        """Per-shard shift toward higher columns (reference Row.Shift,
+        row.go:217, under executeShiftShard): bits do not carry across
+        shard boundaries. Device segments go through the ``shift_left``
+        kernel, numpy words through its host half; ``n < 0`` raises for a
+        Row with segments, as the JAX package's does."""
+        out = {}
+        for shard, seg in self.segments.items():
+            if isinstance(seg, torch.Tensor):
+                out[shard] = kernels.shift_left(seg, n)
+            else:
+                out[shard] = bitops.np_shift_left(seg, n)
+        return Row(out)
+
     # -- reductions --------------------------------------------------------
 
     def count(self) -> int:

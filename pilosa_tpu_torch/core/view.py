@@ -62,7 +62,7 @@ class View:
                 # Registration changes the shard set even with zero bits;
                 # the index's available_shards() memo keys on the epoch.
                 if self.epoch is not None:
-                    self.epoch.bump()
+                    self.epoch.bump(shard=shard)
             return frag
 
     def available_shards(self) -> set[int]:

@@ -1,24 +1,32 @@
-"""The PQL executor over set and int fields: a recursive call-tree
-interpreter with per-shard map functions and a map/reduce spine.
+"""The PQL executor: a recursive call-tree interpreter with per-shard map
+functions, a map/reduce spine and a result cache.
 
 The port's counterpart of pilosa_tpu/exec/executor.py. Reference:
 executor.go — dispatch (:293-338), Sum/Min/Max (:406-520), bitmap calls
 (:659-676, :1441), BSI conditions (:1536), Count, TopN two-pass
-(:857-999), writes (:2067), mapReduce (:2455).
+(:857-999), Rows (:1272-1441), writes (:1823-2330), Options (:360),
+mapReduce (:2455).
 
 As in the JAX package, TopN is exact: per-shard batched intersection
 counts on the device (``pair_count`` over a row stack) instead of the
 reference's threshold-gated rank-cache walk. With a ``Planner`` attached,
-plannable bitmap trees (BSI conditions included), ``Count``, ``TopN`` and
-``Sum``/``Min``/``Max`` run over all shards at once as ``[S_pad, W]``
-stacks; without one, shard by shard.
+plannable bitmap trees (``Not``, ``Shift`` and BSI conditions included),
+``Count``, ``TopN``, ``Sum``/``Min``/``Max`` and ``Store``'s source row run
+over all shards at once as ``[S_pad, W]`` stacks; a tree with an
+unplannable subtree keeps its plannable parts on the device
+(``_fuse_partial``); without a planner, everything runs shard by shard.
+
+Read-only queries given as text are answered from the result cache
+(``pilosa_tpu_torch.cache``) while the epochs of the index's schema and of
+the shards they read stand still; a write misses, and so does a schema
+change. ``cache=False`` (``?noCache=true``) bypasses it.
 
 Calls of later slices raise ``NotPortedError`` naming the slice in
 ROADMAP.md: time views (``from``/``to``), ``MinRow``/``MaxRow``,
-``Not``/``Shift``, ``Rows``/``GroupBy``/``Distinct``, attrs, ``Options``,
-keys. There is no result cache, batcher, coalescer,
-prefetcher or ``execute_async``: every query runs on the device and ends
-in a synchronising copy of its counts or columns to the host.
+``GroupBy``, ``Distinct``/``SimilarTopN``, keys. There is no batcher,
+coalescer, prefetcher or ``execute_async`` (ROADMAP.md Queue 1: executor
+remainder: async path): every query runs on the device and ends in a
+synchronising copy of its counts or columns to the host.
 
 The active deadline (``qos.deadline``, set by the HTTP edge) is checked
 between the query's calls and before each shard or shard batch, as in the
@@ -28,10 +36,14 @@ a partial result.
 
 from __future__ import annotations
 
+import math
+import threading
 import time
-from dataclasses import dataclass
+from collections import OrderedDict
+from dataclasses import dataclass, replace
 from typing import Any, Callable, Iterable
 
+from pilosa_tpu_torch.cache.tenant import current_tenant
 from pilosa_tpu_torch.config import SHARD_WIDTH
 from pilosa_tpu_torch.core.field import FIELD_TYPE_INT, op_name
 from pilosa_tpu_torch.core.fragment import BSI_EXISTS_BIT, row_id_arg
@@ -40,7 +52,6 @@ from pilosa_tpu_torch.core.index import Index
 from pilosa_tpu_torch.core.row import Row
 from pilosa_tpu_torch.core.view import VIEW_STANDARD, view_bsi_name
 from pilosa_tpu_torch.errors import (
-    SLICE_EXECUTOR,
     SLICE_FIELDS,
     SLICE_KEYS,
     BSIGroupNotFoundError,
@@ -49,12 +60,22 @@ from pilosa_tpu_torch.errors import (
     NotPortedError,
     QueryError,
 )
-from pilosa_tpu_torch.exec.result import Pair, ValCount, merge_pairs, sort_pairs
+from pilosa_tpu_torch.exec import fuse as _fuse
+from pilosa_tpu_torch.exec.result import (
+    Pair,
+    RowIdentifiers,
+    ValCount,
+    merge_pairs,
+    merge_row_ids,
+    sort_pairs,
+)
 from pilosa_tpu_torch.obs import NopStats
 from pilosa_tpu_torch.obs import profile as _profile
 from pilosa_tpu_torch.pql import BETWEEN, GT, GTE, LT, LTE, NEQ, Call, Condition, Query, parse
 from pilosa_tpu_torch.qos.deadline import check_current as check_deadline
 from pilosa_tpu_torch.storage.quarantine import ShardCorruptError
+
+_MAXINT = (1 << 63) - 1
 
 #: reference defaultMinThreshold (executor.go:90).
 DEFAULT_MIN_THRESHOLD = 1
@@ -62,26 +83,20 @@ DEFAULT_MIN_THRESHOLD = 1
 _NARY_CALLS = {"Intersect": "intersect", "Union": "union",
                "Xor": "xor", "Difference": "difference"}
 
+_BITMAP_CALLS = frozenset(
+    {"Row", "Range", "Difference", "Intersect", "Union", "Xor", "Not", "Shift"})
+
 #: calls of the JAX executor that later slices port, by ROADMAP.md slice.
 _NOT_PORTED = {
     "MinRow": SLICE_FIELDS, "MaxRow": SLICE_FIELDS, "GroupBy": SLICE_FIELDS,
-    "Not": SLICE_EXECUTOR, "Shift": SLICE_EXECUTOR,
-    "ClearRow": SLICE_EXECUTOR, "Store": SLICE_EXECUTOR,
-    "Rows": SLICE_EXECUTOR, "Options": SLICE_EXECUTOR,
-    "SetRowAttrs": SLICE_EXECUTOR, "SetColumnAttrs": SLICE_EXECUTOR,
     "Distinct": SLICE_KEYS, "SimilarTopN": SLICE_KEYS,
 }
-
-#: TopN arguments of later slices (attrs, tanimoto similarity).
-_TOPN_NOT_PORTED = ("attrName", "attrValues", "tanimotoThreshold")
 
 
 @dataclass
 class ExecOptions:
     """Reference execOptions (executor.go:62), without the cluster's
-    ``remote`` leg flag. Rows carry no attrs yet, so ``exclude_row_attrs``
-    changes nothing and ``column_attrs`` raises (ROADMAP.md Queue 1:
-    executor remainder)."""
+    ``remote`` leg flag and shard list."""
 
     exclude_row_attrs: bool = False
     exclude_columns: bool = False
@@ -93,12 +108,29 @@ class Executor:
     ``pilosa_tpu_torch.parallel.Planner``) runs plannable calls over all
     shards at once; without one every call runs shard by shard. ``stats``
     receives the node's per-class service times (the HTTP edge records
-    them through ``executor.stats``)."""
+    them through ``executor.stats``). ``result_cache`` takes a shared
+    ``ResultCache`` (ServerNode passes its byte-bounded one), True for a
+    private default, False/0 to disable."""
 
-    def __init__(self, holder: Holder, planner=None, stats=None):
+    #: bounded size of the query-string -> parsed Query cache.
+    PARSE_CACHE_SIZE = 512
+
+    def __init__(self, holder: Holder, planner=None, stats=None,
+                 result_cache=True):
         self.holder = holder
         self.planner = planner
         self.stats = stats or NopStats()
+        if result_cache is True:
+            from pilosa_tpu_torch.cache.result_cache import ResultCache
+            self.result_cache = ResultCache(stats=self.stats)
+        elif not result_cache:
+            self.result_cache = None
+        else:
+            self.result_cache = result_cache
+        self._cache_lock = threading.Lock()
+        #: query-string -> parsed Query; parsed trees are shared across
+        #: threads, and every consumer clones before mutating.
+        self._parse_cache: "OrderedDict[str, Query]" = OrderedDict()
 
     def _planner_for(self, c: Call):
         if self.planner is None:
@@ -114,31 +146,82 @@ class Executor:
                 opt: ExecOptions | None = None,
                 cache: bool = True) -> list[Any]:
         """Reference executor.Execute (executor.go:113): one result per
-        top-level call. ``cache`` is accepted for the JAX executor's
-        signature; there is no result cache yet, so every query runs."""
-        if isinstance(query, str):
+        top-level call. ``cache=False`` bypasses the result cache (reads
+        and writes of it) for this call."""
+        raw = query if isinstance(query, str) else None
+        if raw is not None:
             prof = _profile.current()
             t0 = time.perf_counter()
-            query = parse(query)
+            query = self._parse_cached(raw)
             if prof is not None:
                 prof.add_ms("parseMs", (time.perf_counter() - t0) * 1e3)
         opt = opt or ExecOptions()
-        if opt.column_attrs:
-            raise NotPortedError("columnAttrs", SLICE_EXECUTOR)
+        _fuse.reset_fused_steps()
         idx = self.holder.index(index_name)
         if idx is None:
             raise IndexNotFoundError(f"index not found: {index_name!r}")
-        needs_shards = any(c.name not in ("Set", "Clear") for c in query.calls)
+        needs_shards = any(c.name not in ("Set", "Clear", "SetRowAttrs",
+                                          "SetColumnAttrs")
+                           for c in query.calls)
         if shards is None and needs_shards:
             shards = sorted(idx.available_shards())
         shards = list(shards) if shards is not None else []
+
+        cacheable = (cache and self.result_cache is not None
+                     and raw is not None and not query.has_writes())
+        if cacheable:
+            key = self._cache_key(idx, query, shards, opt)
+            tenant = current_tenant()
+            # Epochs read BEFORE execution: a write landing mid-query
+            # leaves the stored stamp stale, so the entry dies on its
+            # first lookup instead of serving pre-write state as fresh.
+            stamp = self._exec_stamp(idx, shards)
+            prof = _profile.current()
+            t0 = time.perf_counter()
+            hit = self.result_cache.get(tenant, key, stamp)
+            if prof is not None:
+                prof.add_ms("cacheLookupMs", (time.perf_counter() - t0) * 1e3)
+                prof.cache_hit = hit is not None
+            if hit is not None:
+                return hit
+
         results = []
         for call in query.calls:
             # Between plan steps: an expired deadline stops the query
             # before it spends more device time.
             check_deadline()
             results.append(self._execute_call(idx, call.clone(), shards, opt))
+        results = [_wrap_result(c, r) for c, r in zip(query.calls, results)]
+        if cacheable:
+            self.result_cache.put(tenant, key, stamp, results)
         return results
+
+    def _cache_key(self, idx: Index, query: Query, shards: list[int],
+                   opt: ExecOptions) -> tuple:
+        from pilosa_tpu_torch.cache.signature import cache_key
+        return cache_key(idx, query, shards, opt)
+
+    def _exec_stamp(self, idx: Index, shards: list[int]) -> tuple:
+        """The freshness stamp of a cached result: the index's schema
+        epoch and the newest mutation among the plan's shards."""
+        return (idx.schema_epoch.value, idx.epoch.max_shard_epoch(shards))
+
+    def _parse_cached(self, raw: str) -> Query:
+        with self._cache_lock:
+            q = self._parse_cache.get(raw)
+            if q is not None:
+                self._parse_cache.move_to_end(raw)
+                return q
+        q = parse(raw)
+        with self._cache_lock:
+            self._parse_cache[raw] = q
+            while len(self._parse_cache) > self.PARSE_CACHE_SIZE:
+                self._parse_cache.popitem(last=False)
+        return q
+
+    # ------------------------------------------------------------------
+    # dispatch (reference executor.go:293-338)
+    # ------------------------------------------------------------------
 
     def _execute_call(self, idx: Index, c: Call, shards: list[int],
                       opt: ExecOptions) -> Any:
@@ -149,17 +232,28 @@ class Executor:
             return self._execute_set(idx, c)
         if name == "Clear":
             return self._execute_clear_bit(idx, c)
+        if name == "ClearRow":
+            return self._execute_clear_row(idx, c, shards)
+        if name == "Store":
+            return self._execute_store(idx, c, shards)
+        if name == "SetRowAttrs":
+            self._execute_set_row_attrs(idx, c)
+            return None
+        if name == "SetColumnAttrs":
+            self._execute_set_column_attrs(idx, c)
+            return None
         if name == "TopN":
             return self._execute_top_n(idx, c, shards)
+        if name == "Rows":
+            return self._execute_rows(idx, c, shards)
+        if name == "Options":
+            return self._execute_options(idx, c, shards, opt)
         if name == "Sum":
             return self._execute_sum(idx, c, shards)
         if name in ("Min", "Max"):
             return self._execute_min_max(idx, c, shards, is_min=name == "Min")
-        if name in ("Row", "Range") or name in _NARY_CALLS:
-            row = self._execute_bitmap_call(idx, c, shards)
-            if opt.exclude_columns:
-                row.segments = {}
-            return row
+        if name in _BITMAP_CALLS:
+            return self._execute_bitmap_call(idx, c, shards, opt)
         if name in _NOT_PORTED:
             raise NotPortedError(f"{name}()", _NOT_PORTED[name])
         raise QueryError(f"unknown call: {name}")
@@ -196,7 +290,8 @@ class Executor:
     # bitmap calls
     # ------------------------------------------------------------------
 
-    def _execute_bitmap_call(self, idx: Index, c: Call, shards: list[int]) -> Row:
+    def _execute_bitmap_call(self, idx: Index, c: Call, shards: list[int],
+                             opt: ExecOptions) -> Row:
         planner = self._planner_for(c)
 
         def map_fn(shard):
@@ -208,8 +303,77 @@ class Executor:
         local_batch = None
         if planner is not None:
             local_batch = lambda shs: planner.execute_bitmap(idx, c, shs)
-        return self.map_reduce(idx, shards, map_fn, reduce_fn,
-                               local_batch_fn=local_batch) or Row()
+        else:
+            fusion = self._fuse_partial(c)
+            if fusion is not None:
+                fused_call, const_calls = fusion
+                local_batch = (lambda shs: self.planner.execute_bitmap(
+                    idx, fused_call, shs,
+                    const_rows=self._const_rows(idx, const_calls, shs)))
+        row = self.map_reduce(idx, shards, map_fn, reduce_fn,
+                              local_batch_fn=local_batch) or Row()
+
+        # Row attributes of a plain Row() (executor.go:604-639).
+        if c.name == "Row" and not c.has_condition_arg():
+            if opt.exclude_row_attrs:
+                row.attrs = {}
+            else:
+                try:
+                    field_name = c.field_arg()
+                    f = idx.field(field_name)
+                    row_id, ok = c.uint_arg(field_name)
+                    if f is not None and ok:
+                        row.attrs = f.row_attr_store.attrs(row_id)
+                except ValueError:
+                    pass
+        if opt.exclude_columns:
+            row.segments = {}
+        return row
+
+    def _fuse_partial(self, c: Call):
+        """Maximal-subtree fusion for a mixed tree: when the planner
+        rejects the whole bitmap tree, every maximal plannable subtree
+        still runs on the device and each unplannable subtree becomes a
+        ``__const__`` leaf (a Row computed on the host, uploaded as a
+        stack). Returns (fused_call, const_calls), or None when the planner
+        takes the whole tree, fusion is off, or nothing plannable is left
+        (reference executor.py:637-675)."""
+        planner = self.planner
+        if planner is None or not _fuse.enabled() or planner.supports(c):
+            return None
+        consts: list[Call] = []
+        kept = [False]
+
+        def rewrite(node: Call) -> Call:
+            if planner.supports(node):
+                kept[0] = True
+                return node
+            # Only n-ary set ops descend: Not/Shift carry requirements
+            # (existence field, shift bounds) that supports() checks as a
+            # whole, so an unplannable child makes the unary subtree a
+            # const leaf.
+            if node.name in _NARY_CALLS and node.children:
+                return Call(node.name, args=dict(node.args),
+                            children=[rewrite(ch) for ch in node.children])
+            consts.append(node)
+            return Call("__const__", args={"slot": len(consts) - 1})
+
+        fused = rewrite(c)
+        if not kept[0] or not consts:
+            return None
+        return fused, consts
+
+    def _const_rows(self, idx: Index, const_calls: list[Call],
+                    shards: list[int]) -> list[Row]:
+        """Each replaced subtree evaluated on the host over ``shards``: the
+        per-shard interpreter, for the unplannable part of the tree only."""
+        rows = []
+        for cc in const_calls:
+            segs: dict[int, Any] = {}
+            for shard in shards:
+                segs.update(self._bitmap_call_shard(idx, cc, shard).segments)
+            rows.append(Row(segs))
+        return rows
 
     def _bitmap_call_shard(self, idx: Index, c: Call, shard: int) -> Row:
         """Reference executeBitmapCallShard (executor.go:659)."""
@@ -218,6 +382,10 @@ class Executor:
             return self._row_shard(idx, c, shard)
         if name in _NARY_CALLS:
             return self._nary_shard(idx, c, shard, _NARY_CALLS[name])
+        if name == "Not":
+            return self._not_shard(idx, c, shard)
+        if name == "Shift":
+            return self._shift_shard(idx, c, shard)
         if name in _NOT_PORTED:
             raise NotPortedError(f"{name}()", _NOT_PORTED[name])
         raise QueryError(f"unknown call: {name}")
@@ -230,6 +398,26 @@ class Executor:
         for r in rows[1:]:
             acc = getattr(acc, op)(r)
         return acc
+
+    def _not_shard(self, idx: Index, c: Call, shard: int) -> Row:
+        """The existence row minus the child (executor.py:717)."""
+        if len(c.children) != 1:
+            raise QueryError("Not() requires a single row input")
+        ef = idx.existence_field()
+        if ef is None:
+            raise QueryError(
+                f"index does not support existence tracking: {idx.name}")
+        frag = self.holder.fragment(idx.name, ef.name, VIEW_STANDARD, shard)
+        existence = frag.row(0) if frag else Row()
+        return existence.difference(self._bitmap_call_shard(idx, c.children[0],
+                                                            shard))
+
+    def _shift_shard(self, idx: Index, c: Call, shard: int) -> Row:
+        """The child shifted within its shard (executor.py:729)."""
+        n, _ = c.int_arg("n")
+        if len(c.children) != 1:
+            raise QueryError("Shift() requires a single row input")
+        return self._bitmap_call_shard(idx, c.children[0], shard).shift(n)
 
     def _row_shard(self, idx: Index, c: Call, shard: int) -> Row:
         """Reference executeRowShard (executor.go:1441): the standard view,
@@ -395,6 +583,13 @@ class Executor:
         local_batch = None
         if planner is not None:
             local_batch = lambda shs: planner.execute_count(idx, child, shs)
+        else:
+            fusion = self._fuse_partial(child)
+            if fusion is not None:
+                fused_call, const_calls = fusion
+                local_batch = (lambda shs: self.planner.execute_count(
+                    idx, fused_call, shs,
+                    const_rows=self._const_rows(idx, const_calls, shs)))
         return self.map_reduce(idx, shards, map_fn, lambda p, v: (p or 0) + v,
                                local_batch_fn=local_batch) or 0
 
@@ -403,9 +598,6 @@ class Executor:
     # ------------------------------------------------------------------
 
     def _execute_top_n(self, idx: Index, c: Call, shards: list[int]) -> list[Pair]:
-        for arg in _TOPN_NOT_PORTED:
-            if arg in c.args:
-                raise NotPortedError(f"TopN({arg}=...)", SLICE_EXECUTOR)
         ids_arg, _ = c.uint_slice_arg("ids")
         n, _ = c.uint_arg("n")
 
@@ -443,21 +635,36 @@ class Executor:
             min_threshold = DEFAULT_MIN_THRESHOLD
         return n, ([int(r) for r in row_ids] if has_ids else None), min_threshold
 
+    @staticmethod
+    def _allowed_attrs(c: Call):
+        """(attrName, the set of allowed values) of a TopN attr filter, or
+        (name, None) without one."""
+        attr_name = c.args.get("attrName")
+        attr_values = c.args.get("attrValues")
+        if attr_name and attr_values:
+            return attr_name, set(attr_values)
+        return attr_name, None
+
     def _topn_batch_fn(self, idx: Index, c: Call):
         """Planner TopN: one sparse-aware device sweep for ALL shards
         (planner.execute_topn_counts) instead of a per-shard loop,
-        preserving per-shard threshold/truncate semantics. None when the
-        call needs the per-shard path."""
+        preserving per-shard threshold/attr-filter/truncate semantics. None
+        when the call needs the per-shard path (tanimoto needs per-shard
+        source counts; unplannable filter trees; int fields)."""
         if self.planner is None:
             return None
         field_name = c.args.get("_field")
         f = idx.field(field_name) if field_name else None
-        if f is None or len(c.children) > 1:
+        if f is None or f.field_type == FIELD_TYPE_INT or len(c.children) > 1:
+            return None
+        tanimoto, _ = c.uint_arg("tanimotoThreshold")
+        if tanimoto > 0:
             return None
         filter_call = c.children[0] if c.children else None
         if filter_call is not None and not self.planner.supports(filter_call):
             return None
         n, row_ids, min_threshold = self._topn_args(c)
+        attr_name, allowed = self._allowed_attrs(c)
 
         def batch(shs: list[int]) -> list[Pair]:
             # cache_type 'none' errors only if a fragment exists, exactly
@@ -476,14 +683,24 @@ class Executor:
             acc: list[Pair] = []
             for shard in sorted(per_shard):
                 # Arrives sorted (count desc, id asc); the threshold is an
-                # order-preserving mask, then truncate.
+                # order-preserving mask, then the attr filter, then
+                # truncate -- the order of _top_filter_pairs.
                 ids, counts = per_shard[shard]
                 keep = counts >= min_threshold
                 ids, counts = ids[keep], counts[keep]
-                if n:
+                if len(ids) == 0:
+                    continue
+                if allowed is None and n:
                     ids, counts = ids[:n], counts[:n]
-                acc = merge_pairs(acc, [Pair(id=rid, count=cnt) for rid, cnt
-                                        in zip(ids.tolist(), counts.tolist())])
+                pairs: list[Pair] = []
+                for rid, cnt in zip(ids.tolist(), counts.tolist()):
+                    if (allowed is not None and f.row_attr_store.attrs(rid)
+                            .get(attr_name) not in allowed):
+                        continue
+                    pairs.append(Pair(id=rid, count=cnt))
+                    if n and len(pairs) >= n:
+                        break
+                acc = merge_pairs(acc, pairs)
             return acc
 
         return batch
@@ -491,8 +708,16 @@ class Executor:
     def _top_n_shard(self, idx: Index, c: Call, shard: int) -> list[Pair]:
         """Exact per-shard TopN: device-batched intersection counts over
         the row stack (replaces the reference's rank-cache walk,
-        fragment.go:1570)."""
+        fragment.go:1570), then the threshold, tanimoto and attr
+        predicates."""
         field_name = c.args.get("_field")
+        f = idx.field(field_name) if field_name else None
+        if f is not None and f.field_type == FIELD_TYPE_INT:
+            raise QueryError(
+                f"cannot compute TopN() on integer field: {field_name!r}")
+        tanimoto, _ = c.uint_arg("tanimotoThreshold")
+        if tanimoto > 100:
+            raise QueryError("Tanimoto Threshold is from 1 to 100 only")
         src: Row | None = None
         if len(c.children) == 1:
             src = self._bitmap_call_shard(idx, c.children[0], shard)
@@ -505,10 +730,82 @@ class Executor:
         if frag.cache_type == "none":
             raise QueryError(f'cannot compute TopN(), field has no cache: "{field_name}"')
         n, row_ids, min_threshold = self._topn_args(c)
-        pairs = [Pair(id=rid, count=cnt)
-                 for rid, cnt in frag.top(n=0, src=src, row_ids=row_ids)
-                 if cnt >= min_threshold]
+        raw = frag.top(n=0, src=src, row_ids=row_ids)
+        pairs = self._top_filter_pairs(f, frag, raw, src, tanimoto,
+                                       min_threshold, c)
         return pairs[:n] if n else pairs
+
+    def _top_filter_pairs(self, f, frag, raw, src, tanimoto: int,
+                          min_threshold: int, c: Call) -> list[Pair]:
+        """Threshold/tanimoto/attr predicates over the sorted (rid, count)
+        pairs of ONE shard (fragment.go:1617-1691, executor.py:1340). The
+        tanimoto score takes the source row's count (``row_counts``) and
+        each row's count from the fragment's host counts."""
+        attr_name, allowed = self._allowed_attrs(c)
+        src_count = src.count() if (src is not None and tanimoto > 0) else 0
+        pairs = []
+        for rid, cnt in raw:
+            if tanimoto > 0:
+                base = frag.rows[rid].count() if rid in frag.rows else 0
+                if math.ceil(cnt * 100 / (base + src_count - cnt)) <= tanimoto:
+                    continue
+            elif cnt < min_threshold:
+                continue
+            if allowed is not None:
+                attrs = f.row_attr_store.attrs(rid) if f else {}
+                if attrs.get(attr_name) not in allowed:
+                    continue
+            pairs.append(Pair(id=rid, count=cnt))
+        return pairs
+
+    # ------------------------------------------------------------------
+    # Rows (reference executor.go:1272)
+    # ------------------------------------------------------------------
+
+    def _execute_rows(self, idx: Index, c: Call, shards: list[int]) -> list[int]:
+        """Raw row ids (reference RowIDs); a top-level Rows() result is
+        wrapped in RowIdentifiers by _wrap_result, as the JAX package's
+        _translate_result does (executor.go:1272, :2800)."""
+        field_name = (c.args.get("field") if isinstance(c.args.get("field"), str)
+                      else c.args.get("_field"))
+        if not isinstance(field_name, str):
+            raise QueryError("Rows() field required")
+        column, has_col = c.uint_arg("column")
+        if has_col:
+            shards = [column // SHARD_WIDTH]
+        limit, has_limit = c.uint_arg("limit")
+        limit = limit if has_limit else _MAXINT
+
+        def reduce_fn(p, v):
+            return merge_row_ids(p or [], v, limit)
+
+        return self.map_reduce(
+            idx, shards, lambda shard: self._rows_shard(idx, field_name, c, shard),
+            reduce_fn) or []
+
+    def _rows_shard(self, idx: Index, field_name: str, c: Call,
+                    shard: int) -> list[int]:
+        """Reference executeRowsShard (executor.go:1320), over the standard
+        view."""
+        f = idx.field(field_name)
+        if f is None:
+            raise FieldNotFoundError(f"field not found: {field_name!r}")
+        if f.field_type == "time":
+            raise NotPortedError("Rows() over time views", SLICE_FIELDS)
+        start = 0
+        previous, has_prev = c.uint_arg("previous")
+        if has_prev:
+            start = previous + 1
+        column, has_col = c.uint_arg("column")
+        if has_col and column // SHARD_WIDTH != shard:
+            return []
+        limit, has_limit = c.uint_arg("limit")
+        frag = self.holder.fragment(idx.name, field_name, VIEW_STANDARD, shard)
+        if frag is None:
+            return []
+        return frag.rows_list(start_row=start,
+                              column=column if has_col else None,
+                              limit=limit if has_limit else None)
 
     # ------------------------------------------------------------------
     # writes
@@ -549,3 +846,115 @@ class Executor:
         frag = v.fragment(col_id // SHARD_WIDTH) if v is not None else None
         return frag.clear_bit(BSI_EXISTS_BIT, col_id) if frag is not None else False
 
+
+    def _execute_clear_row(self, idx: Index, c: Call, shards: list[int]) -> bool:
+        """Reference ClearRow (executor.py:1709): the row dropped from every
+        view of the field in every shard; True when any held bits."""
+        field_name = c.field_arg()
+        f = idx.field(field_name)
+        if f is None:
+            raise FieldNotFoundError(f"field not found: {field_name!r}")
+        if f.field_type == FIELD_TYPE_INT:
+            raise QueryError(
+                f"ClearRow() is not supported on {f.field_type} field types")
+        row_arg = c.args.get(field_name)
+        if isinstance(row_arg, bool):
+            row_id = 1 if row_arg else 0
+        else:
+            row_id, ok = c.uint_arg(field_name)
+            if not ok:
+                raise QueryError("ClearRow() row argument 'row' required")
+
+        def map_fn(shard):
+            changed = False
+            for v in list(f.views.values()):
+                frag = v.fragment(shard)
+                if frag is not None:
+                    changed |= frag.clear_row(row_id)
+            return changed
+
+        return bool(self.map_reduce(idx, shards, map_fn,
+                                    lambda p, v: bool(p) or v))
+
+    def _execute_store(self, idx: Index, c: Call, shards: list[int]) -> bool:
+        """Reference executeSetRow / Store() (executor.go:1990): the source
+        row, evaluated over every shard at once (``execute_bitmap`` with a
+        planner), replaces the target row in every shard of the query."""
+        field_name = c.field_arg()
+        f = idx.field(field_name)
+        if f is None:
+            raise FieldNotFoundError(f"field not found: {field_name!r}")
+        if f.field_type != "set":
+            raise QueryError(f"can't Store() on a {f.field_type} field")
+        row_id, ok = c.uint_arg(field_name)
+        if not ok:
+            raise QueryError("need the <FIELD>=<ROW> argument on Store()")
+        if len(c.children) != 1:
+            raise QueryError("Store() requires a source row")
+        src = self._execute_bitmap_call(idx, c.children[0], shards, ExecOptions())
+
+        def map_fn(shard):
+            view = f.create_view_if_not_exists(VIEW_STANDARD)
+            return view.create_fragment_if_not_exists(shard).set_row(src, row_id)
+
+        return bool(self.map_reduce(idx, shards, map_fn,
+                                    lambda p, v: bool(p) or v))
+
+    def _execute_set_row_attrs(self, idx: Index, c: Call) -> None:
+        field_name = c.args.get("_field")
+        f = idx.field(field_name)
+        if f is None:
+            raise FieldNotFoundError(f"field not found: {field_name!r}")
+        row_id, ok = c.uint_arg("_row")
+        if not ok:
+            raise QueryError("SetRowAttrs() row field 'row' required")
+        attrs = {k: v for k, v in c.args.items() if k not in ("_field", "_row")}
+        f.row_attr_store.set_attrs(row_id, attrs)
+
+    def _execute_set_column_attrs(self, idx: Index, c: Call) -> None:
+        col_id, ok = c.uint_arg("_col")
+        if not ok:
+            raise QueryError("SetColumnAttrs() col required")
+        attrs = {k: v for k, v in c.args.items() if k != "_col"}
+        idx.column_attr_store.set_attrs(col_id, attrs)
+
+    # ------------------------------------------------------------------
+    # Options (reference executor.go:360)
+    # ------------------------------------------------------------------
+
+    def _execute_options(self, idx: Index, c: Call, shards: list[int],
+                         opt: ExecOptions) -> Any:
+        opt_copy = replace(opt)
+        if "columnAttrs" in c.args:
+            v = c.args["columnAttrs"]
+            if not isinstance(v, bool):
+                raise QueryError("Query(): columnAttrs must be a bool")
+            opt.column_attrs = v  # the outer opt, as the reference does
+        if "excludeRowAttrs" in c.args:
+            v = c.args["excludeRowAttrs"]
+            if not isinstance(v, bool):
+                raise QueryError("Query(): excludeRowAttrs must be a bool")
+            opt_copy.exclude_row_attrs = v
+        if "excludeColumns" in c.args:
+            v = c.args["excludeColumns"]
+            if not isinstance(v, bool):
+                raise QueryError("Query(): excludeColumns must be a bool")
+            opt_copy.exclude_columns = v
+        if "shards" in c.args:
+            v = c.args["shards"]
+            if not isinstance(v, list) or not all(
+                    isinstance(s, int) and not isinstance(s, bool) for s in v):
+                raise QueryError("Query(): shards must be a list of unsigned integers")
+            shards = v
+        if len(c.children) != 1:
+            raise QueryError("Options() requires a single child call")
+        return self._execute_call(idx, c.children[0], shards, opt_copy)
+
+
+def _wrap_result(c: Call, result: Any) -> Any:
+    """A top-level Rows() result as RowIdentifiers (the JAX package's
+    _translate_result, executor.py:1893); one under Options() stays the
+    raw id list there too."""
+    if c.name == "Rows" and isinstance(result, list):
+        return RowIdentifiers(rows=list(result))
+    return result

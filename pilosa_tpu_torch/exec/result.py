@@ -1,14 +1,14 @@
-"""Query result types and their wire (JSON) shapes: rows, counts, TopN
-pairs and Sum/Min/Max value counts.
+"""Query result types and their wire (JSON) shapes: rows (with their
+attrs), counts, TopN pairs, Sum/Min/Max value counts and ``Rows`` row ids.
 
 The port's counterpart of pilosa_tpu/exec/result.py. Reference:
-executor.go (ValCount :2380, Pair pilosa.go) and the JSON encoding in
-http/handler.go / row.go MarshalJSON.
+executor.go (ValCount :2380, Pair pilosa.go, RowIdentifiers :1026) and the
+JSON encoding in http/handler.go / row.go MarshalJSON.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any
 
 from pilosa_tpu_torch.core.row import Row
@@ -64,12 +64,49 @@ def sort_pairs(pairs: list[Pair]) -> list[Pair]:
     return sorted(pairs, key=lambda p: (-p.count, p.id))
 
 
+@dataclass
+class RowIdentifiers:
+    """Rows() result (reference RowIdentifiers :1026); row keys come with
+    keyed fields (ROADMAP.md Queue 1: keys and sketches)."""
+
+    rows: list[int] = field(default_factory=list)
+
+    def to_json(self) -> dict:
+        return {"rows": self.rows}
+
+
+def merge_row_ids(a: list[int], b: list[int], limit: int) -> list[int]:
+    """Sorted unique merge with limit (reference RowIDs.merge :1040)."""
+    out: list[int] = []
+    i = j = 0
+    while i < len(a) and j < len(b) and len(out) < limit:
+        if a[i] < b[j]:
+            out.append(a[i])
+            i += 1
+        elif a[i] > b[j]:
+            out.append(b[j])
+            j += 1
+        else:
+            out.append(a[i])
+            i += 1
+            j += 1
+    while i < len(a) and len(out) < limit:
+        out.append(a[i])
+        i += 1
+    while j < len(b) and len(out) < limit:
+        out.append(b[j])
+        j += 1
+    return out
+
+
 def result_to_json(result: Any) -> Any:
     """Serialize any executor result to the reference's response JSON."""
-    if isinstance(result, (Row, Pair, ValCount)):
+    if isinstance(result, (Row, Pair, ValCount, RowIdentifiers)):
         return result.to_json()
     if isinstance(result, list):
         return [result_to_json(r) for r in result]
     if isinstance(result, bool) or isinstance(result, int) or result is None:
+        return result
+    if isinstance(result, dict):
         return result
     raise TypeError(f"unserializable result {type(result)}")

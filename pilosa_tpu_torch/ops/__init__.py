@@ -1,1 +1,1 @@
-"""Bitmap math: host/device bit operations and the CUDA count kernels."""
+"""Bitmap math: host/device bit operations and the CUDA kernels."""

@@ -97,6 +97,27 @@ def np_range_mask(start: int, stop: int, words: int = WORDS_PER_SHARD) -> np.nda
     return out
 
 
+def np_shift_left(words: np.ndarray, n: int) -> np.ndarray:
+    """The host half of pilosa_tpu/ops/bitops.py shift_left (:167): the
+    uint32 words of a row shifted toward higher columns by ``n >= 0`` bits
+    -- a whole-word roll, then the intra-word shift carrying across word
+    boundaries -- bits past the row's end falling off. A new array."""
+    if n < 0:
+        raise ValueError("shift amount must be non-negative")
+    words = np.asarray(words, dtype=np.uint32)
+    q, b = divmod(int(n), WORD_BITS)
+    w = words.shape[-1]
+    out = np.zeros_like(words)
+    if q >= w:
+        return out
+    out[..., q:] = words[..., :w - q]
+    if b:
+        carry = out >> np.uint32(WORD_BITS - b)
+        out <<= np.uint32(b)
+        out[..., 1:] |= carry[..., :-1]
+    return out
+
+
 def columns_of(words, base: int = 0) -> np.ndarray:
     """Materialize a dense block (numpy uint32 or int32 tensor) to sorted
     absolute column ids (host)."""

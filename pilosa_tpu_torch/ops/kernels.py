@@ -7,6 +7,13 @@
   bit-serial comparator and min/max descent of pilosa_tpu/ops/bsi.py, which
   the JAX package left to XLA's fusion; ``ops/bsi.py`` builds the BSI
   queries on them.
+- ``tree_count(leaves, tape)`` and ``shift_left(a, n)``
+  (``csrc/tree_kernels.cu``) are the general bitmap-tree evaluator of
+  pilosa_tpu/parallel/planner.py (``_eval_node`` + ``bitops.count``) and
+  pilosa_tpu/ops/bitops.py's ``shift_left``, both XLA-fused in the JAX
+  package: one pass over a postfix op tape of and/or/xor/andnot over
+  ``[..., W]`` leaves, per-row counts out and optionally the result plane;
+  and the word roll plus carried bit shift of every row.
 
 On a CUDA tensor each wrapper launches its hand-written kernel (built at
 first use, see ``ops/build.py``) or raises; on a CPU tensor it runs the
@@ -32,7 +39,8 @@ from pilosa_tpu_torch.ops import bitops
 
 #: kernel launches since the last reset_launches(), by wrapper name; read
 #: it, and change it only through _count_launch and reset_launches.
-LAUNCHES = {"pair_count": 0, "row_counts": 0, "bsi_compare": 0, "bsi_minmax": 0}
+LAUNCHES = {"pair_count": 0, "row_counts": 0, "bsi_compare": 0, "bsi_minmax": 0,
+            "tree_count": 0, "shift_left": 0}
 _launch_lock = threading.Lock()
 
 _OP_CODES = {"and": 0, "or": 1, "xor": 2, "andnot": 3}
@@ -60,6 +68,11 @@ _SIGNATURES = {
                                _I32, _I32, _VP],
         "pilosa_bsi_minmax": [_VP, _VP, _VP, _VP, _VP, _VP, _I64, _I64, _I64,
                               _I32, _I32, _I32, _VP],
+    },
+    "tree_kernels.cu": {
+        "pilosa_tree_count": [_VP, _VP, _VP, _I32, _VP, _I32, _VP, _VP, _I64,
+                              _I64, _I32, _VP],
+        "pilosa_shift_left": [_VP, _VP, _I64, _I64, _I64, _I64, _I32, _VP],
     },
 }
 _libs: dict[str, ctypes.CDLL] = {}
@@ -167,6 +180,95 @@ def bsi_minmax_plain(bits: torch.Tensor, filt: torch.Tensor, depth: int,
             hi = hi | (addbit << (i - 32))
         count = torch.where(has, c, bitops.count(filt) if i == 0 else count)
     return _as_int32_bits(lo), _as_int32_bits(hi), count
+
+
+#: the tree kernel's limits (csrc/tree_kernels.cu): distinct leaves, tape
+#: instructions and stack slots of one launch. A longer or deeper tape is
+#: cut into sub-tapes whose planes the same kernel writes.
+TREE_MAX_LEAVES = 16
+TREE_MAX_OPS = 64
+TREE_MAX_STACK = 8
+
+_TREE_CODES = {"and": 1, "or": 2, "xor": 3, "andnot": 4}
+
+
+def _parse_tape(tape, n_leaves: int):
+    """A postfix tape -- leaf indices (ints) and op names -- as a tree of
+    ``("leaf", i)`` and ``(op, a, b)`` nodes; raises on a malformed tape."""
+    stack = []
+    for tok in tape:
+        if isinstance(tok, str):
+            if tok not in _TREE_CODES:
+                raise ValueError(f"unknown tape op {tok!r}")
+            if len(stack) < 2:
+                raise ValueError(f"tape op {tok!r} needs two operands")
+            b = stack.pop()
+            stack.append((tok, stack.pop(), b))
+        else:
+            i = int(tok)
+            if isinstance(tok, bool) or not 0 <= i < n_leaves:
+                raise ValueError(f"tape leaf {tok!r} out of range for "
+                                 f"{n_leaves} leaves")
+            stack.append(("leaf", i))
+    if len(stack) != 1:
+        raise ValueError(f"tape leaves {len(stack)} values on the stack, not 1")
+    return stack[0]
+
+
+def _postfix(node) -> list:
+    if node[0] == "leaf":
+        return [node[1]]
+    return _postfix(node[1]) + _postfix(node[2]) + [node[0]]
+
+
+def _tree_needs(node) -> tuple[int, int, frozenset]:
+    """(tape length, stack depth, distinct leaves) of evaluating ``node``."""
+    if node[0] == "leaf":
+        return 1, 1, frozenset((node[1],))
+    na, da, la = _tree_needs(node[1])
+    nb, db, lb = _tree_needs(node[2])
+    return na + nb + 1, max(da, db + 1), la | lb
+
+
+def tree_count_plain(leaves, tape, plane: bool = False):
+    """The postfix ``tape`` over ``leaves`` (broadcastable ``[..., W]``
+    int32 tensors) with torch bitwise ops, then an int32 row popcount:
+    counts of the broadcast leading shape, and with ``plane`` also the
+    result ``[*lead, W]``."""
+    node = _parse_tape(tape, len(leaves))
+    lead = torch.broadcast_shapes(*(x.shape[:-1] for x in leaves))
+
+    def ev(n):
+        if n[0] == "leaf":
+            return leaves[n[1]]
+        return _PLAIN_OPS[n[0]](ev(n[1]), ev(n[2]))
+
+    out = ev(node).expand(*lead, leaves[0].shape[-1])
+    counts = bitops.count(out)
+    return (counts, out.contiguous()) if plane else counts
+
+
+def shift_left_plain(a: torch.Tensor, n: int) -> torch.Tensor:
+    """pilosa_tpu/ops/bitops.py shift_left (:167): every row of ``a``
+    shifted toward higher columns by ``n`` bits -- a whole-word roll, then
+    the intra-word shift with its carry -- bits past the row's end falling
+    off. The shifts run on int64 so no step depends on int32's arithmetic
+    right shift."""
+    if n < 0:
+        raise ValueError("shift amount must be non-negative")
+    words, bits = divmod(int(n), bitops.WORD_BITS)
+    w = a.shape[-1]
+    v = a.to(torch.int64) & 0xFFFFFFFF
+    if words >= w:
+        return torch.zeros_like(a)
+    if words:
+        v = torch.cat([torch.zeros_like(v[..., :words]), v[..., :w - words]], dim=-1)
+    if bits:
+        hi = (v << bits) & 0xFFFFFFFF
+        carry = v >> (bitops.WORD_BITS - bits)
+        carry = torch.cat([torch.zeros_like(carry[..., :1]), carry[..., :-1]], dim=-1)
+        v = hi | carry
+    return _as_int32_bits(v)
 
 
 # ---------------------------------------------------------------------------
@@ -374,3 +476,148 @@ def bsi_minmax(bits: torch.Tensor, filt: torch.Tensor, depth: int,
         raise RuntimeError(f"bsi_minmax kernel launch failed: CUDA error {err}")
     _count_launch("bsi_minmax")
     return lo.reshape(lead), hi.reshape(lead), count.reshape(lead)
+
+
+def _tree_layout(leaves):
+    """(lead shape, per-leaf (row stride, rows)) of the tree kernel's
+    operands, after the checks pair_count makes."""
+    if not leaves:
+        raise ValueError("tree_count needs at least one leaf")
+    for k, x in enumerate(leaves):
+        _check_words(x, f"leaf {k}")
+    words, device = leaves[0].shape[-1], leaves[0].device
+    for k, x in enumerate(leaves):
+        if x.shape[-1] != words:
+            raise ValueError(f"word axes differ: leaf {k} has {x.shape[-1]}, "
+                             f"leaf 0 {words}")
+        if x.device != device:
+            raise ValueError(f"leaves on different devices: {x.device}, {device}")
+    try:
+        lead = torch.broadcast_shapes(*(x.shape[:-1] for x in leaves))
+    except RuntimeError as e:
+        raise ValueError("leaf shapes do not broadcast: "
+                         f"{[tuple(x.shape) for x in leaves]}") from e
+    return lead, [_row_layout(x, lead, f"leaf {k}") for k, x in enumerate(leaves)]
+
+
+def tree_count(leaves, tape, plane: bool = False):
+    """Per-row popcount of a bitmap tree given as a postfix ``tape`` over
+    ``leaves``: tape tokens are leaf indices (push) and ``"and"``,
+    ``"or"``, ``"xor"``, ``"andnot"`` (pop b, pop a, push op(a, b)).
+    Leaves are broadcastable ``[..., W]`` int32 tensors -- a ``[W]`` leaf
+    is counted against every row of an ``[S, W]`` one without being
+    materialised. Returns int32 counts of the broadcast leading shape, and
+    with ``plane`` also the tree's result ``[*lead, W]``. One launch reads
+    each leaf once and writes no intermediate plane; a tape past the
+    kernel's limits (TREE_MAX_*) is cut into sub-tapes whose planes the
+    same kernel writes first."""
+    lead, layouts = _tree_layout(leaves)
+    node = _parse_tape(tape, len(leaves))
+    if leaves[0].device.type == "cpu":
+        return tree_count_plain(leaves, tape, plane)
+    _require_cuda(leaves[0])
+    leaves, layouts = list(leaves), list(layouts)
+    node = _fit_tree(node, leaves, layouts, lead)
+    return _launch_tree(node, leaves, layouts, lead, plane)
+
+
+def _fits(node) -> bool:
+    n, depth, used = _tree_needs(node)
+    return (n <= TREE_MAX_OPS and depth <= TREE_MAX_STACK
+            and len(used) <= TREE_MAX_LEAVES)
+
+
+def _fit_tree(node, leaves: list, layouts: list, lead):
+    """``node`` cut to the kernel's limits: subtrees that do not fit are
+    evaluated to planes (appended to ``leaves``) by the same kernel and
+    stand in the tree as leaves."""
+    if _fits(node):
+        return node
+    op, a, b = node
+    a = _fit_tree(a, leaves, layouts, lead)
+    b = _fit_tree(b, leaves, layouts, lead)
+    while not _fits((op, a, b)):
+        # Materialise the larger side; two leaves always fit.
+        if a[0] != "leaf" and (b[0] == "leaf"
+                               or _tree_needs(a)[0] >= _tree_needs(b)[0]):
+            a = _materialise(a, leaves, layouts, lead)
+        else:
+            b = _materialise(b, leaves, layouts, lead)
+    return (op, a, b)
+
+
+def _materialise(node, leaves: list, layouts: list, lead):
+    _, out = _launch_tree(node, leaves, layouts, lead, True)
+    leaves.append(out)
+    layouts.append(_row_layout(out, lead, "plane"))
+    return ("leaf", len(leaves) - 1)
+
+
+def _launch_tree(node, leaves: list, layouts: list, lead, plane: bool):
+    """One tree_count launch of a tape that fits the kernel's limits."""
+    tape = _postfix(node)
+    slots: dict[int, int] = {}  # leaf index -> the kernel's leaf slot
+    code, depth = [], 0
+    for tok in tape:
+        if isinstance(tok, str):
+            depth -= 1
+            code.append(_TREE_CODES[tok] | ((depth - 1) << 4))
+        else:
+            slot = slots.setdefault(tok, len(slots))
+            code.append((depth << 4) | (slot << 8))
+            depth += 1
+    used = sorted(slots, key=slots.get)
+    device, words = leaves[0].device, leaves[0].shape[-1]
+    rows = math.prod(lead)
+    counts = torch.zeros(rows, dtype=torch.int32, device=device)
+    out = (torch.empty((*lead, words), dtype=torch.int32, device=device)
+           if plane else None)
+    if rows == 0:
+        return (counts.reshape(lead), out) if plane else counts.reshape(lead)
+    vec = words % 4 == 0 and all(_vec_ok(leaves[i], layouts[i][0]) for i in used)
+    n = len(used)
+    with torch.cuda.device(device):
+        err = _library("tree_kernels.cu").pilosa_tree_count(
+            (ctypes.c_void_p * n)(*(leaves[i].data_ptr() for i in used)),
+            (ctypes.c_int64 * n)(*(layouts[i][0] for i in used)),
+            (ctypes.c_int64 * n)(*(layouts[i][1] for i in used)),
+            n, (ctypes.c_int32 * len(code))(*code), len(code),
+            counts.data_ptr(), None if out is None else out.data_ptr(),
+            rows, words, int(vec), _stream(device))
+    if err:
+        raise RuntimeError(f"tree_count kernel launch failed: CUDA error {err}")
+    _count_launch("tree_count")
+    counts = counts.reshape(lead)
+    return (counts, out) if plane else counts
+
+
+def shift_left(a: torch.Tensor, n: int) -> torch.Tensor:
+    """Every row of ``a`` (``[..., W]`` int32) shifted toward higher
+    columns by ``n >= 0`` bits, bits past the row's end falling off
+    (``n >= 32 W`` gives zeros); a new contiguous tensor of ``a``'s shape.
+    Reads and writes each word once."""
+    if isinstance(n, bool) or int(n) != n:
+        raise TypeError(f"shift amount must be an int, got {n!r}")
+    if n < 0:
+        raise ValueError("shift amount must be non-negative")
+    _check_words(a, "a")
+    lead, words = a.shape[:-1], a.shape[-1]
+    if a.dim() > 2 and not a.is_contiguous():
+        raise ValueError("a must be contiguous when it has more than 2 dims")
+    stride = a.stride(0) if a.dim() == 2 else words
+    if a.device.type == "cpu":
+        return shift_left_plain(a, n)
+    _require_cuda(a)
+    out = torch.empty((*lead, words), dtype=torch.int32, device=a.device)
+    rows = math.prod(lead)
+    if rows == 0:
+        return out
+    q, b = divmod(int(n), bitops.WORD_BITS)
+    with torch.cuda.device(a.device):
+        err = _library("tree_kernels.cu").pilosa_shift_left(
+            a.data_ptr(), out.data_ptr(), rows, words, stride, q, b,
+            _stream(a.device))
+    if err:
+        raise RuntimeError(f"shift_left kernel launch failed: CUDA error {err}")
+    _count_launch("shift_left")
+    return out

@@ -8,15 +8,21 @@ per-shard jobs, each running per-container roaring kernels):
 
 - every leaf ``Row()`` of the tree becomes an ``[S_pad, W]`` int32 stack —
   shard ``s``'s row in slot ``s``, zero rows past the last shard — cached
-  on the device until a fragment under it mutates;
+  on the device until a fragment under it mutates; ``Not`` adds the
+  existence row (``_exists`` row 0) as a leaf;
 - a BSI condition ``Row(v > x)`` reads the field's exists and sign stacks
   and its magnitude planes as one cached ``[depth, S_pad, W]`` cube, and
-  runs the ``bsi_compare`` kernel (the signed branches are torch bitwise
-  ops around it);
-- ``Count`` of a bare leaf runs the ``row_counts`` kernel, and of a 2-leaf
-  Intersect/Union/Xor/Difference the ``pair_count`` kernel, which reads
-  each leaf once and writes no intermediate plane. Every other tree is
-  evaluated with torch ops and its popcount goes through ``row_counts``;
+  runs the ``bsi_compare`` kernel against the exists row; its output plane
+  enters the tree as a leaf, and the sign-class branches become tree ops
+  on the exists and sign leaves;
+- a ``Shift`` node's child is evaluated to a plane, shifted by the
+  ``shift_left`` kernel, and enters the tree as a leaf;
+- the tree over those leaves is one postfix op tape: ``Count`` of a bare
+  leaf runs the ``row_counts`` kernel, of a 2-leaf op the ``pair_count``
+  kernel, and of every other tree ONE ``tree_count`` launch, which reads
+  each leaf once and writes no intermediate plane. A bitmap result
+  (``execute_bitmap``, TopN's filter, Store's source) is the same launch
+  with its result plane written;
 - ``Sum`` counts the cube against the positive and negative class rows
   with ``pair_count`` (an ``[S_pad, W]`` row against the ``[depth, S_pad,
   W]`` cube), ``Min``/``Max`` run the ``bsi_minmax`` descent on every shard
@@ -25,9 +31,12 @@ per-shard jobs, each running per-container roaring kernels):
   before the cross-shard sum (reference reduceFn, executor.go:2455); Sum's
   2^i weights are applied in Python ints.
 
-Each query ends in one synchronising ``.cpu()``; the JAX package's
-asynchronous batcher, dispatch coalescer and prefetcher come with a later
-slice (ROADMAP.md Queue 1: executor remainder).
+``prepare_count`` keeps the reference's plan cache: a repeated Count text
+over the same shards and schema skips the signature walk, and its leaves
+re-resolve through the epoch-validated stack cache. Each query ends in one
+synchronising ``.cpu()``; the JAX package's asynchronous batcher, dispatch
+coalescer and prefetcher come with a later slice (ROADMAP.md Queue 1:
+executor remainder: async path).
 """
 
 from __future__ import annotations
@@ -51,19 +60,20 @@ from pilosa_tpu_torch.core.index import Index
 from pilosa_tpu_torch.core.row import Row
 from pilosa_tpu_torch.core.view import VIEW_STANDARD, view_bsi_name
 from pilosa_tpu_torch.errors import (
-    SLICE_EXECUTOR,
     SLICE_FIELDS,
     BSIGroupNotFoundError,
     FieldNotFoundError,
     NotPortedError,
     QueryError,
 )
+from pilosa_tpu_torch.exec import fuse as _fuse
 from pilosa_tpu_torch.ops import bitops, kernels
 from pilosa_tpu_torch.ops import bsi as bsi_ops
 from pilosa_tpu_torch.pql import BETWEEN, EQ, GT, GTE, LT, LTE, NEQ, Call, Condition
 
-_NARY = {"intersect": bitops.b_and, "union": bitops.b_or,
-         "xor": bitops.b_xor, "difference": bitops.b_andnot}
+_BITMAP_CALLS = frozenset(
+    {"Row", "Range", "Difference", "Intersect", "Union", "Xor", "Not", "Shift"})
+#: set-algebra calls -> the tape op that folds their children.
 _PAIR_OPS = {"intersect": "and", "union": "or", "xor": "xor",
              "difference": "andnot"}
 
@@ -74,9 +84,21 @@ class Planner:
     #: default device-memory budget for cached leaf stacks (bytes).
     DEFAULT_CACHE_BYTES = 4 << 30
 
-    def __init__(self, holder, max_cache_bytes: int = DEFAULT_CACHE_BYTES):
+    #: prepared plans kept (LRU) and observed query shapes remembered.
+    PLAN_CACHE_SIZE = 128
+    OBSERVED_SIZE = 256
+
+    def __init__(self, holder, max_cache_bytes: int = DEFAULT_CACHE_BYTES,
+                 bucket_policy: str = "pow2"):
         self.holder = holder
         self.device = holder.device
+        #: plan-shape bucketing ("pow2" | "none"): stack heights round up
+        #: to powers of two, so the space of [S_pad, W] shapes stays
+        #: O(log S) (see _pad).
+        if bucket_policy not in ("pow2", "none"):
+            raise ValueError(f"bucket_policy must be pow2 or none, got "
+                             f"{bucket_policy!r}")
+        self.bucket_policy = bucket_policy
         #: LRU of (index, instance, field, view, row_id, shards) ->
         #: (epoch, gens, [S_pad, W] tensor); bounded by max_cache_bytes.
         #: A hit is ONE integer compare against the index's mutation
@@ -93,8 +115,18 @@ class Planner:
         self._cache_lock = threading.Lock()
         #: key -> event set when the build of that key in flight ends.
         self._building: dict[tuple, threading.Event] = {}
-        #: structural signature -> count program
+        #: structural signature -> count or bitmap program
         self._fn_cache: dict[tuple, Callable] = {}
+        #: prepared plans: (index, instance, schema epoch, call text,
+        #: shards) -> (leaf descriptors, program, data epoch). A repeated
+        #: query shape skips the signature walk; its leaves re-resolve
+        #: through the stack cache every query, so plans pin no device
+        #: memory and never go stale.
+        self._plan_cache: "OrderedDict[tuple, tuple]" = OrderedDict()
+        #: (index, executable query text, shard count) -> hits, recency
+        #: ordered: the shapes real traffic ran, which ServerNode persists
+        #: and the next boot's warmup replays.
+        self._observed: "OrderedDict[tuple, int]" = OrderedDict()
 
     # ------------------------------------------------------------------
     # public API
@@ -102,13 +134,18 @@ class Planner:
 
     def supports(self, c: Call) -> bool:
         """True if the call tree is bitmap algebra this planner runs: Row
-        leaves (BSI conditions included) under
-        Intersect/Union/Xor/Difference."""
+        leaves (BSI conditions included) under Intersect/Union/Xor/
+        Difference, Not, and Shift with a literal ``n >= 0`` (reference
+        planner.py:204-217; ``n >= SHARD_WIDTH`` legally gives zeros)."""
+        if c.name not in _BITMAP_CALLS:
+            return False
         if c.name in ("Row", "Range"):
             return True
-        if c.name.lower() in _PAIR_OPS:
-            return all(self.supports(ch) for ch in c.children)
-        return False
+        if c.name == "Shift":
+            n = c.args.get("n", 0)
+            if not isinstance(n, int) or isinstance(n, bool) or n < 0:
+                return False
+        return all(self.supports(ch) for ch in c.children)
 
     def supports_aggregate(self, idx: Index, c: Call) -> bool:
         """True for Sum/Min/Max calls whose (optional) filter child is a
@@ -123,33 +160,114 @@ class Planner:
         f = idx.field(field_name)
         return f is not None and f.bsi_group is not None
 
-    def execute_count(self, idx: Index, c: Call, shards: list[int]) -> int:
+    def execute_count(self, idx: Index, c: Call, shards: list[int],
+                      const_rows: list | None = None) -> int:
         """Count(tree) over ``shards``: one count program on the stacked
         leaves, one copy of the per-shard counts to the host."""
         if not shards:
             return 0
-        leaves: list[tuple] = []
-        sig = self._signature(idx, c, leaves)
-        arrays = [self._fetch_leaf(idx, leaf, tuple(shards)) for leaf in leaves]
-        per_shard = self._compiled(sig)(*arrays)
+        fn, arrays = self.prepare_count(idx, c, shards, const_rows=const_rows)
+        _fuse.add_fused_steps(_fuse.call_steps(c) + 1)
         # Per-shard int32 popcounts (<= 2^30 each) widened before the sum:
         # immune to int32 overflow across many full shards.
-        return int(per_shard.cpu().numpy().astype(np.int64).sum())
+        return int(fn(*arrays).cpu().numpy().astype(np.int64).sum())
 
-    def _tree_stack(self, idx: Index, c: Call, shards: list[int]) -> torch.Tensor:
+    def prepare_count(self, idx: Index, c: Call, shards: list[int],
+                      const_rows: list | None = None):
+        """Count(tree) resolved to its (program, leaf device inputs)
+        without running it (reference prepare_count, planner.py:243). The
+        plan cache keys on the schema epoch -- plans bake field structure
+        (a comparator's depth, sign-class branches) -- and the call text;
+        a plan with ``__const__`` leaves bypasses it, since its text is the
+        same while its host rows differ per query."""
+        hit = None
+        if const_rows is None:
+            plan_key = (idx.name, idx.instance_id, idx.schema_epoch.value,
+                        str(c), tuple(shards))
+            with self._cache_lock:
+                hit = self._plan_cache.get(plan_key)
+                if hit is not None:
+                    self._plan_cache.move_to_end(plan_key)
+            if hit is not None:
+                hit = self._revalidate_plan(idx, plan_key, hit, tuple(shards))
+        if hit is not None:
+            leaves, fn = hit[0], hit[1]
+        else:
+            leaves = []
+            sig = self._signature(idx, c, leaves)
+            fn = self._compiled(("count",) + sig, sig, "per_shard")
+            if const_rows is None:
+                with self._cache_lock:
+                    self._plan_cache[plan_key] = (leaves, fn, idx.epoch.value)
+                    while len(self._plan_cache) > self.PLAN_CACHE_SIZE:
+                        self._plan_cache.popitem(last=False)
+                    # The executable form, with the Count wrapper: warmup
+                    # replays these texts through an Executor.
+                    okey = (idx.name, f"Count({c})", len(shards))
+                    self._observed[okey] = self._observed.get(okey, 0) + 1
+                    self._observed.move_to_end(okey)
+                    while len(self._observed) > self.OBSERVED_SIZE:
+                        self._observed.popitem(last=False)
+        arrays = [self._fetch_leaf(idx, leaf, tuple(shards), const_rows)
+                  for leaf in leaves]
+        return fn, arrays
+
+    def _revalidate_plan(self, idx: Index, plan_key: tuple, hit: tuple,
+                         shards: tuple):
+        """The staleness hook of a prepared plan (reference
+        planner.py:294), run only when the index epoch moved since the
+        plan's stamp. The JAX planner drops a plan here when a packed
+        leaf's row outgrew its representation class, which is baked into
+        the program; every leaf of the port is dense until packed
+        residency (ROADMAP.md Queue 1 item 4) brings that check, so the
+        plan is re-stamped and stands."""
+        leaves, fn, seen_epoch = hit
+        epoch = idx.epoch.value
+        if seen_epoch == epoch:
+            return hit
+        hit = (leaves, fn, epoch)
+        with self._cache_lock:
+            if plan_key in self._plan_cache:
+                self._plan_cache[plan_key] = hit
+        return hit
+
+    def _tree_stack(self, idx: Index, c: Call, shards: list[int],
+                    const_rows: list | None = None) -> torch.Tensor:
         """Evaluate a bitmap tree to its stacked [S_pad, W] device tensor."""
         leaves: list[tuple] = []
         sig = self._signature(idx, c, leaves)
-        arrays = [self._fetch_leaf(idx, leaf, tuple(shards)) for leaf in leaves]
-        return _eval_node(sig, arrays)
+        arrays = [self._fetch_leaf(idx, leaf, tuple(shards), const_rows)
+                  for leaf in leaves]
+        out = self._compiled(("row",) + sig, sig, None)(*arrays)
+        _fuse.add_fused_steps(_fuse.call_steps(c))
+        return out
 
-    def execute_bitmap(self, idx: Index, c: Call, shards: list[int]) -> Row:
+    def execute_bitmap(self, idx: Index, c: Call, shards: list[int],
+                       const_rows: list | None = None) -> Row:
         """Evaluate the tree to a Row whose segments are device slices of
         the stacked result (no host sync)."""
         if not shards:
             return Row()
-        out = self._tree_stack(idx, c, shards)  # [S_pad, W]
+        out = self._tree_stack(idx, c, shards, const_rows)  # [S_pad, W]
         return Row({shard: out[i] for i, shard in enumerate(shards)})
+
+    def observed_traffic(self) -> list[dict]:
+        """The query shapes this planner prepared, oldest first: what
+        ServerNode persists to warmup.json so the next boot's warmup
+        replays them."""
+        with self._cache_lock:
+            return [{"index": i, "query": q, "shards": n, "count": k}
+                    for (i, q, n), k in self._observed.items()]
+
+    def drop_index(self, index_name: str) -> None:
+        """Evict one index's stacks and plans; programs are structural and
+        stay (this lets warmup drop its scratch index)."""
+        with self._cache_lock:
+            for key in [k for k in self._stack_cache if k[0] == index_name]:
+                arr = self._stack_cache.pop(key)[2]
+                self._cache_bytes -= arr.numel() * arr.element_size()
+            for key in [k for k in self._plan_cache if k[0] == index_name]:
+                del self._plan_cache[key]
 
     # ------------------------------------------------------------------
     # BSI aggregates: Sum/Min/Max over every shard at once (the stepped
@@ -276,8 +394,27 @@ class Planner:
                 raise QueryError(f"empty {name} query is currently not supported")
             kids = tuple(self._signature(idx, ch, leaves) for ch in c.children)
             return (kind, kids)
-        if name in ("Not", "Shift"):
-            raise NotPortedError(f"{name}()", SLICE_EXECUTOR)
+        if name == "Not":
+            if len(c.children) != 1:
+                raise QueryError("Not() requires a single row input")
+            ef = idx.existence_field()
+            if ef is None:
+                raise QueryError(
+                    f"index does not support existence tracking: {idx.name}")
+            leaves.append(("row", ef.name, VIEW_STANDARD, 0))
+            slot = len(leaves) - 1
+            return ("not", slot, self._signature(idx, c.children[0], leaves))
+        if name == "Shift":
+            # The JAX planner reads the first child and ignores any more
+            # (its per-shard path refuses them): kept as it is (ROADMAP.md
+            # Queue 3).
+            n = c.args.get("n", 0)  # IntArg default, executor.go:1770
+            return ("shift", n, self._signature(idx, c.children[0], leaves))
+        if name == "__const__":
+            # Partial-fusion leaf: a Row computed on the host, uploaded as
+            # a stack (Executor._fuse_partial).
+            leaves.append(("const", c.args["slot"]))
+            return ("leaf", len(leaves) - 1)
         raise QueryError(f"unsupported planner call: {name}")
 
     def _bsi_signature(self, idx: Index, c: Call, leaves: list[tuple]) -> tuple:
@@ -340,44 +477,50 @@ class Planner:
         return (kind, slot, depth, allow_eq,
                 bsi_ops._positive_branch(base_value, allow_eq), pred(base_value))
 
-    def _compiled(self, sig: tuple) -> Callable:
-        """The count program for a signature: [S_pad, W] leaves -> int32
-        [S_pad] per-shard counts. A bare leaf runs row_counts, a 2-leaf
-        op pair_count; any other tree is evaluated with torch ops and
-        counted by row_counts."""
-        fn = self._fn_cache.get(sig)
+    def _compiled(self, full_sig: tuple, sig: tuple,
+                  reduce: str | None) -> Callable:
+        """The program for a signature: its [S_pad, W] leaf inputs ->
+        int32 [S_pad] per-shard counts (``reduce="per_shard"``) or the
+        [S_pad, W] result plane (``None``). The tree is lowered to one
+        op tape over leaf planes at each call (BSI compare and shift
+        outputs join as planes): a bare leaf counts with row_counts, a
+        2-leaf op with pair_count, anything else with one tree_count
+        launch."""
+        fn = self._fn_cache.get(full_sig)
         if fn is not None:
             return fn
-        if sig[0] == "leaf":
-            slot = sig[1]
-
+        if reduce == "per_shard":
             def fn(*args):
-                return kernels.row_counts(args[slot])
-        elif (sig[0] in _PAIR_OPS and len(sig[1]) == 2
-              and all(k[0] == "leaf" for k in sig[1])):
-            i, j = sig[1][0][1], sig[1][1][1]
-            op = _PAIR_OPS[sig[0]]
-
-            def fn(*args):
-                return kernels.pair_count(args[i], args[j], op)
+                tape = _Tape()
+                expr = _lower(sig, args, tape)
+                if expr[0] == "p":
+                    return kernels.row_counts(tape.leaves[expr[1]])
+                op, a, b = expr
+                if a[0] == "p" and b[0] == "p":
+                    return kernels.pair_count(tape.leaves[a[1]],
+                                              tape.leaves[b[1]], op)
+                return kernels.tree_count(tape.leaves, _postfix(expr))
         else:
             def fn(*args):
-                return kernels.row_counts(_eval_node(sig, args))
-        self._fn_cache[sig] = fn
+                tape = _Tape()
+                return tape.plane(_lower(sig, args, tape))
+        self._fn_cache[full_sig] = fn
         return fn
 
     # ------------------------------------------------------------------
     # leaf fetch: host rows -> [S_pad, W] device stacks
     # ------------------------------------------------------------------
 
-    @staticmethod
-    def _pad(s: int) -> int:
-        """Stack height for ``s`` shards: the next power of two, so the
-        space of distinct [S_pad, W] shapes stays O(log S). Padding rows are
+    def _pad(self, s: int) -> int:
+        """Stack height for ``s`` shards: under the default "pow2" bucket
+        policy the next power of two, so the space of distinct [S_pad, W]
+        shapes stays O(log S); ``s`` itself under "none". Padding rows are
         zero blocks — bit-identical results, because every consumer either
         sums popcounts (zero rows count 0) or slices only the real shard
         slots (execute_bitmap, TopN)."""
-        return 1 << (s - 1).bit_length() if s > 0 else 0
+        if self.bucket_policy == "pow2" and s > 0:
+            return 1 << (s - 1).bit_length()
+        return s
 
     def _gens(self, index_name: str, field_name: str, view: str,
               shards: tuple) -> tuple:
@@ -390,11 +533,25 @@ class Planner:
             out.append(-1 if frag is None else (frag.instance_id, frag.generation))
         return tuple(out)
 
-    def _fetch_leaf(self, idx: Index, leaf: tuple, shards: tuple):
+    def _fetch_leaf(self, idx: Index, leaf: tuple, shards: tuple,
+                    const_rows: list | None = None):
         """A leaf's device input: a ``row`` leaf's [S_pad, W] stack, a
         ``bsi`` leaf's (exists, sign, [depth, S_pad, W] cube), a ``pred``
-        leaf's (lo, hi) halves."""
+        leaf's (lo, hi) halves, a ``const`` leaf's host Row uploaded as a
+        stack (not cached: its contents vary per query)."""
         kind = leaf[0]
+        if kind == "const":
+            row = const_rows[leaf[1]]
+            out = torch.zeros((self._pad(len(shards)), WORDS_PER_SHARD),
+                              dtype=torch.int32, device=self.device)
+            for i, shard in enumerate(shards):
+                seg = row.segments.get(shard)
+                if isinstance(seg, torch.Tensor):
+                    out[i].copy_(seg)
+                elif seg is not None:
+                    out[i].copy_(torch.from_numpy(
+                        np.ascontiguousarray(seg, dtype=np.uint32).view(np.int32)))
+            return out
         if kind == "row":
             _, field_name, view, row_id = leaf
             return self._stack_rows(idx, field_name, view, row_id, shards)
@@ -521,59 +678,110 @@ class Planner:
         return mat
 
 
-def _eval_node(sig: tuple, args) -> torch.Tensor:
-    """Recursively evaluate a signature node against leaf inputs: torch
-    bitwise ops for the set algebra and the signed BSI branches, the
-    ``bsi_compare`` kernel for the unsigned comparisons (reference
-    planner.py:1932-2030). The leaves are never written in place."""
+class _Tape:
+    """The leaf planes of one lowering and a plane maker over them."""
+
+    def __init__(self):
+        self.leaves: list[torch.Tensor] = []
+        self._slots: dict[int, int] = {}
+
+    def leaf(self, t: torch.Tensor) -> tuple:
+        """``("p", i)`` for plane ``t``; one slot per tensor, so a leaf
+        used twice is one kernel input."""
+        i = self._slots.get(id(t))
+        if i is None:
+            i = self._slots[id(t)] = len(self.leaves)
+            self.leaves.append(t)
+        return ("p", i)
+
+    def plane(self, expr: tuple) -> torch.Tensor:
+        """The [S_pad, W] plane of ``expr``: a leaf as it is, any tree from
+        one tree_count launch with its result plane written."""
+        if expr[0] == "p":
+            return self.leaves[expr[1]]
+        return kernels.tree_count(self.leaves, _postfix(expr), plane=True)[1]
+
+
+def _postfix(expr: tuple) -> list:
+    """The tree_count tape of an expression over ``_Tape`` planes."""
+    if expr[0] == "p":
+        return [expr[1]]
+    return _postfix(expr[1]) + _postfix(expr[2]) + [expr[0]]
+
+
+def _lower(sig: tuple, args, tape: _Tape) -> tuple:
+    """A signature node as an expression over planes: ``("p", i)`` or
+    ``(op, a, b)`` with op in and/or/xor/andnot (reference _eval_node,
+    planner.py:1932-2030). Row, existence and const leaves enter as they
+    are; a Shift evaluates its child to a plane and enters the
+    ``shift_left`` kernel's output; a BSI condition runs ``bsi_compare``
+    against the exists row, and its sign-class branches become tree ops
+    on the exists (E), sign (S) and compare (C) planes:
+    pos = E & ~S, neg = E & S, and C & ~S = C(pos) since C lies inside E.
+    The leaves are never written in place."""
     kind = sig[0]
     if kind == "leaf":
-        return args[sig[1]]
-    if kind in _NARY:
-        op = _NARY[kind]
-        kids = [_eval_node(k, args) for k in sig[1]]
+        return tape.leaf(args[sig[1]])
+    if kind in _PAIR_OPS:
+        op = _PAIR_OPS[kind]
+        kids = [_lower(k, args, tape) for k in sig[1]]
         acc = kids[0]
         for k in kids[1:]:
-            acc = op(acc, k)
+            acc = (op, acc, k)
         return acc
+    if kind == "not":
+        _, slot, child = sig
+        return ("andnot", tape.leaf(args[slot]), _lower(child, args, tape))
+    if kind == "shift":
+        _, n, child = sig
+        expr = _lower(child, args, tape)
+        if n == 0:
+            return expr
+        return tape.leaf(kernels.shift_left(tape.plane(expr), n))
     exists, sign, cube = args[sig[1]]
+    e, s = tape.leaf(exists), tape.leaf(sign)
     if kind == "bsi_notnull":
-        return exists
+        return e
     if kind == "bsi_zero":
-        return torch.zeros_like(exists)
-    pos, neg = bitops.b_andnot(exists, sign), exists & sign
+        return ("andnot", e, e)
+
+    def cmp(op: str, pslot: int, allow_eq: bool) -> tuple:
+        lo, hi = args[pslot]
+        return tape.leaf(bsi_ops._compare_select(cube, exists, lo, hi, depth,
+                                                 op, allow_eq))
+
+    def pos(x):
+        return ("andnot", x, s)
+
+    def neg(x):
+        return ("and", x, s)
+
     if kind in ("bsi_eq", "bsi_neq"):
         _, _, depth, negative, pslot = sig
-        eq = bsi_ops._compare_select(cube, neg if negative else pos, *args[pslot],
-                                     depth, "eq", True)
-        return eq if kind == "bsi_eq" else bitops.b_andnot(exists, eq)
+        c = cmp("eq", pslot, True)
+        eq = neg(c) if negative else pos(c)
+        return eq if kind == "bsi_eq" else ("andnot", e, eq)
     if kind in ("bsi_lt", "bsi_gt"):
         _, _, depth, allow_eq, branch_pos, pslot = sig
-        lo, hi = args[pslot]
         if kind == "bsi_lt":
             if branch_pos:
                 # All negatives, plus positives below the predicate
                 # (rangeLT fragment.go:1332).
-                return neg | bsi_ops._compare_select(cube, pos, lo, hi, depth,
-                                                     "lt", allow_eq)
-            return bsi_ops._compare_select(cube, neg, lo, hi, depth, "gt", allow_eq)
+                return ("or", neg(e), pos(cmp("lt", pslot, allow_eq)))
+            return neg(cmp("gt", pslot, allow_eq))
         if branch_pos:
-            return bsi_ops._compare_select(cube, pos, lo, hi, depth, "gt", allow_eq)
+            return pos(cmp("gt", pslot, allow_eq))
         # Negatives with smaller magnitude, plus all positives (rangeGT
         # fragment.go:1404).
-        return pos | bsi_ops._compare_select(cube, neg, lo, hi, depth, "lt", allow_eq)
+        return ("or", pos(e), neg(cmp("lt", pslot, allow_eq)))
     if kind == "bsi_between":
         _, _, depth, case, plo, phi = sig
-        (llo, lhi), (hlo, hhi) = args[plo], args[phi]
         if case == "pos":
-            return (bsi_ops._compare_select(cube, pos, llo, lhi, depth, "gt", True)
-                    & bsi_ops._compare_select(cube, pos, hlo, hhi, depth, "lt", True))
+            return pos(("and", cmp("gt", plo, True), cmp("lt", phi, True)))
         if case == "neg":
-            return (bsi_ops._compare_select(cube, neg, hlo, hhi, depth, "gt", True)
-                    & bsi_ops._compare_select(cube, neg, llo, lhi, depth, "lt", True))
+            return neg(("and", cmp("gt", phi, True), cmp("lt", plo, True)))
         # Crossing zero (rangeBetween fragment.go:1457).
-        return (bsi_ops._compare_select(cube, pos, hlo, hhi, depth, "lt", True)
-                | bsi_ops._compare_select(cube, neg, llo, lhi, depth, "lt", True))
+        return ("or", pos(cmp("lt", phi, True)), neg(cmp("lt", plo, True)))
     raise ValueError(f"unknown signature node {kind!r}")
 
 

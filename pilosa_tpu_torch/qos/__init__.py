@@ -1,10 +1,9 @@
 """Quality-of-service: query admission control, deadlines, load shedding
 and slow-query logging.
 
-The port's copy of pilosa_tpu/qos/ without ``warmup.py``: the JAX
-package's warmup precompiles its planner's XLA programs, and the port's
-counterpart (build the CUDA sources, launch the canonical shapes once)
-comes with the plan cache (ROADMAP.md Queue 1: executor remainder).
+The port's copy of pilosa_tpu/qos/; its ``warmup.py`` builds the CUDA
+sources and launches every kernel family once where the JAX package's
+precompiles XLA programs.
 """
 
 from .adaptive import AdaptiveLimit
@@ -33,6 +32,7 @@ from .deadline import (
 )
 from .quota import QuotaExceededError, TenantQuotas
 from .slowlog import SlowQueryLog
+from .warmup import WarmupService
 
 __all__ = [
     "AdaptiveLimit",
@@ -58,4 +58,5 @@ __all__ = [
     "normalize_class",
     "reset_current_deadline",
     "set_current_deadline",
+    "WarmupService",
 ]

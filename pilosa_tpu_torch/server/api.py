@@ -13,7 +13,7 @@ found again at boot (the JAX node writes the schema only when it flushes
 or deletes: ROADMAP.md Queue 3); deleting an index, field or view
 unlinks its files too. Imports by keys or with timestamps and remote
 (cluster-leg) queries raise ``NotPortedError`` naming the ROADMAP.md
-slice that brings them; key translation, attrs and block sync have no
+slice that brings them; key translation and fragment block sync have no
 method yet (their routes answer 501).
 """
 
@@ -27,6 +27,7 @@ from pilosa_tpu_torch.config import SHARD_WIDTH
 from pilosa_tpu_torch.core.field import FieldOptions
 from pilosa_tpu_torch.core.holder import Holder
 from pilosa_tpu_torch.core.index import IndexOptions
+from pilosa_tpu_torch.core.row import Row
 from pilosa_tpu_torch.core.view import VIEW_STANDARD
 from pilosa_tpu_torch.errors import (
     SLICE_CLUSTER,
@@ -80,7 +81,26 @@ class API:
                           exclude_columns=exclude_columns)
         results = self.executor.execute(index, query, shards=shards, opt=opt,
                                         cache=cache)
-        return {"results": [result_to_json(r) for r in results]}
+        resp = {"results": [result_to_json(r) for r in results]}
+        # After execution: Options(columnAttrs=true) sets the flag on opt.
+        if opt.column_attrs:
+            resp["columnAttrs"] = self._column_attr_sets(index, results)
+        return resp
+
+    def _column_attr_sets(self, index: str, results: list) -> list[dict]:
+        """Attrs of every column of the Row results that has any
+        (reference executor.go ColumnAttrSets assembly)."""
+        idx = self.holder.index_or_raise(index)
+        cols: set[int] = set()
+        for r in results:
+            if isinstance(r, Row):
+                cols.update(int(c) for c in r.columns())
+        out = []
+        for c in sorted(cols):
+            attrs = idx.column_attr_store.attrs(c)
+            if attrs:
+                out.append({"id": c, "attrs": attrs})
+        return out
 
     # -- schema CRUD (api.go:162-467) --------------------------------------
 
@@ -226,6 +246,24 @@ class API:
     def max_shards(self) -> dict:
         return {name: max(self.holder.index(name).available_shards())
                 for name in self.holder.index_names()}
+
+    def _attr_store(self, index: str, field: str | None):
+        """Column attrs (field=None) or a field's row attrs (reference
+        api.go:817-918 attr-diff surface)."""
+        idx = self.holder.index_or_raise(index)
+        if field is None:
+            return idx.column_attr_store
+        f = idx.field(field)
+        if f is None:
+            raise FieldNotFoundError()
+        return f.row_attr_store
+
+    def attr_blocks(self, index: str, field: str | None) -> list:
+        return self._attr_store(index, field).blocks()
+
+    def attr_block_data(self, index: str, field: str | None,
+                        block: int) -> dict:
+        return self._attr_store(index, field).block_data(block)
 
     def recalculate_caches(self) -> None:
         """Row counts are maintained exactly; nothing to rebuild. Kept for

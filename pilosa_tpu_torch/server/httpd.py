@@ -5,8 +5,7 @@ http/handler.go (newRouter :274-318). Implemented on the stdlib
 ThreadingHTTPServer, one thread per connection. Every route of the JAX
 node's table is mounted in the same order and matched by the same
 pattern; the routes a standalone node of this slice does not serve
-(cluster RPC, backup, key translation, attrs, device and cache telemetry)
-answer 501 with a body that names the ROADMAP.md slice that brings them.
+(cluster RPC, backup, key translation, device telemetry) answer 501 with a body that names the ROADMAP.md slice that brings them.
 """
 
 from __future__ import annotations
@@ -22,7 +21,7 @@ from pilosa_tpu_torch.cache.tenant import reset_current_tenant, set_current_tena
 from pilosa_tpu_torch.errors import (
     SLICE_BACKUP,
     SLICE_CLUSTER,
-    SLICE_EXECUTOR,
+    SLICE_ASYNC,
     SLICE_KEYS,
     ApiMethodNotAllowedError,
     FieldExistsError,
@@ -34,10 +33,12 @@ from pilosa_tpu_torch.errors import (
     PilosaError,
     QueryError,
 )
+from pilosa_tpu_torch.exec import fuse as _fuse
 from pilosa_tpu_torch.obs import profile as _profile
 from pilosa_tpu_torch.obs import tracing as _tr
 from pilosa_tpu_torch.pql import ParseError
 from pilosa_tpu_torch.qos import (
+    CLASS_INTERNAL,
     DeadlineExceededError,
     QueryShedError,
     QuotaExceededError,
@@ -318,6 +319,12 @@ def _build_routes(api: API):
             dtoken = qos_deadline.set_current_deadline(
                 qos_deadline.Deadline(timeout=qos_ctl.default_deadline))
         want_inline_profile = params.get("profile") == "true"
+        # Result-cache gate: noCache bypasses explicitly; INTERNAL-class
+        # requests (maintenance sweeps) must not churn interactive
+        # tenants' partitions; an explicitly profiled query is exempt too,
+        # since a hit would profile the lookup, not the cost asked for.
+        use_cache = (params.get("noCache") != "true"
+                     and not want_inline_profile and cls != CLASS_INTERNAL)
         # Tenant: the identity the quota table charges (X-API-Key,
         # falling back to the index name).
         ttoken = set_current_tenant(params.get("_api_key") or pv["index"])
@@ -355,7 +362,7 @@ def _build_routes(api: API):
                     column_attrs=params.get("columnAttrs") == "true",
                     exclude_row_attrs=params.get("excludeRowAttrs") == "true",
                     exclude_columns=params.get("excludeColumns") == "true",
-                    remote=remote, cache=params.get("noCache") != "true")
+                    remote=remote, cache=use_cache)
                 if qos_ctl is not None:
                     with qos_ctl.admit(cls):
                         resp = api.query(pv["index"], body.decode(), **kwargs)
@@ -388,6 +395,7 @@ def _build_routes(api: API):
                 if trace_token is not None:
                     _tr.reset_current_trace(trace_token)
                 prof.status = status
+                prof.fused_steps = _fuse.fused_steps()
                 prof_doc = prof.finish()
                 if ring is not None:
                     ring.record(prof_doc)
@@ -402,6 +410,7 @@ def _build_routes(api: API):
                 slow_log.observe(pv["index"], body.decode(errors="replace"),
                                  (time.perf_counter() - t0) * 1000.0,
                                  qos_class=cls, status=status,
+                                 fused_steps=_fuse.fused_steps(),
                                  trace_id=(prof.trace_id
                                            if prof is not None else ""))
         if want_inline_profile and prof_doc is not None:
@@ -492,10 +501,11 @@ def _build_routes(api: API):
         return 200, doc
 
     def get_debug_overload(pv, params, body):
-        """Adaptive admission limit and per-tenant quota buckets; a
-        standalone node has no breakers or hedges, and there is no result
-        cache yet."""
+        """Adaptive admission limit, per-tenant quota buckets and the
+        result cache's occupancy; a standalone node has no breakers or
+        hedges."""
         qos_ctl = api.qos
+        rcache = api.executor.result_cache
         return 200, {
             "admission": qos_ctl.snapshot() if qos_ctl is not None else None,
             "adaptive": (qos_ctl.adaptive.snapshot()
@@ -505,8 +515,31 @@ def _build_routes(api: API):
                        if api.quotas is not None else None),
             "breakers": None,
             "hedge": None,
-            "cache": None,
+            "cache": rcache.snapshot() if rcache is not None else None,
         }
+
+    def get_debug_cache(pv, params, body):
+        """Result-cache snapshot: byte/entry occupancy, hit and eviction
+        counters, per-tenant partitions. A standalone node observes no
+        remote query legs, so its table of remote shard epochs (the JAX
+        node's RemoteEpochTable) is always empty."""
+        rcache = api.executor.result_cache
+        if rcache is None:
+            return 200, {"enabled": False}
+        snap = rcache.snapshot()
+        snap["enabled"] = True
+        snap["remoteEpochs"] = {"entries": 0}
+        return 200, snap
+
+    def get_attr_blocks(pv, params, body):
+        blocks = api.attr_blocks(params["index"], params.get("field"))
+        return 200, {"blocks": [{"id": b, "checksum": cs.hex()}
+                                for b, cs in blocks]}
+
+    def get_attr_block_data(pv, params, body):
+        data = api.attr_block_data(params["index"], params.get("field"),
+                                   int(params["block"]))
+        return 200, {"attrs": {str(i): a for i, a in data.items()}}
 
     def get_debug_quarantine(pv, params, body):
         """Corruption quarantine view: which fragments failed integrity
@@ -602,13 +635,12 @@ def _build_routes(api: API):
          {"GET": get_debug_query_profile}),
         (r"/debug/queries", {"GET": get_debug_queries}),
         (r"/debug/device",
-         {"GET": _not_ported("GET /debug/device", SLICE_EXECUTOR)}),
+         {"GET": _not_ported("GET /debug/device", SLICE_ASYNC)}),
         (r"/debug/translate",
          {"GET": _not_ported("GET /debug/translate", SLICE_KEYS)}),
         (r"/debug/slow-queries", {"GET": get_debug_slow_queries}),
         (r"/debug/overload", {"GET": get_debug_overload}),
-        (r"/debug/cache",
-         {"GET": _not_ported("GET /debug/cache", SLICE_EXECUTOR)}),
+        (r"/debug/cache", {"GET": get_debug_cache}),
         (r"/debug/quarantine", {"GET": get_debug_quarantine}),
         (r"/debug/threads", {"GET": get_debug_threads}),
         (r"/debug/profile", {"GET": get_debug_profile}),
@@ -652,10 +684,8 @@ def _build_routes(api: API):
                               cluster)}),
         (r"/internal/fragment/block/data",
          {"GET": _not_ported("GET /internal/fragment/block/data", cluster)}),
-        (r"/internal/attr/blocks",
-         {"GET": _not_ported("GET /internal/attr/blocks", SLICE_EXECUTOR)}),
-        (r"/internal/attr/data",
-         {"GET": _not_ported("GET /internal/attr/data", SLICE_EXECUTOR)}),
+        (r"/internal/attr/blocks", {"GET": get_attr_blocks}),
+        (r"/internal/attr/data", {"GET": get_attr_block_data}),
         (r"/internal/import",
          {"POST": _not_ported("POST /internal/import", cluster)}),
         (r"/internal/nodes",

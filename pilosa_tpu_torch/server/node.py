@@ -3,21 +3,27 @@
 The port's counterpart of pilosa_tpu/server/node.py for a node with no
 peers: Holder (on the card by default) + Executor (+ Planner) + API +
 HTTPServer, with the QoS front (admission gate, default deadline,
-slow-query log, adaptive limit, tenant quotas), the query-profile ring,
-the runtime gauges and, with ``data_dir``, the ``storage.DiskStore`` that
-logs every write, snapshots and reloads the data dir at boot. Peers,
+slow-query log, adaptive limit, tenant quotas, kernel warmup), the
+result cache, the query-profile ring, the runtime gauges and, with
+``data_dir``, the ``storage.DiskStore`` that logs every write, snapshots
+and reloads the data dir at boot (and ``warmup.json``, the query shapes
+the planner saw, for the next boot's warmup to replay). Peers,
 joins, backups, scrubs and the other background sweeps come with later
 slices (ROADMAP.md Queue 1: backup and restore; cluster and operations).
 """
 
 from __future__ import annotations
 
+import json
+import os
 import threading
 
 import torch
 
 from pilosa_tpu_torch.cluster.node import URI, Node
+from pilosa_tpu_torch.cache.result_cache import ResultCache
 from pilosa_tpu_torch.core.holder import Holder
+from pilosa_tpu_torch.exec import fuse as _dispatch_fuse
 from pilosa_tpu_torch.exec.executor import Executor
 from pilosa_tpu_torch.obs import MemoryStats, ProfileRing
 from pilosa_tpu_torch.obs.runtime import RuntimeMonitor
@@ -27,6 +33,7 @@ from pilosa_tpu_torch.qos import (
     AdmissionController,
     SlowQueryLog,
     TenantQuotas,
+    WarmupService,
 )
 from pilosa_tpu_torch.server.api import API
 from pilosa_tpu_torch.server.httpd import HTTPServer
@@ -62,14 +69,36 @@ class ServerNode:
                  max_op_n: int | None = None,
                  quarantine_keep_n: int = 0,
                  wal_group_commit_ms: float = 0.0,
-                 import_pool_mb: int = 0):
+                 import_pool_mb: int = 0,
+                 qos_warmup: str = "",
+                 qos_warmup_shards: str = "1,8,32",
+                 plan_buckets: str = "pow2",
+                 result_cache_mb: int = 64,
+                 result_cache_ttl: float = 0.0,
+                 dispatch_fuse: str = "auto"):
         host, _, port = bind.partition(":")
         self.host, self.port = host or "127.0.0.1", int(port or 10101)
         self.stats = MemoryStats()
         self.holder = Holder(device=device)
-        planner = Planner(self.holder) if use_planner else None
+        self.data_dir = data_dir
+        planner = (Planner(self.holder, bucket_policy=plan_buckets)
+                   if use_planner else None)
+        # Plan-keyed result cache: byte-bounded, tenant-partitioned;
+        # <= 0 MB disables it (every query then runs).
+        self.result_cache = None
+        if result_cache_mb > 0:
+            self.result_cache = ResultCache(max_bytes=int(result_cache_mb) << 20,
+                                            ttl=result_cache_ttl,
+                                            stats=self.stats)
         self.executor = Executor(self.holder, planner=planner,
-                                 stats=self.stats)
+                                 stats=self.stats,
+                                 result_cache=self.result_cache)
+        # Partial fusion of mixed trees (exec/fuse.py);
+        # PILOSA_TPU_DISPATCH_FUSE overrides.
+        _dispatch_fuse.set_mode(dispatch_fuse)
+        self._qos_warmup = qos_warmup
+        self._qos_warmup_shards = qos_warmup_shards
+        self.warmup = None
         self.api = API(self.holder, self.executor)
         if data_dir:
             from pilosa_tpu_torch.storage.diskstore import DiskStore
@@ -151,14 +180,62 @@ class ServerNode:
                                               self.executor.planner,
                                               qos=self.qos)
         self.runtime_monitor.start()
+        if self._qos_warmup and self.executor.planner is not None:
+            # Build the CUDA sources and launch the canonical shapes in
+            # the background; node start never waits on nvcc.
+            kinds = [k.strip() for k in self._qos_warmup.split(",")
+                     if k.strip()]
+            shard_counts = [int(x) for x in str(self._qos_warmup_shards).split(",")
+                            if x.strip()]
+            observed, observed_schema = self._load_observed_traffic()
+            self.warmup = WarmupService(self.executor.planner, kinds=kinds,
+                                        shard_counts=shard_counts,
+                                        observed=observed,
+                                        observed_schema=observed_schema,
+                                        stats=self.stats)
+            self.warmup.start()
 
     def close(self) -> None:
         self._pool_stop.set()
         self.http.close()
         if self.runtime_monitor is not None:
             self.runtime_monitor.close()
+        if self.warmup is not None:
+            self.warmup.close()
+        self._save_observed_traffic()
         if self.store is not None:
             self.store.close()
+
+    # -- warmup from observed traffic (reference node.py:1286-1322) --------
+
+    def _save_observed_traffic(self) -> None:
+        """Persist the planner's observed query shapes and the schema they
+        run against to ``<data dir>/warmup.json``: best effort."""
+        planner = self.executor.planner
+        if not self.data_dir or planner is None:
+            return
+        observed = planner.observed_traffic()
+        if not observed:
+            return
+        path = os.path.join(self.data_dir, "warmup.json")
+        try:
+            tmp = f"{path}.{os.getpid()}.tmp"
+            with open(tmp, "w") as f:
+                json.dump({"version": 1, "entries": observed,
+                           "schema": self.holder.schema()}, f)
+            os.replace(tmp, path)
+        except OSError:
+            pass  # warmup hints never block shutdown
+
+    def _load_observed_traffic(self) -> tuple[list, list]:
+        if not self.data_dir:
+            return [], []
+        try:
+            with open(os.path.join(self.data_dir, "warmup.json")) as f:
+                doc = json.load(f)
+            return list(doc.get("entries", [])), list(doc.get("schema", []))
+        except (OSError, ValueError):
+            return [], []
 
     @property
     def address(self) -> str:

@@ -205,10 +205,8 @@ def test_cpu_queries_launch_no_kernel(parity):
 
 
 @pytest.mark.parametrize("query", [
-    "Not(Row(f=0))", "Shift(Row(f=0), n=1)", "Count(Not(Row(f=0)))",
-    "MinRow(field=f)", "Range(f=0)", "Rows(f)", "GroupBy(Rows(f))",
+    "MinRow(field=f)", "Range(f=0)", "GroupBy(Rows(f))",
     "Row(f=0, from='2020-01-01T00:00', to='2021-01-01T00:00')",
-    "TopN(f, n=2, attrName=x, attrValues=[1])",
 ])
 @pytest.mark.parametrize("planned", [False, True], ids=["shards", "planner"])
 def test_later_slices_raise(parity, query, planned):

@@ -102,13 +102,35 @@ def test_positions_words_popcount_parity():
     assert native.intersection_count_words(words, other) == len(pos[::3])
 
 
+def _scatter_oracle(cols: np.ndarray, exp: int, n_shards: int, words: int):
+    """numpy oracle of scatter_row_blocks: each column's bit OR-ed into
+    its (shard, word), with the touched shards and per-shard bit counts."""
+    shard = (cols >> np.uint64(exp)).astype(np.int64)
+    local = cols & np.uint64((1 << exp) - 1)
+    blocks = np.zeros((n_shards, words), dtype=np.uint32)
+    bit = np.left_shift(np.uint32(1), (local & np.uint64(31)).astype(np.uint32))
+    np.bitwise_or.at(blocks, (shard, (local >> np.uint64(5)).astype(np.int64)), bit)
+    counts = np.array([len(np.unique(local[shard == s])) for s in range(n_shards)],
+                      dtype=np.int64)
+    return blocks, counts > 0, counts
+
+
 def test_scatter_row_blocks_parity():
+    """The port's scatter against a numpy oracle, and against the JAX
+    package's whenever that returns blocks: the JAX loader builds its
+    library with ``make`` in place, so under a parallel test run another
+    worker can find it half-written, and then the JAX scatter answers
+    None, which is no fault of the port."""
     rng = np.random.default_rng(4)
     cols = rng.integers(0, 3 << 20, 100000, dtype=np.uint64)
     got = native.scatter_row_blocks(cols, 20, 3, 1 << 15)
-    want = j_native.scatter_row_blocks(cols, 20, 3, 1 << 15)
-    for a, b in zip(got, want):
+    assert got is not None, native.status()
+    for a, b in zip(got, _scatter_oracle(cols, 20, 3, 1 << 15)):
         assert np.array_equal(a, b)
+    want = j_native.scatter_row_blocks(cols, 20, 3, 1 << 15)
+    if want is not None:
+        for a, b in zip(got, want):
+            assert np.array_equal(a, b)
 
 
 def test_container_type_choices():

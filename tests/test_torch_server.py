@@ -358,7 +358,7 @@ def _served(path: str) -> bool:
         "/debug/overload", "/debug/threads", "/debug/profile",
         "/recalculate-caches", "/internal/fragment/nodes", "/internal/shards/max",
         "/index/{index}/field/{field}/import-roaring/{shard}", "/debug/quarantine",
-        "/debug/heap"}
+        "/debug/heap", "/debug/cache", "/internal/attr/blocks", "/internal/attr/data"}
 
 
 def _unported_routes():
@@ -380,15 +380,15 @@ def test_unported_routes_answer_501(nodes, method, path):
     status, body, _ = tc(method, path, b"{}" if method == "POST" else None)
     assert status == 501
     assert re.fullmatch(r".* is not ported to pilosa_tpu_torch yet "
-                        r"\(ROADMAP\.md Queue 1: [a-z ,A-Z]+\)",
+                        r"\(ROADMAP\.md Queue 1: [a-z ,:A-Z]+\)",
                         json.loads(body)["error"])
 
 
 def test_unported_query_features_answer_501(nodes):
     _, _, _, tc = nodes
-    for path, q in (("/index/i/query", "Not(Row(f=0))"),
+    for path, q in (("/index/i/query", "MinRow(field=f)"),
                     ("/index/i/query", "Count(Distinct(field=v))"),
-                    ("/index/i/query?columnAttrs=true", "Row(f=0)"),
+                    ("/index/i/query?columnAttrs=true", "GroupBy(Rows(f))"),
                     ("/index/i/query?remote=true", "Row(f=0)")):
         status, body, _ = tc("POST", path, q)
         assert status == 501, (path, q, body)
@@ -628,8 +628,8 @@ def test_node_defaults_to_the_card(monkeypatch):
     (["--archive-url", "x"], "backup and restore"),
     (["--scrub-interval", "1"], "cluster and operations"),
     (["--trace-endpoint", "http://127.0.0.1:1"], "cluster and operations"),
-    (["--qos-warmup", "count"], "executor remainder"),
-    (["--result-cache-mb", "0"], "executor remainder"),
+    (["--dispatch-coalesce", "on"], "executor remainder: async path"),
+    (["--prefetch", "on"], "executor remainder: async path"),
     (["--sketch-precision", "10"], "keys and sketches"),
 ])
 def test_cli_refuses_unported_flags(capsys, argv, slice_name):
