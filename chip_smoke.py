@@ -14,7 +14,8 @@ port's paths:
   ``Count`` over a set field of 954 shards (1,000,341,504 columns) with two
   rows at 5% density, imported from seeded random positions; filtered
   ``TopN`` over a 10M-column field of 1,536 dense rows, which streams
-  through three 512-row tiles per shard;
+  through three 512-row tiles per shard (all shards' tiles counted in one
+  ``pair_count_batched`` launch per pass);
 - BSI path, in process: bench.py's config 3 at the same 1B columns: an int
   field in [-100000, 100000) on 2% of the columns and a filter row of 5M
   bits, asked ``Sum``/``Min``/``Max`` (with and without filters, one of
@@ -41,7 +42,22 @@ port's paths:
   ``Store`` then ``ClearRow``, and on the TopN index ``SetRowAttrs`` and
   TopN with ``attrName`` and with ``tanimotoThreshold``, in process and
   over HTTP; then a repeated Count that the result cache answers with no
-  launch, and that misses after a ``Set``.
+  launch, and that misses after a ``Set``;
+- async path: on the same index (16 more rows of random words, and a row
+  of 1,000 bits in each shard) ``Executor.execute_async`` keeps 200
+  futures in flight from one thread (2- and 3-leaf Counts, ``Sum(Row(f=1))``
+  and ``Min`` on the BSI index); with the coalescer held, 8 threads asking
+  one Count make ONE ``pair_count`` launch, 8 different 2-leaf Counts ONE
+  ``pair_count_batched``, 8 bare Counts ONE ``row_counts_batched`` and 8
+  3-leaf Counts ONE ``tree_count_batched``; a planner whose budget holds 3
+  of 6 stacks cycles Counts with the prefetcher on and no synchronous
+  upload; the sparse row's cold Count is ONE ``assemble_stack`` launch,
+  beside a cold dense row's bytes and time.
+
+The HTTP phase runs its 1 and 8 concurrent clients with dispatch
+coalescing off (launches equal to the serial sum) and on ``auto`` (at most
+that), profiles the 8 clients under ``auto`` (device busy share, top host
+ops), and reads ``GET /debug/device``.
 
 Every answer is held against a numpy oracle, and each path's kernel launch
 counters are zeroed before it and must show its kernels launched. Timed
@@ -61,6 +77,7 @@ CPU rehearsal at a small size (plain kernel versions, no launch counts)::
     for p in (c.phase_main_path, c.phase_bsi, c.phase_http, c.phase_persist,
               c.phase_pql):
         p(torch, "cpu", d, runs=2)
+    c.phase_async(torch, "cpu", d, n_futures=40)
     d["node"].close()
 """
 
@@ -156,6 +173,9 @@ HTTP_IMPORT_N = 200_000
 #: concurrent clients and requests per client behind the HTTP edge.
 HTTP_THREADS = 8
 HTTP_PER_THREAD = 25
+#: admission gates (``--qos-max-concurrent``; 0: no gate) the concurrent
+#: mix runs under, 1 and 8 clients each.
+QOS_GATES = (0, 1, 2, 4)
 #: client socket timeout: the first BSI request builds the cube.
 HTTP_TIMEOUT_S = 300
 #: where the persist phase keeps its data dirs (removed at its end).
@@ -257,6 +277,42 @@ def phase_toolchain(torch, card: str) -> dict:
     return {"build_s": secs}
 
 
+def assemble_inputs(rng, s_pad: int, n_dense: int, words: int):
+    """(didx, dmat, ci, cw, cv, s_pad) as the planner's sparse upload lays
+    them out: rows [0, n_dense) dense, every other row at most 2048 random
+    bits as OR-reduced COO words (row 20 two all-ones words, row 21 only
+    bit-31 words), both padded to pow2 buckets aimed at the trash row."""
+    def bucket(n):
+        return 0 if n == 0 else max(8, 1 << (n - 1).bit_length())
+
+    d_pad = bucket(n_dense)
+    dmat = np.zeros((d_pad, words), dtype=np.uint32)
+    dmat[:n_dense] = seeded_words(rng, (n_dense, words))
+    didx = np.full(d_pad, s_pad, dtype=np.int32)
+    didx[:n_dense] = np.arange(n_dense)
+    ci, cw, cv = [], [], []
+    for row in range(n_dense, s_pad):
+        if row == 20:
+            pos = np.concatenate([np.arange(0, 32), np.arange(64, 96)])
+        elif row == 21:
+            pos = np.arange(31, words * 32, 32 * 7)[:2048]
+        else:
+            k = int(rng.integers(1, min(2048, words * 32) + 1))
+            pos = np.sort(rng.choice(words * 32, k, replace=False))
+        w, b = pos >> 5, np.uint32(1) << (pos & 31).astype(np.uint32)
+        starts = np.flatnonzero(np.diff(w, prepend=-1) != 0)
+        ci.append(np.full(len(starts), row, dtype=np.int32))
+        cw.append(w[starts].astype(np.int32))
+        cv.append(np.bitwise_or.reduceat(b, starts))
+    nnz = sum(len(x) for x in ci)
+    n_pad = bucket(nnz)
+    out = [np.full(n_pad, s_pad, dtype=np.int32), np.zeros(n_pad, dtype=np.int32),
+           np.zeros(n_pad, dtype=np.uint32)]
+    for arr, parts in zip(out, (ci, cw, cv)):
+        arr[:nnz] = np.concatenate(parts)
+    return (didx, dmat, *out, s_pad)
+
+
 # -- phase 2: each kernel against its plain version --------------------------
 
 
@@ -327,6 +383,23 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
         errs["shift_left"] = max(errs["shift_left"], err)
         if got.shape != want.shape or err:
             raise AssertionError(f"shift_left {what} n={n}: {err} bits differ")
+
+    def check_batched(name, got, want, what):
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+        errs[name] = max(errs[name], err)
+        if got.shape != want.shape or got.dtype != torch.int32 or err:
+            raise AssertionError(f"{name} {what}: {tuple(got.shape)} vs "
+                                 f"{tuple(want.shape)}, max |err| {err}")
+
+    def check_assemble(args, what):
+        got = kernels.assemble_stack(*args)
+        want = kernels.assemble_stack_plain(*args)
+        torch.cuda.synchronize()
+        err = int(kernels.row_counts_plain(got ^ want).long().sum())
+        errs["assemble_stack"] = max(errs["assemble_stack"], err)
+        if got.shape != want.shape or err:
+            raise AssertionError(f"assemble_stack {what}: {err} bits differ")
 
     def check_rows(a, what):
         got = kernels.row_counts(a)
@@ -438,7 +511,47 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
         check_shift(big_a, n, "[1024, 32768]")
         check_shift(vec[0], n, "[32768]")
         check_shift(off_a[:, 1:], n, "unaligned [5, 4100]")
-    del leaves9
+    # The batched kernels, B = 8 slots of [1024, 32768] operands (slot 5
+    # shares slot 3's b), every op; row counts over the same slots; one tape
+    # over 8 slots' leaf tables: 3 leaves, and the 9-deep tape (cut: its
+    # deep subtrees are written slot by slot by tree_count first); ragged
+    # and unaligned slots take the scalar bodies.
+    batch_a = [big_a, big_b] + [t(seeded_words(rng, (1024, w))) for _ in range(6)]
+    batch_b = [t(seeded_words(rng, (1024, w))) for _ in range(7)]
+    batch_b = batch_b[:5] + [batch_b[3]] + batch_b[5:]
+    for op in ("and", "or", "xor", "andnot"):
+        check_batched("pair_count_batched", kernels.pair_count_batched(batch_a, batch_b, op),
+                      kernels.pair_count_batched_plain(batch_a, batch_b, op),
+                      f"8 x [1024, 32768] op={op}")
+    check_batched("row_counts_batched", kernels.row_counts_batched(batch_a),
+                  kernels.row_counts_batched_plain(batch_a), "8 x [1024, 32768]")
+    tables3 = [[batch_a[z], batch_b[z], batch_a[(z + 1) % 8]] for z in range(8)]
+    tables9 = [[batch_a[z]] + batch_b[:8] for z in range(8)]
+    tape3, tape9 = [0, 1, "and", 2, "and"], tapes["9 deep (cut)"]
+    for tables, tape, what in ((tables3, tape3, "3 leaves"), (tables9, tape9, "9 deep (cut)")):
+        check_batched("tree_count_batched", kernels.tree_count_batched(tables, tape),
+                      kernels.tree_count_batched_plain(tables, tape),
+                      f"8 x [1024, 32768] ({what})")
+    rag = [t(seeded_words(rng, (7, 6243))) for _ in range(3)]
+    check_batched("pair_count_batched", kernels.pair_count_batched(rag, rag[::-1], "xor"),
+                  kernels.pair_count_batched_plain(rag, rag[::-1], "xor"), "3 x [7, 6243]")
+    check_batched("row_counts_batched", kernels.row_counts_batched([off_a[:, 1:]] * 2),
+                  kernels.row_counts_batched_plain([off_a[:, 1:]] * 2), "unaligned")
+    check_batched("tree_count_batched",
+                  kernels.tree_count_batched([rag, rag[::-1]], [0, 1, "andnot", 2, "or"]),
+                  kernels.tree_count_batched_plain([rag, rag[::-1]], [0, 1, "andnot", 2, "or"]),
+                  "2 x 3 x [7, 6243]")
+    # assemble_stack at 1024 shards: 16 dense rows, every other shard at
+    # most 2048 bits as COO words (all-ones words in shard 20, bit-31-only
+    # words in shard 21), pow2 padding aimed at the trash row.
+    asm = assemble_inputs(rng, 1024, 16, w)
+    asm_args = tuple(t(x) if x.dtype == np.uint32 else torch.from_numpy(x).to(dev)
+                     for x in asm[:5]) + (asm[5],)
+    check_assemble(asm_args, f"[1024, 32768], {asm[2].shape[0]} COO words")
+    small = assemble_inputs(rng, 5, 2, 6243)
+    check_assemble(tuple(t(x) if x.dtype == np.uint32 else torch.from_numpy(x).to(dev)
+                         for x in small[:5]) + (small[5],), "[5, 6243] (scalar)")
+    del leaves9, tables9
     log(f"kernel checks: exact on every op and shape; max |err| {errs}")
 
     # Times at the shapes of the paths: the 2-leaf and bare-leaf Count
@@ -490,7 +603,42 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
          lambda: kernels.shift_left(big_a, 33),
          lambda: kernels.shift_left_plain(big_a, 33),
          2 * plane, 3 * rows * w),
+        # each distinct operand read once: 8 a's and 7 b's (one shared)
+        ("pair_count_batched", "8 x [1024, 32768] x [1024, 32768], one b shared",
+         lambda: kernels.pair_count_batched(batch_a, batch_b, "and"),
+         lambda: kernels.pair_count_batched_plain(batch_a, batch_b, "and"),
+         15 * plane + 8 * rows * 4, OPS_PER_WORD * 8 * rows * w),
+        # a TopN pass at 10M columns: 10 shards' 3 tiles of 512 rows, each
+        # against its shard's filter row, in one launch
+        ("pair_count_batched", "30 x [512, 32768] x [32768] (a TopN pass's tiles)",
+         lambda: kernels.pair_count_batched(topn_tiles, topn_filts, "and"),
+         lambda: kernels.pair_count_batched_plain(topn_tiles, topn_filts, "and"),
+         30 * 512 * w * 4 + 10 * w * 4 + 30 * 512 * 4, OPS_PER_WORD * 30 * 512 * w),
+        ("row_counts_batched", "8 x [1024, 32768]",
+         lambda: kernels.row_counts_batched(batch_a),
+         lambda: kernels.row_counts_batched_plain(batch_a),
+         8 * plane + 8 * rows * 4, 2 * 8 * rows * w),
+        # 8 slots x 3 leaves over 16 distinct planes (a[z], b[z], a[z+1])
+        ("tree_count_batched", "8 x 3 x [1024, 32768] (and, and)",
+         lambda: kernels.tree_count_batched(tables3, tape3),
+         lambda: kernels.tree_count_batched_plain(tables3, tape3),
+         15 * plane + 8 * rows * 4, 4 * 8 * rows * w),
+        # the stack written once, the dense rows and COO words read once
+        ("assemble_stack", f"[1024, 32768], 16 dense rows, {asm[2].shape[0]} COO words",
+         lambda: kernels.assemble_stack(*asm_args),
+         lambda: kernels.assemble_stack_plain(*asm_args),
+         plane + asm[1].nbytes + 12 * asm[2].shape[0] + asm[0].nbytes, 0),
     ]
+    topn_tiles = [t(seeded_words(rng, (512, w))) for _ in range(30)]
+    topn_filts = [filt_stack[i // 3] for i in range(30)]
+    check_batched("pair_count_batched", kernels.pair_count_batched(topn_tiles, topn_filts, "and"),
+                  kernels.pair_count_batched_plain(topn_tiles, topn_filts, "and"),
+                  "30 x [512, 32768] x [32768]")
+    # The library call beside assemble_stack: index_put_ of the COO words
+    # into a zeroed stack, the one PyTorch call that does the same scatter.
+    lib_out = torch.zeros((1025, w), dtype=torch.int32, device=dev)
+    lib_idx = (asm_args[2].long(), asm_args[3].long())
+    library = {"assemble_stack": lambda: lib_out.index_put_(lib_idx, asm_args[4])}
     tree3 = [big_a, big_b, t(seeded_words(rng, (1024, w)))]
     # The path the 3-leaf Count took before tree_count: two elementwise
     # torch ops writing 128 MiB planes, then row_counts.
@@ -503,10 +651,12 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
         ms = time_cuda_ms(torch, fn, KERNEL_RUNS)
         plain = time_cuda_ms(torch, plain_fn, 5)
         bound, by = bound_ms(nbytes, ops)
+        lib = time_cuda_ms(torch, library[name], KERNEL_RUNS) if name in library else None
+        lib_text = f"; library {lib:.4f} ms" if lib is not None else ""
         log(f"kernel {name} {shape}: {ms:.4f} ms, bound {bound:.4f} ms ({by}), "
-            f"{bound / ms:.1%} of bound; plain {plain:.4f} ms  [{card}]")
-        timings.setdefault(name, (ms, plain, bound, by))
-    del cube, cube40, tree3
+            f"{bound / ms:.1%} of bound; plain {plain:.4f} ms{lib_text}  [{card}]")
+        timings.setdefault(name, (ms, plain, bound, by, lib))
+    del cube, cube40, tree3, batch_a, batch_b, tables3, lib_out, topn_tiles
     log(f"kernels: {json.dumps(sorted(errs))}")
     return {"timings": timings, "errs": errs, "torch_3leaf_ms": torch_ms}
 
@@ -698,7 +848,12 @@ def phase_data(torch, card: str, data: dict, device: str = "cuda",
     from pilosa_tpu_torch.server import ServerNode
 
     t0 = time.perf_counter()
-    node = data["node"] = ServerNode(bind="127.0.0.1:0", device=device)
+    from pilosa_tpu_torch.ops import build
+
+    # build/kernels/ as the node's kernel build cache, before any node with
+    # a data dir could move it into its own dir.
+    node = data["node"] = ServerNode(bind="127.0.0.1:0", device=device,
+                                     compile_cache_dir=str(build.BUILD_DIR))
     node.open()
     data["device"] = device
     h = data["holder"] = node.holder
@@ -1018,14 +1173,10 @@ def http_import_check(conn, data: dict, card: str) -> None:
         f"equal to numpy  [{card}]")
 
 
-def run_clients(port: int, mix: list, launches_of: dict, clients: int,
-                per_client: int):
+def client_load(port: int, mix: list, clients: int, per_client: int):
     """``clients`` threads, each sending ``per_client`` requests of ``mix``
-    ((index, PQL, expected body)) in turn on its own connection. Returns
-    (latencies ms, wall s, launches counted, launches expected); raises
-    if any answer differs from its expected body."""
-    from pilosa_tpu_torch.ops import kernels
-
+    ((index, PQL, expected body bytes)) in turn on its own keep-alive
+    connection: (latencies ms, wall s, wrong answers)."""
     lat, errors = [], []
     lock = threading.Lock()
 
@@ -1040,12 +1191,45 @@ def run_clients(port: int, mix: list, launches_of: dict, clients: int,
                 with lock:
                     lat.append(ms)
                     if status != 200 or body != want_body:
-                        errors.append((q, status, body[:200]))
-        except Exception as e:  # reported below, as a failed answer
+                        errors.append((q, status, body[:200].decode(errors="replace")))
+        except Exception as e:  # reported by the caller, as a failed answer
             with lock:
                 errors.append(("client", k, repr(e)))
         finally:
             c.close()
+
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return lat, time.perf_counter() - t0, errors
+
+
+def clients_main() -> int:
+    """``chip_smoke.py --clients``: the client load of ``run_clients`` in a
+    process of its own (a JSON spec on stdin, one JSON line of results on
+    stdout), so the clients' HTTP work does not take the server's
+    interpreter lock."""
+    spec = json.loads(sys.stdin.read())
+    mix = [(i, q, body.encode()) for i, q, body in spec["mix"]]
+    lat, wall, errors = client_load(spec["port"], mix, spec["clients"],
+                                    spec["per_client"])
+    print(json.dumps({"lat": lat, "wall": wall, "errors": errors[:3],
+                      "n_errors": len(errors)}))
+    return 0
+
+
+def run_clients(port: int, mix: list, launches_of: dict, clients: int,
+                per_client: int, in_process: bool = False):
+    """``clients`` clients, each sending ``per_client`` requests of ``mix``
+    ((index, PQL, expected body)) in turn on its own connection, from a
+    process of their own (``clients_main``) or, with ``in_process``, from
+    threads of this one, which share the server's interpreter lock. Returns
+    (latencies ms, wall s, launches counted, launches expected); raises if
+    any answer differs from its expected body."""
+    from pilosa_tpu_torch.ops import kernels
 
     want = dict.fromkeys(kernels.LAUNCHES, 0)
     for k in range(clients):
@@ -1053,17 +1237,51 @@ def run_clients(port: int, mix: list, launches_of: dict, clients: int,
             for kern, v in launches_of[mix[(k + i) % len(mix)][1]].items():
                 want[kern] += v
     kernels.reset_launches()
-    threads = [threading.Thread(target=client, args=(k,)) for k in range(clients)]
-    t0 = time.perf_counter()
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    wall = time.perf_counter() - t0
-    if errors:
-        raise AssertionError(f"{len(errors)} of {clients} clients' answers wrong: "
+    if in_process:
+        lat, wall, errors = client_load(port, mix, clients, per_client)
+        n_errors = len(errors)
+    else:
+        spec = {"port": port, "clients": clients, "per_client": per_client,
+                "mix": [(i, q, body.decode()) for i, q, body in mix]}
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--clients"],
+                              input=json.dumps(spec), capture_output=True, text=True,
+                              timeout=HTTP_TIMEOUT_S * 2)
+        if proc.returncode != 0:
+            raise AssertionError(f"client process failed: {proc.stderr[-2000:]}")
+        out = json.loads(proc.stdout.strip().splitlines()[-1])
+        lat, wall, errors, n_errors = out["lat"], out["wall"], out["errors"], out["n_errors"]
+    if n_errors:
+        raise AssertionError(f"{n_errors} answers of {clients} clients wrong: "
                              f"{errors[:3]}")
     return lat, wall, dict(kernels.LAUNCHES), want
+
+
+#: the request-thread stack sampler's period.
+STACK_SAMPLE_S = 0.002
+
+
+def sample_stacks(stop: threading.Event, counts: dict) -> None:
+    """Until ``stop``: every STACK_SAMPLE_S, for each thread serving an HTTP
+    request (its stack holds the port's ``server/httpd.py``), count the
+    innermost frame in the port's package as ``file:function`` -- where
+    the request threads are, running or waiting for the interpreter lock
+    at that line."""
+    me = threading.get_ident()
+    while not stop.wait(STACK_SAMPLE_S):
+        for tid, frame in sys._current_frames().items():
+            if tid == me:
+                continue
+            inner, serving, f = None, False, frame
+            while f is not None:
+                name = f.f_code.co_filename
+                if "pilosa_tpu_torch" in name:
+                    if inner is None:
+                        inner = f"{Path(name).parent.name}/{Path(name).name}:{f.f_code.co_name}"
+                    if name.endswith("httpd.py"):
+                        serving = True
+                f = f.f_back
+            if serving:
+                counts[inner] = counts.get(inner, 0) + 1
 
 
 def phase_http(torch, card: str, data: dict, runs: int = QUERY_RUNS,
@@ -1157,22 +1375,116 @@ def phase_http(torch, card: str, data: dict, runs: int = QUERY_RUNS,
     log(f"/metrics: {line}")
 
     # Clients each on their own keep-alive connection, mixing three
-    # queries; every answer must be the serial one, and the launches the
-    # serial ones summed. One client first, as the serial baseline.
+    # queries; every answer must be the serial one. With dispatch
+    # coalescing off the launches are the serial ones summed; under
+    # "auto" (the node's default) concurrent same-plan queries share a
+    # launch, so at most that many. One client first, as the baseline.
+    from pilosa_tpu_torch.parallel import coalesce
     mix = [(i, q, (json.dumps({"results": [w]}) + "\n").encode())
            for i, name, q, w in queries if name in ("count_intersect", "topn", "sum_filtered")]
     launches_of = {q: per_query[name] for _, name, q, _ in queries}
+    concurrent = {}
+    try:
+        for mode in ("off", "auto"):
+            coalesce.set_mode(mode)
+            for clients in (1, n_threads):
+                lat, wall, got_launches, want_launches = run_clients(
+                    node.port, mix, launches_of, clients, per_thread)
+                got_n, want_n = sum(got_launches.values()), sum(want_launches.values())
+                if mode == "off" and got_launches != want_launches:
+                    raise AssertionError(f"{clients} clients, coalesce off, launched "
+                                         f"{got_launches}, serial sum {want_launches}")
+                if got_n > want_n:
+                    raise AssertionError(f"{clients} clients, coalesce {mode}, "
+                                         f"launched {got_n} > serial sum {want_n}")
+                p99 = statistics.quantiles(lat, n=100)[98]
+                qps = len(lat) / wall
+                concurrent[(mode, clients)] = qps
+                log(f"concurrent: coalesce {mode}, {clients} client(s) x {per_thread} "
+                    f"requests (Count(Intersect), filtered TopN, Sum(Row(f=1))), all "
+                    f"{len(lat)} answers correct; {qps:.3f} queries/s, p50 "
+                    f"{statistics.median(lat):.4f} ms, p99 {p99:.4f} ms; launches "
+                    f"{got_n} (serial sum {want_n}): {got_launches}  [{card}]")
+    finally:
+        coalesce.set_mode("auto")
+    ratio = concurrent[("auto", n_threads)] / concurrent[("auto", 1)]
+    log(f"concurrent: {n_threads} clients / 1 client under auto = {ratio:.3f} (clients "
+        f"in a process of their own)  [{card}]")
+    # The same two runs with the clients as threads of this process, as
+    # earlier runs measured them: their HTTP work then takes the server's
+    # interpreter lock too.
+    inproc = []
     for clients in (1, n_threads):
-        lat, wall, got_launches, want_launches = run_clients(
-            node.port, mix, launches_of, clients, per_thread)
-        if got_launches != want_launches:
-            raise AssertionError(f"{clients} clients launched {got_launches}, "
-                                 f"serial sum {want_launches}")
-        p99 = statistics.quantiles(lat, n=100)[98]
-        log(f"concurrent: {clients} client(s) x {per_thread} requests "
-            f"(Count(Intersect), filtered TopN, Sum(Row(f=1))), all {len(lat)} answers "
-            f"correct; {len(lat) / wall:.3f} queries/s, p50 {statistics.median(lat):.4f} "
-            f"ms, p99 {p99:.4f} ms; launches {got_launches} = serial sum  [{card}]")
+        lat, wall, _, _ = run_clients(node.port, mix, launches_of, clients, per_thread,
+                                      in_process=True)
+        inproc.append(len(lat) / wall)
+    log(f"concurrent, clients in the server's process: 1 client {inproc[0]:.3f} "
+        f"queries/s, {n_threads} clients {inproc[1]:.3f} queries/s "
+        f"({inproc[1] / inproc[0]:.3f}x)  [{card}]")
+    # What holds the concurrent rate: each query of the mix alone under 1
+    # and 8 clients, then the mix under 8 clients with the device profiled
+    # (its busy share of the wall) and the request threads' stacks sampled.
+    for one in mix:
+        rates = []
+        for clients in (1, n_threads):
+            lat, wall, _, _ = run_clients(node.port, [one], launches_of, clients, per_thread)
+            rates.append(len(lat) / wall)
+        log(f"alone: {one[1]}: 1 client {rates[0]:.3f} queries/s, {n_threads} clients "
+            f"{rates[1]:.3f} queries/s ({rates[1] / rates[0]:.3f}x)  [{card}]")
+    # The admission gate as a bound on in-flight queries: the mix under 1
+    # and 8 clients at each gate, set between runs (nothing in flight).
+    gate0 = node.qos.max_concurrent
+    try:
+        for gate in QOS_GATES:
+            node.qos.max_concurrent = gate
+            rates, p99s = [], []
+            for clients in (1, n_threads):
+                lat, wall, _, _ = run_clients(node.port, mix, launches_of, clients,
+                                              per_thread)
+                rates.append(len(lat) / wall)
+                p99s.append(statistics.quantiles(lat, n=100)[98])
+            log(f"admission gate {gate}: 1 client {rates[0]:.3f} queries/s (p99 "
+                f"{p99s[0]:.4f} ms), {n_threads} clients {rates[1]:.3f} queries/s (p99 "
+                f"{p99s[1]:.4f} ms), {rates[1] / rates[0]:.3f}x  [{card}]")
+    finally:
+        node.qos.max_concurrent = gate0
+    stacks, stop = {}, threading.Event()
+    sampler = threading.Thread(target=sample_stacks, args=(stop, stacks), daemon=True)
+    sampler.start()
+    try:
+        if device == "cuda":
+            from torch.autograd import DeviceType
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                lat, wall, _, _ = run_clients(node.port, mix, launches_of, n_threads,
+                                              per_thread)
+            busy = sum(e.device_time_total for e in prof.events()
+                       if e.device_type == DeviceType.CUDA) / 1e3
+            top = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total,
+                         reverse=True)[:6]
+            log(f"profile: {n_threads} clients under auto, {len(lat)} requests: device "
+                f"busy {busy:.3f} ms of {wall * 1e3:.3f} ms wall "
+                f"({busy / (wall * 1e3):.1%}); CUDA runtime calls by self time: "
+                f"{[(e.key, round(e.self_cpu_time_total / 1e3, 3), e.count) for e in top]}"
+                f"  [{card}]")
+        else:
+            run_clients(node.port, mix, launches_of, n_threads, per_thread)
+    finally:
+        stop.set()
+        sampler.join()
+    total = sum(stacks.values()) or 1
+    top = sorted(stacks.items(), key=lambda kv: -kv[1])[:12]
+    log(f"request threads under {n_threads} clients, by innermost port function "
+        f"({total} samples every {STACK_SAMPLE_S * 1e3:g} ms): "
+        f"{[(k, f'{v / total:.1%}') for k, v in top]}  [{card}]")
+    status, body = request(conn, "GET", "/debug/device")
+    if status != 200:
+        raise AssertionError(f"GET /debug/device: HTTP {status} {body[:200]!r}")
+    dev_doc = json.loads(body)
+    log(f"GET /debug/device: 200, dispatches {dev_doc['dispatches']}, coalesced "
+        f"{dev_doc['dispatches_coalesced']}, transfer {dev_doc['transfer']['queue_depth']} "
+        f"queued / {dev_doc['transfer']['inline_resolved']} inline, prefetch "
+        f"{json.dumps({k: dev_doc['prefetch'][k] for k in ('scheduled', 'hits', 'sync_misses')})}")
 
     conn.close()
     conn = http_client(node.port)  # the serial one may have idled out
@@ -1358,10 +1670,15 @@ def persist_topn_shard(node_a, root: Path, card: str) -> None:
 def cli_node(data_dir: Path, device: str):
     """``python -m pilosa_tpu_torch.cli server --data-dir`` on a free port;
     returns (process, port) once it serves."""
+    from pilosa_tpu_torch.ops import build
+
     env = {k: v for k, v in os.environ.items() if not k.startswith("PILOSA_TPU_")}
+    # The kernels this script built serve as its build cache: the node's
+    # warmup loads them instead of running nvcc again.
     proc = subprocess.Popen(
         [sys.executable, "-m", "pilosa_tpu_torch.cli", "server", "--bind",
-         "127.0.0.1:0", "--data-dir", str(data_dir), "--device", device],
+         "127.0.0.1:0", "--data-dir", str(data_dir), "--device", device,
+         "--compile-cache-dir", str(build.BUILD_DIR)],
         cwd=Path(__file__).resolve().parent, env=env, stderr=subprocess.PIPE, text=True)
     seen = []
     for line in proc.stderr:  # boot logs (quarantine notes) come first
@@ -1770,6 +2087,246 @@ def phase_pql(torch, card: str, data: dict, runs: int = QUERY_RUNS) -> dict:
 # -- main ---------------------------------------------------------------------
 
 
+# -- phase 9: the async path: execute_async, same-plan waves, prefetch,
+# the sparse upload ---------------------------------------------------------
+
+#: rows 10.. of f and g written for the waves: one pair per thread.
+ASYNC_ROWS = 8
+ASYNC_FUTURES = 200
+#: the sparse row: at most SPARSE_UPLOAD_MAX_BITS (2048) bits in each shard.
+ASYNC_SPARSE_ROW = 30
+ASYNC_SPARSE_BITS = 1000
+ASYNC_KERNELS = ("pair_count", "row_counts", "tree_count", "pair_count_batched",
+                 "row_counts_batched", "tree_count_batched", "assemble_stack")
+
+
+def wave(co, kernels, n: int, fn) -> tuple[dict, list, float]:
+    """``n`` threads each run ``fn(k)`` while the coalescer is held, so all
+    of them join one batch; returns (launches of the wave, answers, wall
+    ms from the release to the last answer). The launches count the
+    planner's program dispatches too, as ``"dispatches"``: 1 for a wave
+    that ran as one program (off the card, where no kernel counts)."""
+    planner = co.planner
+    co.hold()
+    out, errors = [None] * n, []
+
+    def run(k):
+        try:
+            out[k] = fn(k)
+        except Exception as e:  # reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=run, args=(k,)) for k in range(n)]
+    try:
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + 60
+        while co.queue_depth() < n and time.monotonic() < deadline and not errors:
+            time.sleep(0.001)
+        depth = co.queue_depth()
+        before, d0 = dict(kernels.LAUNCHES), planner.dispatches
+        t0 = time.perf_counter()
+    finally:
+        co.release()
+    for t in threads:
+        t.join()
+    ms = (time.perf_counter() - t0) * 1e3
+    if errors or depth != n:
+        raise AssertionError(f"wave of {n}: {depth} queued, errors {errors[:3]}")
+    got = {k: kernels.LAUNCHES[k] - before[k] for k in before if kernels.LAUNCHES[k] != before[k]}
+    return got, planner.dispatches - d0, out, ms
+
+
+def phase_async(torch, card: str, data: dict, n_futures: int = ASYNC_FUTURES) -> dict:
+    """The async serving path at 1B columns, in process: ``execute_async``
+    keeping ``n_futures`` queries in flight from one thread (2- and 3-leaf
+    Counts, ``Sum(Row(f=1))``, ``Min``); a held wave of 8 identical Counts
+    (one ``pair_count``); same-shape waves of 8 different 2-leaf Counts
+    (one ``pair_count_batched``), bare Counts (one ``row_counts_batched``)
+    and 3-leaf Counts (one ``tree_count_batched``); a planner whose budget
+    holds 3 of 6 stacks cycling Counts with the prefetcher on (no sync
+    miss); and a cold row of at most 2048 bits per shard (one
+    ``assemble_stack``) beside a cold dense row. Set-up: rows 10..17 of f
+    and g (random words) and the sparse row f=30."""
+    from pilosa_tpu_torch.config import WORDS_PER_SHARD
+    from pilosa_tpu_torch.exec import Executor, residency
+    from pilosa_tpu_torch.ops import kernels
+    from pilosa_tpu_torch.parallel import Planner, coalesce, prefetch
+
+    device, h = data["device"], data["holder"]
+    n_shards, n_cols = data["count_shards"], data["count_cols"]
+    rng = np.random.default_rng(SEED + 5)
+    t0 = time.perf_counter()
+    words = {}
+    for field in ("f", "g"):
+        for r in range(10, 10 + ASYNC_ROWS):
+            w = rng.integers(0, 2**32, size=(n_shards, WORDS_PER_SHARD), dtype=np.uint32)
+            w &= rng.integers(0, 2**32, size=w.shape, dtype=np.uint32)  # ~25% set
+            for s in range(n_shards):
+                h.fragment("bench", field, "standard", s).set_row_words(r, w[s])
+            words[(field, r)] = w
+    sparse_pos = np.concatenate([
+        np.sort(rng.choice(WORDS_PER_SHARD * 32, ASYNC_SPARSE_BITS, replace=False))
+        + s * WORDS_PER_SHARD * 32 for s in range(n_shards)]).astype(np.uint64)
+    h.field("bench", "f").import_bits(np.full(len(sparse_pos), ASYNC_SPARSE_ROW,
+                                              dtype=np.uint64), sparse_pos)
+    del sparse_pos
+    log(f"async set-up: {2 * ASYNC_ROWS} rows of random words and a sparse row of "
+        f"{ASYNC_SPARSE_BITS} bits per shard over {n_shards} shards in "
+        f"{time.perf_counter() - t0:.3f} s (host)")
+
+    def f(r):
+        return 10 + r % ASYNC_ROWS
+
+    two = {f"Count(Intersect(Row(f={f(i)}), Row(g={f(i)})))":
+           int(popcount_rows(words[("f", f(i))] & words[("g", f(i))]).sum())
+           for i in range(ASYNC_ROWS)}
+    three = {f"Count(Union(Intersect(Row(f={f(i)}), Row(g={f(i)})), Row(f={f(i + 1)})))":
+             int(popcount_rows((words[("f", f(i))] & words[("g", f(i))])
+                               | words[("f", f(i + 1))]).sum())
+             for i in range(ASYNC_ROWS)}
+    bare = {f"Count(Row(f={f(i)}))": int(popcount_rows(words[("f", f(i))]).sum())
+            for i in range(ASYNC_ROWS)}
+    #: the 2-leaf Counts over shards 0 and 1 only.
+    two_sub = {q: int(popcount_rows(words[("f", f(i))][:2] & words[("g", f(i))][:2]).sum())
+               for i, q in enumerate(two)}
+    del words
+    want_bsi = data["want_bsi"]
+    mix = ([("bench", q, [v]) for q, v in list(two.items()) + list(three.items())[:4]]
+           + [("bsi", BSI_QUERIES["sum_filtered"], want_bsi["sum_filtered"]),
+              ("bsi", BSI_QUERIES["min"], want_bsi["min"])])
+
+    def check(q, got, want):
+        if isinstance(want, dict):
+            got = {"value": got[0].val, "count": got[0].count}
+        if got != want:
+            raise AssertionError(f"{q}: got {got}, numpy oracle {want}")
+
+    ex = Executor(h, planner=Planner(h, max_cache_bytes=12 << 30), result_cache=False)
+    co = ex.planner.coalescer
+    # The async path's run: counters at 0 just before, read just after.
+    kernels.reset_launches()
+    try:
+        for index, q, want in mix:  # warm: stacks built, answers held
+            check(q, ex.execute(index, q, cache=False), want)
+        t0 = time.perf_counter()
+        futs = [(mix[i % len(mix)], ex.execute_async(mix[i % len(mix)][0],
+                                                     mix[i % len(mix)][1], cache=False))
+                for i in range(n_futures)]
+        submit_ms = (time.perf_counter() - t0) * 1e3
+        for (index, q, want), fut in futs:
+            check(q, fut.result(), want)
+        wall = time.perf_counter() - t0
+        log(f"execute_async: {n_futures} futures from one thread ({len(mix)} queries: "
+            f"2- and 3-leaf Counts, Sum(Row(f=1)), Min), all equal to numpy; "
+            f"submitted in {submit_ms:.3f} ms, all resolved in {wall * 1e3:.3f} ms, "
+            f"{n_futures / wall:.3f} queries/s; planner dispatches "
+            f"{ex.planner.dispatches}, coalesced {ex.planner.dispatches_coalesced}  [{card}]")
+
+        waves = (("2-leaf", two, "pair_count_batched"), ("bare", bare, "row_counts_batched"),
+                 ("3-leaf", three, "tree_count_batched"))
+        serial_ms = {name: p50_ms(lambda qs=list(table): [ex.execute("bench", q, cache=False)
+                                                          for q in qs], 3)[0]
+                     for name, table, _ in waves}
+        coalesce.set_mode("on")
+        q2 = next(iter(two))
+        card_launches = {} if device != "cuda" else None
+        got, dispatched, answers, ms = wave(
+            co, kernels, 8, lambda k: ex.execute("bench", q2, cache=False))
+        if (answers != [[two[q2]]] * 8 or dispatched != 1
+                or got != (card_launches if card_launches is not None else {"pair_count": 1})):
+            raise AssertionError(f"identical wave: launches {got}, {dispatched} "
+                                 f"dispatches, answers {answers}")
+        log(f"identical-argument wave: 8 x {q2} -> launches {got} (one pair_count), "
+            f"{ms:.3f} ms, every answer exact  [{card}]")
+        for name, table, kern in waves:
+            qs = list(table)
+            got, dispatched, answers, ms = wave(
+                co, kernels, 8, lambda k, qs=qs: ex.execute("bench", qs[k], cache=False))
+            if (answers != [[table[q]] for q in qs] or dispatched != 1
+                    or got != (card_launches if card_launches is not None else {kern: 1})):
+                raise AssertionError(f"same-shape {name} wave: launches {got}, "
+                                     f"{dispatched} dispatches, answers {answers}")
+            log(f"same-shape {name} wave: 8 different Counts -> launches {got} (one "
+                f"{kern}), {ms:.3f} ms from release to the last answer; the 8 one after "
+                f"another {serial_ms[name]:.3f} ms; every answer exact  [{card}]")
+        # One plan over two shard sets in one held wave: its leaves have two
+        # shapes, so it runs as one batched launch per shape.
+        qs = list(two)[:4]
+        mixed = qs + [f"Options({q}, shards=[0, 1])" for q in qs]
+        want_mixed = [[two[q]] for q in qs] + [[two_sub[q]] for q in qs]
+        got, dispatched, answers, ms = wave(
+            co, kernels, 8, lambda k: ex.execute("bench", mixed[k], cache=False))
+        if (answers != want_mixed or dispatched != 2 or got != (
+                card_launches if card_launches is not None else {"pair_count_batched": 2})):
+            raise AssertionError(f"mixed shard-set wave: launches {got}, {dispatched} "
+                                 f"dispatches, answers {answers}, numpy {want_mixed}")
+        log(f"mixed shard-set wave: 4 2-leaf Counts over {n_shards} shards and 4 over "
+            f"shards 0-1 -> launches {got} (one pair_count_batched per shape), "
+            f"{ms:.3f} ms; every answer exact  [{card}]")
+    finally:
+        coalesce.set_mode("auto")
+        ex.planner.close()
+    del ex
+
+    # Prefetch: the budget holds 3 of the 6 stacks the queries cycle through.
+    prefetch.set_mode("on")
+    planner = Planner(h)
+    planner.max_cache_bytes = 3 * residency.dense_nbytes(planner._pad(n_shards))
+    pex = Executor(h, planner=planner, result_cache=False)
+    try:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            for i in range(6):
+                q = f"Count(Row(f={f(i)}))"
+                (got,) = pex.execute("bench", q, cache=False)
+                if got != bare[q]:
+                    raise AssertionError(f"prefetch drill {q}: {got}, numpy {bare[q]}")
+        dbg = planner.prefetcher.debug()
+        ev = planner.cache_stats()["evictions"]
+        if dbg["sync_misses"] != 0 or not ev or not dbg["hits"]:
+            raise AssertionError(f"prefetch drill: {dbg}, evictions {ev}")
+        log(f"prefetch drill: 12 Counts over 6 stacks through a 3-stack budget, all exact; "
+            f"evictions {ev}, scheduled {dbg['scheduled']}, hits {dbg['hits']}, sync "
+            f"misses {dbg['sync_misses']}, upload {dbg['upload_ms']:.3f} ms, overlap "
+            f"{dbg['overlap_ms']:.3f} ms, {time.perf_counter() - t0:.3f} s  [{card}]")
+    finally:
+        planner.close()
+    del pex, planner
+
+    # The sparse upload, cold, beside a cold dense row.
+    cold = {}
+    for row, want in ((ASYNC_SPARSE_ROW, n_shards * ASYNC_SPARSE_BITS),
+                      (1, data["want_count"]["count_row"])):
+        planner = Planner(h)
+        cex = Executor(h, planner=planner, result_cache=False)
+        try:
+            before = dict(kernels.LAUNCHES)
+            t0 = time.perf_counter()
+            (got,) = cex.execute("bench", f"Count(Row(f={row}))", cache=False)
+            ms = (time.perf_counter() - t0) * 1e3
+            delta = {k: kernels.LAUNCHES[k] - before[k] for k in before if
+                     kernels.LAUNCHES[k] != before[k]}
+            cold[row] = (ms, planner.h2d_bytes, delta)
+            if got != want:
+                raise AssertionError(f"cold Count(Row(f={row})): {got}, numpy {want}")
+        finally:
+            planner.close()
+    ms, nbytes, delta = cold[ASYNC_SPARSE_ROW]
+    if device == "cuda" and delta != {"assemble_stack": 1, "row_counts": 1}:
+        raise AssertionError(f"cold sparse row launched {delta}")
+    log(f"sparse upload: cold Count(Row(f={ASYNC_SPARSE_ROW})) ({ASYNC_SPARSE_BITS} bits "
+        f"per shard) {ms:.3f} ms, {nbytes} bytes host to device, launches {delta}; "
+        f"cold dense Count(Row(f=1)) {cold[1][0]:.3f} ms, {cold[1][1]} bytes  [{card}]")
+    launches = dict(kernels.LAUNCHES)
+    log(f"async path launches: {launches}")
+    if device == "cuda":
+        for k in ASYNC_KERNELS:
+            if launches[k] < 1:
+                raise AssertionError(f"kernel {k} was not launched on the async path")
+    return {"launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -1791,7 +2348,8 @@ def main() -> int:
               ("bsi", lambda: phase_bsi(torch, card, data)),
               ("http", lambda: phase_http(torch, card, data)),
               ("persist", lambda: phase_persist(torch, card, data)),
-              ("pql", lambda: phase_pql(torch, card, data)))
+              ("pql", lambda: phase_pql(torch, card, data)),
+              ("async", lambda: phase_async(torch, card, data)))
     try:
         for name, phase in phases:
             log(f"== phase {name}")
@@ -1815,14 +2373,21 @@ def main() -> int:
     timings = results["kernels"]["timings"]
     errs = results["kernels"]["errs"]
     launches = {k: sum(results[p]["launches"][k]
-                       for p in ("main_path", "bsi", "http", "persist", "pql"))
+                       for p in ("main_path", "bsi", "http", "persist", "pql", "async"))
                 for k in errs}
     sources = {"pair_count": "pilosa_tpu_torch/csrc/count_kernels.cu",
                "row_counts": "pilosa_tpu_torch/csrc/count_kernels.cu",
                "bsi_compare": "pilosa_tpu_torch/csrc/bsi_kernels.cu",
                "bsi_minmax": "pilosa_tpu_torch/csrc/bsi_kernels.cu",
                "tree_count": "pilosa_tpu_torch/csrc/tree_kernels.cu",
-               "shift_left": "pilosa_tpu_torch/csrc/tree_kernels.cu"}
+               "shift_left": "pilosa_tpu_torch/csrc/tree_kernels.cu",
+               "pair_count_batched": "pilosa_tpu_torch/csrc/count_kernels.cu",
+               "row_counts_batched": "pilosa_tpu_torch/csrc/count_kernels.cu",
+               "tree_count_batched": "pilosa_tpu_torch/csrc/tree_kernels.cu",
+               "assemble_stack": "pilosa_tpu_torch/csrc/upload_kernels.cu"}
+    vmapped = ("pilosa_tpu/parallel/coalesce.py:312-348 _flush_batched + "
+               "pilosa_tpu/parallel/planner.py:387-396 vmapped (jax.vmap of the "
+               "count program; no pallas_call)")
     replaces = {"pair_count": "pilosa_tpu/ops/pallas_kernels.py:104",
                 "row_counts": "pilosa_tpu/ops/pallas_kernels.py:124",
                 "bsi_compare": "pilosa_tpu/ops/bsi.py:50-79 compare_unsigned + "
@@ -1833,14 +2398,19 @@ def main() -> int:
                               "bitops.count under _compiled(reduce='per_shard') "
                               ":1814-1819 (XLA-fused, no pallas_call)",
                 "shift_left": "pilosa_tpu/ops/bitops.py:167-195 shift_left "
-                              "(XLA-fused, no pallas_call)"}
+                              "(XLA-fused, no pallas_call)",
+                "pair_count_batched": vmapped + " over pair_count",
+                "row_counts_batched": vmapped + " over row_counts",
+                "tree_count_batched": vmapped + " over _eval_node",
+                "assemble_stack": "pilosa_tpu/parallel/planner.py:2046-2057 "
+                                  "_assemble_stack (XLA-fused, no pallas_call)"}
     entries = []
     for name in sources:
-        ms, plain, bound, by = timings[name]
+        ms, plain, bound, by, lib = timings[name]
         entries.append({"name": name, "route": "cuda", "source": sources[name],
                         "replaces": replaces[name], "launches": launches[name],
                         "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
-                        "bound_ms": bound, "bound_by": by, "library_ms": None})
+                        "bound_ms": bound, "bound_by": by, "library_ms": lib})
     log(card)
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {
@@ -1850,4 +2420,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(clients_main() if sys.argv[1:] == ["--clients"] else main())

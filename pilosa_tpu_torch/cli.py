@@ -28,7 +28,6 @@ import threading
 
 from pilosa_tpu_torch.errors import (
     SLICE_BACKUP,
-    SLICE_ASYNC,
     SLICE_CLUSTER,
     SLICE_FIELDS,
     SLICE_KEYS,
@@ -71,6 +70,15 @@ _DEFAULTS = {
     "result_cache_ttl": 0.0,
     # Partial fusion of mixed call trees ("on" | "off" | "auto").
     "dispatch_fuse": "auto",
+    # Same-plan dispatch coalescing ("on" | "off" | "auto") and its window,
+    # inline transfer resolution ("on" | "off" | "auto"), the residency
+    # prefetcher ("on" | "off"), and the kernel build cache ("" resolves
+    # to <data-dir>/compile-cache, "off" disables).
+    "dispatch_coalesce": "auto",
+    "dispatch_coalesce_us": 150.0,
+    "inline_transfer": "auto",
+    "prefetch": "on",
+    "compile_cache_dir": "",
 }
 
 #: server flags (by argparse dest) of features later slices bring, each
@@ -87,9 +95,6 @@ _UNPORTED = {
     "chaos_faults": SLICE_CLUSTER, "trace_endpoint": SLICE_CLUSTER,
     "device_reduce": SLICE_CLUSTER, "multiplex": SLICE_CLUSTER,
     "ingest_max_inflight_mb": SLICE_CLUSTER,
-    "compile_cache_dir": SLICE_ASYNC,
-    "dispatch_coalesce": SLICE_ASYNC, "dispatch_coalesce_us": SLICE_ASYNC,
-    "inline_transfer": SLICE_ASYNC, "prefetch": SLICE_ASYNC,
     "residency_packed": SLICE_FIELDS, "ingest_transpose": SLICE_FIELDS,
     "translate_planes": SLICE_KEYS, "sketch_precision": SLICE_KEYS,
     "sketch_exact_threshold": SLICE_KEYS,
@@ -180,6 +185,16 @@ def cmd_server(args, parser: argparse.ArgumentParser) -> int:
         cfg["result_cache_ttl"] = args.result_cache_ttl
     if args.dispatch_fuse is not None:
         cfg["dispatch_fuse"] = args.dispatch_fuse
+    if args.dispatch_coalesce is not None:
+        cfg["dispatch_coalesce"] = args.dispatch_coalesce
+    if args.dispatch_coalesce_us is not None:
+        cfg["dispatch_coalesce_us"] = args.dispatch_coalesce_us
+    if args.inline_transfer is not None:
+        cfg["inline_transfer"] = args.inline_transfer
+    if args.prefetch is not None:
+        cfg["prefetch"] = args.prefetch
+    if args.compile_cache_dir is not None:
+        cfg["compile_cache_dir"] = args.compile_cache_dir
 
     from pilosa_tpu_torch.server.node import ServerNode
     node = ServerNode(
@@ -210,6 +225,11 @@ def cmd_server(args, parser: argparse.ArgumentParser) -> int:
         result_cache_mb=int(cfg["result_cache_mb"]),
         result_cache_ttl=float(cfg["result_cache_ttl"]),
         dispatch_fuse=str(cfg["dispatch_fuse"]) or "auto",
+        dispatch_coalesce=str(cfg["dispatch_coalesce"]) or "auto",
+        dispatch_coalesce_us=float(cfg["dispatch_coalesce_us"]),
+        inline_transfer=str(cfg["inline_transfer"]) or "auto",
+        prefetch=str(cfg["prefetch"]) or "on",
+        compile_cache_dir=str(cfg["compile_cache_dir"]) or None,
     )
     node.open()
     where = f", data dir {cfg['data_dir']}" if cfg["data_dir"] else ""
@@ -220,7 +240,11 @@ def cmd_server(args, parser: argparse.ArgumentParser) -> int:
     stop = threading.Event()
     signal.signal(signal.SIGTERM, lambda *_: stop.set())
     try:
-        stop.wait()
+        # A timed wait: the OS may deliver SIGTERM to any of the node's
+        # threads, and Python runs the handler only when the main thread
+        # next runs bytecode, which an untimed wait never does.
+        while not stop.wait(0.5):
+            pass
     except KeyboardInterrupt:
         pass
     finally:

@@ -367,6 +367,23 @@ class Fragment:
                 return bitops.np_zero_row()
             return hr.to_words()
 
+    def row_upload(self, row_id: int):
+        """Cheapest faithful host form for a device upload (reference
+        pilosa_tpu/core/fragment.py row_upload :443): ``("dense",
+        uint32[W])`` or ``("sparse", uint64[positions])``, positions sorted
+        and deduped. Sparse rows let the planner ship ~12 B COO words per
+        set word instead of the 128 KiB dense block."""
+        with self._lock:
+            hr = self.rows.get(row_id)
+            if hr is None:
+                return ("sparse", np.empty(0, dtype=np.uint64))
+            if hr.is_dense:
+                return ("dense", hr.dense.copy())
+            hr._flush()
+            if hr.dense is not None:  # flush may densify
+                return ("dense", hr.dense.copy())
+            return ("sparse", hr.positions.copy())
+
     def device_row(self, row_id: int) -> torch.Tensor:
         """Device block for one row, cached until next mutation."""
         with self._lock:
@@ -405,7 +422,8 @@ class Fragment:
 
     def intersection_counts_async(self, row_ids, seg: torch.Tensor,
                                   reuse: bool = False,
-                                  seg_host: np.ndarray | None = None):
+                                  seg_host: np.ndarray | None = None,
+                                  defer: bool = False):
         """Two-tier counts, matching the storage split: returns (counts,
         parts) where ``counts`` already holds the host-tier (sparse)
         results and ``parts`` is [(slot_indices, device_counts), ...] —
@@ -421,21 +439,22 @@ class Fragment:
 
         ``reuse=True`` keeps up to MAX_RESIDENT_TILES streamed tiles
         device-resident (generation-checked). ``seg_host`` is the filter's
-        uint32 host copy when the caller already has one.
+        uint32 host copy when the caller already has one. ``defer=True``
+        launches nothing: ``parts`` is then [(slot_indices, tile, seg),
+        ...], for a caller that counts many fragments' tiles in one
+        batched launch.
 
         The lock spans the whole sweep, so the counts reflect one atomic
         fragment state (the reference's fragment.top holds f.mu for its
-        whole walk, fragment.go:1570)."""
-        ids = [int(r) for r in row_ids]
-        if not ids:
+        whole walk, fragment.go:1570); the tiles it takes are that state's,
+        so their counts launch after it, outside the lock."""
+        ids_arr = np.asarray(row_ids, dtype=np.int64).reshape(-1)
+        if not len(ids_arr):
             return np.empty(0, dtype=np.int64), []
-        out = np.zeros(len(ids), dtype=np.int64)
-        parts: list[tuple[np.ndarray, torch.Tensor]] = []
-        ids_arr = np.asarray(ids, dtype=np.int64)
+        out = np.zeros(len(ids_arr), dtype=np.int64)
+        tiles: list[tuple[np.ndarray, torch.Tensor]] = []
         with self._lock:
-            s_ids, concat, starts, lens = self._sparse_index()
-            dense_ids: list[int] = []
-            dense_slots: list[int] = []
+            s_ids, concat, starts, lens, d_ids = self._sparse_index()
             if len(s_ids):
                 at = np.searchsorted(s_ids, ids_arr)
                 at_c = np.minimum(at, len(s_ids) - 1)
@@ -443,12 +462,14 @@ class Fragment:
             else:
                 at_c = np.zeros(len(ids_arr), dtype=np.int64)
                 is_sparse = np.zeros(len(ids_arr), dtype=bool)
-            for i in np.flatnonzero(~is_sparse).tolist():
-                hr = self.rows.get(ids[i])
-                if hr is not None and hr.is_dense:
-                    dense_ids.append(ids[i])
-                    dense_slots.append(i)
-                # else: absent/empty row, count stays 0
+            # Dense rows by one search of the cached dense ids; an absent or
+            # empty row is neither, and its count stays 0.
+            if len(d_ids):
+                d_at = np.minimum(np.searchsorted(d_ids, ids_arr), len(d_ids) - 1)
+                dense_slots = np.flatnonzero((d_ids[d_at] == ids_arr) & ~is_sparse)
+            else:
+                dense_slots = np.empty(0, dtype=np.int64)
+            dense_ids = ids_arr[dense_slots].tolist()
 
             sparse_slots = np.flatnonzero(is_sparse)
             if len(sparse_slots):
@@ -483,9 +504,8 @@ class Fragment:
 
             if dense_ids:
                 if len(dense_ids) <= STACK_CACHE_MAX_ROWS:
-                    stack = self.device_stack(tuple(dense_ids))
-                    parts.append((np.asarray(dense_slots, dtype=np.int64),
-                                  kernels.pair_count(stack, seg, "and")))
+                    tiles.append((np.asarray(dense_slots, dtype=np.int64),
+                                  self.device_stack(tuple(dense_ids))))
                 else:
                     n_tiles = (len(dense_ids) + ROW_TILE - 1) // ROW_TILE
                     cache_tiles = reuse and n_tiles <= MAX_RESIDENT_TILES
@@ -509,29 +529,37 @@ class Fragment:
                             for i, r in enumerate(chunk):
                                 mat[i] = self.row_words(r)
                             arr = bitops.to_device_words(mat, self.device)
-                        parts.append(
-                            (dense_slots_a[lo:lo + len(chunk)],
-                             kernels.pair_count(arr, seg, "and")))
-        return out, parts
+                        tiles.append((dense_slots_a[lo:lo + len(chunk)], arr))
+        if defer:
+            return out, [(slots, arr, seg) for slots, arr in tiles]
+        return out, [(slots, kernels.pair_count(arr, seg, "and")) for slots, arr in tiles]
 
     def _sparse_index(self):
         """(row_ids, concat_positions, starts, lens) over every non-empty
-        SPARSE row, cached per generation — one build per mutation, then
-        every TopN sweep is pure vectorized numpy. Caller must hold the
-        fragment lock."""
+        SPARSE row, and the sorted ids of the DENSE rows, cached per
+        generation — one build per mutation, then every TopN sweep is pure
+        vectorized numpy. Caller must hold the fragment lock."""
         if self._sparse_cache is not None and \
                 self._sparse_cache[0] == self.generation:
             return self._sparse_cache[1:]
         ids: list[int] = []
+        dense: list[int] = []
         bufs: list[np.ndarray] = []
         for rid in sorted(self.rows):
             hr = self.rows[rid]
-            if hr.is_dense or hr.n == 0:
+            if hr.is_dense:
+                dense.append(rid)
+                continue
+            if hr.n == 0:
                 continue
             hr._flush()
+            if hr.is_dense:  # the flush densified it
+                dense.append(rid)
+                continue
             ids.append(rid)
             bufs.append(hr.positions)  # no copy: generation guards reuse
         ids_a = np.asarray(ids, dtype=np.int64)
+        dense_a = np.asarray(dense, dtype=np.int64)
         lens = np.fromiter((len(b) for b in bufs), dtype=np.int64,
                            count=len(bufs))
         concat = (np.concatenate(bufs) if bufs
@@ -539,8 +567,8 @@ class Fragment:
         starts = np.zeros(len(lens), dtype=np.int64)
         if len(lens) > 1:
             np.cumsum(lens[:-1], out=starts[1:])
-        self._sparse_cache = (self.generation, ids_a, concat, starts, lens)
-        return ids_a, concat, starts, lens
+        self._sparse_cache = (self.generation, ids_a, concat, starts, lens, dense_a)
+        return ids_a, concat, starts, lens, dense_a
 
     def row_counts(self) -> tuple[np.ndarray, np.ndarray]:
         """(row_ids, counts), cached per generation — the exact
@@ -775,15 +803,18 @@ def _is_sorted_pairs(rows: np.ndarray, local: np.ndarray) -> bool:
     return not (same & (local[1:] < local[:-1])).any()
 
 
-def resolve_counts(parts: list[tuple[np.ndarray, np.ndarray, torch.Tensor]]) -> None:
+def resolve_counts(parts: list[tuple[np.ndarray, np.ndarray, torch.Tensor]],
+                   host: np.ndarray | None = None) -> None:
     """For each (counts, slots, device_counts) of ``parts`` — the device
     halves of any number of intersection_counts_async calls — write
     ``counts[slots] = device_counts[:len(slots)]``, with ONE device->host
     copy for all of them (the count tensors are concatenated on the device
-    first)."""
+    first). ``host``: that concatenation already on the host (the
+    planner brings it through its batcher)."""
     if not parts:
         return
-    host = torch.cat([dev.reshape(-1) for _, _, dev in parts]).cpu().numpy()
+    if host is None:
+        host = torch.cat([dev.reshape(-1) for _, _, dev in parts]).cpu().numpy()
     at = 0
     for counts, slots, dev in parts:
         counts[slots] = host[at:at + len(slots)]

@@ -10,6 +10,13 @@
 //   pilosa_row_counts  per-row popcount(a)
 //     Replaces pilosa_tpu/ops/pallas_kernels.py _pallas_row_counts
 //     (body _popcount_kernel -> _accumulate_rowsum).
+//   pilosa_count_batched  either of the two over B slots in one launch,
+//     each slot with its own operands (pair_count_batched and
+//     row_counts_batched in ops/kernels.py)
+//     Replaces jax.vmap of the count program over a wave of same-plan
+//     queries (pilosa_tpu/parallel/coalesce.py:312-348 _flush_batched,
+//     pilosa_tpu/parallel/planner.py:387-396 vmapped), which the JAX
+//     coalescer cannot apply to its Pallas programs (coalesce.py:331-333).
 //
 // Words are 32-bit bit patterns (int32 tensors on the torch side; the
 // kernel reads them as uint32). Counts are int32 per row: a shard row holds
@@ -46,6 +53,13 @@
 //  * Rows whose start is not 16-byte aligned (or row strides that are not
 //    a multiple of 4 words) take the scalar loop; a ragged W tail is
 //    counted by the scalar loop after the vector body.
+//  * The batched entry adds a third grid axis over the slots. A slot's
+//    operand bases, strides and row counts sit in a small table in device
+//    memory (48 bytes a slot, copied on the launch's stream just before
+//    it), so a wave of any width fits where a parameter block of 32 slots
+//    would crowd the 4 KiB kernel-parameter limit. Every block reads its
+//    slot's record once and then runs the same body as the single launch:
+//    B slots move exactly the bytes of B single launches, in one launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -100,20 +114,10 @@ __device__ __forceinline__ void store_count(int* out, int64_t row, int acc,
     out[row] = acc;
 }
 
-// grid = (rows, chunks). out[row] += popcount(op(a[row % a_rows, lo:hi],
-// b[row % b_rows, lo:hi])).
+// This thread's share of popcount(op(pa[lo:hi], pb[lo:hi])).
 template <int OP, bool VEC>
-__global__ void __launch_bounds__(kThreads)
-count_rows_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
-                  int* __restrict__ out, int64_t words, int64_t a_stride,
-                  int64_t b_stride, int64_t a_rows, int64_t b_rows,
-                  int64_t chunk, int accumulate) {
-  const int64_t row = blockIdx.x;
-  const int64_t lo = static_cast<int64_t>(blockIdx.y) * chunk;
-  const int64_t hi = lo + chunk < words ? lo + chunk : words;
-  const uint32_t* pa = a + (row % a_rows) * a_stride;
-  const uint32_t* pb = (OP == OP_NONE) ? pa : b + (row % b_rows) * b_stride;
-
+__device__ __forceinline__ int count_chunk(const uint32_t* pa, const uint32_t* pb,
+                                           int64_t lo, int64_t hi) {
   int acc = 0;
   int64_t tail = lo;
   if (VEC) {
@@ -134,8 +138,52 @@ count_rows_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b
     const uint32_t y = (OP == OP_NONE) ? x : __ldg(pb + i);
     acc += __popc(apply_op<OP>(x, y));
   }
+  return acc;
+}
+
+// grid = (rows, chunks). out[row] += popcount(op(a[row % a_rows, lo:hi],
+// b[row % b_rows, lo:hi])).
+template <int OP, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+count_rows_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
+                  int* __restrict__ out, int64_t words, int64_t a_stride,
+                  int64_t b_stride, int64_t a_rows, int64_t b_rows,
+                  int64_t chunk, int accumulate) {
+  const int64_t row = blockIdx.x;
+  const int64_t lo = static_cast<int64_t>(blockIdx.y) * chunk;
+  const int64_t hi = lo + chunk < words ? lo + chunk : words;
+  const uint32_t* pa = a + (row % a_rows) * a_stride;
+  const uint32_t* pb = (OP == OP_NONE) ? pa : b + (row % b_rows) * b_stride;
   __shared__ int warp_sums[kThreads / 32];
-  store_count(out, row, block_sum(acc, warp_sums), accumulate);
+  store_count(out, row, block_sum(count_chunk<OP, VEC>(pa, pb, lo, hi), warp_sums),
+              accumulate);
+}
+
+// One slot of a batched launch: its operands' bases, row strides (words)
+// and row counts. Six int64 per slot, as the wrapper lays them out.
+struct Slot {
+  const uint32_t* a;
+  const uint32_t* b;
+  int64_t a_stride, b_stride, a_rows, b_rows;
+};
+static_assert(sizeof(Slot) == 6 * sizeof(int64_t), "Slot is six int64");
+
+// grid = (rows, chunks, slots). Slot z's rows land in out[z * rows, ...):
+// the body of count_rows_kernel with the operands read from the slot table.
+template <int OP, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+count_batched_kernel(const Slot* __restrict__ slots, int* __restrict__ out,
+                     int64_t rows, int64_t words, int64_t chunk, int accumulate) {
+  const Slot s = slots[blockIdx.z];
+  const int64_t row = blockIdx.x;
+  const int64_t lo = static_cast<int64_t>(blockIdx.y) * chunk;
+  const int64_t hi = lo + chunk < words ? lo + chunk : words;
+  const uint32_t* pa = s.a + (row % s.a_rows) * s.a_stride;
+  const uint32_t* pb = (OP == OP_NONE) ? pa : s.b + (row % s.b_rows) * s.b_stride;
+  __shared__ int warp_sums[kThreads / 32];
+  store_count(out + static_cast<int64_t>(blockIdx.z) * rows, row,
+              block_sum(count_chunk<OP, VEC>(pa, pb, lo, hi), warp_sums),
+              accumulate);
 }
 
 // uint4 loads a thread keeps in registers: one kChunkWords chunk per block.
@@ -189,6 +237,17 @@ count_repeat_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__
   }
 }
 
+// W chunking shared by every launch: (chunk, chunks), at most kMaxGridY
+// chunks per row.
+inline void chunking(int64_t words, int64_t* chunk, int64_t* chunks) {
+  *chunk = kChunkWords;
+  *chunks = (words + *chunk - 1) / *chunk;
+  if (*chunks > kMaxGridY) {
+    *chunk = ((words + kMaxGridY - 1) / kMaxGridY + 3) & ~int64_t(3);
+    *chunks = (words + *chunk - 1) / *chunk;
+  }
+}
+
 template <int OP>
 int launch(const uint32_t* a, const uint32_t* b, int* out, int64_t rows,
            int64_t words, int64_t a_stride, int64_t b_stride, int64_t a_rows,
@@ -197,12 +256,8 @@ int launch(const uint32_t* a, const uint32_t* b, int* out, int64_t rows,
     return static_cast<int>(cudaErrorInvalidValue);
   if (rows > 0x7fffffffLL || rows % a_rows || rows % b_rows)
     return static_cast<int>(cudaErrorInvalidValue);
-  int64_t chunk = kChunkWords;
-  int64_t chunks = (words + chunk - 1) / chunk;
-  if (chunks > kMaxGridY) {
-    chunk = ((words + kMaxGridY - 1) / kMaxGridY + 3) & ~int64_t(3);
-    chunks = (words + chunk - 1) / chunk;
-  }
+  int64_t chunk, chunks;
+  chunking(words, &chunk, &chunks);
   const int accumulate = chunks > 1;
   // One operand repeats across an outer axis with more than one row per
   // repeat (never a single broadcast row: that one stays in L2).
@@ -226,6 +281,23 @@ int launch(const uint32_t* a, const uint32_t* b, int* out, int64_t rows,
   else
     count_rows_kernel<OP, false><<<grid, kThreads, 0, stream>>>(
         a, b, out, words, a_stride, b_stride, a_rows, b_rows, chunk, accumulate);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int OP>
+int launch_batched(const Slot* slots, int n_slots, int* out, int64_t rows,
+                   int64_t words, int vec, cudaStream_t stream) {
+  int64_t chunk, chunks;
+  chunking(words, &chunk, &chunks);
+  const int accumulate = chunks > 1;
+  const dim3 grid(static_cast<unsigned>(rows), static_cast<unsigned>(chunks),
+                  static_cast<unsigned>(n_slots));
+  if (vec)
+    count_batched_kernel<OP, true><<<grid, kThreads, 0, stream>>>(
+        slots, out, rows, words, chunk, accumulate);
+  else
+    count_batched_kernel<OP, false><<<grid, kThreads, 0, stream>>>(
+        slots, out, rows, words, chunk, accumulate);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -268,4 +340,44 @@ extern "C" int pilosa_row_counts(const void* a, void* out, int64_t rows,
   const auto* pa = static_cast<const uint32_t*>(a);
   return launch<OP_NONE>(pa, pa, static_cast<int*>(out), rows, words, a_stride,
                          0, rows, rows, vec, static_cast<cudaStream_t>(stream));
+}
+
+// B slots in one launch: out[z * rows + r] = popcount(op(a_z[r % a_rows_z],
+// b_z[r % b_rows_z])) for z in [0, n_slots), r in [0, rows). host_table
+// holds n_slots Slot records (six int64 each: a, b, a_stride, b_stride,
+// a_rows, b_rows); it is copied on `stream` into dev_table (room for the
+// same bytes, allocated by the wrapper) before the kernel reads it. op 4
+// counts a alone (row_counts). out must hold n_slots * rows int32 zeros.
+// vec: every slot's rows are 16-byte aligned with strides a multiple of 4.
+// Returns the first CUDA error of the copy or the launch.
+extern "C" int pilosa_count_batched(const int64_t* host_table, void* dev_table,
+                                    int n_slots, void* out, int64_t rows,
+                                    int64_t words, int op, int vec, void* stream) {
+  if (n_slots <= 0 || n_slots > kMaxGridY || rows <= 0 || words <= 0 ||
+      rows > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto* host = reinterpret_cast<const Slot*>(host_table);
+  for (int z = 0; z < n_slots; ++z) {
+    const Slot& t = host[z];
+    if (t.a_rows <= 0 || rows % t.a_rows || (op != OP_NONE &&
+                                             (t.b_rows <= 0 || rows % t.b_rows)))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto s = static_cast<cudaStream_t>(stream);
+  // A pageable source: the copy returns once the table is staged, so the
+  // caller may free it; the kernel after it on `s` sees the whole table.
+  cudaError_t err = cudaMemcpyAsync(dev_table, host_table, n_slots * sizeof(Slot),
+                                    cudaMemcpyHostToDevice, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto* slots = static_cast<const Slot*>(dev_table);
+  auto* po = static_cast<int*>(out);
+  switch (op) {
+    case OP_AND: return launch_batched<OP_AND>(slots, n_slots, po, rows, words, vec, s);
+    case OP_OR: return launch_batched<OP_OR>(slots, n_slots, po, rows, words, vec, s);
+    case OP_XOR: return launch_batched<OP_XOR>(slots, n_slots, po, rows, words, vec, s);
+    case OP_ANDNOT:
+      return launch_batched<OP_ANDNOT>(slots, n_slots, po, rows, words, vec, s);
+    case OP_NONE: return launch_batched<OP_NONE>(slots, n_slots, po, rows, words, vec, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

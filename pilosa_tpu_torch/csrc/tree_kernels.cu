@@ -11,6 +11,11 @@
 //     Replaces the general tree evaluator pilosa_tpu/parallel/planner.py
 //     _eval_node (:1932-1957) + bitops.count under _compiled(reduce=
 //     "per_shard") (:1814-1819), which the JAX package left to XLA to fuse.
+//   pilosa_tree_count_batched  one tape over B slots' leaf tables in one
+//     launch (counts only)
+//     Replaces jax.vmap of the count program over a wave of same-plan
+//     queries (pilosa_tpu/parallel/coalesce.py:312-348 _flush_batched,
+//     pilosa_tpu/parallel/planner.py:387-396 vmapped).
 //   pilosa_shift_left  every row shifted toward higher columns by n bits,
 //     bits past the row's end falling off
 //     Replaces pilosa_tpu/ops/bitops.py shift_left (:167-195), also
@@ -50,6 +55,13 @@
 //    word. Whole-word moves past the row's end give zeros.
 //  * Rows whose start is not 16-byte aligned, or row strides that are not
 //    a multiple of 4 words, take a scalar variant of tree_count.
+//  * The batched tree entry keeps the tape in the parameter block (it is
+//    the same for every slot) and reads each slot's leaf bases, strides
+//    and row counts from a table in device memory, copied on the launch's
+//    stream just before it: 16 leaves x 32 slots of records would not fit
+//    the 4 KiB parameter limit. Each block reads its slot's records once,
+//    then runs the single launch's body; the third grid axis runs over the
+//    slots.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -163,11 +175,15 @@ __device__ __forceinline__ int block_sum(int acc, int* warp_sums) {
 // block's chunk; with WRITE, plane[row, chunk] = tree(leaves at row).
 // V is uint4 (16-byte loads; every leaf row 16-byte aligned, chunk a
 // multiple of 4 words, words a multiple of 4) or uint32_t.
-template <typename V, bool WRITE>
+// BATCHED: grid.z runs over slots, and leaf l of slot z is the record
+// table[(z * n_leaves + l) * 3 + {0, 1, 2}] = (base, row stride, rows)
+// instead of args.leaf/stride/rows; slot z's counts land at out[z * rows].
+template <typename V, bool WRITE, bool BATCHED>
 __global__ void __launch_bounds__(kThreads)
-tree_count_kernel(const __grid_constant__ TreeArgs args, int* __restrict__ out,
-                  uint32_t* __restrict__ plane, int64_t words, int64_t chunk,
-                  int accumulate) {
+tree_count_kernel(const __grid_constant__ TreeArgs args,
+                  const int64_t* __restrict__ table, int* __restrict__ out,
+                  uint32_t* __restrict__ plane, int64_t rows, int64_t words,
+                  int64_t chunk, int accumulate) {
   constexpr int64_t kPer = sizeof(V) / 4;  // words per element
   const int64_t row = blockIdx.x;
   const int64_t lo = static_cast<int64_t>(blockIdx.y) * chunk;
@@ -176,8 +192,15 @@ tree_count_kernel(const __grid_constant__ TreeArgs args, int* __restrict__ out,
   __shared__ int warp_sums[kThreads / 32];
   if (threadIdx.x < args.n_leaves) {
     const int l = threadIdx.x;
-    base[l] = args.leaf[l] + (row % args.rows[l]) * args.stride[l] + lo;
+    if (BATCHED) {
+      const int64_t* rec =
+          table + (static_cast<int64_t>(blockIdx.z) * args.n_leaves + l) * 3;
+      base[l] = reinterpret_cast<const uint32_t*>(rec[0]) + (row % rec[2]) * rec[1] + lo;
+    } else {
+      base[l] = args.leaf[l] + (row % args.rows[l]) * args.stride[l] + lo;
+    }
   }
+  if (BATCHED) out += static_cast<int64_t>(blockIdx.z) * rows;
   __syncthreads();
   uint32_t* dst = WRITE ? plane + row * words + lo : nullptr;
   const int64_t n = (hi - lo) / kPer;
@@ -206,9 +229,10 @@ tree_count_kernel(const __grid_constant__ TreeArgs args, int* __restrict__ out,
   }
 }
 
+// n_slots > 0 launches the batched kernel over `table` (no plane).
 template <typename V>
-int launch_tree(const TreeArgs& args, int* out, uint32_t* plane, int64_t rows,
-                int64_t words, cudaStream_t stream) {
+int launch_tree(const TreeArgs& args, const int64_t* table, int n_slots, int* out,
+                uint32_t* plane, int64_t rows, int64_t words, cudaStream_t stream) {
   int64_t chunk = kChunkWords;
   int64_t chunks = (words + chunk - 1) / chunk;
   if (chunks > kMaxGridY) {
@@ -216,14 +240,42 @@ int launch_tree(const TreeArgs& args, int* out, uint32_t* plane, int64_t rows,
     chunks = (words + chunk - 1) / chunk;
   }
   const int accumulate = chunks > 1;
-  const dim3 grid(static_cast<unsigned>(rows), static_cast<unsigned>(chunks));
-  if (plane != nullptr)
-    tree_count_kernel<V, true><<<grid, kThreads, 0, stream>>>(
-        args, out, plane, words, chunk, accumulate);
+  const dim3 grid(static_cast<unsigned>(rows), static_cast<unsigned>(chunks),
+                  static_cast<unsigned>(n_slots > 0 ? n_slots : 1));
+  if (n_slots > 0)
+    tree_count_kernel<V, false, true><<<grid, kThreads, 0, stream>>>(
+        args, table, out, nullptr, rows, words, chunk, accumulate);
+  else if (plane != nullptr)
+    tree_count_kernel<V, true, false><<<grid, kThreads, 0, stream>>>(
+        args, nullptr, out, plane, rows, words, chunk, accumulate);
   else
-    tree_count_kernel<V, false><<<grid, kThreads, 0, stream>>>(
-        args, out, plane, words, chunk, accumulate);
+    tree_count_kernel<V, false, false><<<grid, kThreads, 0, stream>>>(
+        args, nullptr, out, plane, rows, words, chunk, accumulate);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The tape checks of both tree entries: instructions in range, the stack
+// discipline the wrapper compiles to, one value left. Copies the tape
+// into args.
+bool load_tape(TreeArgs* args, const int32_t* tape, int n_ops, int n_leaves) {
+  if (n_leaves < 1 || n_leaves > kMaxLeaves || n_ops < 1 || n_ops > kMaxOps)
+    return false;
+  int depth = 0;
+  for (int t = 0; t < n_ops; ++t) {
+    const int code = tape[t] & 15;
+    const int d = (tape[t] >> 4) & 15;
+    if (code == PUSH) {
+      if ((tape[t] >> 8) >= n_leaves || d != depth || d >= kMaxStack) return false;
+      ++depth;
+    } else {
+      if (code > ANDNOT || d != depth - 2) return false;
+      --depth;
+    }
+    args->tape[t] = tape[t];
+  }
+  args->n_ops = n_ops;
+  args->n_leaves = n_leaves;
+  return depth == 1;
 }
 
 // grid = (ceil(words / (kThreads * kShiftPer)), min(rows, kMaxGridY)).
@@ -268,11 +320,11 @@ extern "C" int pilosa_tree_count(const void* const* leaves, const int64_t* strid
                                  const int32_t* tape, int n_ops, void* counts,
                                  void* plane, int64_t rows, int64_t words,
                                  int vec, void* stream) {
-  if (n_leaves < 1 || n_leaves > kMaxLeaves || n_ops < 1 || n_ops > kMaxOps)
-    return static_cast<int>(cudaErrorInvalidValue);
   if (rows <= 0 || rows > 0x7fffffffLL || words <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   TreeArgs args = {};
+  if (!load_tape(&args, tape, n_ops, n_leaves))
+    return static_cast<int>(cudaErrorInvalidValue);
   for (int i = 0; i < n_leaves; ++i) {
     if (leaf_rows[i] <= 0 || rows % leaf_rows[i])
       return static_cast<int>(cudaErrorInvalidValue);
@@ -280,29 +332,49 @@ extern "C" int pilosa_tree_count(const void* const* leaves, const int64_t* strid
     args.stride[i] = strides[i];
     args.rows[i] = leaf_rows[i];
   }
-  int depth = 0;
-  for (int t = 0; t < n_ops; ++t) {
-    const int code = tape[t] & 15;
-    const int d = (tape[t] >> 4) & 15;
-    if (code == PUSH) {
-      if ((tape[t] >> 8) >= n_leaves || d != depth || d >= kMaxStack)
-        return static_cast<int>(cudaErrorInvalidValue);
-      ++depth;
-    } else {
-      if (code > ANDNOT || d != depth - 2)
-        return static_cast<int>(cudaErrorInvalidValue);
-      --depth;
-    }
-    args.tape[t] = tape[t];
-  }
-  if (depth != 1) return static_cast<int>(cudaErrorInvalidValue);
-  args.n_ops = n_ops;
-  args.n_leaves = n_leaves;
   auto* out = static_cast<int*>(counts);
   auto* dst = static_cast<uint32_t*>(plane);
   auto s = static_cast<cudaStream_t>(stream);
-  if (vec) return launch_tree<uint4>(args, out, dst, rows, words, s);
-  return launch_tree<uint32_t>(args, out, dst, rows, words, s);
+  if (vec) return launch_tree<uint4>(args, nullptr, 0, out, dst, rows, words, s);
+  return launch_tree<uint32_t>(args, nullptr, 0, out, dst, rows, words, s);
+}
+
+// One tape over n_slots leaf tables in one launch: counts[z * rows + r] =
+// popcount(tree(slot z's leaves at row r)). host_table holds n_slots *
+// n_leaves records of three int64 (leaf base, row stride in words, rows),
+// slot-major; it is copied on `stream` into dev_table (room for the same
+// bytes, allocated by the wrapper) before the kernel reads it. The tape
+// is uniform across slots and travels in the parameter block as for
+// pilosa_tree_count. counts must hold n_slots * rows int32 zeros. vec:
+// every leaf row start of every slot 16-byte aligned, words a multiple of
+// 4. Returns the first CUDA error of the copy or the launch.
+extern "C" int pilosa_tree_count_batched(const int64_t* host_table, void* dev_table,
+                                         int n_slots, int n_leaves,
+                                         const int32_t* tape, int n_ops,
+                                         void* counts, int64_t rows,
+                                         int64_t words, int vec, void* stream) {
+  if (n_slots <= 0 || n_slots > kMaxGridY || rows <= 0 || rows > 0x7fffffffLL ||
+      words <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  TreeArgs args = {};
+  if (!load_tape(&args, tape, n_ops, n_leaves))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t records = static_cast<int64_t>(n_slots) * n_leaves;
+  for (int64_t i = 0; i < records; ++i) {
+    const int64_t leaf_rows = host_table[i * 3 + 2];
+    if (leaf_rows <= 0 || rows % leaf_rows)
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto s = static_cast<cudaStream_t>(stream);
+  // A pageable source: the copy returns once the table is staged.
+  cudaError_t err = cudaMemcpyAsync(dev_table, host_table,
+                                    records * 3 * sizeof(int64_t),
+                                    cudaMemcpyHostToDevice, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto* table = static_cast<const int64_t*>(dev_table);
+  auto* out = static_cast<int*>(counts);
+  if (vec) return launch_tree<uint4>(args, table, n_slots, out, nullptr, rows, words, s);
+  return launch_tree<uint32_t>(args, table, n_slots, out, nullptr, rows, words, s);
 }
 
 // out[r] = in[r] shifted left by n = 32 q + b bits (0 <= b < 32), for r in

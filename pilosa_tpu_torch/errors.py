@@ -84,7 +84,6 @@ class FragmentNotFoundError(PilosaError):
 
 
 #: The later slices of the port, by their heading in ROADMAP.md Queue 1.
-SLICE_ASYNC = "executor remainder: async path"
 SLICE_FIELDS = "packed residency, time, mutex and bool fields, GroupBy"
 SLICE_KEYS = "keys and sketches"
 SLICE_BACKUP = "backup and restore"

@@ -23,10 +23,16 @@ change. ``cache=False`` (``?noCache=true``) bypasses it.
 
 Calls of later slices raise ``NotPortedError`` naming the slice in
 ROADMAP.md: time views (``from``/``to``), ``MinRow``/``MaxRow``,
-``GroupBy``, ``Distinct``/``SimilarTopN``, keys. There is no batcher,
-coalescer, prefetcher or ``execute_async`` (ROADMAP.md Queue 1: executor
-remainder: async path): every query runs on the device and ends in a
-synchronising copy of its counts or columns to the host.
+``GroupBy``, ``Distinct``/``SimilarTopN``, keys.
+
+``execute_async`` is the JAX executor's non-blocking entry: a single
+plannable ``Count``, ``Sum``, ``Min`` or ``Max`` is launched at once (or
+joins a same-plan wave in the planner's coalescer) and its future resolves
+when the planner's batcher brings the counts back, so one thread keeps
+many queries in flight; a repeated query text rides the prepared-query
+table (``_prepared``) while its index's instance, schema epoch and data
+epoch stand still. Everything else runs synchronously before its future
+resolves.
 
 The active deadline (``qos.deadline``, set by the HTTP edge) is checked
 between the query's calls and before each shard or shard batch, as in the
@@ -40,6 +46,7 @@ import math
 import threading
 import time
 from collections import OrderedDict
+from concurrent.futures import Future
 from dataclasses import dataclass, replace
 from typing import Any, Callable, Iterable
 
@@ -114,6 +121,8 @@ class Executor:
 
     #: bounded size of the query-string -> parsed Query cache.
     PARSE_CACHE_SIZE = 512
+    #: prepared Count plans kept for execute_async (LRU).
+    PREPARED_CACHE_SIZE = 256
 
     def __init__(self, holder: Holder, planner=None, stats=None,
                  result_cache=True):
@@ -131,6 +140,13 @@ class Executor:
         #: query-string -> parsed Query; parsed trees are shared across
         #: threads, and every consumer clones before mutating.
         self._parse_cache: "OrderedDict[str, Query]" = OrderedDict()
+        #: (index, query text) -> (instance_id, schema_epoch, data epoch,
+        #: shards, program, leaf tensors, result-cache key, post, prepared
+        #: from shards=None, fused steps): execute_async's prepared-query
+        #: path. It caches the program, not the answer -- the device runs
+        #: every query; the epochs gate staleness, and the tensors are
+        #: references into the planner's budgeted stack cache.
+        self._prepared: "OrderedDict[tuple, tuple]" = OrderedDict()
 
     def _planner_for(self, c: Call):
         if self.planner is None:
@@ -195,6 +211,178 @@ class Executor:
         if cacheable:
             self.result_cache.put(tenant, key, stamp, results)
         return results
+
+    def execute_async(self, index_name: str, query: Query | str,
+                      shards: Iterable[int] | None = None,
+                      opt: ExecOptions | None = None,
+                      cache: bool = True) -> Future:
+        """Non-blocking submission; resolves to ``execute(...)``'s list
+        (reference execute_async, executor.py:273).
+
+        A single plannable ``Count(...)``, ``Sum``, ``Min`` or ``Max`` is
+        launched now and resolves when its transfer lands, so ONE thread
+        can keep many queries in flight. Anything else (writes, host-side
+        calls) executes synchronously before the future resolves."""
+        fut: Future = Future()
+        opt = opt or ExecOptions()
+        _fuse.reset_fused_steps()
+        raw = query if isinstance(query, str) else None
+        if shards is not None and not isinstance(shards, list):
+            shards = list(shards)  # one materialization of an iterator
+        if self.planner is not None and raw is not None:
+            # Prepared-query path: a repeated (index, text) whose epochs
+            # stand still re-dispatches its program and leaves directly,
+            # with no parse, plan-key hash or leaf fetch.
+            e = self._prepared.get((index_name, raw))
+            if e is not None:
+                idx = self.holder.index(index_name)
+                if (idx is None or e[0] != idx.instance_id
+                        or e[1] != idx.schema_epoch.value
+                        or e[2] != idx.epoch.value):
+                    # Drop the tensor references the moment the entry
+                    # goes stale.
+                    with self._cache_lock:
+                        if self._prepared.get((index_name, raw)) is e:
+                            del self._prepared[(index_name, raw)]
+                    e = None
+                if e is not None and ((shards is None and e[8])
+                                      or (shards is not None and shards == e[3])):
+                    _, _, _, pshards, fn, arrays, rkey, post, _, steps = e
+                    with self._cache_lock:
+                        if (index_name, raw) in self._prepared:
+                            self._prepared.move_to_end((index_name, raw))
+                    try:
+                        self._check_quarantine(idx, pshards)
+                        if cache and self.result_cache is not None:
+                            # Stamp and tenant captured now: the store runs
+                            # on the batcher's thread, which has neither
+                            # this request's context nor its epochs.
+                            stamp = self._exec_stamp(idx, pshards)
+                            tenant = current_tenant()
+                            hit = self.result_cache.get(tenant, rkey, stamp)
+                            if hit is not None:
+                                fut.set_result(hit)
+                                return fut
+
+                            def post(host, _k=rkey, _s=stamp, _t=tenant, _p=post):
+                                results = _p(host)
+                                self.result_cache.put(_t, _k, _s, results)
+                                return results
+                        _fuse.add_fused_steps(steps)
+                        return self.planner.dispatch_count(fn, arrays, post)
+                    except Exception as exc:
+                        fut.set_exception(exc)
+                        return fut
+        fast = None
+        if self.planner is not None:
+            try:
+                q = self._parse_cached(raw) if raw is not None else query
+            except Exception as exc:
+                fut.set_exception(exc)
+                return fut
+            if len(q.calls) == 1:
+                call0 = q.calls[0]
+                idx = self.holder.index(index_name)
+                if idx is None:
+                    pass
+                elif (call0.name == "Count" and len(call0.children) == 1
+                        and self.planner.supports(call0.children[0])):
+                    fast = (q, idx)
+                elif (call0.name in ("Sum", "Min", "Max")
+                      and self.planner.supports_aggregate(idx, call0)):
+                    fast = (q, idx)
+        if fast is None:
+            try:
+                fut.set_result(self.execute(index_name, query, shards, opt,
+                                            cache=cache))
+            except Exception as exc:
+                fut.set_exception(exc)
+            return fut
+
+        q, idx = fast
+        try:
+            shards_given = shards is not None
+            shards = (sorted(idx.available_shards()) if shards is None
+                      else list(shards))
+            self._check_quarantine(idx, shards)
+            epoch = idx.epoch.value
+            cacheable = cache and self.result_cache is not None and raw is not None
+            key = self._cache_key(idx, q, shards, opt) if raw is not None else None
+            stamp = self._exec_stamp(idx, shards) if cacheable else None
+            tenant = current_tenant()
+            if cacheable:
+                hit = self.result_cache.get(tenant, key, stamp)
+                if hit is not None:
+                    fut.set_result(hit)
+                    return fut
+            check_deadline()
+            call = q.calls[0].clone()
+            finish = lambda v: [v]  # noqa: E731  (Count: resolve to [int])
+            if call.name in ("Sum", "Min", "Max"):
+                base = idx.field(self._agg_field(call)).bsi_group.base
+                name = call.name
+
+                def finish(pair, _b=base, _n=name):  # noqa: F811
+                    total, cnt = pair
+                    if cnt == 0:
+                        return [ValCount()]
+                    if _n == "Sum":
+                        return [ValCount(total + cnt * _b, cnt)]
+                    return [ValCount(total + _b, cnt)]
+
+                if name == "Sum":
+                    inner = self.planner.dispatch_sum(idx, call, shards)
+                else:
+                    inner = self.planner.dispatch_min_max(idx, call, shards,
+                                                          name == "Min")
+            elif shards:
+                fn, arrays = self.planner.prepare_count(idx, call.children[0],
+                                                        shards)
+                steps = _fuse.call_steps(call.children[0]) + 1
+                if raw is not None:
+                    sum_host = self.planner._sum_host
+                    with self._cache_lock:
+                        # `shards` is our own copy. The flag says whether it
+                        # was the full available set (shards=None): only
+                        # such an entry answers a later shards=None query;
+                        # a subset program never answers a full one.
+                        self._prepared[(index_name, raw)] = (
+                            idx.instance_id, idx.schema_epoch.value, epoch,
+                            shards, fn, arrays, key,
+                            lambda host, _s=sum_host: [_s(host)],
+                            not shards_given, steps)
+                        while len(self._prepared) > self.PREPARED_CACHE_SIZE:
+                            self._prepared.popitem(last=False)
+                _fuse.add_fused_steps(steps)
+                inner = self.planner.dispatch_count(fn, arrays)
+            else:
+                inner = self.planner.execute_count_async(idx, call.children[0],
+                                                         shards)
+        except Exception as exc:
+            fut.set_exception(exc)
+            return fut
+
+        def _done(f):
+            try:
+                results = finish(f.result())
+            except Exception as exc:
+                fut.set_exception(exc)
+                return
+            if cacheable:
+                self.result_cache.put(tenant, key, stamp, results)
+            fut.set_result(results)
+
+        inner.add_done_callback(_done)
+        return fut
+
+    def _check_quarantine(self, idx: Index, shards: list[int]) -> None:
+        """Refuse a shard whose local data the store quarantined
+        (``ShardCorruptError``), never serving it as zeros."""
+        q = getattr(self.holder, "quarantine", None)
+        if q is not None and len(q):
+            blocked = q.blocked_shards(idx.name)
+            if blocked and any(s in blocked for s in shards):
+                raise ShardCorruptError()
 
     def _cache_key(self, idx: Index, query: Query, shards: list[int],
                    opt: ExecOptions) -> tuple:
@@ -271,11 +459,7 @@ class Executor:
         reduce_fn folds the results. A shard whose local data the store
         quarantined is refused with ``ShardCorruptError``, never served
         as zeros."""
-        q = getattr(self.holder, "quarantine", None)
-        if q is not None and len(q):
-            blocked = q.blocked_shards(idx.name)
-            if blocked and any(s in blocked for s in shards):
-                raise ShardCorruptError()
+        self._check_quarantine(idx, shards)
         if local_batch_fn is not None:
             check_deadline()
             return local_batch_fn(list(shards))

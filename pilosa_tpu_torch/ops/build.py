@@ -4,8 +4,10 @@ Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface (no PyTorch headers: seconds, not minutes)
 and loaded with ctypes. The library lands in ``build/kernels/`` at the root
 of the checkout, named by a hash of its source and flags, so an edited
-source rebuilds and an unchanged one loads what is there. Nothing is built
-when a module is imported: only a launch on a CUDA tensor gets here.
+source rebuilds and an unchanged one loads what is there; a node's
+``--compile-cache-dir`` moves that directory (``parallel/compile_cache.py``,
+``set_build_dir``). Nothing is built when a module is imported: only a
+launch on a CUDA tensor gets here.
 """
 
 from __future__ import annotations
@@ -28,6 +30,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+#: build() calls that found their library built, and those that ran nvcc
+#: (parallel/compile_cache.py reports them).
+COUNTS = {"hits": 0, "builds": 0}
+_count_lock = threading.Lock()  # build() runs under _lock from load()
+
+
+def set_build_dir(path: Path) -> None:
+    """Build and look for libraries under ``path`` from now on; libraries
+    this process already loaded stay loaded."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path)
 
 
 def nvcc_path() -> str:
@@ -55,7 +68,10 @@ def build(source: str) -> Path:
     output is written under a temporary name and renamed into place, so a
     build that dies leaves nothing half-written behind."""
     out = library_path(source)
-    if out.exists():
+    hit = out.exists()
+    with _count_lock:
+        COUNTS["hits" if hit else "builds"] += 1
+    if hit:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")

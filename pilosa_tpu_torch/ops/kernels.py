@@ -14,6 +14,15 @@
   package: one pass over a postfix op tape of and/or/xor/andnot over
   ``[..., W]`` leaves, per-row counts out and optionally the result plane;
   and the word roll plus carried bit shift of every row.
+- ``pair_count_batched``, ``row_counts_batched`` (``csrc/count_kernels.cu``)
+  and ``tree_count_batched`` (``csrc/tree_kernels.cu``) run a wave of B
+  same-plan count programs as one launch, each slot on its own operands:
+  the counterpart of ``jax.vmap`` of the count program in the JAX
+  coalescer (pilosa_tpu/parallel/coalesce.py ``_flush_batched``).
+- ``assemble_stack`` (``csrc/upload_kernels.cu``) builds an ``[S_pad, W]``
+  stack on the device from a few dense rows and COO words: the
+  sparse-upload scatter of pilosa_tpu/parallel/planner.py
+  ``_assemble_stack``.
 
 On a CUDA tensor each wrapper launches its hand-written kernel (built at
 first use, see ``ops/build.py``) or raises; on a CPU tensor it runs the
@@ -40,7 +49,8 @@ from pilosa_tpu_torch.ops import bitops
 #: kernel launches since the last reset_launches(), by wrapper name; read
 #: it, and change it only through _count_launch and reset_launches.
 LAUNCHES = {"pair_count": 0, "row_counts": 0, "bsi_compare": 0, "bsi_minmax": 0,
-            "tree_count": 0, "shift_left": 0}
+            "tree_count": 0, "shift_left": 0, "pair_count_batched": 0,
+            "row_counts_batched": 0, "tree_count_batched": 0, "assemble_stack": 0}
 _launch_lock = threading.Lock()
 
 _OP_CODES = {"and": 0, "or": 1, "xor": 2, "andnot": 3}
@@ -62,6 +72,7 @@ _SIGNATURES = {
         "pilosa_pair_count": [_VP, _VP, _VP, _I64, _I64, _I64, _I64, _I64, _I64,
                               _I32, _I32, _VP],
         "pilosa_row_counts": [_VP, _VP, _I64, _I64, _I64, _I32, _VP],
+        "pilosa_count_batched": [_VP, _VP, _I32, _VP, _I64, _I64, _I32, _I32, _VP],
     },
     "bsi_kernels.cu": {
         "pilosa_bsi_compare": [_VP, _VP, _VP, _I64, _I64, _I32, _U32, _U32, _I32,
@@ -73,6 +84,12 @@ _SIGNATURES = {
         "pilosa_tree_count": [_VP, _VP, _VP, _I32, _VP, _I32, _VP, _VP, _I64,
                               _I64, _I32, _VP],
         "pilosa_shift_left": [_VP, _VP, _I64, _I64, _I64, _I64, _I32, _VP],
+        "pilosa_tree_count_batched": [_VP, _VP, _I32, _I32, _VP, _I32, _VP, _I64,
+                                      _I64, _I32, _VP],
+    },
+    "upload_kernels.cu": {
+        "pilosa_assemble_stack": [_VP, _VP, _I64, _VP, _VP, _VP, _I64, _VP, _I64,
+                                  _I64, _VP],
     },
 }
 _libs: dict[str, ctypes.CDLL] = {}
@@ -269,6 +286,38 @@ def shift_left_plain(a: torch.Tensor, n: int) -> torch.Tensor:
         carry = torch.cat([torch.zeros_like(carry[..., :1]), carry[..., :-1]], dim=-1)
         v = hi | carry
     return _as_int32_bits(v)
+
+
+def pair_count_batched_plain(a_slots, b_slots, op: str = "and") -> torch.Tensor:
+    """``pair_count_plain`` slot by slot, stacked to ``[B, *lead]``."""
+    return torch.stack([pair_count_plain(a, b, op) for a, b in zip(a_slots, b_slots)])
+
+
+def row_counts_batched_plain(a_slots) -> torch.Tensor:
+    """``row_counts_plain`` slot by slot, stacked to ``[B, *lead]``."""
+    return torch.stack([row_counts_plain(a) for a in a_slots])
+
+
+def tree_count_batched_plain(leaf_tables, tape) -> torch.Tensor:
+    """``tree_count_plain`` of one tape over each slot's leaves, stacked to
+    ``[B, *lead]``."""
+    return torch.stack([tree_count_plain(leaves, tape) for leaves in leaf_tables])
+
+
+def assemble_stack_plain(didx, dmat, ci, cw, cv, s_pad: int) -> torch.Tensor:
+    """pilosa_tpu/parallel/planner.py _assemble_stack (:2046): zeros of
+    ``[s_pad + 1, W]``, dense row k stored at row ``didx[k]``, word
+    ``cv[i]`` at ``(ci[i], cw[i])``, rows ``[0, s_pad)`` returned (row
+    ``s_pad`` is the trash row the padding targets). Entries outside the
+    rows ``[0, s_pad]`` or the words ``[0, W)`` are skipped, as the kernel
+    skips them."""
+    words = dmat.shape[-1]
+    out = torch.zeros((s_pad + 1, words), dtype=torch.int32, device=dmat.device)
+    keep = (didx >= 0) & (didx <= s_pad)
+    out.index_put_((didx[keep].long(),), dmat[keep])
+    keep = (ci >= 0) & (ci <= s_pad) & (cw >= 0) & (cw < words)
+    out.index_put_((ci[keep].long(), cw[keep].long()), cv[keep])
+    return out[:s_pad]
 
 
 # ---------------------------------------------------------------------------
@@ -553,12 +602,13 @@ def _materialise(node, leaves: list, layouts: list, lead):
     return ("leaf", len(leaves) - 1)
 
 
-def _launch_tree(node, leaves: list, layouts: list, lead, plane: bool):
-    """One tree_count launch of a tape that fits the kernel's limits."""
-    tape = _postfix(node)
+def _encode_tape(node) -> tuple[list[int], list[int]]:
+    """The tree kernels' instructions for a tree that fits their limits,
+    and the leaf indices the kernel's leaf slots read, in slot order (each
+    distinct tape leaf once, in tape order)."""
     slots: dict[int, int] = {}  # leaf index -> the kernel's leaf slot
     code, depth = [], 0
-    for tok in tape:
+    for tok in _postfix(node):
         if isinstance(tok, str):
             depth -= 1
             code.append(_TREE_CODES[tok] | ((depth - 1) << 4))
@@ -566,7 +616,12 @@ def _launch_tree(node, leaves: list, layouts: list, lead, plane: bool):
             slot = slots.setdefault(tok, len(slots))
             code.append((depth << 4) | (slot << 8))
             depth += 1
-    used = sorted(slots, key=slots.get)
+    return code, sorted(slots, key=slots.get)
+
+
+def _launch_tree(node, leaves: list, layouts: list, lead, plane: bool):
+    """One tree_count launch of a tape that fits the kernel's limits."""
+    code, used = _encode_tape(node)
     device, words = leaves[0].device, leaves[0].shape[-1]
     rows = math.prod(lead)
     counts = torch.zeros(rows, dtype=torch.int32, device=device)
@@ -621,3 +676,192 @@ def shift_left(a: torch.Tensor, n: int) -> torch.Tensor:
         raise RuntimeError(f"shift_left kernel launch failed: CUDA error {err}")
     _count_launch("shift_left")
     return out
+
+
+# ---------------------------------------------------------------------------
+# batched wrappers: a wave of B same-plan programs as one launch
+# ---------------------------------------------------------------------------
+
+
+def _slots_lead(slots, what: str):
+    """The common (lead shape, words, device) of every slot's operands, after
+    the single wrapper's checks; raises when the slots disagree."""
+    if not slots:
+        raise ValueError(f"{what} needs at least one slot")
+    for z, x in enumerate(slots):
+        _check_words(x, f"{what} slot {z}")
+    first = slots[0]
+    for z, x in enumerate(slots):
+        if x.shape != first.shape or x.device != first.device:
+            raise ValueError(f"{what} slot {z} is {tuple(x.shape)} on {x.device}, "
+                             f"slot 0 {tuple(first.shape)} on {first.device}")
+    return first.shape[:-1], first.shape[-1], first.device
+
+
+def _batched_out(n_slots: int, lead, device) -> torch.Tensor:
+    return torch.zeros((n_slots, math.prod(lead)), dtype=torch.int32, device=device)
+
+
+def _launch_count_batched(a_slots, b_slots, op: str, lead, words: int, device,
+                          name: str) -> torch.Tensor:
+    """One pilosa_count_batched launch; b_slots is None for row counts."""
+    rows, n = math.prod(lead), len(a_slots)
+    out = _batched_out(n, lead, device)
+    if rows == 0:
+        return out.reshape(n, *lead)
+    table, vec = [], words % 4 == 0
+    for z, a in enumerate(a_slots):
+        sa, ra = _row_layout(a, lead, f"a slot {z}")
+        b = a if b_slots is None else b_slots[z]
+        sb, rb = _row_layout(b, lead, f"b slot {z}")
+        vec = vec and _vec_ok(a, sa) and _vec_ok(b, sb)
+        table += [a.data_ptr(), b.data_ptr(), sa, sb, ra, rb]
+    dev_table = torch.empty(len(table), dtype=torch.int64, device=device)
+    code = 4 if b_slots is None else _OP_CODES[op]  # 4: count a alone
+    with torch.cuda.device(device):
+        err = _library().pilosa_count_batched(
+            (ctypes.c_int64 * len(table))(*table), dev_table.data_ptr(), n,
+            out.data_ptr(), rows, words, code, int(vec), _stream(device))
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    _count_launch(name)
+    return out.reshape(n, *lead)
+
+
+def pair_count_batched(a_slots, b_slots, op: str = "and") -> torch.Tensor:
+    """``pair_count(a_slots[z], b_slots[z], op)`` for every slot z, in one
+    launch: ``[B, *lead]`` int32. Every slot's operands have the shapes of
+    slot 0's (a slot may share a tensor with another); op is the same for
+    every slot, as it is for a wave of one plan."""
+    if op not in _OP_CODES:
+        raise ValueError(f"unknown op {op!r}")
+    if len(a_slots) != len(b_slots):
+        raise ValueError(f"{len(a_slots)} a slots against {len(b_slots)} b slots")
+    _, words, device = _slots_lead(a_slots, "a")
+    _, b_words, b_device = _slots_lead(b_slots, "b")
+    if b_words != words:
+        raise ValueError(f"word axes differ: {words} vs {b_words}")
+    if b_device != device:
+        raise ValueError(f"operands on different devices: {device}, {b_device}")
+    try:
+        lead = torch.broadcast_shapes(a_slots[0].shape[:-1], b_slots[0].shape[:-1])
+    except RuntimeError as e:
+        raise ValueError(f"shapes do not broadcast: {tuple(a_slots[0].shape)}, "
+                         f"{tuple(b_slots[0].shape)}") from e
+    for z, (a, b) in enumerate(zip(a_slots, b_slots)):
+        _row_layout(a, lead, f"a slot {z}")
+        _row_layout(b, lead, f"b slot {z}")
+    if device.type == "cpu":
+        return pair_count_batched_plain(a_slots, b_slots, op)
+    _require_cuda(a_slots[0])
+    return _launch_count_batched(a_slots, b_slots, op, lead, words, device,
+                                 "pair_count_batched")
+
+
+def row_counts_batched(a_slots) -> torch.Tensor:
+    """``row_counts(a_slots[z])`` for every slot z, in one launch: ``[B,
+    *lead]`` int32; every slot has slot 0's shape."""
+    lead, words, device = _slots_lead(a_slots, "a")
+    for z, a in enumerate(a_slots):
+        _row_layout(a, lead, f"a slot {z}")
+    if device.type == "cpu":
+        return row_counts_batched_plain(a_slots)
+    _require_cuda(a_slots[0])
+    return _launch_count_batched(a_slots, None, "and", lead, words, device,
+                                 "row_counts_batched")
+
+
+def tree_count_batched(leaf_tables, tape) -> torch.Tensor:
+    """One postfix ``tape`` counted over each slot's leaves (``leaf_tables[z]``,
+    the leaves of slot z, each slot's k-th leaf of slot 0's k-th leaf's
+    shape), in one launch: ``[B, *lead]`` int32 counts. A tape past the
+    kernel's limits is cut as ``tree_count`` cuts it: the subtrees that do
+    not fit become planes, written slot by slot by ``tree_count``
+    launches, and the rest of the tape runs batched over them."""
+    if not leaf_tables:
+        raise ValueError("tree_count_batched needs at least one slot")
+    n_leaves = len(leaf_tables[0])
+    lead, layouts0 = _tree_layout(leaf_tables[0])
+    node = _parse_tape(tape, n_leaves)
+    layouts = [layouts0]
+    for z, leaves in enumerate(leaf_tables[1:], 1):
+        if len(leaves) != n_leaves:
+            raise ValueError(f"slot {z} has {len(leaves)} leaves, slot 0 {n_leaves}")
+        for k, (x, x0) in enumerate(zip(leaves, leaf_tables[0])):
+            if x.shape != x0.shape or x.device != x0.device:
+                raise ValueError(f"slot {z} leaf {k} is {tuple(x.shape)} on "
+                                 f"{x.device}, slot 0's {tuple(x0.shape)} on "
+                                 f"{x0.device}")
+        layouts.append(_tree_layout(leaves)[1])
+    device, words = leaf_tables[0][0].device, leaf_tables[0][0].shape[-1]
+    if device.type == "cpu":
+        return tree_count_batched_plain(leaf_tables, tape)
+    _require_cuda(leaf_tables[0][0])
+    # Cutting depends only on the tape, so every slot's cut tree is the same
+    # node over its own (extended) leaf list.
+    leaf_tables = [list(ls) for ls in leaf_tables]
+    layouts = [list(lay) for lay in layouts]
+    for leaves, lay in zip(leaf_tables, layouts):
+        fitted = _fit_tree(node, leaves, lay, lead)
+    code, used = _encode_tape(fitted)
+    n, rows = len(leaf_tables), math.prod(lead)
+    out = _batched_out(n, lead, device)
+    if rows == 0:
+        return out.reshape(n, *lead)
+    table, vec = [], words % 4 == 0
+    for leaves, lay in zip(leaf_tables, layouts):
+        for i in used:
+            vec = vec and _vec_ok(leaves[i], lay[i][0])
+            table += [leaves[i].data_ptr(), lay[i][0], lay[i][1]]
+    dev_table = torch.empty(len(table), dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        err = _library("tree_kernels.cu").pilosa_tree_count_batched(
+            (ctypes.c_int64 * len(table))(*table), dev_table.data_ptr(), n,
+            len(used), (ctypes.c_int32 * len(code))(*code), len(code),
+            out.data_ptr(), rows, words, int(vec), _stream(device))
+    if err:
+        raise RuntimeError(f"tree_count_batched kernel launch failed: CUDA error {err}")
+    _count_launch("tree_count_batched")
+    return out.reshape(n, *lead)
+
+
+def assemble_stack(didx: torch.Tensor, dmat: torch.Tensor, ci: torch.Tensor,
+                   cw: torch.Tensor, cv: torch.Tensor, s_pad: int) -> torch.Tensor:
+    """An ``[s_pad, W]`` stack built on the device from ``d_pad`` dense rows
+    (``dmat`` ``[d_pad, W]``, stored at rows ``didx``) and COO words (``cv[i]``
+    at row ``ci[i]``, word ``cw[i]``), zeros elsewhere; entries aimed at row
+    ``s_pad`` (the trash row) or outside the stack are dropped. All int32,
+    one device. The real (row, word) pairs must be distinct, and no row
+    both dense and COO: stores of different values to one word would race
+    (the planner's sparse upload guarantees both)."""
+    for name, x in (("didx", didx), ("ci", ci), ("cw", cw), ("cv", cv)):
+        if not isinstance(x, torch.Tensor) or x.dtype != torch.int32 or x.dim() != 1:
+            raise TypeError(f"{name} must be a 1-D int32 tensor")
+    _check_words(dmat, "dmat")
+    if dmat.dim() != 2 or dmat.shape[0] != didx.shape[0]:
+        raise ValueError(f"dmat {tuple(dmat.shape)} must be [len(didx), W]")
+    if not (ci.shape == cw.shape == cv.shape):
+        raise ValueError("ci, cw and cv must have one length")
+    if isinstance(s_pad, bool) or int(s_pad) != s_pad or s_pad < 0:
+        raise ValueError(f"s_pad must be a non-negative int, got {s_pad!r}")
+    device = dmat.device
+    if any(x.device != device for x in (didx, ci, cw, cv)):
+        raise ValueError("assemble_stack operands on different devices")
+    if device.type == "cpu":
+        return assemble_stack_plain(didx, dmat, ci, cw, cv, s_pad)
+    _require_cuda(dmat)
+    if not all(x.is_contiguous() for x in (didx, dmat, ci, cw, cv)):
+        raise ValueError("assemble_stack operands must be contiguous")
+    if dmat.numel() and dmat.data_ptr() % 16:
+        raise ValueError("dmat must be 16-byte aligned")
+    words = dmat.shape[-1]
+    out = torch.empty((s_pad + 1, words), dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        err = _library("upload_kernels.cu").pilosa_assemble_stack(
+            didx.data_ptr(), dmat.data_ptr(), didx.shape[0], ci.data_ptr(),
+            cw.data_ptr(), cv.data_ptr(), ci.shape[0], out.data_ptr(), s_pad,
+            words, _stream(device))
+    if err:
+        raise RuntimeError(f"assemble_stack kernel launch failed: CUDA error {err}")
+    _count_launch("assemble_stack")
+    return out[:s_pad]

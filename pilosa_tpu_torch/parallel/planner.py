@@ -33,16 +33,27 @@ per-shard jobs, each running per-container roaring kernels):
 
 ``prepare_count`` keeps the reference's plan cache: a repeated Count text
 over the same shards and schema skips the signature walk, and its leaves
-re-resolve through the epoch-validated stack cache. Each query ends in one
-synchronising ``.cpu()``; the JAX package's asynchronous batcher, dispatch
-coalescer and prefetcher come with a later slice (ROADMAP.md Queue 1:
-executor remainder: async path).
+re-resolve through the epoch-validated stack cache.
+
+The async path is the JAX planner's (pilosa_tpu/parallel/planner.py
+:226-396, :553-645, :878-892, :1336-1525): every Count, Sum and Min/Max
+launch goes through ``DispatchCoalescer.dispatch`` (a same-plan wave runs
+as one launch, shared or batched) and its small output through
+``TransferBatcher.submit`` (a pinned, event-ordered copy to the host; no
+synchronising ``.cpu()``), and so do TopN's filter and tile counts. At
+prepare time the plan's non-resident stacks go to the
+``ResidencyPrefetcher``, whose workers upload them on the planner's upload
+stream. On a CUDA device a sparse row (at most ``SPARSE_UPLOAD_MAX_BITS``
+set bits in a shard) crosses PCIe as COO words and is scattered into its
+stack by the ``assemble_stack`` kernel.
 """
 
 from __future__ import annotations
 
+import functools
 import threading
-from collections import OrderedDict
+from collections import OrderedDict, deque
+from concurrent.futures import Future
 from typing import Callable
 
 import numpy as np
@@ -67,8 +78,14 @@ from pilosa_tpu_torch.errors import (
     QueryError,
 )
 from pilosa_tpu_torch.exec import fuse as _fuse
+from pilosa_tpu_torch.exec import residency as _residency
+from pilosa_tpu_torch.obs import profile as _profile
+from pilosa_tpu_torch.obs.histogram import WIDTH_BOUNDS, LogHistogram
 from pilosa_tpu_torch.ops import bitops, kernels
 from pilosa_tpu_torch.ops import bsi as bsi_ops
+from pilosa_tpu_torch.parallel.batcher import TransferBatcher
+from pilosa_tpu_torch.parallel.coalesce import DispatchCoalescer
+from pilosa_tpu_torch.parallel.prefetch import ResidencyPrefetcher
 from pilosa_tpu_torch.pql import BETWEEN, EQ, GT, GTE, LT, LTE, NEQ, Call, Condition
 
 _BITMAP_CALLS = frozenset(
@@ -88,10 +105,17 @@ class Planner:
     PLAN_CACHE_SIZE = 128
     OBSERVED_SIZE = 256
 
+    #: rows with at most this many set bits in a shard upload as COO words
+    #: (12 B per set word) instead of the 128 KiB dense block, where the
+    #: host-to-device link is the expensive one (a CUDA device).
+    SPARSE_UPLOAD_MAX_BITS = 2048
+
     def __init__(self, holder, max_cache_bytes: int = DEFAULT_CACHE_BYTES,
-                 bucket_policy: str = "pow2"):
+                 bucket_policy: str = "pow2", stats=None,
+                 coalesce_window_us: float | None = None):
         self.holder = holder
         self.device = holder.device
+        self.stats = stats
         #: plan-shape bucketing ("pow2" | "none"): stack heights round up
         #: to powers of two, so the space of [S_pad, W] shapes stays
         #: O(log S) (see _pad).
@@ -100,16 +124,19 @@ class Planner:
                              f"{bucket_policy!r}")
         self.bucket_policy = bucket_policy
         #: LRU of (index, instance, field, view, row_id, shards) ->
-        #: (epoch, gens, [S_pad, W] tensor); bounded by max_cache_bytes.
+        #: (epoch, gens, [S_pad, W] tensor, upload event or None); bounded
+        #: by max_cache_bytes.
         #: A hit is ONE integer compare against the index's mutation
         #: epoch; only an epoch change triggers the per-fragment
         #: generation walk (and only for the touched leaf).
         self._stack_cache: "OrderedDict[tuple, tuple]" = OrderedDict()
         self._cache_bytes = 0
         self.max_cache_bytes = max_cache_bytes
-        #: lifetime host->device stack builds and their bytes.
+        #: lifetime host->device stack builds and their device bytes, and
+        #: the bytes that crossed the link for them (less, for sparse rows).
         self.uploads = 0
         self.upload_bytes = 0
+        self.h2d_bytes = 0
         #: lifetime LRU evictions past the budget.
         self.evictions = 0
         self._cache_lock = threading.Lock()
@@ -127,6 +154,26 @@ class Planner:
         #: ordered: the shapes real traffic ran, which ServerNode persists
         #: and the next boot's warmup replays.
         self._observed: "OrderedDict[tuple, int]" = OrderedDict()
+        #: the filter's host words for TopN's two passes (same filter, same
+        #: epoch), keyed by call text, shards and epoch; a few entries.
+        self._filter_host_cache: dict[tuple, np.ndarray] = {}
+        #: id(program) -> its full signature: the coalescer's batch key.
+        #: Entries live as long as _fn_cache pins the program.
+        self._fn_keys: dict[int, tuple] = {}
+        #: launch accounting (planner.dispatchCount / dispatchCoalesced /
+        #: coalesceBatchWidth on /debug/vars).
+        self._dispatch_lock = threading.Lock()
+        self.dispatches = 0
+        self.dispatches_coalesced = 0
+        self._batch_widths: "deque[int]" = deque(maxlen=512)
+        self._width_hist = LogHistogram(bounds=WIDTH_BOUNDS, lock=False)
+        #: the stream stack uploads run on (CUDA), made at first use.
+        self._upload_stream = None
+        #: result copies to the host, same-plan launch waves, and the
+        #: async miss path (parallel/batcher, coalesce, prefetch).
+        self.batcher = TransferBatcher(stats=stats)
+        self.coalescer = DispatchCoalescer(self, coalesce_window_us)
+        self.prefetcher = ResidencyPrefetcher(self, stats=stats)
 
     # ------------------------------------------------------------------
     # public API
@@ -163,14 +210,76 @@ class Planner:
     def execute_count(self, idx: Index, c: Call, shards: list[int],
                       const_rows: list | None = None) -> int:
         """Count(tree) over ``shards``: one count program on the stacked
-        leaves, one copy of the per-shard counts to the host."""
+        leaves, its per-shard counts delivered by the batcher."""
+        return self.execute_count_async(idx, c, shards, const_rows=const_rows,
+                                        waited=True).result()
+
+    def execute_count_async(self, idx: Index, c: Call, shards: list[int],
+                            const_rows: list | None = None,
+                            waited: bool = False) -> Future:
+        """Dispatch Count(tree) and return a Future[int]: the program is
+        launched (or joins a wave) now, and the future resolves when its
+        counts land on the host (reference planner.py:226). ``waited``: the
+        caller calls ``result()`` next (TransferBatcher.submit)."""
         if not shards:
-            return 0
+            fut: Future = Future()
+            fut.set_result(0)
+            return fut
         fn, arrays = self.prepare_count(idx, c, shards, const_rows=const_rows)
         _fuse.add_fused_steps(_fuse.call_steps(c) + 1)
-        # Per-shard int32 popcounts (<= 2^30 each) widened before the sum:
-        # immune to int32 overflow across many full shards.
-        return int(fn(*arrays).cpu().numpy().astype(np.int64).sum())
+        return self.dispatch_count(fn, arrays, waited=waited)
+
+    @staticmethod
+    def _sum_host(host) -> int:
+        """Per-shard int32 popcounts (<= 2^30 each) widened before the sum:
+        immune to int32 overflow across many full shards."""
+        return int(np.asarray(host).astype(np.int64).sum())
+
+    def dispatch_count(self, fn, arrays, post=None, waited: bool = False) -> Future:
+        """Launch a prepared count's program through the coalescer;
+        Future[int] (or ``post`` of the per-shard counts)."""
+        return self.coalescer.dispatch(fn, arrays, post or self._sum_host, waited)
+
+    # -- launch accounting / program registry --------------------------
+
+    def _record_dispatch(self, width: int = 1, device_ms: float = 0.0,
+                         profs=None) -> None:
+        """One program launch answering ``width`` queries. ``profs``: the
+        profiles of the queries it served (the coalescer passes them, its
+        flusher has no query context); omitted, the active one is charged."""
+        with self._dispatch_lock:
+            self.dispatches += 1
+            if width > 1:
+                self.dispatches_coalesced += width - 1
+            self._batch_widths.append(width)
+            self._width_hist.observe(width)
+        if self.stats is not None:
+            self.stats.count("planner.dispatchCount", 1)
+            if width > 1:
+                self.stats.count("planner.dispatchCoalesced", width - 1)
+            self.stats.gauge("planner.coalesceBatchWidth", width)
+        if profs is None:
+            p = _profile.current()
+            profs = (p,) if p is not None else ()
+        for p in profs:
+            if p is not None:
+                p.add_dispatch(width, device_ms)
+
+    def batch_widths(self) -> list[int]:
+        """Recent per-launch batch widths."""
+        with self._dispatch_lock:
+            return list(self._batch_widths)
+
+    def fn_key(self, fn):
+        """The coalescer's batch key for a program: its full signature
+        (None for a callable the planner did not make)."""
+        return self._fn_keys.get(id(fn))
+
+    def fn_batched(self, fn):
+        """The batched form of a program -- [args per slot] -> [B, ...] in
+        one launch -- or None where it has none (the fused aggregates).
+        The counterpart of the JAX planner's fn_raw + vmapped."""
+        return fn.batched if isinstance(fn, _CountProgram) else None
 
     def prepare_count(self, idx: Index, c: Call, shards: list[int],
                       const_rows: list | None = None):
@@ -208,6 +317,7 @@ class Planner:
                     self._observed.move_to_end(okey)
                     while len(self._observed) > self.OBSERVED_SIZE:
                         self._observed.popitem(last=False)
+        self._prefetch_leaves(idx, leaves, tuple(shards))
         arrays = [self._fetch_leaf(idx, leaf, tuple(shards), const_rows)
                   for leaf in leaves]
         return fn, arrays
@@ -236,9 +346,11 @@ class Planner:
         """Evaluate a bitmap tree to its stacked [S_pad, W] device tensor."""
         leaves: list[tuple] = []
         sig = self._signature(idx, c, leaves)
+        self._prefetch_leaves(idx, leaves, tuple(shards))
         arrays = [self._fetch_leaf(idx, leaf, tuple(shards), const_rows)
                   for leaf in leaves]
         out = self._compiled(("row",) + sig, sig, None)(*arrays)
+        self._record_dispatch(1)
         _fuse.add_fused_steps(_fuse.call_steps(c))
         return out
 
@@ -264,60 +376,128 @@ class Planner:
         stay (this lets warmup drop its scratch index)."""
         with self._cache_lock:
             for key in [k for k in self._stack_cache if k[0] == index_name]:
-                arr = self._stack_cache.pop(key)[2]
-                self._cache_bytes -= arr.numel() * arr.element_size()
-            for key in [k for k in self._plan_cache if k[0] == index_name]:
-                del self._plan_cache[key]
+                self._cache_bytes -= _residency.stack_nbytes(self._stack_cache.pop(key)[2])
+            for cache in (self._plan_cache, self._filter_host_cache):
+                for key in [k for k in cache if k[0] == index_name]:
+                    del cache[key]
 
     # ------------------------------------------------------------------
-    # BSI aggregates: Sum/Min/Max over every shard at once (the stepped
-    # bodies of the reference's dispatch_sum / dispatch_min_max,
-    # planner.py:553-645, run eagerly with one copy to the host)
+    # BSI aggregates: Sum/Min/Max over every shard at once, one program
+    # each through the coalescer, the host fold on the batcher's thread
+    # (reference dispatch_sum / dispatch_min_max, planner.py:553-645)
     # ------------------------------------------------------------------
 
-    def _bsi_inputs(self, idx: Index, c: Call, shards: list[int]):
-        """(exists, sign, [depth, S_pad, W] cube, filter, depth) on the
-        device; the filter is all ones without a child."""
+    def _prepare_agg(self, idx: Index, c: Call, shards: list[int], kind: str,
+                     is_min: bool):
+        """(program, leaf inputs, depth) of a Sum (``kind="sum"``) or
+        Min/Max (``"minmax"``): leaf 0 is the field's ``bsi`` leaf, the
+        rest the filter tree's. Plans cache like Count's, keyed by kind
+        and call text (reference _prepare_agg, planner.py:470)."""
         field_name, _ = c.string_arg("field")
         depth = idx.field(field_name).bsi_group.bit_depth
-        exists, sign, cube = self._fetch_leaf(idx, ("bsi", field_name, depth),
-                                              tuple(shards))
-        if c.children:
-            filt = self._tree_stack(idx, c.children[0], shards)
+        plan_key = (idx.name, idx.instance_id, idx.schema_epoch.value,
+                    f"{kind}{int(is_min)}:{c}", tuple(shards))
+        with self._cache_lock:
+            hit = self._plan_cache.get(plan_key)
+            if hit is not None:
+                self._plan_cache.move_to_end(plan_key)
+        if hit is not None:
+            hit = self._revalidate_plan(idx, plan_key, hit, tuple(shards))
+            leaves, fn = hit[0], hit[1]
         else:
-            filt = torch.full_like(exists, -1)
-        return exists, sign, cube, filt, depth
+            leaves = [("bsi", field_name, depth)]
+            filt_sig = (self._signature(idx, c.children[0], leaves)
+                        if c.children else None)
+            fn = self._compiled_agg((kind, is_min, depth, filt_sig), kind, depth,
+                                    filt_sig, is_min)
+            with self._cache_lock:
+                self._plan_cache[plan_key] = (leaves, fn, idx.epoch.value)
+                while len(self._plan_cache) > self.PLAN_CACHE_SIZE:
+                    self._plan_cache.popitem(last=False)
+        self._prefetch_leaves(idx, leaves, tuple(shards))
+        arrays = [self._fetch_leaf(idx, leaf, tuple(shards)) for leaf in leaves]
+        return fn, arrays, depth
+
+    def _compiled_agg(self, full_sig: tuple, kind: str, depth: int, filt_sig,
+                      is_min: bool) -> Callable:
+        """The aggregate program: leaf inputs -> ONE int32 tensor holding
+        every output the host fold reads, so one copy brings it back. Sum:
+        ``[count per shard, pos[depth, S], neg[depth, S]]``; Min/Max:
+        ``[consider count, alt count, a (lo, hi, count), b (lo, hi,
+        count)]``, each per shard."""
+        fn = self._fn_cache.get(full_sig)
+        if fn is not None:
+            return fn
+
+        def fn(*args):
+            exists, sign, cube = args[0]
+            if filt_sig is not None:
+                tape = _Tape()
+                filt = tape.plane(_lower(filt_sig, args, tape))
+            else:
+                filt = torch.full_like(exists, -1)
+            if kind == "sum":
+                cnt, pos, neg = bsi_ops.sum_counts(exists, sign, cube, filt, depth)
+                return torch.cat([cnt, pos.reshape(-1), neg.reshape(-1)])
+            cons_cnt, alt_cnt, a, b = _agg_min_max(exists, sign, cube, filt, depth,
+                                                   is_min)
+            return torch.stack([cons_cnt, alt_cnt, *a, *b])
+
+        self._fn_cache[full_sig] = fn
+        self._fn_keys[id(fn)] = full_sig
+        return fn
 
     def execute_sum(self, idx: Index, c: Call, shards: list[int]) -> tuple[int, int]:
         """Global (sum of base-relative values, count); the executor adds
         the BSI base (reference fragment.sum :1111 under executeSum
         :406)."""
+        return self.dispatch_sum(idx, c, shards, waited=True).result()
+
+    def dispatch_sum(self, idx: Index, c: Call, shards: list[int],
+                     waited: bool = False) -> Future:
+        """Async Sum: launch the program (or join a wave) and return a
+        Future[(total, count)]; the fold runs where the copy lands."""
         if not shards:
-            return 0, 0
-        exists, sign, cube, filt, depth = self._bsi_inputs(idx, c, shards)
-        cnt, pos, neg = bsi_ops.sum_counts(exists, sign, cube, filt, depth)
-        host = torch.cat([cnt, pos.reshape(-1), neg.reshape(-1)]).cpu().numpy()
-        host = host.astype(np.int64)  # widen before any sum
-        s_pad = cnt.shape[0]
-        count = int(host[:s_pad].sum())
-        p = host[s_pad:s_pad * (depth + 1)].reshape(depth, s_pad).sum(axis=-1)
-        n = host[s_pad * (depth + 1):].reshape(depth, s_pad).sum(axis=-1)
-        total = sum((1 << i) * (int(p[i]) - int(n[i])) for i in range(depth))
-        return total, count
+            fut: Future = Future()
+            fut.set_result((0, 0))
+            return fut
+        fn, arrays, depth = self._prepare_agg(idx, c, shards, "sum", False)
+        _fuse.add_fused_steps(_fuse.call_steps(c))
+
+        def fold(host):
+            host = np.asarray(host).astype(np.int64)  # widen before any sum
+            s_pad = len(host) // (2 * depth + 1)
+            count = int(host[:s_pad].sum())
+            p = host[s_pad:s_pad * (depth + 1)].reshape(depth, s_pad).sum(axis=-1)
+            n = host[s_pad * (depth + 1):].reshape(depth, s_pad).sum(axis=-1)
+            total = sum((1 << i) * (int(p[i]) - int(n[i])) for i in range(depth))
+            return total, count
+
+        return self.coalescer.dispatch(fn, arrays, fold, waited)
 
     def execute_min_max(self, idx: Index, c: Call, shards: list[int],
                         is_min: bool) -> tuple[int, int]:
         """Global (value, count) before the base: every shard's extremum
         from one stacked descent, host-folded with the reference's
         smaller/larger rule."""
+        return self.dispatch_min_max(idx, c, shards, is_min, waited=True).result()
+
+    def dispatch_min_max(self, idx: Index, c: Call, shards: list[int],
+                         is_min: bool, waited: bool = False) -> Future:
+        """Async Min/Max: Future[(value, count)] before the base."""
         if not shards:
-            return 0, 0
-        exists, sign, cube, filt, depth = self._bsi_inputs(idx, c, shards)
-        cons_cnt, alt_cnt, a, b = _agg_min_max(exists, sign, cube, filt, depth,
-                                               is_min)
-        host = torch.stack([cons_cnt, alt_cnt, *a, *b]).cpu().numpy()
-        return _fold_min_max(host[0], host[1], tuple(host[2:5]),
-                             tuple(host[5:8]), len(shards), is_min)
+            fut: Future = Future()
+            fut.set_result((0, 0))
+            return fut
+        n_shards = len(shards)
+        fn, arrays, _ = self._prepare_agg(idx, c, shards, "minmax", is_min)
+        _fuse.add_fused_steps(_fuse.call_steps(c))
+
+        def fold(host):
+            return _fold_min_max(host[0], host[1], tuple(host[2:5]),
+                                 tuple(host[5:8]), n_shards, is_min)
+
+        return self.coalescer.dispatch(fn, arrays, fold, waited)
 
     def execute_topn_counts(self, idx: Index, field_name: str, view: str,
                             shards: list[int], filter_call: Call | None,
@@ -325,9 +505,9 @@ class Planner:
         """shard -> (ids, counts) arrays SORTED by count desc / id asc,
         preserving per-fragment semantics (threshold filtering stays per
         shard in the executor, executor.go:902). With a filter, the dense
-        tier of every shard runs ``pair_count`` against its slice of the
-        filter stack, and all shards' device counts come back in one
-        transfer."""
+        tiers of all shards count against their slices of the filter stack
+        in one ``pair_count_batched`` launch per tile shape, and all
+        shards' device counts come back in one transfer."""
         allowed = (np.asarray(sorted(set(int(r) for r in row_ids)),
                               dtype=np.uint64)
                    if row_ids is not None else None)
@@ -335,8 +515,20 @@ class Planner:
         filt = filt_host = None
         if filter_call is not None:
             filt = self._tree_stack(idx, filter_call, shards)  # [S_pad, W]
-            # ONE pull of the filter for every shard's sparse host tier.
-            filt_host = bitops.to_host_words(filt)
+            # ONE pull of the filter for every shard's sparse host tier,
+            # through the batcher, kept for TopN's second pass (reference
+            # planner.py:846-862).
+            fkey = (idx.name, idx.instance_id, str(filter_call), tuple(shards),
+                    idx.epoch.value)
+            with self._cache_lock:
+                filt_host = self._filter_host_cache.get(fkey)
+            if filt_host is None:
+                filt_host = self.batcher.submit(
+                    filt, lambda h: h.view(np.uint32), waited=True).result()
+                with self._cache_lock:
+                    self._filter_host_cache[fkey] = filt_host
+                    while len(self._filter_host_cache) > 4:
+                        self._filter_host_cache.pop(next(iter(self._filter_host_cache)))
         pending: list[tuple[int, np.ndarray, np.ndarray, list]] = []
         for si, shard in enumerate(shards):
             frag = self.holder.fragment(idx.name, field_name, view, shard)
@@ -355,13 +547,29 @@ class Planner:
                 ids = ids[np.isin(ids, allowed, assume_unique=True)]
             if not len(ids):
                 continue
-            counts, parts = frag.intersection_counts_async(
-                ids, filt[si], reuse=True, seg_host=filt_host[si])
-            pending.append((shard, ids, counts, parts))
-        # Resolve every shard's device tiles in one transfer.
-        resolve_counts([(counts, slots, dev)
-                        for _, _, counts, parts in pending
-                        for slots, dev in parts])
+            counts, tiles = frag.intersection_counts_async(
+                ids, filt[si], reuse=True, seg_host=filt_host[si], defer=True)
+            pending.append((shard, ids, counts, tiles))
+        # Every shard's dense tiles of one shape are counted in ONE
+        # pair_count_batched launch, and all the counts come back in one
+        # batcher transfer (reference planner.py:878-892 launches and
+        # submits each tile).
+        groups: dict[tuple, list] = {}
+        for _, _, counts, tiles in pending:
+            for slots, arr, seg in tiles:
+                groups.setdefault((tuple(arr.shape), tuple(seg.shape)), []).append(
+                    (counts, slots, arr, seg))
+        parts, outs = [], []
+        for members in groups.values():
+            dev = kernels.pair_count_batched([m[2] for m in members],
+                                             [m[3] for m in members], "and")
+            outs.append(dev.reshape(-1))
+            parts += [(m[0], m[1], dev[z]) for z, m in enumerate(members)]
+        if parts:
+            host = self.batcher.submit(
+                torch.cat(outs) if len(outs) > 1 else outs[0],
+                lambda h: h, waited=True).result()
+            resolve_counts(parts, host)
         for shard, ids, counts, _ in pending:
             order = np.lexsort((ids, -counts))
             out[shard] = (ids[order], counts[order])
@@ -480,26 +688,18 @@ class Planner:
     def _compiled(self, full_sig: tuple, sig: tuple,
                   reduce: str | None) -> Callable:
         """The program for a signature: its [S_pad, W] leaf inputs ->
-        int32 [S_pad] per-shard counts (``reduce="per_shard"``) or the
-        [S_pad, W] result plane (``None``). The tree is lowered to one
-        op tape over leaf planes at each call (BSI compare and shift
-        outputs join as planes): a bare leaf counts with row_counts, a
-        2-leaf op with pair_count, anything else with one tree_count
-        launch."""
+        int32 [S_pad] per-shard counts (``reduce="per_shard"``, a
+        ``_CountProgram``, registered as a coalescer key) or the [S_pad, W]
+        result plane (``None``). The tree is lowered to one op tape over
+        leaf planes at each call (BSI compare and shift outputs join as
+        planes): a bare leaf counts with row_counts, a 2-leaf op with
+        pair_count, anything else with one tree_count launch."""
         fn = self._fn_cache.get(full_sig)
         if fn is not None:
             return fn
         if reduce == "per_shard":
-            def fn(*args):
-                tape = _Tape()
-                expr = _lower(sig, args, tape)
-                if expr[0] == "p":
-                    return kernels.row_counts(tape.leaves[expr[1]])
-                op, a, b = expr
-                if a[0] == "p" and b[0] == "p":
-                    return kernels.pair_count(tape.leaves[a[1]],
-                                              tape.leaves[b[1]], op)
-                return kernels.tree_count(tape.leaves, _postfix(expr))
+            fn = _CountProgram(sig)
+            self._fn_keys[id(fn)] = full_sig
         else:
             def fn(*args):
                 tape = _Tape()
@@ -569,113 +769,413 @@ class Planner:
                     shards: tuple) -> torch.Tensor:
         """Stack of one row across shards on the device."""
         return self._cached(idx, field_name, view, row_id, shards, lambda: (
-            bitops.to_device_words(self._plane_words(idx, field_name, view,
-                                                     row_id, shards), self.device)))
+            self._build_stack(idx, field_name, view, row_id, shards)))
 
     def _stack_planes(self, idx: Index, field_name: str, depth: int,
                       shards: tuple) -> torch.Tensor:
-        """[depth, S_pad, W] cube of a BSI field's magnitude planes, built
-        plane by plane straight into one device tensor and cached like a
-        row stack. The key carries the depth, so a field whose bit depth
-        grew reads a new cube. Depth 0 gives an empty cube."""
+        """[depth, S_pad, W] cube of a BSI field's magnitude planes, uploaded
+        plane by plane into one device tensor and cached like a row stack.
+        The key carries the depth, so a field whose bit depth grew reads a
+        new cube. Depth 0 gives an empty cube."""
         view = view_bsi_name(field_name)
+        s_pad = self._pad(len(shards))
 
-        def build() -> torch.Tensor:
-            cube = torch.empty((depth, self._pad(len(shards)), WORDS_PER_SHARD),
-                               dtype=torch.int32, device=self.device)
+        def build():
+            cube = self._alloc((depth, s_pad, WORDS_PER_SHARD))
             for i in range(depth):
-                words = self._plane_words(idx, field_name, view,
-                                          BSI_OFFSET_BIT + i, shards)
-                cube[i].copy_(torch.from_numpy(words.view(np.int32)))
-            return cube
+                self._upload_into(cube[i], functools.partial(
+                    self._fill_plane, idx, field_name, view, BSI_OFFSET_BIT + i,
+                    shards))
+            return cube, self._upload_done()
 
         return self._cached(idx, field_name, view, ("planes", depth), shards,
                             build)
 
     def _cached(self, idx: Index, field_name: str, view: str, tag, shards: tuple,
-                build: Callable[[], torch.Tensor]) -> torch.Tensor:
+                build: Callable) -> torch.Tensor:
         """The device tensor ``build()`` makes from (field, view, shards),
-        cached until any involved fragment mutates. Validation is two-tier:
-        an O(1) index-epoch compare, then (only when the epoch moved) the
-        per-fragment generation walk — if that shows the fragments
-        unchanged the entry is re-stamped instead of re-uploaded.
+        cached until any involved fragment mutates. ``build`` returns the
+        tensor, or (tensor, event) when its upload runs on the upload
+        stream: every reader's stream then waits on the event before using
+        it. Validation is two-tier: an O(1) index-epoch compare, then (only
+        when the epoch moved) the per-fragment generation walk -- if that
+        shows the fragments unchanged the entry is re-stamped instead of
+        re-uploaded.
 
-        One build per key at a time: a thread that misses while another
-        builds the same key waits for it and looks again, so concurrent
-        queries on a cold 2 GiB cube share one build and one upload."""
+        A miss first meets the prefetcher: an upload of the key in flight
+        is waited for (a prefetch hit) instead of repeated; only then does
+        the query build it itself (a sync miss). One build per key at a
+        time: a thread that misses while another builds the same key waits
+        for it and looks again, so concurrent queries on a cold 2 GiB cube
+        share one build and one upload."""
         key = (idx.name, idx.instance_id, field_name, view, tag, shards)
+        worker = self.prefetcher.is_worker()
+        rendezvous = not worker
         while True:
             epoch = idx.epoch.value
             with self._cache_lock:
                 hit = self._stack_cache.get(key)
                 gens = None
                 if hit is not None:
+                    if hit[0] != epoch:
+                        gens = self._gens(idx.name, field_name, view, shards)
+                        if gens == hit[1]:
+                            hit = self._stack_cache[key] = (epoch, gens, hit[2],
+                                                            hit[3])
                     if hit[0] == epoch:
                         self._stack_cache.move_to_end(key)
-                        return hit[2]
-                    gens = self._gens(idx.name, field_name, view, shards)
-                    if gens == hit[1]:
-                        self._stack_cache[key] = (epoch, gens, hit[2])
-                        self._stack_cache.move_to_end(key)
-                        return hit[2]
+                        return self._ready(hit[2], hit[3])
                 building = self._building.get(key)
-                if building is None:
+                if building is None and not rendezvous:
                     building = self._building[key] = threading.Event()
                     break
+            if rendezvous:
+                rendezvous = False
+                self.prefetcher.wait(key)  # returns at once with none in flight
+                continue
             building.wait()
+        if not worker:
+            self.prefetcher.note_sync_miss()
         # Build outside the lock: row materialization and the upload can
         # be slow.
         try:
             if gens is None:
                 gens = self._gens(idx.name, field_name, view, shards)
-            arr = build()
-            self._insert_stack(key, epoch, gens, arr)
+            out = build()
+            arr, ev = out if isinstance(out, tuple) else (out, None)
+            self._insert_stack(key, epoch, gens, arr, ev)
         finally:
             with self._cache_lock:
                 del self._building[key]
             building.set()
+        return self._ready(arr, ev)
+
+    def _ready(self, arr: torch.Tensor, ev) -> torch.Tensor:
+        """``arr``, with the calling thread's current stream made to wait
+        for its upload first (a stack the upload stream wrote)."""
+        if ev is not None:
+            torch.cuda.current_stream(arr.device).wait_event(ev)
         return arr
 
     def _insert_stack(self, key: tuple, epoch: int, gens: tuple,
-                      arr: torch.Tensor) -> None:
-        """Insert first, then evict LRU entries past the byte budget."""
-        nbytes = arr.numel() * arr.element_size()
+                      arr: torch.Tensor, ev=None) -> None:
+        """Insert first, then evict LRU entries past the byte budget (the
+        eviction is double-buffered, as in the JAX planner: a prefetched
+        stack lands before its victim goes)."""
+        nbytes = _residency.stack_nbytes(arr)
         with self._cache_lock:
             self.uploads += 1
             self.upload_bytes += nbytes
             old = self._stack_cache.pop(key, None)
             if old is not None:
-                self._cache_bytes -= old[2].numel() * old[2].element_size()
-            self._stack_cache[key] = (epoch, gens, arr)
+                self._cache_bytes -= _residency.stack_nbytes(old[2])
+            self._stack_cache[key] = (epoch, gens, arr, ev)
             self._cache_bytes += nbytes
             while (self._cache_bytes > self.max_cache_bytes
                    and len(self._stack_cache) > 1):
-                _, (_, _, dropped) = self._stack_cache.popitem(last=False)
-                self._cache_bytes -= dropped.numel() * dropped.element_size()
+                _, dropped = self._stack_cache.popitem(last=False)
+                self._cache_bytes -= _residency.stack_nbytes(dropped[2])
                 self.evictions += 1
+            resident = self._cache_bytes
+        if self.stats is not None:
+            for k in _residency.REPR_CLASSES:
+                self.stats.gauge(f"planner.residentBytes.{k}",
+                                 resident if k == _residency.DENSE else 0)
 
     def cache_stats(self) -> dict:
-        """Locked snapshot of the stack cache's device-memory occupancy,
-        for /debug/heap and the runtime gauges."""
+        """Locked snapshot of the stack cache's device-memory occupancy and
+        the launch counts, for /debug/heap, /debug/device and the runtime
+        gauges: the JAX planner's keys, every stack in the dense class."""
         with self._cache_lock:
-            return {"bytes": self._cache_bytes,
-                    "budget_bytes": self.max_cache_bytes,
-                    "entries": len(self._stack_cache),
-                    "evictions": self.evictions,
-                    "uploads": self.uploads,
-                    "upload_bytes": self.upload_bytes,
-                    "programs": len(self._fn_cache)}
+            out = {"bytes": self._cache_bytes,
+                   "budget_bytes": self.max_cache_bytes,
+                   "entries": len(self._stack_cache),
+                   "evictions": self.evictions,
+                   "uploads": self.uploads,
+                   "upload_bytes": self.upload_bytes,
+                   "bucket_policy": self.bucket_policy,
+                   "class_bytes": {k: (self._cache_bytes if k == _residency.DENSE
+                                       else 0)
+                                   for k in _residency.REPR_CLASSES},
+                   "residency_mode": _residency.mode(),
+                   "programs": len(self._fn_cache)}
+        with self._dispatch_lock:
+            out["dispatches"] = self.dispatches
+            out["dispatches_coalesced"] = self.dispatches_coalesced
+        return out
 
-    def _plane_words(self, idx: Index, field_name: str, view: str,
-                     row_id: int, shards: tuple) -> np.ndarray:
-        """One row across ``shards`` as [S_pad, W] uint32 host words; rows
-        past the last shard stay zero."""
-        mat = np.zeros((self._pad(len(shards)), WORDS_PER_SHARD), dtype=np.uint32)
+    def device_debug(self) -> dict:
+        """The /debug/device payload's planner half (reference
+        planner.py:1038): residency, churn, the prefetch pipeline, the
+        program population and the lifetime batch-width histogram."""
+        out = self.cache_stats()
+        with self._dispatch_lock:
+            out["batch_width_hist"] = self._width_hist.snapshot()
+        out["queue_depth"] = self.coalescer.queue_depth()
+        out["transfer"] = self.batcher.debug()
+        out["prefetch"] = self.prefetcher.debug()
+        return out
+
+    def close(self) -> None:
+        """Stop the prefetcher, coalescer and batcher threads (each drains
+        what it holds first)."""
+        self.prefetcher.close()
+        self.coalescer.close()
+        self.batcher.close()
+
+    # ------------------------------------------------------------------
+    # the async miss path (reference planner.py:1448-1525)
+    # ------------------------------------------------------------------
+
+    def _leaf_stacks(self, idx: Index, leaves: list, shards: tuple):
+        """(cache key, build) of every stack the plan's leaves will fetch:
+        a row leaf's stack, a BSI leaf's exists and sign stacks and its
+        magnitude cube; pred and const leaves upload nothing."""
+        for leaf in leaves:
+            kind = leaf[0]
+            if kind == "row":
+                _, field_name, view, row_id = leaf
+                yield ((idx.name, idx.instance_id, field_name, view, row_id, shards),
+                       functools.partial(self._stack_rows, idx, field_name, view,
+                                         row_id, shards))
+            elif kind == "bsi":
+                _, field_name, depth = leaf
+                view = view_bsi_name(field_name)
+                for bit in (BSI_EXISTS_BIT, BSI_SIGN_BIT):
+                    yield ((idx.name, idx.instance_id, field_name, view, bit, shards),
+                           functools.partial(self._stack_rows, idx, field_name,
+                                             view, bit, shards))
+                yield ((idx.name, idx.instance_id, field_name, view,
+                        ("planes", depth), shards),
+                       functools.partial(self._stack_planes, idx, field_name,
+                                         depth, shards))
+
+    def _prefetch_leaves(self, idx: Index, leaves: list, shards: tuple) -> None:
+        """Peek the plan's full leaf set before execution and schedule an
+        upload of every stack that is not resident, so the query's fetches
+        wait on uploads already in flight instead of starting their own.
+        The prefetcher dedupes by key: a wave of one plan prefetches the
+        union of its leaves, one upload each."""
+        if not (shards and self.prefetcher.enabled()):
+            return
+        epoch = idx.epoch.value
+        for key, build in self._leaf_stacks(idx, leaves, shards):
+            with self._cache_lock:
+                hit = self._stack_cache.get(key)
+                if hit is not None and hit[0] == epoch:
+                    continue  # resident and current
+            self.prefetcher.schedule(key, build)
+
+    # ------------------------------------------------------------------
+    # uploads: pinned host buffers, copied on the upload stream
+    # ------------------------------------------------------------------
+
+    def _sparse_upload_enabled(self) -> bool:
+        """COO uploads pay off where the host-to-device link is the
+        expensive one: a CUDA device over PCIe (the JAX planner turns them
+        on for its TPU link, planner.py:1340). On the CPU the 'upload' is a
+        memcpy, and the dense path stays."""
+        return self.device.type == "cuda"
+
+    def _alloc(self, shape) -> torch.Tensor:
+        """An uninitialised int32 device tensor on the calling thread's
+        current stream, for an upload to fill."""
+        return torch.empty(shape, dtype=torch.int32, device=self.device)
+
+    def _stream(self):
+        if self._upload_stream is None:
+            with self._cache_lock:
+                if self._upload_stream is None:
+                    self._upload_stream = torch.cuda.Stream(device=self.device)
+        return self._upload_stream
+
+    def _upload_into(self, dst: torch.Tensor, fill: Callable) -> None:
+        """``fill(host)`` writes every word of a uint32 host array of
+        ``dst``'s shape; the array then lands in ``dst``. On a CUDA device
+        the array is pinned and the copy runs on the upload stream, after
+        the work the caller's stream has queued (``dst`` may reuse memory
+        that work freed); ``_upload_done`` gives the event that follows."""
+        if self.device.type != "cuda":
+            host = np.empty(dst.shape, dtype=np.uint32)
+            fill(host)
+            dst.copy_(torch.from_numpy(host.view(np.int32)))
+        else:
+            host = torch.empty(dst.shape, dtype=torch.int32, pin_memory=True)
+            fill(host.numpy().view(np.uint32))
+            with torch.cuda.device(self.device):
+                up = self._stream()
+                up.wait_stream(torch.cuda.current_stream(self.device))
+                with torch.cuda.stream(up):
+                    dst.copy_(host, non_blocking=True)
+                # Freed early (an eviction), dst's memory must not go to a
+                # new tensor while the copy still writes it.
+                dst.record_stream(up)
+        with self._cache_lock:
+            self.h2d_bytes += dst.numel() * dst.element_size()
+
+    def _upload_done(self):
+        """An event after everything queued on the upload stream so far
+        (None off the card): what a reader of the upload waits on."""
+        if self.device.type != "cuda":
+            return None
+        with torch.cuda.device(self.device):
+            ev = torch.cuda.Event()
+            ev.record(self._stream())
+        return ev
+
+    def _fill_plane(self, idx: Index, field_name: str, view: str, row_id: int,
+                    shards: tuple, mat: np.ndarray) -> None:
+        """One row across ``shards`` into the [S_pad, W] uint32 ``mat``; rows
+        of absent fragments and past the last shard are zero."""
         for i, shard in enumerate(shards):
             frag = self.holder.fragment(idx.name, field_name, view, shard)
             if frag is not None:
                 mat[i] = frag.row_words(row_id)
-        return mat
+            else:
+                mat[i] = 0
+        mat[len(shards):] = 0
+
+    def _build_stack(self, idx: Index, field_name: str, view: str, row_id: int,
+                     shards: tuple):
+        """One row across ``shards`` as a device [S_pad, W] stack, and the
+        event its readers wait on. Where sparse uploads are on, shards whose
+        row holds at most SPARSE_UPLOAD_MAX_BITS bits ship as COO words
+        (one OR-reduced word per distinct word) beside the dense rows of
+        the others, padded to pow2 buckets aimed at the trash row s_pad,
+        and the ``assemble_stack`` kernel scatters them into the zeroed
+        stack (reference _build_stack, planner.py:1346-1426)."""
+        s_pad = self._pad(len(shards))
+        shape = (s_pad, WORDS_PER_SHARD)
+        if not self._sparse_upload_enabled():
+            arr = self._alloc(shape)
+            self._upload_into(arr, functools.partial(
+                self._fill_plane, idx, field_name, view, row_id, shards))
+            return arr, self._upload_done()
+        dense_idx: list[int] = []
+        dense_rows: list[np.ndarray] = []
+        coo_i: list[np.ndarray] = []
+        coo_w: list[np.ndarray] = []
+        coo_v: list[np.ndarray] = []
+        for i, shard in enumerate(shards):
+            frag = self.holder.fragment(idx.name, field_name, view, shard)
+            if frag is None:
+                continue
+            kind, payload = frag.row_upload(row_id)
+            if kind == "sparse" and len(payload) == 0:
+                continue
+            if kind == "sparse" and len(payload) <= self.SPARSE_UPLOAD_MAX_BITS:
+                w = (payload >> np.uint64(5)).astype(np.int32)
+                b = np.uint32(1) << (payload & np.uint64(31)).astype(np.uint32)
+                # Positions are sorted, so equal words are adjacent: one
+                # reduceat OR per distinct word.
+                starts = np.flatnonzero(np.diff(w, prepend=np.int32(-1)) != 0)
+                coo_i.append(np.full(len(starts), i, dtype=np.int32))
+                coo_w.append(w[starts])
+                coo_v.append(np.bitwise_or.reduceat(b, starts))
+            else:
+                dense_idx.append(i)
+                dense_rows.append(payload if kind == "dense"
+                                  else bitops.positions_to_words(payload))
+        nnz = sum(len(x) for x in coo_i)
+        if nnz == 0:
+            # No COO words: the plain dense upload moves the same bytes.
+            rows = dict(zip(dense_idx, dense_rows))
+
+            def fill(mat):
+                mat[:] = 0
+                for i, row in rows.items():
+                    mat[i] = row
+
+            arr = self._alloc(shape)
+            self._upload_into(arr, fill)
+            return arr, self._upload_done()
+
+        def bucket(n: int) -> int:
+            return 0 if n == 0 else max(8, 1 << (n - 1).bit_length())
+
+        # One pinned buffer, one copy: the dense rows, then didx, ci, cw,
+        # cv (every offset a multiple of 8 words).
+        d_pad, n_pad = bucket(len(dense_idx)), bucket(nnz)
+        body = d_pad * WORDS_PER_SHARD
+        packed = self._alloc(body + d_pad + 3 * n_pad)
+
+        def fill(buf):
+            buf[:] = 0
+            dmat = buf[:body].reshape(d_pad, WORDS_PER_SHARD)
+            for k, row in enumerate(dense_rows):
+                dmat[k] = row
+            didx = buf[body:body + d_pad]
+            didx[:] = s_pad
+            didx[:len(dense_idx)] = dense_idx
+            ci, cw, cv = (buf[body + d_pad + j * n_pad:body + d_pad + (j + 1) * n_pad]
+                          for j in range(3))
+            ci[:] = s_pad
+            ci[:nnz] = np.concatenate(coo_i)
+            cw[:nnz] = np.concatenate(coo_w)
+            cv[:nnz] = np.concatenate(coo_v)
+
+        self._upload_into(packed, fill)
+        at = body + d_pad
+        parts = [packed[at + j * n_pad:at + (j + 1) * n_pad] for j in range(3)]
+        args = (packed[body:body + d_pad], packed[:body].view(d_pad, WORDS_PER_SHARD),
+                *parts, s_pad)
+        if self.device.type != "cuda":
+            # A CPU planner whose sparse path was turned on by hand, as the
+            # parity tests do: the kernel's plain version.
+            return kernels.assemble_stack(*args), None
+        with torch.cuda.device(self.device), torch.cuda.stream(self._stream()):
+            arr = kernels.assemble_stack(*args)
+        # The stack was allocated on the upload stream: its readers run on
+        # the caller's stream, so the allocator must not hand its memory
+        # on before their work ends.
+        arr.record_stream(torch.cuda.current_stream(self.device))
+        return arr, self._upload_done()
+
+
+class _CountProgram:
+    """A count program: ``fn(*args)`` -> int32 [S_pad] per-shard counts of
+    the signature's tree over the leaf inputs, one count launch (plus the
+    compare and shift launches its leaves need); ``fn.batched([args, ...])``
+    -> [B, S_pad] for a wave of B argument lists of this signature, with
+    ONE count launch for the wave (the port's counterpart of the JAX
+    planner's jit(vmap(program)), planner.py:387-396)."""
+
+    __slots__ = ("sig",)
+
+    def __init__(self, sig: tuple):
+        self.sig = sig
+
+    def __call__(self, *args) -> torch.Tensor:
+        tape = _Tape()
+        return _count_expr(_lower(self.sig, args, tape), tape.leaves)
+
+    def batched(self, rows) -> torch.Tensor:
+        # Leaves dedupe by their place in the signature, not by tensor, so
+        # every slot lowers to the same expression and tape.
+        lowered = []
+        for args in rows:
+            tape = _Tape()
+            lowered.append((_lower(self.sig, args, tape), tape.leaves))
+        expr = lowered[0][0]
+        tables = [leaves for _, leaves in lowered]
+        if expr[0] == "p":
+            return kernels.row_counts_batched([ls[expr[1]] for ls in tables])
+        op, a, b = expr
+        if a[0] == "p" and b[0] == "p":
+            return kernels.pair_count_batched([ls[a[1]] for ls in tables],
+                                              [ls[b[1]] for ls in tables], op)
+        return kernels.tree_count_batched(tables, _postfix(expr))
+
+
+def _count_expr(expr: tuple, leaves: list) -> torch.Tensor:
+    """Per-row counts of ``expr`` over ``leaves``: row_counts of a bare
+    leaf, pair_count of a 2-leaf op, one tree_count of anything else."""
+    if expr[0] == "p":
+        return kernels.row_counts(leaves[expr[1]])
+    op, a, b = expr
+    if a[0] == "p" and b[0] == "p":
+        return kernels.pair_count(leaves[a[1]], leaves[b[1]], op)
+    return kernels.tree_count(leaves, _postfix(expr))
 
 
 class _Tape:
@@ -683,14 +1183,20 @@ class _Tape:
 
     def __init__(self):
         self.leaves: list[torch.Tensor] = []
-        self._slots: dict[int, int] = {}
+        self._slots: dict = {}
 
-    def leaf(self, t: torch.Tensor) -> tuple:
-        """``("p", i)`` for plane ``t``; one slot per tensor, so a leaf
-        used twice is one kernel input."""
-        i = self._slots.get(id(t))
+    def leaf(self, t: torch.Tensor, key=None) -> tuple:
+        """``("p", i)`` for plane ``t``. ``key`` names the plane's place in
+        the signature (an argument slot, or its exists/sign part): a leaf
+        used twice is one kernel input, and one signature lowers to one
+        tape whatever tensors its arguments hold. A computed plane (no
+        key) gets its own slot."""
+        if key is None:
+            self.leaves.append(t)
+            return ("p", len(self.leaves) - 1)
+        i = self._slots.get(key)
         if i is None:
-            i = self._slots[id(t)] = len(self.leaves)
+            i = self._slots[key] = len(self.leaves)
             self.leaves.append(t)
         return ("p", i)
 
@@ -721,7 +1227,7 @@ def _lower(sig: tuple, args, tape: _Tape) -> tuple:
     The leaves are never written in place."""
     kind = sig[0]
     if kind == "leaf":
-        return tape.leaf(args[sig[1]])
+        return tape.leaf(args[sig[1]], sig[1])
     if kind in _PAIR_OPS:
         op = _PAIR_OPS[kind]
         kids = [_lower(k, args, tape) for k in sig[1]]
@@ -731,7 +1237,7 @@ def _lower(sig: tuple, args, tape: _Tape) -> tuple:
         return acc
     if kind == "not":
         _, slot, child = sig
-        return ("andnot", tape.leaf(args[slot]), _lower(child, args, tape))
+        return ("andnot", tape.leaf(args[slot], slot), _lower(child, args, tape))
     if kind == "shift":
         _, n, child = sig
         expr = _lower(child, args, tape)
@@ -739,7 +1245,7 @@ def _lower(sig: tuple, args, tape: _Tape) -> tuple:
             return expr
         return tape.leaf(kernels.shift_left(tape.plane(expr), n))
     exists, sign, cube = args[sig[1]]
-    e, s = tape.leaf(exists), tape.leaf(sign)
+    e, s = tape.leaf(exists, (sig[1], 0)), tape.leaf(sign, (sig[1], 1))
     if kind == "bsi_notnull":
         return e
     if kind == "bsi_zero":

@@ -5,7 +5,8 @@ http/handler.go (newRouter :274-318). Implemented on the stdlib
 ThreadingHTTPServer, one thread per connection. Every route of the JAX
 node's table is mounted in the same order and matched by the same
 pattern; the routes a standalone node of this slice does not serve
-(cluster RPC, backup, key translation, device telemetry) answer 501 with a body that names the ROADMAP.md slice that brings them.
+(cluster RPC, backup, key translation) answer 501 with a body that names
+the ROADMAP.md slice that brings them.
 """
 
 from __future__ import annotations
@@ -21,7 +22,6 @@ from pilosa_tpu_torch.cache.tenant import reset_current_tenant, set_current_tena
 from pilosa_tpu_torch.errors import (
     SLICE_BACKUP,
     SLICE_CLUSTER,
-    SLICE_ASYNC,
     SLICE_KEYS,
     ApiMethodNotAllowedError,
     FieldExistsError,
@@ -471,6 +471,18 @@ def _build_routes(api: API):
                            for (n, t), v in sorted(stats.gauges.items())},
             }
 
+    def get_debug_device(pv, params, body):
+        """Device telemetry in one view (reference httpd.py:862): the
+        stack cache's residency and churn, the coalescer's batch-width
+        histogram and queue depth, the batcher's wave widths and inline
+        steals, and the prefetch pipeline."""
+        planner = getattr(api.executor, "planner", None)
+        if planner is None:
+            return 200, {"enabled": False}
+        out = planner.device_debug()
+        out["enabled"] = True
+        return 200, out
+
     def get_debug_slow_queries(pv, params, body):
         """The QoS slow-query ring plus an admission snapshot."""
         qos_ctl = api.qos
@@ -634,8 +646,7 @@ def _build_routes(api: API):
         (r"/debug/queries/(?P<trace>[^/]+)",
          {"GET": get_debug_query_profile}),
         (r"/debug/queries", {"GET": get_debug_queries}),
-        (r"/debug/device",
-         {"GET": _not_ported("GET /debug/device", SLICE_ASYNC)}),
+        (r"/debug/device", {"GET": get_debug_device}),
         (r"/debug/translate",
          {"GET": _not_ported("GET /debug/translate", SLICE_KEYS)}),
         (r"/debug/slow-queries", {"GET": get_debug_slow_queries}),

@@ -7,7 +7,9 @@ slow-query log, adaptive limit, tenant quotas, kernel warmup), the
 result cache, the query-profile ring, the runtime gauges and, with
 ``data_dir``, the ``storage.DiskStore`` that logs every write, snapshots
 and reloads the data dir at boot (and ``warmup.json``, the query shapes
-the planner saw, for the next boot's warmup to replay). Peers,
+the planner saw, for the next boot's warmup to replay), and the planner's
+async path: same-plan dispatch coalescing, inline transfer resolution,
+the residency prefetcher and the kernel build cache. Peers,
 joins, backups, scrubs and the other background sweeps come with later
 slices (ROADMAP.md Queue 1: backup and restore; cluster and operations).
 """
@@ -27,7 +29,10 @@ from pilosa_tpu_torch.exec import fuse as _dispatch_fuse
 from pilosa_tpu_torch.exec.executor import Executor
 from pilosa_tpu_torch.obs import MemoryStats, ProfileRing
 from pilosa_tpu_torch.obs.runtime import RuntimeMonitor
-from pilosa_tpu_torch.parallel import Planner
+from pilosa_tpu_torch.parallel import Planner, compile_cache
+from pilosa_tpu_torch.parallel import batcher as _transfer_batcher
+from pilosa_tpu_torch.parallel import coalesce as _dispatch_coalesce
+from pilosa_tpu_torch.parallel import prefetch as _prefetch
 from pilosa_tpu_torch.qos import (
     AdaptiveLimit,
     AdmissionController,
@@ -75,14 +80,32 @@ class ServerNode:
                  plan_buckets: str = "pow2",
                  result_cache_mb: int = 64,
                  result_cache_ttl: float = 0.0,
-                 dispatch_fuse: str = "auto"):
+                 dispatch_fuse: str = "auto",
+                 dispatch_coalesce: str = "auto",
+                 dispatch_coalesce_us: float = 150.0,
+                 inline_transfer: str = "auto",
+                 prefetch: str = "on",
+                 compile_cache_dir: str | None = None):
         host, _, port = bind.partition(":")
         self.host, self.port = host or "127.0.0.1", int(port or 10101)
         self.stats = MemoryStats()
         self.holder = Holder(device=device)
         self.data_dir = data_dir
-        planner = (Planner(self.holder, bucket_policy=plan_buckets)
-                   if use_planner else None)
+        # The kernel build cache: None/"" resolves to <data dir>/compile-cache
+        # (nodes without a data dir build under build/kernels/), "off"
+        # disables it (reference node.py:175-190).
+        if not compile_cache_dir:
+            compile_cache_dir = (os.path.join(data_dir, "compile-cache")
+                                 if data_dir else "")
+        self.compile_cache_dir = ("" if compile_cache_dir == "off"
+                                  else compile_cache_dir)
+        planner = None
+        if use_planner:
+            if self.compile_cache_dir:
+                compile_cache.enable(self.compile_cache_dir)
+            planner = Planner(self.holder, bucket_policy=plan_buckets,
+                              stats=self.stats,
+                              coalesce_window_us=dispatch_coalesce_us)
         # Plan-keyed result cache: byte-bounded, tenant-partitioned;
         # <= 0 MB disables it (every query then runs).
         self.result_cache = None
@@ -93,9 +116,14 @@ class ServerNode:
         self.executor = Executor(self.holder, planner=planner,
                                  stats=self.stats,
                                  result_cache=self.result_cache)
-        # Partial fusion of mixed trees (exec/fuse.py);
-        # PILOSA_TPU_DISPATCH_FUSE overrides.
+        # Partial fusion of mixed trees (exec/fuse.py), same-plan dispatch
+        # coalescing, inline transfer resolution and the async miss path;
+        # PILOSA_TPU_DISPATCH_FUSE / _DISPATCH_COALESCE / _INLINE_TRANSFER /
+        # _PREFETCH override per run.
         _dispatch_fuse.set_mode(dispatch_fuse)
+        _dispatch_coalesce.set_mode(dispatch_coalesce)
+        _transfer_batcher.set_inline_mode(inline_transfer)
+        _prefetch.set_mode(prefetch)
         self._qos_warmup = qos_warmup
         self._qos_warmup_shards = qos_warmup_shards
         self.warmup = None
@@ -203,6 +231,8 @@ class ServerNode:
         if self.warmup is not None:
             self.warmup.close()
         self._save_observed_traffic()
+        if self.executor.planner is not None:
+            self.executor.planner.close()
         if self.store is not None:
             self.store.close()
 

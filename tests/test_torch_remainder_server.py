@@ -240,7 +240,7 @@ def test_warmup_replays_the_observed_traffic(tmp_path):
 
 
 def test_cli_takes_the_executor_flags(monkeypatch):
-    """The flags of this slice reach ServerNode; the async path's exit 2."""
+    """The flags of the executor remainder reach ServerNode."""
     from pilosa_tpu_torch import cli
     from pilosa_tpu_torch.server import node as node_mod
 

@@ -358,7 +358,8 @@ def _served(path: str) -> bool:
         "/debug/overload", "/debug/threads", "/debug/profile",
         "/recalculate-caches", "/internal/fragment/nodes", "/internal/shards/max",
         "/index/{index}/field/{field}/import-roaring/{shard}", "/debug/quarantine",
-        "/debug/heap", "/debug/cache", "/internal/attr/blocks", "/internal/attr/data"}
+        "/debug/heap", "/debug/cache", "/internal/attr/blocks", "/internal/attr/data",
+        "/debug/device"}
 
 
 def _unported_routes():
@@ -628,8 +629,8 @@ def test_node_defaults_to_the_card(monkeypatch):
     (["--archive-url", "x"], "backup and restore"),
     (["--scrub-interval", "1"], "cluster and operations"),
     (["--trace-endpoint", "http://127.0.0.1:1"], "cluster and operations"),
-    (["--dispatch-coalesce", "on"], "executor remainder: async path"),
-    (["--prefetch", "on"], "executor remainder: async path"),
+    (["--residency-packed", "on"], "packed residency, time, mutex and bool fields, GroupBy"),
+    (["--translate-planes", "on"], "keys and sketches"),
     (["--sketch-precision", "10"], "keys and sketches"),
 ])
 def test_cli_refuses_unported_flags(capsys, argv, slice_name):
