@@ -52,7 +52,9 @@ port's paths:
   3-leaf Counts ONE ``tree_count_batched``; a planner whose budget holds 3
   of 6 stacks cycles Counts with the prefetcher on and no synchronous
   upload; the sparse row's cold Count is ONE ``assemble_stack`` launch,
-  beside a cold dense row's bytes and time.
+  beside a cold dense row's bytes and time, each the median of 5 cold
+  samples split into host gather, pinned buffer, fill, copy,
+  ``assemble_stack`` and count.
 
 The HTTP phase runs its 1 and 8 concurrent clients with dispatch
 coalescing off (launches equal to the serial sum) and on ``auto`` (at most
@@ -277,20 +279,46 @@ def phase_toolchain(torch, card: str) -> dict:
     return {"build_s": secs}
 
 
-def assemble_inputs(rng, s_pad: int, n_dense: int, words: int):
-    """(didx, dmat, ci, cw, cv, s_pad) as the planner's sparse upload lays
-    them out: rows [0, n_dense) dense, every other row at most 2048 random
-    bits as OR-reduced COO words (row 20 two all-ones words, row 21 only
-    bit-31 words), both padded to pow2 buckets aimed at the trash row."""
+def coo_words(pos: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Sorted bit positions as the planner's OR-reduced COO words: (word
+    indices int32, words uint32), one per distinct word."""
+    w, b = pos >> 5, np.uint32(1) << (pos & 31).astype(np.uint32)
+    starts = np.flatnonzero(np.diff(w, prepend=-1) != 0)
+    return w[starts].astype(np.int32), np.bitwise_or.reduceat(b, starts)
+
+
+def pack_assemble(s_pad: int, words: int, dense: dict, coo: dict):
+    """(didx, dmat, ci, cw, cv, s_pad) as the planner packs a sparse upload:
+    ``dense`` (row -> words) in row order, then ``coo`` (row -> (word
+    indices, words)) grouped by row, rows ascending, each row's words in
+    the order given; both padded to pow2 buckets (at least 8) aimed at row
+    s_pad, one past the stack."""
     def bucket(n):
         return 0 if n == 0 else max(8, 1 << (n - 1).bit_length())
 
-    d_pad = bucket(n_dense)
+    d_pad = bucket(len(dense))
     dmat = np.zeros((d_pad, words), dtype=np.uint32)
-    dmat[:n_dense] = seeded_words(rng, (n_dense, words))
     didx = np.full(d_pad, s_pad, dtype=np.int32)
-    didx[:n_dense] = np.arange(n_dense)
-    ci, cw, cv = [], [], []
+    for k, row in enumerate(sorted(dense)):
+        didx[k], dmat[k] = row, dense[row]
+    rows = sorted(coo)
+    nnz = sum(len(coo[r][0]) for r in rows)
+    n_pad = bucket(nnz)
+    ci = np.full(n_pad, s_pad, dtype=np.int32)
+    cw, cv = np.zeros(n_pad, dtype=np.int32), np.zeros(n_pad, dtype=np.uint32)
+    if nnz:
+        ci[:nnz] = np.concatenate([np.full(len(coo[r][0]), r, dtype=np.int32) for r in rows])
+        cw[:nnz] = np.concatenate([coo[r][0] for r in rows])
+        cv[:nnz] = np.concatenate([coo[r][1] for r in rows])
+    return didx, dmat, ci, cw, cv, s_pad
+
+
+def assemble_inputs(rng, s_pad: int, n_dense: int, words: int):
+    """The planner's sparse upload at scale: rows [0, n_dense) dense, every
+    other row at most 2048 random bits as COO words (row 20 two all-ones
+    words, row 21 only bit-31 words)."""
+    dense = dict(enumerate(seeded_words(rng, (n_dense, words))))
+    coo = {}
     for row in range(n_dense, s_pad):
         if row == 20:
             pos = np.concatenate([np.arange(0, 32), np.arange(64, 96)])
@@ -299,18 +327,50 @@ def assemble_inputs(rng, s_pad: int, n_dense: int, words: int):
         else:
             k = int(rng.integers(1, min(2048, words * 32) + 1))
             pos = np.sort(rng.choice(words * 32, k, replace=False))
-        w, b = pos >> 5, np.uint32(1) << (pos & 31).astype(np.uint32)
-        starts = np.flatnonzero(np.diff(w, prepend=-1) != 0)
-        ci.append(np.full(len(starts), row, dtype=np.int32))
-        cw.append(w[starts].astype(np.int32))
-        cv.append(np.bitwise_or.reduceat(b, starts))
-    nnz = sum(len(x) for x in ci)
-    n_pad = bucket(nnz)
-    out = [np.full(n_pad, s_pad, dtype=np.int32), np.zeros(n_pad, dtype=np.int32),
-           np.zeros(n_pad, dtype=np.uint32)]
-    for arr, parts in zip(out, (ci, cw, cv)):
-        arr[:nnz] = np.concatenate(parts)
-    return (didx, dmat, *out, s_pad)
+        coo[row] = coo_words(pos)
+    return pack_assemble(s_pad, words, dense, coo)
+
+
+#: assemble_stack's edge cases: held to its plain version on the card here,
+#: and to the JAX package's _assemble_stack on the CPU by
+#: tests/test_torch_upload.py.
+ASSEMBLE_CASES = ("s_pad_1", "no_dense", "no_coo", "empty_row", "word_edges",
+                  "ones_bit31", "unsorted_words", "odd_width", "dense_and_coo")
+
+
+def assemble_case(name: str, seed: int = SEED):
+    """One edge case's (didx, dmat, ci, cw, cv, s_pad), packed as the planner
+    packs them. The base: 8 rows of 32768 words, rows 1 and 4 dense, every
+    other row 1-300 random bits as COO words. Each case changes one thing:
+    ``s_pad_1`` one COO row; ``no_dense``; ``no_coo``; ``empty_row`` row 3
+    neither dense nor COO; ``word_edges`` words 0 and W - 1 in every COO
+    row; ``ones_bit31`` all-ones words in even rows, bit-31-only words in
+    odd ones; ``unsorted_words`` each row's words shuffled;
+    ``odd_width`` W = 6243 (the scalar path); ``dense_and_coo`` rows 1 and
+    4 COO words too, on top of their dense rows."""
+    if name not in ASSEMBLE_CASES:
+        raise ValueError(f"unknown assemble case {name!r}")
+    rng = np.random.default_rng(seed)
+    s_pad = 1 if name == "s_pad_1" else 8
+    words = 6243 if name == "odd_width" else 32768
+    dense_rows = [] if name in ("s_pad_1", "no_dense") else [1, 4]
+    dense = dict(zip(dense_rows, seeded_words(rng, (len(dense_rows), words))))
+    coo = {}
+    for row in range(s_pad):
+        if (name == "no_coo" or (row in dense and name != "dense_and_coo")
+                or (name == "empty_row" and row == 3)):
+            continue
+        pos = np.sort(rng.choice(words * 32, int(rng.integers(1, 301)), replace=False))
+        if name == "word_edges":
+            pos = np.union1d(pos, [0, 31, words * 32 - 32, words * 32 - 1])
+        w, v = coo_words(pos)
+        if name == "ones_bit31":
+            v[:] = 0xFFFFFFFF if row % 2 == 0 else 0x80000000
+        if name == "unsorted_words":
+            order = rng.permutation(len(w))
+            w, v = w[order], v[order]
+        coo[row] = (w, v)
+    return pack_assemble(s_pad, words, dense, coo)
 
 
 # -- phase 2: each kernel against its plain version --------------------------
@@ -543,14 +603,18 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
                   "2 x 3 x [7, 6243]")
     # assemble_stack at 1024 shards: 16 dense rows, every other shard at
     # most 2048 bits as COO words (all-ones words in shard 20, bit-31-only
-    # words in shard 21), pow2 padding aimed at the trash row.
+    # words in shard 21), pow2 padding aimed at row 1024, one past the
+    # stack; then the edge cases of tests/test_torch_upload.py.
+    def asm_tensors(inputs):
+        return tuple(t(x) if x.dtype == np.uint32 else torch.from_numpy(x).to(dev)
+                     for x in inputs[:5]) + (inputs[5],)
+
     asm = assemble_inputs(rng, 1024, 16, w)
-    asm_args = tuple(t(x) if x.dtype == np.uint32 else torch.from_numpy(x).to(dev)
-                     for x in asm[:5]) + (asm[5],)
+    asm_args = asm_tensors(asm)
     check_assemble(asm_args, f"[1024, 32768], {asm[2].shape[0]} COO words")
-    small = assemble_inputs(rng, 5, 2, 6243)
-    check_assemble(tuple(t(x) if x.dtype == np.uint32 else torch.from_numpy(x).to(dev)
-                         for x in small[:5]) + (small[5],), "[5, 6243] (scalar)")
+    check_assemble(asm_tensors(assemble_inputs(rng, 5, 2, 6243)), "[5, 6243] (scalar)")
+    for case in ASSEMBLE_CASES:
+        check_assemble(asm_tensors(assemble_case(case)), case)
     del leaves9, tables9
     log(f"kernel checks: exact on every op and shape; max |err| {errs}")
 
@@ -634,11 +698,23 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
     check_batched("pair_count_batched", kernels.pair_count_batched(topn_tiles, topn_filts, "and"),
                   kernels.pair_count_batched_plain(topn_tiles, topn_filts, "and"),
                   "30 x [512, 32768] x [32768]")
-    # The library call beside assemble_stack: index_put_ of the COO words
-    # into a zeroed stack, the one PyTorch call that does the same scatter.
+    # The library calls beside assemble_stack: the same function from
+    # PyTorch calls (a zeroed stack with the trash row the padding aims
+    # at, index_put_ of the dense rows, index_put_ of the COO words, the
+    # trash row cut off), and index_put_ of the COO words alone into a
+    # stack already zeroed.
     lib_out = torch.zeros((1025, w), dtype=torch.int32, device=dev)
+    lib_didx = (asm_args[0].long(),)
     lib_idx = (asm_args[2].long(), asm_args[3].long())
-    library = {"assemble_stack": lambda: lib_out.index_put_(lib_idx, asm_args[4])}
+
+    def assemble_library():
+        out = torch.zeros((1025, w), dtype=torch.int32, device=dev)
+        out.index_put_(lib_didx, asm_args[1])
+        return out.index_put_(lib_idx, asm_args[4])[:1024]
+
+    if not torch.equal(assemble_library(), kernels.assemble_stack(*asm_args)):
+        raise AssertionError("assemble_stack: the library calls compute another stack")
+    library = {"assemble_stack": assemble_library}
     tree3 = [big_a, big_b, t(seeded_words(rng, (1024, w)))]
     # The path the 3-leaf Count took before tree_count: two elementwise
     # torch ops writing 128 MiB planes, then row_counts.
@@ -653,9 +729,23 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
         bound, by = bound_ms(nbytes, ops)
         lib = time_cuda_ms(torch, library[name], KERNEL_RUNS) if name in library else None
         lib_text = f"; library {lib:.4f} ms" if lib is not None else ""
+        if name == "assemble_stack":
+            alone = time_cuda_ms(torch, lambda: lib_out.index_put_(lib_idx, asm_args[4]),
+                                 KERNEL_RUNS)
+            lib_text += f" (same function), index_put_ of the COO words alone {alone:.4f} ms"
         log(f"kernel {name} {shape}: {ms:.4f} ms, bound {bound:.4f} ms ({by}), "
             f"{bound / ms:.1%} of bound; plain {plain:.4f} ms{lib_text}  [{card}]")
         timings.setdefault(name, (ms, plain, bound, by, lib))
+    # Two floors beside assemble_stack at the same shape: the kernel on the
+    # same dense rows with no COO words (every tile stored straight, no
+    # shared-memory tile), and torch.zeros of the stack (the card's write
+    # rate for these bytes).
+    no_coo = asm_args[:2] + tuple(x[:0] for x in asm_args[2:5]) + (asm_args[5],)
+    floor_ms = time_cuda_ms(torch, lambda: kernels.assemble_stack(*no_coo), KERNEL_RUNS)
+    zeros_ms = time_cuda_ms(torch, lambda: torch.zeros((1024, w), dtype=torch.int32,
+                                                       device=dev), KERNEL_RUNS)
+    log(f"assemble_stack floors at [1024, 32768]: no COO words {floor_ms:.4f} ms; "
+        f"torch.zeros of the stack {zeros_ms:.4f} ms  [{card}]")
     del cube, cube40, tree3, batch_a, batch_b, tables3, lib_out, topn_tiles
     log(f"kernels: {json.dumps(sorted(errs))}")
     return {"timings": timings, "errs": errs, "torch_3leaf_ms": torch_ms}
@@ -2096,6 +2186,8 @@ ASYNC_FUTURES = 200
 #: the sparse row: at most SPARSE_UPLOAD_MAX_BITS (2048) bits in each shard.
 ASYNC_SPARSE_ROW = 30
 ASYNC_SPARSE_BITS = 1000
+#: cold samples of each cold Count, each on a new planner.
+COLD_SAMPLES = 5
 ASYNC_KERNELS = ("pair_count", "row_counts", "tree_count", "pair_count_batched",
                  "row_counts_batched", "tree_count_batched", "assemble_stack")
 
@@ -2146,7 +2238,8 @@ def phase_async(torch, card: str, data: dict, n_futures: int = ASYNC_FUTURES) ->
     and 3-leaf Counts (one ``tree_count_batched``); a planner whose budget
     holds 3 of 6 stacks cycling Counts with the prefetcher on (no sync
     miss); and a cold row of at most 2048 bits per shard (one
-    ``assemble_stack``) beside a cold dense row. Set-up: rows 10..17 of f
+    ``assemble_stack``) beside a cold dense row, COLD_SAMPLES each, split
+    into the upload's phases and the count. Set-up: rows 10..17 of f
     and g (random words) and the sparse row f=30."""
     from pilosa_tpu_torch.config import WORDS_PER_SHARD
     from pilosa_tpu_torch.exec import Executor, residency
@@ -2294,27 +2387,50 @@ def phase_async(torch, card: str, data: dict, n_futures: int = ASYNC_FUTURES) ->
         planner.close()
     del pex, planner
 
-    # The sparse upload, cold, beside a cold dense row.
+    # The sparse upload, cold, beside a cold dense row: COLD_SAMPLES cold
+    # Counts each, every one on a new planner, split into the upload's
+    # phases (Planner.upload_split_ms) and the count (the same Count again,
+    # its stack resident).
     cold = {}
     for row, want in ((ASYNC_SPARSE_ROW, n_shards * ASYNC_SPARSE_BITS),
                       (1, data["want_count"]["count_row"])):
-        planner = Planner(h)
-        cex = Executor(h, planner=planner, result_cache=False)
-        try:
-            before = dict(kernels.LAUNCHES)
-            t0 = time.perf_counter()
-            (got,) = cex.execute("bench", f"Count(Row(f={row}))", cache=False)
-            ms = (time.perf_counter() - t0) * 1e3
-            delta = {k: kernels.LAUNCHES[k] - before[k] for k in before if
-                     kernels.LAUNCHES[k] != before[k]}
-            cold[row] = (ms, planner.h2d_bytes, delta)
-            if got != want:
-                raise AssertionError(f"cold Count(Row(f={row})): {got}, numpy {want}")
-        finally:
-            planner.close()
-    ms, nbytes, delta = cold[ASYNC_SPARSE_ROW]
-    if device == "cuda" and delta != {"assemble_stack": 1, "row_counts": 1}:
-        raise AssertionError(f"cold sparse row launched {delta}")
+        q = f"Count(Row(f={row}))"
+        samples = []
+        for _ in range(COLD_SAMPLES):
+            planner = Planner(h)
+            cex = Executor(h, planner=planner, result_cache=False)
+            try:
+                before = dict(kernels.LAUNCHES)
+                t0 = time.perf_counter()
+                (got,) = cex.execute("bench", q, cache=False)
+                ms = (time.perf_counter() - t0) * 1e3
+                delta = {k: kernels.LAUNCHES[k] - before[k] for k in before if
+                         kernels.LAUNCHES[k] != before[k]}
+                if got != want:
+                    raise AssertionError(f"cold {q}: {got}, numpy {want}")
+                if row == ASYNC_SPARSE_ROW and device == "cuda" and delta != {
+                        "assemble_stack": 1, "row_counts": 1}:
+                    raise AssertionError(f"cold sparse row launched {delta}")
+                split = planner.upload_split_ms()
+                t0 = time.perf_counter()
+                (got,) = cex.execute("bench", q, cache=False)
+                split["count"] = (time.perf_counter() - t0) * 1e3
+                if got != want:
+                    raise AssertionError(f"warm {q}: {got}, numpy {want}")
+                # The host's part of the assemble_stack call lies within
+                # the device span from the copy's end to the kernel's.
+                split["other"] = ms - sum(v for k, v in split.items() if k != "assemble_host")
+                samples.append((ms, planner.h2d_bytes, delta, split))
+            finally:
+                planner.close()
+        totals = [x[0] for x in samples]
+        median = {k: statistics.median(x[3][k] for x in samples) for k in samples[0][3]}
+        cold[row] = (statistics.median(totals), samples[0][1], samples[0][2], median)
+        parts = ", ".join(f"{k} {v:.3f}" for k, v in median.items())
+        log(f"cold {q}: median {cold[row][0]:.3f} ms of {COLD_SAMPLES} cold samples "
+            f"({', '.join(f'{x:.3f}' for x in totals)}), {samples[0][1]} bytes host to "
+            f"device, launches {samples[0][2]}; median split (ms): {parts}  [{card}]")
+    ms, nbytes, delta, _ = cold[ASYNC_SPARSE_ROW]
     log(f"sparse upload: cold Count(Row(f={ASYNC_SPARSE_ROW})) ({ASYNC_SPARSE_BITS} bits "
         f"per shard) {ms:.3f} ms, {nbytes} bytes host to device, launches {delta}; "
         f"cold dense Count(Row(f=1)) {cold[1][0]:.3f} ms, {cold[1][1]} bytes  [{card}]")

@@ -20,9 +20,9 @@
   the counterpart of ``jax.vmap`` of the count program in the JAX
   coalescer (pilosa_tpu/parallel/coalesce.py ``_flush_batched``).
 - ``assemble_stack`` (``csrc/upload_kernels.cu``) builds an ``[S_pad, W]``
-  stack on the device from a few dense rows and COO words: the
-  sparse-upload scatter of pilosa_tpu/parallel/planner.py
-  ``_assemble_stack``.
+  stack on the device from a few dense rows and COO words grouped by row,
+  each tile of it built once and written once: the sparse-upload scatter
+  of pilosa_tpu/parallel/planner.py ``_assemble_stack``.
 
 On a CUDA tensor each wrapper launches its hand-written kernel (built at
 first use, see ``ops/build.py``) or raises; on a CPU tensor it runs the
@@ -305,19 +305,18 @@ def tree_count_batched_plain(leaf_tables, tape) -> torch.Tensor:
 
 
 def assemble_stack_plain(didx, dmat, ci, cw, cv, s_pad: int) -> torch.Tensor:
-    """pilosa_tpu/parallel/planner.py _assemble_stack (:2046): zeros of
-    ``[s_pad + 1, W]``, dense row k stored at row ``didx[k]``, word
-    ``cv[i]`` at ``(ci[i], cw[i])``, rows ``[0, s_pad)`` returned (row
-    ``s_pad`` is the trash row the padding targets). Entries outside the
-    rows ``[0, s_pad]`` or the words ``[0, W)`` are skipped, as the kernel
-    skips them."""
+    """pilosa_tpu/parallel/planner.py _assemble_stack (:2046): an
+    ``[s_pad, W]`` stack of zeros, dense row k stored at row ``didx[k]``,
+    then word ``cv[i]`` at ``(ci[i], cw[i])``. Entries outside the rows
+    ``[0, s_pad)`` (the padding aims at row ``s_pad``) or the words
+    ``[0, W)`` are skipped, as the kernel skips them."""
     words = dmat.shape[-1]
-    out = torch.zeros((s_pad + 1, words), dtype=torch.int32, device=dmat.device)
-    keep = (didx >= 0) & (didx <= s_pad)
+    out = torch.zeros((s_pad, words), dtype=torch.int32, device=dmat.device)
+    keep = (didx >= 0) & (didx < s_pad)
     out.index_put_((didx[keep].long(),), dmat[keep])
-    keep = (ci >= 0) & (ci <= s_pad) & (cw >= 0) & (cw < words)
+    keep = (ci >= 0) & (ci < s_pad) & (cw >= 0) & (cw < words)
     out.index_put_((ci[keep].long(), cw[keep].long()), cv[keep])
-    return out[:s_pad]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -828,12 +827,25 @@ def tree_count_batched(leaf_tables, tape) -> torch.Tensor:
 def assemble_stack(didx: torch.Tensor, dmat: torch.Tensor, ci: torch.Tensor,
                    cw: torch.Tensor, cv: torch.Tensor, s_pad: int) -> torch.Tensor:
     """An ``[s_pad, W]`` stack built on the device from ``d_pad`` dense rows
-    (``dmat`` ``[d_pad, W]``, stored at rows ``didx``) and COO words (``cv[i]``
-    at row ``ci[i]``, word ``cw[i]``), zeros elsewhere; entries aimed at row
-    ``s_pad`` (the trash row) or outside the stack are dropped. All int32,
-    one device. The real (row, word) pairs must be distinct, and no row
-    both dense and COO: stores of different values to one word would race
-    (the planner's sparse upload guarantees both)."""
+    (``dmat`` ``[d_pad, W]``, stored at rows ``didx``) and COO words
+    (``cv[i]`` at row ``ci[i]``, word ``cw[i]``), zeros elsewhere. All
+    int32, one device. The stack is allocated at ``[s_pad, W]`` and every
+    word of it written once; there is no trash row.
+
+    The contract the kernel relies on:
+    - ``ci`` is non-decreasing: the COO words come grouped by row, rows
+      ascending, the padding (aimed at row ``s_pad``) last. Within a row
+      the words may come in any order. A block finds its row's words by a
+      search of ``ci``, so words of a row out of its group are dropped;
+      this wrapper raises on such ``ci`` where it can look without a sync
+      (CPU tensors).
+    - Entries whose row lies outside ``[0, s_pad)`` or whose word lies
+      outside ``[0, W)`` are dropped, never written elsewhere.
+    - Real ``(ci, cw)`` pairs are distinct, and so are the real rows of
+      ``didx``: two stores of different values to one word would race. A
+      row both dense and COO takes its COO words on top of the dense row.
+    The planner's sparse upload (``parallel/planner.py`` ``_build_stack``)
+    packs its arguments so."""
     for name, x in (("didx", didx), ("ci", ci), ("cw", cw), ("cv", cv)):
         if not isinstance(x, torch.Tensor) or x.dtype != torch.int32 or x.dim() != 1:
             raise TypeError(f"{name} must be a 1-D int32 tensor")
@@ -848,6 +860,9 @@ def assemble_stack(didx: torch.Tensor, dmat: torch.Tensor, ci: torch.Tensor,
     if any(x.device != device for x in (didx, ci, cw, cv)):
         raise ValueError("assemble_stack operands on different devices")
     if device.type == "cpu":
+        if bool((ci[1:] < ci[:-1]).any()):
+            raise ValueError("ci must be non-decreasing: the COO words grouped by "
+                             "row, rows ascending")
         return assemble_stack_plain(didx, dmat, ci, cw, cv, s_pad)
     _require_cuda(dmat)
     if not all(x.is_contiguous() for x in (didx, dmat, ci, cw, cv)):
@@ -855,7 +870,7 @@ def assemble_stack(didx: torch.Tensor, dmat: torch.Tensor, ci: torch.Tensor,
     if dmat.numel() and dmat.data_ptr() % 16:
         raise ValueError("dmat must be 16-byte aligned")
     words = dmat.shape[-1]
-    out = torch.empty((s_pad + 1, words), dtype=torch.int32, device=device)
+    out = torch.empty((s_pad, words), dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         err = _library("upload_kernels.cu").pilosa_assemble_stack(
             didx.data_ptr(), dmat.data_ptr(), didx.shape[0], ci.data_ptr(),
@@ -864,4 +879,4 @@ def assemble_stack(didx: torch.Tensor, dmat: torch.Tensor, ci: torch.Tensor,
     if err:
         raise RuntimeError(f"assemble_stack kernel launch failed: CUDA error {err}")
     _count_launch("assemble_stack")
-    return out[:s_pad]
+    return out

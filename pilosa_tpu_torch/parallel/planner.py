@@ -44,14 +44,16 @@ synchronising ``.cpu()``), and so do TopN's filter and tile counts. At
 prepare time the plan's non-resident stacks go to the
 ``ResidencyPrefetcher``, whose workers upload them on the planner's upload
 stream. On a CUDA device a sparse row (at most ``SPARSE_UPLOAD_MAX_BITS``
-set bits in a shard) crosses PCIe as COO words and is scattered into its
-stack by the ``assemble_stack`` kernel.
+set bits in a shard) crosses PCIe as COO words, and the ``assemble_stack``
+kernel builds its stack, each word written once; ``upload_split_ms``
+splits the newest stack build's time into its phases.
 """
 
 from __future__ import annotations
 
 import functools
 import threading
+import time
 from collections import OrderedDict, deque
 from concurrent.futures import Future
 from typing import Callable
@@ -137,6 +139,8 @@ class Planner:
         self.uploads = 0
         self.upload_bytes = 0
         self.h2d_bytes = 0
+        #: the newest row-stack build's phases; upload_split_ms reads them.
+        self._last_upload: dict = {}
         #: lifetime LRU evictions past the budget.
         self.evictions = 0
         self._cache_lock = threading.Lock()
@@ -989,29 +993,60 @@ class Planner:
                     self._upload_stream = torch.cuda.Stream(device=self.device)
         return self._upload_stream
 
-    def _upload_into(self, dst: torch.Tensor, fill: Callable) -> None:
+    def _upload_into(self, dst: torch.Tensor, fill: Callable) -> dict:
         """``fill(host)`` writes every word of a uint32 host array of
         ``dst``'s shape; the array then lands in ``dst``. On a CUDA device
         the array is pinned and the copy runs on the upload stream, after
         the work the caller's stream has queued (``dst`` may reuse memory
-        that work freed); ``_upload_done`` gives the event that follows."""
+        that work freed); ``_upload_done`` gives the event that follows.
+        Returns the phases: host ms of the buffer (``pin``) and the fill,
+        and on a CUDA device the events around the copy (``h2d``)."""
+        t0 = time.perf_counter()
         if self.device.type != "cuda":
             host = np.empty(dst.shape, dtype=np.uint32)
+            t1 = time.perf_counter()
             fill(host)
+            t2 = time.perf_counter()
             dst.copy_(torch.from_numpy(host.view(np.int32)))
+            copy = None
         else:
             host = torch.empty(dst.shape, dtype=torch.int32, pin_memory=True)
+            t1 = time.perf_counter()
             fill(host.numpy().view(np.uint32))
+            t2 = time.perf_counter()
             with torch.cuda.device(self.device):
                 up = self._stream()
                 up.wait_stream(torch.cuda.current_stream(self.device))
+                copy = (torch.cuda.Event(enable_timing=True),
+                        torch.cuda.Event(enable_timing=True))
                 with torch.cuda.stream(up):
+                    copy[0].record()
                     dst.copy_(host, non_blocking=True)
+                    copy[1].record()
                 # Freed early (an eviction), dst's memory must not go to a
                 # new tensor while the copy still writes it.
                 dst.record_stream(up)
         with self._cache_lock:
             self.h2d_bytes += dst.numel() * dst.element_size()
+        return {"pin": (t1 - t0) * 1e3, "fill": (t2 - t1) * 1e3, "h2d": copy}
+
+    def upload_split_ms(self) -> dict:
+        """The newest row-stack build's time by phase, in ms: on the host
+        ``gather`` (each shard's host form and the OR-reduce of its sparse
+        words; on the dense path the fill reads the rows itself), ``pin``
+        (the host buffer) and ``fill``; on a CUDA device ``h2d`` (the copy)
+        and, for a sparse upload, ``assemble`` (from the copy's end to the
+        ``assemble_stack`` kernel's), from events on the upload stream,
+        waited for here, and ``assemble_host`` (the host's time in the
+        ``assemble_stack`` call, which lies within ``assemble``)."""
+        out = {}
+        for name, value in self._last_upload.items():
+            if isinstance(value, tuple):
+                value[1].synchronize()
+                value = value[0].elapsed_time(value[1])
+            if value is not None:
+                out[name] = value
+        return out
 
     def _upload_done(self):
         """An event after everything queued on the upload stream so far
@@ -1041,16 +1076,22 @@ class Planner:
         event its readers wait on. Where sparse uploads are on, shards whose
         row holds at most SPARSE_UPLOAD_MAX_BITS bits ship as COO words
         (one OR-reduced word per distinct word) beside the dense rows of
-        the others, padded to pow2 buckets aimed at the trash row s_pad,
-        and the ``assemble_stack`` kernel scatters them into the zeroed
-        stack (reference _build_stack, planner.py:1346-1426)."""
+        the others, and the ``assemble_stack`` kernel builds the stack from
+        both, each word written once (reference _build_stack,
+        planner.py:1346-1426). The packing meets the kernel's contract: the
+        COO words grouped by shard in shard order (``ci`` non-decreasing),
+        distinct words within a shard, no shard both dense and COO, both
+        lists padded to pow2 buckets aimed at row s_pad, one past the
+        stack, which the kernel drops: the stack is allocated at
+        [S_pad, W], with no trash row."""
         s_pad = self._pad(len(shards))
         shape = (s_pad, WORDS_PER_SHARD)
         if not self._sparse_upload_enabled():
             arr = self._alloc(shape)
-            self._upload_into(arr, functools.partial(
+            self._last_upload = self._upload_into(arr, functools.partial(
                 self._fill_plane, idx, field_name, view, row_id, shards))
             return arr, self._upload_done()
+        t0 = time.perf_counter()
         dense_idx: list[int] = []
         dense_rows: list[np.ndarray] = []
         coo_i: list[np.ndarray] = []
@@ -1077,6 +1118,7 @@ class Planner:
                 dense_rows.append(payload if kind == "dense"
                                   else bitops.positions_to_words(payload))
         nnz = sum(len(x) for x in coo_i)
+        gather = {"gather": (time.perf_counter() - t0) * 1e3}
         if nnz == 0:
             # No COO words: the plain dense upload moves the same bytes.
             rows = dict(zip(dense_idx, dense_rows))
@@ -1087,7 +1129,7 @@ class Planner:
                     mat[i] = row
 
             arr = self._alloc(shape)
-            self._upload_into(arr, fill)
+            self._last_upload = {**gather, **self._upload_into(arr, fill)}
             return arr, self._upload_done()
 
         def bucket(n: int) -> int:
@@ -1114,7 +1156,7 @@ class Planner:
             cw[:nnz] = np.concatenate(coo_w)
             cv[:nnz] = np.concatenate(coo_v)
 
-        self._upload_into(packed, fill)
+        phases = {**gather, **self._upload_into(packed, fill)}
         at = body + d_pad
         parts = [packed[at + j * n_pad:at + (j + 1) * n_pad] for j in range(3)]
         args = (packed[body:body + d_pad], packed[:body].view(d_pad, WORDS_PER_SHARD),
@@ -1122,9 +1164,15 @@ class Planner:
         if self.device.type != "cuda":
             # A CPU planner whose sparse path was turned on by hand, as the
             # parity tests do: the kernel's plain version.
+            self._last_upload = phases
             return kernels.assemble_stack(*args), None
         with torch.cuda.device(self.device), torch.cuda.stream(self._stream()):
+            t0 = time.perf_counter()
             arr = kernels.assemble_stack(*args)
+            phases["assemble_host"] = (time.perf_counter() - t0) * 1e3
+            phases["assemble"] = (phases["h2d"][1], torch.cuda.Event(enable_timing=True))
+            phases["assemble"][1].record()
+        self._last_upload = phases
         # The stack was allocated on the upload stream: its readers run on
         # the caller's stream, so the allocator must not hand its memory
         # on before their work ends.
