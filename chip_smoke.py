@@ -2,9 +2,14 @@
 """Smoke run of pilosa_tpu_torch on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --tree-batched-vs DIR
 
-Builds the CUDA kernels from ``pilosa_tpu_torch/csrc`` into
-``build/kernels/`` (one nvcc per source, all at once), checks each kernel
+``--tree-batched-vs DIR`` times only ``tree_count_batched`` on its two timed
+waves, the package in DIR (e.g. the parent commit unpacked with ``git
+archive``) against this checkout's, in 10 pairs of processes
+(``tree_batched_vs``). With no arguments the script builds the CUDA
+kernels from ``pilosa_tpu_torch/csrc`` into ``build/kernels/`` (one nvcc
+per source, all at once), checks each kernel
 against its plain PyTorch version on the card (exact), then boots a
 standalone ``ServerNode(device="cuda")`` on loopback, creates its schema
 over HTTP, loads three datasets into ``node.holder`` once, and drives the
@@ -114,8 +119,11 @@ SEED = 7
 QUERY_RUNS = 20
 KERNEL_RUNS = 30
 PROFILE_RUNS = 5
-#: device clock cycles spun before each timed kernel call (about 0.5 ms).
-SPIN_CYCLES = 1_000_000
+#: device clock cycles spun before each timed kernel call (about 4.5 ms):
+#: longer than any wrapper's host work before its launch (tree_count_batched
+#: over 8 slots: up to 1.3 ms on an H100 machine's host, --tree-batched-vs),
+#: so that no host time lands between the start event and the kernel.
+SPIN_CYCLES = 8_000_000
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and 32-bit operations
 #: outside the tensor cores (the float32 rate; popcount and bitwise ops
@@ -124,6 +132,9 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 #: per word: one bitwise op, one popcount, one add.
 OPS_PER_WORD = 3
+#: words of a shard's row, and the tape of the timed tree_count_batched waves.
+SHARD_WORDS = 32768
+TREE_BATCHED_TAPE = [0, 1, "and", 2, "and"]
 
 #: bench.py's config 3 (bench.py:870-949) at the Count path's column space:
 #: 2M values over 100M columns and a 500K-bit filter there, scaled x10.
@@ -252,6 +263,102 @@ def seeded_words(rng, shape) -> np.ndarray:
     if len(shape) > 1 and shape[0] >= 3:
         w[0], w[1], w[2] = 0xFFFFFFFF, 0x80000000, 0
     return w
+
+
+def batched_slots(plane, first=()) -> tuple[list, list]:
+    """8 slots' [1024, 32768] operands of the batched kernels: ``a``
+    (``first``, then new planes from ``plane()``) and ``b`` (7 new planes,
+    slot 5 pushing slot 3's)."""
+    a = list(first) + [plane() for _ in range(8 - len(first))]
+    b = [plane() for _ in range(7)]
+    return a, b[:5] + [b[3]] + b[5:]
+
+
+def tree_batched_waves(plane, a, b) -> tuple[list, list]:
+    """The timed tree_count_batched waves over ``batched_slots``: slot z
+    pushes a[z], b[z], a[z + 1] (15 distinct planes), and the same wave
+    with no leaf shared (24 distinct planes, 9 of them new)."""
+    shared = [[a[z], b[z], a[(z + 1) % 8]] for z in range(8)]
+    planes = a + b[:5] + b[6:] + [plane() for _ in range(9)]
+    return shared, [planes[3 * z:3 * z + 3] for z in range(8)]
+
+
+def tree_batched_times(repo: str) -> int:
+    """``--tree-batched REPO``: time ``tree_count_batched`` of the package
+    in REPO on the two timed waves (``tree_batched_waves``, random planes
+    made on the card from SEED) with this script's timer, its counts first
+    held to the plain version. One JSON object per wave: the kernel's ms by
+    CUDA events (``time_cuda_ms``), the host's median and longest enqueue
+    of one call (each after a synchronize)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(repo))
+    from pilosa_tpu_torch.ops import kernels
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def plane():
+        return torch.randint(-2**31, 2**31, (1024, SHARD_WORDS), dtype=torch.int32,
+                             device="cuda", generator=gen)
+
+    waves = tree_batched_waves(plane, *batched_slots(plane))
+    for distinct, tables in zip((15, 24), waves):
+        def fn(tables=tables):
+            return kernels.tree_count_batched(tables, TREE_BATCHED_TAPE)
+
+        if not torch.equal(fn(), kernels.tree_count_batched_plain(tables, TREE_BATCHED_TAPE)):
+            raise AssertionError(f"{repo}: {distinct} planes: counts differ from the plain")
+        host = []
+        for _ in range(KERNEL_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            host.append((time.perf_counter() - t0) * 1e3)
+        print(json.dumps({"distinct_planes": distinct, "ms": time_cuda_ms(torch, fn, KERNEL_RUNS),
+                          "host_ms": statistics.median(host), "host_ms_max": max(host)}),
+              flush=True)
+    return 0
+
+
+def tree_batched_vs(parent: str, pairs: int = 10) -> int:
+    """``--tree-batched-vs DIR``: ``--tree-batched`` of DIR (e.g. the parent
+    commit unpacked with ``git archive``) and of this checkout, each in a
+    process of its own, in ``pairs`` pairs, the side that runs first
+    alternating. Prints every run, then per wave the medians of both
+    sides, the pairs this checkout won, the spread of the parent's runs
+    (between its quartiles), the bound and the card."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs: dict = {}
+    for k in range(pairs):
+        sides = (("parent", parent), ("this", here))
+        for label, repo in sides if k % 2 == 0 else sides[::-1]:
+            out = subprocess.run([sys.executable, os.path.abspath(__file__), "--tree-batched",
+                                  repo], capture_output=True, text=True, check=False)
+            if out.returncode:
+                print(out.stdout + out.stderr, file=sys.stderr)
+                return out.returncode
+            for line in out.stdout.splitlines():
+                rec = json.loads(line)
+                runs.setdefault((rec["distinct_planes"], label), []).append(rec)
+                print(json.dumps({"pair": k, "repo": label, **rec}), flush=True)
+    card, plane = card_line(), 1024 * SHARD_WORDS * 4
+    for distinct in (15, 24):
+        ms = {lb: [r["ms"] for r in runs[(distinct, lb)]] for lb in ("parent", "this")}
+        q1, _, q3 = statistics.quantiles(ms["parent"], n=4)
+        bound = bound_ms(distinct * plane + 8 * 1024 * 4, 4 * 8 * 1024 * SHARD_WORDS)[0]
+        print(json.dumps({
+            "distinct_planes": distinct, "pairs": pairs,
+            "parent_ms": statistics.median(ms["parent"]),
+            "this_ms": statistics.median(ms["this"]),
+            "this_won": sum(t < p for p, t in zip(ms["parent"], ms["this"])),
+            "parent_spread_ms": q3 - q1, "bound_ms": bound,
+            "host_ms": {lb: statistics.median(r["host_ms"] for r in runs[(distinct, lb)])
+                        for lb in ("parent", "this")},
+            "card": card}), flush=True)
+    return 0
 
 
 # -- phase 1: toolchain and build -------------------------------------------
@@ -576,22 +683,28 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
     # over 8 slots' leaf tables: 3 leaves, and the 9-deep tape (cut: its
     # deep subtrees are written slot by slot by tree_count first); ragged
     # and unaligned slots take the scalar bodies.
-    batch_a = [big_a, big_b] + [t(seeded_words(rng, (1024, w))) for _ in range(6)]
-    batch_b = [t(seeded_words(rng, (1024, w))) for _ in range(7)]
-    batch_b = batch_b[:5] + [batch_b[3]] + batch_b[5:]
+    def new_plane():
+        return t(seeded_words(rng, (1024, w)))
+
+    batch_a, batch_b = batched_slots(new_plane, [big_a, big_b])
     for op in ("and", "or", "xor", "andnot"):
         check_batched("pair_count_batched", kernels.pair_count_batched(batch_a, batch_b, op),
                       kernels.pair_count_batched_plain(batch_a, batch_b, op),
                       f"8 x [1024, 32768] op={op}")
     check_batched("row_counts_batched", kernels.row_counts_batched(batch_a),
                   kernels.row_counts_batched_plain(batch_a), "8 x [1024, 32768]")
-    tables3 = [[batch_a[z], batch_b[z], batch_a[(z + 1) % 8]] for z in range(8)]
+    tables3, tables24 = tree_batched_waves(new_plane, batch_a, batch_b)
     tables9 = [[batch_a[z]] + batch_b[:8] for z in range(8)]
-    tape3, tape9 = [0, 1, "and", 2, "and"], tapes["9 deep (cut)"]
-    for tables, tape, what in ((tables3, tape3, "3 leaves"), (tables9, tape9, "9 deep (cut)")):
+    tape3, tape9 = TREE_BATCHED_TAPE, tapes["9 deep (cut)"]
+    for tables, tape, what in ((tables3, tape3, "3 leaves"), (tables24, tape3, "24 planes"),
+                               (tables9, tape9, "9 deep (cut)")):
         check_batched("tree_count_batched", kernels.tree_count_batched(tables, tape),
                       kernels.tree_count_batched_plain(tables, tape),
                       f"8 x [1024, 32768] ({what})")
+    for tables in (tables3, tables24):
+        plan = kernels.group_leaves([kernels.leaf_keys(ls) for ls in tables])
+        log(f"tree_count_batched 8 x 3 x [1024, 32768]: {len(plan.leaves)} distinct "
+            f"leaves in {len(plan.groups)} group(s)")
     rag = [t(seeded_words(rng, (7, 6243))) for _ in range(3)]
     check_batched("pair_count_batched", kernels.pair_count_batched(rag, rag[::-1], "xor"),
                   kernels.pair_count_batched_plain(rag, rag[::-1], "xor"), "3 x [7, 6243]")
@@ -601,6 +714,56 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
                   kernels.tree_count_batched([rag, rag[::-1]], [0, 1, "andnot", 2, "or"]),
                   kernels.tree_count_batched_plain([rag, rag[::-1]], [0, 1, "andnot", 2, "or"]),
                   "2 x 3 x [7, 6243]")
+    # tree_count_batched reads each distinct leaf of a slot group once
+    # (kernels.group_leaves). 32 slots of a 16-leaf tape whose leaves are
+    # 512 row windows of one pool -- views of one storage at 512 offsets, so
+    # 512 distinct leaves -- need more than one slot group and still make
+    # ONE launch, in the staged body and (a width that is not a multiple of
+    # 4) in the body with plain loads; then two slots pushing views of one
+    # storage at other offsets, and a view both push; then an unaligned
+    # wave with a leaf two slots share and a [W] leaf.
+    ops4 = ("and", "or", "xor", "andnot")
+
+    def balanced(lo, hi):  # a tree over leaves [lo, hi): its stack reaches depth 5
+        if hi - lo == 1:
+            return [lo]
+        mid = (lo + hi) // 2
+        return balanced(lo, mid) + balanced(mid, hi) + [ops4[(lo + hi) % 4]]
+
+    tapes16 = {"linear": [0] + [x for k in range(1, 16) for x in (k, ops4[k % 4])],
+               "balanced": balanced(0, 16)}
+    for pool_w in (w, 6243):
+        pool = t(seeded_words(rng, (600, pool_w)))
+        tables = [[pool[16 * z + k:16 * z + k + 64] for k in range(16)] for z in range(32)]
+        keys = [kernels.leaf_keys(ls) for ls in tables]
+        plan = kernels.group_leaves(keys)
+        if len(plan.leaves) != 512 or len(plan.groups) < 2:
+            raise AssertionError(f"32 x 16 wave: {len(plan.leaves)} leaves in "
+                                 f"{len(plan.groups)} groups")
+        for what, tape in tapes16.items():
+            before = dict(kernels.LAUNCHES)
+            got = kernels.tree_count_batched(tables, tape)
+            delta = {k: kernels.LAUNCHES[k] - before[k] for k in before
+                     if kernels.LAUNCHES[k] != before[k]}
+            check_batched("tree_count_batched", got,
+                          kernels.tree_count_batched_plain(tables, tape),
+                          f"32 x 16 x [64, {pool_w}] {what}, {len(plan.groups)} groups")
+            if delta != {"tree_count_batched": 1}:
+                raise AssertionError(f"32 x 16 x [64, {pool_w}] {what} wave launched {delta}")
+        log(f"tree_count_batched 32 x 16 x [64, {pool_w}]: 512 distinct leaves in "
+            f"{len(plan.groups)} groups, one launch per tape "
+            f"({', '.join(tapes16)}), exact")
+    alias = t(seeded_words(rng, (1100, w)))
+    for tables in ([[alias[0:1024], big_a, alias[8:1032]], [alias[8:1032], big_a, alias[0:1024]],
+                    [alias[4:1028], big_b, alias[4:1028]]],
+                   [[off_a[:, 1:], off_b[:, 1:], off_b[2, 1:]],
+                    [off_b[:, 1:], off_a[:, 1:], off_b[2, 1:]]]):
+        for tape in ([0, 1, "and", 2, "and"], [0, 1, "andnot", 2, "or"],
+                     [0, 1, "or", 2, 0, "andnot", "xor"]):
+            check_batched("tree_count_batched", kernels.tree_count_batched(tables, tape),
+                          kernels.tree_count_batched_plain(tables, tape),
+                          f"{len(tables)} x 3 x {tuple(tables[0][0].shape)} views {tape}")
+    del pool, tables, alias
     # assemble_stack at 1024 shards: 16 dense rows, every other shard at
     # most 2048 bits as COO words (all-ones words in shard 20, bit-31-only
     # words in shard 21), pow2 padding aimed at row 1024, one past the
@@ -682,11 +845,17 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
          lambda: kernels.row_counts_batched(batch_a),
          lambda: kernels.row_counts_batched_plain(batch_a),
          8 * plane + 8 * rows * 4, 2 * 8 * rows * w),
-        # 8 slots x 3 leaves over 16 distinct planes (a[z], b[z], a[z+1])
-        ("tree_count_batched", "8 x 3 x [1024, 32768] (and, and)",
+        # 8 slots x 3 leaves over 15 distinct planes (a[z], b[z], a[z+1];
+        # slot 5 pushes slot 3's b), each read once
+        ("tree_count_batched", "8 x 3 x [1024, 32768] (and, and), 15 distinct planes",
          lambda: kernels.tree_count_batched(tables3, tape3),
          lambda: kernels.tree_count_batched_plain(tables3, tape3),
          15 * plane + 8 * rows * 4, 4 * 8 * rows * w),
+        # the same wave with no leaf shared
+        ("tree_count_batched", "8 x 3 x [1024, 32768] (and, and), 24 distinct planes",
+         lambda: kernels.tree_count_batched(tables24, tape3),
+         lambda: kernels.tree_count_batched_plain(tables24, tape3),
+         24 * plane + 8 * rows * 4, 4 * 8 * rows * w),
         # the stack written once, the dense rows and COO words read once
         ("assemble_stack", f"[1024, 32768], 16 dense rows, {asm[2].shape[0]} COO words",
          lambda: kernels.assemble_stack(*asm_args),
@@ -746,7 +915,7 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
                                                        device=dev), KERNEL_RUNS)
     log(f"assemble_stack floors at [1024, 32768]: no COO words {floor_ms:.4f} ms; "
         f"torch.zeros of the stack {zeros_ms:.4f} ms  [{card}]")
-    del cube, cube40, tree3, batch_a, batch_b, tables3, lib_out, topn_tiles
+    del cube, cube40, tree3, batch_a, batch_b, tables3, tables24, lib_out, topn_tiles
     log(f"kernels: {json.dumps(sorted(errs))}")
     return {"timings": timings, "errs": errs, "torch_3leaf_ms": torch_ms}
 
@@ -2192,6 +2361,16 @@ ASYNC_KERNELS = ("pair_count", "row_counts", "tree_count", "pair_count_batched",
                  "row_counts_batched", "tree_count_batched", "assemble_stack")
 
 
+def leaf_sharing(kernels, since=None) -> str:
+    """The leaf records tree_count_batched was given, and the distinct
+    leaves it read, since the counts were zeroed or since ``since`` (a copy
+    of kernels.TREE_BATCH_LEAVES)."""
+    now = kernels.TREE_BATCH_LEAVES
+    rec, dis = (now[k] - (since or {}).get(k, 0) for k in ("records", "distinct"))
+    return (f"tree_count_batched leaf records {rec}, distinct leaves read {dis}"
+            + (f" ({1 - dis / rec:.4f} of the records shared)" if rec else ""))
+
+
 def wave(co, kernels, n: int, fn) -> tuple[dict, list, float]:
     """``n`` threads each run ``fn(k)`` while the coalescer is held, so all
     of them join one batch; returns (launches of the wave, answers, wall
@@ -2314,7 +2493,8 @@ def phase_async(torch, card: str, data: dict, n_futures: int = ASYNC_FUTURES) ->
             f"2- and 3-leaf Counts, Sum(Row(f=1)), Min), all equal to numpy; "
             f"submitted in {submit_ms:.3f} ms, all resolved in {wall * 1e3:.3f} ms, "
             f"{n_futures / wall:.3f} queries/s; planner dispatches "
-            f"{ex.planner.dispatches}, coalesced {ex.planner.dispatches_coalesced}  [{card}]")
+            f"{ex.planner.dispatches}, coalesced {ex.planner.dispatches_coalesced}; "
+            f"{leaf_sharing(kernels)}  [{card}]")
 
         waves = (("2-leaf", two, "pair_count_batched"), ("bare", bare, "row_counts_batched"),
                  ("3-leaf", three, "tree_count_batched"))
@@ -2334,6 +2514,7 @@ def phase_async(torch, card: str, data: dict, n_futures: int = ASYNC_FUTURES) ->
             f"{ms:.3f} ms, every answer exact  [{card}]")
         for name, table, kern in waves:
             qs = list(table)
+            leaves0 = dict(kernels.TREE_BATCH_LEAVES)
             got, dispatched, answers, ms = wave(
                 co, kernels, 8, lambda k, qs=qs: ex.execute("bench", qs[k], cache=False))
             if (answers != [[table[q]] for q in qs] or dispatched != 1
@@ -2342,7 +2523,8 @@ def phase_async(torch, card: str, data: dict, n_futures: int = ASYNC_FUTURES) ->
                                      f"{dispatched} dispatches, answers {answers}")
             log(f"same-shape {name} wave: 8 different Counts -> launches {got} (one "
                 f"{kern}), {ms:.3f} ms from release to the last answer; the 8 one after "
-                f"another {serial_ms[name]:.3f} ms; every answer exact  [{card}]")
+                f"another {serial_ms[name]:.3f} ms; every answer exact; "
+                f"{leaf_sharing(kernels, leaves0)}  [{card}]")
         # One plan over two shard sets in one held wave: its leaves have two
         # shapes, so it runs as one batched launch per shape.
         qs = list(two)[:4]
@@ -2435,7 +2617,7 @@ def phase_async(torch, card: str, data: dict, n_futures: int = ASYNC_FUTURES) ->
         f"per shard) {ms:.3f} ms, {nbytes} bytes host to device, launches {delta}; "
         f"cold dense Count(Row(f=1)) {cold[1][0]:.3f} ms, {cold[1][1]} bytes  [{card}]")
     launches = dict(kernels.LAUNCHES)
-    log(f"async path launches: {launches}")
+    log(f"async path launches: {launches}; {leaf_sharing(kernels)}")
     if device == "cuda":
         for k in ASYNC_KERNELS:
             if launches[k] < 1:
@@ -2536,4 +2718,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(clients_main() if sys.argv[1:] == ["--clients"] else main())
+    if sys.argv[1:] == ["--clients"]:
+        sys.exit(clients_main())
+    if sys.argv[1:2] == ["--tree-batched"] and len(sys.argv) == 3:
+        sys.exit(tree_batched_times(sys.argv[2]))
+    if sys.argv[1:2] == ["--tree-batched-vs"] and len(sys.argv) == 3:
+        sys.exit(tree_batched_vs(sys.argv[2]))
+    sys.exit(main())

@@ -19,6 +19,8 @@
   same-plan count programs as one launch, each slot on its own operands:
   the counterpart of ``jax.vmap`` of the count program in the JAX
   coalescer (pilosa_tpu/parallel/coalesce.py ``_flush_batched``).
+  ``tree_count_batched`` reads each distinct leaf of a slot group once:
+  ``group_leaves`` makes the plan it runs on.
 - ``assemble_stack`` (``csrc/upload_kernels.cu``) builds an ``[S_pad, W]``
   stack on the device from a few dense rows and COO words grouped by row,
   each tile of it built once and written once: the sparse-upload scatter
@@ -41,6 +43,7 @@ from __future__ import annotations
 import ctypes
 import math
 import threading
+from typing import NamedTuple
 
 import torch
 
@@ -51,6 +54,10 @@ from pilosa_tpu_torch.ops import bitops
 LAUNCHES = {"pair_count": 0, "row_counts": 0, "bsi_compare": 0, "bsi_minmax": 0,
             "tree_count": 0, "shift_left": 0, "pair_count_batched": 0,
             "row_counts_batched": 0, "tree_count_batched": 0, "assemble_stack": 0}
+#: leaf records tree_count_batched's launches were given (slots x tape
+#: leaves) and the distinct leaves they read (each slot group's once):
+#: how much its waves share.
+TREE_BATCH_LEAVES = {"records": 0, "distinct": 0}
 _launch_lock = threading.Lock()
 
 _OP_CODES = {"and": 0, "or": 1, "xor": 2, "andnot": 3}
@@ -84,8 +91,8 @@ _SIGNATURES = {
         "pilosa_tree_count": [_VP, _VP, _VP, _I32, _VP, _I32, _VP, _VP, _I64,
                               _I64, _I32, _VP],
         "pilosa_shift_left": [_VP, _VP, _I64, _I64, _I64, _I64, _I32, _VP],
-        "pilosa_tree_count_batched": [_VP, _VP, _I32, _I32, _VP, _I32, _VP, _I64,
-                                      _I64, _I32, _VP],
+        "pilosa_tree_count_batched": [_VP, _VP, _I32, _I32, _I32, _I32, _I32, _VP,
+                                      _I32, _VP, _I64, _I64, _I32, _VP],
     },
     "upload_kernels.cu": {
         "pilosa_assemble_stack": [_VP, _VP, _I64, _VP, _VP, _VP, _I64, _VP, _I64,
@@ -99,6 +106,8 @@ def reset_launches() -> None:
     with _launch_lock:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
+        for k in TREE_BATCH_LEAVES:
+            TREE_BATCH_LEAVES[k] = 0
 
 
 def _count_launch(name: str) -> None:
@@ -770,28 +779,104 @@ def row_counts_batched(a_slots) -> torch.Tensor:
                                  "row_counts_batched")
 
 
+#: A slot group of tree_count_batched holds at most this many slots and
+#: distinct leaves: csrc/tree_kernels.cu kMaxGroupSlots and kMaxGroupLeaves
+#: (as many leaves as its shared-memory ring stages at its narrowest
+#: tile), which its launch checks.
+TREE_BATCH_GROUP_SLOTS = 32
+TREE_BATCH_GROUP_LEAVES = 32
+
+
+class LeafGroups(NamedTuple):
+    """A wave's leaves deduplicated and its slots grouped (``group_leaves``)."""
+    #: the distinct leaf keys, in order of first use
+    leaves: list
+    #: (slot_lo, slot_hi, indices into ``leaves``): slots [lo, hi) in order
+    groups: list
+    #: local[z][k]: slot z's tape leaf k as an index into its group's leaves
+    local: list
+
+
+def leaf_keys(leaves, layouts=None) -> list[tuple[int, int, int]]:
+    """Each leaf's record as the batched tree kernel reads it: (base
+    address, row stride in words, rows), the walk of ``_row_layout`` over
+    the leaves' broadcast leading shape."""
+    if layouts is None:
+        layouts = _tree_layout(leaves)[1]
+    return [(x.data_ptr(), *lay) for x, lay in zip(leaves, layouts)]
+
+
+def group_leaves(keys, max_leaves: int = TREE_BATCH_GROUP_LEAVES,
+                 max_slots: int = TREE_BATCH_GROUP_SLOTS) -> LeafGroups:
+    """``keys[z][k]`` is slot z's k-th leaf record, ``(base address, row
+    stride, rows)``: two records are one leaf only when all three agree, so
+    views of one storage at other offsets or strides stay apart, and a
+    ``[W]`` leaf every slot pushes is one leaf. The slots are grouped in
+    order, a group closing before a slot that would take it past
+    ``max_leaves`` distinct leaves or ``max_slots`` slots."""
+    index: dict = {}
+    groups, local = [], []
+    cur: dict = {}  # distinct index -> place in the open group
+    lo = 0
+    for z, ks in enumerate(keys):
+        ids = [index.setdefault(k, len(index)) for k in ks]
+        if len(set(ids)) > max_leaves:
+            raise ValueError(f"slot {z} has {len(set(ids))} distinct leaves, a group "
+                             f"holds {max_leaves}")
+        grows = len(set(ids) - cur.keys())
+        if z > lo and (len(cur) + grows > max_leaves or z - lo >= max_slots):
+            groups.append((lo, z, tuple(cur)))
+            cur, lo = {}, z
+        for i in ids:
+            cur.setdefault(i, len(cur))
+        local.append([cur[i] for i in ids])
+    if keys:
+        groups.append((lo, len(keys), tuple(cur)))
+    return LeafGroups(sorted(index, key=index.get), groups, local)
+
+
+def _batch_table(plan: LeafGroups) -> list[int]:
+    """The kernel's tables, flat (csrc/tree_kernels.cu BatchTables)."""
+    table = [v for rec in plan.leaves for v in rec]
+    at = 0
+    for lo, hi, ls in plan.groups:
+        table += [lo, hi, at, at + len(ls)]
+        at += len(ls)
+    for _, _, ls in plan.groups:
+        table += ls
+    for m in plan.local:
+        table += m
+    return table
+
+
 def tree_count_batched(leaf_tables, tape) -> torch.Tensor:
     """One postfix ``tape`` counted over each slot's leaves (``leaf_tables[z]``,
     the leaves of slot z, each slot's k-th leaf of slot 0's k-th leaf's
-    shape), in one launch: ``[B, *lead]`` int32 counts. A tape past the
-    kernel's limits is cut as ``tree_count`` cuts it: the subtrees that do
-    not fit become planes, written slot by slot by ``tree_count``
-    launches, and the rest of the tape runs batched over them."""
+    shape), in one launch: ``[B, *lead]`` int32 counts. The wave's leaves
+    are deduplicated (``group_leaves``): a leaf several slots push is read
+    from device memory once per slot group. A tape past the kernel's limits
+    is cut as ``tree_count`` cuts it: the subtrees that do not fit become
+    planes, written slot by slot by ``tree_count`` launches, and the rest of
+    the tape runs batched over them."""
     if not leaf_tables:
         raise ValueError("tree_count_batched needs at least one slot")
     n_leaves = len(leaf_tables[0])
     lead, layouts0 = _tree_layout(leaf_tables[0])
     node = _parse_tape(tape, n_leaves)
     layouts = [layouts0]
+    # Each slot's leaves have slot 0's shapes, so slot 0's lead holds for all.
     for z, leaves in enumerate(leaf_tables[1:], 1):
         if len(leaves) != n_leaves:
             raise ValueError(f"slot {z} has {len(leaves)} leaves, slot 0 {n_leaves}")
+        lay = []
         for k, (x, x0) in enumerate(zip(leaves, leaf_tables[0])):
+            _check_words(x, f"slot {z} leaf {k}")
             if x.shape != x0.shape or x.device != x0.device:
                 raise ValueError(f"slot {z} leaf {k} is {tuple(x.shape)} on "
                                  f"{x.device}, slot 0's {tuple(x0.shape)} on "
                                  f"{x0.device}")
-        layouts.append(_tree_layout(leaves)[1])
+            lay.append(_row_layout(x, lead, f"slot {z} leaf {k}"))
+        layouts.append(lay)
     device, words = leaf_tables[0][0].device, leaf_tables[0][0].shape[-1]
     if device.type == "cpu":
         return tree_count_batched_plain(leaf_tables, tape)
@@ -807,20 +892,25 @@ def tree_count_batched(leaf_tables, tape) -> torch.Tensor:
     out = _batched_out(n, lead, device)
     if rows == 0:
         return out.reshape(n, *lead)
-    table, vec = [], words % 4 == 0
-    for leaves, lay in zip(leaf_tables, layouts):
-        for i in used:
-            vec = vec and _vec_ok(leaves[i], lay[i][0])
-            table += [leaves[i].data_ptr(), lay[i][0], lay[i][1]]
+    vec = words % 4 == 0 and all(_vec_ok(leaves[i], lay[i][0])
+                                 for leaves, lay in zip(leaf_tables, layouts) for i in used)
+    plan = group_leaves([leaf_keys([leaves[i] for i in used], [lay[i] for i in used])
+                         for leaves, lay in zip(leaf_tables, layouts)])
+    table = _batch_table(plan)
+    n_gleaves = sum(len(g[2]) for g in plan.groups)
     dev_table = torch.empty(len(table), dtype=torch.int64, device=device)
     with torch.cuda.device(device):
         err = _library("tree_kernels.cu").pilosa_tree_count_batched(
-            (ctypes.c_int64 * len(table))(*table), dev_table.data_ptr(), n,
-            len(used), (ctypes.c_int32 * len(code))(*code), len(code),
-            out.data_ptr(), rows, words, int(vec), _stream(device))
+            (ctypes.c_int64 * len(table))(*table), dev_table.data_ptr(),
+            len(plan.leaves), len(plan.groups), n_gleaves, n, len(used),
+            (ctypes.c_int32 * len(code))(*code), len(code), out.data_ptr(), rows, words,
+            int(vec), _stream(device))
     if err:
         raise RuntimeError(f"tree_count_batched kernel launch failed: CUDA error {err}")
     _count_launch("tree_count_batched")
+    with _launch_lock:
+        TREE_BATCH_LEAVES["records"] += n * len(used)
+        TREE_BATCH_LEAVES["distinct"] += n_gleaves
     return out.reshape(n, *lead)
 
 
