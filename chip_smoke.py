@@ -3,11 +3,14 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --tree-batched-vs DIR
+    python3 chip_smoke.py --import-rule
 
 ``--tree-batched-vs DIR`` times only ``tree_count_batched`` on its two timed
 waves, the package in DIR (e.g. the parent commit unpacked with ``git
 archive``) against this checkout's, in 10 pairs of processes
-(``tree_batched_vs``). With no arguments the script builds the CUDA
+(``tree_batched_vs``). ``--import-rule`` times the set-field import under
+the port's and the JAX package's scatter rules on one host
+(``import_rule_vs``). With no arguments the script builds the CUDA
 kernels from ``pilosa_tpu_torch/csrc`` into ``build/kernels/`` (one nvcc
 per source, all at once), checks each kernel
 against its plain PyTorch version on the card (exact), then boots a
@@ -59,7 +62,19 @@ port's paths:
   upload; the sparse row's cold Count is ONE ``assemble_stack`` launch,
   beside a cold dense row's bytes and time, each the median of 5 cold
   samples split into host gather, pinned buffer, fill, copy,
-  ``assemble_stack`` and count.
+  ``assemble_stack`` and count;
+- fields path: on ``bench``, fields created over HTTP and loaded from
+  seeded data: a YMDH time field (10M bits in rows 0-2 over 90 days of
+  hours: bench config 4's spread at 1B columns), set fields a, b, c (4, 8
+  and 3 rows, 15M bits each: bench config 5's), a mutex field (50M
+  columns, then 10M moved) and a bool field (20M columns); time windows of
+  32 and 67 views (``tree_count`` over the view leaves), ``Rows`` over a
+  window, ``MinRow``/``MaxRow``, GroupBy of two and three levels, with a
+  filter and paged (ONE ``group_count`` each) and with a cursor (the
+  per-shard walk), in process and over HTTP against numpy oracles; then,
+  on an index of 4 shards, GroupBy over 450 rows and over a (32, 256)
+  lattice of 8192 groups (ONE ``group_count`` each, its planes read from
+  device memory).
 
 The HTTP phase runs its 1 and 8 concurrent clients with dispatch
 coalescing off (launches equal to the serial sum) and on ``auto`` (at most
@@ -85,11 +100,15 @@ CPU rehearsal at a small size (plain kernel versions, no launch counts)::
               c.phase_pql):
         p(torch, "cpu", d, runs=2)
     c.phase_async(torch, "cpu", d, n_futures=40)
+    c.FIELDS_TIME_BITS, c.FIELDS_SET_BITS = 200_000, 60_000
+    c.FIELDS_MUTEX_COLS, c.FIELDS_MUTEX_MOVED, c.FIELDS_BOOL_COLS = 200_000, 40_000, 80_000
+    c.phase_fields(torch, "cpu", d, runs=2, slow_runs=2)
     d["node"].close()
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import re
@@ -245,6 +264,20 @@ def time_cuda_ms(torch, fn, runs: int) -> float:
     return statistics.median(times)
 
 
+def host_enqueue_times(torch, fn, runs: int) -> list[float]:
+    """Host ms of each of ``runs`` calls of ``fn``, each after a
+    synchronize: the wrapper's checks, tables and launch, not the device's
+    work."""
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return times
+
+
 def bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S * 1e3
@@ -311,12 +344,7 @@ def tree_batched_times(repo: str) -> int:
 
         if not torch.equal(fn(), kernels.tree_count_batched_plain(tables, TREE_BATCHED_TAPE)):
             raise AssertionError(f"{repo}: {distinct} planes: counts differ from the plain")
-        host = []
-        for _ in range(KERNEL_RUNS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            host.append((time.perf_counter() - t0) * 1e3)
+        host = host_enqueue_times(torch, fn, KERNEL_RUNS)
         print(json.dumps({"distinct_planes": distinct, "ms": time_cuda_ms(torch, fn, KERNEL_RUNS),
                           "host_ms": statistics.median(host), "host_ms_max": max(host)}),
               flush=True)
@@ -358,6 +386,103 @@ def tree_batched_vs(parent: str, pairs: int = 10) -> int:
             "host_ms": {lb: statistics.median(r["host_ms"] for r in runs[(distinct, lb)])
                         for lb in ("parent", "this")},
             "card": card}), flush=True)
+    return 0
+
+
+def import_rule_side(min_bits: int) -> int:
+    """``--import-rule-side N``: the set-field import with
+    ``Field._SCATTER_MIN_BITS_PER_SHARD`` at N (0: the JAX package's rule,
+    the native scatter for any batch of 65,536 bits or more of at most 8
+    rows) on a fresh holder on the card: the fields phase's time import
+    (the same seeded 10M bits over 90 days of hours, YMDH), then three
+    imports of the async phase's sparse-row shape (ASYNC_SPARSE_BITS bits
+    in each of COUNT_SHARDS shards, one row) and COLD_SAMPLES cold
+    ``Count(Row)`` of the first, each on a new planner. One JSON object."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from pilosa_tpu_torch.config import SHARD_WIDTH, WORDS_PER_SHARD
+    from pilosa_tpu_torch.core import FieldOptions, Holder
+    from pilosa_tpu_torch.core.field import Field
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.ops import kernels
+    from pilosa_tpu_torch.parallel import Planner
+
+    Field._SCATTER_MIN_BITS_PER_SHARD = min_bits
+    h = Holder(device="cuda")
+    idx = h.create_index("bench")
+    n_cols = COUNT_SHARDS * SHARD_WIDTH
+    rng = np.random.default_rng(SEED + 6)  # the fields phase's first draws
+    t_cols = rng.integers(0, n_cols, FIELDS_TIME_BITS, dtype=np.uint64)
+    t_rows = rng.integers(0, FIELDS_TIME_ROWS, FIELDS_TIME_BITS).astype(np.uint64)
+    t_hours = rng.integers(0, FIELDS_TIME_HOURS, FIELDS_TIME_BITS)
+    stamps = (np.datetime64("2019-01-01T00", "h") + t_hours).astype("datetime64[s]")
+    tf = idx.create_field("t", FieldOptions(type="time", time_quantum="YMDH"))
+    t0 = time.perf_counter()
+    tf.import_bits(t_rows, t_cols, stamps)
+    time_s = time.perf_counter() - t0
+    n_frags = sum(len(v.fragments) for v in tf.views.values())
+    del t_cols, t_rows, t_hours, stamps
+
+    rng = np.random.default_rng(SEED + 5)
+    sparse_s = []
+    for k in range(3):
+        pos = np.concatenate([
+            np.sort(rng.choice(WORDS_PER_SHARD * 32, ASYNC_SPARSE_BITS, replace=False))
+            + s * WORDS_PER_SHARD * 32 for s in range(COUNT_SHARDS)]).astype(np.uint64)
+        fld = idx.create_field(f"s{k}")
+        t0 = time.perf_counter()
+        fld.import_bits(np.full(len(pos), ASYNC_SPARSE_ROW, dtype=np.uint64), pos)
+        sparse_s.append(time.perf_counter() - t0)
+    q, want = f"Count(Row(s0={ASYNC_SPARSE_ROW}))", COUNT_SHARDS * ASYNC_SPARSE_BITS
+    cold_ms = []
+    for _ in range(COLD_SAMPLES):
+        planner = Planner(h)
+        try:
+            before = dict(kernels.LAUNCHES)
+            t0 = time.perf_counter()
+            (got,) = Executor(h, planner=planner, result_cache=False).execute(
+                "bench", q, cache=False)
+            cold_ms.append((time.perf_counter() - t0) * 1e3)
+            delta = {k: kernels.LAUNCHES[k] - before[k] for k in before
+                     if kernels.LAUNCHES[k] != before[k]}
+            if got != want or delta != {"assemble_stack": 1, "row_counts": 1}:
+                raise AssertionError(f"cold {q}: {got} (want {want}), launches {delta}")
+        finally:
+            planner.close()
+    print(json.dumps({"min_bits_per_shard": min_bits, "time_import_s": time_s,
+                      "time_views": len(tf.views), "time_fragments": n_frags,
+                      "sparse_import_s": sparse_s, "cold_count_ms": cold_ms}), flush=True)
+    return 0
+
+
+def import_rule_vs(rule: int = 1024) -> int:
+    """``--import-rule``: ``--import-rule-side`` at 0 (the JAX package's
+    rule) and at ``rule`` (the port's), each in a process of its own, in
+    the order JAX, port, port, JAX. Prints every run, then per side the
+    medians of the time import, the sparse imports and the cold counts,
+    and the card."""
+    runs: dict = {}
+    for label, n in (("jax", 0), ("port", rule), ("port", rule), ("jax", 0)):
+        out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--import-rule-side", str(n)],
+                             capture_output=True, text=True, check=False)
+        if out.returncode:
+            print(out.stdout + out.stderr, file=sys.stderr)
+            return out.returncode
+        rec = json.loads(out.stdout.strip().splitlines()[-1])
+        runs.setdefault(label, []).append(rec)
+        print(json.dumps({"side": label, **rec}), flush=True)
+    print(json.dumps({side: {
+        "time_import_s": [r["time_import_s"] for r in recs],
+        "sparse_import_s_median": statistics.median(
+            x for r in recs for x in r["sparse_import_s"]),
+        "cold_count_ms_median": statistics.median(
+            x for r in recs for x in r["cold_count_ms"])}
+        for side, recs in runs.items()} | {"card": card_line()}), flush=True)
     return 0
 
 
@@ -778,6 +903,48 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
     check_assemble(asm_tensors(assemble_inputs(rng, 5, 2, 6243)), "[5, 6243] (scalar)")
     for case in ASSEMBLE_CASES:
         check_assemble(asm_tensors(assemble_case(case)), case)
+    # group_count, exact: bench config 5's lattice (levels of 4 and 8 rows
+    # and a filter, the planner's 954 real rows of 1024-row stacks), three
+    # levels (4, 8, 3) with no filter, unaligned views and a ragged width
+    # (scalar staging), a lattice whose 450 planes overflow the staged
+    # tiles (the body reading device memory), one of 8192 groups (64 KB of
+    # accumulators), and 4 and 5 levels (the unrolled and the predicated
+    # bodies).
+    def lattice_table(sizes):
+        starts = np.cumsum([0] + list(sizes[:-1]))
+        return np.asarray(list(itertools.product(
+            *[range(int(a), int(a) + n) for a, n in zip(starts, sizes)])), dtype=np.int64)
+
+    def check_group(planes, sizes, filt, what):
+        table = lattice_table(sizes)
+        got = kernels.group_count(planes, table, filt)
+        want = kernels.group_count_plain(planes, torch.from_numpy(table), filt)
+        torch.cuda.synchronize()
+        err = int((got - want).abs().max()) if got.numel() else 0
+        errs["group_count"] = max(errs["group_count"], err)
+        if got.shape != want.shape or got.dtype != torch.int64 or err:
+            raise AssertionError(f"group_count {what}: {tuple(got.shape)} {got.dtype} vs "
+                                 f"{tuple(want.shape)}, max |err| {err}")
+
+    gb_planes = [t(seeded_words(rng, (1024, w)))[:954] for _ in range(15)]
+    gb_filt = big_b[:954]
+    check_group(gb_planes[:12], (4, 8), gb_filt, "(4, 8) + filter, 954 x 32768")
+    check_group(gb_planes, (4, 8, 3), None, "(4, 8, 3), 954 x 32768")
+    offs = [t(seeded_words(rng, (5, 4101)))[:, 1:] for _ in range(6)]
+    check_group(offs, (3, 3), off_a[:, 1:], "(3, 3) + filter, unaligned [5, 4100]")
+    rag_p = [t(seeded_words(rng, (7, 6243))) for _ in range(7)]
+    check_group(rag_p, (2, 5), rag_p[0], "(2, 5) + filter, [7, 6243]")
+    many = t(seeded_words(rng, (450, 3, 300)))
+    check_group(list(many), (450,), None, "450 planes of [3, 300]")
+    wide = t(seeded_words(rng, (192, 4, 1000)))
+    check_group(list(wide), (64, 128), wide[0], "(64, 128) + filter: 8192 groups")
+    wide2 = t(seeded_words(rng, (289, 3, 300)))
+    check_group(list(wide2[:288]), (32, 256), wide2[288],
+                "(32, 256) + filter: 8192 groups over 288 planes (unstaged)")
+    deep = [t(seeded_words(rng, (6, 2000))) for _ in range(11)]
+    check_group(deep[:10], (2, 2, 2, 2, 2), deep[10], "5 levels + filter (predicated)")
+    check_group(deep[:8], (2, 2, 2, 2), None, "4 levels")
+    del offs, rag_p, many, wide, wide2, deep
     del leaves9, tables9
     log(f"kernel checks: exact on every op and shape; max |err| {errs}")
 
@@ -861,7 +1028,21 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
          lambda: kernels.assemble_stack(*asm_args),
          lambda: kernels.assemble_stack_plain(*asm_args),
          plane + asm[1].nbytes + 12 * asm[2].shape[0] + asm[0].nbytes, 0),
+        # each distinct plane and the filter read once; per group and word:
+        # the ANDs (one per level, the filter's included), popcount, add
+        ("group_count", "(4, 8) + filter: 32 groups, 12 planes + filter of [954, 32768]",
+         lambda: kernels.group_count(gb_planes[:12], gb_table, gb_filt),
+         lambda: kernels.group_count_plain(gb_planes[:12], gb_table_t, gb_filt),
+         13 * 954 * w * 4 + 32 * 8, (2 + 2) * 32 * 954 * w),
+        ("group_count", "(4, 8, 3): 96 groups, 15 planes of [954, 32768]",
+         lambda: kernels.group_count(gb_planes, gb_table3, None),
+         lambda: kernels.group_count_plain(gb_planes, gb_table3_t, None),
+         15 * 954 * w * 4 + 96 * 8, (2 + 2) * 96 * 954 * w),
     ]
+    gb_table = lattice_table((4, 8))
+    gb_table_t = torch.from_numpy(gb_table)
+    gb_table3 = lattice_table((4, 8, 3))
+    gb_table3_t = torch.from_numpy(gb_table3)
     topn_tiles = [t(seeded_words(rng, (512, w))) for _ in range(30)]
     topn_filts = [filt_stack[i // 3] for i in range(30)]
     check_batched("pair_count_batched", kernels.pair_count_batched(topn_tiles, topn_filts, "and"),
@@ -902,6 +1083,10 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
             alone = time_cuda_ms(torch, lambda: lib_out.index_put_(lib_idx, asm_args[4]),
                                  KERNEL_RUNS)
             lib_text += f" (same function), index_put_ of the COO words alone {alone:.4f} ms"
+        if name == "group_count":
+            host = statistics.median(host_enqueue_times(torch, fn, KERNEL_RUNS))
+            lib_text += (f"; host enqueue {host:.4f} ms (median); library none "
+                         "(torch has no popcount)")
         log(f"kernel {name} {shape}: {ms:.4f} ms, bound {bound:.4f} ms ({by}), "
             f"{bound / ms:.1%} of bound; plain {plain:.4f} ms{lib_text}  [{card}]")
         timings.setdefault(name, (ms, plain, bound, by, lib))
@@ -916,7 +1101,11 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
     log(f"assemble_stack floors at [1024, 32768]: no COO words {floor_ms:.4f} ms; "
         f"torch.zeros of the stack {zeros_ms:.4f} ms  [{card}]")
     del cube, cube40, tree3, batch_a, batch_b, tables3, tables24, lib_out, topn_tiles
+    del gb_planes
     log(f"kernels: {json.dumps(sorted(errs))}")
+    # Hand the cached blocks back: the persist phase's CLI node is a
+    # process of its own on the same card.
+    torch.cuda.empty_cache()
     return {"timings": timings, "errs": errs, "torch_3leaf_ms": torch_ms}
 
 
@@ -1755,7 +1944,8 @@ def phase_http(torch, card: str, data: dict, runs: int = QUERY_RUNS,
             ("parse error", "/index/bench/query", "Count(Row(f=1)", None, 400),
             ("expired X-Deadline", "/index/bench/query", COUNT_QUERIES["count_intersect"],
              {"X-Deadline": f"{time.time() - 1:.6f}"}, 504),
-            ("MinRow()", "/index/bench/query", "MinRow(field=f)", None, 501)):
+            ("Distinct() (keys and sketches)", "/index/bench/query",
+             "Count(Distinct(field=f))", None, 501)):
         status, body = request(conn, "POST", path, q, headers)
         if status != want:
             raise AssertionError(f"{what}: HTTP {status}, expected {want}: {body!r}")
@@ -2121,6 +2311,7 @@ PQL_READS = {
 }
 PQL_ONE_TREE = ("count_3leaf", "count_4leaf")
 PQL_TANIMOTO = "TopN(f2, Row(g=0), n=10, tanimotoThreshold=3)"
+PQL_TANIMOTO_RUNS = 5
 PQL_ATTR = 'TopN(f2, Row(g=0), n=10, attrName="cat", attrValues=["x"])'
 #: the kernels the pql phase's run must launch.
 PQL_KERNELS = ("pair_count", "row_counts", "tree_count", "shift_left")
@@ -2330,14 +2521,17 @@ def phase_pql(torch, card: str, data: dict, runs: int = QUERY_RUNS) -> dict:
         f"{snap['entries']}, bytes {snap['bytes']}")
 
     for index, q in timed:
+        # TopN with tanimotoThreshold takes about a second a run (ROADMAP
+        # 3c): fewer runs, so the fields phase fits the script's limit.
+        n = min(runs, PQL_TANIMOTO_RUNS) if q == PQL_TANIMOTO else runs
         times = []
-        for _ in range(runs):
+        for _ in range(n):
             t0 = time.perf_counter()
             over_http(index, q)
             times.append((time.perf_counter() - t0) * 1e3)
         direct, spread = p50_ms(
-            lambda index=index, q=q: ex.execute(index, q, cache=False), runs)
-        log(f"pql {q}: HTTP {spread_ms(times)} ms over {runs} requests; in process "
+            lambda index=index, q=q: ex.execute(index, q, cache=False), n)
+        log(f"pql {q}: HTTP {spread_ms(times)} ms over {n} requests; in process "
             f"p50 {direct:.4f} ms ({spread})  [{card}]")
     conn.close()
     return {"launches": path_launches}
@@ -2625,6 +2819,423 @@ def phase_async(torch, card: str, data: dict, n_futures: int = ASYNC_FUTURES) ->
     return {"launches": launches}
 
 
+# -- phase 10: time, mutex and bool fields, MinRow/MaxRow, GroupBy ------------
+
+#: bench config 4's time field, scaled from 8M to 1B columns: 10M bits in
+#: rows 0-2, stamped on the hour, uniform over 90 days from 2019-01-01.
+FIELDS_TIME_BITS = 10_000_000
+FIELDS_TIME_ROWS = 3
+FIELDS_TIME_HOURS = 24 * 90
+#: bench config 5's GroupBy fields at its density (1.5%), at 1B columns.
+FIELDS_SET_BITS = 15_000_000
+FIELDS_SET_ROWS = {"a": 4, "b": 8, "c": 3}
+#: the mutex field: 16 rows over 50M columns, then 10M of them moved.
+FIELDS_MUTEX_ROWS = 16
+FIELDS_MUTEX_COLS = 50_000_000
+FIELDS_MUTEX_MOVED = 10_000_000
+#: the bool field: 20M columns, true or false.
+FIELDS_BOOL_COLS = 20_000_000
+#: bits of t's row 7 imported over HTTP with epoch-second timestamps.
+FIELDS_HTTP_BITS = 2000
+#: the wide lattices: 450 rows in one level, and levels of 32 and 256
+#: rows, over a few shards, bits of each field random.
+WIDE_SHARDS = 4
+WIDE_ROWS = {"w": 450, "x": 32, "y": 256}
+WIDE_BITS = 1_000_000
+WIDE_SCHEMA = ["/index/wide", "/index/wide/field/w", "/index/wide/field/x",
+               "/index/wide/field/y"]
+FIELDS_SCHEMA = [
+    ("/index/bench/field/t", {"type": "time", "timeQuantum": "YMDH"}),
+    ("/index/bench/field/a", None), ("/index/bench/field/b", None),
+    ("/index/bench/field/c", None),
+    ("/index/bench/field/m", {"type": "mutex"}),
+    ("/index/bench/field/flag", {"type": "bool"}),
+]
+#: bench config 4's window (32 views at YMDH) and one cut to the hour at
+#: both ends (67 views); hours from 2019-01-01T00:00.
+WINDOWS = {"32": ("2019-01-15T00:00", "2019-03-15T00:00", 14 * 24, 73 * 24),
+           "67": ("2019-01-15T06:00", "2019-03-15T18:00", 14 * 24 + 6, 73 * 24 + 18)}
+#: runs of the queries that upload stacks on every run (the windows churn
+#: the 4 GiB stack budget; the cursor GroupBy walks every shard).
+FIELDS_SLOW_RUNS = 2
+#: runs of the other queries of the fields phase.
+FIELDS_RUNS = 5
+FIELDS_KERNELS = ("row_counts", "tree_count", "group_count")
+
+
+def unique_pairs(cols: np.ndarray, rows: np.ndarray, n_rows: int):
+    """The distinct (column, row) bits of a batch, sorted by column then
+    row: what a set field holds after importing it."""
+    key = np.unique(cols.astype(np.int64) * n_rows + rows.astype(np.int64))
+    return key // n_rows, key % n_rows
+
+
+def join_on_column(left_cols: np.ndarray, right_cols: np.ndarray):
+    """Index pairs (i, j) with left_cols[i] == right_cols[j]; right_cols
+    ascending."""
+    lo = np.searchsorted(right_cols, left_cols, "left")
+    cnt = np.searchsorted(right_cols, left_cols, "right") - lo
+    li = np.repeat(np.arange(len(left_cols)), cnt)
+    start = np.concatenate(([0], np.cumsum(cnt)[:-1]))
+    ri = np.arange(int(cnt.sum())) + np.repeat(lo - start, cnt)
+    return li, ri
+
+
+def group_json(fields: list[str], groups: list[tuple]) -> list[dict]:
+    return [{"group": [{"field": f, "rowID": int(r)} for f, r in zip(fields, grp)],
+             "count": int(c)} for grp, c in groups]
+
+
+def fold_extreme_row(per_shard: np.ndarray, is_min: bool) -> dict:
+    """MinRow/MaxRow over per-shard row counts [S, R]: each shard's
+    smallest (largest) row with bits and its count there; across shards the
+    smallest (largest) id, and on equal ids the first shard's count."""
+    best = None
+    for counts in per_shard:
+        live = np.flatnonzero(counts)
+        if not len(live):
+            continue
+        rid = int(live[0] if is_min else live[-1])
+        if best is None or (rid < best[0] if is_min else rid > best[0]):
+            best = (rid, int(counts[rid]))
+    return {"id": best[0], "count": best[1]} if best else {"id": 0, "count": 0}
+
+
+def cursor_oracle(shard_counts: np.ndarray, has_a: np.ndarray, has_b: np.ndarray,
+                  prev: tuple, limit: int) -> list[tuple]:
+    """GroupBy of two Rows levels with a ``previous`` cursor on each, over
+    per-shard group counts [S, A, B] and the rows each shard holds
+    ([S, A], [S, B]), as the per-shard walk runs it: in each shard level 0
+    from its cursor row, level 1 strictly after its cursor while level 0
+    sits on its cursor row and from the start after (the reference's
+    ignorePrev), nonzero groups, at most ``limit`` per shard; then the
+    shards' groups summed and the first ``limit`` kept."""
+    total: dict[tuple, int] = {}
+    for counts, ha, hb in zip(shard_counts, has_a, has_b):
+        rows_a = np.flatnonzero(ha).tolist()
+        rows_b = np.flatnonzero(hb).tolist()
+        found = []
+        for j, ra in enumerate(r for r in rows_a if r >= prev[0]):
+            if len(found) >= limit:
+                break
+            at_cursor = j == 0 and ra == prev[0]
+            for rb in (r for r in rows_b if not at_cursor or r > prev[1]):
+                if len(found) >= limit:
+                    break
+                if counts[ra, rb]:
+                    found.append(((ra, rb), int(counts[ra, rb])))
+        for grp, c in found:
+            total[grp] = total.get(grp, 0) + c
+    return sorted(total.items())[:limit]
+
+
+def phase_fields(torch, card: str, data: dict, runs: int = FIELDS_RUNS,
+                 slow_runs: int = FIELDS_SLOW_RUNS) -> dict:
+    """Time, mutex and bool fields, MinRow/MaxRow and GroupBy at 1B columns
+    on the ``bench`` index: the fields created over HTTP, their data
+    imported in process from SEED (time bits through ``Field.import_bits``
+    with datetime64 stamps, a small batch over HTTP with epoch seconds),
+    every query in process (``node.executor``, cache bypassed) and over
+    HTTP, each answer equal to its numpy oracle and each body byte-equal to
+    the in-process JSON. A planner GroupBy is ONE ``group_count`` launch;
+    the time windows are ``tree_count`` launches over their view leaves.
+    Prints each query's p50 both ways, its launches, the stack cache's hits
+    and uploads, and the peak device memory."""
+    from pilosa_tpu_torch.config import SHARD_WIDTH
+    from pilosa_tpu_torch.exec import result_to_json
+    from pilosa_tpu_torch.ops import kernels
+
+    device, node, h = data["device"], data["node"], data["holder"]
+    ex = node.executor
+    planner = ex.planner
+    n_shards, n_cols = data["count_shards"], data["count_cols"]
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    conn = http_client(node.port)
+    for path, opts in FIELDS_SCHEMA:
+        expect_ok(conn, "POST", path, {"options": opts} if opts else None)
+    conn.close()  # the imports below outlast a keep-alive connection's idle limit
+    rng = np.random.default_rng(SEED + 6)
+    exp = SHARD_WIDTH.bit_length() - 1
+
+    # The time field: 10M bits, rows 0-2, hourly stamps over 90 days.
+    t0 = time.perf_counter()
+    t_cols = rng.integers(0, n_cols, FIELDS_TIME_BITS, dtype=np.uint64)
+    t_rows = rng.integers(0, FIELDS_TIME_ROWS, FIELDS_TIME_BITS).astype(np.uint64)
+    t_hours = rng.integers(0, FIELDS_TIME_HOURS, FIELDS_TIME_BITS)
+    stamps = (np.datetime64("2019-01-01T00", "h") + t_hours).astype("datetime64[s]")
+    h.field("bench", "t").import_bits(t_rows, t_cols, stamps)
+    tf = h.field("bench", "t")
+    n_frags = sum(len(v.fragments) for v in tf.views.values())
+    log(f"fields: time field t, {FIELDS_TIME_BITS} bits in rows 0-{FIELDS_TIME_ROWS - 1} "
+        f"over {FIELDS_TIME_HOURS} hours: {len(tf.views)} views, {n_frags} fragments, "
+        f"import {time.perf_counter() - t0:.3f} s (host)")
+    del stamps
+
+    # The set fields of the GroupBy lattice.
+    pairs, import_s = {}, {}
+    for name, n_rows in FIELDS_SET_ROWS.items():
+        cols = rng.integers(0, n_cols, FIELDS_SET_BITS, dtype=np.uint64)
+        rows = rng.integers(0, n_rows, FIELDS_SET_BITS).astype(np.uint64)
+        t0 = time.perf_counter()
+        h.field("bench", name).import_bits(rows, cols)
+        import_s[name] = round(time.perf_counter() - t0, 3)
+        pairs[name] = unique_pairs(cols, rows, n_rows)
+    log(f"fields: set fields {dict(FIELDS_SET_ROWS)}, {FIELDS_SET_BITS} bits each, "
+        f"import_bits s (host) {import_s}")
+
+    # The mutex field, first import; the bool field: distinct columns in
+    # a shuffled order (tests/test_torch_fields.py holds repeated columns
+    # in one batch to the JAX package).
+    def distinct_cols(n):
+        step = n_cols // n
+        cols = (np.arange(n, dtype=np.uint64) * np.uint64(step)
+                + rng.integers(0, step, n, dtype=np.uint64))
+        return cols[rng.permutation(n)]
+
+    m_cols = distinct_cols(FIELDS_MUTEX_COLS)
+    m_rows = rng.integers(0, FIELDS_MUTEX_ROWS, FIELDS_MUTEX_COLS).astype(np.uint64)
+    t0 = time.perf_counter()
+    h.field("bench", "m").import_bits(m_rows, m_cols)
+    m_import_s = time.perf_counter() - t0
+    b_cols = distinct_cols(FIELDS_BOOL_COLS)
+    b_rows = rng.integers(0, 2, FIELDS_BOOL_COLS).astype(np.uint64)
+    t0 = time.perf_counter()
+    h.field("bench", "flag").import_bits(b_rows, b_cols)
+    b_import_s = time.perf_counter() - t0
+    want_m3_before = int((m_rows == 3).sum())
+    want_flag = int((b_rows == 1).sum())
+    log(f"fields: mutex m {FIELDS_MUTEX_COLS} columns over {FIELDS_MUTEX_ROWS} rows "
+        f"(import {m_import_s:.3f} s), bool flag {FIELDS_BOOL_COLS} columns (import "
+        f"{b_import_s:.3f} s) (host)")
+
+    # 2,000 bits of t's row 7 over HTTP, epoch-second stamps in Jan-Feb.
+    conn = http_client(node.port)
+    http_cols = rng.integers(0, n_cols, FIELDS_HTTP_BITS, dtype=np.uint64)
+    http_hours = rng.integers(0, 59 * 24, FIELDS_HTTP_BITS)
+    http_secs = 1546300800 + 3600 * http_hours  # 2019-01-01T00:00 UTC
+    expect_ok(conn, "POST", "/index/bench/field/t/import",
+              {"rowIDs": [7] * FIELDS_HTTP_BITS, "columnIDs": http_cols.tolist(),
+               "timestamps": http_secs.tolist()})
+    want_http = len(np.unique(http_cols[http_hours >= 31 * 24]))
+
+    # numpy oracles.
+    t_oracle = time.perf_counter()
+    g_words = np.stack([h.fragment("bench", "g", "standard", s).row_words(2)
+                        for s in range(n_shards)])
+
+    def in_g2(cols):
+        cols = cols.astype(np.int64)
+        local = cols & (SHARD_WIDTH - 1)
+        return ((g_words[cols >> exp, local >> 5] >> (local & 31).astype(np.uint32)) & 1) == 1
+
+    want = {}
+    for key, (lo_t, hi_t, lo_h, hi_h) in WINDOWS.items():
+        sel = (t_rows == 1) & (t_hours >= lo_h) & (t_hours < hi_h)
+        in_window = np.unique(t_cols[sel])
+        want[f"time{key}"] = len(in_window)
+        if key == "32":
+            want["time_and"] = int(in_g2(in_window).sum())
+            rows = set(np.unique(t_rows[(t_hours >= lo_h) & (t_hours < hi_h)]).tolist())
+            if ((http_hours >= lo_h) & (http_hours < hi_h)).any():
+                rows.add(7)
+            want["time_rows"] = {"rows": sorted(int(r) for r in rows)}
+    a_cols, a_rows = pairs["a"]
+    b_cols, b_rows_ = pairs["b"]
+    c_cols, c_rows = pairs["c"]
+    n_a, n_b, n_c = (FIELDS_SET_ROWS[k] for k in "abc")
+    per_shard_a = np.bincount((a_cols >> exp) * n_a + a_rows,
+                              minlength=n_shards * n_a).reshape(n_shards, n_a)
+    b_g2 = in_g2(b_cols)
+    per_shard_b_g2 = np.bincount((b_cols[b_g2] >> exp) * n_b + b_rows_[b_g2],
+                                 minlength=n_shards * n_b).reshape(n_shards, n_b)
+    want["minrow"] = fold_extreme_row(per_shard_a, True)
+    want["maxrow"] = fold_extreme_row(per_shard_b_g2, False)
+    ai, bi = join_on_column(a_cols, b_cols)
+    ab_cols, ab_a, ab_b = a_cols[ai], a_rows[ai], b_rows_[bi]
+    ab = np.bincount(ab_a * n_b + ab_b, minlength=n_a * n_b)
+    keep = in_g2(ab_cols)
+    ab_f = np.bincount(ab_a[keep] * n_b + ab_b[keep], minlength=n_a * n_b)
+    li, ci = join_on_column(ab_cols, c_cols)
+    abc = np.bincount((ab_a[li] * n_b + ab_b[li]) * n_c + c_rows[ci],
+                      minlength=n_a * n_b * n_c)
+    shard_ab = np.bincount(((ab_cols >> exp) * n_a + ab_a) * n_b + ab_b,
+                           minlength=n_shards * n_a * n_b).reshape(n_shards, n_a, n_b)
+
+    def lattice(counts, dims):
+        return [(tuple(int(x) for x in np.unravel_index(k, dims)), int(c))
+                for k, c in enumerate(counts) if c]
+
+    full_ab = lattice(ab, (n_a, n_b))
+    want["gb_ab"] = group_json(["a", "b"], full_ab)
+    want["gb_ab_filter"] = group_json(["a", "b"], lattice(ab_f, (n_a, n_b)))
+    want["gb_abc"] = group_json(["a", "b", "c"], lattice(abc, (n_a, n_b, n_c)))
+    want["gb_page"] = group_json(["a", "b"], full_ab[10:15])
+    per_shard_b = np.bincount((b_cols >> exp) * n_b + b_rows_,
+                              minlength=n_shards * n_b).reshape(n_shards, n_b)
+    want["gb_cursor"] = group_json(["a", "b"], cursor_oracle(
+        shard_ab, per_shard_a > 0, per_shard_b > 0, (1, 3), 5))
+    want["mutex"] = want_m3_before
+    want["flag"] = want_flag
+    want["http_time"] = want_http
+    del g_words, pairs, ai, bi, li, ci, ab_cols, ab_a, ab_b, keep
+    log(f"fields: numpy oracles in {time.perf_counter() - t_oracle:.3f} s (host)")
+    queries = {
+        "time32": "Count(Row(t=1, from='{}', to='{}'))".format(*WINDOWS["32"][:2]),
+        "time67": "Count(Row(t=1, from='{}', to='{}'))".format(*WINDOWS["67"][:2]),
+        "time_and": "Count(Intersect(Row(t=1, from='{}', to='{}'), Row(g=2)))".format(
+            *WINDOWS["32"][:2]),
+        "time_rows": "Rows(t, from='{}', to='{}')".format(*WINDOWS["32"][:2]),
+        "minrow": "MinRow(field=a)",
+        "maxrow": "MaxRow(Row(g=2), field=b)",
+        "gb_ab": "GroupBy(Rows(a), Rows(b))",
+        "gb_ab_filter": "GroupBy(Rows(a), Rows(b), filter=Row(g=2))",
+        "gb_abc": "GroupBy(Rows(a), Rows(b), Rows(c))",
+        "gb_page": "GroupBy(Rows(a), Rows(b), limit=5, offset=10)",
+        "gb_cursor": "GroupBy(Rows(a, previous=1), Rows(b, previous=3), limit=5)",
+        "mutex": "Count(Row(m=3))",
+        "flag": "Count(Row(flag=true))",
+        "http_time": "Count(Row(t=7, from='2019-02-01T00:00', to='2019-03-01T00:00'))",
+    }
+    slow = {"time32", "time67", "time_and", "time_rows", "gb_cursor"}
+    planner_gb = {"gb_ab", "gb_ab_filter", "gb_abc", "gb_page"}
+
+    def inproc(q):
+        before = dict(kernels.LAUNCHES)
+        results = ex.execute("bench", q, cache=False)
+        body = (json.dumps({"results": [result_to_json(r) for r in results]})
+                + "\n").encode()
+        return body, {k: kernels.LAUNCHES[k] - before[k] for k in before}
+
+    def over_http(q):
+        before = dict(kernels.LAUNCHES)
+        status, body = request(conn, "POST", QUERY_PATH.format("bench"), q)
+        if status != 200:
+            raise AssertionError(f"{q}: HTTP {status} {body[:300]!r}")
+        return body, {k: kernels.LAUNCHES[k] - before[k] for k in before}
+
+    def count_kernels(launches):  # the uploads' assemble_stack aside
+        return {k: v for k, v in launches.items() if v and k != "assemble_stack"}
+
+    # The fields path's run: counters at 0 just before, read just after.
+    kernels.reset_launches()
+    hits0, uploads0 = planner.stack_hits, planner.uploads
+    report = {}
+    for name, q in queries.items():
+        t0 = time.perf_counter()
+        body, l_first = inproc(q)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        got = json.loads(body)["results"]
+        if got != [want[name]]:
+            raise AssertionError(f"{q}: {str(got)[:300]}, numpy oracle "
+                                 f"{str([want[name]])[:300]}")
+        hbody, l_http = over_http(q)
+        if hbody != body:
+            raise AssertionError(f"{q}: HTTP body {hbody[:200]!r} is not the "
+                                 f"in-process JSON {body[:200]!r}")
+        body2, l_in = inproc(q)
+        if body2 != body or count_kernels(l_http) != count_kernels(l_in):
+            raise AssertionError(f"{q}: warm in process {body2[:100]!r} launches "
+                                 f"{l_in}, over HTTP {l_http}")
+        if device == "cuda":
+            if name in planner_gb and (l_in["group_count"] != 1 or l_first["group_count"] != 1):
+                raise AssertionError(f"{q}: launched {l_in} (first {l_first}), not ONE "
+                                     "group_count")
+            if name not in planner_gb and l_in["group_count"]:
+                raise AssertionError(f"{q}: launched group_count {l_in}")
+            if name.startswith("time") and name != "time_rows" and l_in["tree_count"] < 1:
+                raise AssertionError(f"{q}: no tree_count launch {l_in}")
+        n = slow_runs if name in slow else runs
+        direct, spread = p50_ms(lambda q=q: ex.execute("bench", q, cache=False), n)
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            over_http(q)
+            times.append((time.perf_counter() - t0) * 1e3)
+        report[name] = (direct, statistics.median(times))
+        log(f"fields {q} = oracle, HTTP body byte-equal; first {first_ms:.3f} ms, "
+            f"launches {count_kernels(l_first)} first, {count_kernels(l_in)} warm; "
+            f"p50 in process {direct:.4f} ms ({spread}), HTTP {spread_ms(times)} ms "
+            f"over {n} runs  [{card}]")
+
+    # The mutex field's moving import: 10M of its columns to new rows.
+    moved = rng.choice(FIELDS_MUTEX_COLS, FIELDS_MUTEX_MOVED, replace=False)
+    mv_cols = m_cols[moved]
+    mv_rows = rng.integers(0, FIELDS_MUTEX_ROWS, FIELDS_MUTEX_MOVED).astype(np.uint64)
+    t0 = time.perf_counter()
+    h.field("bench", "m").import_bits(mv_rows, mv_cols)
+    mv_s = time.perf_counter() - t0
+    m_rows[moved] = mv_rows
+    want_after = int((m_rows == 3).sum())
+    body, l_in = inproc(queries["mutex"])
+    hbody, _ = over_http(queries["mutex"])
+    if json.loads(body)["results"] != [want_after] or hbody != body:
+        raise AssertionError(f"Count(Row(m=3)) after the move: {body!r} HTTP {hbody!r}, "
+                             f"numpy {want_after}")
+    log(f"fields Count(Row(m=3)): {want_m3_before} before, {want_after} after moving "
+        f"{FIELDS_MUTEX_MOVED} columns (import {mv_s:.3f} s), oracle and HTTP equal, "
+        f"launches {count_kernels(l_in)}  [{card}]")
+    del m_cols, m_rows, mv_cols, mv_rows, moved, b_cols, b_rows, t_cols, t_rows, t_hours
+
+    # Wide lattices at a few shards, where the stack cap admits hundreds of
+    # planes and group_count reads them from device memory, unstaged:
+    # GroupBy(Rows(w)) over 450 rows, and a (32, 256) lattice of 8192
+    # groups over 288 planes.
+    conn.close()
+    conn = http_client(node.port)
+    for path in WIDE_SCHEMA:
+        expect_ok(conn, "POST", path)
+    wide_cols = WIDE_SHARDS * SHARD_WIDTH
+    wide_pairs = {}
+    for name, n_rows in WIDE_ROWS.items():
+        cols = rng.integers(0, wide_cols, WIDE_BITS, dtype=np.uint64)
+        rows = rng.integers(0, n_rows, WIDE_BITS).astype(np.uint64)
+        h.field("wide", name).import_bits(rows, cols)
+        wide_pairs[name] = unique_pairs(cols, rows, n_rows)
+    w_cols, w_rows = wide_pairs["w"]
+    x_cols, x_rows = wide_pairs["x"]
+    y_cols, y_rows = wide_pairs["y"]
+    xi, yi = join_on_column(x_cols, y_cols)
+    n_y = WIDE_ROWS["y"]
+    want_wide = {
+        "GroupBy(Rows(w))": group_json(["w"], lattice(
+            np.bincount(w_rows, minlength=WIDE_ROWS["w"]), (WIDE_ROWS["w"],))),
+        "GroupBy(Rows(x), Rows(y))": group_json(["x", "y"], lattice(
+            np.bincount(x_rows[xi] * n_y + y_rows[yi], minlength=WIDE_ROWS["x"] * n_y),
+            (WIDE_ROWS["x"], n_y))),
+    }
+    for q, want_q in want_wide.items():
+        before = dict(kernels.LAUNCHES)
+        results = ex.execute("wide", q, cache=False)
+        l_in = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+        body = (json.dumps({"results": [result_to_json(r) for r in results]})
+                + "\n").encode()
+        status, hbody = request(conn, "POST", QUERY_PATH.format("wide"), q)
+        if json.loads(body)["results"] != [want_q] or status != 200 or hbody != body:
+            raise AssertionError(f"wide {q}: {body[:300]!r}, HTTP {status} {hbody[:200]!r}, "
+                                 f"numpy oracle {str(want_q)[:300]}")
+        if device == "cuda" and l_in["group_count"] != 1:
+            raise AssertionError(f"wide {q}: launched {count_kernels(l_in)}, not ONE "
+                                 "group_count")
+        log(f"fields {q} over {WIDE_SHARDS} shards: {len(want_q)} groups = oracle, HTTP "
+            f"body byte-equal, launches {count_kernels(l_in)}  [{card}]")
+    del wide_pairs, w_cols, w_rows, x_cols, x_rows, y_cols, y_rows, xi, yi
+
+    launches = dict(kernels.LAUNCHES)
+    log(f"fields path launches: {launches}  [{card}]")
+    log(f"fields stack cache: {planner.stack_hits - hits0} hits, "
+        f"{planner.uploads - uploads0} uploads, {planner.evictions} evictions in all, "
+        f"budget {planner.max_cache_bytes / 2**30:.3f} GiB")
+    if device == "cuda":
+        log(f"fields peak device memory: "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB  [{card}]")
+        for k in FIELDS_KERNELS:
+            if launches[k] < 1:
+                raise AssertionError(f"kernel {k} was not launched on the fields path")
+    conn.close()
+    return {"launches": launches, "p50": report}
+
+
 def main() -> int:
     import torch
 
@@ -2647,7 +3258,8 @@ def main() -> int:
               ("http", lambda: phase_http(torch, card, data)),
               ("persist", lambda: phase_persist(torch, card, data)),
               ("pql", lambda: phase_pql(torch, card, data)),
-              ("async", lambda: phase_async(torch, card, data)))
+              ("async", lambda: phase_async(torch, card, data)),
+              ("fields", lambda: phase_fields(torch, card, data)))
     try:
         for name, phase in phases:
             log(f"== phase {name}")
@@ -2658,6 +3270,7 @@ def main() -> int:
                 traceback.print_exc()
                 sys.stdout.flush()
                 failed.append(name)
+                torch.cuda.empty_cache()  # what the failed phase held
                 if name in ("toolchain", "data"):
                     break
             log(f"phase {name}: {time.perf_counter() - t0:.3f} s")
@@ -2671,7 +3284,8 @@ def main() -> int:
     timings = results["kernels"]["timings"]
     errs = results["kernels"]["errs"]
     launches = {k: sum(results[p]["launches"][k]
-                       for p in ("main_path", "bsi", "http", "persist", "pql", "async"))
+                       for p in ("main_path", "bsi", "http", "persist", "pql", "async",
+                                 "fields"))
                 for k in errs}
     sources = {"pair_count": "pilosa_tpu_torch/csrc/count_kernels.cu",
                "row_counts": "pilosa_tpu_torch/csrc/count_kernels.cu",
@@ -2682,7 +3296,8 @@ def main() -> int:
                "pair_count_batched": "pilosa_tpu_torch/csrc/count_kernels.cu",
                "row_counts_batched": "pilosa_tpu_torch/csrc/count_kernels.cu",
                "tree_count_batched": "pilosa_tpu_torch/csrc/tree_kernels.cu",
-               "assemble_stack": "pilosa_tpu_torch/csrc/upload_kernels.cu"}
+               "assemble_stack": "pilosa_tpu_torch/csrc/upload_kernels.cu",
+               "group_count": "pilosa_tpu_torch/csrc/group_kernels.cu"}
     vmapped = ("pilosa_tpu/parallel/coalesce.py:312-348 _flush_batched + "
                "pilosa_tpu/parallel/planner.py:387-396 vmapped (jax.vmap of the "
                "count program; no pallas_call)")
@@ -2701,7 +3316,9 @@ def main() -> int:
                 "row_counts_batched": vmapped + " over row_counts",
                 "tree_count_batched": vmapped + " over _eval_node",
                 "assemble_stack": "pilosa_tpu/parallel/planner.py:2046-2057 "
-                                  "_assemble_stack (XLA-fused, no pallas_call)"}
+                                  "_assemble_stack (XLA-fused, no pallas_call)",
+                "group_count": "pilosa_tpu/parallel/planner.py:919-978 execute_group_by "
+                               "(XLA-fused, no pallas_call)"}
     entries = []
     for name in sources:
         ms, plain, bound, by, lib = timings[name]
@@ -2724,4 +3341,8 @@ if __name__ == "__main__":
         sys.exit(tree_batched_times(sys.argv[2]))
     if sys.argv[1:2] == ["--tree-batched-vs"] and len(sys.argv) == 3:
         sys.exit(tree_batched_vs(sys.argv[2]))
+    if sys.argv[1:] == ["--import-rule"]:
+        sys.exit(import_rule_vs())
+    if sys.argv[1:2] == ["--import-rule-side"] and len(sys.argv) == 3:
+        sys.exit(import_rule_side(int(sys.argv[2])))
     sys.exit(main())

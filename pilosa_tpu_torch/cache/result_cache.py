@@ -32,7 +32,7 @@ from typing import Any
 
 from pilosa_tpu_torch.config import WORDS_PER_SHARD
 from pilosa_tpu_torch.core.row import Row
-from pilosa_tpu_torch.exec.result import Pair, RowIdentifiers, ValCount
+from pilosa_tpu_torch.exec.result import GroupCount, Pair, RowIdentifiers, ValCount
 
 #: fixed per-entry bookkeeping charge (key tuple, entry record, dict slot).
 ENTRY_OVERHEAD = 256
@@ -50,6 +50,8 @@ def _result_size(r: Any) -> int:
         return 72
     if isinstance(r, RowIdentifiers):
         return 64 + 8 * len(r.rows)
+    if isinstance(r, GroupCount):
+        return 48 + 72 * len(r.group)
     if isinstance(r, list):
         return 56 + sum(_result_size(x) for x in r)
     if isinstance(r, dict):

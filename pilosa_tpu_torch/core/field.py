@@ -1,16 +1,25 @@
-"""Field — a set field (rows of bits over columns, in the standard view) or
-an int field (bit-sliced integers in the ``bsig_<field>`` view).
+"""Field — a typed container of views.
 
-The port's counterpart of pilosa_tpu/core/field.py, set and int fields.
-Reference: field.go (FieldOptions :1419, deleteView :889, SetBit :927,
-ClearBit :967, SetValue :1075, Sum/Min/Max/Range :1121-1201, Import :1204,
-importValue :1285, bsiGroup :1561-1643). Time, mutex and bool fields and
-keyed fields raise ``NotPortedError`` naming the slice of ROADMAP.md that
+The port's counterpart of pilosa_tpu/core/field.py. Reference: field.go
+(types :56-62, FieldOptions :1419, deleteView :889, SetBit :927, ClearBit
+:967, SetValue :1075, Sum/Min/Max/Range :1121-1201, Import :1204,
+importValue :1285, bsiGroup :1561-1643).
+
+Types:
+- ``set``   — rows of bits over columns, in the standard view;
+- ``int``   — bit-sliced integers in the ``bsig_<field>`` view;
+- ``time``  — a set field whose timestamped bits also land in the time
+  views of its quantum (``standard_YYYY[MM[DD[HH]]]``);
+- ``mutex`` — a set field with at most one row per column;
+- ``bool``  — a mutex field over rows 0 (false) and 1 (true).
+
+Keyed fields raise ``NotPortedError`` naming the slice of ROADMAP.md that
 ports them.
 """
 
 from __future__ import annotations
 
+import datetime as dt
 import threading
 from dataclasses import dataclass
 from typing import Callable
@@ -25,11 +34,11 @@ from pilosa_tpu_torch.config import (
     SHARD_WIDTH,
     WORDS_PER_SHARD,
 )
+from pilosa_tpu_torch.core import timequantum as tq
 from pilosa_tpu_torch.core.attrs import AttrStore
 from pilosa_tpu_torch.core.row import Row
-from pilosa_tpu_torch.core.view import VIEW_STANDARD, View, view_bsi_name
+from pilosa_tpu_torch.core.view import VIEW_STANDARD, View, is_time_view, view_bsi_name
 from pilosa_tpu_torch.errors import (
-    SLICE_FIELDS,
     SLICE_KEYS,
     BSIGroupNotFoundError,
     BSIGroupValueTooHighError,
@@ -44,7 +53,14 @@ from pilosa_tpu_torch.pql import ast as pql_ast
 
 FIELD_TYPE_SET = "set"
 FIELD_TYPE_INT = "int"
-_KNOWN_TYPES = ("set", "int", "time", "mutex", "bool")
+FIELD_TYPE_TIME = "time"
+FIELD_TYPE_MUTEX = "mutex"
+FIELD_TYPE_BOOL = "bool"
+_KNOWN_TYPES = (FIELD_TYPE_SET, FIELD_TYPE_INT, FIELD_TYPE_TIME,
+                FIELD_TYPE_MUTEX, FIELD_TYPE_BOOL)
+
+#: numpy datetime64 unit of each time-quantum letter.
+_NP_UNITS = {"Y": "Y", "M": "M", "D": "D", "H": "h"}
 
 CACHE_TYPE_RANKED = "ranked"
 CACHE_TYPE_LRU = "lru"
@@ -76,8 +92,7 @@ def bsi_base(min_: int, max_: int) -> int:
 
 @dataclass
 class FieldOptions:
-    """Reference FieldOptions (field.go:1419), the set- and int-field
-    options."""
+    """Reference FieldOptions (field.go:1419)."""
 
     type: str = FIELD_TYPE_SET
     cache_type: str = CACHE_TYPE_RANKED
@@ -86,7 +101,9 @@ class FieldOptions:
     max: int = 0
     base: int = 0
     bit_depth: int = 0
+    time_quantum: str = ""
     keys: bool = False
+    no_standard_view: bool = False
 
     def to_json(self) -> dict:
         """Type-dependent shape (reference FieldOptions.MarshalJSON)."""
@@ -94,22 +111,26 @@ class FieldOptions:
             return {"type": self.type, "base": self.base,
                     "bitDepth": self.bit_depth, "min": self.min,
                     "max": self.max, "keys": self.keys}
+        if self.type == FIELD_TYPE_TIME:
+            return {"type": self.type, "timeQuantum": self.time_quantum,
+                    "keys": self.keys, "noStandardView": self.no_standard_view}
+        if self.type == FIELD_TYPE_BOOL:
+            return {"type": self.type}
         return {"type": self.type, "cacheType": self.cache_type,
                 "cacheSize": self.cache_size, "keys": self.keys}
 
     @classmethod
     def from_json(cls, d: dict) -> "FieldOptions":
-        """The JSON options of ``POST /index/{i}/field/{f}``. Time views
-        (``timeQuantum``, ``noStandardView``) come with a later slice."""
-        if d.get("timeQuantum") or d.get("noStandardView"):
-            raise NotPortedError("a field with time views", SLICE_FIELDS)
+        """The JSON options of ``POST /index/{i}/field/{f}``."""
         return cls(
             type=d.get("type", FIELD_TYPE_SET),
             cache_type=d.get("cacheType", CACHE_TYPE_RANKED),
             cache_size=d.get("cacheSize", DEFAULT_CACHE_SIZE),
             min=d.get("min", 0), max=d.get("max", 0),
             base=d.get("base", 0), bit_depth=d.get("bitDepth", 0),
+            time_quantum=d.get("timeQuantum", ""),
             keys=d.get("keys", False),
+            no_standard_view=d.get("noStandardView", False),
         )
 
 
@@ -171,7 +192,7 @@ def op_name(op: str) -> str:
 
 
 class Field:
-    """Set or int field (reference Field field.go:65)."""
+    """Typed view container (reference Field field.go:65)."""
 
     def __init__(self, index: str, name: str, device: torch.device,
                  options: FieldOptions | None = None, epoch=None,
@@ -210,18 +231,24 @@ class Field:
         o = self.options
         if o.type not in _KNOWN_TYPES:
             raise InvalidFieldTypeError(f"invalid field type: {o.type!r}")
-        if o.type not in (FIELD_TYPE_SET, FIELD_TYPE_INT):
-            raise NotPortedError(f"a {o.type} field", SLICE_FIELDS)
         if o.cache_type not in _VALID_CACHE_TYPES:
             raise InvalidCacheTypeError(f"invalid cache type: {o.cache_type!r}")
         if o.type == FIELD_TYPE_INT and o.min > o.max:
             raise InvalidBSIGroupRangeError()
+        if o.type == FIELD_TYPE_TIME:
+            tq.validate_quantum(o.time_quantum)
         if o.keys:
             raise NotPortedError("a keyed field", SLICE_KEYS)
 
     @property
     def field_type(self) -> str:
         return self.options.type
+
+    def uses_mutex(self) -> bool:
+        return self.options.type in (FIELD_TYPE_MUTEX, FIELD_TYPE_BOOL)
+
+    def time_quantum(self) -> str:
+        return self.options.time_quantum
 
     def view(self, name: str) -> View | None:
         return self.views.get(name)
@@ -251,7 +278,8 @@ class Field:
                 v = View(self.index, self.name, name, self.device,
                          cache_type=self.options.cache_type,
                          cache_size=self.options.cache_size, epoch=self.epoch,
-                         op_writer_factory=self.op_writer_factory)
+                         op_writer_factory=self.op_writer_factory,
+                         mutex=self.uses_mutex())
                 self.views[name] = v
             return v
 
@@ -263,21 +291,94 @@ class Field:
 
     # -- bit ops -----------------------------------------------------------
 
-    def set_bit(self, row_id: int, column_id: int) -> bool:
-        return self.create_view_if_not_exists(VIEW_STANDARD).set_bit(
-            row_id, column_id)
+    def set_bit(self, row_id: int, column_id: int,
+                timestamp: dt.datetime | None = None) -> bool:
+        """Fan the bit to the standard view and, with a timestamp, to the
+        time views of the quantum (reference SetBit :927)."""
+        changed = False
+        if not self.options.no_standard_view:
+            changed |= self.create_view_if_not_exists(VIEW_STANDARD).set_bit(
+                row_id, column_id)
+        if timestamp is not None:
+            q = self.time_quantum()
+            if not q:
+                raise ValueError("timestamp set on field without time quantum")
+            for name in tq.views_by_time(VIEW_STANDARD, timestamp, q):
+                changed |= self.create_view_if_not_exists(name).set_bit(
+                    row_id, column_id)
+        return changed
 
     def clear_bit(self, row_id: int, column_id: int) -> bool:
-        v = self.view(VIEW_STANDARD)
-        return v.clear_bit(row_id, column_id) if v else False
+        """Clear from the standard view and every time view (reference
+        ClearBit :967-1009 walks every view of the field)."""
+        changed = False
+        for name, v in list(self.views.items()):
+            if name == VIEW_STANDARD or is_time_view(name):
+                changed |= v.clear_bit(row_id, column_id)
+        return changed
 
-    def row(self, row_id: int) -> Row:
-        """Cross-shard row of the standard view."""
-        v = self.view(VIEW_STANDARD)
+    @staticmethod
+    def _view_row(v: View | None, row_id: int) -> Row:
         if v is None:
             return Row()
         return Row({shard: frag.device_row(row_id)
                     for shard, frag in sorted(v.fragments.items())})
+
+    def row(self, row_id: int) -> Row:
+        """Cross-shard row of the standard view."""
+        return self._view_row(self.view(VIEW_STANDARD), row_id)
+
+    def row_time(self, row_id: int, t_from: dt.datetime | None,
+                 t_to: dt.datetime | None) -> Row:
+        """Union of the time views covering [from, to) (executor Range/Row
+        with from/to, executor.go:1490-1528); an open bound is clamped to
+        the time views that exist."""
+        q = self.time_quantum()
+        if not q:
+            raise ValueError(f"field {self.name} has no time quantum")
+        if t_from is None or t_to is None:
+            lo, hi = self._time_view_bounds()
+            if lo is None:
+                return Row()
+            t_from = t_from or lo
+            t_to = t_to or hi
+        out = Row()
+        for name in tq.views_by_time_range(VIEW_STANDARD, t_from, t_to, q):
+            v = self.view(name)
+            if v is not None:
+                out = out.union(self._view_row(v, row_id))
+        return out
+
+    def _time_view_bounds(self) -> tuple[dt.datetime | None, dt.datetime | None]:
+        """(earliest start, latest end) covered by the existing time
+        views."""
+        spans = []
+        for name in self.views:
+            if not is_time_view(name):
+                continue
+            stamp = name[len(VIEW_STANDARD) + 1:]
+            fmt, step = {
+                4: ("%Y", "y"), 6: ("%Y%m", "m"),
+                8: ("%Y%m%d", "d"), 10: ("%Y%m%d%H", "h"),
+            }.get(len(stamp), (None, None))
+            if fmt is None:
+                continue
+            try:
+                t0 = dt.datetime.strptime(stamp, fmt)
+            except ValueError:
+                continue
+            if step == "y":
+                t1 = t0.replace(year=t0.year + 1)
+            elif step == "m":
+                t1 = tq._add_month_norm(t0)
+            elif step == "d":
+                t1 = t0 + dt.timedelta(days=1)
+            else:
+                t1 = t0 + dt.timedelta(hours=1)
+            spans.append((t0, t1))
+        if not spans:
+            return None, None
+        return min(s for s, _ in spans), max(e for _, e in spans)
 
     # -- BSI value ops -----------------------------------------------------
 
@@ -387,22 +488,59 @@ class Field:
 
     # -- bulk import -------------------------------------------------------
 
-    def import_bits(self, row_ids, column_ids, clear: bool = False) -> None:
-        """Reference Field.Import (field.go:1204): group bits by shard, then
-        bulk-import per fragment. A large batch of few rows takes the
-        native scatter (``_scatter_import``); otherwise, and without the
-        native codec, the by-shard split is one stable integer argsort and
-        a boundary scan, and each shard slice reaches its fragment
-        (row, pos)-sorted. Either path writes the JAX package's WAL
-        records for the same batch."""
+    def import_bits(self, row_ids, column_ids, timestamps=None,
+                    clear: bool = False) -> None:
+        """Reference Field.Import (field.go:1204): group bits by view and
+        shard, then bulk-import per fragment. ``timestamps`` (datetimes or
+        None per bit, or a numpy datetime64 array with NaT for none) send
+        each stamped bit to its time views as well; the JAX package pairs
+        bits and stamps with ``zip``, so the shorter of the two bounds the
+        batch, and here too."""
         row_ids = np.asarray(row_ids, dtype=np.uint64)
         column_ids = np.asarray(column_ids, dtype=np.uint64)
         if len(row_ids) != len(column_ids):
             raise ValueError("row/column length mismatch")
-        if len(row_ids) == 0:
+        std = None if self.options.no_standard_view else VIEW_STANDARD
+        if timestamps is None:
+            self._import_view_bits(std, row_ids, column_ids, clear)
             return
-        view = self.create_view_if_not_exists(VIEW_STANDARD)
-        if (not clear and len(row_ids) >= 65536
+        stamps = as_stamps(timestamps)
+        n = min(len(row_ids), len(stamps))
+        row_ids, column_ids, stamps = row_ids[:n], column_ids[:n], stamps[:n]
+        has = ~np.isnat(stamps)
+        q = self.time_quantum()
+        if has.any() and not q:
+            raise ValueError("timestamps require a time quantum")
+        self._import_view_bits(std, row_ids, column_ids, clear)
+        sel = np.flatnonzero(has)
+        for unit in q:
+            keys = stamps[sel].astype(f"datetime64[{_NP_UNITS[unit]}]")
+            uniq, inv = np.unique(keys, return_inverse=True)
+            order = np.argsort(inv, kind="stable")  # batch order per view
+            bounds = np.searchsorted(inv[order], np.arange(len(uniq) + 1))
+            for k, key in enumerate(uniq):
+                name = tq.view_by_time_unit(
+                    VIEW_STANDARD, key.astype("datetime64[s]").astype(dt.datetime),
+                    unit)
+                part = sel[order[bounds[k]:bounds[k + 1]]]
+                self._import_view_bits(name, row_ids[part], column_ids[part],
+                                       clear)
+
+    def _import_view_bits(self, view_name: str | None, row_ids: np.ndarray,
+                          column_ids: np.ndarray, clear: bool) -> None:
+        """One view's bit batch by shard. A large batch of few rows takes
+        the native scatter (``_scatter_import``); otherwise, and without
+        the native codec, the by-shard split is one stable integer argsort
+        and a boundary scan, and each shard slice reaches its fragment
+        (row, pos)-sorted -- or, on a mutex or bool field, in batch order
+        through ``bulk_import_mutex``, where the last write per column
+        wins. Either path writes the JAX package's WAL records for the
+        same batch."""
+        if view_name is None or len(row_ids) == 0:
+            return
+        view = self.create_view_if_not_exists(view_name)
+        mutex = self.uses_mutex() and not clear
+        if (not clear and not mutex and len(row_ids) >= 65536
                 and self._scatter_import(view, row_ids, column_ids)):
             return
         cols = column_ids.astype(np.int64, copy=False)
@@ -410,25 +548,47 @@ class Field:
         exp = SHARD_WIDTH.bit_length() - 1
         shards = (cols >> exp).astype(np.int32)
         local = (cols & (SHARD_WIDTH - 1)).astype(np.uint32)
-        order = np.argsort(shards, kind="stable")  # radix on int32
+        if mutex:  # batch order within a shard: the last write wins
+            order = np.argsort(shards, kind="stable")  # radix on int32
+        else:  # (shard, row, pos): each shard's slice arrives sorted
+            order = np.lexsort((local, rows, shards))
         shards = shards[order]
         rows = rows[order]
         local = local[order]
         cut = np.flatnonzero(shards[1:] != shards[:-1]) + 1
-        bounds = np.concatenate(([0], cut, [len(shards)]))
-        for i in range(len(bounds) - 1):
-            lo, hi = int(bounds[i]), int(bounds[i + 1])
-            frag = view.create_fragment_if_not_exists(int(shards[lo]))
-            seg_rows, seg_local = rows[lo:hi], local[lo:hi]
-            sub = np.lexsort((seg_local, seg_rows))
-            frag.bulk_import_sorted_local(seg_rows[sub], seg_local[sub],
-                                          clear=clear)
+        bounds = np.concatenate(([0], cut, [len(shards)])).tolist()
+        touched = shards[bounds[:-1]].tolist()
+        try:
+            for i, shard in enumerate(touched):
+                lo, hi = bounds[i], bounds[i + 1]
+                frag = view.create_fragment_if_not_exists(shard, bump_epoch=False)
+                if mutex:
+                    base = np.uint64(shard * SHARD_WIDTH)
+                    frag.bulk_import_mutex(rows[lo:hi],
+                                           local[lo:hi].astype(np.uint64) + base)
+                else:
+                    frag.bulk_import_sorted_local(rows[lo:hi], local[lo:hi],
+                                                  clear=clear, bump_epoch=False)
+        finally:
+            # ONE epoch bump for the batch's shards (their fragments were
+            # made and written without one), also when a shard fails.
+            if self.epoch is not None:
+                self.epoch.bump_shards(touched)
 
     #: the scatter import applies when the batch has at most this many
     #: distinct rows (each row costs one O(n) mask + one scatter).
     _SCATTER_MAX_ROWS = 8
     #: refuse to allocate more than this much dense block buffer per row.
     _SCATTER_MAX_BYTES = 1 << 30
+    #: and take the scatter only for at least this many bits per shard of
+    #: the batch's span: each row's buffer is a whole block per shard,
+    #: scanned again to land, so a sparse batch (a time field's daily
+    #: view: about a hundred bits a shard) costs a block per shard and bit
+    #: run. The JAX package scatters any batch of 65536 bits or more; the
+    #: rows that land are equal either way, and the WAL groups them per
+    #: shard here instead of per row and shard. ``chip_smoke.py
+    #: --import-rule`` times both rules on one host.
+    _SCATTER_MIN_BITS_PER_SHARD = 1024
 
     def _scatter_import(self, view: View, row_ids: np.ndarray,
                         column_ids: np.ndarray) -> bool:
@@ -437,7 +597,7 @@ class Field:
         O(n) pass scatters each row's columns into dense per-shard blocks,
         which the fragments adopt or OR in. Returns False, with nothing
         changed, when the shape does not fit (many distinct rows, a huge
-        shard span, no native codec)."""
+        or sparse shard span, no native codec)."""
         if not native.available():
             return False
         distinct = np.unique(row_ids[:4096])
@@ -456,7 +616,8 @@ class Field:
                 return False  # the sample missed rows
         exp = SHARD_WIDTH.bit_length() - 1
         n_shards = (int(column_ids.max()) >> exp) + 1
-        if n_shards * WORDS_PER_SHARD * 4 > self._SCATTER_MAX_BYTES:
+        if (n_shards * WORDS_PER_SHARD * 4 > self._SCATTER_MAX_BYTES
+                or len(row_ids) < n_shards * self._SCATTER_MIN_BITS_PER_SHARD):
             return False
         touched_shards: set[int] = set()
         try:
@@ -497,7 +658,7 @@ class Field:
         the bit depth once for the batch, then splits the batch by shard
         with one stable integer argsort. (The JAX package's native
         sort-free value scatter for fresh views writes the same planes; it
-        is ROADMAP.md Queue 1 item 4.)"""
+        is ROADMAP.md Queue 1 item 4b.)"""
         bsig = self._require_bsi()
         values_arr = np.asarray(values, dtype=np.int64)
         if not clear and len(values_arr):
@@ -528,6 +689,37 @@ class Field:
 
     def info(self) -> dict:
         return {"name": self.name, "options": self.options.to_json()}
+
+
+#: the epoch seconds Python's datetime holds (years 1 to 9999).
+_EPOCH_MIN, _EPOCH_MAX = -62135596800, 253402300799
+
+
+def parse_stamps(timestamps) -> np.ndarray:
+    """An import's timestamps (reference API.Import: epoch seconds or
+    ``TIME_FORMAT`` strings, a falsy one for none) as ``as_stamps`` gives
+    them; the JAX API parses them one by one with ``parse_time``, and a
+    batch of integers here takes one numpy conversion to the same
+    seconds."""
+    vals = list(timestamps)
+    ints = np.asarray(vals) if vals else np.empty(0, dtype=np.int64)
+    if ints.dtype.kind in "iub" and (not len(ints) or (
+            int(ints.min()) >= _EPOCH_MIN and int(ints.max()) <= _EPOCH_MAX)):
+        ints = ints.astype(np.int64)
+        out = ints.astype("datetime64[s]")
+        out[ints == 0] = np.datetime64("NaT")
+        return out
+    return as_stamps([tq.parse_time(t) if t else None for t in vals])
+
+
+def as_stamps(timestamps) -> np.ndarray:
+    """Timestamps as a numpy datetime64[s] array, NaT where a bit has none:
+    a datetime64 array as it is, else one datetime (naive, or its wall
+    clock, as ``strftime`` reads it) or None per bit."""
+    if isinstance(timestamps, np.ndarray) and timestamps.dtype.kind == "M":
+        return timestamps.astype("datetime64[s]")
+    return np.array([None if t is None else t.replace(tzinfo=None)
+                     for t in timestamps], dtype="datetime64[s]")
 
     def __repr__(self):
         return f"Field({self.index}/{self.name} type={self.options.type})"

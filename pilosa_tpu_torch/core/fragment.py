@@ -18,9 +18,11 @@ A BSI fragment keeps a bit-sliced integer per column in rows: exists, sign,
 then magnitude bits (``BSI_*`` below). Every mutation calls the WAL hook
 ``op_writer(op, rows, cols)`` with the JAX fragment's records, in its
 order, with absolute column ids and numpy arrays (storage/diskstore.py
-binds it); roaring import/export goes through the native codec. Mutex and
-bool fields and block checksums belong to later slices of the port
-(ROADMAP.md Queue 1).
+binds it); roaring import/export goes through the native codec. A mutex
+or bool fragment keeps at most one row bit per column: a set clears the
+column's other row first (the reference's mutex vector,
+fragment.go:3094-3164). Block checksums belong to a later slice of the
+port (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -62,14 +64,13 @@ MAX_RESIDENT_TILES = 8
 
 _instance_counter = itertools.count(1)
 
-
 class Fragment:
     """One shard of one view of one field."""
 
     def __init__(self, index: str, field: str, view: str, shard: int,
                  device: torch.device, cache_type: str = "ranked",
                  cache_size: int = DEFAULT_CACHE_SIZE, epoch=None,
-                 op_writer: Callable | None = None):
+                 op_writer: Callable | None = None, mutex: bool = False):
         self.index = index
         self.field = field
         self.view = view
@@ -83,6 +84,9 @@ class Fragment:
         self.epoch = epoch
         #: WAL hook: called as op_writer(op, rows, cols) on mutation.
         self.op_writer = op_writer
+        #: mutex semantics: at most one row bit per column (reference
+        #: mutexVector fragment.go:3094; bool fields use rows 0/1).
+        self.mutex = mutex
 
         #: process-unique identity: a fragment of a deleted and recreated
         #: field or view restarts its generation, so caches validated by
@@ -96,6 +100,12 @@ class Fragment:
         self._top_cache: tuple | None = None
         #: generation-stamped concatenated sparse-row index.
         self._sparse_cache: tuple | None = None
+        #: generation-stamped mutex column vector (gen, positions, rows):
+        #: every column holding a bit, ascending, and the row that holds
+        #: it -- the JAX fragment's ``_col_row`` map as two sorted arrays.
+        #: Every mutation moves the generation, so no bulk path can leave
+        #: it stale.
+        self._col_vec: tuple | None = None
         self._lock = threading.RLock()
         # device caches: row_id -> (gen, Tensor[W]); key -> (gen, ids, Tensor[n, W])
         self._dev_rows: dict[int, tuple[int, torch.Tensor]] = {}
@@ -125,6 +135,12 @@ class Fragment:
     def set_bit(self, row_id: int, column_id: int) -> bool:
         with self._lock:
             pos = self._local(column_id)
+            if self.mutex:
+                # Unset any other row's bit for this column first
+                # (reference handleMutex fragment.go:3094-3164).
+                existing = self.row_for_column(column_id)
+                if existing is not None and existing != row_id:
+                    self.clear_bit(existing, column_id)
             hr = self.rows.get(row_id)
             if hr is None:
                 hr = self.rows[row_id] = HostRow()
@@ -203,12 +219,15 @@ class Fragment:
             return changed
 
     def bulk_import_sorted_local(self, row_ids: np.ndarray,
-                                 local: np.ndarray, clear: bool = False) -> int:
+                                 local: np.ndarray, clear: bool = False,
+                                 bump_epoch: bool = True) -> int:
         """Bulk set/clear of shard-relative positions PRE-SORTED by
         (row, pos) — the core of the import path (reference
         importPositions fragment.go:2053). Boundary-scans row groups,
         dedupes each group's sorted positions with one diff pass, and
-        hands them to HostRow without any further sort."""
+        hands them to HostRow without any further sort. A caller landing
+        many fragments passes ``bump_epoch=False`` and bumps the index
+        epoch once for their shards."""
         with self._lock:
             if len(row_ids) == 0:
                 return 0
@@ -216,7 +235,7 @@ class Fragment:
             local = np.asarray(local, dtype=np.uint32)
             changed = self._import_sorted_local(row_ids, local, clear)
             if changed:
-                self._invalidate()
+                self._invalidate(bump_epoch=bump_epoch)
                 if self.op_writer:
                     base = np.uint64(self.shard * SHARD_WIDTH)
                     self.op_writer("removeBatch" if clear else "addBatch",
@@ -302,6 +321,112 @@ class Fragment:
                                    pos + base)
             return changed
 
+    def bulk_import_mutex(self, row_ids, column_ids) -> int:
+        """Mutex-field import: setting (row, col) clears any other row's
+        bit in that column, and the last write per column wins (reference
+        bulkImportMutex fragment.go:2108). Vectorised over the column
+        vector; the clears and sets, and their WAL records, come in the
+        JAX fragment's order: the batch's distinct columns in order of
+        first appearance, grouped by row in order of first appearance."""
+        with self._lock:
+            rows = np.asarray(row_ids, dtype=np.uint64).reshape(-1)
+            cols = np.asarray(column_ids, dtype=np.uint64).reshape(-1)
+            if len(rows) != len(cols):
+                raise ValueError("row/column length mismatch")
+            if len(rows) == 0:
+                return 0
+            lo = np.uint64(self.shard * SHARD_WIDTH)
+            bad = (cols < lo) | (cols >= lo + np.uint64(SHARD_WIDTH))
+            if bad.any():
+                raise ValueError(f"column:{int(cols[np.argmax(bad)])} out of bounds")
+            local = cols - lo
+            n = len(local)
+            # Each distinct column's first and last write from one stable
+            # sort: the columns in order of first appearance, each with
+            # the row its last write names.
+            o = np.argsort(local, kind="stable")
+            sl = local[o]
+            head = np.ones(n, dtype=bool)
+            np.not_equal(sl[1:], sl[:-1], out=head[1:])
+            starts = np.flatnonzero(head)
+            last = o[np.append(starts[1:], n) - 1]
+            by_first = np.argsort(o[starts])
+            d_pos = sl[starts][by_first]
+            d_row = rows[last[by_first]].astype(np.int64)
+            v_pos, v_row = self._mutex_vector()
+            cur = np.full(len(d_pos), -1, dtype=np.int64)
+            if len(v_pos):
+                at = np.minimum(np.searchsorted(v_pos, d_pos), len(v_pos) - 1)
+                hit = v_pos[at] == d_pos
+                cur[hit] = v_row[at[hit]]
+            steal = (cur >= 0) & (cur != d_row)
+            changed = 0
+            for rid, lpos in _groups_in_order(cur[steal], d_pos[steal]):
+                changed += self.rows[rid].remove_many(lpos)
+                if self.op_writer:
+                    self.op_writer("removeBatch",
+                                   np.full(len(lpos), rid, dtype=np.uint64),
+                                   lpos + lo)
+            for rid, lpos in _groups_in_order(d_row, d_pos):
+                hr = self.rows.get(rid)
+                if hr is None:
+                    hr = self.rows[rid] = HostRow()
+                added = hr.add_many(lpos)
+                changed += added
+                if added and self.op_writer:
+                    self.op_writer("addBatch",
+                                   np.full(len(lpos), rid, dtype=np.uint64),
+                                   lpos + lo)
+            if changed:
+                self._invalidate()
+            return changed
+
+    def _mutex_vector(self) -> tuple[np.ndarray, np.ndarray]:
+        """(positions, rows): every column holding a bit, ascending, and
+        its row; where several rows hold one column (data imported by a
+        path that does not enforce the mutex), the highest row id, as the
+        JAX fragment's map keeps it. Cached per generation."""
+        with self._lock:
+            ent = self._col_vec
+            if ent is not None and ent[0] == self.generation:
+                return ent[1], ent[2]
+            pos_parts, row_parts = [], []
+            for rid in sorted(self.rows):
+                p = self.rows[rid].to_positions()
+                if len(p):
+                    pos_parts.append(p)
+                    row_parts.append(np.full(len(p), rid, dtype=np.int64))
+            if pos_parts:
+                pos = np.concatenate(pos_parts)
+                rws = np.concatenate(row_parts)
+                o = np.argsort(pos, kind="stable")
+                pos, rws = pos[o], rws[o]
+                last = np.ones(len(pos), dtype=bool)
+                last[:-1] = pos[1:] != pos[:-1]
+                pos, rws = pos[last], rws[last]
+            else:
+                pos = np.empty(0, dtype=np.uint64)
+                rws = np.empty(0, dtype=np.int64)
+            self._col_vec = (self.generation, pos, rws)
+            return pos, rws
+
+    def row_for_column(self, column_id: int) -> int | None:
+        """Which row holds this column's bit, if any (the mutex vector's
+        Get, fragment.go:3117): the highest such row id. Reads the column
+        vector while it is current, else asks each row, so a run of
+        single-bit sets does not rebuild the vector per set."""
+        pos = self._local(column_id)
+        with self._lock:
+            ent = self._col_vec
+            if ent is not None and ent[0] == self.generation:
+                v_pos, v_row = ent[1], ent[2]
+                i = int(np.searchsorted(v_pos, pos))
+                if i < len(v_pos) and int(v_pos[i]) == pos:
+                    return int(v_row[i])
+                return None
+            held = [rid for rid, hr in self.rows.items() if hr.contains(pos)]
+            return max(held) if held else None
+
     def import_roaring(self, data: bytes, clear: bool = False) -> int:
         """Merge a serialized roaring bitmap of pos-encoded bits
         (pos = row*ShardWidth + col_local, fragment.go:3090) into this
@@ -343,13 +468,18 @@ class Fragment:
                     for rid in sorted(self.rows)]
 
     def rows_list(self, start_row: int = 0, column: int | None = None,
-                  limit: int | None = None) -> list[int]:
+                  limit: int | None = None,
+                  among: Iterable[int] | None = None) -> list[int]:
         """Ids of the rows holding bits, ascending from ``start_row``,
-        optionally only rows with a bit in ``column``, at most ``limit``
-        (reference rows + rowFilters, fragment.go:2618-2724)."""
+        optionally only rows with a bit in ``column`` and/or in the
+        ``among`` set, at most ``limit`` (reference rows + rowFilters,
+        fragment.go:2618-2724)."""
+        allowed = set(among) if among is not None else None
         out = []
         for r in sorted(self.rows):
             if r < start_row or self.rows[r].n == 0:
+                continue
+            if allowed is not None and r not in allowed:
                 continue
             if column is not None and not self.rows[r].contains(self._local(column)):
                 continue
@@ -413,10 +543,13 @@ class Fragment:
         """Row result for one bitmap row (reference fragment.row :602)."""
         return Row({self.shard: self.device_row(row_id)})
 
-    def intersection_counts(self, row_ids, seg: torch.Tensor) -> np.ndarray:
+    def intersection_counts(self, row_ids, seg: torch.Tensor,
+                            reuse: bool = False) -> np.ndarray:
         """popcount(row & seg) for each row id — the exact-count engine
-        behind TopN. Resolves every device part in one transfer."""
-        out, parts = self.intersection_counts_async(row_ids, seg)
+        behind TopN, GroupBy's per-shard last level and MinRow/MaxRow with
+        a filter. Resolves every device part in one transfer; ``reuse``
+        as in ``intersection_counts_async``."""
+        out, parts = self.intersection_counts_async(row_ids, seg, reuse=reuse)
         resolve_counts([(out, slots, dev) for slots, dev in parts])
         return out
 
@@ -610,6 +743,42 @@ class Fragment:
             return seg
         return bitops.to_device_words(seg, self.device)
 
+    # -- MinRow / MaxRow ---------------------------------------------------
+
+    def _filtered_row_counts(self, filter_row: Row | None) -> tuple[list[int], np.ndarray]:
+        """(row ids, counts [AND filter]): one batched device count with a
+        filter, the host counters without one."""
+        ids = self.rows_list()
+        if not ids:
+            return ids, np.empty(0, dtype=np.int64)
+        if filter_row is None:
+            return ids, np.asarray([self.rows[r].count() for r in ids],
+                                   dtype=np.int64)
+        seg = filter_row.segment(self.shard)
+        if seg is None:
+            return ids, np.zeros(len(ids), dtype=np.int64)
+        if not isinstance(seg, torch.Tensor):
+            seg = bitops.to_device_words(seg, self.device)
+        return ids, self.intersection_counts(ids, seg)
+
+    def min_row(self, filter_row: Row | None = None) -> tuple[int, int]:
+        """(smallest row id with a bit [in the filter], its count), or
+        (0, 0) (reference minRow fragment.go:1232)."""
+        ids, counts = self._filtered_row_counts(filter_row)
+        for rid, cnt in zip(ids, counts.tolist()):
+            if cnt > 0:
+                return rid, int(cnt)
+        return 0, 0
+
+    def max_row(self, filter_row: Row | None = None) -> tuple[int, int]:
+        """(largest row id with a bit [in the filter], its count), or
+        (0, 0) (reference maxRow fragment.go:1253)."""
+        ids, counts = self._filtered_row_counts(filter_row)
+        for rid, cnt in zip(reversed(ids), reversed(counts.tolist())):
+            if cnt > 0:
+                return rid, int(cnt)
+        return 0, 0
+
     # -- BSI ---------------------------------------------------------------
 
     def _bsi_stacks(self, bit_depth: int):
@@ -792,6 +961,22 @@ class Fragment:
     def __repr__(self):
         return (f"Fragment({self.index}/{self.field}/{self.view}/{self.shard} "
                 f"rows={len(self.rows)} bits={self.bit_count()})")
+
+
+def _groups_in_order(keys: np.ndarray, vals: np.ndarray):
+    """(key, vals of that key) for each distinct key in order of first
+    appearance, each group's values in their order in ``vals``."""
+    if not len(keys):
+        return
+    uniq, first = np.unique(keys, return_index=True)
+    rank = np.empty(len(uniq), dtype=np.int64)
+    rank[np.argsort(first, kind="stable")] = np.arange(len(uniq))
+    grp = rank[np.searchsorted(uniq, keys)]
+    o = np.argsort(grp, kind="stable")
+    bounds = np.searchsorted(grp[o], np.arange(len(uniq) + 1))
+    for g in range(len(uniq)):
+        sel = o[bounds[g]:bounds[g + 1]]
+        yield int(keys[sel[0]]), vals[sel]
 
 
 def _is_sorted_pairs(rows: np.ndarray, local: np.ndarray) -> bool:

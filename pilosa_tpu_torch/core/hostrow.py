@@ -105,6 +105,19 @@ class HostRow:
             return True
         return False
 
+    def add_many(self, positions: np.ndarray) -> int:
+        """Bulk-or of positions in any order, duplicates allowed; returns
+        the number of new bits (reference importPositions,
+        fragment.go:2053)."""
+        return self.add_many_sorted_unique(
+            np.unique(np.asarray(positions, dtype=np.uint64)))
+
+    def remove_many(self, positions: np.ndarray) -> int:
+        """Bulk clear of positions in any order; returns the bits
+        removed."""
+        return self.remove_many_sorted_unique(
+            np.unique(np.asarray(positions, dtype=np.uint64)))
+
     def add_many_sorted_unique(self, positions: np.ndarray) -> int:
         """add_many for input already sorted and deduplicated (the bulk
         import path): skips the O(n log n) re-unique, takes a direct

@@ -129,6 +129,11 @@ class Row:
                 total += int(kernels.row_counts(seg))
         return total
 
+    def is_empty(self) -> bool:
+        """True when no shard holds a set bit (reference Row.IsEmpty,
+        the JAX package's ``Row.is_empty``)."""
+        return self.count() == 0
+
     def columns(self) -> np.ndarray:
         """Materialize sorted absolute column IDs (host sync point)."""
         parts = [bitops.columns_of(self.segments[shard], base=shard * SHARD_WIDTH)

@@ -1,8 +1,8 @@
 """View — one slice of a field, holding fragments keyed by shard.
 
-The port's counterpart of pilosa_tpu/core/view.py: the ``standard`` view
-and ``bsig_<field>`` BSI views (time views come with a later slice,
-ROADMAP.md Queue 1). Reference: view.go (names :36-44,
+The port's counterpart of pilosa_tpu/core/view.py: the ``standard`` view,
+``standard_YYYY[MM[DD[HH]]]`` time views and ``bsig_<field>`` BSI views.
+Reference: view.go (names :36-44,
 CreateFragmentIfNotExists :263, setBit :367, setValue/sum/min/max/rangeOp
 :380-473).
 """
@@ -26,12 +26,17 @@ def view_bsi_name(field: str) -> str:
     return VIEW_BSI_PREFIX + field
 
 
+def is_time_view(name: str) -> bool:
+    return name.startswith(VIEW_STANDARD + "_")
+
+
 class View:
     """Container of per-shard fragments for one layout of one field."""
 
     def __init__(self, index: str, field: str, name: str, device: torch.device,
                  cache_type: str = "ranked", cache_size: int = DEFAULT_CACHE_SIZE,
-                 epoch=None, op_writer_factory: Callable | None = None):
+                 epoch=None, op_writer_factory: Callable | None = None,
+                 mutex: bool = False):
         self.index = index
         self.field = field
         self.name = name
@@ -39,6 +44,8 @@ class View:
         self.cache_type = cache_type
         self.cache_size = cache_size
         self.epoch = epoch
+        #: mutex and bool fields: at most one row bit per column.
+        self.mutex = mutex
         #: factory(index, field, view, shard) -> op_writer for WAL wiring.
         self.op_writer_factory = op_writer_factory
         self.fragments: dict[int, Fragment] = {}
@@ -47,7 +54,11 @@ class View:
     def fragment(self, shard: int) -> Fragment | None:
         return self.fragments.get(shard)
 
-    def create_fragment_if_not_exists(self, shard: int) -> Fragment:
+    def create_fragment_if_not_exists(self, shard: int,
+                                      bump_epoch: bool = True) -> Fragment:
+        """The shard's fragment, made if absent. A bulk caller creating
+        many passes ``bump_epoch=False`` and bumps the epoch for its
+        shards once."""
         with self._lock:
             frag = self.fragments.get(shard)
             if frag is None:
@@ -57,11 +68,11 @@ class View:
                 frag = Fragment(self.index, self.field, self.name, shard,
                                 self.device, cache_type=self.cache_type,
                                 cache_size=self.cache_size, epoch=self.epoch,
-                                op_writer=op_writer)
+                                op_writer=op_writer, mutex=self.mutex)
                 self.fragments[shard] = frag
                 # Registration changes the shard set even with zero bits;
                 # the index's available_shards() memo keys on the epoch.
-                if self.epoch is not None:
+                if bump_epoch and self.epoch is not None:
                     self.epoch.bump(shard=shard)
             return frag
 

@@ -62,6 +62,10 @@ class InvalidFieldTypeError(PilosaError):
     message = "invalid field type"
 
 
+class InvalidTimeQuantumError(PilosaError):
+    message = "invalid time quantum"
+
+
 class NameError_(PilosaError):
     message = "invalid name"
 
@@ -84,7 +88,7 @@ class FragmentNotFoundError(PilosaError):
 
 
 #: The later slices of the port, by their heading in ROADMAP.md Queue 1.
-SLICE_FIELDS = "packed residency, time, mutex and bool fields, GroupBy"
+SLICE_FIELDS = "packed residency and the device value transpose"
 SLICE_KEYS = "keys and sketches"
 SLICE_BACKUP = "backup and restore"
 SLICE_CLUSTER = "cluster and operations"

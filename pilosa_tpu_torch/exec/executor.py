@@ -2,10 +2,11 @@
 functions, a map/reduce spine and a result cache.
 
 The port's counterpart of pilosa_tpu/exec/executor.py. Reference:
-executor.go — dispatch (:293-338), Sum/Min/Max (:406-520), bitmap calls
-(:659-676, :1441), BSI conditions (:1536), Count, TopN two-pass
-(:857-999), Rows (:1272-1441), writes (:1823-2330), Options (:360),
-mapReduce (:2455).
+executor.go — dispatch (:293-338), Sum/Min/Max (:406-520), MinRow/MaxRow,
+bitmap calls (:659-676, :1441) over the standard view or the time views a
+``from``/``to`` window covers (:1490-1528), BSI conditions (:1536), Count,
+TopN two-pass (:857-999), GroupBy (:1069-1272, iterator :3058-3231), Rows
+(:1272-1441), writes (:1823-2330), Options (:360), mapReduce (:2455).
 
 As in the JAX package, TopN is exact: per-shard batched intersection
 counts on the device (``pair_count`` over a row stack) instead of the
@@ -15,6 +16,10 @@ plannable bitmap trees (``Not``, ``Shift`` and BSI conditions included),
 over all shards at once as ``[S_pad, W]`` stacks; a tree with an
 unplannable subtree keeps its plannable parts on the device
 (``_fuse_partial``); without a planner, everything runs shard by shard.
+A planner GroupBy over plain ``Rows`` children runs its whole lattice in
+one ``group_count`` launch; cursors (``previous``), ``limit``/``column``
+children, time windows and lattices past the planner's caps take the
+per-shard walk, as in the JAX executor.
 
 Read-only queries given as text are answered from the result cache
 (``pilosa_tpu_torch.cache``) while the epochs of the index's schema and of
@@ -22,8 +27,7 @@ the shards they read stand still; a write misses, and so does a schema
 change. ``cache=False`` (``?noCache=true``) bypasses it.
 
 Calls of later slices raise ``NotPortedError`` naming the slice in
-ROADMAP.md: time views (``from``/``to``), ``MinRow``/``MaxRow``,
-``GroupBy``, ``Distinct``/``SimilarTopN``, keys.
+ROADMAP.md: ``Distinct``/``SimilarTopN`` and keys.
 
 ``execute_async`` is the JAX executor's non-blocking entry: a single
 plannable ``Count``, ``Sum``, ``Min`` or ``Max`` is launched at once (or
@@ -42,6 +46,7 @@ a partial result.
 
 from __future__ import annotations
 
+import datetime as dt
 import math
 import threading
 import time
@@ -52,14 +57,14 @@ from typing import Any, Callable, Iterable
 
 from pilosa_tpu_torch.cache.tenant import current_tenant
 from pilosa_tpu_torch.config import SHARD_WIDTH
-from pilosa_tpu_torch.core.field import FIELD_TYPE_INT, op_name
+from pilosa_tpu_torch.core import timequantum as tq
+from pilosa_tpu_torch.core.field import FIELD_TYPE_INT, FIELD_TYPE_TIME, op_name
 from pilosa_tpu_torch.core.fragment import BSI_EXISTS_BIT, row_id_arg
 from pilosa_tpu_torch.core.holder import Holder
 from pilosa_tpu_torch.core.index import Index
 from pilosa_tpu_torch.core.row import Row
 from pilosa_tpu_torch.core.view import VIEW_STANDARD, view_bsi_name
 from pilosa_tpu_torch.errors import (
-    SLICE_FIELDS,
     SLICE_KEYS,
     BSIGroupNotFoundError,
     FieldNotFoundError,
@@ -69,9 +74,12 @@ from pilosa_tpu_torch.errors import (
 )
 from pilosa_tpu_torch.exec import fuse as _fuse
 from pilosa_tpu_torch.exec.result import (
+    FieldRow,
+    GroupCount,
     Pair,
     RowIdentifiers,
     ValCount,
+    merge_group_counts,
     merge_pairs,
     merge_row_ids,
     sort_pairs,
@@ -94,10 +102,7 @@ _BITMAP_CALLS = frozenset(
     {"Row", "Range", "Difference", "Intersect", "Union", "Xor", "Not", "Shift"})
 
 #: calls of the JAX executor that later slices port, by ROADMAP.md slice.
-_NOT_PORTED = {
-    "MinRow": SLICE_FIELDS, "MaxRow": SLICE_FIELDS, "GroupBy": SLICE_FIELDS,
-    "Distinct": SLICE_KEYS, "SimilarTopN": SLICE_KEYS,
-}
+_NOT_PORTED = {"Distinct": SLICE_KEYS, "SimilarTopN": SLICE_KEYS}
 
 
 @dataclass
@@ -440,6 +445,11 @@ class Executor:
             return self._execute_sum(idx, c, shards)
         if name in ("Min", "Max"):
             return self._execute_min_max(idx, c, shards, is_min=name == "Min")
+        if name in ("MinRow", "MaxRow"):
+            return self._execute_min_max_row(idx, c, shards,
+                                             is_min=name == "MinRow")
+        if name == "GroupBy":
+            return self._execute_group_by(idx, c, shards)
         if name in _BITMAP_CALLS:
             return self._execute_bitmap_call(idx, c, shards, opt)
         if name in _NOT_PORTED:
@@ -605,17 +615,36 @@ class Executor:
 
     def _row_shard(self, idx: Index, c: Call, shard: int) -> Row:
         """Reference executeRowShard (executor.go:1441): the standard view,
-        or a BSI condition."""
+        the union of the time views a ``from``/``to`` window (or a
+        ``Range``) covers, or a BSI condition. An open ``to`` is now plus a
+        day and an open ``from`` the year 1, as in the JAX executor's
+        per-shard path (its planner starts at the first time view)."""
         if c.has_condition_arg():
             return self._row_bsi_shard(idx, c, shard)
-        if c.name == "Range" or "from" in c.args or "to" in c.args:
-            raise NotPortedError(f"{c.name}() over time views", SLICE_FIELDS)
         field_name = c.field_arg()
-        if idx.field(field_name) is None:
+        f = idx.field(field_name)
+        if f is None:
             raise FieldNotFoundError(f"field not found: {field_name!r}")
         row_id = row_id_arg(c, field_name)
-        frag = self.holder.fragment(idx.name, field_name, VIEW_STANDARD, shard)
-        return frag.row(row_id) if frag else Row()
+        from_time = tq.parse_time(c.args["from"]) if "from" in c.args else None
+        to_time = tq.parse_time(c.args["to"]) if "to" in c.args else None
+        if c.name == "Row" and from_time is None and to_time is None:
+            frag = self.holder.fragment(idx.name, field_name, VIEW_STANDARD, shard)
+            return frag.row(row_id) if frag else Row()
+        q = f.time_quantum()
+        if not q:
+            return Row()
+        if to_time is None:
+            to_time = dt.datetime.now() + dt.timedelta(days=1)
+        if from_time is None:
+            from_time = dt.datetime.min.replace(year=1)
+        out = Row()
+        for view_name in tq.views_by_time_range(VIEW_STANDARD, from_time,
+                                                to_time, q):
+            frag = self.holder.fragment(idx.name, field_name, view_name, shard)
+            if frag is not None:
+                out = out.union(frag.row(row_id))
+        return out
 
     def _row_bsi_shard(self, idx: Index, c: Call, shard: int) -> Row:
         """Reference executeRowBSIGroupShard (executor.go:1536)."""
@@ -748,6 +777,35 @@ class Executor:
         result = self.map_reduce(idx, shards, map_fn, reduce_fn,
                                  local_batch_fn=local_batch) or ValCount()
         return ValCount() if result.count == 0 else result
+
+    def _execute_min_max_row(self, idx: Index, c: Call, shards: list[int],
+                             is_min: bool) -> Pair:
+        """MinRow/MaxRow (executor.py:918): per shard the smallest (largest)
+        row with a bit, in the filter child if there is one, and its count;
+        the fold keeps the smallest (largest) id, and on equal ids the
+        first shard's count (counts do not add)."""
+        field_name = self._agg_field(c)
+
+        def map_fn(shard):
+            if idx.field(field_name) is None:
+                return Pair()
+            frag = self.holder.fragment(idx.name, field_name, VIEW_STANDARD, shard)
+            if frag is None:
+                return Pair()
+            filt = self._agg_filter(idx, c, shard)
+            rid, cnt = frag.min_row(filt) if is_min else frag.max_row(filt)
+            return Pair(id=rid, count=cnt)
+
+        def reduce_fn(p, v):
+            if p is None or p.count == 0:
+                return v
+            if v.count == 0:
+                return p
+            if (v.id < p.id) == is_min and v.id != p.id:
+                return v
+            return p
+
+        return self.map_reduce(idx, shards, map_fn, reduce_fn) or Pair()
 
     # ------------------------------------------------------------------
     # Count
@@ -963,19 +1021,44 @@ class Executor:
         def reduce_fn(p, v):
             return merge_row_ids(p or [], v, limit)
 
+        views = self._rows_views(idx, field_name, c)
         return self.map_reduce(
-            idx, shards, lambda shard: self._rows_shard(idx, field_name, c, shard),
+            idx, shards,
+            lambda shard: self._rows_shard(idx, field_name, c, shard, views),
             reduce_fn) or []
 
-    def _rows_shard(self, idx: Index, field_name: str, c: Call,
-                    shard: int) -> list[int]:
-        """Reference executeRowsShard (executor.go:1320), over the standard
-        view."""
+    @staticmethod
+    def _rows_views(idx: Index, field_name: str, c: Call) -> list[str] | None:
+        """The views Rows() reads (reference executeRowsShard,
+        executor.go:1320): the standard view, or on a time field with a
+        window (or no standard view) the time views covering the window
+        clamped to the views that exist; None for a missing field (each
+        shard raises, as the JAX executor's per-shard lookup does). The
+        same for every shard, so found once per query."""
         f = idx.field(field_name)
         if f is None:
+            return None
+        if f.field_type != FIELD_TYPE_TIME:
+            return [VIEW_STANDARD]
+        from_time = tq.parse_time(c.args["from"]) if "from" in c.args else None
+        to_time = tq.parse_time(c.args["to"]) if "to" in c.args else None
+        if not (from_time or to_time or f.options.no_standard_view):
+            return [VIEW_STANDARD]
+        q = f.time_quantum()
+        if not q:
+            return []
+        lo, hi = f._time_view_bounds()
+        if lo is None:
+            return []
+        from_time = from_time if (from_time and from_time > lo) else lo
+        to_time = to_time if (to_time and to_time < hi) else hi
+        return tq.views_by_time_range(VIEW_STANDARD, from_time, to_time, q)
+
+    def _rows_shard(self, idx: Index, field_name: str, c: Call, shard: int,
+                    views: list[str] | None) -> list[int]:
+        """One shard's row ids over ``views`` (``_rows_views``)."""
+        if views is None:
             raise FieldNotFoundError(f"field not found: {field_name!r}")
-        if f.field_type == "time":
-            raise NotPortedError("Rows() over time views", SLICE_FIELDS)
         start = 0
         previous, has_prev = c.uint_arg("previous")
         if has_prev:
@@ -984,12 +1067,206 @@ class Executor:
         if has_col and column // SHARD_WIDTH != shard:
             return []
         limit, has_limit = c.uint_arg("limit")
-        frag = self.holder.fragment(idx.name, field_name, VIEW_STANDARD, shard)
-        if frag is None:
-            return []
-        return frag.rows_list(start_row=start,
-                              column=column if has_col else None,
-                              limit=limit if has_limit else None)
+        out: list[int] = []
+        for view_name in views:
+            frag = self.holder.fragment(idx.name, field_name, view_name, shard)
+            if frag is None:
+                continue
+            rows = frag.rows_list(start_row=start,
+                                  column=column if has_col else None,
+                                  limit=limit if has_limit else None)
+            out = merge_row_ids(out, rows, limit if has_limit else _MAXINT)
+        return out
+
+    # ------------------------------------------------------------------
+    # GroupBy (reference executor.go:1069, iterator :3058)
+    # ------------------------------------------------------------------
+
+    def _execute_group_by(self, idx: Index, c: Call,
+                          shards: list[int]) -> list[GroupCount]:
+        """GroupBy over ``Rows`` children: group counts in lexicographic
+        group order, zero counts dropped; ``offset`` and ``limit`` apply
+        once, after the unbounded merge of every shard (executor.py:1442).
+        ``Rows`` children with ``limit`` or ``column`` are resolved first
+        and restrict their level to those ids."""
+        if not c.children:
+            raise QueryError("need at least one child call")
+        limit, has_limit = c.uint_arg("limit")
+        filter_call, _ = c.call_arg("filter")
+
+        child_rows: list[list[int] | None] = [None] * len(c.children)
+        for i, child in enumerate(c.children):
+            if isinstance(child.args.get("field"), str):
+                child.args["_field"] = child.args["field"]
+            if child.name != "Rows":
+                raise QueryError(
+                    f"'{child.name}' is not a valid child query for GroupBy, "
+                    f"must be 'Rows'")
+            _, has_lim = child.uint_arg("limit")
+            _, has_col = child.uint_arg("column")
+            if has_lim or has_col:
+                ids = self._execute_rows(idx, child, shards)
+                if not ids:
+                    return []
+                child_rows[i] = ids
+
+        def map_fn(shard):
+            return self._group_by_shard(idx, c, filter_call, shard, child_rows)
+
+        def reduce_fn(p, v):
+            # Unbounded: a limit applied per shard would drop groups that
+            # other shards still add to.
+            return merge_group_counts(p or [], v, _MAXINT)
+
+        local_batch = None
+        gb_fields = self._planner_group_by_fields(idx, c, filter_call,
+                                                  child_rows)
+        if gb_fields is not None:
+            def local_batch(shs):
+                p = self.planner
+                cands = [p.group_by_candidates(idx, fn, shs) for fn in gb_fields]
+                res = None
+                if all(cands):
+                    res = p.execute_group_by(idx, gb_fields, cands, shs,
+                                             filter_call)
+                elif shs:  # a level has no rows anywhere: empty result
+                    return []
+                if res is None:  # past the planner's caps: per shard
+                    acc = None
+                    for shard in shs:
+                        acc = reduce_fn(acc, map_fn(shard))
+                    return acc or []
+                return [GroupCount(
+                    group=[FieldRow(field=gb_fields[i], row_id=rid)
+                           for i, rid in enumerate(grp)],
+                    count=cnt) for grp, cnt in res]
+
+        results = self.map_reduce(idx, shards, map_fn, reduce_fn,
+                                  local_batch_fn=local_batch) or []
+        offset, has_off = c.uint_arg("offset")
+        if has_off and offset < len(results):
+            results = results[offset:]
+        if has_limit and limit < len(results):
+            results = results[:limit]
+        return results
+
+    def _planner_group_by_fields(self, idx: Index, c: Call,
+                                 filter_call: Call | None,
+                                 child_rows) -> list[str] | None:
+        """The children's field names when the planner's lattice applies:
+        plain ``Rows`` children (no cursor, column, limit or time window)
+        over fields with a standard view, and a plannable filter. None
+        sends the query to the per-shard walk."""
+        if self.planner is None:
+            return None
+        if filter_call is not None and not self.planner.supports(filter_call):
+            return None
+        fields = []
+        for i, child in enumerate(c.children):
+            if child_rows[i] is not None:
+                return None
+            if any(a in child.args
+                   for a in ("previous", "column", "limit", "from", "to")):
+                return None
+            field_name = child.args.get("_field")
+            f = idx.field(field_name)
+            if f is None:
+                raise FieldNotFoundError(f"field not found: {field_name!r}")
+            if f.field_type == FIELD_TYPE_TIME or f.options.no_standard_view:
+                return None
+            fields.append(field_name)
+        return fields
+
+    def _group_by_shard(self, idx: Index, c: Call, filter_call: Call | None,
+                        shard: int, child_rows) -> list[GroupCount]:
+        """One shard's groups: a depth-first walk over the levels' rows
+        with empty intersections pruned, the last level counted in one
+        ``intersection_counts`` per prefix; each child's ``previous``
+        cursor seeks its level, and once a level cannot resume at its
+        cursor row the deeper levels restart (the reference's ignorePrev
+        cascade, executor.go:3116-3137)."""
+        filter_row = None
+        if filter_call is not None:
+            filter_row = self._bitmap_call_shard(idx, filter_call, shard)
+            if filter_row.segment(shard) is None:
+                return []
+
+        fields, frags, cands = [], [], []
+        for i, child in enumerate(c.children):
+            field_name = child.args.get("_field")
+            if idx.field(field_name) is None:
+                raise FieldNotFoundError(f"field not found: {field_name!r}")
+            frag = self.holder.fragment(idx.name, field_name, VIEW_STANDARD, shard)
+            if frag is None:
+                return []
+            rows = frag.rows_list(among=child_rows[i])
+            if not rows:
+                return []
+            fields.append(field_name)
+            frags.append(frag)
+            cands.append(rows)
+
+        prev: list[int | None] = []
+        for child in c.children:
+            p, has_p = child.uint_arg("previous")
+            prev.append(p if has_p else None)
+        any_prev = any(p is not None for p in prev)
+
+        limit, has_limit = c.uint_arg("limit")
+        limit = limit if has_limit else _MAXINT
+        results: list[GroupCount] = []
+        k = len(cands)
+
+        def recurse(level: int, acc: Row | None, prefix: list[int],
+                    at_cursor: bool):
+            if len(results) >= limit:
+                return
+            rows = cands[level]
+            if at_cursor and prev[level] is not None:
+                # Strictly after the cursor at the last level, at or after
+                # it above.
+                lo = prev[level] + (1 if level == k - 1 else 0)
+                rows = [r for r in rows if r >= lo]
+            if level == k - 1:
+                if acc is None and filter_row is None:
+                    counts = [(r, frags[level].rows[r].count()) for r in rows]
+                else:
+                    base = acc if acc is not None else filter_row
+                    seg = base.segment(shard)
+                    if seg is None:
+                        return
+                    cnts = frags[level].intersection_counts(rows, seg,
+                                                            reuse=True)
+                    counts = list(zip(rows, cnts.tolist()))
+                for r, cnt in counts:
+                    if len(results) >= limit:
+                        return
+                    if cnt > 0:
+                        results.append(GroupCount(
+                            group=[FieldRow(field=fields[i], row_id=p)
+                                   for i, p in enumerate(prefix)] +
+                                  [FieldRow(field=fields[level], row_id=r)],
+                            count=int(cnt)))
+                return
+            for j, r in enumerate(rows):
+                if len(results) >= limit:
+                    return
+                row = frags[level].row(r)
+                if level == 0 and filter_row is not None:
+                    row = row.intersect(filter_row)
+                elif acc is not None:
+                    row = row.intersect(acc)
+                # The cursor chain survives only along the first row of a
+                # level, and only if that row is its cursor (or the level
+                # has none); otherwise deeper levels restart.
+                still_cursor = (at_cursor and j == 0
+                                and (prev[level] is None or r == prev[level]))
+                if not still_cursor and row.is_empty():
+                    continue
+                recurse(level + 1, row, prefix + [r], still_cursor)
+
+        recurse(0, None, [], any_prev)
+        return results
 
     # ------------------------------------------------------------------
     # writes
@@ -1004,13 +1281,11 @@ class Executor:
         f = idx.field(field_name)
         if f is None:
             raise FieldNotFoundError(f"field not found: {field_name!r}")
-        if "_timestamp" in c.args:
-            raise NotPortedError(f"{what}() with a timestamp", SLICE_FIELDS)
         return f, col_id
 
     def _execute_set(self, idx: Index, c: Call) -> bool:
-        """Reference executeSet (executor.go:2067): a bit, or an int
-        field's value."""
+        """Reference executeSet (executor.go:2067): a bit (with a
+        timestamp, also into the time views), or an int field's value."""
         f, col_id = self._write_target(idx, c, "Set")
         idx.add_existence([col_id])
         if f.field_type == FIELD_TYPE_INT:
@@ -1018,7 +1293,11 @@ class Executor:
             if not ok:
                 raise QueryError("Set() row argument 'row' required")
             return f.set_value(col_id, value)
-        return f.set_bit(row_id_arg(c, f.name), col_id)
+        row_id = row_id_arg(c, f.name)
+        timestamp = None
+        if "_timestamp" in c.args:
+            timestamp = tq.parse_time(c.args["_timestamp"])
+        return f.set_bit(row_id, col_id, timestamp)
 
     def _execute_clear_bit(self, idx: Index, c: Call) -> bool:
         """Clearing an int field's value clears its exists bit."""

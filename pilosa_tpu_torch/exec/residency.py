@@ -6,7 +6,7 @@ classes chosen by row cardinality -- ``dense`` ``[S, W]`` bit planes,
 ``packed`` sorted index stacks, HLL register planes, key planes. The port
 holds every stack dense: ``choose_class`` always answers ``DENSE``, and
 the other classes with their kernels come with later slices (ROADMAP.md
-Queue 1 items 4 and 5). Their names stay in ``REPR_CLASSES`` so the
+Queue 1 items 4b and 5). Their names stay in ``REPR_CLASSES`` so the
 per-class byte accounting (``/debug/device``'s ``class_bytes``) has the
 JAX node's keys; they read zero.
 

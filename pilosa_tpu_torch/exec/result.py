@@ -1,9 +1,11 @@
 """Query result types and their wire (JSON) shapes: rows (with their
-attrs), counts, TopN pairs, Sum/Min/Max value counts and ``Rows`` row ids.
+attrs), counts, TopN and MinRow/MaxRow pairs, Sum/Min/Max value counts,
+GroupBy group counts and ``Rows`` row ids.
 
 The port's counterpart of pilosa_tpu/exec/result.py. Reference:
-executor.go (ValCount :2380, Pair pilosa.go, RowIdentifiers :1026) and the
-JSON encoding in http/handler.go / row.go MarshalJSON.
+executor.go (ValCount :2380, Pair pilosa.go, GroupCount :1153-1186,
+RowIdentifiers :1026) and the JSON encoding in http/handler.go / row.go
+MarshalJSON.
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ class ValCount:
 
 @dataclass
 class Pair:
-    """(row id, count) for TopN (reference Pair)."""
+    """(row id, count) for TopN and MinRow/MaxRow (reference Pair)."""
 
     id: int = 0
     count: int = 0
@@ -62,6 +64,62 @@ def merge_pairs(a: list[Pair], b: list[Pair]) -> list[Pair]:
 def sort_pairs(pairs: list[Pair]) -> list[Pair]:
     """Count desc, then id asc (reference Pairs sort order)."""
     return sorted(pairs, key=lambda p: (-p.count, p.id))
+
+
+@dataclass
+class FieldRow:
+    """One (field, row) of a GroupBy group (reference FieldRow :1154); row
+    keys come with keyed fields (ROADMAP.md Queue 1: keys and sketches)."""
+
+    field: str
+    row_id: int = 0
+
+    def to_json(self) -> dict:
+        return {"field": self.field, "rowID": self.row_id}
+
+
+@dataclass
+class GroupCount:
+    """One GroupBy result row (reference GroupCount :1190)."""
+
+    group: list[FieldRow]
+    count: int = 0
+
+    def compare_key(self) -> tuple:
+        return tuple(fr.row_id for fr in self.group)
+
+    def to_json(self) -> dict:
+        return {"group": [fr.to_json() for fr in self.group], "count": self.count}
+
+
+def merge_group_counts(a: list[GroupCount], b: list[GroupCount],
+                       limit: int) -> list[GroupCount]:
+    """Sorted merge summing equal groups (reference mergeGroupCounts
+    :1196). Never mutates its inputs: a shard's list may be a cached
+    result; equal keys produce a fresh GroupCount."""
+    limit = min(limit, len(a) + len(b))
+    out: list[GroupCount] = []
+    i = j = 0
+    while i < len(a) and j < len(b) and len(out) < limit:
+        ka, kb = a[i].compare_key(), b[j].compare_key()
+        if ka < kb:
+            out.append(a[i])
+            i += 1
+        elif ka == kb:
+            out.append(GroupCount(group=a[i].group,
+                                  count=a[i].count + b[j].count))
+            i += 1
+            j += 1
+        else:
+            out.append(b[j])
+            j += 1
+    while i < len(a) and len(out) < limit:
+        out.append(a[i])
+        i += 1
+    while j < len(b) and len(out) < limit:
+        out.append(b[j])
+        j += 1
+    return out
 
 
 @dataclass
@@ -101,7 +159,7 @@ def merge_row_ids(a: list[int], b: list[int], limit: int) -> list[int]:
 
 def result_to_json(result: Any) -> Any:
     """Serialize any executor result to the reference's response JSON."""
-    if isinstance(result, (Row, Pair, ValCount, RowIdentifiers)):
+    if isinstance(result, (Row, Pair, ValCount, RowIdentifiers, GroupCount)):
         return result.to_json()
     if isinstance(result, list):
         return [result_to_json(r) for r in result]

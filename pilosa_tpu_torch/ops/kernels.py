@@ -25,6 +25,12 @@
   stack on the device from a few dense rows and COO words grouped by row,
   each tile of it built once and written once: the sparse-upload scatter
   of pilosa_tpu/parallel/planner.py ``_assemble_stack``.
+- ``group_count(planes, table, filt)`` (``csrc/group_kernels.cu``) counts a
+  whole GroupBy lattice in one launch: for each group, the popcount of the
+  AND of its row at every level (and the filter) over every shard row,
+  int64 totals, each distinct plane read once: the lattice of
+  pilosa_tpu/parallel/planner.py ``execute_group_by``, which the JAX
+  package runs as one XLA-fused AND and count per group.
 
 On a CUDA tensor each wrapper launches its hand-written kernel (built at
 first use, see ``ops/build.py``) or raises; on a CPU tensor it runs the
@@ -45,6 +51,7 @@ import math
 import threading
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from pilosa_tpu_torch.ops import bitops
@@ -53,7 +60,8 @@ from pilosa_tpu_torch.ops import bitops
 #: it, and change it only through _count_launch and reset_launches.
 LAUNCHES = {"pair_count": 0, "row_counts": 0, "bsi_compare": 0, "bsi_minmax": 0,
             "tree_count": 0, "shift_left": 0, "pair_count_batched": 0,
-            "row_counts_batched": 0, "tree_count_batched": 0, "assemble_stack": 0}
+            "row_counts_batched": 0, "tree_count_batched": 0, "assemble_stack": 0,
+            "group_count": 0}
 #: leaf records tree_count_batched's launches were given (slots x tape
 #: leaves) and the distinct leaves they read (each slot group's once):
 #: how much its waves share.
@@ -97,6 +105,10 @@ _SIGNATURES = {
     "upload_kernels.cu": {
         "pilosa_assemble_stack": [_VP, _VP, _I64, _VP, _VP, _VP, _I64, _VP, _I64,
                                   _I64, _VP],
+    },
+    "group_kernels.cu": {
+        "pilosa_group_count": [_VP, _VP, _I32, _I32, _I32, _VP, _I64, _VP, _I64,
+                               _I64, _I32, _VP],
     },
 }
 _libs: dict[str, ctypes.CDLL] = {}
@@ -325,6 +337,30 @@ def assemble_stack_plain(didx, dmat, ci, cw, cv, s_pad: int) -> torch.Tensor:
     out.index_put_((didx[keep].long(),), dmat[keep])
     keep = (ci >= 0) & (ci < s_pad) & (cw >= 0) & (cw < words)
     out.index_put_((ci[keep].long(), cw[keep].long()), cv[keep])
+    return out
+
+
+#: groups of one plain-version step: bounds its [groups, S, W] temporaries.
+_GROUP_CHUNK = 8
+
+
+def group_count_plain(planes, table: torch.Tensor,
+                      filt: torch.Tensor | None = None) -> torch.Tensor:
+    """pilosa_tpu/parallel/planner.py execute_group_by (:919-978) without
+    its zero-count drop: for each group g, the AND of ``planes[table[g, l]]``
+    over the levels l (and ``filt``), popcounted per row as int32, the rows
+    widened to int64 and summed. int64 ``[G]``."""
+    stack = torch.stack(list(planes))  # [P, S, W]
+    idx = table.to(device=stack.device, dtype=torch.int64)
+    out = torch.zeros(idx.shape[0], dtype=torch.int64, device=stack.device)
+    for lo in range(0, idx.shape[0], _GROUP_CHUNK):
+        sel = idx[lo:lo + _GROUP_CHUNK]
+        acc = stack[sel[:, 0]]
+        for lvl in range(1, sel.shape[1]):
+            acc = acc & stack[sel[:, lvl]]
+        if filt is not None:
+            acc = acc & filt
+        out[lo:lo + len(sel)] = bitops.count(acc).to(torch.int64).sum(dim=-1)
     return out
 
 
@@ -969,4 +1005,77 @@ def assemble_stack(didx: torch.Tensor, dmat: torch.Tensor, ci: torch.Tensor,
     if err:
         raise RuntimeError(f"assemble_stack kernel launch failed: CUDA error {err}")
     _count_launch("assemble_stack")
+    return out
+
+
+#: the most levels (GroupBy children) group_count takes
+#: (``kMaxLevels`` in csrc/group_kernels.cu).
+GROUP_MAX_LEVELS = 16
+
+
+def group_count(planes, table, filt: torch.Tensor | None = None) -> torch.Tensor:
+    """The counts of a GroupBy lattice in one launch: ``planes`` are the
+    distinct ``[S, W]`` int32 planes (each level's rows), ``table`` a
+    ``[G, L]`` integer tensor (or array) of plane indices, group g's row at
+    each level, and ``filt`` an optional ``[S, W]`` filter plane. Returns
+    int64 ``[G]``: for each group the popcount of the AND of its planes
+    (and the filter) over all S rows, each row's count an int32 widened
+    before the sum. Zero rows (the planner's pow2 padding) count 0. The
+    kernel reads each distinct plane once (``csrc/group_kernels.cu``);
+    ``L`` is at most GROUP_MAX_LEVELS."""
+    planes = list(planes)
+    if not planes:
+        raise ValueError("group_count needs at least one plane")
+    for k, x in enumerate(planes):
+        _check_words(x, f"plane {k}")
+        if x.dim() != 2:
+            raise ValueError(f"plane {k} must be [S, W], got {tuple(x.shape)}")
+    rows, words = planes[0].shape
+    device = planes[0].device
+    for k, x in enumerate(planes):
+        if x.shape != planes[0].shape or x.device != device:
+            raise ValueError(f"plane {k} is {tuple(x.shape)} on {x.device}, "
+                             f"plane 0 {tuple(planes[0].shape)} on {device}")
+    if filt is not None:
+        _check_words(filt, "filt")
+        if filt.shape != planes[0].shape or filt.device != device:
+            raise ValueError(f"filt {tuple(filt.shape)} must match the planes "
+                             f"{tuple(planes[0].shape)}")
+    table = torch.as_tensor(table)
+    if table.dim() != 2 or table.shape[1] == 0:
+        raise ValueError(f"table must be [G, L] with L >= 1, got {tuple(table.shape)}")
+    if table.dtype.is_floating_point or table.dtype == torch.bool:
+        raise TypeError(f"table must hold integer plane indices, got {table.dtype}")
+    if table.shape[1] > GROUP_MAX_LEVELS:
+        raise ValueError(f"group_count takes at most {GROUP_MAX_LEVELS} levels, "
+                         f"got {table.shape[1]}")
+    host = table.cpu().to(torch.int64)
+    if host.numel() and (int(host.min()) < 0 or int(host.max()) >= len(planes)):
+        raise ValueError(f"table indices must lie in [0, {len(planes)})")
+    if device.type == "cpu":
+        return group_count_plain(planes, host, filt)
+    _require_cuda(planes[0])
+    n_groups, levels = host.shape
+    out = torch.zeros(n_groups, dtype=torch.int64, device=device)
+    if n_groups == 0 or rows == 0:
+        return out
+    layouts = [(x.stride(0), rows) for x in planes]
+    vec = words % 4 == 0 and all(_vec_ok(x, st) for x, (st, _) in zip(planes, layouts))
+    f_stride = 0
+    if filt is not None:
+        f_stride = filt.stride(0)
+        vec = vec and _vec_ok(filt, f_stride)
+    flat = np.concatenate([
+        np.asarray([x.data_ptr() for x in planes], dtype=np.int64),
+        np.asarray([st for st, _ in layouts], dtype=np.int64),
+        host.numpy().reshape(-1)])
+    dev_table = torch.empty(len(flat), dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        err = _library("group_kernels.cu").pilosa_group_count(
+            flat.ctypes.data, dev_table.data_ptr(), len(planes), n_groups, levels,
+            None if filt is None else filt.data_ptr(), f_stride, out.data_ptr(),
+            rows, words, int(vec), _stream(device))
+    if err:
+        raise RuntimeError(f"group_count kernel launch failed: CUDA error {err}")
+    _count_launch("group_count")
     return out

@@ -10,6 +10,11 @@ per-shard jobs, each running per-container roaring kernels):
   shard ``s``'s row in slot ``s``, zero rows past the last shard — cached
   on the device until a fragment under it mutates; ``Not`` adds the
   existence row (``_exists`` row 0) as a leaf;
+- a ``Row(f=r, from=..., to=...)`` (or ``Range``) over a time field is the
+  ``or`` of its row in each existing time view that covers the window: one
+  leaf per view in the op tape, so a Count over it is one ``tree_count``
+  (cut where the views outnumber the tape's leaves); no view is the zero
+  leaf;
 - a BSI condition ``Row(v > x)`` reads the field's exists and sign stacks
   and its magnitude planes as one cached ``[depth, S_pad, W]`` cube, and
   runs the ``bsi_compare`` kernel against the exists row; its output plane
@@ -29,7 +34,9 @@ per-shard jobs, each running per-container roaring kernels):
   at once;
 - per-shard int32 counts come back to the host and are widened to int64
   before the cross-shard sum (reference reduceFn, executor.go:2455); Sum's
-  2^i weights are applied in Python ints.
+  2^i weights are applied in Python ints;
+- a GroupBy lattice (``execute_group_by``) stacks each level's candidate
+  rows and counts every group, filtered, in ONE ``group_count`` launch.
 
 ``prepare_count`` keeps the reference's plan cache: a repeated Count text
 over the same shards and schema skips the signature walk, and its leaves
@@ -51,7 +58,9 @@ splits the newest stack build's time into its phases.
 
 from __future__ import annotations
 
+import datetime as dt
 import functools
+import itertools
 import threading
 import time
 from collections import OrderedDict, deque
@@ -62,6 +71,7 @@ import numpy as np
 import torch
 
 from pilosa_tpu_torch.config import WORDS_PER_SHARD
+from pilosa_tpu_torch.core import timequantum as tq
 from pilosa_tpu_torch.core.fragment import (
     BSI_EXISTS_BIT,
     BSI_OFFSET_BIT,
@@ -71,12 +81,10 @@ from pilosa_tpu_torch.core.fragment import (
 )
 from pilosa_tpu_torch.core.index import Index
 from pilosa_tpu_torch.core.row import Row
-from pilosa_tpu_torch.core.view import VIEW_STANDARD, view_bsi_name
+from pilosa_tpu_torch.core.view import VIEW_STANDARD, is_time_view, view_bsi_name
 from pilosa_tpu_torch.errors import (
-    SLICE_FIELDS,
     BSIGroupNotFoundError,
     FieldNotFoundError,
-    NotPortedError,
     QueryError,
 )
 from pilosa_tpu_torch.exec import fuse as _fuse
@@ -141,8 +149,10 @@ class Planner:
         self.h2d_bytes = 0
         #: the newest row-stack build's phases; upload_split_ms reads them.
         self._last_upload: dict = {}
-        #: lifetime LRU evictions past the budget.
+        #: lifetime LRU evictions past the budget, and stack lookups the
+        #: cache answered (a resident, current stack).
         self.evictions = 0
+        self.stack_hits = 0
         self._cache_lock = threading.Lock()
         #: key -> event set when the build of that key in flight ends.
         self._building: dict[tuple, threading.Event] = {}
@@ -309,7 +319,7 @@ class Planner:
             leaves = []
             sig = self._signature(idx, c, leaves)
             fn = self._compiled(("count",) + sig, sig, "per_shard")
-            if const_rows is None:
+            if const_rows is None and not _time_bound(leaves):
                 with self._cache_lock:
                     self._plan_cache[plan_key] = (leaves, fn, idx.epoch.value)
                     while len(self._plan_cache) > self.PLAN_CACHE_SIZE:
@@ -333,7 +343,7 @@ class Planner:
         plan's stamp. The JAX planner drops a plan here when a packed
         leaf's row outgrew its representation class, which is baked into
         the program; every leaf of the port is dense until packed
-        residency (ROADMAP.md Queue 1 item 4) brings that check, so the
+        residency (ROADMAP.md Queue 1 item 4b) brings that check, so the
         plan is re-stamped and stands."""
         leaves, fn, seen_epoch = hit
         epoch = idx.epoch.value
@@ -414,10 +424,11 @@ class Planner:
                         if c.children else None)
             fn = self._compiled_agg((kind, is_min, depth, filt_sig), kind, depth,
                                     filt_sig, is_min)
-            with self._cache_lock:
-                self._plan_cache[plan_key] = (leaves, fn, idx.epoch.value)
-                while len(self._plan_cache) > self.PLAN_CACHE_SIZE:
-                    self._plan_cache.popitem(last=False)
+            if not _time_bound(leaves):
+                with self._cache_lock:
+                    self._plan_cache[plan_key] = (leaves, fn, idx.epoch.value)
+                    while len(self._plan_cache) > self.PLAN_CACHE_SIZE:
+                        self._plan_cache.popitem(last=False)
         self._prefetch_leaves(idx, leaves, tuple(shards))
         arrays = [self._fetch_leaf(idx, leaf, tuple(shards)) for leaf in leaves]
         return fn, arrays, depth
@@ -580,6 +591,74 @@ class Planner:
         return out
 
     # ------------------------------------------------------------------
+    # GroupBy: the whole lattice of the shard batch in one group_count
+    # launch over the levels' cached [S_pad, W] stacks (reference
+    # planner.py:903-978, one XLA-fused AND and count per group there;
+    # executor.go:3058-3231 walks per-shard row iterators)
+    # ------------------------------------------------------------------
+
+    #: the most groups one lattice launch counts; past it, or past the
+    #: stacks' memory cap, the executor's per-shard walk takes over.
+    GROUP_BY_MAX_PAIRS = 8192
+
+    def group_by_candidates(self, idx: Index, field_name: str,
+                            shards: list[int]) -> list[int]:
+        """The ids of the rows present in the field's standard view over
+        the shard batch, ascending (host metadata, no device work)."""
+        out: set[int] = set()
+        for shard in shards:
+            frag = self.holder.fragment(idx.name, field_name, VIEW_STANDARD,
+                                        shard)
+            if frag is not None:
+                out.update(frag.row_ids())
+        return sorted(out)
+
+    def execute_group_by(self, idx: Index, fields: list[str],
+                         cands: list[list[int]], shards: list[int],
+                         filter_call: Call | None):
+        """[(group row ids, count), ...] in lexicographic group order, zero
+        counts dropped, or None when the lattice exceeds
+        GROUP_BY_MAX_PAIRS groups, ``kernels.GROUP_MAX_LEVELS`` levels, or
+        its stacks exceed min(max_cache_bytes, 2 GiB) (every candidate row
+        is a stack held for the whole query). The filter tree is evaluated
+        to a plane first; then ONE ``group_count`` launch counts every
+        group, each shard's int32 count widened before the sum."""
+        total = 1
+        for rows in cands:
+            total *= max(1, len(rows))
+        if (total > self.GROUP_BY_MAX_PAIRS or not shards
+                or len(cands) > kernels.GROUP_MAX_LEVELS):
+            return None
+        n_stacks = sum(len(rows) for rows in cands)
+        stack_bytes = n_stacks * _residency.dense_nbytes(self._pad(len(shards)))
+        if stack_bytes > min(self.max_cache_bytes, 2 << 30):
+            return None
+        shards_t = tuple(shards)
+        filt = (self._tree_stack(idx, filter_call, shards)
+                if filter_call is not None else None)
+        leaves = [("row", fields[i], VIEW_STANDARD, r)
+                  for i, rows in enumerate(cands) for r in rows]
+        self._prefetch_leaves(idx, leaves, shards_t)
+        # The kernel walks the real shard rows only: the pad rows are zero
+        # and would count 0.
+        n = len(shards)
+        planes = [self._stack_rows(idx, f, view, r, shards_t)[:n]
+                  for _, f, view, r in leaves]
+        starts = np.cumsum([0] + [len(rows) for rows in cands[:-1]])
+        table = np.asarray(list(itertools.product(
+            *[range(int(st), int(st) + len(rows))
+              for st, rows in zip(starts, cands)])), dtype=np.int64)
+        counts = kernels.group_count(planes, table,
+                                     None if filt is None else filt[:n])
+        self._record_dispatch(1)
+        host = self.batcher.submit(counts, lambda h: h, waited=True).result()
+        out = []
+        for group, cnt in zip(itertools.product(*cands), np.asarray(host).tolist()):
+            if cnt > 0:
+                out.append((group, int(cnt)))
+        return out
+
+    # ------------------------------------------------------------------
     # signatures
     # ------------------------------------------------------------------
 
@@ -592,14 +671,17 @@ class Planner:
         if name in ("Row", "Range"):
             if c.has_condition_arg():
                 return self._bsi_signature(idx, c, leaves)
-            if name == "Range" or "from" in c.args or "to" in c.args:
-                raise NotPortedError(f"{name}() over time views", SLICE_FIELDS)
             field_name = c.field_arg()
-            if idx.field(field_name) is None:
+            f = idx.field(field_name)
+            if f is None:
                 raise FieldNotFoundError(f"field not found: {field_name!r}")
             row_id = row_id_arg(c, field_name)
-            leaves.append(("row", field_name, VIEW_STANDARD, row_id))
-            return ("leaf", len(leaves) - 1)
+            from_time = tq.parse_time(c.args["from"]) if "from" in c.args else None
+            to_time = tq.parse_time(c.args["to"]) if "to" in c.args else None
+            if name == "Row" and from_time is None and to_time is None:
+                leaves.append(("row", field_name, VIEW_STANDARD, row_id))
+                return ("leaf", len(leaves) - 1)
+            return self._time_signature(f, row_id, from_time, to_time, leaves)
         kind = name.lower()
         if kind in _PAIR_OPS:
             if not c.children:
@@ -628,6 +710,33 @@ class Planner:
             leaves.append(("const", c.args["slot"]))
             return ("leaf", len(leaves) - 1)
         raise QueryError(f"unsupported planner call: {name}")
+
+    @staticmethod
+    def _time_signature(f, row_id: int, from_time, to_time,
+                        leaves: list[tuple]) -> tuple:
+        """A time Row: the ``or`` of the row in each existing time view
+        covering [from, to), a leaf each; the zero leaf when the field has
+        no quantum or no view covers the window. An open ``to`` is now plus
+        a day, an open ``from`` the first time view (reference
+        planner.py:1098-1113, :1580-1600)."""
+        views = []
+        q = f.time_quantum()
+        if to_time is None:
+            to_time = dt.datetime.now() + dt.timedelta(days=1)
+        if q and from_time is None:
+            from_time, _ = f._time_view_bounds()
+        if q and from_time is not None:
+            views = [v for v in tq.views_by_time_range(VIEW_STANDARD, from_time,
+                                                       to_time, q)
+                     if f.view(v) is not None]
+        if not views:
+            leaves.append(("zero",))
+            return ("leaf", len(leaves) - 1)
+        kids = []
+        for v in views:
+            leaves.append(("row", f.name, v, row_id))
+            kids.append(("leaf", len(leaves) - 1))
+        return kids[0] if len(kids) == 1 else ("union", tuple(kids))
 
     def _bsi_signature(self, idx: Index, c: Call, leaves: list[tuple]) -> tuple:
         """BSI condition -> a node with the branch structure (operator,
@@ -759,6 +868,9 @@ class Planner:
         if kind == "row":
             _, field_name, view, row_id = leaf
             return self._stack_rows(idx, field_name, view, row_id, shards)
+        if kind == "zero":
+            return torch.zeros((self._pad(len(shards)), WORDS_PER_SHARD),
+                               dtype=torch.int32, device=self.device)
         if kind == "pred":
             return bsi_ops.split_u64(leaf[1])
         if kind == "bsi":
@@ -828,6 +940,7 @@ class Planner:
                                                             hit[3])
                     if hit[0] == epoch:
                         self._stack_cache.move_to_end(key)
+                        self.stack_hits += 1
                         return self._ready(hit[2], hit[3])
                 building = self._building.get(key)
                 if building is None and not rendezvous:
@@ -1178,6 +1291,13 @@ class Planner:
         # on before their work ends.
         arr.record_stream(torch.cuda.current_stream(self.device))
         return arr, self._upload_done()
+
+
+def _time_bound(leaves: list) -> bool:
+    """True when a plan read time views (or a window's zero leaf): which
+    views exist changes with the data, so such a plan is not cached."""
+    return any(leaf[0] == "zero" or (leaf[0] == "row" and is_time_view(leaf[2]))
+               for leaf in leaves)
 
 
 class _CountProgram:

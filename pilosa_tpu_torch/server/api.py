@@ -11,8 +11,8 @@ on the cluster's state. With a data dir, ``store`` is the node's
 at once, so the WAL records of a node killed before its first flush are
 found again at boot (the JAX node writes the schema only when it flushes
 or deletes: ROADMAP.md Queue 3); deleting an index, field or view
-unlinks its files too. Imports by keys or with timestamps and remote
-(cluster-leg) queries raise ``NotPortedError`` naming the ROADMAP.md
+unlinks its files too. Imports by keys and remote (cluster-leg) queries
+raise ``NotPortedError`` naming the ROADMAP.md
 slice that brings them; key translation and fragment block sync have no
 method yet (their routes answer 501).
 """
@@ -24,14 +24,13 @@ from typing import Iterable
 
 import pilosa_tpu_torch
 from pilosa_tpu_torch.config import SHARD_WIDTH
-from pilosa_tpu_torch.core.field import FieldOptions
+from pilosa_tpu_torch.core.field import FieldOptions, parse_stamps
 from pilosa_tpu_torch.core.holder import Holder
 from pilosa_tpu_torch.core.index import IndexOptions
 from pilosa_tpu_torch.core.row import Row
 from pilosa_tpu_torch.core.view import VIEW_STANDARD
 from pilosa_tpu_torch.errors import (
     SLICE_CLUSTER,
-    SLICE_FIELDS,
     SLICE_KEYS,
     FieldNotFoundError,
     FragmentNotFoundError,
@@ -168,18 +167,18 @@ class API:
                     row_keys: Iterable[str] | None = None,
                     column_keys: Iterable[str] | None = None,
                     clear: bool = False) -> None:
-        """Batch bit import into the standard view (reference api.Import,
-        the local branch)."""
+        """Batch bit import (reference api.Import, the local branch); with
+        ``timestamps`` (epoch seconds or time strings, 0 or empty for
+        none) each stamped bit also lands in its time views."""
         idx = self.holder.index_or_raise(index)
         f = idx.field(field)
         if f is None:
             raise FieldNotFoundError()
         if row_keys is not None or column_keys is not None:
             raise NotPortedError("an import by keys", SLICE_KEYS)
-        if timestamps is not None:
-            raise NotPortedError("an import with timestamps", SLICE_FIELDS)
+        ts = parse_stamps(timestamps) if timestamps is not None else None
         column_ids = list(column_ids)
-        f.import_bits(list(row_ids), column_ids, clear=clear)
+        f.import_bits(list(row_ids), column_ids, ts, clear=clear)
         idx.add_existence(column_ids)
 
     def import_values(self, index: str, field: str,

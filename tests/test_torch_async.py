@@ -334,7 +334,8 @@ def test_residency_knob():
     assert residency.choose_class(5) == residency.DENSE
     assert residency.dense_nbytes(4) == 4 * W * 4
     from pilosa_tpu_torch.errors import NotPortedError
-    with pytest.raises(NotPortedError, match="packed residency"):
+    with pytest.raises(NotPortedError,
+                       match="packed residency and the device value transpose"):
         residency.set_mode("on")
     with pytest.raises(ValueError):
         residency.set_mode("bogus")

@@ -64,3 +64,14 @@ def test_default_device_without_card_raises(monkeypatch):
 def test_unsupported_device_refused():
     with pytest.raises(ValueError):
         resolve_device("meta")
+
+
+def test_every_kernel_source_is_bound():
+    """Each csrc/*.cu the build compiles has its C signatures in
+    ops/kernels.py, and each signature table names a source that exists
+    (the GroupBy lattice's group_kernels.cu among them), with a launch
+    counter for every wrapper."""
+    from pilosa_tpu_torch.ops import build, kernels
+    sources = {p.name for p in build.CSRC_DIR.glob("*.cu")}
+    assert sources == set(kernels._SIGNATURES)
+    assert "group_kernels.cu" in sources and "group_count" in kernels.LAUNCHES

@@ -386,18 +386,34 @@ def test_unported_routes_answer_501(nodes, method, path):
 
 
 def test_unported_query_features_answer_501(nodes):
+    """Keys, sketches and remote legs still answer 501. MinRow, GroupBy and
+    time fields (ROADMAP.md Queue 1 item 4a) answered 501 until that slice
+    and now answer as the JAX node does, byte for byte: a time field
+    created over HTTP on an index of its own, bits imported with
+    timestamps, a window read."""
     _, _, _, tc = nodes
-    for path, q in (("/index/i/query", "MinRow(field=f)"),
-                    ("/index/i/query", "Count(Distinct(field=v))"),
-                    ("/index/i/query?columnAttrs=true", "GroupBy(Rows(f))"),
+    for path, q in (("/index/i/query", "Count(Distinct(field=v))"),
                     ("/index/i/query?remote=true", "Row(f=0)")):
         status, body, _ = tc("POST", path, q)
         assert status == 501, (path, q, body)
     status, _, _ = tc("POST", "/index/k", {"options": {"keys": True}})
     assert status == 501
-    status, _, _ = tc("POST", "/index/i/field/t",
-                      {"options": {"type": "time", "timeQuantum": "YMD"}})
-    assert status == 501
+    for path, q in (("/index/i/query", "MinRow(field=f)"),
+                    ("/index/i/query?columnAttrs=true", "GroupBy(Rows(f))")):
+        status, body = _same(nodes, "POST", path, q)
+        assert status == 200, (path, q, body)
+    assert _same(nodes, "POST", "/index/tq")[0] == 200
+    status, body = _same(nodes, "POST", "/index/tq/field/t",
+                         {"options": {"type": "time", "timeQuantum": "YMD"}})
+    assert status == 200, body
+    stamps = [1577836800 + 86400 * d for d in range(40)]  # 2020-01-01 on
+    req = {"rowIDs": [0] * 40, "columnIDs": list(range(0, 4000, 100)),
+           "timestamps": stamps}
+    assert _same(nodes, "POST", "/index/tq/field/t/import", req)[0] == 200
+    status, body = _same(nodes, "POST", "/index/tq/query",
+                         "Row(t=0, from='2020-01-05T00:00', to='2020-02-03T00:00')")
+    assert status == 200 and len(json.loads(body)["results"][0]["columns"]) == 29
+    assert _same(nodes, "DELETE", "/index/tq")[0] == 200
 
 
 def test_recalculate_and_exclude_columns(nodes):
@@ -629,7 +645,7 @@ def test_node_defaults_to_the_card(monkeypatch):
     (["--archive-url", "x"], "backup and restore"),
     (["--scrub-interval", "1"], "cluster and operations"),
     (["--trace-endpoint", "http://127.0.0.1:1"], "cluster and operations"),
-    (["--residency-packed", "on"], "packed residency, time, mutex and bool fields, GroupBy"),
+    (["--residency-packed", "on"], "packed residency and the device value transpose"),
     (["--translate-planes", "on"], "keys and sketches"),
     (["--sketch-precision", "10"], "keys and sketches"),
 ])

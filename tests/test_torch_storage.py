@@ -4,9 +4,9 @@ Part 1 ports the cases of tests/test_storage.py and tests/test_integrity.py
 to ``pilosa_tpu_torch.storage`` (WAL, snapshots, reload, deletion,
 integrity framing, quarantine, the HTTP surface of a node with a data
 dir). The JAX cases that need a cluster (replica routing, the scrubber)
-become their standalone counterparts; time views and key translation are
-not ported, so their cases check that such a data dir refuses to open and
-that translate files pass through untouched.
+become their standalone counterparts; key translation is not ported, so
+its cases check that such a data dir refuses to open and that translate
+files pass through untouched.
 
 Part 2 crosses data dirs between the packages: a dir written by one opens
 in the other with byte-equal ``row_words`` for every fragment, equal
@@ -179,16 +179,36 @@ def test_attrs_persist_and_translate_passes_through(tmp_path):
     ({"type": "set", "keys": True}, "keys"),
 ])
 def test_unported_schema_refuses_to_open(tmp_path, options, slice_word):
-    """A data dir whose schema holds a time or keyed field (written by
-    the JAX package) refuses to open, naming the slice that ports it."""
+    """A data dir whose schema holds a keyed field (written by the JAX
+    package) refuses to open, naming the slice that ports it. A time field
+    refused too until ROADMAP.md Queue 1 item 4a; now the dir opens with
+    the JAX field's options and the rows of its time views
+    (tests/test_torch_fields.py crosses such dirs both ways)."""
     d = str(tmp_path / "data")
     jh = JHolder()
     js = JDiskStore(d, jh)
     js.open()
-    jh.create_index("i").create_field("t", JFieldOptions.from_json(options))
+    jf = jh.create_index("i").create_field("t", JFieldOptions.from_json(options))
+    if slice_word == "time":
+        import datetime as dt
+        jf.import_bits([1, 1, 2], [3, SHARD_WIDTH + 5, 7],
+                       [dt.datetime(2020, 1, 2), dt.datetime(2020, 3, 4), None])
     js.close()
-    with pytest.raises(NotPortedError, match=slice_word):
-        make_holder(d)
+    if slice_word != "time":
+        with pytest.raises(NotPortedError, match=slice_word):
+            make_holder(d)
+        return
+    h, store = make_holder(d)
+    f = h.field("i", "t")
+    assert f.options.to_json() == jf.options.to_json()
+    assert f.view_names() == jf.view_names()
+    for view in jf.view_names():
+        for shard in jf.view(view).fragments:
+            frag = h.fragment("i", "t", view, shard)
+            for rid in jf.view(view).fragments[shard].row_ids():
+                assert np.array_equal(frag.row_words(rid),
+                                      jf.view(view).fragments[shard].row_words(rid))
+    store.close()
 
 
 def _post(base, path, body):
