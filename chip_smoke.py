@@ -3,13 +3,17 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --tree-batched-vs DIR
+    python3 chip_smoke.py --group-count-vs DIR
     python3 chip_smoke.py --import-rule
 
 ``--tree-batched-vs DIR`` times only ``tree_count_batched`` on its two timed
 waves, the package in DIR (e.g. the parent commit unpacked with ``git
 archive``) against this checkout's, in 10 pairs of processes
-(``tree_batched_vs``). ``--import-rule`` times the set-field import under
-the port's and the JAX package's scatter rules on one host
+(``tree_batched_vs``); ``--group-count-vs DIR`` does the same for
+``group_count`` on its three timed lattices (``GROUP_TIMED``), each side
+through its own interface (``group_count_vs``). ``--import-rule`` times
+the set-field import under the port's and the JAX package's scatter rules
+on one host
 (``import_rule_vs``). With no arguments the script builds the CUDA
 kernels from ``pilosa_tpu_torch/csrc`` into ``build/kernels/`` (one nvcc
 per source, all at once), checks each kernel
@@ -73,8 +77,8 @@ port's paths:
   filter and paged (ONE ``group_count`` each) and with a cursor (the
   per-shard walk), in process and over HTTP against numpy oracles; then,
   on an index of 4 shards, GroupBy over 450 rows and over a (32, 256)
-  lattice of 8192 groups (ONE ``group_count`` each, its planes read from
-  device memory).
+  lattice of 8192 groups (ONE ``group_count`` each, over many units of
+  the lattice).
 
 The HTTP phase runs its 1 and 8 concurrent clients with dispatch
 coalescing off (launches equal to the serial sum) and on ``auto`` (at most
@@ -144,13 +148,15 @@ PROFILE_RUNS = 5
 #: so that no host time lands between the start event and the kernel.
 SPIN_CYCLES = 8_000_000
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and 32-bit operations
-#: outside the tensor cores (the float32 rate; popcount and bitwise ops
-#: issue on the same integer/float pipes at no higher rate).
+#: H100 SXM HBM3 peak (NVIDIA data sheet), bytes/s.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = 67e12
-#: per word: one bitwise op, one popcount, one add.
-OPS_PER_WORD = 3
+#: Integer throughput of compute capability 9.0, results per clock per SM
+#: (CUDA C++ Programming Guide, "Arithmetic Instructions", throughput
+#: table): 32-bit bitwise AND/OR/XOR and 32-bit add, 64; 32-bit population
+#: count, 16. ``integer_rates`` multiplies them by the card's SMs and its
+#: maximum SM clock (``nvidia-smi --query-gpu=clocks.max.sm``).
+LOGIC_PER_CLOCK_SM = 64
+POPC_PER_CLOCK_SM = 16
 #: words of a shard's row, and the tape of the timed tree_count_batched waves.
 SHARD_WORDS = 32768
 TREE_BATCHED_TAPE = [0, 1, "and", 2, "and"]
@@ -278,10 +284,47 @@ def host_enqueue_times(torch, fn, runs: int) -> list[float]:
     return times
 
 
-def bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+_RATES: dict = {}
+
+
+def integer_rates(torch) -> tuple[float, float]:
+    """(32-bit logic ops and adds, population counts) per second of card 0:
+    the per-SM rates of compute capability 9.0 x its SMs x its maximum SM
+    clock as nvidia-smi reports it."""
+    if not _RATES:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                              "--format=csv,noheader,nounits"],
+                             capture_output=True, text=True, timeout=60, check=True)
+        hz = float(out.stdout.strip().splitlines()[0]) * 1e6
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        _RATES.update(logic=LOGIC_PER_CLOCK_SM * sms * hz, popc=POPC_PER_CLOCK_SM * sms * hz,
+                      sms=sms, mhz=hz / 1e6)
+    return _RATES["logic"], _RATES["popc"]
+
+
+def bound_ms(torch, nbytes: int, logic: int, popc: int) -> tuple[float, str, str]:
+    """The least time the card could take: the largest of the bytes over
+    HBM's rate, the 32-bit logic ops and adds over their rate, and the
+    population counts over theirs. Returns (ms, "bytes" or "operations",
+    the term: "bytes", "logic" or "popcounts")."""
+    logic_rate, popc_rate = integer_rates(torch)
+    terms = {"bytes": nbytes / PEAK_BYTES_PER_S * 1e3, "logic": logic / logic_rate * 1e3,
+             "popcounts": popc / popc_rate * 1e3}
+    term = max(terms, key=terms.get)
+    return terms[term], "bytes" if term == "bytes" else "operations", term
+
+
+def lattice_work(sizes, filtered: bool, words: int) -> tuple[int, int]:
+    """(logic ops, popcounts) of a GroupBy lattice over ``words`` words of
+    each plane as csrc/group_kernels.cu counts it: walked as a prefix tree,
+    one AND per tree node and word below the root level (the root level's
+    too with a filter), the groups' ANDs included; then for each group and
+    three words a full adder (two 3-input logic ops), two popcounts and
+    two adds."""
+    nodes = list(itertools.accumulate(sizes, lambda a, b: a * b))
+    ands = sum(nodes[1:]) + (nodes[0] if filtered else 0)
+    groups = nodes[-1]
+    return ands * words + 4 * groups * words // 3, 2 * groups * words // 3
 
 
 def seeded_words(rng, shape) -> np.ndarray:
@@ -351,41 +394,139 @@ def tree_batched_times(repo: str) -> int:
     return 0
 
 
-def tree_batched_vs(parent: str, pairs: int = 10) -> int:
-    """``--tree-batched-vs DIR``: ``--tree-batched`` of DIR (e.g. the parent
-    commit unpacked with ``git archive``) and of this checkout, each in a
-    process of its own, in ``pairs`` pairs, the side that runs first
-    alternating. Prints every run, then per wave the medians of both
-    sides, the pairs this checkout won, the spread of the parent's runs
-    (between its quartiles), the bound and the card."""
+def paired_runs(flag: str, parent: str, key: str, pairs: int = 10) -> dict:
+    """``flag DIR`` of ``parent`` (e.g. the parent commit unpacked with ``git
+    archive``) and of this checkout, each in a process of its own, in
+    ``pairs`` pairs, the side that runs first alternating. Each run prints
+    one JSON object per timed case, named by its ``key``; prints every
+    record and returns {(case, "parent" or "this"): [record, ...]}."""
     here = os.path.dirname(os.path.abspath(__file__))
     runs: dict = {}
     for k in range(pairs):
         sides = (("parent", parent), ("this", here))
         for label, repo in sides if k % 2 == 0 else sides[::-1]:
-            out = subprocess.run([sys.executable, os.path.abspath(__file__), "--tree-batched",
-                                  repo], capture_output=True, text=True, check=False)
+            out = subprocess.run([sys.executable, os.path.abspath(__file__), flag, repo],
+                                 capture_output=True, text=True, check=False)
             if out.returncode:
                 print(out.stdout + out.stderr, file=sys.stderr)
-                return out.returncode
+                raise RuntimeError(f"{flag} {repo} exited {out.returncode}")
             for line in out.stdout.splitlines():
                 rec = json.loads(line)
-                runs.setdefault((rec["distinct_planes"], label), []).append(rec)
+                runs.setdefault((rec[key], label), []).append(rec)
                 print(json.dumps({"pair": k, "repo": label, **rec}), flush=True)
+    return runs
+
+
+def pair_summary(runs: dict, case, key: str, bound: float, card: str) -> None:
+    """One case of ``paired_runs``: the medians of both sides, the pairs
+    this checkout won, the spread of the parent's runs (between its
+    quartiles), each side's median host enqueue, the bound and the card."""
+    ms = {lb: [r["ms"] for r in runs[(case, lb)]] for lb in ("parent", "this")}
+    q1, _, q3 = statistics.quantiles(ms["parent"], n=4)
+    print(json.dumps({
+        key: case, "pairs": len(ms["this"]),
+        "parent_ms": statistics.median(ms["parent"]), "this_ms": statistics.median(ms["this"]),
+        "this_won": sum(t < p for p, t in zip(ms["parent"], ms["this"])),
+        "parent_spread_ms": q3 - q1, "bound_ms": bound,
+        "host_ms": {lb: statistics.median(r["host_ms"] for r in runs[(case, lb)])
+                    for lb in ("parent", "this")},
+        "card": card}), flush=True)
+
+
+def tree_batched_vs(parent: str) -> int:
+    """``--tree-batched-vs DIR``: ``--tree-batched`` of DIR against this
+    checkout's, in ``paired_runs``; then ``pair_summary`` per wave."""
+    import torch
+
+    runs = paired_runs("--tree-batched", parent, "distinct_planes")
     card, plane = card_line(), 1024 * SHARD_WORDS * 4
     for distinct in (15, 24):
-        ms = {lb: [r["ms"] for r in runs[(distinct, lb)]] for lb in ("parent", "this")}
-        q1, _, q3 = statistics.quantiles(ms["parent"], n=4)
-        bound = bound_ms(distinct * plane + 8 * 1024 * 4, 4 * 8 * 1024 * SHARD_WORDS)[0]
-        print(json.dumps({
-            "distinct_planes": distinct, "pairs": pairs,
-            "parent_ms": statistics.median(ms["parent"]),
-            "this_ms": statistics.median(ms["this"]),
-            "this_won": sum(t < p for p, t in zip(ms["parent"], ms["this"])),
-            "parent_spread_ms": q3 - q1, "bound_ms": bound,
-            "host_ms": {lb: statistics.median(r["host_ms"] for r in runs[(distinct, lb)])
-                        for lb in ("parent", "this")},
-            "card": card}), flush=True)
+        bound = bound_ms(torch, distinct * plane + 8 * 1024 * 4, 3 * 8 * 1024 * SHARD_WORDS,
+                         8 * 1024 * SHARD_WORDS)[0]
+        pair_summary(runs, distinct, "distinct_planes", bound, card)
+    return 0
+
+
+#: group_count's timed lattices: (name, level sizes, filtered, shard rows
+#: of 32768 words, rows of the stacks the planes are cut from). Bench
+#: config 5 at 954 shards of 1024-row stacks, with a filter and with a
+#: third level; 8192 groups over 4 rows (popcount-bound).
+GROUP_TIMED = (
+    ("(4, 8) + filter", (4, 8), True, 954, 1024),
+    ("(4, 8, 3)", (4, 8, 3), False, 954, 1024),
+    ("(32, 256) over 4 rows", (32, 256), False, 4, 4),
+)
+
+
+def lattice_table(sizes) -> np.ndarray:
+    """The [G, L] plane-index table of a lattice of these level sizes (the
+    interface group_count took before it took the sizes)."""
+    starts = np.cumsum([0] + list(sizes[:-1]))
+    return np.asarray(list(itertools.product(
+        *[range(int(a), int(a) + n) for a, n in zip(starts, sizes)])), dtype=np.int64)
+
+
+def group_timed_work(sizes, filtered: bool, rows: int) -> tuple[int, int, int]:
+    """(bytes, logic ops, popcounts) of a timed lattice over ``rows`` shard
+    rows: each plane and the filter read once, the int64 counts written
+    once, and ``lattice_work``."""
+    words = rows * SHARD_WORDS
+    nbytes = (sum(sizes) + filtered) * words * 4 + int(np.prod(sizes)) * 8
+    return (nbytes, *lattice_work(sizes, filtered, words))
+
+
+def group_count_times(repo: str) -> int:
+    """``--group-count REPO``: time ``group_count`` of the package in REPO
+    on GROUP_TIMED (random planes made on the card from SEED) with this
+    script's timer, its counts first held to the plain version. The
+    package's own interface: level sizes, or (before them) a [G, L] table.
+    One JSON object per lattice: the kernel's ms by CUDA events, the
+    host's median and longest enqueue of one call."""
+    import inspect
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(repo))
+    from pilosa_tpu_torch.ops import kernels
+
+    takes_sizes = "sizes" in inspect.signature(kernels.group_count).parameters
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for name, sizes, filtered, rows, stack_rows in GROUP_TIMED:
+        def plane(rows=rows, stack_rows=stack_rows):
+            return torch.randint(-2**31, 2**31, (stack_rows, SHARD_WORDS), dtype=torch.int32,
+                                 device="cuda", generator=gen)[:rows]
+
+        planes = [plane() for _ in range(sum(sizes))]
+        filt = plane() if filtered else None
+        arg = sizes if takes_sizes else lattice_table(sizes)
+        plain_arg = arg if takes_sizes else torch.from_numpy(arg)
+
+        def fn(planes=planes, arg=arg, filt=filt):
+            return kernels.group_count(planes, arg, filt)
+
+        if not torch.equal(fn(), kernels.group_count_plain(planes, plain_arg, filt)):
+            raise AssertionError(f"{repo}: {name}: counts differ from the plain")
+        host = host_enqueue_times(torch, fn, KERNEL_RUNS)
+        print(json.dumps({"lattice": name, "ms": time_cuda_ms(torch, fn, KERNEL_RUNS),
+                          "host_ms": statistics.median(host), "host_ms_max": max(host)}),
+              flush=True)
+        del planes, filt
+    return 0
+
+
+def group_count_vs(parent: str) -> int:
+    """``--group-count-vs DIR``: ``--group-count`` of DIR against this
+    checkout's, in ``paired_runs``; then ``pair_summary`` per lattice."""
+    import torch
+
+    runs = paired_runs("--group-count", parent, "lattice")
+    card = card_line()
+    for name, sizes, filtered, rows, _ in GROUP_TIMED:
+        pair_summary(runs, name, "lattice",
+                     bound_ms(torch, *group_timed_work(sizes, filtered, rows))[0], card)
     return 0
 
 
@@ -603,6 +744,54 @@ def assemble_case(name: str, seed: int = SEED):
             w, v = w[order], v[order]
         coo[row] = (w, v)
     return pack_assemble(s_pad, words, dense, coo)
+
+
+def check_group_lattices(torch, kernels, t, rng, gb_planes, gb_filt, errs) -> None:
+    """group_count against group_count_plain, exact, given the level sizes:
+    bench config 5's lattice (``gb_planes[:12]``, levels of 4 and 8 rows,
+    and ``gb_filt``: the planner's 954 real rows of 1024-row stacks, one
+    long row to the kernel), (4, 8, 3) with no filter, rows that are not
+    contiguous (a [16, 4096] window of [16, 8192] planes: tiles per row),
+    a middle level of one row, unaligned views, a ragged width and a wide
+    lattice over them (plain loads), 450 planes of one level, 8192 groups
+    as (64, 128) and (32, 256) (many units), 4 and 5 levels, and 16 levels
+    (13 of 2 rows, 3 of 1: 8192 groups, the planner's cap). ``t`` makes a
+    card tensor from uint32 words; the largest error goes to
+    ``errs["group_count"]``."""
+    def check(planes, sizes, filt, what):
+        got = kernels.group_count(planes, sizes, filt)
+        want = kernels.group_count_plain(planes, sizes, filt)
+        torch.cuda.synchronize()
+        err = int((got - want).abs().max()) if got.numel() else 0
+        errs["group_count"] = max(errs["group_count"], err)
+        if got.shape != want.shape or got.dtype != torch.int64 or err:
+            raise AssertionError(f"group_count {what}: {tuple(got.shape)} {got.dtype} vs "
+                                 f"{tuple(want.shape)}, max |err| {err}")
+
+    check(gb_planes[:12], (4, 8), gb_filt, "(4, 8) + filter, 954 x 32768")
+    check(gb_planes, (4, 8, 3), None, "(4, 8, 3), 954 x 32768")
+    strided = t(seeded_words(rng, (13, 16, 8192)))[:, :, :4096]
+    check(list(strided[:12]), (4, 8), strided[12], "(4, 8) + filter, strided rows [16, 4096]")
+    mid = [t(seeded_words(rng, (16, 32768))) for _ in range(13)]
+    check(mid[:12], (5, 1, 6), mid[12], "(5, 1, 6) + filter: a middle level of one row")
+    offs = [t(seeded_words(rng, (5, 4101)))[:, 1:] for _ in range(7)]
+    check(offs[:6], (3, 3), offs[6], "(3, 3) + filter, unaligned [5, 4100]")
+    rag_p = [t(seeded_words(rng, (7, 6243))) for _ in range(7)]
+    check(rag_p, (2, 5), rag_p[0], "(2, 5) + filter, [7, 6243]")
+    rag_w = t(seeded_words(rng, (71, 3, 301)))
+    check(list(rag_w[:70]), (40, 30), rag_w[70], "(40, 30) + filter, ragged [3, 301]")
+    many = t(seeded_words(rng, (450, 3, 300)))
+    check(list(many), (450,), None, "450 planes of [3, 300]")
+    wide = t(seeded_words(rng, (192, 4, 1000)))
+    check(list(wide), (64, 128), wide[0], "(64, 128) + filter: 8192 groups")
+    wide2 = t(seeded_words(rng, (289, 3, 300)))
+    check(list(wide2[:288]), (32, 256), wide2[288],
+          "(32, 256) + filter: 8192 groups over 288 planes")
+    deep = [t(seeded_words(rng, (6, 2000))) for _ in range(30)]
+    check(deep[:10], (2, 2, 2, 2, 2), deep[10], "5 levels + filter")
+    check(deep[:8], (2, 2, 2, 2), None, "4 levels")
+    sizes16 = (2, 2, 1, 2, 2, 2, 2, 1, 2, 2, 2, 2, 2, 1, 2, 2)
+    check(deep[:29], sizes16, deep[29], "16 levels + filter: 8192 groups")
 
 
 # -- phase 2: each kernel against its plain version --------------------------
@@ -903,48 +1092,9 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
     check_assemble(asm_tensors(assemble_inputs(rng, 5, 2, 6243)), "[5, 6243] (scalar)")
     for case in ASSEMBLE_CASES:
         check_assemble(asm_tensors(assemble_case(case)), case)
-    # group_count, exact: bench config 5's lattice (levels of 4 and 8 rows
-    # and a filter, the planner's 954 real rows of 1024-row stacks), three
-    # levels (4, 8, 3) with no filter, unaligned views and a ragged width
-    # (scalar staging), a lattice whose 450 planes overflow the staged
-    # tiles (the body reading device memory), one of 8192 groups (64 KB of
-    # accumulators), and 4 and 5 levels (the unrolled and the predicated
-    # bodies).
-    def lattice_table(sizes):
-        starts = np.cumsum([0] + list(sizes[:-1]))
-        return np.asarray(list(itertools.product(
-            *[range(int(a), int(a) + n) for a, n in zip(starts, sizes)])), dtype=np.int64)
-
-    def check_group(planes, sizes, filt, what):
-        table = lattice_table(sizes)
-        got = kernels.group_count(planes, table, filt)
-        want = kernels.group_count_plain(planes, torch.from_numpy(table), filt)
-        torch.cuda.synchronize()
-        err = int((got - want).abs().max()) if got.numel() else 0
-        errs["group_count"] = max(errs["group_count"], err)
-        if got.shape != want.shape or got.dtype != torch.int64 or err:
-            raise AssertionError(f"group_count {what}: {tuple(got.shape)} {got.dtype} vs "
-                                 f"{tuple(want.shape)}, max |err| {err}")
-
     gb_planes = [t(seeded_words(rng, (1024, w)))[:954] for _ in range(15)]
     gb_filt = big_b[:954]
-    check_group(gb_planes[:12], (4, 8), gb_filt, "(4, 8) + filter, 954 x 32768")
-    check_group(gb_planes, (4, 8, 3), None, "(4, 8, 3), 954 x 32768")
-    offs = [t(seeded_words(rng, (5, 4101)))[:, 1:] for _ in range(6)]
-    check_group(offs, (3, 3), off_a[:, 1:], "(3, 3) + filter, unaligned [5, 4100]")
-    rag_p = [t(seeded_words(rng, (7, 6243))) for _ in range(7)]
-    check_group(rag_p, (2, 5), rag_p[0], "(2, 5) + filter, [7, 6243]")
-    many = t(seeded_words(rng, (450, 3, 300)))
-    check_group(list(many), (450,), None, "450 planes of [3, 300]")
-    wide = t(seeded_words(rng, (192, 4, 1000)))
-    check_group(list(wide), (64, 128), wide[0], "(64, 128) + filter: 8192 groups")
-    wide2 = t(seeded_words(rng, (289, 3, 300)))
-    check_group(list(wide2[:288]), (32, 256), wide2[288],
-                "(32, 256) + filter: 8192 groups over 288 planes (unstaged)")
-    deep = [t(seeded_words(rng, (6, 2000))) for _ in range(11)]
-    check_group(deep[:10], (2, 2, 2, 2, 2), deep[10], "5 levels + filter (predicated)")
-    check_group(deep[:8], (2, 2, 2, 2), None, "4 levels")
-    del offs, rag_p, many, wide, wide2, deep
+    check_group_lattices(torch, kernels, t, rng, gb_planes, gb_filt, errs)
     del leaves9, tables9
     log(f"kernel checks: exact on every op and shape; max |err| {errs}")
 
@@ -960,89 +1110,91 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
         ("pair_count", "[1024, 32768] x [1024, 32768]",
          lambda: kernels.pair_count(big_a, big_b, "and"),
          lambda: kernels.pair_count_plain(big_a, big_b, "and"),
-         2 * rows * w * 4 + rows * 4, OPS_PER_WORD * rows * w),
+         2 * rows * w * 4 + rows * 4, 2 * rows * w, rows * w),
         ("row_counts", "[1024, 32768]",
          lambda: kernels.row_counts(big_a),
          lambda: kernels.row_counts_plain(big_a),
-         rows * w * 4 + rows * 4, 2 * rows * w),
+         rows * w * 4 + rows * 4, rows * w, rows * w),
         ("pair_count", "[512, 32768] x [32768]",
          lambda: kernels.pair_count(stack, filt_stack[3], "and"),
          lambda: kernels.pair_count_plain(stack, filt_stack[3], "and"),
-         512 * w * 4 + w * 4 + 512 * 4, OPS_PER_WORD * 512 * w),
+         512 * w * 4 + w * 4 + 512 * 4, 2 * 512 * w, 512 * w),
         ("pair_count", "[17, 1024, 32768] x [1024, 32768]",
          lambda: kernels.pair_count(cube, cls, "and"),
          lambda: kernels.pair_count_plain(cube, cls, "and"),
-         18 * plane + 17 * rows * 4, OPS_PER_WORD * 17 * rows * w),
+         18 * plane + 17 * rows * 4, 2 * 17 * rows * w, 17 * rows * w),
         # per word and plane: 2 ops for the predicate mask, 7 for lt/gt/eq
         ("bsi_compare", "[17, 1024, 32768] x [1024, 32768]",
          lambda: kernels.bsi_compare(cube, filt, bsi_pred, 0, 17, "gt", False),
          lambda: kernels.bsi_compare_plain(cube, filt, bsi_pred, 0, 17, "gt", False),
-         19 * plane, 9 * 17 * rows * w),
-        # per word and plane: narrow, popcount, add
+         19 * plane, 9 * 17 * rows * w, 0),
+        # per word and plane: narrow, add; a popcount
         ("bsi_minmax", "[17, 1024, 32768] x [1024, 32768]",
          lambda: kernels.bsi_minmax(cube, filt, 17, True),
          lambda: kernels.bsi_minmax_plain(cube, filt, 17, True),
-         18 * plane + 3 * rows * 4, OPS_PER_WORD * 17 * rows * w),
-        # per word: two ands, a popcount, an add
+         18 * plane + 3 * rows * 4, 2 * 17 * rows * w, 17 * rows * w),
+        # per word: two ands, an add; a popcount
         ("tree_count", "3 x [1024, 32768] (and, and)",
          lambda: kernels.tree_count(tree3, [0, 1, "and", 2, "and"]),
          lambda: kernels.tree_count_plain(tree3, [0, 1, "and", 2, "and"]),
-         3 * plane + rows * 4, 4 * rows * w),
+         3 * plane + rows * 4, 3 * rows * w, rows * w),
         ("tree_count", "3 x [1024, 32768] (and, and), plane written",
          lambda: kernels.tree_count(tree3, [0, 1, "and", 2, "and"], True),
          lambda: kernels.tree_count_plain(tree3, [0, 1, "and", 2, "and"], True),
-         4 * plane + rows * 4, 4 * rows * w),
+         4 * plane + rows * 4, 3 * rows * w, rows * w),
         # per word: two shifts, an or
         ("shift_left", "[1024, 32768], n = 33",
          lambda: kernels.shift_left(big_a, 33),
          lambda: kernels.shift_left_plain(big_a, 33),
-         2 * plane, 3 * rows * w),
+         2 * plane, 3 * rows * w, 0),
         # each distinct operand read once: 8 a's and 7 b's (one shared)
         ("pair_count_batched", "8 x [1024, 32768] x [1024, 32768], one b shared",
          lambda: kernels.pair_count_batched(batch_a, batch_b, "and"),
          lambda: kernels.pair_count_batched_plain(batch_a, batch_b, "and"),
-         15 * plane + 8 * rows * 4, OPS_PER_WORD * 8 * rows * w),
+         15 * plane + 8 * rows * 4, 2 * 8 * rows * w, 8 * rows * w),
         # a TopN pass at 10M columns: 10 shards' 3 tiles of 512 rows, each
         # against its shard's filter row, in one launch
         ("pair_count_batched", "30 x [512, 32768] x [32768] (a TopN pass's tiles)",
          lambda: kernels.pair_count_batched(topn_tiles, topn_filts, "and"),
          lambda: kernels.pair_count_batched_plain(topn_tiles, topn_filts, "and"),
-         30 * 512 * w * 4 + 10 * w * 4 + 30 * 512 * 4, OPS_PER_WORD * 30 * 512 * w),
+         30 * 512 * w * 4 + 10 * w * 4 + 30 * 512 * 4, 2 * 30 * 512 * w, 30 * 512 * w),
         ("row_counts_batched", "8 x [1024, 32768]",
          lambda: kernels.row_counts_batched(batch_a),
          lambda: kernels.row_counts_batched_plain(batch_a),
-         8 * plane + 8 * rows * 4, 2 * 8 * rows * w),
+         8 * plane + 8 * rows * 4, 8 * rows * w, 8 * rows * w),
         # 8 slots x 3 leaves over 15 distinct planes (a[z], b[z], a[z+1];
         # slot 5 pushes slot 3's b), each read once
         ("tree_count_batched", "8 x 3 x [1024, 32768] (and, and), 15 distinct planes",
          lambda: kernels.tree_count_batched(tables3, tape3),
          lambda: kernels.tree_count_batched_plain(tables3, tape3),
-         15 * plane + 8 * rows * 4, 4 * 8 * rows * w),
+         15 * plane + 8 * rows * 4, 3 * 8 * rows * w, 8 * rows * w),
         # the same wave with no leaf shared
         ("tree_count_batched", "8 x 3 x [1024, 32768] (and, and), 24 distinct planes",
          lambda: kernels.tree_count_batched(tables24, tape3),
          lambda: kernels.tree_count_batched_plain(tables24, tape3),
-         24 * plane + 8 * rows * 4, 4 * 8 * rows * w),
+         24 * plane + 8 * rows * 4, 3 * 8 * rows * w, 8 * rows * w),
         # the stack written once, the dense rows and COO words read once
         ("assemble_stack", f"[1024, 32768], 16 dense rows, {asm[2].shape[0]} COO words",
          lambda: kernels.assemble_stack(*asm_args),
          lambda: kernels.assemble_stack_plain(*asm_args),
-         plane + asm[1].nbytes + 12 * asm[2].shape[0] + asm[0].nbytes, 0),
-        # each distinct plane and the filter read once; per group and word:
-        # the ANDs (one per level, the filter's included), popcount, add
+         plane + asm[1].nbytes + 12 * asm[2].shape[0] + asm[0].nbytes, 0, 0),
+        # GROUP_TIMED: each plane and the filter read once, the counts
+        # written once; the prefix tree's ANDs, a count and an add per group
+        # and word (lattice_work)
         ("group_count", "(4, 8) + filter: 32 groups, 12 planes + filter of [954, 32768]",
-         lambda: kernels.group_count(gb_planes[:12], gb_table, gb_filt),
-         lambda: kernels.group_count_plain(gb_planes[:12], gb_table_t, gb_filt),
-         13 * 954 * w * 4 + 32 * 8, (2 + 2) * 32 * 954 * w),
+         lambda: kernels.group_count(gb_planes[:12], (4, 8), gb_filt),
+         lambda: kernels.group_count_plain(gb_planes[:12], (4, 8), gb_filt),
+         *group_timed_work((4, 8), True, 954)),
         ("group_count", "(4, 8, 3): 96 groups, 15 planes of [954, 32768]",
-         lambda: kernels.group_count(gb_planes, gb_table3, None),
-         lambda: kernels.group_count_plain(gb_planes, gb_table3_t, None),
-         15 * 954 * w * 4 + 96 * 8, (2 + 2) * 96 * 954 * w),
+         lambda: kernels.group_count(gb_planes, (4, 8, 3), None),
+         lambda: kernels.group_count_plain(gb_planes, (4, 8, 3), None),
+         *group_timed_work((4, 8, 3), False, 954)),
+        ("group_count", "(32, 256) over 4 rows: 8192 groups, 288 planes of [4, 32768]",
+         lambda: kernels.group_count(gb_wide, (32, 256), None),
+         lambda: kernels.group_count_plain(gb_wide, (32, 256), None),
+         *group_timed_work((32, 256), False, 4)),
     ]
-    gb_table = lattice_table((4, 8))
-    gb_table_t = torch.from_numpy(gb_table)
-    gb_table3 = lattice_table((4, 8, 3))
-    gb_table3_t = torch.from_numpy(gb_table3)
+    gb_wide = list(t(seeded_words(rng, (288, 4, w))))
     topn_tiles = [t(seeded_words(rng, (512, w))) for _ in range(30)]
     topn_filts = [filt_stack[i // 3] for i in range(30)]
     check_batched("pair_count_batched", kernels.pair_count_batched(topn_tiles, topn_filts, "and"),
@@ -1072,11 +1224,16 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
         (tree3[0] & tree3[1]) & tree3[2]), KERNEL_RUNS)
     log(f"3-leaf Count on the torch-ops path (and, and, row_counts): "
         f"{torch_ms:.4f} ms, 7 planes moved  [{card}]")
+    logic_rate, popc_rate = integer_rates(torch)
+    log(f"bound rates: HBM {PEAK_BYTES_PER_S:.4g} B/s; 32-bit logic and adds "
+        f"{logic_rate:.6g}/s, popcounts {popc_rate:.6g}/s ({LOGIC_PER_CLOCK_SM} and "
+        f"{POPC_PER_CLOCK_SM} a clock per SM x {_RATES['sms']} SMs x {_RATES['mhz']:.0f} MHz, "
+        f"the maximum SM clock)  [{card}]")
     timings = {}
-    for name, shape, fn, plain_fn, nbytes, ops in cases:
+    for name, shape, fn, plain_fn, nbytes, logic, popc in cases:
         ms = time_cuda_ms(torch, fn, KERNEL_RUNS)
         plain = time_cuda_ms(torch, plain_fn, 5)
-        bound, by = bound_ms(nbytes, ops)
+        bound, by, term = bound_ms(torch, nbytes, logic, popc)
         lib = time_cuda_ms(torch, library[name], KERNEL_RUNS) if name in library else None
         lib_text = f"; library {lib:.4f} ms" if lib is not None else ""
         if name == "assemble_stack":
@@ -1087,7 +1244,7 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
             host = statistics.median(host_enqueue_times(torch, fn, KERNEL_RUNS))
             lib_text += (f"; host enqueue {host:.4f} ms (median); library none "
                          "(torch has no popcount)")
-        log(f"kernel {name} {shape}: {ms:.4f} ms, bound {bound:.4f} ms ({by}), "
+        log(f"kernel {name} {shape}: {ms:.4f} ms, bound {bound:.4f} ms ({term}), "
             f"{bound / ms:.1%} of bound; plain {plain:.4f} ms{lib_text}  [{card}]")
         timings.setdefault(name, (ms, plain, bound, by, lib))
     # Two floors beside assemble_stack at the same shape: the kernel on the
@@ -1101,7 +1258,7 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
     log(f"assemble_stack floors at [1024, 32768]: no COO words {floor_ms:.4f} ms; "
         f"torch.zeros of the stack {zeros_ms:.4f} ms  [{card}]")
     del cube, cube40, tree3, batch_a, batch_b, tables3, tables24, lib_out, topn_tiles
-    del gb_planes
+    del gb_planes, gb_wide
     log(f"kernels: {json.dumps(sorted(errs))}")
     # Hand the cached blocks back: the persist phase's CLI node is a
     # process of its own on the same card.
@@ -3178,7 +3335,7 @@ def phase_fields(torch, card: str, data: dict, runs: int = FIELDS_RUNS,
     del m_cols, m_rows, mv_cols, mv_rows, moved, b_cols, b_rows, t_cols, t_rows, t_hours
 
     # Wide lattices at a few shards, where the stack cap admits hundreds of
-    # planes and group_count reads them from device memory, unstaged:
+    # planes and group_count splits the lattice into many units:
     # GroupBy(Rows(w)) over 450 rows, and a (32, 256) lattice of 8192
     # groups over 288 planes.
     conn.close()
@@ -3341,6 +3498,10 @@ if __name__ == "__main__":
         sys.exit(tree_batched_times(sys.argv[2]))
     if sys.argv[1:2] == ["--tree-batched-vs"] and len(sys.argv) == 3:
         sys.exit(tree_batched_vs(sys.argv[2]))
+    if sys.argv[1:2] == ["--group-count"] and len(sys.argv) == 3:
+        sys.exit(group_count_times(sys.argv[2]))
+    if sys.argv[1:2] == ["--group-count-vs"] and len(sys.argv) == 3:
+        sys.exit(group_count_vs(sys.argv[2]))
     if sys.argv[1:] == ["--import-rule"]:
         sys.exit(import_rule_vs())
     if sys.argv[1:2] == ["--import-rule-side"] and len(sys.argv) == 3:

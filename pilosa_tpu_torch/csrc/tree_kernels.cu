@@ -99,6 +99,8 @@
 
 #include <mutex>
 
+#include "bulk_ring.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -340,46 +342,6 @@ __device__ __forceinline__ void load_group(const BatchTables& tab, int n_leaves,
   const int n_map = *n_slots * n_leaves;
   for (int i = threadIdx.x; i < n_map; i += blockDim.x)
     lmap[i] = static_cast<uint8_t>(tab.lmap[static_cast<int64_t>(*slot_lo) * n_leaves + i]);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_addr(bar)), "r"(bytes) : "memory");
-}
-
-// Returns once the barrier's phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n"
-      "}\n" ::"r"(smem_addr(bar)), "r"(parity) : "memory");
-}
-
-// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global
-// to shared memory, completing on `bar`'s transaction count.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)), "l"(src), "r"(bytes),
-      "r"(smem_addr(bar)) : "memory");
 }
 
 __device__ __forceinline__ int warp_sum(int v) {

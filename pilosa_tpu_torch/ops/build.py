@@ -56,9 +56,11 @@ def nvcc_path() -> str:
 
 
 def library_path(source: str) -> Path:
-    """Where the library for ``csrc/<source>`` lives once built."""
+    """Where the library for ``csrc/<source>`` lives once built: named by a
+    hash of the source, the shared ``csrc/*.cuh`` headers and the flags."""
     src = CSRC_DIR / source
-    digest = hashlib.sha256(src.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}-{digest}.so"
 

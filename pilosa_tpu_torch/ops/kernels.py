@@ -25,10 +25,12 @@
   stack on the device from a few dense rows and COO words grouped by row,
   each tile of it built once and written once: the sparse-upload scatter
   of pilosa_tpu/parallel/planner.py ``_assemble_stack``.
-- ``group_count(planes, table, filt)`` (``csrc/group_kernels.cu``) counts a
-  whole GroupBy lattice in one launch: for each group, the popcount of the
+- ``group_count(planes, sizes, filt)`` (``csrc/group_kernels.cu``) counts a
+  whole GroupBy lattice -- the product of the levels' rows, ``sizes[l]``
+  planes at level l -- in one launch: for each group, the popcount of the
   AND of its row at every level (and the filter) over every shard row,
-  int64 totals, each distinct plane read once: the lattice of
+  int64 totals, each plane read once and the lattice walked as a prefix
+  tree: the lattice of
   pilosa_tpu/parallel/planner.py ``execute_group_by``, which the JAX
   package runs as one XLA-fused AND and count per group.
 
@@ -107,7 +109,7 @@ _SIGNATURES = {
                                   _I64, _VP],
     },
     "group_kernels.cu": {
-        "pilosa_group_count": [_VP, _VP, _I32, _I32, _I32, _VP, _I64, _VP, _I64,
+        "pilosa_group_count": [_VP, _VP, _I32, _VP, _I32, _VP, _I64, _VP, _I64,
                                _I64, _I32, _VP],
     },
 }
@@ -340,27 +342,43 @@ def assemble_stack_plain(didx, dmat, ci, cw, cv, s_pad: int) -> torch.Tensor:
     return out
 
 
-#: groups of one plain-version step: bounds its [groups, S, W] temporaries.
+#: rows of the last level one plain-version step takes: bounds its
+#: [rows, S, W] temporaries.
 _GROUP_CHUNK = 8
 
 
-def group_count_plain(planes, table: torch.Tensor,
-                      filt: torch.Tensor | None = None) -> torch.Tensor:
+def group_count_plain(planes, sizes, filt: torch.Tensor | None = None) -> torch.Tensor:
     """pilosa_tpu/parallel/planner.py execute_group_by (:919-978) without
-    its zero-count drop: for each group g, the AND of ``planes[table[g, l]]``
-    over the levels l (and ``filt``), popcounted per row as int32, the rows
-    widened to int64 and summed. int64 ``[G]``."""
-    stack = torch.stack(list(planes))  # [P, S, W]
-    idx = table.to(device=stack.device, dtype=torch.int64)
-    out = torch.zeros(idx.shape[0], dtype=torch.int64, device=stack.device)
-    for lo in range(0, idx.shape[0], _GROUP_CHUNK):
-        sel = idx[lo:lo + _GROUP_CHUNK]
-        acc = stack[sel[:, 0]]
-        for lvl in range(1, sel.shape[1]):
-            acc = acc & stack[sel[:, lvl]]
-        if filt is not None:
-            acc = acc & filt
-        out[lo:lo + len(sel)] = bitops.count(acc).to(torch.int64).sum(dim=-1)
+    its zero-count drop, walked as its ``rec`` walks it (:958-971): the
+    levels' rows are ``planes`` in level order, ``sizes[l]`` of them at
+    level l; each prefix's AND (the filter's first) is carried down to the
+    next level, and each group's AND is popcounted per row as int32, the
+    rows widened to int64 and summed. int64 ``[prod(sizes)]`` in
+    lexicographic group order."""
+    planes = list(planes)
+    sizes = [int(n) for n in sizes]
+    n_groups = math.prod(sizes)
+    device = planes[0].device if planes else torch.device("cpu")
+    out = torch.zeros(n_groups, dtype=torch.int64, device=device)
+    if n_groups == 0:
+        return out
+    first = np.cumsum([0] + sizes[:-1]).tolist()
+    last = len(sizes) - 1
+
+    def rec(level: int, prefix: torch.Tensor | None, g0: int) -> None:
+        rows = planes[first[level]:first[level] + sizes[level]]
+        if level == last:
+            for lo in range(0, len(rows), _GROUP_CHUNK):
+                acc = torch.stack(rows[lo:lo + _GROUP_CHUNK])
+                if prefix is not None:
+                    acc = acc & prefix
+                out[g0 + lo:g0 + lo + len(acc)] = bitops.count(acc).to(torch.int64).sum(dim=-1)
+            return
+        step = math.prod(sizes[level + 1:])
+        for r, row in enumerate(rows):
+            rec(level + 1, row if prefix is None else prefix & row, g0 + r * step)
+
+    rec(0, filt, 0)
     return out
 
 
@@ -1013,67 +1031,82 @@ def assemble_stack(didx: torch.Tensor, dmat: torch.Tensor, ci: torch.Tensor,
 GROUP_MAX_LEVELS = 16
 
 
-def group_count(planes, table, filt: torch.Tensor | None = None) -> torch.Tensor:
-    """The counts of a GroupBy lattice in one launch: ``planes`` are the
-    distinct ``[S, W]`` int32 planes (each level's rows), ``table`` a
-    ``[G, L]`` integer tensor (or array) of plane indices, group g's row at
-    each level, and ``filt`` an optional ``[S, W]`` filter plane. Returns
-    int64 ``[G]``: for each group the popcount of the AND of its planes
-    (and the filter) over all S rows, each row's count an int32 widened
-    before the sum. Zero rows (the planner's pow2 padding) count 0. The
-    kernel reads each distinct plane once (``csrc/group_kernels.cu``);
-    ``L`` is at most GROUP_MAX_LEVELS."""
+def _group_sizes(sizes, n_planes: int) -> list[int]:
+    """The level sizes of a lattice over ``n_planes`` planes: 1 to
+    GROUP_MAX_LEVELS integers, none negative, summing to ``n_planes``."""
+    if isinstance(sizes, (torch.Tensor, np.ndarray)):
+        sizes = sizes.tolist()
+    out = []
+    for n in sizes:
+        if isinstance(n, bool) or not isinstance(n, (int, np.integer)):
+            raise TypeError(f"sizes must hold integers, got {n!r}")
+        out.append(int(n))
+    if not 1 <= len(out) <= GROUP_MAX_LEVELS:
+        raise ValueError(f"group_count takes 1 to at most {GROUP_MAX_LEVELS} levels, "
+                         f"got {len(out)}")
+    if min(out) < 0:
+        raise ValueError(f"sizes must not be negative, got {out}")
+    if sum(out) != n_planes:
+        raise ValueError(f"sizes {out} must sum to the {n_planes} planes")
+    return out
+
+
+def group_count(planes, sizes, filt: torch.Tensor | None = None) -> torch.Tensor:
+    """The counts of a GroupBy lattice in one launch. ``planes`` are the
+    levels' ``[S, W]`` int32 rows in level order, ``sizes[l]`` of them at
+    level l (1 to GROUP_MAX_LEVELS levels; a level of 0 rows makes no
+    group), and ``filt`` an optional ``[S, W]`` filter plane. The lattice is
+    the lexicographic product of the levels: returns int64
+    ``[prod(sizes)]``, for each group in that order the popcount of the AND
+    of its row at every level (and the filter) over all S rows, each row's
+    count an int32 widened before the sum. Zero rows (the planner's pow2
+    padding) count 0. The kernel (``csrc/group_kernels.cu``) reads each
+    plane once and walks the lattice as a prefix tree."""
     planes = list(planes)
     if not planes:
         raise ValueError("group_count needs at least one plane")
+    _check_words(planes[0], "plane 0")
+    if planes[0].dim() != 2:
+        raise ValueError(f"plane 0 must be [S, W], got {tuple(planes[0].shape)}")
+    shape, device = planes[0].shape, planes[0].device
+    rows, words = shape
+    # One pass over the planes (hundreds of them in a wide lattice): the
+    # checks, row bases and strides.
+    ptrs, strides = [], []
     for k, x in enumerate(planes):
-        _check_words(x, f"plane {k}")
-        if x.dim() != 2:
-            raise ValueError(f"plane {k} must be [S, W], got {tuple(x.shape)}")
-    rows, words = planes[0].shape
-    device = planes[0].device
-    for k, x in enumerate(planes):
-        if x.shape != planes[0].shape or x.device != device:
+        if not (isinstance(x, torch.Tensor) and x.dtype == torch.int32 and x.shape == shape
+                and x.device == device and (x.stride(1) == 1 or rows == 0)):
+            _check_words(x, f"plane {k}")
             raise ValueError(f"plane {k} is {tuple(x.shape)} on {x.device}, "
-                             f"plane 0 {tuple(planes[0].shape)} on {device}")
+                             f"plane 0 {tuple(shape)} on {device}")
+        ptrs.append(x.data_ptr())
+        strides.append(x.stride(0))
     if filt is not None:
         _check_words(filt, "filt")
         if filt.shape != planes[0].shape or filt.device != device:
             raise ValueError(f"filt {tuple(filt.shape)} must match the planes "
                              f"{tuple(planes[0].shape)}")
-    table = torch.as_tensor(table)
-    if table.dim() != 2 or table.shape[1] == 0:
-        raise ValueError(f"table must be [G, L] with L >= 1, got {tuple(table.shape)}")
-    if table.dtype.is_floating_point or table.dtype == torch.bool:
-        raise TypeError(f"table must hold integer plane indices, got {table.dtype}")
-    if table.shape[1] > GROUP_MAX_LEVELS:
-        raise ValueError(f"group_count takes at most {GROUP_MAX_LEVELS} levels, "
-                         f"got {table.shape[1]}")
-    host = table.cpu().to(torch.int64)
-    if host.numel() and (int(host.min()) < 0 or int(host.max()) >= len(planes)):
-        raise ValueError(f"table indices must lie in [0, {len(planes)})")
+    sizes = _group_sizes(sizes, len(planes))
     if device.type == "cpu":
-        return group_count_plain(planes, host, filt)
+        return group_count_plain(planes, sizes, filt)
     _require_cuda(planes[0])
-    n_groups, levels = host.shape
+    n_groups = math.prod(sizes)
     out = torch.zeros(n_groups, dtype=torch.int64, device=device)
     if n_groups == 0 or rows == 0:
         return out
-    layouts = [(x.stride(0), rows) for x in planes]
-    vec = words % 4 == 0 and all(_vec_ok(x, st) for x, (st, _) in zip(planes, layouts))
+    vec = (words % 4 == 0 and all(p % 16 == 0 for p in ptrs)
+           and all(st % 4 == 0 for st in strides))
     f_stride = 0
     if filt is not None:
         f_stride = filt.stride(0)
         vec = vec and _vec_ok(filt, f_stride)
-    flat = np.concatenate([
-        np.asarray([x.data_ptr() for x in planes], dtype=np.int64),
-        np.asarray([st for st, _ in layouts], dtype=np.int64),
-        host.numpy().reshape(-1)])
-    dev_table = torch.empty(len(flat), dtype=torch.int64, device=device)
+    table = np.asarray(ptrs + strides, dtype=np.int64)
+    level_sizes = np.asarray(sizes, dtype=np.int64)
+    dev_table = torch.empty(len(table), dtype=torch.int64, device=device)
     with torch.cuda.device(device):
         err = _library("group_kernels.cu").pilosa_group_count(
-            flat.ctypes.data, dev_table.data_ptr(), len(planes), n_groups, levels,
-            None if filt is None else filt.data_ptr(), f_stride, out.data_ptr(),
+            table.ctypes.data, dev_table.data_ptr(), len(planes), level_sizes.ctypes.data,
+            len(sizes), None if filt is None else filt.data_ptr(), f_stride, out.data_ptr(),
             rows, words, int(vec), _stream(device))
     if err:
         raise RuntimeError(f"group_count kernel launch failed: CUDA error {err}")

@@ -644,11 +644,7 @@ class Planner:
         n = len(shards)
         planes = [self._stack_rows(idx, f, view, r, shards_t)[:n]
                   for _, f, view, r in leaves]
-        starts = np.cumsum([0] + [len(rows) for rows in cands[:-1]])
-        table = np.asarray(list(itertools.product(
-            *[range(int(st), int(st) + len(rows))
-              for st, rows in zip(starts, cands)])), dtype=np.int64)
-        counts = kernels.group_count(planes, table,
+        counts = kernels.group_count(planes, [len(rows) for rows in cands],
                                      None if filt is None else filt[:n])
         self._record_dispatch(1)
         host = self.batcher.submit(counts, lambda h: h, waited=True).result()

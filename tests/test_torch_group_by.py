@@ -8,10 +8,12 @@
   or ``column``, a time field child. The JAX executors page a GroupBy with
   ``limit`` differently (the per-shard walk stops each shard at ``limit``
   before the offset); each port executor is held to its counterpart there.
-- ``group_count_plain`` (the plain version of the lattice kernel) against
-  the JAX planner's ``execute_group_by`` on seeded words with all-ones and
-  bit-31 words and a pow2 pad row, with 1, 2 and 3 levels, with and
-  without a filter.
+- ``group_count_plain`` (the plain version of the lattice kernel, given
+  the level sizes) against the JAX planner's ``execute_group_by`` on
+  seeded words with all-ones and bit-31 words and a pow2 pad row, with 1
+  to 5 levels and a level of one row in the middle, with and without a
+  filter; and against each group's AND spelled out in numpy, up to 16
+  levels (8192 groups).
 - Wide lattices at 2 shards (450 rows in one level; 12 x 40) are ONE
   ``group_count`` call, equal to both JAX executors.
 - Lattices past ``GROUP_BY_MAX_PAIRS`` groups, or past the stacks' memory
@@ -200,16 +202,16 @@ def test_planner_group_by_is_one_lattice(seeded, monkeypatch):
     calls = []
     real = kernels.group_count
 
-    def spy(planes, table, filt=None):
-        calls.append((len(planes), tuple(torch.as_tensor(table).shape), filt is not None))
-        return real(planes, table, filt)
+    def spy(planes, sizes, filt=None):
+        calls.append((len(planes), tuple(sizes), filt is not None))
+        return real(planes, sizes, filt)
 
     monkeypatch.setattr(kernels, "group_count", spy)
     texec = seeded[1][1]
     texec.execute("i", "GroupBy(Rows(a), Rows(b), filter=Row(g=0))", cache=False)
-    assert calls == [(12, (32, 2), True)]
+    assert calls == [(12, (4, 8), True)]
     texec.execute("i", "GroupBy(Rows(a), Rows(b), Rows(c))", cache=False)
-    assert calls[1] == (15, (96, 3), False)
+    assert calls[1] == (15, (4, 8, 3), False)
     texec.execute("i", "GroupBy(Rows(a, previous=1), Rows(b))", cache=False)
     assert len(calls) == 2
 
@@ -229,14 +231,14 @@ def test_wide_lattice_parity(mesh, monkeypatch, sizes):
     calls = []
     real = kernels.group_count
 
-    def spy(planes, table, filt=None):
-        calls.append((len(planes), tuple(torch.as_tensor(table).shape)))
-        return real(planes, table, filt)
+    def spy(planes, sizes, filt=None):
+        calls.append((len(planes), tuple(sizes)))
+        return real(planes, sizes, filt)
 
     monkeypatch.setattr(kernels, "group_count", spy)
     query = "GroupBy({})".format(", ".join(f"Rows({n})" for n in names))
     got = _check(ex, query)
-    assert calls == [(sum(sizes), (int(np.prod(sizes)), len(sizes)))]
+    assert calls == [(sum(sizes), sizes)]
     assert got
 
 
@@ -258,8 +260,11 @@ def _words(rng, n_rows: int) -> np.ndarray:
     return w
 
 
-@pytest.mark.parametrize("sizes,filtered", [((5,), False), ((5,), True), ((4, 3), False),
-                                            ((4, 3), True), ((3, 2, 3), True)])
+@pytest.mark.parametrize("sizes,filtered", [
+    ((5,), False), ((5,), True), ((4, 3), False), ((4, 3), True), ((3, 2, 3), True),
+    ((3, 1, 4), False), ((3, 1, 4), True),  # a level of one row in the middle
+    ((2, 3, 2, 2), False), ((2, 3, 2, 2), True),  # 4 levels
+    ((2, 2, 1, 2, 3), False), ((2, 2, 1, 2, 3), True)])  # 5 levels
 def test_group_count_plain_matches_jax_lattice(mesh, sizes, filtered):
     rng = np.random.default_rng(sum(sizes) * 7 + filtered)
     fields = [f"l{i}" for i in range(len(sizes))]
@@ -287,35 +292,89 @@ def test_group_count_plain_matches_jax_lattice(mesh, sizes, filtered):
         return torch.from_numpy(out.view(np.int32))
 
     planes = [stack(words[f][r]) for f, n in zip(fields, sizes) for r in range(n)]
-    starts = np.cumsum([0] + list(sizes[:-1]))
-    table = torch.tensor(list(itertools.product(
-        *[range(int(a), int(a) + n) for a, n in zip(starts, sizes)])))
-    counts = kernels.group_count_plain(planes, table, stack(fwords) if filtered else None)
-    assert counts.dtype == torch.int64
+    filt = stack(fwords) if filtered else None
+    counts = kernels.group_count_plain(planes, sizes, filt)
+    assert counts.dtype == torch.int64 and counts.shape == (int(np.prod(sizes)),)
     got = [(g, int(c)) for g, c in zip(itertools.product(*cands), counts.tolist()) if c > 0]
     assert got == [(tuple(g), c) for g, c in want]
     # The wrapper takes the plain version for CPU tensors.
-    assert torch.equal(kernels.group_count(planes, table, stack(fwords) if filtered else None),
-                       counts)
+    assert torch.equal(kernels.group_count(planes, sizes, filt), counts)
 
 
-def test_group_count_wrapper_checks():
-    p = [torch.zeros((2, 8), dtype=torch.int32) for _ in range(3)]
-    with pytest.raises(ValueError, match="at most 16 levels"):
-        kernels.group_count(p, torch.zeros((1, 17), dtype=torch.int64))
-    with pytest.raises(ValueError, match="table indices"):
-        kernels.group_count(p, torch.tensor([[0, 3]]))
-    with pytest.raises(ValueError, match="table must be"):
-        kernels.group_count(p, torch.tensor([0, 1]))
-    with pytest.raises(TypeError, match="integer"):
-        kernels.group_count(p, torch.tensor([[0.0, 1.0]]))
-    with pytest.raises(ValueError, match="plane 1"):
-        kernels.group_count([p[0], torch.zeros((3, 8), dtype=torch.int32)], [[0, 1]])
-    with pytest.raises(ValueError, match="filt"):
-        kernels.group_count(p, [[0, 1]], torch.zeros((2, 4), dtype=torch.int32))
-    with pytest.raises(TypeError):
-        kernels.group_count([torch.zeros((2, 8), dtype=torch.int64)], [[0]])
-    assert kernels.group_count(p, torch.zeros((0, 2), dtype=torch.int64)).shape == (0,)
+def _lattice_oracle(planes: np.ndarray, sizes, filt) -> np.ndarray:
+    """Each group's AND over its levels' rows (and the filter), counted per
+    row and summed: the lattice spelled out group by group in numpy."""
+    first = np.cumsum([0] + list(sizes[:-1]))
+    out = []
+    for group in itertools.product(*[range(n) for n in sizes]):
+        acc = np.full(planes.shape[1:], 0xFFFFFFFF, dtype=np.uint32) if filt is None else filt
+        for f, r in zip(first, group):
+            acc = acc & planes[f + r]
+        out.append(int(np.unpackbits(acc.view(np.uint8)).sum()))
+    return np.asarray(out, dtype=np.int64)
+
+
+@pytest.mark.parametrize("sizes", [
+    (7,), (1,), (2, 1), (1, 3), (3, 1, 2), (2, 2, 2, 2),
+    (2, 1, 2, 2, 1, 2, 2, 2, 1, 2, 2, 2, 2, 2, 2, 2),  # 16 levels, 8192 groups
+], ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("filtered", [False, True], ids=["nofilt", "filt"])
+def test_group_count_plain_walks_the_product(sizes, filtered):
+    """The plain version's prefix-tree walk against every group's AND
+    spelled out: levels of one row anywhere, 16 levels, with and without a
+    filter, zero pad rows and all-ones words in the planes."""
+    rng = np.random.default_rng(len(sizes) * 31 + sum(sizes) + filtered)
+    n_rows = 4 if len(sizes) < 16 else 2
+    planes = rng.integers(0, 2**32, size=(sum(sizes), n_rows, 6), dtype=np.uint32)
+    planes |= rng.integers(0, 2**32, size=planes.shape, dtype=np.uint32)  # dense enough
+    planes[:, -1] = 0  # a pad row
+    planes[0, 0] = 0xFFFFFFFF
+    filt = rng.integers(0, 2**32, size=(n_rows, 6), dtype=np.uint32) if filtered else None
+    t = [torch.from_numpy(x.view(np.int32)) for x in planes]
+    tf = None if filt is None else torch.from_numpy(filt.view(np.int32))
+    got = kernels.group_count_plain(t, sizes, tf)
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), _lattice_oracle(planes, sizes, filt))
+
+
+def _p(n=3, rows=2, words=8, dtype=torch.int32):
+    return [torch.zeros((rows, words), dtype=dtype) for _ in range(n)]
+
+
+@pytest.mark.parametrize("case", [
+    "17 levels", "sizes off the planes", "negative size", "float sizes", "float tensor",
+    "mismatched planes", "mismatched filter", "int64 planes", "zero groups"])
+def test_group_count_wrapper_checks(case):
+    """What the wrapper refuses, and a level of no rows (no groups)."""
+    p = _p()
+    if case == "17 levels":
+        with pytest.raises(ValueError, match="at most 16 levels"):
+            kernels.group_count(_p(17), [1] * 17)
+    elif case == "sizes off the planes":
+        with pytest.raises(ValueError, match="must sum to the 3 planes"):
+            kernels.group_count(p, [2, 2])
+    elif case == "negative size":
+        with pytest.raises(ValueError, match="must not be negative"):
+            kernels.group_count(p, [4, -1])
+    elif case == "float sizes":
+        with pytest.raises(TypeError, match="integers"):
+            kernels.group_count(p, [1.0, 2.0])
+    elif case == "float tensor":
+        with pytest.raises(TypeError, match="integers"):
+            kernels.group_count(p, torch.tensor([1.0, 2.0]))
+    elif case == "mismatched planes":
+        with pytest.raises(ValueError, match="plane 1"):
+            kernels.group_count([p[0], torch.zeros((3, 8), dtype=torch.int32)], [1, 1])
+    elif case == "mismatched filter":
+        with pytest.raises(ValueError, match="filt"):
+            kernels.group_count(p, [1, 2], torch.zeros((2, 4), dtype=torch.int32))
+    elif case == "int64 planes":
+        with pytest.raises(TypeError):
+            kernels.group_count(_p(1, dtype=torch.int64), [1])
+    else:
+        got = kernels.group_count(p, [0, 3])
+        assert got.shape == (0,) and got.dtype == torch.int64
+        assert kernels.group_count(p, np.asarray([3])).shape == (3,)
 
 
 # -- the planner's caps: the per-shard path in both packages ------------------

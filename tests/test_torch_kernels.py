@@ -177,3 +177,15 @@ def test_library_path_keyed_by_source(tmp_path, monkeypatch):
     assert p1 != p2
     assert p1.parent == build.BUILD_DIR and p1.name.startswith("k-")
     assert build.BUILD_DIR.parts[-2:] == ("build", "kernels")
+
+
+def test_library_path_keyed_by_headers(tmp_path, monkeypatch):
+    """A shared header (``csrc/*.cuh``, such as bulk_ring.cuh) is part of
+    every library's name: editing it rebuilds the sources that include it."""
+    (tmp_path / "k.cu").write_text('#include "ring.cuh"\n')
+    hdr = tmp_path / "ring.cuh"
+    hdr.write_text("// one\n")
+    monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
+    p1 = build.library_path("k.cu")
+    hdr.write_text("// two\n")
+    assert build.library_path("k.cu") != p1
