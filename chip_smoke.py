@@ -66,7 +66,22 @@ port's paths:
   upload; the sparse row's cold Count is ONE ``assemble_stack`` launch,
   beside a cold dense row's bytes and time, each the median of 5 cold
   samples split into host gather, pinned buffer, fill, copy,
-  ``assemble_stack`` and count;
+  ``assemble_stack`` and count (residency pinned ``off`` for it: under
+  ``auto`` the row is packed);
+- packed path: on the same index under the default ``auto``, the sparse
+  row f=30 (K = 1024) and a row f=31 of 2,000 bits a shard (K = 2048, half
+  of row 30's bits among them) are packed [1024, K] index stacks:
+  ``Count(Row(f=30))`` is ONE ``packed_count``, its Intersect with the
+  dense row f=1 (either order) ONE ``packed_and_dense_count``, with row 31
+  ONE ``packed_pair_count``, its Union with row 1 ``packed_expand`` and
+  ``pair_count``, a 3-leaf Intersect ``packed_expand`` and ``tree_count``,
+  and ``Row(f=30)`` a ``packed_expand``, in process and over HTTP against
+  numpy; the resident bytes by class, each Count's p50 beside the knob
+  ``off``, and so ``Row(f=30)`` and a TopN filtered by it (uncached plans:
+  a shard walk and a ``packed_expand`` each time), the leaf-class walk's
+  host time, the cold packed upload; then row 30 grows to 5,000 bits in
+  shard 0 and its Count drops its plan and runs dense (ONE
+  ``row_counts``);
 - fields path: on ``bench``, fields created over HTTP and loaded from
   seeded data: a YMDH time field (10M bits in rows 0-2 over 90 days of
   hours: bench config 4's spread at 1B columns), set fields a, b, c (4, 8
@@ -104,6 +119,7 @@ CPU rehearsal at a small size (plain kernel versions, no launch counts)::
               c.phase_pql):
         p(torch, "cpu", d, runs=2)
     c.phase_async(torch, "cpu", d, n_futures=40)
+    c.phase_packed(torch, "cpu", d, runs=2)
     c.FIELDS_TIME_BITS, c.FIELDS_SET_BITS = 200_000, 60_000
     c.FIELDS_MUTEX_COLS, c.FIELDS_MUTEX_MOVED, c.FIELDS_BOOL_COLS = 200_000, 40_000, 80_000
     c.phase_fields(torch, "cpu", d, runs=2, slow_runs=2)
@@ -746,6 +762,195 @@ def assemble_case(name: str, seed: int = SEED):
     return pack_assemble(s_pad, words, dense, coo)
 
 
+#: the packed kernels' cases: name -> (Ka, Kb), the widths of the a and b
+#: index stacks. Held to the plain versions on the card here at 1024 rows
+#: and a 32768-word plane, and to the JAX package's residency functions on
+#: the CPU by tests/test_torch_residency.py at a few rows.
+PACKED_CASES = {"k1024": (1024, 2048), "k2048": (2048, 1024), "k8": (8, 8),
+                "k16384": (16384, 16384), "ka8_kb4096": (8, 4096),
+                "ka16384_kb8": (16384, 8)}
+#: the planner's widest packed stack under auto (W / AUTO_RATIO entries).
+PACKED_AUTO_K = 4096
+
+
+def sorted_sample(rng, n: int, limit: int, avoid=None) -> np.ndarray:
+    """``n`` distinct integers of [0, limit) (fewer where ``limit`` or
+    ``avoid`` leaves fewer), sorted, none of them in ``avoid`` (sorted)."""
+    pool = np.unique(rng.integers(0, limit, n + n // 4 + 16))
+    if avoid is not None and len(avoid):
+        pool = np.setdiff1d(pool, avoid, assume_unique=True)
+    if len(pool) > n:
+        pool = np.sort(rng.choice(pool, n, replace=False))
+    return pool
+
+
+def packed_case(name: str, rows: int, seed: int = SEED, words: int = SHARD_WORDS):
+    """(a ``[rows, Ka]`` int32, b ``[rows, Kb]`` int32, plane ``[rows,
+    words]`` uint32) of one packed case: each row of a and b holds sorted,
+    distinct in-shard positions, SENTINEL-padded (``32 * words``), a random
+    count of them up to the row's width, b holding about half of a's. Every
+    case has the edge rows: row 0 all sentinels in a and b, row 1 full to
+    the width (no sentinel) in both, row 2 only positions with ``i & 31 ==
+    31``, row 3 a plane of all-ones words, row 4 b equal to a where the
+    widths allow; and the plane's other words are ``seeded_words``."""
+    ka, kb = PACKED_CASES[name]
+    rng = np.random.default_rng(seed)
+    limit = words * 32
+    a = np.full((rows, ka), limit, dtype=np.int32)
+    b = np.full((rows, kb), limit, dtype=np.int32)
+    for r in range(rows):
+        if r == 0:
+            continue
+        if r == 2:
+            top = np.arange(31, limit, 32)
+            pa = np.sort(rng.choice(top, min(ka, len(top)), replace=False))
+            pb = np.sort(rng.choice(top, min(kb, len(top)), replace=False))
+        else:
+            na = ka if r == 1 else int(rng.integers(0, ka + 1))
+            pa = sorted_sample(rng, na, limit)
+            if r == 4:
+                pb = pa[:kb]
+            else:
+                nb = kb if r == 1 else int(rng.integers(0, kb + 1))
+                shared = pa[rng.random(len(pa)) < 0.5][:nb]
+                pb = np.union1d(shared, sorted_sample(rng, nb - len(shared), limit, shared))
+        a[r, :len(pa)] = pa
+        b[r, :len(pb)] = pb
+    plane = seeded_words(rng, (rows, words))
+    if rows > 3:
+        plane[3] = 0xFFFFFFFF
+    return a, b, plane
+
+
+def check_packed_cases(torch, kernels, t, dev, errs) -> dict:
+    """The four packed kernels against their plain versions, exact, on
+    every PACKED_CASES case at 1024 rows and a [1024, 32768] plane: count
+    of a and of b, and_count of a and of b against the plane, pair_count
+    both ways round, expand of a and of b; then a's rows from its second
+    entry on (an unaligned row start: the scalar paths) and expand into a
+    6243-word row (a width not a multiple of 4). Returns the cases'
+    (a, b, plane) tensors by name."""
+    def check(name, got, want, what):
+        torch.cuda.synchronize()
+        if name == "packed_expand":  # bit patterns: count the differing bits
+            err = int(kernels.row_counts_plain(got ^ want).long().sum())
+        else:
+            err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+        errs[name] = max(errs[name], err)
+        if got.shape != want.shape or got.dtype != torch.int32 or err:
+            raise AssertionError(f"{name} {what}: {tuple(got.shape)} vs "
+                                 f"{tuple(want.shape)}, max |err| {err}")
+
+    out = {}
+    for case in PACKED_CASES:
+        a_np, b_np, pl_np = packed_case(case, 1024)
+        a, b = (torch.from_numpy(x).to(dev) for x in (a_np, b_np))
+        pl = t(pl_np)
+        what = f"{case}: a {tuple(a.shape)}, b {tuple(b.shape)}"
+        for x, side in ((a, "a"), (b, "b"), (a[:, 1:], "a[:, 1:]")):
+            check("packed_count", kernels.packed_count(x), kernels.packed_count_plain(x),
+                  f"{what}, {side}")
+            check("packed_and_dense_count", kernels.packed_and_dense_count(x, pl),
+                  kernels.packed_and_dense_count_plain(x, pl), f"{what}, {side}")
+            check("packed_expand", kernels.packed_expand(x), kernels.packed_expand_plain(x),
+                  f"{what}, {side}")
+        for x, y, side in ((a, b, "a, b"), (b, a, "b, a"), (a[:, 1:], b, "a[:, 1:], b")):
+            check("packed_pair_count", kernels.packed_pair_count(x, y),
+                  kernels.packed_pair_count_plain(x, y), f"{what}, {side}")
+        check("packed_expand", kernels.packed_expand(a, 6243),
+              kernels.packed_expand_plain(a, 6243), f"{what}, 6243 words")
+        out[case] = (a, b, pl)
+    log(f"packed kernels: exact on {', '.join(PACKED_CASES)} at 1024 rows")
+    return out
+
+
+def packed_timed_cases(kernels, packed) -> list:
+    """The packed kernels' timed cases at the packed path's shapes (row 30
+    of ``bench`` is [1024, 1024], row 31 [1024, 2048], row 1 a [1024,
+    32768] plane): (name, shape, kernel, plain, bytes, logic ops,
+    popcounts). Each input is read once and each output written once;
+    and_count's bytes are the entries, one 32-byte sector for each
+    distinct word it gathers, and its counts. The operations: a compare
+    and an add an entry (count), and a shift and an and besides
+    (and_count), a probe of b a level of its binary search and three more
+    an entry (pair_count)."""
+    a, _, pl = packed["k1024"]
+    a2 = packed["k2048"][0]
+    rows, k = a.shape
+    k2 = a2.shape[1]
+    valid = a < kernels.PACK_SENTINEL
+    keys = torch_rows(a) * pl.shape[1] + (a >> 5)
+    distinct = int(keys[valid].unique().numel())
+    probes = (k2 - 1).bit_length() + 3
+    return [
+        ("packed_count", f"[{rows}, {k}]",
+         lambda: kernels.packed_count(a), lambda: kernels.packed_count_plain(a),
+         a.numel() * 4 + rows * 4, 2 * a.numel(), 0),
+        ("packed_count", f"[{rows}, {k2}]",
+         lambda: kernels.packed_count(a2), lambda: kernels.packed_count_plain(a2),
+         a2.numel() * 4 + rows * 4, 2 * a2.numel(), 0),
+        ("packed_and_dense_count", f"[{rows}, {k}] x [{rows}, {pl.shape[1]}], "
+         f"{distinct} distinct words",
+         lambda: kernels.packed_and_dense_count(a, pl),
+         lambda: kernels.packed_and_dense_count_plain(a, pl),
+         a.numel() * 4 + 32 * distinct + rows * 4, 4 * a.numel(), 0),
+        ("packed_pair_count", f"[{rows}, {k}] x [{rows}, {k2}]",
+         lambda: kernels.packed_pair_count(a, a2),
+         lambda: kernels.packed_pair_count_plain(a, a2),
+         (a.numel() + a2.numel() + rows) * 4, probes * a.numel(), 0),
+        ("packed_expand", f"[{rows}, {k}] -> [{rows}, {pl.shape[1]}]",
+         lambda: kernels.packed_expand(a), lambda: kernels.packed_expand_plain(a),
+         a.numel() * 4 + pl.numel() * 4, 3 * a.numel(), 0),
+    ]
+
+
+def torch_rows(x):
+    """``[S, K]`` row indices of ``x``'s entries, on its device."""
+    import torch
+    return torch.arange(x.shape[0], device=x.device).unsqueeze(1).expand_as(x)
+
+
+def packed_library(torch, kernels, packed) -> dict:
+    """The library calls beside the packed kernels, on the first timed
+    shape of each (name -> {shape: fn}): the same function from PyTorch
+    calls. expand: ``index_put_(accumulate=True)`` of each entry's bit into
+    a zeroed [S, W + 1] plane, the trash word the sentinels land in cut
+    off; count: a compare and a sum; and_count: ``gather``, a shift and a
+    sum; pair_count: ``searchsorted``, ``gather``, a compare and a sum.
+    Each is checked equal to its kernel first."""
+    a, _, pl = packed["k1024"]
+    a2 = packed["k2048"][0]
+    rows, words = pl.shape
+    sent = kernels.PACK_SENTINEL
+
+    def expand():
+        out = torch.zeros((rows, words + 1), dtype=torch.int32, device=a.device)
+        out.index_put_((torch_rows(a), (a >> 5).long()), torch.bitwise_left_shift(
+            torch.ones_like(a), a & 31), accumulate=True)
+        return out[:, :words]
+
+    def count():
+        return (a < sent).sum(-1, dtype=torch.int32)
+
+    def and_count():
+        w = torch.gather(pl, 1, (a >> 5).clamp(0, words - 1).long())
+        return (((w >> (a & 31)) & 1) * (a < sent)).sum(-1, dtype=torch.int32)
+
+    def pair_count():
+        pos = torch.searchsorted(a2, a).clamp(0, a2.shape[1] - 1)
+        return ((torch.gather(a2, 1, pos) == a) & (a < sent)).sum(-1, dtype=torch.int32)
+
+    fns = {"packed_count": count, "packed_and_dense_count": and_count,
+           "packed_pair_count": pair_count, "packed_expand": expand}
+    out = {}
+    for name, shape, kern, *_ in packed_timed_cases(kernels, packed):
+        if name not in out:
+            out[name] = {shape: fns[name]}
+            if not torch.equal(fns[name](), kern()):
+                raise AssertionError(f"{name}: the library calls compute another function")
+    return out
+
+
 def check_group_lattices(torch, kernels, t, rng, gb_planes, gb_filt, errs) -> None:
     """group_count against group_count_plain, exact, given the level sizes:
     bench config 5's lattice (``gb_planes[:12]``, levels of 4 and 8 rows,
@@ -1095,6 +1300,7 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
     gb_planes = [t(seeded_words(rng, (1024, w)))[:954] for _ in range(15)]
     gb_filt = big_b[:954]
     check_group_lattices(torch, kernels, t, rng, gb_planes, gb_filt, errs)
+    packed = check_packed_cases(torch, kernels, t, dev, errs)
     del leaves9, tables9
     log(f"kernel checks: exact on every op and shape; max |err| {errs}")
 
@@ -1106,6 +1312,7 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
     rows = 1024
     plane = rows * w * 4
     bsi_pred = 50000
+    asm_shape = f"[1024, 32768], 16 dense rows, {asm[2].shape[0]} COO words"
     cases = [
         ("pair_count", "[1024, 32768] x [1024, 32768]",
          lambda: kernels.pair_count(big_a, big_b, "and"),
@@ -1174,7 +1381,7 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
          lambda: kernels.tree_count_batched_plain(tables24, tape3),
          24 * plane + 8 * rows * 4, 3 * 8 * rows * w, 8 * rows * w),
         # the stack written once, the dense rows and COO words read once
-        ("assemble_stack", f"[1024, 32768], 16 dense rows, {asm[2].shape[0]} COO words",
+        ("assemble_stack", asm_shape,
          lambda: kernels.assemble_stack(*asm_args),
          lambda: kernels.assemble_stack_plain(*asm_args),
          plane + asm[1].nbytes + 12 * asm[2].shape[0] + asm[0].nbytes, 0, 0),
@@ -1193,6 +1400,7 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
          lambda: kernels.group_count(gb_wide, (32, 256), None),
          lambda: kernels.group_count_plain(gb_wide, (32, 256), None),
          *group_timed_work((32, 256), False, 4)),
+        *packed_timed_cases(kernels, packed),
     ]
     gb_wide = list(t(seeded_words(rng, (288, 4, w))))
     topn_tiles = [t(seeded_words(rng, (512, w))) for _ in range(30)]
@@ -1216,7 +1424,8 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
 
     if not torch.equal(assemble_library(), kernels.assemble_stack(*asm_args)):
         raise AssertionError("assemble_stack: the library calls compute another stack")
-    library = {"assemble_stack": assemble_library}
+    library = {"assemble_stack": {asm_shape: assemble_library},
+               **packed_library(torch, kernels, packed)}
     tree3 = [big_a, big_b, t(seeded_words(rng, (1024, w)))]
     # The path the 3-leaf Count took before tree_count: two elementwise
     # torch ops writing 128 MiB planes, then row_counts.
@@ -1234,7 +1443,8 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
         ms = time_cuda_ms(torch, fn, KERNEL_RUNS)
         plain = time_cuda_ms(torch, plain_fn, 5)
         bound, by, term = bound_ms(torch, nbytes, logic, popc)
-        lib = time_cuda_ms(torch, library[name], KERNEL_RUNS) if name in library else None
+        lib = (time_cuda_ms(torch, library[name][shape], KERNEL_RUNS)
+               if shape in library.get(name, {}) else None)
         lib_text = f"; library {lib:.4f} ms" if lib is not None else ""
         if name == "assemble_stack":
             alone = time_cuda_ms(torch, lambda: lib_out.index_put_(lib_idx, asm_args[4]),
@@ -2502,6 +2712,7 @@ def phase_pql(torch, card: str, data: dict, runs: int = QUERY_RUNS) -> dict:
     with the same launches. Set-up: the existence row (the data phase's
     import_bits bypasses add_existence) and a third row h=3 at 5%."""
     from pilosa_tpu_torch import interop
+    from pilosa_tpu_torch.config import WORDS_PER_SHARD
     from pilosa_tpu_torch.exec import result_to_json
     from pilosa_tpu_torch.ops import kernels
 
@@ -2535,6 +2746,16 @@ def phase_pql(torch, card: str, data: dict, runs: int = QUERY_RUNS) -> dict:
         "options": int(popcount_rows(fw[:2]).sum()),
     }
     want_store = int(popcount_rows(fw & gw).sum())
+    # The stored row's count kernel, from the class the JAX planner gives
+    # it under auto (pilosa_tpu/exec/residency.py:104-126), worked out here
+    # apart from the port's policy: packed when the pow2 bucket of its
+    # fullest shard's bits, at least 8, is at most W / 8 = 4096 entries.
+    # At 5% x 5% a shard holds about 2,600 bits: bucket 4096, packed. The
+    # cleared row (no bits, bucket 8) is packed too.
+    bucket = 1 << (max(int(popcount_rows(fw & gw).max()), 8) - 1).bit_length()
+    store_launches = {("packed_count" if bucket <= WORDS_PER_SHARD // 8
+                       else "row_counts"): 1}
+    cleared_launches = {"packed_count": 1}
     # A column in f and g but not h: Set(col, h=3) moves count_3leaf by one.
     fgh = fw & gw & ~hw
     shard = int(np.flatnonzero(fgh.any(axis=1))[0])
@@ -2627,7 +2848,7 @@ def phase_pql(torch, card: str, data: dict, runs: int = QUERY_RUNS) -> dict:
     log(f"pql Store(Intersect(Row(f=1), Row(g=2)), h=9) in process: {store_ms:.3f} ms "
         f"over {n_shards} shards, launches { {k: v for k, v in l_store.items() if v} }"
         f"  [{card}]")
-    both("bench", "stored", "Count(Row(h=9))", want_store, {"row_counts": 1})
+    both("bench", "stored", "Count(Row(h=9))", want_store, store_launches)
     both("bench", "rows_h", "Rows(h)", {"rows": [3, 9]}, {})
     t0 = time.perf_counter()
     body, _ = over_http("bench", "ClearRow(h=9)")
@@ -2635,7 +2856,7 @@ def phase_pql(torch, card: str, data: dict, runs: int = QUERY_RUNS) -> dict:
     if json.loads(body)["results"] != [True]:
         raise AssertionError(f"ClearRow over HTTP: {body[:200]!r}")
     log(f"pql ClearRow(h=9) over HTTP: {clear_ms:.3f} ms over {n_shards} shards  [{card}]")
-    both("bench", "cleared", "Count(Row(h=9))", 0, {"row_counts": 1})
+    both("bench", "cleared", "Count(Row(h=9))", 0, cleared_launches)
 
     both("topn", "tanimoto", PQL_TANIMOTO, topn_want["tanimoto"])
     both("topn", "attr", PQL_ATTR, topn_want["attr"])
@@ -2793,7 +3014,7 @@ def phase_async(torch, card: str, data: dict, n_futures: int = ASYNC_FUTURES) ->
         + s * WORDS_PER_SHARD * 32 for s in range(n_shards)]).astype(np.uint64)
     h.field("bench", "f").import_bits(np.full(len(sparse_pos), ASYNC_SPARSE_ROW,
                                               dtype=np.uint64), sparse_pos)
-    del sparse_pos
+    data["sparse_pos"] = sparse_pos  # the packed phase's oracle
     log(f"async set-up: {2 * ASYNC_ROWS} rows of random words and a sparse row of "
         f"{ASYNC_SPARSE_BITS} bits per shard over {n_shards} shards in "
         f"{time.perf_counter() - t0:.3f} s (host)")
@@ -2923,46 +3144,54 @@ def phase_async(torch, card: str, data: dict, n_futures: int = ASYNC_FUTURES) ->
     # The sparse upload, cold, beside a cold dense row: COLD_SAMPLES cold
     # Counts each, every one on a new planner, split into the upload's
     # phases (Planner.upload_split_ms) and the count (the same Count again,
-    # its stack resident).
-    cold = {}
-    for row, want in ((ASYNC_SPARSE_ROW, n_shards * ASYNC_SPARSE_BITS),
-                      (1, data["want_count"]["count_row"])):
-        q = f"Count(Row(f={row}))"
-        samples = []
-        for _ in range(COLD_SAMPLES):
-            planner = Planner(h)
-            cex = Executor(h, planner=planner, result_cache=False)
-            try:
-                before = dict(kernels.LAUNCHES)
-                t0 = time.perf_counter()
-                (got,) = cex.execute("bench", q, cache=False)
-                ms = (time.perf_counter() - t0) * 1e3
-                delta = {k: kernels.LAUNCHES[k] - before[k] for k in before if
-                         kernels.LAUNCHES[k] != before[k]}
-                if got != want:
-                    raise AssertionError(f"cold {q}: {got}, numpy {want}")
-                if row == ASYNC_SPARSE_ROW and device == "cuda" and delta != {
-                        "assemble_stack": 1, "row_counts": 1}:
-                    raise AssertionError(f"cold sparse row launched {delta}")
-                split = planner.upload_split_ms()
-                t0 = time.perf_counter()
-                (got,) = cex.execute("bench", q, cache=False)
-                split["count"] = (time.perf_counter() - t0) * 1e3
-                if got != want:
-                    raise AssertionError(f"warm {q}: {got}, numpy {want}")
-                # The host's part of the assemble_stack call lies within
-                # the device span from the copy's end to the kernel's.
-                split["other"] = ms - sum(v for k, v in split.items() if k != "assemble_host")
-                samples.append((ms, planner.h2d_bytes, delta, split))
-            finally:
-                planner.close()
-        totals = [x[0] for x in samples]
-        median = {k: statistics.median(x[3][k] for x in samples) for k in samples[0][3]}
-        cold[row] = (statistics.median(totals), samples[0][1], samples[0][2], median)
-        parts = ", ".join(f"{k} {v:.3f}" for k, v in median.items())
-        log(f"cold {q}: median {cold[row][0]:.3f} ms of {COLD_SAMPLES} cold samples "
-            f"({', '.join(f'{x:.3f}' for x in totals)}), {samples[0][1]} bytes host to "
-            f"device, launches {samples[0][2]}; median split (ms): {parts}  [{card}]")
+    # its stack resident). Residency is pinned off for them: under auto the
+    # sparse row is a packed leaf, and the sparse upload serves dense leaves
+    # only (the packed phase times the packed row's cold upload beside
+    # these).
+    residency.set_mode("off")
+    try:
+        cold = {}
+        for row, want in ((ASYNC_SPARSE_ROW, n_shards * ASYNC_SPARSE_BITS),
+                          (1, data["want_count"]["count_row"])):
+            q = f"Count(Row(f={row}))"
+            samples = []
+            for _ in range(COLD_SAMPLES):
+                planner = Planner(h)
+                cex = Executor(h, planner=planner, result_cache=False)
+                try:
+                    before = dict(kernels.LAUNCHES)
+                    t0 = time.perf_counter()
+                    (got,) = cex.execute("bench", q, cache=False)
+                    ms = (time.perf_counter() - t0) * 1e3
+                    delta = {k: kernels.LAUNCHES[k] - before[k] for k in before if
+                             kernels.LAUNCHES[k] != before[k]}
+                    if got != want:
+                        raise AssertionError(f"cold {q}: {got}, numpy {want}")
+                    if row == ASYNC_SPARSE_ROW and device == "cuda" and delta != {
+                            "assemble_stack": 1, "row_counts": 1}:
+                        raise AssertionError(f"cold sparse row launched {delta}")
+                    split = planner.upload_split_ms()
+                    t0 = time.perf_counter()
+                    (got,) = cex.execute("bench", q, cache=False)
+                    split["count"] = (time.perf_counter() - t0) * 1e3
+                    if got != want:
+                        raise AssertionError(f"warm {q}: {got}, numpy {want}")
+                    # The host's part of the assemble_stack call lies within
+                    # the device span from the copy's end to the kernel's.
+                    split["other"] = ms - sum(v for k, v in split.items() if k != "assemble_host")
+                    samples.append((ms, planner.h2d_bytes, delta, split))
+                finally:
+                    planner.close()
+            totals = [x[0] for x in samples]
+            median = {k: statistics.median(x[3][k] for x in samples) for k in samples[0][3]}
+            cold[row] = (statistics.median(totals), samples[0][1], samples[0][2], median)
+            parts = ", ".join(f"{k} {v:.3f}" for k, v in median.items())
+            log(f"cold {q}: median {cold[row][0]:.3f} ms of {COLD_SAMPLES} cold samples "
+                f"({', '.join(f'{x:.3f}' for x in totals)}), {samples[0][1]} bytes host to "
+                f"device, launches {samples[0][2]}; median split (ms): {parts}  [{card}]")
+    finally:
+        residency.set_mode("auto")
+    data["cold_sparse"] = cold
     ms, nbytes, delta, _ = cold[ASYNC_SPARSE_ROW]
     log(f"sparse upload: cold Count(Row(f={ASYNC_SPARSE_ROW})) ({ASYNC_SPARSE_BITS} bits "
         f"per shard) {ms:.3f} ms, {nbytes} bytes host to device, launches {delta}; "
@@ -2974,6 +3203,320 @@ def phase_async(torch, card: str, data: dict, n_futures: int = ASYNC_FUTURES) ->
             if launches[k] < 1:
                 raise AssertionError(f"kernel {k} was not launched on the async path")
     return {"launches": launches}
+
+
+# -- phase 10: packed residency: the sparse rows as [S, K] index stacks ------
+
+#: the second packed row of f: PACKED_ROW_BITS bits a shard, the first
+#: PACKED_SHARED of row 30's positions among them.
+PACKED_ROW = 31
+PACKED_ROW_BITS = 2000
+PACKED_SHARED = 500
+#: row 30's bits in shard 0 after the growth: K = 8192, past auto's 4096.
+PACKED_GROWN_BITS = 5000
+PACKED_KERNELS = ("packed_count", "packed_and_dense_count", "packed_pair_count",
+                  "packed_expand")
+#: a TopN filtered by the packed row 30: its filter plans anew each time.
+PACKED_TOPN_QUERY = "TopN(g, Row(f=30), n=5)"
+
+
+def packed_oracle_bits(words: np.ndarray, cols: np.ndarray, exp: int) -> np.ndarray:
+    """numpy oracle: bit ``col`` of each column's shard row in ``words``
+    ([shards, W] uint32), as 0/1."""
+    local = cols & ((1 << exp) - 1)
+    return (words[(cols >> exp).astype(np.int64), (local >> 5).astype(np.int64)]
+            >> (local & 31).astype(np.uint32)) & 1
+
+
+def phase_packed(torch, card: str, data: dict, runs: int = QUERY_RUNS) -> dict:
+    """Packed residency at 1B columns on ``bench``, under the default
+    ``auto``: the async phase's row f=30 (1000 bits a shard, K = 1024) and
+    a row f=31 (2000 bits a shard, K = 2048, holding the first 500 of row
+    30's positions in each shard) are packed [1024, K] index stacks. In
+    process (``node.executor``) and over HTTP, each answer equal to a numpy
+    oracle and each body byte-equal to the in-process JSON: Count(Row(f=30))
+    is ONE ``packed_count``, its Intersect with the dense row f=1 (either
+    order) ONE ``packed_and_dense_count``, with row 31 ONE
+    ``packed_pair_count``; its Union with row 1 a ``packed_expand`` and a
+    ``pair_count``, a 3-leaf Intersect a ``packed_expand`` and a
+    ``tree_count``, and Row(f=30) a ``packed_expand``. Prints the resident
+    bytes by class (``GET /debug/device``), each Count's p50 beside the
+    same query on a planner with the knob off, and row 30's cold packed
+    upload beside the async phase's cold sparse upload. Then row 30 grows
+    to PACKED_GROWN_BITS bits in shard 0: its plan is dropped and its Count
+    runs dense (ONE ``row_counts``)."""
+    from pilosa_tpu_torch.config import SHARD_WIDTH
+    from pilosa_tpu_torch.exec import Executor, residency, result_to_json
+    from pilosa_tpu_torch.ops import kernels
+    from pilosa_tpu_torch.parallel import Planner
+
+    device, node, h = data["device"], data["node"], data["holder"]
+    ex = node.executor
+    planner = ex.planner
+    n_shards = data["count_shards"]
+    exp = SHARD_WIDTH.bit_length() - 1
+    rng = np.random.default_rng(SEED + 7)
+    t0 = time.perf_counter()
+    p30 = data.pop("sparse_pos")  # each shard's positions sorted, shards ascending
+    per_shard = len(p30) // n_shards
+    p31 = []
+    for s in range(n_shards):
+        local = p30[s * per_shard:(s + 1) * per_shard] - np.uint64(s << exp)
+        extra = sorted_sample(rng, PACKED_ROW_BITS - PACKED_SHARED, SHARD_WIDTH,
+                              local.astype(np.int64))
+        p31.append(np.union1d(local[:PACKED_SHARED], extra.astype(np.uint64))
+                   + np.uint64(s << exp))
+    p31 = np.concatenate(p31)
+    h.field("bench", "f").import_bits(np.full(len(p31), PACKED_ROW, dtype=np.uint64), p31)
+    fw = np.stack([h.fragment("bench", "f", "standard", s).row_words(1)
+                   for s in range(n_shards)])
+    gw = np.stack([h.fragment("bench", "g", "standard", s).row_words(2)
+                   for s in range(n_shards)])
+    in_f1 = packed_oracle_bits(fw, p30, exp)
+    in_g2 = packed_oracle_bits(gw, p30, exp)
+    del fw, gw
+    and_1 = int(in_f1.sum())
+    want = {"count30": len(p30), "and_1": and_1, "and_1_rev": and_1,
+            "and_31": len(np.intersect1d(p30, p31)),
+            "union_1": data["want_count"]["count_row"] + len(p30) - and_1,
+            "and3": int((in_f1 & in_g2).sum())}
+    queries = {"count30": "Count(Row(f=30))",
+               "and_1": "Count(Intersect(Row(f=30), Row(f=1)))",
+               "and_1_rev": "Count(Intersect(Row(f=1), Row(f=30)))",
+               "and_31": f"Count(Intersect(Row(f=30), Row(f={PACKED_ROW})))",
+               "union_1": "Count(Union(Row(f=30), Row(f=1)))",
+               "and3": "Count(Intersect(Row(f=30), Row(f=1), Row(g=2)))"}
+    expected = {"count30": {"packed_count": 1}, "and_1": {"packed_and_dense_count": 1},
+                "and_1_rev": {"packed_and_dense_count": 1},
+                "and_31": {"packed_pair_count": 1},
+                "union_1": {"packed_expand": 1, "pair_count": 1},
+                "and3": {"packed_expand": 1, "tree_count": 1}}
+    log(f"packed set-up: row f={PACKED_ROW}, {PACKED_ROW_BITS} bits a shard ({PACKED_SHARED} "
+        f"of row 30's), oracles in {time.perf_counter() - t0:.3f} s (host)")
+    conn = http_client(node.port)
+
+    def launched(before):
+        return {k: kernels.LAUNCHES[k] - before[k] for k in before
+                if kernels.LAUNCHES[k] != before[k]}
+
+    def inproc(q):
+        before = dict(kernels.LAUNCHES)
+        results = ex.execute("bench", q, cache=False)
+        body = (json.dumps({"results": [result_to_json(r) for r in results]})
+                + "\n").encode()
+        return body, launched(before)
+
+    def over_http(q):
+        before = dict(kernels.LAUNCHES)
+        status, body = request(conn, "POST", QUERY_PATH.format("bench"), q)
+        if status != 200:
+            raise AssertionError(f"{q}: HTTP {status} {body[:300]!r}")
+        return body, launched(before)
+
+    def both(q, check, launches):
+        """q in process (twice) and over HTTP: ``check`` of the results,
+        byte-equal bodies, the expected launches each time (on the card)."""
+        body, l_first = inproc(q)
+        check(json.loads(body)["results"])
+        hbody, l_http = over_http(q)
+        body2, l_in = inproc(q)
+        if hbody != body or body2 != body:
+            raise AssertionError(f"{q}: HTTP body {hbody[:200]!r}, again "
+                                 f"{body2[:200]!r}, in process {body[:200]!r}")
+        if device == "cuda" and not l_first == l_http == l_in == launches:
+            raise AssertionError(f"{q}: launched {l_first} first, {l_http} over HTTP, "
+                                 f"{l_in} again; expected {launches}")
+        return l_in
+
+    # The packed path's run: counters at 0 just before, read just after.
+    kernels.reset_launches()
+    p50 = {}
+    try:
+        for name, q in queries.items():
+            def check(got, name=name, q=q):
+                if got != [want[name]]:
+                    raise AssertionError(f"{q}: {got}, numpy oracle {want[name]}")
+            l_in = both(q, check, expected[name])
+            log(f"packed {q} = oracle, HTTP body byte-equal, launches {l_in}  [{card}]")
+
+        def check_row(got):
+            cols = np.asarray(got[0]["columns"], dtype=np.uint64)
+            if not np.array_equal(cols, p30):
+                raise AssertionError(f"Row(f=30): {len(cols)} columns, numpy {len(p30)}")
+        l_in = both("Row(f=30)", check_row, {"packed_expand": 1})
+        log(f"packed Row(f=30): {len(p30)} columns = oracle, HTTP body byte-equal, "
+            f"launches {l_in}  [{card}]")
+
+        # The resident bytes by class: the node's planner, and each row's stack.
+        doc = json.loads(expect_ok(conn, "GET", "/debug/device"))
+        by_row = {}
+        with planner._cache_lock:
+            for key, ent in planner._stack_cache.items():
+                if key[0] == "bench" and key[2] == "f" and key[4] in (1, 30, PACKED_ROW):
+                    by_row[(key[4], key[6])] = (residency.stack_nbytes(ent[2]),
+                                                tuple(ent[2].shape))
+        if by_row.get((30, residency.PACKED), (0, ()))[1] != (planner._pad(n_shards), 1024) \
+                or (PACKED_ROW, residency.PACKED) not in by_row \
+                or (1, residency.DENSE) not in by_row or not doc["class_bytes"]["packed"]:
+            raise AssertionError(f"stacks by (row, class): {by_row}; class_bytes "
+                                 f"{doc['class_bytes']}")
+        log(f"packed residency: /debug/device class_bytes {doc['class_bytes']}; stacks "
+            f"(row, class) -> (bytes, shape): {by_row}  [{card}]")
+
+        # Each Count's p50 under auto beside the same query with the knob
+        # off: two executors of one make, each on a planner of its own (a
+        # plan bakes its leaves' classes in), timed in alternation.
+        sides = {}
+        for mode in ("auto", "off"):
+            residency.set_mode(mode)
+            sides[mode] = Executor(h, planner=Planner(h), result_cache=False)
+        times = {(name, mode): [] for name in queries for mode in sides}
+        try:
+            for rep_i in range(runs + 1):
+                for name, q in queries.items():
+                    for mode, side in sides.items():
+                        residency.set_mode(mode)
+                        t0 = time.perf_counter()
+                        (got,) = side.execute("bench", q, cache=False)
+                        ms = (time.perf_counter() - t0) * 1e3
+                        if got != want[name]:
+                            raise AssertionError(f"{q} with residency {mode}: {got}, "
+                                                 f"numpy {want[name]}")
+                        if rep_i:  # the first round plans and uploads
+                            times[(name, mode)].append(ms)
+        finally:
+            residency.set_mode("auto")
+            for side in sides.values():
+                side.planner.close()
+        del sides
+        for name, q in queries.items():
+            p50[name] = {mode: statistics.median(times[(name, mode)])
+                         for mode in ("auto", "off")}
+            log(f"packed {q} in process, {runs} alternating runs each: packed (auto) "
+                f"{spread_ms(times[(name, 'auto')])} ms; dense (off) "
+                f"{spread_ms(times[(name, 'off')])} ms  [{card}]")
+
+        # The uncached plans that name row 30: Row(f=30) as a bitmap and a
+        # TopN filtered by it. Under auto each plans anew (a shard walk
+        # for the leaf's class) and expands the packed row into a fresh
+        # plane; under off it reads the cached dense stack. Timed to the
+        # card's idle (the bitmap's segments are device slices), auto
+        # against off in alternation; the walk alone is timed beside them.
+        uncached = {"row30": "Row(f=30)", "topn30": PACKED_TOPN_QUERY}
+        sides = {}
+        for mode in ("auto", "off"):
+            residency.set_mode(mode)
+            sides[mode] = Executor(h, planner=Planner(h), result_cache=False)
+        utimes = {(name, mode): [] for name in uncached for mode in sides}
+        answers = {}
+        try:
+            for rep_i in range(runs + 1):
+                for name, q in uncached.items():
+                    for mode, side in sides.items():
+                        residency.set_mode(mode)
+                        t0 = time.perf_counter()
+                        (got,) = side.execute("bench", q, cache=False)
+                        if device == "cuda":
+                            torch.cuda.synchronize()
+                        ms = (time.perf_counter() - t0) * 1e3
+                        if rep_i:
+                            utimes[(name, mode)].append(ms)
+                        else:
+                            answers[(name, mode)] = result_to_json(got)
+            residency.set_mode("auto")
+            bench = h.index("bench")
+            shard_t = tuple(range(n_shards))
+            walk = []
+            for _ in range(runs):
+                t0 = time.perf_counter()
+                klass = planner._leaf_class(bench, "f", "standard", 30, shard_t)
+                walk.append((time.perf_counter() - t0) * 1e3)
+            if klass != residency.PACKED:
+                raise AssertionError(f"row 30's leaf class under auto: {klass}")
+        finally:
+            residency.set_mode("auto")
+            for side in sides.values():
+                side.planner.close()
+        del sides
+        if not np.array_equal(np.asarray(answers[("row30", "auto")]["columns"],
+                                         dtype=np.uint64), p30) \
+                or answers[("row30", "off")] != answers[("row30", "auto")] \
+                or answers[("topn30", "off")] != answers[("topn30", "auto")]:
+            raise AssertionError(f"uncached row 30 plans: auto and off disagree or "
+                                 f"miss numpy: TopN {answers[('topn30', 'auto')]} / "
+                                 f"{answers[('topn30', 'off')]}")
+        for name, q in uncached.items():
+            p50[name] = {mode: statistics.median(utimes[(name, mode)])
+                         for mode in ("auto", "off")}
+            log(f"packed {q} in process to the card's idle, {runs} alternating runs each: "
+                f"packed (auto) {spread_ms(utimes[(name, 'auto')])} ms; dense (off) "
+                f"{spread_ms(utimes[(name, 'off')])} ms  [{card}]")
+        log(f"packed leaf class of row 30 ({klass}), the walk of {n_shards} fragments on "
+            f"the host: {spread_ms(walk)} ms; one packed_expand on the card: see the "
+            f"kernels line  [{card}]")
+
+        # Row 30's cold packed upload, beside the async phase's cold sparse
+        # (dense-class) upload of the same row.
+        samples = []
+        for _ in range(COLD_SAMPLES):
+            cold = Planner(h)
+            cex = Executor(h, planner=cold, result_cache=False)
+            try:
+                before = dict(kernels.LAUNCHES)
+                t0 = time.perf_counter()
+                (got,) = cex.execute("bench", queries["count30"], cache=False)
+                ms = (time.perf_counter() - t0) * 1e3
+                delta = launched(before)
+                if got != want["count30"] or (device == "cuda"
+                                              and delta != {"packed_count": 1}):
+                    raise AssertionError(f"cold packed Count(Row(f=30)): {got}, launches "
+                                         f"{delta}")
+                split = cold.upload_split_ms()
+                samples.append((ms, cold.h2d_bytes, split))
+            finally:
+                cold.close()
+        median = {k: statistics.median(x[2][k] for x in samples) for k in samples[0][2]}
+        sparse = data["cold_sparse"][ASYNC_SPARSE_ROW]
+        log(f"cold packed Count(Row(f=30)): median {statistics.median(x[0] for x in samples):.3f}"
+            f" ms of {COLD_SAMPLES} ({', '.join(f'{x[0]:.3f}' for x in samples)}), "
+            f"{samples[0][1]} bytes host to device, split (ms): "
+            f"{', '.join(f'{k} {v:.3f}' for k, v in median.items())}; the cold sparse "
+            f"upload with residency off: {sparse[0]:.3f} ms, {sparse[1]} bytes  [{card}]")
+
+        # Row 30 outgrows the packed class in shard 0: its plan is dropped at
+        # the next Count, which runs dense.
+        local0 = p30[:per_shard].astype(np.int64)
+        grow = sorted_sample(rng, PACKED_GROWN_BITS - per_shard, SHARD_WIDTH, local0)
+        h.field("bench", "f").import_bits(np.full(len(grow), 30, dtype=np.uint64),
+                                          grow.astype(np.uint64))
+        grown = len(p30) + len(grow)
+
+        def check_grown(got):
+            if got != [grown]:
+                raise AssertionError(f"Count(Row(f=30)) grown: {got}, numpy {grown}")
+        body, l_first = inproc(queries["count30"])
+        check_grown(json.loads(body)["results"])
+        l_first = {k: v for k, v in l_first.items() if k != "assemble_stack"}
+        l_in = both(queries["count30"], check_grown, {"row_counts": 1})
+        leaves = [hit[0] for key, hit in planner._plan_cache.items()
+                  if key[0] == "bench" and key[3] == "Row(f=30)"]
+        if device == "cuda" and l_first != {"row_counts": 1}:
+            raise AssertionError(f"grown Count(Row(f=30)) launched {l_first}")
+        if leaves != [[("row", "f", "standard", 30)]]:
+            raise AssertionError(f"grown Count(Row(f=30)) planned {leaves}")
+        log(f"packed revalidation: row 30 at {PACKED_GROWN_BITS} bits in shard 0 "
+            f"(K {residency.pack_width(PACKED_GROWN_BITS)}): plan dropped, Count = oracle "
+            f"{grown} dense, launches {l_in}  [{card}]")
+    finally:
+        residency.set_mode("auto")
+        conn.close()
+    launches = dict(kernels.LAUNCHES)
+    log(f"packed path launches: {launches}")
+    if device == "cuda":
+        for k in PACKED_KERNELS:
+            if launches[k] < 1:
+                raise AssertionError(f"kernel {k} was not launched on the packed path")
+    return {"launches": launches, "p50": p50}
 
 
 # -- phase 10: time, mutex and bool fields, MinRow/MaxRow, GroupBy ------------
@@ -3416,6 +3959,7 @@ def main() -> int:
               ("persist", lambda: phase_persist(torch, card, data)),
               ("pql", lambda: phase_pql(torch, card, data)),
               ("async", lambda: phase_async(torch, card, data)),
+              ("packed", lambda: phase_packed(torch, card, data)),
               ("fields", lambda: phase_fields(torch, card, data)))
     try:
         for name, phase in phases:
@@ -3442,7 +3986,7 @@ def main() -> int:
     errs = results["kernels"]["errs"]
     launches = {k: sum(results[p]["launches"][k]
                        for p in ("main_path", "bsi", "http", "persist", "pql", "async",
-                                 "fields"))
+                                 "packed", "fields"))
                 for k in errs}
     sources = {"pair_count": "pilosa_tpu_torch/csrc/count_kernels.cu",
                "row_counts": "pilosa_tpu_torch/csrc/count_kernels.cu",
@@ -3454,7 +3998,8 @@ def main() -> int:
                "row_counts_batched": "pilosa_tpu_torch/csrc/count_kernels.cu",
                "tree_count_batched": "pilosa_tpu_torch/csrc/tree_kernels.cu",
                "assemble_stack": "pilosa_tpu_torch/csrc/upload_kernels.cu",
-               "group_count": "pilosa_tpu_torch/csrc/group_kernels.cu"}
+               "group_count": "pilosa_tpu_torch/csrc/group_kernels.cu",
+               **dict.fromkeys(PACKED_KERNELS, "pilosa_tpu_torch/csrc/packed_kernels.cu")}
     vmapped = ("pilosa_tpu/parallel/coalesce.py:312-348 _flush_batched + "
                "pilosa_tpu/parallel/planner.py:387-396 vmapped (jax.vmap of the "
                "count program; no pallas_call)")
@@ -3475,7 +4020,16 @@ def main() -> int:
                 "assemble_stack": "pilosa_tpu/parallel/planner.py:2046-2057 "
                                   "_assemble_stack (XLA-fused, no pallas_call)",
                 "group_count": "pilosa_tpu/parallel/planner.py:919-978 execute_group_by "
-                               "(XLA-fused, no pallas_call)"}
+                               "(XLA-fused, no pallas_call)",
+                "packed_count": "pilosa_tpu/exec/residency.py:175-177 packed_count "
+                                "(XLA-fused, no pallas_call)",
+                "packed_and_dense_count": "pilosa_tpu/exec/residency.py:180-188 "
+                                          "packed_and_dense_count (XLA-fused, no "
+                                          "pallas_call)",
+                "packed_pair_count": "pilosa_tpu/exec/residency.py:191-203 "
+                                     "packed_pair_count (XLA-fused, no pallas_call)",
+                "packed_expand": "pilosa_tpu/exec/residency.py:158-172 packed_expand "
+                                 "(XLA-fused, no pallas_call)"}
     entries = []
     for name in sources:
         ms, plain, bound, by, lib = timings[name]

@@ -71,12 +71,14 @@ _DEFAULTS = {
     # Partial fusion of mixed call trees ("on" | "off" | "auto").
     "dispatch_fuse": "auto",
     # Same-plan dispatch coalescing ("on" | "off" | "auto") and its window,
-    # inline transfer resolution ("on" | "off" | "auto"), the residency
+    # inline transfer resolution ("on" | "off" | "auto"), packed leaf
+    # stacks for sparse rows ("on" | "off" | "auto"), the residency
     # prefetcher ("on" | "off"), and the kernel build cache ("" resolves
     # to <data-dir>/compile-cache, "off" disables).
     "dispatch_coalesce": "auto",
     "dispatch_coalesce_us": 150.0,
     "inline_transfer": "auto",
+    "residency_packed": "auto",
     "prefetch": "on",
     "compile_cache_dir": "",
 }
@@ -95,7 +97,7 @@ _UNPORTED = {
     "chaos_faults": SLICE_CLUSTER, "trace_endpoint": SLICE_CLUSTER,
     "device_reduce": SLICE_CLUSTER, "multiplex": SLICE_CLUSTER,
     "ingest_max_inflight_mb": SLICE_CLUSTER,
-    "residency_packed": SLICE_FIELDS, "ingest_transpose": SLICE_FIELDS,
+    "ingest_transpose": SLICE_FIELDS,
     "translate_planes": SLICE_KEYS, "sketch_precision": SLICE_KEYS,
     "sketch_exact_threshold": SLICE_KEYS,
 }
@@ -191,6 +193,8 @@ def cmd_server(args, parser: argparse.ArgumentParser) -> int:
         cfg["dispatch_coalesce_us"] = args.dispatch_coalesce_us
     if args.inline_transfer is not None:
         cfg["inline_transfer"] = args.inline_transfer
+    if args.residency_packed is not None:
+        cfg["residency_packed"] = args.residency_packed
     if args.prefetch is not None:
         cfg["prefetch"] = args.prefetch
     if args.compile_cache_dir is not None:
@@ -228,6 +232,7 @@ def cmd_server(args, parser: argparse.ArgumentParser) -> int:
         dispatch_coalesce=str(cfg["dispatch_coalesce"]) or "auto",
         dispatch_coalesce_us=float(cfg["dispatch_coalesce_us"]),
         inline_transfer=str(cfg["inline_transfer"]) or "auto",
+        residency_packed=str(cfg["residency_packed"]) or "auto",
         prefetch=str(cfg["prefetch"]) or "on",
         compile_cache_dir=str(cfg["compile_cache_dir"]) or None,
     )

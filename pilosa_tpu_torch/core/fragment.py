@@ -497,6 +497,15 @@ class Fragment:
                 return bitops.np_zero_row()
             return hr.to_words()
 
+    def row_cardinality(self, row_id: int) -> int:
+        """Set-bit count of one row, O(1) (HostRow keeps it as it changes);
+        0 for an absent row (reference pilosa_tpu/core/fragment.py :433).
+        Lockless, as ``contains``: the planner reads it per shard to choose
+        a stack's representation class, and a count off by a concurrent
+        write's few bits changes which class is chosen, never an answer."""
+        hr = self.rows.get(row_id)
+        return 0 if hr is None else hr.count()
+
     def row_upload(self, row_id: int):
         """Cheapest faithful host form for a device upload (reference
         pilosa_tpu/core/fragment.py row_upload :443): ``("dense",

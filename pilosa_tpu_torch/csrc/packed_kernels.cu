@@ -1,0 +1,325 @@
+// Packed-residency kernels of pilosa_tpu_torch, hand-written for Hopper
+// (sm_90a).
+//
+// A packed leaf stack is an [S, K] int32 matrix: row s holds the sorted,
+// distinct in-shard positions of one row's set bits in shard s, padded at
+// the tail with the SENTINEL (the shard width, 2^20 by default), so a row
+// of n bits costs 4 * K bytes a shard instead of the 128 KiB dense block.
+// Four entry points with a plain C interface, loaded with ctypes by
+// pilosa_tpu_torch/ops/kernels.py, which allocates every output, checks
+// shapes, strides and alignment, and passes PyTorch's current stream:
+//
+//   pilosa_packed_count  per row, the entries < SENTINEL
+//     Replaces pilosa_tpu/exec/residency.py packed_count (:175-177).
+//   pilosa_packed_and_dense_count  per row, the entries < SENTINEL whose
+//     bit is set in the row's dense plane
+//     Replaces residency.py packed_and_dense_count (:180-188).
+//   pilosa_packed_pair_count  per row, a's entries < SENTINEL found in b
+//     Replaces residency.py packed_pair_count (:191-203).
+//   pilosa_packed_expand  the [S, W] dense planes of a packed stack
+//     Replaces residency.py packed_expand (:158-172).
+// The JAX package leaves all four to XLA's fusion inside the planner's
+// jitted programs (no pallas_call).
+//
+// Words of a dense plane are 32-bit bit patterns (int32 tensors on the
+// torch side), read and written as uint32, so bit 31 is a bit like any
+// other. Counts are int32 per row.
+//
+// Bounds on the H100: memory bandwidth, and at the planner's shapes
+// (S = 1024, K <= 4096) a few microseconds, so launch latency dominates
+// every kernel but expand:
+//  * count reads S * K * 4 bytes: 4 MiB at K = 1024, 1.3 us at 3.35 TB/s.
+//  * and_count reads the entries and, for each entry, one 32-byte sector
+//    of the plane (neighbouring entries share a sector where their bits
+//    lie within 256 bits of each other).
+//  * pair_count reads both stacks once; its binary searches run in shared
+//    memory, log2(Kb) probes per entry of a.
+//  * expand writes the [S, W] planes once: 128 MiB at S = 1024, 40 us.
+//
+// What each design does about its bound is written above its kernel.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+// Words of one expand tile: 32 KiB of shared memory, 4 tiles to a
+// 32768-word row.
+constexpr int64_t kTileWords = 8192;
+// The most entries of b that pair_count stages: 128 KiB of shared memory.
+constexpr int64_t kMaxPairEntries = 32768;
+
+// Sum of v over the block's threads, valid in thread 0. Every thread of
+// the block must call it.
+__device__ __forceinline__ int block_sum(int v, int* scratch) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  const int warp = threadIdx.x / 32;
+  if (threadIdx.x % 32 == 0) scratch[warp] = v;
+  __syncthreads();
+  int total = 0;
+  if (threadIdx.x == 0)
+    for (int w = 0; w < static_cast<int>(blockDim.x / 32); ++w) total += scratch[w];
+  return total;
+}
+
+// ---------------------------------------------------------------------------
+// packed_count: G threads a row (a warp for short rows, the whole block for
+// long ones), 256 / G rows a block. Every entry of the row is read once,
+// 16 bytes a thread a load where the row is aligned, neighbouring threads
+// on neighbouring addresses; the count is a compare and an add per entry.
+// It counts every entry < sentinel and does not stop at the first
+// sentinel, so it agrees with the function on any input, sorted or not.
+// ---------------------------------------------------------------------------
+template <int G, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+packed_count_kernel(const int32_t* __restrict__ idx, int32_t* __restrict__ out,
+                    int64_t rows, int64_t k, int64_t stride, int32_t sentinel) {
+  __shared__ int scratch[kThreads / 32];
+  constexpr int kRowsPerBlock = kThreads / G;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + threadIdx.x / G;
+  const int lane = threadIdx.x % G;
+  int c = 0;
+  if (row < rows) {
+    const int32_t* p = idx + row * stride;
+    if (VEC) {
+      const int4* p4 = reinterpret_cast<const int4*>(p);
+      for (int64_t j = lane; j < k / 4; j += G) {
+        const int4 v = __ldg(p4 + j);
+        c += (v.x < sentinel) + (v.y < sentinel) + (v.z < sentinel) + (v.w < sentinel);
+      }
+    } else {
+      for (int64_t j = lane; j < k; j += G) c += __ldg(p + j) < sentinel;
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) c += __shfl_down_sync(0xffffffffu, c, o);
+  if (G == 32) {
+    if (lane == 0 && row < rows) out[row] = c;
+    return;
+  }
+  if (threadIdx.x % 32 == 0) scratch[threadIdx.x / 32] = c;
+  __syncthreads();
+  if (threadIdx.x == 0 && row < rows) {
+    int total = 0;
+    for (int w = 0; w < kThreads / 32; ++w) total += scratch[w];
+    out[row] = total;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// packed_and_dense_count: a block a row. Thread j takes entries j, j + T,
+// ...: sorted entries put neighbouring threads on neighbouring plane
+// words, so a warp's gathers fall into few sectors. Each valid entry i
+// (i < sentinel) reads plane word clamp(i >> 5, 0, W - 1) through the
+// read-only path and adds bit (i & 31) of it, an unsigned shift; sentinels
+// read nothing. The index clamp and the arithmetic shift are the JAX
+// function's, so the kernel agrees with it on any input; only the sector
+// sharing relies on sortedness.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+packed_and_dense_kernel(const int32_t* __restrict__ idx, const uint32_t* __restrict__ plane,
+                        int32_t* __restrict__ out, int64_t k, int64_t idx_stride,
+                        int64_t words, int64_t plane_stride, int32_t sentinel) {
+  __shared__ int scratch[kThreads / 32];
+  const int64_t row = blockIdx.x;
+  const int32_t* p = idx + row * idx_stride;
+  const uint32_t* w = plane + row * plane_stride;
+  int c = 0;
+  for (int64_t j = threadIdx.x; j < k; j += blockDim.x) {
+    const int32_t i = __ldg(p + j);
+    if (i < sentinel) {
+      int64_t wi = i >> 5;
+      wi = wi < 0 ? 0 : (wi >= words ? words - 1 : wi);
+      c += (__ldg(w + wi) >> (i & 31)) & 1u;
+    }
+  }
+  const int total = block_sum(c, scratch);
+  if (threadIdx.x == 0) out[row] = total;
+}
+
+// ---------------------------------------------------------------------------
+// packed_pair_count: a block a row. The block stages b's row (kb entries,
+// at most kMaxPairEntries) in shared memory with coalesced loads, then each
+// thread searches its entries of a in it: the leftmost position whose
+// entry is >= a's (a binary search, log2(kb) shared-memory probes),
+// clipped to kb - 1, is a hit where b holds a's entry and a's entry is <
+// sentinel, so a's sentinels never match b's padding. This is
+// jnp.searchsorted's leftmost position, and it relies on b's row being
+// sorted (non-decreasing); a needs no order.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+packed_pair_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
+                   int32_t* __restrict__ out, int64_t ka, int64_t a_stride, int64_t kb,
+                   int64_t b_stride, int32_t sentinel) {
+  extern __shared__ int32_t sb[];
+  __shared__ int scratch[kThreads / 32];
+  const int64_t row = blockIdx.x;
+  const int32_t* pa = a + row * a_stride;
+  const int32_t* pb = b + row * b_stride;
+  for (int64_t j = threadIdx.x; j < kb; j += blockDim.x) sb[j] = __ldg(pb + j);
+  __syncthreads();
+  int c = 0;
+  for (int64_t j = threadIdx.x; j < ka; j += blockDim.x) {
+    const int32_t v = __ldg(pa + j);
+    int64_t lo = 0, hi = kb;
+    while (lo < hi) {
+      const int64_t mid = (lo + hi) >> 1;
+      if (sb[mid] < v) lo = mid + 1;
+      else hi = mid;
+    }
+    if (lo > kb - 1) lo = kb - 1;
+    c += (sb[lo] == v) & (v < sentinel);
+  }
+  const int total = block_sum(c, scratch);
+  if (threadIdx.x == 0) out[row] = total;
+}
+
+// ---------------------------------------------------------------------------
+// packed_expand: a block a tile of kTileWords words of one row. The block
+// zeroes its tile in shared memory, reads every entry of its row (each
+// row's entries are read once a tile: 4 KiB at K = 1024, from L2 after the
+// row's first tile) and ORs the bit of each entry that falls in the tile
+// into it with a shared-memory atomic, then writes the tile out once with
+// 16-byte stores, neighbouring threads on neighbouring words. No fill
+// ahead of the kernel and no second pass over device memory: every output
+// word is written once. Entries outside [0, 32 * words) -- the SENTINEL
+// padding among them -- are dropped. OR equals the JAX function's
+// scatter-ADD only because a row's entries are distinct: the bits they set
+// in a word are then distinct powers of two. The kernel needs no order.
+// ---------------------------------------------------------------------------
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads)
+packed_expand_kernel(const int32_t* __restrict__ idx, uint32_t* __restrict__ out, int64_t k,
+                     int64_t idx_stride, int64_t words, int64_t tiles_per_row) {
+  extern __shared__ __align__(16) uint32_t tile[];
+  const int64_t row = blockIdx.x / tiles_per_row;
+  const int64_t start = (blockIdx.x - row * tiles_per_row) * kTileWords;
+  const int64_t n = words - start < kTileWords ? words - start : kTileWords;
+  for (int64_t j = threadIdx.x; j < n; j += kThreads) tile[j] = 0;
+  __syncthreads();
+  const int32_t* p = idx + row * idx_stride;
+  const int64_t lo_bit = start * 32, hi_bit = (start + n) * 32;
+  for (int64_t j = threadIdx.x; j < k; j += kThreads) {
+    const int64_t i = __ldg(p + j);
+    if (i >= lo_bit && i < hi_bit)
+      atomicOr(&tile[(i >> 5) - start], 1u << (i & 31));
+  }
+  __syncthreads();
+  uint32_t* dst = out + row * words + start;
+  if (VEC) {
+    const uint4* src4 = reinterpret_cast<const uint4*>(tile);
+    uint4* dst4 = reinterpret_cast<uint4*>(dst);
+    for (int64_t j = threadIdx.x; j < n / 4; j += kThreads) dst4[j] = src4[j];
+  } else {
+    for (int64_t j = threadIdx.x; j < n; j += kThreads) dst[j] = tile[j];
+  }
+}
+
+int block_threads(int64_t k) {
+  int t = 32;
+  while (t < kThreads && t < k) t <<= 1;
+  return t;
+}
+
+}  // namespace
+
+// out[r] = #{j < k : idx[r * stride + j] < sentinel} for r in [0, rows).
+// vec: idx is 16-byte aligned, k and stride multiples of 4. Returns the
+// launch's CUDA error.
+extern "C" int pilosa_packed_count(const void* idx, void* out, int64_t rows, int64_t k,
+                                   int64_t stride, int sentinel, int vec, void* stream) {
+  if (rows < 0 || k <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows == 0) return static_cast<int>(cudaSuccess);
+  auto s = static_cast<cudaStream_t>(stream);
+  const auto* pi = static_cast<const int32_t*>(idx);
+  auto* po = static_cast<int32_t*>(out);
+  // A warp a row up to 1024 entries (32 of them a lane); past that the
+  // whole block, so a long row is not left to one warp.
+  const bool wide = k > 1024;
+  const int64_t rows_per_block = wide ? 1 : kThreads / 32;
+  const int64_t blocks = (rows + rows_per_block - 1) / rows_per_block;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned g = static_cast<unsigned>(blocks);
+  if (wide && vec)
+    packed_count_kernel<kThreads, true><<<g, kThreads, 0, s>>>(pi, po, rows, k, stride, sentinel);
+  else if (wide)
+    packed_count_kernel<kThreads, false><<<g, kThreads, 0, s>>>(pi, po, rows, k, stride, sentinel);
+  else if (vec)
+    packed_count_kernel<32, true><<<g, kThreads, 0, s>>>(pi, po, rows, k, stride, sentinel);
+  else
+    packed_count_kernel<32, false><<<g, kThreads, 0, s>>>(pi, po, rows, k, stride, sentinel);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out[r] = sum over j < k with i = idx[r * idx_stride + j] < sentinel of
+// bit (i & 31) of plane[r * plane_stride + clamp(i >> 5, 0, words - 1)],
+// for r in [0, rows). Returns the launch's CUDA error.
+extern "C" int pilosa_packed_and_dense_count(const void* idx, const void* plane, void* out,
+                                             int64_t rows, int64_t k, int64_t idx_stride,
+                                             int64_t words, int64_t plane_stride,
+                                             int sentinel, void* stream) {
+  if (rows < 0 || k <= 0 || words <= 0 || rows > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (rows == 0) return static_cast<int>(cudaSuccess);
+  packed_and_dense_kernel<<<static_cast<unsigned>(rows), block_threads(k), 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(idx), static_cast<const uint32_t*>(plane),
+      static_cast<int32_t*>(out), k, idx_stride, words, plane_stride, sentinel);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out[r] = #{j < ka : a_r[j] < sentinel and a_r[j] == b_r[p]}, p the
+// leftmost position in b_r (sorted) whose entry is >= a_r[j], clipped to
+// kb - 1; a_r = a + r * a_stride, b_r = b + r * b_stride. kb <=
+// kMaxPairEntries. Returns the first CUDA error.
+extern "C" int pilosa_packed_pair_count(const void* a, const void* b, void* out, int64_t rows,
+                                        int64_t ka, int64_t a_stride, int64_t kb,
+                                        int64_t b_stride, int sentinel, void* stream) {
+  if (rows < 0 || ka <= 0 || kb <= 0 || kb > kMaxPairEntries || rows > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (rows == 0) return static_cast<int>(cudaSuccess);
+  const size_t smem = static_cast<size_t>(kb) * sizeof(int32_t);
+  // Above 48 KiB a block's dynamic shared memory must be asked for.
+  static size_t opted = 48 << 10;
+  if (smem > opted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        packed_pair_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(kMaxPairEntries * sizeof(int32_t)));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted = kMaxPairEntries * sizeof(int32_t);
+  }
+  const int64_t kmax = ka > kb ? ka : kb;
+  packed_pair_kernel<<<static_cast<unsigned>(rows), block_threads(kmax), smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(a), static_cast<const int32_t*>(b),
+      static_cast<int32_t*>(out), ka, a_stride, kb, b_stride, sentinel);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out ([rows, words], contiguous) = the dense planes of idx: bit (i & 31)
+// of word i >> 5 of row r set for every entry i of idx's row r (at
+// r * idx_stride) with 0 <= i < 32 * words, every other bit clear. A row's
+// entries are distinct. out is 16-byte aligned when words % 4 == 0.
+// Returns the launch's CUDA error.
+extern "C" int pilosa_packed_expand(const void* idx, void* out, int64_t rows, int64_t k,
+                                    int64_t idx_stride, int64_t words, void* stream) {
+  if (rows < 0 || k <= 0 || words <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t tiles_per_row = (words + kTileWords - 1) / kTileWords;
+  const int64_t blocks = rows * tiles_per_row;
+  if (blocks == 0) return static_cast<int>(cudaSuccess);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = static_cast<size_t>(words < kTileWords ? words : kTileWords) *
+                      sizeof(uint32_t);
+  auto s = static_cast<cudaStream_t>(stream);
+  const auto* pi = static_cast<const int32_t*>(idx);
+  auto* po = static_cast<uint32_t*>(out);
+  if (words % 4 == 0)
+    packed_expand_kernel<true><<<static_cast<unsigned>(blocks), kThreads, smem, s>>>(
+        pi, po, k, idx_stride, words, tiles_per_row);
+  else
+    packed_expand_kernel<false><<<static_cast<unsigned>(blocks), kThreads, smem, s>>>(
+        pi, po, k, idx_stride, words, tiles_per_row);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -33,6 +33,11 @@
   tree: the lattice of
   pilosa_tpu/parallel/planner.py ``execute_group_by``, which the JAX
   package runs as one XLA-fused AND and count per group.
+- ``packed_count``, ``packed_and_dense_count``, ``packed_pair_count`` and
+  ``packed_expand`` (``csrc/packed_kernels.cu``) read and expand the packed
+  residency class's ``[S, K]`` int32 index stacks (sorted, distinct
+  in-shard positions, padded with ``PACK_SENTINEL``): the kernel variants
+  of pilosa_tpu/exec/residency.py, XLA-fused in the JAX package.
 
 On a CUDA tensor each wrapper launches its hand-written kernel (built at
 first use, see ``ops/build.py``) or raises; on a CPU tensor it runs the
@@ -56,6 +61,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from pilosa_tpu_torch.config import SHARD_WIDTH, WORDS_PER_SHARD
 from pilosa_tpu_torch.ops import bitops
 
 #: kernel launches since the last reset_launches(), by wrapper name; read
@@ -63,7 +69,8 @@ from pilosa_tpu_torch.ops import bitops
 LAUNCHES = {"pair_count": 0, "row_counts": 0, "bsi_compare": 0, "bsi_minmax": 0,
             "tree_count": 0, "shift_left": 0, "pair_count_batched": 0,
             "row_counts_batched": 0, "tree_count_batched": 0, "assemble_stack": 0,
-            "group_count": 0}
+            "group_count": 0, "packed_count": 0, "packed_and_dense_count": 0,
+            "packed_pair_count": 0, "packed_expand": 0}
 #: leaf records tree_count_batched's launches were given (slots x tape
 #: leaves) and the distinct leaves they read (each slot group's once):
 #: how much its waves share.
@@ -111,6 +118,14 @@ _SIGNATURES = {
     "group_kernels.cu": {
         "pilosa_group_count": [_VP, _VP, _I32, _VP, _I32, _VP, _I64, _VP, _I64,
                                _I64, _I32, _VP],
+    },
+    "packed_kernels.cu": {
+        "pilosa_packed_count": [_VP, _VP, _I64, _I64, _I64, _I32, _I32, _VP],
+        "pilosa_packed_and_dense_count": [_VP, _VP, _VP, _I64, _I64, _I64, _I64,
+                                          _I64, _I32, _VP],
+        "pilosa_packed_pair_count": [_VP, _VP, _VP, _I64, _I64, _I64, _I64, _I64,
+                                     _I32, _VP],
+        "pilosa_packed_expand": [_VP, _VP, _I64, _I64, _I64, _I64, _VP],
     },
 }
 _libs: dict[str, ctypes.CDLL] = {}
@@ -380,6 +395,60 @@ def group_count_plain(planes, sizes, filt: torch.Tensor | None = None) -> torch.
 
     rec(0, filt, 0)
     return out
+
+
+#: the padding of a packed index stack: one past the last in-shard
+#: position, so ``PACK_SENTINEL >> 5`` is the word just past a row
+#: (pilosa_tpu/exec/residency.py SENTINEL).
+PACK_SENTINEL = SHARD_WIDTH
+#: the most entries of b that packed_pair_count stages in shared memory
+#: (``kMaxPairEntries`` in csrc/packed_kernels.cu); the planner's widest
+#: packed stack has WORDS_PER_SHARD // 2.
+PACK_PAIR_MAX_ENTRIES = 32768
+
+
+def packed_expand_plain(idx: torch.Tensor, words: int = WORDS_PER_SHARD) -> torch.Tensor:
+    """pilosa_tpu/exec/residency.py packed_expand (:158-172): each entry
+    ``i`` adds ``1 << (i & 31)`` to word ``i >> 5`` of a zeroed ``[S, W+1]``
+    stack, the sentinels landing in the trash word W, which is cut off. The
+    sums run on int64 and come back as int32 bit patterns; negative entries
+    and entries past the trash word are dropped (the planner makes none).
+    The add is an OR only where a row's entries are distinct, as they are
+    in the planner's stacks."""
+    s = idx.shape[0]
+    i = idx.to(torch.int64)
+    keep = (i >= 0) & ((i >> 5) <= words)
+    rows = torch.arange(s, device=idx.device).unsqueeze(-1).expand_as(i)
+    base = torch.zeros((s, words + 1), dtype=torch.int64, device=idx.device)
+    base.index_put_((rows[keep], (i >> 5)[keep]), (1 << (i & 31))[keep], accumulate=True)
+    return _as_int32_bits(base[:, :words] & 0xFFFFFFFF)
+
+
+def packed_count_plain(idx: torch.Tensor) -> torch.Tensor:
+    """residency.py packed_count (:175-177): entries below the sentinel,
+    per row."""
+    return (idx < PACK_SENTINEL).sum(dim=-1, dtype=torch.int32)
+
+
+def packed_and_dense_count_plain(idx: torch.Tensor, plane: torch.Tensor) -> torch.Tensor:
+    """residency.py packed_and_dense_count (:180-188): per row, bit
+    ``i & 31`` of plane word ``clip(i >> 5, 0, W - 1)`` summed over the
+    entries ``i`` below the sentinel."""
+    valid = idx < PACK_SENTINEL
+    w = torch.clamp(idx >> 5, 0, plane.shape[-1] - 1).long()
+    words = torch.gather(plane, -1, w)
+    bits = (words >> (idx & 31)) & 1
+    return (bits * valid.to(torch.int32)).sum(dim=-1, dtype=torch.int32)
+
+
+def packed_pair_count_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """residency.py packed_pair_count (:191-203): per row, a's entries
+    found in b (sorted) by a leftmost search, clipped to b's last entry, and
+    an equality test; a's sentinels never count."""
+    pos = torch.searchsorted(b.contiguous(), a.contiguous())
+    pos = torch.clamp(pos, 0, b.shape[-1] - 1)
+    hit = (torch.gather(b, -1, pos) == a) & (a < PACK_SENTINEL)
+    return hit.sum(dim=-1, dtype=torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -1111,4 +1180,129 @@ def group_count(planes, sizes, filt: torch.Tensor | None = None) -> torch.Tensor
     if err:
         raise RuntimeError(f"group_count kernel launch failed: CUDA error {err}")
     _count_launch("group_count")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the packed residency class's kernels
+# ---------------------------------------------------------------------------
+
+
+def _check_packed(x: torch.Tensor, name: str) -> None:
+    """``x`` is an ``[S, K]`` int32 index stack, K > 0, contiguous along K
+    (rows may be a slice of a wider stack)."""
+    _check_words(x, name)
+    if x.dim() != 2:
+        raise ValueError(f"{name} must be an [S, K] index stack, got {tuple(x.shape)}")
+
+
+def packed_count(idx: torch.Tensor) -> torch.Tensor:
+    """Per row of an ``[S, K]`` packed stack, its entries below
+    PACK_SENTINEL: the set bits of a packed row, never expanded. int32
+    ``[S]``. The kernel counts every entry, so it agrees with
+    ``packed_count_plain`` on any input."""
+    _check_packed(idx, "idx")
+    if idx.device.type == "cpu":
+        return packed_count_plain(idx)
+    _require_cuda(idx)
+    rows, k = idx.shape
+    out = torch.empty(rows, dtype=torch.int32, device=idx.device)
+    if rows == 0:
+        return out
+    stride = idx.stride(0)
+    vec = k % 4 == 0 and _vec_ok(idx, stride)
+    with torch.cuda.device(idx.device):
+        err = _library("packed_kernels.cu").pilosa_packed_count(
+            idx.data_ptr(), out.data_ptr(), rows, k, stride, PACK_SENTINEL, int(vec),
+            _stream(idx.device))
+    if err:
+        raise RuntimeError(f"packed_count kernel launch failed: CUDA error {err}")
+    _count_launch("packed_count")
+    return out
+
+
+def packed_and_dense_count(idx: torch.Tensor, plane: torch.Tensor) -> torch.Tensor:
+    """|packed AND dense| per row: for each entry ``i`` of ``idx``'s row
+    below PACK_SENTINEL, bit ``i & 31`` of word ``clip(i >> 5, 0, W - 1)``
+    of ``plane``'s row (``[S, K]`` against ``[S, W]``, int32 both). int32
+    ``[S]``; equal to the plain version on any input."""
+    _check_packed(idx, "idx")
+    _check_words(plane, "plane")
+    if plane.dim() != 2 or plane.shape[0] != idx.shape[0]:
+        raise ValueError(f"plane {tuple(plane.shape)} must be [S, W] with the "
+                         f"{idx.shape[0]} rows of idx")
+    if idx.device != plane.device:
+        raise ValueError(f"operands on different devices: {idx.device}, {plane.device}")
+    if idx.device.type == "cpu":
+        return packed_and_dense_count_plain(idx, plane)
+    _require_cuda(idx)
+    rows, k = idx.shape
+    out = torch.empty(rows, dtype=torch.int32, device=idx.device)
+    if rows == 0:
+        return out
+    with torch.cuda.device(idx.device):
+        err = _library("packed_kernels.cu").pilosa_packed_and_dense_count(
+            idx.data_ptr(), plane.data_ptr(), out.data_ptr(), rows, k, idx.stride(0),
+            plane.shape[1], plane.stride(0), PACK_SENTINEL, _stream(idx.device))
+    if err:
+        raise RuntimeError(f"packed_and_dense_count kernel launch failed: CUDA error {err}")
+    _count_launch("packed_and_dense_count")
+    return out
+
+
+def packed_pair_count(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """|packed AND packed| per row of ``[S, Ka]`` and ``[S, Kb]`` stacks
+    (Ka and Kb may differ): a's entries below PACK_SENTINEL that b's row
+    holds, found by a leftmost binary search. b's rows must be sorted (the
+    planner's are); at most PACK_PAIR_MAX_ENTRIES entries of b a row on
+    the card. int32 ``[S]``."""
+    _check_packed(a, "a")
+    _check_packed(b, "b")
+    if a.shape[0] != b.shape[0]:
+        raise ValueError(f"a {tuple(a.shape)} and b {tuple(b.shape)} must have one row count")
+    if a.device != b.device:
+        raise ValueError(f"operands on different devices: {a.device}, {b.device}")
+    if a.device.type == "cpu":
+        return packed_pair_count_plain(a, b)
+    _require_cuda(a)
+    if b.shape[1] > PACK_PAIR_MAX_ENTRIES:
+        raise ValueError(f"b has {b.shape[1]} entries a row; the kernel stages at "
+                         f"most {PACK_PAIR_MAX_ENTRIES}")
+    rows = a.shape[0]
+    out = torch.empty(rows, dtype=torch.int32, device=a.device)
+    if rows == 0:
+        return out
+    with torch.cuda.device(a.device):
+        err = _library("packed_kernels.cu").pilosa_packed_pair_count(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), rows, a.shape[1], a.stride(0),
+            b.shape[1], b.stride(0), PACK_SENTINEL, _stream(a.device))
+    if err:
+        raise RuntimeError(f"packed_pair_count kernel launch failed: CUDA error {err}")
+    _count_launch("packed_pair_count")
+    return out
+
+
+def packed_expand(idx: torch.Tensor, words: int = WORDS_PER_SHARD) -> torch.Tensor:
+    """The ``[S, words]`` int32 dense planes of an ``[S, K]`` packed stack:
+    bit ``i & 31`` of word ``i >> 5`` set for each entry ``i`` below
+    ``32 * words``; the sentinels set nothing. A row's entries must be
+    distinct (the planner's are): the kernel ORs where the JAX function
+    adds. Every output word is written once."""
+    _check_packed(idx, "idx")
+    if isinstance(words, bool) or int(words) != words or words <= 0:
+        raise ValueError(f"words must be a positive int, got {words!r}")
+    if idx.device.type == "cpu":
+        return packed_expand_plain(idx, words)
+    _require_cuda(idx)
+    rows, k = idx.shape
+    out = torch.empty((rows, words), dtype=torch.int32, device=idx.device)
+    if rows == 0:
+        return out
+    with torch.cuda.device(idx.device):
+        err = _library("packed_kernels.cu").pilosa_packed_expand(
+            idx.data_ptr(), out.data_ptr(), rows, k, idx.stride(0), words,
+            _stream(idx.device))
+    if err:
+        raise RuntimeError(f"packed_expand kernel launch failed: CUDA error {err}")
+    _count_launch("packed_expand")
     return out

@@ -16,8 +16,9 @@ default) launch together:
   shape. This is where the JAX coalescer
   uses ``jax.vmap`` and cannot batch its Pallas programs; the port's
   kernels take the slots as a table, so any wave width is one launch. A
-  program with no batched form (the fused BSI aggregates) launches slot by
-  slot on the flusher thread.
+  program with no batched form (the fused BSI aggregates, and count
+  programs with a packed leaf) launches slot by slot on the flusher
+  thread.
 
 Selection: ``PILOSA_TPU_DISPATCH_COALESCE`` = ``on`` | ``off`` | ``auto``
 (env wins over ``set_mode``); ``PILOSA_TPU_DISPATCH_COALESCE_US``

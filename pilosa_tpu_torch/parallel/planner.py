@@ -2,14 +2,22 @@
 once, as ``[S_pad, W]`` stacks.
 
 The port's counterpart of pilosa_tpu/parallel/planner.py (MeshPlanner),
-cut down to one GPU: no mesh, no jit (PyTorch runs eagerly), dense leaves
-only. This replaces the reference's hot loop (executor.go:2561-2608:
-per-shard jobs, each running per-container roaring kernels):
+cut down to one GPU: no mesh, no jit (PyTorch runs eagerly). This replaces
+the reference's hot loop (executor.go:2561-2608: per-shard jobs, each
+running per-container roaring kernels):
 
 - every leaf ``Row()`` of the tree becomes an ``[S_pad, W]`` int32 stack —
   shard ``s``'s row in slot ``s``, zero rows past the last shard — cached
   on the device until a fragment under it mutates; ``Not`` adds the
   existence row (``_exists`` row 0) as a leaf;
+- a standard-view ``Row()`` with no time bounds whose row is sparse enough
+  (``exec/residency.choose_class`` on its largest per-shard cardinality)
+  is held packed instead: an ``[S_pad, K]`` stack of sorted in-shard
+  positions (a ``prow`` leaf, a ``pleaf`` node). Its Count is one
+  ``packed_count``, a 2-leaf Intersect with it one
+  ``packed_and_dense_count`` or ``packed_pair_count``, and every other
+  tree expands it to a dense plane (``packed_expand``) and runs the dense
+  kernels below;
 - a ``Row(f=r, from=..., to=...)`` (or ``Range``) over a time field is the
   ``or`` of its row in each existing time view that covers the window: one
   leaf per view in the op tape, so a Count over it is one ``tree_count``
@@ -141,6 +149,8 @@ class Planner:
         #: generation walk (and only for the touched leaf).
         self._stack_cache: "OrderedDict[tuple, tuple]" = OrderedDict()
         self._cache_bytes = 0
+        #: resident bytes by representation class (the key's last element).
+        self._class_bytes = {k: 0 for k in _residency.REPR_CLASSES}
         self.max_cache_bytes = max_cache_bytes
         #: lifetime host->device stack builds and their device bytes, and
         #: the bytes that crossed the link for them (less, for sparse rows).
@@ -291,9 +301,13 @@ class Planner:
 
     def fn_batched(self, fn):
         """The batched form of a program -- [args per slot] -> [B, ...] in
-        one launch -- or None where it has none (the fused aggregates).
-        The counterpart of the JAX planner's fn_raw + vmapped."""
-        return fn.batched if isinstance(fn, _CountProgram) else None
+        one launch -- or None where it has none (the fused aggregates, and
+        count programs with a packed leaf: their waves run slot by slot,
+        where the JAX coalescer vmaps them into one launch). The
+        counterpart of the JAX planner's fn_raw + vmapped."""
+        if isinstance(fn, _CountProgram) and not fn.packed:
+            return fn.batched
+        return None
 
     def prepare_count(self, idx: Index, c: Call, shards: list[int],
                       const_rows: list | None = None):
@@ -317,7 +331,7 @@ class Planner:
             leaves, fn = hit[0], hit[1]
         else:
             leaves = []
-            sig = self._signature(idx, c, leaves)
+            sig = self._signature(idx, c, leaves, tuple(shards))
             fn = self._compiled(("count",) + sig, sig, "per_shard")
             if const_rows is None and not _time_bound(leaves):
                 with self._cache_lock:
@@ -339,16 +353,25 @@ class Planner:
     def _revalidate_plan(self, idx: Index, plan_key: tuple, hit: tuple,
                          shards: tuple):
         """The staleness hook of a prepared plan (reference
-        planner.py:294), run only when the index epoch moved since the
-        plan's stamp. The JAX planner drops a plan here when a packed
-        leaf's row outgrew its representation class, which is baked into
-        the program; every leaf of the port is dense until packed
-        residency (ROADMAP.md Queue 1 item 4b) brings that check, so the
-        plan is re-stamped and stands."""
+        planner.py:294-317), run only when the index epoch moved since the
+        plan's stamp. A leaf's representation class is baked into the
+        program (a ``pleaf`` runs packed kernels), so a plan whose packed
+        leaf's row has outgrown the packed class is dropped, and the
+        caller plans again; otherwise it is re-stamped and stands (a dense
+        plan is always right)."""
         leaves, fn, seen_epoch = hit
         epoch = idx.epoch.value
         if seen_epoch == epoch:
             return hit
+        for leaf in leaves:
+            if leaf[0] != "prow":
+                continue
+            _, field_name, view, row_id = leaf
+            if self._leaf_class(idx, field_name, view, row_id,
+                                shards) != _residency.PACKED:
+                with self._cache_lock:
+                    self._plan_cache.pop(plan_key, None)
+                return None
         hit = (leaves, fn, epoch)
         with self._cache_lock:
             if plan_key in self._plan_cache:
@@ -359,7 +382,7 @@ class Planner:
                     const_rows: list | None = None) -> torch.Tensor:
         """Evaluate a bitmap tree to its stacked [S_pad, W] device tensor."""
         leaves: list[tuple] = []
-        sig = self._signature(idx, c, leaves)
+        sig = self._signature(idx, c, leaves, tuple(shards))
         self._prefetch_leaves(idx, leaves, tuple(shards))
         arrays = [self._fetch_leaf(idx, leaf, tuple(shards), const_rows)
                   for leaf in leaves]
@@ -390,7 +413,7 @@ class Planner:
         stay (this lets warmup drop its scratch index)."""
         with self._cache_lock:
             for key in [k for k in self._stack_cache if k[0] == index_name]:
-                self._cache_bytes -= _residency.stack_nbytes(self._stack_cache.pop(key)[2])
+                self._uncount(key, self._stack_cache.pop(key)[2])
             for cache in (self._plan_cache, self._filter_host_cache):
                 for key in [k for k in cache if k[0] == index_name]:
                     del cache[key]
@@ -417,10 +440,11 @@ class Planner:
                 self._plan_cache.move_to_end(plan_key)
         if hit is not None:
             hit = self._revalidate_plan(idx, plan_key, hit, tuple(shards))
+        if hit is not None:
             leaves, fn = hit[0], hit[1]
         else:
             leaves = [("bsi", field_name, depth)]
-            filt_sig = (self._signature(idx, c.children[0], leaves)
+            filt_sig = (self._signature(idx, c.children[0], leaves, tuple(shards))
                         if c.children else None)
             fn = self._compiled_agg((kind, is_min, depth, filt_sig), kind, depth,
                                     filt_sig, is_min)
@@ -658,11 +682,32 @@ class Planner:
     # signatures
     # ------------------------------------------------------------------
 
-    def _signature(self, idx: Index, c: Call, leaves: list[tuple]) -> tuple:
+    def _leaf_class(self, idx: Index, field_name: str, view: str, row_id: int,
+                    shards: tuple) -> str:
+        """Representation class of one row's stack: the residency policy
+        (``exec/residency.choose_class``) on the row's largest per-shard
+        cardinality, O(1) a fragment; dense when the mode is off
+        (reference planner.py:1055-1072, less its mesh switch: the port has
+        no mesh)."""
+        if not shards or _residency.mode() == "off":
+            return _residency.DENSE
+        max_bits = 0
+        for shard in shards:
+            frag = self.holder.fragment(idx.name, field_name, view, shard)
+            if frag is not None:
+                max_bits = max(max_bits, frag.row_cardinality(row_id))
+        return _residency.choose_class(max_bits)
+
+    def _signature(self, idx: Index, c: Call, leaves: list[tuple],
+                   shards: tuple = ()) -> tuple:
         """DFS the call tree, appending leaf specs and returning a
         hashable structure key. Leaf position in ``leaves`` is its input
         slot in the count program. A BSI condition appends its ``bsi``
-        leaf and ``pred`` leaves (reference planner.py:1074-1207)."""
+        leaf and ``pred`` leaves (reference planner.py:1074-1207). With
+        ``shards``, a standard-view Row with no time bounds chooses its
+        representation class: a packed one appends a ``prow`` leaf and
+        signs as ``pleaf``, so the class is part of the signature
+        (reference :1100-1104)."""
         name = c.name
         if name in ("Row", "Range"):
             if c.has_condition_arg():
@@ -675,6 +720,10 @@ class Planner:
             from_time = tq.parse_time(c.args["from"]) if "from" in c.args else None
             to_time = tq.parse_time(c.args["to"]) if "to" in c.args else None
             if name == "Row" and from_time is None and to_time is None:
+                if self._leaf_class(idx, field_name, VIEW_STANDARD, row_id,
+                                    shards) == _residency.PACKED:
+                    leaves.append(("prow", field_name, VIEW_STANDARD, row_id))
+                    return ("pleaf", len(leaves) - 1)
                 leaves.append(("row", field_name, VIEW_STANDARD, row_id))
                 return ("leaf", len(leaves) - 1)
             return self._time_signature(f, row_id, from_time, to_time, leaves)
@@ -682,7 +731,7 @@ class Planner:
         if kind in _PAIR_OPS:
             if not c.children:
                 raise QueryError(f"empty {name} query is currently not supported")
-            kids = tuple(self._signature(idx, ch, leaves) for ch in c.children)
+            kids = tuple(self._signature(idx, ch, leaves, shards) for ch in c.children)
             return (kind, kids)
         if name == "Not":
             if len(c.children) != 1:
@@ -693,13 +742,13 @@ class Planner:
                     f"index does not support existence tracking: {idx.name}")
             leaves.append(("row", ef.name, VIEW_STANDARD, 0))
             slot = len(leaves) - 1
-            return ("not", slot, self._signature(idx, c.children[0], leaves))
+            return ("not", slot, self._signature(idx, c.children[0], leaves, shards))
         if name == "Shift":
             # The JAX planner reads the first child and ignores any more
             # (its per-shard path refuses them): kept as it is (ROADMAP.md
             # Queue 3).
             n = c.args.get("n", 0)  # IntArg default, executor.go:1770
-            return ("shift", n, self._signature(idx, c.children[0], leaves))
+            return ("shift", n, self._signature(idx, c.children[0], leaves, shards))
         if name == "__const__":
             # Partial-fusion leaf: a Row computed on the host, uploaded as
             # a stack (Executor._fuse_partial).
@@ -845,9 +894,10 @@ class Planner:
     def _fetch_leaf(self, idx: Index, leaf: tuple, shards: tuple,
                     const_rows: list | None = None):
         """A leaf's device input: a ``row`` leaf's [S_pad, W] stack, a
-        ``bsi`` leaf's (exists, sign, [depth, S_pad, W] cube), a ``pred``
-        leaf's (lo, hi) halves, a ``const`` leaf's host Row uploaded as a
-        stack (not cached: its contents vary per query)."""
+        ``prow`` leaf's packed [S_pad, K] index stack, a ``bsi`` leaf's
+        (exists, sign, [depth, S_pad, W] cube), a ``pred`` leaf's (lo, hi)
+        halves, a ``const`` leaf's host Row uploaded as a stack (not
+        cached: its contents vary per query)."""
         kind = leaf[0]
         if kind == "const":
             row = const_rows[leaf[1]]
@@ -864,6 +914,10 @@ class Planner:
         if kind == "row":
             _, field_name, view, row_id = leaf
             return self._stack_rows(idx, field_name, view, row_id, shards)
+        if kind == "prow":
+            _, field_name, view, row_id = leaf
+            return self._stack_rows(idx, field_name, view, row_id, shards,
+                                    _residency.PACKED)
         if kind == "zero":
             return torch.zeros((self._pad(len(shards)), WORDS_PER_SHARD),
                                dtype=torch.int32, device=self.device)
@@ -878,10 +932,14 @@ class Planner:
         raise QueryError(f"unknown leaf kind {kind!r}")
 
     def _stack_rows(self, idx: Index, field_name: str, view: str, row_id: int,
-                    shards: tuple) -> torch.Tensor:
-        """Stack of one row across shards on the device."""
+                    shards: tuple, klass: str = _residency.DENSE) -> torch.Tensor:
+        """Stack of one row across shards on the device, in representation
+        class ``klass``: the dense [S_pad, W] planes or the packed
+        [S_pad, K] index stack, each class its own cache entry."""
+        build = (self._build_stack_packed if klass == _residency.PACKED
+                 else self._build_stack)
         return self._cached(idx, field_name, view, row_id, shards, lambda: (
-            self._build_stack(idx, field_name, view, row_id, shards)))
+            build(idx, field_name, view, row_id, shards)), klass)
 
     def _stack_planes(self, idx: Index, field_name: str, depth: int,
                       shards: tuple) -> torch.Tensor:
@@ -904,9 +962,10 @@ class Planner:
                             build)
 
     def _cached(self, idx: Index, field_name: str, view: str, tag, shards: tuple,
-                build: Callable) -> torch.Tensor:
+                build: Callable, klass: str = _residency.DENSE) -> torch.Tensor:
         """The device tensor ``build()`` makes from (field, view, shards),
-        cached until any involved fragment mutates. ``build`` returns the
+        in representation class ``klass`` (the key's last element), cached
+        until any involved fragment mutates. ``build`` returns the
         tensor, or (tensor, event) when its upload runs on the upload
         stream: every reader's stream then waits on the event before using
         it. Validation is two-tier: an O(1) index-epoch compare, then (only
@@ -920,7 +979,7 @@ class Planner:
         time: a thread that misses while another builds the same key waits
         for it and looks again, so concurrent queries on a cold 2 GiB cube
         share one build and one upload."""
-        key = (idx.name, idx.instance_id, field_name, view, tag, shards)
+        key = (idx.name, idx.instance_id, field_name, view, tag, shards, klass)
         worker = self.prefetcher.is_worker()
         rendezvous = not worker
         while True:
@@ -974,31 +1033,39 @@ class Planner:
                       arr: torch.Tensor, ev=None) -> None:
         """Insert first, then evict LRU entries past the byte budget (the
         eviction is double-buffered, as in the JAX planner: a prefetched
-        stack lands before its victim goes)."""
+        stack lands before its victim goes). The class is the key's last
+        element; its bytes feed ``class_bytes``."""
         nbytes = _residency.stack_nbytes(arr)
         with self._cache_lock:
             self.uploads += 1
             self.upload_bytes += nbytes
             old = self._stack_cache.pop(key, None)
             if old is not None:
-                self._cache_bytes -= _residency.stack_nbytes(old[2])
+                self._uncount(key, old[2])
             self._stack_cache[key] = (epoch, gens, arr, ev)
             self._cache_bytes += nbytes
+            self._class_bytes[key[-1]] += nbytes
             while (self._cache_bytes > self.max_cache_bytes
                    and len(self._stack_cache) > 1):
-                _, dropped = self._stack_cache.popitem(last=False)
-                self._cache_bytes -= _residency.stack_nbytes(dropped[2])
+                k2, dropped = self._stack_cache.popitem(last=False)
+                self._uncount(k2, dropped[2])
                 self.evictions += 1
-            resident = self._cache_bytes
+            class_bytes = dict(self._class_bytes)
         if self.stats is not None:
-            for k in _residency.REPR_CLASSES:
-                self.stats.gauge(f"planner.residentBytes.{k}",
-                                 resident if k == _residency.DENSE else 0)
+            for k, v in class_bytes.items():
+                self.stats.gauge(f"planner.residentBytes.{k}", v)
+
+    def _uncount(self, key: tuple, arr: torch.Tensor) -> None:
+        """Take a stack that left the cache out of the byte totals (under
+        _cache_lock)."""
+        nbytes = _residency.stack_nbytes(arr)
+        self._cache_bytes -= nbytes
+        self._class_bytes[key[-1]] -= nbytes
 
     def cache_stats(self) -> dict:
         """Locked snapshot of the stack cache's device-memory occupancy and
         the launch counts, for /debug/heap, /debug/device and the runtime
-        gauges: the JAX planner's keys, every stack in the dense class."""
+        gauges: the JAX planner's keys, the resident bytes by class."""
         with self._cache_lock:
             out = {"bytes": self._cache_bytes,
                    "budget_bytes": self.max_cache_bytes,
@@ -1007,9 +1074,7 @@ class Planner:
                    "uploads": self.uploads,
                    "upload_bytes": self.upload_bytes,
                    "bucket_policy": self.bucket_policy,
-                   "class_bytes": {k: (self._cache_bytes if k == _residency.DENSE
-                                       else 0)
-                                   for k in _residency.REPR_CLASSES},
+                   "class_bytes": dict(self._class_bytes),
                    "residency_mode": _residency.mode(),
                    "programs": len(self._fn_cache)}
         with self._dispatch_lock:
@@ -1042,24 +1107,28 @@ class Planner:
 
     def _leaf_stacks(self, idx: Index, leaves: list, shards: tuple):
         """(cache key, build) of every stack the plan's leaves will fetch:
-        a row leaf's stack, a BSI leaf's exists and sign stacks and its
-        magnitude cube; pred and const leaves upload nothing."""
+        a row leaf's dense stack, a prow leaf's packed one, a BSI leaf's
+        exists and sign stacks and its magnitude cube; pred and const
+        leaves upload nothing (reference planner.py:1460-1528)."""
         for leaf in leaves:
             kind = leaf[0]
-            if kind == "row":
+            if kind in ("row", "prow"):
                 _, field_name, view, row_id = leaf
-                yield ((idx.name, idx.instance_id, field_name, view, row_id, shards),
+                klass = _residency.PACKED if kind == "prow" else _residency.DENSE
+                yield ((idx.name, idx.instance_id, field_name, view, row_id, shards,
+                        klass),
                        functools.partial(self._stack_rows, idx, field_name, view,
-                                         row_id, shards))
+                                         row_id, shards, klass))
             elif kind == "bsi":
                 _, field_name, depth = leaf
                 view = view_bsi_name(field_name)
                 for bit in (BSI_EXISTS_BIT, BSI_SIGN_BIT):
-                    yield ((idx.name, idx.instance_id, field_name, view, bit, shards),
+                    yield ((idx.name, idx.instance_id, field_name, view, bit, shards,
+                            _residency.DENSE),
                            functools.partial(self._stack_rows, idx, field_name,
                                              view, bit, shards))
                 yield ((idx.name, idx.instance_id, field_name, view,
-                        ("planes", depth), shards),
+                        ("planes", depth), shards, _residency.DENSE),
                        functools.partial(self._stack_planes, idx, field_name,
                                          depth, shards))
 
@@ -1288,6 +1357,42 @@ class Planner:
         arr.record_stream(torch.cuda.current_stream(self.device))
         return arr, self._upload_done()
 
+    def _build_stack_packed(self, idx: Index, field_name: str, view: str, row_id: int,
+                            shards: tuple):
+        """One low-cardinality row across ``shards`` as a packed [S_pad, K]
+        int32 stack of sorted in-shard positions, SENTINEL-padded, and the
+        event its readers wait on (reference _build_stack_packed,
+        planner.py:1428-1458): K is the pow2 bucket of the largest
+        per-shard cardinality, so the upload and the residency cost 4 B a
+        set bit instead of the 128 KiB dense block. It is uploaded through
+        a pinned buffer on the upload stream, as a dense stack is. A row
+        that outgrew the packed class since plan time still builds right,
+        only wider: the plan's revalidation drops the packed plan at the
+        next epoch move."""
+        t0 = time.perf_counter()
+        rows: list[tuple[int, np.ndarray]] = []
+        max_bits = 0
+        for i, shard in enumerate(shards):
+            frag = self.holder.fragment(idx.name, field_name, view, shard)
+            if frag is None:
+                continue
+            kind, payload = frag.row_upload(row_id)
+            pos = bitops.words_to_positions(payload) if kind == "dense" else payload
+            if len(pos):
+                rows.append((i, pos))
+                max_bits = max(max_bits, len(pos))
+        k = _residency.pack_width(max_bits)
+        gather = {"gather": (time.perf_counter() - t0) * 1e3}
+
+        def fill(mat):
+            mat[:] = _residency.SENTINEL
+            for i, pos in rows:
+                mat[i, :len(pos)] = pos
+
+        arr = self._alloc((self._pad(len(shards)), k))
+        self._last_upload = {**gather, **self._upload_into(arr, fill)}
+        return arr, self._upload_done()
+
 
 def _time_bound(leaves: list) -> bool:
     """True when a plan read time views (or a window's zero leaf): which
@@ -1299,17 +1404,27 @@ def _time_bound(leaves: list) -> bool:
 class _CountProgram:
     """A count program: ``fn(*args)`` -> int32 [S_pad] per-shard counts of
     the signature's tree over the leaf inputs, one count launch (plus the
-    compare and shift launches its leaves need); ``fn.batched([args, ...])``
-    -> [B, S_pad] for a wave of B argument lists of this signature, with
-    ONE count launch for the wave (the port's counterpart of the JAX
-    planner's jit(vmap(program)), planner.py:387-396)."""
+    compare, shift and expand launches its leaves need); ``fn.batched([args,
+    ...])`` -> [B, S_pad] for a wave of B argument lists of this signature,
+    with ONE count launch for the wave (the port's counterpart of the JAX
+    planner's jit(vmap(program)), planner.py:387-396). A program with a
+    packed leaf (``packed``) has no batched form. Its fast paths are those
+    of the JAX planner's ``_packed_count_program`` (:1906-1929): a bare
+    packed leaf is ONE ``packed_count``, an Intersect of exactly two leaves
+    with a packed one ONE ``packed_and_dense_count`` (either order) or,
+    both packed, ONE ``packed_pair_count``; every other tree expands its
+    packed leaves and counts as a dense one."""
 
-    __slots__ = ("sig",)
+    __slots__ = ("sig", "packed", "_fast")
 
     def __init__(self, sig: tuple):
         self.sig = sig
+        self.packed = _has_pleaf(sig)
+        self._fast = _packed_fast_path(sig)
 
     def __call__(self, *args) -> torch.Tensor:
+        if self._fast is not None:
+            return self._fast(args)
         tape = _Tape()
         return _count_expr(_lower(self.sig, args, tape), tape.leaves)
 
@@ -1331,6 +1446,32 @@ class _CountProgram:
         return kernels.tree_count_batched(tables, _postfix(expr))
 
 
+def _has_pleaf(sig) -> bool:
+    """True when a signature (or a tuple of its nodes) holds a packed leaf
+    anywhere."""
+    if not isinstance(sig, tuple):
+        return False
+    return (bool(sig) and sig[0] == "pleaf") or any(_has_pleaf(x) for x in sig)
+
+
+def _packed_fast_path(sig: tuple):
+    """``args -> counts`` for the signatures a packed kernel counts without
+    expanding, else None (reference _packed_count_program,
+    planner.py:1906-1929)."""
+    if sig[0] == "pleaf":
+        slot = sig[1]
+        return lambda args: kernels.packed_count(args[slot])
+    if sig[0] == "intersect" and len(sig[1]) == 2:
+        (ka, sa), (kb, sb) = ((k[0], k[1]) for k in sig[1])
+        if ka == kb == "pleaf":
+            return lambda args: kernels.packed_pair_count(args[sa], args[sb])
+        if ka == "pleaf" and kb == "leaf":
+            return lambda args: kernels.packed_and_dense_count(args[sa], args[sb])
+        if ka == "leaf" and kb == "pleaf":
+            return lambda args: kernels.packed_and_dense_count(args[sb], args[sa])
+    return None
+
+
 def _count_expr(expr: tuple, leaves: list) -> torch.Tensor:
     """Per-row counts of ``expr`` over ``leaves``: row_counts of a bare
     leaf, pair_count of a 2-leaf op, one tree_count of anything else."""
@@ -1348,6 +1489,10 @@ class _Tape:
     def __init__(self):
         self.leaves: list[torch.Tensor] = []
         self._slots: dict = {}
+
+    def slot(self, key):
+        """The tape index of the plane keyed ``key``, or None."""
+        return self._slots.get(key)
 
     def leaf(self, t: torch.Tensor, key=None) -> tuple:
         """``("p", i)`` for plane ``t``. ``key`` names the plane's place in
@@ -1392,6 +1537,15 @@ def _lower(sig: tuple, args, tape: _Tape) -> tuple:
     kind = sig[0]
     if kind == "leaf":
         return tape.leaf(args[sig[1]], sig[1])
+    if kind == "pleaf":
+        # A packed leaf in a general tree: expanded to a dense plane on the
+        # device, once however often the tree names it (reference
+        # _eval_node, planner.py:1937-1942).
+        slot = sig[1]
+        i = tape.slot(slot)
+        if i is None:
+            return tape.leaf(kernels.packed_expand(args[slot]), slot)
+        return ("p", i)
     if kind in _PAIR_OPS:
         op = _PAIR_OPS[kind]
         kids = [_lower(k, args, tape) for k in sig[1]]

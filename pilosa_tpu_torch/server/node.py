@@ -9,7 +9,7 @@ result cache, the query-profile ring, the runtime gauges and, with
 and reloads the data dir at boot (and ``warmup.json``, the query shapes
 the planner saw, for the next boot's warmup to replay), and the planner's
 async path: same-plan dispatch coalescing, inline transfer resolution,
-the residency prefetcher and the kernel build cache. Peers,
+packed residency, the residency prefetcher and the kernel build cache. Peers,
 joins, backups, scrubs and the other background sweeps come with later
 slices (ROADMAP.md Queue 1: backup and restore; cluster and operations).
 """
@@ -26,6 +26,7 @@ from pilosa_tpu_torch.cluster.node import URI, Node
 from pilosa_tpu_torch.cache.result_cache import ResultCache
 from pilosa_tpu_torch.core.holder import Holder
 from pilosa_tpu_torch.exec import fuse as _dispatch_fuse
+from pilosa_tpu_torch.exec import residency as _residency
 from pilosa_tpu_torch.exec.executor import Executor
 from pilosa_tpu_torch.obs import MemoryStats, ProfileRing
 from pilosa_tpu_torch.obs.runtime import RuntimeMonitor
@@ -84,6 +85,7 @@ class ServerNode:
                  dispatch_coalesce: str = "auto",
                  dispatch_coalesce_us: float = 150.0,
                  inline_transfer: str = "auto",
+                 residency_packed: str = "auto",
                  prefetch: str = "on",
                  compile_cache_dir: str | None = None):
         host, _, port = bind.partition(":")
@@ -117,12 +119,14 @@ class ServerNode:
                                  stats=self.stats,
                                  result_cache=self.result_cache)
         # Partial fusion of mixed trees (exec/fuse.py), same-plan dispatch
-        # coalescing, inline transfer resolution and the async miss path;
+        # coalescing, inline transfer resolution, packed leaf stacks
+        # (exec/residency.py) and the async miss path;
         # PILOSA_TPU_DISPATCH_FUSE / _DISPATCH_COALESCE / _INLINE_TRANSFER /
-        # _PREFETCH override per run.
+        # _RESIDENCY_PACKED / _PREFETCH override per run.
         _dispatch_fuse.set_mode(dispatch_fuse)
         _dispatch_coalesce.set_mode(dispatch_coalesce)
         _transfer_batcher.set_inline_mode(inline_transfer)
+        _residency.set_mode(residency_packed)
         _prefetch.set_mode(prefetch)
         self._qos_warmup = qos_warmup
         self._qos_warmup_shards = qos_warmup_shards

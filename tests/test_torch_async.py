@@ -328,19 +328,23 @@ def test_prefetch_off_counts_sync_misses(monkeypatch):
         planner.close()
 
 
-def test_residency_knob():
-    """The dense class is the only one built; packed residency is refused
-    as not ported."""
-    assert residency.choose_class(5) == residency.DENSE
+def test_residency_knob(monkeypatch):
+    """A sparse row is packed under auto (the default) and on, dense under
+    off; every mode is accepted and junk is refused."""
+    monkeypatch.delenv("PILOSA_TPU_RESIDENCY_PACKED", raising=False)
+    assert residency.mode() == "auto"
+    assert residency.choose_class(5) == residency.PACKED
     assert residency.dense_nbytes(4) == 4 * W * 4
-    from pilosa_tpu_torch.errors import NotPortedError
-    with pytest.raises(NotPortedError,
-                       match="packed residency and the device value transpose"):
+    assert residency.packed_nbytes(4, residency.pack_width(5)) == 4 * 8 * 4
+    try:
         residency.set_mode("on")
-    with pytest.raises(ValueError):
-        residency.set_mode("bogus")
-    residency.set_mode("off")
-    residency.set_mode("auto")
+        assert residency.mode() == "on" and residency.choose_class(5) == residency.PACKED
+        residency.set_mode("off")
+        assert residency.choose_class(5) == residency.DENSE
+        with pytest.raises(ValueError):
+            residency.set_mode("bogus")
+    finally:
+        residency.set_mode("auto")
 
 
 # -- plain versions of the new kernels against the JAX package ---------------------

@@ -208,6 +208,9 @@ def test_wave_mixing_shard_sets_splits_by_shape(env, monkeypatch, policy):
     different heights): each shape is a wave of its own -- one batched
     launch for a shape with different leaves, one plain launch for a lone
     slot -- and every answer equals its serial launch."""
+    # Dense leaves: a program with a packed leaf has no batched form
+    # (test_packed_wave_launches_slot_by_slot).
+    monkeypatch.setenv("PILOSA_TPU_RESIDENCY_PACKED", "off")
     h, idx, plain, fast = env
     p = fast.planner
     p.bucket_policy = policy
@@ -234,6 +237,32 @@ def test_wave_mixing_shard_sets_splits_by_shape(env, monkeypatch, policy):
     assert [f.result(timeout=30) for f in futs] == serial
     assert p.dispatches - d0 == 3
     assert sorted(p.batch_widths()[-3:]) == [1, 2, 2]
+
+
+def test_packed_wave_launches_slot_by_slot(env, monkeypatch):
+    """Counts whose rows are packed (auto) have no batched form: a wave of
+    different ones launches slot by slot on the flusher, each exact; a
+    wave of one such Count is still ONE shared launch."""
+    monkeypatch.setenv("PILOSA_TPU_RESIDENCY_PACKED", "auto")
+    h, idx, plain, fast = env
+    p = fast.planner
+    qs = [f"Intersect(Row(f={r}), Row(g={r}))" for r in range(4)]
+    prepared = [p.prepare_count(idx, t_parse(q).calls[0], [0, 1, 2]) for q in qs]
+    assert len({p.fn_key(fn) for fn, _ in prepared}) == 1
+    assert all(fn.packed and p.fn_batched(fn) is None for fn, _ in prepared)
+    want = [plain.execute("i", f"Count({q})", cache=False)[0] for q in qs]
+    monkeypatch.setenv("PILOSA_TPU_DISPATCH_COALESCE", "on")
+    for wave, n_launches in ((prepared, 4), ([prepared[0]] * 4, 1)):
+        p.coalescer.hold()
+        try:
+            futs = [p.dispatch_count(fn, args) for fn, args in wave]
+            assert _wait_pending(p.coalescer, 4) == 4
+            d0 = p.dispatches
+        finally:
+            p.coalescer.release()
+        got = [f.result(timeout=30) for f in futs]
+        assert got == (want if n_launches == 4 else [want[0]] * 4)
+        assert p.dispatches - d0 == n_launches
 
 
 def test_aggregate_wave_launches_slot_by_slot(env, monkeypatch):

@@ -645,7 +645,7 @@ def test_node_defaults_to_the_card(monkeypatch):
     (["--archive-url", "x"], "backup and restore"),
     (["--scrub-interval", "1"], "cluster and operations"),
     (["--trace-endpoint", "http://127.0.0.1:1"], "cluster and operations"),
-    (["--residency-packed", "on"], "packed residency and the device value transpose"),
+    (["--ingest-transpose", "on"], "packed residency and the device value transpose"),
     (["--translate-planes", "on"], "keys and sketches"),
     (["--sketch-precision", "10"], "keys and sketches"),
 ])

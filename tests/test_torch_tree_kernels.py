@@ -212,11 +212,12 @@ def mesh():
     return make_mesh()
 
 
+@pytest.mark.parametrize("mode", ["off", "on"])
 @pytest.mark.parametrize("seed", [11, 29, 47])
-def test_planner_programs_match_jax_eval_node(mesh, seed, monkeypatch):
-    # Dense leaves on both sides: the JAX planner's packed class is
-    # ROADMAP.md Queue 1 item 4.
-    monkeypatch.setenv("PILOSA_TPU_RESIDENCY_PACKED", "off")
+def test_planner_programs_match_jax_eval_node(mesh, seed, mode, monkeypatch):
+    # Both packages in one residency mode: dense leaves only (off), or
+    # every leaf that fits packed (on), expanded inside the programs.
+    monkeypatch.setenv("PILOSA_TPU_RESIDENCY_PACKED", mode)
     bits, exists = _data(seed)
     jh, th = JHolder(), THolder(device="cpu")
     for h in (jh, th):
@@ -232,7 +233,7 @@ def test_planner_programs_match_jax_eval_node(mesh, seed, monkeypatch):
         q, _ = _gen_tree(rng, depth=3)
         jleaves, tleaves = [], []
         jsig = jp._signature(jidx, j_parse(q).calls[0], jleaves, shards)
-        tsig = tp._signature(tidx, t_parse(q).calls[0], tleaves)
+        tsig = tp._signature(tidx, t_parse(q).calls[0], tleaves, shards)
         assert tleaves == jleaves and tsig == jsig, q
         jargs = [jp._fetch_leaf(jidx, leaf, shards) for leaf in jleaves]
         targs = [tp._fetch_leaf(tidx, leaf, shards) for leaf in tleaves]
