@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --tree-batched-vs DIR
     python3 chip_smoke.py --group-count-vs DIR
+    python3 chip_smoke.py --packed-vs DIR
     python3 chip_smoke.py --import-rule
 
 ``--tree-batched-vs DIR`` times only ``tree_count_batched`` on its two timed
@@ -11,7 +12,9 @@ waves, the package in DIR (e.g. the parent commit unpacked with ``git
 archive``) against this checkout's, in 10 pairs of processes
 (``tree_batched_vs``); ``--group-count-vs DIR`` does the same for
 ``group_count`` on its three timed lattices (``GROUP_TIMED``), each side
-through its own interface (``group_count_vs``). ``--import-rule`` times
+through its own interface (``group_count_vs``); ``--packed-vs DIR`` for
+``packed_and_dense_count`` and ``packed_pair_count`` at their timed shapes
+(``packed_vs``). ``--import-rule`` times
 the set-field import under the port's and the JAX package's scatter rules
 on one host
 (``import_rule_vs``). With no arguments the script builds the CUDA
@@ -546,6 +549,65 @@ def group_count_vs(parent: str) -> int:
     return 0
 
 
+#: the kernels ``--packed-vs`` times, at their packed_timed_cases shapes.
+PACKED_VS_KERNELS = ("packed_and_dense_count", "packed_pair_count")
+
+
+def packed_times(repo: str) -> int:
+    """``--packed REPO``: time ``packed_and_dense_count`` and
+    ``packed_pair_count`` of the package in REPO at their timed shapes
+    (``packed_timed_cases`` on the seeded ``packed_case`` stacks, made on
+    the card), and at each PACKED_VS_WIDTHS width K: and_count of a [1024,
+    K] stack against its case's plane, pair_count of it against a [1024, K]
+    stack of the next seed. This script's timer; each case held exactly to
+    its plain version first. One JSON object per case: the kernel's ms by
+    CUDA events after the device spin (``time_cuda_ms``), the host's median
+    and longest enqueue of one call, and the case's bytes and operations
+    (for its bound)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(repo))
+    from pilosa_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda")
+
+    def stacks(case, seed=SEED):
+        return tuple(torch.from_numpy(x.view(np.int32)).to(dev)
+                     for x in packed_case(case, 1024, seed))
+
+    packed = {case: stacks(case) for case in ("k1024", "k2048")}
+    cases = [c for c in packed_timed_cases(kernels, packed) if c[0] in PACKED_VS_KERNELS]
+    for case, side in PACKED_VS_WIDTHS.values():
+        first, other = stacks(case), stacks(case, SEED + 1)
+        cases += [and_count_timed(kernels, first[side], first[2]),
+                  pair_count_timed(kernels, first[side], other[side])]
+    for name, shape, fn, plain_fn, nbytes, logic, popc in cases:
+        if not torch.equal(fn(), plain_fn()):
+            raise AssertionError(f"{repo}: {name} {shape}: counts differ from the plain")
+        host = host_enqueue_times(torch, fn, KERNEL_RUNS)
+        print(json.dumps({"case": f"{name} {shape}", "ms": time_cuda_ms(torch, fn, KERNEL_RUNS),
+                          "host_ms": statistics.median(host), "host_ms_max": max(host),
+                          "bytes": nbytes, "logic": logic, "popc": popc}), flush=True)
+    return 0
+
+
+def packed_vs(parent: str) -> int:
+    """``--packed-vs DIR``: ``--packed`` of DIR against this checkout's, in
+    ``paired_runs``; then ``pair_summary`` per case, against its bound."""
+    import torch
+
+    runs = paired_runs("--packed", parent, "case")
+    card = card_line()
+    for case in dict.fromkeys(c for c, _ in runs):
+        rec = runs[(case, "this")][0]
+        pair_summary(runs, case, "case", bound_ms(torch, rec["bytes"], rec["logic"],
+                                                  rec["popc"])[0], card)
+    return 0
+
+
 def import_rule_side(min_bits: int) -> int:
     """``--import-rule-side N``: the set-field import with
     ``Field._SCATTER_MIN_BITS_PER_SHARD`` at N (0: the JAX package's rule,
@@ -771,6 +833,22 @@ PACKED_CASES = {"k1024": (1024, 2048), "k2048": (2048, 1024), "k8": (8, 8),
                 "ka16384_kb8": (16384, 8)}
 #: the planner's widest packed stack under auto (W / AUTO_RATIO entries).
 PACKED_AUTO_K = 4096
+#: the stacks ``--packed`` times both kernels on besides: the shortest rows
+#: (K = 8) and the planner's widest under auto (PACKED_AUTO_K), from these
+#: PACKED_CASES cases (case, side: 0 a, 1 b).
+PACKED_VS_WIDTHS = {8: ("k8", 0), PACKED_AUTO_K: ("ka8_kb4096", 1)}
+#: inputs the planner never makes, held all the same, since the packed
+#: kernels agree with the JAX functions on any input: name -> (Ka, Kb,
+#: plane words). a's rows unsorted, with duplicates, negative entries, the
+#: int32 extremes, entries at and past the sentinel, and entries past the
+#: last word of a narrower plane (6243 words: the clip); b's rows sorted
+#: with duplicates. Checked with b whole (the bulk copy) and from its
+#: second entry on (unaligned, Kb - 1 not a multiple of 4: the staging
+#: loop), at b's widest (32768, all the shared memory the kernel takes),
+#: K = 8 and K = 16384. Kept apart from PACKED_CASES, whose rows are the
+#: planner's: sorted, distinct, sentinel-padded.
+PACKED_ANY_CASES = {"any_k8": (8, 8, 6243), "any_k1024_kb4096": (1024, 4096, 6243),
+                    "any_k16384_kb32768": (16384, 32768, SHARD_WORDS)}
 
 
 def sorted_sample(rng, n: int, limit: int, avoid=None) -> np.ndarray:
@@ -822,14 +900,57 @@ def packed_case(name: str, rows: int, seed: int = SEED, words: int = SHARD_WORDS
     return a, b, plane
 
 
+def packed_any_case(name: str, rows: int, seed: int = SEED):
+    """(a ``[rows, Ka]`` int32, b ``[rows, Kb]`` int32, plane ``[rows,
+    words]`` uint32) of one PACKED_ANY_CASES case. a: uniform positions in
+    the shard, with about an eighth each of negative int32 values, of
+    positions past the plane's last word (where the plane is narrower than
+    a shard), of sentinels and of values above the sentinel; INT32_MIN, a
+    sentinel, the shard's last position and INT32_MAX at fixed places;
+    every row unsorted. b: half its entries drawn from its row of a (with
+    repeats; the shard's last position twice), the rest a's kind of
+    values, a run of sentinels, then each row sorted: duplicates and all."""
+    ka, kb, words = PACKED_ANY_CASES[name]
+    rng = np.random.default_rng([seed, ka, kb, words])
+    sent = SHARD_WORDS * 32
+    i32 = np.iinfo(np.int32)
+
+    def values(shape):
+        v = rng.integers(0, sent, shape, dtype=np.int64)
+        kind = rng.integers(0, 8, shape)
+        v = np.where(kind == 0, rng.integers(i32.min, 0, shape), v)
+        v = np.where(kind == 1, rng.integers(min(32 * words, sent - 1), sent, shape), v)
+        v = np.where(kind == 2, sent, v)
+        v = np.where(kind == 3, rng.integers(sent + 1, i32.max, shape, endpoint=True), v)
+        return v.astype(np.int32)
+
+    a = values((rows, ka))
+    a[:, 0] = i32.min
+    a[:, 1] = sent
+    a[:, ka // 2] = sent - 1
+    a[:, -1] = i32.max
+    b = values((rows, kb))
+    half = kb // 2
+    b[:, :half] = np.take_along_axis(a, rng.integers(0, ka, (rows, half)), axis=1)
+    b[:, 0] = b[:, half - 1] = sent - 1
+    b[:, half:half + kb // 8] = sent
+    b.sort(axis=1)
+    plane = seeded_words(rng, (rows, words))
+    return a, b, plane
+
+
 def check_packed_cases(torch, kernels, t, dev, errs) -> dict:
     """The four packed kernels against their plain versions, exact, on
     every PACKED_CASES case at 1024 rows and a [1024, 32768] plane: count
     of a and of b, and_count of a and of b against the plane, pair_count
     both ways round, expand of a and of b; then a's rows from its second
     entry on (an unaligned row start: the scalar paths) and expand into a
-    6243-word row (a width not a multiple of 4). Returns the cases'
-    (a, b, plane) tensors by name."""
+    6243-word row (a width not a multiple of 4). Then and_count and
+    pair_count on every PACKED_ANY_CASES case at 1024 rows: and_count of
+    a, a from its second entry on and b against the case's plane;
+    pair_count of (a, b), (a, b from its second entry on: the staging
+    loop), (a from its second entry on, b) and (b, b). Returns the
+    PACKED_CASES cases' (a, b, plane) tensors by name."""
     def check(name, got, want, what):
         torch.cuda.synchronize()
         if name == "packed_expand":  # bit patterns: count the differing bits
@@ -860,7 +981,21 @@ def check_packed_cases(torch, kernels, t, dev, errs) -> dict:
         check("packed_expand", kernels.packed_expand(a, 6243),
               kernels.packed_expand_plain(a, 6243), f"{what}, 6243 words")
         out[case] = (a, b, pl)
-    log(f"packed kernels: exact on {', '.join(PACKED_CASES)} at 1024 rows")
+    for case in PACKED_ANY_CASES:
+        a_np, b_np, pl_np = packed_any_case(case, 1024)
+        a, b = (torch.from_numpy(x).to(dev) for x in (a_np, b_np))
+        pl = t(pl_np)
+        what = f"{case}: a {tuple(a.shape)}, b {tuple(b.shape)}, plane {tuple(pl.shape)}"
+        for x, side in ((a, "a"), (a[:, 1:], "a[:, 1:]"), (b, "b")):
+            check("packed_and_dense_count", kernels.packed_and_dense_count(x, pl),
+                  kernels.packed_and_dense_count_plain(x, pl), f"{what}, {side}")
+        for x, y, side in ((a, b, "a, b"), (a, b[:, 1:], "a, b[:, 1:]"),
+                           (a[:, 1:], b, "a[:, 1:], b"), (b, b, "b, b")):
+            check("packed_pair_count", kernels.packed_pair_count(x, y),
+                  kernels.packed_pair_count_plain(x, y), f"{what}, {side}")
+        del a, b, pl
+    log(f"packed kernels: exact on {', '.join(PACKED_CASES)} and, for and_count and "
+        f"pair_count, on {', '.join(PACKED_ANY_CASES)} at 1024 rows")
     return out
 
 
@@ -878,10 +1013,6 @@ def packed_timed_cases(kernels, packed) -> list:
     a2 = packed["k2048"][0]
     rows, k = a.shape
     k2 = a2.shape[1]
-    valid = a < kernels.PACK_SENTINEL
-    keys = torch_rows(a) * pl.shape[1] + (a >> 5)
-    distinct = int(keys[valid].unique().numel())
-    probes = (k2 - 1).bit_length() + 3
     return [
         ("packed_count", f"[{rows}, {k}]",
          lambda: kernels.packed_count(a), lambda: kernels.packed_count_plain(a),
@@ -889,19 +1020,37 @@ def packed_timed_cases(kernels, packed) -> list:
         ("packed_count", f"[{rows}, {k2}]",
          lambda: kernels.packed_count(a2), lambda: kernels.packed_count_plain(a2),
          a2.numel() * 4 + rows * 4, 2 * a2.numel(), 0),
-        ("packed_and_dense_count", f"[{rows}, {k}] x [{rows}, {pl.shape[1]}], "
-         f"{distinct} distinct words",
-         lambda: kernels.packed_and_dense_count(a, pl),
-         lambda: kernels.packed_and_dense_count_plain(a, pl),
-         a.numel() * 4 + 32 * distinct + rows * 4, 4 * a.numel(), 0),
-        ("packed_pair_count", f"[{rows}, {k}] x [{rows}, {k2}]",
-         lambda: kernels.packed_pair_count(a, a2),
-         lambda: kernels.packed_pair_count_plain(a, a2),
-         (a.numel() + a2.numel() + rows) * 4, probes * a.numel(), 0),
+        and_count_timed(kernels, a, pl),
+        pair_count_timed(kernels, a, a2),
         ("packed_expand", f"[{rows}, {k}] -> [{rows}, {pl.shape[1]}]",
          lambda: kernels.packed_expand(a), lambda: kernels.packed_expand_plain(a),
          a.numel() * 4 + pl.numel() * 4, 3 * a.numel(), 0),
     ]
+
+
+def and_count_timed(kernels, a, pl) -> tuple:
+    """``packed_and_dense_count``'s timed case on (a, pl), as in
+    ``packed_timed_cases``: its bytes count one 32-byte sector for each
+    distinct word this data gathers."""
+    rows, k = a.shape
+    keys = torch_rows(a) * pl.shape[1] + (a >> 5)
+    distinct = int(keys[a < kernels.PACK_SENTINEL].unique().numel())
+    return ("packed_and_dense_count",
+            f"[{rows}, {k}] x [{rows}, {pl.shape[1]}], {distinct} distinct words",
+            lambda: kernels.packed_and_dense_count(a, pl),
+            lambda: kernels.packed_and_dense_count_plain(a, pl),
+            a.numel() * 4 + 32 * distinct + rows * 4, 4 * a.numel(), 0)
+
+
+def pair_count_timed(kernels, a, b) -> tuple:
+    """``packed_pair_count``'s timed case on (a, b), as in
+    ``packed_timed_cases``."""
+    rows, k = a.shape
+    kb = b.shape[1]
+    return ("packed_pair_count", f"[{rows}, {k}] x [{rows}, {kb}]",
+            lambda: kernels.packed_pair_count(a, b),
+            lambda: kernels.packed_pair_count_plain(a, b),
+            (a.numel() + b.numel() + rows) * 4, ((kb - 1).bit_length() + 3) * a.numel(), 0)
 
 
 def torch_rows(x):
@@ -4056,6 +4205,10 @@ if __name__ == "__main__":
         sys.exit(group_count_times(sys.argv[2]))
     if sys.argv[1:2] == ["--group-count-vs"] and len(sys.argv) == 3:
         sys.exit(group_count_vs(sys.argv[2]))
+    if sys.argv[1:2] == ["--packed"] and len(sys.argv) == 3:
+        sys.exit(packed_times(sys.argv[2]))
+    if sys.argv[1:2] == ["--packed-vs"] and len(sys.argv) == 3:
+        sys.exit(packed_vs(sys.argv[2]))
     if sys.argv[1:] == ["--import-rule"]:
         sys.exit(import_rule_vs())
     if sys.argv[1:2] == ["--import-rule-side"] and len(sys.argv) == 3:

@@ -26,20 +26,30 @@
 // other. Counts are int32 per row.
 //
 // Bounds on the H100: memory bandwidth, and at the planner's shapes
-// (S = 1024, K <= 4096) a few microseconds, so launch latency dominates
-// every kernel but expand:
+// (S = 1024, K <= 4096) a few microseconds, under the 5 us that one
+// launch of any kernel takes between two CUDA events (torch.zeros of 1024
+// int32 on an H100 80GB HBM3 at 700 W; the times below are from
+// scripts/packed_probe.py on that card):
 //  * count reads S * K * 4 bytes: 4 MiB at K = 1024, 1.3 us at 3.35 TB/s.
 //  * and_count reads the entries and, for each entry, one 32-byte sector
 //    of the plane (neighbouring entries share a sector where their bits
-//    lie within 256 bits of each other).
+//    lie within 256 bits of each other). Those sectors are random reads of
+//    HBM, which it serves well below its streaming rate: at [1024, 1024]
+//    against a [1024, 32768] plane (523,905 sectors) the gathers take 7.5
+//    us more from HBM than from L2, under any L2 fetch granularity; the
+//    kernel takes 7.8 us with them removed and 17.1 us with them.
 //  * pair_count reads both stacks once; its binary searches run in shared
-//    memory, log2(Kb) probes per entry of a.
+//    memory, log2(Kb) probes per entry of a. At [1024, 1024] x [1024,
+//    2048] it takes 8.6 us with the searches removed and 10.9 us with
+//    them: shared-memory probes, after the row has landed.
 //  * expand writes the [S, W] planes once: 128 MiB at S = 1024, 40 us.
 //
 // What each design does about its bound is written above its kernel.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "bulk_ring.cuh"
 
 namespace {
 
@@ -49,6 +59,11 @@ constexpr int kThreads = 256;
 constexpr int64_t kTileWords = 8192;
 // The most entries of b that pair_count stages: 128 KiB of shared memory.
 constexpr int64_t kMaxPairEntries = 32768;
+// Entries of a row one and_count thread holds at a time, their plane
+// gathers all in flight together (8 took 17.3 us against 17.1 at K = 1024).
+constexpr int kAndBatch = 16;
+// Entries of a one pair_count thread searches at a time, interleaved.
+constexpr int kPairBatch = 4;
 
 // Sum of v over the block's threads, valid in thread 0. Every thread of
 // the block must call it.
@@ -108,69 +123,167 @@ packed_count_kernel(const int32_t* __restrict__ idx, int32_t* __restrict__ out,
   }
 }
 
-// ---------------------------------------------------------------------------
-// packed_and_dense_count: a block a row. Thread j takes entries j, j + T,
-// ...: sorted entries put neighbouring threads on neighbouring plane
-// words, so a warp's gathers fall into few sectors. Each valid entry i
-// (i < sentinel) reads plane word clamp(i >> 5, 0, W - 1) through the
-// read-only path and adds bit (i & 31) of it, an unsigned shift; sentinels
-// read nothing. The index clamp and the arithmetic shift are the JAX
-// function's, so the kernel agrees with it on any input; only the sector
-// sharing relies on sortedness.
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-packed_and_dense_kernel(const int32_t* __restrict__ idx, const uint32_t* __restrict__ plane,
-                        int32_t* __restrict__ out, int64_t k, int64_t idx_stride,
-                        int64_t words, int64_t plane_stride, int32_t sentinel) {
-  __shared__ int scratch[kThreads / 32];
-  const int64_t row = blockIdx.x;
-  const int32_t* p = idx + row * idx_stride;
-  const uint32_t* w = plane + row * plane_stride;
-  int c = 0;
-  for (int64_t j = threadIdx.x; j < k; j += blockDim.x) {
-    const int32_t i = __ldg(p + j);
-    if (i < sentinel) {
-      int64_t wi = i >> 5;
-      wi = wi < 0 ? 0 : (wi >= words ? words - 1 : wi);
-      c += (__ldg(w + wi) >> (i & 31)) & 1u;
-    }
+// Entries of a row loaded into registers ahead of their use: positions
+// base + lane + u * lanes for u < E, so the lanes of a warp hold
+// neighbouring entries at each u. Every position at or past k reads as the
+// sentinel. All the loads are issued before any is used: one round trip to
+// device memory, not E.
+template <int E>
+__device__ __forceinline__ void load_entries(const int32_t* __restrict__ p, int64_t k,
+                                             int64_t base, int lane, int lanes,
+                                             int32_t sentinel, int32_t (&e)[E]) {
+#pragma unroll
+  for (int u = 0; u < E; ++u) {
+    const int64_t q = base + lane + static_cast<int64_t>(u) * lanes;
+    e[u] = q < k ? __ldg(p + q) : sentinel;
   }
-  const int total = block_sum(c, scratch);
-  if (threadIdx.x == 0) out[row] = total;
 }
 
 // ---------------------------------------------------------------------------
-// packed_pair_count: a block a row. The block stages b's row (kb entries,
-// at most kMaxPairEntries) in shared memory with coalesced loads, then each
-// thread searches its entries of a in it: the leftmost position whose
-// entry is >= a's (a binary search, log2(kb) shared-memory probes),
-// clipped to kb - 1, is a hit where b holds a's entry and a's entry is <
-// sentinel, so a's sentinels never match b's padding. This is
-// jnp.searchsorted's leftmost position, and it relies on b's row being
-// sorted (non-decreasing); a needs no order.
+// packed_and_dense_count: 2^lanes_log2 threads a row (the fewest that
+// cover the row in one batch of kAndBatch entries each, at most a block),
+// blockDim / that many rows a block. A thread's batch is loaded whole
+// (load_entries), then every plane gather of the batch is issued before
+// the first is consumed, and the next batch's entries load while those
+// gathers are in flight: about one round trip to device memory a batch
+// on a thread's path, not two an entry. The lanes of a warp take
+// neighbouring entries, so one gather instruction reads 32 neighbouring
+// positions of a sorted row: with 16-byte index loads, which put a lane's
+// four entries side by side and a warp's 32 gathers four entries apart,
+// the kernel took 18.2 us against 17.1 at [1024, 1024] x [1024, 32768];
+// with each row's entries shuffled it takes 18.9. In the SASS
+// (cuobjdump -sass) a batch is 16 predicated index loads of the next
+// batch, then the 16 gathers, each behind a branch over the lanes whose
+// entry is a sentinel, then the shifts and adds: no gather waits on
+// another. Each valid entry i (i < sentinel) reads plane word
+// clamp(i >> 5, 0, W - 1) through the read-only path and adds bit
+// (i & 31) of it, an unsigned shift; sentinels and the positions past the
+// row read nothing. The clamp and the arithmetic shift are the JAX
+// function's, so the kernel agrees with it on any input; only sector
+// sharing between neighbouring lanes relies on sortedness. The row's
+// lanes sum by shuffles, across warps in shared memory.
 // ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+packed_and_dense_kernel(const int32_t* __restrict__ idx, const uint32_t* __restrict__ plane,
+                        int32_t* __restrict__ out, int64_t rows, int64_t k,
+                        int64_t idx_stride, int64_t words, int64_t plane_stride,
+                        int32_t sentinel, int lanes_log2) {
+  __shared__ int scratch[kThreads / 32];
+  const int lanes = 1 << lanes_log2;
+  const int lane = threadIdx.x & (lanes - 1);
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> lanes_log2) +
+                      (threadIdx.x >> lanes_log2);
+  const int64_t step = static_cast<int64_t>(kAndBatch) * lanes;
+  int c = 0;
+  if (row < rows) {
+    const int32_t* p = idx + row * idx_stride;
+    const uint32_t* w = plane + row * plane_stride;
+    int32_t e[kAndBatch];
+    load_entries<kAndBatch>(p, k, 0, lane, lanes, sentinel, e);
+    for (int64_t base = 0; base < k; base += step) {
+      uint32_t v[kAndBatch];
+#pragma unroll
+      for (int u = 0; u < kAndBatch; ++u) {
+        int64_t wi = e[u] >> 5;
+        wi = wi < 0 ? 0 : (wi >= words ? words - 1 : wi);
+        v[u] = 0;
+        if (e[u] < sentinel) v[u] = __ldg(w + wi);
+      }
+      int32_t next[kAndBatch];
+      load_entries<kAndBatch>(p, k, base + step, lane, lanes, sentinel, next);
+#pragma unroll
+      for (int u = 0; u < kAndBatch; ++u) {
+        c += (v[u] >> (e[u] & 31)) & 1u;
+        e[u] = next[u];
+      }
+    }
+  }
+  if (lanes <= 32) {  // the row's lanes lie in one warp
+    for (int o = lanes >> 1; o > 0; o >>= 1) c += __shfl_xor_sync(0xffffffffu, c, o);
+    if (lane == 0 && row < rows) out[row] = c;
+    return;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) c += __shfl_xor_sync(0xffffffffu, c, o);
+  if (threadIdx.x % 32 == 0) scratch[threadIdx.x / 32] = c;
+  __syncthreads();
+  if (lane == 0 && row < rows) {
+    int total = 0;
+    for (int j = 0; j < lanes / 32; ++j) total += scratch[threadIdx.x / 32 + j];
+    out[row] = total;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// packed_pair_count: a block a row. Thread 0 starts one bulk copy of b's
+// row (kb entries, at most kMaxPairEntries) into dynamic shared memory on
+// an mbarrier (BULK: the row 16-byte aligned and kb a multiple of 4;
+// otherwise the block stages it with coalesced loads), and while it lands
+// every thread loads its first kPairBatch entries of a (load_entries; the
+// SASS issues them before the wait on the barrier). Then each thread runs
+// the searches of its batch interleaved, step by step, so their
+// shared-memory probes overlap, while the next batch of a loads. The
+// lanes of a warp hold neighbouring entries of a: for a sorted a their
+// probes fall on few addresses a step, where a lane's four neighbouring
+// entries put a warp's probes four entries apart and into more bank
+// conflicts (12.3 against 10.9 us at [1024, 1024] x [1024, 2048]). A
+// search is branchless, ceil(log2 kb) halvings of a window that holds the
+// leftmost position whose entry is >= a's, the same number for every
+// thread; that position, clipped to kb - 1, is a hit where b holds a's
+// entry and a's entry is < sentinel, so a's sentinels never match b's
+// padding. This is jnp.searchsorted's leftmost position, and it relies on
+// b's row being sorted (non-decreasing; duplicates allowed); a needs no
+// order.
+// ---------------------------------------------------------------------------
+template <bool BULK>
 __global__ void __launch_bounds__(kThreads)
 packed_pair_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
                    int32_t* __restrict__ out, int64_t ka, int64_t a_stride, int64_t kb,
                    int64_t b_stride, int32_t sentinel) {
-  extern __shared__ int32_t sb[];
+  extern __shared__ __align__(16) int32_t sb[];
   __shared__ int scratch[kThreads / 32];
+  __shared__ uint64_t bar;
   const int64_t row = blockIdx.x;
   const int32_t* pa = a + row * a_stride;
   const int32_t* pb = b + row * b_stride;
-  for (int64_t j = threadIdx.x; j < kb; j += blockDim.x) sb[j] = __ldg(pb + j);
-  __syncthreads();
+  if (BULK && threadIdx.x == 0) {
+    mbar_init(&bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    const uint32_t bytes = static_cast<uint32_t>(kb * sizeof(int32_t));
+    mbar_expect_tx(&bar, bytes);
+    bulk_load(sb, pb, bytes, &bar);
+  }
+  const int lanes = blockDim.x;
+  const int64_t step = static_cast<int64_t>(kPairBatch) * lanes;
+  int32_t e[kPairBatch];
+  load_entries<kPairBatch>(pa, ka, 0, threadIdx.x, lanes, sentinel, e);
+  if (!BULK)
+    for (int64_t j = threadIdx.x; j < kb; j += lanes) sb[j] = __ldg(pb + j);
+  __syncthreads();  // the barrier's init, or the staged row, seen by all
+  if (BULK) mbar_wait(&bar, 0);
+  const int n = static_cast<int>(kb);
   int c = 0;
-  for (int64_t j = threadIdx.x; j < ka; j += blockDim.x) {
-    const int32_t v = __ldg(pa + j);
-    int64_t lo = 0, hi = kb;
-    while (lo < hi) {
-      const int64_t mid = (lo + hi) >> 1;
-      if (sb[mid] < v) lo = mid + 1;
-      else hi = mid;
+  for (int64_t base = 0; base < ka; base += step) {
+    int32_t next[kPairBatch];
+    load_entries<kPairBatch>(pa, ka, base + step, threadIdx.x, lanes, sentinel, next);
+    int lo[kPairBatch];
+#pragma unroll
+    for (int u = 0; u < kPairBatch; ++u) lo[u] = 0;
+    // The leftmost position >= e[u] lies in [lo, lo + len]; each halving
+    // keeps that true.
+    for (int len = n; len > 1;) {
+      const int half = len >> 1;
+#pragma unroll
+      for (int u = 0; u < kPairBatch; ++u) lo[u] = sb[lo[u] + half] < e[u] ? lo[u] + half : lo[u];
+      len -= half;
     }
-    if (lo > kb - 1) lo = kb - 1;
-    c += (sb[lo] == v) & (v < sentinel);
+#pragma unroll
+    for (int u = 0; u < kPairBatch; ++u) {
+      int pos = lo[u] + (sb[lo[u]] < e[u]);
+      if (pos > n - 1) pos = n - 1;
+      c += (sb[pos] == e[u]) & (e[u] < sentinel);
+      e[u] = next[u];
+    }
   }
   const int total = block_sum(c, scratch);
   if (threadIdx.x == 0) out[row] = total;
@@ -223,6 +336,24 @@ int block_threads(int64_t k) {
   return t;
 }
 
+bool aligned16(const void* p, int64_t stride, int64_t k) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && stride % 4 == 0 && k % 4 == 0;
+}
+
+// The current device's SMs, read once a process.
+int device_sms() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0, n = 0;
+    if (cudaGetDevice(&dev) == cudaSuccess &&
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) == cudaSuccess)
+      sms = n;
+    else
+      sms = 132;
+  }
+  return sms;
+}
+
 }  // namespace
 
 // out[r] = #{j < k : idx[r * stride + j] < sentinel} for r in [0, rows).
@@ -263,10 +394,26 @@ extern "C" int pilosa_packed_and_dense_count(const void* idx, const void* plane,
   if (rows < 0 || k <= 0 || words <= 0 || rows > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   if (rows == 0) return static_cast<int>(cudaSuccess);
-  packed_and_dense_kernel<<<static_cast<unsigned>(rows), block_threads(k), 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(idx), static_cast<const uint32_t*>(plane),
-      static_cast<int32_t*>(out), k, idx_stride, words, plane_stride, sentinel);
+  // The fewest lanes a row that take it in one batch each, at most a
+  // block; then a block of kThreads, halved (not below a warp or a row's
+  // lanes) while the grid would leave SMs without two blocks.
+  int lanes_log2 = 0;
+  while ((1 << lanes_log2) < kThreads && (static_cast<int64_t>(kAndBatch) << lanes_log2) < k)
+    ++lanes_log2;
+  const int lanes = 1 << lanes_log2;
+  int threads = kThreads;
+  auto blocks = [&](int t) {
+    const int64_t per_block = t / lanes;
+    return (rows + per_block - 1) / per_block;
+  };
+  while (threads > 32 && threads > lanes && blocks(threads) < 2 * device_sms()) threads >>= 1;
+  const unsigned grid = static_cast<unsigned>(blocks(threads));
+  auto s = static_cast<cudaStream_t>(stream);
+  const auto* pi = static_cast<const int32_t*>(idx);
+  const auto* pp = static_cast<const uint32_t*>(plane);
+  auto* po = static_cast<int32_t*>(out);
+  packed_and_dense_kernel<<<grid, threads, 0, s>>>(pi, pp, po, rows, k, idx_stride, words,
+                                                   plane_stride, sentinel, lanes_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -281,20 +428,37 @@ extern "C" int pilosa_packed_pair_count(const void* a, const void* b, void* out,
     return static_cast<int>(cudaErrorInvalidValue);
   if (rows == 0) return static_cast<int>(cudaSuccess);
   const size_t smem = static_cast<size_t>(kb) * sizeof(int32_t);
-  // Above 48 KiB a block's dynamic shared memory must be asked for.
+  // Above 48 KiB a block's dynamic shared memory must be asked for, for
+  // each of the kernel's forms.
   static size_t opted = 48 << 10;
   if (smem > opted) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        packed_pair_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(kMaxPairEntries * sizeof(int32_t)));
-    if (err != cudaSuccess) return static_cast<int>(err);
+    const int most = static_cast<int>(kMaxPairEntries * sizeof(int32_t));
+    const void* forms[] = {reinterpret_cast<const void*>(packed_pair_kernel<true>),
+                           reinterpret_cast<const void*>(packed_pair_kernel<false>)};
+    for (const void* fn : forms) {
+      const cudaError_t err =
+          cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
     opted = kMaxPairEntries * sizeof(int32_t);
   }
-  const int64_t kmax = ka > kb ? ka : kb;
-  packed_pair_kernel<<<static_cast<unsigned>(rows), block_threads(kmax), smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(a), static_cast<const int32_t*>(b),
-      static_cast<int32_t*>(out), ka, a_stride, kb, b_stride, sentinel);
+  const bool bulk = aligned16(b, b_stride, kb);
+  // Threads enough for a batch of a's entries each (and, staging b
+  // without the bulk copy, kPairBatch of b's each).
+  const int64_t per_thread = (ka + kPairBatch - 1) / kPairBatch;
+  const int64_t stage = bulk ? 0 : (kb + kPairBatch - 1) / kPairBatch;
+  const int threads = block_threads(per_thread > stage ? per_thread : stage);
+  auto s = static_cast<cudaStream_t>(stream);
+  const auto* pa = static_cast<const int32_t*>(a);
+  const auto* pb = static_cast<const int32_t*>(b);
+  auto* po = static_cast<int32_t*>(out);
+  const unsigned grid = static_cast<unsigned>(rows);
+  if (bulk)
+    packed_pair_kernel<true><<<grid, threads, smem, s>>>(pa, pb, po, ka, a_stride, kb, b_stride,
+                                                         sentinel);
+  else
+    packed_pair_kernel<false><<<grid, threads, smem, s>>>(pa, pb, po, ka, a_stride, kb, b_stride,
+                                                          sentinel);
   return static_cast<int>(cudaGetLastError());
 }
 

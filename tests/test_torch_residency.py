@@ -7,7 +7,10 @@
   ``pilosa_tpu.exec.residency``'s functions on ``chip_smoke.PACKED_CASES``
   (the card holds the CUDA kernels to the same plain versions on the same
   cases at 1024 rows): sentinel-only rows, rows full to K, bit-31
-  positions, all-ones plane words, Ka != Kb, K = 8 and K = 16384.
+  positions, all-ones plane words, Ka != Kb, K = 8 and K = 16384; and
+  and_count's and pair_count's on ``chip_smoke.PACKED_ANY_CASES``, inputs
+  the planner never makes (unsorted a, negative entries, a narrower
+  plane, duplicates in b, b unaligned or at its widest).
 - the planner, with both packages in the same residency mode: every query
   family of tests/test_residency.py (Count, bitmap results, TopN filters,
   aggregate filters, GroupBy) bit-identical to the JAX executor's; the
@@ -194,6 +197,57 @@ def test_packed_case_edges():
         for row in x:
             valid = row[row < sent]
             assert (np.diff(valid) > 0).all() and (row[len(valid):] == sent).all()
+
+
+@pytest.mark.parametrize("case", list(chip_smoke.PACKED_ANY_CASES))
+def test_any_input_matches_jax(case):
+    """and_count's and pair_count's plain versions, and their wrappers on
+    CPU tensors, equal the JAX functions on inputs the planner never makes
+    (``chip_smoke.PACKED_ANY_CASES``; the card holds the kernels to the
+    plain versions on the same cases at 1024 rows). The JAX function clips
+    a word index to W - 1 of a shard's plane, the port to the plane's last
+    word: on a narrower plane that is the JAX function on the plane widened
+    by copies of its last word."""
+    a, b, plane = chip_smoke.packed_any_case(case, 3)
+    pad = np.repeat(plane[:, -1:], WORDS_PER_SHARD - plane.shape[1], axis=1)
+    wide = np.concatenate([plane, pad], axis=1)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    tp = torch.from_numpy(plane.view(np.int32))
+    for x, tx in ((a, ta), (a[:, 1:], ta[:, 1:]), (b, tb)):
+        want = np.asarray(jres.packed_and_dense_count(_j(x), _j(wide))).tolist()
+        assert kernels.packed_and_dense_count_plain(tx, tp).tolist() == want
+        assert kernels.packed_and_dense_count(tx, tp).tolist() == want
+    for x, y, tx, ty in ((a, b, ta, tb), (a, b[:, 1:], ta, tb[:, 1:]),
+                         (a[:, 1:], b, ta[:, 1:], tb), (b, b, tb, tb)):
+        want = np.asarray(jres.packed_pair_count(_j(x), _j(y))).tolist()
+        assert kernels.packed_pair_count_plain(tx, ty).tolist() == want
+        assert kernels.packed_pair_count(tx, ty).tolist() == want
+
+
+def test_packed_any_case_edges():
+    """The any-input cases hold the inputs they name: a's rows unsorted,
+    with negative entries, the int32 extremes, sentinels, entries above the
+    sentinel and, on a narrower plane, entries past its last word; b's rows
+    sorted with duplicates and hits in a; b at the kernel's widest; b from
+    its second entry on unaligned with Kb - 1 not a multiple of 4; K = 8
+    and K = 16384."""
+    sent = jres.SENTINEL
+    widths = set()
+    for case in chip_smoke.PACKED_ANY_CASES:
+        a, b, plane = chip_smoke.packed_any_case(case, 3)
+        widths |= {a.shape[1], b.shape[1]}
+        words = plane.shape[1]
+        assert (b.shape[1] - 1) % 4 != 0
+        for row_a, row_b in zip(a, b):
+            assert (np.diff(row_a) < 0).any()
+            assert (row_a < 0).any() and (row_a == sent).any() and (row_a > sent).any()
+            assert row_a.min() == np.iinfo(np.int32).min
+            assert row_a.max() == np.iinfo(np.int32).max
+            if words < WORDS_PER_SHARD:
+                assert ((row_a >= 32 * words) & (row_a < sent)).any()
+            assert (np.diff(row_b) >= 0).all() and (np.diff(row_b) == 0).any()
+            assert np.isin(row_a[row_a < sent], row_b).any()
+    assert {8, 16384, kernels.PACK_PAIR_MAX_ENTRIES} <= widths
 
 
 def test_wrappers_refuse():
