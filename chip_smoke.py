@@ -13,8 +13,10 @@ archive``) against this checkout's, in 10 pairs of processes
 (``tree_batched_vs``); ``--group-count-vs DIR`` does the same for
 ``group_count`` on its three timed lattices (``GROUP_TIMED``), each side
 through its own interface (``group_count_vs``); ``--packed-vs DIR`` for
-``packed_and_dense_count`` and ``packed_pair_count`` at their timed shapes
-(``packed_vs``). ``--import-rule`` times
+``packed_count``, ``packed_and_dense_count`` and ``packed_pair_count`` at
+their timed shapes and for the three packed waves at 8 and 32 slots, one
+launch here against DIR's slot-by-slot launches where DIR has no wave
+kernels, beside the one-launch floor (``packed_vs``). ``--import-rule`` times
 the set-field import under the port's and the JAX package's scatter rules
 on one host
 (``import_rule_vs``). With no arguments the script builds the CUDA
@@ -79,7 +81,11 @@ port's paths:
   ONE ``packed_pair_count``, its Union with row 1 ``packed_expand`` and
   ``pair_count``, a 3-leaf Intersect ``packed_expand`` and ``tree_count``,
   and ``Row(f=30)`` a ``packed_expand``, in process and over HTTP against
-  numpy; the resident bytes by class, each Count's p50 beside the knob
+  numpy; 8 rows of 1,000 bits a shard (K = 1024), and a held wave of 8
+  different Counts on each packed fast path ONE ``packed_count_batched``,
+  ``packed_and_dense_count_batched`` or ``packed_pair_count_batched``
+  (the bare wave over HTTP too), timed beside the same wave slot by slot;
+  the resident bytes by class, each Count's p50 beside the knob
   ``off``, and so ``Row(f=30)`` and a TopN filtered by it (uncached plans:
   a shard walk and a ``packed_expand`` each time), the leaf-class walk's
   host time, the cold packed upload; then row 30 grows to 5,000 bits in
@@ -550,20 +556,24 @@ def group_count_vs(parent: str) -> int:
 
 
 #: the kernels ``--packed-vs`` times, at their packed_timed_cases shapes.
-PACKED_VS_KERNELS = ("packed_and_dense_count", "packed_pair_count")
+PACKED_VS_KERNELS = ("packed_count", "packed_and_dense_count", "packed_pair_count")
 
 
 def packed_times(repo: str) -> int:
-    """``--packed REPO``: time ``packed_and_dense_count`` and
-    ``packed_pair_count`` of the package in REPO at their timed shapes
+    """``--packed REPO``: time ``packed_count``, ``packed_and_dense_count``
+    and ``packed_pair_count`` of the package in REPO at their timed shapes
     (``packed_timed_cases`` on the seeded ``packed_case`` stacks, made on
-    the card), and at each PACKED_VS_WIDTHS width K: and_count of a [1024,
-    K] stack against its case's plane, pair_count of it against a [1024, K]
-    stack of the next seed. This script's timer; each case held exactly to
-    its plain version first. One JSON object per case: the kernel's ms by
-    CUDA events after the device spin (``time_cuda_ms``), the host's median
-    and longest enqueue of one call, and the case's bytes and operations
-    (for its bound)."""
+    the card), and_count and pair_count at each PACKED_VS_WIDTHS width K
+    (and_count of a [1024, K] stack against its case's plane, pair_count of
+    it against a [1024, K] stack of the next seed), and the three packed
+    waves at PACKED_WAVE_TIMED slots (``packed_wave_cases``: the wave
+    kernels, or, in a package without them, the slots launched one by one
+    through the single kernels); then the one-launch floor (torch.zeros of
+    1024 int32). This script's timer; each case held exactly to its plain
+    version first. One JSON object per case: the kernel's ms by CUDA
+    events after the device spin (``time_cuda_ms``), the host's median and
+    longest enqueue of one call, and the case's bytes and operations (for
+    its bound)."""
     import torch
 
     if not torch.cuda.is_available():
@@ -580,12 +590,15 @@ def packed_times(repo: str) -> int:
 
     packed = {case: stacks(case) for case in ("k1024", "k2048")}
     cases = [c for c in packed_timed_cases(kernels, packed) if c[0] in PACKED_VS_KERNELS]
-    for case, side in PACKED_VS_WIDTHS.values():
-        first, other = stacks(case), stacks(case, SEED + 1)
-        cases += [and_count_timed(kernels, first[side], first[2]),
-                  pair_count_timed(kernels, first[side], other[side])]
+    cases += [timed for timed, _ in packed_width_cases(torch, kernels, stacks)]
+    for n in PACKED_WAVE_TIMED:
+        cases += [c[:7] for c in packed_wave_cases(torch, kernels, packed, n)]
+    cases.append(("floor", "torch.zeros(1024, int32)",
+                  lambda: torch.zeros(1024, dtype=torch.int32, device=dev),
+                  lambda: torch.zeros(1024, dtype=torch.int32, device=dev), 4096, 0, 0))
     for name, shape, fn, plain_fn, nbytes, logic, popc in cases:
-        if not torch.equal(fn(), plain_fn()):
+        got = fn()
+        if not torch.equal(torch.stack(got) if isinstance(got, list) else got, plain_fn()):
             raise AssertionError(f"{repo}: {name} {shape}: counts differ from the plain")
         host = host_enqueue_times(torch, fn, KERNEL_RUNS)
         print(json.dumps({"case": f"{name} {shape}", "ms": time_cuda_ms(torch, fn, KERNEL_RUNS),
@@ -939,6 +952,59 @@ def packed_any_case(name: str, rows: int, seed: int = SEED):
     return a, b, plane
 
 
+#: the wave sizes the packed wave kernels are held to their plain versions
+#: at: one slot, two, the timed 8, and one past a launch's slot table
+#: (kernels.PACKED_WAVE_SLOTS, 32), so the wave splits into two launches.
+PACKED_WAVE_CHECKS = (1, 2, 8, 33)
+
+
+def wave_views(torch, x, n: int, sliced: bool) -> list:
+    """``n`` slots of ``x``'s shape cut from ``x`` and its first n - 1 rows
+    (cycled) again below it: slot z starts at row z. Whole rows: every third slot a
+    view of that stack, the next a view of a copy 4 entries wider (another
+    row stride, still 16-byte aligned), the next slot z - 2's tensor again
+    (a shared slot). ``sliced``: every slot from its second entry on (an
+    unaligned start: the 4-byte loads, b's staging loop)."""
+    rows, k = x.shape
+    tall = torch.cat([x, x[torch.arange(n - 1, device=x.device) % rows]])
+    if sliced:
+        return [tall[z:z + rows, 1:] for z in range(n)]
+    wide = torch.full((tall.shape[0], k + 4), -1, dtype=x.dtype, device=x.device)
+    wide[:, :k] = tall
+    slots = []
+    for z in range(n):
+        if z % 3 == 2:
+            slots.append(slots[z - 2])
+        else:
+            slots.append((tall if z % 3 == 0 else wide[:, :k])[z:z + rows])
+    return slots
+
+
+def check_packed_waves(torch, kernels, a, b, pl, what, sorted_b_a: bool, check) -> None:
+    """The three packed wave kernels against their plain versions, exact,
+    at every PACKED_WAVE_CHECKS size, on slots cut by ``wave_views`` from
+    one case's (a, b, plane): count of a's and b's slots, and_count of them
+    against planes (a shared plane in even slots, the plane's own views in
+    odd ones), pair_count of a against b (and b against a where a is
+    sorted too), whole and sliced."""
+    for n in PACKED_WAVE_CHECKS:
+        pv = wave_views(torch, pl, n, False)
+        planes = [pl if z % 2 == 0 else pv[z] for z in range(n)]
+        for sliced in (False, True):
+            xa, xb = wave_views(torch, a, n, sliced), wave_views(torch, b, n, sliced)
+            tag = f"{what}, B = {n}{', sliced' if sliced else ''}"
+            for xs, side in ((xa, "a"), (xb, "b")):
+                check("packed_count_batched", kernels.packed_count_batched(xs),
+                      kernels.packed_count_batched_plain(xs), f"{tag}, {side}")
+                check("packed_and_dense_count_batched",
+                      kernels.packed_and_dense_count_batched(xs, planes),
+                      kernels.packed_and_dense_count_batched_plain(xs, planes),
+                      f"{tag}, {side}")
+            for xs, ys, side in ((xa, xb, "a, b"), (xb, xa, "b, a"))[:2 if sorted_b_a else 1]:
+                check("packed_pair_count_batched", kernels.packed_pair_count_batched(xs, ys),
+                      kernels.packed_pair_count_batched_plain(xs, ys), f"{tag}, {side}")
+
+
 def check_packed_cases(torch, kernels, t, dev, errs) -> dict:
     """The four packed kernels against their plain versions, exact, on
     every PACKED_CASES case at 1024 rows and a [1024, 32768] plane: count
@@ -949,7 +1015,8 @@ def check_packed_cases(torch, kernels, t, dev, errs) -> dict:
     pair_count on every PACKED_ANY_CASES case at 1024 rows: and_count of
     a, a from its second entry on and b against the case's plane;
     pair_count of (a, b), (a, b from its second entry on: the staging
-    loop), (a from its second entry on, b) and (b, b). Returns the
+    loop), (a from its second entry on, b) and (b, b). The three wave
+    kernels on every case of both (``check_packed_waves``). Returns the
     PACKED_CASES cases' (a, b, plane) tensors by name."""
     def check(name, got, want, what):
         torch.cuda.synchronize()
@@ -980,6 +1047,7 @@ def check_packed_cases(torch, kernels, t, dev, errs) -> dict:
                   kernels.packed_pair_count_plain(x, y), f"{what}, {side}")
         check("packed_expand", kernels.packed_expand(a, 6243),
               kernels.packed_expand_plain(a, 6243), f"{what}, 6243 words")
+        check_packed_waves(torch, kernels, a, b, pl, what, True, check)
         out[case] = (a, b, pl)
     for case in PACKED_ANY_CASES:
         a_np, b_np, pl_np = packed_any_case(case, 1024)
@@ -993,9 +1061,11 @@ def check_packed_cases(torch, kernels, t, dev, errs) -> dict:
                            (a[:, 1:], b, "a[:, 1:], b"), (b, b, "b, b")):
             check("packed_pair_count", kernels.packed_pair_count(x, y),
                   kernels.packed_pair_count_plain(x, y), f"{what}, {side}")
+        check_packed_waves(torch, kernels, a, b, pl, what, False, check)
         del a, b, pl
     log(f"packed kernels: exact on {', '.join(PACKED_CASES)} and, for and_count and "
-        f"pair_count, on {', '.join(PACKED_ANY_CASES)} at 1024 rows")
+        f"pair_count, on {', '.join(PACKED_ANY_CASES)} at 1024 rows; the wave kernels on "
+        f"both at B = {', '.join(map(str, PACKED_WAVE_CHECKS))}")
     return out
 
 
@@ -1004,8 +1074,8 @@ def packed_timed_cases(kernels, packed) -> list:
     of ``bench`` is [1024, 1024], row 31 [1024, 2048], row 1 a [1024,
     32768] plane): (name, shape, kernel, plain, bytes, logic ops,
     popcounts). Each input is read once and each output written once;
-    and_count's bytes are the entries, one 32-byte sector for each
-    distinct word it gathers, and its counts. The operations: a compare
+    and_count's bytes are the entries, each distinct 32-byte sector of
+    the plane it gathers once (``gathered_sectors``), and its counts. The operations: a compare
     and an add an entry (count), and a shift and an and besides
     (and_count), a probe of b a level of its binary search and three more
     an entry (pair_count)."""
@@ -1028,15 +1098,81 @@ def packed_timed_cases(kernels, packed) -> list:
     ]
 
 
+#: the wave sizes the packed wave kernels are timed at.
+PACKED_WAVE_TIMED = (8, 32)
+
+
+def packed_wave_slots(torch, packed, n: int) -> tuple[list, list]:
+    """``n`` slots of the timed packed shapes, each in memory of its own:
+    slot z of a is row 30's [1024, 1024] case stack with its rows permuted
+    by a seeded permutation, slot z of b the [1024, 2048] stack permuted
+    by another; both seeded by n and z."""
+    a, a2 = packed["k1024"][0], packed["k2048"][0]
+    gen = torch.Generator(device=a.device).manual_seed(SEED + n)
+    rows = a.shape[0]
+    perms = [torch.randperm(rows, generator=gen, device=a.device) for _ in range(2 * n)]
+    return [a[p] for p in perms[:n]], [a2[p] for p in perms[n:]]
+
+
+def packed_wave_cases(torch, kernels, packed, n: int) -> list:
+    """The three packed wave kernels' timed cases at ``n`` slots
+    (``packed_wave_slots``; and_count against row 1's plane shared by
+    every slot, as a wave of ``Intersect(Row(f=k), Row(f=1))`` pushes it):
+    (name, shape, kernel, plain, bytes, logic ops, popcounts, library), the
+    bytes and operations the single cases' summed over the slots, and_count's
+    plane sectors counted once for the whole wave (``gathered_sectors``). In a package with no wave kernels the kernel column launches
+    the slots one by one through the single wrappers."""
+    sa, sb = packed_wave_slots(torch, packed, n)
+    pl = packed["k1024"][2]
+    planes = [pl] * n
+    rows, k = sa[0].shape
+    kb = sb[0].shape[1]
+    sent = kernels.PACK_SENTINEL
+    distinct = gathered_sectors(torch, kernels, torch.stack(sa), pl)
+
+    def wave(name, *operands):
+        batched = getattr(kernels, f"{name}_batched", None)
+        if batched is None:
+            single_fn = getattr(kernels, name)
+            return lambda: [single_fn(*xs) for xs in zip(*operands)]
+        return lambda: batched(*operands)
+
+    def plain(name, *operands):  # the package's batched plain, or the same stacking
+        single_plain = getattr(kernels, f"{name}_plain")
+        return getattr(kernels, f"{name}_batched_plain", lambda *ops: torch.stack(
+            [single_plain(*xs) for xs in zip(*ops)]))(*operands)
+
+    def library(name, *operands):  # the library calls over the stacked slots
+        return lambda: packed_library_call(torch, kernels, name, *(
+            torch.stack(x) if isinstance(x, list) else x for x in operands))()
+
+    return [
+        ("packed_count_batched", f"{n} x [{rows}, {k}]", wave("packed_count", sa),
+         lambda: plain("packed_count", sa),
+         n * (rows * k * 4 + rows * 4), 2 * n * rows * k, 0, library("packed_count", sa)),
+        ("packed_and_dense_count_batched",
+         f"{n} x [{rows}, {k}] x one [{rows}, {pl.shape[1]}], {distinct} distinct sectors",
+         wave("packed_and_dense_count", sa, planes),
+         lambda: plain("packed_and_dense_count", sa, planes),
+         n * (rows * k * 4 + rows * 4) + 32 * distinct, 4 * n * rows * k, 0,
+         library("packed_and_dense_count", sa, pl)),
+        ("packed_pair_count_batched", f"{n} x [{rows}, {k}] x [{rows}, {kb}]",
+         wave("packed_pair_count", sa, sb),
+         lambda: plain("packed_pair_count", sa, sb),
+         n * (rows * k + rows * kb + rows) * 4, ((kb - 1).bit_length() + 3) * n * rows * k, 0,
+         library("packed_pair_count", sa, sb)),
+    ]
+
+
 def and_count_timed(kernels, a, pl) -> tuple:
     """``packed_and_dense_count``'s timed case on (a, pl), as in
-    ``packed_timed_cases``: its bytes count one 32-byte sector for each
-    distinct word this data gathers."""
+    ``packed_timed_cases``: its bytes count each distinct 32-byte sector
+    of the plane this data gathers once (``gathered_sectors``)."""
+    import torch
     rows, k = a.shape
-    keys = torch_rows(a) * pl.shape[1] + (a >> 5)
-    distinct = int(keys[a < kernels.PACK_SENTINEL].unique().numel())
+    distinct = gathered_sectors(torch, kernels, a, pl)
     return ("packed_and_dense_count",
-            f"[{rows}, {k}] x [{rows}, {pl.shape[1]}], {distinct} distinct words",
+            f"[{rows}, {k}] x [{rows}, {pl.shape[1]}], {distinct} distinct sectors",
             lambda: kernels.packed_and_dense_count(a, pl),
             lambda: kernels.packed_and_dense_count_plain(a, pl),
             a.numel() * 4 + 32 * distinct + rows * 4, 4 * a.numel(), 0)
@@ -1053,50 +1189,90 @@ def pair_count_timed(kernels, a, b) -> tuple:
             (a.numel() + b.numel() + rows) * 4, ((kb - 1).bit_length() + 3) * a.numel(), 0)
 
 
+def gathered_sectors(torch, kernels, entries, pl) -> int:
+    """The distinct 32-byte sectors (8 words, 256 bits) of the plane
+    ``pl`` that ``packed_and_dense_count`` gathers for ``entries``, an
+    ``[S, K]`` stack or a wave of them ``[B, S, K]`` against that one
+    plane: entry i of row r reads word clamp(i >> 5, 0, W - 1) of plane
+    row r, and the sentinels read nothing. At most the plane's own
+    sectors."""
+    words = pl.shape[1]
+    per_row = -(-words // 8)
+    rows = torch.arange(entries.shape[-2], device=entries.device).unsqueeze(1)
+    keys = rows * per_row + ((entries >> 5).clamp(0, words - 1) >> 3)
+    return int(keys[entries < kernels.PACK_SENTINEL].unique().numel())
+
+
 def torch_rows(x):
     """``[S, K]`` row indices of ``x``'s entries, on its device."""
     import torch
     return torch.arange(x.shape[0], device=x.device).unsqueeze(1).expand_as(x)
 
 
-def packed_library(torch, kernels, packed) -> dict:
-    """The library calls beside the packed kernels, on the first timed
-    shape of each (name -> {shape: fn}): the same function from PyTorch
-    calls. expand: ``index_put_(accumulate=True)`` of each entry's bit into
-    a zeroed [S, W + 1] plane, the trash word the sentinels land in cut
-    off; count: a compare and a sum; and_count: ``gather``, a shift and a
-    sum; pair_count: ``searchsorted``, ``gather``, a compare and a sum.
-    Each is checked equal to its kernel first."""
-    a, _, pl = packed["k1024"]
-    a2 = packed["k2048"][0]
-    rows, words = pl.shape
+def packed_library_call(torch, kernels, name: str, a, b=None):
+    """The function of the packed kernel ``name`` on (a, b) from PyTorch
+    calls, a's leading dims any (a wave's slots stacked): count, a compare
+    and a sum; and_count (b the plane, broadcast), ``gather``, a shift and
+    a sum; pair_count, ``searchsorted``, ``gather``, a compare and a sum;
+    expand (b the words), ``index_put_(accumulate=True)`` of each entry's
+    bit into a zeroed [S, W + 1] plane, the trash word the sentinels land
+    in cut off."""
     sent = kernels.PACK_SENTINEL
-
-    def expand():
-        out = torch.zeros((rows, words + 1), dtype=torch.int32, device=a.device)
-        out.index_put_((torch_rows(a), (a >> 5).long()), torch.bitwise_left_shift(
-            torch.ones_like(a), a & 31), accumulate=True)
-        return out[:, :words]
 
     def count():
         return (a < sent).sum(-1, dtype=torch.int32)
 
     def and_count():
-        w = torch.gather(pl, 1, (a >> 5).clamp(0, words - 1).long())
+        words = b.shape[-1]
+        w = torch.gather(b.expand(*a.shape[:-1], words), -1,
+                         (a >> 5).clamp(0, words - 1).long())
         return (((w >> (a & 31)) & 1) * (a < sent)).sum(-1, dtype=torch.int32)
 
     def pair_count():
-        pos = torch.searchsorted(a2, a).clamp(0, a2.shape[1] - 1)
-        return ((torch.gather(a2, 1, pos) == a) & (a < sent)).sum(-1, dtype=torch.int32)
+        pos = torch.searchsorted(b, a).clamp(0, b.shape[-1] - 1)
+        return ((torch.gather(b, -1, pos) == a) & (a < sent)).sum(-1, dtype=torch.int32)
 
-    fns = {"packed_count": count, "packed_and_dense_count": and_count,
-           "packed_pair_count": pair_count, "packed_expand": expand}
+    def expand():
+        out = torch.zeros((a.shape[0], b + 1), dtype=torch.int32, device=a.device)
+        out.index_put_((torch_rows(a), (a >> 5).long()), torch.bitwise_left_shift(
+            torch.ones_like(a), a & 31), accumulate=True)
+        return out[:, :b]
+
+    return {"packed_count": count, "packed_and_dense_count": and_count,
+            "packed_pair_count": pair_count, "packed_expand": expand}[name]
+
+
+def packed_library(torch, kernels, packed) -> dict:
+    """``packed_library_call`` beside each packed kernel on its first timed
+    shape (name -> {shape: fn}), each checked equal to its kernel first."""
+    a, _, pl = packed["k1024"]
+    operands = {"packed_count": (a,), "packed_and_dense_count": (a, pl),
+                "packed_pair_count": (a, packed["k2048"][0]),
+                "packed_expand": (a, pl.shape[1])}
     out = {}
     for name, shape, kern, *_ in packed_timed_cases(kernels, packed):
         if name not in out:
-            out[name] = {shape: fns[name]}
-            if not torch.equal(fns[name](), kern()):
+            fn = packed_library_call(torch, kernels, name, *operands[name])
+            out[name] = {shape: fn}
+            if not torch.equal(fn(), kern()):
                 raise AssertionError(f"{name}: the library calls compute another function")
+    return out
+
+
+def packed_width_cases(torch, kernels, stacks) -> list:
+    """and_count and pair_count at each PACKED_VS_WIDTHS width K, as
+    ``--packed`` times them: and_count of a [1024, K] stack against its
+    case's plane, pair_count of it against a [1024, K] stack of the next
+    seed (``stacks(case, seed)`` makes a case's tensors). (timed case,
+    library call) pairs."""
+    out = []
+    for case, side in PACKED_VS_WIDTHS.values():
+        first, other = stacks(case), stacks(case, SEED + 1)
+        for timed, ops in ((and_count_timed(kernels, first[side], first[2]),
+                            (first[side], first[2])),
+                           (pair_count_timed(kernels, first[side], other[side]),
+                            (first[side], other[side]))):
+            out.append((timed, packed_library_call(torch, kernels, timed[0], *ops)))
     return out
 
 
@@ -1575,6 +1751,29 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
         raise AssertionError("assemble_stack: the library calls compute another stack")
     library = {"assemble_stack": {asm_shape: assemble_library},
                **packed_library(torch, kernels, packed)}
+    # and_count and pair_count at K = 8 and 4096 (PACKED_VS_WIDTHS), and the
+    # packed wave kernels at PACKED_WAVE_TIMED slots, each held to its plain
+    # version and its library calls first.
+    def stacks(case, seed=SEED):
+        return tuple(t(x) for x in packed_case(case, 1024, seed))
+
+    for (name, shape, fn, plain_fn, *work), lib_fn in packed_width_cases(torch, kernels,
+                                                                         stacks):
+        want = plain_fn()
+        if not (torch.equal(fn(), want) and torch.equal(lib_fn(), want)):
+            raise AssertionError(f"{name} {shape}: the kernel or the library calls "
+                                 "differ from the plain version")
+        cases.append((name, shape, fn, plain_fn, *work))
+        library.setdefault(name, {})[shape] = lib_fn
+    for n in PACKED_WAVE_TIMED:
+        for name, shape, fn, plain_fn, *work, lib_fn in packed_wave_cases(
+                torch, kernels, packed, n):
+            want = plain_fn()
+            if not (torch.equal(fn(), want) and torch.equal(lib_fn(), want)):
+                raise AssertionError(f"{name} {shape}: the kernel or the library calls "
+                                     "differ from the plain version")
+            cases.append((name, shape, fn, plain_fn, *work))
+            library.setdefault(name, {})[shape] = lib_fn
     tree3 = [big_a, big_b, t(seeded_words(rng, (1024, w)))]
     # The path the 3-leaf Count took before tree_count: two elementwise
     # torch ops writing 128 MiB planes, then row_counts.
@@ -1587,6 +1786,11 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
         f"{logic_rate:.6g}/s, popcounts {popc_rate:.6g}/s ({LOGIC_PER_CLOCK_SM} and "
         f"{POPC_PER_CLOCK_SM} a clock per SM x {_RATES['sms']} SMs x {_RATES['mhz']:.0f} MHz, "
         f"the maximum SM clock)  [{card}]")
+    # The least time one launch takes under this timer: torch.zeros of
+    # 1024 int32. The packed kernels' bounds lie below it.
+    floor = time_cuda_ms(torch, lambda: torch.zeros(1024, dtype=torch.int32, device=dev),
+                         KERNEL_RUNS)
+    log(f"one-launch floor: torch.zeros of 1024 int32 {floor:.4f} ms  [{card}]")
     timings = {}
     for name, shape, fn, plain_fn, nbytes, logic, popc in cases:
         ms = time_cuda_ms(torch, fn, KERNEL_RUNS)
@@ -1603,6 +1807,9 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
             host = statistics.median(host_enqueue_times(torch, fn, KERNEL_RUNS))
             lib_text += (f"; host enqueue {host:.4f} ms (median); library none "
                          "(torch has no popcount)")
+        if name.startswith("packed_") and name != "packed_expand":
+            share = f"{bound / (ms - floor):.1%}" if ms > floor else "n/a"
+            lib_text += f"; above the one-launch floor {ms - floor:.4f} ms, {share} of bound"
         log(f"kernel {name} {shape}: {ms:.4f} ms, bound {bound:.4f} ms ({term}), "
             f"{bound / ms:.1%} of bound; plain {plain:.4f} ms{lib_text}  [{card}]")
         timings.setdefault(name, (ms, plain, bound, by, lib))
@@ -2827,7 +3034,7 @@ PQL_READS = {
 }
 PQL_ONE_TREE = ("count_3leaf", "count_4leaf")
 PQL_TANIMOTO = "TopN(f2, Row(g=0), n=10, tanimotoThreshold=3)"
-PQL_TANIMOTO_RUNS = 5
+PQL_TANIMOTO_RUNS = 3
 PQL_ATTR = 'TopN(f2, Row(g=0), n=10, attrName="cat", attrValues=["x"])'
 #: the kernels the pql phase's run must launch.
 PQL_KERNELS = ("pair_count", "row_counts", "tree_count", "shift_left")
@@ -3364,9 +3571,21 @@ PACKED_SHARED = 500
 #: row 30's bits in shard 0 after the growth: K = 8192, past auto's 4096.
 PACKED_GROWN_BITS = 5000
 PACKED_KERNELS = ("packed_count", "packed_and_dense_count", "packed_pair_count",
-                  "packed_expand")
+                  "packed_expand", "packed_count_batched", "packed_and_dense_count_batched",
+                  "packed_pair_count_batched")
 #: a TopN filtered by the packed row 30: its filter plans anew each time.
 PACKED_TOPN_QUERY = "TopN(g, Row(f=30), n=5)"
+#: the rows of f the packed waves count: PACKED_WAVE_BITS bits a shard
+#: each (K = 1024), drawn from a pool of 4 x that many positions a shard
+#: (each row the same random quarter of the pool's indices in every
+#: shard), so two rows share about a quarter of their bits.
+PACKED_WAVE_ROWS = tuple(range(40, 48))
+PACKED_WAVE_BITS = 1000
+#: alternating rounds of each held wave, batched and slot by slot.
+PACKED_WAVE_RUNS = 5
+#: alternating rounds of the uncached plans naming row 30 (the TopN takes
+#: about 0.2 s a run).
+PACKED_UNCACHED_RUNS = 10
 
 
 def packed_oracle_bits(words: np.ndarray, cols: np.ndarray, exp: int) -> np.ndarray:
@@ -3375,6 +3594,18 @@ def packed_oracle_bits(words: np.ndarray, cols: np.ndarray, exp: int) -> np.ndar
     local = cols & ((1 << exp) - 1)
     return (words[(cols >> exp).astype(np.int64), (local >> 5).astype(np.int64)]
             >> (local & 31).astype(np.uint32)) & 1
+
+
+def sorted_overlap(a: np.ndarray, b: np.ndarray) -> int:
+    """numpy oracle: the entries two sorted arrays of distinct values share
+    (``len(np.intersect1d(a, b))``, by a search of b for each entry of a
+    rather than a sort of both)."""
+    if (np.diff(a) <= 0).any() or (np.diff(b) <= 0).any():
+        raise ValueError("sorted_overlap takes sorted arrays of distinct values")
+    if not len(b):
+        return 0
+    pos = np.minimum(np.searchsorted(b, a), len(b) - 1)
+    return int((b[pos] == a).sum())
 
 
 def phase_packed(torch, card: str, data: dict, runs: int = QUERY_RUNS) -> dict:
@@ -3393,11 +3624,20 @@ def phase_packed(torch, card: str, data: dict, runs: int = QUERY_RUNS) -> dict:
     same query on a planner with the knob off, and row 30's cold packed
     upload beside the async phase's cold sparse upload. Then row 30 grows
     to PACKED_GROWN_BITS bits in shard 0: its plan is dropped and its Count
-    runs dense (ONE ``row_counts``)."""
+    runs dense (ONE ``row_counts``).
+
+    The waves: 8 rows of f (PACKED_WAVE_ROWS, K = 1024) imported, then one
+    held wave of 8 different Counts on each packed fast path -- the bare
+    rows, each row AND the dense row f=1, each row AND the next -- is ONE
+    launch of its wave kernel, every answer equal to numpy, and the bare
+    wave the same over HTTP (8 connections); each wave's wall time from
+    the release to the last answer beside the same wave launched slot by
+    slot (the planner's batched form withheld, as it was for packed
+    Counts before the wave kernels), in alternating rounds."""
     from pilosa_tpu_torch.config import SHARD_WIDTH
     from pilosa_tpu_torch.exec import Executor, residency, result_to_json
     from pilosa_tpu_torch.ops import kernels
-    from pilosa_tpu_torch.parallel import Planner
+    from pilosa_tpu_torch.parallel import Planner, coalesce
 
     device, node, h = data["device"], data["node"], data["holder"]
     ex = node.executor
@@ -3423,10 +3663,42 @@ def phase_packed(torch, card: str, data: dict, runs: int = QUERY_RUNS) -> dict:
                    for s in range(n_shards)])
     in_f1 = packed_oracle_bits(fw, p30, exp)
     in_g2 = packed_oracle_bits(gw, p30, exp)
-    del fw, gw
+    del gw
+    # Each shard's pool: 4 x PACKED_WAVE_BITS distinct positions, sorted
+    # (the first of a sorted draw's distinct values).
+    draw = np.sort(rng.integers(0, SHARD_WIDTH, (n_shards, 4 * PACKED_WAVE_BITS + 512)), axis=1)
+    first = np.argsort(np.diff(draw, axis=1, prepend=-1) == 0, axis=1, kind="stable")
+    pool = np.take_along_axis(draw, first[:, :4 * PACKED_WAVE_BITS], axis=1)
+    if (np.diff(pool, axis=1) <= 0).any():
+        raise AssertionError("packed wave rows: a shard's pool is not distinct")
+    shard_base = (np.arange(n_shards, dtype=np.int64) << exp)[:, None]
+    wave_pos = [(pool[:, np.sort(rng.permutation(pool.shape[1])[:PACKED_WAVE_BITS])]
+                 + shard_base).ravel().astype(np.uint64) for _ in PACKED_WAVE_ROWS]
+    del draw, first, pool
+    t_import = time.perf_counter()
+    h.field("bench", "f").import_bits(
+        np.repeat(np.asarray(PACKED_WAVE_ROWS, dtype=np.uint64), len(wave_pos[0])),
+        np.concatenate(wave_pos))
+    import_s = time.perf_counter() - t_import
+    nxt = {r: PACKED_WAVE_ROWS[(i + 1) % len(PACKED_WAVE_ROWS)]
+           for i, r in enumerate(PACKED_WAVE_ROWS)}
+    pos_of = dict(zip(PACKED_WAVE_ROWS, wave_pos))
+    #: path -> (wave kernel, {query: numpy count})
+    wave_want = {
+        "bare": ("packed_count_batched",
+                 {f"Count(Row(f={r}))": len(pos_of[r]) for r in PACKED_WAVE_ROWS}),
+        "and_dense": ("packed_and_dense_count_batched",
+                      {f"Count(Intersect(Row(f={r}), Row(f=1)))":
+                       int(packed_oracle_bits(fw, pos_of[r], exp).sum())
+                       for r in PACKED_WAVE_ROWS}),
+        "pair": ("packed_pair_count_batched",
+                 {f"Count(Intersect(Row(f={r}), Row(f={nxt[r]})))":
+                  sorted_overlap(pos_of[r], pos_of[nxt[r]]) for r in PACKED_WAVE_ROWS}),
+    }
+    del fw, wave_pos, pos_of
     and_1 = int(in_f1.sum())
     want = {"count30": len(p30), "and_1": and_1, "and_1_rev": and_1,
-            "and_31": len(np.intersect1d(p30, p31)),
+            "and_31": sorted_overlap(p30, p31),
             "union_1": data["want_count"]["count_row"] + len(p30) - and_1,
             "and3": int((in_f1 & in_g2).sum())}
     queries = {"count30": "Count(Row(f=30))",
@@ -3441,7 +3713,9 @@ def phase_packed(torch, card: str, data: dict, runs: int = QUERY_RUNS) -> dict:
                 "union_1": {"packed_expand": 1, "pair_count": 1},
                 "and3": {"packed_expand": 1, "tree_count": 1}}
     log(f"packed set-up: row f={PACKED_ROW}, {PACKED_ROW_BITS} bits a shard ({PACKED_SHARED} "
-        f"of row 30's), oracles in {time.perf_counter() - t0:.3f} s (host)")
+        f"of row 30's), oracles in {time.perf_counter() - t0:.3f} s (host); rows "
+        f"f={PACKED_WAVE_ROWS[0]}..{PACKED_WAVE_ROWS[-1]}, {PACKED_WAVE_BITS} bits a shard "
+        f"each, imported in {import_s:.3f} s (host)")
     conn = http_client(node.port)
 
     def launched(before):
@@ -3512,6 +3786,72 @@ def phase_packed(torch, card: str, data: dict, runs: int = QUERY_RUNS) -> dict:
         log(f"packed residency: /debug/device class_bytes {doc['class_bytes']}; stacks "
             f"(row, class) -> (bytes, shape): {by_row}  [{card}]")
 
+        # A held wave of 8 different Counts on each packed fast path: ONE
+        # launch of its wave kernel (off the card: one dispatch). Each
+        # query runs once first (its plan and stacks, one single kernel).
+        co = planner.coalescer
+        for path, (kern, table) in wave_want.items():
+            for q, w in table.items():
+                body, l_in = inproc(q)
+                if json.loads(body)["results"] != [w]:
+                    raise AssertionError(f"{q}: {body[:200]!r}, numpy oracle {w}")
+        conns = [http_client(node.port) for _ in PACKED_WAVE_ROWS]
+
+        def over(conn, q):
+            status, body = request(conn, "POST", QUERY_PATH.format("bench"), q)
+            if status != 200:
+                raise AssertionError(f"{q}: HTTP {status} {body[:300]!r}")
+            return json.loads(body)["results"]
+
+        def slot_by_slot(fn, _batched=planner.fn_batched):
+            return None if getattr(fn, "packed", False) else _batched(fn)
+
+        coalesce.set_mode("on")
+        try:
+            wave_ms, wave_got = {}, {}
+            for path, (kern, table) in wave_want.items():
+                qs, want_w = list(table), [[w] for w in table.values()]
+                sides = {"wave": ({kern: 1}, 1), "slot by slot": (
+                    {kern.removesuffix("_batched"): len(qs)}, len(qs))}
+                for rep_i in range(PACKED_WAVE_RUNS):
+                    for side in sides if rep_i % 2 == 0 else list(sides)[::-1]:
+                        if side == "slot by slot":
+                            planner.fn_batched = slot_by_slot
+                        try:
+                            got, dispatched, answers, ms = wave(
+                                co, kernels, len(qs),
+                                lambda k, qs=qs: ex.execute("bench", qs[k], cache=False))
+                        finally:
+                            planner.__dict__.pop("fn_batched", None)
+                        launches, n_dispatch = sides[side]
+                        if (answers != want_w or dispatched != n_dispatch
+                                or (device == "cuda" and got != launches)):
+                            raise AssertionError(f"packed {path} wave, {side}: launches "
+                                                 f"{got}, {dispatched} dispatches, answers "
+                                                 f"{answers}, numpy {want_w}")
+                        wave_ms.setdefault((path, side), []).append(ms)
+                        wave_got[side] = got
+                log(f"packed {path} wave: 8 different Counts ({qs[0]}, ...) -> launches "
+                    f"{wave_got['wave']} (slot by slot {wave_got['slot by slot']}), every "
+                    f"answer = numpy; release to last answer, "
+                    f"{PACKED_WAVE_RUNS} alternating rounds: one wave launch "
+                    f"{spread_ms(wave_ms[(path, 'wave')])} ms; slot by slot (8 launches) "
+                    f"{spread_ms(wave_ms[(path, 'slot by slot')])} ms  [{card}]")
+            kern, table = wave_want["bare"]
+            qs, want_w = list(table), [[w] for w in table.values()]
+            got, dispatched, answers, ms = wave(
+                co, kernels, len(qs), lambda k: over(conns[k], qs[k]))
+            if answers != want_w or dispatched != 1 or (device == "cuda"
+                                                        and got != {kern: 1}):
+                raise AssertionError(f"packed bare wave over HTTP: launches {got}, "
+                                     f"{dispatched} dispatches, answers {answers}")
+            log(f"packed bare wave over HTTP (8 connections): launches {got}, every body "
+                f"= numpy, {ms:.3f} ms from release to the last answer  [{card}]")
+        finally:
+            coalesce.set_mode("auto")
+            for c in conns:
+                c.close()
+
         # Each Count's p50 under auto beside the same query with the knob
         # off: two executors of one make, each on a planner of its own (a
         # plan bakes its leaves' classes in), timed in alternation.
@@ -3558,8 +3898,9 @@ def phase_packed(torch, card: str, data: dict, runs: int = QUERY_RUNS) -> dict:
             sides[mode] = Executor(h, planner=Planner(h), result_cache=False)
         utimes = {(name, mode): [] for name in uncached for mode in sides}
         answers = {}
+        u_runs = min(runs, PACKED_UNCACHED_RUNS)
         try:
-            for rep_i in range(runs + 1):
+            for rep_i in range(u_runs + 1):
                 for name, q in uncached.items():
                     for mode, side in sides.items():
                         residency.set_mode(mode)
@@ -3597,7 +3938,7 @@ def phase_packed(torch, card: str, data: dict, runs: int = QUERY_RUNS) -> dict:
         for name, q in uncached.items():
             p50[name] = {mode: statistics.median(utimes[(name, mode)])
                          for mode in ("auto", "off")}
-            log(f"packed {q} in process to the card's idle, {runs} alternating runs each: "
+            log(f"packed {q} in process to the card's idle, {u_runs} alternating runs each: "
                 f"packed (auto) {spread_ms(utimes[(name, 'auto')])} ms; dense (off) "
                 f"{spread_ms(utimes[(name, 'off')])} ms  [{card}]")
         log(f"packed leaf class of row 30 ({klass}), the walk of {n_shards} fragments on "
@@ -4179,6 +4520,10 @@ def main() -> int:
                                      "packed_pair_count (XLA-fused, no pallas_call)",
                 "packed_expand": "pilosa_tpu/exec/residency.py:158-172 packed_expand "
                                  "(XLA-fused, no pallas_call)"}
+    packed_program = " (planner.py:1906-1929 _packed_count_program)"
+    replaces.update({
+        f"{name}_batched": f"{vmapped} over {replaces[name]}{packed_program}"
+        for name in ("packed_count", "packed_and_dense_count", "packed_pair_count")})
     entries = []
     for name in sources:
         ms, plain, bound, by, lib = timings[name]

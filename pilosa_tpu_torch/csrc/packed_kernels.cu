@@ -7,35 +7,53 @@
 // of n bits costs 4 * K bytes a shard instead of the 128 KiB dense block.
 // Four entry points with a plain C interface, loaded with ctypes by
 // pilosa_tpu_torch/ops/kernels.py, which allocates every output, checks
-// shapes, strides and alignment, and passes PyTorch's current stream:
+// shapes, strides and alignment, and passes PyTorch's current stream. The
+// three count entry points take a wave of B slots of one shape and give
+// [B, S] counts, one launch for up to kWaveSlots slots; a single call is
+// a wave of one. A wave is jax.vmap of the planner's packed count program
+// in the JAX coalescer (pilosa_tpu/parallel/coalesce.py _flush_batched
+// over planner.py _packed_count_program, :1906-1929).
 //
-//   pilosa_packed_count  per row, the entries < SENTINEL
+//   pilosa_packed_count_batched  per row, the entries < SENTINEL
 //     Replaces pilosa_tpu/exec/residency.py packed_count (:175-177).
-//   pilosa_packed_and_dense_count  per row, the entries < SENTINEL whose
-//     bit is set in the row's dense plane
+//   pilosa_packed_and_dense_count_batched  per row, the entries <
+//     SENTINEL whose bit is set in the row's dense plane
 //     Replaces residency.py packed_and_dense_count (:180-188).
-//   pilosa_packed_pair_count  per row, a's entries < SENTINEL found in b
+//   pilosa_packed_pair_count_batched  per row, a's entries < SENTINEL
+//     found in b
 //     Replaces residency.py packed_pair_count (:191-203).
 //   pilosa_packed_expand  the [S, W] dense planes of a packed stack
 //     Replaces residency.py packed_expand (:158-172).
-// The JAX package leaves all four to XLA's fusion inside the planner's
+// The JAX package leaves all of them to XLA's fusion inside the planner's
 // jitted programs (no pallas_call).
+//
+// Every count kernel reads its operands through a slot table (Slots<N>):
+// each slot's base addresses and row strides, passed by value as a
+// __grid_constant__ kernel parameter, so a wave is one operation on the
+// stream with no table copied to the card ahead of it. A single call is
+// the one-slot table; a wave takes tables of kWaveSlots (the coalescer's
+// largest wave), and a longer wave is split into the fewest launches that
+// hold it. blockIdx.y is the slot; the slots of a wave share their shapes
+// (S rows, K entries), not their tensors or strides.
 //
 // Words of a dense plane are 32-bit bit patterns (int32 tensors on the
 // torch side), read and written as uint32, so bit 31 is a bit like any
 // other. Counts are int32 per row.
 //
 // Bounds on the H100: memory bandwidth, and at the planner's shapes
-// (S = 1024, K <= 4096) a few microseconds, under the 5 us that one
+// (S = 1024, K <= 4096) a few microseconds a slot, under the 5 us that one
 // launch of any kernel takes between two CUDA events (torch.zeros of 1024
-// int32 on an H100 80GB HBM3 at 700 W; the times below are from
-// scripts/packed_probe.py on that card):
+// int32 on an H100 80GB HBM3 at 700 W; the times below are from that card:
+// and_count's and pair_count's from an earlier form of
+// scripts/packed_probe.py that took their gathers and searches out). A
+// wave's bound is the sum of its slots'.
 //  * count reads S * K * 4 bytes: 4 MiB at K = 1024, 1.3 us at 3.35 TB/s.
 //  * and_count reads the entries and, for each entry, one 32-byte sector
-//    of the plane (neighbouring entries share a sector where their bits
-//    lie within 256 bits of each other). Those sectors are random reads of
+//    of the plane (entries share a sector where their bits lie in one
+//    256-bit stretch, and the slots of a wave where they gather one plane
+//    row's sector). Those sectors are random reads of
 //    HBM, which it serves well below its streaming rate: at [1024, 1024]
-//    against a [1024, 32768] plane (523,905 sectors) the gathers take 7.5
+//    against a [1024, 32768] plane (488,207 distinct sectors) the gathers take 7.5
 //    us more from HBM than from L2, under any L2 fetch granularity; the
 //    kernel takes 7.8 us with them removed and 17.1 us with them.
 //  * pair_count reads both stacks once; its binary searches run in shared
@@ -59,11 +77,37 @@ constexpr int kThreads = 256;
 constexpr int64_t kTileWords = 8192;
 // The most entries of b that pair_count stages: 128 KiB of shared memory.
 constexpr int64_t kMaxPairEntries = 32768;
+// Entries of a row one packed_count thread loads at a time: 8 on a
+// single launch (a one-slot table; 128 lanes a row at K = 1024), 32 on a
+// wave's (a warp a row). At [1024, 1024] on the H100
+// (scripts/packed_probe.py) 32 took a single launch 0.11 us longer, and 8
+// a wave of 8 slots 0.9 us longer.
+constexpr int kSingleCountBatch = 8;
+constexpr int kWaveCountBatch = 32;
+template <int N>
+__host__ __device__ constexpr int count_batch() {
+  return N == 1 ? kSingleCountBatch : kWaveCountBatch;
+}
 // Entries of a row one and_count thread holds at a time, their plane
 // gathers all in flight together (8 took 17.3 us against 17.1 at K = 1024).
 constexpr int kAndBatch = 16;
 // Entries of a one pair_count thread searches at a time, interleaved.
 constexpr int kPairBatch = 4;
+// Slots of one wave launch: the coalescer's largest wave
+// (pilosa_tpu_torch/parallel/coalesce.py MAX_BATCH), 1 KiB of parameters.
+constexpr int kWaveSlots = 32;
+
+// The operands of a launch's slots: slot z reads row r of a at a[z] + r *
+// a_stride[z] and of b (the plane, or the second stack) at b[z] + r *
+// b_stride[z]. Passed by value as a __grid_constant__ parameter and read
+// in place from the parameter bank.
+template <int N>
+struct Slots {
+  const int32_t* a[N];
+  const int32_t* b[N];
+  int64_t a_stride[N];
+  int64_t b_stride[N];
+};
 
 // Sum of v over the block's threads, valid in thread 0. Every thread of
 // the block must call it.
@@ -77,50 +121,6 @@ __device__ __forceinline__ int block_sum(int v, int* scratch) {
   if (threadIdx.x == 0)
     for (int w = 0; w < static_cast<int>(blockDim.x / 32); ++w) total += scratch[w];
   return total;
-}
-
-// ---------------------------------------------------------------------------
-// packed_count: G threads a row (a warp for short rows, the whole block for
-// long ones), 256 / G rows a block. Every entry of the row is read once,
-// 16 bytes a thread a load where the row is aligned, neighbouring threads
-// on neighbouring addresses; the count is a compare and an add per entry.
-// It counts every entry < sentinel and does not stop at the first
-// sentinel, so it agrees with the function on any input, sorted or not.
-// ---------------------------------------------------------------------------
-template <int G, bool VEC>
-__global__ void __launch_bounds__(kThreads)
-packed_count_kernel(const int32_t* __restrict__ idx, int32_t* __restrict__ out,
-                    int64_t rows, int64_t k, int64_t stride, int32_t sentinel) {
-  __shared__ int scratch[kThreads / 32];
-  constexpr int kRowsPerBlock = kThreads / G;
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + threadIdx.x / G;
-  const int lane = threadIdx.x % G;
-  int c = 0;
-  if (row < rows) {
-    const int32_t* p = idx + row * stride;
-    if (VEC) {
-      const int4* p4 = reinterpret_cast<const int4*>(p);
-      for (int64_t j = lane; j < k / 4; j += G) {
-        const int4 v = __ldg(p4 + j);
-        c += (v.x < sentinel) + (v.y < sentinel) + (v.z < sentinel) + (v.w < sentinel);
-      }
-    } else {
-      for (int64_t j = lane; j < k; j += G) c += __ldg(p + j) < sentinel;
-    }
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) c += __shfl_down_sync(0xffffffffu, c, o);
-  if (G == 32) {
-    if (lane == 0 && row < rows) out[row] = c;
-    return;
-  }
-  if (threadIdx.x % 32 == 0) scratch[threadIdx.x / 32] = c;
-  __syncthreads();
-  if (threadIdx.x == 0 && row < rows) {
-    int total = 0;
-    for (int w = 0; w < kThreads / 32; ++w) total += scratch[w];
-    out[row] = total;
-  }
 }
 
 // Entries of a row loaded into registers ahead of their use: positions
@@ -139,12 +139,89 @@ __device__ __forceinline__ void load_entries(const int32_t* __restrict__ p, int6
   }
 }
 
+// The sum of c over each row's 2^n lanes (neighbouring threads, at most
+// a block), stored to *dst by the row's lane 0 where valid: by shuffles
+// within a warp, across warps in shared memory. Every thread of the block
+// must call it.
+__device__ __forceinline__ void store_row_sum(int c, int lanes, int lane, bool valid,
+                                              int32_t* dst, int* scratch) {
+  if (lanes <= 32) {  // the row's lanes lie in one warp
+    for (int o = lanes >> 1; o > 0; o >>= 1) c += __shfl_xor_sync(0xffffffffu, c, o);
+    if (lane == 0 && valid) *dst = c;
+    return;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) c += __shfl_xor_sync(0xffffffffu, c, o);
+  if (threadIdx.x % 32 == 0) scratch[threadIdx.x / 32] = c;
+  __syncthreads();
+  if (lane == 0 && valid) {
+    int total = 0;
+    for (int j = 0; j < lanes / 32; ++j) total += scratch[threadIdx.x / 32 + j];
+    *dst = total;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// packed_count: 2^lanes_log2 threads a row (the fewest that take the row
+// in one batch of E = count_batch<N>() entries each, at most a block),
+// blockDim / that many rows a block, blockIdx.y the slot. A thread's batch
+// is loaded whole before any entry is counted -- E / 4 16-byte loads
+// where every row is aligned, E 4-byte loads (load_entries) otherwise -- so the row's bytes are all in flight at once, one round
+// trip to device memory a batch; the lanes of a warp take neighbouring
+// 16-byte words (or entries) at each load. The launcher halves the block
+// while the grid would leave SMs without two blocks. The count is a
+// compare and an add an entry. It counts every entry <
+// sentinel and does not stop at the first sentinel, so it agrees with
+// the function on any input, sorted or not.
+// ---------------------------------------------------------------------------
+template <bool VEC, int N>
+__global__ void __launch_bounds__(kThreads)
+packed_count_kernel(const __grid_constant__ Slots<N> slots, int32_t* __restrict__ out,
+                    int64_t rows, int64_t k, int32_t sentinel, int lanes_log2) {
+  __shared__ int scratch[kThreads / 32];
+  const int lanes = 1 << lanes_log2;
+  const int lane = threadIdx.x & (lanes - 1);
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> lanes_log2) +
+                      (threadIdx.x >> lanes_log2);
+  const int slot = N == 1 ? 0 : blockIdx.y;
+  constexpr int E = count_batch<N>();
+  constexpr int kVecs = E / 4;
+  int c = 0;
+  if (row < rows) {
+    const int32_t* p = slots.a[slot] + row * slots.a_stride[slot];
+    if (VEC) {
+      const int4* p4 = reinterpret_cast<const int4*>(p);
+      const int64_t k4 = k / 4;
+      for (int64_t base = 0; base < k4; base += static_cast<int64_t>(kVecs) * lanes) {
+        int4 v[kVecs];
+#pragma unroll
+        for (int u = 0; u < kVecs; ++u) {
+          const int64_t q = base + lane + static_cast<int64_t>(u) * lanes;
+          v[u] = q < k4 ? __ldg(p4 + q) : make_int4(sentinel, sentinel, sentinel, sentinel);
+        }
+#pragma unroll
+        for (int u = 0; u < kVecs; ++u)
+          c += (v[u].x < sentinel) + (v[u].y < sentinel) + (v[u].z < sentinel) +
+               (v[u].w < sentinel);
+      }
+    } else {
+      for (int64_t base = 0; base < k; base += static_cast<int64_t>(E) * lanes) {
+        int32_t e[E];
+        load_entries<E>(p, k, base, lane, lanes, sentinel, e);
+#pragma unroll
+        for (int u = 0; u < E; ++u) c += e[u] < sentinel;
+      }
+    }
+  }
+  store_row_sum(c, lanes, lane, row < rows, out + slot * rows + row, scratch);
+}
+
 // ---------------------------------------------------------------------------
 // packed_and_dense_count: 2^lanes_log2 threads a row (the fewest that
 // cover the row in one batch of kAndBatch entries each, at most a block),
-// blockDim / that many rows a block. A thread's batch is loaded whole
-// (load_entries), then every plane gather of the batch is issued before
-// the first is consumed, and the next batch's entries load while those
+// blockDim / that many rows a block, blockIdx.y the slot. A thread's
+// batch is loaded whole (load_entries), then every plane gather of the
+// batch is issued before the first is consumed, and the next batch's entries load while those
 // gathers are in flight: about one round trip to device memory a batch
 // on a thread's path, not two an entry. The lanes of a warp take
 // neighbouring entries, so one gather instruction reads 32 neighbouring
@@ -161,23 +238,25 @@ __device__ __forceinline__ void load_entries(const int32_t* __restrict__ p, int6
 // row read nothing. The clamp and the arithmetic shift are the JAX
 // function's, so the kernel agrees with it on any input; only sector
 // sharing between neighbouring lanes relies on sortedness. The row's
-// lanes sum by shuffles, across warps in shared memory.
+// lanes sum by store_row_sum. A slot's plane is its b.
 // ---------------------------------------------------------------------------
+template <int N>
 __global__ void __launch_bounds__(kThreads)
-packed_and_dense_kernel(const int32_t* __restrict__ idx, const uint32_t* __restrict__ plane,
-                        int32_t* __restrict__ out, int64_t rows, int64_t k,
-                        int64_t idx_stride, int64_t words, int64_t plane_stride,
-                        int32_t sentinel, int lanes_log2) {
+packed_and_dense_kernel(const __grid_constant__ Slots<N> slots, int32_t* __restrict__ out,
+                        int64_t rows, int64_t k, int64_t words, int32_t sentinel,
+                        int lanes_log2) {
   __shared__ int scratch[kThreads / 32];
   const int lanes = 1 << lanes_log2;
   const int lane = threadIdx.x & (lanes - 1);
   const int64_t row = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> lanes_log2) +
                       (threadIdx.x >> lanes_log2);
+  const int slot = N == 1 ? 0 : blockIdx.y;
   const int64_t step = static_cast<int64_t>(kAndBatch) * lanes;
   int c = 0;
   if (row < rows) {
-    const int32_t* p = idx + row * idx_stride;
-    const uint32_t* w = plane + row * plane_stride;
+    const int32_t* p = slots.a[slot] + row * slots.a_stride[slot];
+    const uint32_t* w =
+        reinterpret_cast<const uint32_t*>(slots.b[slot]) + row * slots.b_stride[slot];
     int32_t e[kAndBatch];
     load_entries<kAndBatch>(p, k, 0, lane, lanes, sentinel, e);
     for (int64_t base = 0; base < k; base += step) {
@@ -198,54 +277,41 @@ packed_and_dense_kernel(const int32_t* __restrict__ idx, const uint32_t* __restr
       }
     }
   }
-  if (lanes <= 32) {  // the row's lanes lie in one warp
-    for (int o = lanes >> 1; o > 0; o >>= 1) c += __shfl_xor_sync(0xffffffffu, c, o);
-    if (lane == 0 && row < rows) out[row] = c;
-    return;
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) c += __shfl_xor_sync(0xffffffffu, c, o);
-  if (threadIdx.x % 32 == 0) scratch[threadIdx.x / 32] = c;
-  __syncthreads();
-  if (lane == 0 && row < rows) {
-    int total = 0;
-    for (int j = 0; j < lanes / 32; ++j) total += scratch[threadIdx.x / 32 + j];
-    out[row] = total;
-  }
+  store_row_sum(c, lanes, lane, row < rows, out + slot * rows + row, scratch);
 }
 
 // ---------------------------------------------------------------------------
-// packed_pair_count: a block a row. Thread 0 starts one bulk copy of b's
-// row (kb entries, at most kMaxPairEntries) into dynamic shared memory on
-// an mbarrier (BULK: the row 16-byte aligned and kb a multiple of 4;
-// otherwise the block stages it with coalesced loads), and while it lands
-// every thread loads its first kPairBatch entries of a (load_entries; the
-// SASS issues them before the wait on the barrier). Then each thread runs
-// the searches of its batch interleaved, step by step, so their
-// shared-memory probes overlap, while the next batch of a loads. The
-// lanes of a warp hold neighbouring entries of a: for a sorted a their
-// probes fall on few addresses a step, where a lane's four neighbouring
-// entries put a warp's probes four entries apart and into more bank
-// conflicts (12.3 against 10.9 us at [1024, 1024] x [1024, 2048]). A
-// search is branchless, ceil(log2 kb) halvings of a window that holds the
-// leftmost position whose entry is >= a's, the same number for every
-// thread; that position, clipped to kb - 1, is a hit where b holds a's
-// entry and a's entry is < sentinel, so a's sentinels never match b's
-// padding. This is jnp.searchsorted's leftmost position, and it relies on
-// b's row being sorted (non-decreasing; duplicates allowed); a needs no
-// order.
+// packed_pair_count: a block a row (blockIdx.x the row, blockIdx.y the
+// slot). Thread 0 starts one bulk copy of b's row (kb entries, at most
+// kMaxPairEntries) into dynamic shared memory on an mbarrier (BULK: the
+// row 16-byte aligned and kb a multiple of 4; otherwise the block stages
+// it with coalesced loads), and while it lands every thread loads its
+// first kPairBatch entries of a (load_entries; the SASS issues them before
+// the wait on the barrier). Then each thread runs the searches of its
+// batch interleaved, step by step, so their shared-memory probes overlap,
+// while the next batch of a loads. The lanes of a warp hold neighbouring
+// entries of a: for a sorted a their probes fall on few addresses a step,
+// where a lane's four neighbouring entries put a warp's probes four
+// entries apart and into more bank conflicts (12.3 against 10.9 us at
+// [1024, 1024] x [1024, 2048]). A search is branchless, ceil(log2 kb)
+// halvings of a window that holds the leftmost position whose entry is >=
+// a's, the same number for every thread; that position, clipped to kb - 1,
+// is a hit where b holds a's entry and a's entry is < sentinel, so a's
+// sentinels never match b's padding. This is jnp.searchsorted's leftmost
+// position, and it relies on b's row being sorted (non-decreasing;
+// duplicates allowed); a needs no order.
 // ---------------------------------------------------------------------------
-template <bool BULK>
+template <bool BULK, int N>
 __global__ void __launch_bounds__(kThreads)
-packed_pair_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
-                   int32_t* __restrict__ out, int64_t ka, int64_t a_stride, int64_t kb,
-                   int64_t b_stride, int32_t sentinel) {
+packed_pair_kernel(const __grid_constant__ Slots<N> slots, int32_t* __restrict__ out,
+                   int64_t ka, int64_t kb, int32_t sentinel) {
   extern __shared__ __align__(16) int32_t sb[];
   __shared__ int scratch[kThreads / 32];
   __shared__ uint64_t bar;
   const int64_t row = blockIdx.x;
-  const int32_t* pa = a + row * a_stride;
-  const int32_t* pb = b + row * b_stride;
+  const int slot = N == 1 ? 0 : blockIdx.y;
+  const int32_t* pa = slots.a[slot] + row * slots.a_stride[slot];
+  const int32_t* pb = slots.b[slot] + row * slots.b_stride[slot];
   if (BULK && threadIdx.x == 0) {
     mbar_init(&bar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -286,7 +352,7 @@ packed_pair_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
     }
   }
   const int total = block_sum(c, scratch);
-  if (threadIdx.x == 0) out[row] = total;
+  if (threadIdx.x == 0) out[static_cast<int64_t>(slot) * gridDim.x + row] = total;
 }
 
 // ---------------------------------------------------------------------------
@@ -354,112 +420,192 @@ int device_sms() {
   return sms;
 }
 
-}  // namespace
-
-// out[r] = #{j < k : idx[r * stride + j] < sentinel} for r in [0, rows).
-// vec: idx is 16-byte aligned, k and stride multiples of 4. Returns the
-// launch's CUDA error.
-extern "C" int pilosa_packed_count(const void* idx, void* out, int64_t rows, int64_t k,
-                                   int64_t stride, int sentinel, int vec, void* stream) {
-  if (rows < 0 || k <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (rows == 0) return static_cast<int>(cudaSuccess);
-  auto s = static_cast<cudaStream_t>(stream);
-  const auto* pi = static_cast<const int32_t*>(idx);
-  auto* po = static_cast<int32_t*>(out);
-  // A warp a row up to 1024 entries (32 of them a lane); past that the
-  // whole block, so a long row is not left to one warp.
-  const bool wide = k > 1024;
-  const int64_t rows_per_block = wide ? 1 : kThreads / 32;
-  const int64_t blocks = (rows + rows_per_block - 1) / rows_per_block;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned g = static_cast<unsigned>(blocks);
-  if (wide && vec)
-    packed_count_kernel<kThreads, true><<<g, kThreads, 0, s>>>(pi, po, rows, k, stride, sentinel);
-  else if (wide)
-    packed_count_kernel<kThreads, false><<<g, kThreads, 0, s>>>(pi, po, rows, k, stride, sentinel);
-  else if (vec)
-    packed_count_kernel<32, true><<<g, kThreads, 0, s>>>(pi, po, rows, k, stride, sentinel);
-  else
-    packed_count_kernel<32, false><<<g, kThreads, 0, s>>>(pi, po, rows, k, stride, sentinel);
-  return static_cast<int>(cudaGetLastError());
+// log2 of the fewest lanes a row, a power of two up to a block, that take
+// a row of k entries in one batch of per_lane entries each.
+int row_lanes_log2(int64_t k, int64_t per_lane) {
+  int l = 0;
+  while ((1 << l) < kThreads && (per_lane << l) < k) ++l;
+  return l;
 }
 
-// out[r] = sum over j < k with i = idx[r * idx_stride + j] < sentinel of
-// bit (i & 31) of plane[r * plane_stride + clamp(i >> 5, 0, words - 1)],
-// for r in [0, rows). Returns the launch's CUDA error.
-extern "C" int pilosa_packed_and_dense_count(const void* idx, const void* plane, void* out,
-                                             int64_t rows, int64_t k, int64_t idx_stride,
-                                             int64_t words, int64_t plane_stride,
-                                             int sentinel, void* stream) {
-  if (rows < 0 || k <= 0 || words <= 0 || rows > 0x7fffffffLL)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (rows == 0) return static_cast<int>(cudaSuccess);
-  // The fewest lanes a row that take it in one batch each, at most a
-  // block; then a block of kThreads, halved (not below a warp or a row's
-  // lanes) while the grid would leave SMs without two blocks.
-  int lanes_log2 = 0;
-  while ((1 << lanes_log2) < kThreads && (static_cast<int64_t>(kAndBatch) << lanes_log2) < k)
-    ++lanes_log2;
-  const int lanes = 1 << lanes_log2;
+// Blocks of a grid of `slots` x rows rows at `lanes` threads a row and
+// `threads` a block.
+int64_t row_blocks(int64_t rows, int lanes, int threads) {
+  const int64_t per_block = threads / lanes;
+  return (rows + per_block - 1) / per_block;
+}
+
+// A block of kThreads, halved (not below a warp or a row's lanes) while
+// the grid would leave SMs without two blocks.
+int spread_threads(int64_t rows, int slots, int lanes) {
   int threads = kThreads;
-  auto blocks = [&](int t) {
-    const int64_t per_block = t / lanes;
-    return (rows + per_block - 1) / per_block;
-  };
-  while (threads > 32 && threads > lanes && blocks(threads) < 2 * device_sms()) threads >>= 1;
-  const unsigned grid = static_cast<unsigned>(blocks(threads));
-  auto s = static_cast<cudaStream_t>(stream);
-  const auto* pi = static_cast<const int32_t*>(idx);
-  const auto* pp = static_cast<const uint32_t*>(plane);
-  auto* po = static_cast<int32_t*>(out);
-  packed_and_dense_kernel<<<grid, threads, 0, s>>>(pi, pp, po, rows, k, idx_stride, words,
-                                                   plane_stride, sentinel, lanes_log2);
-  return static_cast<int>(cudaGetLastError());
+  while (threads > 32 && threads > lanes &&
+         slots * row_blocks(rows, lanes, threads) < 2 * device_sms())
+    threads >>= 1;
+  return threads;
 }
 
-// out[r] = #{j < ka : a_r[j] < sentinel and a_r[j] == b_r[p]}, p the
-// leftmost position in b_r (sorted) whose entry is >= a_r[j], clipped to
-// kb - 1; a_r = a + r * a_stride, b_r = b + r * b_stride. kb <=
-// kMaxPairEntries. Returns the first CUDA error.
-extern "C" int pilosa_packed_pair_count(const void* a, const void* b, void* out, int64_t rows,
-                                        int64_t ka, int64_t a_stride, int64_t kb,
-                                        int64_t b_stride, int sentinel, void* stream) {
-  if (rows < 0 || ka <= 0 || kb <= 0 || kb > kMaxPairEntries || rows > 0x7fffffffLL)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (rows == 0) return static_cast<int>(cudaSuccess);
-  const size_t smem = static_cast<size_t>(kb) * sizeof(int32_t);
-  // Above 48 KiB a block's dynamic shared memory must be asked for, for
-  // each of the kernel's forms.
-  static size_t opted = 48 << 10;
-  if (smem > opted) {
-    const int most = static_cast<int>(kMaxPairEntries * sizeof(int32_t));
-    const void* forms[] = {reinterpret_cast<const void*>(packed_pair_kernel<true>),
-                           reinterpret_cast<const void*>(packed_pair_kernel<false>)};
-    for (const void* fn : forms) {
-      const cudaError_t err =
-          cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    opted = kMaxPairEntries * sizeof(int32_t);
+// Slots [first, first + m) of a wave's operand arrays as a table of N
+// (b and b_strides may be null).
+template <int N>
+Slots<N> slot_table(const void* const* a, const int64_t* a_strides, const void* const* b,
+                    const int64_t* b_strides, int first, int m) {
+  Slots<N> t{};
+  for (int z = 0; z < m; ++z) {
+    t.a[z] = static_cast<const int32_t*>(a[first + z]);
+    t.a_stride[z] = a_strides[first + z];
+    t.b[z] = b ? static_cast<const int32_t*>(b[first + z]) : nullptr;
+    t.b_stride[z] = b_strides ? b_strides[first + z] : 0;
   }
-  const bool bulk = aligned16(b, b_stride, kb);
+  return t;
+}
+
+// Runs launch(table, m, out) over a wave of n slots in the fewest launches
+// of at most kWaveSlots slots (a launch of one slot takes the one-slot
+// table), out advancing by `rows` counts a slot. Returns the first CUDA
+// error.
+template <class Launch>
+int each_launch(int n, const void* const* a, const int64_t* a_strides, const void* const* b,
+                const int64_t* b_strides, int64_t rows, void* out, Launch launch) {
+  for (int first = 0; first < n; first += kWaveSlots) {
+    const int m = n - first < kWaveSlots ? n - first : kWaveSlots;
+    int32_t* o = static_cast<int32_t*>(out) + static_cast<int64_t>(first) * rows;
+    const cudaError_t err =
+        m == 1 ? launch(slot_table<1>(a, a_strides, b, b_strides, first, 1), 1, o)
+               : launch(slot_table<kWaveSlots>(a, a_strides, b, b_strides, first, m), m, o);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaSuccess);
+}
+
+template <int N>
+cudaError_t launch_count(const Slots<N>& t, int m, int32_t* out, int64_t rows, int64_t k,
+                         int32_t sentinel, bool vec, cudaStream_t s) {
+  const int lanes_log2 = row_lanes_log2(k, count_batch<N>());
+  const int threads = spread_threads(rows, m, 1 << lanes_log2);
+  const int64_t bx = row_blocks(rows, 1 << lanes_log2, threads);
+  if (bx > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const dim3 grid(static_cast<unsigned>(bx), static_cast<unsigned>(m));
+  if (vec)
+    packed_count_kernel<true, N><<<grid, threads, 0, s>>>(t, out, rows, k, sentinel,
+                                                          lanes_log2);
+  else
+    packed_count_kernel<false, N><<<grid, threads, 0, s>>>(t, out, rows, k, sentinel,
+                                                           lanes_log2);
+  return cudaGetLastError();
+}
+
+template <int N>
+cudaError_t launch_and(const Slots<N>& t, int m, int32_t* out, int64_t rows, int64_t k,
+                       int64_t words, int32_t sentinel, cudaStream_t s) {
+  const int lanes_log2 = row_lanes_log2(k, kAndBatch);
+  const int threads = spread_threads(rows, m, 1 << lanes_log2);
+  const int64_t bx = row_blocks(rows, 1 << lanes_log2, threads);
+  if (bx > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const dim3 grid(static_cast<unsigned>(bx), static_cast<unsigned>(m));
+  packed_and_dense_kernel<N><<<grid, threads, 0, s>>>(t, out, rows, k, words, sentinel,
+                                                      lanes_log2);
+  return cudaGetLastError();
+}
+
+// Above 48 KiB a block's dynamic shared memory must be asked for, for
+// each of pair_count's forms; asked once a process, for the most it takes.
+cudaError_t pair_smem_opt_in(size_t smem) {
+  static bool opted = false;
+  if (smem <= (48 << 10) || opted) return cudaSuccess;
+  const int most = static_cast<int>(kMaxPairEntries * sizeof(int32_t));
+  const void* forms[] = {reinterpret_cast<const void*>(packed_pair_kernel<true, 1>),
+                         reinterpret_cast<const void*>(packed_pair_kernel<false, 1>),
+                         reinterpret_cast<const void*>(packed_pair_kernel<true, kWaveSlots>),
+                         reinterpret_cast<const void*>(packed_pair_kernel<false, kWaveSlots>)};
+  for (const void* fn : forms) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    if (err != cudaSuccess) return err;
+  }
+  opted = true;
+  return cudaSuccess;
+}
+
+template <int N>
+cudaError_t launch_pair(const Slots<N>& t, int m, int32_t* out, int64_t rows, int64_t ka,
+                        int64_t kb, int32_t sentinel, bool bulk, cudaStream_t s) {
+  const size_t smem = static_cast<size_t>(kb) * sizeof(int32_t);
+  const cudaError_t err = pair_smem_opt_in(smem);
+  if (err != cudaSuccess) return err;
   // Threads enough for a batch of a's entries each (and, staging b
   // without the bulk copy, kPairBatch of b's each).
   const int64_t per_thread = (ka + kPairBatch - 1) / kPairBatch;
   const int64_t stage = bulk ? 0 : (kb + kPairBatch - 1) / kPairBatch;
   const int threads = block_threads(per_thread > stage ? per_thread : stage);
-  auto s = static_cast<cudaStream_t>(stream);
-  const auto* pa = static_cast<const int32_t*>(a);
-  const auto* pb = static_cast<const int32_t*>(b);
-  auto* po = static_cast<int32_t*>(out);
-  const unsigned grid = static_cast<unsigned>(rows);
+  const dim3 grid(static_cast<unsigned>(rows), static_cast<unsigned>(m));
   if (bulk)
-    packed_pair_kernel<true><<<grid, threads, smem, s>>>(pa, pb, po, ka, a_stride, kb, b_stride,
-                                                         sentinel);
+    packed_pair_kernel<true, N><<<grid, threads, smem, s>>>(t, out, ka, kb, sentinel);
   else
-    packed_pair_kernel<false><<<grid, threads, smem, s>>>(pa, pb, po, ka, a_stride, kb, b_stride,
-                                                          sentinel);
-  return static_cast<int>(cudaGetLastError());
+    packed_pair_kernel<false, N><<<grid, threads, smem, s>>>(t, out, ka, kb, sentinel);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// out[z * rows + r] = #{j < k : idx[z][r * strides[z] + j] < sentinel}
+// for the n slots idx[z] of one [rows, k] shape, in ceil(n / kWaveSlots)
+// launches, by 16-byte loads where every slot is 16-byte aligned and k
+// and every stride are multiples of 4. Returns the first CUDA error.
+extern "C" int pilosa_packed_count_batched(const void* const* idx, const int64_t* strides,
+                                           int n, void* out, int64_t rows, int64_t k,
+                                           int sentinel, void* stream) {
+  if (n <= 0 || rows < 0 || k <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows == 0) return static_cast<int>(cudaSuccess);
+  bool vec = true;
+  for (int z = 0; z < n; ++z) vec = vec && aligned16(idx[z], strides[z], k);
+  auto s = static_cast<cudaStream_t>(stream);
+  return each_launch(n, idx, strides, nullptr, nullptr, rows, out,
+                     [&](const auto& t, int m, int32_t* o) {
+                       return launch_count(t, m, o, rows, k, sentinel, vec, s);
+                     });
+}
+
+// out[z * rows + r] = sum over j < k with i = idx_r[j] < sentinel of bit
+// (i & 31) of plane_r[clamp(i >> 5, 0, words - 1)], idx_r = idx[z] + r *
+// idx_strides[z] and plane_r = planes[z] + r * plane_strides[z], for the n
+// slots of one [rows, k] x [rows, words] shape, in ceil(n / kWaveSlots)
+// launches. Returns the first CUDA error.
+extern "C" int pilosa_packed_and_dense_count_batched(
+    const void* const* idx, const int64_t* idx_strides, const void* const* planes,
+    const int64_t* plane_strides, int n, void* out, int64_t rows, int64_t k, int64_t words,
+    int sentinel, void* stream) {
+  if (n <= 0 || rows < 0 || k <= 0 || words <= 0 || rows > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (rows == 0) return static_cast<int>(cudaSuccess);
+  auto s = static_cast<cudaStream_t>(stream);
+  return each_launch(n, idx, idx_strides, planes, plane_strides, rows, out,
+                     [&](const auto& t, int m, int32_t* o) {
+                       return launch_and(t, m, o, rows, k, words, sentinel, s);
+                     });
+}
+
+// out[z * rows + r] = #{j < ka : a_r[j] < sentinel and a_r[j] == b_r[p]},
+// p the leftmost position in b_r (sorted) whose entry is >= a_r[j],
+// clipped to kb - 1; a_r = a[z] + r * a_strides[z], b_r = b[z] + r *
+// b_strides[z], for the n slots of one [rows, ka] x [rows, kb] shape, in
+// ceil(n / kWaveSlots) launches; kb <= kMaxPairEntries; b staged by the
+// bulk copy only where every slot's b allows it. Returns the first CUDA
+// error.
+extern "C" int pilosa_packed_pair_count_batched(const void* const* a, const int64_t* a_strides,
+                                                const void* const* b, const int64_t* b_strides,
+                                                int n, void* out, int64_t rows, int64_t ka,
+                                                int64_t kb, int sentinel, void* stream) {
+  if (n <= 0 || rows < 0 || ka <= 0 || kb <= 0 || kb > kMaxPairEntries || rows > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (rows == 0) return static_cast<int>(cudaSuccess);
+  bool bulk = true;
+  for (int z = 0; z < n; ++z) bulk = bulk && aligned16(b[z], b_strides[z], kb);
+  auto s = static_cast<cudaStream_t>(stream);
+  return each_launch(n, a, a_strides, b, b_strides, rows, out,
+                     [&](const auto& t, int m, int32_t* o) {
+                       return launch_pair(t, m, o, rows, ka, kb, sentinel, bulk, s);
+                     });
 }
 
 // out ([rows, words], contiguous) = the dense planes of idx: bit (i & 31)

@@ -38,6 +38,12 @@
   residency class's ``[S, K]`` int32 index stacks (sorted, distinct
   in-shard positions, padded with ``PACK_SENTINEL``): the kernel variants
   of pilosa_tpu/exec/residency.py, XLA-fused in the JAX package.
+  ``packed_count_batched``, ``packed_and_dense_count_batched`` and
+  ``packed_pair_count_batched`` count a wave of B same-shape slots in one
+  launch (up to ``PACKED_WAVE_SLOTS`` slots a launch), the slot table
+  passed by value: ``jax.vmap`` of the packed count program in the JAX
+  coalescer. The single count wrappers launch the same kernels over a
+  wave of one.
 
 On a CUDA tensor each wrapper launches its hand-written kernel (built at
 first use, see ``ops/build.py``) or raises; on a CPU tensor it runs the
@@ -70,7 +76,8 @@ LAUNCHES = {"pair_count": 0, "row_counts": 0, "bsi_compare": 0, "bsi_minmax": 0,
             "tree_count": 0, "shift_left": 0, "pair_count_batched": 0,
             "row_counts_batched": 0, "tree_count_batched": 0, "assemble_stack": 0,
             "group_count": 0, "packed_count": 0, "packed_and_dense_count": 0,
-            "packed_pair_count": 0, "packed_expand": 0}
+            "packed_pair_count": 0, "packed_expand": 0, "packed_count_batched": 0,
+            "packed_and_dense_count_batched": 0, "packed_pair_count_batched": 0}
 #: leaf records tree_count_batched's launches were given (slots x tape
 #: leaves) and the distinct leaves they read (each slot group's once):
 #: how much its waves share.
@@ -120,12 +127,12 @@ _SIGNATURES = {
                                _I64, _I32, _VP],
     },
     "packed_kernels.cu": {
-        "pilosa_packed_count": [_VP, _VP, _I64, _I64, _I64, _I32, _I32, _VP],
-        "pilosa_packed_and_dense_count": [_VP, _VP, _VP, _I64, _I64, _I64, _I64,
-                                          _I64, _I32, _VP],
-        "pilosa_packed_pair_count": [_VP, _VP, _VP, _I64, _I64, _I64, _I64, _I64,
-                                     _I32, _VP],
         "pilosa_packed_expand": [_VP, _VP, _I64, _I64, _I64, _I64, _VP],
+        "pilosa_packed_count_batched": [_VP, _VP, _I32, _VP, _I64, _I64, _I32, _VP],
+        "pilosa_packed_and_dense_count_batched": [_VP, _VP, _VP, _VP, _I32, _VP, _I64,
+                                                  _I64, _I64, _I32, _VP],
+        "pilosa_packed_pair_count_batched": [_VP, _VP, _VP, _VP, _I32, _VP, _I64, _I64,
+                                             _I64, _I32, _VP],
     },
 }
 _libs: dict[str, ctypes.CDLL] = {}
@@ -449,6 +456,22 @@ def packed_pair_count_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     pos = torch.clamp(pos, 0, b.shape[-1] - 1)
     hit = (torch.gather(b, -1, pos) == a) & (a < PACK_SENTINEL)
     return hit.sum(dim=-1, dtype=torch.int32)
+
+
+def packed_count_batched_plain(slots) -> torch.Tensor:
+    """``packed_count_plain`` slot by slot, stacked to ``[B, S]``."""
+    return torch.stack([packed_count_plain(x) for x in slots])
+
+
+def packed_and_dense_count_batched_plain(idx_slots, plane_slots) -> torch.Tensor:
+    """``packed_and_dense_count_plain`` slot by slot, stacked to ``[B, S]``."""
+    return torch.stack([packed_and_dense_count_plain(x, p)
+                        for x, p in zip(idx_slots, plane_slots)])
+
+
+def packed_pair_count_batched_plain(a_slots, b_slots) -> torch.Tensor:
+    """``packed_pair_count_plain`` slot by slot, stacked to ``[B, S]``."""
+    return torch.stack([packed_pair_count_plain(a, b) for a, b in zip(a_slots, b_slots)])
 
 
 # ---------------------------------------------------------------------------
@@ -1205,20 +1228,8 @@ def packed_count(idx: torch.Tensor) -> torch.Tensor:
     if idx.device.type == "cpu":
         return packed_count_plain(idx)
     _require_cuda(idx)
-    rows, k = idx.shape
-    out = torch.empty(rows, dtype=torch.int32, device=idx.device)
-    if rows == 0:
-        return out
-    stride = idx.stride(0)
-    vec = k % 4 == 0 and _vec_ok(idx, stride)
-    with torch.cuda.device(idx.device):
-        err = _library("packed_kernels.cu").pilosa_packed_count(
-            idx.data_ptr(), out.data_ptr(), rows, k, stride, PACK_SENTINEL, int(vec),
-            _stream(idx.device))
-    if err:
-        raise RuntimeError(f"packed_count kernel launch failed: CUDA error {err}")
-    _count_launch("packed_count")
-    return out
+    return _launch_packed_wave("packed_count", "packed_count", [[idx]], idx.shape[0],
+                               (idx.shape[1],), idx.device)[0]
 
 
 def packed_and_dense_count(idx: torch.Tensor, plane: torch.Tensor) -> torch.Tensor:
@@ -1236,18 +1247,9 @@ def packed_and_dense_count(idx: torch.Tensor, plane: torch.Tensor) -> torch.Tens
     if idx.device.type == "cpu":
         return packed_and_dense_count_plain(idx, plane)
     _require_cuda(idx)
-    rows, k = idx.shape
-    out = torch.empty(rows, dtype=torch.int32, device=idx.device)
-    if rows == 0:
-        return out
-    with torch.cuda.device(idx.device):
-        err = _library("packed_kernels.cu").pilosa_packed_and_dense_count(
-            idx.data_ptr(), plane.data_ptr(), out.data_ptr(), rows, k, idx.stride(0),
-            plane.shape[1], plane.stride(0), PACK_SENTINEL, _stream(idx.device))
-    if err:
-        raise RuntimeError(f"packed_and_dense_count kernel launch failed: CUDA error {err}")
-    _count_launch("packed_and_dense_count")
-    return out
+    return _launch_packed_wave("packed_and_dense_count", "packed_and_dense_count",
+                               [[idx], [plane]], idx.shape[0], (idx.shape[1], plane.shape[1]),
+                               idx.device)[0]
 
 
 def packed_pair_count(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -1268,18 +1270,108 @@ def packed_pair_count(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if b.shape[1] > PACK_PAIR_MAX_ENTRIES:
         raise ValueError(f"b has {b.shape[1]} entries a row; the kernel stages at "
                          f"most {PACK_PAIR_MAX_ENTRIES}")
-    rows = a.shape[0]
-    out = torch.empty(rows, dtype=torch.int32, device=a.device)
+    return _launch_packed_wave("packed_pair_count", "packed_pair_count", [[a], [b]],
+                               a.shape[0], (a.shape[1], b.shape[1]), a.device)[0]
+
+
+#: Slots one launch of a packed wave kernel takes (``kWaveSlots`` in
+#: csrc/packed_kernels.cu): the coalescer's largest wave
+#: (``parallel/coalesce.py`` MAX_BATCH). A longer wave is split into the
+#: fewest launches that hold it, each one counted in LAUNCHES.
+PACKED_WAVE_SLOTS = 32
+
+
+def _packed_slots(slots, what: str) -> torch.Tensor:
+    """Slot 0 of a wave of ``[S, K]`` int32 stacks, after the single
+    wrapper's checks on every slot; every slot must have slot 0's shape
+    and device (strides may differ, and slots may share a tensor)."""
+    _slots_lead(slots, what)
+    _check_packed(slots[0], f"{what} slot 0")
+    return slots[0]
+
+
+def _launch_packed_wave(kernel: str, name: str, operands, rows: int, shape_args,
+                        device) -> torch.Tensor:
+    """``pilosa_<kernel>_batched`` over a wave (a single call is a wave of
+    one), each launch counted as ``name``: each list of ``operands`` passes
+    as a host array of the slots' base addresses and one of their row
+    strides, by value; ``shape_args`` follow the output. ``[B, rows]``
+    int32."""
+    n = len(operands[0])
+    out = torch.empty((n, rows), dtype=torch.int32, device=device)
     if rows == 0:
         return out
-    with torch.cuda.device(a.device):
-        err = _library("packed_kernels.cu").pilosa_packed_pair_count(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(), rows, a.shape[1], a.stride(0),
-            b.shape[1], b.stride(0), PACK_SENTINEL, _stream(a.device))
+    tables = []
+    for slots in operands:
+        tables += [(ctypes.c_void_p * n)(*[x.data_ptr() for x in slots]),
+                   (ctypes.c_int64 * n)(*[x.stride(0) for x in slots])]
+    with torch.cuda.device(device):
+        err = getattr(_library("packed_kernels.cu"), f"pilosa_{kernel}_batched")(
+            *tables, n, out.data_ptr(), rows, *shape_args, PACK_SENTINEL, _stream(device))
     if err:
-        raise RuntimeError(f"packed_pair_count kernel launch failed: CUDA error {err}")
-    _count_launch("packed_pair_count")
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    for _ in range(-(-n // PACKED_WAVE_SLOTS)):
+        _count_launch(name)
     return out
+
+
+def packed_count_batched(slots) -> torch.Tensor:
+    """``packed_count(slots[z])`` for every slot z of a wave: ``[B, S]``
+    int32, one launch for up to PACKED_WAVE_SLOTS slots."""
+    first = _packed_slots(slots, "idx")
+    if first.device.type == "cpu":
+        return packed_count_batched_plain(slots)
+    _require_cuda(first)
+    return _launch_packed_wave("packed_count", "packed_count_batched", [slots], first.shape[0],
+                               (first.shape[1],), first.device)
+
+
+def packed_and_dense_count_batched(idx_slots, plane_slots) -> torch.Tensor:
+    """``packed_and_dense_count(idx_slots[z], plane_slots[z])`` for every
+    slot z of a wave: ``[B, S]`` int32, one launch for up to
+    PACKED_WAVE_SLOTS slots. The slots of a Count wave often push one
+    plane (``Intersect(Row(f=k), Row(g=1))`` for several k)."""
+    if len(idx_slots) != len(plane_slots):
+        raise ValueError(f"{len(idx_slots)} idx slots against {len(plane_slots)} "
+                         "plane slots")
+    first = _packed_slots(idx_slots, "idx")
+    plane = _packed_slots(plane_slots, "plane")
+    if plane.shape[0] != first.shape[0]:
+        raise ValueError(f"plane {tuple(plane.shape)} must be [S, W] with the "
+                         f"{first.shape[0]} rows of idx")
+    if first.device != plane.device:
+        raise ValueError(f"operands on different devices: {first.device}, {plane.device}")
+    if first.device.type == "cpu":
+        return packed_and_dense_count_batched_plain(idx_slots, plane_slots)
+    _require_cuda(first)
+    rows, k = first.shape
+    return _launch_packed_wave("packed_and_dense_count", "packed_and_dense_count_batched",
+                               [idx_slots, plane_slots], rows, (k, plane.shape[1]),
+                               first.device)
+
+
+def packed_pair_count_batched(a_slots, b_slots) -> torch.Tensor:
+    """``packed_pair_count(a_slots[z], b_slots[z])`` for every slot z of a
+    wave: ``[B, S]`` int32, one launch for up to PACKED_WAVE_SLOTS slots.
+    b's rows must be sorted; at most PACK_PAIR_MAX_ENTRIES entries of b a
+    row on the card."""
+    if len(a_slots) != len(b_slots):
+        raise ValueError(f"{len(a_slots)} a slots against {len(b_slots)} b slots")
+    a = _packed_slots(a_slots, "a")
+    b = _packed_slots(b_slots, "b")
+    if a.shape[0] != b.shape[0]:
+        raise ValueError(f"a {tuple(a.shape)} and b {tuple(b.shape)} must have one row count")
+    if a.device != b.device:
+        raise ValueError(f"operands on different devices: {a.device}, {b.device}")
+    if a.device.type == "cpu":
+        return packed_pair_count_batched_plain(a_slots, b_slots)
+    _require_cuda(a)
+    if b.shape[1] > PACK_PAIR_MAX_ENTRIES:
+        raise ValueError(f"b has {b.shape[1]} entries a row; the kernel stages at "
+                         f"most {PACK_PAIR_MAX_ENTRIES}")
+    return _launch_packed_wave("packed_pair_count", "packed_pair_count_batched",
+                               [a_slots, b_slots], a.shape[0], (a.shape[1], b.shape[1]),
+                               a.device)
 
 
 def packed_expand(idx: torch.Tensor, words: int = WORDS_PER_SHARD) -> torch.Tensor:

@@ -10,15 +10,17 @@ default) launch together:
   program, its output shared by every caller's post-processing;
 * **same-shape wave** (one signature, different leaves): ONE launch of the
   program's batched form -- ``pair_count_batched``, ``row_counts_batched``
-  or ``tree_count_batched`` over the B slots' leaf tables, no padding --
-  and per-slot results fanned back out. A wave whose slots' leaves differ
+  or ``tree_count_batched`` over the B slots' leaf tables, or on the packed
+  fast paths ``packed_count_batched``, ``packed_and_dense_count_batched``
+  or ``packed_pair_count_batched``, no padding -- and per-slot results
+  fanned back out. A wave whose slots' leaves differ
   in shape (one plan over different shard sets) splits into one wave per
   shape. This is where the JAX coalescer
   uses ``jax.vmap`` and cannot batch its Pallas programs; the port's
   kernels take the slots as a table, so any wave width is one launch. A
   program with no batched form (the fused BSI aggregates, and count
-  programs with a packed leaf) launches slot by slot on the flusher
-  thread.
+  programs whose packed leaves are expanded) launches slot by slot on the
+  flusher thread.
 
 Selection: ``PILOSA_TPU_DISPATCH_COALESCE`` = ``on`` | ``off`` | ``auto``
 (env wins over ``set_mode``); ``PILOSA_TPU_DISPATCH_COALESCE_US``

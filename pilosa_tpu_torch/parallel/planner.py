@@ -302,10 +302,10 @@ class Planner:
     def fn_batched(self, fn):
         """The batched form of a program -- [args per slot] -> [B, ...] in
         one launch -- or None where it has none (the fused aggregates, and
-        count programs with a packed leaf: their waves run slot by slot,
-        where the JAX coalescer vmaps them into one launch). The
-        counterpart of the JAX planner's fn_raw + vmapped."""
-        if isinstance(fn, _CountProgram) and not fn.packed:
+        count programs with a packed leaf off the packed fast paths: their
+        waves run slot by slot, where the JAX coalescer vmaps them into one
+        launch). The counterpart of the JAX planner's fn_raw + vmapped."""
+        if isinstance(fn, _CountProgram) and fn.has_batched:
             return fn.batched
         return None
 
@@ -1408,12 +1408,14 @@ class _CountProgram:
     ...])`` -> [B, S_pad] for a wave of B argument lists of this signature,
     with ONE count launch for the wave (the port's counterpart of the JAX
     planner's jit(vmap(program)), planner.py:387-396). A program with a
-    packed leaf (``packed``) has no batched form. Its fast paths are those
-    of the JAX planner's ``_packed_count_program`` (:1906-1929): a bare
-    packed leaf is ONE ``packed_count``, an Intersect of exactly two leaves
-    with a packed one ONE ``packed_and_dense_count`` (either order) or,
-    both packed, ONE ``packed_pair_count``; every other tree expands its
-    packed leaves and counts as a dense one."""
+    packed leaf (``packed``) takes the fast paths of the JAX planner's
+    ``_packed_count_program`` (:1906-1929): a bare packed leaf is ONE
+    ``packed_count``, an Intersect of exactly two leaves with a packed one
+    ONE ``packed_and_dense_count`` (either order) or, both packed, ONE
+    ``packed_pair_count``, and a wave of them ONE launch of the wrapper's
+    batched form; every other tree expands its packed leaves and counts as
+    a dense one, and has no batched form (``has_batched``): a wave of it
+    would hold B expanded planes at once."""
 
     __slots__ = ("sig", "packed", "_fast")
 
@@ -1422,13 +1424,22 @@ class _CountProgram:
         self.packed = _has_pleaf(sig)
         self._fast = _packed_fast_path(sig)
 
+    @property
+    def has_batched(self) -> bool:
+        return not self.packed or self._fast is not None
+
     def __call__(self, *args) -> torch.Tensor:
         if self._fast is not None:
-            return self._fast(args)
+            name, slots = self._fast
+            return getattr(kernels, name)(*(args[i] for i in slots))
         tape = _Tape()
         return _count_expr(_lower(self.sig, args, tape), tape.leaves)
 
     def batched(self, rows) -> torch.Tensor:
+        if self._fast is not None:
+            name, slots = self._fast
+            return getattr(kernels, name + "_batched")(*([args[i] for args in rows]
+                                                         for i in slots))
         # Leaves dedupe by their place in the signature, not by tensor, so
         # every slot lowers to the same expression and tape.
         lowered = []
@@ -1455,20 +1466,20 @@ def _has_pleaf(sig) -> bool:
 
 
 def _packed_fast_path(sig: tuple):
-    """``args -> counts`` for the signatures a packed kernel counts without
-    expanding, else None (reference _packed_count_program,
-    planner.py:1906-1929)."""
+    """(kernel wrapper name, the argument slots it takes in order) for the
+    signatures a packed kernel counts without expanding, else None
+    (reference _packed_count_program, planner.py:1906-1929). The wrapper's
+    ``_batched`` form counts a wave of them."""
     if sig[0] == "pleaf":
-        slot = sig[1]
-        return lambda args: kernels.packed_count(args[slot])
+        return "packed_count", (sig[1],)
     if sig[0] == "intersect" and len(sig[1]) == 2:
         (ka, sa), (kb, sb) = ((k[0], k[1]) for k in sig[1])
         if ka == kb == "pleaf":
-            return lambda args: kernels.packed_pair_count(args[sa], args[sb])
+            return "packed_pair_count", (sa, sb)
         if ka == "pleaf" and kb == "leaf":
-            return lambda args: kernels.packed_and_dense_count(args[sa], args[sb])
+            return "packed_and_dense_count", (sa, sb)
         if ka == "leaf" and kb == "pleaf":
-            return lambda args: kernels.packed_and_dense_count(args[sb], args[sa])
+            return "packed_and_dense_count", (sb, sa)
     return None
 
 

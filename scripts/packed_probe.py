@@ -1,40 +1,38 @@
 #!/usr/bin/env python3
-"""Timed variants of the port's packed and_count and pair_count kernels.
+"""Timed variants of the port's packed_count kernel, its wave and the slot table.
 
     python3 scripts/packed_probe.py
 
 Run on a machine with one NVIDIA GPU and nvcc, from the root of a
 checkout. It compiles variants of ``pilosa_tpu_torch/csrc/packed_kernels.cu``
 (text edits of a copy, under ``build/packed_probe/``), loads each in place
-of the package's library and times ``packed_and_dense_count`` and
-``packed_pair_count`` at ``chip_smoke.py``'s timed shapes with its timer
+of the package's library and times ``packed_count`` at ``chip_smoke.py``'s
+timed shapes ([1024, 1024] and [1024, 2048]), ``packed_count_batched``
+at 8 and 32 slots of [1024, 1024] (``chip_smoke.packed_wave_cases``) and
+``packed_and_dense_count`` at [1024, 1024] x [1024, 32768] with its timer
 (CUDA events after a device spin), in alternating rounds. The variants
-take one cost out of a kernel at a time, so the difference says what that
-cost is:
+take one cost out, or put one design back, at a time:
 
 - ``kernel``: the source as it is;
-- ``no_gathers``: and_count adds the word index in place of the plane word
-  (its plane reads gone);
-- ``no_searches``: pair_count skips its halving steps (the row still lands
-  and one probe an entry is made);
-- ``vector_lanes``: both kernels read their entries four to a lane by
-  16-byte loads (every row timed here is aligned), so a warp's gathers
-  and probes lie four entries apart;
-- ``batch8``: and_count holds 8 entries a thread, not 16.
+- ``no_loads``: the count's 16-byte loads gone (each lane counts its
+  positions as if they were entries): what is left is the launch, the
+  grid's ramp and the row sums;
+- ``single_e4``, ``single_e16``, ``single_e32``: other entries a thread
+  than the source's 8 on a single launch (``kSingleCountBatch``; a block
+  a row at 4 and K = 1024, a warp a row at 32); ``wave_e8``,
+  ``wave_e16``: fewer than its 32 on a wave's (``kWaveCountBatch``);
+- ``slot_indexed``: a one-slot table's slot read by blockIdx.y, as a
+  wave's is, where the kernels take slot 0 as a constant.
 
-Besides: and_count against one 128 KiB plane row shared by every row (its
-gathers served from L2), with each row's entries shuffled, and under each
-L2 fetch granularity (``cudaLimitMaxL2FetchGranularity``); and
-``torch.zeros`` of 1024 int32, the least time one launch takes under the
-same timer. Variants other than ``kernel`` and ``batch8`` compute other
-functions and are not checked. Prints one JSON object per case and
-variant, then the card's name and power limit.
+Besides: ``torch.zeros`` of 1024 int32, the least time one launch takes
+under the same timer. ``no_loads`` computes another function and is not
+checked. Prints one JSON object per case and variant, then the card's
+name and power limit.
 
-It records the diagnosis, written in PERF.md, of the and_count and
-pair_count designs in that file. Its variants are text edits of lines of
-the kernel source, and it raises where such a line is gone: when
-``packed_kernels.cu`` changes, rewrite the variants for the new source or
-delete this script, rather than grow it into a general harness.
+Its variants are text edits of lines of the kernel source, and it raises
+where such a line is gone: when ``packed_kernels.cu`` changes, rewrite the
+variants for the new source or delete this script, rather than grow it
+into a general harness.
 """
 
 import ctypes
@@ -54,32 +52,6 @@ import chip_smoke as cs  # noqa: E402
 
 ROUNDS = 4
 OUT_DIR = ROOT / "build" / "packed_probe"
-#: a C function appended to every variant: sets the L2 fetch granularity
-#: (bytes; < 0 leaves it) and returns the granularity in force.
-L2_FETCH = '''
-extern "C" int probe_l2_fetch(int bytes) {
-  size_t v = 0;
-  if (bytes >= 0) cudaDeviceSetLimit(cudaLimitMaxL2FetchGranularity, bytes);
-  cudaDeviceGetLimit(&v, cudaLimitMaxL2FetchGranularity);
-  return static_cast<int>(v);
-}
-'''
-
-
-#: load_entries' loop, and the same loop by 16-byte loads: a lane's four
-#: entries side by side, at base + 4 * (lane + u * lanes) + {0..3}.
-VECTOR_LOADS = ('''  for (int u = 0; u < E; ++u) {
-    const int64_t q = base + lane + static_cast<int64_t>(u) * lanes;
-    e[u] = q < k ? __ldg(p + q) : sentinel;
-  }''', '''  for (int u = 0; u < E / 4; ++u) {
-    const int64_t q = base + 4 * (lane + static_cast<int64_t>(u) * lanes);
-    int4 v = make_int4(sentinel, sentinel, sentinel, sentinel);
-    if (q < k) v = __ldg(reinterpret_cast<const int4*>(p + q));
-    e[4 * u] = v.x;
-    e[4 * u + 1] = v.y;
-    e[4 * u + 2] = v.z;
-    e[4 * u + 3] = v.w;
-  }''')
 
 
 def edit(src: str, *pairs) -> str:
@@ -91,14 +63,19 @@ def edit(src: str, *pairs) -> str:
 
 
 def variants(src: str) -> dict:
+    single, wave = "constexpr int kSingleCountBatch = 8;", "constexpr int kWaveCountBatch = 32;"
+    fixed = {**{f"single_e{e}": edit(src, (single, f"constexpr int kSingleCountBatch = {e};"))
+                for e in (4, 16, 32)},
+             **{f"wave_e{e}": edit(src, (wave, f"constexpr int kWaveCountBatch = {e};"))
+                for e in (8, 16)}}
     return {
         "kernel": src,
-        "no_gathers": edit(src, ("if (e[u] < sentinel) v[u] = __ldg(w + wi);",
-                                 "if (e[u] < sentinel) v[u] = static_cast<uint32_t>(wi);")),
-        "no_searches": edit(src, ("for (int len = n; len > 1;) {",
-                                  "for (int len = 1; len > 1;) {")),
-        "vector_lanes": edit(src, VECTOR_LOADS),
-        "batch8": edit(src, ("constexpr int kAndBatch = 16;", "constexpr int kAndBatch = 8;")),
+        "no_loads": edit(src, (
+            "v[u] = q < k4 ? __ldg(p4 + q) : make_int4(sentinel, sentinel, sentinel, sentinel);",
+            "v[u] = make_int4(q, q + 1, q + 2, q < k4 ? q + 3 : sentinel);")),
+        **fixed,
+        "slot_indexed": edit(src, ("const int slot = N == 1 ? 0 : blockIdx.y;",
+                                   "const int slot = blockIdx.y;")),
     }
 
 
@@ -111,7 +88,7 @@ def build_all(srcs: dict) -> dict:
     def one(item):
         name, text = item
         cu, so = OUT_DIR / f"{name}.cu", OUT_DIR / f"{name}.so"
-        cu.write_text(text + L2_FETCH)
+        cu.write_text(text)
         r = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-I", inc, "-o", str(so),
                             str(cu)], capture_output=True, text=True)
         if r.returncode:
@@ -126,8 +103,6 @@ def build_all(srcs: dict) -> dict:
         for fn, argtypes in kernels._SIGNATURES["packed_kernels.cu"].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int32
-        lib.probe_l2_fetch.argtypes = [ctypes.c_int]
-        lib.probe_l2_fetch.restype = ctypes.c_int
         libs[name] = lib
     return libs
 
@@ -143,23 +118,21 @@ def main() -> int:
     card = cs.card_line()
     libs = build_all(variants((ROOT / "pilosa_tpu_torch/csrc/packed_kernels.cu").read_text()))
     dev = torch.device("cuda")
-    a, _, pl = (torch.from_numpy(x.view(np.int32)).to(dev) for x in cs.packed_case("k1024", 1024))
-    a2 = torch.from_numpy(cs.packed_case("k2048", 1024)[0]).to(dev)
-    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
-    shuffled = a[:, torch.randperm(a.shape[1], device=dev, generator=gen)].contiguous()
-    one_row = pl[:1].expand_as(pl)
-    cases = {
-        "and_count": (lambda: kernels.packed_and_dense_count(a, pl),
-                      lambda: kernels.packed_and_dense_count_plain(a, pl)),
-        "and_count, plane from L2": (lambda: kernels.packed_and_dense_count(a, one_row),
-                                     lambda: kernels.packed_and_dense_count_plain(a, one_row)),
-        "and_count, entries shuffled": (
-            lambda: kernels.packed_and_dense_count(shuffled, pl),
-            lambda: kernels.packed_and_dense_count_plain(shuffled, pl)),
-        "pair_count": (lambda: kernels.packed_pair_count(a, a2),
-                       lambda: kernels.packed_pair_count_plain(a, a2)),
-    }
-    for name in ("kernel", "batch8"):
+    packed = {case: tuple(torch.from_numpy(x.view(np.int32)).to(dev)
+                          for x in cs.packed_case(case, 1024)) for case in ("k1024", "k2048")}
+    a, _, pl = packed["k1024"]
+    a2 = packed["k2048"][0]
+    cases = {"packed_count [1024, 1024]": (lambda: kernels.packed_count(a),
+                                           lambda: kernels.packed_count_plain(a)),
+             "packed_count [1024, 2048]": (lambda: kernels.packed_count(a2),
+                                           lambda: kernels.packed_count_plain(a2)),
+             "packed_and_dense_count [1024, 1024] x [1024, 32768]": (
+                 lambda: kernels.packed_and_dense_count(a, pl),
+                 lambda: kernels.packed_and_dense_count_plain(a, pl))}
+    for n in cs.PACKED_WAVE_TIMED:
+        name, shape, fn, plain, *_ = cs.packed_wave_cases(torch, kernels, packed, n)[0]
+        cases[f"{name} {shape}"] = (fn, plain)
+    for name in (n for n in libs if n != "no_loads"):
         kernels._libs["packed_kernels.cu"] = libs[name]
         for case, (fn, plain) in cases.items():
             if not torch.equal(fn(), plain()):
@@ -172,21 +145,13 @@ def main() -> int:
             for case, (fn, _) in cases.items():
                 times.setdefault((case, name), []).append(
                     cs.time_cuda_ms(torch, fn, cs.KERNEL_RUNS))
-    lib = libs["kernel"]
-    default = lib.probe_l2_fetch(-1)
-    kernels._libs["packed_kernels.cu"] = lib
-    for r in range(ROUNDS):
-        for g in (32, 64, 128):
-            got = lib.probe_l2_fetch(g)
-            times.setdefault((f"and_count, L2 fetch {got} B", "kernel"), []).append(
-                cs.time_cuda_ms(torch, cases["and_count"][0], cs.KERNEL_RUNS))
-    lib.probe_l2_fetch(default)
+    kernels._libs["packed_kernels.cu"] = libs["kernel"]
     times[("torch.zeros(1024, int32)", "-")] = [
         cs.time_cuda_ms(torch, lambda: torch.zeros(1024, dtype=torch.int32, device=dev),
                         cs.KERNEL_RUNS) for _ in range(ROUNDS)]
     for (case, name), ms in times.items():
         print(json.dumps({"case": case, "variant": name, "ms": statistics.median(ms),
-                          "runs": ms, "l2_fetch_default": default}), flush=True)
+                          "runs": ms}), flush=True)
     print(card, flush=True)
     return 0
 

@@ -9,6 +9,10 @@ tests/test_dispatch_fusion.py.
 - a same-shape wave (one signature, different leaves) is ONE launch of the
   batched program, whose per-slot answers equal the serial ones and the
   JAX planner's vmapped wave, for bare leaves, 2-leaf and 3-leaf trees;
+- a wave of packed Counts on each packed fast path (a bare packed row, a
+  packed row AND a dense one, two packed rows) is ONE dispatch of the
+  packed wave kernel's batched form, its answers the JAX executor's; a
+  general tree with a packed leaf still launches slot by slot;
 - a wave of fused aggregates with different arguments launches slot by
   slot, exact;
 - inline transfer steals per knob mode;
@@ -23,6 +27,7 @@ import pytest
 
 from pilosa_tpu.config import SHARD_WIDTH
 from pilosa_tpu.core import Holder as JHolder
+from pilosa_tpu.exec import Executor as JExecutor
 from pilosa_tpu.parallel import MeshPlanner, make_mesh
 from pilosa_tpu.parallel import coalesce as j_coalesce
 from pilosa_tpu.pql import parse as j_parse
@@ -208,8 +213,8 @@ def test_wave_mixing_shard_sets_splits_by_shape(env, monkeypatch, policy):
     different heights): each shape is a wave of its own -- one batched
     launch for a shape with different leaves, one plain launch for a lone
     slot -- and every answer equals its serial launch."""
-    # Dense leaves: a program with a packed leaf has no batched form
-    # (test_packed_wave_launches_slot_by_slot).
+    # Dense leaves: the dense kernels' batched forms (packed waves:
+    # test_packed_wave_is_one_dispatch).
     monkeypatch.setenv("PILOSA_TPU_RESIDENCY_PACKED", "off")
     h, idx, plain, fast = env
     p = fast.planner
@@ -239,30 +244,104 @@ def test_wave_mixing_shard_sets_splits_by_shape(env, monkeypatch, policy):
     assert sorted(p.batch_widths()[-3:]) == [1, 2, 2]
 
 
-def test_packed_wave_launches_slot_by_slot(env, monkeypatch):
-    """Counts whose rows are packed (auto) have no batched form: a wave of
-    different ones launches slot by slot on the flusher, each exact; a
-    wave of one such Count is still ONE shared launch."""
+@pytest.fixture
+def packed_env(monkeypatch):
+    """A JAX and a port holder with the same data, both packages in the
+    ``auto`` residency mode: rows 0-5 of f and g about 670 bits a shard
+    (packed, K = 1024) and row 0 of h 10,000 bits a shard (dense), over 3
+    shards; the port's planner, and the JAX executor."""
     monkeypatch.setenv("PILOSA_TPU_RESIDENCY_PACKED", "auto")
-    h, idx, plain, fast = env
-    p = fast.planner
-    qs = [f"Intersect(Row(f={r}), Row(g={r}))" for r in range(4)]
+    rng = np.random.default_rng(SEED)
+    total = 3 * SHARD_WIDTH
+    data = {name: (rng.integers(0, 6, 12000), rng.integers(0, total, 12000))
+            for name in ("f", "g")}
+    data["h"] = (np.zeros(30000, dtype=np.int64), rng.choice(total, 30000, replace=False))
+    jh, th = JHolder(), THolder(device="cpu")
+    for h in (jh, th):
+        idx = h.create_index("i")
+        for name, (r, c) in data.items():
+            idx.create_field(name).import_bits(r, c)
+    planner = Planner(th)
+    yield th.index("i"), planner, JExecutor(jh)
+    planner.close()
+
+
+#: each packed fast path: a Count shape over rows r = 0..3, the wave
+#: wrapper its wave launches, and its leaves' widths (K = 1024 packed,
+#: 32768 words dense).
+_PACKED_WAVES = {
+    "bare": ("Row(f={r})", "packed_count_batched", [1024]),
+    "and_dense": ("Intersect(Row(f={r}), Row(h=0))", "packed_and_dense_count_batched",
+                  [1024, 32768]),
+    "dense_and": ("Intersect(Row(h=0), Row(g={r}))", "packed_and_dense_count_batched",
+                  [1024, 32768]),
+    "pair": ("Intersect(Row(f={r}), Row(g={r}))", "packed_pair_count_batched", [1024, 1024]),
+}
+
+
+def _held_wave(p, prepared):
+    """``prepared`` dispatched into one held batch; (answers, dispatches)."""
+    p.coalescer.hold()
+    try:
+        futs = [p.dispatch_count(fn, args) for fn, args in prepared]
+        assert _wait_pending(p.coalescer, len(prepared)) == len(prepared)
+        d0 = p.dispatches
+    finally:
+        p.coalescer.release()
+    return [f.result(timeout=30) for f in futs], p.dispatches - d0
+
+
+@pytest.mark.parametrize("path", sorted(_PACKED_WAVES))
+def test_packed_wave_is_one_dispatch(packed_env, monkeypatch, path):
+    """A held wave of 4 different packed Counts on one fast path is ONE
+    dispatch, one call of the fast path's wave wrapper over the 4 slots
+    (the JAX coalescer's vmap of ``_packed_count_program``), its answers
+    the JAX executor's; a wave of one repeated Count is still one shared
+    launch of the single wrapper."""
+    idx, p, jex = packed_env
+    shape, wrapper, widths = _PACKED_WAVES[path]
+    qs = [shape.format(r=r) for r in range(4)]
+    prepared = [p.prepare_count(idx, t_parse(q).calls[0], [0, 1, 2]) for q in qs]
+    (fn, args0), *_ = prepared
+    assert len({p.fn_key(f) for f, _ in prepared}) == 1
+    assert len({coalesce_mod._arg_shapes(a) for _, a in prepared}) == 1
+    assert fn.packed and p.fn_batched(fn) is not None
+    assert sorted(a.shape[1] for a in args0) == widths
+    want = [jex.execute("i", f"Count({q})")[0] for q in qs]
+    calls = []
+    real = getattr(kernels, wrapper)
+
+    def spy(*slots):
+        calls.append([len(x) for x in slots])
+        return real(*slots)
+
+    monkeypatch.setattr(kernels, wrapper, spy)
+    monkeypatch.setenv("PILOSA_TPU_DISPATCH_COALESCE", "on")
+    got, dispatches = _held_wave(p, prepared)
+    assert got == want
+    assert dispatches == 1 and p.batch_widths()[-1] == 4
+    assert calls == [[4] * len(calls[0])] and len(calls[0]) in (1, 2)
+    got, dispatches = _held_wave(p, [prepared[0]] * 4)
+    assert got == [want[0]] * 4
+    assert dispatches == 1 and len(calls) == 1
+
+
+def test_packed_wave_launches_slot_by_slot(packed_env, monkeypatch):
+    """A general tree with a packed leaf (a Union, which expands it) has no
+    batched form: a wave of 4 different ones launches slot by slot on the
+    flusher, each answer the JAX executor's; a wave of one such Count is
+    still ONE shared launch."""
+    idx, p, jex = packed_env
+    qs = [f"Union(Row(f={r}), Row(g={r}))" for r in range(4)]
     prepared = [p.prepare_count(idx, t_parse(q).calls[0], [0, 1, 2]) for q in qs]
     assert len({p.fn_key(fn) for fn, _ in prepared}) == 1
     assert all(fn.packed and p.fn_batched(fn) is None for fn, _ in prepared)
-    want = [plain.execute("i", f"Count({q})", cache=False)[0] for q in qs]
+    want = [jex.execute("i", f"Count({q})")[0] for q in qs]
     monkeypatch.setenv("PILOSA_TPU_DISPATCH_COALESCE", "on")
     for wave, n_launches in ((prepared, 4), ([prepared[0]] * 4, 1)):
-        p.coalescer.hold()
-        try:
-            futs = [p.dispatch_count(fn, args) for fn, args in wave]
-            assert _wait_pending(p.coalescer, 4) == 4
-            d0 = p.dispatches
-        finally:
-            p.coalescer.release()
-        got = [f.result(timeout=30) for f in futs]
+        got, dispatches = _held_wave(p, wave)
         assert got == (want if n_launches == 4 else [want[0]] * 4)
-        assert p.dispatches - d0 == n_launches
+        assert dispatches == n_launches
 
 
 def test_aggregate_wave_launches_slot_by_slot(env, monkeypatch):

@@ -11,6 +11,12 @@
   and_count's and pair_count's on ``chip_smoke.PACKED_ANY_CASES``, inputs
   the planner never makes (unsorted a, negative entries, a narrower
   plane, duplicates in b, b unaligned or at its widest).
+- the wave forms of packed_count, and_count and pair_count: their plain
+  versions and CPU wrappers against ``jax.vmap`` of the JAX functions over
+  the stacked slots, at B = 1, 3 and 8, on both kinds of cases, with slots
+  that share a tensor, sit in a wider stack (another row stride) or start
+  one entry in; the wave wrappers' refusals, and their slot count against
+  the kernel source's and the coalescer's.
 - the planner, with both packages in the same residency mode: every query
   family of tests/test_residency.py (Count, bitmap results, TopN filters,
   aggregate filters, GroupBy) bit-identical to the JAX executor's; the
@@ -19,6 +25,10 @@
   drill with packed leaves (``sync_misses == 0``).
 """
 
+import re
+from pathlib import Path
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -40,6 +50,7 @@ from pilosa_tpu_torch.exec import residency
 from pilosa_tpu_torch.exec import result_to_json as t_json
 from pilosa_tpu_torch.ops import kernels
 from pilosa_tpu_torch.parallel import Planner
+from pilosa_tpu_torch.parallel import coalesce as t_coalesce
 from pilosa_tpu_torch.server import ServerNode
 from test_residency import EQ_QUERIES, N_SHARDS
 
@@ -266,6 +277,120 @@ def test_wrappers_refuse():
         kernels.packed_expand(a, 0)
 
 
+# -- the wave forms against jax.vmap ---------------------------------------------
+
+#: the rows of each slot of a wave.
+WAVE_ROWS = 6
+WAVE_SIZES = [1, 3, 8]
+WAVE_CASES = ([("sorted", c) for c in chip_smoke.PACKED_CASES]
+              + [("any", c) for c in chip_smoke.PACKED_ANY_CASES])
+
+
+def _wave_slots(x: np.ndarray, n: int, sliced: bool) -> list:
+    """``n`` slots of WAVE_ROWS rows cut from ``x`` (at least WAVE_ROWS +
+    n - 1 rows): slot z starts at row z. Whole rows: every third slot a
+    contiguous copy, the next a view of a stack 3 entries wider (another
+    row stride), the next slot z - 2's tensor again (a shared slot).
+    ``sliced``: every slot from its second entry on (a view one entry
+    in)."""
+    t = torch.from_numpy(x)
+    if sliced:
+        return [t[z:z + WAVE_ROWS, 1:] for z in range(n)]
+    wide = torch.full((x.shape[0], x.shape[1] + 3), -1, dtype=t.dtype)
+    wide[:, :x.shape[1]] = t
+    slots = []
+    for z in range(n):
+        if z % 3 == 0:
+            slots.append(t[z:z + WAVE_ROWS].clone())
+        elif z % 3 == 1:
+            slots.append(wide[z:z + WAVE_ROWS, :x.shape[1]])
+        else:
+            slots.append(slots[z - 2])
+    return slots
+
+
+@pytest.mark.parametrize("n", WAVE_SIZES)
+@pytest.mark.parametrize("kind,case", WAVE_CASES)
+def test_wave_plain_versions_match_jax_vmap(kind, case, n):
+    """Each wave form's plain version, and its wrapper on CPU tensors,
+    equals ``jax.vmap`` of the JAX residency function over the stacked
+    slots, exactly: count of a's and b's slots, and_count of a's and b's
+    against planes, pair_count of a against b (and b against a on the
+    sorted cases), whole and sliced. The any-input cases' narrower planes
+    go to the JAX function widened by their last word, as in
+    test_any_input_matches_jax."""
+    rows = WAVE_ROWS + n - 1
+    if kind == "sorted":
+        a, b, plane = chip_smoke.packed_case(case, rows, words=WORDS_PER_SHARD)
+    else:
+        a, b, plane = chip_smoke.packed_any_case(case, rows)
+    planes = _wave_slots(plane.view(np.int32), n, False)
+    jplanes = jnp.asarray(np.stack([np.concatenate(
+        [x, np.repeat(x[:, -1:], WORDS_PER_SHARD - x.shape[1], axis=1)], axis=1)
+        for x in (p.numpy().view(np.uint32) for p in planes)]))
+    v_count = jax.jit(jax.vmap(jres.packed_count))
+    v_and = jax.jit(jax.vmap(jres.packed_and_dense_count))
+    v_pair = jax.jit(jax.vmap(jres.packed_pair_count))
+
+    def same(got, want):
+        assert got.dtype == torch.int32 and tuple(got.shape) == (n, WAVE_ROWS)
+        assert got.tolist() == np.asarray(want).tolist()
+
+    for sliced in (False, True):
+        xa, xb = _wave_slots(a, n, sliced), _wave_slots(b, n, sliced)
+        ja, jb = (jnp.asarray(np.stack([x.numpy() for x in xs])) for xs in (xa, xb))
+        for xs, jx in ((xa, ja), (xb, jb)):
+            want = v_count(jx)
+            same(kernels.packed_count_batched_plain(xs), want)
+            same(kernels.packed_count_batched(xs), want)
+            want = v_and(jx, jplanes)
+            same(kernels.packed_and_dense_count_batched_plain(xs, planes), want)
+            same(kernels.packed_and_dense_count_batched(xs, planes), want)
+        pairs = [(xa, xb, ja, jb)] + ([(xb, xa, jb, ja)] if kind == "sorted" else [])
+        for xs, ys, jx, jy in pairs:
+            want = v_pair(jx, jy)
+            same(kernels.packed_pair_count_batched_plain(xs, ys), want)
+            same(kernels.packed_pair_count_batched(xs, ys), want)
+
+
+def test_wave_wrappers_refuse():
+    """The wave wrappers' checks: no slot, slots of another shape, dtype or
+    rank, slot lists of different lengths, rows that differ between the
+    operands, operands on two devices; and a wave neither on the CPU nor on
+    a CUDA device raises rather than run the plain version."""
+    a = torch.zeros((2, 8), dtype=torch.int32)
+    plane = torch.zeros((2, 16), dtype=torch.int32)
+    meta = torch.zeros((2, 8), dtype=torch.int32, device="meta")
+    for fn, args in ((kernels.packed_count_batched, ([],)),
+                     (kernels.packed_count_batched, ([a, a[:, :4]],)),
+                     (kernels.packed_count_batched, ([a[0]],)),
+                     (kernels.packed_count_batched, ([a, meta],)),
+                     (kernels.packed_count_batched, ([meta],)),
+                     (kernels.packed_count_batched, ([a.t()],)),
+                     (kernels.packed_and_dense_count_batched, ([a, a], [plane])),
+                     (kernels.packed_and_dense_count_batched, ([a], [plane[:1]])),
+                     (kernels.packed_and_dense_count_batched, ([meta], [plane])),
+                     (kernels.packed_pair_count_batched, ([a], [])),
+                     (kernels.packed_pair_count_batched, ([a], [a[:1]])),
+                     (kernels.packed_pair_count_batched, ([a, a], [a, a[:, :4]])),
+                     (kernels.packed_pair_count_batched, ([meta], [meta]))):
+        with pytest.raises(ValueError):
+            fn(*args)
+    with pytest.raises(TypeError):
+        kernels.packed_count_batched([a, a.long()])
+    with pytest.raises(TypeError):
+        kernels.packed_and_dense_count_batched([a], [plane.long()])
+
+
+def test_wave_slot_count():
+    """A wave launch takes PACKED_WAVE_SLOTS slots: the kernel source's
+    kWaveSlots and the coalescer's largest wave, so no coalesced wave is
+    split."""
+    cu = Path(kernels.__file__).resolve().parent.parent / "csrc" / "packed_kernels.cu"
+    m = re.search(r"constexpr int kWaveSlots = (\d+);", cu.read_text())
+    assert m and int(m.group(1)) == kernels.PACKED_WAVE_SLOTS == t_coalesce.MAX_BATCH
+
+
 # -- the planner against the JAX planner -----------------------------------------
 
 
@@ -413,7 +538,7 @@ def test_planner_programs_by_spy(mesh, mixed, monkeypatch):
                 assert k < WORDS_PER_SHARD and k == residency.pack_width(k), q
         fn, arrays = tp.prepare_count(th.index("rq"), parsed_call(
             "Intersect(Row(f=1), Row(g=2))"), shards)
-        assert fn.packed and tp.fn_batched(fn) is None
+        assert fn.packed and tp.fn_batched(fn) is not None  # packed_pair_count_batched
         assert [tuple(a.shape)[1] < WORDS_PER_SHARD for a in arrays] == [True, True]
         for text in ("Union(Row(f=4), Row(f=0))", "Not(Intersect(Row(f=4), Row(g=0)))"):
             fn, _ = tp.prepare_count(th.index("rq"), parsed_call(text), shards)
