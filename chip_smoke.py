@@ -35,8 +35,13 @@ port's paths:
   ``pair_count_batched`` launch per pass);
 - BSI path, in process: bench.py's config 3 at the same 1B columns: an int
   field in [-100000, 100000) on 2% of the columns and a filter row of 5M
-  bits, asked ``Sum``/``Min``/``Max`` (with and without filters, one of
-  them a BSI condition) and ``Count`` of range conditions;
+  bits, its 20M values also imported through ``Field.import_values`` (the
+  first 8 shards into a fresh field by the native scatter, the other 946
+  per fragment, through ``plane_scatter`` where ``auto`` picks the device;
+  every plane equal to the loaded ones), asked ``Sum``/``Min``/``Max``
+  (with and without filters, one of them a BSI condition) and ``Count`` of
+  range conditions; then the whole field's import timed under
+  ``PILOSA_TPU_INGEST_TRANSPOSE`` = on, off, off, on;
 - HTTP path: every query of both through ``POST /index/{i}/query`` on a
   keep-alive connection, each body held to the oracle and byte for byte
   to the in-process JSON with the same launches; warm latencies beside the
@@ -52,7 +57,11 @@ port's paths:
   node's body byte for byte, with the same launches; then a CLI node with
   ``--data-dir`` is SIGKILLed after acknowledged writes and must read them
   back from its WAL, and a bit-flipped snapshot must be quarantined with a
-  503 on its shard;
+  503 on its shard; before that, the third node's dir is backed up over
+  ``POST /backup``, and again as an incremental after four ``Set``
+  calls, ``backup-verify`` checks the archive, and a fourth node on a
+  fresh dir restores the incremental over ``POST /restore``, answers
+  every query as the first node does and reads the Sets back;
 - pql path: on the 1B-column ``bench`` index (with its existence row and a
   third row ``h=3`` at 5% written first) ``Not``, ``Shift``, 3- and 4-leaf
   Counts (each ONE ``tree_count`` launch), ``Rows``, ``Options``,
@@ -92,10 +101,11 @@ port's paths:
   shard 0 and its Count drops its plan and runs dense (ONE
   ``row_counts``);
 - fields path: on ``bench``, fields created over HTTP and loaded from
-  seeded data: a YMDH time field (10M bits in rows 0-2 over 90 days of
-  hours: bench config 4's spread at 1B columns), set fields a, b, c (4, 8
-  and 3 rows, 15M bits each: bench config 5's), a mutex field (50M
-  columns, then 10M moved) and a bool field (20M columns); time windows of
+  seeded data: a YMDH time field (10M bits in rows 0-2 over 60 days of
+  hours: bench config 4's bits at 1B columns, its 90 days cut to the
+  windows' 60), set fields a, b, c (4, 8
+  and 3 rows, 15M bits each: bench config 5's), a mutex field (25M
+  columns, then 5M moved) and a bool field (20M columns); time windows of
   32 and 67 views (``tree_count`` over the view leaves), ``Rows`` over a
   window, ``MinRow``/``MaxRow``, GroupBy of two and three levels, with a
   filter and paged (ONE ``group_count`` each) and with a cursor (the
@@ -192,11 +202,12 @@ BSI_SHARDS = COUNT_SHARDS
 BSI_DENSITY = 0.02
 BSI_MIN, BSI_MAX = -100000, 100000
 BSI_FILTER_BITS = 5_000_000
-#: shards whose values also go through Field.import_values as a check.
+#: every value also goes through Field.import_values as a check: the
+#: shards below this into a fresh field in one batch (the native scatter),
+#: then the rest (per fragment: the device transpose under ``auto``).
 BSI_IMPORT_SHARDS = 8
-#: import every value through Field.import_values when 8 shards' import
-#: projects under this many seconds for the whole field.
-BSI_FULL_IMPORT_S = 60.0
+#: the whole-field import's modes, timed in this order on one host clock.
+BSI_IMPORT_AB = ("off", "on")
 BSI_QUERIES = {
     "sum": "Sum(field=v)",
     "min": "Min(field=v)",
@@ -244,8 +255,10 @@ HTTP_TIMEOUT_S = 300
 #: where the persist phase keeps its data dirs (removed at its end).
 PERSIST_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_data"
 #: free space the persist phase needs under build/: the 1B-column WAL and
-#: snapshots, plus the TopN shard's.
-PERSIST_MIN_FREE_GIB = 12
+#: snapshots, plus the TopN shard's (12 GiB), the backup archive of the
+#: snapshots (under 1 GiB) and the restored data dir, whose WAL holds every
+#: bit as a 16-byte record before its flush (about 6 GiB).
+PERSIST_MIN_FREE_GIB = 19
 #: the crash check's shard count: its semantics do not depend on size.
 CRASH_SHARDS = 3
 
@@ -626,7 +639,7 @@ def import_rule_side(min_bits: int) -> int:
     ``Field._SCATTER_MIN_BITS_PER_SHARD`` at N (0: the JAX package's rule,
     the native scatter for any batch of 65,536 bits or more of at most 8
     rows) on a fresh holder on the card: the fields phase's time import
-    (the same seeded 10M bits over 90 days of hours, YMDH), then three
+    (the same seeded 10M bits over 60 days of hours, YMDH), then three
     imports of the async phase's sparse-row shape (ASYNC_SPARSE_BITS bits
     in each of COUNT_SHARDS shards, one row) and COLD_SAMPLES cold
     ``Count(Row)`` of the first, each on a new planner. One JSON object."""
@@ -650,7 +663,7 @@ def import_rule_side(min_bits: int) -> int:
     rng = np.random.default_rng(SEED + 6)  # the fields phase's first draws
     t_cols = rng.integers(0, n_cols, FIELDS_TIME_BITS, dtype=np.uint64)
     t_rows = rng.integers(0, FIELDS_TIME_ROWS, FIELDS_TIME_BITS).astype(np.uint64)
-    t_hours = rng.integers(0, FIELDS_TIME_HOURS, FIELDS_TIME_BITS)
+    t_hours = FIELDS_TIME_FIRST_HOUR + rng.integers(0, FIELDS_TIME_HOURS, FIELDS_TIME_BITS)
     stamps = (np.datetime64("2019-01-01T00", "h") + t_hours).astype("datetime64[s]")
     tf = idx.create_field("t", FieldOptions(type="time", time_quantum="YMDH"))
     t0 = time.perf_counter()
@@ -1327,6 +1340,93 @@ def check_group_lattices(torch, kernels, t, rng, gb_planes, gb_filt, errs) -> No
 # -- phase 2: each kernel against its plain version --------------------------
 
 
+#: plane_scatter's checks: (positions, values, depth) makers. bench
+#: config 3's shard is BSI_DENSITY of a shard's columns with values in
+#: [BSI_MIN, BSI_MAX); the first of them is the timed case.
+PLANE_SCATTER_CASES = ("bench_shard", "bench_shard_shuffled", "full_shard", "depth40",
+                       "bit31", "negative", "empty", "single")
+
+
+def plane_scatter_case(name: str, seed: int = SEED):
+    """(int32 distinct in-shard positions, int64 values, depth) of one
+    plane_scatter check, sorted unless the case says otherwise."""
+    rng = np.random.default_rng(seed)
+    n_cols = SHARD_WORDS * 32
+    if name.startswith("bench_shard"):
+        pos = sorted_sample(rng, int(n_cols * BSI_DENSITY), n_cols)
+        vals = rng.integers(BSI_MIN, BSI_MAX, len(pos), dtype=np.int64)
+        if name.endswith("shuffled"):
+            order = rng.permutation(len(pos))
+            pos, vals = pos[order], vals[order]
+        return pos.astype(np.int32), vals, 17
+    if name == "full_shard":
+        return (np.arange(n_cols, dtype=np.int32),
+                rng.integers(BSI_MIN, BSI_MAX, n_cols, dtype=np.int64), 17)
+    if name == "depth40":
+        pos = sorted_sample(rng, 50_000, n_cols)
+        vals = rng.integers(-(2**40 - 1), 2**40, len(pos), dtype=np.int64)
+        vals[::3] = rng.integers(2**32, 2**40, len(vals[::3]), dtype=np.int64)
+        return pos.astype(np.int32), vals, 40
+    if name == "bit31":
+        pos = np.arange(31, n_cols, 32, dtype=np.int32)
+        return pos, rng.integers(BSI_MIN, BSI_MAX, len(pos), dtype=np.int64), 17
+    if name == "negative":
+        pos = sorted_sample(rng, 20_000, n_cols)
+        return pos.astype(np.int32), rng.integers(BSI_MIN, 0, len(pos), dtype=np.int64), 17
+    if name == "empty":
+        return np.empty(0, dtype=np.int32), np.empty(0, dtype=np.int64), 17
+    if name == "single":
+        return np.array([n_cols - 1], dtype=np.int32), np.array([-77], dtype=np.int64), 17
+    raise KeyError(name)
+
+
+def plane_scatter_library(torch, pos, vals, depth: int):
+    """plane_scatter's function as one PyTorch call: index_put_ with
+    accumulate of each (plane, word) entry's bit into a zeroed flat
+    ``[(depth + 2) * W]`` int32 image (distinct bits of a word add without
+    carries, wrapping at bit 31 as the pattern does). The (flat index, bit)
+    pairs are laid out ahead of the timed call; returns the call."""
+    w = SHARD_WORDS
+    p = pos.long()
+    mag = vals.abs()
+    member = torch.cat([torch.ones((1, len(p)), dtype=torch.bool, device=p.device),
+                        (vals < 0).unsqueeze(0),
+                        ((mag.unsqueeze(0) >> torch.arange(depth, device=p.device)
+                          .unsqueeze(1)) & 1) == 1])
+    idx = (torch.arange(depth + 2, device=p.device).unsqueeze(1) * w
+           + (p >> 5).unsqueeze(0))[member]
+    bits = (1 << (p & 31)).unsqueeze(0).expand_as(member)[member]
+    bits = torch.where(bits >= 2**31, bits - 2**32, bits).to(torch.int32)
+
+    def call():
+        return torch.zeros((depth + 2) * w, dtype=torch.int32, device=p.device).index_put_(
+            (idx,), bits, accumulate=True).view(depth + 2, w)
+
+    return call
+
+
+def check_plane_scatter(torch, kernels, dev, errs) -> tuple:
+    """plane_scatter against its plain version, exact, on every
+    PLANE_SCATTER_CASES case; returns the timed case's (pos, vals, depth)
+    on the card."""
+    timed = None
+    for name in PLANE_SCATTER_CASES:
+        pos_np, vals_np, depth = plane_scatter_case(name)
+        pos, vals = torch.from_numpy(pos_np).to(dev), torch.from_numpy(vals_np).to(dev)
+        got = kernels.plane_scatter(pos, vals, depth)
+        want = kernels.plane_scatter_plain(pos, vals, depth)
+        torch.cuda.synchronize()
+        err = int(kernels.row_counts_plain(got ^ want).long().sum())
+        errs["plane_scatter"] = max(errs["plane_scatter"], err)
+        if got.shape != want.shape or got.dtype != torch.int32 or err:
+            raise AssertionError(f"plane_scatter {name} ({len(pos_np)} entries, depth "
+                                 f"{depth}): {err} bits differ")
+        if timed is None:
+            timed = (pos, vals, depth)
+    log(f"plane_scatter: exact on {', '.join(PLANE_SCATTER_CASES)}")
+    return timed
+
+
 def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
     from pilosa_tpu_torch.ops import kernels
 
@@ -1626,6 +1726,7 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
     gb_filt = big_b[:954]
     check_group_lattices(torch, kernels, t, rng, gb_planes, gb_filt, errs)
     packed = check_packed_cases(torch, kernels, t, dev, errs)
+    ps_pos, ps_vals, ps_depth = check_plane_scatter(torch, kernels, dev, errs)
     del leaves9, tables9
     log(f"kernel checks: exact on every op and shape; max |err| {errs}")
 
@@ -1638,6 +1739,7 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
     plane = rows * w * 4
     bsi_pred = 50000
     asm_shape = f"[1024, 32768], 16 dense rows, {asm[2].shape[0]} COO words"
+    ps_shape = f"bench config 3's shard: {len(ps_pos)} values, depth {ps_depth}"
     cases = [
         ("pair_count", "[1024, 32768] x [1024, 32768]",
          lambda: kernels.pair_count(big_a, big_b, "and"),
@@ -1726,6 +1828,12 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
          lambda: kernels.group_count_plain(gb_wide, (32, 256), None),
          *group_timed_work((32, 256), False, 4)),
         *packed_timed_cases(kernels, packed),
+        # the entries read once (int32 position, int64 value), the plane
+        # image written once
+        ("plane_scatter", ps_shape,
+         lambda: kernels.plane_scatter(ps_pos, ps_vals, ps_depth),
+         lambda: kernels.plane_scatter_plain(ps_pos, ps_vals, ps_depth),
+         12 * len(ps_pos) + (ps_depth + 2) * w * 4, 0, 0),
     ]
     gb_wide = list(t(seeded_words(rng, (288, 4, w))))
     topn_tiles = [t(seeded_words(rng, (512, w))) for _ in range(30)]
@@ -1749,7 +1857,11 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
 
     if not torch.equal(assemble_library(), kernels.assemble_stack(*asm_args)):
         raise AssertionError("assemble_stack: the library calls compute another stack")
+    ps_library = plane_scatter_library(torch, ps_pos, ps_vals, ps_depth)
+    if not torch.equal(ps_library(), kernels.plane_scatter(ps_pos, ps_vals, ps_depth)):
+        raise AssertionError("plane_scatter: the library call computes another image")
     library = {"assemble_stack": {asm_shape: assemble_library},
+               "plane_scatter": {ps_shape: ps_library},
                **packed_library(torch, kernels, packed)}
     # and_count and pair_count at K = 8 and 4096 (PACKED_VS_WIDTHS), and the
     # packed wave kernels at PACKED_WAVE_TIMED slots, each held to its plain
@@ -2217,39 +2329,58 @@ def phase_bsi(torch, card: str, data: dict, runs: int = QUERY_RUNS) -> dict:
     idx = h.index_or_raise("bsi")
     depth = idx.field("v").bsi_group.bit_depth
 
-    # Field.import_values writes the same planes as the interop load:
-    # BSI_IMPORT_SHARDS shards, or every shard when that projects under
-    # BSI_FULL_IMPORT_S.
+    # Field.import_values writes the same planes as the interop load, at
+    # the full column space: BSI_IMPORT_SHARDS shards into a fresh field
+    # (fresh view, 65,536+ values, under 1 GiB of planes: the native
+    # scatter), then the rest (past the 1 GiB guard and no longer fresh:
+    # per fragment, the device transpose where ``auto`` picks it). The BSI
+    # path's run starts here: counters at 0 just before it.
+    from pilosa_tpu_torch import native
+    from pilosa_tpu_torch.exec import ingest_transpose
+
     shard_of = cols >> SHARD_WIDTH.bit_length() - 1
     vi = idx.create_field("vi", FieldOptions(type="int", min=BSI_MIN, max=BSI_MAX))
     cut = int(np.searchsorted(shard_of, BSI_IMPORT_SHARDS))
-    t0 = time.perf_counter()
-    vi.import_values(cols[:cut], vals[:cut])
-    part_s = time.perf_counter() - t0
-    projected = part_s * n_shards / BSI_IMPORT_SHARDS
-    checked = min(BSI_IMPORT_SHARDS, n_shards)
-    if projected < BSI_FULL_IMPORT_S and n_shards > BSI_IMPORT_SHARDS:
+    scatters = []
+    scatter = native.scatter_bsi_blocks
+    native.scatter_bsi_blocks = lambda *a: scatters.append(a[4]) or scatter(*a)
+    kernels.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        vi.import_values(cols[:cut], vals[:cut])
+        head_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         vi.import_values(cols[cut:], vals[cut:])
-        part_s += time.perf_counter() - t0
-        checked = n_shards
-    for shard in range(checked):
+        rest_s = time.perf_counter() - t0
+    finally:
+        native.scatter_bsi_blocks = scatter
+    import_launches = kernels.LAUNCHES["plane_scatter"]
+    rest_frags = n_shards - min(BSI_IMPORT_SHARDS, n_shards)
+    per_frag = (len(cols) - cut) // max(1, rest_frags) * (depth + 2)
+    crossover = ingest_transpose._min_size(h.device)
+    log(f"Field.import_values: {cut} values of shards 0-{BSI_IMPORT_SHARDS - 1} into a "
+        f"fresh field in {head_s:.3f} s (native scatter calls over shards: {scatters}); "
+        f"{len(cols) - cut} values of {rest_frags} more shards per fragment in "
+        f"{rest_s:.3f} s: mode {ingest_transpose.mode()}, crossover {crossover} "
+        f"plane-bit writes against about {per_frag} a fragment, plane_scatter "
+        f"launches {import_launches} (host clock)  [{card}]")
+    if scatters != [min(BSI_IMPORT_SHARDS, n_shards)]:
+        raise AssertionError(f"the fresh import took the native scatter {scatters}")
+    if device == "cuda" and import_launches < 1:
+        raise AssertionError("the per-fragment import never launched plane_scatter")
+    for shard in range(n_shards):
         a = h.fragment("bsi", "v", "bsig_v", shard)
         b = h.fragment("bsi", "vi", "bsig_vi", shard)
         for r in range(2 + depth):
             if not np.array_equal(a.row_words(r), b.row_words(r)):
                 raise AssertionError(f"import_values plane {r} of shard {shard} "
                                      "differs from the interop planes")
-    scope = "all" if checked == n_shards else f"projected {projected:.3f} s for all"
-    log(f"Field.import_values: {checked} of {n_shards} shards ({scope}) "
-        f"in {part_s:.3f} s (host); planes equal to the interop planes")
-    del cols, vals, shard_of
+    log(f"Field.import_values: planes of all {n_shards} shards equal to the interop "
+        "planes")
     idx.delete_field("vi")
 
     ex = Executor(h, planner=Planner(h), result_cache=False)
     launches, first_ms = {}, {}
-    # The BSI path's run: counters at 0 just before, read just after.
-    kernels.reset_launches()
     for name, q in BSI_QUERIES.items():
         before = dict(kernels.LAUNCHES)
         t0 = time.perf_counter()
@@ -2270,6 +2401,8 @@ def phase_bsi(torch, card: str, data: dict, runs: int = QUERY_RUNS) -> dict:
         # the cube against a class row, the broadcast shape.
         if launches["sum"]["pair_count"] < 2:
             raise AssertionError("Sum did not count its cube with pair_count")
+        if path_launches["plane_scatter"] < 1:
+            raise AssertionError("kernel plane_scatter was not launched on the BSI path")
     log(f"bsi first-run ms (stacks and cube built and uploaded): "
         f"{json.dumps({k: round(v, 3) for k, v in first_ms.items()})}")
     for name, q in BSI_QUERIES.items():
@@ -2285,7 +2418,41 @@ def phase_bsi(torch, card: str, data: dict, runs: int = QUERY_RUNS) -> dict:
             share = f"{busy / wall:.1%} busy" if busy else "device time not measured"
             log(f"profile {q}: device {busy:.4f} ms of {wall:.4f} ms wall per query "
                 f"({share}), torch.profiler over {PROFILE_RUNS} runs  [{card}]")
+    bsi_import_ab(idx, cols, vals, card)
     return {"launches": path_launches}
+
+
+def bsi_import_ab(idx, cols, vals, card: str) -> None:
+    """The whole field's import into a fresh field under each mode of
+    BSI_IMPORT_AB (PILOSA_TPU_INGEST_TRANSPOSE), on one host clock: past
+    the native scatter's 1 GiB guard, so every fragment takes the device
+    transpose under ``on`` and the host plane loop under ``off``. A
+    record, not a claim."""
+    from pilosa_tpu_torch.core import FieldOptions
+    from pilosa_tpu_torch.ops import kernels
+
+    old = os.environ.get("PILOSA_TPU_INGEST_TRANSPOSE")
+    secs = {m: [] for m in BSI_IMPORT_AB}
+    try:
+        for mode in BSI_IMPORT_AB:
+            os.environ["PILOSA_TPU_INGEST_TRANSPOSE"] = mode
+            f = idx.create_field("vt", FieldOptions(type="int", min=BSI_MIN, max=BSI_MAX))
+            before = kernels.LAUNCHES["plane_scatter"]
+            t0 = time.perf_counter()
+            f.import_values(cols, vals)
+            secs[mode].append(time.perf_counter() - t0)
+            n = kernels.LAUNCHES["plane_scatter"] - before
+            idx.delete_field("vt")
+            log(f"whole-field import under {mode}: {secs[mode][-1]:.3f} s, "
+                f"{len(cols)} values, plane_scatter launches {n} (host clock)  [{card}]")
+    finally:
+        if old is None:
+            os.environ.pop("PILOSA_TPU_INGEST_TRANSPOSE", None)
+        else:
+            os.environ["PILOSA_TPU_INGEST_TRANSPOSE"] = old
+    log(f"whole-field import, {' '.join(BSI_IMPORT_AB)}: "
+        + ", ".join(f"{m} {statistics.median(v):.3f} s" for m, v in secs.items())
+        + f" (median of each mode)  [{card}]")
 
 
 # -- phase 6: every query through the HTTP edge -------------------------------
@@ -2744,9 +2911,11 @@ def persist_load(node_a, port: int, data: dict, card: str) -> None:
         f"({n_planes * planes.shape[1] * 4 / secs / 1e6:.3f} MB/s of words)")
 
 
-def persist_queries(node_a, node_c, data: dict, card: str, runs: int) -> dict:
-    """Every Count and BSI query over HTTP on the reopened node C: equal to
-    the oracle, byte-equal to node A's body, the same launches per request.
+def persist_queries(node_a, node_c, data: dict, card: str, runs: int,
+                    label: str = "reopened") -> dict:
+    """Every Count and BSI query over HTTP on the reopened node C (or the
+    restored node D): equal to the oracle, byte-equal to node A's body, the
+    same launches per request; then ``runs`` timed requests of each.
     Returns the launches of node C's serial run."""
     from pilosa_tpu_torch.ops import kernels
 
@@ -2767,50 +2936,147 @@ def persist_queries(node_a, node_c, data: dict, card: str, runs: int) -> dict:
             lambda index=index, q=q: request(cc, "POST", QUERY_PATH.format(index), q))
         first_ms[name] = (time.perf_counter() - t0) * 1e3
         if status != 200 or json.loads(body)["results"] != [want]:
-            raise AssertionError(f"reopened {q}: HTTP {status} {body[:300]!r}, "
+            raise AssertionError(f"{label} {q}: HTTP {status} {body[:300]!r}, "
                                  f"oracle {want}")
         if body != want_bodies[name]:
-            raise AssertionError(f"reopened {q}: body {body[:200]!r} is not node A's "
+            raise AssertionError(f"{label} {q}: body {body[:200]!r} is not node A's "
                                  f"{want_bodies[name][:200]!r}")
         if l_c != want_launches[name]:
-            raise AssertionError(f"reopened {q}: launches {l_c}, node A {want_launches[name]}")
-        log(f"reopened HTTP {q} = oracle, body byte-equal to node A's, launches {l_c}")
+            raise AssertionError(f"{label} {q}: launches {l_c}, node A {want_launches[name]}")
+        log(f"{label} HTTP {q} = oracle, body byte-equal to node A's, launches {l_c}")
     path_launches = dict(kernels.LAUNCHES)
-    log(f"persist path launches: {path_launches}")
+    log(f"persist path launches ({label} node): {path_launches}")
     if data["device"] == "cuda":
         for k in HTTP_KERNELS:
             if path_launches[k] < 1:
                 raise AssertionError(f"kernel {k} was not launched on the reloaded data")
-    log(f"cold first request on the reopened node: {first_ms['count_intersect']:.3f} ms "
+    log(f"cold first request on the {label} node: {first_ms['count_intersect']:.3f} ms "
         f"(Count(Intersect), stacks rebuilt from reloaded host rows), "
         f"{first_ms['sum']:.3f} ms (Sum, the cube rebuilt)  [{card}]")
-    log(f"reopened first-request ms per query: "
+    log(f"{label} first-request ms per query: "
         f"{json.dumps({k: round(v, 3) for k, v in first_ms.items()})}")
-    for index, name, q, _ in queries:
+    for index, name, q, _ in queries if runs else ():
         times = []
         for _ in range(runs):
             t0 = time.perf_counter()
             status, _ = request(cc, "POST", QUERY_PATH.format(index), q)
             times.append((time.perf_counter() - t0) * 1e3)
             if status != 200:
-                raise AssertionError(f"reopened {q}: HTTP {status}")
-        log(f"reopened HTTP {q}: {spread_ms(times)} ms over {runs} requests, "
+                raise AssertionError(f"{label} {q}: HTTP {status}")
+        log(f"{label} HTTP {q}: {spread_ms(times)} ms over {runs} requests, "
             f"keep-alive loopback, client clock  [{card}]")
     ca.close()
     cc.close()
     return path_launches
 
 
+#: the incremental backup's writes: columns of bench row BACKUP_SET_ROW
+#: (a row no other check reads), one in each of a few shards.
+BACKUP_SET_ROW = 99
+BACKUP_SET_COLS = (5, 2**20 + 7, 500 * 2**20 + 31, 953 * 2**20 + 2**20 - 1)
+
+
+def await_job(conn, path: str, what: str) -> dict:
+    """Poll a backup or restore status route until its job ends; the
+    finished status, which must be ``done``."""
+    while True:
+        st = json.loads(expect_ok(conn, "GET", path))
+        if st.get("state") in ("done", "failed", "idle"):
+            break
+        time.sleep(0.2)
+    if st.get("state") != "done":
+        raise AssertionError(f"{what}: {st}")
+    return st
+
+
+def persist_backup(node_a, node_c, data: dict, card: str, root: Path) -> dict:
+    """Backup and restore at 1B columns: ``POST /backup`` of node C's data
+    dir (``bench`` and ``bsi``) into a LocalDirArchive; four Sets on C and
+    an incremental backup against the full one (it stores their WAL
+    segments and refers to the full backup for every other file);
+    ``backup-verify`` on the archive (both backups and the chain);
+    ``POST /restore`` of the incremental into node D on a fresh data dir:
+    every query on D equal to node A's, and the Sets read back. One
+    restore of the chain stands for a restore of the full backup and then
+    of the incremental, each of which rebuilds every fragment: the run has
+    room for one. Returns node D's launches (its serial query run)."""
+    from pilosa_tpu_torch import cli
+    from pilosa_tpu_torch.server import ServerNode
+
+    archive, restored = root / "archive", root / "restored"
+
+    def backup(body: dict, what: str) -> tuple[str, dict]:
+        # A connection of its own each time: an idle keep-alive connection
+        # may be closed by the node while a long step runs.
+        conn = http_client(node_c.port)
+        t0 = time.perf_counter()
+        bid = json.loads(expect_ok(conn, "POST", "/backup", body))["id"]
+        st = await_job(conn, "/backup/status", what)
+        conn.close()
+        log(f"{what} {bid}: {st['totalFragments']} fragments, {st['files']} files "
+            f"stored ({st['unchanged']} unchanged), {st['bytes']} bytes in "
+            f"{time.perf_counter() - t0:.3f} s (client clock; the writer's "
+            f"{st['seconds']} s); archive {dir_bytes(archive)} bytes on disk  [{card}]")
+        return bid, st
+
+    full_id, _ = backup({"archive": str(archive)}, "full backup")
+    conn = http_client(node_c.port)
+    for col in BACKUP_SET_COLS:
+        expect_ok(conn, "POST", "/index/bench/query", f"Set({col}, f={BACKUP_SET_ROW})")
+    conn.close()
+    inc_id, st = backup({"archive": str(archive), "parent": full_id},
+                        f"incremental backup after {len(BACKUP_SET_COLS)} Sets")
+    if not 0 < st["files"] <= 2 * len(BACKUP_SET_COLS):
+        raise AssertionError(f"the incremental backup stored {st['files']} files")
+
+    t0 = time.perf_counter()
+    rc = cli.main(["backup-verify", str(archive)])
+    log(f"backup-verify {archive}: exit {rc} in {time.perf_counter() - t0:.3f} s  [{card}]")
+    if rc != 0:
+        raise AssertionError(f"backup-verify exited {rc}")
+
+    t0 = time.perf_counter()
+    node_d = data["node_d"] = ServerNode(bind="127.0.0.1:0", device=data["device"],
+                                         data_dir=str(restored))
+    node_d.open()
+    conn = http_client(node_d.port)
+    expect_ok(conn, "POST", "/restore", {"archive": str(archive), "id": inc_id})
+    st = await_job(conn, "/restore/status", "restore")
+    log(f"restore {inc_id} into node D: {st['totalFragments']} fragments, {st['bytes']} "
+        f"archive bytes in {time.perf_counter() - t0:.3f} s (client clock, node boot "
+        f"included; the job's {st['seconds']} s); data dir {dir_bytes(restored)} bytes "
+        f"({dir_bytes(restored, '.wal')} in WALs)  [{card}]")
+    launches = persist_queries(node_a, node_d, data, card, 0, label="restored")
+    q = f"Count(Row(f={BACKUP_SET_ROW}))"
+    got = json.loads(expect_ok(conn, "POST", QUERY_PATH.format("bench"), q))["results"]
+    log(f"restored {q} = {got}: the {len(BACKUP_SET_COLS)} Sets read back  [{card}]")
+    if got != [len(BACKUP_SET_COLS)]:
+        raise AssertionError(f"restored {q}: {got}, want {len(BACKUP_SET_COLS)}")
+    conn.close()
+    t0 = time.perf_counter()
+    node_d.close()
+    del data["node_d"]
+    log(f"node D close: {time.perf_counter() - t0:.3f} s  [{card}]")
+    return launches
+
+
+#: rows of the topn shard the persist phase writes, snapshots and reloads
+#: (all 1,536 until the backup round trip joined the phase: a third of
+#: them keeps the whole run within its time).
+PERSIST_TOPN_ROWS = 512
+
+
 def persist_topn_shard(node_a, root: Path, card: str) -> None:
     """The topn index is not persisted whole (1,536 dense rows x 10 shards
-    of 8-byte snapshot positions, about 4 GB raw): one shard of it goes
-    through a store of its own, WAL, snapshot and reload, rows held equal."""
+    of 8-byte snapshot positions, about 4 GB raw): PERSIST_TOPN_ROWS dense
+    rows of one shard go through a store of their own, WAL, snapshot and
+    reload, rows held equal."""
     from pilosa_tpu_torch import interop
     from pilosa_tpu_torch.core import Holder
     from pilosa_tpu_torch.storage import DiskStore
 
     frag = node_a.holder.fragment("topn", "f2", "standard", 0)
-    ids = sorted(frag.rows)
+    ids = sorted(frag.rows)[:PERSIST_TOPN_ROWS]
     d = root / "topn"
     h = Holder(device=node_a.holder.device)
     store = DiskStore(str(d), h)
@@ -2834,7 +3100,8 @@ def persist_topn_shard(node_a, root: Path, card: str) -> None:
             not np.array_equal(back.row_words(r), frag.row_words(r)) for r in ids):
         raise AssertionError("topn shard 0 rows differ after the reload")
     store2.close()
-    log(f"topn shard 0 ({len(ids)} rows, {frag.bit_count()} bits): setRow WAL "
+    log(f"topn shard 0 ({len(ids)} rows, {sum(frag.rows[r].n for r in ids)} bits): "
+        f"setRow WAL "
         f"{wal} bytes in {load_s:.3f} s, close (snapshot) {close_s:.3f} s to {snap} "
         f"bytes, reopen {open_s:.3f} s; rows equal  [{card}]")
 
@@ -3005,12 +3272,14 @@ def phase_persist(torch, card: str, data: dict, runs: int = 10) -> dict:
         if len(q):
             raise AssertionError(f"clean reopen quarantined {q.entries()}")
         launches = persist_queries(node_a, node_c, data, card, runs)
+        restored = persist_backup(node_a, node_c, data, card, PERSIST_DIR)
+        launches = {k: launches[k] + restored[k] for k in launches}
         node_c.close()
         del data["node_c"], node_c
         persist_topn_shard(node_a, PERSIST_DIR, card)
         persist_crash(PERSIST_DIR, device, card)
     finally:
-        for k in ("node_b", "node_c"):
+        for k in ("node_b", "node_c", "node_d"):
             if k in data:
                 data.pop(k).close()
         shutil.rmtree(PERSIST_DIR, ignore_errors=True)
@@ -4012,17 +4281,24 @@ def phase_packed(torch, card: str, data: dict, runs: int = QUERY_RUNS) -> dict:
 # -- phase 10: time, mutex and bool fields, MinRow/MaxRow, GroupBy ------------
 
 #: bench config 4's time field, scaled from 8M to 1B columns: 10M bits in
-#: rows 0-2, stamped on the hour, uniform over 90 days from 2019-01-01.
+#: rows 0-2, stamped on the hour, uniform over 60 days from 2019-01-15
+#: (hour FIELDS_TIME_FIRST_HOUR of 2019), the span of WINDOWS. Bench
+#: config 4 spreads them over 90 days; the 30 days before the windows
+#: were cut to keep the whole run within its time (they added 700K
+#: fragments and about 40 s of host import, and no query read them).
 FIELDS_TIME_BITS = 10_000_000
 FIELDS_TIME_ROWS = 3
-FIELDS_TIME_HOURS = 24 * 90
+FIELDS_TIME_FIRST_HOUR = 14 * 24
+FIELDS_TIME_HOURS = 24 * 60
 #: bench config 5's GroupBy fields at its density (1.5%), at 1B columns.
 FIELDS_SET_BITS = 15_000_000
 FIELDS_SET_ROWS = {"a": 4, "b": 8, "c": 3}
-#: the mutex field: 16 rows over 50M columns, then 10M of them moved.
+#: the mutex field: 16 rows over 25M columns, then 5M of them moved (50M
+#: and 10M until the backup round trip joined the persist phase: halved
+#: to keep the whole run within its time; rows stay in the packed class).
 FIELDS_MUTEX_ROWS = 16
-FIELDS_MUTEX_COLS = 50_000_000
-FIELDS_MUTEX_MOVED = 10_000_000
+FIELDS_MUTEX_COLS = 25_000_000
+FIELDS_MUTEX_MOVED = 5_000_000
 #: the bool field: 20M columns, true or false.
 FIELDS_BOOL_COLS = 20_000_000
 #: bits of t's row 7 imported over HTTP with epoch-second timestamps.
@@ -4148,11 +4424,11 @@ def phase_fields(torch, card: str, data: dict, runs: int = FIELDS_RUNS,
     rng = np.random.default_rng(SEED + 6)
     exp = SHARD_WIDTH.bit_length() - 1
 
-    # The time field: 10M bits, rows 0-2, hourly stamps over 90 days.
+    # The time field: 10M bits, rows 0-2, hourly stamps over 60 days.
     t0 = time.perf_counter()
     t_cols = rng.integers(0, n_cols, FIELDS_TIME_BITS, dtype=np.uint64)
     t_rows = rng.integers(0, FIELDS_TIME_ROWS, FIELDS_TIME_BITS).astype(np.uint64)
-    t_hours = rng.integers(0, FIELDS_TIME_HOURS, FIELDS_TIME_BITS)
+    t_hours = FIELDS_TIME_FIRST_HOUR + rng.integers(0, FIELDS_TIME_HOURS, FIELDS_TIME_BITS)
     stamps = (np.datetime64("2019-01-01T00", "h") + t_hours).astype("datetime64[s]")
     h.field("bench", "t").import_bits(t_rows, t_cols, stamps)
     tf = h.field("bench", "t")
@@ -4489,7 +4765,8 @@ def main() -> int:
                "tree_count_batched": "pilosa_tpu_torch/csrc/tree_kernels.cu",
                "assemble_stack": "pilosa_tpu_torch/csrc/upload_kernels.cu",
                "group_count": "pilosa_tpu_torch/csrc/group_kernels.cu",
-               **dict.fromkeys(PACKED_KERNELS, "pilosa_tpu_torch/csrc/packed_kernels.cu")}
+               **dict.fromkeys(PACKED_KERNELS, "pilosa_tpu_torch/csrc/packed_kernels.cu"),
+               "plane_scatter": "pilosa_tpu_torch/csrc/ingest_kernels.cu"}
     vmapped = ("pilosa_tpu/parallel/coalesce.py:312-348 _flush_batched + "
                "pilosa_tpu/parallel/planner.py:387-396 vmapped (jax.vmap of the "
                "count program; no pallas_call)")
@@ -4519,7 +4796,9 @@ def main() -> int:
                 "packed_pair_count": "pilosa_tpu/exec/residency.py:191-203 "
                                      "packed_pair_count (XLA-fused, no pallas_call)",
                 "packed_expand": "pilosa_tpu/exec/residency.py:158-172 packed_expand "
-                                 "(XLA-fused, no pallas_call)"}
+                                 "(XLA-fused, no pallas_call)",
+                "plane_scatter": "pilosa_tpu/exec/ingest_transpose.py:115-142 "
+                                 "_plane_scatter (XLA-fused, no pallas_call)"}
     packed_program = " (planner.py:1906-1929 _packed_count_program)"
     replaces.update({
         f"{name}_batched": f"{vmapped} over {replaces[name]}{packed_program}"

@@ -30,6 +30,7 @@ import torch
 from pilosa_tpu_torch import native
 from pilosa_tpu_torch.config import (
     DEFAULT_CACHE_SIZE,
+    DENSE_CUTOFF,
     EXISTENCE_FIELD_NAME,
     SHARD_WIDTH,
     WORDS_PER_SHARD,
@@ -578,7 +579,8 @@ class Field:
     #: the scatter import applies when the batch has at most this many
     #: distinct rows (each row costs one O(n) mask + one scatter).
     _SCATTER_MAX_ROWS = 8
-    #: refuse to allocate more than this much dense block buffer per row.
+    #: refuse to allocate more than this much dense block buffer for one
+    #: row's scatter, or for one value scatter's planes (the JAX guard).
     _SCATTER_MAX_BYTES = 1 << 30
     #: and take the scatter only for at least this many bits per shard of
     #: the batch's span: each row's buffer is a whole block per shard,
@@ -655,10 +657,11 @@ class Field:
 
     def import_values(self, column_ids, values, clear: bool = False) -> None:
         """Reference importValue (field.go:1285): validates the range, grows
-        the bit depth once for the batch, then splits the batch by shard
-        with one stable integer argsort. (The JAX package's native
-        sort-free value scatter for fresh views writes the same planes; it
-        is ROADMAP.md Queue 1 item 4b.)"""
+        the bit depth once for the batch, then lands a bulk load of 65,536
+        values or more into a fresh view with the native sort-free scatter
+        (``_scatter_import_values``, the JAX package's rule), and anything
+        else by shard, split with one stable integer argsort, through
+        ``Fragment.import_values``."""
         bsig = self._require_bsi()
         values_arr = np.asarray(values, dtype=np.int64)
         if not clear and len(values_arr):
@@ -674,6 +677,9 @@ class Field:
         if len(cols) == 0:
             return
         vals = values_arr if bsig.base == 0 else values_arr - bsig.base
+        if (not clear and len(cols) >= 65536
+                and self._scatter_import_values(view, cols, vals, bsig)):
+            return
         cols = cols.astype(np.int64, copy=False)
         exp = SHARD_WIDTH.bit_length() - 1
         shards = (cols >> exp).astype(np.int32)
@@ -686,6 +692,60 @@ class Field:
             frag = view.create_fragment_if_not_exists(int(shards[lo]))
             frag.import_values(cols[lo:hi], vals[lo:hi], bsig.bit_depth,
                                clear=clear)
+
+    def _scatter_import_values(self, view: View, cols: np.ndarray,
+                               vals: np.ndarray, bsig) -> bool:
+        """Sort-free BSI bulk import (the JAX package's
+        ``Field._scatter_import_values``): one native pass decomposes the
+        (column, value) pairs into every shard's plane blocks at once.
+        Only for a FRESH view (no values anywhere), where last-write-wins
+        needs no plane clears, and under the buffer guard; returns False,
+        with nothing changed, otherwise or without the native codec."""
+        from pilosa_tpu_torch.core.fragment import BSI_OFFSET_BIT
+        if not native.available():
+            return False
+        if any(frag.rows for frag in view.fragments.values()):
+            return False
+        exp = SHARD_WIDTH.bit_length() - 1
+        n_shards = (int(cols.max()) >> exp) + 1
+        depth = bsig.bit_depth
+        if n_shards * (depth + 2) * WORDS_PER_SHARD * 4 > self._SCATTER_MAX_BYTES:
+            return False
+        # Last-write-wins for duplicated columns happens inside the native
+        # pass (the exists plane is the seen-set on a fresh view).
+        out = native.scatter_bsi_blocks(cols, vals, exp, depth, n_shards,
+                                        WORDS_PER_SHARD)
+        if out is None:
+            return False
+        blocks, touched, counts = out
+        # Only non-empty planes are adopted: a batch whose values light few
+        # planes copies rather than pin the whole buffer. Sparse planes stay
+        # dense while any plane of the batch does (that one pins the buffer
+        # regardless, so positions would cost a scan and free nothing).
+        used = int(np.count_nonzero(counts)) * WORDS_PER_SHARD * 4
+        adopt = used * 2 >= blocks.nbytes
+        pinned = adopt and int(counts.max()) > DENSE_CUTOFF // 2
+        touched_shards: set[int] = set()
+        try:
+            for shard in np.flatnonzero(touched).tolist():
+                frag = view.create_fragment_if_not_exists(int(shard))
+                for r in range(depth + 2):
+                    n_bits = int(counts[shard][r])
+                    if n_bits == 0:
+                        continue
+                    # Per-shard plane order: exists, sign, magnitude planes
+                    # (BSI row ids 0, 1, 2 + i).
+                    row_id = r if r < 2 else BSI_OFFSET_BIT + (r - 2)
+                    row = blocks[shard][r] if adopt else blocks[shard][r].copy()
+                    frag.merge_row_words(row_id, row, bit_count=n_bits,
+                                         bump_epoch=False, prefer_dense=pinned)
+                    touched_shards.add(int(shard))
+        finally:
+            # ONE index-epoch bump for the batch, also when a later plane
+            # fails after earlier ones merged.
+            if touched_shards and self.epoch is not None:
+                self.epoch.bump_shards(sorted(touched_shards))
+        return True
 
     def info(self) -> dict:
         return {"name": self.name, "options": self.options.to_json()}

@@ -293,13 +293,16 @@ class Fragment:
 
     def merge_row_words(self, row_id: int, words: np.ndarray,
                         bit_count: int | None = None,
-                        bump_epoch: bool = True) -> int:
+                        bump_epoch: bool = True,
+                        prefer_dense: bool = False) -> int:
         """Merge a freshly-scattered dense word block into one row: the
         landing half of the native bulk-import scatter (reference
         importRoaringBits' container merge, roaring.go:1511). ``words``
         ownership transfers to the fragment; returns bits added. Bulk
         callers landing many rows pass bump_epoch=False and bump the
-        index epoch once at the end."""
+        index epoch once at the end, and prefer_dense=True when ``words``
+        is a view of a scatter buffer that sibling rows keep pinned
+        anyway."""
         with self._lock:
             if bit_count is None:
                 bit_count = native.popcount_words(words)
@@ -307,7 +310,8 @@ class Fragment:
                 return 0
             hr = self.rows.get(row_id)
             if hr is None or hr.n == 0:
-                self.rows[row_id] = HostRow.adopt_words(words, bit_count)
+                self.rows[row_id] = HostRow.adopt_words(words, bit_count,
+                                                        prefer_dense=prefer_dense)
                 changed = bit_count
             else:
                 changed = hr.merge_words(words)
@@ -830,12 +834,13 @@ class Fragment:
         set across the exists/sign/magnitude rows, fed through the
         pre-sorted bulk path. Last write per column wins, like sequential
         writes. The two bulk passes log the WAL records of the JAX
-        fragment's host path, which its device transpose
+        fragment's host path, which the device transpose
         (``_emit_value_wal``) also writes: one ``removeBatch`` of every
         (plane, column) bit off in the new values, then one ``addBatch``
-        of every bit on, each only when its pass changed bits. (The
-        device transpose itself, exec/ingest_transpose.py, is not
-        ported.)"""
+        of every bit on, each only when its pass changed bits. Under
+        ``exec/ingest_transpose.py``'s mode the batch's planes come from
+        one ``plane_scatter`` on the fragment's device instead
+        (``_import_values_device``), with equal rows and WAL bytes."""
         cols = np.asarray(column_ids, dtype=np.int64)
         if len(cols) == 0:
             return
@@ -850,6 +855,10 @@ class Fragment:
         # Keep the LAST occurrence of each duplicated column.
         local_u, idx = np.unique(local_all[::-1], return_index=True)
         vals_u = vals[::-1][idx]
+        from pilosa_tpu_torch.exec import ingest_transpose
+        if ingest_transpose.use_device(len(local_u) * (bit_depth + 2), self.device):
+            self._import_values_device(local_u, vals_u, bit_depth)
+            return
         neg = vals_u < 0
         mag = np.abs(vals_u).astype(np.uint64)
         set_rows, set_cols = [], []
@@ -877,6 +886,88 @@ class Fragment:
             if set_rows:
                 self.bulk_import_sorted_local(np.concatenate(set_rows),
                                               np.concatenate(set_cols))
+
+    def _import_values_device(self, local_u: np.ndarray, vals_u: np.ndarray,
+                              bit_depth: int) -> None:
+        """Device half of import_values: one ``plane_scatter`` yields the
+        full ``[depth + 2, W]`` plane image of the deduplicated batch,
+        merged here with word ops. Bit-identical to the host plane loop:
+        row 0 doubles as the written-column mask, so ``(old & ~mask) |
+        new`` is exactly clear-then-set per column (exists only ever ORs
+        in: columns are never un-existed). Empty rows adopt their plane
+        of the image, which the transpose hands over writable, so later
+        writes to them go through (the JAX package's adopted rows are
+        read-only views of a device array)."""
+        from pilosa_tpu_torch.exec import ingest_transpose
+        planes = ingest_transpose.transpose_planes(local_u, vals_u, bit_depth,
+                                                   self.device)
+        notmask = np.invert(planes[0])
+        plane_ids = [BSI_EXISTS_BIT, BSI_SIGN_BIT] + list(
+            range(BSI_OFFSET_BIT, BSI_OFFSET_BIT + bit_depth))
+        with self._lock:
+            added = removed = 0
+            for j, rid in enumerate(plane_ids):
+                set_w = planes[j]
+                hr = self.rows.get(rid)
+                if hr is None or hr.n == 0:
+                    a = int(bitops.np_count(set_w))
+                    if a == 0:
+                        continue
+                    # set_w is a view of the shared plane image: siblings
+                    # pin the block anyway, so keep it dense in place.
+                    self.rows[rid] = HostRow.adopt_words(set_w, a, prefer_dense=True)
+                    added += a
+                    continue
+                old = hr.to_words()
+                if rid == BSI_EXISTS_BIT:
+                    new = np.bitwise_or(old, set_w)
+                else:
+                    new = np.bitwise_or(np.bitwise_and(old, notmask), set_w)
+                a = int(bitops.np_count(np.bitwise_and(new, np.invert(old))))
+                r = int(bitops.np_count(np.bitwise_and(old, np.invert(new))))
+                if a == 0 and r == 0:
+                    continue
+                self.rows[rid] = HostRow.adopt_words(new, hr.n + a - r,
+                                                     prefer_dense=True)
+                added += a
+                removed += r
+            if added or removed:
+                self._invalidate()
+                if self.op_writer:
+                    self._emit_value_wal(local_u, vals_u, bit_depth, removed, added)
+
+    def _emit_value_wal(self, local_u: np.ndarray, vals_u: np.ndarray,
+                        bit_depth: int, removed: int, added: int) -> None:
+        """The host path's WAL framing for a device value import: one
+        removeBatch of every (plane, column) whose bit is off in the new
+        values, then one addBatch of every on bit -- the full request
+        arrays bulk_import_sorted_local logs, gated the same way (a record
+        only when its pass changed bits)."""
+        neg = vals_u < 0
+        mag = np.abs(vals_u).astype(np.uint64)
+        set_rows, set_cols = [], []
+        clr_rows, clr_cols = [], []
+
+        def _add(bucket_r, bucket_c, row_id, mask):
+            n = int(mask.sum())
+            if n:
+                bucket_r.append(np.full(n, row_id, dtype=np.uint64))
+                bucket_c.append(local_u[mask].astype(np.uint64))
+
+        _add(set_rows, set_cols, BSI_EXISTS_BIT, np.ones(len(local_u), dtype=bool))
+        _add(set_rows, set_cols, BSI_SIGN_BIT, neg)
+        _add(clr_rows, clr_cols, BSI_SIGN_BIT, ~neg)
+        for i in range(bit_depth):
+            on = ((mag >> np.uint64(i)) & np.uint64(1)) == 1
+            _add(set_rows, set_cols, BSI_OFFSET_BIT + i, on)
+            _add(clr_rows, clr_cols, BSI_OFFSET_BIT + i, ~on)
+        base = np.uint64(self.shard * SHARD_WIDTH)
+        if removed and clr_rows:
+            self.op_writer("removeBatch", np.concatenate(clr_rows),
+                           np.concatenate(clr_cols) + base)
+        if added and set_rows:
+            self.op_writer("addBatch", np.concatenate(set_rows),
+                           np.concatenate(set_cols) + base)
 
     def sum(self, filter_row: Row | None, bit_depth: int) -> tuple[int, int]:
         """(sum, count) — reference fragment.sum (fragment.go:1111)."""

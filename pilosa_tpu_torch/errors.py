@@ -88,9 +88,7 @@ class FragmentNotFoundError(PilosaError):
 
 
 #: The later slices of the port, by their heading in ROADMAP.md Queue 1.
-SLICE_FIELDS = "packed residency and the device value transpose"
 SLICE_KEYS = "keys and sketches"
-SLICE_BACKUP = "backup and restore"
 SLICE_CLUSTER = "cluster and operations"
 
 

@@ -87,6 +87,9 @@ def _bind(lib: ctypes.CDLL) -> None:
         "intersection_count_words": (c64, [u32, u32, c64]),
         "scatter_row_blocks": (None, [u64, c64, ctypes.c_int, u32, c64, c64,
                                       u8, i64]),
+        "scatter_bsi_blocks": (ctypes.c_int, [u64, i64, c64, ctypes.c_int,
+                                              ctypes.c_int, u32, c64, c64, u8,
+                                              i64]),
         "pool_alloc": (ctypes.c_void_p, [c64, ctypes.c_int]),
         "pool_free": (None, [ctypes.c_void_p, c64]),
         "pool_reserve": (c64, [c64]),
@@ -313,4 +316,32 @@ def scatter_row_blocks(cols: np.ndarray, exp: int,
     lib.scatter_row_blocks(cols, len(cols), exp,
                            blocks.reshape(-1), n_shards, words_per_shard,
                            touched, counts)
+    return blocks, touched.astype(bool), counts
+
+
+def scatter_bsi_blocks(cols: np.ndarray, vals: np.ndarray, exp: int,
+                       depth: int, n_shards: int, words_per_shard: int):
+    """Scatter (column, value) pairs into dense BSI bit-plane blocks
+    ([n_shards, depth+2, W]; per-shard rows: exists, sign, planes) in one
+    native pass. Duplicate columns resolve last-write-wins (the codec
+    dedupes against the exists plane, which the caller guarantees starts
+    empty). Returns (blocks, touched, counts[n_shards, depth+2]) or None
+    when the native library is missing or its staging alloc failed
+    (callers take the per-fragment import)."""
+    lib = _load()
+    if lib is None:
+        return None
+    cols = np.ascontiguousarray(cols, dtype=np.uint64)
+    vals = np.ascontiguousarray(vals, dtype=np.int64)
+    blocks = pool_zeros((n_shards, depth + 2, words_per_shard), np.uint32)
+    if blocks is None:
+        blocks = np.zeros((n_shards, depth + 2, words_per_shard), dtype=np.uint32)
+        _advise_huge(blocks)
+    touched = np.zeros(n_shards, dtype=np.uint8)
+    counts = np.zeros((n_shards, depth + 2), dtype=np.int64)
+    rc = lib.scatter_bsi_blocks(cols, vals, len(cols), exp, depth,
+                                blocks.reshape(-1), n_shards, words_per_shard,
+                                touched, counts.reshape(-1))
+    if rc != 0:
+        return None
     return blocks, touched.astype(bool), counts

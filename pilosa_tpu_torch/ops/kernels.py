@@ -77,7 +77,8 @@ LAUNCHES = {"pair_count": 0, "row_counts": 0, "bsi_compare": 0, "bsi_minmax": 0,
             "row_counts_batched": 0, "tree_count_batched": 0, "assemble_stack": 0,
             "group_count": 0, "packed_count": 0, "packed_and_dense_count": 0,
             "packed_pair_count": 0, "packed_expand": 0, "packed_count_batched": 0,
-            "packed_and_dense_count_batched": 0, "packed_pair_count_batched": 0}
+            "packed_and_dense_count_batched": 0, "packed_pair_count_batched": 0,
+            "plane_scatter": 0}
 #: leaf records tree_count_batched's launches were given (slots x tape
 #: leaves) and the distinct leaves they read (each slot group's once):
 #: how much its waves share.
@@ -133,6 +134,9 @@ _SIGNATURES = {
                                                   _I64, _I64, _I32, _VP],
         "pilosa_packed_pair_count_batched": [_VP, _VP, _VP, _VP, _I32, _VP, _I64, _I64,
                                              _I64, _I32, _VP],
+    },
+    "ingest_kernels.cu": {
+        "pilosa_plane_scatter": [_VP, _VP, _I64, _I32, _I64, _VP, _VP],
     },
 }
 _libs: dict[str, ctypes.CDLL] = {}
@@ -472,6 +476,34 @@ def packed_and_dense_count_batched_plain(idx_slots, plane_slots) -> torch.Tensor
 def packed_pair_count_batched_plain(a_slots, b_slots) -> torch.Tensor:
     """``packed_pair_count_plain`` slot by slot, stacked to ``[B, S]``."""
     return torch.stack([packed_pair_count_plain(a, b) for a, b in zip(a_slots, b_slots)])
+
+
+def plane_scatter_plain(pos: torch.Tensor, vals: torch.Tensor,
+                        bit_depth: int) -> torch.Tensor:
+    """pilosa_tpu/exec/ingest_transpose.py _plane_scatter (:115-142): each
+    entry adds ``1 << (pos & 31)`` to word ``pos >> 5`` of row 0 (exists),
+    of row 1 where its value is negative, and of row 2 + i where bit i of
+    its magnitude is set, i < bit_depth, in a zeroed ``[bit_depth + 2, W]``
+    image. The sums run on int64 and come back as int32 bit patterns;
+    positions outside ``[0, 32 W)`` are dropped. The add is an OR because
+    a batch's positions are distinct. The magnitude's bits come from an
+    arithmetic shift of ``|v|``, which for INT64_MIN is the pattern of
+    2^63, as the unsigned magnitude is."""
+    words = WORDS_PER_SHARD
+    p = pos.to(torch.int64)
+    keep = (p >= 0) & ((p >> 5) < words)
+    p, v = p[keep], vals[keep]
+    mag = v.abs()
+    shifts = torch.arange(bit_depth, dtype=torch.int64, device=pos.device)
+    member = torch.cat([torch.ones((1, len(p)), dtype=torch.bool, device=pos.device),
+                        (v < 0).unsqueeze(0),
+                        ((mag.unsqueeze(0) >> shifts.unsqueeze(1)) & 1) == 1])
+    planes = torch.arange(bit_depth + 2, dtype=torch.int64, device=pos.device)
+    idx = planes.unsqueeze(1) * words + (p >> 5).unsqueeze(0)
+    bits = (1 << (p & 31)).unsqueeze(0).expand_as(idx)
+    out = torch.zeros((bit_depth + 2) * words, dtype=torch.int64, device=pos.device)
+    out.index_put_((idx[member],), bits[member], accumulate=True)
+    return _as_int32_bits(out.view(bit_depth + 2, words))
 
 
 # ---------------------------------------------------------------------------
@@ -1397,4 +1429,40 @@ def packed_expand(idx: torch.Tensor, words: int = WORDS_PER_SHARD) -> torch.Tens
     if err:
         raise RuntimeError(f"packed_expand kernel launch failed: CUDA error {err}")
     _count_launch("packed_expand")
+    return out
+
+
+def plane_scatter(pos: torch.Tensor, vals: torch.Tensor, bit_depth: int) -> torch.Tensor:
+    """The ``[bit_depth + 2, W]`` int32 BSI plane image of one shard's
+    batch: ``pos`` ``[M]`` int32 distinct in-shard positions, ``vals``
+    ``[M]`` int64 values on the same device; row 0 exists, row 1 sign, row
+    2 + i magnitude bit i. The kernel ORs where the JAX function adds,
+    which agree on distinct positions."""
+    for x, name, dtype in ((pos, "pos", torch.int32), (vals, "vals", torch.int64)):
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got {type(x).__name__}")
+        if x.dtype != dtype or x.dim() != 1:
+            raise TypeError(f"{name} must be a 1-D {dtype} tensor, got {x.dtype} "
+                            f"{tuple(x.shape)}")
+    if pos.shape != vals.shape or pos.device != vals.device:
+        raise ValueError(f"pos {tuple(pos.shape)} on {pos.device} and vals "
+                         f"{tuple(vals.shape)} on {vals.device} must match")
+    if isinstance(bit_depth, bool) or int(bit_depth) != bit_depth or not (
+            0 <= bit_depth <= MAX_DEPTH):
+        raise ValueError(f"bit_depth must be an int in [0, {MAX_DEPTH}], got {bit_depth!r}")
+    if pos.device.type == "cpu":
+        return plane_scatter_plain(pos, vals, bit_depth)
+    _require_cuda(pos)
+    pos, vals = pos.contiguous(), vals.contiguous()
+    out = torch.zeros((bit_depth + 2, WORDS_PER_SHARD), dtype=torch.int32,
+                      device=pos.device)
+    if len(pos) == 0:
+        return out
+    with torch.cuda.device(pos.device):
+        err = _library("ingest_kernels.cu").pilosa_plane_scatter(
+            pos.data_ptr(), vals.data_ptr(), len(pos), int(bit_depth),
+            WORDS_PER_SHARD, out.data_ptr(), _stream(pos.device))
+    if err:
+        raise RuntimeError(f"plane_scatter kernel launch failed: CUDA error {err}")
+    _count_launch("plane_scatter")
     return out

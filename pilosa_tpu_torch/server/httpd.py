@@ -5,7 +5,7 @@ http/handler.go (newRouter :274-318). Implemented on the stdlib
 ThreadingHTTPServer, one thread per connection. Every route of the JAX
 node's table is mounted in the same order and matched by the same
 pattern; the routes a standalone node of this slice does not serve
-(cluster RPC, backup, key translation) answer 501 with a body that names
+(cluster RPC, key translation) answer 501 with a body that names
 the ROADMAP.md slice that brings them.
 """
 
@@ -20,7 +20,6 @@ from urllib.parse import parse_qs, urlparse
 
 from pilosa_tpu_torch.cache.tenant import reset_current_tenant, set_current_tenant
 from pilosa_tpu_torch.errors import (
-    SLICE_BACKUP,
     SLICE_CLUSTER,
     SLICE_KEYS,
     ApiMethodNotAllowedError,
@@ -607,6 +606,83 @@ def _build_routes(api: API):
             return 400, {"error": "index and shard params required"}
         return 200, api.fragment_nodes(index, int(shard))
 
+    # backup / restore (operator surface + the capture RPC; reference
+    # httpd.py:1224-1290)
+    def post_backup(pv, params, body):
+        handler = getattr(api, "backup_handler", None)
+        if handler is None:
+            return 400, {"error": "backup not configured on this node "
+                                  "(no data dir)"}
+        req = jbody(body)
+        if params.get("archive"):
+            req.setdefault("archive", params["archive"])
+        if params.get("parent"):
+            req.setdefault("parent", params["parent"])
+        return 200, handler(req)
+
+    def get_backup_status(pv, params, body):
+        handler = getattr(api, "backup_status_handler", None)
+        if handler is None:
+            return 200, {"state": "idle"}
+        return 200, handler()
+
+    def post_restore(pv, params, body):
+        handler = getattr(api, "restore_handler", None)
+        if handler is None:
+            return 400, {"error": "restore not configured on this node "
+                                  "(no data dir)"}
+        req = jbody(body)
+        if params.get("archive"):
+            req.setdefault("archive", params["archive"])
+        if params.get("id"):
+            req.setdefault("id", params["id"])
+        if params.get("force") in ("1", "true"):
+            req.setdefault("force", True)
+        return 200, handler(req)
+
+    def get_restore_status(pv, params, body):
+        handler = getattr(api, "restore_status_handler", None)
+        if handler is None:
+            return 200, {"state": "idle"}
+        return 200, handler()
+
+    def get_backup_keys(pv, params, body):
+        """Fragment keys this node holds durable files for."""
+        store = getattr(api, "store", None)
+        if store is None:
+            return 200, {"keys": []}
+        return 200, {"keys": [list(k) for k in store.all_fragment_keys()]}
+
+    def get_backup_fragment(pv, params, body):
+        """One fragment's verified (snap, wal) pair, base64-wrapped in
+        JSON. ShardCorruptError propagates to the dispatch ladder's 503."""
+        store = getattr(api, "store", None)
+        if store is None:
+            raise FragmentNotFoundError()
+        from pilosa_tpu_torch.backup.writer import capture_fragment
+        key = (params["index"], params["field"], params["view"],
+               int(params["shard"]))
+        try:
+            pair = capture_fragment(store, key)
+        except LookupError:
+            raise FragmentNotFoundError() from None
+        import base64
+        return 200, {
+            "snap": (base64.b64encode(pair["snap"]).decode()
+                     if pair["snap"] is not None else None),
+            "wal": (base64.b64encode(pair["wal"]).decode()
+                    if pair["wal"] is not None else None),
+            "ops": pair["ops"],
+        }
+
+    def get_debug_backup(pv, params, body):
+        """Unattended-backup health: the BackupScheduler's status doc, or
+        {"enabled": false} when no scheduler runs on this node."""
+        handler = getattr(api, "backup_debug_handler", None)
+        if handler is None:
+            return 200, {"enabled": False}
+        return 200, handler()
+
     def get_views(pv, params, body):
         return 200, {"views": api.views(pv["index"], pv["field"])}
 
@@ -615,7 +691,6 @@ def _build_routes(api: API):
         return 200, {}
 
     cluster = SLICE_CLUSTER
-    backup = SLICE_BACKUP
     table = [
         (r"/", {"GET": home}),
         (r"/index", {"GET": get_indexes}),
@@ -657,16 +732,12 @@ def _build_routes(api: API):
         (r"/debug/profile", {"GET": get_debug_profile}),
         (r"/debug/heap", {"GET": get_debug_heap}),
         (r"/recalculate-caches", {"POST": post_recalculate}),
-        (r"/backup", {"POST": _not_ported("POST /backup", backup)}),
-        (r"/backup/status",
-         {"GET": _not_ported("GET /backup/status", backup)}),
-        (r"/restore", {"POST": _not_ported("POST /restore", backup)}),
-        (r"/restore/status",
-         {"GET": _not_ported("GET /restore/status", backup)}),
-        (r"/internal/backup/keys",
-         {"GET": _not_ported("GET /internal/backup/keys", backup)}),
-        (r"/internal/backup/fragment",
-         {"GET": _not_ported("GET /internal/backup/fragment", backup)}),
+        (r"/backup", {"POST": post_backup}),
+        (r"/backup/status", {"GET": get_backup_status}),
+        (r"/restore", {"POST": post_restore}),
+        (r"/restore/status", {"GET": get_restore_status}),
+        (r"/internal/backup/keys", {"GET": get_backup_keys}),
+        (r"/internal/backup/fragment", {"GET": get_backup_fragment}),
         (r"/internal/shards/max", {"GET": get_shards_max}),
         (r"/internal/availability",
          {"GET": _not_ported("GET /internal/availability", cluster)}),
@@ -681,8 +752,7 @@ def _build_routes(api: API):
         (r"/internal/fragment/nodes", {"GET": get_fragment_nodes}),
         (r"/debug/resize",
          {"GET": _not_ported("GET /debug/resize", cluster)}),
-        (r"/debug/backup",
-         {"GET": _not_ported("GET /debug/backup", backup)}),
+        (r"/debug/backup", {"GET": get_debug_backup}),
         (r"/internal/index/(?P<index>[^/]+)/field/(?P<field>[^/]+)"
          r"/remote-available-shards/(?P<shard>[0-9]+)",
          {"DELETE": _not_ported("remote available shards", cluster)}),

@@ -9,15 +9,20 @@ result cache, the query-profile ring, the runtime gauges and, with
 and reloads the data dir at boot (and ``warmup.json``, the query shapes
 the planner saw, for the next boot's warmup to replay), and the planner's
 async path: same-plan dispatch coalescing, inline transfer resolution,
-packed residency, the residency prefetcher and the kernel build cache. Peers,
-joins, backups, scrubs and the other background sweeps come with later
-slices (ROADMAP.md Queue 1: backup and restore; cluster and operations).
+packed residency, the residency prefetcher and the kernel build cache,
+the device value transpose's knob (``ingest_transpose``), and backup and
+restore: ``POST /backup`` and ``/restore`` drive a ``BackupWriter`` or a
+``RestoreJob`` off the request thread, and ``backup_interval`` with
+``archive_url`` starts the unattended ``BackupScheduler``. Peers, joins,
+scrubs and the other background sweeps come with a later slice
+(ROADMAP.md Queue 1: cluster and operations).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import random
 import threading
 
 import torch
@@ -26,9 +31,11 @@ from pilosa_tpu_torch.cluster.node import URI, Node
 from pilosa_tpu_torch.cache.result_cache import ResultCache
 from pilosa_tpu_torch.core.holder import Holder
 from pilosa_tpu_torch.exec import fuse as _dispatch_fuse
+from pilosa_tpu_torch.exec import ingest_transpose as _ingest_transpose
 from pilosa_tpu_torch.exec import residency as _residency
 from pilosa_tpu_torch.exec.executor import Executor
 from pilosa_tpu_torch.obs import MemoryStats, ProfileRing
+from pilosa_tpu_torch.obs.logger import StandardLogger
 from pilosa_tpu_torch.obs.runtime import RuntimeMonitor
 from pilosa_tpu_torch.parallel import Planner, compile_cache
 from pilosa_tpu_torch.parallel import batcher as _transfer_batcher
@@ -60,6 +67,10 @@ class ServerNode:
                  use_planner: bool = True,
                  tls_cert: str | None = None,
                  tls_key: str | None = None,
+                 backup_interval: float = 0.0,
+                 archive_url: str | None = None,
+                 backup_full_every: int = 8,
+                 backup_keep_chains: int = 2,
                  qos_max_concurrent: int = 0,
                  qos_max_queue: int = 64,
                  qos_internal_reserve: int = 4,
@@ -87,10 +98,20 @@ class ServerNode:
                  inline_transfer: str = "auto",
                  residency_packed: str = "auto",
                  prefetch: str = "on",
+                 ingest_transpose: str = "auto",
                  compile_cache_dir: str | None = None):
         host, _, port = bind.partition(":")
         self.host, self.port = host or "127.0.0.1", int(port or 10101)
         self.stats = MemoryStats()
+        self.logger = StandardLogger()
+        self._closed = False
+        self._backup_interval = float(backup_interval or 0.0)
+        self._archive_url = archive_url
+        self._backup_full_every = int(backup_full_every)
+        self._backup_keep_chains = int(backup_keep_chains)
+        self.backup_scheduler = None
+        self.backup_archive = None
+        self._backup_timer = None
         self.holder = Holder(device=device)
         self.data_dir = data_dir
         # The kernel build cache: None/"" resolves to <data dir>/compile-cache
@@ -122,7 +143,10 @@ class ServerNode:
         # coalescing, inline transfer resolution, packed leaf stacks
         # (exec/residency.py) and the async miss path;
         # PILOSA_TPU_DISPATCH_FUSE / _DISPATCH_COALESCE / _INLINE_TRANSFER /
-        # _RESIDENCY_PACKED / _PREFETCH override per run.
+        # _RESIDENCY_PACKED / _PREFETCH override per run. The device BSI
+        # plane transpose of bulk value imports (exec/ingest_transpose);
+        # PILOSA_TPU_INGEST_TRANSPOSE overrides.
+        _ingest_transpose.set_mode(ingest_transpose)
         _dispatch_fuse.set_mode(dispatch_fuse)
         _dispatch_coalesce.set_mode(dispatch_coalesce)
         _transfer_batcher.set_inline_mode(inline_transfer)
@@ -188,6 +212,19 @@ class ServerNode:
             id=self.id, uri=URI(scheme="https" if tls_cert else "http",
                                 host=self.host, port=self.port),
             is_coordinator=True)
+        # Backup/restore hooks (POST /backup, /restore). One run of
+        # each at a time; jobs run off the request thread and
+        # /backup/status, /restore/status read their live progress.
+        self._backup_gate = threading.Lock()
+        self._restore_gate = threading.Lock()
+        self._backup_writer = None
+        self._restore_job = None
+        if self.store is not None:
+            self.api.backup_handler = self.handle_backup
+            self.api.backup_status_handler = self.backup_status
+            self.api.restore_handler = self.handle_restore
+            self.api.restore_status_handler = self.restore_status
+        self.api.backup_debug_handler = self.backup_debug
 
     def open(self) -> None:
         self.http.serve_background()
@@ -208,6 +245,18 @@ class ServerNode:
                         native.pool_reserve(deficit)
             threading.Thread(target=_warm, daemon=True,
                              name="pool-warm").start()
+        if (self._backup_interval > 0 and self._archive_url
+                and self.store is not None):
+            from pilosa_tpu_torch.backup import BackupScheduler, open_archive
+            self.backup_archive = open_archive(self._archive_url, stats=self.stats)
+            self.backup_scheduler = BackupScheduler(
+                holder=self.holder, cluster=None, client=None,
+                store=self.store, archive=self.backup_archive,
+                interval=self._backup_interval,
+                stats=self.stats, logger=self.logger, admission=self.qos,
+                full_every=self._backup_full_every,
+                keep_chains=self._backup_keep_chains)
+            self._schedule_backup()
         self.runtime_monitor = RuntimeMonitor(self.stats,
                                               self.executor.planner,
                                               qos=self.qos)
@@ -228,8 +277,16 @@ class ServerNode:
             self.warmup.start()
 
     def close(self) -> None:
+        self._closed = True
         self._pool_stop.set()
         self.http.close()
+        if self._backup_timer is not None:
+            self._backup_timer.cancel()
+        if self.backup_archive is not None:
+            try:
+                self.backup_archive.close()
+            except Exception:
+                pass
         if self.runtime_monitor is not None:
             self.runtime_monitor.close()
         if self.warmup is not None:
@@ -239,6 +296,133 @@ class ServerNode:
             self.executor.planner.close()
         if self.store is not None:
             self.store.close()
+
+    def _schedule_backup(self) -> None:
+        """Tick the scheduler at half the backup interval (jittered); its
+        own due/backoff gating makes extra ticks free."""
+        def tick():
+            try:
+                if self._backup_gate.acquire(blocking=False):
+                    try:
+                        self.backup_scheduler.tick()
+                    finally:
+                        self._backup_gate.release()
+            except Exception as e:
+                # scheduler.tick never raises; belt and braces.
+                self.stats.count("node.timerTickError")
+                self.logger.printf("%s timer tick failed: %s: %s", "backup",
+                                   type(e).__name__, e)
+            finally:
+                if not self._closed:
+                    self._schedule_backup()
+        delay = max(0.05, self._backup_interval / 2.0) * random.uniform(0.8, 1.2)
+        self._backup_timer = threading.Timer(delay, tick)
+        self._backup_timer.daemon = True
+        self._backup_timer.start()
+
+    # -- backup / restore (reference node.py:1175-1285) --------------------
+
+    def handle_backup(self, req: dict) -> dict:
+        """POST /backup: start a backup into the archive named in the
+        request (directory path or object-store URL); returns the backup
+        id immediately (poll /backup/status)."""
+        from pilosa_tpu_torch.backup import (
+            BackupError,
+            BackupWriter,
+            new_backup_id,
+            open_archive,
+        )
+        req = req or {}
+        root = req.get("archive")
+        if not root:
+            raise BackupError("backup: 'archive' (directory path or URL) is required")
+        parent = req.get("parent") or None
+        archive = open_archive(root, stats=self.stats)
+        if parent and not archive.has_manifest(parent):
+            raise BackupError(f"backup: parent {parent!r} not found in archive")
+        if not self._backup_gate.acquire(blocking=False):
+            raise BackupError("backup already in progress")
+        backup_id = new_backup_id("incremental" if parent else "full")
+        writer = BackupWriter(self.holder, None, None, self.store, archive,
+                              stats=self.stats, admission=self.qos)
+        writer.progress = {"state": "starting", "id": backup_id}
+        self._backup_writer = writer
+
+        def run():
+            try:
+                writer.run(backup_id=backup_id, parent=parent)
+            except Exception:
+                pass  # progress carries state=failed + the error text
+            finally:
+                self._backup_gate.release()
+
+        threading.Thread(target=run, name="backup", daemon=True).start()
+        return {"id": backup_id, "state": "started"}
+
+    def backup_status(self) -> dict:
+        w = self._backup_writer
+        return dict(w.progress) if w is not None else {"state": "idle"}
+
+    def handle_restore(self, req: dict) -> dict:
+        """POST /restore: rebuild the backed-up indexes onto this node from
+        the archive; returns immediately (poll /restore/status). ``id``
+        defaults to the newest complete backup; ``pitrOps`` caps WAL
+        replay for point-in-time recovery."""
+        import time as _time
+
+        from pilosa_tpu_torch.backup import (
+            BackupError,
+            RestoreJob,
+            open_archive,
+            select_backup_at,
+        )
+        req = req or {}
+        root = req.get("archive")
+        if not root:
+            raise BackupError("restore: 'archive' (directory path or URL) is required")
+        archive = open_archive(root, stats=self.stats)
+        backup_id = req.get("id")
+        if not backup_id:
+            m = select_backup_at(archive, _time.time())
+            if m is None:
+                raise BackupError("restore: no complete backup in archive")
+            backup_id = m["id"]
+        elif not archive.has_manifest(backup_id):
+            raise BackupError(f"restore: backup {backup_id!r} not found in archive")
+        pitr = req.get("pitrOps")
+        if not self._restore_gate.acquire(blocking=False):
+            raise BackupError("restore already in progress")
+        job = RestoreJob(self.holder, None, None, archive, backup_id,
+                         store=self.store, stats=self.stats,
+                         force=bool(req.get("force")),
+                         pitr_ops=int(pitr) if pitr is not None else None)
+        job.progress = {"state": "starting", "id": backup_id}
+        self._restore_job = job
+
+        def run():
+            try:
+                job.run()
+            except Exception:
+                pass  # progress carries state=failed + the error text
+            finally:
+                self._restore_gate.release()
+
+        threading.Thread(target=run, name="restore", daemon=True).start()
+        return {"id": backup_id, "state": "started"}
+
+    def restore_status(self) -> dict:
+        j = self._restore_job
+        return dict(j.progress) if j is not None else {"state": "idle"}
+
+    def backup_debug(self) -> dict:
+        """GET /debug/backup: the scheduler's health document, or a stub
+        when unattended backups aren't configured on this node."""
+        if self.backup_scheduler is None:
+            return {"enabled": False}
+        doc = self.backup_scheduler.status()
+        doc["enabled"] = True
+        doc["archive"] = self._archive_url
+        return doc
 
     # -- warmup from observed traffic (reference node.py:1286-1322) --------
 

@@ -3,8 +3,8 @@
 ``check`` and ``inspect`` print the same lines and exit with the same
 codes as ``pilosa_tpu.cli`` on the same dir (clean, torn WAL tail,
 mid-file corrupt WAL, bit-flipped and legacy snapshots, corrupt jsonl
-lines, stale tmp files with and without ``--repair``); ``--archive``
-exits 2 naming the backup slice; and ``server --data-dir`` boots, keeps
+lines, stale tmp files with and without ``--repair``), and ``--archive``
+on an archive root too; and ``server --data-dir`` boots, keeps
 its writes across a SIGTERM restart, and reloads them.
 """
 
@@ -130,12 +130,25 @@ def test_inspect_matches_the_jax_cli(template, capsys, fault, tmp_path):
     assert got[0] == 0 and "i/f/standard/1.snap: rows=1 bits=1" in got[1]
 
 
-def test_check_without_a_dir_and_archive_flag(capsys):
+def test_check_without_a_dir_and_archive_flag(capsys, tmp_path):
+    """No dir and no archive, and ``--archive`` beside a missing dir, on an
+    archive root with no complete backup and on one with a backup: the
+    same lines and exit codes as the JAX CLI."""
     assert _run(cli.main, ["check"], capsys) == _run(j_cli.main, ["check"], capsys)
-    with pytest.raises(SystemExit) as e:
-        cli.main(["check", "/nonexistent", "--archive", "/tmp/a"])
-    assert e.value.code == 2
-    assert "backup and restore" in capsys.readouterr().err
+    arch = str(tmp_path / "arch")
+    argv = ["check", "/nonexistent", "--archive", arch]
+    got = _run(cli.main, argv, capsys)
+    assert got == _run(j_cli.main, argv, capsys) and got[0] == 1
+    from pilosa_tpu_torch.backup import BackupWriter, LocalDirArchive
+    h = Holder(device="cpu")
+    store = DiskStore(str(tmp_path / "d"), h)
+    store.open()
+    h.create_index("i").create_field("f").import_bits([1, 2], [3, SHARD_WIDTH + 4])
+    BackupWriter(h, None, None, store, LocalDirArchive(arch)).run()
+    store.close()
+    got = _run(cli.main, argv, capsys)
+    assert got == _run(j_cli.main, argv, capsys) and got[0] == 0
+    assert "ok archive" in got[1]
 
 
 def _serve(d: str, extra=()):

@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from pilosa_tpu import cli as j_cli
 from pilosa_tpu.config import SHARD_WIDTH
 from pilosa_tpu.exec import ingest_transpose as j_ingest_transpose
 from pilosa_tpu.loadgen.target import AttachedTarget
@@ -359,7 +360,8 @@ def _served(path: str) -> bool:
         "/recalculate-caches", "/internal/fragment/nodes", "/internal/shards/max",
         "/index/{index}/field/{field}/import-roaring/{shard}", "/debug/quarantine",
         "/debug/heap", "/debug/cache", "/internal/attr/blocks", "/internal/attr/data",
-        "/debug/device"}
+        "/debug/device", "/backup", "/backup/status", "/restore", "/restore/status",
+        "/internal/backup/keys", "/internal/backup/fragment", "/debug/backup"}
 
 
 def _unported_routes():
@@ -641,11 +643,8 @@ def test_node_defaults_to_the_card(monkeypatch):
 @pytest.mark.parametrize("argv,slice_name", [
     (["--peers", "127.0.0.1:1"], "cluster and operations"),
     (["--join", "127.0.0.1:1"], "cluster and operations"),
-    (["--backup-interval", "1"], "backup and restore"),
-    (["--archive-url", "x"], "backup and restore"),
     (["--scrub-interval", "1"], "cluster and operations"),
     (["--trace-endpoint", "http://127.0.0.1:1"], "cluster and operations"),
-    (["--ingest-transpose", "on"], "packed residency and the device value transpose"),
     (["--translate-planes", "on"], "keys and sketches"),
     (["--sketch-precision", "10"], "keys and sketches"),
 ])
@@ -655,6 +654,41 @@ def test_cli_refuses_unported_flags(capsys, argv, slice_name):
     assert e.value.code == 2
     err = capsys.readouterr().err
     assert "not ported" in err and slice_name in err
+
+
+@pytest.mark.parametrize("argv,kwargs", [
+    (["--backup-interval", "1"], {"backup_interval": 1.0}),
+    (["--archive-url", "x"], {"archive_url": "x"}),
+    (["--backup-full-every", "3"], {"backup_full_every": 3}),
+    (["--backup-keep-chains", "5"], {"backup_keep_chains": 5}),
+    (["--ingest-transpose", "on"], {"ingest_transpose": "on"}),
+])
+def test_cli_accepts_ported_flags(monkeypatch, argv, kwargs):
+    """The backup flags and ``--ingest-transpose`` reach ServerNode with the
+    values the JAX CLI gives its node."""
+    from pilosa_tpu.server import node as j_node_mod
+    from pilosa_tpu_torch.server import node as t_node_mod
+
+    for k in kwargs:
+        monkeypatch.delenv(f"PILOSA_TPU_{k.upper()}", raising=False)
+
+    def node_kwargs(cli_mod, node_mod, argv):
+        seen = {}
+
+        class Stop(Exception):
+            pass
+
+        def fake(**kw):
+            seen.update(kw)
+            raise Stop()
+
+        monkeypatch.setattr(node_mod, "ServerNode", fake)
+        with pytest.raises(Stop):
+            cli_mod.main(["server", *argv])
+        return {k: seen[k] for k in kwargs}
+
+    got = node_kwargs(cli, t_node_mod, ["--device", "cpu", *argv])
+    assert got == kwargs == node_kwargs(j_cli, j_node_mod, argv)
 
 
 def test_cli_server_runs_and_stops():

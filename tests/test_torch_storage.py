@@ -817,11 +817,14 @@ def test_jax_translate_and_attr_files_survive_a_port_flush(tmp_path):
     assert {p: open(p, "rb").read() for p in meta} == before
 
 
-def test_value_wal_equals_the_device_transpose_log(tmp_path, monkeypatch):
-    """The JAX package's device value transpose logs its batch through
-    ``_emit_value_wal``; the port's host planes write the same records in
-    the same order, for a fresh import and an overwrite with negatives."""
-    monkeypatch.setenv("PILOSA_TPU_INGEST_TRANSPOSE", "on")
+@pytest.mark.parametrize("mode", ["on", "off", "auto"])
+def test_value_wal_equals_the_device_transpose_log(tmp_path, monkeypatch, mode):
+    """The device value transpose logs its batch through
+    ``_emit_value_wal``, the host plane loop through its bulk passes; both
+    packages write the same records in the same order in each mode of
+    ``PILOSA_TPU_INGEST_TRANSPOSE``, for a fresh import and an overwrite
+    with negatives."""
+    monkeypatch.setenv("PILOSA_TPU_INGEST_TRANSPOSE", mode)
     rng = np.random.default_rng(21)
     cols = rng.choice(2 * SHARD_WIDTH, 3000, replace=False)
     batches = [(cols, rng.integers(0, 1001, 3000)),
