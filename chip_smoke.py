@@ -5,6 +5,7 @@
     python3 chip_smoke.py --tree-batched-vs DIR
     python3 chip_smoke.py --group-count-vs DIR
     python3 chip_smoke.py --packed-vs DIR
+    python3 chip_smoke.py --plane-scatter-vs DIR
     python3 chip_smoke.py --import-rule
 
 ``--tree-batched-vs DIR`` times only ``tree_count_batched`` on its two timed
@@ -16,7 +17,10 @@ through its own interface (``group_count_vs``); ``--packed-vs DIR`` for
 ``packed_count``, ``packed_and_dense_count`` and ``packed_pair_count`` at
 their timed shapes and for the three packed waves at 8 and 32 slots, one
 launch here against DIR's slot-by-slot launches where DIR has no wave
-kernels, beside the one-launch floor (``packed_vs``). ``--import-rule`` times
+kernels, beside the one-launch floor (``packed_vs``); ``--plane-scatter-vs DIR``
+for ``plane_scatter`` at bench config 3's shard, a full shard and depth 40,
+each side through its own wrapper (a zero fill inside the time where it has
+one), beside the one-launch floor (``plane_scatter_vs``). ``--import-rule`` times
 the set-field import under the port's and the JAX package's scatter rules
 on one host
 (``import_rule_vs``). With no arguments the script builds the CUDA
@@ -631,6 +635,65 @@ def packed_vs(parent: str) -> int:
         rec = runs[(case, "this")][0]
         pair_summary(runs, case, "case", bound_ms(torch, rec["bytes"], rec["logic"],
                                                   rec["popc"])[0], card)
+    return 0
+
+
+def plane_scatter_work(pos, depth: int) -> int:
+    """plane_scatter's bytes: each entry read once (int32 position, int64
+    value), the ``[depth + 2, W]`` image written once."""
+    return 12 * len(pos) + (depth + 2) * SHARD_WORDS * 4
+
+
+def plane_scatter_times(repo: str) -> int:
+    """``--plane-scatter REPO``: time ``kernels.plane_scatter`` of the
+    package in REPO on PLANE_SCATTER_TIMED (each case's image first held
+    exactly to the plain version), through the package's own wrapper (its
+    allocation, and its zero fill where it has one, inside the time); then
+    the one-launch floor (torch.zeros of 1024 int32). One JSON object per
+    case: the kernel's ms by CUDA events after the device spin, the host's
+    median and longest enqueue of one call, and the case's bytes."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(repo))
+    from pilosa_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda")
+    cases = []
+    for name in PLANE_SCATTER_TIMED:
+        pos_np, vals_np, depth = plane_scatter_case(name)
+        pos, vals = torch.from_numpy(pos_np).to(dev), torch.from_numpy(vals_np).to(dev)
+        cases.append((name, lambda pos=pos, vals=vals, depth=depth:
+                      kernels.plane_scatter(pos, vals, depth),
+                      lambda pos=pos, vals=vals, depth=depth:
+                      kernels.plane_scatter_plain(pos, vals, depth),
+                      plane_scatter_work(pos, depth)))
+    cases.append(("floor", lambda: torch.zeros(1024, dtype=torch.int32, device=dev),
+                  lambda: torch.zeros(1024, dtype=torch.int32, device=dev), 4096))
+    for case, fn, plain_fn, nbytes in cases:
+        if not torch.equal(fn(), plain_fn()):
+            raise AssertionError(f"{repo}: plane_scatter {case}: the image differs from "
+                                 "the plain version")
+        host = host_enqueue_times(torch, fn, KERNEL_RUNS)
+        print(json.dumps({"case": case, "ms": time_cuda_ms(torch, fn, KERNEL_RUNS),
+                          "host_ms": statistics.median(host), "host_ms_max": max(host),
+                          "bytes": nbytes}), flush=True)
+    return 0
+
+
+def plane_scatter_vs(parent: str) -> int:
+    """``--plane-scatter-vs DIR``: ``--plane-scatter`` of DIR against this
+    checkout's, in ``paired_runs``; then ``pair_summary`` per case (the
+    floor's too), against its bound."""
+    import torch
+
+    runs = paired_runs("--plane-scatter", parent, "case")
+    card = card_line()
+    for case in dict.fromkeys(c for c, _ in runs):
+        rec = runs[(case, "this")][0]
+        pair_summary(runs, case, "case", bound_ms(torch, rec["bytes"], 0, 0)[0], card)
     return 0
 
 
@@ -1342,9 +1405,21 @@ def check_group_lattices(torch, kernels, t, rng, gb_planes, gb_filt, errs) -> No
 
 #: plane_scatter's checks: (positions, values, depth) makers. bench
 #: config 3's shard is BSI_DENSITY of a shard's columns with values in
-#: [BSI_MIN, BSI_MAX); the first of them is the timed case.
+#: [BSI_MIN, BSI_MAX); the first of them is the timed case. The later ones
+#: hold the cluster design's edges: words at every CTA slab boundary
+#: (SHARD_WORDS // 16 words a slab), the fewest and the most planes, depths
+#: where the plane groups step on a card that runs 7 or 8 clusters at once
+#: (a plane a group up to 8 planes, then 2, then 3), one full word, a dense
+#: run at an unaligned start across a slab boundary, a shuffled full
+#: shard, and out-of-range positions mixed into a real batch (dropped).
+PLANE_SCATTER_GROUP_EDGES = ("depth5", "depth6", "depth7", "depth12", "depth13",
+                             "depth14", "depth15")
 PLANE_SCATTER_CASES = ("bench_shard", "bench_shard_shuffled", "full_shard", "depth40",
-                       "bit31", "negative", "empty", "single")
+                       "bit31", "negative", "empty", "single", "slab_edges", "depth0",
+                       "depth63", *PLANE_SCATTER_GROUP_EDGES, "one_word", "run_unaligned",
+                       "full_shard_shuffled", "out_of_range")
+#: the cases ``--plane-scatter-vs`` times.
+PLANE_SCATTER_TIMED = ("bench_shard", "full_shard", "depth40")
 
 
 def plane_scatter_case(name: str, seed: int = SEED):
@@ -1352,6 +1427,7 @@ def plane_scatter_case(name: str, seed: int = SEED):
     plane_scatter check, sorted unless the case says otherwise."""
     rng = np.random.default_rng(seed)
     n_cols = SHARD_WORDS * 32
+    slab = SHARD_WORDS // 16
     if name.startswith("bench_shard"):
         pos = sorted_sample(rng, int(n_cols * BSI_DENSITY), n_cols)
         vals = rng.integers(BSI_MIN, BSI_MAX, len(pos), dtype=np.int64)
@@ -1359,9 +1435,13 @@ def plane_scatter_case(name: str, seed: int = SEED):
             order = rng.permutation(len(pos))
             pos, vals = pos[order], vals[order]
         return pos.astype(np.int32), vals, 17
-    if name == "full_shard":
-        return (np.arange(n_cols, dtype=np.int32),
-                rng.integers(BSI_MIN, BSI_MAX, n_cols, dtype=np.int64), 17)
+    if name.startswith("full_shard"):
+        pos = np.arange(n_cols, dtype=np.int32)
+        vals = rng.integers(BSI_MIN, BSI_MAX, n_cols, dtype=np.int64)
+        if name.endswith("shuffled"):
+            order = rng.permutation(n_cols)
+            pos, vals = pos[order], vals[order]
+        return pos, vals, 17
     if name == "depth40":
         pos = sorted_sample(rng, 50_000, n_cols)
         vals = rng.integers(-(2**40 - 1), 2**40, len(pos), dtype=np.int64)
@@ -1377,6 +1457,43 @@ def plane_scatter_case(name: str, seed: int = SEED):
         return np.empty(0, dtype=np.int32), np.empty(0, dtype=np.int64), 17
     if name == "single":
         return np.array([n_cols - 1], dtype=np.int32), np.array([-77], dtype=np.int64), 17
+    if name == "slab_edges":
+        # the last and first word of every slab, bits 0 and 31 of each
+        words = np.unique(np.concatenate([np.arange(0, SHARD_WORDS + 1, slab) + d
+                                          for d in (-1, 0)]).clip(0, SHARD_WORDS - 1))
+        pos = np.sort(np.concatenate([words * 32, words * 32 + 31])).astype(np.int32)
+        return pos, rng.integers(BSI_MIN, BSI_MAX, len(pos), dtype=np.int64), 17
+    if name == "depth0":
+        pos = sorted_sample(rng, int(n_cols * BSI_DENSITY), n_cols)
+        return pos.astype(np.int32), rng.integers(BSI_MIN, BSI_MAX, len(pos),
+                                                  dtype=np.int64), 0
+    if name == "depth63":
+        pos = sorted_sample(rng, 20_000, n_cols)
+        info = np.iinfo(np.int64)
+        vals = rng.integers(info.min, info.max, len(pos), dtype=np.int64, endpoint=True)
+        vals[:6] = (info.min, info.max, 0, -1, 2**62, -(2**62) - 1)
+        return pos.astype(np.int32), vals, 63
+    if name in PLANE_SCATTER_GROUP_EDGES:
+        depth = int(name[len("depth"):])
+        pos = sorted_sample(rng, 5_000, n_cols)
+        lim = 2**depth
+        return pos.astype(np.int32), rng.integers(-lim, lim, len(pos), dtype=np.int64), depth
+    if name == "one_word":
+        pos = np.arange(32 * (slab + 5), 32 * (slab + 6), dtype=np.int32)
+        return pos, rng.integers(BSI_MIN, BSI_MAX, 32, dtype=np.int64), 17
+    if name == "run_unaligned":
+        # 70,001 consecutive positions from an odd start, across the first
+        # slab boundary
+        start = 32 * slab - 50_001
+        pos = np.arange(start, start + 70_001, dtype=np.int32)
+        return pos, rng.integers(-(2**20), 2**20, len(pos), dtype=np.int64), 20
+    if name == "out_of_range":
+        pos = sorted_sample(rng, int(n_cols * BSI_DENSITY), n_cols).astype(np.int64)
+        bad = np.array([-1, -2, -31, -32, -33, -(2**31), n_cols, n_cols + 1, n_cols + 31,
+                        n_cols + 32, 2 * n_cols, 2**31 - 1], dtype=np.int64)
+        pos = np.insert(pos, rng.integers(0, len(pos) + 1, len(bad)), bad)
+        return pos.astype(np.int32), rng.integers(BSI_MIN, BSI_MAX, len(pos),
+                                                  dtype=np.int64), 17
     raise KeyError(name)
 
 
@@ -1424,6 +1541,9 @@ def check_plane_scatter(torch, kernels, dev, errs) -> tuple:
         if timed is None:
             timed = (pos, vals, depth)
     log(f"plane_scatter: exact on {', '.join(PLANE_SCATTER_CASES)}")
+    log("plane_scatter: clusters x planes a cluster by depth: " + ", ".join(
+        f"{d}: {g} x {per}" for d in (0, 5, 6, 7, 12, 13, 14, 15, 17, 40, 63)
+        for g, per in [kernels.plane_scatter_groups(d, dev)]))
     return timed
 
 
@@ -1828,12 +1948,10 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
          lambda: kernels.group_count_plain(gb_wide, (32, 256), None),
          *group_timed_work((32, 256), False, 4)),
         *packed_timed_cases(kernels, packed),
-        # the entries read once (int32 position, int64 value), the plane
-        # image written once
         ("plane_scatter", ps_shape,
          lambda: kernels.plane_scatter(ps_pos, ps_vals, ps_depth),
          lambda: kernels.plane_scatter_plain(ps_pos, ps_vals, ps_depth),
-         12 * len(ps_pos) + (ps_depth + 2) * w * 4, 0, 0),
+         plane_scatter_work(ps_pos, ps_depth), 0, 0),
     ]
     gb_wide = list(t(seeded_words(rng, (288, 4, w))))
     topn_tiles = [t(seeded_words(rng, (512, w))) for _ in range(30)]
@@ -4833,6 +4951,10 @@ if __name__ == "__main__":
         sys.exit(packed_times(sys.argv[2]))
     if sys.argv[1:2] == ["--packed-vs"] and len(sys.argv) == 3:
         sys.exit(packed_vs(sys.argv[2]))
+    if sys.argv[1:2] == ["--plane-scatter"] and len(sys.argv) == 3:
+        sys.exit(plane_scatter_times(sys.argv[2]))
+    if sys.argv[1:2] == ["--plane-scatter-vs"] and len(sys.argv) == 3:
+        sys.exit(plane_scatter_vs(sys.argv[2]))
     if sys.argv[1:] == ["--import-rule"]:
         sys.exit(import_rule_vs())
     if sys.argv[1:2] == ["--import-rule-side"] and len(sys.argv) == 3:

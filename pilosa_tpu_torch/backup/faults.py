@@ -55,7 +55,10 @@ class _ObjHandler(BaseHTTPRequestHandler):
             self.send_header(k, v)
         self.send_header("Content-Length", str(len(body)))
         self.end_headers()
-        self.wfile.write(body)
+        # A HEAD reply has no body: one left on a keep-alive connection
+        # would be read as the start of the next reply's status line.
+        if self.command != "HEAD":
+            self.wfile.write(body)
 
     def _faulted(self) -> bool:
         """Apply the server's armed wire faults; True when this request

@@ -137,6 +137,7 @@ _SIGNATURES = {
     },
     "ingest_kernels.cu": {
         "pilosa_plane_scatter": [_VP, _VP, _I64, _I32, _I64, _VP, _VP],
+        "pilosa_plane_scatter_groups": [_I32, _I64, _VP, _VP],
     },
 }
 _libs: dict[str, ctypes.CDLL] = {}
@@ -1437,7 +1438,9 @@ def plane_scatter(pos: torch.Tensor, vals: torch.Tensor, bit_depth: int) -> torc
     batch: ``pos`` ``[M]`` int32 distinct in-shard positions, ``vals``
     ``[M]`` int64 values on the same device; row 0 exists, row 1 sign, row
     2 + i magnitude bit i. The kernel ORs where the JAX function adds,
-    which agree on distinct positions."""
+    which agree on distinct positions. On the card it is one launch, and
+    the kernel writes every word of the image once (the image is
+    allocated, never zeroed); an empty batch launches too."""
     for x, name, dtype in ((pos, "pos", torch.int32), (vals, "vals", torch.int64)):
         if not isinstance(x, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor, got {type(x).__name__}")
@@ -1454,10 +1457,8 @@ def plane_scatter(pos: torch.Tensor, vals: torch.Tensor, bit_depth: int) -> torc
         return plane_scatter_plain(pos, vals, bit_depth)
     _require_cuda(pos)
     pos, vals = pos.contiguous(), vals.contiguous()
-    out = torch.zeros((bit_depth + 2, WORDS_PER_SHARD), dtype=torch.int32,
+    out = torch.empty((bit_depth + 2, WORDS_PER_SHARD), dtype=torch.int32,
                       device=pos.device)
-    if len(pos) == 0:
-        return out
     with torch.cuda.device(pos.device):
         err = _library("ingest_kernels.cu").pilosa_plane_scatter(
             pos.data_ptr(), vals.data_ptr(), len(pos), int(bit_depth),
@@ -1466,3 +1467,20 @@ def plane_scatter(pos: torch.Tensor, vals: torch.Tensor, bit_depth: int) -> torc
         raise RuntimeError(f"plane_scatter kernel launch failed: CUDA error {err}")
     _count_launch("plane_scatter")
     return out
+
+
+def plane_scatter_groups(bit_depth: int, device: torch.device) -> tuple[int, int]:
+    """(clusters, planes a cluster) of ``plane_scatter``'s launch at this
+    depth on the CUDA ``device``: the planes split in as many groups as
+    the card runs thread-block clusters at once, a cluster each (the last
+    may hold fewer). Launches nothing."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"plane_scatter's plane groups are the card's, got {device}")
+    groups, per = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device):
+        err = _library("ingest_kernels.cu").pilosa_plane_scatter_groups(
+            int(bit_depth), WORDS_PER_SHARD, ctypes.byref(groups), ctypes.byref(per))
+    if err:
+        raise RuntimeError(f"plane_scatter_groups failed: CUDA error {err}")
+    return groups.value, per.value

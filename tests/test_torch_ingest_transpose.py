@@ -4,7 +4,9 @@
   plain version on CPU tensors) bit-equal to the JAX ``transpose_planes``
   (CPU XLA) on 3 seeded shards at depth 17, bit 31 of words, depth 40 with
   values past 2^32, depth 63 with the int64 extremes, all-negative, empty
-  and single-entry batches;
+  and single-entry batches, and on the cases the card holds the CUDA
+  kernel to (``chip_smoke.PLANE_SCATTER_CASES``); the card's out-of-range
+  case dropped to its in-range entries;
 - ``Fragment.import_values`` under ``on``, ``off`` and ``auto`` in both
   packages (the cases of ``tests/test_ingest.py``: generative batches with
   clears, last-write-wins duplicates, clear then reimport, shard-boundary
@@ -21,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from pilosa_tpu.core import Holder as JHolder
 from pilosa_tpu.core.field import FieldOptions as JFieldOptions
 from pilosa_tpu.core.fragment import Fragment as JFragment
@@ -96,6 +99,38 @@ def test_transpose_planes_matches_jax(name):
     assert got.dtype == np.uint32 and got.shape == (depth + 2, WORDS_PER_SHARD)
     np.testing.assert_array_equal(got, want)
     assert got.flags.writeable
+
+
+#: plane_scatter's card cases where the JAX function defines the answer (it
+#: takes in-range positions only).
+CHIP_CASES = [c for c in chip_smoke.PLANE_SCATTER_CASES if c != "out_of_range"]
+
+
+@pytest.mark.parametrize("name", CHIP_CASES)
+def test_transpose_planes_matches_jax_on_card_cases(name):
+    """The cases the card holds the CUDA kernel to its plain version on
+    (``chip_smoke.PLANE_SCATTER_CASES``: slab and group edges, depth 0 and
+    63, a full word, an unaligned dense run, shuffled shards), through the
+    port's CPU path, bit-equal to the JAX ``transpose_planes``."""
+    assert chip_smoke.SHARD_WORDS == WORDS_PER_SHARD
+    pos, vals, depth = chip_smoke.plane_scatter_case(name)
+    local = pos.astype(np.uint32)
+    want = j_it.transpose_planes(local, vals, depth)
+    got = t_it.transpose_planes(local, vals, depth, CPU)
+    assert got.shape == (depth + 2, WORDS_PER_SHARD)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_plane_scatter_out_of_range_card_case_drops_them():
+    """The card's out-of-range case (a bench shard with negative and past-
+    the-shard positions mixed in): the plain version drops them, equal to
+    the JAX image of the in-range entries alone."""
+    pos, vals, depth = chip_smoke.plane_scatter_case("out_of_range")
+    inside = (pos >= 0) & (pos < 32 * WORDS_PER_SHARD)
+    assert 0 < inside.sum() < len(pos)
+    got = kernels.plane_scatter(torch.from_numpy(pos), torch.from_numpy(vals), depth)
+    want = j_it.transpose_planes(pos[inside].astype(np.uint32), vals[inside], depth)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
 
 
 def test_plane_scatter_drops_out_of_range_and_checks_inputs():

@@ -3,6 +3,7 @@ package, and its entry points run on the card unless asked for the CPU."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -75,3 +76,13 @@ def test_every_kernel_source_is_bound():
     sources = {p.name for p in build.CSRC_DIR.glob("*.cu")}
     assert sources == set(kernels._SIGNATURES)
     assert "group_kernels.cu" in sources and "group_count" in kernels.LAUNCHES
+
+
+def test_every_c_entry_point_has_a_signature():
+    """Each ``extern "C"`` function of a csrc/*.cu has its argtypes in
+    ops/kernels.py's table under that source, and the table names no
+    function the source lacks."""
+    from pilosa_tpu_torch.ops import build, kernels
+    for src in build.CSRC_DIR.glob("*.cu"):
+        names = set(re.findall(r'extern "C" int (\w+)\(', src.read_text()))
+        assert names == set(kernels._SIGNATURES[src.name]), src.name
