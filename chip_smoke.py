@@ -52,13 +52,14 @@ port's paths:
   in-process ones; a JSON import of 200k bits and 200k values; 8
   concurrent clients; the 404/400/504/501 statuses; ``/metrics``;
 - persist path: a second node with ``data_dir`` under
-  ``build/chip_smoke_data/`` takes the 1B-column ``bench`` and ``bsi``
-  indexes the way Pilosa's clients bulk-load (one ``import-roaring`` per
-  field and shard, bodies from the first node's ``Fragment.to_roaring``;
-  the BSI planes in process through ``interop.load_bsi_planes``), is
-  closed (schema, snapshots, WAL truncate), and a third node reopens the
-  dir: every Count and BSI query over HTTP equals the oracle and the first
-  node's body byte for byte, with the same launches; then a CLI node with
+  ``build/chip_smoke_data/`` takes the first 120 shards (``PERSIST_SHARDS``,
+  an eighth of the 1B columns) of ``bench`` and ``bsi`` the way Pilosa's
+  clients bulk-load (one ``import-roaring`` per field and shard, bodies
+  from the first node's ``Fragment.to_roaring``; the BSI planes in process
+  through ``interop.load_bsi_planes``), is closed (schema, snapshots, WAL
+  truncate), and a third node reopens the dir: every Count and BSI query
+  over HTTP (``shards=`` the held ones) equals the oracle of those shards
+  and the first node's body byte for byte, with the same launches; then a CLI node with
   ``--data-dir`` is SIGKILLed after acknowledged writes and must read them
   back from its WAL, and a bit-flipped snapshot must be quarantined with a
   503 on its shard; before that, the third node's dir is backed up over
@@ -106,17 +107,31 @@ port's paths:
   ``row_counts``);
 - fields path: on ``bench``, fields created over HTTP and loaded from
   seeded data: a YMDH time field (10M bits in rows 0-2 over 60 days of
-  hours: bench config 4's bits at 1B columns, its 90 days cut to the
-  windows' 60), set fields a, b, c (4, 8
-  and 3 rows, 15M bits each: bench config 5's), a mutex field (25M
-  columns, then 5M moved) and a bool field (20M columns); time windows of
+  hours: bench config 4's bits, its 90 days cut to the windows' 60, its
+  columns to the first 120 shards), set fields a, b, c (4, 8
+  and 3 rows, 15M bits each: bench config 5's), a mutex field (12.5M
+  columns, then 2.5M moved) and a bool field (10M columns); time windows of
   32 and 67 views (``tree_count`` over the view leaves), ``Rows`` over a
   window, ``MinRow``/``MaxRow``, GroupBy of two and three levels, with a
   filter and paged (ONE ``group_count`` each) and with a cursor (the
   per-shard walk), in process and over HTTP against numpy oracles; then,
   on an index of 4 shards, GroupBy over 450 rows and over a (32, 256)
   lattice of 8192 groups (ONE ``group_count`` each, over many units of
-  the lattice).
+  the lattice);
+- keys path (``phase_keys``): in process, on a planner whose budget holds
+  the 4 GiB hll plane stack, ``Count(Distinct)`` on bench config 3's
+  ``v`` (unfiltered: ONE ``hll_reduce`` of the register stack; filtered
+  by the 5M-bit row: ONE ``hll_expand`` and ONE ``hll_reduce``; at
+  precision 16; under a threshold, the exact leg) and ``SimilarTopN`` on
+  the fields phase's 8-row ``b`` (ONE ``similar_count`` over a 1 GiB
+  cube), both metrics, each equal to a numpy oracle (``sketch_values`` of
+  the values, the rows' overlaps) and its HTTP body; then a keyed index on
+  a node with a data dir, 1M column keys and 1,024 row keys imported over
+  HTTP by keys: keyed ``Row``, ``Count`` and ``TopN`` bodies equal the
+  oracle from the id map, a ``Count(Union)`` of 300 keyed rows is ONE
+  ``plane_lookup`` under ``auto`` once its plane is built
+  (``/debug/translate``), and the bodies stand after close and reopen and
+  after a backup restored into a fresh dir.
 
 The HTTP phase runs its 1 and 8 concurrent clients with dispatch
 coalescing off (launches equal to the serial sum) and on ``auto`` (at most
@@ -146,7 +161,12 @@ CPU rehearsal at a small size (plain kernel versions, no launch counts)::
     c.FIELDS_TIME_BITS, c.FIELDS_SET_BITS = 200_000, 60_000
     c.FIELDS_MUTEX_COLS, c.FIELDS_MUTEX_MOVED, c.FIELDS_BOOL_COLS = 200_000, 40_000, 80_000
     c.phase_fields(torch, "cpu", d, runs=2, slow_runs=2)
+    c.KEYS_COLS, c.KEYS_BATCH = 20_000, 5_000
+    c.phase_keys(torch, "cpu", d, runs=2)
     d["node"].close()
+
+(with ``c.PERSIST_SHARDS = 3`` and ``c.BACKUP_SET_COLS`` inside those
+shards before ``phase_persist``).
 """
 
 from __future__ import annotations
@@ -263,6 +283,12 @@ PERSIST_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_data"
 #: snapshots (under 1 GiB) and the restored data dir, whose WAL holds every
 #: bit as a 16-byte record before its flush (about 6 GiB).
 PERSIST_MIN_FREE_GIB = 19
+#: the shards of bench and bsi the persist phase's nodes hold: the first
+#: eighth of the 954 (all of them until the keys phase joined the run,
+#: when every bulk load, close, backup and restore of this phase was cut
+#: to a quarter, then to an eighth, to make room for it). Their queries
+#: ask node A for the same shards.
+PERSIST_SHARDS = 120
 #: the crash check's shard count: its semantics do not depend on size.
 CRASH_SHARDS = 3
 
@@ -724,7 +750,8 @@ def import_rule_side(min_bits: int) -> int:
     idx = h.create_index("bench")
     n_cols = COUNT_SHARDS * SHARD_WIDTH
     rng = np.random.default_rng(SEED + 6)  # the fields phase's first draws
-    t_cols = rng.integers(0, n_cols, FIELDS_TIME_BITS, dtype=np.uint64)
+    t_cols = rng.integers(0, FIELDS_TIME_SHARDS * SHARD_WIDTH, FIELDS_TIME_BITS,
+                          dtype=np.uint64)
     t_rows = rng.integers(0, FIELDS_TIME_ROWS, FIELDS_TIME_BITS).astype(np.uint64)
     t_hours = FIELDS_TIME_FIRST_HOUR + rng.integers(0, FIELDS_TIME_HOURS, FIELDS_TIME_BITS)
     stamps = (np.datetime64("2019-01-01T00", "h") + t_hours).astype("datetime64[s]")
@@ -1547,6 +1574,251 @@ def check_plane_scatter(torch, kernels, dev, errs) -> tuple:
     return timed
 
 
+#: hll_expand's checks (p, shards, share of the columns present): the
+#: shared-memory branch (p <= 14) and the in-place byte branch above it,
+#: at the precisions Count(Distinct) takes (4 to 18); the second and the
+#: fourth under a sparse filter, whose empty 32-byte sectors are skipped.
+HLL_CHECKS = ((4, 64, 0.02), (12, 64, 0.02), (14, 16, 0.5), (16, 64, 0.02), (18, 17, 0.3))
+#: the keys phase's precision, and its plane stack's shards (954 padded).
+HLL_TIMED_P = 12
+HLL_TIMED_ROWS = 1024
+#: the key-plane checks: (plane slots, probes); the last is the timed one.
+KEYPLANE_CHECKS = ((1, 7), (8, 100), (1000, 5000), (1 << 20, 65536))
+#: similar_count's checks: [R, S, W] cubes; the first is the timed one (the
+#: keys phase's SimilarTopN cube, 1 GiB, SIM_CUBE_MAX_BYTES).
+SIM_CHECKS = ((8, 1024, 32768), (3, 5, 96), (1, 1, 32))
+
+
+def hll_planes(torch, rows: int, p: int, density: float, dev, seed: int):
+    """[rows, 2^20] int32 packed planes made on the card from a seeded
+    generator, 128 rows at a time: ``density`` of the columns present
+    (``bucket | rho << 18``, buckets below 2^p, rho 1..33), the rest 0."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = torch.empty((rows, 1 << 20), dtype=torch.int32, device=dev)
+    for lo in range(0, rows, 128):
+        n = min(128, rows - lo)
+        present = torch.rand((n, 1 << 20), generator=g, device=dev) < density
+        bucket = torch.randint(0, 1 << p, (n, 1 << 20), generator=g, device=dev,
+                               dtype=torch.int32)
+        rho = torch.randint(1, 34, (n, 1 << 20), generator=g, device=dev, dtype=torch.int32)
+        out[lo:lo + n] = torch.where(present, bucket | (rho << 18), 0)
+    return out
+
+
+def filter_words(rows: int, n_bits: int, seed: int) -> np.ndarray:
+    """[rows, W] uint32 words with ``n_bits`` random column bits set (the
+    BSI filter row's density at ``n_bits`` = 5M over 1024 shards)."""
+    rng = np.random.default_rng(seed)
+    words = np.zeros(rows * SHARD_WORDS, dtype=np.uint32)
+    pos = rng.integers(0, rows * SHARD_WORDS * 32, n_bits, dtype=np.int64)
+    np.bitwise_or.at(words, pos >> 5, np.left_shift(np.uint32(1), (pos & 31).astype(np.uint32)))
+    return words.reshape(rows, SHARD_WORDS)
+
+
+def key_plane(h: int, q: int, seed: int):
+    """A [3, h + pad] uint32 key plane of ``h`` random 64-bit hashes
+    sorted as unsigned (three slots sharing one hash, a real slot at
+    2^64 - 1 beside the padding, whose id is MISS), and probe halves: q / 2
+    present hashes, q / 2 absent, and the padding hash."""
+    rng = np.random.default_rng(seed)
+    hashes = np.sort(rng.integers(0, 2**64 - 1, h, dtype=np.uint64, endpoint=True))
+    if h > 4:
+        hashes[1:4] = hashes[1]
+    hashes[-1] = np.uint64(2**64 - 1)
+    pad = 1 << max(0, (h - 1).bit_length())
+    mat = np.zeros((3, max(8, pad)), dtype=np.uint32)
+    mat[:2, :] = 0xFFFFFFFF
+    mat[0, :h] = (hashes >> np.uint64(32)).astype(np.uint32)
+    mat[1, :h] = (hashes & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    mat[2, :h] = np.arange(1, h + 1, dtype=np.uint32)
+    probes = np.concatenate([hashes[rng.integers(0, h, q // 2)],
+                             rng.integers(0, 2**64 - 1, q - q // 2 - 1, dtype=np.uint64,
+                                          endpoint=True),
+                             np.array([2**64 - 1], dtype=np.uint64)])
+    return (mat, (probes >> np.uint64(32)).astype(np.uint32),
+            (probes & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+
+
+def flip_hash(hi, lo):
+    """int32 (hi, lo) hash halves as sign-flipped int64, whose signed order
+    is the hashes' unsigned order."""
+    return (((hi.long() & 0xFFFFFFFF) - 2**31) << 32) | (lo.long() & 0xFFFFFFFF)
+
+
+def plane_lookup_library(torch, plane, probe_hi, probe_lo):
+    """plane_lookup's function from PyTorch calls: ``searchsorted`` over the
+    hashes as sign-flipped int64 (their unsigned order), a gather and a
+    compare. The flipped keys are laid out ahead of the timed call."""
+    keys, probes, ids = flip_hash(plane[0], plane[1]), flip_hash(probe_hi, probe_lo), plane[2]
+    last = keys.numel() - 1
+
+    def call():
+        pos = torch.searchsorted(keys, probes).clamp_(max=last)
+        return torch.where(keys[pos] == probes, ids[pos], 0)
+
+    return call
+
+
+def hll_expand_work(torch, filt, p: int) -> tuple[int, int, int]:
+    """(bytes, logic ops, plane sectors) of hll_expand's function on this
+    filter: the filter read once, of the packed plane each 32-byte sector
+    (8 columns: one byte of a filter word) that holds a filtered column,
+    the registers written once; a test a filter word, and a shift, a mask
+    test, a bucket mask and a compare a filtered column."""
+    rows, words = filt.shape
+    fbytes = filt.contiguous().view(torch.uint8)
+    sectors = int(fbytes.ne(0).sum())
+    popc = torch.tensor([bin(i).count("1") for i in range(256)], device=filt.device)
+    cols = int(popc[fbytes.long()].sum())
+    return rows * words * 4 + sectors * 32 + (rows << p), rows * words + 4 * cols, sectors
+
+
+def plane_lookup_bytes(torch, plane, probe_hi, probe_lo) -> int:
+    """The bytes plane_lookup's function must move on these probes: each
+    probe's halves read and its id written once; of the two hash lanes,
+    the 32-byte sectors of the slots that decide a probe (the first slot
+    not below it and the one before); of the id lane, each hit's sector."""
+    keys, probes = flip_hash(plane[0], plane[1]), flip_hash(probe_hi, probe_lo)
+    pos = torch.searchsorted(keys, probes)
+    at = pos.clamp(max=keys.numel() - 1)
+    hit = keys[at] == probes
+    hash_sectors = int((torch.cat([at, (pos - 1).clamp(min=0)]) >> 3).unique().numel())
+    id_sectors = int((at[hit] >> 3).unique().numel())
+    return (2 * hash_sectors + id_sectors) * 32 + 3 * probes.numel() * 4
+
+
+def check_sketch_kernels(torch, kernels, t, dev, errs) -> None:
+    """hll_expand, hll_reduce, similar_count and plane_lookup against their
+    plain versions on the card, exact, on HLL_CHECKS, SIM_CHECKS and
+    KEYPLANE_CHECKS (and hll_reduce on one and on 1024 rows)."""
+    for i, (p, rows, density) in enumerate(HLL_CHECKS):
+        packed = hll_planes(torch, rows, p, density, dev, SEED + i)
+        filt = t(filter_words(rows, rows * 5000, SEED + i) if i % 2 else
+                 seeded_words(np.random.default_rng(SEED + i), (rows, SHARD_WORDS)))
+        got = kernels.hll_expand(packed, filt, p)
+        want = kernels.hll_expand_plain(packed, filt, p)
+        torch.cuda.synchronize()
+        err = int((got.int() - want.int()).abs().max())
+        errs["hll_expand"] = max(errs["hll_expand"], err)
+        if got.shape != want.shape or got.dtype != torch.uint8 or err:
+            raise AssertionError(f"hll_expand p={p} [{rows}, 2^20]: max |err| {err}")
+        for regs in (got, got[:1]):
+            r_got, r_want = kernels.hll_reduce(regs), kernels.hll_reduce_plain(regs)
+            torch.cuda.synchronize()
+            err = int((r_got.int() - r_want.int()).abs().max())
+            errs["hll_reduce"] = max(errs["hll_reduce"], err)
+            if err:
+                raise AssertionError(f"hll_reduce [{regs.shape[0]}, 2^{p}]: max |err| {err}")
+        del packed, filt, got, want
+    wide = torch.randint(0, 34, (1024, 1 << 16), dtype=torch.uint8, device=dev)
+    if not torch.equal(kernels.hll_reduce(wide), kernels.hll_reduce_plain(wide)):
+        raise AssertionError("hll_reduce [1024, 2^16] differs")
+    for r, s, w in SIM_CHECKS:
+        rng = np.random.default_rng(SEED + r)
+        cube = torch.randint(-2**31, 2**31 - 1, (r, s, w), dtype=torch.int32, device=dev)
+        filt = t(seeded_words(rng, (s, w)))
+        got, want = kernels.similar_count(cube, filt), kernels.similar_count_plain(cube, filt)
+        torch.cuda.synchronize()
+        err = max(int((g.long() - v.long()).abs().max()) for g, v in zip(got, want))
+        errs["similar_count"] = max(errs["similar_count"], err)
+        if err:
+            raise AssertionError(f"similar_count [{r}, {s}, {w}]: max |err| {err}")
+        del cube
+    for h, q in KEYPLANE_CHECKS:
+        mat, phi, plo = key_plane(h, q, SEED + h)
+        plane, ph, pl = t(mat), t(phi), t(plo)
+        got, want = kernels.plane_lookup(plane, ph, pl), kernels.plane_lookup_plain(plane, ph, pl)
+        torch.cuda.synchronize()
+        err = int((got != want).sum())
+        errs["plane_lookup"] = max(errs["plane_lookup"], err)
+        if err or int((got[:q // 2] == 0).sum()):
+            raise AssertionError(f"plane_lookup H={h} Q={q}: {err} ids differ")
+    log("sketch and key-plane kernels: exact on hll_expand at p = "
+        f"{', '.join(str(c[0]) for c in HLL_CHECKS)}, hll_reduce, "
+        f"similar_count on {len(SIM_CHECKS)} cubes, plane_lookup on "
+        f"{len(KEYPLANE_CHECKS)} planes")
+
+
+def sketch_kernel_timings(torch, kernels, t, dev, card: str) -> dict:
+    """The four kernels timed at the keys phase's shapes, each beside its
+    bound, its plain version and its library call: name -> (ms, plain ms,
+    bound ms, bound by, library ms or None). Big inputs are made one
+    kernel at a time and freed after it."""
+    out = {}
+    w = SHARD_WORDS
+    rows, p = HLL_TIMED_ROWS, HLL_TIMED_P
+
+    def timed(name, shape, fn, plain_fn, lib_fn, nbytes, logic, popc):
+        ms = time_cuda_ms(torch, fn, KERNEL_RUNS)
+        plain = time_cuda_ms(torch, plain_fn, 5)
+        bound, by, term = bound_ms(torch, nbytes, logic, popc)
+        lib = time_cuda_ms(torch, lib_fn, KERNEL_RUNS) if lib_fn is not None else None
+        lib_text = f"; library {lib:.4f} ms" if lib is not None else \
+            "; library none (torch has no popcount)"
+        log(f"kernel {name} {shape}: {ms:.4f} ms, bound {bound:.4f} ms ({term}), "
+            f"{bound / ms:.1%} of bound; plain {plain:.4f} ms{lib_text}  [{card}]")
+        out[name] = (ms, plain, bound, by, lib)
+
+    packed = hll_planes(torch, rows, p, BSI_DENSITY, dev, SEED)
+    filt = t(filter_words(rows, BSI_FILTER_BITS, SEED))
+    regs = kernels.hll_expand(packed, filt, p)
+    torch.cuda.empty_cache()
+    if not torch.equal(regs, kernels.hll_expand_plain(packed, filt, p)):
+        raise AssertionError("hll_expand at the timed shape differs from its plain version")
+    # The library call: scatter_reduce "amax" of each column's masked rho
+    # into its shard's register segment, the (segment, rho) pairs laid out
+    # ahead of it; checked equal first.
+    seg = ((packed & 0x3FFFF).long() + (torch.arange(rows, device=dev) << p).unsqueeze(1)).view(-1)
+    rho = torch.where(kernels._filter_bits(filt) == 1, packed >> 18, 0).view(-1)
+
+    def hll_library():
+        return torch.zeros(rows << p, dtype=torch.int32, device=dev).scatter_reduce_(
+            0, seg, rho, "amax").view(rows, 1 << p).to(torch.uint8)
+
+    if not torch.equal(hll_library(), regs):
+        raise AssertionError("hll_expand: the library call computes other registers")
+    lib = time_cuda_ms(torch, hll_library, 3)  # about 0.34 s a call
+    del seg, rho
+    torch.cuda.empty_cache()  # the plain version's scratch is the largest
+    plain_ms = time_cuda_ms(torch, lambda: kernels.hll_expand_plain(packed, filt, p), 3)
+    ms = time_cuda_ms(torch, lambda: kernels.hll_expand(packed, filt, p), KERNEL_RUNS)
+    nbytes, logic, sectors = hll_expand_work(torch, filt, p)
+    bound, by, term = bound_ms(torch, nbytes, logic, 0)
+    log(f"kernel hll_expand [{rows}, 2^20] plane, {BSI_FILTER_BITS}-bit filter, p = {p}: "
+        f"{ms:.4f} ms, bound {bound:.4f} ms ({term}: {sectors} of the plane's "
+        f"{rows << 17} sectors hold a filtered column), {bound / ms:.1%} of bound; plain "
+        f"{plain_ms:.4f} ms; library {lib:.4f} ms (scatter_reduce amax)  [{card}]")
+    out["hll_expand"] = (ms, plain_ms, bound, by, lib)
+    del packed, filt
+    torch.cuda.empty_cache()
+    timed("hll_reduce", f"[{rows}, 2^{p}]", lambda: kernels.hll_reduce(regs),
+          lambda: kernels.hll_reduce_plain(regs), lambda: regs.amax(0),
+          rows * (1 << p) + (1 << p), rows * (1 << p) // 4, 0)
+    del regs
+    r, s, _ = SIM_CHECKS[0]
+    cube = torch.randint(-2**31, 2**31 - 1, (r, s, w), dtype=torch.int32, device=dev)
+    sfilt = t(seeded_words(np.random.default_rng(SEED), (s, w)))
+    # per word and row: an and, two popcounts, two adds; the filter's own
+    # popcount once
+    timed("similar_count", f"[{r}, {s}, {w}] cube x [{s}, {w}] filter",
+          lambda: kernels.similar_count(cube, sfilt),
+          lambda: kernels.similar_count_plain(cube, sfilt), None,
+          (r + 1) * s * w * 4 + (2 * r + 1) * 4, 3 * r * s * w, (2 * r + 1) * s * w)
+    del cube, sfilt
+    torch.cuda.empty_cache()
+    h, q = KEYPLANE_CHECKS[-1]
+    mat, phi, plo = key_plane(h, q, SEED)
+    plane, ph, pl = t(mat), t(phi), t(plo)
+    lib_call = plane_lookup_library(torch, plane, ph, pl)
+    if not torch.equal(lib_call(), kernels.plane_lookup(plane, ph, pl)):
+        raise AssertionError("plane_lookup: the library calls compute other ids")
+    timed("plane_lookup", f"[3, {mat.shape[1]}] plane, {q} probes",
+          lambda: kernels.plane_lookup(plane, ph, pl),
+          lambda: kernels.plane_lookup_plain(plane, ph, pl), lib_call,
+          plane_lookup_bytes(torch, plane, ph, pl), 0, 0)
+    return out
+
+
 def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
     from pilosa_tpu_torch.ops import kernels
 
@@ -1847,6 +2119,7 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
     check_group_lattices(torch, kernels, t, rng, gb_planes, gb_filt, errs)
     packed = check_packed_cases(torch, kernels, t, dev, errs)
     ps_pos, ps_vals, ps_depth = check_plane_scatter(torch, kernels, dev, errs)
+    check_sketch_kernels(torch, kernels, t, dev, errs)
     del leaves9, tables9
     log(f"kernel checks: exact on every op and shape; max |err| {errs}")
 
@@ -2055,6 +2328,8 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
         f"torch.zeros of the stack {zeros_ms:.4f} ms  [{card}]")
     del cube, cube40, tree3, batch_a, batch_b, tables3, tables24, lib_out, topn_tiles
     del gb_planes, gb_wide
+    torch.cuda.empty_cache()
+    timings.update(sketch_kernel_timings(torch, kernels, t, dev, card))
     log(f"kernels: {json.dumps(sorted(errs))}")
     # Hand the cached blocks back: the persist phase's CLI node is a
     # process of its own on the same card.
@@ -2222,6 +2497,25 @@ def bsi_planes(cols: np.ndarray, vals: np.ndarray, n_shards: int, depth: int):
     return out
 
 
+def bsi_oracles(cols: np.ndarray, vals: np.ndarray, fpos: np.ndarray) -> dict:
+    """The BSI queries' numpy oracles over the values at ``cols`` (sorted),
+    the filter row holding ``fpos``."""
+    from pilosa_tpu_torch.config import SHARD_WIDTH
+
+    shards = cols >> SHARD_WIDTH.bit_length() - 1
+    in_f = np.isin(cols, fpos)
+    neg = vals < 0
+    return {
+        "sum": {"value": int(vals.sum()), "count": len(vals)},
+        "min": extreme_oracle(shards, vals, True),
+        "max": extreme_oracle(shards, vals, False),
+        "sum_filtered": {"value": int(vals[in_f].sum()), "count": int(in_f.sum())},
+        "count_gt": int((vals > 50000).sum()),
+        "count_between": int(((vals >= -1000) & (vals <= 1000)).sum()),
+        "max_of_negatives": extreme_oracle(shards[neg], vals[neg], False),
+    }
+
+
 def extreme_oracle(shards: np.ndarray, vals: np.ndarray, is_min: bool):
     """The executor's Min/Max over values grouped by (ascending) shard:
     each shard's extreme and how many of its values equal it; the global
@@ -2277,11 +2571,12 @@ def phase_data(torch, card: str, data: dict, device: str = "cuda",
                    for s in range(count_shards)])
     gw = np.stack([h.fragment("bench", "g", "standard", s).row_words(2)
                    for s in range(count_shards)])
-    data["want_count"] = {
-        "count_intersect": int(popcount_rows(fw & gw).sum()),
-        "count_row": int(popcount_rows(fw).sum()),
-        "count_3leaf": int(popcount_rows((fw & gw) | gw).sum()),
-    }
+    per_shard = {"count_intersect": popcount_rows(fw & gw), "count_row": popcount_rows(fw),
+                 "count_3leaf": popcount_rows((fw & gw) | gw)}
+    data["want_count"] = {k: int(v.sum()) for k, v in per_shard.items()}
+    # the persist phase's nodes hold the first PERSIST_SHARDS shards
+    data["want_count_persist"] = {k: int(v[:PERSIST_SHARDS].sum())
+                                  for k, v in per_shard.items()}
     data["count_cols"], data["count_shards"] = n_cols, count_shards
     del fw, gw
 
@@ -2311,19 +2606,11 @@ def phase_data(torch, card: str, data: dict, device: str = "cuda",
         f"[{BSI_MIN}, {BSI_MAX}) at depth {idx.field('v').bsi_group.bit_depth}, "
         f"filter of {len(fpos)} positions; made and loaded through interop in "
         f"{time.perf_counter() - t0:.3f} s (host)")
-    shards = cols >> SHARD_WIDTH.bit_length() - 1
-    in_f = np.isin(cols, fpos)
-    neg = vals < 0
-    data["want_bsi"] = {
-        "sum": {"value": int(vals.sum()), "count": len(vals)},
-        "min": extreme_oracle(shards, vals, True),
-        "max": extreme_oracle(shards, vals, False),
-        "sum_filtered": {"value": int(vals[in_f].sum()), "count": int(in_f.sum())},
-        "count_gt": int((vals > 50000).sum()),
-        "count_between": int(((vals >= -1000) & (vals <= 1000)).sum()),
-        "max_of_negatives": extreme_oracle(shards[neg], vals[neg], False),
-    }
+    data["want_bsi"] = bsi_oracles(cols, vals, fpos)
+    held = cols < PERSIST_SHARDS * SHARD_WIDTH
+    data["want_bsi_persist"] = bsi_oracles(cols[held], vals[held], fpos)
     data["bsi_values"] = (cols, vals)  # for the import_values check; freed there
+    data["distinct_values"] = (cols, vals, fpos)  # the keys phase's oracles
     data["bsi_shards"], data["bsi_cols"] = bsi_shards, n_cols
     return {}
 
@@ -2952,8 +3239,8 @@ def phase_http(torch, card: str, data: dict, runs: int = QUERY_RUNS,
             ("parse error", "/index/bench/query", "Count(Row(f=1)", None, 400),
             ("expired X-Deadline", "/index/bench/query", COUNT_QUERIES["count_intersect"],
              {"X-Deadline": f"{time.time() - 1:.6f}"}, 504),
-            ("Distinct() (keys and sketches)", "/index/bench/query",
-             "Count(Distinct(field=f))", None, 501)):
+            ("a remote leg (cluster and operations)", "/index/bench/query?remote=true",
+             COUNT_QUERIES["count_row"], None, 501)):
         status, body = request(conn, "POST", path, q, headers)
         if status != want:
             raise AssertionError(f"{what}: HTTP {status}, expected {want}: {body!r}")
@@ -2996,7 +3283,7 @@ def persist_load(node_a, port: int, data: dict, card: str) -> None:
     for index, fields in (("bench", ("f", "g")), ("bsi", ("f",))):
         for field in fields:
             view = ha.field(index, field).view("standard")
-            for shard in sorted(view.fragments):
+            for shard in sorted(s for s in view.fragments if s < PERSIST_SHARDS):
                 t0 = time.perf_counter()
                 body = view.fragments[shard].to_roaring()
                 t1 = time.perf_counter()
@@ -3017,14 +3304,15 @@ def persist_load(node_a, port: int, data: dict, card: str) -> None:
     view = fv.bsi_view()
     t0 = time.perf_counter()
     n_planes = 0
-    for shard in sorted(view.fragments):
+    held = sorted(s for s in view.fragments if s < PERSIST_SHARDS)
+    for shard in held:
         frag = view.fragments[shard]
         planes = np.stack([frag.row_words(r) for r in range(2 + depth)])
         interop.load_bsi_planes(data["node_b"].holder, "bsi", "v", shard, planes,
                                 fv.options)
         n_planes += len(planes)
     secs = time.perf_counter() - t0
-    log(f"bsi planes in process: {n_planes} plane rows of {len(view.fragments)} "
+    log(f"bsi planes in process: {n_planes} plane rows of {len(held)} "
         f"shards through interop.load_bsi_planes in {secs:.3f} s "
         f"({n_planes * planes.shape[1] * 4 / secs / 1e6:.3f} MB/s of words)")
 
@@ -3038,11 +3326,14 @@ def persist_queries(node_a, node_c, data: dict, card: str, runs: int,
     from pilosa_tpu_torch.ops import kernels
 
     ca, cc = http_client(node_a.port), http_client(node_c.port)
-    queries = [q for q in http_queries(data) if q[0] in ("bench", "bsi")]
+    wants = {"bench": data["want_count_persist"], "bsi": data["want_bsi_persist"]}
+    queries = [(index, name, q, wants[index][name])
+               for index, name, q, _ in http_queries(data) if index in wants]
+    path = QUERY_PATH + "&shards=" + ",".join(map(str, range(PERSIST_SHARDS)))
     want_bodies, want_launches = {}, {}
     for index, name, q, _ in queries:
         (status, body), l_a = launches_of(
-            lambda index=index, q=q: request(ca, "POST", QUERY_PATH.format(index), q))
+            lambda index=index, q=q: request(ca, "POST", path.format(index), q))
         if status != 200:
             raise AssertionError(f"node A {q}: HTTP {status} {body[:300]!r}")
         want_bodies[name], want_launches[name] = body, l_a
@@ -3051,7 +3342,7 @@ def persist_queries(node_a, node_c, data: dict, card: str, runs: int,
     for index, name, q, want in queries:
         t0 = time.perf_counter()
         (status, body), l_c = launches_of(
-            lambda index=index, q=q: request(cc, "POST", QUERY_PATH.format(index), q))
+            lambda index=index, q=q: request(cc, "POST", path.format(index), q))
         first_ms[name] = (time.perf_counter() - t0) * 1e3
         if status != 200 or json.loads(body)["results"] != [want]:
             raise AssertionError(f"{label} {q}: HTTP {status} {body[:300]!r}, "
@@ -3077,7 +3368,7 @@ def persist_queries(node_a, node_c, data: dict, card: str, runs: int,
         times = []
         for _ in range(runs):
             t0 = time.perf_counter()
-            status, _ = request(cc, "POST", QUERY_PATH.format(index), q)
+            status, _ = request(cc, "POST", path.format(index), q)
             times.append((time.perf_counter() - t0) * 1e3)
             if status != 200:
                 raise AssertionError(f"{label} {q}: HTTP {status}")
@@ -3091,7 +3382,7 @@ def persist_queries(node_a, node_c, data: dict, card: str, runs: int,
 #: the incremental backup's writes: columns of bench row BACKUP_SET_ROW
 #: (a row no other check reads), one in each of a few shards.
 BACKUP_SET_ROW = 99
-BACKUP_SET_COLS = (5, 2**20 + 7, 500 * 2**20 + 31, 953 * 2**20 + 2**20 - 1)
+BACKUP_SET_COLS = (5, 2**20 + 7, PERSIST_SHARDS // 2 * 2**20 + 31, PERSIST_SHARDS * 2**20 - 1)
 
 
 def await_job(conn, path: str, what: str) -> dict:
@@ -3108,8 +3399,9 @@ def await_job(conn, path: str, what: str) -> dict:
 
 
 def persist_backup(node_a, node_c, data: dict, card: str, root: Path) -> dict:
-    """Backup and restore at 1B columns: ``POST /backup`` of node C's data
-    dir (``bench`` and ``bsi``) into a LocalDirArchive; four Sets on C and
+    """Backup and restore of the held eighth of the 1B columns
+    (PERSIST_SHARDS): ``POST /backup`` of node C's data dir (``bench`` and
+    ``bsi``) into a LocalDirArchive; four Sets on C and
     an incremental backup against the full one (it stores their WAL
     segments and refers to the full backup for every other file);
     ``backup-verify`` on the archive (both backups and the chain);
@@ -4404,21 +4696,28 @@ def phase_packed(torch, card: str, data: dict, runs: int = QUERY_RUNS) -> dict:
 #: config 4 spreads them over 90 days; the 30 days before the windows
 #: were cut to keep the whole run within its time (they added 700K
 #: fragments and about 40 s of host import, and no query read them).
+#: The bits fall in the first FIELDS_TIME_SHARDS shards (an eighth of
+#: the 1B columns: an eighth of the fragments, which set the import's
+#: cost), cut to make room for the keys phase; the windows' Counts still
+#: run over all 954 shards.
 FIELDS_TIME_BITS = 10_000_000
+FIELDS_TIME_SHARDS = 120
 FIELDS_TIME_ROWS = 3
 FIELDS_TIME_FIRST_HOUR = 14 * 24
 FIELDS_TIME_HOURS = 24 * 60
 #: bench config 5's GroupBy fields at its density (1.5%), at 1B columns.
 FIELDS_SET_BITS = 15_000_000
 FIELDS_SET_ROWS = {"a": 4, "b": 8, "c": 3}
-#: the mutex field: 16 rows over 25M columns, then 5M of them moved (50M
-#: and 10M until the backup round trip joined the persist phase: halved
-#: to keep the whole run within its time; rows stay in the packed class).
+#: the mutex field: 16 rows over 12.5M columns, then 2.5M of them moved
+#: (50M and 10M until the backup round trip joined the persist phase,
+#: 25M and 5M until the keys phase joined the run: halved each time to
+#: keep the whole run within its time; rows stay in the packed class).
 FIELDS_MUTEX_ROWS = 16
-FIELDS_MUTEX_COLS = 25_000_000
-FIELDS_MUTEX_MOVED = 5_000_000
-#: the bool field: 20M columns, true or false.
-FIELDS_BOOL_COLS = 20_000_000
+FIELDS_MUTEX_COLS = 12_500_000
+FIELDS_MUTEX_MOVED = 2_500_000
+#: the bool field: 10M columns, true or false (20M until the keys phase
+#: joined the run).
+FIELDS_BOOL_COLS = 10_000_000
 #: bits of t's row 7 imported over HTTP with epoch-second timestamps.
 FIELDS_HTTP_BITS = 2000
 #: the wide lattices: 450 rows in one level, and levels of 32 and 256
@@ -4542,9 +4841,11 @@ def phase_fields(torch, card: str, data: dict, runs: int = FIELDS_RUNS,
     rng = np.random.default_rng(SEED + 6)
     exp = SHARD_WIDTH.bit_length() - 1
 
-    # The time field: 10M bits, rows 0-2, hourly stamps over 60 days.
+    # The time field: 10M bits, rows 0-2, hourly stamps over 60 days, in
+    # the first FIELDS_TIME_SHARDS shards.
     t0 = time.perf_counter()
-    t_cols = rng.integers(0, n_cols, FIELDS_TIME_BITS, dtype=np.uint64)
+    t_cols = rng.integers(0, min(n_cols, FIELDS_TIME_SHARDS * SHARD_WIDTH),
+                          FIELDS_TIME_BITS, dtype=np.uint64)
     t_rows = rng.integers(0, FIELDS_TIME_ROWS, FIELDS_TIME_BITS).astype(np.uint64)
     t_hours = FIELDS_TIME_FIRST_HOUR + rng.integers(0, FIELDS_TIME_HOURS, FIELDS_TIME_BITS)
     stamps = (np.datetime64("2019-01-01T00", "h") + t_hours).astype("datetime64[s]")
@@ -4627,6 +4928,7 @@ def phase_fields(torch, card: str, data: dict, runs: int = FIELDS_RUNS,
     a_cols, a_rows = pairs["a"]
     b_cols, b_rows_ = pairs["b"]
     c_cols, c_rows = pairs["c"]
+    data["similar_pairs"] = (pairs["a"], pairs["b"])  # the keys phase's SimilarTopN
     n_a, n_b, n_c = (FIELDS_SET_ROWS[k] for k in "abc")
     per_shard_a = np.bincount((a_cols >> exp) * n_a + a_rows,
                               minlength=n_shards * n_a).reshape(n_shards, n_a)
@@ -4820,6 +5122,292 @@ def phase_fields(torch, card: str, data: dict, runs: int = FIELDS_RUNS,
     return {"launches": launches, "p50": report}
 
 
+# -- phase 12: keys and sketches ---------------------------------------------
+
+#: Count(Distinct) on bsi's v (bench config 3: 20M values over 1B columns)
+#: at the default precision, filtered by the 5M-bit row, at precision 16,
+#: and with a threshold the filtered estimate falls under (the exact leg).
+DISTINCT_QUERIES = {
+    "distinct": "Count(Distinct(field=v))",
+    "distinct_filtered": "Count(Distinct(Row(f=1), field=v))",
+    "distinct_p16": "Count(Distinct(field=v, precision=16))",
+    "distinct_exact": "Count(Distinct(Row(f=1), field=v, threshold=200000))",
+}
+#: SimilarTopN on bench's b (the fields phase's 8 rows over 1B columns:
+#: an [8, 1024, 32768] cube, 1 GiB, SIM_CUBE_MAX_BYTES), both metrics.
+SIMILAR_QUERIES = {
+    "similar_jaccard": ("SimilarTopN(b, Row(a=1), n=5)", "jaccard"),
+    "similar_overlap": ("SimilarTopN(b, Row(a=1), n=5, metric=overlap)", "overlap"),
+}
+#: the keyed index: 1,000,000 column keys, 1,024 row keys, one row a
+#: column, imported over HTTP by keys in batches.
+KEYS_COLS = 1_000_000
+KEYS_ROWS = 1024
+KEYS_BATCH = 100_000
+#: row keys of the keyed Union (a batch past the key plane's auto
+#: threshold of 256).
+KEYS_UNION = 300
+KEYS_RUNS = 5
+#: the keys phase planner's budget: the [1024, 2^20] hll plane stack
+#: (4 GiB) beside its filter and the SimilarTopN cube and rows.
+KEYS_STACK_BYTES = 12 << 30
+KEYS_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_keys"
+KEYS_KERNELS = ("hll_expand", "hll_reduce", "similar_count", "plane_lookup")
+
+
+def distinct_oracle(stored: np.ndarray, p: int, threshold: int) -> int:
+    """Count(Distinct) of base-relative values: the estimate of the
+    registers ``sketch_values`` folds from them (the planes' registers
+    are the same), or the exact count under the threshold."""
+    from pilosa_tpu_torch.sketch import hll
+
+    est = hll.sketch_values(stored, p).estimate()
+    if threshold and est < threshold:
+        return int(len(np.unique(stored)))
+    return int(round(est))
+
+
+def similar_oracle(a_pairs, b_pairs, a_row: int, n: int, metric: str) -> list:
+    """SimilarTopN's pairs from the (column, row) pairs of a and b: each b
+    row's overlap with a's row and its size, ranked by score, then overlap,
+    then row id."""
+    a_cols, a_rows = a_pairs
+    b_cols, b_rows = b_pairs
+    filt = np.unique(a_cols[a_rows == a_row])
+    ids = np.unique(b_rows)
+    hit = np.isin(b_cols, filt)
+    overlap = np.array([int((hit & (b_rows == r)).sum()) for r in ids])
+    selfcnt = np.array([int((b_rows == r).sum()) for r in ids])
+    keep = overlap > 0
+    ids, overlap, selfcnt = ids[keep], overlap[keep], selfcnt[keep]
+    if metric == "jaccard":
+        score = overlap / (selfcnt + len(filt) - overlap)
+    else:
+        score = overlap.astype(np.float64)
+    order = np.lexsort((ids, -overlap, -score))[:n]
+    return [{"id": int(ids[i]), "count": int(overlap[i])} for i in order]
+
+
+def keyed_data(seed: int):
+    """Each column key's row: the first KEYS_ROWS columns take rows 0..1023
+    in order (so row key r{j} gets id j + 1), the rest random."""
+    rows = np.random.default_rng(seed).integers(0, KEYS_ROWS, KEYS_COLS)
+    rows[:KEYS_ROWS] = np.arange(KEYS_ROWS)
+    return rows
+
+
+def keyed_queries(rows: np.ndarray) -> dict:
+    """name -> (PQL, oracle result) over the keyed index, from the id map:
+    column key c{i} is id i + 1, row key r{j} id j + 1."""
+    def row_json(j):
+        cols = np.flatnonzero(rows == j)
+        return {"attrs": {}, "columns": (cols + 1).tolist(), "keys": [f"c{i}" for i in cols]}
+
+    counts = np.bincount(rows, minlength=KEYS_ROWS)
+    top = np.lexsort((np.arange(KEYS_ROWS), -counts))[:10]
+    union = ", ".join(f'Row(kf="r{j}")' for j in range(KEYS_UNION))
+    return {
+        "keyed_row": ('Row(kf="r5")', row_json(5)),
+        "keyed_count": ('Count(Row(kf="r1000"))', int(counts[1000])),
+        "keyed_topn": ("TopN(kf, n=10)", [{"id": int(j) + 1, "count": int(counts[j]),
+                                          "key": f"r{j}"} for j in top]),
+        "keyed_union": (f"Count(Union({union}))", int((rows < KEYS_UNION).sum())),
+    }
+
+
+def keyed_node(torch, device: str, path: Path):
+    from pilosa_tpu_torch.server import ServerNode
+
+    node = ServerNode(bind="127.0.0.1:0", device=device, data_dir=str(path),
+                      compile_cache_dir="off")
+    node.open()
+    return node
+
+
+def keyed_bodies(node, queries: dict) -> dict:
+    """name -> the body of each keyed query over HTTP on ``node``."""
+    conn = http_client(node.port)
+    out = {name: expect_ok(conn, "POST", QUERY_PATH.format("keyed"), q)
+           for name, (q, _) in queries.items()}
+    conn.close()
+    return out
+
+
+def phase_keys(torch, card: str, data: dict, runs: int = KEYS_RUNS) -> dict:
+    """Keys and sketches at full width. In process on a planner whose
+    budget holds the 4 GiB hll plane stack: Count(Distinct) on bench config
+    3's v (DISTINCT_QUERIES: the hll_reduce of the register stack; the
+    filtered form ONE hll_expand and ONE hll_reduce; precision 16; the
+    exact leg under a threshold), SimilarTopN on bench's 8-row b (ONE
+    similar_count over a 1 GiB cube), each equal to its numpy oracle and
+    (but the exact leg, a host walk of every shard asked once in process)
+    over HTTP to the in-process JSON. Then a keyed index on a node with a
+    data dir: 1M column keys and 1,024 row keys imported over HTTP by keys;
+    keyed Row, Count and TopN bodies equal the oracle built from the id
+    map; a Union of 300 keyed rows under ``auto`` is ONE plane_lookup once
+    the plane is built (``/debug/translate`` shows it); the bodies equal
+    after close and reopen, and after a backup restored into a fresh dir."""
+    from pilosa_tpu_torch.exec import Executor, result_to_json
+    from pilosa_tpu_torch.ops import kernels
+    from pilosa_tpu_torch.parallel import Planner
+
+    device, node, h = data["device"], data["node"], data["holder"]
+    cols, vals, fpos = data.pop("distinct_values")
+    base = h.field("bsi", "v").bsi_group.base
+    stored = vals - base
+    in_f = np.isin(cols, fpos)
+    want = {"distinct": distinct_oracle(stored, 12, 1024),
+            "distinct_filtered": distinct_oracle(stored[in_f], 12, 1024),
+            "distinct_p16": distinct_oracle(stored, 16, 1024),
+            "distinct_exact": distinct_oracle(stored[in_f], 12, 200000)}
+    a_pairs, b_pairs = data.pop("similar_pairs")
+    for name, (_, metric) in SIMILAR_QUERIES.items():
+        want[name] = similar_oracle(a_pairs, b_pairs, 1, 5, metric)
+    del cols, vals, fpos, stored, in_f, a_pairs, b_pairs
+    planner = Planner(h, max_cache_bytes=KEYS_STACK_BYTES)
+    ex = Executor(h, planner=planner)
+    node_planner = node.executor.planner
+    budget = node_planner.max_cache_bytes
+    node_planner.max_cache_bytes = KEYS_STACK_BYTES
+    kernels.reset_launches()
+    per_query = {}
+    conn = http_client(node.port)
+    try:
+        for name, q in {**DISTINCT_QUERIES,
+                        **{k: q for k, (q, _) in SIMILAR_QUERIES.items()}}.items():
+            index = "bsi" if name.startswith("distinct") else "bench"
+            t0 = time.perf_counter()
+            got, launched = launches_of(lambda: result_to_json(
+                ex.execute(index, q, cache=False))[0])
+            first = (time.perf_counter() - t0) * 1e3
+            if got != want[name]:
+                raise AssertionError(f"{q}: {got}, oracle {want[name]}")
+            per_query[name] = {k: v for k, v in launched.items() if v}
+            if name == "distinct_exact":
+                # Its exact leg walks every shard on the host, about 10 s a
+                # call: asked once, in process.
+                log(f"keys {q} = {json.dumps(got)} (oracle equal); first {first:.3f} ms, "
+                    f"launches {per_query[name]}  [{card}]")
+                continue
+            body = expect_ok(conn, "POST", QUERY_PATH.format(index), q)
+            if json.loads(body)["results"] != [got]:
+                raise AssertionError(f"HTTP {q}: {body[:300]!r}, in process {got}")
+            p50, spread = p50_ms(lambda: ex.execute(index, q, cache=False), runs)
+            http_p50, http_spread = p50_ms(
+                lambda: expect_ok(conn, "POST", QUERY_PATH.format(index), q), runs)
+            log(f"keys {q} = {json.dumps(got)} (oracle equal, HTTP body equal); first "
+                f"{first:.3f} ms, launches {per_query[name]}; p50 in process {p50:.4f} ms "
+                f"({spread}), HTTP p50 {http_p50:.4f} ({http_spread}) ms over {runs} runs  "
+                f"[{card}]")
+        for name, kernel in (("distinct", "hll_reduce"), ("distinct_filtered", "hll_expand"),
+                             ("similar_jaccard", "similar_count")):
+            if device == "cuda" and per_query[name].get(kernel) != 1:
+                raise AssertionError(f"{name}: launches {per_query[name]}, want ONE {kernel}")
+        stats = planner.cache_stats()
+        log(f"keys planner: resident bytes by class {stats['class_bytes']}, budget "
+            f"{stats['budget_bytes'] / 2**30:.3f} GiB; hll class "
+            f"{stats['class_bytes']['hll']} bytes")
+    finally:
+        conn.close()
+        node_planner.max_cache_bytes = budget
+        planner.close()
+        del ex, planner
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+    rows = keyed_data(SEED + 5)
+    queries = keyed_queries(rows)
+    shutil.rmtree(KEYS_DIR, ignore_errors=True)
+    nodes = []
+    try:
+        node_k = keyed_node(torch, device, KEYS_DIR / "k")
+        nodes.append(node_k)
+        conn = http_client(node_k.port)
+        expect_ok(conn, "POST", "/index/keyed", {"options": {"keys": True}})
+        expect_ok(conn, "POST", "/index/keyed/field/kf", {"options": {"keys": True}})
+        t0 = time.perf_counter()
+        for lo in range(0, KEYS_COLS, KEYS_BATCH):
+            hi = min(KEYS_COLS, lo + KEYS_BATCH)
+            expect_ok(conn, "POST", "/index/keyed/field/kf/import", {
+                "rowKeys": [f"r{j}" for j in rows[lo:hi].tolist()],
+                "columnKeys": [f"c{i}" for i in range(lo, hi)]})
+        import_s = time.perf_counter() - t0
+        log(f"keyed import over HTTP: {KEYS_COLS} column keys, {KEYS_ROWS} row keys, "
+            f"{KEYS_COLS // KEYS_BATCH} requests in {import_s:.3f} s (client clock)  [{card}]")
+        union_q = queries["keyed_union"][0]
+        # The first Union finds no plane: auto schedules its build on the
+        # prefetcher and resolves on the host; then ONE plane_lookup.
+        expect_ok(conn, "POST", QUERY_PATH.format("keyed"), union_q)
+        planes = node_k.executor.keyplanes
+        deadline = time.monotonic() + 60
+        while planes.debug()["builds"] < 1 and time.monotonic() < deadline:
+            time.sleep(0.05)
+        keyed_launches = {}
+        for name, (q, oracle) in queries.items():
+            before = dict(kernels.LAUNCHES)
+            t0 = time.perf_counter()
+            body = expect_ok(conn, "POST", QUERY_PATH.format("keyed"), q)
+            first = (time.perf_counter() - t0) * 1e3
+            keyed_launches[name] = {k: kernels.LAUNCHES[k] - before[k] for k in before
+                                    if kernels.LAUNCHES[k] != before[k]}
+            if json.loads(body)["results"] != [oracle]:
+                raise AssertionError(f"keyed {q[:80]}: {body[:300]!r}, oracle "
+                                     f"{json.dumps(oracle)[:300]}")
+            p50, spread = p50_ms(lambda: expect_ok(conn, "POST",
+                                                   QUERY_PATH.format("keyed"), q), runs)
+            log(f"keyed {name} {q[:60]}{'...' if len(q) > 60 else ''} = oracle; first "
+                f"{first:.3f} ms, launches {keyed_launches[name]}; HTTP p50 {p50:.4f} ms "
+                f"({spread}) over {runs} runs  [{card}]")
+        if device == "cuda" and keyed_launches["keyed_union"].get("plane_lookup") != 1:
+            raise AssertionError(f"keyed Union of {KEYS_UNION} keys: launches "
+                                 f"{keyed_launches['keyed_union']}, want ONE plane_lookup")
+        dbg = json.loads(expect_ok(conn, "GET", "/debug/translate"))
+        log(f"/debug/translate: {json.dumps(dbg)}")
+        if dbg["planes"]["deviceBatches"] < 1 or dbg["stores"]["keyed"]["maxId"] != KEYS_COLS:
+            raise AssertionError(f"/debug/translate: {dbg}")
+        conn.close()
+        bodies = keyed_bodies(node_k, queries)
+        t0 = time.perf_counter()
+        node_k.close()
+        nodes.remove(node_k)
+        close_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        node_r = keyed_node(torch, device, KEYS_DIR / "k")
+        nodes.append(node_r)
+        log(f"keyed node closed in {close_s:.3f} s, reopened in "
+            f"{time.perf_counter() - t0:.3f} s; {dir_bytes(KEYS_DIR / 'k', '.jsonl')} bytes "
+            f"of jsonl stores on disk")
+        if keyed_bodies(node_r, queries) != bodies:
+            raise AssertionError("keyed bodies differ after close and reopen")
+        conn = http_client(node_r.port)
+        t0 = time.perf_counter()
+        bid = json.loads(expect_ok(conn, "POST", "/backup",
+                                   {"archive": str(KEYS_DIR / "archive")}))["id"]
+        await_job(conn, "/backup/status", "keyed backup")
+        conn.close()
+        node_d = keyed_node(torch, device, KEYS_DIR / "restored")
+        nodes.append(node_d)
+        conn = http_client(node_d.port)
+        expect_ok(conn, "POST", "/restore", {"archive": str(KEYS_DIR / "archive"), "id": bid})
+        await_job(conn, "/restore/status", "keyed restore")
+        conn.close()
+        if keyed_bodies(node_d, queries) != bodies:
+            raise AssertionError("keyed bodies differ after backup and restore")
+        log(f"keyed index: bodies equal after close and reopen and after backup {bid} "
+            f"restored into a fresh dir ({time.perf_counter() - t0:.3f} s)  [{card}]")
+    finally:
+        for n in nodes:
+            n.close()
+        shutil.rmtree(KEYS_DIR, ignore_errors=True)
+    launches = dict(kernels.LAUNCHES)
+    log(f"keys path launches: {json.dumps({k: v for k, v in launches.items() if v})}")
+    if device == "cuda":
+        for k in KEYS_KERNELS:
+            if launches[k] < 1:
+                raise AssertionError(f"kernel {k} was not launched on the keys path")
+    return {"launches": launches, "per_query": per_query, "keyed": keyed_launches}
+
+
 def main() -> int:
     import torch
 
@@ -4844,7 +5432,8 @@ def main() -> int:
               ("pql", lambda: phase_pql(torch, card, data)),
               ("async", lambda: phase_async(torch, card, data)),
               ("packed", lambda: phase_packed(torch, card, data)),
-              ("fields", lambda: phase_fields(torch, card, data)))
+              ("fields", lambda: phase_fields(torch, card, data)),
+              ("keys", lambda: phase_keys(torch, card, data)))
     try:
         for name, phase in phases:
             log(f"== phase {name}")
@@ -4870,7 +5459,7 @@ def main() -> int:
     errs = results["kernels"]["errs"]
     launches = {k: sum(results[p]["launches"][k]
                        for p in ("main_path", "bsi", "http", "persist", "pql", "async",
-                                 "packed", "fields"))
+                                 "packed", "fields", "keys"))
                 for k in errs}
     sources = {"pair_count": "pilosa_tpu_torch/csrc/count_kernels.cu",
                "row_counts": "pilosa_tpu_torch/csrc/count_kernels.cu",
@@ -4884,7 +5473,10 @@ def main() -> int:
                "assemble_stack": "pilosa_tpu_torch/csrc/upload_kernels.cu",
                "group_count": "pilosa_tpu_torch/csrc/group_kernels.cu",
                **dict.fromkeys(PACKED_KERNELS, "pilosa_tpu_torch/csrc/packed_kernels.cu"),
-               "plane_scatter": "pilosa_tpu_torch/csrc/ingest_kernels.cu"}
+               "plane_scatter": "pilosa_tpu_torch/csrc/ingest_kernels.cu",
+               **dict.fromkeys(("hll_expand", "hll_reduce", "similar_count"),
+                               "pilosa_tpu_torch/csrc/sketch_kernels.cu"),
+               "plane_lookup": "pilosa_tpu_torch/csrc/keyplane_kernels.cu"}
     vmapped = ("pilosa_tpu/parallel/coalesce.py:312-348 _flush_batched + "
                "pilosa_tpu/parallel/planner.py:387-396 vmapped (jax.vmap of the "
                "count program; no pallas_call)")
@@ -4916,7 +5508,17 @@ def main() -> int:
                 "packed_expand": "pilosa_tpu/exec/residency.py:158-172 packed_expand "
                                  "(XLA-fused, no pallas_call)",
                 "plane_scatter": "pilosa_tpu/exec/ingest_transpose.py:115-142 "
-                                 "_plane_scatter (XLA-fused, no pallas_call)"}
+                                 "_plane_scatter (XLA-fused, no pallas_call)",
+                "hll_expand": "pilosa_tpu/sketch/kernels.py:32-49 hll_expand, in the "
+                              "distinct program pilosa_tpu/parallel/planner.py:749 "
+                              "(XLA-fused, no pallas_call)",
+                "hll_reduce": "pilosa_tpu/sketch/kernels.py:52-54 hll_reduce and "
+                              "pilosa_tpu/parallel/planner.py:744,749 jnp.max(..., axis=0) "
+                              "(XLA-fused, no pallas_call)",
+                "similar_count": "pilosa_tpu/sketch/kernels.py:85-108 similar_program's "
+                                 "totals (XLA-fused, no pallas_call)",
+                "plane_lookup": "pilosa_tpu/exec/keyplane.py:149-171 _search + "
+                                "plane_lookup (XLA-fused, no pallas_call)"}
     packed_program = " (planner.py:1906-1929 _packed_count_program)"
     replaces.update({
         f"{name}_batched": f"{vmapped} over {replaces[name]}{packed_program}"

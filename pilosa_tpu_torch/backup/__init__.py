@@ -18,10 +18,9 @@ archive written by either package restores into the other.
 - ``verify_archive`` -- offline archive check (manifest completeness,
   per-file CRCs, snapshot footers, WAL chain continuity).
 
-Each runs the JAX package's ``cluster=None`` path. Capture and restore
-across a cluster answer ``NotPortedError`` (ROADMAP.md Queue 1: cluster
-and operations), and so does a manifest with key translation (keys and
-sketches).
+Each runs the JAX package's ``cluster=None`` path, translate stores
+included. Capture and restore across a cluster answer ``NotPortedError``
+(ROADMAP.md Queue 1: cluster and operations).
 """
 
 from .archive import (

@@ -17,11 +17,12 @@ Failure is atomic: if any archived file fails its CRC, the job deletes
 everything it created and raises -- a half-restored index must never
 become visible as if it were whole.
 
-Two things answer ``NotPortedError`` before a data dir is touched: a
-manifest with key-translation files or keyed indexes or fields (ROADMAP.md
-Queue 1: keys and sketches) and a job given a cluster to restore across
-(cluster and operations). The JAX package's ``cluster=None`` path is the
-one this module runs.
+Key-translation files restore into the indexes' and fields' translate
+stores (``apply_entries``), attr files into the attr stores, as in the JAX
+package. A job given a cluster to restore across answers
+``NotPortedError`` (ROADMAP.md Queue 1: cluster and operations) before a
+data dir is touched; the JAX package's ``cluster=None`` path is the one
+this module runs.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ from pilosa_tpu_torch.backup.archive import (
     file_crc,
     resolve_files,
 )
-from pilosa_tpu_torch.errors import SLICE_CLUSTER, SLICE_KEYS, NotPortedError
+from pilosa_tpu_torch.errors import SLICE_CLUSTER, NotPortedError
 from pilosa_tpu_torch.storage.diskstore import IO_WORKERS
 from pilosa_tpu_torch.storage.integrity import (
     LineCorruptError,
@@ -164,22 +165,6 @@ def preflight_restore(archive, manifest: dict,
     return {"checked": len(files), "crcChecked": len(sampled)}
 
 
-def preflight_port(manifest: dict) -> None:
-    """What this slice of the port cannot restore, refused before
-    anything is touched: key-translation files and keyed indexes or
-    fields (translation stores come with the keys slice)."""
-    for entry in manifest.get("files", []):
-        if entry.get("kind") == KIND_TRANSLATE:
-            raise NotPortedError(
-                f"restoring key translation ({entry['path']})", SLICE_KEYS)
-    for idx in manifest.get("schema", []):
-        keyed = [f["name"] for f in idx.get("fields", [])
-                 if (f.get("options") or {}).get("keys")]
-        if (idx.get("options") or {}).get("keys") or keyed:
-            raise NotPortedError(
-                f"restoring keyed index {idx.get('name')!r}", SLICE_KEYS)
-
-
 def select_backup_at(archive, timestamp: float) -> dict | None:
     """Latest complete backup captured at or before ``timestamp`` — the
     coarse half of PITR (pick the base archive by time, then ``pitr_ops``
@@ -268,10 +253,12 @@ class RestoreJob:
             else idx.field(entry["field"])
         if target is None:
             return
-        # Only attr stores get here (translate files stop at preflight_port).
-        store = (idx.column_attr_store if entry.get("field") is None
-                 else target.row_attr_store)
-        store.set_bulk_attrs({int(i): a for i, a in payloads})
+        if entry["kind"] == KIND_TRANSLATE:
+            target.translate_store.apply_entries([(int(i), k) for i, k in payloads])
+        elif entry["kind"] == KIND_ATTRS:
+            store = (idx.column_attr_store if entry.get("field") is None
+                     else target.row_attr_store)
+            store.set_bulk_attrs({int(i): a for i, a in payloads})
 
     # -- rollback -----------------------------------------------------------
 
@@ -324,7 +311,6 @@ class RestoreJob:
         # Preflight the whole plan BEFORE touching any data dir (ours
         # or a conflicting index we're about to force-drop): a broken
         # chain must fail here, not as a mid-restore rollback.
-        preflight_port(manifest)
         preflight_restore(self.archive, manifest)
         self._count("restore.preflights")
         for name in conflicting:
@@ -341,7 +327,7 @@ class RestoreJob:
                 key = (entry["index"], entry["field"], entry["view"],
                        int(entry["shard"]))
                 frags.setdefault(key, {})[entry["kind"]] = entry
-            elif entry["kind"] == KIND_ATTRS:
+            elif entry["kind"] in (KIND_TRANSLATE, KIND_ATTRS):
                 meta_entries.append(entry)
 
         with self._lock:

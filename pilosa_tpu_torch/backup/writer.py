@@ -34,6 +34,7 @@ from pilosa_tpu_torch.backup.archive import (
     KIND_ATTRS,
     KIND_SCHEMA,
     KIND_SNAP,
+    KIND_TRANSLATE,
     KIND_WAL,
     FORMAT_VERSION,
     file_crc,
@@ -157,10 +158,8 @@ class BackupWriter:
 
     def _meta_files(self) -> list[tuple[str, str, str, str | None, bytes]]:
         """[(rel_path, kind, index, field, jsonl bytes)] for every
-        non-empty attr store, serialized from the in-memory truth with the
-        same checksummed line frames the data dir uses. (The port's
-        indexes and fields have no translate stores: keys are ROADMAP.md
-        Queue 1 item 5.)"""
+        non-empty translate and attr store, serialized from the in-memory
+        truth with the same checksummed line frames the data dir uses."""
         import json as _json
 
         from pilosa_tpu_torch.storage.integrity import frame_line
@@ -173,6 +172,11 @@ class BackupWriter:
 
         for iname in self.holder.index_names():
             idx = self.holder.index(iname)
+            entries = idx.translate_store.entries_since(0)
+            if entries:
+                out.append((meta_rel_path(iname, None, "translate.jsonl"),
+                            KIND_TRANSLATE, iname, None,
+                            jsonl([[i, k] for i, k in entries])))
             attrs = idx.column_attr_store
             ids = attrs.ids()
             if ids:
@@ -180,6 +184,11 @@ class BackupWriter:
                             KIND_ATTRS, iname, None,
                             jsonl([[i, attrs.attrs(i)] for i in ids])))
             for fname, f in sorted(idx.fields.items()):
+                entries = f.translate_store.entries_since(0)
+                if entries:
+                    out.append((meta_rel_path(iname, fname, "translate.jsonl"),
+                                KIND_TRANSLATE, iname, fname,
+                                jsonl([[i, k] for i, k in entries])))
                 ids = f.row_attr_store.ids()
                 if ids:
                     out.append((meta_rel_path(iname, fname,

@@ -45,11 +45,13 @@ def _result_size(r: Any) -> int:
             n += int(getattr(seg, "nbytes", WORDS_PER_SHARD * 4)) + 64
         if r.attrs:
             n += 64 * len(r.attrs)
+        if r.keys:
+            n += 48 * len(r.keys)
         return n
     if isinstance(r, (ValCount, Pair)):
         return 72
     if isinstance(r, RowIdentifiers):
-        return 64 + 8 * len(r.rows)
+        return 64 + 8 * len(r.rows) + 48 * len(r.keys)
     if isinstance(r, GroupCount):
         return 48 + 72 * len(r.group)
     if isinstance(r, list):

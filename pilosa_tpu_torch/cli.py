@@ -2,9 +2,9 @@
 inspect a data dir offline, back up, restore and verify archives, and print
 the config.
 
-The port's counterpart of pilosa_tpu/cli.py's ``server``, ``check``,
-``inspect``, ``backup``, ``restore``, ``backup-verify``, ``config`` and
-``generate-config`` commands. ``server`` takes the same flags, plus
+The port's counterpart of pilosa_tpu/cli.py's ``server``, ``import``,
+``export``, ``check``, ``inspect``, ``backup``, ``restore``,
+``backup-verify``, ``config`` and ``generate-config`` commands. ``server`` takes the same flags, plus
 ``--device``; a flag of a feature this slice does not carry exits with
 status 2 and names the ROADMAP.md slice that brings it. Config precedence
 is the JAX package's: flags > env (``PILOSA_TPU_*``) > TOML file
@@ -14,6 +14,9 @@ Usage::
 
     python -m pilosa_tpu_torch.cli server --bind 127.0.0.1:10101 \
         [--device cuda|cpu] [--data-dir DIR]
+    python -m pilosa_tpu_torch.cli import [--host H] [--buffer-size N] \
+        [--clear] INDEX FIELD FILE...
+    python -m pilosa_tpu_torch.cli export [--host H] [--shard N] INDEX FIELD
     python -m pilosa_tpu_torch.cli check [DIR] [--repair] [--archive ARCHIVE]
     python -m pilosa_tpu_torch.cli inspect DIR
     python -m pilosa_tpu_torch.cli backup [--host H] [--parent ID] ARCHIVE
@@ -22,9 +25,6 @@ Usage::
     python -m pilosa_tpu_torch.cli backup-verify [--id ID] ARCHIVE
     python -m pilosa_tpu_torch.cli config [--config FILE]
     python -m pilosa_tpu_torch.cli generate-config
-
-The JAX CLI's ``import`` and ``export`` (CSV over HTTP) are not ported yet
-(ROADMAP.md Queue 1: keys and sketches, which they ride with).
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ import time
 import urllib.error
 import urllib.request
 
-from pilosa_tpu_torch.errors import SLICE_CLUSTER, SLICE_KEYS
+from pilosa_tpu_torch.errors import SLICE_CLUSTER
 
 #: the JAX CLI's config table, key for key and value for value, so
 #: ``config`` prints what that CLI prints and a file either CLI writes
@@ -216,8 +216,6 @@ _UNPORTED = {
     "chaos_faults": SLICE_CLUSTER, "trace_endpoint": SLICE_CLUSTER,
     "device_reduce": SLICE_CLUSTER, "multiplex": SLICE_CLUSTER,
     "ingest_max_inflight_mb": SLICE_CLUSTER,
-    "translate_planes": SLICE_KEYS, "sketch_precision": SLICE_KEYS,
-    "sketch_exact_threshold": SLICE_KEYS,
 }
 
 
@@ -325,6 +323,12 @@ def cmd_server(args, parser: argparse.ArgumentParser) -> int:
         cfg["residency_packed"] = args.residency_packed
     if args.prefetch is not None:
         cfg["prefetch"] = args.prefetch
+    if args.translate_planes is not None:
+        cfg["translate_planes"] = args.translate_planes
+    if args.sketch_precision is not None:
+        cfg["sketch_precision"] = args.sketch_precision
+    if args.sketch_exact_threshold is not None:
+        cfg["sketch_exact_threshold"] = args.sketch_exact_threshold
     if args.compile_cache_dir is not None:
         cfg["compile_cache_dir"] = args.compile_cache_dir
 
@@ -367,6 +371,9 @@ def cmd_server(args, parser: argparse.ArgumentParser) -> int:
         residency_packed=str(cfg["residency_packed"]) or "auto",
         prefetch=str(cfg["prefetch"]) or "on",
         ingest_transpose=str(cfg["ingest_transpose"]) or "auto",
+        translate_planes=str(cfg["translate_planes"]) or "auto",
+        sketch_precision=int(cfg["sketch_precision"]),
+        sketch_exact_threshold=int(cfg["sketch_exact_threshold"]),
         compile_cache_dir=str(cfg["compile_cache_dir"]) or None,
     )
     node.open()
@@ -531,6 +538,112 @@ def _get(host: str, path: str, tls: bool = False, ctx=None) -> dict:
     with urllib.request.urlopen(f"{_base_url(host, tls)}{path}",
                                 timeout=60, context=ctx) as resp:
         return json.loads(resp.read() or b"{}")
+
+
+def _import_modes(host: str, index: str, field: str, tls: bool = False,
+                  ctx=None) -> tuple[bool, bool, bool]:
+    """(value_mode, row_keys, column_keys) from the server's schema -- the
+    reference's bufferers pick the import mode the same way
+    (ctl/import.go:125-140: field.Options.Type / Keys). A failed schema
+    fetch aborts the import rather than guess the mode."""
+    schema = _get(host, "/schema", tls, ctx).get("indexes") or []
+    for idx in schema:
+        if idx.get("name") != index:
+            continue
+        col_keys = bool((idx.get("options") or {}).get("keys"))
+        for f in idx.get("fields") or []:
+            if f.get("name") == field:
+                opts = f.get("options") or {}
+                return opts.get("type") == "int", bool(opts.get("keys")), col_keys
+        return False, False, col_keys
+    return False, False, False
+
+
+def cmd_import(args, parser: argparse.ArgumentParser) -> int:
+    """CSV -> batched imports over HTTP, like ctl/import.go: parse, buffer,
+    send a batch every ``--buffer-size`` lines. The mode follows the
+    target field's schema: set and time fields take (row,col[,timestamp])
+    lines, int fields (col,value), and a keyed index or field takes string
+    keys in place of ids (reference ctl/import.go:125-140 + ImportK). The
+    same requests as the JAX CLI's ``import``."""
+    tls, ctx = _tls_args(args)
+    try:
+        value_mode, row_keys, col_keys = _import_modes(args.host, args.index, args.field,
+                                                       tls=tls, ctx=ctx)
+    except Exception as e:
+        print(f"import: cannot read schema from {args.host}: {e}", file=sys.stderr)
+        return 1
+    rows, cols, vals, stamps = [], [], [], []
+    has_ts = False
+
+    def flush():
+        nonlocal rows, cols, vals, stamps
+        if not cols:
+            return
+        body: dict = {}
+        if value_mode:
+            body["values"] = vals
+        else:
+            body["rowKeys" if row_keys else "rowIDs"] = rows
+            if has_ts:
+                body["timestamps"] = stamps
+        body["columnKeys" if col_keys else "columnIDs"] = cols
+        _post(args.host, f"/index/{args.index}/field/{args.field}/import"
+              + ("?clear=1" if args.clear else ""),
+              json.dumps(body).encode(), tls=tls, ctx=ctx)
+        rows, cols, vals, stamps = [], [], [], []
+
+    def parse_id(tok: str, keyed: bool):
+        return tok if keyed else int(tok)
+
+    for path in args.files:
+        f = sys.stdin if path == "-" else open(path)
+        try:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                parts = line.split(",")
+                if value_mode:
+                    cols.append(parse_id(parts[0], col_keys))
+                    vals.append(int(parts[1]))
+                else:
+                    rows.append(parse_id(parts[0], row_keys))
+                    cols.append(parse_id(parts[1], col_keys))
+                    if len(parts) > 2:
+                        has_ts = True
+                        stamps.append(parts[2])
+                    else:
+                        stamps.append(None)
+                if len(cols) >= args.buffer_size:
+                    flush()
+        finally:
+            if f is not sys.stdin:
+                f.close()
+    flush()
+    return 0
+
+
+def cmd_export(args, parser: argparse.ArgumentParser) -> int:
+    """The field's bits as ``row,col`` CSV lines on stdout, shard by shard
+    (keys in place of the ids of a keyed field or index); a shard with no
+    fragment is skipped. The same requests as the JAX CLI's ``export``."""
+    tls, ctx = _tls_args(args)
+    base = _base_url(args.host, tls)
+    shards = [args.shard] if args.shard is not None else None
+    if shards is None:
+        mx = _get(args.host, "/internal/shards/max", tls, ctx)["standard"].get(args.index, 0)
+        shards = list(range(mx + 1))
+    for shard in shards:
+        url = f"{base}/export?index={args.index}&field={args.field}&shard={shard}"
+        try:
+            with urllib.request.urlopen(url, timeout=60, context=ctx) as r:
+                sys.stdout.write(r.read().decode())
+        except urllib.error.HTTPError as e:
+            if e.code == 404:
+                continue  # a sparse shard with no fragment
+            raise
+    return 0
 
 
 def _poll_job(host: str, status_path: str, tls, ctx, what: str) -> int:
@@ -823,6 +936,20 @@ def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(prog="pilosa-tpu-torch")
     sub = p.add_subparsers(dest="cmd", required=True)
     _server_parser(sub)
+
+    s = _client_parser(sub, "import", "bulk import CSV")
+    s.add_argument("--buffer-size", type=int, default=100_000)
+    s.add_argument("--clear", action="store_true")
+    s.add_argument("index")
+    s.add_argument("field")
+    s.add_argument("files", nargs="+")
+    s.set_defaults(fn=cmd_import)
+
+    s = _client_parser(sub, "export", "export CSV")
+    s.add_argument("--shard", type=int, default=None)
+    s.add_argument("index")
+    s.add_argument("field")
+    s.set_defaults(fn=cmd_export)
 
     s = sub.add_parser("check", help="offline data-dir consistency check")
     s.add_argument("data_dir", nargs="?", default="")

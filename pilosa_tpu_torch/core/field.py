@@ -13,8 +13,8 @@ Types:
 - ``mutex`` — a set field with at most one row per column;
 - ``bool``  — a mutex field over rows 0 (false) and 1 (true).
 
-Keyed fields raise ``NotPortedError`` naming the slice of ROADMAP.md that
-ports them.
+A keyed field (``keys=True``) translates row keys through its
+``translate_store`` (core/translate.py).
 """
 
 from __future__ import annotations
@@ -39,15 +39,14 @@ from pilosa_tpu_torch.core import timequantum as tq
 from pilosa_tpu_torch.core.attrs import AttrStore
 from pilosa_tpu_torch.core.row import Row
 from pilosa_tpu_torch.core.view import VIEW_STANDARD, View, is_time_view, view_bsi_name
+from pilosa_tpu_torch.core.translate import TranslateStore
 from pilosa_tpu_torch.errors import (
-    SLICE_KEYS,
     BSIGroupNotFoundError,
     BSIGroupValueTooHighError,
     BSIGroupValueTooLowError,
     InvalidBSIGroupRangeError,
     InvalidCacheTypeError,
     InvalidFieldTypeError,
-    NotPortedError,
     validate_name,
 )
 from pilosa_tpu_torch.pql import ast as pql_ast
@@ -217,6 +216,8 @@ class Field:
         #: row attrs (SetRowAttrs, attached to Row results, TopN attrName):
         #: a file store on a node with a data dir.
         self.row_attr_store = AttrStore(epoch=epoch)
+        #: row key <-> id (a keyed field's rows).
+        self.translate_store = TranslateStore(epoch=epoch)
         self._lock = threading.RLock()
 
         self.bsi_group: BSIGroup | None = None
@@ -238,12 +239,14 @@ class Field:
             raise InvalidBSIGroupRangeError()
         if o.type == FIELD_TYPE_TIME:
             tq.validate_quantum(o.time_quantum)
-        if o.keys:
-            raise NotPortedError("a keyed field", SLICE_KEYS)
 
     @property
     def field_type(self) -> str:
         return self.options.type
+
+    @property
+    def keys(self) -> bool:
+        return self.options.keys
 
     def uses_mutex(self) -> bool:
         return self.options.type in (FIELD_TYPE_MUTEX, FIELD_TYPE_BOOL)

@@ -803,6 +803,7 @@ class Fragment:
     def set_value(self, column_id: int, bit_depth: int, value: int) -> bool:
         """Sign-magnitude BSI write (reference setValueBase fragment.go:939)."""
         with self._lock:
+            gen_before = self.generation
             changed = self.set_bit(BSI_EXISTS_BIT, column_id)
             if value < 0:
                 changed |= self.set_bit(BSI_SIGN_BIT, column_id)
@@ -814,7 +815,20 @@ class Fragment:
                     changed |= self.set_bit(BSI_OFFSET_BIT + i, column_id)
                 else:
                     changed |= self.clear_bit(BSI_OFFSET_BIT + i, column_id)
+            if changed:
+                self._observe_values(np.asarray([self._local(column_id)], dtype=np.int64),
+                                     np.asarray([value], dtype=np.int64), gen_before)
             return changed
+
+    def _observe_values(self, local: np.ndarray, values: np.ndarray,
+                        gen_before: int) -> None:
+        """Point-overwrite the sketch planes cached on this fragment with
+        values just written (``sketch/store.observe_values``); a fragment
+        that never served a Count(Distinct) has none and skips it."""
+        if getattr(self, "_hll_planes", None) or getattr(self, "_hll_regs", None):
+            from pilosa_tpu_torch.sketch import store as sketch_store
+            sketch_store.observe_values(self, local, values, gen_before,
+                                        self.generation)
 
     def value(self, column_id: int, bit_depth: int) -> tuple[int, bool]:
         """(value, exists) — reference fragment.value (fragment.go:897)."""
@@ -850,6 +864,11 @@ class Fragment:
             self.bulk_import_sorted_local(
                 np.full(len(cols), BSI_EXISTS_BIT, dtype=np.int64),
                 local_all[o], clear=True)
+            # A clear un-exists columns -- not a point overwrite of the
+            # sketch planes, so they go wholesale.
+            if getattr(self, "_hll_planes", None) or getattr(self, "_hll_regs", None):
+                from pilosa_tpu_torch.sketch import store as sketch_store
+                sketch_store.invalidate(self)
             return
         vals = np.asarray(values, dtype=np.int64)
         # Keep the LAST occurrence of each duplicated column.
@@ -857,7 +876,11 @@ class Fragment:
         vals_u = vals[::-1][idx]
         from pilosa_tpu_torch.exec import ingest_transpose
         if ingest_transpose.use_device(len(local_u) * (bit_depth + 2), self.device):
-            self._import_values_device(local_u, vals_u, bit_depth)
+            with self._lock:
+                gen_before = self.generation
+                self._import_values_device(local_u, vals_u, bit_depth)
+                if self.generation != gen_before:
+                    self._observe_values(local_u.astype(np.int64), vals_u, gen_before)
             return
         neg = vals_u < 0
         mag = np.abs(vals_u).astype(np.uint64)
@@ -878,6 +901,7 @@ class Fragment:
             _add(set_rows, set_cols, BSI_OFFSET_BIT + i, on)
             _add(clr_rows, clr_cols, BSI_OFFSET_BIT + i, ~on)
         with self._lock:  # one atomic overwrite, clears before sets
+            gen_before = self.generation
             # Plane buckets are row-ascending with sorted positions inside
             # each (local_u is sorted): already (row, pos)-sorted.
             if clr_rows:
@@ -886,6 +910,8 @@ class Fragment:
             if set_rows:
                 self.bulk_import_sorted_local(np.concatenate(set_rows),
                                               np.concatenate(set_cols))
+            if self.generation != gen_before:
+                self._observe_values(local_u.astype(np.int64), vals_u, gen_before)
 
     def _import_values_device(self, local_u: np.ndarray, vals_u: np.ndarray,
                               bit_depth: int) -> None:

@@ -2,8 +2,10 @@
 
 The port's counterpart of pilosa_tpu/core/index.py. Reference: index.go
 (struct :37, createField :416, DeleteField :471, AvailableShards :292) and
-holder.go:46 (existence field ``_exists``). Keyed indexes raise
-``NotPortedError``; the column-attr store persists with the data dir.
+holder.go:46 (existence field ``_exists``). A keyed index
+(``keys=True``) translates column keys through its ``translate_store``
+(core/translate.py); the column-attr and translate stores persist with the
+data dir.
 """
 
 from __future__ import annotations
@@ -19,11 +21,10 @@ import torch
 from pilosa_tpu_torch.config import EXISTENCE_FIELD_NAME
 from pilosa_tpu_torch.core.attrs import AttrStore
 from pilosa_tpu_torch.core.field import Field, FieldOptions
+from pilosa_tpu_torch.core.translate import TranslateStore
 from pilosa_tpu_torch.errors import (
-    SLICE_KEYS,
     FieldExistsError,
     FieldNotFoundError,
-    NotPortedError,
     validate_name,
 )
 
@@ -126,8 +127,6 @@ class Index:
         #: its epoch, so caches keyed on (name, epoch) also key on this.
         self.instance_id = next(_instance_counter)
         self.options = options or IndexOptions()
-        if self.options.keys:
-            raise NotPortedError("a keyed index", SLICE_KEYS)
         self.op_writer_factory = op_writer_factory
         self.epoch = Epoch()
         #: bumped on structural changes (field create/delete, BSI bit-depth
@@ -137,6 +136,8 @@ class Index:
         #: column attrs (SetColumnAttrs, ?columnAttrs=true): a file store
         #: on a node with a data dir.
         self.column_attr_store = AttrStore(epoch=self.epoch)
+        #: column key <-> id (a keyed index's columns).
+        self.translate_store = TranslateStore(epoch=self.epoch)
         #: (epoch stamp, frozenset) memo for available_shards().
         self._avail_shards_cache: tuple | None = None
         self.fields: dict[str, Field] = {}

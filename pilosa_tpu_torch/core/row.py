@@ -36,14 +36,16 @@ def _pair(sa, sb):
 
 
 class Row:
-    """Set of column IDs spanning shards, plus result attrs."""
+    """Set of column IDs spanning shards, plus result attrs and, on a keyed
+    index, the columns' keys (set by the executor on results)."""
 
-    __slots__ = ("segments", "attrs")
+    __slots__ = ("segments", "attrs", "keys")
 
-    def __init__(self, segments: dict[int, object] | None = None, attrs=None):
+    def __init__(self, segments: dict[int, object] | None = None, attrs=None, keys=None):
         #: shard -> [W] block (int32 tensor, or uint32 numpy words)
         self.segments: dict[int, object] = dict(segments or {})
         self.attrs = attrs or {}
+        self.keys = keys or []
 
     @classmethod
     def from_columns(cls, columns: Iterable[int]) -> "Row":
@@ -155,4 +157,7 @@ class Row:
 
     def to_json(self) -> dict:
         """Reference Row.MarshalJSON shape (row.go:302): attrs + columns."""
-        return {"attrs": self.attrs, "columns": [int(c) for c in self.columns()]}
+        out = {"attrs": self.attrs, "columns": [int(c) for c in self.columns()]}
+        if self.keys:
+            out["keys"] = self.keys
+        return out

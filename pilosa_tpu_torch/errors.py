@@ -74,6 +74,10 @@ class QueryError(PilosaError):
     message = "invalid query"
 
 
+class TranslateStoreReadOnlyError(PilosaError):
+    message = "translate store could not find or create key, translate store read only"
+
+
 class ApiMethodNotAllowedError(PilosaError):
     """Reference newAPIMethodNotAllowedError (api.go:124): the cluster's
     state refuses this operation right now (HTTP 405). A standalone node is
@@ -87,8 +91,7 @@ class FragmentNotFoundError(PilosaError):
     message = "fragment not found"
 
 
-#: The later slices of the port, by their heading in ROADMAP.md Queue 1.
-SLICE_KEYS = "keys and sketches"
+#: The later slice of the port, by its heading in ROADMAP.md Queue 1.
 SLICE_CLUSTER = "cluster and operations"
 
 

@@ -26,8 +26,14 @@ Read-only queries given as text are answered from the result cache
 the shards they read stand still; a write misses, and so does a schema
 change. ``cache=False`` (``?noCache=true``) bypasses it.
 
-Calls of later slices raise ``NotPortedError`` naming the slice in
-ROADMAP.md: ``Distinct``/``SimilarTopN`` and keys.
+``Count(Distinct(...))`` estimates distinct values of an int field from
+HyperLogLog registers (``pilosa_tpu_torch.sketch``), with an exact leg
+under the threshold, and ``SimilarTopN`` ranks every row of a set field by
+its overlap with a filter; with a planner each is one program over all
+shards (``hll_expand``/``hll_reduce`` and ``similar_count``). String keys
+in a query translate to ids before it runs (``_translate_call``: the
+device key plane first for a large batch, then one host pass) and ids back
+to keys in its results (``_translate_result``), as in the JAX executor.
 
 ``execute_async`` is the JAX executor's non-blocking entry: a single
 plannable ``Count``, ``Sum``, ``Min`` or ``Max`` is launched at once (or
@@ -55,6 +61,8 @@ from concurrent.futures import Future
 from dataclasses import dataclass, replace
 from typing import Any, Callable, Iterable
 
+import numpy as np
+
 from pilosa_tpu_torch.cache.tenant import current_tenant
 from pilosa_tpu_torch.config import SHARD_WIDTH
 from pilosa_tpu_torch.core import timequantum as tq
@@ -65,14 +73,15 @@ from pilosa_tpu_torch.core.index import Index
 from pilosa_tpu_torch.core.row import Row
 from pilosa_tpu_torch.core.view import VIEW_STANDARD, view_bsi_name
 from pilosa_tpu_torch.errors import (
-    SLICE_KEYS,
     BSIGroupNotFoundError,
     FieldNotFoundError,
     IndexNotFoundError,
-    NotPortedError,
     QueryError,
 )
+from pilosa_tpu_torch import sketch as _sketch
+from pilosa_tpu_torch.config import WORDS_PER_SHARD
 from pilosa_tpu_torch.exec import fuse as _fuse
+from pilosa_tpu_torch.exec.keyplane import KeyPlaneCache
 from pilosa_tpu_torch.exec.result import (
     FieldRow,
     GroupCount,
@@ -86,8 +95,12 @@ from pilosa_tpu_torch.exec.result import (
 )
 from pilosa_tpu_torch.obs import NopStats
 from pilosa_tpu_torch.obs import profile as _profile
+from pilosa_tpu_torch.ops import bitops
 from pilosa_tpu_torch.pql import BETWEEN, GT, GTE, LT, LTE, NEQ, Call, Condition, Query, parse
+from pilosa_tpu_torch.pql import ast as pql_ast
 from pilosa_tpu_torch.qos.deadline import check_current as check_deadline
+from pilosa_tpu_torch.sketch import hll as _hll
+from pilosa_tpu_torch.sketch import store as sketch_store
 from pilosa_tpu_torch.storage.quarantine import ShardCorruptError
 
 _MAXINT = (1 << 63) - 1
@@ -101,8 +114,6 @@ _NARY_CALLS = {"Intersect": "intersect", "Union": "union",
 _BITMAP_CALLS = frozenset(
     {"Row", "Range", "Difference", "Intersect", "Union", "Xor", "Not", "Shift"})
 
-#: calls of the JAX executor that later slices port, by ROADMAP.md slice.
-_NOT_PORTED = {"Distinct": SLICE_KEYS, "SimilarTopN": SLICE_KEYS}
 
 
 @dataclass
@@ -133,6 +144,10 @@ class Executor:
                  result_cache=True):
         self.holder = holder
         self.planner = planner
+        #: device key planes (exec/keyplane): read-through forward
+        #: translation for large key batches; the tensors live in the
+        #: planner's budgeted stack cache when a planner is attached.
+        self.keyplanes = KeyPlaneCache(planner, device=holder.device)
         self.stats = stats or NopStats()
         if result_cache is True:
             from pilosa_tpu_torch.cache.result_cache import ResultCache
@@ -211,8 +226,9 @@ class Executor:
             # Between plan steps: an expired deadline stops the query
             # before it spends more device time.
             check_deadline()
-            results.append(self._execute_call(idx, call.clone(), shards, opt))
-        results = [_wrap_result(c, r) for c, r in zip(query.calls, results)]
+            results.append(self._execute_call(idx, self._translate_call(idx, call),
+                                              shards, opt))
+        results = [self._translate_result(idx, c, r) for c, r in zip(query.calls, results)]
         if cacheable:
             self.result_cache.put(tenant, key, stamp, results)
         return results
@@ -321,7 +337,7 @@ class Executor:
                     fut.set_result(hit)
                     return fut
             check_deadline()
-            call = q.calls[0].clone()
+            call = self._translate_call(idx, q.calls[0])  # clones
             finish = lambda v: [v]  # noqa: E731  (Count: resolve to [int])
             if call.name in ("Sum", "Min", "Max"):
                 base = idx.field(self._agg_field(call)).bsi_group.base
@@ -450,10 +466,15 @@ class Executor:
                                              is_min=name == "MinRow")
         if name == "GroupBy":
             return self._execute_group_by(idx, c, shards)
+        if name == "Distinct":
+            # Bare Distinct() has no client-facing result shape: it is the
+            # map half of Count(Distinct(...)), which intercepts it in
+            # _execute_count (only a cluster's remote leg runs it bare).
+            raise QueryError("Distinct() must be wrapped in Count()")
+        if name == "SimilarTopN":
+            return self._execute_similar_top_n(idx, c, shards)
         if name in _BITMAP_CALLS:
             return self._execute_bitmap_call(idx, c, shards, opt)
-        if name in _NOT_PORTED:
-            raise NotPortedError(f"{name}()", _NOT_PORTED[name])
         raise QueryError(f"unknown call: {name}")
 
     # ------------------------------------------------------------------
@@ -580,8 +601,6 @@ class Executor:
             return self._not_shard(idx, c, shard)
         if name == "Shift":
             return self._shift_shard(idx, c, shard)
-        if name in _NOT_PORTED:
-            raise NotPortedError(f"{name}()", _NOT_PORTED[name])
         raise QueryError(f"unknown call: {name}")
 
     def _nary_shard(self, idx: Index, c: Call, shard: int, op: str) -> Row:
@@ -815,8 +834,8 @@ class Executor:
         if len(c.children) != 1:
             raise QueryError("Count() requires a single bitmap input")
         child = c.children[0]
-        if child.name in _NOT_PORTED:
-            raise NotPortedError(f"Count({child.name}())", _NOT_PORTED[child.name])
+        if child.name == "Distinct":
+            return self._execute_distinct(idx, child, shards)
         planner = self._planner_for(child)
 
         def map_fn(shard):
@@ -834,6 +853,181 @@ class Executor:
                     const_rows=self._const_rows(idx, const_calls, shs)))
         return self.map_reduce(idx, shards, map_fn, lambda p, v: (p or 0) + v,
                                local_batch_fn=local_batch) or 0
+
+    # ------------------------------------------------------------------
+    # approximate analytics (pilosa_tpu_torch/sketch; reference
+    # executor.py:989-1190)
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _row_words_for(filt: Row | None, shard: int) -> np.ndarray | None:
+        """A filter Row's [W] uint32 word plane for one shard. None for "no
+        filter" (distinct from a filter that matched nothing, which is an
+        all-zero plane)."""
+        if filt is None:
+            return None
+        seg = filt.segments.get(shard)
+        if seg is None:
+            return np.zeros(WORDS_PER_SHARD, dtype=np.uint32)
+        return bitops.to_host_words(seg)
+
+    def _execute_distinct(self, idx: Index, c: Call, shards: list[int]) -> int:
+        """Count(Distinct(filter?, field=f)): HLL estimate over the field's
+        register planes -- one program over all shards with a planner --
+        with an EXACT per-shard-unique leg when the estimate lands under
+        the threshold (where relative HLL error is most visible and exact
+        is cheapest). The resolved precision and threshold are pinned into
+        the call's arguments, as the JAX executor pins them for its
+        remote legs."""
+        field_name, ok = c.string_arg("field")
+        if not ok:
+            raise QueryError("Distinct(): field required")
+        f = idx.field(field_name)
+        if f is None:
+            raise FieldNotFoundError(field_name)
+        if f.bsi_group is None:
+            raise QueryError(f"Distinct(): field {field_name!r} has no BSI data "
+                             "(int field required)")
+        if len(c.children) > 1:
+            raise QueryError("Distinct() only accepts a single bitmap input")
+        depth = f.bsi_group.bit_depth
+
+        p, has_p = c.uint_arg("precision")
+        p = _sketch.validate_precision(p) if has_p else _sketch.precision()
+        thr, has_thr = c.uint_arg("threshold")
+        if not has_thr:
+            thr = _sketch.exact_threshold()
+
+        cc = c.clone()
+        cc.args["precision"] = int(p)
+        cc.args["threshold"] = int(thr)
+
+        if cc.args.get("exact"):
+            return int(len(self._distinct_exact(idx, cc, shards, f, depth).values))
+
+        def map_fn(shard):
+            _, frag = self._bsi_fragment(idx, field_name, shard)
+            if frag is None:
+                return _hll.HLLSketch.empty(p)
+            fw = self._row_words_for(self._agg_filter(idx, cc, shard), shard)
+            return sketch_store.shard_sketch(frag, depth, p, fw)
+
+        def reduce_fn(prev, v):
+            return v if prev is None else prev.merge(v)
+
+        local_batch = None
+        if self.planner is not None and self.planner.supports_distinct(idx, cc):
+            def local_batch(shs):
+                regs = self.planner.execute_distinct_registers(idx, cc, list(shs), p)
+                return _hll.HLLSketch(p=p, regs=regs)
+
+        sk = self.map_reduce(idx, shards, map_fn, reduce_fn, local_batch_fn=local_batch)
+        est = (sk or _hll.HLLSketch.empty(p)).estimate()
+        if thr and est < thr:
+            ec = cc.clone()
+            ec.args["exact"] = True
+            return int(len(self._distinct_exact(idx, ec, shards, f, depth).values))
+        return int(round(est))
+
+    def _distinct_exact(self, idx: Index, c: Call, shards: list[int], f,
+                        depth: int) -> _hll.DistinctValues:
+        """Exact leg: per-shard sorted unique values, host union fold."""
+        base = np.int64(f.bsi_group.base)
+
+        def map_fn(shard):
+            _, frag = self._bsi_fragment(idx, f.name, shard)
+            if frag is None:
+                return _hll.DistinctValues.empty()
+            fw = self._row_words_for(self._agg_filter(idx, c, shard), shard)
+            return _hll.DistinctValues(values=sketch_store.shard_distinct(frag, depth, fw)
+                                       + base)
+
+        def reduce_fn(prev, v):
+            return v if prev is None else prev.merge(v)
+
+        return self.map_reduce(idx, shards, map_fn, reduce_fn) or _hll.DistinctValues.empty()
+
+    def _execute_similar_top_n(self, idx: Index, c: Call, shards: list[int]) -> list[Pair]:
+        """SimilarTopN(f, Row(...), n=, metric=): Jaccard/overlap of the
+        filter row against EVERY row of the field, one similar_count pass
+        over the field's row cube with a planner. Returns the TopN pair
+        shape: Pair(id=row, count=overlap), best-score-first."""
+        field_name = c.args.get("_field")
+        if not field_name:
+            raise QueryError("SimilarTopN(): field required")
+        f = idx.field(field_name)
+        if f is None:
+            raise FieldNotFoundError(field_name)
+        if f.field_type == FIELD_TYPE_INT:
+            raise QueryError("SimilarTopN(): set field required")
+        if len(c.children) != 1:
+            raise QueryError("SimilarTopN() requires a single bitmap input")
+        n, has_n = c.uint_arg("n")
+        if not has_n or not n:
+            n = _sketch.DEFAULT_SIMILAR_N
+        metric, has_m = c.string_arg("metric")
+        if not has_m:
+            metric = "jaccard"
+        if metric not in ("jaccard", "overlap"):
+            raise QueryError(f"SimilarTopN(): unknown metric {metric!r}")
+        filter_call = c.children[0]
+
+        def map_fn(shard):
+            return self._similar_shard(idx, field_name, filter_call, shard)
+
+        def reduce_fn(prev, v):
+            return v if prev is None else prev.merge(v)
+
+        local_batch = None
+        if (self.planner is not None
+                and self.planner.supports_similar(idx, field_name, filter_call)):
+            def local_batch(shs):
+                shs = list(shs)
+                row_ids = self._field_row_ids(idx, field_name, shs)
+                res = self.planner.execute_similar(idx, field_name, filter_call,
+                                                   row_ids, shs)
+                if res is None:
+                    # Cube over the device gate: the host per-shard fold.
+                    acc = None
+                    for shard in shs:
+                        acc = reduce_fn(acc, map_fn(shard))
+                    return acc or _hll.SimPartial.empty()
+                ids, inter, selfc, filtc, order = res
+                return _hll.SimPartial(ids=ids, overlap=inter, selfcnt=selfc,
+                                       filtcnt=filtc, order=order)
+
+        part = self.map_reduce(idx, shards, map_fn, reduce_fn, local_batch_fn=local_batch)
+        part = part or _hll.SimPartial.empty()
+        return [Pair(id=rid, count=cnt) for rid, cnt, _score in part.top_pairs(n, metric)]
+
+    def _similar_shard(self, idx: Index, field_name: str, filter_call: Call,
+                       shard: int) -> _hll.SimPartial:
+        """Host oracle / per-shard map half: one shard's overlap and
+        cardinality totals for every row of the field."""
+        frag = self.holder.fragment(idx.name, field_name, VIEW_STANDARD, shard)
+        if frag is None:
+            return _hll.SimPartial.empty()
+        fw = self._row_words_for(self._bitmap_call_shard(idx, filter_call, shard), shard)
+        rids = list(frag.row_ids())
+        ids = np.asarray(rids, dtype=np.uint64)
+        overlap = np.zeros(len(rids), dtype=np.int64)
+        selfcnt = np.zeros(len(rids), dtype=np.int64)
+        for i, rid in enumerate(rids):
+            words = frag.row_words(rid)
+            overlap[i] = bitops.np_count(words & fw)
+            selfcnt[i] = bitops.np_count(words)
+        return _hll.SimPartial(ids=ids, overlap=overlap, selfcnt=selfcnt,
+                               filtcnt=int(bitops.np_count(fw)))
+
+    def _field_row_ids(self, idx: Index, field_name: str, shards) -> list[int]:
+        """Sorted union of the field's row ids over the given shards -- the
+        id-ascending candidate universe the similarity cube stacks."""
+        ids: set[int] = set()
+        for shard in shards:
+            frag = self.holder.fragment(idx.name, field_name, VIEW_STANDARD, shard)
+            if frag is not None:
+                ids.update(int(r) for r in frag.row_ids())
+        return sorted(ids)
 
     # ------------------------------------------------------------------
     # TopN (reference executor.go:857 two-pass)
@@ -1006,8 +1200,8 @@ class Executor:
 
     def _execute_rows(self, idx: Index, c: Call, shards: list[int]) -> list[int]:
         """Raw row ids (reference RowIDs); a top-level Rows() result is
-        wrapped in RowIdentifiers by _wrap_result, as the JAX package's
-        _translate_result does (executor.go:1272, :2800)."""
+        wrapped in RowIdentifiers (with the rows' keys on a keyed field) by
+        _translate_result (executor.go:1272, :2800)."""
         field_name = (c.args.get("field") if isinstance(c.args.get("field"), str)
                       else c.args.get("_field"))
         if not isinstance(field_name, str):
@@ -1413,11 +1607,140 @@ class Executor:
             raise QueryError("Options() requires a single child call")
         return self._execute_call(idx, c.children[0], shards, opt_copy)
 
+    # ------------------------------------------------------------------
+    # key translation (reference executor.go:2610-2905; JAX executor
+    # :1815-1975)
+    # ------------------------------------------------------------------
 
-def _wrap_result(c: Call, result: Any) -> Any:
-    """A top-level Rows() result as RowIdentifiers (the JAX package's
-    _translate_result, executor.py:1893); one under Options() stays the
-    raw id list there too."""
-    if c.name == "Rows" and isinstance(result, list):
-        return RowIdentifiers(rows=list(result))
-    return result
+    def _resolve_keys(self, idx: Index, f, keys: list[str]) -> list[int]:
+        """Batched key -> id resolution, the one forward-translate path:
+        the device key plane first (exec/keyplane -- no lock, no
+        allocation), then ONE batched host pass over the misses through the
+        store's ``translate_keys`` (one lock acquisition, one epoch bump for
+        the whole batch). Plane misses are re-checked under the store lock
+        before any allocation, so a stale plane costs a host fallback,
+        never a duplicate id."""
+        fname = f.name if f is not None else None
+        store = (f if f is not None else idx).translate_store
+        ids = self.keyplanes.lookup(idx, fname, store, keys)
+        if ids is None:
+            return store.translate_keys(keys)
+        missing = [i for i, v in enumerate(ids) if v is None]
+        if missing:
+            got = store.translate_keys([keys[i] for i in missing])
+            for i, v in zip(missing, got):
+                ids[i] = v
+        return ids
+
+    def _translate_call(self, idx: Index, c: Call) -> Call:
+        """Map string keys to ids in place on a clone: collect every
+        string-key slot in the tree (with the reference translateCall's
+        per-slot validation), then resolve each field's keys (or the
+        index's column keys) in ONE ``_resolve_keys`` batch."""
+        c = c.clone()
+        slots: list[tuple[Call, str, str | None, str]] = []
+        self._collect_key_slots(idx, c, slots)
+        if slots:
+            groups: dict[str | None, list[int]] = {}
+            for i, (_, _, fname, _) in enumerate(slots):
+                groups.setdefault(fname, []).append(i)
+            for fname, positions in groups.items():
+                f = idx.field(fname) if fname is not None else None
+                ids = self._resolve_keys(idx, f, [slots[i][3] for i in positions])
+                for i, id_ in zip(positions, ids):
+                    call, arg, _, _ = slots[i]
+                    call.args[arg] = id_
+        return c
+
+    def _collect_key_slots(self, idx: Index, c: Call,
+                           slots: list[tuple[Call, str, str | None, str]]) -> None:
+        """Gather (call, arg, field-name|None, key) for every string key in
+        the tree; validation mirrors reference translateCall
+        (executor.go:2634-2637 for the Rows cursor args)."""
+        col = c.args.get("_col")
+        if isinstance(col, str):
+            if not idx.options.keys:
+                raise QueryError(f"string 'col' value not allowed unless "
+                                 f"index 'keys' option enabled: {col!r}")
+            slots.append((c, "_col", None, col))
+        for key in list(c.args):
+            if pql_ast.is_reserved_arg(key):
+                continue
+            f = idx.field(key)
+            if f is None:
+                continue
+            val = c.args[key]
+            if isinstance(val, str) and f.keys:
+                slots.append((c, key, f.name, val))
+        row = c.args.get("_row")
+        if isinstance(row, str):
+            fname = c.args.get("_field")
+            f = idx.field(fname) if fname else None
+            if f is None or not f.keys:
+                raise QueryError("string 'row' value not allowed unless "
+                                 "field 'keys' option enabled")
+            slots.append((c, "_row", f.name, row))
+        if c.name == "Rows":
+            fname = c.args.get("_field") or c.args.get("field")
+            f = idx.field(fname) if isinstance(fname, str) else None
+            p = c.args.get("previous")
+            if isinstance(p, str):
+                if f is None or not f.keys:
+                    raise QueryError("string 'previous' value not allowed "
+                                     "unless field 'keys' option enabled")
+                slots.append((c, "previous", f.name, p))
+            col = c.args.get("column")
+            if isinstance(col, str):
+                if not idx.options.keys:
+                    raise QueryError("string 'column' value not allowed "
+                                     "unless index 'keys' option enabled")
+                slots.append((c, "column", None, col))
+        for ch in c.children:
+            self._collect_key_slots(idx, ch, slots)
+        for v in c.args.values():
+            if isinstance(v, Call):
+                self._collect_key_slots(idx, v, slots)
+
+    def _translate_result(self, idx: Index, c: Call, result: Any) -> Any:
+        """Map ids back to keys on a top-level result (reference :2781),
+        one ``translate_ids`` snapshot pass per result set; a top-level
+        Rows() result becomes RowIdentifiers."""
+        if isinstance(result, Row) and idx.options.keys:
+            cols = [int(i) for i in result.columns()]
+            names = idx.translate_store.translate_ids(cols)
+            result.keys = [n if n is not None else str(i) for n, i in zip(names, cols)]
+        elif c.name == "Rows" and isinstance(result, list):
+            fname = c.args.get("_field") or c.args.get("field")
+            f = idx.field(fname) if isinstance(fname, str) else None
+            if f is not None and f.keys:
+                names = f.translate_store.translate_ids(list(result))
+                result = RowIdentifiers(keys=[n if n is not None else str(r)
+                                              for n, r in zip(names, result)])
+            else:
+                result = RowIdentifiers(rows=list(result))
+        elif isinstance(result, Pair) and c.name in ("MinRow", "MaxRow"):
+            fname = c.args.get("field")
+            f = idx.field(fname) if isinstance(fname, str) else None
+            if f is not None and f.keys:
+                result.key = f.translate_store.translate_id(result.id) or ""
+        elif isinstance(result, list) and result and isinstance(result[0], Pair):
+            fname = c.args.get("_field")
+            f = idx.field(fname) if isinstance(fname, str) else None
+            if f is not None and f.keys:
+                names = f.translate_store.translate_ids([p.id for p in result])
+                for p, n in zip(result, names):
+                    p.key = n if n is not None else str(p.id)
+        elif isinstance(result, list) and result and isinstance(result[0], GroupCount):
+            # One reverse batch per keyed field across ALL groups.
+            by_field: dict[str, list] = {}
+            for gc in result:
+                for fr in gc.group:
+                    by_field.setdefault(fr.field, []).append(fr)
+            for fname, frs in by_field.items():
+                f = idx.field(fname)
+                if f is None or not f.keys:
+                    continue
+                names = f.translate_store.translate_ids([fr.row_id for fr in frs])
+                for fr, n in zip(frs, names):
+                    fr.row_key = n if n is not None else ""
+        return result

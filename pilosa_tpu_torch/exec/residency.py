@@ -17,10 +17,12 @@ to device memory:
 2-leaf Intersect counts packed against dense (``packed_and_dense_count``)
 or packed against packed (``packed_pair_count``), and every other tree
 expands the packed leaf to a dense plane on the device (``packed_expand``)
-and runs the dense kernels. The JAX package's ``hll`` and ``keyplane``
-classes keep their rows in the table, so class table and kernel table stay
-symmetric; their kernels come with a later slice (ROADMAP.md Queue 1,
-keys and sketches) and raise ``NotPortedError`` when called.
+and runs the dense kernels. The ``hll`` class (sketch/kernels.py: the
+packed ``bucket | rho << 18`` planes and register stacks of
+Count(Distinct)) expands with the ``hll_expand`` kernel and estimates with
+torch ops; the ``keyplane`` class (exec/keyplane.py: the ``[3, H]`` key
+planes) counts on the ``plane_lookup`` kernel. Every class has every op,
+as in the JAX package.
 
 Selection: ``PILOSA_TPU_RESIDENCY_PACKED`` = ``on`` | ``off`` | ``auto``
 (env wins over the server knob's ``set_mode``), as in the JAX package.
@@ -34,8 +36,9 @@ from __future__ import annotations
 import os
 
 from pilosa_tpu_torch.config import WORDS_PER_SHARD
-from pilosa_tpu_torch.errors import SLICE_KEYS, NotPortedError
+from pilosa_tpu_torch.exec import keyplane as _keyplane
 from pilosa_tpu_torch.ops import kernels
+from pilosa_tpu_torch.sketch import kernels as sketch_kernels
 
 _MODES = ("on", "off", "auto")
 _default_mode = "auto"
@@ -45,7 +48,7 @@ _default_mode = "auto"
 DENSE = "dense"
 PACKED = "packed"
 HLL = "hll"
-KEYPLANE = "keyplane"
+KEYPLANE = _keyplane.KEYPLANE
 REPR_CLASSES = (DENSE, PACKED, HLL, KEYPLANE)
 
 #: padding of packed index stacks: one past the last in-shard column, so
@@ -126,13 +129,6 @@ def _dense_and_count(a, b):
     return kernels.pair_count(a, b, "and")
 
 
-def _not_ported(klass: str, op: str):
-    def kernel(*args):
-        raise NotPortedError(f"the {klass} residency class ({op})", SLICE_KEYS)
-    kernel.__name__ = f"{klass}_{op}"
-    return kernel
-
-
 #: (representation class, op) -> kernel wrapper. Every class in
 #: REPR_CLASSES registers every op the dense class has.
 KERNELS = {
@@ -144,8 +140,14 @@ KERNELS = {
     (PACKED, "count"): kernels.packed_count,
     (PACKED, "and_count"): kernels.packed_and_dense_count,
     (PACKED, "pair_count"): kernels.packed_pair_count,
-    **{(klass, op): _not_ported(klass, op) for klass in (HLL, KEYPLANE)
-       for op in ("expand", "count", "and_count", "pair_count")},
+    (HLL, "expand"): kernels.hll_expand,
+    (HLL, "count"): sketch_kernels.hll_count,
+    (HLL, "and_count"): sketch_kernels.hll_and_count,
+    (HLL, "pair_count"): sketch_kernels.hll_pair_count,
+    (KEYPLANE, "expand"): _keyplane.plane_expand,
+    (KEYPLANE, "count"): _keyplane.plane_count,
+    (KEYPLANE, "and_count"): _keyplane.plane_and_count,
+    (KEYPLANE, "pair_count"): _keyplane.plane_pair_count,
 }
 
 

@@ -44,21 +44,29 @@ class ValCount:
 
 @dataclass
 class Pair:
-    """(row id, count) for TopN and MinRow/MaxRow (reference Pair)."""
+    """(row id, count) for TopN and MinRow/MaxRow (reference Pair); ``key``
+    is the row's key on a keyed field."""
 
     id: int = 0
     count: int = 0
+    key: str = ""
 
     def to_json(self) -> dict:
-        return {"id": self.id, "count": self.count}
+        out: dict[str, Any] = {"id": self.id, "count": self.count}
+        if self.key:
+            out["key"] = self.key
+        return out
 
 
 def merge_pairs(a: list[Pair], b: list[Pair]) -> list[Pair]:
-    """Sum counts by id (reference Pairs.Add)."""
+    """Sum counts by id (reference Pairs.Add); keys survive the merge."""
     acc: dict[int, int] = {}
+    keys: dict[int, str] = {}
     for p in a + b:
         acc[p.id] = acc.get(p.id, 0) + p.count
-    return [Pair(id=i, count=c) for i, c in acc.items()]
+        if p.key:
+            keys[p.id] = p.key
+    return [Pair(id=i, count=c, key=keys.get(i, "")) for i, c in acc.items()]
 
 
 def sort_pairs(pairs: list[Pair]) -> list[Pair]:
@@ -68,13 +76,16 @@ def sort_pairs(pairs: list[Pair]) -> list[Pair]:
 
 @dataclass
 class FieldRow:
-    """One (field, row) of a GroupBy group (reference FieldRow :1154); row
-    keys come with keyed fields (ROADMAP.md Queue 1: keys and sketches)."""
+    """One (field, row) of a GroupBy group (reference FieldRow :1154);
+    ``row_key`` is the row's key on a keyed field."""
 
     field: str
     row_id: int = 0
+    row_key: str = ""
 
     def to_json(self) -> dict:
+        if self.row_key:
+            return {"field": self.field, "rowKey": self.row_key}
         return {"field": self.field, "rowID": self.row_id}
 
 
@@ -124,13 +135,17 @@ def merge_group_counts(a: list[GroupCount], b: list[GroupCount],
 
 @dataclass
 class RowIdentifiers:
-    """Rows() result (reference RowIdentifiers :1026); row keys come with
-    keyed fields (ROADMAP.md Queue 1: keys and sketches)."""
+    """Rows() result (reference RowIdentifiers :1026): row ids, or the
+    rows' keys on a keyed field."""
 
     rows: list[int] = field(default_factory=list)
+    keys: list[str] = field(default_factory=list)
 
     def to_json(self) -> dict:
-        return {"rows": self.rows}
+        out: dict[str, Any] = {"rows": self.rows}
+        if self.keys:
+            out["keys"] = self.keys
+        return out
 
 
 def merge_row_ids(a: list[int], b: list[int], limit: int) -> list[int]:

@@ -44,6 +44,18 @@
   passed by value: ``jax.vmap`` of the packed count program in the JAX
   coalescer. The single count wrappers launch the same kernels over a
   wave of one.
+- ``hll_expand``, ``hll_reduce`` and ``similar_count``
+  (``csrc/sketch_kernels.cu``) are the sketch functions of
+  pilosa_tpu/sketch/kernels.py, XLA-fused in the JAX package: the masked
+  register gather of a filtered Count(Distinct) (``[S, 2^20]`` packed
+  ``bucket | rho << 18`` plane and ``[S, W]`` filter words in, ``[S, 2^p]``
+  uint8 registers out), the register max over shards, and SimilarTopN's
+  three totals over an ``[R, S, W]`` row cube, each cube word read once.
+- ``plane_lookup`` (``csrc/keyplane_kernels.cu``) is the key plane's
+  leftmost binary search of pilosa_tpu/exec/keyplane.py (``_search`` +
+  ``plane_lookup``): ``[3, H]`` int32 (hash hi, hash lo, id) plane and
+  ``[Q]`` probe hash halves in, ``[Q]`` ids out, MISS (0) where absent;
+  the hash lanes compare as unsigned.
 
 On a CUDA tensor each wrapper launches its hand-written kernel (built at
 first use, see ``ops/build.py``) or raises; on a CPU tensor it runs the
@@ -78,7 +90,8 @@ LAUNCHES = {"pair_count": 0, "row_counts": 0, "bsi_compare": 0, "bsi_minmax": 0,
             "group_count": 0, "packed_count": 0, "packed_and_dense_count": 0,
             "packed_pair_count": 0, "packed_expand": 0, "packed_count_batched": 0,
             "packed_and_dense_count_batched": 0, "packed_pair_count_batched": 0,
-            "plane_scatter": 0}
+            "plane_scatter": 0, "hll_expand": 0, "hll_reduce": 0,
+            "similar_count": 0, "plane_lookup": 0}
 #: leaf records tree_count_batched's launches were given (slots x tape
 #: leaves) and the distinct leaves they read (each slot group's once):
 #: how much its waves share.
@@ -138,6 +151,14 @@ _SIGNATURES = {
     "ingest_kernels.cu": {
         "pilosa_plane_scatter": [_VP, _VP, _I64, _I32, _I64, _VP, _VP],
         "pilosa_plane_scatter_groups": [_I32, _I64, _VP, _VP],
+    },
+    "sketch_kernels.cu": {
+        "pilosa_hll_expand": [_VP, _VP, _VP, _I64, _I64, _I32, _VP],
+        "pilosa_hll_reduce": [_VP, _VP, _I64, _I64, _VP],
+        "pilosa_similar_count": [_VP, _VP, _VP, _I64, _I64, _VP],
+    },
+    "keyplane_kernels.cu": {
+        "pilosa_plane_lookup": [_VP, _I64, _VP, _VP, _VP, _I64, _VP],
     },
 }
 _libs: dict[str, ctypes.CDLL] = {}
@@ -505,6 +526,86 @@ def plane_scatter_plain(pos: torch.Tensor, vals: torch.Tensor,
     out = torch.zeros((bit_depth + 2) * words, dtype=torch.int64, device=pos.device)
     out.index_put_((idx[member],), bits[member], accumulate=True)
     return _as_int32_bits(out.view(bit_depth + 2, words))
+
+
+#: bit layout of a packed sketch plane entry, ``bucket | rho << RHO_SHIFT``
+#: (pilosa_tpu_torch/sketch/hll.py); precisions run from 4 to 18.
+RHO_SHIFT = 18
+BUCKET_MASK = (1 << RHO_SHIFT) - 1
+HLL_MIN_P = 4
+HLL_MAX_P = 18
+
+
+def _filter_bits(filt: torch.Tensor) -> torch.Tensor:
+    """``[S, W]`` int32 words -> ``[S, 32 W]`` int32 0/1, bit ``c & 31`` of
+    word ``c >> 5`` at column ``c`` (bit 31 of a negative word included)."""
+    shifts = torch.arange(32, dtype=torch.int32, device=filt.device)
+    return ((filt.unsqueeze(-1) >> shifts) & 1).reshape(filt.shape[0], -1)
+
+
+def hll_expand_plain(packed: torch.Tensor, filt: torch.Tensor, p: int) -> torch.Tensor:
+    """pilosa_tpu/sketch/kernels.py hll_expand: for each column whose filter
+    bit is set and whose entry is positive (0 is an absent column), the
+    register ``entry & BUCKET_MASK`` of its shard takes the max with
+    ``entry >> RHO_SHIFT``; empty registers are 0. An entry whose bucket
+    is not below ``2^p`` adds nothing (a plane built at precision p has
+    none). ``[S, 2^p]`` uint8."""
+    rows, m = packed.shape[0], 1 << p
+    keep = (_filter_bits(filt) == 1) & (packed > 0) & ((packed & BUCKET_MASK) < m)
+    rho = torch.where(keep, packed >> RHO_SHIFT, 0).to(torch.int64)
+    seg = ((packed & BUCKET_MASK).to(torch.int64).clamp(max=m - 1)
+           + torch.arange(rows, dtype=torch.int64, device=packed.device).unsqueeze(1) * m)
+    regs = torch.zeros(rows * m, dtype=torch.int64, device=packed.device)
+    regs.scatter_reduce_(0, seg.reshape(-1), rho.reshape(-1), "amax")
+    return regs.reshape(rows, m).to(torch.uint8)
+
+
+def hll_reduce_plain(regs: torch.Tensor) -> torch.Tensor:
+    """Register max over the shard axis of an ``[S, m]`` uint8 stack (zero
+    rows are the identity): ``[m]`` uint8."""
+    out = torch.zeros(regs.shape[1], dtype=torch.uint8, device=regs.device)
+    for row in regs:
+        out = torch.maximum(out, row)
+    return out
+
+
+def similar_count_plain(cube: torch.Tensor, filt: torch.Tensor):
+    """pilosa_tpu/sketch/kernels.py similar_program's three totals over an
+    ``[R, S, W]`` cube and an ``[S, W]`` filter: per row popcount(row AND
+    filter) and popcount(row), summed over the shards, and popcount(filter);
+    int32 ``[R]``, ``[R]``, ``[]``, summed in int32 as the JAX program sums."""
+    inter = bitops.count(cube & filt.unsqueeze(0)).sum(dim=-1, dtype=torch.int32)
+    selfc = bitops.count(cube).sum(dim=-1, dtype=torch.int32)
+    filtc = bitops.count(filt).sum(dtype=torch.int32)
+    return inter, selfc, filtc
+
+
+def _unsigned(x: torch.Tensor) -> torch.Tensor:
+    """int32 bit patterns as their uint32 values, in int64."""
+    return x.to(torch.int64) & 0xFFFFFFFF
+
+
+def plane_lookup_plain(plane: torch.Tensor, probe_hi: torch.Tensor,
+                       probe_lo: torch.Tensor) -> torch.Tensor:
+    """pilosa_tpu/exec/keyplane.py _search + plane_lookup: the leftmost slot
+    whose unsigned (hi, lo) hash is not below the probe's, by a binary
+    search of ``bit_length(H)`` steps over the whole batch, then its id
+    where the hash matches, else MISS (0). ``[Q]`` int32."""
+    h = plane.shape[1]
+    hhi, hlo, ids = _unsigned(plane[0]), _unsigned(plane[1]), plane[2]
+    phi, plo = _unsigned(probe_hi), _unsigned(probe_lo)
+    lo = torch.zeros(phi.shape, dtype=torch.int64, device=plane.device)
+    hi = torch.full(phi.shape, h, dtype=torch.int64, device=plane.device)
+    for _ in range(max(1, int(h).bit_length())):
+        mid = (lo + hi) >> 1
+        at = mid.clamp(max=h - 1)
+        mhi = hhi[at]
+        less = (mhi < phi) | ((mhi == phi) & (hlo[at] < plo))
+        lo = torch.where(less, mid + 1, lo)
+        hi = torch.where(less, hi, mid)
+    pos = lo.clamp(0, h - 1)
+    hit = (hhi[pos] == phi) & (hlo[pos] == plo)
+    return torch.where(hit, ids[pos], torch.zeros_like(ids[pos]))
 
 
 # ---------------------------------------------------------------------------
@@ -1484,3 +1585,148 @@ def plane_scatter_groups(bit_depth: int, device: torch.device) -> tuple[int, int
     if err:
         raise RuntimeError(f"plane_scatter_groups failed: CUDA error {err}")
     return groups.value, per.value
+
+
+# ---------------------------------------------------------------------------
+# the sketch kernels and the key plane's lookup
+# ---------------------------------------------------------------------------
+
+
+def _check_p(p: int) -> int:
+    if isinstance(p, bool) or int(p) != p or not HLL_MIN_P <= p <= HLL_MAX_P:
+        raise ValueError(f"precision must be an int in [{HLL_MIN_P}, {HLL_MAX_P}], "
+                         f"got {p!r}")
+    return int(p)
+
+
+def _aligned(x: torch.Tensor, align: int = 16) -> torch.Tensor:
+    """``x`` contiguous, its first element on an ``align``-byte boundary."""
+    x = x.contiguous()
+    return x if x.data_ptr() % align == 0 else x.clone()
+
+
+def hll_expand(packed: torch.Tensor, filt: torch.Tensor, p: int) -> torch.Tensor:
+    """The ``[S, 2^p]`` uint8 HLL registers of each shard's filtered
+    columns: ``packed`` is the ``[S, 32 W]`` int32 plane of ``bucket | rho
+    << 18`` entries (0 for an absent column), ``filt`` the ``[S, W]`` int32
+    filter words. One launch on the card; every output byte is written by
+    the kernel (no zero fill ahead of it)."""
+    p = _check_p(p)
+    _check_words(packed, "packed")
+    _check_words(filt, "filt")
+    if packed.dim() != 2 or filt.dim() != 2 or packed.shape[0] != filt.shape[0] \
+            or packed.shape[1] != 32 * filt.shape[1] or filt.shape[1] % 32:
+        raise ValueError(f"packed {tuple(packed.shape)} must be [S, 32 W] against "
+                         f"filt {tuple(filt.shape)} [S, W], W a multiple of 32")
+    if packed.device != filt.device:
+        raise ValueError(f"operands on different devices: {packed.device}, {filt.device}")
+    if packed.device.type == "cpu":
+        return hll_expand_plain(packed, filt, p)
+    _require_cuda(packed)
+    rows, words = filt.shape
+    out = torch.empty((rows, 1 << p), dtype=torch.uint8, device=packed.device)
+    if rows == 0:
+        return out
+    packed, filt = _aligned(packed), filt.contiguous()
+    with torch.cuda.device(packed.device):
+        err = _library("sketch_kernels.cu").pilosa_hll_expand(
+            packed.data_ptr(), filt.data_ptr(), out.data_ptr(), rows, words, p,
+            _stream(packed.device))
+    if err:
+        raise RuntimeError(f"hll_expand kernel launch failed: CUDA error {err}")
+    _count_launch("hll_expand")
+    return out
+
+
+def hll_reduce(regs: torch.Tensor) -> torch.Tensor:
+    """Register max over the shard axis: ``[S, m]`` uint8 (m = 2^p, p >= 4)
+    -> ``[m]`` uint8; zero rows are the identity. One launch on the card,
+    every output word written once."""
+    if not isinstance(regs, torch.Tensor):
+        raise TypeError(f"regs must be a torch.Tensor, got {type(regs).__name__}")
+    if regs.dtype != torch.uint8 or regs.dim() != 2:
+        raise TypeError(f"regs must be an [S, m] uint8 tensor, got {regs.dtype} "
+                        f"{tuple(regs.shape)}")
+    m = regs.shape[1]
+    if m < 1 << HLL_MIN_P or m & (m - 1):
+        raise ValueError(f"register files must hold 2^p registers, p >= {HLL_MIN_P}; "
+                         f"got {m}")
+    if regs.device.type == "cpu":
+        return hll_reduce_plain(regs)
+    _require_cuda(regs)
+    if regs.shape[0] == 0:
+        return torch.zeros(m, dtype=torch.uint8, device=regs.device)
+    out = torch.empty(m, dtype=torch.uint8, device=regs.device)
+    regs = _aligned(regs, 4)
+    with torch.cuda.device(regs.device):
+        err = _library("sketch_kernels.cu").pilosa_hll_reduce(
+            regs.data_ptr(), out.data_ptr(), regs.shape[0], m, _stream(regs.device))
+    if err:
+        raise RuntimeError(f"hll_reduce kernel launch failed: CUDA error {err}")
+    _count_launch("hll_reduce")
+    return out
+
+
+def similar_count(cube: torch.Tensor, filt: torch.Tensor):
+    """SimilarTopN's totals in one pass over an ``[R, S, W]`` int32 row cube
+    and its ``[S, W]`` filter: (inter ``[R]``, selfc ``[R]``, filtc ``[]``),
+    int32 -- per row popcount(row AND filter) and popcount(row) summed over
+    the shards, and popcount(filter). Each cube word is read once."""
+    _check_words(cube, "cube")
+    _check_words(filt, "filt")
+    if cube.dim() != filt.dim() + 1 or cube.shape[1:] != filt.shape or filt.shape[-1] % 32:
+        raise ValueError(f"cube {tuple(cube.shape)} must be [R, *{tuple(filt.shape)}], "
+                         "its last axis a multiple of 32 words")
+    if cube.device != filt.device:
+        raise ValueError(f"operands on different devices: {cube.device}, {filt.device}")
+    if cube.device.type == "cpu":
+        return similar_count_plain(cube, filt)
+    _require_cuda(cube)
+    r, n = cube.shape[0], filt.numel()
+    out = torch.zeros(2 * r + 1, dtype=torch.int32, device=cube.device)
+    if r and n:
+        cube, filt = _aligned(cube), _aligned(filt)
+        with torch.cuda.device(cube.device):
+            err = _library("sketch_kernels.cu").pilosa_similar_count(
+                cube.data_ptr(), filt.data_ptr(), out.data_ptr(), r, n, _stream(cube.device))
+        if err:
+            raise RuntimeError(f"similar_count kernel launch failed: CUDA error {err}")
+        _count_launch("similar_count")
+    return out[:r], out[r:2 * r], out[2 * r]
+
+
+def plane_lookup(plane: torch.Tensor, probe_hi: torch.Tensor,
+                 probe_lo: torch.Tensor) -> torch.Tensor:
+    """Each probe's id in a key plane: ``plane`` ``[3, H]`` int32 (hash hi,
+    hash lo, id lanes, sorted by the unsigned 64-bit hash), ``probe_hi`` and
+    ``probe_lo`` ``[Q]`` int32 hash halves; ``[Q]`` int32 ids, MISS (0)
+    where the hash is absent, the leftmost slot where it repeats. One
+    thread a probe on the card."""
+    for x, name in ((plane, "plane"), (probe_hi, "probe_hi"), (probe_lo, "probe_lo")):
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got {type(x).__name__}")
+        if x.dtype != torch.int32:
+            raise TypeError(f"{name} must hold int32 bit patterns, got {x.dtype}")
+    if plane.dim() != 2 or plane.shape[0] != 3 or plane.shape[1] == 0:
+        raise ValueError(f"plane must be [3, H] with H > 0, got {tuple(plane.shape)}")
+    if probe_hi.dim() != 1 or probe_hi.shape != probe_lo.shape:
+        raise ValueError(f"probe halves must be [Q] each, got {tuple(probe_hi.shape)}, "
+                         f"{tuple(probe_lo.shape)}")
+    if not (plane.device == probe_hi.device == probe_lo.device):
+        raise ValueError("plane and probes must lie on one device")
+    if plane.device.type == "cpu":
+        return plane_lookup_plain(plane, probe_hi, probe_lo)
+    _require_cuda(plane)
+    q = probe_hi.shape[0]
+    out = torch.empty(q, dtype=torch.int32, device=plane.device)
+    if q == 0:
+        return out
+    plane, probe_hi, probe_lo = plane.contiguous(), probe_hi.contiguous(), probe_lo.contiguous()
+    with torch.cuda.device(plane.device):
+        err = _library("keyplane_kernels.cu").pilosa_plane_lookup(
+            plane.data_ptr(), plane.shape[1], probe_hi.data_ptr(), probe_lo.data_ptr(),
+            out.data_ptr(), q, _stream(plane.device))
+    if err:
+        raise RuntimeError(f"plane_lookup kernel launch failed: CUDA error {err}")
+    _count_launch("plane_lookup")
+    return out

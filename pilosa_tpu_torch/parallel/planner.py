@@ -78,7 +78,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from pilosa_tpu_torch.config import WORDS_PER_SHARD
+from pilosa_tpu_torch.config import SHARD_WIDTH, WORDS_PER_SHARD
 from pilosa_tpu_torch.core import timequantum as tq
 from pilosa_tpu_torch.core.fragment import (
     BSI_EXISTS_BIT,
@@ -538,6 +538,164 @@ class Planner:
 
         return self.coalescer.dispatch(fn, arrays, fold, waited)
 
+    # ------------------------------------------------------------------
+    # approximate analytics (pilosa_tpu_torch.sketch): Count(Distinct) as
+    # one program -- the filter tree's plane, the hll_expand masked
+    # register gather, the hll_reduce register max -- and SimilarTopN as
+    # one similar_count pass over the field's row cube (reference
+    # planner.py:646-818). The estimate (harmonic mean in float64) and
+    # the final ranking run in the host fold; no row set leaves the
+    # device.
+    # ------------------------------------------------------------------
+
+    #: refuse to build a SimilarTopN row cube past this device footprint --
+    #: the executor falls back to the per-shard host oracle instead.
+    SIM_CUBE_MAX_BYTES = 1 << 30
+
+    def supports_distinct(self, idx: Index, c: Call) -> bool:
+        """True for Distinct calls whose (optional) filter child is a
+        plannable bitmap tree over an existing BSI field."""
+        if c.name != "Distinct" or len(c.children) > 1:
+            return False
+        if c.children and not self.supports(c.children[0]):
+            return False
+        field_name, ok = c.string_arg("field")
+        if not ok:
+            return False
+        f = idx.field(field_name)
+        return f is not None and f.bsi_group is not None
+
+    def execute_distinct_registers(self, idx: Index, c: Call, shards: list[int],
+                                   p: int) -> np.ndarray:
+        """Merged uint8[2^p] HLL registers of the filtered column set across
+        ``shards``: one program through the coalescer."""
+        return self.dispatch_distinct(idx, c, shards, p).result()
+
+    def dispatch_distinct(self, idx: Index, c: Call, shards: list[int], p: int) -> Future:
+        """Async register fold: Future[uint8[2^p]]. Plans like the fused
+        aggregates (shared plan cache, structural program cache); the
+        unfiltered form reduces the cached [S_pad, 2^p] register stack, the
+        filtered form expands the packed plane under the filter tree's
+        plane and reduces that."""
+        if not shards:
+            fut: Future = Future()
+            fut.set_result(np.zeros(1 << p, dtype=np.uint8))
+            return fut
+        fn, arrays = self._prepare_distinct(idx, c, shards, p)
+        _fuse.add_fused_steps(_fuse.call_steps(c))
+        return self.coalescer.dispatch(fn, arrays,
+                                       lambda host: np.asarray(host, dtype=np.uint8))
+
+    def _prepare_distinct(self, idx: Index, c: Call, shards: list[int], p: int):
+        field_name, _ = c.string_arg("field")
+        depth = idx.field(field_name).bsi_group.bit_depth
+        plan_key = (idx.name, idx.instance_id, idx.schema_epoch.value,
+                    f"distinct{p}:{c}", tuple(shards))
+        with self._cache_lock:
+            hit = self._plan_cache.get(plan_key)
+            if hit is not None:
+                self._plan_cache.move_to_end(plan_key)
+        if hit is not None:
+            hit = self._revalidate_plan(idx, plan_key, hit, tuple(shards))
+        if hit is not None:
+            leaves, fn = hit[0], hit[1]
+        else:
+            if c.children:
+                leaves = [("hll", field_name, depth, p)]
+                filt_sig = self._signature(idx, c.children[0], leaves, tuple(shards))
+            else:
+                leaves = [("hllreg", field_name, depth, p)]
+                filt_sig = None
+            fn = self._compiled_distinct(("distinct", p, depth, filt_sig), p, filt_sig)
+            if not _time_bound(leaves):
+                with self._cache_lock:
+                    self._plan_cache[plan_key] = (leaves, fn, idx.epoch.value)
+                    while len(self._plan_cache) > self.PLAN_CACHE_SIZE:
+                        self._plan_cache.popitem(last=False)
+        self._prefetch_leaves(idx, leaves, tuple(shards))
+        arrays = [self._fetch_leaf(idx, leaf, tuple(shards)) for leaf in leaves]
+        return fn, arrays
+
+    def _compiled_distinct(self, full_sig: tuple, p: int, filt_sig) -> Callable:
+        """The distinct program: leaf inputs -> the merged [2^p] uint8
+        registers. Unfiltered: ONE hll_reduce of the register stack.
+        Filtered: the filter tree's plane (the leaf stack itself for a
+        single Row, else one tree_count), ONE hll_expand, ONE hll_reduce."""
+        fn = self._fn_cache.get(full_sig)
+        if fn is not None:
+            return fn
+
+        def fn(*args):
+            if filt_sig is None:
+                return kernels.hll_reduce(args[0])
+            tape = _Tape()
+            filt = tape.plane(_lower(filt_sig, args, tape))
+            return kernels.hll_reduce(kernels.hll_expand(args[0], filt, p))
+
+        self._fn_cache[full_sig] = fn
+        self._fn_keys[id(fn)] = full_sig
+        return fn
+
+    def supports_similar(self, idx: Index, field_name: str,
+                         filter_call: Call | None) -> bool:
+        if filter_call is not None and not self.supports(filter_call):
+            return False
+        return idx.field(field_name) is not None
+
+    def execute_similar(self, idx: Index, field_name: str, filter_call: Call,
+                        row_ids: list[int], shards: list[int]):
+        """One-launch row-vs-all similarity: (ids, overlap, selfcnt,
+        filtcnt, order) with int64 host widening, or None when the candidate
+        cube would pass the device gate (the executor's host oracle takes
+        over). The filter tree evaluates in the same program, so a warm
+        query costs the filter's launch (none for a single dense Row) and
+        ONE similar_count.
+
+        No prepared-plan cache: a cached entry would pin a row-id universe
+        that any Set() can grow; the structural program cache still
+        dedupes programs by (padded R, filter shape)."""
+        if not shards or not row_ids:
+            return None
+        s_pad = self._pad(len(shards))
+        r = len(row_ids)
+        r_pad = max(8, 1 << (r - 1).bit_length())
+        if r_pad * s_pad * WORDS_PER_SHARD * 4 > self.SIM_CUBE_MAX_BYTES:
+            return None
+        ids = tuple(int(x) for x in row_ids)
+        leaves: list[tuple] = [("simtopn", field_name, ids, r_pad)]
+        filt_sig = self._signature(idx, filter_call, leaves, tuple(shards))
+        fn = self._compiled_similar(("simtopn", r_pad, filt_sig), filt_sig)
+        self._prefetch_leaves(idx, leaves, tuple(shards))
+        arrays = [self._fetch_leaf(idx, leaf, tuple(shards)) for leaf in leaves]
+        _fuse.add_fused_steps(_fuse.call_steps(filter_call) + 1)
+        ids_arr = np.asarray(ids, dtype=np.uint64)
+
+        def fold(host):
+            host = np.asarray(host).astype(np.int64)  # widen before any sum
+            order, inter, selfc = host[:r_pad], host[r_pad:2 * r_pad], host[2 * r_pad:3 * r_pad]
+            return ids_arr, inter[:r], selfc[:r], int(host[3 * r_pad]), order[:r]
+
+        return self.coalescer.dispatch(fn, arrays, fold).result()
+
+    def _compiled_similar(self, full_sig: tuple, filt_sig) -> Callable:
+        """The SimilarTopN program: leaf inputs -> ONE int32 tensor
+        ``[order, inter, selfc, filtc]`` (R_pad, R_pad, R_pad, 1), so one
+        copy brings it back."""
+        fn = self._fn_cache.get(full_sig)
+        if fn is not None:
+            return fn
+        from pilosa_tpu_torch.sketch import kernels as sketch_kernels
+
+        def fn(*args):
+            tape = _Tape()
+            filt = tape.plane(_lower(filt_sig, args, tape))
+            order, inter, selfc, filtc = sketch_kernels.similar_totals(args[0], filt)
+            return torch.cat([order.to(torch.int32), inter, selfc, filtc.reshape(1)])
+
+        self._fn_cache[full_sig] = fn
+        self._fn_keys[id(fn)] = full_sig
+        return fn
+
     def execute_topn_counts(self, idx: Index, field_name: str, view: str,
                             shards: list[int], filter_call: Call | None,
                             row_ids=None) -> dict[int, tuple]:
@@ -929,6 +1087,19 @@ class Planner:
             return (self._stack_rows(idx, field_name, view, BSI_EXISTS_BIT, shards),
                     self._stack_rows(idx, field_name, view, BSI_SIGN_BIT, shards),
                     self._stack_planes(idx, field_name, depth, shards))
+        if kind == "hll":
+            # Filtered-distinct leaf: the packed [S_pad, C] bucket|rho<<18
+            # column planes (sketch/store), cached like any stack.
+            _, field_name, depth, p = leaf
+            return self._stack_hll_planes(idx, field_name, depth, p, shards)
+        if kind == "hllreg":
+            # Unfiltered-distinct leaf: the [S_pad, 2^p] uint8 register
+            # stack, 2^p bytes a shard resident instead of 4 MiB.
+            _, field_name, depth, p = leaf
+            return self._stack_hll_registers(idx, field_name, depth, p, shards)
+        if kind == "simtopn":
+            _, field_name, row_ids, r_pad = leaf
+            return self._stack_row_cube(idx, field_name, row_ids, r_pad, shards)
         raise QueryError(f"unknown leaf kind {kind!r}")
 
     def _stack_rows(self, idx: Index, field_name: str, view: str, row_id: int,
@@ -960,6 +1131,76 @@ class Planner:
 
         return self._cached(idx, field_name, view, ("planes", depth), shards,
                             build)
+
+    #: shards of the hll plane stack uploaded at a time: 32 x 4 MiB of
+    #: pinned host buffer instead of the whole [S_pad, C] stack.
+    HLL_UPLOAD_ROWS = 32
+
+    def _stack_hll_planes(self, idx: Index, field_name: str, depth: int, p: int,
+                          shards: tuple) -> torch.Tensor:
+        """[S_pad, SHARD_WIDTH] int32 packed bucket|rho column planes, in
+        the ``hll`` class, cached with the two-tier validation of every
+        stack (reference _stack_hll_planes, planner.py:1710)."""
+        from pilosa_tpu_torch.sketch import store as sketch_store
+        view = view_bsi_name(field_name)
+        s_pad = self._pad(len(shards))
+
+        def fill(lo: int, mat: np.ndarray) -> None:
+            for i in range(len(mat)):
+                frag = (self.holder.fragment(idx.name, field_name, view, shards[lo + i])
+                        if lo + i < len(shards) else None)
+                if frag is None:
+                    mat[i] = 0
+                else:
+                    mat[i] = sketch_store.plane(frag, depth, p).view(np.uint32)
+
+        def build():
+            out = self._alloc((s_pad, SHARD_WIDTH))
+            for lo in range(0, s_pad, self.HLL_UPLOAD_ROWS):
+                hi = min(s_pad, lo + self.HLL_UPLOAD_ROWS)
+                self._upload_into(out[lo:hi], functools.partial(fill, lo))
+            return out, self._upload_done()
+
+        return self._cached(idx, field_name, view, ("hll", depth, p), shards, build,
+                            _residency.HLL)
+
+    def _stack_hll_registers(self, idx: Index, field_name: str, depth: int, p: int,
+                             shards: tuple) -> torch.Tensor:
+        """[S_pad, 2^p] uint8 per-shard register files (zero padding rows
+        are the register-max identity), in the ``hll`` class."""
+        from pilosa_tpu_torch.sketch import store as sketch_store
+        view = view_bsi_name(field_name)
+
+        def build():
+            mat = np.zeros((self._pad(len(shards)), 1 << p), dtype=np.uint8)
+            for i, shard in enumerate(shards):
+                frag = self.holder.fragment(idx.name, field_name, view, shard)
+                if frag is not None:
+                    mat[i] = sketch_store.registers(frag, depth, p)
+            with self._cache_lock:
+                self.h2d_bytes += mat.nbytes
+            return torch.from_numpy(mat).to(self.device)
+
+        return self._cached(idx, field_name, view, ("hllreg", depth, p), shards, build,
+                            _residency.HLL)
+
+    def _stack_row_cube(self, idx: Index, field_name: str, row_ids: tuple, r_pad: int,
+                        shards: tuple) -> torch.Tensor:
+        """[r_pad, S_pad, W] cube of every candidate row's dense stack
+        (SimilarTopN), stacked on the device from the per-row cached stacks
+        and cached itself; zero padding rows rank with overlap 0 and are
+        sliced off in the host fold."""
+        def build():
+            rows = [self._stack_rows(idx, field_name, VIEW_STANDARD, rid, shards)
+                    for rid in row_ids]
+            cube = torch.zeros((r_pad, self._pad(len(shards)), WORDS_PER_SHARD),
+                               dtype=torch.int32, device=self.device)
+            for i, row in enumerate(rows):
+                cube[i].copy_(row)
+            return cube
+
+        return self._cached(idx, field_name, VIEW_STANDARD, ("simcube", row_ids, r_pad),
+                            shards, build)
 
     def _cached(self, idx: Index, field_name: str, view: str, tag, shards: tuple,
                 build: Callable, klass: str = _residency.DENSE) -> torch.Tensor:

@@ -11,10 +11,12 @@ on the cluster's state. With a data dir, ``store`` is the node's
 at once, so the WAL records of a node killed before its first flush are
 found again at boot (the JAX node writes the schema only when it flushes
 or deletes: ROADMAP.md Queue 3); deleting an index, field or view
-unlinks its files too. Imports by keys and remote (cluster-leg) queries
-raise ``NotPortedError`` naming the ROADMAP.md
-slice that brings them; key translation and fragment block sync have no
-method yet (their routes answer 501).
+unlinks its files too. Imports by row and column keys allocate their ids
+in the index's and field's translate stores, one batch each, and
+``translate_keys``/``translate_entries`` serve the key routes. Remote
+(cluster-leg) queries raise ``NotPortedError`` naming the ROADMAP.md slice
+that brings them; fragment block sync has no method yet (its routes
+answer 501).
 """
 
 from __future__ import annotations
@@ -31,7 +33,6 @@ from pilosa_tpu_torch.core.row import Row
 from pilosa_tpu_torch.core.view import VIEW_STANDARD
 from pilosa_tpu_torch.errors import (
     SLICE_CLUSTER,
-    SLICE_KEYS,
     FieldNotFoundError,
     FragmentNotFoundError,
     NotPortedError,
@@ -174,8 +175,10 @@ class API:
         f = idx.field(field)
         if f is None:
             raise FieldNotFoundError()
-        if row_keys is not None or column_keys is not None:
-            raise NotPortedError("an import by keys", SLICE_KEYS)
+        if row_keys is not None:
+            row_ids = self._xlate_keys(idx, f, row_keys)
+        if column_keys is not None:
+            column_ids = self._xlate_keys(idx, None, column_keys)
         ts = parse_stamps(timestamps) if timestamps is not None else None
         column_ids = list(column_ids)
         f.import_bits(list(row_ids), column_ids, ts, clear=clear)
@@ -192,7 +195,7 @@ class API:
         if f is None:
             raise FieldNotFoundError()
         if column_keys is not None:
-            raise NotPortedError("an import by keys", SLICE_KEYS)
+            column_ids = self._xlate_keys(idx, None, column_keys)
         column_ids = list(column_ids)
         f.import_values(column_ids, list(values), clear=clear)
         idx.add_existence(column_ids)
@@ -208,19 +211,43 @@ class API:
 
     # -- export (api.go:500) -----------------------------------------------
 
+    def _xlate_keys(self, idx, f, keys: Iterable[str]) -> list[int]:
+        """Ids of ``keys`` in the field's (or, for None, the index's)
+        translate store, allocated where new: one lock, one epoch bump for
+        the batch."""
+        store = (f if f is not None else idx).translate_store
+        return store.translate_keys(list(keys))
+
     def export_csv(self, index: str, field: str, shard: int) -> str:
-        """CSV of row,col for one shard (reference exportShard)."""
+        """CSV of row,col for one shard, keys in place of the ids of a keyed
+        field or index (reference exportShard). Reverse translation is one
+        snapshot pass per store over the shard's distinct ids."""
         idx = self.holder.index_or_raise(index)
-        if idx.field(field) is None:
+        f = idx.field(field)
+        if f is None:
             raise FieldNotFoundError()
         frag = self.holder.fragment(index, field, VIEW_STANDARD, shard)
         if frag is None:
             raise FragmentNotFoundError()
+        rows = frag.rows_snapshot()
         base = shard * SHARD_WIDTH
+        row_names: dict[int, str] = {}
+        if f.keys:
+            rids = [rid for rid, _ in rows]
+            row_names = {rid: (name if name is not None else str(rid))
+                         for rid, name in zip(rids, f.translate_store.translate_ids(rids))}
+        col_names: dict[int, str] = {}
+        if idx.options.keys:
+            cols = sorted({int(pos) + base for _, positions in rows for pos in positions})
+            col_names = {col: (name if name is not None else str(col))
+                         for col, name in zip(cols, idx.translate_store.translate_ids(cols))}
         buf = io.StringIO()
-        for rid, positions in frag.rows_snapshot():
+        for rid, positions in rows:
+            rk = row_names.get(rid) if f.keys else str(rid)
             for pos in positions:
-                buf.write(f"{rid},{int(pos) + base}\n")
+                col = int(pos) + base
+                ck = col_names.get(col) if idx.options.keys else str(col)
+                buf.write(f"{rk},{ck}\n")
         return buf.getvalue()
 
     # -- status (api.go:726-1260) ------------------------------------------
@@ -245,6 +272,32 @@ class API:
     def max_shards(self) -> dict:
         return {name: max(self.holder.index(name).available_shards())
                 for name in self.holder.index_names()}
+
+    def translate_keys(self, index: str, field: str | None,
+                       keys: list[str]) -> list[int]:
+        """The public and /internal/translate/keys surface: the keys' ids in
+        the field's (or the index's) store, allocated where new (a
+        standalone node is its own id authority)."""
+        idx = self.holder.index_or_raise(index)
+        f = None
+        if field:
+            f = idx.field(field)
+            if f is None:
+                raise FieldNotFoundError()
+        return self._xlate_keys(idx, f, keys)
+
+    def translate_entries(self, index: str, field: str | None,
+                          after_id: int) -> list[tuple[int, str]]:
+        """/internal/translate/entries: the store's (id, key) entries with
+        ids past ``after_id``, id-ascending (reference translate.go:93
+        MultiTranslateEntryReader)."""
+        idx = self.holder.index_or_raise(index)
+        if field:
+            f = idx.field(field)
+            if f is None:
+                raise FieldNotFoundError()
+            return f.translate_store.entries_since(after_id)
+        return idx.translate_store.entries_since(after_id)
 
     def _attr_store(self, index: str, field: str | None):
         """Column attrs (field=None) or a field's row attrs (reference

@@ -4,9 +4,8 @@ The port's counterpart of pilosa_tpu/server/httpd.py. Reference:
 http/handler.go (newRouter :274-318). Implemented on the stdlib
 ThreadingHTTPServer, one thread per connection. Every route of the JAX
 node's table is mounted in the same order and matched by the same
-pattern; the routes a standalone node of this slice does not serve
-(cluster RPC, key translation) answer 501 with a body that names
-the ROADMAP.md slice that brings them.
+pattern; the routes a standalone node does not serve (cluster RPC)
+answer 501 with a body that names the ROADMAP.md slice that brings them.
 """
 
 from __future__ import annotations
@@ -21,7 +20,6 @@ from urllib.parse import parse_qs, urlparse
 from pilosa_tpu_torch.cache.tenant import reset_current_tenant, set_current_tenant
 from pilosa_tpu_torch.errors import (
     SLICE_CLUSTER,
-    SLICE_KEYS,
     ApiMethodNotAllowedError,
     FieldExistsError,
     FieldNotFoundError,
@@ -482,6 +480,41 @@ def _build_routes(api: API):
         out["enabled"] = True
         return 200, out
 
+    def get_debug_translate(pv, params, body):
+        """Key-translation telemetry (reference httpd.py:873): the device
+        key-plane cache (builds, device batches, collision-bucket hits,
+        stale serves, async rebuilds) and each non-empty store's size,
+        watermark and version. A standalone node is its own coordinator."""
+        planes = getattr(api.executor, "keyplanes", None)
+        stores = {}
+        for name in api.holder.index_names():
+            idx = api.holder.index(name)
+            if idx is None:
+                continue
+            targets = [("", idx.translate_store)]
+            targets += [(fname, f.translate_store) for fname, f in sorted(idx.fields.items())]
+            for fname, store in targets:
+                if store.max_id() == 0:
+                    continue
+                stores[f"{name}/{fname}" if fname else name] = {
+                    "maxId": store.max_id(),
+                    "watermark": store.replication_watermark(),
+                    "version": store.version,
+                }
+        return 200, {"coordinator": None,
+                     "planes": planes.debug() if planes is not None else None,
+                     "stores": stores}
+
+    def post_translate_keys(pv, params, body):
+        req = jbody(body)
+        ids = api.translate_keys(req["index"], req.get("field"), req.get("keys", []))
+        return 200, {"ids": ids}
+
+    def get_translate_entries(pv, params, body):
+        entries = api.translate_entries(params["index"], params.get("field"),
+                                        int(params.get("after", 0)))
+        return 200, {"entries": [[i, k] for i, k in entries]}
+
     def get_debug_slow_queries(pv, params, body):
         """The QoS slow-query ring plus an admission snapshot."""
         qos_ctl = api.qos
@@ -722,8 +755,7 @@ def _build_routes(api: API):
          {"GET": get_debug_query_profile}),
         (r"/debug/queries", {"GET": get_debug_queries}),
         (r"/debug/device", {"GET": get_debug_device}),
-        (r"/debug/translate",
-         {"GET": _not_ported("GET /debug/translate", SLICE_KEYS)}),
+        (r"/debug/translate", {"GET": get_debug_translate}),
         (r"/debug/slow-queries", {"GET": get_debug_slow_queries}),
         (r"/debug/overload", {"GET": get_debug_overload}),
         (r"/debug/cache", {"GET": get_debug_cache}),
@@ -741,10 +773,8 @@ def _build_routes(api: API):
         (r"/internal/shards/max", {"GET": get_shards_max}),
         (r"/internal/availability",
          {"GET": _not_ported("GET /internal/availability", cluster)}),
-        (r"/internal/translate/keys",
-         {"POST": _not_ported("POST /internal/translate/keys", SLICE_KEYS)}),
-        (r"/internal/translate/entries",
-         {"GET": _not_ported("GET /internal/translate/entries", SLICE_KEYS)}),
+        (r"/internal/translate/keys", {"POST": post_translate_keys}),
+        (r"/internal/translate/entries", {"GET": get_translate_entries}),
         (r"/internal/cluster/message",
          {"POST": _not_ported("POST /internal/cluster/message", cluster)}),
         (r"/internal/fragment/blocks",

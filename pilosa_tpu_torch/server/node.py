@@ -32,6 +32,8 @@ from pilosa_tpu_torch.cache.result_cache import ResultCache
 from pilosa_tpu_torch.core.holder import Holder
 from pilosa_tpu_torch.exec import fuse as _dispatch_fuse
 from pilosa_tpu_torch.exec import ingest_transpose as _ingest_transpose
+from pilosa_tpu_torch import sketch as _sketch
+from pilosa_tpu_torch.exec import keyplane as _keyplane
 from pilosa_tpu_torch.exec import residency as _residency
 from pilosa_tpu_torch.exec.executor import Executor
 from pilosa_tpu_torch.obs import MemoryStats, ProfileRing
@@ -99,6 +101,9 @@ class ServerNode:
                  residency_packed: str = "auto",
                  prefetch: str = "on",
                  ingest_transpose: str = "auto",
+                 translate_planes: str = "auto",
+                 sketch_precision: int = 12,
+                 sketch_exact_threshold: int = 1024,
                  compile_cache_dir: str | None = None):
         host, _, port = bind.partition(":")
         self.host, self.port = host or "127.0.0.1", int(port or 10101)
@@ -152,6 +157,12 @@ class ServerNode:
         _transfer_batcher.set_inline_mode(inline_transfer)
         _residency.set_mode(residency_packed)
         _prefetch.set_mode(prefetch)
+        # Device key planes (exec/keyplane) and the approximate-analytics
+        # knobs (sketch); PILOSA_TPU_TRANSLATE_PLANES /
+        # _SKETCH_PRECISION / _SKETCH_EXACT_THRESHOLD override per run.
+        _keyplane.set_mode(translate_planes)
+        _sketch.set_precision(sketch_precision)
+        _sketch.set_exact_threshold(sketch_exact_threshold)
         self._qos_warmup = qos_warmup
         self._qos_warmup_shards = qos_warmup_shards
         self.warmup = None

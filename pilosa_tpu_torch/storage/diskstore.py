@@ -2,12 +2,11 @@
 
 The port's counterpart of pilosa_tpu/storage/diskstore.py: the same
 layout, snapshot format and WAL records, so a data dir written by either
-package opens in the other with equal rows. Two differences: the
-translate stores are not attached (``translate.jsonl`` files are left as
-they are, byte for byte; a keyed index or field in the schema raises
-``NotPortedError`` at ``open()``), and ``flush()`` snapshots and
-``open()`` reloads fragments on a small thread pool (zlib and the numpy
-sorts release the interpreter lock).
+package opens in the other with equal rows, attr stores and translate
+stores (``translate.jsonl``, the framed lines of core/translate.py, read
+and written by both). One difference: ``flush()`` snapshots and ``open()``
+reloads fragments on a small thread pool (zlib and the numpy sorts
+release the interpreter lock).
 
 Reference: holder.go Open (:137, data-dir walk → Index.Open → Field.Open
 → view.open → fragment.Open with mmap + op-log replay), the background
@@ -44,6 +43,7 @@ import numpy as np
 from pilosa_tpu_torch.config import MAX_OP_N, SHARD_WIDTH
 from pilosa_tpu_torch.core.attrs import AttrStore
 from pilosa_tpu_torch.core.holder import Holder
+from pilosa_tpu_torch.core.translate import TranslateStore
 from pilosa_tpu_torch.core.hostrow import HostRow
 from pilosa_tpu_torch.obs.logger import StandardLogger
 from pilosa_tpu_torch.obs.stats import NopStats
@@ -180,19 +180,23 @@ class DiskStore:
             w.start()
 
     def _attach_stores(self) -> None:
-        """Swap in path-backed attr stores (boltdb/ analog). Every
-        swapped-in store keeps the index's mutation epoch. The translate
-        stores are not attached: keys come with a later slice, and a
-        keyed index or field has already refused to open."""
+        """Swap in path-backed attr and translate stores (boltdb/ analog).
+        Every swapped-in store keeps the index's mutation epoch: attr and
+        key-translation writes on a durable node must invalidate
+        epoch-stamped caches exactly like they do on a memory node."""
         for iname in self.holder.index_names():
             idx = self.holder.index(iname)
             idir = os.path.join(self.data_dir, iname)
             idx.column_attr_store = AttrStore(
                 os.path.join(idir, "column_attrs.jsonl"), epoch=idx.epoch)
+            idx.translate_store = TranslateStore(
+                os.path.join(idir, "translate.jsonl"), epoch=idx.epoch)
             for fname, f in idx.fields.items():
                 fdir = os.path.join(idir, fname)
                 f.row_attr_store = AttrStore(
                     os.path.join(fdir, "row_attrs.jsonl"), epoch=idx.epoch)
+                f.translate_store = TranslateStore(
+                    os.path.join(fdir, "translate.jsonl"), epoch=idx.epoch)
 
     def _load_fragments(self) -> None:
         """Walk the data dir; rebuild fragments from snapshot + WAL. The
@@ -619,13 +623,16 @@ class DiskStore:
         for iname in self.holder.index_names():
             idx = self.holder.index(iname)
             idx.column_attr_store.save()
+            idx.translate_store.save()
             for f in idx.fields.values():
                 f.row_attr_store.save()
+                f.translate_store.save()
 
     def _attach_paths_for_new_objects(self) -> None:
-        """Objects created after open() need their attr stores path-bound.
-        The fresh path-bound AttrStore takes the SAME live dict the old
-        store held, so its contents do not change."""
+        """Objects created after open() need their stores path-bound. The
+        fresh path-bound AttrStore takes the SAME live dict the old store
+        held, so its contents do not change; a translate store keeps its
+        object and gains the path."""
         for iname in self.holder.index_names():
             idx = self.holder.index(iname)
             idir = os.path.join(self.data_dir, iname)
@@ -634,6 +641,8 @@ class DiskStore:
                                   epoch=idx.epoch)
                 store._attrs = idx.column_attr_store._attrs
                 idx.column_attr_store = store
+            if idx.translate_store.path is None:
+                idx.translate_store.path = os.path.join(idir, "translate.jsonl")
             for fname, f in idx.fields.items():
                 fdir = os.path.join(idir, fname)
                 if f.row_attr_store.path is None:
@@ -641,6 +650,8 @@ class DiskStore:
                                       epoch=idx.epoch)
                     store._attrs = f.row_attr_store._attrs
                     f.row_attr_store = store
+                if f.translate_store.path is None:
+                    f.translate_store.path = os.path.join(fdir, "translate.jsonl")
 
     def close(self) -> None:
         # Stop the snapshot workers and WAIT for them: a worker

@@ -18,8 +18,10 @@ rows stay writable):
 - the backup routes' HTTP bodies against a JAX node's, and ``backup``,
   ``restore``, ``backup-verify``, ``check --archive``, ``config`` and
   ``generate-config`` against the JAX CLI;
-- what this slice does not carry answers ``NotPortedError``: a manifest
-  with key translation, a writer, job or scheduler given a cluster.
+- keyed archives (a keyed index and field, their translate stores) cross
+  packages both ways with equal entries, rows and keyed answers;
+- what the port does not carry yet answers ``NotPortedError``: a writer,
+  job or scheduler given a cluster.
 """
 
 import json
@@ -39,6 +41,7 @@ from pilosa_tpu.backup.restore import rebuild_fragment as j_rebuild_fragment
 from pilosa_tpu.backup.retention import plan_prune as j_plan_prune
 from pilosa_tpu.core import Holder as JHolder
 from pilosa_tpu.core.field import FieldOptions as JFieldOptions
+from pilosa_tpu.core.index import IndexOptions as JIndexOptions
 from pilosa_tpu.core.row import Row as JRow
 from pilosa_tpu.exec import Executor as JExecutor
 from pilosa_tpu.exec import result_to_json as j_json
@@ -70,6 +73,7 @@ from pilosa_tpu_torch.backup.restore import rebuild_fragment
 from pilosa_tpu_torch.backup.scheduler import FAILED, RAN, SKIP_NOT_DUE, SKIP_UNCHANGED
 from pilosa_tpu_torch.config import SHARD_WIDTH
 from pilosa_tpu_torch.core import FieldOptions, Holder
+from pilosa_tpu_torch.core.index import IndexOptions
 from pilosa_tpu_torch.core.row import Row
 from pilosa_tpu_torch.errors import NotPortedError
 from pilosa_tpu_torch.exec import Executor
@@ -352,25 +356,79 @@ def test_local_dir_archive_roundtrip_and_traversal_guard(tmp_path):
             a.write(bid, bad, b"x")
 
 
+# -- keyed archives ----------------------------------------------------------
+
+KEYED_QUERIES = ['Row(kf="red")', 'Count(Row(kf="blue"))', "TopN(kf)", "Rows(kf)",
+                 'Count(Union(Row(kf="red"), Row(kf="green")))']
+
+
+def _seed_keyed(side: Side, seed: int = 0) -> None:
+    """A keyed index ``k`` with a keyed set field ``kf``: column and row
+    keys allocated through the translate stores, bits over 2 shards."""
+    rng = np.random.default_rng(seed)
+    iopts = JIndexOptions if side.pkg == "jax" else IndexOptions
+    idx = side.h.create_index("k", iopts(keys=True))
+    f = idx.create_field("kf", side.opts(keys=True))
+    names = ["red", "green", "blue", "cyan"]
+    rows = f.translate_store.translate_keys(names)
+    cols = idx.translate_store.translate_keys([f"c{i}" for i in range(300)])
+    pick = rng.integers(0, len(names), 600)
+    at = rng.integers(0, len(cols), 600)
+    f.import_bits([rows[i] for i in pick], [cols[i] + SHARD_WIDTH * (i % 2) for i in at])
+
+
+def _keyed_state(side: Side) -> tuple:
+    idx = side.h.index("k")
+    ex = side.ex_cls(side.h)
+    return (idx.translate_store.entries_since(0),
+            idx.field("kf").translate_store.entries_since(0),
+            [side.to_json(ex.execute("k", q)[0]) for q in KEYED_QUERIES])
+
+
+@pytest.mark.parametrize("src,dst", [("jax", "port"), ("port", "jax")])
+def test_keyed_archive_crosses_packages(tmp_path, src, dst):
+    """A keyed index's archive (its translate.jsonl files beside the
+    fragments) restores through the other package's RestoreJob with equal
+    translate entries, rows and keyed answers; both writers archive the
+    same files from the same data."""
+    sides = {pkg: Side(pkg, str(tmp_path / f"{pkg}-src")) for pkg in ("jax", "port")}
+    for s in sides.values():
+        _seed_keyed(s)
+    manifests = {pkg: s.backup(str(tmp_path / f"arch-{pkg}")) for pkg, s in sides.items()}
+    files = {pkg: sorted((e["path"], e["kind"], e["size"], e["crc"]) for e in m["files"])
+             for pkg, m in manifests.items()}
+    assert files["port"] == files["jax"]
+    assert any(e["kind"] == "translate" for e in manifests[src]["files"])
+    target = Side(dst, str(tmp_path / f"{dst}-dst"))
+    target.restore(str(tmp_path / f"arch-{src}"), manifests[src]["id"])
+    assert _rows(target.h) == _rows(sides[src].h)
+    assert _keyed_state(target) == _keyed_state(sides[src])
+    for s in (*sides.values(), target):
+        s.store.close()
+
+
 # -- what this slice does not carry ------------------------------------------
 
 
 def test_keyed_manifest_and_cluster_paths_are_not_ported(tmp_path):
+    """A manifest with key translation answered NotPortedError until the
+    keys-and-sketches slice; now the port restores it (here: the port's
+    own keyed archive into a fresh port holder, and into a JAX holder, with
+    equal translate entries and answers). A writer, job or scheduler given
+    a cluster still answers NotPortedError."""
     side = Side("port", str(tmp_path / "d"))
     _seed(side)
+    _seed_keyed(side)
     root = str(tmp_path / "arch")
     m = side.backup(root)
-    side.store.close()
     a = LocalDirArchive(root)
-    keyed = dict(m, id="keyed", files=m["files"] + [{
-        "path": "data/i/translate.jsonl", "kind": "translate", "index": "i",
-        "field": None, "crc": 0, "size": 0, "stored_in": m["id"]}])
-    a.write_manifest("keyed", keyed)
+    for pkg in ("port", "jax"):
+        other = Side(pkg, str(tmp_path / f"t-{pkg}"))
+        other.restore(root, m["id"])
+        assert _keyed_state(other) == _keyed_state(side)
+        other.store.close()
+    side.store.close()
     target = Side("port", str(tmp_path / "t"))
-    with pytest.raises(NotPortedError, match="keys and sketches"):
-        target.restore(root, "keyed")
-    assert target.h.index_names() == [] and os.listdir(str(tmp_path / "t")) in (
-        [], ["schema.json"])
     for make in (lambda: BackupWriter(target.h, object(), None, target.store, a),
                  lambda: RestoreJob(target.h, object(), None, a, m["id"]),
                  lambda: BackupScheduler(holder=target.h, cluster=object(), client=None,

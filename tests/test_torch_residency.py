@@ -44,7 +44,6 @@ from pilosa_tpu.exec import result_to_json as j_json
 from pilosa_tpu.parallel import MeshPlanner, make_mesh
 from pilosa_tpu_torch.core import FieldOptions as TFieldOptions
 from pilosa_tpu_torch.core import Holder as THolder
-from pilosa_tpu_torch.errors import NotPortedError
 from pilosa_tpu_torch.exec import Executor as TExecutor
 from pilosa_tpu_torch.exec import residency
 from pilosa_tpu_torch.exec import result_to_json as t_json
@@ -147,15 +146,21 @@ def test_byte_accounting_matches_jax():
 
 def test_kernel_table():
     """Every class registers every op of the dense class; the packed rows
-    are the port's wrappers, the sketch classes' raise NotPortedError."""
+    are the port's wrappers. The sketch classes raised NotPortedError until
+    the keys-and-sketches slice; now the hll row expands with the
+    hll_expand wrapper and the keyplane row counts on plane_lookup
+    (tests/test_torch_sketch.py and tests/test_torch_translate.py hold
+    both rows to the JAX functions)."""
     ops = {op for klass, op in residency.KERNELS if klass == residency.DENSE}
     assert set(residency.KERNELS) == {(k, op) for k in residency.REPR_CLASSES for op in ops}
     assert set(residency.KERNELS) == set(jres.KERNELS)
     assert residency.kernel(residency.PACKED, "count") is kernels.packed_count
     assert residency.kernel(residency.PACKED, "expand") is kernels.packed_expand
-    for klass in (residency.HLL, residency.KEYPLANE):
-        with pytest.raises(NotPortedError, match="keys and sketches"):
-            residency.kernel(klass, "count")(torch.zeros(1, dtype=torch.int32))
+    regs = torch.zeros((2, 16), dtype=torch.uint8)
+    assert float(residency.kernel(residency.HLL, "count")(regs)[0]) == float(
+        jres.kernel(jres.HLL, "count")(regs.numpy())[0])
+    plane = torch.tensor([[1, -1], [2, -1], [7, 0]], dtype=torch.int32)
+    assert int(residency.kernel(residency.KEYPLANE, "count")(plane)) == 1
     with pytest.raises(KeyError, match="no 'count' kernel.*'run'"):
         residency.kernel("run", "count")
 

@@ -361,7 +361,8 @@ def _served(path: str) -> bool:
         "/index/{index}/field/{field}/import-roaring/{shard}", "/debug/quarantine",
         "/debug/heap", "/debug/cache", "/internal/attr/blocks", "/internal/attr/data",
         "/debug/device", "/backup", "/backup/status", "/restore", "/restore/status",
-        "/internal/backup/keys", "/internal/backup/fragment", "/debug/backup"}
+        "/internal/backup/keys", "/internal/backup/fragment", "/debug/backup",
+        "/debug/translate", "/internal/translate/keys", "/internal/translate/entries"}
 
 
 def _unported_routes():
@@ -377,6 +378,34 @@ def _unported_routes():
     return out + [("POST", "/internal/import-stream")]
 
 
+def _keyed_index(nodes) -> None:
+    """Index ``kx`` (keyed) with keyed set field ``kf`` in both nodes, bits
+    imported by row and column keys (idempotent: a second call's creates
+    answer 409 on both nodes alike)."""
+    _same(nodes, "POST", "/index/kx", {"options": {"keys": True}})
+    _same(nodes, "POST", "/index/kx/field/kf", {"options": {"keys": True}})
+    rng = np.random.default_rng(SEED)
+    req = {"rowKeys": [f"r{i}" for i in rng.integers(0, 20, 500)],
+           "columnKeys": [f"c{i}" for i in rng.integers(0, 300, 500)]}
+    assert _same(nodes, "POST", "/index/kx/field/kf/import", req)[0] == 200
+
+
+@pytest.mark.parametrize("method,path,body", [
+    ("GET", "/debug/translate", None),
+    ("POST", "/internal/translate/keys", {"index": "kx", "field": "kf",
+                                          "keys": ["r3", "new-row", "r7"]}),
+    ("GET", "/internal/translate/entries?index=kx&field=kf&after=5", None),
+    ("GET", "/internal/translate/entries?index=kx&after=0", None),
+    ("POST", "/index/kx/query", 'Count(Row(kf="r1")) TopN(kf, n=4) Row(kf="r2")'),
+])
+def test_translate_routes_parity(nodes, method, path, body):
+    """The key-translation routes answered 501 until the keys-and-sketches
+    slice; now their bodies equal the JAX node's on the same keyed data."""
+    _keyed_index(nodes)
+    status, got = _same(nodes, method, path, body)
+    assert status == 200, got
+
+
 @pytest.mark.parametrize("method,path", _unported_routes())
 def test_unported_routes_answer_501(nodes, method, path):
     _, _, _, tc = nodes
@@ -388,18 +417,20 @@ def test_unported_routes_answer_501(nodes, method, path):
 
 
 def test_unported_query_features_answer_501(nodes):
-    """Keys, sketches and remote legs still answer 501. MinRow, GroupBy and
-    time fields (ROADMAP.md Queue 1 item 4a) answered 501 until that slice
-    and now answer as the JAX node does, byte for byte: a time field
-    created over HTTP on an index of its own, bits imported with
-    timestamps, a window read."""
+    """Remote legs still answer 501. MinRow, GroupBy and time fields
+    (ROADMAP.md Queue 1 item 4a), and keys and sketches (item 5) answered
+    501 until their slices and now answer as the JAX node does, byte for
+    byte: Count(Distinct) and SimilarTopN over the loaded data, a keyed
+    index created over HTTP, a time field created on an index of its own,
+    bits imported with timestamps, a window read."""
     _, _, _, tc = nodes
-    for path, q in (("/index/i/query", "Count(Distinct(field=v))"),
-                    ("/index/i/query?remote=true", "Row(f=0)")):
-        status, body, _ = tc("POST", path, q)
-        assert status == 501, (path, q, body)
-    status, _, _ = tc("POST", "/index/k", {"options": {"keys": True}})
-    assert status == 501
+    status, body, _ = tc("POST", "/index/i/query?remote=true", "Row(f=0)")
+    assert status == 501, body
+    for q in ("Count(Distinct(field=v))", "Count(Distinct(Row(f=1), field=v))",
+              "SimilarTopN(f, Row(g=0), n=3)"):
+        status, body = _same(nodes, "POST", "/index/i/query", q)
+        assert status == 200, (q, body)
+    assert _same(nodes, "POST", "/index/k", {"options": {"keys": True}})[0] == 200
     for path, q in (("/index/i/query", "MinRow(field=f)"),
                     ("/index/i/query?columnAttrs=true", "GroupBy(Rows(f))")):
         status, body = _same(nodes, "POST", path, q)
@@ -645,8 +676,6 @@ def test_node_defaults_to_the_card(monkeypatch):
     (["--join", "127.0.0.1:1"], "cluster and operations"),
     (["--scrub-interval", "1"], "cluster and operations"),
     (["--trace-endpoint", "http://127.0.0.1:1"], "cluster and operations"),
-    (["--translate-planes", "on"], "keys and sketches"),
-    (["--sketch-precision", "10"], "keys and sketches"),
 ])
 def test_cli_refuses_unported_flags(capsys, argv, slice_name):
     with pytest.raises(SystemExit) as e:
@@ -662,10 +691,14 @@ def test_cli_refuses_unported_flags(capsys, argv, slice_name):
     (["--backup-full-every", "3"], {"backup_full_every": 3}),
     (["--backup-keep-chains", "5"], {"backup_keep_chains": 5}),
     (["--ingest-transpose", "on"], {"ingest_transpose": "on"}),
+    (["--translate-planes", "on"], {"translate_planes": "on"}),
+    (["--sketch-precision", "10"], {"sketch_precision": 10}),
+    (["--sketch-exact-threshold", "7"], {"sketch_exact_threshold": 7}),
 ])
 def test_cli_accepts_ported_flags(monkeypatch, argv, kwargs):
-    """The backup flags and ``--ingest-transpose`` reach ServerNode with the
-    values the JAX CLI gives its node."""
+    """The backup flags, ``--ingest-transpose`` and the keys-and-sketches
+    flags (refused until that slice) reach ServerNode with the values the
+    JAX CLI gives its node."""
     from pilosa_tpu.server import node as j_node_mod
     from pilosa_tpu_torch.server import node as t_node_mod
 

@@ -33,7 +33,6 @@ from pilosa_tpu.storage.diskstore import DiskStore as JDiskStore
 from pilosa_tpu_torch.config import SHARD_WIDTH
 from pilosa_tpu_torch.core import FieldOptions, Holder
 from pilosa_tpu_torch.core.attrs import AttrStore
-from pilosa_tpu_torch.errors import NotPortedError
 from pilosa_tpu_torch.exec import Executor
 from pilosa_tpu_torch.obs import MemoryStats
 from pilosa_tpu_torch.server.api import API
@@ -151,8 +150,10 @@ def test_snapshot_trigger_on_max_op_n(tmp_path):
 
 
 def test_attrs_persist_and_translate_passes_through(tmp_path):
-    """Attr files load and flush back unchanged; a translate file the
-    port does not read stays byte for byte."""
+    """Attr files and a field's translate file load and flush back byte
+    for byte. Until the keys slice the port left translate files unread;
+    now the store reads the file's (id, key) lines and writes the same
+    framed lines back."""
     d = str(tmp_path / "data")
     h, store = make_holder(d)
     idx = h.create_index("i")
@@ -162,7 +163,7 @@ def test_attrs_persist_and_translate_passes_through(tmp_path):
     tpath = os.path.join(d, "i", "f", "translate.jsonl")
     store.close()
     with open(tpath, "w") as fh:
-        fh.write(frame_line('["alpha", 1]') + "\n")
+        fh.write(frame_line('[1, "alpha"]') + "\n" + frame_line('[3, "beta"]') + "\n")
     before = {p: open(p, "rb").read() for p in (
         tpath, os.path.join(d, "i", "f", "row_attrs.jsonl"),
         os.path.join(d, "i", "column_attrs.jsonl"))}
@@ -170,6 +171,9 @@ def test_attrs_persist_and_translate_passes_through(tmp_path):
     h2, store2 = make_holder(d)
     assert h2.field("i", "f").row_attr_store.attrs(1) == {"color": "red"}
     assert h2.index("i").column_attr_store.attrs(9) == {"name": "bob"}
+    ts = h2.field("i", "f").translate_store
+    assert ts.translate_keys(["alpha", "beta"], create=False) == [1, 3]
+    assert ts.entries_since(0) == JTranslateStore(tpath).entries_since(0)
     store2.close()
     assert {p: open(p, "rb").read() for p in before} == before
 
@@ -179,11 +183,12 @@ def test_attrs_persist_and_translate_passes_through(tmp_path):
     ({"type": "set", "keys": True}, "keys"),
 ])
 def test_unported_schema_refuses_to_open(tmp_path, options, slice_word):
-    """A data dir whose schema holds a keyed field (written by the JAX
-    package) refuses to open, naming the slice that ports it. A time field
-    refused too until ROADMAP.md Queue 1 item 4a; now the dir opens with
-    the JAX field's options and the rows of its time views
-    (tests/test_torch_fields.py crosses such dirs both ways)."""
+    """A data dir the JAX package wrote with a time field (refused until
+    ROADMAP.md Queue 1 item 4a) or a keyed field (refused until item 5,
+    keys and sketches) now opens with the JAX field's options, the rows of
+    its views and, for the keyed field, its translate store's entries
+    (tests/test_torch_fields.py and tests/test_torch_translate.py cross
+    such dirs both ways)."""
     d = str(tmp_path / "data")
     jh = JHolder()
     js = JDiskStore(d, jh)
@@ -193,14 +198,14 @@ def test_unported_schema_refuses_to_open(tmp_path, options, slice_word):
         import datetime as dt
         jf.import_bits([1, 1, 2], [3, SHARD_WIDTH + 5, 7],
                        [dt.datetime(2020, 1, 2), dt.datetime(2020, 3, 4), None])
+    else:
+        ids = jf.translate_store.translate_keys(["red", "green", "blue"])
+        jf.import_bits([ids[0], ids[0], ids[2]], [3, SHARD_WIDTH + 5, 7])
     js.close()
-    if slice_word != "time":
-        with pytest.raises(NotPortedError, match=slice_word):
-            make_holder(d)
-        return
     h, store = make_holder(d)
     f = h.field("i", "t")
     assert f.options.to_json() == jf.options.to_json()
+    assert f.translate_store.entries_since(0) == jf.translate_store.entries_since(0)
     assert f.view_names() == jf.view_names()
     for view in jf.view_names():
         for shard in jf.view(view).fragments:
