@@ -6,6 +6,7 @@
     python3 chip_smoke.py --group-count-vs DIR
     python3 chip_smoke.py --packed-vs DIR
     python3 chip_smoke.py --plane-scatter-vs DIR
+    python3 chip_smoke.py --sketch-vs DIR
     python3 chip_smoke.py --import-rule
 
 ``--tree-batched-vs DIR`` times only ``tree_count_batched`` on its two timed
@@ -20,7 +21,11 @@ launch here against DIR's slot-by-slot launches where DIR has no wave
 kernels, beside the one-launch floor (``packed_vs``); ``--plane-scatter-vs DIR``
 for ``plane_scatter`` at bench config 3's shard, a full shard and depth 40,
 each side through its own wrapper (a zero fill inside the time where it has
-one), beside the one-launch floor (``plane_scatter_vs``). ``--import-rule`` times
+one), beside the one-launch floor (``plane_scatter_vs``); ``--sketch-vs DIR`` for
+``hll_expand`` (the keys phase's shape, an all-ones filter, a filter with
+each shard's bits in one chunk, p = 16) and ``plane_lookup`` (65,536 and
+300 probes), beside the one-launch floor (``sketch_vs``; one side alone:
+``--sketch DIR``). ``--import-rule`` times
 the set-field import under the port's and the JAX package's scatter rules
 on one host
 (``import_rule_vs``). With no arguments the script builds the CUDA
@@ -720,6 +725,88 @@ def plane_scatter_vs(parent: str) -> int:
     for case in dict.fromkeys(c for c, _ in runs):
         rec = runs[(case, "this")][0]
         pair_summary(runs, case, "case", bound_ms(torch, rec["bytes"], 0, 0)[0], card)
+    return 0
+
+
+#: ``--sketch``'s cases: hll_expand at the keys phase's shape (a 5M-bit
+#: filter, p = 12), under an all-ones filter, under a filter with a
+#: shard's bits all in one chunk (as many a shard as the 5M-bit filter's),
+#: and at p = 16 (the in-place byte branch); plane_lookup on a 2^20-slot
+#: plane at 65,536 probes and at the keyed Union's 300; the one-launch
+#: floor (torch.zeros of 1024 int32).
+SKETCH_TIMED = ("hll_timed", "hll_ones", "hll_one_chunk", "hll_p16", "lookup_65536",
+                "lookup_300", "floor")
+
+
+def sketch_times(repo: str) -> int:
+    """``--sketch REPO``: time ``kernels.hll_expand`` and
+    ``kernels.plane_lookup`` of the package in REPO on SKETCH_TIMED, each
+    through the package's own wrapper and first held exactly to its plain
+    version, inputs made on the card from SEED. One JSON object per case:
+    the kernel's ms by CUDA events after the device spin, the host's median
+    and longest enqueue of one call, and the case's bytes and logic ops
+    (``hll_expand_work``, ``plane_lookup_bytes``)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(repo))
+    from pilosa_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda")
+
+    def t(words):
+        return torch.from_numpy(np.ascontiguousarray(words).view(np.int32)).to(dev)
+
+    rows = HLL_TIMED_ROWS
+    timed = t(filter_words(rows, BSI_FILTER_BITS, SEED))
+    filters = {"hll_timed": timed, "hll_ones": t(hll_filter("ones", rows, SEED)),
+               "hll_one_chunk": t(chunk_words(rows, BSI_FILTER_BITS // rows, SEED))}
+
+    def emit(case, fn, plain_fn, nbytes, logic):
+        if not torch.equal(fn(), plain_fn()):
+            raise AssertionError(f"{repo}: {case}: the kernel differs from the plain version")
+        torch.cuda.empty_cache()  # the plain version's scratch
+        host = host_enqueue_times(torch, fn, KERNEL_RUNS)
+        print(json.dumps({"case": case, "ms": time_cuda_ms(torch, fn, KERNEL_RUNS),
+                          "host_ms": statistics.median(host), "host_ms_max": max(host),
+                          "bytes": nbytes, "logic": logic}), flush=True)
+
+    for p, cases in ((HLL_TIMED_P, ("hll_timed", "hll_ones", "hll_one_chunk")),
+                     (16, ("hll_p16",))):
+        packed = hll_planes(torch, rows, p, BSI_DENSITY, dev, SEED)
+        for case in cases:
+            filt = filters.get(case, timed)
+            nbytes, logic, _ = hll_expand_work(torch, filt, p)
+            emit(case, lambda packed=packed, filt=filt, p=p: kernels.hll_expand(packed, filt, p),
+                 lambda packed=packed, filt=filt, p=p: kernels.hll_expand_plain(packed, filt, p),
+                 nbytes, logic)
+        del packed
+        torch.cuda.empty_cache()
+    for case, q in (("lookup_65536", 65536), ("lookup_300", 300)):
+        mat, phi, plo = key_plane(1 << 20, q, SEED)
+        plane, ph, pl = t(mat), t(phi), t(plo)
+        emit(case, lambda plane=plane, ph=ph, pl=pl: kernels.plane_lookup(plane, ph, pl),
+             lambda plane=plane, ph=ph, pl=pl: kernels.plane_lookup_plain(plane, ph, pl),
+             plane_lookup_bytes(torch, plane, ph, pl), 0)
+    emit("floor", lambda: torch.zeros(1024, dtype=torch.int32, device=dev),
+         lambda: torch.zeros(1024, dtype=torch.int32, device=dev), 4096, 0)
+    return 0
+
+
+def sketch_vs(parent: str) -> int:
+    """``--sketch-vs DIR``: ``--sketch`` of DIR against this checkout's, in
+    ``paired_runs``; then ``pair_summary`` per case (the floor's too),
+    against its bound."""
+    import torch
+
+    runs = paired_runs("--sketch", parent, "case")
+    card = card_line()
+    for case in dict.fromkeys(c for c, _ in runs):
+        rec = runs[(case, "this")][0]
+        pair_summary(runs, case, "case", bound_ms(torch, rec["bytes"], rec["logic"], 0)[0],
+                     card)
     return 0
 
 
@@ -1574,16 +1661,39 @@ def check_plane_scatter(torch, kernels, dev, errs) -> tuple:
     return timed
 
 
-#: hll_expand's checks (p, shards, share of the columns present): the
-#: shared-memory branch (p <= 14) and the in-place byte branch above it,
-#: at the precisions Count(Distinct) takes (4 to 18); the second and the
-#: fourth under a sparse filter, whose empty 32-byte sectors are skipped.
-HLL_CHECKS = ((4, 64, 0.02), (12, 64, 0.02), (14, 16, 0.5), (16, 64, 0.02), (18, 17, 0.3))
+#: hll_expand's checks (p, shards, share of the columns present, filter:
+#: ``hll_filter``'s kind): the shared-memory branch (p <= 14) and the
+#: in-place byte branch above it, at the precisions Count(Distinct) takes
+#: (4 to 18); sparse filters (a short gather list a chunk), filters with
+#: all-ones, sign-bit-only and zero words, an empty and an all-ones filter
+#: (every chunk read whole), all bits in one chunk (its list near the cap,
+#: and past it), every other shard's plane empty, and a plane of 3,104 words
+#: a shard (a whole chunk and a short one).
+HLL_CHECKS = ((4, 64, 0.02, "seeded"), (12, 64, 0.02, "sparse"), (14, 16, 0.5, "seeded"),
+              (16, 64, 0.02, "sparse"), (18, 17, 0.3, "seeded"), (15, 16, 0.02, "sparse"),
+              (12, 8, 0.3, "zero"), (12, 8, 0.3, "ones"), (18, 4, 0.3, "ones"),
+              (12, 8, 0.3, "chunk_list"), (14, 8, 0.3, "chunk_dense"),
+              (12, 8, 0.3, "absent"), (15, 8, 0.3, "narrow"))
+#: filter kinds that ``hll_filter`` makes: bits in chunk 1 (words 2048 to
+#: 4095 of a shard, the kernel's kChunkWords) only, this many a shard;
+#: "chunk_list" sets about 1,900 of the chunk's 16,384 nibbles (under the
+#: kernel's list cap of 4,096), "chunk_dense" about 5,200 (past it).
+HLL_CHUNK_BITS = {"chunk_list": 2000, "chunk_dense": 6000}
+HLL_CHUNK = (2048, 4096)
+#: the "narrow" kind's words a shard.
+HLL_NARROW_WORDS = 3104
 #: the keys phase's precision, and its plane stack's shards (954 padded).
 HLL_TIMED_P = 12
 HLL_TIMED_ROWS = 1024
-#: the key-plane checks: (plane slots, probes); the last is the timed one.
-KEYPLANE_CHECKS = ((1, 7), (8, 100), (1000, 5000), (1 << 20, 65536))
+#: the key-plane checks: (plane slots, probes, padded to a power of two,
+#: runs: ``key_plane``'s hash 0, a run of equal hashes and a run of equal
+#: high words across the kernel's fences); the last is the timed one. One
+#: slot and 1,000 unpadded, below the kernel's 8,192 fences; 393,221 (not a
+#: power of two, 6,145 fences of 64 slots) and 2^14 with runs.
+KEYPLANE_CHECKS = ((1, 7, True, False), (8, 100, True, False), (1000, 5000, True, False),
+                   (1, 7, False, False), (1000, 5000, False, False),
+                   (393221, 20000, False, True), (1 << 14, 5000, True, True),
+                   (1 << 20, 65536, True, True), (1 << 20, 65536, True, False))
 #: similar_count's checks: [R, S, W] cubes; the first is the timed one (the
 #: keys phase's SimilarTopN cube, 1 GiB, SIM_CUBE_MAX_BYTES).
 SIM_CHECKS = ((8, 1024, 32768), (3, 5, 96), (1, 1, 32))
@@ -1615,26 +1725,83 @@ def filter_words(rows: int, n_bits: int, seed: int) -> np.ndarray:
     return words.reshape(rows, SHARD_WORDS)
 
 
-def key_plane(h: int, q: int, seed: int):
-    """A [3, h + pad] uint32 key plane of ``h`` random 64-bit hashes
-    sorted as unsigned (three slots sharing one hash, a real slot at
-    2^64 - 1 beside the padding, whose id is MISS), and probe halves: q / 2
-    present hashes, q / 2 absent, and the padding hash."""
+def chunk_words(rows: int, bits: int, seed: int) -> np.ndarray:
+    """[rows, W] uint32 words with ``bits`` random column bits a row set,
+    all inside words HLL_CHUNK of the row."""
+    rng = np.random.default_rng(seed)
+    words = np.zeros((rows, SHARD_WORDS), dtype=np.uint32)
+    lo, hi = HLL_CHUNK
+    pos = rng.integers(lo * 32, hi * 32, (rows, bits), dtype=np.int64)
+    flat = words.reshape(-1)
+    pos = (pos + (np.arange(rows, dtype=np.int64) * SHARD_WORDS * 32)[:, None]).reshape(-1)
+    np.bitwise_or.at(flat, pos >> 5, np.left_shift(np.uint32(1), (pos & 31).astype(np.uint32)))
+    return words
+
+
+def hll_filter(kind: str, rows: int, seed: int) -> np.ndarray:
+    """[rows, W] uint32 filter words of one HLL_CHECKS kind: "seeded"
+    (``seeded_words``: random, all-ones, sign-bit-only and zero words and
+    rows; "absent" and "narrow" too), "sparse" (5,000 bits a shard, the
+    keys phase's density), "zero", "ones", or bits in one chunk
+    (HLL_CHUNK_BITS)."""
+    if kind in ("seeded", "absent", "narrow"):
+        return seeded_words(np.random.default_rng(seed), (rows, SHARD_WORDS))
+    if kind == "sparse":
+        return filter_words(rows, rows * 5000, seed)
+    if kind in ("zero", "ones"):
+        return np.full((rows, SHARD_WORDS), 0xFFFFFFFF if kind == "ones" else 0, np.uint32)
+    return chunk_words(rows, HLL_CHUNK_BITS[kind], seed)
+
+
+def hll_case_inputs(kind: str, packed, filt):
+    """The planes and filter of an HLL_CHECKS case from full-width ones:
+    "absent" empties every other shard's plane, "narrow" keeps the first
+    HLL_NARROW_WORDS words a shard. Works on numpy arrays and tensors."""
+    if kind == "absent":
+        packed = packed.copy() if isinstance(packed, np.ndarray) else packed.clone()
+        packed[1::2] = 0
+    elif kind == "narrow":
+        w = HLL_NARROW_WORDS
+        packed, filt = packed[:, :32 * w], filt[:, :w]
+        if not isinstance(packed, np.ndarray):
+            packed, filt = packed.contiguous(), filt.contiguous()
+    return packed, filt
+
+
+def key_plane(h: int, q: int, seed: int, pad: bool = True, runs: bool = False):
+    """A [3, H] uint32 key plane of ``h`` random 64-bit hashes sorted as
+    unsigned (three slots sharing one hash, a real slot at 2^64 - 1), padded
+    to a power of two of at least 8 slots with the padding hash (id MISS)
+    unless ``pad`` is false (H = h), and probe halves: q / 2 present
+    hashes, absent ones, 0 and the padding hash. ``runs`` (h >= 6000) also
+    makes hash 0 real, slots 1000-1299 one hash and slots 5000-5399 one
+    high word (sorted low words), and probes the first, the middle of the
+    second and 0 among the present ones and the second's high word with an
+    absent low word among the absent ones."""
     rng = np.random.default_rng(seed)
     hashes = np.sort(rng.integers(0, 2**64 - 1, h, dtype=np.uint64, endpoint=True))
     if h > 4:
         hashes[1:4] = hashes[1]
     hashes[-1] = np.uint64(2**64 - 1)
-    pad = 1 << max(0, (h - 1).bit_length())
-    mat = np.zeros((3, max(8, pad)), dtype=np.uint32)
+    high = np.uint64(0xFFFFFFFF) << np.uint64(32)
+    if runs:
+        hashes[0] = 0
+        hashes[1000:1300] = hashes[1000]
+        hashes[5000:5400] = (hashes[5000] & high) | np.sort(
+            rng.integers(1, 2**32, 400, dtype=np.uint64))
+        hashes.sort()
+    width = max(8, 1 << max(0, (h - 1).bit_length())) if pad else h
+    mat = np.zeros((3, width), dtype=np.uint32)
     mat[:2, :] = 0xFFFFFFFF
     mat[0, :h] = (hashes >> np.uint64(32)).astype(np.uint32)
     mat[1, :h] = (hashes & np.uint64(0xFFFFFFFF)).astype(np.uint32)
     mat[2, :h] = np.arange(1, h + 1, dtype=np.uint32)
-    probes = np.concatenate([hashes[rng.integers(0, h, q // 2)],
-                             rng.integers(0, 2**64 - 1, q - q // 2 - 1, dtype=np.uint64,
-                                          endpoint=True),
-                             np.array([2**64 - 1], dtype=np.uint64)])
+    present = hashes[rng.integers(0, h, q // 2)]
+    absent = rng.integers(0, 2**64 - 1, q - q // 2 - 2, dtype=np.uint64, endpoint=True)
+    if runs:
+        present[:3] = hashes[1000], hashes[5200], 0
+        absent[0] = hashes[5000] & high  # low word 0: below the run's
+    probes = np.concatenate([present, absent, np.array([0, 2**64 - 1], dtype=np.uint64)])
     return (mat, (probes >> np.uint64(32)).astype(np.uint32),
             (probes & np.uint64(0xFFFFFFFF)).astype(np.uint32))
 
@@ -1691,17 +1858,17 @@ def check_sketch_kernels(torch, kernels, t, dev, errs) -> None:
     """hll_expand, hll_reduce, similar_count and plane_lookup against their
     plain versions on the card, exact, on HLL_CHECKS, SIM_CHECKS and
     KEYPLANE_CHECKS (and hll_reduce on one and on 1024 rows)."""
-    for i, (p, rows, density) in enumerate(HLL_CHECKS):
-        packed = hll_planes(torch, rows, p, density, dev, SEED + i)
-        filt = t(filter_words(rows, rows * 5000, SEED + i) if i % 2 else
-                 seeded_words(np.random.default_rng(SEED + i), (rows, SHARD_WORDS)))
+    for i, (p, rows, density, kind) in enumerate(HLL_CHECKS):
+        packed, filt = hll_case_inputs(kind, hll_planes(torch, rows, p, density, dev, SEED + i),
+                                       t(hll_filter(kind, rows, SEED + i)))
         got = kernels.hll_expand(packed, filt, p)
         want = kernels.hll_expand_plain(packed, filt, p)
         torch.cuda.synchronize()
         err = int((got.int() - want.int()).abs().max())
         errs["hll_expand"] = max(errs["hll_expand"], err)
         if got.shape != want.shape or got.dtype != torch.uint8 or err:
-            raise AssertionError(f"hll_expand p={p} [{rows}, 2^20]: max |err| {err}")
+            raise AssertionError(f"hll_expand p={p} {kind} {list(packed.shape)}: "
+                                 f"max |err| {err}")
         for regs in (got, got[:1]):
             r_got, r_want = kernels.hll_reduce(regs), kernels.hll_reduce_plain(regs)
             torch.cuda.synchronize()
@@ -1724,17 +1891,18 @@ def check_sketch_kernels(torch, kernels, t, dev, errs) -> None:
         if err:
             raise AssertionError(f"similar_count [{r}, {s}, {w}]: max |err| {err}")
         del cube
-    for h, q in KEYPLANE_CHECKS:
-        mat, phi, plo = key_plane(h, q, SEED + h)
+    for h, q, pad, runs in KEYPLANE_CHECKS:
+        mat, phi, plo = key_plane(h, q, SEED + h, pad, runs)
         plane, ph, pl = t(mat), t(phi), t(plo)
         got, want = kernels.plane_lookup(plane, ph, pl), kernels.plane_lookup_plain(plane, ph, pl)
         torch.cuda.synchronize()
         err = int((got != want).sum())
         errs["plane_lookup"] = max(errs["plane_lookup"], err)
         if err or int((got[:q // 2] == 0).sum()):
-            raise AssertionError(f"plane_lookup H={h} Q={q}: {err} ids differ")
-    log("sketch and key-plane kernels: exact on hll_expand at p = "
-        f"{', '.join(str(c[0]) for c in HLL_CHECKS)}, hll_reduce, "
+            raise AssertionError(f"plane_lookup H={mat.shape[1]} Q={q} runs={runs}: "
+                                 f"{err} ids differ")
+    log("sketch and key-plane kernels: exact on hll_expand at "
+        f"{', '.join(f'p = {c[0]} {c[3]}' for c in HLL_CHECKS)}; hll_reduce, "
         f"similar_count on {len(SIM_CHECKS)} cubes, plane_lookup on "
         f"{len(KEYPLANE_CHECKS)} planes")
 
@@ -1806,8 +1974,8 @@ def sketch_kernel_timings(torch, kernels, t, dev, card: str) -> dict:
           (r + 1) * s * w * 4 + (2 * r + 1) * 4, 3 * r * s * w, (2 * r + 1) * s * w)
     del cube, sfilt
     torch.cuda.empty_cache()
-    h, q = KEYPLANE_CHECKS[-1]
-    mat, phi, plo = key_plane(h, q, SEED)
+    h, q, pad, runs = KEYPLANE_CHECKS[-1]
+    mat, phi, plo = key_plane(h, q, SEED, pad, runs)
     plane, ph, pl = t(mat), t(phi), t(plo)
     lib_call = plane_lookup_library(torch, plane, ph, pl)
     if not torch.equal(lib_call(), kernels.plane_lookup(plane, ph, pl)):
@@ -5557,6 +5725,10 @@ if __name__ == "__main__":
         sys.exit(plane_scatter_times(sys.argv[2]))
     if sys.argv[1:2] == ["--plane-scatter-vs"] and len(sys.argv) == 3:
         sys.exit(plane_scatter_vs(sys.argv[2]))
+    if sys.argv[1:2] == ["--sketch"] and len(sys.argv) == 3:
+        sys.exit(sketch_times(sys.argv[2]))
+    if sys.argv[1:2] == ["--sketch-vs"] and len(sys.argv) == 3:
+        sys.exit(sketch_vs(sys.argv[2]))
     if sys.argv[1:] == ["--import-rule"]:
         sys.exit(import_rule_vs())
     if sys.argv[1:2] == ["--import-rule-side"] and len(sys.argv) == 3:

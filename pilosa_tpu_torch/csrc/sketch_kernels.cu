@@ -29,21 +29,48 @@
 // two popcounts and an AND a word.
 //
 // What the designs do about it:
-//  * hll_expand: one block a shard. A warp takes 32 filter words (1024
-//    columns) at a time: lane l loads filter word l, a ballot skips the
-//    whole group when no bit is set, and otherwise lane l takes the filter
-//    bits of columns j * 128 + 4 l .. +3 for j < 8 from the owning lane by
-//    shuffle and loads those four packed entries (16 bytes) only where one
-//    of the four bits is set, so the plane's 32-byte sectors that hold no
-//    filtered column are never read. Zero entries (absent columns) are
-//    skipped. Where 2^p 32-bit registers fit in shared memory (p <= 14,
-//    64 KiB), the block keeps its shard's register file there, maxes with
-//    shared atomicMax and narrows it to bytes at the end, every output
-//    byte written once. For p = 15..18 (128 KiB to 1 MiB of 32-bit
+//  * hll_expand: one block a shard, 512 threads. Its first form walked
+//    1,024-column groups a warp at a time, each gather waiting on the
+//    group's filter load and each register update before the next gather,
+//    so a warp kept about one load in flight (0.358 ms at the keys phase's
+//    shape, a quarter of its bound). Now the filter streams and the
+//    gathers are issued in rounds:
+//    - Thread 0 keeps the shard's filter flowing through a ring of
+//      kStages shared-memory stages of kChunkWords words (8 KiB, 65,536
+//      columns), one bulk copy (cp.async.bulk, bulk_ring.cuh) a stage on
+//      its own mbarrier, the next chunk landing while one is in work; a
+//      stage is refilled after the block's barrier at the end of its
+//      round, so no "empty" barrier is needed.
+//    - A round takes one chunk. Each thread counts the non-zero nibbles
+//      (4 columns: 16 bytes of the plane) of its four filter words, a
+//      warp scan and the warps' totals give each its offset, and it writes
+//      its nibbles' indices, in address order, to a shared list.
+//    - Every thread then takes list entries kThreads apart and issues up
+//      to kBatch independent 16-byte plane loads (ld.global.nc with
+//      L1::no_allocate: each sector is read once) before it updates any
+//      register, so a round's gathers are all in flight at once, while
+//      the next chunk's filter copy lands.
+//    - A chunk whose set nibbles pass kListCap (a quarter of them) is
+//      dense: the block skips the list and reads the chunk's plane span
+//      in order, 16 bytes a thread and kBatch loads a thread in flight,
+//      so an all-ones filter streams the plane near HBM's streaming rate.
+//      The choice is made per chunk from the count the scan already has.
+//    - An all-zero filter row (pad shards) costs its filter read and the
+//      scans, no gather.
+//    Registers: where 2^p 32-bit registers fit beside the ring (p <= 14,
+//    64 KiB) the block keeps its shard's register file in shared memory,
+//    maxes with shared atomicMax and narrows it to bytes at the end, each
+//    output word written once. For p = 15..18 (128 KiB to 1 MiB of 32-bit
 //    registers, past the 227 KiB a block may hold) the block zeroes its
 //    own output row and maxes bytes in place with a compare-and-swap on
 //    the aligned 32-bit word holding the byte: exact, and no other block
-//    touches the row, so no grid-wide ordering is needed.
+//    touches the row, so no grid-wide ordering is needed. Sizes, timed on
+//    the card against 256 and 1,024 threads (chunks of 1,024 and 4,096
+//    words), 3 stages, 8 loads a thread and a list cap of half a chunk
+//    (scripts/sketch_probe.py): 8 KiB stages keep a round's list (about
+//    320 nibbles at the keys phase's 5M-bit filter) near a thread's worth
+//    of loads a block, and at p = 12 a block takes 40 KiB of shared memory
+//    and 32 registers a thread, so four blocks share an SM.
 //  * hll_reduce: a block owns 32 words (128 registers) of the row; its 32
 //    warps split the shard rows (warp w takes rows w, w + 32, ...), lane l
 //    word l, and fold them with __vmaxu4 (4 byte maxes an instruction),
@@ -61,12 +88,27 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bulk_ring.cuh"
+
 namespace {
 
 constexpr int kRhoShift = 18;
 constexpr uint32_t kBucketMask = (1u << kRhoShift) - 1u;
 constexpr int kExpandThreads = 512;
 constexpr int kSharedMaxP = 14;
+// The filter ring: kStages stages of kChunkWords words; a thread scans
+// kChunkWords / kExpandThreads = 4 words of a chunk.
+constexpr int kChunkWords = 2048;
+constexpr int kStages = 2;
+// The list holds at most a quarter of a chunk's nibbles; past that the
+// chunk is read whole.
+constexpr int kListCap = kChunkWords * 8 / 4;
+// Plane loads a thread issues before it updates any register.
+constexpr int kBatch = 4;
+constexpr size_t kRingBytes = sizeof(uint32_t) * kStages * kChunkWords;
+constexpr size_t kListBytes = sizeof(uint16_t) * kListCap;
+static_assert(kChunkWords == 4 * kExpandThreads, "a thread scans one uint4 of a chunk");
+static_assert(kChunkWords * 8 <= 65536, "nibble indices are uint16");
 
 // Byte-wise max of `v` into the byte at `p`, exact under concurrency: a
 // compare-and-swap on the aligned 32-bit word that holds it.
@@ -98,52 +140,139 @@ __device__ __forceinline__ void observe(int32_t entry, uint32_t bit, uint32_t m,
     byte_max(row + bucket, rho & 0xffu);
 }
 
+// Bit 4 j of the result is set where nibble j of `w` is not zero.
+__device__ __forceinline__ uint32_t nibble_mask(uint32_t w) {
+  w |= w >> 1;
+  w |= w >> 2;
+  return w & 0x11111111u;
+}
+
+// 16 plane bytes read once: no L1 line kept for them.
+__device__ __forceinline__ int4 load_once(const int32_t* p) {
+  int4 v;
+  asm("ld.global.nc.L1::no_allocate.v4.s32 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
+}
+
 template <bool SHARED>
 __global__ void __launch_bounds__(kExpandThreads)
     hll_expand_kernel(const int32_t* __restrict__ packed,
                       const uint32_t* __restrict__ filt, uint8_t* __restrict__ out,
                       int64_t words, int p) {
-  extern __shared__ unsigned int sregs[];
+  extern __shared__ __align__(128) uint32_t ring[];
+  auto* list = reinterpret_cast<uint16_t*>(ring + kStages * kChunkWords);
+  auto* sregs = reinterpret_cast<unsigned int*>(list + kListCap);
+  __shared__ uint64_t full[kStages];
+  __shared__ int warp_total[kExpandThreads / 32];
   const int64_t s = blockIdx.x;
   const uint32_t m = 1u << p;
   uint8_t* row = out + s * static_cast<int64_t>(m);
-  if (SHARED) {
-    for (uint32_t i = threadIdx.x; i < m; i += blockDim.x) sregs[i] = 0u;
-  } else {
-    // m >= 2^15 here: the row is whole 16-byte words.
-    for (uint32_t i = threadIdx.x; i < m / 16; i += blockDim.x)
-      reinterpret_cast<uint4*>(row)[i] = make_uint4(0u, 0u, 0u, 0u);
-  }
-  __syncthreads();
   const int32_t* prow = packed + s * words * 32;
   const uint32_t* frow = filt + s * words;
+  const int chunks = static_cast<int>((words + kChunkWords - 1) / kChunkWords);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  const int64_t groups = words / 32;
-  for (int64_t g = warp; g < groups; g += n_warps) {
-    const int64_t w0 = g * 32;
-    const uint32_t fw = __ldg(frow + w0 + lane);
-    if (__ballot_sync(0xffffffffu, fw != 0u) == 0u) continue;
-    // Column j * 128 + 4 * lane + k of the group sits in filter word
-    // j * 4 + lane / 8, bit (4 * lane + k) & 31.
-    const int4* base = reinterpret_cast<const int4*>(prow + w0 * 32);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const uint32_t word = __shfl_sync(0xffffffffu, fw, j * 4 + (lane >> 3));
-      const uint32_t bits = (word >> ((4 * lane) & 31)) & 0xfu;
-      if (!bits) continue;
-      const int4 e = __ldg(base + j * 32 + lane);
-      observe<SHARED>(e.x, bits & 1u, m, sregs, row);
-      observe<SHARED>(e.y, (bits >> 1) & 1u, m, sregs, row);
-      observe<SHARED>(e.z, (bits >> 2) & 1u, m, sregs, row);
-      observe<SHARED>(e.w, (bits >> 3) & 1u, m, sregs, row);
-    }
+
+  auto issue = [&](int c) {  // chunk c of the filter into its stage
+    const int64_t w0 = static_cast<int64_t>(c) * kChunkWords;
+    const uint32_t bytes = static_cast<uint32_t>(
+        (words - w0 < kChunkWords ? words - w0 : kChunkWords) * sizeof(uint32_t));
+    uint64_t* bar = &full[c % kStages];
+    mbar_expect_tx(bar, bytes);
+    bulk_load(ring + (c % kStages) * kChunkWords, frow + w0, bytes, bar);
+  };
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < kStages; ++k) mbar_init(&full[k], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int c = 0; c < kStages && c < chunks; ++c) issue(c);
   }
   if (SHARED) {
+    for (uint32_t i = threadIdx.x; i < m; i += kExpandThreads) sregs[i] = 0u;
+  } else {
+    // m >= 2^15 here: the row is whole 16-byte words.
+    for (uint32_t i = threadIdx.x; i < m / 16; i += kExpandThreads)
+      reinterpret_cast<uint4*>(row)[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  __syncthreads();  // the barriers' init and the zeroed registers seen by all
+
+  for (int c = 0; c < chunks; ++c) {
+    const uint32_t* fw = ring + (c % kStages) * kChunkWords;
+    const int64_t w0c = static_cast<int64_t>(c) * kChunkWords;
+    const int cw = static_cast<int>(words - w0c < kChunkWords ? words - w0c : kChunkWords);
+    mbar_wait(&full[c % kStages], static_cast<uint32_t>((c / kStages) & 1));
+
+    // The chunk's non-zero nibbles: this thread's four words, its offset.
+    const int t0 = threadIdx.x * 4;
+    const uint4 v = t0 < cw ? *reinterpret_cast<const uint4*>(fw + t0) : make_uint4(0, 0, 0, 0);
+    const uint32_t nz[4] = {nibble_mask(v.x), nibble_mask(v.y), nibble_mask(v.z),
+                            nibble_mask(v.w)};
+    const int n = __popc(nz[0]) + __popc(nz[1]) + __popc(nz[2]) + __popc(nz[3]);
+    int incl = n;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int up = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl += up;
+    }
+    if (lane == 31) warp_total[warp] = incl;
     __syncthreads();
-    for (uint32_t i = threadIdx.x; i < m; i += blockDim.x)
-      row[i] = static_cast<uint8_t>(sregs[i]);
+    int total = 0, off = incl - n;
+#pragma unroll
+    for (int k = 0; k < kExpandThreads / 32; ++k) {
+      const int wt = warp_total[k];
+      total += wt;
+      if (k < warp) off += wt;
+    }
+    const bool dense = total > kListCap;  // the same for every thread
+    if (total == 0) {
+      __syncthreads();  // warp_total and the stage free
+      if (threadIdx.x == 0 && c + kStages < chunks) issue(c + kStages);
+      continue;
+    }
+    if (!dense) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        for (uint32_t b = nz[k]; b; b &= b - 1)
+          list[off++] = static_cast<uint16_t>((t0 + k) * 8 + ((__ffs(b) - 1) >> 2));
+      __syncthreads();
+    }
+
+    // The round's gathers: kBatch loads in flight a thread, then the
+    // register updates.
+    const int items = dense ? cw * 8 : total;
+    const int32_t* pc = prow + w0c * 32;
+    for (int base = threadIdx.x; base < items; base += kExpandThreads * kBatch) {
+      int4 e[kBatch];
+      uint32_t bits[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = base + u * kExpandThreads;
+        bits[u] = 0u;
+        e[u] = make_int4(0, 0, 0, 0);
+        if (i < items) {
+          const int nib = dense ? i : list[i];
+          bits[u] = (fw[nib >> 3] >> ((nib & 7) * 4)) & 0xfu;
+          if (bits[u]) e[u] = load_once(pc + nib * 4);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        observe<SHARED>(e[u].x, bits[u] & 1u, m, sregs, row);
+        observe<SHARED>(e[u].y, (bits[u] >> 1) & 1u, m, sregs, row);
+        observe<SHARED>(e[u].z, (bits[u] >> 2) & 1u, m, sregs, row);
+        observe<SHARED>(e[u].w, (bits[u] >> 3) & 1u, m, sregs, row);
+      }
+    }
+    __syncthreads();  // the stage, the list and warp_total free
+    if (threadIdx.x == 0 && c + kStages < chunks) issue(c + kStages);
+  }
+  if (SHARED) {
+    // m >= 16: the row is whole 32-bit words, each written once.
+    for (uint32_t i = threadIdx.x; i < m / 4; i += kExpandThreads) {
+      const uint4 r = *reinterpret_cast<const uint4*>(sregs + 4 * i);
+      reinterpret_cast<uint32_t*>(row)[i] = r.x | (r.y << 8) | (r.z << 16) | (r.w << 24);
+    }
   }
 }
 
@@ -235,8 +364,8 @@ __global__ void __launch_bounds__(kSimThreads)
 
 // out[s, :] = the 2^p uint8 registers of shard s's columns whose bit is set
 // in filt[s]: packed is [S, 32 * words] int32 (bucket | rho << 18, 0 for
-// an absent column), filt [S, words] int32 bit patterns, both contiguous,
-// packed 16-byte aligned, words a positive multiple of 32; out [S, 2^p]
+// an absent column), filt [S, words] int32 bit patterns, both contiguous
+// and 16-byte aligned, words a positive multiple of 32; out [S, 2^p]
 // uint8, contiguous, written whole (no zeroing needed). 4 <= p <= 18.
 // Returns cudaGetLastError() after the launch.
 extern "C" int pilosa_hll_expand(const void* packed, const void* filt, void* out,
@@ -248,8 +377,9 @@ extern "C" int pilosa_hll_expand(const void* packed, const void* filt, void* out
   const auto* pf = static_cast<const uint32_t*>(filt);
   auto* po = static_cast<uint8_t*>(out);
   const dim3 grid(static_cast<unsigned int>(rows));
-  if (p <= kSharedMaxP) {
-    const size_t smem = sizeof(unsigned int) << p;
+  const bool shared = p <= kSharedMaxP;
+  const size_t smem = kRingBytes + kListBytes + (shared ? sizeof(unsigned int) << p : 0);
+  if (shared) {
     if (smem > 48 * 1024) {
       cudaError_t err = cudaFuncSetAttribute(hll_expand_kernel<true>,
                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -258,7 +388,7 @@ extern "C" int pilosa_hll_expand(const void* packed, const void* filt, void* out
     }
     hll_expand_kernel<true><<<grid, kExpandThreads, smem, s>>>(pk, pf, po, words, p);
   } else {
-    hll_expand_kernel<false><<<grid, kExpandThreads, 0, s>>>(pk, pf, po, words, p);
+    hll_expand_kernel<false><<<grid, kExpandThreads, smem, s>>>(pk, pf, po, words, p);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,14 +10,15 @@ builds, per translate store, a version-stamped *key plane*
     parallel [H] id lane
 
 probed on the device by the ``plane_lookup`` kernel (ops/kernels.py,
-csrc/keyplane_kernels.cu): one thread a probe, a leftmost binary search
-over the hash. The 64-bit hash lane is stored as two 32-bit lanes (hi,
-lo), so the plane is ONE ``[3, H]`` int32 tensor of uint32 bit patterns
-(compared as unsigned by the kernel) -- a single stack-cache resident the
-planner accounts like any other representation class (``KEYPLANE`` in
-exec/residency.py, inserted through ``Planner._insert_stack`` and rebuilt
-on the residency prefetcher after a translate-version bump). The planes
-are bit-equal to the JAX package's.
+csrc/keyplane_kernels.cu): one thread a probe, a leftmost search over
+the hash (fences in shared memory, then interpolated sector reads). The
+64-bit hash lane is stored as two 32-bit lanes (hi, lo), so the plane is
+ONE ``[3, H]`` int32 tensor of uint32 bit patterns (compared as unsigned
+by the kernel) -- a single stack-cache resident the planner accounts like
+any other representation class (``KEYPLANE`` in exec/residency.py,
+inserted through ``Planner._insert_stack`` and rebuilt on the residency
+prefetcher after a translate-version bump). The planes are bit-equal to
+the JAX package's.
 
 Fingerprint semantics (documented contract, same as any PHF): the 64-bit
 hash IS the identity test on the device. Keys whose hashes collide

@@ -1609,8 +1609,10 @@ def hll_expand(packed: torch.Tensor, filt: torch.Tensor, p: int) -> torch.Tensor
     """The ``[S, 2^p]`` uint8 HLL registers of each shard's filtered
     columns: ``packed`` is the ``[S, 32 W]`` int32 plane of ``bucket | rho
     << 18`` entries (0 for an absent column), ``filt`` the ``[S, W]`` int32
-    filter words. One launch on the card; every output byte is written by
-    the kernel (no zero fill ahead of it)."""
+    filter words. One launch on the card: a block a shard streams its
+    filter through shared memory and gathers only the plane's 16-byte
+    spans that hold a filtered column; every output byte is written by the
+    kernel (no zero fill ahead of it)."""
     p = _check_p(p)
     _check_words(packed, "packed")
     _check_words(filt, "filt")
@@ -1627,7 +1629,7 @@ def hll_expand(packed: torch.Tensor, filt: torch.Tensor, p: int) -> torch.Tensor
     out = torch.empty((rows, 1 << p), dtype=torch.uint8, device=packed.device)
     if rows == 0:
         return out
-    packed, filt = _aligned(packed), filt.contiguous()
+    packed, filt = _aligned(packed), _aligned(filt)  # filt: the kernel's bulk copies
     with torch.cuda.device(packed.device):
         err = _library("sketch_kernels.cu").pilosa_hll_expand(
             packed.data_ptr(), filt.data_ptr(), out.data_ptr(), rows, words, p,
@@ -1701,7 +1703,9 @@ def plane_lookup(plane: torch.Tensor, probe_hi: torch.Tensor,
     hash lo, id lanes, sorted by the unsigned 64-bit hash), ``probe_hi`` and
     ``probe_lo`` ``[Q]`` int32 hash halves; ``[Q]`` int32 ids, MISS (0)
     where the hash is absent, the leftmost slot where it repeats. One
-    thread a probe on the card."""
+    launch on the card, one thread a probe: the plane's top search levels
+    from a fence table in each block's shared memory, then interpolated
+    reads of whole 32-byte sectors of the high lane."""
     for x, name in ((plane, "plane"), (probe_hi, "probe_hi"), (probe_lo, "probe_lo")):
         if not isinstance(x, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor, got {type(x).__name__}")
@@ -1721,7 +1725,7 @@ def plane_lookup(plane: torch.Tensor, probe_hi: torch.Tensor,
     out = torch.empty(q, dtype=torch.int32, device=plane.device)
     if q == 0:
         return out
-    plane, probe_hi, probe_lo = plane.contiguous(), probe_hi.contiguous(), probe_lo.contiguous()
+    plane, probe_hi, probe_lo = _aligned(plane), probe_hi.contiguous(), probe_lo.contiguous()
     with torch.cuda.device(plane.device):
         err = _library("keyplane_kernels.cu").pilosa_plane_lookup(
             plane.data_ptr(), plane.shape[1], probe_hi.data_ptr(), probe_lo.data_ptr(),

@@ -8,7 +8,8 @@ Four levels, every comparison exact except the float32 estimate rows
   packing, the float64 estimator, sketches and partials) equals the JAX
   module's on seeded values;
 - plain versions: ``hll_expand_plain`` (p = 4, 12, 16, 18, a few full
-  shards, 2% of the columns present, filters with bit 31 set),
+  shards, 2% of the columns present, filters with bit 31 set; and
+  ``chip_smoke.HLL_CHECKS``'s filters and precisions, 4 to 18),
   ``hll_reduce_plain``, ``similar_count_plain`` and the wrappers on CPU
   tensors against pilosa_tpu/sketch/kernels.py; the torch ``hll_count``
   rows against the JAX float32 ones; ``similar_totals``'s order against
@@ -34,6 +35,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from pilosa_tpu.cache import signature as j_signature
 from pilosa_tpu.config import SHARD_WIDTH
 from pilosa_tpu.core import Holder as JHolder
@@ -158,8 +160,30 @@ def test_hll_expand_and_reduce_match_jax(p):
         np.testing.assert_array_equal(want[s], jhll.registers_from_plane(masked, p))
 
 
-def test_hll_expand_edge_inputs():
-    """All-zero and all-ones filters, an empty plane, one row."""
+#: chip_smoke.HLL_CHECKS's precisions and filter kinds (the card holds the
+#: kernel to the plain version on them), and the first case's own inputs.
+HLL_EDGE_CASES = ["one_row"] + [f"p{p}-{kind}" for p, _, _, kind in chip_smoke.HLL_CHECKS]
+
+
+@pytest.mark.parametrize("case", HLL_EDGE_CASES)
+def test_hll_expand_edge_inputs(case):
+    """All-zero and all-ones filters, an empty plane, one row; then each
+    HLL_CHECKS case at 2 shards (3 for "absent", whose odd shards' planes
+    are empty): a sparse filter, one with all-ones, sign-bit-only and zero
+    words, all bits in one chunk, a 3,104-word shard, at p = 4 to 18."""
+    if case != "one_row":
+        p, kind = int(case.split("-")[0][1:]), case.split("-", 1)[1]
+        rows = 3 if kind == "absent" else 2
+        packed, filt = chip_smoke.hll_case_inputs(
+            kind, _plane(np.random.default_rng(p), rows, p, 0.3),
+            chip_smoke.hll_filter(kind, rows, chip_smoke.SEED + p))
+        want = np.asarray(jsk.hll_expand(jnp.asarray(packed), jnp.asarray(filt), p))
+        assert want.shape == (rows, 1 << p)
+        for fn in (kernels.hll_expand, kernels.hll_expand_plain):
+            np.testing.assert_array_equal(fn(_t(packed), _t(filt), p).numpy(), want)
+        if kind == "absent":
+            assert not want[1].any() and want[0].any()
+        return
     rng = np.random.default_rng(0)
     packed = _plane(rng, 1, 12, 0.5)
     for filt in (np.zeros((1, 32768), np.uint32), np.full((1, 32768), 0xFFFFFFFF, np.uint32)):
@@ -172,6 +196,23 @@ def test_hll_expand_edge_inputs():
         kernels.hll_expand(_t(packed), _t(_filter(rng, 1)), 3)
     with pytest.raises(ValueError):
         kernels.hll_expand(_t(packed[:, :64]), _t(_filter(rng, 1)), 12)
+
+
+def test_hll_filters_of_the_card_checks():
+    """chip_smoke's one-chunk filters put every bit in words 2048-4095 (the
+    kernel's chunk 1), their set nibbles under and past the kernel's list
+    cap of a quarter of the chunk's 16,384; "narrow" cuts a shard to a
+    whole chunk and a short one."""
+    lo, hi = chip_smoke.HLL_CHUNK
+    for kind, (under, cap) in (("chunk_list", (True, 4096)), ("chunk_dense", (False, 4096))):
+        words = chip_smoke.hll_filter(kind, 3, 1)
+        assert not words[:, :lo].any() and not words[:, hi:].any()
+        nibbles = ((words[:, lo:hi, None] >> np.arange(0, 32, 4, dtype=np.uint32)) & 0xF) != 0
+        assert ((nibbles.sum(axis=(1, 2)) <= cap) == under).all()
+    packed, filt = chip_smoke.hll_case_inputs("narrow", np.zeros((2, SHARD_WIDTH), np.int32),
+                                              chip_smoke.hll_filter("narrow", 2, 1))
+    assert filt.shape == (2, chip_smoke.HLL_NARROW_WORDS) and packed.shape[1] == 32 * 3104
+    assert 2048 < chip_smoke.HLL_NARROW_WORDS < 4096 and chip_smoke.HLL_NARROW_WORDS % 32 == 0
 
 
 def test_sketch_wrappers_refuse_ragged_word_axes():

@@ -11,8 +11,11 @@ Every comparison is exact:
   functions (unicode, empty and long keys, hash high halves on both sides
   of 2^31, a collision bucket); ``plane_lookup_plain`` and the wrapper on
   CPU tensors against the JAX ``plane_lookup`` (absent probes, a probe
-  equal to the padding hash, a real key with that hash, repeated hashes),
-  and the rest of the KEYPLANE row; ``KeyPlaneCache`` in ``on``, ``auto``
+  equal to the padding hash, a real key with that hash, repeated hashes,
+  and ``chip_smoke.KEYPLANE_CHECKS``'s planes: one slot, unpadded widths,
+  runs of equal hashes and high words across the kernel's fences), a host
+  copy of the kernel's fence-and-interpolation search on the same
+  planes, and the rest of the KEYPLANE row; ``KeyPlaneCache`` in ``on``, ``auto``
   and ``off`` against the JAX cache (ids and counters);
 - executor: keyed indexes and fields (Set, Row, Count, TopN, Rows with
   key cursors, GroupBy, MinRow/MaxRow, a 300-key Union under ``auto``, the
@@ -61,6 +64,8 @@ from pilosa_tpu_torch.parallel import Planner
 from pilosa_tpu_torch.server import ServerNode as TServerNode
 from pilosa_tpu_torch.storage import DiskStore as TDiskStore
 from test_torch_server import Client
+
+import chip_smoke
 
 KEYS = ["", "a", "b", "café", "漢字", "x" * 300, "k,1", "key with spaces",
         *[f"key-{i}" for i in range(400)]]
@@ -192,15 +197,103 @@ def _i32(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
 
 
-@pytest.mark.parametrize("h,q", [(1, 3), (8, 20), (1000, 500), (1 << 14, 4096)])
-def test_plane_lookup_matches_jax(h, q):
-    mat, phi, plo = _plane_and_probes(h, h, q)
+#: this file's own planes, then chip_smoke.KEYPLANE_CHECKS's (the card holds
+#: the kernel to the plain version on them) but its timed one: one slot and
+#: 1,000 unpadded, 393,221 slots, runs of equal hashes and high words across
+#: the kernel's fences, hash 0 real, probes of 0 and 2^64 - 1.
+PLANE_CASES = [pytest.param(h, q, None, id=f"{h}-{q}")
+               for h, q in ((1, 3), (8, 20), (1000, 500), (1 << 14, 4096))] + [
+    pytest.param(h, q, (pad, runs), id=f"card-{h}-{q}-{'pad' if pad else 'exact'}"
+                 f"{'-runs' if runs else ''}")
+    for h, q, pad, runs in chip_smoke.KEYPLANE_CHECKS[:-1]]
+
+
+@pytest.mark.parametrize("h,q,card", PLANE_CASES)
+def test_plane_lookup_matches_jax(h, q, card):
+    if card is None:
+        mat, phi, plo = _plane_and_probes(h, h, q)
+        present = q
+    else:
+        mat, phi, plo = chip_smoke.key_plane(h, q, chip_smoke.SEED + h, *card)
+        present = q // 2
+        assert mat.shape[1] == (max(8, 1 << (h - 1).bit_length()) if card[0] else h)
     want = np.asarray(jkp.plane_lookup(jnp.asarray(mat), jnp.asarray(phi), jnp.asarray(plo)))
     for fn in (kernels.plane_lookup, kernels.plane_lookup_plain):
         got = fn(_i32(mat), _i32(phi), _i32(plo))
         assert got.dtype == torch.int32
         np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
-    assert (want[:q] != 0).all()  # every present hash found
+    assert (want[:present] != 0).all()  # every present hash found
+    if card is not None and card[1]:  # the runs answer at their leftmost slots
+        assert want[0] == 1001 and want[2] == 1
+        hashes = (mat[0].astype(np.uint64) << np.uint64(32)) | mat[1]
+        assert (hashes[1000:1300] == hashes[1000]).all()
+        assert ((mat[0, 5000:5400] == mat[0, 5000]) & (mat[1, 5000:5400] > 0)).all()
+
+
+def _fenced_lookup(mat: np.ndarray, phi: np.ndarray, plo: np.ndarray, max_fences: int,
+                   interp_steps: int) -> np.ndarray:
+    """The search of csrc/keyplane_kernels.cu, probe by probe: count the
+    fences (every 2^shift-th slot's high word, at most ``max_fences``) below
+    the probe's high word; then, in the window they leave, read the 8-slot
+    sector at the slot interpolated from the window's end values (its
+    midpoint after ``interp_steps``) until a sector holds the boundary;
+    then the low word and id where the high words match, and a search of
+    the run of equal high words on (hi, lo) where the low word is below."""
+    hi, lo, ids = mat[0].tolist(), mat[1].tolist(), mat[2].tolist()
+    h, shift = len(hi), 0
+    while -(-h >> shift) > max_fences:
+        shift += 1
+    count = -(-h >> shift)
+    below = np.searchsorted(mat[0, ::1 << shift], phi, side="left").tolist()
+    out = []
+    for ph, pl, c in zip(phi.tolist(), plo.tolist(), below):
+        a = 0 if c == 0 else ((c - 1) << shift) + 1
+        b = h if c == count else c << shift
+        va = 0 if c == 0 else hi[(c - 1) << shift]
+        vb = 0 if c == count else hi[c << shift]
+        step = 0
+        while a < b:
+            pos = (a + b) >> 1
+            if step < interp_steps:
+                top = np.float32(2.0**32) if b == h else np.float32(vb)
+                with np.errstate(divide="ignore", invalid="ignore"):
+                    f = (np.float32(ph) - np.float32(va)) / (top - np.float32(va))
+                f = 0.0 if np.isnan(f) else min(max(float(f), 0.0), 1.0)
+                pos = min(max(a + int(np.float32(f) * np.float32(b - a)), a), b - 1)
+            s0 = pos & ~7
+            w = [hi[s0 + j] if s0 + j < h else 0xFFFFFFFF for j in range(8)]
+            n = sum(s0 + j < h and w[j] < ph for j in range(8))
+            if n == 0:
+                b, vb = s0, w[0]
+            elif n == 8:
+                a, va = s0 + 8, w[7]
+            else:
+                a = b = s0 + n
+                vb = w[n]
+            step += 1
+        if a >= h or vb != ph:
+            out.append(0)
+            continue
+        if lo[a] < pl:
+            a, b = a + 1, h
+            while a < b:
+                mid = (a + b) >> 1
+                a, b = (mid + 1, b) if (hi[mid], lo[mid]) < (ph, pl) else (a, mid)
+        out.append(ids[a] if a < h and (hi[a], lo[a]) == (ph, pl) else 0)
+    return np.asarray(out, dtype=np.uint32)
+
+
+@pytest.mark.parametrize("max_fences,interp_steps", [(1, 0), (1, 3), (4, 3), (256, 0),
+                                                     (256, 3), (256, 64)])
+@pytest.mark.parametrize("h,q,pad,runs", chip_smoke.KEYPLANE_CHECKS[:-2])
+def test_fenced_search_matches_jax(h, q, pad, runs, max_fences, interp_steps):
+    """The kernel's search, mirrored on the host, finds the JAX
+    ``plane_lookup``'s ids on the card's check planes: one fence (a single
+    window) or a few, the kernel's 256; halving from the start, the
+    kernel's 3 interpolated steps, or interpolation to the end."""
+    mat, phi, plo = chip_smoke.key_plane(h, q, chip_smoke.SEED + h, pad, runs)
+    want = np.asarray(jkp.plane_lookup(jnp.asarray(mat), jnp.asarray(phi), jnp.asarray(plo)))
+    np.testing.assert_array_equal(_fenced_lookup(mat, phi, plo, max_fences, interp_steps), want)
 
 
 def test_keyplane_row_matches_jax():
