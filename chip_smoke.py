@@ -57,8 +57,8 @@ port's paths:
   in-process ones; a JSON import of 200k bits and 200k values; 8
   concurrent clients; the 404/400/504/501 statuses; ``/metrics``;
 - persist path: a second node with ``data_dir`` under
-  ``build/chip_smoke_data/`` takes the first 120 shards (``PERSIST_SHARDS``,
-  an eighth of the 1B columns) of ``bench`` and ``bsi`` the way Pilosa's
+  ``build/chip_smoke_data/`` takes the first 30 shards (``PERSIST_SHARDS``,
+  a thirty-second of the 1B columns) of ``bench`` and ``bsi`` the way Pilosa's
   clients bulk-load (one ``import-roaring`` per field and shard, bodies
   from the first node's ``Fragment.to_roaring``; the BSI planes in process
   through ``interop.load_bsi_planes``), is closed (schema, snapshots, WAL
@@ -113,7 +113,7 @@ port's paths:
 - fields path: on ``bench``, fields created over HTTP and loaded from
   seeded data: a YMDH time field (10M bits in rows 0-2 over 60 days of
   hours: bench config 4's bits, its 90 days cut to the windows' 60, its
-  columns to the first 120 shards), set fields a, b, c (4, 8
+  columns to the first 40 shards), set fields a, b, c (4, 8
   and 3 rows, 15M bits each: bench config 5's), a mutex field (12.5M
   columns, then 2.5M moved) and a bool field (10M columns); time windows of
   32 and 67 views (``tree_count`` over the view leaves), ``Rows`` over a
@@ -136,7 +136,26 @@ port's paths:
   oracle from the id map, a ``Count(Union)`` of 300 keyed rows is ONE
   ``plane_lookup`` under ``auto`` once its plane is built
   (``/debug/translate``), and the bodies stand after close and reopen and
-  after a backup restored into a fresh dir.
+  after a backup restored into a fresh dir;
+- cluster path (``phase_cluster``): three ``cli server --peers
+  --replica-n 2`` processes on loopback share the card; bench's rows f=1
+  and g=2 over all 954 shards go in as one ``import-roaring`` a field and
+  shard through the coordinator (which routes each body to both owners),
+  a second index of 16 shards (set fields of 64 and 8 rows, an int field)
+  through its JSON /import; the section 2 Counts through each member as
+  coordinator (ONE ``pair_count`` a node's leg), ``Row(f=1)`` over 32
+  shards (each remote leg ONE ``scatter_bits`` on the coordinator) and the
+  second index's TopN, GroupBy, Sum/Min/Max, Count(Distinct), Rows and Row
+  with ``shards=`` equal numpy oracles and node A's bodies byte for byte;
+  then acknowledged Set and Clear, a SIGKILLed member, the same bodies
+  through the live coordinators, the member DOWN in
+  ``/debug/membership`` after a liveness sweep, and ``union_rows`` of two
+  live owners' remote legs of the same shards (ONE ``or_fold``; no cluster
+  query folds a contested shard, so the kernels line labels these
+  launches ``launches_constructed_fold``); then a second cluster on the
+  CLI's defaults (hedged reads on, device reduce ``auto``), booted and
+  loaded beside the first and given the same writes, gives every body
+  again.
 
 The HTTP phase runs its 1 and 8 concurrent clients with dispatch
 coalescing off (launches equal to the serial sum) and on ``auto`` (at most
@@ -168,6 +187,7 @@ CPU rehearsal at a small size (plain kernel versions, no launch counts)::
     c.phase_fields(torch, "cpu", d, runs=2, slow_runs=2)
     c.KEYS_COLS, c.KEYS_BATCH = 20_000, 5_000
     c.phase_keys(torch, "cpu", d, runs=2)
+    c.phase_cluster(torch, "cpu", d, runs=2)
     d["node"].close()
 
 (with ``c.PERSIST_SHARDS = 3`` and ``c.BACKUP_SET_COLS`` inside those
@@ -289,11 +309,12 @@ PERSIST_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_data"
 #: bit as a 16-byte record before its flush (about 6 GiB).
 PERSIST_MIN_FREE_GIB = 19
 #: the shards of bench and bsi the persist phase's nodes hold: the first
-#: eighth of the 954 (all of them until the keys phase joined the run,
-#: when every bulk load, close, backup and restore of this phase was cut
-#: to a quarter, then to an eighth, to make room for it). Their queries
-#: ask node A for the same shards.
-PERSIST_SHARDS = 120
+#: thirty-second of the 954 (all of them until the keys phase joined the
+#: run, when every bulk load, close, backup and restore of this phase was
+#: cut to a quarter, then to an eighth, to make room for it; to a
+#: sixteenth, then a thirty-second, when the cluster phase joined). Their
+#: queries ask node A for the same shards.
+PERSIST_SHARDS = 30
 #: the crash check's shard count: its semantics do not depend on size.
 CRASH_SHARDS = 3
 
@@ -1987,6 +2008,137 @@ def sketch_kernel_timings(torch, kernels, t, dev, card: str) -> dict:
     return out
 
 
+#: the coordinator's reduce kernels' exact checks on the card: scatter_bits
+#: on a leg's (segment, offset) positions, or_fold at K contributors.
+SCATTER_CASES = ("empty", "one", "bit31_word32767", "sink", "unsorted_segments",
+                 "out_of_range", "full_shard", "row_leg_32")
+OR_FOLD_CHECKS = ((64, 1), (64, 2), (8, 16), (3, 5))
+#: the cluster phase's Row leg: 32 of the bench's shards at its density.
+ROW_LEG_SHARDS = 32
+#: or_fold's timed shapes ([B, K, W]).
+OR_FOLD_TIMED = ((64, 2), (8, 16))
+
+
+def scatter_case(name: str, seed: int = SEED):
+    """(seg, local, n_segs) int32 numpy arrays of one scatter_bits case:
+    a remote Row leg's unique positions as its decode makes them (segment
+    index, in-shard offset), or an edge."""
+    rng = np.random.default_rng(seed)
+    bits = SHARD_WORDS * 32
+    if name == "empty":
+        return np.empty(0, np.int32), np.empty(0, np.int32), 3
+    if name == "one":
+        return np.array([0], np.int32), np.array([12345], np.int32), 1
+    if name == "bit31_word32767":
+        loc = np.array([31, 32 * 32767 + 31, 32 * 32767, 63], np.int32)
+        return np.array([0, 0, 1, 1], np.int32), loc, 2
+    if name == "sink":  # padding entries aimed at row n_segs
+        loc = rng.choice(bits, 1000, replace=False).astype(np.int32)
+        return np.r_[np.zeros(500, np.int32), np.full(500, 2, np.int32)], loc, 2
+    if name == "unsorted_segments":
+        n = 200_000
+        seg = rng.integers(0, 7, n).astype(np.int32)
+        flat = np.unique(seg.astype(np.int64) * bits + rng.integers(0, bits, n))
+        perm = rng.permutation(len(flat))
+        return (flat // bits).astype(np.int32)[perm], (flat % bits).astype(np.int32)[perm], 7
+    if name == "out_of_range":  # dropped, as the JAX scatter drops them
+        return (np.array([-1, 4, 0, 1], np.int32),
+                np.array([5, 5, bits, -7], np.int32), 3)
+    if name == "full_shard":
+        return np.zeros(bits, np.int32), np.arange(bits, dtype=np.int32), 1
+    if name == "row_leg_32":
+        n = int(ROW_LEG_SHARDS * bits * COUNT_DENSITY)
+        flat = np.unique(rng.integers(0, ROW_LEG_SHARDS * bits, n))
+        return (flat // bits).astype(np.int32), (flat % bits).astype(np.int32), ROW_LEG_SHARDS
+    raise KeyError(name)
+
+
+def check_reduce_kernels(torch, kernels, dev, errs) -> None:
+    """scatter_bits and or_fold against their plain versions on the card,
+    exact (differing bits counted), on SCATTER_CASES and OR_FOLD_CHECKS."""
+    for name in SCATTER_CASES:
+        seg, loc, n_segs = scatter_case(name)
+        s, l = torch.from_numpy(seg).to(dev), torch.from_numpy(loc).to(dev)
+        got = kernels.scatter_bits(s, l, n_segs)
+        want = kernels.scatter_bits_plain(s, l, n_segs)
+        torch.cuda.synchronize()
+        err = int(kernels.row_counts_plain(got ^ want).long().sum())
+        errs["scatter_bits"] = max(errs["scatter_bits"], err)
+        if got.shape != (n_segs + 1, SHARD_WORDS) or got.shape != want.shape or err:
+            raise AssertionError(f"scatter_bits {name}: {tuple(got.shape)}, {err} bits differ")
+        if name == "bit31_word32767" and int(got[0, 32767]) != -2**31:
+            raise AssertionError("scatter_bits: bit 31 of word 32767 not set")
+    for b, k in OR_FOLD_CHECKS:
+        stack = torch.randint(-2**31, 2**31 - 1, (b, k, SHARD_WORDS), dtype=torch.int32,
+                              device=dev)
+        got, want = kernels.or_fold(stack), kernels.or_fold_plain(stack)
+        torch.cuda.synchronize()
+        err = int(kernels.row_counts_plain(got ^ want).long().sum())
+        errs["or_fold"] = max(errs["or_fold"], err)
+        if got.shape != (b, SHARD_WORDS) or err:
+            raise AssertionError(f"or_fold [{b}, {k}, W]: {err} bits differ")
+    log(f"reduce kernels: exact on scatter_bits {', '.join(SCATTER_CASES)}; "
+        f"or_fold at [B, K] {', '.join(f'[{b}, {k}]' for b, k in OR_FOLD_CHECKS)}")
+
+
+def reduce_kernel_timings(torch, kernels, dev, card: str) -> dict:
+    """scatter_bits at the cluster phase's 32-shard Row leg and or_fold at
+    OR_FOLD_TIMED, each beside its bound, its plain version and its library
+    call: name -> (ms, plain ms, bound ms, bound by, library ms). or_fold's
+    entry is its first timed shape."""
+    import functools
+
+    out = {}
+    seg, loc, n_segs = scatter_case("row_leg_32")
+    s, l = torch.from_numpy(seg).to(dev), torch.from_numpy(loc).to(dev)
+    # The library call: index_put_ with accumulate of each position's bit
+    # into a zeroed flat image (the word index and the bit laid out ahead
+    # of it; distinct positions, so add is or); checked equal first.
+    widx = s.long() * SHARD_WORDS + (l >> 5).long()
+    wbit = torch.bitwise_left_shift(torch.ones_like(l), l & 31)
+    img_words = (n_segs + 1) * SHARD_WORDS
+
+    def scatter_library():
+        return torch.zeros(img_words, dtype=torch.int32, device=dev).index_put_(
+            (widx,), wbit, accumulate=True).view(n_segs + 1, SHARD_WORDS)
+
+    got = kernels.scatter_bits(s, l, n_segs)
+    if not (torch.equal(got, kernels.scatter_bits_plain(s, l, n_segs))
+            and torch.equal(scatter_library(), got)):
+        raise AssertionError("scatter_bits at the timed leg: the kernel or the library "
+                             "call differs from the plain version")
+    ms = time_cuda_ms(torch, lambda: kernels.scatter_bits(s, l, n_segs), KERNEL_RUNS)
+    plain = time_cuda_ms(torch, lambda: kernels.scatter_bits_plain(s, l, n_segs), 5)
+    lib = time_cuda_ms(torch, scatter_library, KERNEL_RUNS)
+    # 8 bytes a position in and the image written once: the function needs
+    # no more (the kernel's zero fill is a cost of its design, not counted).
+    nbytes = 8 * len(seg) + img_words * 4
+    bound, by, term = bound_ms(torch, nbytes, len(seg), 0)
+    log(f"kernel scatter_bits {len(seg)} positions into [{n_segs + 1}, {SHARD_WORDS}]: "
+        f"{ms:.4f} ms, bound {bound:.4f} ms ({term}: positions in, image out once), "
+        f"{bound / ms:.1%} of bound; plain {plain:.4f} ms; library {lib:.4f} ms "
+        f"(zeros + index_put_ accumulate)  [{card}]")
+    out["scatter_bits"] = (ms, plain, bound, by, lib)
+    del s, l, widx, wbit, got
+    for b, k in OR_FOLD_TIMED:
+        stack = torch.randint(-2**31, 2**31 - 1, (b, k, SHARD_WORDS), dtype=torch.int32,
+                              device=dev)
+        fold_library = lambda st=stack: functools.reduce(torch.bitwise_or, st.unbind(1))
+        if not torch.equal(fold_library(), kernels.or_fold(stack)):
+            raise AssertionError(f"or_fold [{b}, {k}, W]: the library calls differ")
+        ms = time_cuda_ms(torch, lambda st=stack: kernels.or_fold(st), KERNEL_RUNS)
+        plain = time_cuda_ms(torch, lambda st=stack: kernels.or_fold_plain(st), 5)
+        lib = time_cuda_ms(torch, fold_library, KERNEL_RUNS)
+        bound, by, term = bound_ms(torch, (b * k + b) * SHARD_WORDS * 4,
+                                   b * (k - 1) * SHARD_WORDS, 0)
+        log(f"kernel or_fold [{b}, {k}, {SHARD_WORDS}]: {ms:.4f} ms, bound {bound:.4f} ms "
+            f"({term}), {bound / ms:.1%} of bound; plain {plain:.4f} ms; library "
+            f"{lib:.4f} ms ({k - 1} torch.bitwise_or)  [{card}]")
+        out.setdefault("or_fold", (ms, plain, bound, by, lib))
+        del stack
+    return out
+
+
 def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
     from pilosa_tpu_torch.ops import kernels
 
@@ -2288,6 +2440,7 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
     packed = check_packed_cases(torch, kernels, t, dev, errs)
     ps_pos, ps_vals, ps_depth = check_plane_scatter(torch, kernels, dev, errs)
     check_sketch_kernels(torch, kernels, t, dev, errs)
+    check_reduce_kernels(torch, kernels, dev, errs)
     del leaves9, tables9
     log(f"kernel checks: exact on every op and shape; max |err| {errs}")
 
@@ -2498,6 +2651,7 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
     del gb_planes, gb_wide
     torch.cuda.empty_cache()
     timings.update(sketch_kernel_timings(torch, kernels, t, dev, card))
+    timings.update(reduce_kernel_timings(torch, kernels, dev, card))
     log(f"kernels: {json.dumps(sorted(errs))}")
     # Hand the cached blocks back: the persist phase's CLI node is a
     # process of its own on the same card.
@@ -3407,8 +3561,8 @@ def phase_http(torch, card: str, data: dict, runs: int = QUERY_RUNS,
             ("parse error", "/index/bench/query", "Count(Row(f=1)", None, 400),
             ("expired X-Deadline", "/index/bench/query", COUNT_QUERIES["count_intersect"],
              {"X-Deadline": f"{time.time() - 1:.6f}"}, 504),
-            ("a remote leg (cluster and operations)", "/index/bench/query?remote=true",
-             COUNT_QUERIES["count_row"], None, 501)):
+            ("a resize (cluster and operations)", "/cluster/resize/abort", "", None,
+             501)):
         status, body = request(conn, "POST", path, q, headers)
         if status != want:
             raise AssertionError(f"{what}: HTTP {status}, expected {want}: {body!r}")
@@ -4864,12 +5018,14 @@ def phase_packed(torch, card: str, data: dict, runs: int = QUERY_RUNS) -> dict:
 #: config 4 spreads them over 90 days; the 30 days before the windows
 #: were cut to keep the whole run within its time (they added 700K
 #: fragments and about 40 s of host import, and no query read them).
-#: The bits fall in the first FIELDS_TIME_SHARDS shards (an eighth of
-#: the 1B columns: an eighth of the fragments, which set the import's
-#: cost), cut to make room for the keys phase; the windows' Counts still
-#: run over all 954 shards.
+#: The bits fall in the first FIELDS_TIME_SHARDS shards (a 24th of the 1B
+#: columns: a 24th of the fragments, which set the import's cost), cut to
+#: an eighth to make room for the keys phase, then to a 24th for the
+#: cluster phase; the windows' Counts still run over all 954 shards. (A
+#: 48th was tried on the card: its import took as long and the phase 20 s
+#: longer, its windows' Counts slower.)
 FIELDS_TIME_BITS = 10_000_000
-FIELDS_TIME_SHARDS = 120
+FIELDS_TIME_SHARDS = 40
 FIELDS_TIME_ROWS = 3
 FIELDS_TIME_FIRST_HOUR = 14 * 24
 FIELDS_TIME_HOURS = 24 * 60
@@ -5576,6 +5732,540 @@ def phase_keys(torch, card: str, data: dict, runs: int = KEYS_RUNS) -> dict:
     return {"launches": launches, "per_query": per_query, "keyed": keyed_launches}
 
 
+# -- phase: the cluster's serving path ----------------------------------------
+
+#: the cluster phase's ring: three CLI nodes on loopback sharing the card,
+#: two owners a shard.
+CLUSTER_NODES = 3
+CLUSTER_REPLICAS = 2
+#: the member SIGKILLed mid-phase (never the first, the one whose sweep is
+#: read), and how long its liveness sweep may take to mark it DOWN.
+CLUSTER_KILLED = 1
+CLUSTER_SWEEP_WAIT_S = 40
+#: samples of each p50, and the clients that load the bench over HTTP.
+CLUSTER_RUNS = 10
+CLUSTER_LOAD_CLIENTS = 4
+#: the second index: 16 shards, a set field of 64 rows, one of 8, an int
+#: field of distinct values, through the coordinator's JSON /import.
+SMALL_SHARDS = 16
+SMALL_ROWS = {"a": 64, "b": 8}
+SMALL_BITS = {"a": 400_000, "b": 200_000}
+SMALL_VALUES = 100_000
+SMALL_VMIN, SMALL_VMAX = -1000, 100_000
+SMALL_SCHEMA = [("/index/small", None), ("/index/small/field/a", None),
+                ("/index/small/field/b", None),
+                ("/index/small/field/v", {"type": "int", "min": SMALL_VMIN,
+                                          "max": SMALL_VMAX})]
+SMALL_ROW_SHARDS = (0, 5, 9, 15)
+SMALL_QUERIES = {
+    "topn": "TopN(a, n=5)",
+    "topn_filtered": "TopN(a, Row(b=1), n=5)",
+    "groupby": "GroupBy(Rows(b), Rows(a))",
+    "sum": "Sum(field=v)",
+    "min": "Min(field=v)",
+    "max_filtered": "Max(Row(b=2), field=v)",
+    "distinct": "Count(Distinct(field=v))",
+    "rows": "Rows(a)",
+    "count": "Count(Row(b=1))",
+    "row_shards": "Row(a=3)",
+}
+CLUSTER_BENCH_QUERIES = ("count_intersect", "count_3leaf")
+CLUSTER_KERNELS_NODES = ("pair_count", "tree_count")
+
+
+def cluster_start(device: str, replica_n: int, defaults: tuple = (False,)) -> list:
+    """One cluster a flag of ``defaults``, each CLUSTER_NODES ``cli server
+    --peers`` processes on loopback, every port picked ahead of boot
+    (``--peers`` names them) and every process booting at once; returns a
+    [(process, port)] list a cluster, in ring order (by address, the first
+    the coordinator flag's), once each serves. A cluster whose flag is
+    False runs with hedged reads off and the device reduce ``on``, so its
+    launch counts are fixed; one whose flag is True runs on the CLI's own
+    settings (hedging on, device reduce ``auto``)."""
+    import socket
+
+    from pilosa_tpu_torch.ops import build
+
+    socks = [socket.socket() for _ in range(CLUSTER_NODES * len(defaults))]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    env = {k: v for k, v in os.environ.items() if not k.startswith("PILOSA_TPU_")}
+    spawned = []  # [(process, addr)] a cluster
+    for i, own in enumerate(defaults):
+        addrs = sorted(f"127.0.0.1:{p}"
+                       for p in ports[i * CLUSTER_NODES:(i + 1) * CLUSTER_NODES])
+        fixed = [] if own else ["--device-reduce", "on", "--hedge", "off"]
+        spawned.append([(subprocess.Popen(
+            [sys.executable, "-m", "pilosa_tpu_torch.cli", "server", "--bind", addr,
+             "--peers", ",".join(a for a in addrs if a != addr),
+             "--replica-n", str(replica_n), "--device", device, *fixed,
+             "--qos-warmup", "", "--compile-cache-dir", str(build.BUILD_DIR)],
+            cwd=Path(__file__).resolve().parent, env=env, stderr=subprocess.PIPE,
+            text=True), addr) for addr in addrs])
+    out = []
+    for cluster in spawned:
+        out.append([])
+        for proc, addr in cluster:
+            seen = []
+            for line in proc.stderr:
+                seen.append(line)
+                if "serving at" in line:
+                    break
+            else:
+                for p, _ in sum(spawned, []):
+                    p.kill()
+                    p.wait()
+                raise AssertionError(f"cluster node {addr} did not start: "
+                                     f"{''.join(seen)[-2000:]}")
+            threading.Thread(target=lambda p=proc: [None for _ in p.stderr],
+                             daemon=True).start()
+            out[-1].append((proc, int(addr.rpartition(":")[2])))
+    return out
+
+
+def cluster_stop(nodes) -> None:
+    for proc, _ in nodes:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+    for proc, _ in nodes:
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def node_launches(port: int) -> dict:
+    conn = http_client(port)
+    doc = json.loads(expect_ok(conn, "GET", "/debug/device"))
+    conn.close()
+    return doc["launches"]
+
+
+def row_roaring(frag, row: int) -> bytes:
+    """One row of a fragment as an ``import-roaring`` body: its positions
+    in the reference's pos-encoded roaring (Fragment.to_roaring's format,
+    this row alone)."""
+    from pilosa_tpu_torch import native
+    from pilosa_tpu_torch.config import SHARD_WIDTH
+
+    pos = native.words_to_positions(frag.row_words(row))
+    return native.encode_roaring(pos.astype(np.uint64) + np.uint64(row * SHARD_WIDTH))
+
+
+def small_data(seed: int) -> dict:
+    """The second index's seeded bits and values: a's rows skewed (row r
+    weighted 1 / (r + 1)), b's uniform, v's values distinct."""
+    from pilosa_tpu_torch.config import SHARD_WIDTH
+
+    rng = np.random.default_rng(seed)
+    n_cols = SMALL_SHARDS * SHARD_WIDTH
+    out = {}
+    for f, rows in SMALL_ROWS.items():
+        w = 1.0 / np.arange(1, rows + 1) if f == "a" else np.ones(rows)
+        r = rng.choice(rows, SMALL_BITS[f], p=w / w.sum())
+        c = rng.integers(0, n_cols, SMALL_BITS[f])
+        key = np.unique(r.astype(np.int64) * n_cols + c)
+        out[f] = (key // n_cols, key % n_cols)
+    cols = np.sort(rng.choice(n_cols, SMALL_VALUES, replace=False))
+    vals = rng.choice(SMALL_VMAX - SMALL_VMIN, SMALL_VALUES, replace=False) + SMALL_VMIN
+    out["v"] = (cols, vals)
+    return out
+
+
+def small_oracles(d: dict, base: int) -> dict:
+    """The second index's answers from its data in numpy, as JSON bodies
+    (the TopNs by the executor's two-pass rule, ``topn_oracle``)."""
+    from pilosa_tpu_torch.config import SHARD_WIDTH
+
+    (ar, ac), (br, bc), (vc, vv) = d["a"], d["b"], d["v"]
+    n_cols = SMALL_SHARDS * SHARD_WIDTH
+    na, nb = SMALL_ROWS["a"], SMALL_ROWS["b"]
+    b1 = np.zeros(n_cols, bool)
+    b1[bc[br == 1]] = True
+    b2 = np.zeros(n_cols, bool)
+    b2[bc[br == 2]] = True
+
+    def per_shard(rows, cols, keep=None):
+        m = np.ones(len(cols), bool) if keep is None else keep[cols]
+        c = np.zeros((SMALL_SHARDS, na), np.int64)
+        np.add.at(c, (cols[m] // SHARD_WIDTH, rows[m]), 1)
+        return {s: (c[s], None, None) for s in range(SMALL_SHARDS)}
+
+    def pairs(ranked):
+        return [{"id": int(i), "count": int(n)} for i, n in ranked]
+
+    groups = np.zeros((nb, na), np.int64)
+    a_of = {}
+    for r, c in zip(ar.tolist(), ac.tolist()):
+        a_of.setdefault(c, []).append(r)
+    for r, c in zip(br.tolist(), bc.tolist()):
+        for a in a_of.get(c, ()):
+            groups[r, a] += 1
+    gb = [((int(b), int(a)), int(groups[b, a])) for b in range(nb) for a in range(na)
+          if groups[b, a]]
+    in_b2 = b2[vc]
+    sel = np.isin(ac // SHARD_WIDTH, SMALL_ROW_SHARDS) & (ar == 3)
+    body = {
+        "topn": [pairs(topn_oracle(per_shard(ar, ac), 5))],
+        "topn_filtered": [pairs(topn_oracle(per_shard(ar, ac, b1), 5))],
+        "groupby": [group_json(["b", "a"], gb)],
+        "sum": [{"value": int(vv.sum()), "count": len(vv)}],
+        "min": [{"value": int(vv.min()), "count": 1}],
+        "max_filtered": [{"value": int(vv[in_b2].max()), "count": 1}],
+        "distinct": [distinct_oracle(vv - base, 12, 1024)],
+        "rows": [{"rows": sorted(int(r) for r in np.unique(ar))}],
+        "count": [int(b1.sum())],
+        "row_shards": [{"attrs": {}, "columns": sorted(int(c) for c in ac[sel])}],
+    }
+    return body
+
+
+def cluster_load(clusters: list, h, n_shards: int, sd: dict) -> dict:
+    """The schema, the bench's rows f=1 and g=2 (one import-roaring a field
+    and shard, from node A's fragments ``h``; CLUSTER_LOAD_CLIENTS at once a
+    cluster) and the second index ``sd`` (JSON /import, one more client),
+    all sent to each cluster's first port, which routes each body to its
+    owners; the clusters (lists of ports) and their clients load at once.
+    Returns the request and byte counts of a cluster's bench load and the
+    seconds of the whole load."""
+    for ports in clusters:
+        conn = http_client(ports[0])
+        for path, opts in [s for s in SCHEMA if s[0].startswith("/index/bench")] + SMALL_SCHEMA:
+            expect_ok(conn, "POST", path, {"options": opts} if opts else None)
+        conn.close()
+        schemas = set()
+        for p in ports:
+            c = http_client(p)
+            schemas.add(expect_ok(c, "GET", "/schema"))
+            c.close()
+        if len(schemas) != 1:
+            raise AssertionError("the schema did not reach every member")
+    jobs = [(f, r, s) for f, r in (("f", 1), ("g", 2)) for s in range(n_shards)]
+    sent = [0, 0]
+    lock = threading.Lock()
+
+    def load(coord, part):
+        c = http_client(coord)
+        for f, r, s in part:
+            body = row_roaring(h.fragment("bench", f, "standard", s), r)
+            expect_ok(c, "POST", f"/index/bench/field/{f}/import-roaring/{s}", body)
+            with lock:
+                sent[0] += 1
+                sent[1] += len(body)
+        c.close()
+
+    def load_small(coord):
+        c = http_client(coord)
+        for f in SMALL_ROWS:
+            expect_ok(c, "POST", f"/index/small/field/{f}/import",
+                      {"rowIDs": sd[f][0].tolist(), "columnIDs": sd[f][1].tolist()})
+        expect_ok(c, "POST", "/index/small/field/v/import",
+                  {"columnIDs": sd["v"][0].tolist(), "values": sd["v"][1].tolist()})
+        with lock:
+            sent[2] += 1
+        c.close()
+
+    sent.append(0)
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=load, args=(ports[0], jobs[i::CLUSTER_LOAD_CLIENTS]))
+               for ports in clusters for i in range(CLUSTER_LOAD_CLIENTS)]
+    threads += [threading.Thread(target=load_small, args=(ports[0],)) for ports in clusters]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if sent[0] != len(jobs) * len(clusters) or sent[2] != len(clusters):
+        raise AssertionError(f"load: {sent[0]} of {len(jobs) * len(clusters)} bench requests, "
+                             f"{sent[2]} of {len(clusters)} small index loads")
+    return {"requests": sent[0] // len(clusters), "bytes": sent[1] // len(clusters),
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_cluster(torch, card: str, data: dict, runs: int = CLUSTER_RUNS) -> dict:
+    """The cluster's serving path at full width. Three ``cli server --peers
+    ... --replica-n 2`` processes on loopback share the card; the bench's
+    rows f=1 and g=2 over all its shards go in as one ``import-roaring`` a
+    field and shard through the coordinator, which routes each body to its
+    two owners; a second index of 16 shards goes in through the
+    coordinator's JSON /import. The section 2 Counts through each node as
+    coordinator, ``Row(f=1)`` over ROW_LEG_SHARDS shards (remote legs
+    decoded by ``scatter_bits`` on the coordinator) and the second index's
+    TopN, GroupBy, Sum/Min/Max, Count(Distinct), Rows and Row with
+    ``shards=`` (every frame type on the wire) are held to numpy oracles
+    and byte for byte to node A's bodies; then acknowledged Set and Clear,
+    a SIGKILLed member, the same bodies through the live coordinators
+    (failing over to replicas), and the liveness sweep marking it DOWN.
+    No cluster query folds a contested shard, so ``union_rows`` folds two
+    live owners' remote legs of the same shards (``or_fold``), its launches
+    returned apart from the queries'. A second cluster on the CLI's
+    defaults (hedging on, device reduce ``auto``), booted and loaded beside
+    the first and given the same writes, gives every body again once the
+    first is stopped (bodies only: hedged legs vary the launch counts)."""
+    from pilosa_tpu_torch.config import SHARD_WIDTH
+    from pilosa_tpu_torch.exec import device_reduce
+    from pilosa_tpu_torch.ops import kernels
+    from pilosa_tpu_torch.server import wire
+
+    device, node_a, h = data["device"], data["node"], data["holder"]
+    dev = torch.device(device)
+    n_shards = data["count_shards"]
+    t_phase = time.perf_counter()
+    # auto's crossover on this card, measured in this process (the nodes
+    # run with --device-reduce on, so every remote Row leg launches).
+    xover = device_reduce._min_size(dev)
+    log(f"device reduce: auto's crossover {xover} positions or folded words "
+        f"({xover / SHARD_WORDS:.2f} shard rows)  [{card}]")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    # The phase's cluster (fixed launch counts) and one on the CLI's
+    # defaults, booting and loading side by side.
+    nodes, dnodes = cluster_start(device, CLUSTER_REPLICAS, (False, True))
+    ports, dports = [p for _, p in nodes], [p for _, p in dnodes]
+    coord = ports[0]
+    log(f"cluster: {CLUSTER_NODES} cli server processes on ports {ports}, replica "
+        f"{CLUSTER_REPLICAS}, and {CLUSTER_NODES} on the CLI's defaults on {dports}, "
+        f"booted together in {time.perf_counter() - t0:.3f} s")
+    sd = small_data(SEED + 5)
+    try:
+        conn = http_client(coord)
+        loaded = cluster_load([ports, dports], h, n_shards, sd)
+        log(f"cluster load, both clusters at once in {loaded['seconds']:.3f} s: the bench's "
+            f"{loaded['requests']} import-roaring requests, {loaded['bytes']} body bytes, "
+            f"through each coordinator ({CLUSTER_LOAD_CLIENTS} clients a cluster; each body "
+            f"to its {CLUSTER_REPLICAS} owners), and the small index's {SMALL_SHARDS} shards, "
+            f"{sum(len(sd[f][0]) for f in SMALL_ROWS)} bits and {SMALL_VALUES} values, through "
+            f"each coordinator's JSON /import (one client a cluster)")
+        # The second index into node A alike.
+        ca = http_client(node_a.port)
+        for path, opts in SMALL_SCHEMA:
+            expect_ok(ca, "POST", path, {"options": opts} if opts else None)
+        for f in SMALL_ROWS:
+            expect_ok(ca, "POST", f"/index/small/field/{f}/import",
+                      {"rowIDs": sd[f][0].tolist(), "columnIDs": sd[f][1].tolist()})
+        expect_ok(ca, "POST", "/index/small/field/v/import",
+                  {"columnIDs": sd["v"][0].tolist(), "values": sd["v"][1].tolist()})
+        base = h.field("small", "v").bsi_group.base
+        want_small = small_oracles(sd, base)
+
+        fw = np.stack([h.fragment("bench", "f", "standard", s).row_words(1)
+                       for s in range(n_shards)])
+        gw = np.stack([h.fragment("bench", "g", "standard", s).row_words(2)
+                       for s in range(n_shards)])
+        want_bench = {"count_intersect": int(popcount_rows(fw & gw).sum()),
+                      "count_3leaf": int(popcount_rows((fw & gw) | gw).sum())}
+        leg_shards = [int(s) for s in np.linspace(0, n_shards - 1,
+                                                  min(ROW_LEG_SHARDS, n_shards)).astype(int)]
+        leg_shards = sorted(set(leg_shards))
+
+        def row_oracle(words, shards):
+            return sorted(int(c) for s in shards for c in
+                          bitops_columns(words[s], s * SHARD_WIDTH))
+
+        want_row = row_oracle(fw, leg_shards)
+        queries = {}  # name -> (index, path suffix, pql, oracle body or None)
+        for name in CLUSTER_BENCH_QUERIES:
+            queries[name] = ("bench", "", COUNT_QUERIES[name], {"results": [want_bench[name]]})
+        queries["row_leg"] = ("bench", "&shards=" + ",".join(map(str, leg_shards)),
+                              "Row(f=1)", {"results": [{"attrs": {}, "columns": want_row}]})
+        for name, q in SMALL_QUERIES.items():
+            suffix = ("&shards=" + ",".join(map(str, SMALL_ROW_SHARDS))
+                      if name == "row_shards" else "")
+            queries[f"small_{name}"] = ("small", suffix, q, {"results": want_small[name]})
+
+        def ask(port, index, suffix, q):
+            c = http_client(port)
+            body = expect_ok(c, "POST", f"/index/{index}/query?noCache=true{suffix}", q)
+            c.close()
+            return body
+
+        def check_all(coords, bodies, when):
+            for name, (index, suffix, q, oracle) in queries.items():
+                for p in coords:
+                    got = ask(p, index, suffix, q)
+                    if got != bodies[name]:
+                        raise AssertionError(f"cluster {name} via {p} {when}: body differs "
+                                             f"from node A's")
+            log(f"cluster: {len(queries)} queries via {len(coords)} coordinators {when}: "
+                f"every body byte-equal to node A's")
+
+        # node A's bodies, each held to its oracle
+        bodies = {}
+        for name, (index, suffix, q, oracle) in queries.items():
+            bodies[name] = ask(node_a.port, index, suffix, q)
+            if oracle is not None and json.loads(bodies[name]) != oracle:
+                raise AssertionError(f"node A {name}: {bodies[name][:300]!r} != oracle")
+        before = {p: node_launches(p) for p in ports}
+        check_all(ports, bodies, "(oracle and node A)")
+        after = {p: node_launches(p) for p in ports}
+        deltas = {p: {k: after[p][k] - before[p][k] for k in after[p]} for p in ports}
+        for p in ports:
+            log(f"cluster node {p} launches over the queries: "
+                f"{json.dumps({k: v for k, v in deltas[p].items() if v})}")
+        if device == "cuda":
+            for k in CLUSTER_KERNELS_NODES:
+                if any(deltas[p][k] < 1 for p in ports):
+                    raise AssertionError(f"{k} did not launch on every node's legs")
+            if deltas[coord]["scatter_bits"] < 1:
+                raise AssertionError("scatter_bits did not launch on the coordinator")
+            # one section 2 Count: one pair_count a leg, the legs' nodes
+            before = {p: node_launches(p)["pair_count"] for p in ports}
+            ask(coord, "bench", "", COUNT_QUERIES["count_intersect"])
+            per_leg = {p: node_launches(p)["pair_count"] - before[p] for p in ports}
+            if sorted(per_leg.values()) != [1] * CLUSTER_NODES:
+                raise AssertionError(f"section 2 Count: pair_count a node {per_leg}")
+            before = node_launches(coord)["scatter_bits"]
+            ask(coord, "bench", queries["row_leg"][1], "Row(f=1)")
+            row_legs = node_launches(coord)["scatter_bits"] - before
+            log(f"cluster section 2 Count: pair_count launches a node {per_leg}; "
+                f"Row(f=1) over {len(leg_shards)} shards: {row_legs} scatter_bits on the "
+                f"coordinator (one a remote leg)  [{card}]")
+            if row_legs < 1:
+                raise AssertionError("Row(f=1): no remote leg decoded by scatter_bits")
+
+        q = COUNT_QUERIES["count_intersect"]
+        p50_c, spread_c = p50_ms(lambda: ask(coord, "bench", "", q), runs)
+        p50_a, spread_a = p50_ms(lambda: ask(node_a.port, "bench", "", q), runs)
+        log(f"section 2 Count over HTTP: cluster coordinator p50 {p50_c:.3f} ms "
+            f"({spread_c}), standalone node A p50 {p50_a:.3f} ms ({spread_a}), host clock, "
+            f"{runs} runs each  [{card}]")
+        doc = json.loads(expect_ok(conn, "GET", "/debug/vars"))
+        wire_ctr = {k: v for k, v in doc["counters"].items() if k.startswith("cluster.wire")}
+        log(f"coordinator wire counters: {json.dumps(wire_ctr)}")
+        # Where one Count's time goes: the coordinator's profile, each remote
+        # leg's round trip beside the peer's own total.
+        prof = json.loads(ask(coord, "bench", "&profile=true", q))["profile"]
+        legs = "; ".join(
+            f"{leg['node']} {leg['shards']} shards rtt {leg['rttMs']:.3f} ms (peer "
+            f"{leg.get('remote', {}).get('timings', {}).get('totalMs', float('nan')):.3f}, "
+            f"decode {leg['decodeMs']:.3f}, {leg['bytesIn']} B)"
+            for leg in prof.get("remoteLegs", []))
+        log(f"section 2 Count profiled on the coordinator: total "
+            f"{prof['timings'].get('totalMs', 0):.3f} ms, timings {json.dumps(prof['timings'])}, "
+            f"device {prof['dispatch']['deviceMs']:.3f} ms; legs: {legs}  [{card}]")
+
+        # Writes through the coordinator, acknowledged, then node A alike.
+        s = leg_shards[len(leg_shards) // 2]
+        fb = np.unpackbits(fw[s].view(np.uint8), bitorder="little").astype(bool)
+        gb = np.unpackbits(gw[s].view(np.uint8), bitorder="little").astype(bool)
+        col_set = s * SHARD_WIDTH + int(np.flatnonzero(~fb & gb)[0])
+        col_clear = s * SHARD_WIDTH + int(np.flatnonzero(fb & gb)[0])
+        writes = f"Set({col_set}, f=1) Clear({col_clear}, f=1)"
+        for p in (coord, dports[0], node_a.port):
+            c = http_client(p)
+            got = json.loads(expect_ok(c, "POST", "/index/bench/query", writes))
+            c.close()
+            if got != {"results": [True, True]}:
+                raise AssertionError(f"writes via {p}: {got}")
+        want_row = sorted(set(want_row) - {col_clear} | {col_set})
+        queries["row_leg"] = queries["row_leg"][:3] + (
+            {"results": [{"attrs": {}, "columns": want_row}]},)
+        bodies["row_leg"] = ask(node_a.port, "bench", queries["row_leg"][1], "Row(f=1)")
+        if json.loads(bodies["row_leg"]) != queries["row_leg"][3]:
+            raise AssertionError("node A Row(f=1) after the writes differs from the oracle")
+
+        # SIGKILL one member: the live coordinators fail over to replicas.
+        killed_proc, killed = nodes[CLUSTER_KILLED]
+        killed_proc.kill()
+        killed_proc.wait()
+        live = [p for p in ports if p != killed]
+        t0 = time.perf_counter()
+        check_all(live, bodies, f"after SIGKILL of {killed}")
+        log(f"cluster failover: every query via {live} answered in "
+            f"{time.perf_counter() - t0:.3f} s with member {killed} dead")
+        t0 = time.perf_counter()
+        while True:
+            doc = json.loads(expect_ok(conn, "GET", "/debug/membership"))
+            state = {p["id"]: p["state"] for p in doc["peers"]}
+            if state.get(f"127.0.0.1:{killed}") == "DOWN":
+                break
+            if time.perf_counter() - t0 > CLUSTER_SWEEP_WAIT_S:
+                raise AssertionError(f"/debug/membership: {killed} not DOWN: {state}")
+            time.sleep(0.5)
+        log(f"/debug/membership on {coord}: {killed} DOWN after "
+            f"{time.perf_counter() - t0:.3f} s (liveness sweep), cluster {doc['state']}, "
+            f"fenced {doc['fenced']}")
+
+        # No cluster query folds a contested shard (placement gives each
+        # shard to one leg); fold two live owners' remote legs of the same
+        # shards here, on the device.
+        owned = []
+        for s in range(n_shards):
+            ns = json.loads(expect_ok(conn, "GET",
+                                      f"/internal/fragment/nodes?index=bench&shard={s}"))
+            if {n["id"] for n in ns} == {f"127.0.0.1:{p}" for p in live}:
+                owned.append(s)
+            if len(owned) == 4:
+                break
+        if not owned:
+            raise AssertionError("no shard owned by both live members")
+        kernels.reset_launches()  # from here: this process's fold alone
+        device_reduce.set_mode("on")
+        try:
+            legs = []
+            for p in live:
+                c = http_client(p)
+                st, frame = request(c, "POST", "/index/bench/query?remote=true&shards="
+                                    + ",".join(map(str, owned)), "Row(f=1)",
+                                    {"Accept": wire.FRAMES_ACCEPT_V2})
+                c.close()
+                if st != 200:
+                    raise AssertionError(f"remote leg via {p}: HTTP {st}")
+                legs.extend(wire.decode_frames(frame, device=dev))
+            folded = device_reduce.union_rows(legs)
+        finally:
+            device_reduce.set_mode("auto")
+        want_fold = row_oracle(np.stack([fw[s] for s in range(n_shards)]), owned)
+        want_fold = sorted(set(want_fold) - {col_clear} | ({col_set} if col_set // SHARD_WIDTH
+                                                         in owned else set()))
+        if [int(c) for c in folded.columns()] != want_fold:
+            raise AssertionError("union_rows of contested legs differs from the oracle")
+        fold = dict(kernels.LAUNCHES)
+        log(f"contested fold (constructed, not a cluster query): shards {owned} from "
+            f"{len(legs)} remote legs, union_rows = oracle; this process launched "
+            f"{json.dumps({k: v for k, v in fold.items() if v})}")
+        if device == "cuda" and (fold["or_fold"] < 1 or fold["scatter_bits"] < 1):
+            raise AssertionError("the contested fold launched no or_fold / scatter_bits")
+        conn.close()
+        ca.close()
+
+        # The CLI's defaults, as a user's cluster runs: hedged reads on and
+        # the device reduce on auto. The same data and writes, every body
+        # again, the first cluster stopped.
+        cluster_stop(nodes)
+        before = {p: node_launches(p) for p in dports}
+        check_all(dports, bodies, "(CLI defaults: hedged reads on, device reduce auto)")
+        for p in dports:
+            now = node_launches(p)
+            c = http_client(p)
+            hedge = json.loads(expect_ok(c, "GET", "/debug/overload"))["hedge"]
+            c.close()
+            if hedge is None or hedge["primaries"] < 1:
+                raise AssertionError(f"node {p} on the defaults: no hedge policy on its "
+                                     f"legs: {hedge}")
+            log(f"cluster node {p} on the defaults: hedge primaries {hedge['primaries']}, "
+                f"fired {hedge['fired']}, won {hedge['won']}; scatter_bits "
+                f"{now['scatter_bits'] - before[p]['scatter_bits']}, or_fold "
+                f"{now['or_fold'] - before[p]['or_fold']} (auto's calibration included)")
+    finally:
+        cluster_stop(nodes + dnodes)
+    launches = {k: sum(deltas[p][k] for p in ports) for k in deltas[coord]}
+    log(f"cluster path launches (nodes' query legs and coordinators): "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}")
+    log(f"cluster phase body: {time.perf_counter() - t_phase:.3f} s")
+    return {"launches": launches, "fold_launches": fold,
+            "p50": {"cluster": p50_c, "node_a": p50_a}, "crossover": xover}
+
+
+def bitops_columns(words: np.ndarray, base: int) -> np.ndarray:
+    """Absolute columns of one shard's uint32 words."""
+    bits = np.unpackbits(words.view(np.uint8), bitorder="little")
+    return np.flatnonzero(bits).astype(np.int64) + base
+
+
 def main() -> int:
     import torch
 
@@ -5601,7 +6291,8 @@ def main() -> int:
               ("async", lambda: phase_async(torch, card, data)),
               ("packed", lambda: phase_packed(torch, card, data)),
               ("fields", lambda: phase_fields(torch, card, data)),
-              ("keys", lambda: phase_keys(torch, card, data)))
+              ("keys", lambda: phase_keys(torch, card, data)),
+              ("cluster", lambda: phase_cluster(torch, card, data)))
     try:
         for name, phase in phases:
             log(f"== phase {name}")
@@ -5627,7 +6318,7 @@ def main() -> int:
     errs = results["kernels"]["errs"]
     launches = {k: sum(results[p]["launches"][k]
                        for p in ("main_path", "bsi", "http", "persist", "pql", "async",
-                                 "packed", "fields", "keys"))
+                                 "packed", "fields", "keys", "cluster"))
                 for k in errs}
     sources = {"pair_count": "pilosa_tpu_torch/csrc/count_kernels.cu",
                "row_counts": "pilosa_tpu_torch/csrc/count_kernels.cu",
@@ -5644,7 +6335,9 @@ def main() -> int:
                "plane_scatter": "pilosa_tpu_torch/csrc/ingest_kernels.cu",
                **dict.fromkeys(("hll_expand", "hll_reduce", "similar_count"),
                                "pilosa_tpu_torch/csrc/sketch_kernels.cu"),
-               "plane_lookup": "pilosa_tpu_torch/csrc/keyplane_kernels.cu"}
+               "plane_lookup": "pilosa_tpu_torch/csrc/keyplane_kernels.cu",
+               **dict.fromkeys(("scatter_bits", "or_fold"),
+                               "pilosa_tpu_torch/csrc/reduce_kernels.cu")}
     vmapped = ("pilosa_tpu/parallel/coalesce.py:312-348 _flush_batched + "
                "pilosa_tpu/parallel/planner.py:387-396 vmapped (jax.vmap of the "
                "count program; no pallas_call)")
@@ -5686,18 +6379,27 @@ def main() -> int:
                 "similar_count": "pilosa_tpu/sketch/kernels.py:85-108 similar_program's "
                                  "totals (XLA-fused, no pallas_call)",
                 "plane_lookup": "pilosa_tpu/exec/keyplane.py:149-171 _search + "
-                                "plane_lookup (XLA-fused, no pallas_call)"}
+                                "plane_lookup (XLA-fused, no pallas_call)",
+                "scatter_bits": "pilosa_tpu/exec/device_reduce.py:111-118 _scatter_bits "
+                                "(XLA-fused, no pallas_call)",
+                "or_fold": "pilosa_tpu/exec/device_reduce.py:120-124 _or_fold "
+                           "(XLA-fused, no pallas_call)"}
     packed_program = " (planner.py:1906-1929 _packed_count_program)"
     replaces.update({
         f"{name}_batched": f"{vmapped} over {replaces[name]}{packed_program}"
         for name in ("packed_count", "packed_and_dense_count", "packed_pair_count")})
+    # No cluster query folds a contested shard: the cluster phase folds
+    # remote legs itself, and the line labels those launches.
+    fold = results["cluster"]["fold_launches"]
     entries = []
     for name in sources:
         ms, plain, bound, by, lib = timings[name]
         entries.append({"name": name, "route": "cuda", "source": sources[name],
-                        "replaces": replaces[name], "launches": launches[name],
+                        "replaces": replaces[name], "launches": launches[name] + fold[name],
                         "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
                         "bound_ms": bound, "bound_by": by, "library_ms": lib})
+        if fold[name]:
+            entries[-1]["launches_constructed_fold"] = fold[name]
     log(card)
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {

@@ -8,11 +8,11 @@ so invalidation is a compare at lookup time.
 - signature:    canonical plan text + cache key construction
 - result_cache: byte-accounted LRU partitioned per tenant, TTL backstop
 - tenant:       request-scoped tenant identity (X-API-Key or index)
-
-The JAX package's ``remote`` table of epochs observed from remote query
-legs comes with the cluster (ROADMAP.md Queue 1: cluster and operations).
+- remote:       shard epochs observed from remote query legs and peers'
+                index-dirty broadcasts (a cluster coordinator's stamps)
 """
 
+from pilosa_tpu_torch.cache.remote import RemoteEpochTable
 from pilosa_tpu_torch.cache.result_cache import ResultCache, estimate_result_size
 from pilosa_tpu_torch.cache.signature import cache_key, plan_signature
 from pilosa_tpu_torch.cache.tenant import (
@@ -22,6 +22,7 @@ from pilosa_tpu_torch.cache.tenant import (
 )
 
 __all__ = [
+    "RemoteEpochTable",
     "ResultCache",
     "cache_key",
     "estimate_result_size",

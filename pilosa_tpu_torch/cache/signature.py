@@ -79,9 +79,8 @@ def cache_key(idx: Any, query: Any, shards: Iterable[int],
     set the plan runs over, and every ExecOptions flag that changes the
     result's SHAPE (attrs/columns inclusion). Freshness lives in the
     entry's stamp, not the key, so a stale entry is found (and replaced
-    in place) rather than leaking alongside a fresh one. A standalone
-    port node runs no remote legs, so the JAX key's ``remote`` flag is
-    always false here and left out."""
+    in place) rather than leaking alongside a fresh one. A remote leg
+    caches its raw partials under its own key (``opt.remote``)."""
     return (idx.name, idx.instance_id, plan_signature(query),
-            tuple(shards), opt.exclude_row_attrs, opt.exclude_columns,
-            opt.column_attrs)
+            tuple(shards), opt.remote, opt.exclude_row_attrs,
+            opt.exclude_columns, opt.column_attrs)

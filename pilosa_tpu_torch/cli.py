@@ -207,14 +207,8 @@ _PORT_DEFAULTS = {
 #: server flags (by argparse dest) of features later slices bring, each
 #: with the ROADMAP.md Queue 1 slice that ports it.
 _UNPORTED = {
-    "scrub_interval": SLICE_CLUSTER,
-    "peers": SLICE_CLUSTER, "replica_n": SLICE_CLUSTER, "join": SLICE_CLUSTER,
-    "tls_ca_cert": SLICE_CLUSTER, "tls_skip_verify": SLICE_CLUSTER,
-    "breaker_threshold": SLICE_CLUSTER, "breaker_cooldown": SLICE_CLUSTER,
-    "hedge": SLICE_CLUSTER, "hedge_delay_ms": SLICE_CLUSTER,
-    "hedge_budget_pct": SLICE_CLUSTER, "fence_stale_reads": SLICE_CLUSTER,
+    "scrub_interval": SLICE_CLUSTER, "join": SLICE_CLUSTER,
     "chaos_faults": SLICE_CLUSTER, "trace_endpoint": SLICE_CLUSTER,
-    "device_reduce": SLICE_CLUSTER, "multiplex": SLICE_CLUSTER,
     "ingest_max_inflight_mb": SLICE_CLUSTER,
 }
 
@@ -259,6 +253,30 @@ def cmd_server(args, parser: argparse.ArgumentParser) -> int:
         cfg["bind"] = args.bind
     if args.device:
         cfg["device"] = args.device
+    if args.peers:
+        cfg["peers"] = args.peers
+    if args.replica_n:
+        cfg["replica_n"] = args.replica_n
+    if args.tls_ca_cert:
+        cfg["tls_ca_cert"] = args.tls_ca_cert
+    if args.tls_skip_verify:
+        cfg["tls_skip_verify"] = "true"
+    if args.breaker_threshold is not None:
+        cfg["breaker_threshold"] = args.breaker_threshold
+    if args.breaker_cooldown is not None:
+        cfg["breaker_cooldown"] = args.breaker_cooldown
+    if args.hedge is not None:
+        cfg["hedge"] = args.hedge == "on"
+    if args.hedge_delay_ms is not None:
+        cfg["hedge_delay_ms"] = args.hedge_delay_ms
+    if args.hedge_budget_pct is not None:
+        cfg["hedge_budget_pct"] = args.hedge_budget_pct
+    if args.fence_stale_reads:
+        cfg["fence_stale_reads"] = True
+    if args.device_reduce is not None:
+        cfg["device_reduce"] = args.device_reduce
+    if args.multiplex is not None:
+        cfg["multiplex"] = args.multiplex == "on"
     if args.no_planner:
         cfg["planner"] = False
     if args.tls_cert:
@@ -337,6 +355,21 @@ def cmd_server(args, parser: argparse.ArgumentParser) -> int:
         bind=cfg["bind"],
         device=cfg["device"],
         use_planner=bool(cfg["planner"]),
+        peers=[p for p in str(cfg["peers"]).split(",") if p],
+        replica_n=int(cfg["replica_n"]),
+        check_nodes_interval=float(cfg["check_nodes_interval"]),
+        breaker_threshold=int(cfg["breaker_threshold"]),
+        breaker_cooldown=float(cfg["breaker_cooldown"]),
+        hedge=bool(cfg["hedge"]),
+        hedge_delay_ms=float(cfg["hedge_delay_ms"]),
+        hedge_budget_pct=float(cfg["hedge_budget_pct"]),
+        fence_stale_reads=(str(cfg["fence_stale_reads"]).lower()
+                           in ("1", "true", "yes", "on")),
+        device_reduce=str(cfg["device_reduce"]) or "auto",
+        multiplex=(str(cfg["multiplex"]).lower() in ("1", "true", "yes", "on")),
+        tls_ca_cert=str(cfg["tls_ca_cert"]) or None,
+        tls_skip_verify=(str(cfg["tls_skip_verify"]).lower() in ("1", "true", "yes")
+                         if str(cfg["tls_skip_verify"]) else None),
         tls_cert=str(cfg["tls_cert"]) or None,
         tls_key=str(cfg["tls_key"]) or None,
         backup_interval=float(cfg["backup_interval"]),
@@ -841,7 +874,7 @@ def _client_parser(sub, name: str, help_: str) -> argparse.ArgumentParser:
 def _server_parser(sub) -> argparse.ArgumentParser:
     """The JAX CLI's ``server`` flags (pilosa_tpu/cli.py:846), plus
     ``--device``."""
-    s = sub.add_parser("server", help="run a standalone node")
+    s = sub.add_parser("server", help="run a node")
     s.add_argument("--bind", default="")
     s.add_argument("--device", choices=("cuda", "cpu"), default=None,
                    help="where the node's data and kernels live "

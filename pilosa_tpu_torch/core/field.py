@@ -22,7 +22,7 @@ from __future__ import annotations
 import datetime as dt
 import threading
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Iterable
 
 import numpy as np
 import torch
@@ -197,7 +197,7 @@ class Field:
     def __init__(self, index: str, name: str, device: torch.device,
                  options: FieldOptions | None = None, epoch=None,
                  op_writer_factory: Callable | None = None,
-                 schema_epoch=None):
+                 schema_epoch=None, fragment_listener: Callable | None = None):
         # The internal existence field is the one reserved name allowed to
         # bypass validation (reference index.go:336).
         if name != EXISTENCE_FIELD_NAME:
@@ -212,7 +212,12 @@ class Field:
         #: field's structure (view deletion, bit-depth growth).
         self.schema_epoch = schema_epoch
         self.op_writer_factory = op_writer_factory
+        self.fragment_listener = fragment_listener
         self.views: dict[str, View] = {}
+        #: shards other nodes of a cluster hold for this field (create-shard
+        #: broadcasts, field.go:263-358): part of the shard set a
+        #: coordinator fans a query over.
+        self.remote_available_shards: set[int] = set()
         #: row attrs (SetRowAttrs, attached to Row results, TopN attrName):
         #: a file store on a node with a data dir.
         self.row_attr_store = AttrStore(epoch=epoch)
@@ -283,15 +288,37 @@ class Field:
                          cache_type=self.options.cache_type,
                          cache_size=self.options.cache_size, epoch=self.epoch,
                          op_writer_factory=self.op_writer_factory,
-                         mutex=self.uses_mutex())
+                         mutex=self.uses_mutex(),
+                         fragment_listener=self.fragment_listener)
                 self.views[name] = v
             return v
 
     def available_shards(self) -> set[int]:
-        out: set[int] = set()
+        """Local fragments plus remote availability (field.go:263-358)."""
+        out = set(self.remote_available_shards)
         for v in self.views.values():
             out |= v.available_shards()
         return out
+
+    def add_remote_available_shards(self, shards: Iterable[int]) -> None:
+        new = set(shards) - self.remote_available_shards
+        if not new:
+            return
+        self.remote_available_shards |= new
+        # The shard set is part of query routing (and memoized on the
+        # index epoch): an advertisement must invalidate, or queries keep
+        # running against the pre-advert shard list. notify=False: this
+        # is not a local write, so no dirty re-broadcast.
+        if self.epoch is not None:
+            self.epoch.bump_shards(new, notify=False)
+
+    def remove_remote_available_shard(self, shard: int) -> None:
+        """Forget a remotely advertised shard (reference
+        Field.RemoveAvailableShard, field.go:344)."""
+        if int(shard) in self.remote_available_shards:
+            self.remote_available_shards.discard(int(shard))
+            if self.epoch is not None:
+                self.epoch.bump(shard=int(shard), notify=False)
 
     # -- bit ops -----------------------------------------------------------
 

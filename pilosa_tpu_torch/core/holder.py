@@ -23,12 +23,20 @@ class Holder:
     raises when there is no card; pass ``device="cpu"`` for the CPU."""
 
     def __init__(self, device: str | torch.device | None = None,
-                 op_writer_factory=None):
+                 op_writer_factory=None, index_listener=None,
+                 fragment_listener=None):
         self.device = resolve_device(device)
         self.indexes: dict[str, Index] = {}
         #: factory(index, field, view, shard) -> the fragment's WAL hook,
         #: set by storage.DiskStore.open() before the schema loads.
         self.op_writer_factory = op_writer_factory
+        #: called with each newly created Index (cluster mode wires the
+        #: cross-node dirty broadcaster to its epoch here).
+        self.index_listener = index_listener
+        #: called (index, field, view, shard) for each new fragment (cluster
+        #: mode broadcasts create-shard so every node's shard map stays
+        #: complete).
+        self.fragment_listener = fragment_listener
         #: the store's QuarantineRegistry once a DiskStore opened; the
         #: executor refuses shards it blocks.
         self.quarantine = None
@@ -48,8 +56,11 @@ class Holder:
             if name in self.indexes:
                 raise IndexExistsError()
             idx = Index(name, self.device, options,
-                        op_writer_factory=self.op_writer_factory)
+                        op_writer_factory=self.op_writer_factory,
+                        fragment_listener=self.fragment_listener)
             self.indexes[name] = idx
+            if self.index_listener is not None:
+                self.index_listener(idx)
             return idx
 
     def create_index_if_not_exists(self, name: str,

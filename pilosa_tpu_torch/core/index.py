@@ -58,10 +58,15 @@ class Epoch:
     plan touching shards S stamps itself with ``max_shard_epoch(S)`` --
     writes to shards outside S advance ``value`` but leave that max
     unchanged. A shardless ``bump()`` (attrs, field and view changes)
-    raises the floor under every shard instead. The JAX package's
-    listeners serve cluster broadcasts, which a later slice ports."""
+    raises the floor under every shard instead.
 
-    __slots__ = ("_value", "_floor", "_shards", "_lock")
+    Listeners (cluster mode) turn local bumps into index-dirty broadcasts
+    so peer nodes can invalidate their coordinator result caches; they
+    are called ``fn(shard)`` with the mutated shard, or ``None`` for an
+    index-wide bump. A bump a peer's broadcast triggers passes
+    ``notify=False``, so it is never broadcast back."""
+
+    __slots__ = ("_value", "_floor", "_shards", "_lock", "_listeners")
 
     def __init__(self):
         self._value = 0
@@ -70,8 +75,9 @@ class Epoch:
         #: shard -> sequence position of its last shard-tagged bump.
         self._shards: dict[int, int] = {}
         self._lock = threading.Lock()
+        self._listeners: list = []
 
-    def bump(self, shard: int | None = None) -> None:
+    def bump(self, shard: int | None = None, notify: bool = True) -> None:
         with self._lock:
             self._value += 1
             if shard is None:
@@ -79,10 +85,17 @@ class Epoch:
                 self._shards.clear()  # all <= floor now: drop the detail
             else:
                 self._shards[shard] = self._value
+        if notify:
+            for fn in list(self._listeners):
+                try:
+                    fn(shard)
+                except Exception:
+                    pass  # observers never break the write path
 
-    def bump_shards(self, shards: Iterable[int]) -> None:
+    def bump_shards(self, shards: Iterable[int], notify: bool = True) -> None:
         """One sequence increment covering a whole shard batch (bulk
-        imports: one cache invalidation per batch, not one per shard)."""
+        imports: one cache invalidation and one dirty broadcast per batch,
+        not one per shard)."""
         shards = [int(s) for s in shards]
         if not shards:
             return
@@ -90,6 +103,16 @@ class Epoch:
             self._value += 1
             for s in shards:
                 self._shards[s] = self._value
+        if notify:
+            for fn in list(self._listeners):
+                for s in shards:
+                    try:
+                        fn(s)
+                    except Exception:
+                        pass
+
+    def subscribe(self, fn) -> None:
+        self._listeners.append(fn)
 
     @property
     def value(self) -> int:
@@ -111,6 +134,14 @@ class Epoch:
                     m = v
             return m
 
+    def shard_vector(self, shards: Iterable[int]) -> dict[int, int]:
+        """Per-shard epochs for the wire (remote legs report theirs so the
+        coordinator can stamp cross-node cache entries)."""
+        with self._lock:
+            floor = self._floor
+            get = self._shards.get
+            return {int(s): max(get(int(s), 0), floor) for s in shards}
+
 
 _instance_counter = itertools.count(1)
 
@@ -119,7 +150,8 @@ class Index:
     """Reference Index (index.go:37)."""
 
     def __init__(self, name: str, device: torch.device,
-                 options: IndexOptions | None = None, op_writer_factory=None):
+                 options: IndexOptions | None = None, op_writer_factory=None,
+                 fragment_listener=None):
         validate_name(name)
         self.name = name
         self.device = device
@@ -128,6 +160,7 @@ class Index:
         self.instance_id = next(_instance_counter)
         self.options = options or IndexOptions()
         self.op_writer_factory = op_writer_factory
+        self.fragment_listener = fragment_listener
         self.epoch = Epoch()
         #: bumped on structural changes (field create/delete, BSI bit-depth
         #: growth): prepared plans bake field structure, so the planner's
@@ -147,7 +180,7 @@ class Index:
                 self.name, EXISTENCE_FIELD_NAME, device,
                 FieldOptions(cache_type="none", cache_size=0), epoch=self.epoch,
                 op_writer_factory=op_writer_factory,
-                schema_epoch=self.schema_epoch)
+                schema_epoch=self.schema_epoch, fragment_listener=fragment_listener)
 
     def field(self, name: str) -> Field | None:
         return self.fields.get(name)
@@ -165,7 +198,8 @@ class Index:
                 raise FieldExistsError()
             f = Field(self.name, name, self.device, options, epoch=self.epoch,
                       op_writer_factory=self.op_writer_factory,
-                      schema_epoch=self.schema_epoch)
+                      schema_epoch=self.schema_epoch,
+                      fragment_listener=self.fragment_listener)
             self.fields[name] = f
             self.epoch.bump()
             self.schema_epoch.bump()

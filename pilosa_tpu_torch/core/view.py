@@ -36,6 +36,7 @@ class View:
     def __init__(self, index: str, field: str, name: str, device: torch.device,
                  cache_type: str = "ranked", cache_size: int = DEFAULT_CACHE_SIZE,
                  epoch=None, op_writer_factory: Callable | None = None,
+                 fragment_listener: Callable | None = None,
                  mutex: bool = False):
         self.index = index
         self.field = field
@@ -48,6 +49,9 @@ class View:
         self.mutex = mutex
         #: factory(index, field, view, shard) -> op_writer for WAL wiring.
         self.op_writer_factory = op_writer_factory
+        #: fn(index, field, view, shard) on each new fragment (cluster
+        #: mode's create-shard broadcast, view.go:263-304).
+        self.fragment_listener = fragment_listener
         self.fragments: dict[int, Fragment] = {}
         self._lock = threading.RLock()
 
@@ -74,6 +78,8 @@ class View:
                 # the index's available_shards() memo keys on the epoch.
                 if bump_epoch and self.epoch is not None:
                     self.epoch.bump(shard=shard)
+                if self.fragment_listener:
+                    self.fragment_listener(self.index, self.field, self.name, shard)
             return frag
 
     def available_shards(self) -> set[int]:

@@ -80,11 +80,25 @@ class TranslateStoreReadOnlyError(PilosaError):
 
 class ApiMethodNotAllowedError(PilosaError):
     """Reference newAPIMethodNotAllowedError (api.go:124): the cluster's
-    state refuses this operation right now (HTTP 405). A standalone node is
-    always in the NORMAL state and never raises it; the HTTP edge maps it
-    all the same."""
+    state refuses this operation right now (HTTP 405): the API's state gate
+    on a cluster node outside NORMAL and DEGRADED. A standalone node is
+    always NORMAL and never raises it."""
 
     message = "api method not allowed"
+
+
+class ClusterFencedError(PilosaError):
+    """This node cannot reach a majority of the ring: it has fenced
+    itself and refuses non-internal traffic (503 + Retry-After on the
+    HTTP surface) so a partitioned minority never accepts writes the
+    majority will skip. Reads may be re-enabled behind the explicit
+    stale-reads knob (Cluster.fence_stale_reads)."""
+
+    message = "node is fenced: cannot reach a quorum of the cluster"
+
+    #: seconds a client should wait before retrying: one failure-detector
+    #: sweep is the soonest the fence can lift.
+    retry_after = 5.0
 
 
 class FragmentNotFoundError(PilosaError):

@@ -44,6 +44,16 @@ table (``_prepared``) while its index's instance, schema epoch and data
 epoch stand still. Everything else runs synchronously before its future
 resolves.
 
+On a cluster (``cluster=``, a ``cluster.Cluster``) ``map_reduce`` hands
+the shard batch to ``Cluster.map_reduce``, which runs this node's shards
+here and sends the rest to their owners as remote legs; a remote leg
+(``ExecOptions(remote=True)``) returns raw partials -- a Count's int, a
+TopN's first-pass pairs, a sketch's registers -- for the coordinator to
+fold, and bitmap legs fold on the device (``exec/device_reduce``). Writes
+go to every replica through ``Cluster.write_fanout``, attrs to every node
+through ``broadcast_call``. Keys on a cluster need the coordinator's
+translate sync, which is not ported: they raise ``NotPortedError``.
+
 The active deadline (``qos.deadline``, set by the HTTP edge) is checked
 between the query's calls and before each shard or shard batch, as in the
 JAX executor, so an expired query stops at the next step and never returns
@@ -63,6 +73,7 @@ from typing import Any, Callable, Iterable
 
 import numpy as np
 
+from pilosa_tpu_torch.cache.remote import RemoteEpochTable
 from pilosa_tpu_torch.cache.tenant import current_tenant
 from pilosa_tpu_torch.config import SHARD_WIDTH
 from pilosa_tpu_torch.core import timequantum as tq
@@ -73,9 +84,11 @@ from pilosa_tpu_torch.core.index import Index
 from pilosa_tpu_torch.core.row import Row
 from pilosa_tpu_torch.core.view import VIEW_STANDARD, view_bsi_name
 from pilosa_tpu_torch.errors import (
+    SLICE_CLUSTER,
     BSIGroupNotFoundError,
     FieldNotFoundError,
     IndexNotFoundError,
+    NotPortedError,
     QueryError,
 )
 from pilosa_tpu_torch import sketch as _sketch
@@ -118,9 +131,11 @@ _BITMAP_CALLS = frozenset(
 
 @dataclass
 class ExecOptions:
-    """Reference execOptions (executor.go:62), without the cluster's
-    ``remote`` leg flag and shard list."""
+    """Reference execOptions (executor.go:62). ``remote`` marks a cluster
+    leg: it returns raw partials and neither translates keys nor fans out
+    again."""
 
+    remote: bool = False
     exclude_row_attrs: bool = False
     exclude_columns: bool = False
     column_attrs: bool = False
@@ -141,9 +156,11 @@ class Executor:
     PREPARED_CACHE_SIZE = 256
 
     def __init__(self, holder: Holder, planner=None, stats=None,
-                 result_cache=True):
+                 result_cache=True, cluster=None):
         self.holder = holder
         self.planner = planner
+        #: cluster hooks (pilosa_tpu_torch.cluster); None = standalone node.
+        self.cluster = cluster
         #: device key planes (exec/keyplane): read-through forward
         #: translation for large key batches; the tensors live in the
         #: planner's budgeted stack cache when a planner is attached.
@@ -156,6 +173,9 @@ class Executor:
             self.result_cache = None
         else:
             self.result_cache = result_cache
+        #: (index, shard) -> (node, epoch) observed from remote legs and
+        #: index-dirty broadcasts: the cross-node half of cache stamps.
+        self.remote_epochs = RemoteEpochTable()
         self._cache_lock = threading.Lock()
         #: query-string -> parsed Query; parsed trees are shared across
         #: threads, and every consumer clones before mutating.
@@ -192,7 +212,8 @@ class Executor:
             if prof is not None:
                 prof.add_ms("parseMs", (time.perf_counter() - t0) * 1e3)
         opt = opt or ExecOptions()
-        _fuse.reset_fused_steps()
+        if not opt.remote:
+            _fuse.reset_fused_steps()
         idx = self.holder.index(index_name)
         if idx is None:
             raise IndexNotFoundError(f"index not found: {index_name!r}")
@@ -226,11 +247,20 @@ class Executor:
             # Between plan steps: an expired deadline stops the query
             # before it spends more device time.
             check_deadline()
-            results.append(self._execute_call(idx, self._translate_call(idx, call),
-                                              shards, opt))
-        results = [self._translate_result(idx, c, r) for c, r in zip(query.calls, results)]
+            # Keys translate on the coordinator only: a remote leg already
+            # carries ids and returns raw partials (executor.go:113-160);
+            # the parse cache shares trees, so it runs on a clone.
+            call = call.clone() if opt.remote else self._translate_call(idx, call)
+            results.append(self._execute_call(idx, call, shards, opt))
+        if not opt.remote:
+            results = [self._translate_result(idx, c, r)
+                       for c, r in zip(query.calls, results)]
         if cacheable:
-            self.result_cache.put(tenant, key, stamp, results)
+            # Remote rows re-read AFTER the legs: each leg reported the
+            # vector it read before executing, so the stored stamp is as
+            # conservative as the pre-execution local one.
+            self.result_cache.put(tenant, key, stamp[:2] + (
+                self.remote_epochs.rows_for(idx.name, shards),), results)
         return results
 
     def execute_async(self, index_name: str, query: Query | str,
@@ -250,7 +280,10 @@ class Executor:
         raw = query if isinstance(query, str) else None
         if shards is not None and not isinstance(shards, list):
             shards = list(shards)  # one materialization of an iterator
-        if self.planner is not None and raw is not None:
+        # A cluster's queries fan out through map_reduce: the prepared and
+        # fast dispatch paths are a standalone node's.
+        local = self.cluster is None and not opt.remote
+        if local and self.planner is not None and raw is not None:
             # Prepared-query path: a repeated (index, text) whose epochs
             # stand still re-dispatches its program and leaves directly,
             # with no parse, plan-key hash or leaf fetch.
@@ -295,7 +328,7 @@ class Executor:
                         fut.set_exception(exc)
                         return fut
         fast = None
-        if self.planner is not None:
+        if local and self.planner is not None:
             try:
                 q = self._parse_cached(raw) if raw is not None else query
             except Exception as exc:
@@ -412,8 +445,10 @@ class Executor:
 
     def _exec_stamp(self, idx: Index, shards: list[int]) -> tuple:
         """The freshness stamp of a cached result: the index's schema
-        epoch and the newest mutation among the plan's shards."""
-        return (idx.schema_epoch.value, idx.epoch.max_shard_epoch(shards))
+        epoch, the newest mutation among the plan's shards, and the epochs
+        remote legs and peers reported for them."""
+        return (idx.schema_epoch.value, idx.epoch.max_shard_epoch(shards),
+                self.remote_epochs.rows_for(idx.name, shards))
 
     def _parse_cached(self, raw: str) -> Query:
         with self._cache_lock:
@@ -436,43 +471,46 @@ class Executor:
                       opt: ExecOptions) -> Any:
         name = c.name
         if name == "Count":
-            return self._execute_count(idx, c, shards)
+            return self._execute_count(idx, c, shards, opt)
         if name == "Set":
-            return self._execute_set(idx, c)
+            return self._execute_set(idx, c, opt)
         if name == "Clear":
-            return self._execute_clear_bit(idx, c)
+            return self._execute_clear_bit(idx, c, opt)
         if name == "ClearRow":
-            return self._execute_clear_row(idx, c, shards)
+            return self._execute_clear_row(idx, c, shards, opt)
         if name == "Store":
-            return self._execute_store(idx, c, shards)
+            return self._execute_store(idx, c, shards, opt)
         if name == "SetRowAttrs":
-            self._execute_set_row_attrs(idx, c)
+            self._execute_set_row_attrs(idx, c, opt)
             return None
         if name == "SetColumnAttrs":
-            self._execute_set_column_attrs(idx, c)
+            self._execute_set_column_attrs(idx, c, opt)
             return None
         if name == "TopN":
-            return self._execute_top_n(idx, c, shards)
+            return self._execute_top_n(idx, c, shards, opt)
         if name == "Rows":
-            return self._execute_rows(idx, c, shards)
+            return self._execute_rows(idx, c, shards, opt)
         if name == "Options":
             return self._execute_options(idx, c, shards, opt)
         if name == "Sum":
-            return self._execute_sum(idx, c, shards)
+            return self._execute_sum(idx, c, shards, opt)
         if name in ("Min", "Max"):
-            return self._execute_min_max(idx, c, shards, is_min=name == "Min")
+            return self._execute_min_max(idx, c, shards, opt, is_min=name == "Min")
         if name in ("MinRow", "MaxRow"):
-            return self._execute_min_max_row(idx, c, shards,
+            return self._execute_min_max_row(idx, c, shards, opt,
                                              is_min=name == "MinRow")
         if name == "GroupBy":
-            return self._execute_group_by(idx, c, shards)
+            return self._execute_group_by(idx, c, shards, opt)
         if name == "Distinct":
             # Bare Distinct() has no client-facing result shape: it is the
             # map half of Count(Distinct(...)), which intercepts it in
-            # _execute_count (only a cluster's remote leg runs it bare).
-            raise QueryError("Distinct() must be wrapped in Count()")
+            # _execute_count. A cluster's remote leg runs it bare (the
+            # coordinator ships the inner call) and returns the partial.
+            if not opt.remote:
+                raise QueryError("Distinct() must be wrapped in Count()")
+            return self._execute_distinct(idx, c, shards, opt)
         if name == "SimilarTopN":
-            return self._execute_similar_top_n(idx, c, shards)
+            return self._execute_similar_top_n(idx, c, shards, opt)
         if name in _BITMAP_CALLS:
             return self._execute_bitmap_call(idx, c, shards, opt)
         raise QueryError(f"unknown call: {name}")
@@ -481,15 +519,21 @@ class Executor:
     # map/reduce spine (reference mapReduce executor.go:2455)
     # ------------------------------------------------------------------
 
-    def map_reduce(self, idx: Index, shards: list[int],
-                   map_fn: Callable[[int], Any],
+    def map_reduce(self, idx: Index, shards: list[int], c: Call,
+                   opt: ExecOptions, map_fn: Callable[[int], Any],
                    reduce_fn: Callable[[Any, Any], Any],
                    local_batch_fn: Callable[[list[int]], Any] | None = None) -> Any:
-        """Single-node spine: ``local_batch_fn`` (the planner) takes the
-        whole shard batch at once; otherwise map_fn runs per shard and
-        reduce_fn folds the results. A shard whose local data the store
-        quarantined is refused with ``ShardCorruptError``, never served
-        as zeros."""
+        """The spine: on a cluster (and not as a remote leg) the cluster
+        groups the shards by node and sends ``c`` to the other owners;
+        here ``local_batch_fn`` (the planner) takes the whole shard batch
+        at once, or map_fn runs per shard and reduce_fn folds the results.
+        A shard whose local data the store quarantined is refused with
+        ``ShardCorruptError``, never served as zeros (as a remote leg that
+        makes the coordinator fail over to a replica)."""
+        if self.cluster is not None and not opt.remote:
+            return self.cluster.map_reduce(self, idx, shards, c, opt,
+                                           map_fn, reduce_fn,
+                                           local_batch_fn=local_batch_fn)
         self._check_quarantine(idx, shards)
         if local_batch_fn is not None:
             check_deadline()
@@ -515,6 +559,10 @@ class Executor:
         def reduce_fn(prev, v):
             return v if prev is None else prev.union(v)  # disjoint shards
 
+        # The cluster defers row legs and folds them on the device in one
+        # batched program (exec/device_reduce.py) when it sees this tag.
+        reduce_fn.reduce_kind = "row_union"
+
         local_batch = None
         if planner is not None:
             local_batch = lambda shs: planner.execute_bitmap(idx, c, shs)
@@ -525,7 +573,7 @@ class Executor:
                 local_batch = (lambda shs: self.planner.execute_bitmap(
                     idx, fused_call, shs,
                     const_rows=self._const_rows(idx, const_calls, shs)))
-        row = self.map_reduce(idx, shards, map_fn, reduce_fn,
+        row = self.map_reduce(idx, shards, c, opt, map_fn, reduce_fn,
                               local_batch_fn=local_batch) or Row()
 
         # Row attributes of a plain Row() (executor.go:604-639).
@@ -739,7 +787,8 @@ class Executor:
             raise QueryError(f"{c.name}(): field required")
         return field_name
 
-    def _execute_sum(self, idx: Index, c: Call, shards: list[int]) -> ValCount:
+    def _execute_sum(self, idx: Index, c: Call, shards: list[int],
+                     opt: ExecOptions) -> ValCount:
         field_name = self._agg_field(c)
 
         def map_fn(shard):
@@ -758,13 +807,13 @@ class Executor:
                 s, cnt = self.planner.execute_sum(idx, c, list(shs))
                 return ValCount(s + cnt * base, cnt)
 
-        result = self.map_reduce(idx, shards, map_fn,
+        result = self.map_reduce(idx, shards, c, opt, map_fn,
                                  lambda p, v: v if p is None else p.add(v),
                                  local_batch_fn=local_batch) or ValCount()
         return ValCount() if result.count == 0 else result
 
     def _execute_min_max(self, idx: Index, c: Call, shards: list[int],
-                         is_min: bool) -> ValCount:
+                         opt: ExecOptions, is_min: bool) -> ValCount:
         field_name = self._agg_field(c)
 
         def map_fn(shard):
@@ -793,12 +842,12 @@ class Executor:
                 v, cnt = self.planner.execute_min_max(idx, c, list(shs), is_min)
                 return ValCount(v + base, cnt) if cnt else ValCount()
 
-        result = self.map_reduce(idx, shards, map_fn, reduce_fn,
+        result = self.map_reduce(idx, shards, c, opt, map_fn, reduce_fn,
                                  local_batch_fn=local_batch) or ValCount()
         return ValCount() if result.count == 0 else result
 
     def _execute_min_max_row(self, idx: Index, c: Call, shards: list[int],
-                             is_min: bool) -> Pair:
+                             opt: ExecOptions, is_min: bool) -> Pair:
         """MinRow/MaxRow (executor.py:918): per shard the smallest (largest)
         row with a bit, in the filter child if there is one, and its count;
         the fold keeps the smallest (largest) id, and on equal ids the
@@ -824,18 +873,19 @@ class Executor:
                 return v
             return p
 
-        return self.map_reduce(idx, shards, map_fn, reduce_fn) or Pair()
+        return self.map_reduce(idx, shards, c, opt, map_fn, reduce_fn) or Pair()
 
     # ------------------------------------------------------------------
     # Count
     # ------------------------------------------------------------------
 
-    def _execute_count(self, idx: Index, c: Call, shards: list[int]) -> int:
+    def _execute_count(self, idx: Index, c: Call, shards: list[int],
+                       opt: ExecOptions) -> int:
         if len(c.children) != 1:
             raise QueryError("Count() requires a single bitmap input")
         child = c.children[0]
         if child.name == "Distinct":
-            return self._execute_distinct(idx, child, shards)
+            return self._execute_distinct(idx, child, shards, opt)
         planner = self._planner_for(child)
 
         def map_fn(shard):
@@ -851,7 +901,7 @@ class Executor:
                 local_batch = (lambda shs: self.planner.execute_count(
                     idx, fused_call, shs,
                     const_rows=self._const_rows(idx, const_calls, shs)))
-        return self.map_reduce(idx, shards, map_fn, lambda p, v: (p or 0) + v,
+        return self.map_reduce(idx, shards, c, opt, map_fn, lambda p, v: (p or 0) + v,
                                local_batch_fn=local_batch) or 0
 
     # ------------------------------------------------------------------
@@ -871,14 +921,16 @@ class Executor:
             return np.zeros(WORDS_PER_SHARD, dtype=np.uint32)
         return bitops.to_host_words(seg)
 
-    def _execute_distinct(self, idx: Index, c: Call, shards: list[int]) -> int:
+    def _execute_distinct(self, idx: Index, c: Call, shards: list[int],
+                          opt: ExecOptions) -> Any:
         """Count(Distinct(filter?, field=f)): HLL estimate over the field's
         register planes -- one program over all shards with a planner --
         with an EXACT per-shard-unique leg when the estimate lands under
         the threshold (where relative HLL error is most visible and exact
-        is cheapest). The resolved precision and threshold are pinned into
-        the call's arguments, as the JAX executor pins them for its
-        remote legs."""
+        is cheapest). The coordinator pins the resolved precision and
+        threshold into the shipped call so every node sketches at the same
+        precision, and a remote leg returns the raw partial (HLLSketch on
+        the sketch leg, DistinctValues on the exact leg)."""
         field_name, ok = c.string_arg("field")
         if not ok:
             raise QueryError("Distinct(): field required")
@@ -903,7 +955,8 @@ class Executor:
         cc.args["threshold"] = int(thr)
 
         if cc.args.get("exact"):
-            return int(len(self._distinct_exact(idx, cc, shards, f, depth).values))
+            part = self._distinct_exact(idx, cc, shards, opt, f, depth)
+            return part if opt.remote else int(len(part.values))
 
         def map_fn(shard):
             _, frag = self._bsi_fragment(idx, field_name, shard)
@@ -915,23 +968,33 @@ class Executor:
         def reduce_fn(prev, v):
             return v if prev is None else prev.merge(v)
 
+        # The cluster defers sketch legs and folds them in one stacked
+        # register max when it sees this tag.
+        reduce_fn.reduce_kind = "register_max"
+
         local_batch = None
         if self.planner is not None and self.planner.supports_distinct(idx, cc):
             def local_batch(shs):
                 regs = self.planner.execute_distinct_registers(idx, cc, list(shs), p)
                 return _hll.HLLSketch(p=p, regs=regs)
 
-        sk = self.map_reduce(idx, shards, map_fn, reduce_fn, local_batch_fn=local_batch)
-        est = (sk or _hll.HLLSketch.empty(p)).estimate()
+        sk = self.map_reduce(idx, shards, cc, opt, map_fn, reduce_fn,
+                             local_batch_fn=local_batch)
+        sk = sk or _hll.HLLSketch.empty(p)
+        if opt.remote:
+            return sk
+        est = sk.estimate()
         if thr and est < thr:
             ec = cc.clone()
             ec.args["exact"] = True
-            return int(len(self._distinct_exact(idx, ec, shards, f, depth).values))
+            part = self._distinct_exact(idx, ec, shards, opt, f, depth)
+            return int(len(part.values))
         return int(round(est))
 
-    def _distinct_exact(self, idx: Index, c: Call, shards: list[int], f,
-                        depth: int) -> _hll.DistinctValues:
-        """Exact leg: per-shard sorted unique values, host union fold."""
+    def _distinct_exact(self, idx: Index, c: Call, shards: list[int],
+                        opt: ExecOptions, f, depth: int) -> _hll.DistinctValues:
+        """Exact leg: per-shard sorted unique values, host union fold; on a
+        cluster each node returns the DistinctValues of its own shards."""
         base = np.int64(f.bsi_group.base)
 
         def map_fn(shard):
@@ -945,9 +1008,11 @@ class Executor:
         def reduce_fn(prev, v):
             return v if prev is None else prev.merge(v)
 
-        return self.map_reduce(idx, shards, map_fn, reduce_fn) or _hll.DistinctValues.empty()
+        return (self.map_reduce(idx, shards, c, opt, map_fn, reduce_fn)
+                or _hll.DistinctValues.empty())
 
-    def _execute_similar_top_n(self, idx: Index, c: Call, shards: list[int]) -> list[Pair]:
+    def _execute_similar_top_n(self, idx: Index, c: Call, shards: list[int],
+                               opt: ExecOptions) -> Any:
         """SimilarTopN(f, Row(...), n=, metric=): Jaccard/overlap of the
         filter row against EVERY row of the field, one similar_count pass
         over the field's row cube with a planner. Returns the TopN pair
@@ -970,7 +1035,10 @@ class Executor:
             metric = "jaccard"
         if metric not in ("jaccard", "overlap"):
             raise QueryError(f"SimilarTopN(): unknown metric {metric!r}")
-        filter_call = c.children[0]
+        cc = c.clone()
+        cc.args["n"] = int(n)
+        cc.args["metric"] = metric
+        filter_call = cc.children[0]
 
         def map_fn(shard):
             return self._similar_shard(idx, field_name, filter_call, shard)
@@ -996,8 +1064,11 @@ class Executor:
                 return _hll.SimPartial(ids=ids, overlap=inter, selfcnt=selfc,
                                        filtcnt=filtc, order=order)
 
-        part = self.map_reduce(idx, shards, map_fn, reduce_fn, local_batch_fn=local_batch)
+        part = self.map_reduce(idx, shards, cc, opt, map_fn, reduce_fn,
+                               local_batch_fn=local_batch)
         part = part or _hll.SimPartial.empty()
+        if opt.remote:
+            return part
         return [Pair(id=rid, count=cnt) for rid, cnt, _score in part.top_pairs(n, metric)]
 
     def _similar_shard(self, idx: Index, field_name: str, filter_call: Call,
@@ -1033,28 +1104,30 @@ class Executor:
     # TopN (reference executor.go:857 two-pass)
     # ------------------------------------------------------------------
 
-    def _execute_top_n(self, idx: Index, c: Call, shards: list[int]) -> list[Pair]:
+    def _execute_top_n(self, idx: Index, c: Call, shards: list[int],
+                       opt: ExecOptions) -> list[Pair]:
         ids_arg, _ = c.uint_slice_arg("ids")
         n, _ = c.uint_arg("n")
 
-        pairs = self._top_n_shards(idx, c, shards)
-        if not pairs or ids_arg:
+        pairs = self._top_n_shards(idx, c, shards, opt)
+        if not pairs or ids_arg or opt.remote:
             return pairs
 
         # Pass 2: exact counts for the merged candidate ids.
         other = c.clone()
         other.args["ids"] = sorted(p.id for p in pairs)
-        trimmed = self._top_n_shards(idx, other, shards)
+        trimmed = self._top_n_shards(idx, other, shards, opt)
         if n and n < len(trimmed):
             trimmed = trimmed[:n]
         return trimmed
 
-    def _top_n_shards(self, idx: Index, c: Call, shards: list[int]) -> list[Pair]:
+    def _top_n_shards(self, idx: Index, c: Call, shards: list[int],
+                      opt: ExecOptions) -> list[Pair]:
         def reduce_fn(p, v):
             return merge_pairs(p or [], v)
 
         merged = self.map_reduce(
-            idx, shards, lambda shard: self._top_n_shard(idx, c, shard), reduce_fn,
+            idx, shards, c, opt, lambda shard: self._top_n_shard(idx, c, shard), reduce_fn,
             local_batch_fn=self._topn_batch_fn(idx, c)) or []
         return sort_pairs(merged)
 
@@ -1198,7 +1271,8 @@ class Executor:
     # Rows (reference executor.go:1272)
     # ------------------------------------------------------------------
 
-    def _execute_rows(self, idx: Index, c: Call, shards: list[int]) -> list[int]:
+    def _execute_rows(self, idx: Index, c: Call, shards: list[int],
+                      opt: ExecOptions) -> list[int]:
         """Raw row ids (reference RowIDs); a top-level Rows() result is
         wrapped in RowIdentifiers (with the rows' keys on a keyed field) by
         _translate_result (executor.go:1272, :2800)."""
@@ -1217,7 +1291,7 @@ class Executor:
 
         views = self._rows_views(idx, field_name, c)
         return self.map_reduce(
-            idx, shards,
+            idx, shards, c, opt,
             lambda shard: self._rows_shard(idx, field_name, c, shard, views),
             reduce_fn) or []
 
@@ -1276,8 +1350,8 @@ class Executor:
     # GroupBy (reference executor.go:1069, iterator :3058)
     # ------------------------------------------------------------------
 
-    def _execute_group_by(self, idx: Index, c: Call,
-                          shards: list[int]) -> list[GroupCount]:
+    def _execute_group_by(self, idx: Index, c: Call, shards: list[int],
+                          opt: ExecOptions) -> list[GroupCount]:
         """GroupBy over ``Rows`` children: group counts in lexicographic
         group order, zero counts dropped; ``offset`` and ``limit`` apply
         once, after the unbounded merge of every shard (executor.py:1442).
@@ -1299,7 +1373,7 @@ class Executor:
             _, has_lim = child.uint_arg("limit")
             _, has_col = child.uint_arg("column")
             if has_lim or has_col:
-                ids = self._execute_rows(idx, child, shards)
+                ids = self._execute_rows(idx, child, shards, opt)
                 if not ids:
                     return []
                 child_rows[i] = ids
@@ -1335,7 +1409,7 @@ class Executor:
                            for i, rid in enumerate(grp)],
                     count=cnt) for grp, cnt in res]
 
-        results = self.map_reduce(idx, shards, map_fn, reduce_fn,
+        results = self.map_reduce(idx, shards, c, opt, map_fn, reduce_fn,
                                   local_batch_fn=local_batch) or []
         offset, has_off = c.uint_arg("offset")
         if has_off and offset < len(results):
@@ -1477,7 +1551,16 @@ class Executor:
             raise FieldNotFoundError(f"field not found: {field_name!r}")
         return f, col_id
 
-    def _execute_set(self, idx: Index, c: Call) -> bool:
+    def _write(self, idx: Index, c: Call, col_id: int, opt: ExecOptions,
+               apply: Callable[[], bool]) -> bool:
+        """Apply a single-column write here, or on a cluster on every
+        replica of its shard (executor.go:2144)."""
+        if self.cluster is not None:
+            return self.cluster.write_fanout(idx.name, col_id // SHARD_WIDTH,
+                                             c, opt, apply)
+        return apply()
+
+    def _execute_set(self, idx: Index, c: Call, opt: ExecOptions) -> bool:
         """Reference executeSet (executor.go:2067): a bit (with a
         timestamp, also into the time views), or an int field's value."""
         f, col_id = self._write_target(idx, c, "Set")
@@ -1486,25 +1569,33 @@ class Executor:
             value, ok = c.int_arg(f.name)
             if not ok:
                 raise QueryError("Set() row argument 'row' required")
-            return f.set_value(col_id, value)
+            return self._write(idx, c, col_id, opt,
+                               lambda: f.set_value(col_id, value))
         row_id = row_id_arg(c, f.name)
         timestamp = None
         if "_timestamp" in c.args:
             timestamp = tq.parse_time(c.args["_timestamp"])
-        return f.set_bit(row_id, col_id, timestamp)
+        return self._write(idx, c, col_id, opt,
+                           lambda: f.set_bit(row_id, col_id, timestamp))
 
-    def _execute_clear_bit(self, idx: Index, c: Call) -> bool:
+    def _execute_clear_bit(self, idx: Index, c: Call, opt: ExecOptions) -> bool:
         """Clearing an int field's value clears its exists bit."""
         f, col_id = self._write_target(idx, c, "Clear")
         row_id = row_id_arg(c, f.name)
         if f.field_type != FIELD_TYPE_INT:
-            return f.clear_bit(row_id, col_id)
-        v = f.bsi_view()
-        frag = v.fragment(col_id // SHARD_WIDTH) if v is not None else None
-        return frag.clear_bit(BSI_EXISTS_BIT, col_id) if frag is not None else False
+            return self._write(idx, c, col_id, opt,
+                               lambda: f.clear_bit(row_id, col_id))
+
+        def apply():
+            v = f.bsi_view()
+            frag = v.fragment(col_id // SHARD_WIDTH) if v is not None else None
+            return frag.clear_bit(BSI_EXISTS_BIT, col_id) if frag is not None else False
+
+        return self._write(idx, c, col_id, opt, apply)
 
 
-    def _execute_clear_row(self, idx: Index, c: Call, shards: list[int]) -> bool:
+    def _execute_clear_row(self, idx: Index, c: Call, shards: list[int],
+                           opt: ExecOptions) -> bool:
         """Reference ClearRow (executor.py:1709): the row dropped from every
         view of the field in every shard; True when any held bits."""
         field_name = c.field_arg()
@@ -1530,13 +1621,15 @@ class Executor:
                     changed |= frag.clear_row(row_id)
             return changed
 
-        return bool(self.map_reduce(idx, shards, map_fn,
+        return bool(self.map_reduce(idx, shards, c, opt, map_fn,
                                     lambda p, v: bool(p) or v))
 
-    def _execute_store(self, idx: Index, c: Call, shards: list[int]) -> bool:
+    def _execute_store(self, idx: Index, c: Call, shards: list[int],
+                       opt: ExecOptions) -> bool:
         """Reference executeSetRow / Store() (executor.go:1990): the source
-        row, evaluated over every shard at once (``execute_bitmap`` with a
-        planner), replaces the target row in every shard of the query."""
+        row, evaluated over a node's shards at once (``execute_bitmap``
+        with a planner), replaces the target row in each of them; on a
+        cluster each owner does its own shards."""
         field_name = c.field_arg()
         f = idx.field(field_name)
         if f is None:
@@ -1548,16 +1641,26 @@ class Executor:
             raise QueryError("need the <FIELD>=<ROW> argument on Store()")
         if len(c.children) != 1:
             raise QueryError("Store() requires a source row")
-        src = self._execute_bitmap_call(idx, c.children[0], shards, ExecOptions())
-
-        def map_fn(shard):
+        def store(shs, src):
             view = f.create_view_if_not_exists(VIEW_STANDARD)
-            return view.create_fragment_if_not_exists(shard).set_row(src, row_id)
+            changed = False
+            for shard in shs:
+                changed |= view.create_fragment_if_not_exists(shard).set_row(src, row_id)
+            return changed
 
-        return bool(self.map_reduce(idx, shards, map_fn,
-                                    lambda p, v: bool(p) or v))
+        def local_batch(shs):
+            # The source over this node's shards only: a remote-style
+            # option, so a cluster does not fan the source out again.
+            src = self._execute_bitmap_call(idx, c.children[0], list(shs),
+                                            ExecOptions(remote=True))
+            return store(shs, src)
 
-    def _execute_set_row_attrs(self, idx: Index, c: Call) -> None:
+        return bool(self.map_reduce(
+            idx, shards, c, opt,
+            lambda shard: store([shard], self._bitmap_call_shard(idx, c.children[0], shard)),
+            lambda p, v: bool(p) or v, local_batch_fn=local_batch))
+
+    def _execute_set_row_attrs(self, idx: Index, c: Call, opt: ExecOptions) -> None:
         field_name = c.args.get("_field")
         f = idx.field(field_name)
         if f is None:
@@ -1567,13 +1670,17 @@ class Executor:
             raise QueryError("SetRowAttrs() row field 'row' required")
         attrs = {k: v for k, v in c.args.items() if k not in ("_field", "_row")}
         f.row_attr_store.set_attrs(row_id, attrs)
+        if self.cluster is not None:
+            self.cluster.broadcast_call(idx.name, c, opt)
 
-    def _execute_set_column_attrs(self, idx: Index, c: Call) -> None:
+    def _execute_set_column_attrs(self, idx: Index, c: Call, opt: ExecOptions) -> None:
         col_id, ok = c.uint_arg("_col")
         if not ok:
             raise QueryError("SetColumnAttrs() col required")
         attrs = {k: v for k, v in c.args.items() if k != "_col"}
         idx.column_attr_store.set_attrs(col_id, attrs)
+        if self.cluster is not None:
+            self.cluster.broadcast_call(idx.name, c, opt)
 
     # ------------------------------------------------------------------
     # Options (reference executor.go:360)
@@ -1620,6 +1727,10 @@ class Executor:
         the whole batch). Plane misses are re-checked under the store lock
         before any allocation, so a stale plane costs a host fallback,
         never a duplicate id."""
+        if self.cluster is not None:
+            # The coordinator is a cluster's id authority, and replicas
+            # pull from it (cluster/translate_sync.py): not ported.
+            raise NotPortedError("keys on a cluster", SLICE_CLUSTER)
         fname = f.name if f is not None else None
         store = (f if f is not None else idx).translate_store
         ids = self.keyplanes.lookup(idx, fname, store, keys)

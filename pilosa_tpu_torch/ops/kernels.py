@@ -56,6 +56,12 @@
   ``plane_lookup``): ``[3, H]`` int32 (hash hi, hash lo, id) plane and
   ``[Q]`` probe hash halves in, ``[Q]`` ids out, MISS (0) where absent;
   the hash lanes compare as unsigned.
+- ``scatter_bits`` and ``or_fold`` (``csrc/reduce_kernels.cu``) are the
+  coordinator's device reduce of pilosa_tpu/exec/device_reduce.py,
+  XLA-fused in the JAX package: a remote Row leg's unique positions
+  (segment index, in-shard offset) into an ``[n_segs + 1, W]`` word image
+  whose last row is the padding sink, and the OR over K of a ``[B, K, W]``
+  stack of contested shards.
 
 On a CUDA tensor each wrapper launches its hand-written kernel (built at
 first use, see ``ops/build.py``) or raises; on a CPU tensor it runs the
@@ -91,7 +97,8 @@ LAUNCHES = {"pair_count": 0, "row_counts": 0, "bsi_compare": 0, "bsi_minmax": 0,
             "packed_pair_count": 0, "packed_expand": 0, "packed_count_batched": 0,
             "packed_and_dense_count_batched": 0, "packed_pair_count_batched": 0,
             "plane_scatter": 0, "hll_expand": 0, "hll_reduce": 0,
-            "similar_count": 0, "plane_lookup": 0}
+            "similar_count": 0, "plane_lookup": 0, "scatter_bits": 0,
+            "or_fold": 0}
 #: leaf records tree_count_batched's launches were given (slots x tape
 #: leaves) and the distinct leaves they read (each slot group's once):
 #: how much its waves share.
@@ -159,6 +166,10 @@ _SIGNATURES = {
     },
     "keyplane_kernels.cu": {
         "pilosa_plane_lookup": [_VP, _I64, _VP, _VP, _VP, _I64, _VP],
+    },
+    "reduce_kernels.cu": {
+        "pilosa_scatter_bits": [_VP, _VP, _I64, _I64, _I64, _VP, _VP],
+        "pilosa_or_fold": [_VP, _I64, _I64, _I64, _VP, _VP],
     },
 }
 _libs: dict[str, ctypes.CDLL] = {}
@@ -606,6 +617,32 @@ def plane_lookup_plain(plane: torch.Tensor, probe_hi: torch.Tensor,
     pos = lo.clamp(0, h - 1)
     hit = (hhi[pos] == phi) & (hlo[pos] == plo)
     return torch.where(hit, ids[pos], torch.zeros_like(ids[pos]))
+
+
+def scatter_bits_plain(seg: torch.Tensor, local: torch.Tensor, n_segs: int,
+                       words: int = WORDS_PER_SHARD) -> torch.Tensor:
+    """pilosa_tpu/exec/device_reduce.py _scatter_bits: bit ``local & 31`` of
+    word ``local >> 5`` of row ``seg`` in an ``[n_segs + 1, words]`` int32
+    image, row ``n_segs`` the padding sink. Entries out of range are
+    dropped, and a repeated entry sets its bit once (the JAX function's add
+    equals this OR on the unique positions it is given)."""
+    seg, local = seg.to(torch.int64), local.to(torch.int64)
+    keep = (seg >= 0) & (seg <= n_segs) & (local >= 0) & (local < 32 * words)
+    flat = torch.unique(seg[keep] * (32 * words) + local[keep])
+    img = torch.zeros((n_segs + 1) * words, dtype=torch.int64, device=seg.device)
+    img.index_add_(0, flat >> 5, torch.ones_like(flat) << (flat & 31))
+    img = torch.where(img >= 2**31, img - 2**32, img)
+    return img.to(torch.int32).reshape(n_segs + 1, words)
+
+
+def or_fold_plain(stack: torch.Tensor) -> torch.Tensor:
+    """pilosa_tpu/exec/device_reduce.py _or_fold: ``[B, K, W]`` -> ``[B, W]``,
+    the OR over K (zeros for K = 0)."""
+    out = torch.zeros((stack.shape[0], stack.shape[2]), dtype=torch.int32,
+                      device=stack.device)
+    for j in range(stack.shape[1]):
+        out = out | stack[:, j]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1733,4 +1770,71 @@ def plane_lookup(plane: torch.Tensor, probe_hi: torch.Tensor,
     if err:
         raise RuntimeError(f"plane_lookup kernel launch failed: CUDA error {err}")
     _count_launch("plane_lookup")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the coordinator's device reduce
+# ---------------------------------------------------------------------------
+
+
+def scatter_bits(seg: torch.Tensor, local: torch.Tensor, n_segs: int,
+                 words: int = WORDS_PER_SHARD) -> torch.Tensor:
+    """A remote Row leg's word blocks in one program: ``seg`` and ``local``
+    ``[N]`` int32 (segment index, in-shard offset) of unique positions;
+    ``[n_segs + 1, words]`` int32 out, bit ``local & 31`` of word
+    ``local >> 5`` of row ``seg``, row ``n_segs`` the padding sink, entries
+    out of range dropped. On the card the image is zeroed on the stream,
+    then one launch ORs each position's bit into its word."""
+    for x, name in ((seg, "seg"), (local, "local")):
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got {type(x).__name__}")
+        if x.dtype != torch.int32 or x.dim() != 1:
+            raise TypeError(f"{name} must be a 1-D int32 tensor, got {x.dtype} "
+                            f"{tuple(x.shape)}")
+    if seg.shape != local.shape or seg.device != local.device:
+        raise ValueError(f"seg {tuple(seg.shape)} on {seg.device} and local "
+                         f"{tuple(local.shape)} on {local.device} must match")
+    for v, name in ((n_segs, "n_segs"), (words, "words")):
+        if isinstance(v, bool) or int(v) != v or v < 0:
+            raise ValueError(f"{name} must be a non-negative int, got {v!r}")
+    if words == 0:
+        raise ValueError("words must be positive")
+    if seg.device.type == "cpu":
+        return scatter_bits_plain(seg, local, n_segs, words)
+    _require_cuda(seg)
+    seg, local = seg.contiguous(), local.contiguous()
+    out = torch.empty((n_segs + 1, words), dtype=torch.int32, device=seg.device)
+    with torch.cuda.device(seg.device):
+        err = _library("reduce_kernels.cu").pilosa_scatter_bits(
+            seg.data_ptr(), local.data_ptr(), len(seg), int(n_segs), int(words),
+            out.data_ptr(), _stream(seg.device))
+    if err:
+        raise RuntimeError(f"scatter_bits kernel launch failed: CUDA error {err}")
+    _count_launch("scatter_bits")
+    return out
+
+
+def or_fold(stack: torch.Tensor) -> torch.Tensor:
+    """``[B, K, W]`` int32 -> ``[B, W]``, the OR over K: one launch on the
+    card, each input word read once and each output word written once, four
+    words a thread (W a multiple of 4: every caller folds whole shards)."""
+    _check_words(stack, "stack")
+    if stack.dim() != 3 or stack.shape[2] % 4:
+        raise ValueError(f"stack must be [B, K, W], W a multiple of 4, got "
+                         f"{tuple(stack.shape)}")
+    if stack.device.type == "cpu":
+        return or_fold_plain(stack)
+    _require_cuda(stack)
+    b, k, w = stack.shape
+    stack = _aligned(stack)  # the kernel's 16-byte loads
+    out = torch.empty((b, w), dtype=torch.int32, device=stack.device)
+    if k == 0:
+        return out.zero_()
+    with torch.cuda.device(stack.device):
+        err = _library("reduce_kernels.cu").pilosa_or_fold(
+            stack.data_ptr(), b, k, w, out.data_ptr(), _stream(stack.device))
+    if err:
+        raise RuntimeError(f"or_fold kernel launch failed: CUDA error {err}")
+    _count_launch("or_fold")
     return out

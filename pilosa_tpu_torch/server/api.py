@@ -1,30 +1,41 @@
-"""API — the operation surface of a standalone node.
+"""API — the operation surface of a node.
 
-The port's counterpart of pilosa_tpu/server/api.py with ``cluster=None``
-only. Reference: api.go (API struct :42, Query :135, index/field CRUD
-:162-467, Import/ImportValue :920-1127, ExportCSV :500, schema :726-758,
-Status :1129-1260). The HTTP layer is a thin router over these methods.
+The port's counterpart of pilosa_tpu/server/api.py. Reference: api.go (API
+struct :42, Query :135, index/field CRUD :162-467, Import/ImportValue
+:920-1127, ExportCSV :500, schema :726-758, Status :1129-1260). The HTTP
+layer is a thin router over these methods.
 
-A standalone node is always in the NORMAL state, so no method is gated
-on the cluster's state. With a data dir, ``store`` is the node's
+On a cluster (``cluster=``) each method is gated on the cluster's state
+and on its quorum fence (``_validate``); a remote query leg answers with
+the typed wire frames (``server/wire.py``) stamped with this node's shard
+epochs; schema changes broadcast to the peers; imports go to every owner
+of each shard. A standalone node is always NORMAL. With a data dir, ``store`` is the node's
 ``storage.DiskStore``: creating an index or field writes ``schema.json``
 at once, so the WAL records of a node killed before its first flush are
 found again at boot (the JAX node writes the schema only when it flushes
 or deletes: ROADMAP.md Queue 3); deleting an index, field or view
 unlinks its files too. Imports by row and column keys allocate their ids
 in the index's and field's translate stores, one batch each, and
-``translate_keys``/``translate_entries`` serve the key routes. Remote
-(cluster-leg) queries raise ``NotPortedError`` naming the ROADMAP.md slice
-that brings them; fragment block sync has no method yet (its routes
-answer 501).
+``translate_keys``/``translate_entries`` serve the key routes; keys on a
+cluster need translate sync and raise ``NotPortedError``, as do a resize's
+dual writes and fragment block sync (ROADMAP.md Queue 1: cluster and
+operations).
 """
 
 from __future__ import annotations
 
 import io
-from typing import Iterable
+from typing import Any, Iterable
+
+import numpy as np
 
 import pilosa_tpu_torch
+from pilosa_tpu_torch.cluster.cluster import (
+    STATE_DEGRADED,
+    STATE_NORMAL,
+    STATE_REMOVED,
+    STATE_RESIZING,
+)
 from pilosa_tpu_torch.config import SHARD_WIDTH
 from pilosa_tpu_torch.core.field import FieldOptions, parse_stamps
 from pilosa_tpu_torch.core.holder import Holder
@@ -33,24 +44,24 @@ from pilosa_tpu_torch.core.row import Row
 from pilosa_tpu_torch.core.view import VIEW_STANDARD
 from pilosa_tpu_torch.errors import (
     SLICE_CLUSTER,
+    ApiMethodNotAllowedError,
+    ClusterFencedError,
     FieldNotFoundError,
     FragmentNotFoundError,
     NotPortedError,
 )
 from pilosa_tpu_torch.exec.executor import ExecOptions, Executor
 from pilosa_tpu_torch.exec.result import result_to_json
-
-#: the cluster state a standalone node always reports (reference
-#: ClusterStateNormal, cluster.go).
-STATE_NORMAL = "NORMAL"
+from pilosa_tpu_torch.obs import profile as _profile
 
 
 class API:
-    """Reference API (api.go:42), standalone."""
+    """Reference API (api.go:42)."""
 
-    def __init__(self, holder: Holder, executor: Executor):
+    def __init__(self, holder: Holder, executor: Executor, cluster=None):
         self.holder = holder
         self.executor = executor
+        self.cluster = cluster
         #: the node's storage.DiskStore, or None without a data dir.
         self.store = None
         #: this server's own ring entry (cluster.node.Node), set by
@@ -66,21 +77,91 @@ class API:
         #: profile every query into the ring, not only ?profile=true ones.
         self.profile_default = True
 
+    #: method-availability matrix per cluster state (reference
+    #: api.go:99-105 validAPIMethods + :1379-1411 method sets): during
+    #: STARTING only control-plane traffic flows; during RESIZING only
+    #: control plane + abort.
+    _METHODS_RESIZING = frozenset({"resize-abort"})
+
+    #: read-only methods a FENCED node may keep serving when the operator
+    #: opts into staleness (Cluster.fence_stale_reads).
+    _METHODS_FENCED_READS = frozenset({"query", "export-csv"})
+
+    def _validate(self, method: str, internal: bool = False) -> None:
+        """The JAX API's state gate (api.py:69-120): a fenced node refuses
+        client traffic (internal traffic is how the fence heals); outside
+        NORMAL and DEGRADED only internal reads and, while RESIZING, the
+        resize methods pass."""
+        if self.cluster is None:
+            return  # standalone node: always NORMAL
+        if self.cluster.fenced and not internal:
+            if not (self.cluster.fence_stale_reads
+                    and method in self._METHODS_FENCED_READS):
+                raise ClusterFencedError(
+                    f"api method {method} refused: node is fenced (no quorum)")
+        state = self.cluster.state
+        if state in (STATE_NORMAL, STATE_DEGRADED):
+            return
+        if (internal and method in self._METHODS_FENCED_READS
+                and state != STATE_REMOVED):
+            # A partitioned minority sits in STARTING, but the majority's
+            # detector may already be fanning read legs here again, and
+            # this node's fragments are still their replica copies.
+            return
+        if state == STATE_RESIZING and method in self._METHODS_RESIZING:
+            return
+        raise ApiMethodNotAllowedError(
+            f"api method {method} not allowed in state {state}")
+
+    #: public alias for route handlers that serve holder state directly.
+    validate_method = _validate
+
     # -- query (api.go:135) ------------------------------------------------
 
     def query(self, index: str, query: str,
               shards: list[int] | None = None, column_attrs: bool = False,
               exclude_row_attrs: bool = False, exclude_columns: bool = False,
-              remote: bool = False, cache: bool = True) -> dict:
+              remote: bool = False, accept_frames: int | bool = False,
+              cache: bool = True):
         """Execute PQL; returns the QueryResponse JSON dict
-        ({"results": [...]}, handler.go:60-75)."""
-        if remote:
-            raise NotPortedError("a remote query leg", SLICE_CLUSTER)
-        opt = ExecOptions(column_attrs=column_attrs,
+        ({"results": [...]}, handler.go:60-75) -- or, for a remote leg
+        whose caller accepts them, binary frames (bytes) carrying Row
+        results as roaring blobs (wire.encode_frames; ``accept_frames``
+        2 asks for the v2 layout)."""
+        # Remote legs are coordinator-internal: a fenced node still answers
+        # the majority's fan-out (it may hold their replica).
+        self._validate("query", internal=remote)
+        opt = ExecOptions(remote=remote, column_attrs=column_attrs,
                           exclude_row_attrs=exclude_row_attrs,
                           exclude_columns=exclude_columns)
+        epochs = None
+        if remote and shards:
+            # Read BEFORE executing: the reported vector is never fresher
+            # than the data in the result (cache/remote.py).
+            idx = self.holder.index(index)
+            if idx is not None:
+                epochs = idx.epoch.shard_vector(shards)
         results = self.executor.execute(index, query, shards=shards, opt=opt,
                                         cache=cache)
+        if remote:
+            from pilosa_tpu_torch.exec import fuse as _fuse
+            from pilosa_tpu_torch.server import wire
+            extra = ({"shardEpochs": {str(s): e for s, e in epochs.items()}}
+                     if epochs else None)
+            prof = _profile.current()
+            if prof is not None:
+                # The coordinator asked for a nested per-leg timeline: this
+                # node's ledger rides home in the response header.
+                prof.fused_steps = _fuse.fused_steps()
+                extra = dict(extra or {})
+                extra["profile"] = prof.finish()
+            if accept_frames:
+                return wire.encode_frames(
+                    results, extra=extra, version=2 if accept_frames == 2 else 1)
+            resp: dict[str, Any] = {"results": [wire.encode_result(r) for r in results]}
+            if extra:
+                resp.update(extra)
+            return resp
         resp = {"results": [result_to_json(r) for r in results]}
         # After execution: Options(columnAttrs=true) sets the flag on opt.
         if opt.column_attrs:
@@ -105,8 +186,11 @@ class API:
     # -- schema CRUD (api.go:162-467) --------------------------------------
 
     def create_index(self, name: str, options: dict | None = None):
+        self._validate("create-index")
         idx = self.holder.create_index(name, IndexOptions.from_json(options or {}))
         self._save_schema()
+        self._broadcast({"type": "create-index", "index": name,
+                         "options": options or {}})
         return idx
 
     def _save_schema(self) -> None:
@@ -114,33 +198,45 @@ class API:
             self.store.save_schema()
 
     def delete_index(self, name: str) -> None:
+        self._validate("delete-index")
         self.holder.delete_index(name)
         if self.store is not None:
             # Unlink the on-disk tree too: recreating the name must not
             # resurrect deleted data on the next restart.
             self.store.delete_subtree_files(name)
+        self._broadcast({"type": "delete-index", "index": name})
 
     def create_field(self, index: str, field: str,
                      options: dict | None = None):
+        self._validate("create-field")
         idx = self.holder.index_or_raise(index)
         f = idx.create_field(field, FieldOptions.from_json(options or {}))
         self._save_schema()
+        self._broadcast({"type": "create-field", "index": index,
+                         "field": field, "options": options or {}})
         return f
 
     def delete_field(self, index: str, field: str) -> None:
+        self._validate("delete-field")
         self.holder.index_or_raise(index).delete_field(field)
         if self.store is not None:
             self.store.delete_subtree_files(index, field)
+        self._broadcast({"type": "delete-field", "index": index,
+                         "field": field})
 
     def views(self, index: str, field: str) -> list[str]:
         """Reference API.Views (api.go:760)."""
         return self._field_or_raise(index, field).view_names()
 
     def delete_view(self, index: str, field: str, view: str) -> None:
-        """Reference API.DeleteView (api.go:779)."""
+        """Reference API.DeleteView (api.go:779): dropped here, then
+        broadcast so every node holding its shards follows."""
+        self._validate("delete-view")
         self._field_or_raise(index, field).delete_view(view)
         if self.store is not None:
             self.store.delete_subtree_files(index, field, view)
+        self._broadcast({"type": "delete-view", "index": index,
+                         "field": field, "view": view})
 
     def _field_or_raise(self, index: str, field: str):
         f = self.holder.index_or_raise(index).field(field)
@@ -151,11 +247,21 @@ class API:
     def schema(self) -> list[dict]:
         return self.holder.schema()
 
-    def apply_schema(self, schema: list[dict]) -> None:
-        """Reference API.ApplySchema (api.go:738); standalone there are no
-        peers to fan the schema out to."""
+    def apply_schema(self, schema: list[dict], remote: bool = False) -> None:
+        """Reference API.ApplySchema (api.go:738): applied here first, then
+        (``remote=False``) fanned out to every live peer, best effort: an
+        unreachable peer must not leave the origin node empty."""
+        self._validate("apply-schema")
         self.holder.apply_schema(schema)
         self._save_schema()
+        if not remote and self.cluster is not None:
+            for node in self.cluster.nodes:
+                if node.id == self.cluster.local_id or node.state == "DOWN":
+                    continue
+                try:
+                    self.cluster.client.post_schema(node, schema)
+                except (ConnectionError, RuntimeError, LookupError):
+                    pass
 
     def index_info(self, index: str) -> dict:
         return self.holder.index_or_raise(index).info()
@@ -170,7 +276,9 @@ class API:
                     clear: bool = False) -> None:
         """Batch bit import (reference api.Import, the local branch); with
         ``timestamps`` (epoch seconds or time strings, 0 or empty for
-        none) each stamped bit also lands in its time views."""
+        none) each stamped bit also lands in its time views. On a cluster
+        each shard's batch goes to every owner of the shard."""
+        self._validate("import")
         idx = self.holder.index_or_raise(index)
         f = idx.field(field)
         if f is None:
@@ -181,7 +289,11 @@ class API:
             column_ids = self._xlate_keys(idx, None, column_keys)
         ts = parse_stamps(timestamps) if timestamps is not None else None
         column_ids = list(column_ids)
-        f.import_bits(list(row_ids), column_ids, ts, clear=clear)
+        if self.cluster is not None:
+            self._route_import(index, field, f, list(row_ids), column_ids, ts,
+                               clear, values=None)
+        else:
+            f.import_bits(list(row_ids), column_ids, ts, clear=clear)
         idx.add_existence(column_ids)
 
     def import_values(self, index: str, field: str,
@@ -189,7 +301,8 @@ class API:
                       column_keys: Iterable[str] | None = None,
                       clear: bool = False) -> None:
         """Batch int-field value import (reference api.ImportValue, the
-        local branch)."""
+        local branch; on a cluster, routed as import_bits is)."""
+        self._validate("import-value")
         idx = self.holder.index_or_raise(index)
         f = idx.field(field)
         if f is None:
@@ -197,24 +310,87 @@ class API:
         if column_keys is not None:
             column_ids = self._xlate_keys(idx, None, column_keys)
         column_ids = list(column_ids)
-        f.import_values(column_ids, list(values), clear=clear)
+        if self.cluster is not None:
+            self._route_import(index, field, f, None, column_ids, None, clear,
+                               values=list(values))
+        else:
+            f.import_values(column_ids, list(values), clear=clear)
         idx.add_existence(column_ids)
+
+    def _route_import(self, index, field, f, row_ids, column_ids, ts, clear,
+                      values) -> None:
+        """Group by shard and send each batch to every owning node
+        (api.go:967-1030; the JAX API's ``_route_import``): a stable
+        argsort and a boundary scan split the batch, local batches apply
+        here, and each remote one goes as a binary ``/internal/import``
+        request carrying epoch-second timestamps."""
+        n = len(column_ids)
+        if n == 0:
+            return
+        cols_arr = np.asarray(column_ids, dtype=np.uint64)
+        shards = cols_arr // np.uint64(SHARD_WIDTH)
+        order = np.argsort(shards, kind="stable")
+        sorted_shards = shards[order]
+        bounds = np.flatnonzero(np.diff(sorted_shards)) + 1
+        starts = np.concatenate(([0], bounds))
+        ends = np.concatenate((bounds, [n]))
+        rows_arr = np.asarray(row_ids, dtype=np.uint64) if row_ids is not None else None
+        vals_arr = np.asarray(values, dtype=np.int64) if values is not None else None
+        epoch = None
+        if ts is not None:
+            # datetime64 stamps -> epoch seconds (None for NaT) on the wire.
+            secs = ts.astype("datetime64[s]").astype(np.int64).tolist()
+            epoch = [None if nat else s for s, nat in zip(secs, np.isnat(ts).tolist())]
+        for s, e in zip(starts.tolist(), ends.tolist()):
+            shard = int(sorted_shards[s])
+            sel = order[s:e]
+            cols = cols_arr[sel]
+            rows_b = rows_arr[sel] if rows_arr is not None else None
+            vals_b = vals_arr[sel] if vals_arr is not None else None
+            for node in self.cluster.shard_nodes(index, shard):
+                if node.id == self.cluster.local_id:
+                    if values is None:
+                        f.import_bits(rows_b, cols,
+                                      ts[sel] if ts is not None else None,
+                                      clear=clear)
+                    else:
+                        f.import_values(cols, vals_b, clear=clear)
+                else:
+                    self.cluster.client.send_import(
+                        node, index, field, shard, rows=rows_b, cols=cols,
+                        values=vals_b,
+                        timestamps=([epoch[i] for i in sel.tolist()]
+                                    if epoch is not None else None),
+                        clear=clear)
 
     def import_roaring(self, index: str, field: str, shard: int,
                        data: bytes, clear: bool = False) -> None:
         """Reference API.ImportRoaring (api.go:368): one shard's bits as a
-        serialized roaring bitmap into the standard view."""
+        serialized roaring bitmap into the standard view; on a cluster into
+        every owner's."""
+        self._validate("import-roaring")
         f = self.holder.index_or_raise(index).field(field)
         if f is None:
             raise FieldNotFoundError()
-        f.import_roaring(shard, data, clear=clear)
+        if self.cluster is None:
+            f.import_roaring(shard, data, clear=clear)
+            return
+        for node in self.cluster.shard_nodes(index, shard):
+            if node.id == self.cluster.local_id:
+                f.import_roaring(shard, data, clear=clear)
+            else:
+                self.cluster.client.send_import_roaring(node, index, field,
+                                                        shard, data, clear)
 
     # -- export (api.go:500) -----------------------------------------------
 
     def _xlate_keys(self, idx, f, keys: Iterable[str]) -> list[int]:
         """Ids of ``keys`` in the field's (or, for None, the index's)
         translate store, allocated where new: one lock, one epoch bump for
-        the batch."""
+        the batch. A cluster's coordinator allocates for every node
+        (translate sync), which is not ported."""
+        if self.cluster is not None:
+            raise NotPortedError("keys on a cluster", SLICE_CLUSTER)
         store = (f if f is not None else idx).translate_store
         return store.translate_keys(list(keys))
 
@@ -222,6 +398,7 @@ class API:
         """CSV of row,col for one shard, keys in place of the ids of a keyed
         field or index (reference exportShard). Reverse translation is one
         snapshot pass per store over the shard's distinct ids."""
+        self._validate("export-csv")
         idx = self.holder.index_or_raise(index)
         f = idx.field(field)
         if f is None:
@@ -253,21 +430,38 @@ class API:
     # -- status (api.go:726-1260) ------------------------------------------
 
     def status(self) -> dict:
-        return {"state": STATE_NORMAL, "nodes": [], "localID": "standalone"}
+        if self.cluster is None:
+            return {"state": STATE_NORMAL, "nodes": [], "localID": "standalone"}
+        return {"state": self.cluster.state,
+                "nodes": [n.to_json() for n in self.cluster.nodes],
+                "localID": self.cluster.local_id}
 
     def hosts(self) -> dict:
-        return {"version": 0, "nodes": [], "state": STATE_NORMAL}
+        if self.cluster is None:
+            return {"version": 0, "nodes": [], "state": STATE_NORMAL}
+        return {"version": self.cluster.topology_version,
+                "nodes": [n.to_json() for n in self.cluster.nodes],
+                "state": self.cluster.state}
 
     def info(self) -> dict:
         return {"shardWidth": SHARD_WIDTH,
                 "version": pilosa_tpu_torch.__version__}
 
     def fragment_nodes(self, index: str, shard: int) -> list[dict]:
-        """Nodes owning (index, shard): on a standalone node, this one
-        (reference handleGetFragmentNodes, http/handler.go:1290)."""
+        """Nodes owning (index, shard) under the current ring; on a
+        standalone node, this one (reference handleGetFragmentNodes,
+        http/handler.go:1290)."""
+        if self.cluster is not None:
+            return [n.to_json() for n in self.cluster.shard_nodes(index, shard)]
         if self.local_node is not None:
             return [self.local_node.to_json()]
         return [{"id": "standalone", "uri": {}, "isCoordinator": True}]
+
+    def delete_available_shard(self, index: str, field: str, shard: int) -> None:
+        """Reference api.DeleteAvailableShard (DELETE
+        /internal/index/{i}/field/{f}/remote-available-shards/{s})."""
+        self._validate("delete-available-shard")
+        self._field_or_raise(index, field).remove_remote_available_shard(shard)
 
     def max_shards(self) -> dict:
         return {name: max(self.holder.index(name).available_shards())
@@ -320,3 +514,17 @@ class API:
     def recalculate_caches(self) -> None:
         """Row counts are maintained exactly; nothing to rebuild. Kept for
         route parity (api.go RecalculateCaches)."""
+        self._validate("recalculate-caches")
+
+    def _broadcast(self, message: dict) -> None:
+        """A schema change to every live peer, best effort (reference
+        broadcast.go:55-72)."""
+        if self.cluster is None:
+            return
+        for node in self.cluster.nodes:
+            if node.id == self.cluster.local_id or node.state == "DOWN":
+                continue
+            try:
+                self.cluster.client.send_message(node, message)
+            except (ConnectionError, RuntimeError):
+                pass

@@ -1,11 +1,14 @@
-"""HTTP layer: REST router over the API facade of a standalone node.
+"""HTTP layer: REST router over the API facade of a node.
 
 The port's counterpart of pilosa_tpu/server/httpd.py. Reference:
 http/handler.go (newRouter :274-318). Implemented on the stdlib
 ThreadingHTTPServer, one thread per connection. Every route of the JAX
 node's table is mounted in the same order and matched by the same
-pattern; the routes a standalone node does not serve (cluster RPC)
-answer 501 with a body that names the ROADMAP.md slice that brings them.
+pattern, the cluster's internal RPC among them (remote query legs in
+binary frames, the PTM1 query mux, routed imports, control messages,
+probes). The routes of resize, fragment block sync, the PTS1 import stream
+and chaos faults answer 501 with a body that names the ROADMAP.md slice
+that brings them.
 """
 
 from __future__ import annotations
@@ -18,9 +21,11 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
 from pilosa_tpu_torch.cache.tenant import reset_current_tenant, set_current_tenant
+from pilosa_tpu_torch.cluster.cluster import ShardUnavailableError
 from pilosa_tpu_torch.errors import (
     SLICE_CLUSTER,
     ApiMethodNotAllowedError,
+    ClusterFencedError,
     FieldExistsError,
     FieldNotFoundError,
     FragmentNotFoundError,
@@ -129,6 +134,7 @@ def _make_handler(api: API):
         def _dispatch(self, method: str):
             parsed = urlparse(self.path)
             params = {k: v[0] for k, v in parse_qs(parsed.query).items()}
+            params["_accept"] = self.headers.get("Accept", "")
             params["_qos_class"] = self.headers.get("X-Qos-Class", "")
             params["_api_key"] = self.headers.get("X-API-Key", "")
             if "chunked" in (self.headers.get("Transfer-Encoding") or "").lower():
@@ -180,8 +186,17 @@ def _make_handler(api: API):
                     # 503, NOT 400 (before the PilosaError catch-all): the
                     # data exists but this node's copy is quarantined.
                     status, payload = 503, {"error": str(e)}
-                # The JAX ladder's 503 clauses for ClusterFencedError and
-                # ShardUnavailableError come with the cluster slice.
+                except ClusterFencedError as e:
+                    # 503 + Retry-After (before the catch-all): the node
+                    # fenced itself off a minority partition -- retryable
+                    # server-side unavailability, not a client error.
+                    status, payload = 503, {"error": str(e)}
+                    headers = {"Retry-After": str(int(e.retry_after))}
+                except ShardUnavailableError as e:
+                    # Every live owner of some shard is unreachable from
+                    # here: transient membership trouble, retryable.
+                    status, payload = 503, {"error": str(e)}
+                    headers = {"Retry-After": "1"}
                 except NotPortedError as e:
                     # Before the PilosaError catch-all: a feature of a
                     # later slice is not a bad request.
@@ -303,7 +318,14 @@ def _build_routes(api: API):
         shards = None
         if params.get("shards"):
             shards = [int(s) for s in params["shards"].split(",")]
+        from pilosa_tpu_torch.server import wire
         remote = params.get("remote") == "true"
+        # v2 frames carry aggregates as typed array blobs too; a v1 client's
+        # bare content type gets the v1 layout (JSON aggregate metas).
+        accept = params.get("_accept", "")
+        frames: int | bool = False
+        if remote and wire.FRAMES_CONTENT_TYPE in accept:
+            frames = 2 if "v=2" in accept else True
         # QoS front: classify, apply the node default deadline when the
         # client sent none, gate on admission, and feed the slow log.
         # Shed/deadline errors propagate to _dispatch's 503/504 mapping.
@@ -316,20 +338,25 @@ def _build_routes(api: API):
             dtoken = qos_deadline.set_current_deadline(
                 qos_deadline.Deadline(timeout=qos_ctl.default_deadline))
         want_inline_profile = params.get("profile") == "true"
-        # Result-cache gate: noCache bypasses explicitly; INTERNAL-class
-        # requests (maintenance sweeps) must not churn interactive
-        # tenants' partitions; an explicitly profiled query is exempt too,
-        # since a hit would profile the lookup, not the cost asked for.
+        # Result-cache gate: noCache bypasses explicitly; non-remote
+        # INTERNAL-class requests (maintenance sweeps) must not churn
+        # interactive tenants' partitions (remote fan-out legs keep
+        # caching); an explicitly profiled query is exempt too, since a
+        # hit would profile the lookup, not the cost asked for.
         use_cache = (params.get("noCache") != "true"
-                     and not want_inline_profile and cls != CLASS_INTERNAL)
+                     and not want_inline_profile
+                     and (remote or cls != CLASS_INTERNAL))
         # Tenant: the identity the quota table charges (X-API-Key,
-        # falling back to the index name).
-        ttoken = set_current_tenant(params.get("_api_key") or pv["index"])
+        # falling back to the index name); remote legs run under the
+        # default tenant, the coordinator having charged the query once.
+        ttoken = set_current_tenant(
+            "" if remote else (params.get("_api_key") or pv["index"]))
         # Per-query cost profile: armed by ?profile=true (inline in the
-        # response) or by the node's always-on slowest-N ring.
+        # response; a remote leg sends it home in the frames header) or by
+        # the node's always-on slowest-N ring.
         ring = api.profile_ring
         want_profile = want_inline_profile or (
-            ring is not None and api.profile_default)
+            not remote and ring is not None and api.profile_default)
         prof = None
         ptoken = trace_token = None
         prof_doc = None
@@ -338,7 +365,8 @@ def _build_routes(api: API):
             if not tid:
                 tid = _tr.new_trace_id()
                 trace_token = _tr.set_current_trace(tid)
-            node_id = getattr(api.local_node, "id", "") or "standalone"
+            node_id = (api.cluster.local_id if api.cluster is not None
+                       else getattr(api.local_node, "id", "") or "standalone")
             prof = _profile.QueryProfile(
                 tid, query=body.decode(errors="replace"),
                 index=pv["index"], node=node_id, qos_class=cls,
@@ -351,15 +379,16 @@ def _build_routes(api: API):
                 # An already-expired deadline 504s before any work.
                 qos_deadline.check_current()
                 # Per-tenant quota BEFORE admission: an over-budget
-                # tenant must not occupy a queue slot.
-                if api.quotas is not None:
+                # tenant must not occupy a queue slot. Remote legs are
+                # exempt: the coordinator charged the tenant once.
+                if api.quotas is not None and not remote:
                     api.quotas.check(params.get("_api_key") or pv["index"])
                 kwargs = dict(
                     shards=shards,
                     column_attrs=params.get("columnAttrs") == "true",
                     exclude_row_attrs=params.get("excludeRowAttrs") == "true",
                     exclude_columns=params.get("excludeColumns") == "true",
-                    remote=remote, cache=use_cache)
+                    remote=remote, accept_frames=frames, cache=use_cache)
                 if qos_ctl is not None:
                     with qos_ctl.admit(cls):
                         resp = api.query(pv["index"], body.decode(), **kwargs)
@@ -370,6 +399,11 @@ def _build_routes(api: API):
                 # Past the PilosaError catch below: the dispatch ladder
                 # maps each to its own status (503 for a quarantined shard).
                 status = "error"
+                raise
+            except (ClusterFencedError, ShardUnavailableError):
+                # Also past the PilosaError catch: 503 + Retry-After
+                # (partition-era unavailability, not a bad query).
+                status = "shed"
                 raise
             except (QueryShedError, DeadlineExceededError,
                     QuotaExceededError) as e:
@@ -393,10 +427,13 @@ def _build_routes(api: API):
                     _tr.reset_current_trace(trace_token)
                 prof.status = status
                 prof.fused_steps = _fuse.fused_steps()
-                prof_doc = prof.finish()
-                if ring is not None:
-                    ring.record(prof_doc)
-            if status not in ("shed", "quota"):
+                if not remote:
+                    # A remote leg's ledger already went home in its
+                    # response header (api.query).
+                    prof_doc = prof.finish()
+                    if ring is not None:
+                        ring.record(prof_doc)
+            if not remote and status not in ("shed", "quota"):
                 # Per-QoS-class service latency (admission wait +
                 # execution), exemplar'd with the active trace id.
                 # Shed/quota rejections never executed.
@@ -410,9 +447,84 @@ def _build_routes(api: API):
                                  fused_steps=_fuse.fused_steps(),
                                  trace_id=(prof.trace_id
                                            if prof is not None else ""))
-        if want_inline_profile and prof_doc is not None:
+        if isinstance(resp, bytes):
+            return 200, resp, {"Content-Type": wire.FRAMES_CONTENT_TYPE}
+        if want_inline_profile and prof_doc is not None and isinstance(resp, dict):
             resp["profile"] = prof_doc
         return 200, resp
+
+    def post_query_mux(pv, params, body):
+        """Multiplexed peer-leg batch (POST /internal/query-mux): one
+        request carrying N independent query legs, answered with N binary
+        frames (wire.encode_mux_response). Transport failures stay
+        whole-request; everything application-level -- shed, deadline,
+        quarantine, missing index, parse error -- is a per-leg outcome
+        inside the envelope. Each leg restores its own trace id and
+        deadline from the envelope."""
+        from pilosa_tpu_torch.server import wire
+        legs = wire.decode_mux_request(body)  # ValueError -> 400
+        qos_ctl = api.qos
+        cls = normalize_class("", remote=True)
+        outcomes: list[dict] = []
+        for leg in legs:
+            token = None
+            trace = leg.get("trace")
+            if trace:
+                token = _tr.set_current_trace(trace)
+            tms = leg.get("timeoutMs")
+            if tms is not None:
+                dl = qos_deadline.Deadline(timeout=float(tms) / 1000.0)
+            elif qos_ctl is not None and qos_ctl.default_deadline > 0:
+                dl = qos_deadline.Deadline(timeout=qos_ctl.default_deadline)
+            else:
+                dl = None
+            dtoken = (qos_deadline.set_current_deadline(dl)
+                      if dl is not None else None)
+            # Remote legs run under the default tenant.
+            ttoken = set_current_tenant("")
+            # A profiled leg ledgers this node's own costs; api.query
+            # ships the finished doc home in the leg's frames header.
+            ptoken = None
+            use_cache = not leg.get("profile")
+            if leg.get("profile"):
+                node_id = (api.cluster.local_id if api.cluster is not None
+                           else "standalone")
+                ptoken = _profile.activate(_profile.QueryProfile(
+                    trace or "", query=leg["query"], index=leg["index"],
+                    node=node_id, qos_class=cls, remote=True))
+            try:
+                qos_deadline.check_current()
+                kwargs = dict(shards=leg.get("shards"), remote=True,
+                              accept_frames=2, cache=use_cache)
+                if qos_ctl is not None:
+                    with qos_ctl.admit(cls):
+                        frame = api.query(leg["index"], leg["query"], **kwargs)
+                else:
+                    frame = api.query(leg["index"], leg["query"], **kwargs)
+                outcomes.append({"frame": frame})
+            except QueryShedError as e:
+                outcomes.append({"status": 503, "error": str(e),
+                                 "retryAfter": float(e.retry_after)})
+            except ShardCorruptError as e:
+                # str() carries "quarantined": the client's typed
+                # ShardCorruptError mapping keys on it.
+                outcomes.append({"status": 503, "error": str(e)})
+            except DeadlineExceededError as e:
+                outcomes.append({"status": 504, "error": str(e)})
+            except _NOT_FOUND as e:
+                outcomes.append({"status": 404, "error": str(e)})
+            except (QueryError, ParseError, ValueError, PilosaError) as e:
+                outcomes.append({"status": 400, "error": str(e)})
+            finally:
+                if ptoken is not None:
+                    _profile.deactivate(ptoken)
+                reset_current_tenant(ttoken)
+                if dtoken is not None:
+                    qos_deadline.reset_current_deadline(dtoken)
+                if token is not None:
+                    _tr.reset_current_trace(token)
+        return (200, wire.encode_mux_response(outcomes),
+                {"Content-Type": wire.MUX_CONTENT_TYPE})
 
     def post_import_roaring(pv, params, body):
         clear = params.get("clear") == "true"
@@ -435,7 +547,8 @@ def _build_routes(api: API):
         return 200, {"indexes": api.schema()}
 
     def post_schema(pv, params, body):
-        api.apply_schema(jbody(body).get("indexes", []))
+        api.apply_schema(jbody(body).get("indexes", []),
+                         remote=params.get("remote") == "true")
         return 200, {}
 
     def get_status(pv, params, body):
@@ -476,8 +589,12 @@ def _build_routes(api: API):
         planner = getattr(api.executor, "planner", None)
         if planner is None:
             return 200, {"enabled": False}
+        from pilosa_tpu_torch.ops import kernels
         out = planner.device_debug()
         out["enabled"] = True
+        # The port's own key: each kernel's launches since the process
+        # started (or the last reset_launches).
+        out["launches"] = dict(kernels.LAUNCHES)
         return 200, out
 
     def get_debug_translate(pv, params, body):
@@ -501,7 +618,11 @@ def _build_routes(api: API):
                     "watermark": store.replication_watermark(),
                     "version": store.version,
                 }
-        return 200, {"coordinator": None,
+        coord = None
+        if api.cluster is not None:
+            c = api.cluster.coordinator()
+            coord = c is not None and c.id == api.cluster.local_id
+        return 200, {"coordinator": coord,
                      "planes": planes.debug() if planes is not None else None,
                      "stores": stores}
 
@@ -545,11 +666,15 @@ def _build_routes(api: API):
         return 200, doc
 
     def get_debug_overload(pv, params, body):
-        """Adaptive admission limit, per-tenant quota buckets and the
-        result cache's occupancy; a standalone node has no breakers or
-        hedges."""
+        """Adaptive admission limit, per-tenant quota buckets, per-peer
+        breaker states, the hedge budget and the result cache's
+        occupancy."""
         qos_ctl = api.qos
         rcache = api.executor.result_cache
+        breakers = hedge = None
+        if api.cluster is not None:
+            breakers = getattr(api.cluster.client, "breakers", None)
+            hedge = api.cluster.hedge
         return 200, {
             "admission": qos_ctl.snapshot() if qos_ctl is not None else None,
             "adaptive": (qos_ctl.adaptive.snapshot()
@@ -557,23 +682,109 @@ def _build_routes(api: API):
                          and qos_ctl.adaptive is not None else None),
             "quotas": (api.quotas.snapshot()
                        if api.quotas is not None else None),
-            "breakers": None,
-            "hedge": None,
+            "breakers": breakers.snapshot() if breakers is not None else None,
+            "hedge": hedge.snapshot() if hedge is not None else None,
             "cache": rcache.snapshot() if rcache is not None else None,
         }
 
     def get_debug_cache(pv, params, body):
         """Result-cache snapshot: byte/entry occupancy, hit and eviction
-        counters, per-tenant partitions. A standalone node observes no
-        remote query legs, so its table of remote shard epochs (the JAX
-        node's RemoteEpochTable) is always empty."""
+        counters, per-tenant partitions, and the remote shard epochs the
+        node observed from remote legs and peers' broadcasts."""
         rcache = api.executor.result_cache
         if rcache is None:
             return 200, {"enabled": False}
         snap = rcache.snapshot()
         snap["enabled"] = True
-        snap["remoteEpochs"] = {"entries": 0}
+        snap["remoteEpochs"] = api.executor.remote_epochs.snapshot()
         return 200, snap
+
+    def get_debug_membership(pv, params, body):
+        """What THIS node thinks of the ring: per-peer state with the
+        failure detector's last probe outcome and indirect-probe verdicts,
+        per-peer breaker state, and the quorum fence."""
+        cluster = api.cluster
+        if cluster is None:
+            return 200, {"cluster": False}
+        breakers = getattr(cluster.client, "breakers", None)
+        bpeers = breakers.snapshot().get("peers", {}) if breakers is not None else {}
+        log = cluster.membership_log or {}
+        peers = []
+        for n in list(cluster.nodes):
+            obs = log.get(n.id, {})
+            peers.append({
+                "id": n.id,
+                "state": n.state,
+                "isCoordinator": bool(n.is_coordinator),
+                "self": n.id == cluster.local_id,
+                "lastProbeOk": obs.get("lastProbeOk"),
+                "lastProbeDirect": obs.get("lastProbeDirect"),
+                "lastProbeEpoch": obs.get("lastProbeAt"),
+                "indirect": obs.get("indirect", {}),
+                "breaker": bpeers.get(n.id),
+            })
+        return 200, {
+            "cluster": True,
+            "localId": cluster.local_id,
+            "state": cluster.state,
+            "topologyVersion": cluster.topology_version,
+            "fenced": bool(cluster.fenced),
+            "fenceStaleReads": bool(cluster.fence_stale_reads),
+            "fencingToken": cluster.fencing_token(),
+            # chaos partition faults are not ported: none is ever armed
+            "injectedFaults": {},
+            "peers": peers,
+        }
+
+    def get_availability(pv, params, body):
+        """Per-field shard availability (the additive NodeStatus half,
+        reference server.go:640)."""
+        from pilosa_tpu_torch.cluster.resize import holder_availability
+        return 200, holder_availability(api.holder)
+
+    def post_cluster_message(pv, params, body):
+        handler = getattr(api, "message_handler", None)
+        if handler is not None:
+            handler(jbody(body))
+        return 200, {}
+
+    def post_internal_import(pv, params, body):
+        """A routed import batch: binary PTI1 frames (wire.encode_import)
+        or JSON, sniffed by magic."""
+        from pilosa_tpu_torch.server import wire
+        req = wire.decode_import(body) if wire.is_import_frame(body) else jbody(body)
+        handler = getattr(api, "import_handler", None)
+        if handler is None:
+            return 400, {"error": "no import handler"}
+        handler(req)
+        return 200, {}
+
+    def get_nodes(pv, params, body):
+        return 200, api.hosts()
+
+    def get_internal_probe(pv, params, body):
+        """Probe a member on a caller's behalf (memberlist's indirect
+        ping): an asymmetric partition between the caller and the target
+        must not read as target-down when this node can still reach it.
+        Only ring members are probed."""
+        cluster = api.cluster
+        host = params.get("host", "")
+        port = str(params.get("port", ""))
+        target = None
+        if cluster is not None:
+            target = next((n for n in cluster.nodes
+                           if n.uri.host == host and str(n.uri.port) == port), None)
+        if target is None:
+            return 200, {"ok": False}
+        try:
+            cluster.client.probe(target)
+            return 200, {"ok": True}
+        except (ConnectionError, OSError, RuntimeError):
+            return 200, {"ok": False}
+
+    def delete_remote_available_shard(pv, params, body):
+        api.delete_available_shard(pv["index"], pv["field"], int(pv["shard"]))
+        return 200, {}
 
     def get_attr_blocks(pv, params, body):
         blocks = api.attr_blocks(params["index"], params.get("field"))
@@ -749,8 +960,7 @@ def _build_routes(api: API):
         (r"/version", {"GET": get_version}),
         (r"/metrics", {"GET": get_metrics}),
         (r"/debug/vars", {"GET": get_debug_vars}),
-        (r"/debug/membership",
-         {"GET": _not_ported("GET /debug/membership", cluster)}),
+        (r"/debug/membership", {"GET": get_debug_membership}),
         (r"/debug/queries/(?P<trace>[^/]+)",
          {"GET": get_debug_query_profile}),
         (r"/debug/queries", {"GET": get_debug_queries}),
@@ -771,12 +981,10 @@ def _build_routes(api: API):
         (r"/internal/backup/keys", {"GET": get_backup_keys}),
         (r"/internal/backup/fragment", {"GET": get_backup_fragment}),
         (r"/internal/shards/max", {"GET": get_shards_max}),
-        (r"/internal/availability",
-         {"GET": _not_ported("GET /internal/availability", cluster)}),
+        (r"/internal/availability", {"GET": get_availability}),
         (r"/internal/translate/keys", {"POST": post_translate_keys}),
         (r"/internal/translate/entries", {"GET": get_translate_entries}),
-        (r"/internal/cluster/message",
-         {"POST": _not_ported("POST /internal/cluster/message", cluster)}),
+        (r"/internal/cluster/message", {"POST": post_cluster_message}),
         (r"/internal/fragment/blocks",
          {"GET": _not_ported("GET /internal/fragment/blocks", cluster)}),
         (r"/internal/fragment/nodes", {"GET": get_fragment_nodes}),
@@ -785,7 +993,7 @@ def _build_routes(api: API):
         (r"/debug/backup", {"GET": get_debug_backup}),
         (r"/internal/index/(?P<index>[^/]+)/field/(?P<field>[^/]+)"
          r"/remote-available-shards/(?P<shard>[0-9]+)",
-         {"DELETE": _not_ported("remote available shards", cluster)}),
+         {"DELETE": delete_remote_available_shard}),
         (r"/cluster/resize/abort",
          {"POST": _not_ported("POST /cluster/resize/abort", cluster)}),
         (r"/cluster/resize/remove-node",
@@ -797,14 +1005,10 @@ def _build_routes(api: API):
          {"GET": _not_ported("GET /internal/fragment/block/data", cluster)}),
         (r"/internal/attr/blocks", {"GET": get_attr_blocks}),
         (r"/internal/attr/data", {"GET": get_attr_block_data}),
-        (r"/internal/import",
-         {"POST": _not_ported("POST /internal/import", cluster)}),
-        (r"/internal/nodes",
-         {"GET": _not_ported("GET /internal/nodes", cluster)}),
-        (r"/internal/probe",
-         {"GET": _not_ported("GET /internal/probe", cluster)}),
-        (r"/internal/query-mux",
-         {"POST": _not_ported("POST /internal/query-mux", cluster)}),
+        (r"/internal/import", {"POST": post_internal_import}),
+        (r"/internal/nodes", {"GET": get_nodes}),
+        (r"/internal/probe", {"GET": get_internal_probe}),
+        (r"/internal/query-mux", {"POST": post_query_mux}),
         # The JAX node serves this one ahead of its table, streaming.
         (r"/internal/import-stream",
          {"POST": _not_ported("POST /internal/import-stream", cluster)}),

@@ -1,7 +1,7 @@
-"""ServerNode — one standalone pilosa_tpu_torch node.
+"""ServerNode — one pilosa_tpu_torch node, standalone or one member of a
+cluster.
 
-The port's counterpart of pilosa_tpu/server/node.py for a node with no
-peers: Holder (on the card by default) + Executor (+ Planner) + API +
+The port's counterpart of pilosa_tpu/server/node.py: Holder (on the card by default) + Executor (+ Planner) + API +
 HTTPServer, with the QoS front (admission gate, default deadline,
 slow-query log, adaptive limit, tenant quotas, kernel warmup), the
 result cache, the query-profile ring, the runtime gauges and, with
@@ -13,9 +13,16 @@ packed residency, the residency prefetcher and the kernel build cache,
 the device value transpose's knob (``ingest_transpose``), and backup and
 restore: ``POST /backup`` and ``/restore`` drive a ``BackupWriter`` or a
 ``RestoreJob`` off the request thread, and ``backup_interval`` with
-``archive_url`` starts the unattended ``BackupScheduler``. Peers, joins,
-scrubs and the other background sweeps come with a later slice
-(ROADMAP.md Queue 1: cluster and operations).
+``archive_url`` starts the unattended ``BackupScheduler``.
+
+With ``peers`` the node is one member of a static cluster: a ``Cluster``
+over ``HTTPInternalClient`` (``replica_n`` owners a shard, per-peer
+circuit breakers, hedged reads, the PTM1 peer channel, TLS client
+options), create-shard and index-dirty broadcasts, the liveness sweep
+(``cluster.resize.check_nodes``) with quorum fencing, and the
+coordinator's device reduce (``device_reduce``). Joins
+(``join``/``topology.json``), anti-entropy, the scrubber, resize and
+chaos faults come with ROADMAP.md Queue 1: cluster and operations.
 """
 
 from __future__ import annotations
@@ -27,9 +34,13 @@ import threading
 
 import torch
 
+from pilosa_tpu_torch.cluster.cluster import STATE_NORMAL, Cluster
+from pilosa_tpu_torch.cluster.harness import handle_cluster_message
 from pilosa_tpu_torch.cluster.node import URI, Node
 from pilosa_tpu_torch.cache.result_cache import ResultCache
 from pilosa_tpu_torch.core.holder import Holder
+from pilosa_tpu_torch.device import resolve_device
+from pilosa_tpu_torch.exec import device_reduce as _device_reduce
 from pilosa_tpu_torch.exec import fuse as _dispatch_fuse
 from pilosa_tpu_torch.exec import ingest_transpose as _ingest_transpose
 from pilosa_tpu_torch import sketch as _sketch
@@ -51,22 +62,41 @@ from pilosa_tpu_torch.qos import (
     WarmupService,
 )
 from pilosa_tpu_torch.server.api import API
+from pilosa_tpu_torch.server.httpclient import HTTPInternalClient
 from pilosa_tpu_torch.server.httpd import HTTPServer
 
 
 class ServerNode:
-    """A runnable standalone node (reference ``pilosa server``,
-    cmd/server.go:64). ``device`` defaults to ``cuda`` and raises without
-    a card, as ``Holder`` does; ``device="cpu"`` runs the kernels' plain
-    versions on the CPU. ``data_dir`` opens (or creates) a data dir
-    before the node serves; ``close()`` flushes it."""
+    """A runnable node (reference ``pilosa server``, cmd/server.go:64).
+    ``device`` defaults to ``cuda`` and raises without a card, as
+    ``Holder`` does; ``device="cpu"`` runs the kernels' plain versions on
+    the CPU. ``data_dir`` opens (or creates) a data dir before the node
+    serves; ``close()`` flushes it. ``peers`` ("host:port" each) makes it
+    a member of a cluster with those nodes."""
 
     #: seconds between import-pool top-up checks.
     POOL_TOPUP_INTERVAL = 30.0
+    #: liveness sweep cadence, seconds (reference confirmNodeDown).
+    DEFAULT_CHECK_NODES_INTERVAL = 5.0
+    #: membership push/pull piggybacks on every Nth liveness sweep.
+    DISCOVER_EVERY_N_SWEEPS = 5
 
     def __init__(self, bind: str = "127.0.0.1:10101",
                  device: str | torch.device | None = "cuda",
                  use_planner: bool = True,
+                 peers: list[str] | None = None,
+                 replica_n: int = 1,
+                 check_nodes_interval: float | None = None,
+                 breaker_threshold: int = 0,
+                 breaker_cooldown: float = 5.0,
+                 hedge: bool = False,
+                 hedge_delay_ms: float = 0.0,
+                 hedge_budget_pct: float = 5.0,
+                 fence_stale_reads: bool = False,
+                 device_reduce: str = "auto",
+                 multiplex: bool = True,
+                 tls_ca_cert: str | None = None,
+                 tls_skip_verify: bool | None = None,
                  tls_cert: str | None = None,
                  tls_key: str | None = None,
                  backup_interval: float = 0.0,
@@ -117,7 +147,38 @@ class ServerNode:
         self.backup_scheduler = None
         self.backup_archive = None
         self._backup_timer = None
-        self.holder = Holder(device=device)
+        # Membership: the boot peer list, each "host:port" a Node; the
+        # node's id is its address, as its ring entry's is. A TLS node
+        # assumes a uniformly TLS cluster: every peer gets https.
+        scheme = "https" if tls_cert else "http"
+        if peers and self.port == 0:
+            # The ring names each member by its address: an ephemeral
+            # port would leave this node outside its own ring.
+            raise ValueError("a cluster member needs a fixed bind port")
+        members = []
+        for i, addr in enumerate(sorted(set((peers or []) + [f"{self.host}:{self.port}"]))):
+            h, _, p = addr.partition(":")
+            members.append(Node(id=addr, uri=URI(scheme=scheme, host=h, port=int(p)),
+                                is_coordinator=(i == 0)))
+        self.cluster = None
+        self.dirty = None
+        index_listener = None
+        if len(members) > 1:
+            client = HTTPInternalClient(ca_cert=tls_ca_cert,
+                                        skip_verify=tls_skip_verify,
+                                        device=str(resolve_device(device)))
+            client.stats = self.stats
+            client.multiplex = bool(multiplex)
+            self.cluster = Cluster(local_id=f"{self.host}:{self.port}",
+                                   nodes=members, replica_n=replica_n,
+                                   client=client)
+            self.cluster.stats = self.stats
+            self.cluster.set_state(STATE_NORMAL)
+            from pilosa_tpu_torch.cluster.dirty import DirtyBroadcaster
+            self.dirty = DirtyBroadcaster(self.cluster)
+            index_listener = self.dirty.attach
+        self.holder = Holder(device=device, index_listener=index_listener,
+                             fragment_listener=self._broadcast_shard)
         self.data_dir = data_dir
         # The kernel build cache: None/"" resolves to <data dir>/compile-cache
         # (nodes without a data dir build under build/kernels/), "off"
@@ -143,7 +204,8 @@ class ServerNode:
                                             stats=self.stats)
         self.executor = Executor(self.holder, planner=planner,
                                  stats=self.stats,
-                                 result_cache=self.result_cache)
+                                 result_cache=self.result_cache,
+                                 cluster=self.cluster)
         # Partial fusion of mixed trees (exec/fuse.py), same-plan dispatch
         # coalescing, inline transfer resolution, packed leaf stacks
         # (exec/residency.py) and the async miss path;
@@ -163,10 +225,40 @@ class ServerNode:
         _keyplane.set_mode(translate_planes)
         _sketch.set_precision(sketch_precision)
         _sketch.set_exact_threshold(sketch_exact_threshold)
+        # The coordinator's device fold of remote bitmap legs
+        # (exec/device_reduce); PILOSA_TPU_DEVICE_REDUCE overrides.
+        _device_reduce.set_mode(device_reduce)
         self._qos_warmup = qos_warmup
         self._qos_warmup_shards = qos_warmup_shards
         self.warmup = None
-        self.api = API(self.holder, self.executor)
+        self.api = API(self.holder, self.executor, cluster=self.cluster)
+        # Hooks of the /internal routes.
+        self.api.message_handler = self.handle_message
+        self.api.import_handler = self.handle_internal_import
+        self._check_timer = None
+        self._check_nodes_interval = (self.DEFAULT_CHECK_NODES_INTERVAL
+                                      if check_nodes_interval is None
+                                      else check_nodes_interval)
+        self._sweep_n = 0
+        if self.cluster is not None:
+            # Remote legs report their shard-epoch vectors here, the
+            # cross-node half of the coordinator's cache stamps.
+            self.cluster.epoch_sink = self.executor.remote_epochs.observe
+            self.cluster.fence_stale_reads = bool(fence_stale_reads)
+            self.cluster.on_unfence = self._on_unfence
+            self.cluster.subscribe(self._on_node_event)
+            # Overload plumbing on the inter-node path: per-peer circuit
+            # breakers in the transport, hedged read legs in map_reduce.
+            if breaker_threshold > 0:
+                from pilosa_tpu_torch.cluster.breaker import BreakerRegistry
+                self.cluster.client.breakers = BreakerRegistry(
+                    threshold=breaker_threshold, cooldown=breaker_cooldown,
+                    stats=self.stats)
+            if hedge and replica_n > 1:
+                from pilosa_tpu_torch.cluster.breaker import HedgePolicy
+                self.cluster.hedge = HedgePolicy(
+                    delay_s=hedge_delay_ms / 1000.0,
+                    budget_pct=hedge_budget_pct, stats=self.stats)
         if data_dir:
             from pilosa_tpu_torch.storage.diskstore import DiskStore
             kw = {} if max_op_n is None else {"max_op_n": max_op_n}
@@ -175,6 +267,10 @@ class ServerNode:
                                    wal_group_window=wal_group_commit_ms / 1000.0,
                                    **kw)
             self.store.open()
+            if self.cluster is not None:
+                # The coordinator routes reads of this node's quarantined
+                # shards to replicas.
+                self.cluster.blocked_shards_fn = self.store.quarantine.blocked_shards
         else:
             self.store = None
         self.api.store = self.store
@@ -220,8 +316,7 @@ class ServerNode:
         # Built after the listener resolves an ephemeral port, so
         # /internal/fragment/nodes advertises an address a client can dial.
         self.api.local_node = Node(
-            id=self.id, uri=URI(scheme="https" if tls_cert else "http",
-                                host=self.host, port=self.port),
+            id=self.id, uri=URI(scheme=scheme, host=self.host, port=self.port),
             is_coordinator=True)
         # Backup/restore hooks (POST /backup, /restore). One run of
         # each at a time; jobs run off the request thread and
@@ -261,13 +356,15 @@ class ServerNode:
             from pilosa_tpu_torch.backup import BackupScheduler, open_archive
             self.backup_archive = open_archive(self._archive_url, stats=self.stats)
             self.backup_scheduler = BackupScheduler(
-                holder=self.holder, cluster=None, client=None,
+                holder=self.holder, cluster=self.cluster, client=None,
                 store=self.store, archive=self.backup_archive,
                 interval=self._backup_interval,
                 stats=self.stats, logger=self.logger, admission=self.qos,
                 full_every=self._backup_full_every,
                 keep_chains=self._backup_keep_chains)
             self._schedule_backup()
+        if self.cluster is not None and self._check_nodes_interval > 0:
+            self._schedule_check_nodes()
         self.runtime_monitor = RuntimeMonitor(self.stats,
                                               self.executor.planner,
                                               qos=self.qos)
@@ -290,6 +387,13 @@ class ServerNode:
     def close(self) -> None:
         self._closed = True
         self._pool_stop.set()
+        if self.dirty is not None:
+            self.dirty.close()
+        if self.cluster is not None:
+            self.cluster.close()
+            self.cluster.client.close()
+        if self._check_timer is not None:
+            self._check_timer.cancel()
         self.http.close()
         if self._backup_timer is not None:
             self._backup_timer.cancel()
@@ -331,6 +435,134 @@ class ServerNode:
         self._backup_timer.daemon = True
         self._backup_timer.start()
 
+    # -- cluster (reference node.py:650-700, 826-840, 900-975, 1139-1171) --
+
+    def _jitter(self, interval: float) -> float:
+        return interval * random.uniform(0.8, 1.2)
+
+    def _timer_tick_error(self, timer: str, err: BaseException) -> None:
+        """A background sweep blew up: the tick survives (the next one
+        retries), but the failure is counted and logged."""
+        self.stats.count("node.timerTickError")
+        self.logger.printf("%s timer tick failed: %s: %s",
+                           timer, type(err).__name__, err)
+
+    def check_nodes(self) -> list[str]:
+        """One liveness sweep (the timer's body): probe every peer, mark
+        the unreachable DOWN and the returned READY, and fence this node
+        without a quorum. Returns the ids whose state changed."""
+        from pilosa_tpu_torch.cluster.resize import check_nodes
+        self._sweep_n += 1
+        changed = check_nodes(self.cluster, self.cluster.client,
+                              discover=self._sweep_n % self.DISCOVER_EVERY_N_SWEEPS == 0)
+        if changed:
+            self.stats.count("checkNodesChanged", len(changed))
+        return changed
+
+    def _schedule_check_nodes(self) -> None:
+        def tick():
+            try:
+                self.check_nodes()
+            except Exception as e:
+                # A dead failure detector is the worst silent failure:
+                # DOWN peers never get marked, writes hang on them.
+                self._timer_tick_error("check-nodes", e)
+            finally:
+                if not self._closed:
+                    self._schedule_check_nodes()
+        self._check_timer = threading.Timer(self._jitter(self._check_nodes_interval), tick)
+        self._check_timer.daemon = True
+        self._check_timer.start()
+
+    def _on_unfence(self) -> None:
+        """Quorum regained: caches validated against pre-partition epochs
+        would serve stale reads, so every index's epoch moves (the JAX
+        node also starts an anti-entropy pass, not ported)."""
+        if self._closed:
+            return
+        self.logger.printf("quorum regained: un-fenced")
+        for iname in self.holder.index_names():
+            idx = self.holder.index(iname)
+            if idx is not None:
+                idx.epoch.bump(notify=False)
+
+    def _on_node_event(self, ev) -> None:
+        """NodeEvent consumer (reference ReceiveEvent, cluster.go:1754):
+        count the stream (the JAX node also starts a repair pass when a
+        peer returns, which is anti-entropy, not ported)."""
+        self.stats.with_tags(f"event:{ev.type}").count("nodeEvents")
+
+    def _broadcast_shard(self, index: str, field: str, view: str, shard: int):
+        """A new local fragment: tell every live peer (CreateShardMessage,
+        view.go:263-304) so their shard maps stay complete."""
+        if self.cluster is None:
+            return
+        msg = {"type": "create-shard", "index": index, "field": field,
+               "shard": shard}
+        for node in self.cluster.nodes:
+            if node.id == self.cluster.local_id or node.state == "DOWN":
+                continue
+            try:
+                self.cluster.client.send_message(node, msg)
+            except (ConnectionError, RuntimeError):
+                pass
+
+    def handle_message(self, message: dict) -> None:
+        """POST /internal/cluster/message: the schema, availability and
+        index-dirty messages; the resize, join and topology messages
+        answer NotPortedError (501)."""
+        from pilosa_tpu_torch.errors import SLICE_CLUSTER, NotPortedError
+        t = message.get("type") or ""
+        if t == "index-dirty":
+            if (self.cluster is not None
+                    and not self.cluster.check_fencing_token(message)):
+                return  # stale coordinator's dirty coordination
+            from pilosa_tpu_torch.cluster.dirty import apply_index_dirty
+            apply_index_dirty(self.holder, message, self.executor.remote_epochs)
+        elif (t.startswith("resize-") or t in ("cluster-status", "cluster-state",
+                                               "node-join")):
+            raise NotPortedError(f"the {t!r} message", SLICE_CLUSTER)
+        elif t in ("delete-index", "delete-field", "delete-view"):
+            # Apply, then unlink the on-disk tree: a peer that kept the
+            # stale files would resurrect the deleted data on restart.
+            handle_cluster_message(self.holder, message)
+            if self.store is not None:
+                prefix = [message["index"]]
+                if t != "delete-index":
+                    prefix.append(message["field"])
+                if t == "delete-view":
+                    prefix.append(message["view"])
+                self.store.delete_subtree_files(*prefix)
+        else:
+            handle_cluster_message(self.holder, message)
+            if t in ("create-index", "create-field") and self.store is not None:
+                self.store.save_schema()
+
+    def handle_internal_import(self, req: dict) -> None:
+        """/internal/import payloads: a routed field import (a shard's
+        batch for this owner), or a fragment-level one. Gated by the
+        cluster's state as the public import is, with internal=True:
+        peer-forwarded writes land even on a fenced receiver."""
+        from pilosa_tpu_torch.core.field import parse_stamps
+        self.api._validate("import", internal=True)
+        index, field = req["index"], req["field"]
+        f = self.holder.field(index, field)
+        if f is None:
+            raise LookupError(f"field not found: {index}/{field}")
+        clear = req.get("clear", False)
+        if req.get("kind") == "fragment":
+            frag = f.create_view_if_not_exists(req["view"]).create_fragment_if_not_exists(
+                req["shard"])
+            frag.bulk_import(req["rowIDs"], req["columnIDs"], clear=clear)
+        elif req.get("values") is not None:
+            f.import_values(req["columnIDs"], req["values"], clear=clear)
+            self.holder.index(index).add_existence(req["columnIDs"])
+        else:
+            ts = req.get("timestamps")
+            f.import_bits(req["rowIDs"], req["columnIDs"],
+                          parse_stamps(ts) if ts is not None else None, clear=clear)
+            self.holder.index(index).add_existence(req["columnIDs"])
+
     # -- backup / restore (reference node.py:1175-1285) --------------------
 
     def handle_backup(self, req: dict) -> dict:
@@ -343,6 +575,9 @@ class ServerNode:
             new_backup_id,
             open_archive,
         )
+        if self.cluster is not None:
+            from pilosa_tpu_torch.errors import SLICE_CLUSTER, NotPortedError
+            raise NotPortedError("a backup across a cluster", SLICE_CLUSTER)
         req = req or {}
         root = req.get("archive")
         if not root:
@@ -354,7 +589,7 @@ class ServerNode:
         if not self._backup_gate.acquire(blocking=False):
             raise BackupError("backup already in progress")
         backup_id = new_backup_id("incremental" if parent else "full")
-        writer = BackupWriter(self.holder, None, None, self.store, archive,
+        writer = BackupWriter(self.holder, self.cluster, None, self.store, archive,
                               stats=self.stats, admission=self.qos)
         writer.progress = {"state": "starting", "id": backup_id}
         self._backup_writer = writer
@@ -387,6 +622,9 @@ class ServerNode:
             open_archive,
             select_backup_at,
         )
+        if self.cluster is not None:
+            from pilosa_tpu_torch.errors import SLICE_CLUSTER, NotPortedError
+            raise NotPortedError("a restore across a cluster", SLICE_CLUSTER)
         req = req or {}
         root = req.get("archive")
         if not root:
@@ -403,7 +641,7 @@ class ServerNode:
         pitr = req.get("pitrOps")
         if not self._restore_gate.acquire(blocking=False):
             raise BackupError("restore already in progress")
-        job = RestoreJob(self.holder, None, None, archive, backup_id,
+        job = RestoreJob(self.holder, self.cluster, None, archive, backup_id,
                          store=self.store, stats=self.stats,
                          force=bool(req.get("force")),
                          pitr_ops=int(pitr) if pitr is not None else None)

@@ -808,7 +808,7 @@ def test_server_takes_the_generated_config(tmp_path, capsys, monkeypatch):
         t_cli.main(["server", "--device", "cpu", "--config", str(cfg)])
     assert (seen["backup_interval"], seen["archive_url"], seen["backup_full_every"],
             seen["backup_keep_chains"], seen["ingest_transpose"]) == (0.0, None, 8, 2, "auto")
-    cfg.write_text(cfg.read_text().replace('peers = ""', 'peers = "127.0.0.1:1"'))
+    cfg.write_text(cfg.read_text().replace('join = ""', 'join = "127.0.0.1:1"'))
     with pytest.raises(SystemExit) as e:
         t_cli.main(["server", "--device", "cpu", "--config", str(cfg)])
     assert e.value.code == 2

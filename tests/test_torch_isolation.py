@@ -86,3 +86,32 @@ def test_every_c_entry_point_has_a_signature():
     for src in build.CSRC_DIR.glob("*.cu"):
         names = set(re.findall(r'extern "C" int (\w+)\(', src.read_text()))
         assert names == set(kernels._SIGNATURES[src.name]), src.name
+
+
+CLUSTER_MODULES = ("cluster/placement.py", "cluster/event.py", "cluster/breaker.py",
+                   "cluster/client.py", "cluster/scrub.py", "cluster/cluster.py",
+                   "cluster/dirty.py", "cluster/resize.py", "cluster/harness.py",
+                   "cache/remote.py", "exec/device_reduce.py", "server/wire.py",
+                   "server/httpclient.py")
+
+
+@pytest.mark.parametrize("module", CLUSTER_MODULES)
+def test_cluster_modules_stand_alone(module):
+    """The cluster slice's modules are the port's own copies: present,
+    importing neither JAX nor the JAX package."""
+    path = PKG / module
+    assert path.is_file()
+    assert not (_imported_roots(path) & set(FORBIDDEN))
+
+
+def test_reduce_kernels_are_bound():
+    """csrc/reduce_kernels.cu's two C entry points are the signature table's
+    for it, each with a launch counter."""
+    from pilosa_tpu_torch.ops import build, kernels
+    src = (build.CSRC_DIR / "reduce_kernels.cu").read_text()
+    names = set(re.findall(r'extern "C" int (\w+)\(', src))
+    assert names == set(kernels._SIGNATURES["reduce_kernels.cu"]) == {
+        "pilosa_scatter_bits", "pilosa_or_fold"}
+    for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src):
+        assert len(params.split(",")) == len(kernels._SIGNATURES["reduce_kernels.cu"][name])
+    assert {"scatter_bits", "or_fold"} <= set(kernels.LAUNCHES)

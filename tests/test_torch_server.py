@@ -362,7 +362,28 @@ def _served(path: str) -> bool:
         "/debug/heap", "/debug/cache", "/internal/attr/blocks", "/internal/attr/data",
         "/debug/device", "/backup", "/backup/status", "/restore", "/restore/status",
         "/internal/backup/keys", "/internal/backup/fragment", "/debug/backup",
-        "/debug/translate", "/internal/translate/keys", "/internal/translate/entries"}
+        "/debug/translate", "/internal/translate/keys", "/internal/translate/entries",
+        *_CLUSTER_ROUTES}
+
+
+#: the cluster's serving routes: 501 until the cluster slice (ROADMAP.md
+#: Queue 1 item 6a), served since.
+_CLUSTER_ROUTES = {
+    "/debug/membership", "/internal/availability", "/internal/cluster/message",
+    "/internal/index/{index}/field/{field}/remote-available-shards/{shard}",
+    "/internal/import", "/internal/nodes", "/internal/probe", "/internal/query-mux"}
+
+
+def _cluster_routes():
+    """(method, concrete path) of every cluster serving route."""
+    jn_api = type("A", (), {"chaos_faults": False})()
+    out = []
+    for p, methods in j_build_routes(jn_api):
+        path = re.sub(r"\(\?P<(\w+)>[^)]*\)", r"{\1}", p.pattern[1:-1])
+        if path in _CLUSTER_ROUTES:
+            concrete = re.sub(r"\{\w+\}", "3", path)
+            out += [(m, concrete) for m in sorted(methods)]
+    return out
 
 
 def _unported_routes():
@@ -406,6 +427,16 @@ def test_translate_routes_parity(nodes, method, path, body):
     assert status == 200, got
 
 
+@pytest.mark.parametrize("method,path", _cluster_routes())
+def test_cluster_routes_serve(nodes, method, path):
+    """The cluster's serving routes answered 501 until the cluster slice;
+    on a standalone node they now answer as the JAX node's do, status and
+    body (a standalone node's membership, availability and nodes, a
+    malformed mux envelope's 400, a routed import without an index)."""
+    status, body = _same(nodes, method, path, b"{}" if method == "POST" else None)
+    assert status != 501, body
+
+
 @pytest.mark.parametrize("method,path", _unported_routes())
 def test_unported_routes_answer_501(nodes, method, path):
     _, _, _, tc = nodes
@@ -417,15 +448,23 @@ def test_unported_routes_answer_501(nodes, method, path):
 
 
 def test_unported_query_features_answer_501(nodes):
-    """Remote legs still answer 501. MinRow, GroupBy and time fields
-    (ROADMAP.md Queue 1 item 4a), and keys and sketches (item 5) answered
-    501 until their slices and now answer as the JAX node does, byte for
-    byte: Count(Distinct) and SimilarTopN over the loaded data, a keyed
-    index created over HTTP, a time field created on an index of its own,
-    bits imported with timestamps, a window read."""
-    _, _, _, tc = nodes
-    status, body, _ = tc("POST", "/index/i/query?remote=true", "Row(f=0)")
-    assert status == 501, body
+    """Remote legs (ROADMAP.md Queue 1 item 6a), MinRow, GroupBy and time
+    fields (item 4a), and keys and sketches (item 5) answered 501 until
+    their slices and now answer as the JAX node does, byte for byte: a
+    remote leg's tagged JSON envelope, Count(Distinct) and SimilarTopN
+    over the loaded data, a keyed index created over HTTP, a time field
+    created on an index of its own, bits imported with timestamps, a
+    window read."""
+    _, _, jc, tc = nodes
+    for q in ("Row(f=0)", "Count(Row(f=1)) TopN(f, n=3) Sum(field=v)"):
+        # Each node stamps its own shard-epoch counters (the packages bump
+        # them at different points): the same shards, any values.
+        path = "/index/i/query?remote=true&shards=0,1"
+        (js, jb, _), (ts, tb, _) = jc("POST", path, q), tc("POST", path, q)
+        want, got = json.loads(jb), json.loads(tb)
+        assert js == ts == 200, tb
+        assert set(got.pop("shardEpochs")) == set(want.pop("shardEpochs")) == {"0", "1"}
+        assert got == want
     for q in ("Count(Distinct(field=v))", "Count(Distinct(Row(f=1), field=v))",
               "SimilarTopN(f, Row(g=0), n=3)"):
         status, body = _same(nodes, "POST", "/index/i/query", q)
@@ -672,10 +711,11 @@ def test_node_defaults_to_the_card(monkeypatch):
 
 
 @pytest.mark.parametrize("argv,slice_name", [
-    (["--peers", "127.0.0.1:1"], "cluster and operations"),
+    (["--chaos-faults"], "cluster and operations"),
     (["--join", "127.0.0.1:1"], "cluster and operations"),
     (["--scrub-interval", "1"], "cluster and operations"),
     (["--trace-endpoint", "http://127.0.0.1:1"], "cluster and operations"),
+    (["--ingest-max-inflight-mb", "64"], "cluster and operations"),
 ])
 def test_cli_refuses_unported_flags(capsys, argv, slice_name):
     with pytest.raises(SystemExit) as e:
@@ -694,6 +734,17 @@ def test_cli_refuses_unported_flags(capsys, argv, slice_name):
     (["--translate-planes", "on"], {"translate_planes": "on"}),
     (["--sketch-precision", "10"], {"sketch_precision": 10}),
     (["--sketch-exact-threshold", "7"], {"sketch_exact_threshold": 7}),
+    (["--peers", "127.0.0.1:1,127.0.0.1:2", "--replica-n", "2"],
+     {"peers": ["127.0.0.1:1", "127.0.0.1:2"], "replica_n": 2}),
+    (["--breaker-threshold", "3", "--breaker-cooldown", "2.5"],
+     {"breaker_threshold": 3, "breaker_cooldown": 2.5}),
+    (["--hedge", "off", "--hedge-delay-ms", "7", "--hedge-budget-pct", "9"],
+     {"hedge": False, "hedge_delay_ms": 7.0, "hedge_budget_pct": 9.0}),
+    (["--fence-stale-reads"], {"fence_stale_reads": True}),
+    (["--device-reduce", "on", "--multiplex", "off"],
+     {"device_reduce": "on", "multiplex": False}),
+    (["--tls-ca-cert", "ca.pem", "--tls-skip-verify"],
+     {"tls_ca_cert": "ca.pem", "tls_skip_verify": True}),
 ])
 def test_cli_accepts_ported_flags(monkeypatch, argv, kwargs):
     """The backup flags, ``--ingest-transpose`` and the keys-and-sketches
