@@ -7,6 +7,7 @@
     python3 chip_smoke.py --packed-vs DIR
     python3 chip_smoke.py --plane-scatter-vs DIR
     python3 chip_smoke.py --sketch-vs DIR
+    python3 chip_smoke.py --reduce-vs DIR
     python3 chip_smoke.py --import-rule
 
 ``--tree-batched-vs DIR`` times only ``tree_count_batched`` on its two timed
@@ -25,7 +26,13 @@ one), beside the one-launch floor (``plane_scatter_vs``); ``--sketch-vs DIR`` fo
 ``hll_expand`` (the keys phase's shape, an all-ones filter, a filter with
 each shard's bits in one chunk, p = 16) and ``plane_lookup`` (65,536 and
 300 probes), beside the one-launch floor (``sketch_vs``; one side alone:
-``--sketch DIR``). ``--import-rule`` times
+``--sketch DIR``); ``--reduce-vs DIR`` for the remote Row leg's scatter
+(this checkout's ``scatter_bits_grouped`` against DIR's, or DIR's
+``scatter_bits`` where it has no grouped form) at the 32-shard leg, a full
+shard and a 300-position leg, each through its own wrapper and upload
+layout, beside the one-launch floor, with ``row_from_columns``' host time
+at the 32-shard leg split into its steps on both sides (``reduce_vs``).
+``--import-rule`` times
 the set-field import under the port's and the JAX package's scatter rules
 on one host
 (``import_rule_vs``). With no arguments the script builds the CUDA
@@ -144,7 +151,7 @@ port's paths:
   a second index of 16 shards (set fields of 64 and 8 rows, an int field)
   through its JSON /import; the section 2 Counts through each member as
   coordinator (ONE ``pair_count`` a node's leg), ``Row(f=1)`` over 32
-  shards (each remote leg ONE ``scatter_bits`` on the coordinator) and the
+  shards (each remote leg ONE ``scatter_bits_grouped`` on the coordinator) and the
   second index's TopN, GroupBy, Sum/Min/Max, Count(Distinct), Rows and Row
   with ``shards=`` equal numpy oracles and node A's bodies byte for byte;
   then acknowledged Set and Clear, a SIGKILLed member, the same bodies
@@ -828,6 +835,148 @@ def sketch_vs(parent: str) -> int:
         rec = runs[(case, "this")][0]
         pair_summary(runs, case, "case", bound_ms(torch, rec["bytes"], rec["logic"], 0)[0],
                      card)
+    return 0
+
+
+#: ``--reduce``'s cases: the cluster phase's 32-shard Row leg, a full shard
+#: (1,048,576 positions in one row), a 300-position leg over 3 shards, and
+#: the one-launch floor (torch.zeros of 1024 int32).
+REDUCE_TIMED = ("row_leg_32", "full_shard", "leg_300", "floor")
+#: row_from_columns' host split at the 32-shard leg: calls a side.
+REDUCE_HOST_RUNS = 5
+
+
+def reduce_leg(name: str) -> np.ndarray:
+    """Sorted unique uint64 columns of one REDUCE_TIMED leg."""
+    bits = SHARD_WORDS * 32
+    if name == "leg_300":
+        rng = np.random.default_rng(SEED)
+        return np.sort(rng.choice(3 * bits, 300, replace=False)).astype(np.uint64)
+    seg, loc, _ = scatter_case(name)
+    return seg.astype(np.uint64) * np.uint64(bits) + loc.astype(np.uint64)
+
+
+def reduce_times(repo: str) -> int:
+    """``--reduce REPO``: time the remote Row leg's scatter of the package
+    in REPO on REDUCE_TIMED, each leg uploaded as its ``row_from_columns``
+    lays it out: ``scatter_bits_grouped`` over one buffer of row starts and
+    offsets where the package has it, else ``scatter_bits`` over a segment
+    index and an offset a position; each image first held exactly to the
+    plain version. One JSON object per case: the kernel's ms by CUDA events
+    after the device spin, the host's median and longest enqueue of one
+    call, and the case's bytes. Then ``row_from_columns``' host time at the
+    32-shard leg over REDUCE_HOST_RUNS calls (mode ``on``): the whole call
+    to its synchronize, and its steps as the package takes them (unique:
+    ``np.unique``, or ``sorted_unique`` where the package has it; the
+    layout: the row starts, or the inverse of the shards; the upload to
+    its synchronize; the launch's enqueue; the device's rest), with the
+    host's numpy version."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(repo))
+    os.environ["PILOSA_TPU_DEVICE_REDUCE"] = "on"
+    from pilosa_tpu_torch.exec import device_reduce
+    from pilosa_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda")
+    grouped = hasattr(kernels, "scatter_bits_grouped")
+    unique = getattr(device_reduce, "sorted_unique", np.unique)
+    bits = SHARD_WORDS * 32
+
+    def layout(cols):
+        """(host arrays to upload, the launch and the plain version on the
+        uploaded tensors, the function's bytes)."""
+        if grouped:
+            shards, buf, head = device_reduce.leg_buffer(cols)
+            k = len(shards)
+            return ((buf,),
+                    lambda up: kernels.scatter_bits_grouped(up[0][:k + 2], up[0][head:]),
+                    lambda up: kernels.scatter_bits_grouped_plain(up[0][:k + 2], up[0][head:]),
+                    scatter_grouped_bytes(len(cols), k))
+        shards, seg = np.unique((cols // np.uint64(bits)).astype(np.int64),
+                                return_inverse=True)
+        local = (cols % np.uint64(bits)).astype(np.int32)
+        k = len(shards)
+        return ((seg.astype(np.int32), local),
+                lambda up: kernels.scatter_bits(up[0], up[1], k),
+                lambda up: kernels.scatter_bits_plain(up[0], up[1], k),
+                8 * len(cols) + (k + 1) * SHARD_WORDS * 4)
+
+    def emit(case, fn, nbytes):
+        host = host_enqueue_times(torch, fn, KERNEL_RUNS)
+        print(json.dumps({"case": case, "ms": time_cuda_ms(torch, fn, KERNEL_RUNS),
+                          "host_ms": statistics.median(host), "host_ms_max": max(host),
+                          "bytes": nbytes}), flush=True)
+
+    for name in REDUCE_TIMED[:-1]:
+        arrays, launch, plain, nbytes = layout(reduce_leg(name))
+        up = [torch.from_numpy(a).to(dev) for a in arrays]
+        if not torch.equal(launch(up), plain(up)):
+            raise AssertionError(f"{repo}: {name}: the image differs from the plain version")
+        emit(name, lambda up=up, launch=launch: launch(up), nbytes)
+    emit("floor", lambda: torch.zeros(1024, dtype=torch.int32, device=dev), 4096)
+
+    cols = reduce_leg("row_leg_32")
+    steps: dict = {}
+    for _ in range(REDUCE_HOST_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u = unique(cols)
+        t1 = time.perf_counter()
+        arrays, launch, _, _ = layout(u)
+        t2 = time.perf_counter()
+        up = [torch.from_numpy(a).to(dev) for a in arrays]
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        launch(up)
+        t4 = time.perf_counter()
+        torch.cuda.synchronize()
+        t5 = time.perf_counter()
+        row = device_reduce.row_from_columns(cols, dev)
+        torch.cuda.synchronize()
+        t6 = time.perf_counter()
+        for k, v in (("unique", t1 - t0), ("layout", t2 - t1), ("upload", t3 - t2),
+                     ("launch", t4 - t3), ("device", t5 - t4), ("total", t6 - t5)):
+            steps.setdefault(k, []).append(v * 1e3)
+    if sorted(row.segments) != sorted(int(s) for s in np.unique(cols // np.uint64(bits))):
+        raise AssertionError(f"{repo}: row_from_columns gave other shards")
+    print(json.dumps({"case": "row_from_columns host split", "numpy": np.__version__,
+                      "unique": unique.__name__, "layout": "starts" if grouped else "inverse",
+                      "uploads": len(arrays), "upload_bytes": sum(a.nbytes for a in arrays),
+                      "ms": statistics.median(steps["total"]),
+                      "host_ms": statistics.median(steps["total"]),
+                      "split_ms": {k: statistics.median(v) for k, v in steps.items()}}),
+          flush=True)
+    return 0
+
+
+def reduce_vs(parent: str) -> int:
+    """``--reduce-vs DIR``: ``--reduce`` of DIR against this checkout's, in
+    ``paired_runs``; then ``pair_summary`` per case against this side's
+    bound (DIR's, where it lays a leg out otherwise, beside it), and the
+    medians of ``row_from_columns``' host split on both sides."""
+    import torch
+
+    runs = paired_runs("--reduce", parent, "case")
+    card = card_line()
+    split = "row_from_columns host split"
+    for case in REDUCE_TIMED:
+        recs = {lb: runs[(case, lb)][0] for lb in ("parent", "this")}
+        pair_summary(runs, case, "case", bound_ms(torch, recs["this"]["bytes"], 0, 0)[0], card)
+        print(json.dumps({"case": case, "bound_ms_parent": bound_ms(
+            torch, recs["parent"]["bytes"], 0, 0)[0]}), flush=True)
+    pair_summary(runs, split, "case", 0.0, card)
+    for lb in ("parent", "this"):
+        recs = runs[(split, lb)]
+        print(json.dumps({"case": split, "repo": lb, "numpy": recs[0]["numpy"],
+                          "unique": recs[0]["unique"], "layout": recs[0]["layout"],
+                          "uploads": recs[0]["uploads"], "upload_bytes": recs[0]["upload_bytes"],
+                          "split_ms": {k: statistics.median(r["split_ms"][k] for r in recs)
+                                       for k in recs[0]["split_ms"]},
+                          "card": card}), flush=True)
     return 0
 
 
@@ -1632,6 +1781,53 @@ def plane_scatter_case(name: str, seed: int = SEED):
     raise KeyError(name)
 
 
+def shift_left_library(torch, a, n: int):
+    """shift_left's function from torch calls on the int32 words: the
+    whole-word shift by a zero pad, then the in-word shift ORed with the
+    carry of the word below (the arithmetic right shift masked to the
+    carried bits). Returns the call."""
+    words, bits = divmod(n, 32)
+    w = a.shape[-1]
+    pad = torch.nn.functional.pad
+
+    def call():
+        v = pad(a[..., :w - words], (words, 0))
+        if not bits:
+            return v
+        carry = (v >> (32 - bits)) & ((1 << bits) - 1)
+        return (v << bits) | pad(carry[..., :-1], (1, 0))
+
+    return call
+
+
+def bsi_compare_library(torch, bits, filt, lo: int, hi: int, depth: int, op: str,
+                        allow_eq: bool):
+    """bsi_compare's function from torch calls on the int32 planes: the
+    descent from bit depth - 1 with each plane's predicate bit known on the
+    host, so a plane costs an AND-NOT into lt or an AND into gt and one
+    into eq, in place; the selected masks AND the filter. Returns the
+    call."""
+    pred = ((hi & 0xFFFFFFFF) << 32) | (lo & 0xFFFFFFFF)
+
+    def call():
+        lt, gt = torch.zeros_like(filt), torch.zeros_like(filt)
+        eq = torch.full_like(filt, -1)
+        for i in range(depth - 1, -1, -1):
+            row = bits[i]
+            if (pred >> i) & 1:
+                lt |= eq & ~row
+                eq &= row
+            else:
+                gt |= eq & row
+                eq &= ~row
+        out = eq if op == "eq" else (lt if op == "lt" else gt)
+        if allow_eq and op != "eq":
+            out = out | eq
+        return out & filt
+
+    return call
+
+
 def plane_scatter_library(torch, pos, vals, depth: int):
     """plane_scatter's function as one PyTorch call: index_put_ with
     accumulate of each (plane, word) entry's bit into a zeroed flat
@@ -2012,6 +2208,12 @@ def sketch_kernel_timings(torch, kernels, t, dev, card: str) -> dict:
 #: on a leg's (segment, offset) positions, or_fold at K contributors.
 SCATTER_CASES = ("empty", "one", "bit31_word32767", "sink", "unsorted_segments",
                  "out_of_range", "full_shard", "row_leg_32")
+#: scatter_bits_grouped's exact checks: the SCATTER_CASES whose positions
+#: are grouped by segment, plus empty rows among full ones, dense runs whose
+#: CTA chunks end mid-word, and offsets out of range in grouped rows.
+GROUPED_SCATTER_CASES = ("empty", "one", "bit31_word32767", "sink", "full_shard",
+                         "row_leg_32", "empty_rows", "dense_unaligned",
+                         "offsets_out_of_range")
 OR_FOLD_CHECKS = ((64, 1), (64, 2), (8, 16), (3, 5))
 #: the cluster phase's Row leg: 32 of the bench's shards at its density.
 ROW_LEG_SHARDS = 32
@@ -2050,12 +2252,50 @@ def scatter_case(name: str, seed: int = SEED):
         n = int(ROW_LEG_SHARDS * bits * COUNT_DENSITY)
         flat = np.unique(rng.integers(0, ROW_LEG_SHARDS * bits, n))
         return (flat // bits).astype(np.int32), (flat % bits).astype(np.int32), ROW_LEG_SHARDS
+    if name == "empty_rows":  # rows 0, 2 and 5 of 7 empty, the sink too
+        sizes = (0, 40_000, 0, 17, 3, 0, 90_001)
+        seg = np.repeat(np.arange(len(sizes), dtype=np.int32), sizes)
+        loc = np.concatenate([np.sort(rng.choice(bits, k, replace=False)) for k in sizes])
+        return seg, loc.astype(np.int32), len(sizes)
+    if name == "dense_unaligned":  # runs of consecutive positions, word-unaligned
+        runs = ((17, 100_003), (bits - 70_001, 70_001), (5, 33))
+        seg = np.repeat(np.arange(len(runs), dtype=np.int32), [k for _, k in runs])
+        loc = np.concatenate([np.arange(a, a + k) for a, k in runs]).astype(np.int32)
+        return seg, loc, len(runs)
+    if name == "offsets_out_of_range":  # dropped, each in its grouped row
+        loc = np.array([-7, 3, bits, 2**31 - 1, -1, bits - 1, 64, -2**31], np.int32)
+        return np.array([0, 0, 0, 1, 1, 1, 2, 2], np.int32), loc, 2
     raise KeyError(name)
 
 
+def grouped_case(name: str, seed: int = SEED):
+    """(starts, local, n_segs) int32 numpy arrays of one GROUPED_SCATTER_CASES
+    case: its positions' row starts, found by searchsorted over the
+    segment indices, which are non-decreasing."""
+    seg, loc, n_segs = scatter_case(name, seed)
+    if np.any(np.diff(seg) < 0) or (len(seg) and (seg[0] < 0 or seg[-1] > n_segs)):
+        raise ValueError(f"{name}: positions not grouped by segment")
+    starts = np.searchsorted(seg, np.arange(n_segs + 2)).astype(np.int32)
+    return starts, loc, n_segs
+
+
 def check_reduce_kernels(torch, kernels, dev, errs) -> None:
-    """scatter_bits and or_fold against their plain versions on the card,
-    exact (differing bits counted), on SCATTER_CASES and OR_FOLD_CHECKS."""
+    """scatter_bits_grouped, scatter_bits and or_fold against their plain
+    versions on the card, exact (differing bits counted), on
+    GROUPED_SCATTER_CASES, SCATTER_CASES and OR_FOLD_CHECKS."""
+    for name in GROUPED_SCATTER_CASES:
+        starts, loc, n_segs = grouped_case(name)
+        st, l = torch.from_numpy(starts).to(dev), torch.from_numpy(loc).to(dev)
+        got = kernels.scatter_bits_grouped(st, l)
+        want = kernels.scatter_bits_grouped_plain(st, l)
+        torch.cuda.synchronize()
+        err = int(kernels.row_counts_plain(got ^ want).long().sum())
+        errs["scatter_bits_grouped"] = max(errs["scatter_bits_grouped"], err)
+        if got.shape != (n_segs + 1, SHARD_WORDS) or got.shape != want.shape or err:
+            raise AssertionError(f"scatter_bits_grouped {name}: {tuple(got.shape)}, {err} "
+                                 "bits differ")
+        if name == "bit31_word32767" and int(got[0, 32767]) != -2**31:
+            raise AssertionError("scatter_bits_grouped: bit 31 of word 32767 not set")
     for name in SCATTER_CASES:
         seg, loc, n_segs = scatter_case(name)
         s, l = torch.from_numpy(seg).to(dev), torch.from_numpy(loc).to(dev)
@@ -2077,20 +2317,29 @@ def check_reduce_kernels(torch, kernels, dev, errs) -> None:
         errs["or_fold"] = max(errs["or_fold"], err)
         if got.shape != (b, SHARD_WORDS) or err:
             raise AssertionError(f"or_fold [{b}, {k}, W]: {err} bits differ")
-    log(f"reduce kernels: exact on scatter_bits {', '.join(SCATTER_CASES)}; "
+    log(f"reduce kernels: exact on scatter_bits_grouped {', '.join(GROUPED_SCATTER_CASES)}; "
+        f"scatter_bits {', '.join(SCATTER_CASES)}; "
         f"or_fold at [B, K] {', '.join(f'[{b}, {k}]' for b, k in OR_FOLD_CHECKS)}")
 
 
+def scatter_grouped_bytes(n: int, n_segs: int) -> int:
+    """scatter_bits_grouped's bytes: 4 a position and the row starts in,
+    the ``[n_segs + 1, W]`` image out once."""
+    return 4 * n + 4 * (n_segs + 2) + (n_segs + 1) * SHARD_WORDS * 4
+
+
 def reduce_kernel_timings(torch, kernels, dev, card: str) -> dict:
-    """scatter_bits at the cluster phase's 32-shard Row leg and or_fold at
-    OR_FOLD_TIMED, each beside its bound, its plain version and its library
-    call: name -> (ms, plain ms, bound ms, bound by, library ms). or_fold's
-    entry is its first timed shape."""
+    """scatter_bits_grouped and scatter_bits at the cluster phase's
+    32-shard Row leg and or_fold at OR_FOLD_TIMED, each beside its bound,
+    its plain version and its library call: name -> (ms, plain ms, bound
+    ms, bound by, library ms). or_fold's entry is its first timed shape."""
     import functools
 
     out = {}
     seg, loc, n_segs = scatter_case("row_leg_32")
     s, l = torch.from_numpy(seg).to(dev), torch.from_numpy(loc).to(dev)
+    starts, _, _ = grouped_case("row_leg_32")
+    st = torch.from_numpy(starts).to(dev)
     # The library call: index_put_ with accumulate of each position's bit
     # into a zeroed flat image (the word index and the bit laid out ahead
     # of it; distinct positions, so add is or); checked equal first.
@@ -2104,22 +2353,36 @@ def reduce_kernel_timings(torch, kernels, dev, card: str) -> dict:
 
     got = kernels.scatter_bits(s, l, n_segs)
     if not (torch.equal(got, kernels.scatter_bits_plain(s, l, n_segs))
-            and torch.equal(scatter_library(), got)):
-        raise AssertionError("scatter_bits at the timed leg: the kernel or the library "
+            and torch.equal(scatter_library(), got)
+            and torch.equal(kernels.scatter_bits_grouped(st, l), got)):
+        raise AssertionError("scatter_bits at the timed leg: a kernel or the library "
                              "call differs from the plain version")
+    # The general form's bytes: 8 a position in (a segment index beside each
+    # offset) and the image written once: the function needs no more (the
+    # kernel's zero fill is a cost of its design, not counted). The grouped
+    # form needs 4 a position and the row starts.
+    nbytes8 = 8 * len(seg) + img_words * 4
+    bound8 = bound_ms(torch, nbytes8, len(seg), 0)[0]
+    ms = time_cuda_ms(torch, lambda: kernels.scatter_bits_grouped(st, l), KERNEL_RUNS)
+    plain = time_cuda_ms(torch, lambda: kernels.scatter_bits_grouped_plain(st, l), 5)
+    lib = time_cuda_ms(torch, scatter_library, KERNEL_RUNS)
+    bound, by, term = bound_ms(torch, scatter_grouped_bytes(len(loc), n_segs), len(loc), 0)
+    log(f"kernel scatter_bits_grouped {len(loc)} positions in {n_segs} rows into "
+        f"[{n_segs + 1}, {SHARD_WORDS}]: {ms:.4f} ms, bound {bound:.4f} ms ({term}: 4 B a "
+        f"position and the starts in, image out once), {bound / ms:.1%} of bound; "
+        f"{bound8 / ms:.1%} of the 8-B-a-position bound {bound8:.4f} ms; plain {plain:.4f} "
+        f"ms; library {lib:.4f} ms (zeros + index_put_ accumulate)  [{card}]")
+    out["scatter_bits_grouped"] = (ms, plain, bound, by, lib)
     ms = time_cuda_ms(torch, lambda: kernels.scatter_bits(s, l, n_segs), KERNEL_RUNS)
     plain = time_cuda_ms(torch, lambda: kernels.scatter_bits_plain(s, l, n_segs), 5)
     lib = time_cuda_ms(torch, scatter_library, KERNEL_RUNS)
-    # 8 bytes a position in and the image written once: the function needs
-    # no more (the kernel's zero fill is a cost of its design, not counted).
-    nbytes = 8 * len(seg) + img_words * 4
-    bound, by, term = bound_ms(torch, nbytes, len(seg), 0)
+    bound, by, term = bound_ms(torch, nbytes8, len(seg), 0)
     log(f"kernel scatter_bits {len(seg)} positions into [{n_segs + 1}, {SHARD_WORDS}]: "
         f"{ms:.4f} ms, bound {bound:.4f} ms ({term}: positions in, image out once), "
         f"{bound / ms:.1%} of bound; plain {plain:.4f} ms; library {lib:.4f} ms "
         f"(zeros + index_put_ accumulate)  [{card}]")
     out["scatter_bits"] = (ms, plain, bound, by, lib)
-    del s, l, widx, wbit, got
+    del s, l, st, widx, wbit, got
     for b, k in OR_FOLD_TIMED:
         stack = torch.randint(-2**31, 2**31 - 1, (b, k, SHARD_WORDS), dtype=torch.int32,
                               device=dev)
@@ -2572,8 +2835,16 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
     ps_library = plane_scatter_library(torch, ps_pos, ps_vals, ps_depth)
     if not torch.equal(ps_library(), kernels.plane_scatter(ps_pos, ps_vals, ps_depth)):
         raise AssertionError("plane_scatter: the library call computes another image")
+    sl_library = shift_left_library(torch, big_a, 33)
+    bc_library = bsi_compare_library(torch, cube, filt, bsi_pred, 0, 17, "gt", False)
+    if not (torch.equal(sl_library(), kernels.shift_left(big_a, 33)) and torch.equal(
+            bc_library(), kernels.bsi_compare(cube, filt, bsi_pred, 0, 17, "gt", False))):
+        raise AssertionError("shift_left or bsi_compare: the library calls compute other "
+                             "words")
     library = {"assemble_stack": {asm_shape: assemble_library},
                "plane_scatter": {ps_shape: ps_library},
+               "shift_left": {"[1024, 32768], n = 33": sl_library},
+               "bsi_compare": {"[17, 1024, 32768] x [1024, 32768]": bc_library},
                **packed_library(torch, kernels, packed)}
     # and_count and pair_count at K = 8 and 4096 (PACKED_VS_WIDTHS), and the
     # packed wave kernels at PACKED_WAVE_TIMED slots, each held to its plain
@@ -5993,7 +6264,7 @@ def phase_cluster(torch, card: str, data: dict, runs: int = CLUSTER_RUNS) -> dic
     two owners; a second index of 16 shards goes in through the
     coordinator's JSON /import. The section 2 Counts through each node as
     coordinator, ``Row(f=1)`` over ROW_LEG_SHARDS shards (remote legs
-    decoded by ``scatter_bits`` on the coordinator) and the second index's
+    decoded by ``scatter_bits_grouped`` on the coordinator) and the second index's
     TopN, GroupBy, Sum/Min/Max, Count(Distinct), Rows and Row with
     ``shards=`` (every frame type on the wire) are held to numpy oracles
     and byte for byte to node A's bodies; then acknowledged Set and Clear,
@@ -6109,22 +6380,24 @@ def phase_cluster(torch, card: str, data: dict, runs: int = CLUSTER_RUNS) -> dic
             for k in CLUSTER_KERNELS_NODES:
                 if any(deltas[p][k] < 1 for p in ports):
                     raise AssertionError(f"{k} did not launch on every node's legs")
-            if deltas[coord]["scatter_bits"] < 1:
-                raise AssertionError("scatter_bits did not launch on the coordinator")
+            if deltas[coord]["scatter_bits_grouped"] < 1:
+                raise AssertionError("scatter_bits_grouped did not launch on the coordinator")
+            if any(deltas[p]["scatter_bits"] for p in ports):
+                raise AssertionError("a remote leg's decode launched the general scatter_bits")
             # one section 2 Count: one pair_count a leg, the legs' nodes
             before = {p: node_launches(p)["pair_count"] for p in ports}
             ask(coord, "bench", "", COUNT_QUERIES["count_intersect"])
             per_leg = {p: node_launches(p)["pair_count"] - before[p] for p in ports}
             if sorted(per_leg.values()) != [1] * CLUSTER_NODES:
                 raise AssertionError(f"section 2 Count: pair_count a node {per_leg}")
-            before = node_launches(coord)["scatter_bits"]
+            before = node_launches(coord)["scatter_bits_grouped"]
             ask(coord, "bench", queries["row_leg"][1], "Row(f=1)")
-            row_legs = node_launches(coord)["scatter_bits"] - before
+            row_legs = node_launches(coord)["scatter_bits_grouped"] - before
             log(f"cluster section 2 Count: pair_count launches a node {per_leg}; "
-                f"Row(f=1) over {len(leg_shards)} shards: {row_legs} scatter_bits on the "
-                f"coordinator (one a remote leg)  [{card}]")
+                f"Row(f=1) over {len(leg_shards)} shards: {row_legs} scatter_bits_grouped on "
+                f"the coordinator (one a remote leg)  [{card}]")
             if row_legs < 1:
-                raise AssertionError("Row(f=1): no remote leg decoded by scatter_bits")
+                raise AssertionError("Row(f=1): no remote leg decoded by scatter_bits_grouped")
 
         q = COUNT_QUERIES["count_intersect"]
         p50_c, spread_c = p50_ms(lambda: ask(coord, "bench", "", q), runs)
@@ -6227,8 +6500,10 @@ def phase_cluster(torch, card: str, data: dict, runs: int = CLUSTER_RUNS) -> dic
         log(f"contested fold (constructed, not a cluster query): shards {owned} from "
             f"{len(legs)} remote legs, union_rows = oracle; this process launched "
             f"{json.dumps({k: v for k, v in fold.items() if v})}")
-        if device == "cuda" and (fold["or_fold"] < 1 or fold["scatter_bits"] < 1):
-            raise AssertionError("the contested fold launched no or_fold / scatter_bits")
+        if device == "cuda" and (fold["or_fold"] < 1 or fold["scatter_bits_grouped"] < 1
+                                 or fold["scatter_bits"]):
+            raise AssertionError("the contested fold launched no or_fold / "
+                                 "scatter_bits_grouped, or the general scatter_bits")
         conn.close()
         ca.close()
 
@@ -6247,8 +6522,9 @@ def phase_cluster(torch, card: str, data: dict, runs: int = CLUSTER_RUNS) -> dic
                 raise AssertionError(f"node {p} on the defaults: no hedge policy on its "
                                      f"legs: {hedge}")
             log(f"cluster node {p} on the defaults: hedge primaries {hedge['primaries']}, "
-                f"fired {hedge['fired']}, won {hedge['won']}; scatter_bits "
-                f"{now['scatter_bits'] - before[p]['scatter_bits']}, or_fold "
+                f"fired {hedge['fired']}, won {hedge['won']}; scatter_bits_grouped "
+                f"{now['scatter_bits_grouped'] - before[p]['scatter_bits_grouped']}, "
+                f"scatter_bits {now['scatter_bits'] - before[p]['scatter_bits']}, or_fold "
                 f"{now['or_fold'] - before[p]['or_fold']} (auto's calibration included)")
     finally:
         cluster_stop(nodes + dnodes)
@@ -6336,7 +6612,7 @@ def main() -> int:
                **dict.fromkeys(("hll_expand", "hll_reduce", "similar_count"),
                                "pilosa_tpu_torch/csrc/sketch_kernels.cu"),
                "plane_lookup": "pilosa_tpu_torch/csrc/keyplane_kernels.cu",
-               **dict.fromkeys(("scatter_bits", "or_fold"),
+               **dict.fromkeys(("scatter_bits_grouped", "scatter_bits", "or_fold"),
                                "pilosa_tpu_torch/csrc/reduce_kernels.cu")}
     vmapped = ("pilosa_tpu/parallel/coalesce.py:312-348 _flush_batched + "
                "pilosa_tpu/parallel/planner.py:387-396 vmapped (jax.vmap of the "
@@ -6380,6 +6656,10 @@ def main() -> int:
                                  "totals (XLA-fused, no pallas_call)",
                 "plane_lookup": "pilosa_tpu/exec/keyplane.py:149-171 _search + "
                                 "plane_lookup (XLA-fused, no pallas_call)",
+                "scatter_bits_grouped": "pilosa_tpu/exec/device_reduce.py:111-118 "
+                                        "_scatter_bits, as row_from_columns (:127-152) "
+                                        "calls it on a leg's sorted positions (XLA-fused, "
+                                        "no pallas_call)",
                 "scatter_bits": "pilosa_tpu/exec/device_reduce.py:111-118 _scatter_bits "
                                 "(XLA-fused, no pallas_call)",
                 "or_fold": "pilosa_tpu/exec/device_reduce.py:120-124 _or_fold "
@@ -6400,6 +6680,9 @@ def main() -> int:
                         "bound_ms": bound, "bound_by": by, "library_ms": lib})
         if fold[name]:
             entries[-1]["launches_constructed_fold"] = fold[name]
+        if name == "scatter_bits":  # checked and timed here; no path calls it
+            entries[-1]["path"] = ("none: input not grouped by segment; remote legs "
+                                   "decode through scatter_bits_grouped")
     log(card)
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {
@@ -6431,6 +6714,10 @@ if __name__ == "__main__":
         sys.exit(sketch_times(sys.argv[2]))
     if sys.argv[1:2] == ["--sketch-vs"] and len(sys.argv) == 3:
         sys.exit(sketch_vs(sys.argv[2]))
+    if sys.argv[1:2] == ["--reduce"] and len(sys.argv) == 3:
+        sys.exit(reduce_times(sys.argv[2]))
+    if sys.argv[1:2] == ["--reduce-vs"] and len(sys.argv) == 3:
+        sys.exit(reduce_vs(sys.argv[2]))
     if sys.argv[1:] == ["--import-rule"]:
         sys.exit(import_rule_vs())
     if sys.argv[1:2] == ["--import-rule-side"] and len(sys.argv) == 3:

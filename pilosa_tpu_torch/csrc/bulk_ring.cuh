@@ -1,9 +1,9 @@
 // The shared-memory ring of the staged kernels (tree_kernels.cu,
-// group_kernels.cu, packed_kernels.cu, sketch_kernels.cu): mbarrier phases
-// and 1-D bulk copies (cp.async.bulk) from global into shared memory,
-// completing on an mbarrier's transaction count. sm_90a. Included by each
-// source; ops/build.py hashes every csrc/*.cuh into each library's name,
-// so an edit here rebuilds them all.
+// group_kernels.cu, packed_kernels.cu, sketch_kernels.cu,
+// reduce_kernels.cu): mbarrier phases and 1-D bulk copies (cp.async.bulk)
+// from global into shared memory, completing on an mbarrier's transaction
+// count. sm_90a. Included by each source; ops/build.py hashes every
+// csrc/*.cuh into each library's name, so an edit here rebuilds them all.
 
 #pragma once
 

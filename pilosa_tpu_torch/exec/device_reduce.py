@@ -4,10 +4,14 @@ The port's copy of pilosa_tpu/exec/device_reduce.py. The coordinator folds
 remote Row results on the device instead of the host:
 
 * ``row_from_columns`` uploads all of a leg's positions and builds every
-  shard's word block in ONE ``scatter_bits`` launch (a leg's positions are
-  unique, so each bit lands once and the JAX scatter-add equals the
-  kernel's OR). Segments come out as int32 tensors on the given device,
-  the form the port's ``Row`` holds.
+  shard's word block in ONE ``scatter_bits_grouped`` launch (a leg's
+  positions are unique, so each bit lands once and the JAX scatter-add
+  equals the kernel's OR). The positions are sorted, so each shard's are
+  one run of them: the row starts (a searchsorted over the shard
+  boundaries) and the in-shard offsets go up in one int32 buffer, one
+  host-to-device copy, with no segment index a position. Segments come
+  out as int32 tensors on the given device, the form the port's ``Row``
+  holds.
 * ``union_rows`` merges legs: disjoint shards (the common placement case)
   are a dict merge; contested shards stack into one ``[B, K, W]`` tensor
   OR-reduced in ONE ``or_fold`` launch, replacing the per-leg
@@ -100,24 +104,69 @@ def _use_device(size: int, device: torch.device) -> bool:
     return size >= _min_size(device)
 
 
+def sorted_unique(cols: np.ndarray) -> np.ndarray:
+    """``np.unique`` of uint64 columns, with no sort or hash where they
+    already ascend strictly, as a decoded roaring leg's do: a check of one
+    pass (numpy's own unique costs about a microsecond a column on some
+    hosts, a second at a 32-shard leg; ``PERF.md`` §6)."""
+    if len(cols) > 1 and not bool((cols[1:] > cols[:-1]).all()):
+        return np.unique(cols)
+    return cols
+
+
+def shard_starts(cols: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(shards, starts) of sorted unique uint64 columns: the shards that
+    hold any, ascending, and where each one's run of columns begins. Found
+    by searchsorted over the shard boundaries: every boundary of the span
+    at once where the span has no more shards than columns, else shard by
+    shard (a leg whose shard ids are far apart)."""
+    w = SHARD_WIDTH
+    first, last = int(cols[0]) // w, int(cols[-1]) // w
+    if last - first < len(cols):
+        ends = np.searchsorted(
+            cols, np.arange(first, last + 1, dtype=np.uint64) * np.uint64(w)
+            + np.uint64(w - 1), side="right")
+        held = np.flatnonzero(np.diff(ends, prepend=0))
+        return first + held, np.r_[0, ends[held[:-1]]]
+    shards, starts, i = [], [], 0
+    while i < len(cols):
+        s = int(cols[i]) // w
+        shards.append(s)
+        starts.append(i)
+        i = int(np.searchsorted(cols, np.uint64(s * w + w - 1), side="right"))
+    return np.asarray(shards, dtype=np.int64), np.asarray(starts, dtype=np.int64)
+
+
+def leg_buffer(cols: np.ndarray) -> tuple[np.ndarray, np.ndarray, int]:
+    """(shards, buffer, head) of sorted unique uint64 columns: one int32
+    buffer of ``scatter_bits_grouped``'s row starts (``[n_segs + 2]``,
+    relative to the offsets, the padding sink's row empty) then, from
+    ``head`` (a multiple of 4: 16-byte aligned), every column's in-shard
+    offset."""
+    shards, starts = shard_starts(cols)
+    n, n_segs = len(cols), len(shards)
+    head = (n_segs + 2 + 3) & ~3
+    buf = np.empty(head + n, dtype=np.int32)
+    buf[:n_segs] = starts
+    buf[n_segs:head] = n
+    np.bitwise_and(cols, np.uint64(SHARD_WIDTH - 1), out=buf[head:], casting="unsafe")
+    return shards, buf, head
+
+
 def row_from_columns(columns, device: torch.device) -> Row:
     """Row.from_columns with the positions->words scatter as ONE
-    ``scatter_bits`` launch across all shards, the segments int32 tensors
-    on ``device`` (the host path below the measured threshold or when the
-    mode says off)."""
+    ``scatter_bits_grouped`` launch across all shards after ONE upload,
+    the segments int32 tensors on ``device`` (the host path below the
+    measured threshold or when the mode says off)."""
     cols = np.asarray(columns, dtype=np.uint64)
     if not _use_device(len(cols), device):
         return Row.from_columns(cols)
-    cols = np.unique(cols)
+    cols = sorted_unique(cols)
     if len(cols) == 0:
         return Row()
-    shard = (cols // np.uint64(SHARD_WIDTH)).astype(np.int64)
-    local = (cols % np.uint64(SHARD_WIDTH)).astype(np.int32)
-    shards, seg_idx = np.unique(shard, return_inverse=True)
-    n_segs = len(shards)
-    words = kernels.scatter_bits(
-        torch.from_numpy(seg_idx.astype(np.int32)).to(device),
-        torch.from_numpy(local).to(device), n_segs)
+    shards, buf, head = leg_buffer(cols)
+    up = torch.from_numpy(buf).to(device)
+    words = kernels.scatter_bits_grouped(up[:len(shards) + 2], up[head:])
     return Row({int(s): words[i] for i, s in enumerate(shards)})
 
 

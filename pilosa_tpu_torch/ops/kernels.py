@@ -56,12 +56,13 @@
   ``plane_lookup``): ``[3, H]`` int32 (hash hi, hash lo, id) plane and
   ``[Q]`` probe hash halves in, ``[Q]`` ids out, MISS (0) where absent;
   the hash lanes compare as unsigned.
-- ``scatter_bits`` and ``or_fold`` (``csrc/reduce_kernels.cu``) are the
-  coordinator's device reduce of pilosa_tpu/exec/device_reduce.py,
-  XLA-fused in the JAX package: a remote Row leg's unique positions
-  (segment index, in-shard offset) into an ``[n_segs + 1, W]`` word image
-  whose last row is the padding sink, and the OR over K of a ``[B, K, W]``
-  stack of contested shards.
+- ``scatter_bits_grouped``, ``scatter_bits`` and ``or_fold``
+  (``csrc/reduce_kernels.cu``) are the coordinator's device reduce of
+  pilosa_tpu/exec/device_reduce.py, XLA-fused in the JAX package: a remote
+  Row leg's unique positions (in-shard offsets grouped by segment under
+  row starts, or in any order beside a segment index each) into an
+  ``[n_segs + 1, W]`` word image whose last row is the padding sink, and
+  the OR over K of a ``[B, K, W]`` stack of contested shards.
 
 On a CUDA tensor each wrapper launches its hand-written kernel (built at
 first use, see ``ops/build.py``) or raises; on a CPU tensor it runs the
@@ -97,8 +98,8 @@ LAUNCHES = {"pair_count": 0, "row_counts": 0, "bsi_compare": 0, "bsi_minmax": 0,
             "packed_pair_count": 0, "packed_expand": 0, "packed_count_batched": 0,
             "packed_and_dense_count_batched": 0, "packed_pair_count_batched": 0,
             "plane_scatter": 0, "hll_expand": 0, "hll_reduce": 0,
-            "similar_count": 0, "plane_lookup": 0, "scatter_bits": 0,
-            "or_fold": 0}
+            "similar_count": 0, "plane_lookup": 0, "scatter_bits_grouped": 0,
+            "scatter_bits": 0, "or_fold": 0}
 #: leaf records tree_count_batched's launches were given (slots x tape
 #: leaves) and the distinct leaves they read (each slot group's once):
 #: how much its waves share.
@@ -168,6 +169,7 @@ _SIGNATURES = {
         "pilosa_plane_lookup": [_VP, _I64, _VP, _VP, _VP, _I64, _VP],
     },
     "reduce_kernels.cu": {
+        "pilosa_scatter_bits_grouped": [_VP, _VP, _I64, _I64, _I64, _VP, _VP],
         "pilosa_scatter_bits": [_VP, _VP, _I64, _I64, _I64, _VP, _VP],
         "pilosa_or_fold": [_VP, _I64, _I64, _I64, _VP, _VP],
     },
@@ -633,6 +635,22 @@ def scatter_bits_plain(seg: torch.Tensor, local: torch.Tensor, n_segs: int,
     img.index_add_(0, flat >> 5, torch.ones_like(flat) << (flat & 31))
     img = torch.where(img >= 2**31, img - 2**32, img)
     return img.to(torch.int32).reshape(n_segs + 1, words)
+
+
+def scatter_bits_grouped_plain(starts: torch.Tensor, local: torch.Tensor,
+                               words: int = WORDS_PER_SHARD) -> torch.Tensor:
+    """``scatter_bits_plain`` of positions grouped by segment: row ``r``'s
+    offsets are ``local[starts[r]:starts[r + 1]]``, ``n_segs = len(starts)
+    - 2``, row ``n_segs`` the padding sink. Raises ValueError unless
+    ``starts`` is non-decreasing from 0 or more to ``len(local)``."""
+    st = starts.to(torch.int64)
+    if len(st) < 2 or int(st[0]) < 0 or int(st[-1]) != len(local) or bool(
+            (st[1:] < st[:-1]).any()):
+        raise ValueError(f"starts must be non-decreasing from 0 or more to len(local) = "
+                         f"{len(local)}, got {st.tolist()[:8]}...")
+    n_segs = len(st) - 2
+    seg = torch.repeat_interleave(torch.arange(n_segs + 1, device=st.device), st.diff())
+    return scatter_bits_plain(seg, local[int(st[0]):], n_segs, words)
 
 
 def or_fold_plain(stack: torch.Tensor) -> torch.Tensor:
@@ -1778,14 +1796,55 @@ def plane_lookup(plane: torch.Tensor, probe_hi: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def scatter_bits_grouped(starts: torch.Tensor, local: torch.Tensor,
+                         words: int = WORDS_PER_SHARD) -> torch.Tensor:
+    """A remote Row leg's word blocks in one launch, its positions grouped
+    by segment: ``starts`` ``[n_segs + 2]`` int32, non-decreasing, the last
+    ``len(local)``; row ``r``'s in-shard offsets are
+    ``local[starts[r]:starts[r + 1]]`` (int32, unique). ``[n_segs + 1,
+    words]`` int32 out, bit ``local & 31`` of word ``local >> 5`` of row
+    ``r``, row ``n_segs`` the padding sink, offsets out of range dropped.
+    ``words`` is a power of two from 64 to 2^19. On the card a cluster of
+    CTAs a row builds the row in shared memory and writes every word once
+    (the image is allocated, never zeroed; an empty leg launches too); the
+    starts are checked only on the CPU path."""
+    for x, name in ((starts, "starts"), (local, "local")):
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got {type(x).__name__}")
+        if x.dtype != torch.int32 or x.dim() != 1:
+            raise TypeError(f"{name} must be a 1-D int32 tensor, got {x.dtype} "
+                            f"{tuple(x.shape)}")
+    if len(starts) < 2 or starts.device != local.device:
+        raise ValueError(f"starts {tuple(starts.shape)} on {starts.device} must hold at "
+                         f"least 2 entries, on local's device {local.device}")
+    if isinstance(words, bool) or int(words) != words or not (
+            64 <= words <= 2**19) or words & (words - 1):
+        raise ValueError(f"words must be a power of two from 64 to 2^19, got {words!r}")
+    if local.device.type == "cpu":
+        return scatter_bits_grouped_plain(starts, local, words)
+    _require_cuda(local)
+    starts, local = starts.contiguous(), _aligned(local)  # the kernel's bulk copies
+    n_segs = len(starts) - 2
+    out = torch.empty((n_segs + 1, words), dtype=torch.int32, device=local.device)
+    with torch.cuda.device(local.device):
+        err = _library("reduce_kernels.cu").pilosa_scatter_bits_grouped(
+            starts.data_ptr(), local.data_ptr(), len(local), n_segs, int(words),
+            out.data_ptr(), _stream(local.device))
+    if err:
+        raise RuntimeError(f"scatter_bits_grouped kernel launch failed: CUDA error {err}")
+    _count_launch("scatter_bits_grouped")
+    return out
+
+
 def scatter_bits(seg: torch.Tensor, local: torch.Tensor, n_segs: int,
                  words: int = WORDS_PER_SHARD) -> torch.Tensor:
-    """A remote Row leg's word blocks in one program: ``seg`` and ``local``
-    ``[N]`` int32 (segment index, in-shard offset) of unique positions;
-    ``[n_segs + 1, words]`` int32 out, bit ``local & 31`` of word
-    ``local >> 5`` of row ``seg``, row ``n_segs`` the padding sink, entries
-    out of range dropped. On the card the image is zeroed on the stream,
-    then one launch ORs each position's bit into its word."""
+    """``scatter_bits_grouped`` of positions in any order: ``seg`` and
+    ``local`` ``[N]`` int32 (segment index, in-shard offset) of unique
+    positions; ``[n_segs + 1, words]`` int32 out, bit ``local & 31`` of
+    word ``local >> 5`` of row ``seg``, row ``n_segs`` the padding sink,
+    entries out of range dropped. On the card the image is zeroed on the
+    stream, then one launch ORs each position's bit into its word. No
+    serving path calls it: a leg's decode groups its positions."""
     for x, name in ((seg, "seg"), (local, "local")):
         if not isinstance(x, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor, got {type(x).__name__}")

@@ -105,13 +105,13 @@ def test_cluster_modules_stand_alone(module):
 
 
 def test_reduce_kernels_are_bound():
-    """csrc/reduce_kernels.cu's two C entry points are the signature table's
-    for it, each with a launch counter."""
+    """csrc/reduce_kernels.cu's three C entry points are the signature
+    table's for it, each with a launch counter."""
     from pilosa_tpu_torch.ops import build, kernels
     src = (build.CSRC_DIR / "reduce_kernels.cu").read_text()
     names = set(re.findall(r'extern "C" int (\w+)\(', src))
     assert names == set(kernels._SIGNATURES["reduce_kernels.cu"]) == {
-        "pilosa_scatter_bits", "pilosa_or_fold"}
+        "pilosa_scatter_bits_grouped", "pilosa_scatter_bits", "pilosa_or_fold"}
     for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src):
         assert len(params.split(",")) == len(kernels._SIGNATURES["reduce_kernels.cu"][name])
-    assert {"scatter_bits", "or_fold"} <= set(kernels.LAUNCHES)
+    assert {"scatter_bits_grouped", "scatter_bits", "or_fold"} <= set(kernels.LAUNCHES)
