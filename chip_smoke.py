@@ -62,7 +62,8 @@ port's paths:
   keep-alive connection, each body held to the oracle and byte for byte
   to the in-process JSON with the same launches; warm latencies beside the
   in-process ones; a JSON import of 200k bits and 200k values; 8
-  concurrent clients; the 404/400/504/501 statuses; ``/metrics``;
+  concurrent clients; the 404/400/504 statuses and a resize abort with no
+  job (200); ``/metrics``;
 - persist path: a second node with ``data_dir`` under
   ``build/chip_smoke_data/`` takes the first 30 shards (``PERSIST_SHARDS``,
   a thirty-second of the 1B columns) of ``bench`` and ``bsi`` the way Pilosa's
@@ -118,11 +119,11 @@ port's paths:
   shard 0 and its Count drops its plan and runs dense (ONE
   ``row_counts``);
 - fields path: on ``bench``, fields created over HTTP and loaded from
-  seeded data: a YMDH time field (10M bits in rows 0-2 over 60 days of
-  hours: bench config 4's bits, its 90 days cut to the windows' 60, its
-  columns to the first 40 shards), set fields a, b, c (4, 8
-  and 3 rows, 15M bits each: bench config 5's), a mutex field (12.5M
-  columns, then 2.5M moved) and a bool field (10M columns); time windows of
+  seeded data: a YMDH time field (5M bits in rows 0-2 over 30 days of
+  hours: bench config 4's bits halved, its 90 days cut to the windows'
+  first 30, its columns to the first 40 shards), set fields a, b, c (4, 8
+  and 3 rows, 15M bits each: bench config 5's), a mutex field (6.25M
+  columns, then 1.25M moved) and a bool field (10M columns); time windows of
   32 and 67 views (``tree_count`` over the view leaves), ``Rows`` over a
   window, ``MinRow``/``MaxRow``, GroupBy of two and three levels, with a
   filter and paged (ONE ``group_count`` each) and with a cursor (the
@@ -154,15 +155,27 @@ port's paths:
   shards (each remote leg ONE ``scatter_bits_grouped`` on the coordinator) and the
   second index's TopN, GroupBy, Sum/Min/Max, Count(Distinct), Rows and Row
   with ``shards=`` equal numpy oracles and node A's bodies byte for byte;
-  then acknowledged Set and Clear, a SIGKILLed member, the same bodies
-  through the live coordinators, the member DOWN in
+  then acknowledged Set and Clear; a second cluster on the CLI's
+  defaults (hedged reads on, device reduce ``auto``), booted and loaded
+  beside the first and given the same writes, gives every body again and
+  stops; then the elastic cluster (below); then a SIGKILLed member, the
+  same bodies through the live coordinators, the member DOWN in
   ``/debug/membership`` after a liveness sweep, and ``union_rows`` of two
   live owners' remote legs of the same shards (ONE ``or_fold``; no cluster
   query folds a contested shard, so the kernels line labels these
-  launches ``launches_constructed_fold``); then a second cluster on the
-  CLI's defaults (hedged reads on, device reduce ``auto``), booted and
-  loaded beside the first and given the same writes, gives every body
-  again.
+  launches ``launches_constructed_fold``). The elastic cluster
+  (``cluster_elastic``): a
+  fourth ``cli server --join`` with a data dir grows the ring while
+  acknowledged Set/Clear pairs go through the coordinator and Counts
+  through each member; bits are cleared in shards that moved off node A;
+  the joiner restarts from its ``topology.json``; ``POST
+  /cluster/resize/remove-node`` shrinks the ring back, node A's own
+  fragments of the shards it took back holding none of the cleared bits;
+  a bit posted to one owner alone reaches the other on the anti-entropy
+  tick (5 s, from a config file); a keyed index of 1M column keys gets
+  its ids through two members, one id a key everywhere, and a member's
+  300-key batch launches ``plane_lookup``. Every body through every
+  member equals its oracle and node A's after each step.
 
 The HTTP phase runs its 1 and 8 concurrent clients with dispatch
 coalescing off (launches equal to the serial sum) and on ``auto`` (at most
@@ -985,7 +998,7 @@ def import_rule_side(min_bits: int) -> int:
     ``Field._SCATTER_MIN_BITS_PER_SHARD`` at N (0: the JAX package's rule,
     the native scatter for any batch of 65,536 bits or more of at most 8
     rows) on a fresh holder on the card: the fields phase's time import
-    (the same seeded 10M bits over 60 days of hours, YMDH), then three
+    (the same seeded FIELDS_TIME_BITS bits over FIELDS_TIME_HOURS, YMDH), then three
     imports of the async phase's sparse-row shape (ASYNC_SPARSE_BITS bits
     in each of COUNT_SHARDS shards, one row) and COLD_SAMPLES cold
     ``Count(Row)`` of the first, each on a new planner. One JSON object."""
@@ -3832,8 +3845,8 @@ def phase_http(torch, card: str, data: dict, runs: int = QUERY_RUNS,
             ("parse error", "/index/bench/query", "Count(Row(f=1)", None, 400),
             ("expired X-Deadline", "/index/bench/query", COUNT_QUERIES["count_intersect"],
              {"X-Deadline": f"{time.time() - 1:.6f}"}, 504),
-            ("a resize (cluster and operations)", "/cluster/resize/abort", "", None,
-             501)):
+            ("a resize abort with no job running", "/cluster/resize/abort", "", None,
+             200)):
         status, body = request(conn, "POST", path, q, headers)
         if status != want:
             raise AssertionError(f"{what}: HTTP {status}, expected {want}: {body!r}")
@@ -4064,9 +4077,10 @@ def persist_backup(node_a, node_c, data: dict, card: str, root: Path) -> dict:
 
 
 #: rows of the topn shard the persist phase writes, snapshots and reloads
-#: (all 1,536 until the backup round trip joined the phase: a third of
-#: them keeps the whole run within its time).
-PERSIST_TOPN_ROWS = 512
+#: (all 1,536 until the backup round trip joined the phase, 512 until the
+#: elastic cluster joined the run: each cut keeps the whole run within its
+#: time).
+PERSIST_TOPN_ROWS = 256
 
 
 def persist_topn_shard(node_a, root: Path, card: str) -> None:
@@ -5283,35 +5297,38 @@ def phase_packed(torch, card: str, data: dict, runs: int = QUERY_RUNS) -> dict:
 
 # -- phase 10: time, mutex and bool fields, MinRow/MaxRow, GroupBy ------------
 
-#: bench config 4's time field, scaled from 8M to 1B columns: 10M bits in
-#: rows 0-2, stamped on the hour, uniform over 60 days from 2019-01-15
-#: (hour FIELDS_TIME_FIRST_HOUR of 2019), the span of WINDOWS. Bench
-#: config 4 spreads them over 90 days; the 30 days before the windows
-#: were cut to keep the whole run within its time (they added 700K
-#: fragments and about 40 s of host import, and no query read them).
+#: bench config 4's time field, scaled from 8M to 1B columns (then halved
+#: when the elastic cluster joined the run): 5M bits in rows 0-2, stamped
+#: on the hour, uniform over 30 days from 2019-01-15
+#: (hour FIELDS_TIME_FIRST_HOUR of 2019), the first half of WINDOWS' span.
+#: Bench config 4 spreads them over 90 days; the 30 days before the
+#: windows were cut to keep the whole run within its time (they added 700K
+#: fragments and about 40 s of host import, and no query read them), and
+#: the windows' last 30 days when the elastic cluster joined the run.
 #: The bits fall in the first FIELDS_TIME_SHARDS shards (a 24th of the 1B
 #: columns: a 24th of the fragments, which set the import's cost), cut to
 #: an eighth to make room for the keys phase, then to a 24th for the
 #: cluster phase; the windows' Counts still run over all 954 shards. (A
 #: 48th was tried on the card: its import took as long and the phase 20 s
 #: longer, its windows' Counts slower.)
-FIELDS_TIME_BITS = 10_000_000
+FIELDS_TIME_BITS = 5_000_000
 FIELDS_TIME_SHARDS = 40
 FIELDS_TIME_ROWS = 3
 FIELDS_TIME_FIRST_HOUR = 14 * 24
-FIELDS_TIME_HOURS = 24 * 60
+FIELDS_TIME_HOURS = 24 * 30
 #: bench config 5's GroupBy fields at its density (1.5%), at 1B columns.
 FIELDS_SET_BITS = 15_000_000
 FIELDS_SET_ROWS = {"a": 4, "b": 8, "c": 3}
-#: the mutex field: 16 rows over 12.5M columns, then 2.5M of them moved
+#: the mutex field: 16 rows over 6.25M columns, then 1.25M of them moved
 #: (50M and 10M until the backup round trip joined the persist phase,
-#: 25M and 5M until the keys phase joined the run: halved each time to
-#: keep the whole run within its time; rows stay in the packed class).
+#: 25M and 5M until the keys phase joined the run, 12.5M and 2.5M until
+#: the elastic cluster did: halved each time to keep the whole run within
+#: its time; rows stay in the packed class).
 FIELDS_MUTEX_ROWS = 16
-FIELDS_MUTEX_COLS = 12_500_000
-FIELDS_MUTEX_MOVED = 2_500_000
+FIELDS_MUTEX_COLS = 6_250_000
+FIELDS_MUTEX_MOVED = 1_250_000
 #: the bool field: 10M columns, true or false (20M until the keys phase
-#: joined the run).
+#: joined the run; at 5M its rows would fall into the packed class).
 FIELDS_BOOL_COLS = 10_000_000
 #: bits of t's row 7 imported over HTTP with epoch-second timestamps.
 FIELDS_HTTP_BITS = 2000
@@ -5436,8 +5453,8 @@ def phase_fields(torch, card: str, data: dict, runs: int = FIELDS_RUNS,
     rng = np.random.default_rng(SEED + 6)
     exp = SHARD_WIDTH.bit_length() - 1
 
-    # The time field: 10M bits, rows 0-2, hourly stamps over 60 days, in
-    # the first FIELDS_TIME_SHARDS shards.
+    # The time field: FIELDS_TIME_BITS bits, rows 0-2, hourly stamps over
+    # FIELDS_TIME_HOURS, in the first FIELDS_TIME_SHARDS shards.
     t0 = time.perf_counter()
     t_cols = rng.integers(0, min(n_cols, FIELDS_TIME_SHARDS * SHARD_WIDTH),
                           FIELDS_TIME_BITS, dtype=np.uint64)
@@ -6042,9 +6059,24 @@ SMALL_QUERIES = {
 }
 CLUSTER_BENCH_QUERIES = ("count_intersect", "count_3leaf")
 CLUSTER_KERNELS_NODES = ("pair_count", "tree_count")
+#: the elastic part of the cluster phase: the anti-entropy tick (seconds)
+#: the phase's cluster and its joiner read from a config file, the wait
+#: for a resize or a repair, the acknowledged Set/Clear pairs sent through
+#: the coordinator while the grow runs, the bits cleared in shards that
+#: move off node A, the keyed index's column keys and row keys, and the
+#: kernels each node's launches over the part must include.
+ELASTIC_SYNC_S = 5.0
+ELASTIC_WAIT_S = 300
+ELASTIC_WRITES = 6
+ELASTIC_CLEARS = 8
+ELASTIC_KEYS = 1_000_000
+ELASTIC_KEY_ROWS = 300
+ELASTIC_KERNELS = ("pair_count", "scatter_bits_grouped", "plane_lookup")
+ELASTIC_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_elastic"
 
 
-def cluster_start(device: str, replica_n: int, defaults: tuple = (False,)) -> list:
+def cluster_start(device: str, replica_n: int, defaults: tuple = (False,),
+                  configs: list | None = None) -> list:
     """One cluster a flag of ``defaults``, each CLUSTER_NODES ``cli server
     --peers`` processes on loopback, every port picked ahead of boot
     (``--peers`` names them) and every process booting at once; returns a
@@ -6052,7 +6084,9 @@ def cluster_start(device: str, replica_n: int, defaults: tuple = (False,)) -> li
     the coordinator flag's), once each serves. A cluster whose flag is
     False runs with hedged reads off and the device reduce ``on``, so its
     launch counts are fixed; one whose flag is True runs on the CLI's own
-    settings (hedging on, device reduce ``auto``)."""
+    settings (hedging on, device reduce ``auto``); ``configs`` names the
+    config file each node of a False cluster reads, in ring order (None for
+    none)."""
     import socket
 
     from pilosa_tpu_torch.ops import build
@@ -6069,13 +6103,15 @@ def cluster_start(device: str, replica_n: int, defaults: tuple = (False,)) -> li
         addrs = sorted(f"127.0.0.1:{p}"
                        for p in ports[i * CLUSTER_NODES:(i + 1) * CLUSTER_NODES])
         fixed = [] if own else ["--device-reduce", "on", "--hedge", "off"]
+        cfg = [None] * len(addrs) if own or not configs else configs
         spawned.append([(subprocess.Popen(
             [sys.executable, "-m", "pilosa_tpu_torch.cli", "server", "--bind", addr,
              "--peers", ",".join(a for a in addrs if a != addr),
              "--replica-n", str(replica_n), "--device", device, *fixed,
+             *(["--config", c] if c else []),
              "--qos-warmup", "", "--compile-cache-dir", str(build.BUILD_DIR)],
             cwd=Path(__file__).resolve().parent, env=env, stderr=subprocess.PIPE,
-            text=True), addr) for addr in addrs])
+            text=True), addr) for addr, c in zip(addrs, cfg)])
     out = []
     for cluster in spawned:
         out.append([])
@@ -6256,6 +6292,460 @@ def cluster_load(clusters: list, h, n_shards: int, sd: dict) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+def node_spawn(device: str, addr: str, args: list) -> subprocess.Popen:
+    """One ``cli server`` process on ``addr`` with the phase cluster's fixed
+    settings (device reduce ``on``, hedging off) and ``args``, returned once
+    it serves; its stderr is drained from then on."""
+    from pilosa_tpu_torch.ops import build
+
+    env = {k: v for k, v in os.environ.items() if not k.startswith("PILOSA_TPU_")}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "pilosa_tpu_torch.cli", "server", "--bind", addr,
+         "--device", device, "--device-reduce", "on", "--hedge", "off", "--qos-warmup", "",
+         "--compile-cache-dir", str(build.BUILD_DIR), *args],
+        cwd=Path(__file__).resolve().parent, env=env, stderr=subprocess.PIPE, text=True)
+    seen = []
+    for line in proc.stderr:
+        seen.append(line)
+        if "serving at" in line:
+            break
+    else:
+        proc.wait()
+        raise AssertionError(f"node {addr} did not start: {''.join(seen)[-2000:]}")
+    threading.Thread(target=lambda: [None for _ in proc.stderr], daemon=True).start()
+    return proc
+
+
+def get_json(port: int, path: str):
+    conn = http_client(port)
+    try:
+        return json.loads(expect_ok(conn, "GET", path))
+    finally:
+        conn.close()
+
+
+def post_json(port: int, path: str, body):
+    conn = http_client(port)
+    try:
+        return json.loads(expect_ok(conn, "POST", path, body) or b"{}")
+    finally:
+        conn.close()
+
+
+def node_counters(port: int) -> dict:
+    return get_json(port, "/debug/vars")["counters"]
+
+
+def ring_of(port: int) -> list:
+    return sorted(n["id"] for n in get_json(port, "/status")["nodes"])
+
+
+def wait_for(what: str, fn, timeout: float = ELASTIC_WAIT_S, every: float = 0.2):
+    """Poll ``fn`` until it returns a true value; fail after ``timeout`` s."""
+    t0 = time.perf_counter()
+    while True:
+        got = fn()
+        if got:
+            return got
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"timed out after {timeout} s waiting for {what}")
+        time.sleep(every)
+
+
+def body_diff(got: bytes, want: bytes) -> str:
+    """A short account of how two query bodies differ: the columns one Row
+    result has and the other lacks, or the bodies' heads."""
+    g, w = json.loads(got), json.loads(want)
+    try:
+        gc, wc = set(g["results"][0]["columns"]), set(w["results"][0]["columns"])
+    except (KeyError, IndexError, TypeError):
+        return f"{got[:200]!r} != {want[:200]!r}"
+    return (f"{len(gc)} columns against {len(wc)}; only in the first "
+            f"{sorted(gc - wc)[:8]}, only in the second {sorted(wc - gc)[:8]}")
+
+
+def cluster_elastic(card: str, device: str, ports: list, config: str, fw: np.ndarray,
+                    mirror, refresh, check_all, bodies: dict) -> dict:
+    """The elastic cluster on the card, on the phase's loaded three-node
+    cluster (A, B, C; A the coordinator): a fourth ``cli server --join`` D
+    grows the ring while acknowledged writes go through A and reads through
+    each member, the moved shards streamed to D over PTS1; bits cleared in
+    shards that moved off A; D restarted from its data dir's
+    ``topology.json``; D removed again over ``POST
+    /cluster/resize/remove-node``, A taking its shards back; a bit posted to
+    one owner alone, repaired by the anti-entropy tick; and a keyed index of
+    ELASTIC_KEYS column keys allocated through B and C. Each write is also
+    sent to node A (``mirror``) and kept in ``fw`` (the bench's f=1 words);
+    ``refresh()`` re-reads node A's bodies and holds each to its oracle, and
+    ``check_all`` holds each member's bodies to them. Returns the launches
+    of the members over the part and its measurements."""
+    import socket
+
+    from pilosa_tpu_torch.cluster import Cluster, Node
+    from pilosa_tpu_torch.cluster.node import URI
+    from pilosa_tpu_torch.config import SHARD_WIDTH
+
+    t_part = time.perf_counter()
+    a, b = ports[0], ports[1]
+    ids = [f"127.0.0.1:{p}" for p in ports]
+    # D's address sorts after the members' (a port picked until it does):
+    # the ring orders members by address, and a joiner at its end moves
+    # only the shards it gains (about half), not every shard's pair.
+    for _ in range(64):
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        d = s.getsockname()[1]
+        s.close()
+        if f"127.0.0.1:{d}" > max(ids):
+            break
+    d_id = f"127.0.0.1:{d}"
+    shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
+    ELASTIC_DIR.mkdir(parents=True)
+    n_shards = fw.shape[0]
+
+    def ring(members):
+        return Cluster("x", [Node(id=i, uri=URI(host="127.0.0.1", port=int(i.rpartition(":")[2])))
+                             for i in members], replica_n=CLUSTER_REPLICAS)
+
+    old, new = ring(ids), ring(ids + [d_id])
+
+    def owners(r, shard):
+        return {n.id for n in r.shard_nodes("bench", shard)}
+
+    to_d = [x for x in range(n_shards) if d_id in owners(new, x)]
+    off_a = [x for x in range(n_shards) if ids[0] in owners(old, x) - owners(new, x)]
+    if not to_d or not off_a:
+        raise AssertionError("the grow moves no shard to D or none off A")
+    rng = np.random.default_rng(SEED + 11)
+    launches = {p: node_launches(p) for p in ports}
+    totals = {k: 0 for k in launches[a]}
+    passes0 = {p: node_counters(p).get("antiEntropyPasses", 0) for p in ports}
+    counted = {}
+
+    def bits(shard, on):
+        w = np.unpackbits(fw[shard].view(np.uint8), bitorder="little").astype(bool)
+        return np.flatnonzero(w == on)
+
+    def write(pql, ops):
+        """One acknowledged write through A, mirrored to node A; ``ops`` are
+        its (column, set?) pairs on f=1, kept in ``fw``."""
+        got = post_json(a, "/index/bench/query", pql)
+        if got != {"results": [True] * len(ops)}:
+            raise AssertionError(f"{pql} through A: {got}")
+        mirror(pql)
+        for col, on in ops:
+            shard, off = divmod(col, SHARD_WIDTH)
+            word, bit = divmod(off, 32)
+            if on:
+                fw[shard, word] |= np.uint32(1 << bit)
+            else:
+                fw[shard, word] &= np.uint32(~(1 << bit) & 0xFFFFFFFF)
+
+    def f_total():
+        return int(popcount_rows(fw).sum())
+
+    def row_query(shards):
+        cols = sorted(int(c) for x in shards for c in bitops_columns(fw[x], x * SHARD_WIDTH))
+        return ("&shards=" + ",".join(map(str, shards)), {"results": [{"attrs": {}, "columns": cols}]})
+
+    def own_row(p, shards):
+        """Node ``p``'s own Row(f=1) over ``shards``: a remote leg, decoded."""
+        from pilosa_tpu_torch.server import wire
+
+        conn = http_client(p)
+        st, frame = request(conn, "POST", "/index/bench/query?remote=true&noCache=true&shards="
+                            + ",".join(map(str, shards)), "Row(f=1)",
+                            {"Accept": wire.FRAMES_ACCEPT_V2})
+        conn.close()
+        if st != 200:
+            raise AssertionError(f"remote leg via {p}: HTTP {st}")
+        return [int(c) for c in wire.decode_frames(frame, device="cpu")[0].columns()]
+
+    def hold_row(members, shards, when, remote=False):
+        """Row(f=1) over ``shards`` through each member (or, ``remote``,
+        each member's own fragments) equal to the oracle."""
+        suffix, want = row_query(shards)
+        for p in members:
+            if remote:
+                if own_row(p, shards) != want["results"][0]["columns"]:
+                    raise AssertionError(f"{when}: node {p}'s own Row(f=1) over {shards} "
+                                         f"differs from the oracle")
+                continue
+            conn = http_client(p)
+            body = json.loads(expect_ok(conn, "POST", "/index/bench/query?noCache=true" + suffix,
+                                        "Row(f=1)"))
+            conn.close()
+            if body != want:
+                raise AssertionError(f"{when}: Row(f=1) over {shards} via {p} differs from "
+                                     f"the oracle")
+
+    def counters(members, name):
+        return {p: node_counters(p).get(name, 0) for p in members}
+
+    def settled_cleaners(t_commit, before):
+        """The fragments each member's cleaner removed since ``before``,
+        read once the cleaners' grace after the commit has passed."""
+        from pilosa_tpu_torch.server.node import ServerNode
+
+        time.sleep(max(0.0, t_commit + ServerNode.CLEANER_GRACE_S + 1.0 - time.perf_counter()))
+        now = counters(ports, "holderCleanerRemoved")
+        return {p: now[p] - before[p] for p in ports}
+
+    def take_launches(p):
+        now = node_launches(p)
+        for k in totals:
+            totals[k] += now[k] - launches[p][k]
+        launches[p] = now
+
+    out = {}
+    # -- 1. grow: D joins through B; writes through A while the job runs
+    streamed0 = counters(ports, "cluster.resize.bytesStreamed")
+    cleaned0 = counters(ports, "holderCleanerRemoved")
+    t0 = time.perf_counter()
+    d_proc = node_spawn(device, d_id, ["--join", ids[1], "--replica-n", str(CLUSTER_REPLICAS),
+                                       "--data-dir", str(ELASTIC_DIR / "d"), "--config", config])
+    d_procs = [d_proc]
+    launches[d] = node_launches(d)
+    try:
+        job = wait_for("the resize job on A", lambda: get_json(a, "/debug/resize")["job"], 60)
+        t_job = time.perf_counter()
+        # Writes start once D holds the schema (its instruction carries it,
+        # and D's first shard cut over): a write fanned out before that
+        # finds no index on D and fails the job (ROADMAP.md Queue 3).
+        wait_for("D's first shard cut over", lambda: (
+            lambda j: j["state"] != "RUNNING" or j["shards"]["migrated"] > 0)(
+                get_json(a, "/debug/resize")["job"]), 120, 0.05)
+        mid, written = 0, []
+        targets = [x for x in to_d if len(bits(x, True)) and len(bits(x, False))]
+        while True:
+            state = get_json(a, "/debug/resize")["job"]["state"]
+            if state != "RUNNING" or len(written) >= ELASTIC_WRITES:
+                break
+            x = targets[len(written) % len(targets)]
+            on = int(rng.choice(bits(x, False))) + x * SHARD_WIDTH
+            off = int(rng.choice(bits(x, True))) + x * SHARD_WIDTH
+            write(f"Set({on}, f=1) Clear({off}, f=1)", [(on, True), (off, False)])
+            written.append(x)
+            if get_json(a, "/debug/resize")["job"]["state"] == "RUNNING":
+                mid += 1
+            want = f_total()
+            for p in ports:  # serve-through: each member answers, no gate
+                got = post_json(p, "/index/bench/query?noCache=true", "Count(Row(f=1))")
+                if got != {"results": [want]}:
+                    raise AssertionError(f"mid-resize Count(Row(f=1)) via {p}: {got} != {want}")
+        wait_for("the grow's commit", lambda: (get_json(a, "/debug/resize")["job"]["state"]
+                                                != "RUNNING"))
+        job = get_json(a, "/debug/resize")["job"]
+        t_done = time.perf_counter()
+        if job["state"] != "DONE" or job["failed"]:
+            raise AssertionError(f"the grow ended {job}")
+        wait_for("D in every member's ring", lambda: all(
+            ring_of(p) == sorted(ids + [d_id]) for p in ports + [d]), 60)
+        streamed = sum(counters(ports, "cluster.resize.bytesStreamed")[p] - streamed0[p]
+                       for p in ports)
+        log(f"elastic grow: D {d_id} joined through B; resize job {job['job']} DONE, "
+            f"{job['shards']['migrated']} shards cut over, {t_done - t_job:.3f} s from the job's "
+            f"start to its commit ({t_done - t0:.3f} s from D's spawn), {streamed / 1e6:.3f} MB "
+            f"streamed over PTS1 to D (logical bit pairs, 16 B each); {len(written)} "
+            f"acknowledged Set/Clear pairs through A, {mid} of them while the job ran, each "
+            f"followed by Count(Row(f=1)) through A, B and C equal to the oracle  [{card}]")
+        if device == "cuda" and not mid:
+            raise AssertionError("no write went through A while the grow ran")
+        t1 = time.perf_counter()
+        refresh()
+        check_all(ports + [d], bodies, "after the grow (four coordinators)")
+        hold_row(ports + [d], sorted(set(written)), "the writes of the grow")
+        cleaned = settled_cleaners(t_done, cleaned0)
+        out["grow"] = {"join_to_commit_s": t_done - t0, "job_s": t_done - t_job,
+                       "mb_streamed": streamed / 1e6, "cleaned": cleaned,
+                       "shards_to_d": len(to_d), "writes_mid_resize": mid}
+        log(f"elastic grow: bodies checked in {time.perf_counter() - t1:.3f} s; fragments "
+            f"removed by the old members' cleaners after their grace {cleaned}  [{card}]")
+
+        # -- 2. re-ownership: clear bits of shards that moved off A
+        t1 = time.perf_counter()
+        cleared = sorted(set(off_a[:ELASTIC_CLEARS]))
+        ops = [(int(rng.choice(bits(x, True))) + x * SHARD_WIDTH, False) for x in cleared]
+        write(" ".join(f"Clear({c}, f=1)" for c, _ in ops), ops)
+        hold_row(ports + [d], cleared, "the clears of shards that left A")
+        refresh()
+        out["cleared_shards"] = cleared
+        log(f"elastic re-ownership: cleared one bit in each of shards {cleared} (owned by A "
+            f"before the grow, not after) through A; Row(f=1) over them equal to the oracle "
+            f"through all four ({time.perf_counter() - t1:.3f} s)  [{card}]")
+
+        # -- 3. restart D from its data dir's topology.json
+        t1 = time.perf_counter()
+        take_launches(d)
+        d_proc.send_signal(signal.SIGTERM)
+        d_proc.wait(timeout=120)
+        t_closed = time.perf_counter()
+        d_proc = node_spawn(device, d_id, ["--peers", ",".join(ids), "--replica-n",
+                                           str(CLUSTER_REPLICAS), "--data-dir",
+                                           str(ELASTIC_DIR / "d"), "--config", config])
+        t_booted = time.perf_counter()
+        d_procs.append(d_proc)
+        launches[d] = node_launches(d)
+        memb = get_json(d, "/debug/membership")
+        if memb["topologyVersion"] != 1 or ring_of(d) != sorted(ids + [d_id]):
+            raise AssertionError(f"D restarted without its topology: {memb['topologyVersion']}, "
+                                 f"{ring_of(d)}")
+        # A restarted member learns its peers' shards at the start of its
+        # first anti-entropy tick (ROADMAP.md Queue 3); bodies before it are
+        # short.
+        wait_for("D's first availability pull", lambda: len(get_json(
+            d, "/internal/availability")["bench"]["f"]) == n_shards, 4 * ELASTIC_SYNC_S)
+        t_synced = time.perf_counter()
+        check_all([d], bodies, "after D's restart from topology.json",
+                  (*CLUSTER_BENCH_QUERIES, "row_leg"))
+        out["restart_s"] = time.perf_counter() - t1
+        log(f"elastic restart: D SIGTERMed and booted again on its data dir with --peers and "
+            f"no --join: topology version 1 and the four-node ring from topology.json, the "
+            f"bench's bodies equal via D ({out['restart_s']:.3f} s: closing {t_closed - t1:.3f}, booting "
+            f"{t_booted - t_closed:.3f}, D's first availability pull "
+            f"{t_synced - t_booted:.3f})  [{card}]")
+
+        # -- 4. shrink: remove D; A streams its shards back
+        streamed0 = counters(ports, "cluster.resize.bytesStreamed")
+        cleaned0 = counters(ports, "holderCleanerRemoved")
+        t1 = time.perf_counter()
+        post_json(a, "/cluster/resize/remove-node", {"id": d_id})
+        t_shrink = time.perf_counter() - t1
+        job = get_json(a, "/debug/resize")["job"]
+        if job["state"] != "DONE" or ring_of(a) != sorted(ids):
+            raise AssertionError(f"the shrink ended {job}, ring {ring_of(a)}")
+        if get_json(d, "/status")["state"] != "REMOVED":
+            raise AssertionError("D is not REMOVED after its removal")
+        take_launches(d)
+        d_proc.send_signal(signal.SIGTERM)
+        d_proc.wait(timeout=120)
+        wait_for("every member's three-node ring", lambda: all(
+            ring_of(p) == sorted(ids) for p in ports), 60)
+        streamed = sum(counters(ports, "cluster.resize.bytesStreamed")[p] - streamed0[p]
+                       for p in ports)
+        refresh()
+        check_all(ports, bodies, "after the shrink")
+        hold_row([a], cleared, "A's own fragments of the shards it took back", remote=True)
+        cleaned = settled_cleaners(t1 + t_shrink, cleaned0)
+        out["shrink"] = {"s": t_shrink, "mb_streamed": streamed / 1e6, "cleaned": cleaned}
+        log(f"elastic shrink: POST /cluster/resize/remove-node for D answered in "
+            f"{t_shrink:.3f} s, {streamed / 1e6:.3f} MB streamed among A, B and C, cleaners "
+            f"removed {cleaned}; D REMOVED; bodies through A, B and C equal; A's own Row(f=1) "
+            f"over the shards it took back (a remote leg: its fresh fragments and stacks) "
+            f"holds none of the cleared bits  [{card}]")
+
+        # -- 5. anti-entropy: a bit on one owner alone
+        t1 = time.perf_counter()
+        x = next(y for y in range(n_shards) if owners(old, y) == set(ids[1:])
+                 and len(bits(y, False)))
+        col = int(bits(x, False)[0]) + x * SHARD_WIDTH
+        one, two = sorted(owners(old, x))
+        p_one, p_two = (int(i.rpartition(":")[2]) for i in (one, two))
+        post_json(p_one, "/internal/import", {"index": "bench", "field": "f", "rowIDs": [1],
+                                              "columnIDs": [col]})
+
+        def has(p):
+            return col in own_row(p, [x])
+
+        if has(p_two):
+            raise AssertionError("the bit reached the second owner before any sync")
+        wait_for("the anti-entropy repair", lambda: has(p_two), 4 * ELASTIC_SYNC_S)
+        out["repair_s"] = time.perf_counter() - t1
+        if not has(p_one):
+            raise AssertionError("the first owner lost the bit")
+        mirror(f"Set({col}, f=1)")
+        shard, off = divmod(col, SHARD_WIDTH)
+        fw[shard, off // 32] |= np.uint32(1 << (off % 32))
+        refresh()
+        log(f"elastic anti-entropy: a bit of shard {x} posted to owner {one}'s /internal/import "
+            f"alone reached owner {two} in {out['repair_s']:.3f} s (their tick {ELASTIC_SYNC_S} s, "
+            f"from the config file; an even split keeps the bit)  [{card}]")
+
+        # -- 6. a keyed index on the cluster
+        t1 = time.perf_counter()
+        post_json(a, "/index/kc", {"options": {"keys": True}})
+        post_json(a, "/index/kc/field/kf", {"options": {"keys": True}})
+        krows = rng.integers(0, ELASTIC_KEY_ROWS, ELASTIC_KEYS)
+        keys = [f"col-{i}" for i in range(ELASTIC_KEYS)]
+        half = ELASTIC_KEYS // 2
+        # B allocates the first half; C the second half and a tenth of B's again.
+        for p, lo, hi in ((b, 0, half), (ports[2], half - ELASTIC_KEYS // 10, ELASTIC_KEYS)):
+            post_json(p, "/index/kc/field/kf/import",
+                      {"rowKeys": [f"row-{r}" for r in krows[lo:hi].tolist()],
+                       "columnKeys": keys[lo:hi]})
+        # A replica reverse-translates result columns from its own store:
+        # its bodies agree with the coordinator's once it has pulled the
+        # coordinator's entries on an anti-entropy tick.
+        # (``/debug/translate``: each store's contiguous watermark.)
+        coord_ids = {k: v["maxId"] for k, v in get_json(a, "/debug/translate")["stores"].items()
+                     if k.startswith("kc")}
+
+        def pulled(p):
+            stores = get_json(p, "/debug/translate")["stores"]
+            return all(stores.get(k, {}).get("watermark", 0) >= v for k, v in coord_ids.items())
+
+        wait_for("B's translation pull", lambda: pulled(b), 12 * ELASTIC_SYNC_S)
+        sample = [keys[int(i)] for i in rng.integers(0, ELASTIC_KEYS, 20_000)]
+        ids_by = {p: post_json(p, "/internal/translate/keys",
+                               {"index": "kc", "field": None, "keys": sample})["ids"]
+                  for p in ports}
+        if len({json.dumps(v) for v in ids_by.values()}) != 1:
+            raise AssertionError("a column key has different ids on different members")
+        if len(set(ids_by[a])) != len(set(sample)):
+            raise AssertionError("two column keys share an id")
+        for r in (0, 7, ELASTIC_KEY_ROWS - 1):
+            want_cols = sorted(keys[i] for i in np.flatnonzero(krows == r).tolist())
+            got = [post_json(p, "/index/kc/query?noCache=true",
+                             f'Count(Row(kf="row-{r}")) Row(kf="row-{r}")') for p in (a, b)]
+            if any(g != got[0] for g in got):
+                raise AssertionError(f"keyed bodies of row-{r} differ between A and B")
+            res = got[0]["results"]
+            if res[0] != len(want_cols) or sorted(res[1]["keys"]) != want_cols:
+                raise AssertionError(f"keyed Count/Row of row-{r} differ from the oracle")
+        union = "Count(Union(" + ", ".join(f'Row(kf="row-{r}")' for r in
+                                           range(ELASTIC_KEY_ROWS)) + "))"
+        before = node_launches(b)["plane_lookup"]
+        for _ in range(20):  # auto builds the plane off the query thread first
+            got = post_json(b, "/index/kc/query?noCache=true", union)
+            if got != {"results": [ELASTIC_KEYS]}:
+                raise AssertionError(f"keyed union via B: {got}")
+            if device != "cuda" or node_launches(b)["plane_lookup"] > before:
+                break
+            time.sleep(0.5)
+        lookups = node_launches(b)["plane_lookup"] - before
+        if device == "cuda" and lookups < 1:
+            raise AssertionError("B's 300-key batch never launched plane_lookup")
+        out["keys_s"] = time.perf_counter() - t1
+        log(f"elastic keys: {ELASTIC_KEYS} column keys allocated through B and C (a tenth "
+            f"through both) on coordinator A: one id each, the same through A, B and C; keyed "
+            f"Count and Row equal the oracle, through A and through B after its pull; B's "
+            f"{ELASTIC_KEY_ROWS}-key "
+            f"union after its translation pull: {lookups} plane_lookup launches "
+            f"({out['keys_s']:.3f} s)  [{card}]")
+    finally:
+        for proc in d_procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
+    for p in ports:
+        take_launches(p)
+    if device == "cuda":
+        for k in ELASTIC_KERNELS:
+            if totals[k] < 1:
+                raise AssertionError(f"{k} was not launched on the elastic path")
+    out["launches"] = totals
+    out["seconds"] = time.perf_counter() - t_part
+    passes = {p: node_counters(p).get("antiEntropyPasses", 0) - passes0[p] for p in ports}
+    log(f"elastic part: anti-entropy passes a member {passes} in {out['seconds']:.3f} s "
+        f"(ticks of {ELASTIC_SYNC_S} s on B and C, 10 s on A, jittered, plus each pass's "
+        f"own time)")
+    log(f"elastic part launches (A, B, C and D): "
+        f"{json.dumps({k: v for k, v in totals.items() if v})}")
+    log(f"elastic part: {out['seconds']:.3f} s  [{card}]")
+    return out
+
+
 def phase_cluster(torch, card: str, data: dict, runs: int = CLUSTER_RUNS) -> dict:
     """The cluster's serving path at full width. Three ``cli server --peers
     ... --replica-n 2`` processes on loopback share the card; the bench's
@@ -6274,8 +6764,10 @@ def phase_cluster(torch, card: str, data: dict, runs: int = CLUSTER_RUNS) -> dic
     live owners' remote legs of the same shards (``or_fold``), its launches
     returned apart from the queries'. A second cluster on the CLI's
     defaults (hedging on, device reduce ``auto``), booted and loaded beside
-    the first and given the same writes, gives every body again once the
-    first is stopped (bodies only: hedged legs vary the launch counts)."""
+    the first and given the same writes, gives every body again after the
+    writes (bodies only: hedged legs vary the launch counts) and stops.
+    Then, before the SIGKILL, ``cluster_elastic`` grows the first cluster by
+    a fourth member and shrinks it back."""
     from pilosa_tpu_torch.config import SHARD_WIDTH
     from pilosa_tpu_torch.exec import device_reduce
     from pilosa_tpu_torch.ops import kernels
@@ -6294,7 +6786,15 @@ def phase_cluster(torch, card: str, data: dict, runs: int = CLUSTER_RUNS) -> dic
     t0 = time.perf_counter()
     # The phase's cluster (fixed launch counts) and one on the CLI's
     # defaults, booting and loading side by side.
-    nodes, dnodes = cluster_start(device, CLUSTER_REPLICAS, (False, True))
+    # B and C of the phase's cluster (and the elastic part's joiner) read a
+    # short anti-entropy tick from a config file; A keeps the CLI's 10 s:
+    # the coordinator is the busiest member, and each tick asks every
+    # owned fragment's replica for its digests.
+    config = Path(__file__).resolve().parent / "build" / "chip_smoke_cluster.toml"
+    config.parent.mkdir(parents=True, exist_ok=True)
+    config.write_text(f"anti-entropy-interval = {ELASTIC_SYNC_S}\n")
+    nodes, dnodes = cluster_start(device, CLUSTER_REPLICAS, (False, True),
+                                  [None, str(config), str(config)])
     ports, dports = [p for _, p in nodes], [p for _, p in dnodes]
     coord = ports[0]
     log(f"cluster: {CLUSTER_NODES} cli server processes on ports {ports}, replica "
@@ -6353,15 +6853,17 @@ def phase_cluster(torch, card: str, data: dict, runs: int = CLUSTER_RUNS) -> dic
             c.close()
             return body
 
-        def check_all(coords, bodies, when):
+        def check_all(coords, bodies, when, names=None):
             for name, (index, suffix, q, oracle) in queries.items():
+                if names is not None and name not in names:
+                    continue
                 for p in coords:
                     got = ask(p, index, suffix, q)
                     if got != bodies[name]:
                         raise AssertionError(f"cluster {name} via {p} {when}: body differs "
-                                             f"from node A's")
-            log(f"cluster: {len(queries)} queries via {len(coords)} coordinators {when}: "
-                f"every body byte-equal to node A's")
+                                             f"from node A's: {body_diff(got, bodies[name])}")
+            log(f"cluster: {len(names or queries)} queries via {len(coords)} coordinators "
+                f"{when}: every body byte-equal to node A's")
 
         # node A's bodies, each held to its oracle
         bodies = {}
@@ -6439,6 +6941,59 @@ def phase_cluster(torch, card: str, data: dict, runs: int = CLUSTER_RUNS) -> dic
         bodies["row_leg"] = ask(node_a.port, "bench", queries["row_leg"][1], "Row(f=1)")
         if json.loads(bodies["row_leg"]) != queries["row_leg"][3]:
             raise AssertionError("node A Row(f=1) after the writes differs from the oracle")
+        # The CLI's defaults, as a user's cluster runs: hedged reads on and
+        # the device reduce on auto. The same data and writes, every body
+        # again; then the defaults cluster stops, before the elastic part
+        # (its three processes would share the host with the resize).
+        before = {p: node_launches(p) for p in dports}
+        check_all(dports, bodies, "(CLI defaults: hedged reads on, device reduce auto)")
+        for p in dports:
+            now = node_launches(p)
+            c = http_client(p)
+            hedge = json.loads(expect_ok(c, "GET", "/debug/overload"))["hedge"]
+            c.close()
+            if hedge is None or hedge["primaries"] < 1:
+                raise AssertionError(f"node {p} on the defaults: no hedge policy on its "
+                                     f"legs: {hedge}")
+            log(f"cluster node {p} on the defaults: hedge primaries {hedge['primaries']}, "
+                f"fired {hedge['fired']}, won {hedge['won']}; scatter_bits_grouped "
+                f"{now['scatter_bits_grouped'] - before[p]['scatter_bits_grouped']}, "
+                f"scatter_bits {now['scatter_bits'] - before[p]['scatter_bits']}, or_fold "
+                f"{now['or_fold'] - before[p]['or_fold']} (auto's calibration included)")
+        cluster_stop(dnodes)
+
+        for col, on in ((col_set, True), (col_clear, False)):
+            word, bit = divmod(col - s * SHARD_WIDTH, 32)
+            fw[s, word] = fw[s, word] | np.uint32(1 << bit) if on else \
+                fw[s, word] & np.uint32(~(1 << bit) & 0xFFFFFFFF)
+
+        def mirror(pql):
+            """An elastic write, acknowledged, on node A too, so every later
+            body check holds."""
+            c = http_client(node_a.port)
+            got = json.loads(expect_ok(c, "POST", "/index/bench/query", pql))
+            c.close()
+            if not all(got["results"]):
+                raise AssertionError(f"mirrored {pql} via node A: {got}")
+
+        def refresh():
+            """The bench queries' oracles from fw and gw, and node A's bodies
+            of every query, each held to its oracle."""
+            want = {"count_intersect": int(popcount_rows(fw & gw).sum()),
+                    "count_3leaf": int(popcount_rows((fw & gw) | gw).sum())}
+            for name in CLUSTER_BENCH_QUERIES:
+                queries[name] = queries[name][:3] + ({"results": [want[name]]},)
+            queries["row_leg"] = queries["row_leg"][:3] + (
+                {"results": [{"attrs": {}, "columns": row_oracle(fw, leg_shards)}]},)
+            for name, (index, suffix, q, oracle) in queries.items():
+                bodies[name] = ask(node_a.port, index, suffix, q)
+                if json.loads(bodies[name]) != oracle:
+                    raise AssertionError(f"node A {name} differs from its oracle")
+
+        elastic = cluster_elastic(card, device, ports, str(config), fw, mirror, refresh,
+                                  check_all, bodies)
+        conn.close()  # idle past the server's keep-alive timeout by now
+        conn = http_client(coord)
 
         # SIGKILL one member: the live coordinators fail over to replicas.
         killed_proc, killed = nodes[CLUSTER_KILLED]
@@ -6507,32 +7062,14 @@ def phase_cluster(torch, card: str, data: dict, runs: int = CLUSTER_RUNS) -> dic
         conn.close()
         ca.close()
 
-        # The CLI's defaults, as a user's cluster runs: hedged reads on and
-        # the device reduce on auto. The same data and writes, every body
-        # again, the first cluster stopped.
-        cluster_stop(nodes)
-        before = {p: node_launches(p) for p in dports}
-        check_all(dports, bodies, "(CLI defaults: hedged reads on, device reduce auto)")
-        for p in dports:
-            now = node_launches(p)
-            c = http_client(p)
-            hedge = json.loads(expect_ok(c, "GET", "/debug/overload"))["hedge"]
-            c.close()
-            if hedge is None or hedge["primaries"] < 1:
-                raise AssertionError(f"node {p} on the defaults: no hedge policy on its "
-                                     f"legs: {hedge}")
-            log(f"cluster node {p} on the defaults: hedge primaries {hedge['primaries']}, "
-                f"fired {hedge['fired']}, won {hedge['won']}; scatter_bits_grouped "
-                f"{now['scatter_bits_grouped'] - before[p]['scatter_bits_grouped']}, "
-                f"scatter_bits {now['scatter_bits'] - before[p]['scatter_bits']}, or_fold "
-                f"{now['or_fold'] - before[p]['or_fold']} (auto's calibration included)")
     finally:
         cluster_stop(nodes + dnodes)
-    launches = {k: sum(deltas[p][k] for p in ports) for k in deltas[coord]}
-    log(f"cluster path launches (nodes' query legs and coordinators): "
-        f"{json.dumps({k: v for k, v in launches.items() if v})}")
+    launches = {k: sum(deltas[p][k] for p in ports) + elastic["launches"][k]
+                for k in deltas[coord]}
+    log(f"cluster path launches (nodes' query legs and coordinators, the elastic part's "
+        f"included): {json.dumps({k: v for k, v in launches.items() if v})}")
     log(f"cluster phase body: {time.perf_counter() - t_phase:.3f} s")
-    return {"launches": launches, "fold_launches": fold,
+    return {"launches": launches, "fold_launches": fold, "elastic": elastic,
             "p50": {"cluster": p50_c, "node_a": p50_a}, "crossover": xover}
 
 

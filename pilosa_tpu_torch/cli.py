@@ -206,11 +206,7 @@ _PORT_DEFAULTS = {
 
 #: server flags (by argparse dest) of features later slices bring, each
 #: with the ROADMAP.md Queue 1 slice that ports it.
-_UNPORTED = {
-    "scrub_interval": SLICE_CLUSTER, "join": SLICE_CLUSTER,
-    "chaos_faults": SLICE_CLUSTER, "trace_endpoint": SLICE_CLUSTER,
-    "ingest_max_inflight_mb": SLICE_CLUSTER,
-}
+_UNPORTED = {"trace_endpoint": SLICE_CLUSTER}
 
 
 def _load_config(path: str | None, extra: dict | None = None) -> dict:
@@ -255,6 +251,14 @@ def cmd_server(args, parser: argparse.ArgumentParser) -> int:
         cfg["device"] = args.device
     if args.peers:
         cfg["peers"] = args.peers
+    if args.join:
+        cfg["join"] = args.join
+    if args.scrub_interval is not None:
+        cfg["scrub_interval"] = args.scrub_interval
+    if args.chaos_faults:
+        cfg["chaos_faults"] = True
+    if args.ingest_max_inflight_mb is not None:
+        cfg["ingest_max_inflight_mb"] = args.ingest_max_inflight_mb
     if args.replica_n:
         cfg["replica_n"] = args.replica_n
     if args.tls_ca_cert:
@@ -408,6 +412,11 @@ def cmd_server(args, parser: argparse.ArgumentParser) -> int:
         sketch_precision=int(cfg["sketch_precision"]),
         sketch_exact_threshold=int(cfg["sketch_exact_threshold"]),
         compile_cache_dir=str(cfg["compile_cache_dir"]) or None,
+        anti_entropy_interval=float(cfg["anti_entropy_interval"]),
+        scrub_interval=float(cfg["scrub_interval"]),
+        join=str(cfg["join"]) or None,
+        chaos_faults=bool(cfg["chaos_faults"]),
+        ingest_max_inflight_mb=int(cfg["ingest_max_inflight_mb"]),
     )
     node.open()
     where = f", data dir {cfg['data_dir']}" if cfg["data_dir"] else ""
@@ -905,7 +914,9 @@ def _server_parser(sub) -> argparse.ArgumentParser:
     s.add_argument("--archive-url", default=None)
     s.add_argument("--backup-full-every", type=int, default=None)
     s.add_argument("--backup-keep-chains", type=int, default=None)
-    s.add_argument("--scrub-interval", type=float, default=None)
+    s.add_argument("--scrub-interval", type=float, default=None,
+                   help="background integrity scrub cadence, seconds "
+                        "(0 disables)")
     s.add_argument("--max-op-n", type=int, default=None)
     s.add_argument("--quarantine-keep-n", type=int, default=None)
     s.add_argument("--qos-adaptive", choices=("on", "off"), default=None,
@@ -922,7 +933,9 @@ def _server_parser(sub) -> argparse.ArgumentParser:
     s.add_argument("--hedge-delay-ms", type=float, default=None)
     s.add_argument("--hedge-budget-pct", type=float, default=None)
     s.add_argument("--fence-stale-reads", action="store_true")
-    s.add_argument("--chaos-faults", action="store_true")
+    s.add_argument("--chaos-faults", action="store_true",
+                   help="mount POST /internal/fault (chaos testing "
+                        "only; never on production nodes)")
     s.add_argument("--trace-endpoint", default="")
     s.add_argument("--compile-cache-dir", default=None)
     s.add_argument("--plan-buckets", choices=("pow2", "none"), default=None,
@@ -937,7 +950,10 @@ def _server_parser(sub) -> argparse.ArgumentParser:
     s.add_argument("--ingest-transpose", choices=("on", "off", "auto"),
                    default=None)
     s.add_argument("--wal-group-commit-ms", type=float, default=None)
-    s.add_argument("--ingest-max-inflight-mb", type=int, default=None)
+    s.add_argument("--ingest-max-inflight-mb", type=int, default=None,
+                   help="import-stream in-flight byte budget, MB "
+                        "(default 0 = unbounded; over budget replies "
+                        "429 + Retry-After)")
     s.add_argument("--dispatch-fuse", choices=("on", "off", "auto"),
                    default=None)
     s.add_argument("--dispatch-coalesce", choices=("on", "off", "auto"),

@@ -1,12 +1,13 @@
 """Cluster layer: membership, shard placement, node fan-out, replicated
 writes and failover.
 
-The port's copy of pilosa_tpu/cluster/, serving half: placement is a pure
-function, node transport is an ``InternalClient`` (``LocalClient`` in
-process for tests, ``server.httpclient.HTTPInternalClient`` between
-processes), and the per-node compute underneath is the planner. Resize,
-anti-entropy, the scrubber, translate sync and chaos faults come with
-ROADMAP.md Queue 1: cluster and operations.
+The port's copy of pilosa_tpu/cluster/: placement is a pure function,
+node transport is an ``InternalClient`` (``LocalClient`` in process for
+tests, ``server.httpclient.HTTPInternalClient`` between processes), and
+the per-node compute underneath is the planner. The serve-through resize
+(``resize``, ``migration``, ``cleaner``), anti-entropy (``sync``), the
+scrubber, coordinator-primary keys (``translate_sync``) and chaos faults
+(``faults``) are host code over that transport.
 """
 
 from pilosa_tpu_torch.cluster.cluster import (

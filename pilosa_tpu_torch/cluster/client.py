@@ -36,6 +36,34 @@ class InternalClient(Protocol):
         cross-node freshness stamp."""
         ...
 
+    def fragment_blocks(self, node: Node, index: str, field: str, view: str,
+                        shard: int) -> dict[int, bytes]:
+        """Checksum blocks of a peer fragment (anti-entropy)."""
+        ...
+
+    def fragment_block_data(self, node: Node, index: str, field: str,
+                            view: str, shard: int, block: int):
+        """(row_ids, column_ids) of one block on a peer."""
+        ...
+
+    def import_bits(self, node: Node, index: str, field: str, view: str,
+                    shard: int, rows: list[int], cols: list[int],
+                    clear: bool) -> None:
+        """Push bits into one specific fragment of a peer (the diff-push
+        half of anti-entropy, fragment.go:2986)."""
+        ...
+
+    def translate_keys(self, node: Node, index: str, field: str | None,
+                       keys: list[str]) -> list[int]:
+        """Allocate/look up keys on a peer — the coordinator-primary RPC
+        (reference http/translator.go)."""
+        ...
+
+    def translate_entries(self, node: Node, index: str, field: str | None,
+                          after_id: int) -> list[tuple[int, str]]:
+        """Entry stream for replica catch-up (translate.go:93)."""
+        ...
+
     def post_schema(self, node: Node, schema: list[dict]) -> None:
         """Push a whole schema to a peer (ApplySchema fan-out,
         api.go:747)."""
@@ -51,6 +79,22 @@ class NopClient:
 
     def query_node_meta(self, node, index, query, shards, remote):
         raise RuntimeError("nop client cannot query remote nodes")
+
+    def fragment_blocks(self, node, index, field, view, shard):
+        raise RuntimeError("nop client cannot reach remote nodes")
+
+    def fragment_block_data(self, node, index, field, view, shard, block):
+        raise RuntimeError("nop client cannot reach remote nodes")
+
+    def import_bits(self, node, index, field, view, shard, rows, cols, clear):
+        raise RuntimeError("nop client cannot reach remote nodes")
+
+    def translate_keys(self, node, index, field, keys):
+        raise RuntimeError("nop client cannot reach remote nodes")
+
+    def translate_entries(self, node, index, field, after_id):
+        raise RuntimeError("nop client cannot reach remote nodes")
+
 
 class LocalClient:
     """In-process peer registry: node id -> server-like object exposing
@@ -177,6 +221,18 @@ class LocalClient:
         finally:
             qos_deadline.reset_current_deadline(token)
 
+    def fragment_blocks(self, node, index, field, view, shard):
+        return self._peer(node).handle_fragment_blocks(index, field, view, shard)
+
+    def fragment_block_data(self, node, index, field, view, shard, block):
+        return self._peer(node).handle_fragment_block_data(
+            index, field, view, shard, block)
+
+    def import_bits(self, node, index, field, view, shard, rows, cols,
+                    clear=False):
+        return self._peer(node).handle_import(index, field, view, shard,
+                                              rows, cols, clear)
+
     def send_message(self, node, message: dict):
         """Control-plane broadcast (reference /internal/cluster/message,
         broadcast.go:55-72)."""
@@ -186,6 +242,13 @@ class LocalClient:
                             clear=False):
         return self._peer(node).handle_import_roaring(index, field, shard,
                                                       data, clear)
+
+    def send_import_stream(self, node, reqs, chunked=False, qos_class=None):
+        """PTS1 bulk-import stream to a peer — the one wire for large
+        data movement (user bulk loads AND resize fragment migration,
+        which rides it with qos_class="internal"). Returns the number of
+        applied requests (the applied prefix, for resume)."""
+        return self._peer(node).handle_import_stream(list(reqs))
 
     def probe(self, node) -> None:
         """Liveness probe (the /version check of confirmNodeDown)."""
@@ -211,11 +274,28 @@ class LocalClient:
             index, field, rows=rows, cols=cols, values=values,
             timestamps=timestamps, clear=clear)
 
+    def translate_keys(self, node, index, field, keys):
+        return self._peer(node).handle_translate_keys(index, field, keys)
+
+    def translate_entries(self, node, index, field, after_id):
+        return self._peer(node).handle_translate_entries(index, field,
+                                                         after_id)
+
+    def schema(self, node) -> list[dict]:
+        return self._peer(node).handle_schema()
+
     def post_schema(self, node, schema: list[dict]) -> None:
         self._peer(node).apply_schema(schema)
 
     def nodes(self, node) -> list[dict]:
         return self._peer(node).handle_nodes()
+
+    def attr_blocks(self, node, index, field):
+        return self._peer(node).handle_attr_blocks(index, field)
+
+    def attr_block_data(self, node, index, field, block):
+        return self._peer(node).handle_attr_block_data(index, field, block)
+
 
 class BoundLocalClient:
     """A LocalClient view carrying a source node identity. Every method

@@ -5,12 +5,11 @@ Reference: cluster.go (struct :186, state machine :47-50, partitionNodes
 :2435, mapReduce retry/failover :2455-2560, write replication
 :2144-2168).
 
-The port's copy of pilosa_tpu/cluster/cluster.py, serving half: membership,
-the state machine, quorum fencing, placement, ``map_reduce`` (hedged legs,
+The port's copy of pilosa_tpu/cluster/cluster.py: membership, the state
+machine, quorum fencing, placement, ``map_reduce`` (hedged legs,
 merge-as-completed, failover onto replicas, the deferred row and register
-folds) and the write fan-out. Resize (its migration table and dual
-writes) and the durable topology file are not ported (ROADMAP.md Queue 1:
-cluster and operations).
+folds), the write fan-out with a resize's dual writes, and the durable
+topology hook.
 """
 
 from __future__ import annotations
@@ -72,6 +71,13 @@ class Cluster:
         #: removed member (ghost re-add -> wrong placement -> the GC
         #: deleting live data).
         self.topology_version = 0
+        #: durable-topology hook (reference .topology file,
+        #: cluster.go:1657): called after every committed
+        #: nodes/version change so a restarted node resumes from the
+        #: committed ring and version instead of version 0 — a reborn
+        #: coordinator committing "version 1" again would be silently
+        #: rejected as stale by every peer, forking the ring.
+        self.save_hook: Callable | None = None
         self.stats = NopStats()
         #: shards the write fan-out skipped a DOWN replica for — the
         #: scrubber checks these first (cluster/scrub.py).
@@ -113,6 +119,13 @@ class Cluster:
         #: RemoteEpochTable.observe); the cross-node half of result
         #: cache stamps. None = nobody caches, skip the bookkeeping.
         self.epoch_sink = None
+        #: MigrationTable (cluster/migration.py) while a serve-through
+        #: resize is in flight, else None. The OLD ring (self.nodes)
+        #: stays authoritative for routing the whole time; this only
+        #: adds dual-apply write targets and (post-cutover) extra read
+        #: candidates. Installed by resize-begin, cleared by resize-end
+        #: / the commit / the stale-migration sweep.
+        self.migration = None
         #: node id -> in-flight read legs dispatched BY this node, the
         #: load signal the replica-aware read-spread post-pass balances
         #: on. Observed load only — no coordination with peers.
@@ -240,9 +253,21 @@ class Cluster:
             self.nodes = new_nodes
             self.topology_version = version
             self._update_state()
+        self.notify_topology()
         for nid in changed:
             self._emit(EVENT_UPDATE, nid, "MERGED")
         return changed
+
+    def notify_topology(self) -> None:
+        """Invoke the durable-topology hook (best-effort: persistence
+        failure must not fail the membership change itself)."""
+        hook = self.save_hook
+        if hook is None:
+            return
+        try:
+            hook()
+        except Exception:
+            pass
 
     def subscribe(self, listener: Callable) -> None:
         """Register a NodeEvent consumer (reference ReceiveEvent's
@@ -432,7 +457,9 @@ class Cluster:
         """Replica-aware read scaling: rebalance a fan-out's legs across
         each shard's OTHER live replica owners by observed in-flight
         load, instead of touching replicas only on failure or hedge
-        (the same owner knowledge _hedge_backup_groups uses).
+        (the same owner knowledge _hedge_backup_groups uses). Shards of
+        a mid-resize migration that already CUT OVER also admit their
+        new owner as a candidate — dual-apply keeps that copy current.
         At idle (no in-flight legs, or imbalance under the threshold)
         this is the identity, so deterministic placement is preserved
         exactly when nothing would be gained by deviating from it."""
@@ -444,6 +471,7 @@ class Cluster:
         vals = [load.get(nid, 0) for nid in live]
         if not vals or max(vals) - min(vals) < self.SPREAD_THRESHOLD:
             return groups
+        mig = self.migration
         virt = {nid: float(load.get(nid, 0)) for nid in live}
         out: dict[str, list[int]] = {}
         moves = 0
@@ -461,6 +489,13 @@ class Cluster:
                     if owner.id == self.local_id and shard in blocked:
                         continue
                     cands.append(owner.id)
+                if mig is not None and mig.is_cutover(index, shard):
+                    for t in mig.dual_targets(self, index, shard):
+                        # Live-ring members only: a joiner outside
+                        # self.nodes can't be failover-remapped, so it
+                        # never serves ordinary reads pre-commit.
+                        if t.id in live and t.id not in cands:
+                            cands.append(t.id)
                 best = min(cands, key=lambda nid: virt.get(nid, 0.0))
                 tgt = node_id
                 if (best != node_id
@@ -828,27 +863,83 @@ class Cluster:
     def write_fanout(self, idx_name: str, shard: int, c, opt,
                      local_apply: Callable[[], bool]) -> bool:
         """Apply a single-column write on every replica: locally when this
-        node owns it, forwarded otherwise. Returns changed-ness. (The JAX
-        package also dual-applies to a resize's future owners; resize is
-        not ported, so there are none.)"""
+        node owns it, forwarded otherwise. Returns changed-ness.
+
+        While a resize is in flight the write ALSO dual-applies to the
+        shard's future owners (after the old-ring replicas: the resize
+        catch-up's epoch guard relies on source-before-target apply
+        order). Dual legs never drive the return value — the old ring
+        is what the caller's read-your-write lands on."""
         ret = False
-        for node in self.shard_nodes(idx_name, shard):
-            if node.id == self.local_id:
-                if local_apply():
-                    ret = True
-            elif not opt.remote:
-                if node.state == "DOWN":
-                    # Skip lost replicas; anti-entropy repairs them on
-                    # rejoin (holder.go:911 SyncHolder) — and the
-                    # scrubber gets first crack via the dirty mark.
-                    self.stats.count("cluster.replica_write_skipped")
-                    self.dirty_shards.mark(idx_name, shard)
-                    continue
-                res = self.client.query_node(node, idx_name, str(c),
-                                             None, remote=True)
-                if res and res[0]:
-                    ret = True
+        for _attempt in range(3):
+            # Snapshot the migration table BEFORE resolving owners, and
+            # re-check topology afterwards: a resize commit landing
+            # mid-fanout would otherwise let this write apply to the
+            # old owners yet skip the dual legs (migration cleared),
+            # silently missing the committed placement's new owner.
+            # Set/Clear are idempotent, so the retry pass just
+            # re-applies under the settled topology.
+            v0 = self.topology_version
+            mig = self.migration
+            for node in self.shard_nodes(idx_name, shard):
+                if node.id == self.local_id:
+                    if local_apply():
+                        ret = True
+                elif not opt.remote:
+                    if node.state == "DOWN":
+                        # Skip lost replicas; anti-entropy repairs them on
+                        # rejoin (holder.go:911 SyncHolder) — and the
+                        # scrubber gets first crack via the dirty mark.
+                        self.stats.count("cluster.replica_write_skipped")
+                        self.dirty_shards.mark(idx_name, shard)
+                        continue
+                    res = self.client.query_node(node, idx_name, str(c),
+                                                 None, remote=True)
+                    if res and res[0]:
+                        ret = True
+            if mig is not None and not opt.remote:
+                for node in mig.dual_targets(self, idx_name, shard):
+                    try:
+                        if node.id == self.local_id:
+                            local_apply()
+                        else:
+                            known = self.node_by_id(node.id)
+                            if known is not None and known.state == "DOWN":
+                                raise ConnectionError(
+                                    f"node {node.id} is down")
+                            self.client.query_node(node, idx_name, str(c),
+                                                   None, remote=True)
+                        self.stats.count("cluster.resize.dualWrites")
+                    except (ConnectionError, RuntimeError, LookupError) as e:
+                        # The new copy just missed a write: mark for scrub
+                        # and tell the coordinator to fail this target —
+                        # committing would route reads at a diverged copy.
+                        self.dirty_shards.mark(idx_name, shard)
+                        self.stats.count("cluster.resize.dualWriteFailed")
+                        self._report_dual_write_failure(mig, node.id, e)
+            if self.topology_version == v0 and self.migration is mig:
+                break
         return ret
+
+    def _report_dual_write_failure(self, mig, node_id: str, err) -> None:
+        msg = {"type": "resize-dual-write-failed", "job": mig.job_id,
+               "node": node_id, "error": f"{type(err).__name__}: {err}"}
+        coord_id = mig.coordinator.get("id", "")
+        if coord_id == self.local_id:
+            from pilosa_tpu_torch.cluster.resize import deliver_dual_write_failed
+            deliver_dual_write_failed(msg)
+            return
+        coord = self.node_by_id(coord_id)
+        if coord is None and mig.coordinator.get("uri"):
+            coord = Node.from_json(mig.coordinator)
+        if coord is None:
+            return
+        try:
+            self.client.send_message(coord, msg)
+        except (ConnectionError, RuntimeError, LookupError):
+            pass  # coordinator unreachable: its own job will fail soon
+        # anyway (its ACK wait / begin broadcast shares the same link),
+        # and the dirty mark keeps the scrubber on this shard.
 
     def broadcast_call(self, idx_name: str, c, opt) -> None:
         """Forward an attr-write to every other node (executor.go:2237)."""

@@ -7,12 +7,12 @@ Also the template a real deployment follows: swap LocalClient for the
 HTTP client and each ClusterNode becomes one host's server process.
 
 The port's copy of pilosa_tpu/cluster/harness.py: ``ClusterNode`` and
-``LocalCluster`` with the schema and availability messages, index-dirty
-broadcasts, failover, partitions and the liveness sweep. Nodes hold their
-data on ``device`` (the card by default; the tests pass ``"cpu"``).
-Resize (``add_node``, ``remove_node``, the resize messages) and data dirs
-answer ``NotPortedError`` (ROADMAP.md Queue 1: cluster and operations), as
-do keys on a cluster (the executor's).
+``LocalCluster`` with the schema, availability, index-dirty, resize and
+topology messages, failover, partitions, the liveness sweep, data dirs
+(``data_dirs``/``store_factory``), the serve-through resize
+(``add_node``/``remove_node``), anti-entropy and scrub handlers, and
+coordinator-primary keys (``sync_translation``). Nodes hold their data on
+``device`` (the card by default; the tests pass ``"cpu"``).
 """
 
 from __future__ import annotations
@@ -25,7 +25,6 @@ from pilosa_tpu_torch.cluster.node import URI, Node
 from pilosa_tpu_torch.core.field import FieldOptions
 from pilosa_tpu_torch.core.holder import Holder
 from pilosa_tpu_torch.core.index import IndexOptions
-from pilosa_tpu_torch.errors import SLICE_CLUSTER, NotPortedError
 from pilosa_tpu_torch.exec.executor import ExecOptions, Executor
 
 
@@ -69,8 +68,6 @@ class ClusterNode:
     def __init__(self, node_id: str, cluster: Cluster, planner=None,
                  data_dir: str | None = None, store_factory=None,
                  device=None):
-        if data_dir is not None:
-            raise NotPortedError("a cluster node with a data dir", SLICE_CLUSTER)
         self.id = node_id
         from pilosa_tpu_torch.cluster.dirty import DirtyBroadcaster
         self.dirty = DirtyBroadcaster(cluster)
@@ -88,8 +85,29 @@ class ClusterNode:
         # cache stamps). The sink lives on the per-node Cluster because
         # the LocalClient transport is SHARED across harness nodes.
         cluster.epoch_sink = self.executor.remote_epochs.observe
+        from pilosa_tpu_torch.cluster.translate_sync import ClusterKeyTranslator
+        self.translator = ClusterKeyTranslator(self.holder, cluster,
+                                               cluster.client)
+        self.executor.translator = self.translator
+        #: optional durability, exactly like a server process: open the
+        #: store (reload + integrity verification), route quarantined
+        #: shards to replicas, and give the coordinator the blocked-
+        #: shard view. store_factory lets tests swap FaultyDiskStore in.
         self.store = None
         self.scrubber = None
+        if data_dir is not None:
+            from pilosa_tpu_torch.cluster.scrub import (
+                Scrubber,
+                route_quarantined_to_replicas,
+            )
+            from pilosa_tpu_torch.storage.diskstore import DiskStore
+            factory = store_factory or DiskStore
+            self.store = factory(data_dir, self.holder)
+            self.store.open()
+            cluster.blocked_shards_fn = self.store.quarantine.blocked_shards
+            route_quarantined_to_replicas(self.holder, cluster, self.store)
+            self.scrubber = Scrubber(self.holder, cluster, cluster.client,
+                                     self.store)
 
     def _broadcast_shard(self, index: str, field: str, view: str, shard: int):
         msg = {"type": "create-shard", "index": index, "field": field,
@@ -104,14 +122,46 @@ class ClusterNode:
 
     def handle_message(self, message: dict) -> None:
         t = message.get("type")
-        if t == "index-dirty":
+        if t == "resize-instruction":
+            from pilosa_tpu_torch.cluster.resize import handle_resize_instruction
+            handle_resize_instruction(self.holder, self.cluster.client,
+                                      self.cluster, message, self.id)
+        elif t == "resize-instruction-complete":
+            from pilosa_tpu_torch.cluster.resize import deliver_completion
+            deliver_completion(message)
+        elif t == "index-dirty":
             if not self.cluster.check_fencing_token(message):
                 return  # stale coordinator's dirty coordination
             from pilosa_tpu_torch.cluster.dirty import apply_index_dirty
             apply_index_dirty(self.holder, message,
                               self.executor.remote_epochs)
-        elif t.startswith("resize-") or t in ("cluster-status", "cluster-state"):
-            raise NotPortedError(f"the {t!r} message", SLICE_CLUSTER)
+        elif t == "cluster-status":
+            from pilosa_tpu_torch.cluster.cleaner import clean_holder
+            from pilosa_tpu_torch.cluster.resize import apply_cluster_status
+            apply_cluster_status(self.cluster, message["nodes"],
+                                 holder=self.holder,
+                                 availability=message.get("availability"),
+                                 version=message.get("version"))
+            clean_holder(self.holder, self.cluster)
+        elif t == "cluster-state":
+            from pilosa_tpu_torch.cluster.resize import apply_cluster_state
+            apply_cluster_state(self.cluster, message["state"])
+        elif t == "resize-begin":
+            from pilosa_tpu_torch.cluster.resize import apply_resize_begin
+            apply_resize_begin(self.cluster, message)
+        elif t == "resize-end":
+            from pilosa_tpu_torch.cluster.resize import apply_resize_end
+            apply_resize_end(self.cluster, message)
+        elif t == "resize-push":
+            from pilosa_tpu_torch.cluster.resize import handle_resize_push
+            return handle_resize_push(self.holder, self.cluster.client,
+                                      self.cluster, message)
+        elif t == "resize-shard-cutover":
+            from pilosa_tpu_torch.cluster.resize import deliver_cutover
+            deliver_cutover(message, self.cluster)
+        elif t == "resize-dual-write-failed":
+            from pilosa_tpu_torch.cluster.resize import deliver_dual_write_failed
+            deliver_dual_write_failed(message)
         else:
             handle_cluster_message(self.holder, message)
 
@@ -150,12 +200,58 @@ class ClusterNode:
             epochs = idx.epoch.shard_vector(shards)
         return self.handle_query(index, query, shards, remote), epochs
 
+    def handle_fragment_blocks(self, index, field, view, shard):
+        frag = self.holder.fragment(index, field, view, shard)
+        return frag.checksum_blocks() if frag else {}
+
+    def handle_fragment_block_data(self, index, field, view, shard, block):
+        frag = self.holder.fragment(index, field, view, shard)
+        if frag is None:
+            import numpy as np
+            return np.empty(0, np.uint64), np.empty(0, np.uint64)
+        return frag.block_data(block)
+
+    def handle_import(self, index, field, view, shard, rows, cols,
+                      clear=False):
+        f = self.holder.field(index, field)
+        if f is None:
+            # Schema drift must surface, not silently drop repair data.
+            raise LookupError(f"field not found: {index}/{field}")
+        v = f.create_view_if_not_exists(view)
+        frag = v.create_fragment_if_not_exists(shard)
+        frag.bulk_import(rows, cols, clear=clear)
+
     def handle_import_roaring(self, index, field, shard, data: bytes,
                               clear=False):
         f = self.holder.field(index, field)
         if f is None:
             raise LookupError(f"field not found: {index}/{field}")
         f.import_roaring(shard, data, clear=clear)
+
+    def handle_import_stream(self, reqs: list[dict]) -> int:
+        """In-process PTS1 stream: apply each bounded request in order,
+        returning the applied count (the HTTP wire's applied-prefix
+        contract, so a killed stream resumes where it stopped).
+        kind="fragment" requests target one specific fragment (resize
+        migration); field-kind requests take the same path as
+        send_import so stream and unary imports are equivalent."""
+        applied = 0
+        for r in reqs:
+            if r.get("kind") == "fragment" or "view" in r:
+                self.handle_import(r["index"], r["field"], r["view"],
+                                   r["shard"], r["rowIDs"], r["columnIDs"],
+                                   clear=bool(r.get("clear")))
+            else:
+                self.handle_import_request(
+                    r["index"], r["field"], rows=r.get("rowIDs"),
+                    cols=r.get("columnIDs"), values=r.get("values"),
+                    timestamps=r.get("timestamps"),
+                    clear=bool(r.get("clear")))
+            applied += 1
+        return applied
+
+    def handle_schema(self):
+        return self.holder.schema()
 
     def handle_nodes(self):
         return {"version": self.cluster.topology_version,
@@ -165,6 +261,33 @@ class ClusterNode:
     def apply_schema(self, schema) -> None:
         self.holder.apply_schema(schema)
 
+    def handle_translate_keys(self, index, field, keys) -> list[int]:
+        """Coordinator-side allocation (http/translator.go analog); the
+        translator short-circuits to local stores on the coordinator."""
+        return self.translator(index, field, list(keys))
+
+    def handle_translate_entries(self, index, field, after_id):
+        from pilosa_tpu_torch.cluster.translate_sync import translate_entries
+        return translate_entries(self.holder, index, field, after_id)
+
+    def _attr_store(self, index, field):
+        idx = self.holder.index(index)
+        if idx is None:
+            raise LookupError(f"index not found: {index!r}")
+        if field is None:
+            return idx.column_attr_store
+        f = idx.field(field)
+        if f is None:
+            raise LookupError(f"field not found: {index}/{field}")
+        return f.row_attr_store
+
+    def handle_attr_blocks(self, index, field):
+        return self._attr_store(index, field).blocks()
+
+    def handle_attr_block_data(self, index, field, block):
+        return self._attr_store(index, field).block_data(block)
+
+
 class LocalCluster:
     """N in-process nodes sharing a LocalClient transport."""
 
@@ -172,6 +295,10 @@ class LocalCluster:
                  data_dirs: list[str | None] | None = None,
                  store_factory=None, device=None):
         self.client = LocalClient()
+        #: what ``add_node`` gives a joiner: the members' device and planner
+        #: factory.
+        self.device = device
+        self.planner_factory = planner_factory
         nodes = [Node(id=f"node{i}", uri=URI(host="localhost", port=10101 + i),
                       is_coordinator=(i == 0))
                  for i in range(n)]
@@ -217,12 +344,72 @@ class LocalCluster:
         result cache (benchmarking the cold path)."""
         return self.nodes[node].executor.execute(index, query, cache=cache)
 
+    def sync_translation(self) -> int:
+        """Run the replica entry-stream pull on every node (the
+        anti-entropy translation step); returns entries applied."""
+        from pilosa_tpu_torch.cluster.translate_sync import sync_translation
+        return sum(sync_translation(cn.holder, cn.cluster, self.client)
+                   for cn in self.nodes)
+
     def add_node(self, node_id: str | None = None,
                  coordinator: int = 0) -> "ClusterNode":
-        raise NotPortedError("a cluster resize", SLICE_CLUSTER)
+        """Grow the ring by one node through the serve-through resize:
+        boot a fresh in-process member (empty holder, STARTING joiner
+        view of the current ring + itself), register it on the shared
+        transport, and run a ResizeJob from ``coordinator``. Raises if
+        the job does not commit. The chaos soak's act_add_node and the
+        elasticity drills drive this."""
+        from pilosa_tpu_torch.cluster.cluster import STATE_STARTING
+        from pilosa_tpu_torch.cluster.resize import ResizeJob
+        coord = self.nodes[coordinator]
+        if node_id is None:
+            taken = {cn.id for cn in self.nodes}
+            i = len(self.nodes)
+            while f"node{i}" in taken:
+                i += 1
+            node_id = f"node{i}"
+        new_member = Node(id=node_id,
+                          uri=URI(host="localhost",
+                                  port=10101 + len(self.nodes) + 90))
+        member_list = [Node(id=n.id, uri=n.uri,
+                            is_coordinator=n.is_coordinator)
+                       for n in coord.cluster.nodes]
+        c = Cluster(node_id, member_list + [new_member],
+                    replica_n=coord.cluster.replica_n,
+                    client=self.client.bind(node_id))
+        c.set_state(STATE_STARTING)
+        planner = (self.planner_factory(len(self.nodes))
+                   if self.planner_factory else None)
+        cn = ClusterNode(node_id, c, planner=planner, device=self.device)
+        cn.apply_schema(coord.holder.schema())
+        self.client.register(node_id, cn)
+        self.nodes.append(cn)
+        job = ResizeJob(coord.cluster, coord.holder, coord.cluster.client)
+        state = job.run([Node(id=n.id, uri=n.uri,
+                              is_coordinator=n.is_coordinator)
+                         for n in coord.cluster.nodes] + [new_member])
+        if state != "DONE":
+            self.nodes.remove(cn)
+            self.client.peers.pop(node_id, None)
+            raise RuntimeError(f"add_node resize ended {state}")
+        return cn
 
     def remove_node(self, node_id: str, coordinator: int = 0) -> None:
-        raise NotPortedError("a cluster resize", SLICE_CLUSTER)
+        """Shrink the ring by one member via the serve-through resize
+        (operator remove-node flow); raises if the job does not
+        commit. The departed ClusterNode stays registered but is
+        dropped from self.nodes."""
+        from pilosa_tpu_torch.cluster.resize import ResizeJob
+        coord = self.nodes[coordinator]
+        keep = [Node(id=n.id, uri=n.uri, is_coordinator=n.is_coordinator)
+                for n in coord.cluster.nodes if n.id != node_id]
+        if len(keep) == len(coord.cluster.nodes):
+            raise LookupError(f"{node_id} not in ring")
+        job = ResizeJob(coord.cluster, coord.holder, coord.cluster.client)
+        state = job.run(keep)
+        if state != "DONE":
+            raise RuntimeError(f"remove_node resize ended {state}")
+        self.nodes = [cn for cn in self.nodes if cn.id != node_id]
 
     def down(self, node_id: str) -> None:
         """Fault injection: the pumba 'pause container' analog

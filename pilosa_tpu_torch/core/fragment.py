@@ -35,7 +35,12 @@ import numpy as np
 import torch
 
 from pilosa_tpu_torch import native
-from pilosa_tpu_torch.config import DEFAULT_CACHE_SIZE, SHARD_WIDTH, WORDS_PER_SHARD
+from pilosa_tpu_torch.config import (
+    DEFAULT_CACHE_SIZE,
+    HASH_BLOCK_SIZE,
+    SHARD_WIDTH,
+    WORDS_PER_SHARD,
+)
 from pilosa_tpu_torch.core.hostrow import HostRow
 from pilosa_tpu_torch.core.row import Row
 from pilosa_tpu_torch.errors import QueryError
@@ -106,6 +111,9 @@ class Fragment:
         #: Every mutation moves the generation, so no bulk path can leave
         #: it stale.
         self._col_vec: tuple | None = None
+        #: generation-stamped (gen, block rows, digests) -- see
+        #: checksum_blocks().
+        self._checksums: tuple | None = None
         self._lock = threading.RLock()
         # device caches: row_id -> (gen, Tensor[W]); key -> (gen, ids, Tensor[n, W])
         self._dev_rows: dict[int, tuple[int, torch.Tensor]] = {}
@@ -444,6 +452,11 @@ class Fragment:
         rows = positions // np.uint64(SHARD_WIDTH)
         cols = positions % np.uint64(SHARD_WIDTH) + np.uint64(self.shard * SHARD_WIDTH)
         return self.bulk_import(rows, cols, clear=clear)
+
+    #: bit budget per streamed transfer chunk (~8 MB of positions): the
+    #: resize migration streamer slices rows_snapshot into PTS1 import
+    #: requests of at most this many (row, col) pairs.
+    TRANSFER_CHUNK_BITS = 1 << 20
 
     def to_roaring(self) -> bytes:
         """Every bit of the fragment in the reference's pos-encoded
@@ -1078,6 +1091,56 @@ class Fragment:
         if n > 0:
             pairs = pairs[:n]
         return pairs
+
+    # -- anti-entropy checksums -------------------------------------------
+
+    def checksum_blocks(self, block_rows: int = HASH_BLOCK_SIZE) -> dict[int, bytes]:
+        """Block id -> content hash over ``block_rows``-row blocks
+        (reference Blocks/Checksum fragment.go:1762-1841), the replica-repair
+        sync protocol's digests: blake2b-16 over each non-empty row framed
+        as (row id, bit count, positions), all uint64, so distinct row
+        partitions of the same positions cannot collide. Byte-equal to the
+        JAX fragment's on the same bits. Kept until the fragment's
+        generation moves: every anti-entropy tick asks for the digests of
+        each owned fragment, and each replica answers the same request for
+        its copy."""
+        import hashlib
+        with self._lock:
+            hit = self._checksums
+            if hit is not None and hit[:2] == (self.generation, block_rows):
+                return dict(hit[2])
+            gen = self.generation
+            snap = self.rows_snapshot()
+        blocks: dict[int, "hashlib._Hash"] = {}
+        for rid, pos in snap:
+            if len(pos) == 0:
+                continue
+            b = rid // block_rows
+            h = blocks.get(b)
+            if h is None:
+                h = blocks[b] = hashlib.blake2b(digest_size=16)
+            h.update(np.uint64(rid).tobytes())
+            h.update(np.uint64(len(pos)).tobytes())
+            h.update(np.asarray(pos, dtype=np.uint64).tobytes())
+        digests = {b: h.digest() for b, h in blocks.items()}
+        with self._lock:
+            if self.generation == gen:
+                self._checksums = (gen, block_rows, digests)
+        return dict(digests)
+
+    def block_data(self, block: int, block_rows: int = HASH_BLOCK_SIZE) -> tuple[np.ndarray, np.ndarray]:
+        """(row_ids, column_ids), uint64 and absolute, of every bit in one
+        checksum block."""
+        rows_out, cols_out = [], []
+        base = np.uint64(self.shard * SHARD_WIDTH)
+        for rid, pos in self.rows_snapshot():
+            if rid // block_rows != block:
+                continue
+            rows_out.append(np.full(len(pos), rid, dtype=np.uint64))
+            cols_out.append(np.asarray(pos, dtype=np.uint64) + base)
+        if not rows_out:
+            return np.empty(0, np.uint64), np.empty(0, np.uint64)
+        return np.concatenate(rows_out), np.concatenate(cols_out)
 
     # -- stats -------------------------------------------------------------
 

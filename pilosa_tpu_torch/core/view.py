@@ -85,6 +85,17 @@ class View:
     def available_shards(self) -> set[int]:
         return set(self.fragments)
 
+    def delete_fragment(self, shard: int) -> bool:
+        """Drop a fragment this node no longer owns (holderCleaner,
+        holder.go:1126). In-flight queries holding the object finish on the
+        orphan; new lookups miss, and the epoch bump with the shard drops
+        every cached stack and result that read it."""
+        with self._lock:
+            gone = self.fragments.pop(shard, None) is not None
+        if gone and self.epoch is not None:
+            self.epoch.bump(shard=shard, notify=False)
+        return gone
+
     def set_bit(self, row_id: int, column_id: int) -> bool:
         frag = self.create_fragment_if_not_exists(column_id // SHARD_WIDTH)
         return frag.set_bit(row_id, column_id)

@@ -51,8 +51,10 @@ here and sends the rest to their owners as remote legs; a remote leg
 TopN's first-pass pairs, a sketch's registers -- for the coordinator to
 fold, and bitmap legs fold on the device (``exec/device_reduce``). Writes
 go to every replica through ``Cluster.write_fanout``, attrs to every node
-through ``broadcast_call``. Keys on a cluster need the coordinator's
-translate sync, which is not ported: they raise ``NotPortedError``.
+through ``broadcast_call``. Keys on a cluster resolve through
+``translator`` (``cluster.translate_sync.ClusterKeyTranslator``): the
+coordinator is the one id authority, and a replica serves what it has
+synced before it asks the coordinator for the rest.
 
 The active deadline (``qos.deadline``, set by the HTTP edge) is checked
 between the query's calls and before each shard or shard batch, as in the
@@ -84,11 +86,9 @@ from pilosa_tpu_torch.core.index import Index
 from pilosa_tpu_torch.core.row import Row
 from pilosa_tpu_torch.core.view import VIEW_STANDARD, view_bsi_name
 from pilosa_tpu_torch.errors import (
-    SLICE_CLUSTER,
     BSIGroupNotFoundError,
     FieldNotFoundError,
     IndexNotFoundError,
-    NotPortedError,
     QueryError,
 )
 from pilosa_tpu_torch import sketch as _sketch
@@ -161,6 +161,10 @@ class Executor:
         self.planner = planner
         #: cluster hooks (pilosa_tpu_torch.cluster); None = standalone node.
         self.cluster = cluster
+        #: cluster key-allocation hook, (index, field or None, keys) -> ids
+        #: (cluster.translate_sync.ClusterKeyTranslator); None allocates in
+        #: the local stores.
+        self.translator = None
         #: device key planes (exec/keyplane): read-through forward
         #: translation for large key batches; the tensors live in the
         #: planner's budgeted stack cache when a planner is attached.
@@ -1722,23 +1726,28 @@ class Executor:
     def _resolve_keys(self, idx: Index, f, keys: list[str]) -> list[int]:
         """Batched key -> id resolution, the one forward-translate path:
         the device key plane first (exec/keyplane -- no lock, no
-        allocation), then ONE batched host pass over the misses through the
+        allocation), then ONE batched host pass over the misses: the
+        cluster translator when set (the coordinator is the sole id
+        authority; a replica's translator serves its synced local snapshot
+        before it batches the remaining misses into one RPC), else the
         store's ``translate_keys`` (one lock acquisition, one epoch bump for
         the whole batch). Plane misses are re-checked under the store lock
         before any allocation, so a stale plane costs a host fallback,
         never a duplicate id."""
-        if self.cluster is not None:
-            # The coordinator is a cluster's id authority, and replicas
-            # pull from it (cluster/translate_sync.py): not ported.
-            raise NotPortedError("keys on a cluster", SLICE_CLUSTER)
         fname = f.name if f is not None else None
         store = (f if f is not None else idx).translate_store
         ids = self.keyplanes.lookup(idx, fname, store, keys)
         if ids is None:
+            if self.translator is not None:
+                return self.translator(idx.name, fname, list(keys))
             return store.translate_keys(keys)
         missing = [i for i, v in enumerate(ids) if v is None]
         if missing:
-            got = store.translate_keys([keys[i] for i in missing])
+            sub = [keys[i] for i in missing]
+            if self.translator is not None:
+                got = self.translator(idx.name, fname, sub)
+            else:
+                got = store.translate_keys(sub)
             for i, v in zip(missing, got):
                 ids[i] = v
         return ids

@@ -15,11 +15,12 @@ at once, so the WAL records of a node killed before its first flush are
 found again at boot (the JAX node writes the schema only when it flushes
 or deletes: ROADMAP.md Queue 3); deleting an index, field or view
 unlinks its files too. Imports by row and column keys allocate their ids
-in the index's and field's translate stores, one batch each, and
-``translate_keys``/``translate_entries`` serve the key routes; keys on a
-cluster need translate sync and raise ``NotPortedError``, as do a resize's
-dual writes and fragment block sync (ROADMAP.md Queue 1: cluster and
-operations).
+in the index's and field's translate stores, one batch each (on a
+cluster through ``translator``, the coordinator allocating), and
+``translate_keys``/``translate_entries`` serve the key routes. While a
+resize runs, imports also go to each shard's future owners (the migration
+table's dual writes), and routed imports ship to each peer as one PTS1
+import stream.
 """
 
 from __future__ import annotations
@@ -43,12 +44,10 @@ from pilosa_tpu_torch.core.index import IndexOptions
 from pilosa_tpu_torch.core.row import Row
 from pilosa_tpu_torch.core.view import VIEW_STANDARD
 from pilosa_tpu_torch.errors import (
-    SLICE_CLUSTER,
     ApiMethodNotAllowedError,
     ClusterFencedError,
     FieldNotFoundError,
     FragmentNotFoundError,
-    NotPortedError,
 )
 from pilosa_tpu_torch.exec.executor import ExecOptions, Executor
 from pilosa_tpu_torch.exec.result import result_to_json
@@ -62,6 +61,19 @@ class API:
         self.holder = holder
         self.executor = executor
         self.cluster = cluster
+        #: cluster key-allocation hook: (index, field or None, keys) -> ids
+        #: (ClusterKeyTranslator); None allocates locally.
+        self.translator = None
+        #: the running or last ResizeJob (GET /debug/resize), and the
+        #: node's resize entry point (action, node_id=, addr=) -> state.
+        self.resize_job = None
+        self.resize_handler = None
+        #: the /internal/import-stream byte budget (qos.IngestGate), or None.
+        self.ingest_gate = None
+        #: chaos hooks: per-query latency injected by POST /internal/fault,
+        #: a route mounted only when ``chaos_faults`` is set.
+        self.fault_slow_s = 0.0
+        self.chaos_faults = False
         #: the node's storage.DiskStore, or None without a data dir.
         self.store = None
         #: this server's own ring entry (cluster.node.Node), set by
@@ -90,8 +102,8 @@ class API:
     def _validate(self, method: str, internal: bool = False) -> None:
         """The JAX API's state gate (api.py:69-120): a fenced node refuses
         client traffic (internal traffic is how the fence heals); outside
-        NORMAL and DEGRADED only internal reads and, while RESIZING, the
-        resize methods pass."""
+        NORMAL and DEGRADED only internal reads, while RESIZING the resize
+        methods, and under a migration table the imports pass."""
         if self.cluster is None:
             return  # standalone node: always NORMAL
         if self.cluster.fenced and not internal:
@@ -109,6 +121,13 @@ class API:
             # this node's fragments are still their replica copies.
             return
         if state == STATE_RESIZING and method in self._METHODS_RESIZING:
+            return
+        if (method in ("import", "import-value", "import-roaring")
+                and self.cluster.migration is not None
+                and state != STATE_REMOVED):
+            # A joiner sits in STARTING, but the migration table from
+            # resize-begin is the coordinator's grant to receive the
+            # dual writes and the bulk stream of the shards it will own.
             return
         raise ApiMethodNotAllowedError(
             f"api method {method} not allowed in state {state}")
@@ -322,8 +341,9 @@ class API:
         """Group by shard and send each batch to every owning node
         (api.go:967-1030; the JAX API's ``_route_import``): a stable
         argsort and a boundary scan split the batch, local batches apply
-        here, and each remote one goes as a binary ``/internal/import``
-        request carrying epoch-second timestamps."""
+        here, and each peer's batches go as one PTS1 import stream (one
+        binary ``/internal/import`` request for a single batch), carrying
+        epoch-second timestamps."""
         n = len(column_ids)
         if n == 0:
             return
@@ -341,27 +361,95 @@ class API:
             # datetime64 stamps -> epoch seconds (None for NaT) on the wire.
             secs = ts.astype("datetime64[s]").astype(np.int64).tolist()
             epoch = [None if nat else s for s, nat in zip(secs, np.isnat(ts).tolist())]
+        for _attempt in range(3):
+            if self._route_import_pass(index, field, f, ts, clear, values, order,
+                                       sorted_shards, starts, ends, cols_arr,
+                                       rows_arr, vals_arr, epoch):
+                return
+        # The topology kept moving across every pass; the last idempotent
+        # pass still applied under some complete placement and marked
+        # dirty shards for the scrubber.
+
+    def _route_import_pass(self, index, field, f, ts, clear, values, order,
+                           sorted_shards, starts, ends, cols_arr, rows_arr,
+                           vals_arr, epoch) -> bool:
+        """One routing pass (the JAX API's ``_route_import_pass``); True when
+        the topology held still through it. A resize commit landing
+        mid-pass could strand a shard batch on the old owners with no dual
+        leg (the commit clears the migration table), so the caller applies
+        again -- imports are idempotent -- until owners and table were
+        stable. Each peer's batches go out as one PTS1 import stream."""
+        v0 = self.cluster.topology_version
+        mig = self.cluster.migration
+        remote: dict[str, tuple[Any, list[dict]]] = {}
+        dual: dict[str, tuple[Any, list[dict]]] = {}
+
+        def apply_local(sel, cols, rows_b, vals_b):
+            if values is None:
+                f.import_bits(rows_b, cols, ts[sel] if ts is not None else None,
+                              clear=clear)
+            else:
+                f.import_values(cols, vals_b, clear=clear)
+
         for s, e in zip(starts.tolist(), ends.tolist()):
             shard = int(sorted_shards[s])
             sel = order[s:e]
             cols = cols_arr[sel]
             rows_b = rows_arr[sel] if rows_arr is not None else None
             vals_b = vals_arr[sel] if vals_arr is not None else None
+            req = {"kind": "field", "index": index, "field": field, "shard": shard,
+                   "rowIDs": rows_b, "columnIDs": cols, "values": vals_b,
+                   "clear": clear}
+            if epoch is not None:
+                req["timestamps"] = [epoch[i] for i in sel.tolist()]
             for node in self.cluster.shard_nodes(index, shard):
                 if node.id == self.cluster.local_id:
-                    if values is None:
-                        f.import_bits(rows_b, cols,
-                                      ts[sel] if ts is not None else None,
-                                      clear=clear)
-                    else:
-                        f.import_values(cols, vals_b, clear=clear)
+                    apply_local(sel, cols, rows_b, vals_b)
                 else:
-                    self.cluster.client.send_import(
-                        node, index, field, shard, rows=rows_b, cols=cols,
-                        values=vals_b,
-                        timestamps=([epoch[i] for i in sel.tolist()]
-                                    if epoch is not None else None),
-                        clear=clear)
+                    remote.setdefault(node.id, (node, []))[1].append(req)
+            if mig is not None:
+                # Serve-through resize: mirror each shard batch to the
+                # shard's future owners, after its old owners above (the
+                # catch-up's epoch guard relies on that order).
+                for node in mig.dual_targets(self.cluster, index, shard):
+                    if node.id != self.cluster.local_id:
+                        dual.setdefault(node.id, (node, []))[1].append(req)
+                        continue
+                    try:  # a shrink: this node gains the shard
+                        apply_local(sel, cols, rows_b, vals_b)
+                        self.cluster.stats.count("cluster.resize.dualWrites")
+                    except (RuntimeError, LookupError, ValueError) as ex:
+                        self.cluster.dirty_shards.mark(index, shard)
+                        self.cluster.stats.count("cluster.resize.dualWriteFailed")
+                        self.cluster._report_dual_write_failure(mig, node.id, ex)
+
+        def ship(node, reqs):
+            if len(reqs) > 1:
+                self.cluster.client.send_import_stream(node, reqs)
+                return
+            for r in reqs:
+                self.cluster.client.send_import(
+                    node, index, field, r["shard"], rows=r["rowIDs"],
+                    cols=r["columnIDs"], values=r["values"],
+                    timestamps=r.get("timestamps"), clear=clear)
+
+        for node, reqs in remote.values():
+            ship(node, reqs)
+        for node, reqs in dual.values():
+            # A dual leg never fails the user's import: the old ring's
+            # writes above landed, so a target's failure is the target's
+            # problem -- dirty-mark for the scrubber and tell the
+            # coordinator to fail it out of the job.
+            try:
+                ship(node, reqs)
+                self.cluster.stats.count("cluster.resize.dualWrites", len(reqs))
+            except (ConnectionError, RuntimeError, LookupError) as ex:
+                for r in reqs:
+                    self.cluster.dirty_shards.mark(index, r["shard"])
+                self.cluster.stats.count("cluster.resize.dualWriteFailed")
+                self.cluster._report_dual_write_failure(mig, node.id, ex)
+        return (self.cluster.topology_version == v0
+                and self.cluster.migration is mig)
 
     def import_roaring(self, index: str, field: str, shard: int,
                        data: bytes, clear: bool = False) -> None:
@@ -375,24 +463,47 @@ class API:
         if self.cluster is None:
             f.import_roaring(shard, data, clear=clear)
             return
-        for node in self.cluster.shard_nodes(index, shard):
-            if node.id == self.cluster.local_id:
-                f.import_roaring(shard, data, clear=clear)
-            else:
-                self.cluster.client.send_import_roaring(node, index, field,
-                                                        shard, data, clear)
+        for _attempt in range(3):
+            # The routed import's mid-commit guard: snapshot the migration
+            # table before resolving owners, and apply again (the roaring
+            # import is idempotent) if a resize moved the topology under
+            # this fan-out.
+            v0 = self.cluster.topology_version
+            mig = self.cluster.migration
+            for node in self.cluster.shard_nodes(index, shard):
+                if node.id == self.cluster.local_id:
+                    f.import_roaring(shard, data, clear=clear)
+                else:
+                    self.cluster.client.send_import_roaring(node, index, field,
+                                                            shard, data, clear)
+            for node in (mig.dual_targets(self.cluster, index, shard)
+                         if mig is not None else ()):
+                try:
+                    if node.id == self.cluster.local_id:
+                        f.import_roaring(shard, data, clear=clear)
+                    else:
+                        self.cluster.client.send_import_roaring(
+                            node, index, field, shard, data, clear)
+                    self.cluster.stats.count("cluster.resize.dualWrites")
+                except (ConnectionError, RuntimeError, LookupError, ValueError) as ex:
+                    self.cluster.dirty_shards.mark(index, shard)
+                    self.cluster.stats.count("cluster.resize.dualWriteFailed")
+                    self.cluster._report_dual_write_failure(mig, node.id, ex)
+            if self.cluster.topology_version == v0 and self.cluster.migration is mig:
+                return
 
     # -- export (api.go:500) -----------------------------------------------
 
     def _xlate_keys(self, idx, f, keys: Iterable[str]) -> list[int]:
         """Ids of ``keys`` in the field's (or, for None, the index's)
         translate store, allocated where new: one lock, one epoch bump for
-        the batch. A cluster's coordinator allocates for every node
-        (translate sync), which is not ported."""
-        if self.cluster is not None:
-            raise NotPortedError("keys on a cluster", SLICE_CLUSTER)
+        the batch. On a cluster the translator sends them to the
+        coordinator, which allocates for every node."""
+        keys = list(keys)
+        if self.translator is not None:
+            return self.translator(idx.name, f.name if f is not None else None, keys)
         store = (f if f is not None else idx).translate_store
-        return store.translate_keys(list(keys))
+        return store.translate_keys(keys)
 
     def export_csv(self, index: str, field: str, shard: int) -> str:
         """CSV of row,col for one shard, keys in place of the ids of a keyed
@@ -492,6 +603,20 @@ class API:
                 raise FieldNotFoundError()
             return f.translate_store.entries_since(after_id)
         return idx.translate_store.entries_since(after_id)
+
+    def fragment_blocks(self, index, field, view, shard) -> dict[int, bytes]:
+        """One fragment's anti-entropy block checksums."""
+        frag = self.holder.fragment(index, field, view, shard)
+        if frag is None:
+            raise FragmentNotFoundError()
+        return frag.checksum_blocks()
+
+    def fragment_block_data(self, index, field, view, shard, block):
+        """(row ids, column ids) of one checksum block of a fragment."""
+        frag = self.holder.fragment(index, field, view, shard)
+        if frag is None:
+            raise FragmentNotFoundError()
+        return frag.block_data(block)
 
     def _attr_store(self, index: str, field: str | None):
         """Column attrs (field=None) or a field's row attrs (reference

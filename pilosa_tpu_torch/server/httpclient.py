@@ -24,11 +24,9 @@ failed probe also bumps the peer's pool epoch, closing its idle
 connections and preventing in-flight ones from being returned.
 
 The port's copy of pilosa_tpu/server/httpclient.py, with the PTM1 peer
-channel and TLS client options. Row legs decode onto the client's
-``device`` (the node's holder device). Not ported yet (ROADMAP.md Queue 1:
-cluster and operations): the PTS1 import stream (routed imports go as
-one ``/internal/import`` request a shard batch) and chaos partition
-faults.
+channel, TLS client options, the PTS1 import stream, the anti-entropy
+and key-translation RPCs, and chaos partition faults. Row legs decode onto
+the client's ``device`` (the node's holder device).
 """
 
 from __future__ import annotations
@@ -90,6 +88,19 @@ _STALE_CONN_ERRORS = (http.client.RemoteDisconnected,
                       http.client.CannotSendRequest,
                       ConnectionResetError,
                       BrokenPipeError)
+
+
+class _RewindableChunks:
+    """Iterable-only body: http.client sees no length and sends chunked
+    transfer-encoding. Unlike a generator, iteration restarts from the
+    top, so _http's one stale-connection retry re-sends the whole
+    stream instead of a truncated tail."""
+
+    def __init__(self, chunks: list[bytes]):
+        self._chunks = chunks
+
+    def __iter__(self):
+        return iter(self._chunks)
 
 
 class _ConnPool:
@@ -294,6 +305,14 @@ class HTTPInternalClient:
         self._channels: dict[str, _PeerChannel] = {}
         self._channels_lock = threading.Lock()
         self._mux_unsupported: set[str] = set()
+        #: Peers that rejected the PTS1 import stream (older version);
+        #: they get per-batch /internal/import requests instead.
+        self._stream_unsupported: set[str] = set()
+        #: Optional PartitionFaults (cluster.faults): chaos-injected
+        #: outbound link cuts, consulted before any wire traffic so a
+        #: drill's "partition" behaves like the network it models —
+        #: drop fails the dial, timeout burns the delay first.
+        self.faults = None
         self._leg_local = threading.local()
         # Verification policy (reference tls.skip-verify,
         # server/config.go): with a CA bundle, verify by default; the
@@ -310,6 +329,19 @@ class HTTPInternalClient:
 
     def _url(self, node: Node, path: str) -> str:
         return f"{node.uri}{path}"
+
+    def _check_fault(self, node: Node) -> None:
+        """Injected-partition gate: raise ConnectionError (feeding the
+        breaker, like any real connection failure) when the link to
+        this peer is faulted."""
+        if self.faults is None:
+            return
+        try:
+            self.faults.check(node.id)
+        except ConnectionError:
+            if self.breakers is not None:
+                self.breakers.record_failure(node.id)
+            raise
 
     def _ctx(self, url: str):
         """SSL context for https peers. Plain http gets None."""
@@ -418,6 +450,7 @@ class HTTPInternalClient:
         """
         if self.breakers is not None:
             self.breakers.check(node.id)
+        self._check_fault(node)
         attempt = 0
         try:
             while True:
@@ -600,6 +633,12 @@ class HTTPInternalClient:
         try:
             if self.breakers is not None:
                 self.breakers.check(node.id)
+            try:
+                self._check_fault(node)
+            except ConnectionError as err:
+                for leg in batch:
+                    leg.error = err
+                return
             body = wire.encode_mux_request([leg.to_json() for leg in batch])
             # The envelope waits for its slowest leg: socket timeout is
             # the largest per-leg budget (deadline-capped by callers).
@@ -782,6 +821,30 @@ class HTTPInternalClient:
         return ([wire.decode_result(r) for r in resp["results"]],
                 _epoch_vector(resp.get("shardEpochs")))
 
+    def fragment_blocks(self, node, index, field, view, shard):
+        resp = self._request(
+            node, "GET",
+            f"/internal/fragment/blocks?index={index}&field={field}"
+            f"&view={view}&shard={shard}")
+        return {b["id"]: bytes.fromhex(b["checksum"])
+                for b in resp.get("blocks", [])}
+
+    def fragment_block_data(self, node, index, field, view, shard, block):
+        resp = self._request(
+            node, "GET",
+            f"/internal/fragment/block/data?index={index}&field={field}"
+            f"&view={view}&shard={shard}&block={block}")
+        return (np.asarray(resp["rowIDs"], dtype=np.uint64),
+                np.asarray(resp["columnIDs"], dtype=np.uint64))
+
+    def import_bits(self, node, index, field, view, shard, rows, cols,
+                    clear=False):
+        self._post_import(node, {
+            "kind": "fragment", "index": index, "field": field,
+            "view": view, "shard": shard, "rowIDs": rows,
+            "columnIDs": cols, "clear": clear,
+        })
+
     def send_import(self, node, index, field, shard, rows=None, cols=None,
                     values=None, timestamps=None, clear=False):
         req = {"kind": "field", "index": index, "field": field,
@@ -797,6 +860,107 @@ class HTTPInternalClient:
             # version's parse_time accepts.
             req["timestamps"] = timestamps
         self._post_import(node, req)
+
+    def send_import_stream(self, node, reqs, chunked: bool = False,
+                           qos_class: str | None = None) -> int:
+        """POST many shard-batch import requests as ONE pipelined PTS1
+        stream (/internal/import-stream): the peer decodes, WAL-appends,
+        and device-uploads chunk k while chunk k+1 is still on the wire,
+        so the per-request round-trip stops gating bulk ingest.
+
+        Backpressure contract: a 429 reply carries ``{"applied": k}``
+        (the server applied a strict prefix and drained the rest) plus
+        Retry-After — sleep, then resume from chunk k. Peers that
+        400/404/405 the stream (older version: no route, or the parser
+        rejects the magic) are remembered and replayed per-batch through
+        _post_import — nothing was applied, and imports are idempotent,
+        so the replay is safe (same contract as the mux envelope).
+
+        ``chunked=True`` sends chunked transfer-encoding instead of one
+        Content-Length body; the server pipelines either way (it reads
+        length-prefixed frames incrementally off the socket).
+
+        Returns the number of requests applied (== len(reqs)).
+        """
+        from pilosa_tpu_torch.server import wire
+        reqs = list(reqs)
+        if not reqs:
+            return 0
+        if node.id in self._stream_unsupported:
+            for r in reqs:
+                self._post_import(node, r)
+            return len(reqs)
+        start = 0
+        stalls = 0
+        while start < len(reqs):
+            chunks = ([wire.stream_preamble()]
+                      + [wire.stream_chunk(r) for r in reqs[start:]]
+                      + [wire.stream_end()])
+            body = _RewindableChunks(chunks) if chunked else b"".join(chunks)
+            if self.breakers is not None:
+                self.breakers.check(node.id)
+            self._check_fault(node)
+            hdrs = {"Content-Type": wire.STREAM_CONTENT_TYPE}
+            if qos_class:
+                hdrs["X-Qos-Class"] = qos_class
+            try:
+                status, msg, data = self._http(
+                    self._url(node, "/internal/import-stream"), "POST",
+                    body, hdrs)
+            except OSError as e:
+                if self.breakers is not None:
+                    self.breakers.record_failure(node.id)
+                raise ConnectionError(
+                    f"node {node.id} unreachable: {e}") from e
+            if self.breakers is not None:
+                self.breakers.record_success(node.id)
+            self._count_wire(sum(len(c) for c in chunks), len(data))
+            if status < 400:
+                return len(reqs)
+            if status in (400, 404, 405):
+                # "applied" in the body means the ROUTE answered: a new
+                # server reporting a chunk that failed to apply — not an
+                # old peer missing the route. Surface it; only a bare
+                # rejection triggers the per-batch fallback.
+                try:
+                    payload = json.loads(data)
+                except (ValueError, TypeError):
+                    payload = {}
+                if isinstance(payload, dict) and "applied" in payload:
+                    raise NodeHTTPError(
+                        status, f"node {node.id} HTTP {status}: "
+                                f"{data.decode(errors='replace')}")
+                self._stream_unsupported.add(node.id)
+                for r in reqs[start:]:
+                    self._post_import(node, r)
+                return len(reqs)
+            if status == 429:
+                applied = 0
+                try:
+                    applied = int(json.loads(data).get("applied", 0))
+                except (ValueError, TypeError, AttributeError):
+                    pass
+                start += applied
+                # A saturated-but-draining gate makes progress between
+                # rounds; zero progress several rounds running means the
+                # pipeline is wedged on something else — surface it.
+                stalls = 0 if applied else stalls + 1
+                if stalls > RETRY_503_ATTEMPTS:
+                    raise NodeHTTPError(
+                        status,
+                        f"node {node.id} ingest backpressure made no "
+                        f"progress after {stalls} retries",
+                        retry_after=None)
+                try:
+                    delay = float(msg.get("Retry-After"))
+                except (TypeError, ValueError):
+                    delay = 1.0
+                time.sleep(min(max(delay, 0.0), RETRY_MAX_DELAY))
+                continue
+            raise NodeHTTPError(
+                status, f"node {node.id} HTTP {status}: "
+                        f"{data.decode(errors='replace')}")
+        return len(reqs)
 
     def send_message(self, node: Node, message: dict):
         self._request(node, "POST", "/internal/cluster/message",
@@ -829,6 +993,7 @@ class HTTPInternalClient:
         the peer's pooled connections are invalidated so data legs can't
         keep riding them either.
         """
+        self._check_fault(node)
         url = self._url(node, "/version")
         scheme, host, port, path = _split_url(url)
         timeout = min(self.PROBE_TIMEOUT, self.timeout)
@@ -853,6 +1018,10 @@ class HTTPInternalClient:
         indirect ping, gossip/gossip.go:43-443): distinguishes "target
         is dead" from "the link between US and target is down".  True
         iff the intermediary reached the target."""
+        try:
+            self._check_fault(via)
+        except ConnectionError:
+            return False  # can't even reach the intermediary
         q = urllib.parse.urlencode({"scheme": target.uri.scheme,
                                     "host": target.uri.host,
                                     "port": target.uri.port})
@@ -866,14 +1035,57 @@ class HTTPInternalClient:
         except (OSError, ValueError):
             return False
 
+    def translate_keys(self, node, index, field, keys):
+        # Key translation creates-or-returns the same ids on every
+        # call: idempotent, so a shed may back off and retry.
+        body = json.dumps({"index": index, "field": field,
+                           "keys": list(keys)}).encode()
+        resp = self._request(node, "POST", "/internal/translate/keys", body,
+                             retry_503=True)
+        return resp["ids"]
+
+    def translate_entries(self, node, index, field, after_id):
+        path = (f"/internal/translate/entries?index={index}"
+                f"&after={int(after_id)}")
+        if field:
+            path += f"&field={field}"
+        resp = self._request(node, "GET", path)
+        return [(int(i), k) for i, k in resp["entries"]]
+
     def nodes(self, node) -> dict:
         """Peer membership pull: {"version", "nodes"} (transitive
         discovery — the memberlist LocalState/MergeRemoteState analog,
         gossip/gossip.go:295-443)."""
         return self._request(node, "GET", "/internal/nodes")
 
+    def availability(self, node) -> dict:
+        """Peer per-field shard availability ({index: {field: [shards]}}
+        — the additive NodeStatus half, server.go:640)."""
+        return self._request(node, "GET", "/internal/availability")
+
     def post_schema(self, node, schema: list[dict]) -> None:
         """Push a schema to one peer (reference PostSchema fan-out from
         API.ApplySchema, api.go:747; remote=true stops re-fan-out)."""
         self._request(node, "POST", "/schema?remote=true",
                       json.dumps({"indexes": schema}).encode())
+
+    def schema(self, node) -> list[dict]:
+        """Peer schema pull (reference NodeStatus carries Schema;
+        server.go:640 handles it on receive)."""
+        resp = self._request(node, "GET", "/schema")
+        return resp["indexes"]
+
+    def attr_blocks(self, node, index, field):
+        path = f"/internal/attr/blocks?index={index}"
+        if field:
+            path += f"&field={field}"
+        resp = self._request(node, "GET", path)
+        return [(int(b["id"]), bytes.fromhex(b["checksum"]))
+                for b in resp["blocks"]]
+
+    def attr_block_data(self, node, index, field, block):
+        path = f"/internal/attr/data?index={index}&block={int(block)}"
+        if field:
+            path += f"&field={field}"
+        resp = self._request(node, "GET", path)
+        return {int(i): a for i, a in resp["attrs"].items()}

@@ -5,10 +5,11 @@ http/handler.go (newRouter :274-318). Implemented on the stdlib
 ThreadingHTTPServer, one thread per connection. Every route of the JAX
 node's table is mounted in the same order and matched by the same
 pattern, the cluster's internal RPC among them (remote query legs in
-binary frames, the PTM1 query mux, routed imports, control messages,
-probes). The routes of resize, fragment block sync, the PTS1 import stream
-and chaos faults answer 501 with a body that names the ROADMAP.md slice
-that brings them.
+binary frames, the PTM1 query mux, routed imports and the PTS1 import
+stream, control messages, probes, fragment block sync, the resize routes,
+and, on a node started with chaos faults, ``POST /internal/fault``). A
+feature of a later slice (a backup across a cluster) answers 501 with a
+body that names the ROADMAP.md slice that brings it.
 """
 
 from __future__ import annotations
@@ -23,7 +24,6 @@ from urllib.parse import parse_qs, urlparse
 from pilosa_tpu_torch.cache.tenant import reset_current_tenant, set_current_tenant
 from pilosa_tpu_torch.cluster.cluster import ShardUnavailableError
 from pilosa_tpu_torch.errors import (
-    SLICE_CLUSTER,
     ApiMethodNotAllowedError,
     ClusterFencedError,
     FieldExistsError,
@@ -40,8 +40,10 @@ from pilosa_tpu_torch.obs import profile as _profile
 from pilosa_tpu_torch.obs import tracing as _tr
 from pilosa_tpu_torch.pql import ParseError
 from pilosa_tpu_torch.qos import (
+    CLASS_BATCH,
     CLASS_INTERNAL,
     DeadlineExceededError,
+    IngestBackpressureError,
     QueryShedError,
     QuotaExceededError,
     normalize_class,
@@ -137,14 +139,13 @@ def _make_handler(api: API):
             params["_accept"] = self.headers.get("Accept", "")
             params["_qos_class"] = self.headers.get("X-Qos-Class", "")
             params["_api_key"] = self.headers.get("X-API-Key", "")
-            if "chunked" in (self.headers.get("Transfer-Encoding") or "").lower():
-                # Only the JAX node's import stream sends a chunked body
-                # (501 here): leave it unread and drop the connection.
-                self.close_connection = True
-                body = b""
-            else:
-                length = int(self.headers.get("Content-Length") or 0)
-                body = self.rfile.read(length) if length else b""
+            if method == "POST" and parsed.path == "/internal/import-stream":
+                # Streaming route: decode and apply chunk by chunk while
+                # the client is still sending -- before the whole-body
+                # read below.
+                return self._handle_import_stream()
+            length = int(self.headers.get("Content-Length") or 0)
+            body = self.rfile.read(length) if length else b""
             for pattern, methods in routes:
                 m = pattern.match(parsed.path)
                 if not m:
@@ -171,6 +172,12 @@ def _make_handler(api: API):
                     headers = {"Retry-After": str(int(e.retry_after))}
                 except QuotaExceededError as e:
                     # 429, NOT 503: the tenant is over its own budget.
+                    status, payload = 429, {"error": str(e)}
+                    headers = {"Retry-After":
+                               str(max(1, int(e.retry_after + 0.5)))}
+                except IngestBackpressureError as e:
+                    # The quota's shape: the import stream must slow down,
+                    # the node is otherwise healthy.
                     status, payload = 429, {"error": str(e)}
                     headers = {"Retry-After":
                                str(max(1, int(e.retry_after + 0.5)))}
@@ -213,6 +220,87 @@ def _make_handler(api: API):
                 return self._reply(status, payload, headers)
             return self._reply(404, {"error": "not found"})
 
+        def _handle_import_stream(self):
+            """POST /internal/import-stream: length-prefixed PTI1 frames
+            (wire.STREAM_CONTENT_TYPE), applied as they arrive — decode,
+            WAL append (group-committed), device upload per chunk. Bulk
+            work rides the BATCH admission class so interactive queries
+            keep their weighted share of the node. On backpressure (the
+            ingest gate's byte budget, an admission shed, or a tenant
+            quota) the server STOPS APPLYING but keeps draining the
+            stream, then answers 429 + Retry-After + how many chunks
+            were applied — replying mid-send would just break the pipe
+            and mask the signal; the client resumes from ``applied``."""
+            from pilosa_tpu_torch.server import wire
+
+            te = (self.headers.get("Transfer-Encoding") or "").lower()
+            if "chunked" in te:
+                read = _chunked_body_reader(self.rfile)
+            else:
+                read = _bounded_body_reader(
+                    self.rfile, int(self.headers.get("Content-Length") or 0))
+            server = getattr(api, "import_handler", None)
+            if server is None:
+                self.close_connection = True
+                return self._reply(400, {"error": "no import handler"})
+            qos_ctl = getattr(api, "qos", None)
+            gate = getattr(api, "ingest_gate", None)
+            # Raw route (bypasses _dispatch's params): read the QoS
+            # class header directly. Resize fragment migration streams
+            # as "internal" so it never starves interactive traffic;
+            # user bulk loads stay BATCH.
+            hdr = self.headers.get("X-Qos-Class") or ""
+            cls = normalize_class(hdr) if hdr else CLASS_BATCH
+            applied = 0
+            pressure = None
+            fatal = None
+            try:
+                for frame in wire.iter_stream_frames(read):
+                    if pressure is not None or fatal is not None:
+                        continue  # draining: count nothing, apply nothing
+                    try:
+                        if gate is not None:
+                            with gate.admit(len(frame)):
+                                self._apply_import_chunk(
+                                    wire.decode_import(frame), server,
+                                    qos_ctl, cls)
+                        else:
+                            self._apply_import_chunk(
+                                wire.decode_import(frame), server, qos_ctl,
+                                cls)
+                        applied += 1
+                    except (IngestBackpressureError, QueryShedError,
+                            QuotaExceededError) as e:
+                        pressure = e
+                    except Exception as e:  # bad chunk: drain, then report
+                        fatal = e
+            except ValueError as e:
+                # Malformed stream framing: the tail is unreadable, so
+                # the connection can't be reused.
+                self.close_connection = True
+                return self._reply(400, {"error": str(e),
+                                         "applied": applied})
+            if fatal is not None:
+                status = 404 if isinstance(fatal, _NOT_FOUND + (LookupError,)) \
+                    else 400 if isinstance(fatal, (ValueError, KeyError,
+                                                   PilosaError)) else 500
+                return self._reply(status, {"error": str(fatal),
+                                            "applied": applied})
+            if pressure is not None:
+                return self._reply(
+                    429, {"error": str(pressure), "applied": applied},
+                    {"Retry-After":
+                     str(max(1, int(pressure.retry_after + 0.5)))})
+            return self._reply(200, {"applied": applied})
+
+        def _apply_import_chunk(self, req, server, qos_ctl,
+                                cls=CLASS_BATCH):
+            if qos_ctl is not None:
+                with qos_ctl.admit(cls):
+                    server(req)
+            else:
+                server(req)
+
         def _reply(self, status: int, payload, headers=None):
             if isinstance(payload, (dict, list)):
                 data = (json.dumps(payload) + "\n").encode()
@@ -246,13 +334,56 @@ def _make_handler(api: API):
     return Handler
 
 
-def _not_ported(what: str, slice_name: str):
-    """A route of a later slice: 501 naming the slice."""
+def _bounded_body_reader(rfile, length: int):
+    """read(n) over a Content-Length body that never reads past it (the
+    socket would block waiting for bytes that aren't coming)."""
+    remaining = [length]
 
-    def handler(pv, params, body):
-        raise NotPortedError(what, slice_name)
+    def read(n: int) -> bytes:
+        if remaining[0] <= 0:
+            return b""
+        b = rfile.read(min(n, remaining[0]))
+        remaining[0] -= len(b)
+        return b
 
-    return handler
+    return read
+
+
+def _chunked_body_reader(rfile):
+    """read(n) over a chunked transfer-encoded body (hex-length lines,
+    RFC 9112 §7.1) — what http.client sends for an iterator body, which
+    is how the import client pipelines an unbounded stream."""
+    state = {"left": 0, "eof": False}
+
+    def read(n: int) -> bytes:
+        if state["eof"]:
+            return b""
+        if state["left"] == 0:
+            line = rfile.readline(130)
+            if not line:
+                state["eof"] = True
+                return b""
+            try:
+                size = int(line.split(b";")[0].strip() or b"0", 16)
+            except ValueError:
+                state["eof"] = True
+                return b""
+            if size == 0:
+                # consume optional trailers up to the blank line
+                while True:
+                    t = rfile.readline(1024)
+                    if not t or t in (b"\r\n", b"\n"):
+                        break
+                state["eof"] = True
+                return b""
+            state["left"] = size
+        b = rfile.read(min(n, state["left"]))
+        state["left"] -= len(b)
+        if state["left"] == 0:
+            rfile.read(2)  # chunk-terminating CRLF
+        return b
+
+    return read
 
 
 def _build_routes(api: API):
@@ -337,6 +468,11 @@ def _build_routes(api: API):
                 and qos_deadline.current_deadline() is None):
             dtoken = qos_deadline.set_current_deadline(
                 qos_deadline.Deadline(timeout=qos_ctl.default_deadline))
+        # Chaos fault hook: a "slow peer" serves every query late but
+        # stays alive to membership probes (a gray failure the breaker and
+        # hedge layer must route around). Set by POST /internal/fault.
+        if api.fault_slow_s > 0:
+            time.sleep(api.fault_slow_s)
         want_inline_profile = params.get("profile") == "true"
         # Result-cache gate: noCache bypasses explicitly; non-remote
         # INTERNAL-class requests (maintenance sweeps) must not churn
@@ -493,6 +629,8 @@ def _build_routes(api: API):
                     trace or "", query=leg["query"], index=leg["index"],
                     node=node_id, qos_class=cls, remote=True))
             try:
+                if api.fault_slow_s > 0:
+                    time.sleep(api.fault_slow_s)
                 qos_deadline.check_current()
                 kwargs = dict(shards=leg.get("shards"), remote=True,
                               accept_frames=2, cache=use_cache)
@@ -731,16 +869,96 @@ def _build_routes(api: API):
             "fenced": bool(cluster.fenced),
             "fenceStaleReads": bool(cluster.fence_stale_reads),
             "fencingToken": cluster.fencing_token(),
-            # chaos partition faults are not ported: none is ever armed
-            "injectedFaults": {},
+            "injectedFaults": (cluster.client.faults.snapshot()
+                               if cluster.client.faults is not None else {}),
             "peers": peers,
         }
+
+    def post_fault(pv, params, body):
+        """Chaos fault injection. {"slowMs": N} delays every subsequent
+        /query on this node by N ms (0 heals); {"partition": {"peers":
+        [...ids...], "mode": "drop"|"timeout", "delayMs": N}} cuts this
+        node's OUTBOUND links to the named peers (asymmetric by
+        construction — the chaos drill faults both sides for a
+        symmetric split); {"healPartition": true} clears every link
+        fault. Only mounted when the node was started with chaos faults
+        enabled (--chaos-faults / PILOSA_TPU_CHAOS_FAULTS) — a
+        one-request degradation lever must not ship armed."""
+        req = jbody(body)
+        if "slowMs" in req:
+            api.fault_slow_s = max(0.0, float(req["slowMs"]) / 1000.0)
+        faults = api.cluster.client.faults if api.cluster is not None else None
+        part = req.get("partition")
+        if part is not None or req.get("healPartition"):
+            if faults is None:
+                return 400, {"error": "node has no partition fault table "
+                                      "(standalone?)"}
+            if req.get("healPartition"):
+                faults.clear()
+            if part is not None:
+                mode = part.get("mode", "drop")
+                delay_s = float(part.get("delayMs", 0.0)) / 1000.0
+                for peer in part.get("peers", []):
+                    faults.set_fault(str(peer), mode=mode, delay_s=delay_s)
+        return 200, {"slowMs": api.fault_slow_s * 1000.0,
+                     "partition": (faults.snapshot()
+                                   if faults is not None else {})}
 
     def get_availability(pv, params, body):
         """Per-field shard availability (the additive NodeStatus half,
         reference server.go:640)."""
         from pilosa_tpu_torch.cluster.resize import holder_availability
         return 200, holder_availability(api.holder)
+
+    def get_debug_resize(pv, params, body):
+        """Live serve-through resize state: the coordinator's job (per-
+        shard migrated/in-flight counts, cutover lag) and/or this
+        member's migration table. {"job": null, "migration": null} at
+        rest — the probe a drill/operator polls while the ring moves."""
+        job = api.resize_job
+        mig = api.cluster.migration if api.cluster is not None else None
+        return 200, {
+            "job": job.snapshot() if job is not None else None,
+            "migration": mig.snapshot() if mig is not None else None,
+        }
+
+    def post_resize_abort(pv, params, body):
+        job = api.resize_job
+        if job is not None:
+            job.abort()
+        return 200, {}
+
+    def post_resize_remove_node(pv, params, body):
+        req = jbody(body)
+        handler = api.resize_handler
+        if handler is None:
+            return 400, {"error": "resize not supported on this node"}
+        handler("remove", req.get("id"))
+        return 200, {}
+
+    def post_set_coordinator(pv, params, body):
+        req = jbody(body)
+        if api.cluster is not None:
+            for n in api.cluster.nodes:
+                n.is_coordinator = (n.id == req.get("id"))
+            # Persist the handoff: a restart must not resurrect the OLD
+            # coordinator flag from topology.json (resizes would consult
+            # the wrong node as the resize authority).
+            api.cluster.notify_topology()
+        return 200, {}
+
+    def get_fragment_blocks(pv, params, body):
+        blocks = api.fragment_blocks(params["index"], params["field"],
+                                     params["view"], int(params["shard"]))
+        return 200, {"blocks": [{"id": b, "checksum": cs.hex()}
+                                for b, cs in sorted(blocks.items())]}
+
+    def get_fragment_block_data(pv, params, body):
+        rows, cols = api.fragment_block_data(
+            params["index"], params["field"], params["view"],
+            int(params["shard"]), int(params["block"]))
+        return 200, {"rowIDs": [int(r) for r in rows],
+                     "columnIDs": [int(c) for c in cols]}
 
     def post_cluster_message(pv, params, body):
         handler = getattr(api, "message_handler", None)
@@ -934,7 +1152,6 @@ def _build_routes(api: API):
         api.delete_view(pv["index"], pv["field"], pv["view"])
         return 200, {}
 
-    cluster = SLICE_CLUSTER
     table = [
         (r"/", {"GET": home}),
         (r"/index", {"GET": get_indexes}),
@@ -985,32 +1202,24 @@ def _build_routes(api: API):
         (r"/internal/translate/keys", {"POST": post_translate_keys}),
         (r"/internal/translate/entries", {"GET": get_translate_entries}),
         (r"/internal/cluster/message", {"POST": post_cluster_message}),
-        (r"/internal/fragment/blocks",
-         {"GET": _not_ported("GET /internal/fragment/blocks", cluster)}),
+        (r"/internal/fragment/blocks", {"GET": get_fragment_blocks}),
         (r"/internal/fragment/nodes", {"GET": get_fragment_nodes}),
-        (r"/debug/resize",
-         {"GET": _not_ported("GET /debug/resize", cluster)}),
+        (r"/debug/resize", {"GET": get_debug_resize}),
         (r"/debug/backup", {"GET": get_debug_backup}),
         (r"/internal/index/(?P<index>[^/]+)/field/(?P<field>[^/]+)"
          r"/remote-available-shards/(?P<shard>[0-9]+)",
          {"DELETE": delete_remote_available_shard}),
-        (r"/cluster/resize/abort",
-         {"POST": _not_ported("POST /cluster/resize/abort", cluster)}),
-        (r"/cluster/resize/remove-node",
-         {"POST": _not_ported("POST /cluster/resize/remove-node", cluster)}),
-        (r"/cluster/resize/set-coordinator",
-         {"POST": _not_ported("POST /cluster/resize/set-coordinator",
-                              cluster)}),
-        (r"/internal/fragment/block/data",
-         {"GET": _not_ported("GET /internal/fragment/block/data", cluster)}),
+        (r"/cluster/resize/abort", {"POST": post_resize_abort}),
+        (r"/cluster/resize/remove-node", {"POST": post_resize_remove_node}),
+        (r"/cluster/resize/set-coordinator", {"POST": post_set_coordinator}),
+        (r"/internal/fragment/block/data", {"GET": get_fragment_block_data}),
         (r"/internal/attr/blocks", {"GET": get_attr_blocks}),
         (r"/internal/attr/data", {"GET": get_attr_block_data}),
         (r"/internal/import", {"POST": post_internal_import}),
         (r"/internal/nodes", {"GET": get_nodes}),
         (r"/internal/probe", {"GET": get_internal_probe}),
         (r"/internal/query-mux", {"POST": post_query_mux}),
-        # The JAX node serves this one ahead of its table, streaming.
-        (r"/internal/import-stream",
-         {"POST": _not_ported("POST /internal/import-stream", cluster)}),
     ]
+    if api.chaos_faults:
+        table.append((r"/internal/fault", {"POST": post_fault}))
     return [(re.compile("^" + p + "$"), methods) for p, methods in table]

@@ -19,10 +19,14 @@ With ``peers`` the node is one member of a static cluster: a ``Cluster``
 over ``HTTPInternalClient`` (``replica_n`` owners a shard, per-peer
 circuit breakers, hedged reads, the PTM1 peer channel, TLS client
 options), create-shard and index-dirty broadcasts, the liveness sweep
-(``cluster.resize.check_nodes``) with quorum fencing, and the
-coordinator's device reduce (``device_reduce``). Joins
-(``join``/``topology.json``), anti-entropy, the scrubber, resize and
-chaos faults come with ROADMAP.md Queue 1: cluster and operations.
+(``cluster.resize.check_nodes``) with quorum fencing, the coordinator's
+device reduce (``device_reduce``), coordinator-primary key translation,
+the anti-entropy ticker (schema and availability pull, translation pull,
+block-checksum repair, the holder cleaner), the serve-through resize
+(``join`` to grow, ``POST /cluster/resize/remove-node`` to shrink) with
+``topology.json`` in the data dir, the scrubber (``scrub_interval``), the
+PTS1 import stream's byte budget (``ingest_max_inflight_mb``) and, with
+``chaos_faults``, ``POST /internal/fault``.
 """
 
 from __future__ import annotations
@@ -30,11 +34,14 @@ from __future__ import annotations
 import json
 import os
 import random
+import sys
 import threading
+import time
 
 import torch
 
 from pilosa_tpu_torch.cluster.cluster import STATE_NORMAL, Cluster
+from pilosa_tpu_torch.cluster.event import EVENT_UPDATE
 from pilosa_tpu_torch.cluster.harness import handle_cluster_message
 from pilosa_tpu_torch.cluster.node import URI, Node
 from pilosa_tpu_torch.cache.result_cache import ResultCache
@@ -57,6 +64,7 @@ from pilosa_tpu_torch.parallel import prefetch as _prefetch
 from pilosa_tpu_torch.qos import (
     AdaptiveLimit,
     AdmissionController,
+    IngestGate,
     SlowQueryLog,
     TenantQuotas,
     WarmupService,
@@ -72,10 +80,18 @@ class ServerNode:
     ``Holder`` does; ``device="cpu"`` runs the kernels' plain versions on
     the CPU. ``data_dir`` opens (or creates) a data dir before the node
     serves; ``close()`` flushes it. ``peers`` ("host:port" each) makes it
-    a member of a cluster with those nodes."""
+    a member of a cluster with those nodes; ``join`` ("host:port" of a
+    running member) asks that cluster's coordinator to grow the ring by
+    this node."""
 
     #: seconds between import-pool top-up checks.
     POOL_TOPUP_INTERVAL = 30.0
+    #: repair cadence, seconds (the JAX node's default: repair is on, so a
+    #: restarted member converges with no operator action).
+    DEFAULT_ANTI_ENTROPY_INTERVAL = 10.0
+    #: background scrub cadence, seconds: re-verify on-disk snapshot CRCs
+    #: and repair quarantined fragments from replica consensus.
+    DEFAULT_SCRUB_INTERVAL = 60.0
     #: liveness sweep cadence, seconds (reference confirmNodeDown).
     DEFAULT_CHECK_NODES_INTERVAL = 5.0
     #: membership push/pull piggybacks on every Nth liveness sweep.
@@ -134,9 +150,17 @@ class ServerNode:
                  translate_planes: str = "auto",
                  sketch_precision: int = 12,
                  sketch_exact_threshold: int = 1024,
-                 compile_cache_dir: str | None = None):
+                 compile_cache_dir: str | None = None,
+                 anti_entropy_interval: float | None = None,
+                 scrub_interval: float | None = None,
+                 join: str | None = None,
+                 chaos_faults: bool = False,
+                 ingest_max_inflight_mb: int = 0):
         host, _, port = bind.partition(":")
         self.host, self.port = host or "127.0.0.1", int(port or 10101)
+        # The node's identity is its address, as its ring entry's is (an
+        # ephemeral port resolves it again once the listener binds).
+        self.id = f"{self.host}:{self.port}"
         self.stats = MemoryStats()
         self.logger = StandardLogger()
         self._closed = False
@@ -151,7 +175,11 @@ class ServerNode:
         # node's id is its address, as its ring entry's is. A TLS node
         # assumes a uniformly TLS cluster: every peer gets https.
         scheme = "https" if tls_cert else "http"
-        if peers and self.port == 0:
+        self._scheme = scheme
+        #: address of a running member to join on open(): the coordinator
+        #: runs a ResizeJob and broadcasts the new topology back here.
+        self.join_addr = join
+        if (peers or join) and self.port == 0:
             # The ring names each member by its address: an ephemeral
             # port would leave this node outside its own ring.
             raise ValueError("a cluster member needs a fixed bind port")
@@ -159,11 +187,11 @@ class ServerNode:
         for i, addr in enumerate(sorted(set((peers or []) + [f"{self.host}:{self.port}"]))):
             h, _, p = addr.partition(":")
             members.append(Node(id=addr, uri=URI(scheme=scheme, host=h, port=int(p)),
-                                is_coordinator=(i == 0)))
+                                is_coordinator=(i == 0 and join is None)))
         self.cluster = None
         self.dirty = None
         index_listener = None
-        if len(members) > 1:
+        if len(members) > 1 or join is not None:
             client = HTTPInternalClient(ca_cert=tls_ca_cert,
                                         skip_verify=tls_skip_verify,
                                         device=str(resolve_device(device)))
@@ -174,6 +202,12 @@ class ServerNode:
                                    client=client)
             self.cluster.stats = self.stats
             self.cluster.set_state(STATE_NORMAL)
+            if join is not None:
+                # A fresh joiner owns no topology: below version 0, so even
+                # a cluster still on its boot ring can hand it its status
+                # through the strictly-newer adoption gate (a persisted
+                # topology, a restarted joiner's, overrides this below).
+                self.cluster.topology_version = -1
             from pilosa_tpu_torch.cluster.dirty import DirtyBroadcaster
             self.dirty = DirtyBroadcaster(self.cluster)
             index_listener = self.dirty.attach
@@ -235,6 +269,27 @@ class ServerNode:
         # Hooks of the /internal routes.
         self.api.message_handler = self.handle_message
         self.api.import_handler = self.handle_internal_import
+        self.api.resize_handler = self.resize
+        self.api.chaos_faults = bool(chaos_faults)
+        # In-flight byte budget of the /internal/import-stream pipeline
+        # (0 = unbounded): trips 429 + Retry-After, never queues.
+        self.ingest_gate = IngestGate(max_inflight_bytes=int(ingest_max_inflight_mb) << 20)
+        self.api.ingest_gate = self.ingest_gate
+        self.syncer = None
+        self.scrubber = None
+        self._sync_timer = None
+        self._scrub_timer = None
+        #: one resize job at a time (reference cluster.go:1447).
+        self._resize_gate = threading.Lock()
+        #: (topology version, monotonic time from which the cleaner may
+        #: drop fragments under it).
+        self._clean_lock = threading.Lock()
+        self._clean_ring = (0, 0.0)
+        self._anti_entropy_interval = (self.DEFAULT_ANTI_ENTROPY_INTERVAL
+                                       if anti_entropy_interval is None
+                                       else anti_entropy_interval)
+        self._scrub_interval = (self.DEFAULT_SCRUB_INTERVAL
+                                if scrub_interval is None else scrub_interval)
         self._check_timer = None
         self._check_nodes_interval = (self.DEFAULT_CHECK_NODES_INTERVAL
                                       if check_nodes_interval is None
@@ -247,6 +302,19 @@ class ServerNode:
             self.cluster.fence_stale_reads = bool(fence_stale_reads)
             self.cluster.on_unfence = self._on_unfence
             self.cluster.subscribe(self._on_node_event)
+            # The chaos partition table is always there; only the
+            # chaos-gated /internal/fault route can arm it.
+            from pilosa_tpu_torch.cluster.faults import PartitionFaults
+            self.cluster.client.faults = PartitionFaults()
+            from pilosa_tpu_torch.cluster.sync import HolderSyncer
+            self.syncer = HolderSyncer(self.holder, self.cluster, self.cluster.client)
+            # Coordinator-primary key allocation (translate.go:93): every
+            # keyed allocation routes to the coordinator.
+            from pilosa_tpu_torch.cluster.translate_sync import ClusterKeyTranslator
+            translator = ClusterKeyTranslator(self.holder, self.cluster,
+                                              self.cluster.client)
+            self.executor.translator = translator
+            self.api.translator = translator
             # Overload plumbing on the inter-node path: per-peer circuit
             # breakers in the transport, hedged read legs in map_reduce.
             if breaker_threshold > 0:
@@ -267,13 +335,18 @@ class ServerNode:
                                    wal_group_window=wal_group_commit_ms / 1000.0,
                                    **kw)
             self.store.open()
-            if self.cluster is not None:
-                # The coordinator routes reads of this node's quarantined
-                # shards to replicas.
-                self.cluster.blocked_shards_fn = self.store.quarantine.blocked_shards
         else:
             self.store = None
         self.api.store = self.store
+        if self.store is not None:
+            from pilosa_tpu_torch.cluster.scrub import route_quarantined_to_replicas
+            if self.cluster is not None:
+                self._wire_topology_persistence(data_dir)
+                # Placement must not hand quarantined shards to this node:
+                # their reads go to replicas.
+                self.cluster.blocked_shards_fn = self.store.quarantine.blocked_shards
+                route_quarantined_to_replicas(self.holder, self.cluster,
+                                              self.store, stats=self.stats)
         self._import_pool_mb = int(import_pool_mb)
         self._pool_stop = threading.Event()
         self.runtime_monitor = None
@@ -296,6 +369,13 @@ class ServerNode:
                                   stats=self.stats),
             adaptive=adaptive)
         self.api.qos = self.qos
+        if self.store is not None:
+            from pilosa_tpu_torch.cluster.scrub import Scrubber
+            self.scrubber = Scrubber(
+                self.holder, self.cluster,
+                self.cluster.client if self.cluster is not None else None,
+                self.store, stats=self.stats, logger=self.logger,
+                admission=self.qos)
         # Slowest-N query profiles at /debug/queries; profile_queries=False
         # limits profiling to explicit ?profile=true requests.
         self.profile_ring = (ProfileRing(capacity=profile_ring_n)
@@ -332,6 +412,73 @@ class ServerNode:
             self.api.restore_status_handler = self.restore_status
         self.api.backup_debug_handler = self.backup_debug
 
+    def _wire_topology_persistence(self, data_dir: str) -> None:
+        """Durable topology (reference .topology file, cluster.go:1657):
+        every committed nodes/version change is written to
+        topology.json, and boot resumes from it. Without this, a
+        restarted coordinator's in-memory version resets to 0, its next
+        commit broadcasts "version 1", and every peer holding a higher
+        version silently rejects the committed ring as stale — a forked
+        cluster."""
+        path = os.path.join(data_dir, "topology.json")
+        save_lock = threading.Lock()
+        last_saved = [-1]
+
+        def save() -> None:
+            with self.cluster._lock:
+                doc = {"version": self.cluster.topology_version,
+                       "replicaN": self.cluster.replica_n,
+                       "partitionN": self.cluster.partition_n,
+                       "nodes": [n.to_json() for n in self.cluster.nodes]}
+            # Serialize + version-guard the replace: two concurrent
+            # savers (a status RPC and a sweep) must not interleave
+            # writes in one tmp, and the one holding the OLDER snapshot
+            # must not win the replace — a restart would restore the
+            # older ring and fork the cluster (the bug this file
+            # exists to prevent). Same pattern as DiskStore.save_schema.
+            with save_lock:
+                if doc["version"] < last_saved[0]:
+                    return
+                tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+                with open(tmp, "w") as f:
+                    json.dump(doc, f)
+                os.replace(tmp, path)
+                last_saved[0] = doc["version"]
+
+        self.cluster.save_hook = save
+        # Sweep tmps a crashed saver stranded (see DiskStore.open).
+        try:
+            for fn in os.listdir(data_dir):
+                if fn.startswith("topology.json.") and fn.endswith(".tmp"):
+                    os.remove(os.path.join(data_dir, fn))
+        except OSError:
+            pass
+        try:
+            with open(path) as f:
+                doc = json.load(f)
+            version = int(doc.get("version", 0))
+            saved = [Node.from_json(n) for n in doc.get("nodes", [])]
+        except Exception:
+            # Best-effort restore: a torn/hand-edited file must fall
+            # back to the boot peer list, never crash the boot.
+            return
+        if version <= self.cluster.topology_version or not saved:
+            return
+        if not any(n.id == self.id for n in saved):
+            # The durable ring excludes US: we were removed while down.
+            # Keep the boot list; rejoining is the operator's call.
+            return
+        self.cluster.nodes = sorted(saved, key=lambda n: n.id)
+        self.cluster.topology_version = version
+        # Settings adopted from broadcasts are part of the ring: a
+        # restart that reverted to boot-config replicaN would compute
+        # different placement and the cleaner would GC live replicas.
+        if doc.get("replicaN"):
+            self.cluster.replica_n = int(doc["replicaN"])
+        if doc.get("partitionN"):
+            self.cluster.partition_n = int(doc["partitionN"])
+        last_saved[0] = version
+
     def open(self) -> None:
         self.http.serve_background()
         if self._import_pool_mb > 0:
@@ -363,8 +510,14 @@ class ServerNode:
                 full_every=self._backup_full_every,
                 keep_chains=self._backup_keep_chains)
             self._schedule_backup()
+        if self.join_addr is not None:
+            self._send_join()
+        if self.syncer is not None and self._anti_entropy_interval > 0:
+            self._schedule_sync()
         if self.cluster is not None and self._check_nodes_interval > 0:
             self._schedule_check_nodes()
+        if self.scrubber is not None and self._scrub_interval > 0:
+            self._schedule_scrub()
         self.runtime_monitor = RuntimeMonitor(self.stats,
                                               self.executor.planner,
                                               qos=self.qos)
@@ -392,9 +545,10 @@ class ServerNode:
         if self.cluster is not None:
             self.cluster.close()
             self.cluster.client.close()
-        if self._check_timer is not None:
-            self._check_timer.cancel()
         self.http.close()
+        for timer in (self._sync_timer, self._check_timer, self._scrub_timer):
+            if timer is not None:
+                timer.cancel()
         if self._backup_timer is not None:
             self._backup_timer.cancel()
         if self.backup_archive is not None:
@@ -435,7 +589,62 @@ class ServerNode:
         self._backup_timer.daemon = True
         self._backup_timer.start()
 
-    # -- cluster (reference node.py:650-700, 826-840, 900-975, 1139-1171) --
+    # -- cluster (reference node.py:587-1171) -------------------------------
+
+    #: join announcement retry schedule (seconds between attempts);
+    #: after JOIN_RETRIES fast attempts the announcer drops to the slow
+    #: cadence but never stops (a solo joiner has no other path in).
+    JOIN_RETRY_DELAY = 1.0
+    JOIN_RETRIES = 30
+    JOIN_SLOW_RETRY_DELAY = 5.0
+
+    def _send_join(self) -> None:
+        """Announce to a running member in the background, retrying —
+        the seed may still be booting (the reference's gossip join
+        retries the same way, gossip/gossip.go:65). The member forwards
+        to the coordinator, which resizes us in and broadcasts the
+        topology back (cluster.go:1796)."""
+        h, _, p = self.join_addr.partition(":")
+        seed = Node(id=self.join_addr,
+                    uri=URI(scheme=self._scheme, host=h, port=int(p)))
+
+        def announce():
+            attempts = 0
+            while not self._closed:
+                # Success = this node appears in the ring (the topology
+                # broadcast landed), NOT merely a delivered announce —
+                # the coordinator's resize runs asynchronously and can
+                # fail after accepting.
+                if len(self.cluster.nodes) > 1:
+                    return
+                try:
+                    self.cluster.client.send_message(
+                        seed, {"type": "node-join", "addr": self.id})
+                except Exception:
+                    # A paused/overloaded seed times out (OSError, not
+                    # ConnectionError); ANY failure here must not kill
+                    # the announce thread — it is a solo joiner's only
+                    # path into the ring.
+                    pass
+                attempts += 1
+                if attempts == self.JOIN_RETRIES:
+                    # Never give up outright: a solo joiner has no peers
+                    # to discover the ring through, so announcing IS its
+                    # only path in (the seed may be mid-resize, paused,
+                    # or restarting for minutes). Drop to a slow cadence
+                    # and warn.
+                    print(f"join: cluster at {self.join_addr} did not "
+                          f"admit us after {self.JOIN_RETRIES} attempts; "
+                          f"retrying every "
+                          f"{self.JOIN_SLOW_RETRY_DELAY:.0f}s",
+                          file=sys.stderr)
+                time.sleep(self.JOIN_RETRY_DELAY
+                           if attempts < self.JOIN_RETRIES
+                           else self.JOIN_SLOW_RETRY_DELAY)
+
+        t = threading.Thread(target=announce, name="join-announce",
+                             daemon=True)
+        t.start()
 
     def _jitter(self, interval: float) -> float:
         return interval * random.uniform(0.8, 1.2)
@@ -475,22 +684,147 @@ class ServerNode:
         self._check_timer.start()
 
     def _on_unfence(self) -> None:
-        """Quorum regained: caches validated against pre-partition epochs
-        would serve stale reads, so every index's epoch moves (the JAX
-        node also starts an anti-entropy pass, not ported)."""
+        """Fence lifted (the liveness sweep sees a majority again):
+        this node just rejoined from a minority partition, so its data
+        AND caches may be behind the majority's writes. Kick an
+        immediate dirty-sync — schema adoption + fragment anti-entropy
+        — and flush epoch-validated result caches, off the sweep
+        thread (same shape as the READY-event repair)."""
         if self._closed:
             return
-        self.logger.printf("quorum regained: un-fenced")
-        for iname in self.holder.index_names():
-            idx = self.holder.index(iname)
-            if idx is not None:
-                idx.epoch.bump(notify=False)
+        self.logger.printf("quorum regained: un-fenced, starting "
+                           "rejoin dirty-sync")
+
+        def resync():
+            try:
+                for iname in self.holder.index_names():
+                    idx = self.holder.index(iname)
+                    if idx is not None:
+                        # Local caches validated against pre-partition
+                        # epochs would serve stale reads until the next
+                        # write; bump first so repaired bits are seen.
+                        idx.epoch.bump(notify=False)
+                if self.cluster is not None:
+                    self._sync_schema()
+                if self.syncer is not None:
+                    self.syncer.sync_holder()
+            except Exception:
+                pass  # the anti-entropy ticker retries
+        threading.Thread(target=resync, name="unfence-resync",
+                         daemon=True).start()
 
     def _on_node_event(self, ev) -> None:
         """NodeEvent consumer (reference ReceiveEvent, cluster.go:1754):
-        count the stream (the JAX node also starts a repair pass when a
-        peer returns, which is anti-entropy, not ported)."""
+        count the stream, and when a peer comes BACK, kick an immediate
+        repair pass instead of waiting out the anti-entropy ticker."""
         self.stats.with_tags(f"event:{ev.type}").count("nodeEvents")
+        if (ev.type == EVENT_UPDATE and ev.state == "READY"
+                and self.syncer is not None and not self._closed):
+            def repair():
+                try:
+                    self._sync_schema()
+                    self.syncer.sync_holder()
+                except Exception:
+                    pass  # ticker retries
+            threading.Thread(target=repair, name="event-repair",
+                             daemon=True).start()
+        if (ev.type == EVENT_UPDATE and ev.state == "READY"
+                and self.cluster is not None and not self._closed):
+            # A rejoined peer missed every index-dirty broadcast while
+            # it was (or merely LOOKED) down — its epoch-validated
+            # result caches would serve stale reads until the next
+            # write. Push it a full invalidation sweep; and flush our
+            # own caches too, since the asymmetric case (it was serving
+            # writes we never heard about) leaves OUR caches stale.
+            def invalidate(node_id=ev.node_id):
+                node = self.cluster.node_by_id(node_id)
+                for iname in self.holder.index_names():
+                    idx = self.holder.index(iname)
+                    if idx is not None:
+                        idx.epoch.bump(notify=False)
+                    if node is None:
+                        continue
+                    try:
+                        self.cluster.client.send_message(
+                            node, {"type": "index-dirty", "index": iname})
+                    except (ConnectionError, RuntimeError, LookupError):
+                        pass  # next sweep's READY flap retries
+            threading.Thread(target=invalidate, name="rejoin-invalidate",
+                             daemon=True).start()
+
+    def _sync_schema(self) -> None:
+        """Adopt any peer schema this node is missing (a restarted
+        member without its data dir re-learns indexes/fields before the
+        fragment syncer can repair their bits) AND merge peers' shard
+        availability — the additive half of the reference's NodeStatus
+        merge (server.go:640: schema + availableShards). Without the
+        availability half, a node that missed create-shard broadcasts
+        while down answers queries without those shards forever (found
+        by the chaos soak: permanent undercounts after rejoin)."""
+        for node in self.cluster.nodes:
+            if node.id == self.id or node.state == "DOWN":
+                continue
+            try:
+                self.holder.apply_schema(self.cluster.client.schema(node))
+            except (ConnectionError, RuntimeError, LookupError, KeyError):
+                continue
+            try:
+                avail = self.cluster.client.availability(node)
+                for index, fields in (avail or {}).items():
+                    idx = self.holder.index(index)
+                    if idx is None:
+                        continue
+                    for field, shards in fields.items():
+                        f = idx.field(field)
+                        if f is not None and shards:
+                            f.add_remote_available_shards(shards)
+            except (ConnectionError, RuntimeError, LookupError, KeyError,
+                    AttributeError):
+                continue
+
+    def _schedule_sync(self) -> None:
+        def tick():
+            try:
+                from pilosa_tpu_torch.cluster.translate_sync import sync_translation
+                self._sync_schema()
+                applied = sync_translation(self.holder, self.cluster,
+                                           self.cluster.client)
+                repaired = self.syncer.sync_holder()
+                self.clean_holder()  # ownership GC backstop
+                if applied:
+                    self.stats.count("antiEntropyTranslateApplied", applied)
+                if repaired:
+                    self.stats.count("antiEntropyRepaired", repaired)
+                self.stats.count("antiEntropyPasses")
+            except Exception as e:
+                # Next tick retries; repairs must never kill the node —
+                # but the failure must be visible, not swallowed.
+                self._timer_tick_error("anti-entropy", e)
+            finally:
+                if not self._closed:
+                    self._schedule_sync()
+        self._sync_timer = threading.Timer(
+            self._jitter(self._anti_entropy_interval), tick)
+        self._sync_timer.daemon = True
+        self._sync_timer.start()
+
+    def _schedule_scrub(self) -> None:
+        def tick():
+            try:
+                res = self.scrubber.scrub_pass()
+                if res.get("mismatch"):
+                    self.stats.count("integrity.scrubMismatchFragments",
+                                     res["mismatch"])
+            except Exception as e:
+                # Next tick retries; the scrub must never kill the node.
+                self._timer_tick_error("scrub", e)
+            finally:
+                if not self._closed:
+                    self._schedule_scrub()
+        self._scrub_timer = threading.Timer(
+            self._jitter(self._scrub_interval), tick)
+        self._scrub_timer.daemon = True
+        self._scrub_timer.start()
 
     def _broadcast_shard(self, index: str, field: str, view: str, shard: int):
         """A new local fragment: tell every live peer (CreateShardMessage,
@@ -508,23 +842,59 @@ class ServerNode:
                 pass
 
     def handle_message(self, message: dict) -> None:
-        """POST /internal/cluster/message: the schema, availability and
-        index-dirty messages; the resize, join and topology messages
-        answer NotPortedError (501)."""
-        from pilosa_tpu_torch.errors import SLICE_CLUSTER, NotPortedError
-        t = message.get("type") or ""
-        if t == "index-dirty":
+        """POST /internal/cluster/message: schema, availability, index-dirty,
+        resize, topology and join messages (reference receiveMessage,
+        server.go:569-663)."""
+        t = message.get("type")
+        if t == "resize-instruction" and self.cluster is not None:
+            from pilosa_tpu_torch.cluster.resize import handle_resize_instruction
+            handle_resize_instruction(self.holder, self.cluster.client,
+                                      self.cluster, message, self.id)
+        elif t == "resize-instruction-complete":
+            from pilosa_tpu_torch.cluster.resize import deliver_completion
+            deliver_completion(message)
+        elif t == "index-dirty":
             if (self.cluster is not None
                     and not self.cluster.check_fencing_token(message)):
                 return  # stale coordinator's dirty coordination
             from pilosa_tpu_torch.cluster.dirty import apply_index_dirty
-            apply_index_dirty(self.holder, message, self.executor.remote_epochs)
-        elif (t.startswith("resize-") or t in ("cluster-status", "cluster-state",
-                                               "node-join")):
-            raise NotPortedError(f"the {t!r} message", SLICE_CLUSTER)
+            apply_index_dirty(self.holder, message,
+                              self.executor.remote_epochs)
+        elif t == "cluster-status" and self.cluster is not None:
+            from pilosa_tpu_torch.cluster.resize import apply_cluster_status
+            apply_cluster_status(self.cluster, message["nodes"],
+                                 holder=self.holder,
+                                 availability=message.get("availability"),
+                                 replica_n=message.get("replicaN"),
+                                 partition_n=message.get("partitionN"),
+                                 version=message.get("version"))
+            # Topology changed: GC fragments this node no longer owns
+            # (holderCleaner, holder.go:1126), once the grace has passed.
+            self._schedule_clean()
+        elif t == "cluster-state" and self.cluster is not None:
+            from pilosa_tpu_torch.cluster.resize import apply_cluster_state
+            apply_cluster_state(self.cluster, message["state"])
+        elif t == "resize-begin" and self.cluster is not None:
+            from pilosa_tpu_torch.cluster.resize import apply_resize_begin
+            apply_resize_begin(self.cluster, message)
+        elif t == "resize-end" and self.cluster is not None:
+            from pilosa_tpu_torch.cluster.resize import apply_resize_end
+            apply_resize_end(self.cluster, message)
+        elif t == "resize-push" and self.cluster is not None:
+            from pilosa_tpu_torch.cluster.resize import handle_resize_push
+            return handle_resize_push(self.holder, self.cluster.client,
+                                      self.cluster, message)
+        elif t == "resize-shard-cutover":
+            from pilosa_tpu_torch.cluster.resize import deliver_cutover
+            deliver_cutover(message, self.cluster)
+        elif t == "resize-dual-write-failed":
+            from pilosa_tpu_torch.cluster.resize import deliver_dual_write_failed
+            deliver_dual_write_failed(message)
         elif t in ("delete-index", "delete-field", "delete-view"):
-            # Apply, then unlink the on-disk tree: a peer that kept the
-            # stale files would resurrect the deleted data on restart.
+            # Apply to the holder (shared handler), then unlink the
+            # on-disk tree: a peer that kept the stale files would
+            # resurrect the deleted data into a recreated same-name
+            # index/field/view on restart.
             handle_cluster_message(self.holder, message)
             if self.store is not None:
                 prefix = [message["index"]]
@@ -533,10 +903,206 @@ class ServerNode:
                 if t == "delete-view":
                     prefix.append(message["view"])
                 self.store.delete_subtree_files(*prefix)
+        elif t == "node-join" and self.cluster is not None:
+            self.handle_join(message["addr"])
         else:
             handle_cluster_message(self.holder, message)
             if t in ("create-index", "create-field") and self.store is not None:
                 self.store.save_schema()
+
+    def handle_join(self, addr: str) -> str:
+        """A node announced itself. Non-coordinators forward; the
+        coordinator runs the add-resize (stream fragments, then commit +
+        broadcast the topology — the joiner learns the ring from the
+        cluster-status broadcast). Reference: eventReceiver -> nodeJoin
+        -> resize job (gossip/gossip.go:364, cluster.go:1796)."""
+        coord = self.cluster.coordinator()
+        if coord is not None and coord.id == addr:
+            # The flagged coordinator is announcing itself as a JOINER:
+            # its process restarted without cluster state, so the node
+            # every peer would forward this join to is precisely the one
+            # that cannot handle it (found by the chaos soak — a
+            # leaderless wedge where the solo ex-coordinator announced
+            # into a ring that kept forwarding the announce back to it).
+            # Deterministic handover: the first surviving member acts,
+            # takes the flag, and the commit broadcast carries it.
+            survivors = sorted(
+                (n for n in self.cluster.nodes if n.id != addr),
+                key=lambda n: (n.state == "DOWN", n.id))  # live first
+            if not survivors:
+                raise RuntimeError(
+                    "no surviving member to take over the join")
+            coord = survivors[0]
+            if coord.id == self.id:
+                # The handover is a TOPOLOGY CHANGE, not a local note:
+                # bump the version, persist, and broadcast, or peers
+                # (whose strictly-newer gate rejects same-version
+                # views) would keep forwarding joins to the stateless
+                # ex-coordinator and a restart would restore its flag
+                # from the old topology.json.
+                with self.cluster._lock:
+                    for n in self.cluster.nodes:
+                        n.is_coordinator = (n.id == self.id)
+                    self.cluster.topology_version += 1
+                    status = {"type": "cluster-status",
+                              "nodes": [n.to_json()
+                                        for n in self.cluster.nodes],
+                              "replicaN": self.cluster.replica_n,
+                              "partitionN": self.cluster.partition_n,
+                              "version": self.cluster.topology_version}
+                self.cluster.notify_topology()
+                for n in self.cluster.nodes:
+                    if n.id != self.id and n.state != "DOWN":
+                        try:
+                            self.cluster.client.send_message(n, status)
+                        except Exception:
+                            pass  # discovery pulls converge them later
+                coord = self.cluster.node_by_id(self.id)
+        if coord is None:
+            raise RuntimeError("no coordinator to handle join")
+        if coord.id != self.id:
+            self.cluster.client.send_message(
+                coord, {"type": "node-join", "addr": addr})
+            return "FORWARDED"
+        member = self.cluster.node_by_id(addr)
+        if member is not None:
+            # Idempotent re-admission: a joiner that is already in OUR
+            # ring but keeps announcing missed the commit broadcast (it
+            # is sitting solo, and a solo node has no peers to discover
+            # the ring through). Re-send the committed topology so a
+            # lost commit can never wedge a member outside the ring it
+            # belongs to (found by the chaos soak, seed 104).
+            from pilosa_tpu_torch.cluster.resize import holder_availability
+            status = {"type": "cluster-status",
+                      "nodes": [n.to_json() for n in self.cluster.nodes],
+                      "replicaN": self.cluster.replica_n,
+                      "partitionN": self.cluster.partition_n,
+                      "version": self.cluster.topology_version,
+                      "availability": holder_availability(self.holder)}
+            try:
+                self.cluster.client.send_message(member, status)
+            except (ConnectionError, RuntimeError):
+                pass
+            return "ALREADY_MEMBER"
+        # Run the (possibly long) data-moving resize OFF the request
+        # thread: the joiner's announce would otherwise time out on big
+        # transfers and its retry would race a second job. The gate
+        # makes duplicate/overlapping announces no-ops.
+        if self._resize_gate.locked():
+            return "RESIZING"
+
+        def run():
+            try:
+                self.resize("add", addr=addr)
+            except (RuntimeError, ConnectionError, ValueError):
+                pass  # joiner keeps announcing; next attempt retries
+
+        threading.Thread(target=run, name="join-resize",
+                         daemon=True).start()
+        return "STARTED"
+
+    def resize(self, action: str, node_id: str | None = None,
+               addr: str | None = None) -> str:
+        """Coordinator-driven membership change (api.go RemoveNode :1220;
+        node addition = reference's join-triggered resize). ONE job at a
+        time (the reference's single-job state machine,
+        cluster.go:1447): a second request while one runs is rejected."""
+        if self.cluster is None:
+            raise RuntimeError("standalone node cannot resize")
+        # Resizes RUN on the flagged coordinator: the stuck-RESIZING
+        # recovery heuristic consults the coordinator's state as the
+        # resize authority, so a job running anywhere else would make
+        # that heuristic (a) never recover if this node died mid-job,
+        # or (b) falsely reopen peer gates while the job lives.
+        # Non-coordinators REFUSE with the coordinator's address, like
+        # the reference (cluster.go:1870) — forwarding fire-and-forget
+        # would hide failures from the operator, and divergent
+        # coordinator views could ping-pong the message forever.
+        coord = self.cluster.coordinator()
+        if coord is not None and coord.id != self.id:
+            raise RuntimeError(
+                "node removal requests are only valid on the coordinator "
+                f"node: {coord.id}")
+        from pilosa_tpu_torch.cluster.resize import ResizeJob
+        new_nodes = [Node(id=n.id, uri=n.uri, is_coordinator=n.is_coordinator)
+                     for n in self.cluster.nodes]
+        if action == "remove":
+            new_nodes = [n for n in new_nodes if n.id != node_id]
+            if new_nodes and not any(n.is_coordinator for n in new_nodes):
+                # Never commit a leaderless ring (joins would have no
+                # authority to land on): hand the flag to this node —
+                # the one running the job — else the first LIVE
+                # survivor (a dead coordinator would route every
+                # join/resize at a corpse).
+                keep = next(
+                    (n for n in new_nodes if n.id == self.id),
+                    min(new_nodes,
+                        key=lambda n: (n.state == "DOWN", n.id)))
+                keep.is_coordinator = True
+        elif action == "add":
+            h, _, p = (addr or "").partition(":")
+            new_nodes.append(Node(id=addr,
+                                  uri=URI(scheme=self._scheme,
+                                          host=h, port=int(p))))
+        else:
+            raise ValueError(f"unknown resize action {action!r}")
+        if not self._resize_gate.acquire(blocking=False):
+            raise RuntimeError("resize already in progress")
+        try:
+            job = ResizeJob(self.cluster, self.holder, self.cluster.client,
+                            store=self.store)
+            job.cleaner = self._schedule_clean
+            self.api.resize_job = job
+            return job.run(new_nodes)
+        finally:
+            self._resize_gate.release()
+
+    #: seconds a newly adopted ring stands before this node's cleaner drops
+    #: what it no longer owns. Peers adopt a commit one broadcast apart, and
+    #: a query planned under the old ring can still send a leg here for a
+    #: shard that moved away: until the grace has passed, the fragment
+    #: answers it. (The JAX node cleans at once, and such a read misses
+    #: the shard: ROADMAP.md Queue 3.)
+    CLEANER_GRACE_S = 5.0
+
+    def _schedule_clean(self) -> None:
+        """A ring was just adopted: run the cleaner once it has stood
+        CLEANER_GRACE_S."""
+        with self._clean_lock:
+            self._clean_ring = (self.cluster.topology_version,
+                                time.monotonic() + self.CLEANER_GRACE_S)
+        self._clean_later()
+
+    def _clean_later(self) -> None:
+        timer = threading.Timer(self.CLEANER_GRACE_S + 0.05, self.clean_holder)
+        timer.daemon = True
+        timer.start()
+
+    def clean_holder(self) -> int:
+        """holderCleaner (holder.go:1126): drop fragments this node no
+        longer owns; also runs as an anti-entropy backstop. Nothing is
+        dropped until the ring has stood CLEANER_GRACE_S unchanged."""
+        if self.cluster is None:
+            return 0
+        now = time.monotonic()
+        with self._clean_lock:
+            version = self.cluster.topology_version
+            fresh = version != self._clean_ring[0]
+            if fresh:  # a ring adopted without _schedule_clean (a discovery pull)
+                self._clean_ring = (version, now + self.CLEANER_GRACE_S)
+            early = now < self._clean_ring[1]
+        if early:
+            if fresh:
+                self._clean_later()
+            return 0
+        from pilosa_tpu_torch.cluster.cleaner import clean_holder
+        try:
+            n = clean_holder(self.holder, self.cluster, store=self.store)
+        except Exception:
+            return 0  # GC must never take down the node
+        if n:
+            self.stats.count("holderCleanerRemoved", n)
+        return n
 
     def handle_internal_import(self, req: dict) -> None:
         """/internal/import payloads: a routed field import (a shard's
@@ -614,8 +1180,6 @@ class ServerNode:
         the archive; returns immediately (poll /restore/status). ``id``
         defaults to the newest complete backup; ``pitrOps`` caps WAL
         replay for point-in-time recovery."""
-        import time as _time
-
         from pilosa_tpu_torch.backup import (
             BackupError,
             RestoreJob,
@@ -632,7 +1196,7 @@ class ServerNode:
         archive = open_archive(root, stats=self.stats)
         backup_id = req.get("id")
         if not backup_id:
-            m = select_backup_at(archive, _time.time())
+            m = select_backup_at(archive, time.time())
             if m is None:
                 raise BackupError("restore: no complete backup in archive")
             backup_id = m["id"]

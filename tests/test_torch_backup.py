@@ -808,7 +808,13 @@ def test_server_takes_the_generated_config(tmp_path, capsys, monkeypatch):
         t_cli.main(["server", "--device", "cpu", "--config", str(cfg)])
     assert (seen["backup_interval"], seen["archive_url"], seen["backup_full_every"],
             seen["backup_keep_chains"], seen["ingest_transpose"]) == (0.0, None, 8, 2, "auto")
+    # ``join`` was refused until the elastic cluster was ported; it now
+    # reaches the node, and a key of a feature still to come is refused.
     cfg.write_text(cfg.read_text().replace('join = ""', 'join = "127.0.0.1:1"'))
+    with pytest.raises(Stop):
+        t_cli.main(["server", "--device", "cpu", "--config", str(cfg)])
+    assert seen["join"] == "127.0.0.1:1"
+    cfg.write_text(cfg.read_text().replace("# trace-endpoint = ", "trace-endpoint = "))
     with pytest.raises(SystemExit) as e:
         t_cli.main(["server", "--device", "cpu", "--config", str(cfg)])
     assert e.value.code == 2

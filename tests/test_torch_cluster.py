@@ -27,7 +27,7 @@ from pilosa_tpu_torch.cluster.harness import LocalCluster
 from pilosa_tpu_torch.cluster.resize import check_nodes
 from pilosa_tpu_torch.config import SHARD_WIDTH
 from pilosa_tpu_torch.core import FieldOptions, Holder
-from pilosa_tpu_torch.errors import ApiMethodNotAllowedError, NotPortedError
+from pilosa_tpu_torch.errors import ApiMethodNotAllowedError
 from pilosa_tpu_torch.exec import Executor
 from pilosa_tpu_torch.exec.result import result_to_json
 from pilosa_tpu_torch.obs.stats import MemoryStats
@@ -324,15 +324,27 @@ def test_liveness_sweep_cannot_reopen_resizing_gate():
 
 
 def test_resize_messages_are_not_ported():
-    """The resize and topology messages belong to the unported half of the
-    cluster slice; the harness refuses them by name."""
+    """The resize and topology messages were refused until the elastic
+    half of the cluster slice; now the harness applies them: a cluster
+    state, a resize-begin's migration table and its resize-end, a newer
+    committed topology, and a grow through ``add_node``."""
     lc = LocalCluster(2, device="cpu")
-    for msg in ({"type": "cluster-state", "state": STATE_RESIZING},
-                {"type": "resize-begin"}, {"type": "cluster-status", "nodes": []}):
-        with pytest.raises(NotPortedError, match="cluster and operations"):
-            lc.client.send_message(lc[0].cluster.nodes[1], msg)
-    with pytest.raises(NotPortedError):
-        lc.add_node()
+    peer = lc[0].cluster.nodes[1]
+    b = lc[1].cluster
+    lc.client.send_message(peer, {"type": "cluster-state", "state": STATE_RESIZING})
+    assert b.state == STATE_RESIZING
+    lc.client.send_message(peer, {"type": "cluster-state", "state": STATE_NORMAL})
+    assert b.state == STATE_NORMAL
+    ring = [n.to_json() for n in b.nodes]
+    lc.client.send_message(peer, {"type": "resize-begin", "job": "j1", "nodes": ring,
+                                  "coordinator": ring[0]})
+    assert b.migration is not None and b.migration.snapshot()["job"] == "j1"
+    lc.client.send_message(peer, {"type": "resize-end", "job": "j1"})
+    assert b.migration is None
+    lc.client.send_message(peer, {"type": "cluster-status", "nodes": ring, "version": 3})
+    assert b.topology_version == 3
+    cn = lc.add_node()
+    assert [n.id for n in lc[0].cluster.nodes] == ["node0", "node1", cn.id]
 
 
 def test_apply_schema_fans_out_cluster_wide():
@@ -490,10 +502,14 @@ def test_write_fanout_down_replica_counted_and_marked_dirty():
 
 
 def test_keys_on_a_cluster_are_not_ported():
-    """Translate sync is the unported half of the slice: a keyed query on a
-    cluster raises NotPortedError naming it."""
+    """Keyed queries on a cluster raised NotPortedError until translate
+    sync was ported; now the coordinator allocates for every node and a
+    key names one id through each."""
     lc = LocalCluster(2, device="cpu")
     lc.create_index("k")
     lc.create_field("k", "f", FieldOptions(keys=True))
-    with pytest.raises(NotPortedError, match="cluster and operations"):
-        lc.query("k", 'Row(f="a")')
+    assert lc.query("k", 'Row(f="a")')[0].columns().tolist() == []
+    lc.query("k", 'Set(3, f="a")', node=1)
+    for node in range(2):
+        assert lc.query("k", 'Row(f="a")', node=node)[0].columns().tolist() == [3]
+    assert lc[1].translator("k", "f", ["a", "b"]) == lc[0].translator("k", "f", ["a", "b"])

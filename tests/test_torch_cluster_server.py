@@ -46,7 +46,8 @@ def _boot(make, n: int, replica_n: int) -> list:
 
 def _port(addr, peers, replica_n):
     return TServerNode(bind=addr, peers=peers, replica_n=replica_n, device="cpu",
-                       check_nodes_interval=0.0)
+                       anti_entropy_interval=0.0, check_nodes_interval=0.0,
+                       scrub_interval=0.0)
 
 
 def _jax(addr, peers, replica_n):
@@ -259,9 +260,30 @@ def test_503_for_an_unavailable_shard_and_a_fenced_node():
 
 
 def test_unported_cluster_messages_answer_501(clusters):
-    tn, _ = clusters
-    for msg in ({"type": "resize-begin"}, {"type": "node-join", "addr": "x"}):
-        st, body, _ = call(tn[0], "POST", "/internal/cluster/message", msg)
-        assert st == 501 and b"cluster and operations" in body
-    st, body, _ = call(tn[0], "GET", "/debug/resize")
-    assert st == 501
+    """The resize and join messages answered 501 until the elastic half of
+    the cluster slice; now a resize-begin installs the same migration
+    table on a port node as on a JAX node (``GET /debug/resize``), its
+    resize-end drops it, and a join for a member already in the ring
+    answers as the JAX node does (the committed topology re-sent)."""
+    tn, jn = clusters
+    ring = {"t": [n.to_json() for n in tn[0].cluster.nodes],
+            "j": [n.to_json() for n in jn[0].cluster.nodes]}
+    got = {}
+    for side, nodes in (("t", tn), ("j", jn)):
+        msg = {"type": "resize-begin", "job": "resize-x", "nodes": ring[side],
+               "coordinator": ring[side][0], "replicaN": 2}
+        steps = [call(nodes[0], "GET", "/debug/resize"),
+                 call(nodes[0], "POST", "/internal/cluster/message", msg),
+                 call(nodes[0], "GET", "/debug/resize"),
+                 call(nodes[0], "POST", "/internal/cluster/message",
+                      {"type": "resize-end", "job": "resize-x"}),
+                 call(nodes[0], "GET", "/debug/resize"),
+                 call(nodes[0], "POST", "/internal/cluster/message",
+                      {"type": "node-join", "addr": nodes[1].id})]
+        got[side] = [(st, json.loads(body.decode().replace(
+            nodes[0].id, "A").replace(nodes[1].id, "B").replace(nodes[2].id, "C")))
+            for st, body, _ in steps]
+    assert got["t"] == got["j"]
+    assert [st for st, _ in got["t"]] == [200] * 6
+    assert got["t"][2][1]["migration"]["newNodes"] == ["A", "B", "C"]
+    assert got["t"][4][1] == {"job": None, "migration": None}

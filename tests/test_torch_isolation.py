@@ -115,3 +115,38 @@ def test_reduce_kernels_are_bound():
     for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src):
         assert len(params.split(",")) == len(kernels._SIGNATURES["reduce_kernels.cu"][name])
     assert {"scatter_bits_grouped", "scatter_bits", "or_fold"} <= set(kernels.LAUNCHES)
+
+
+ELASTIC_MODULES = ("faults", "sync", "cleaner", "migration", "translate_sync", "resize",
+                   "scrub")
+
+
+@pytest.mark.parametrize("name", ELASTIC_MODULES)
+def test_elastic_cluster_modules_are_checked(name):
+    """The elastic cluster's modules are the port's own copies, in the set
+    ``test_no_jax_imports`` walks, and import nothing of JAX or the JAX
+    package, at module level or inside a function."""
+    path = PKG / "cluster" / f"{name}.py"
+    assert path in set(PKG.rglob("*.py"))
+    assert not (_imported_roots(path) & set(FORBIDDEN))
+    code = (f"import sys, pilosa_tpu_torch.cluster.{name}\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'pilosa_tpu')]\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_elastic_entry_points_default_to_the_card(monkeypatch):
+    """A joining node and an in-process cluster grown by ``add_node`` run
+    on the card unless asked for the CPU."""
+    from pilosa_tpu_torch.cluster.harness import LocalCluster
+    from pilosa_tpu_torch.server.node import ServerNode
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServerNode(bind="127.0.0.1:19999", join="127.0.0.1:1")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LocalCluster(2)
+    lc = LocalCluster(2, device="cpu")
+    assert lc.add_node().holder.device == torch.device("cpu")

@@ -346,7 +346,7 @@ def test_routes_mirror_the_jax_table(nodes):
     jn, tn, _, _ = nodes
     j = [(p.pattern, sorted(m)) for p, m in j_build_routes(jn.api)]
     t = [(p.pattern, sorted(m)) for p, m in t_build_routes(tn.api)]
-    assert t == j + [("^/internal/import-stream$", ["POST"])]
+    assert t == j
 
 
 def _served(path: str) -> bool:
@@ -387,7 +387,9 @@ def _cluster_routes():
 
 
 def _unported_routes():
-    """(method, concrete path) of every table route the port answers 501."""
+    """(method, concrete path) of every route the port answered 501 until
+    the elastic half of the cluster slice (resize, fragment block sync and
+    the PTS1 import stream)."""
     jn_api = type("A", (), {"chaos_faults": False})()
     out = []
     for p, methods in j_build_routes(jn_api):
@@ -433,18 +435,36 @@ def test_cluster_routes_serve(nodes, method, path):
     on a standalone node they now answer as the JAX node's do, status and
     body (a standalone node's membership, availability and nodes, a
     malformed mux envelope's 400, a routed import without an index)."""
-    status, body = _same(nodes, method, path, b"{}" if method == "POST" else None)
-    assert status != 501, body
+    jn, tn, _, _ = nodes
+    got = []
+    for port in (jn.port, tn.port):
+        # Fresh connections: a malformed stream's 400 closes its connection.
+        client = Client(port)
+        try:
+            got.append(client(method, path, b"{}" if method == "POST" else None)[:2])
+        finally:
+            client.close()
+    assert got[1] == got[0]
+    assert got[1][0] != 501, got[1]
 
 
 @pytest.mark.parametrize("method,path", _unported_routes())
 def test_unported_routes_answer_501(nodes, method, path):
-    _, _, _, tc = nodes
-    status, body, _ = tc(method, path, b"{}" if method == "POST" else None)
-    assert status == 501
-    assert re.fullmatch(r".* is not ported to pilosa_tpu_torch yet "
-                        r"\(ROADMAP\.md Queue 1: [a-z ,:A-Z]+\)",
-                        json.loads(body)["error"])
+    """These routes answered 501 until the elastic cluster was ported; on a
+    standalone node they now answer as the JAX node's do, status and body
+    (the resize state at rest, a standalone node refusing a removal, a
+    malformed block request, a malformed import stream's 400)."""
+    jn, tn, _, _ = nodes
+    got = []
+    for port in (jn.port, tn.port):
+        # Fresh connections: a malformed stream's 400 closes its connection.
+        client = Client(port)
+        try:
+            got.append(client(method, path, b"{}" if method == "POST" else None)[:2])
+        finally:
+            client.close()
+    assert got[1] == got[0]
+    assert got[1][0] != 501, got[1]
 
 
 def test_unported_query_features_answer_501(nodes):
@@ -711,18 +731,48 @@ def test_node_defaults_to_the_card(monkeypatch):
 
 
 @pytest.mark.parametrize("argv,slice_name", [
-    (["--chaos-faults"], "cluster and operations"),
-    (["--join", "127.0.0.1:1"], "cluster and operations"),
-    (["--scrub-interval", "1"], "cluster and operations"),
+    (["--chaos-faults"], None),
+    (["--join", "127.0.0.1:1"], None),
+    (["--scrub-interval", "1"], None),
     (["--trace-endpoint", "http://127.0.0.1:1"], "cluster and operations"),
-    (["--ingest-max-inflight-mb", "64"], "cluster and operations"),
+    (["--ingest-max-inflight-mb", "64"], None),
 ])
-def test_cli_refuses_unported_flags(capsys, argv, slice_name):
-    with pytest.raises(SystemExit) as e:
-        cli.main(["server", "--device", "cpu", *argv])
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert "not ported" in err and slice_name in err
+def test_cli_refuses_unported_flags(monkeypatch, capsys, argv, slice_name):
+    """``--trace-endpoint`` is still refused, naming its slice; the elastic
+    cluster's flags (refused until it was ported) reach ServerNode with the
+    values the JAX CLI gives its node."""
+    if slice_name is not None:
+        with pytest.raises(SystemExit) as e:
+            cli.main(["server", "--device", "cpu", *argv])
+        assert e.value.code == 2
+        err = capsys.readouterr().err
+        assert "not ported" in err and slice_name in err
+        return
+    from pilosa_tpu.server import node as j_node_mod
+    from pilosa_tpu_torch.server import node as t_node_mod
+
+    keys = ("chaos_faults", "join", "scrub_interval", "ingest_max_inflight_mb",
+            "anti_entropy_interval")
+    for k in keys:
+        monkeypatch.delenv(f"PILOSA_TPU_{k.upper()}", raising=False)
+
+    def node_kwargs(cli_mod, node_mod, argv):
+        seen = {}
+
+        class Stop(Exception):
+            pass
+
+        def fake(**kw):
+            seen.update(kw)
+            raise Stop()
+
+        monkeypatch.setattr(node_mod, "ServerNode", fake)
+        with pytest.raises(Stop):
+            cli_mod.main(["server", *argv])
+        return {k: seen[k] for k in keys}
+
+    got = node_kwargs(cli, t_node_mod, ["--device", "cpu", *argv])
+    assert got == node_kwargs(j_cli, j_node_mod, argv)
 
 
 @pytest.mark.parametrize("argv,kwargs", [
