@@ -56,8 +56,8 @@ port's paths:
   per fragment, through ``plane_scatter`` where ``auto`` picks the device;
   every plane equal to the loaded ones), asked ``Sum``/``Min``/``Max``
   (with and without filters, one of them a BSI condition) and ``Count`` of
-  range conditions; then the whole field's import timed under
-  ``PILOSA_TPU_INGEST_TRANSPOSE`` = on, off, off, on;
+  range conditions; then the import of the last 240 shards' values timed
+  under ``PILOSA_TPU_INGEST_TRANSPOSE`` = off, on;
 - HTTP path: every query of both through ``POST /index/{i}/query`` on a
   keep-alive connection, each body held to the oracle and byte for byte
   to the in-process JSON with the same launches; warm latencies beside the
@@ -65,8 +65,8 @@ port's paths:
   concurrent clients; the 404/400/504 statuses and a resize abort with no
   job (200); ``/metrics``;
 - persist path: a second node with ``data_dir`` under
-  ``build/chip_smoke_data/`` takes the first 30 shards (``PERSIST_SHARDS``,
-  a thirty-second of the 1B columns) of ``bench`` and ``bsi`` the way Pilosa's
+  ``build/chip_smoke_data/`` takes the first 10 shards (``PERSIST_SHARDS``)
+  of the 1B columns of ``bench`` and ``bsi`` the way Pilosa's
   clients bulk-load (one ``import-roaring`` per field and shard, bodies
   from the first node's ``Fragment.to_roaring``; the BSI planes in process
   through ``interop.load_bsi_planes``), is closed (schema, snapshots, WAL
@@ -135,11 +135,12 @@ port's paths:
   the 4 GiB hll plane stack, ``Count(Distinct)`` on bench config 3's
   ``v`` (unfiltered: ONE ``hll_reduce`` of the register stack; filtered
   by the 5M-bit row: ONE ``hll_expand`` and ONE ``hll_reduce``; at
-  precision 16; under a threshold, the exact leg) and ``SimilarTopN`` on
+  precision 16 and, under a threshold, the exact leg, both over the first
+  96 shards) and ``SimilarTopN`` on
   the fields phase's 8-row ``b`` (ONE ``similar_count`` over a 1 GiB
   cube), both metrics, each equal to a numpy oracle (``sketch_values`` of
   the values, the rows' overlaps) and its HTTP body; then a keyed index on
-  a node with a data dir, 1M column keys and 1,024 row keys imported over
+  a node with a data dir, 500,000 column keys and 1,024 row keys imported over
   HTTP by keys: keyed ``Row``, ``Count`` and ``TopN`` bodies equal the
   oracle from the id map, a ``Count(Union)`` of 300 keyed rows is ONE
   ``plane_lookup`` under ``auto`` once its plane is built
@@ -172,10 +173,26 @@ port's paths:
   /cluster/resize/remove-node`` shrinks the ring back, node A's own
   fragments of the shards it took back holding none of the cleared bits;
   a bit posted to one owner alone reaches the other on the anti-entropy
-  tick (5 s, from a config file); a keyed index of 1M column keys gets
-  its ids through two members, one id a key everywhere, and a member's
+  tick (5 s, from a config file); a keyed index of 250,000 column keys
+  gets its ids through two members, one id a key everywhere, and a member's
   300-key batch launches ``plane_lookup``. Every body through every
-  member equals its oracle and node A's after each step.
+  member equals its oracle and node A's after each step. The defaults
+  cluster keeps data dirs under ``build/chip_smoke_cluster_backup/``:
+  before the writes, ``POST /backup`` on one member archives the whole
+  ring (every fragment once, from the first live owner); after them, one
+  owner of the written shard gets a bit flipped in its copy's WAL and the
+  incremental through that member captures the fragment from the other
+  owner; the defaults cluster stops, and ``POST /restore`` on a fresh
+  two-node cluster with data dirs (booted meanwhile, exporting spans with
+  ``--trace-endpoint`` to a collector double in this process) rebuilds the
+  chain, each fragment pushed to its owner: every body through both
+  members equals node A's and the oracle, ``pair_count`` and
+  ``row_counts`` launch on each, and one traced Count's spans reach the
+  collector under one trace id from the coordinator and its peer;
+- loadgen (``phase_loadgen``): ``python -m pilosa_tpu_torch.loadgen
+  smoke3`` and ``dr_drill`` with managed port nodes on the card, each
+  report gated by ``scripts/slo_gate.py`` against its baseline in
+  ``scripts/slo_baselines/``.
 
 The HTTP phase runs its 1 and 8 concurrent clients with dispatch
 coalescing off (launches equal to the serial sum) and on ``auto`` (at most
@@ -208,6 +225,7 @@ CPU rehearsal at a small size (plain kernel versions, no launch counts)::
     c.KEYS_COLS, c.KEYS_BATCH = 20_000, 5_000
     c.phase_keys(torch, "cpu", d, runs=2)
     c.phase_cluster(torch, "cpu", d, runs=2)
+    c.phase_loadgen(torch, "cpu", d)
     d["node"].close()
 
 (with ``c.PERSIST_SHARDS = 3`` and ``c.BACKUP_SET_COLS`` inside those
@@ -275,8 +293,14 @@ BSI_FILTER_BITS = 5_000_000
 #: shards below this into a fresh field in one batch (the native scatter),
 #: then the rest (per fragment: the device transpose under ``auto``).
 BSI_IMPORT_SHARDS = 8
-#: the whole-field import's modes, timed in this order on one host clock.
+#: the import A/B's modes, timed in this order on one host clock, and the
+#: last shards whose values it imports (a quarter of the 954: the whole
+#: field until the cluster phase's backup and restore came in). The last
+#: ones: a batch reaching shard 953 spans past the native scatter's 1 GiB
+#: guard, so each fragment takes the per-fragment path as the whole
+#: field's did.
 BSI_IMPORT_AB = ("off", "on")
+BSI_AB_SHARDS = 240
 BSI_QUERIES = {
     "sum": "Sum(field=v)",
     "min": "Min(field=v)",
@@ -329,12 +353,13 @@ PERSIST_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_data"
 #: bit as a 16-byte record before its flush (about 6 GiB).
 PERSIST_MIN_FREE_GIB = 19
 #: the shards of bench and bsi the persist phase's nodes hold: the first
-#: thirty-second of the 954 (all of them until the keys phase joined the
-#: run, when every bulk load, close, backup and restore of this phase was
-#: cut to a quarter, then to an eighth, to make room for it; to a
-#: sixteenth, then a thirty-second, when the cluster phase joined). Their
-#: queries ask node A for the same shards.
-PERSIST_SHARDS = 30
+#: ten of the 954 (all of them until the keys phase joined the run, when
+#: every bulk load, close, backup and restore of this phase was cut to a
+#: quarter, then to an eighth, to make room for it; to a sixteenth, then a
+#: thirty-second, when the cluster phase joined; to ten when the cluster
+#: phase's backup and restore of all 954 came in). Their queries ask node
+#: A for the same shards.
+PERSIST_SHARDS = 10
 #: the crash check's shard count: its semantics do not depend on size.
 CRASH_SHARDS = 3
 
@@ -353,6 +378,14 @@ def popcount_rows(words: np.ndarray) -> np.ndarray:
     lut = np.array([bin(i).count("1") for i in range(256)], dtype=np.uint8)
     b = words.view(np.uint8).reshape(words.shape[:-1] + (-1,))
     return lut[b].sum(axis=-1, dtype=np.int64)
+
+
+def distinct(x: np.ndarray) -> np.ndarray:
+    """The sorted distinct values of a 1-D array: ``np.unique``'s answer by
+    a sort and a neighbour mask (on the card host's numpy, np.unique of a
+    few million values takes seconds; ROADMAP.md item 20)."""
+    x = np.sort(np.asarray(x).ravel())
+    return x[np.concatenate(([True], x[1:] != x[:-1]))] if len(x) else x
 
 
 def card_line() -> str:
@@ -1240,7 +1273,7 @@ PACKED_ANY_CASES = {"any_k8": (8, 8, 6243), "any_k1024_kb4096": (1024, 4096, 624
 def sorted_sample(rng, n: int, limit: int, avoid=None) -> np.ndarray:
     """``n`` distinct integers of [0, limit) (fewer where ``limit`` or
     ``avoid`` leaves fewer), sorted, none of them in ``avoid`` (sorted)."""
-    pool = np.unique(rng.integers(0, limit, n + n // 4 + 16))
+    pool = distinct(rng.integers(0, limit, n + n // 4 + 16))
     if avoid is not None and len(avoid):
         pool = np.setdiff1d(pool, avoid, assume_unique=True)
     if len(pool) > n:
@@ -2253,7 +2286,7 @@ def scatter_case(name: str, seed: int = SEED):
     if name == "unsorted_segments":
         n = 200_000
         seg = rng.integers(0, 7, n).astype(np.int32)
-        flat = np.unique(seg.astype(np.int64) * bits + rng.integers(0, bits, n))
+        flat = distinct(seg.astype(np.int64) * bits + rng.integers(0, bits, n))
         perm = rng.permutation(len(flat))
         return (flat // bits).astype(np.int32)[perm], (flat % bits).astype(np.int32)[perm], 7
     if name == "out_of_range":  # dropped, as the JAX scatter drops them
@@ -2263,7 +2296,7 @@ def scatter_case(name: str, seed: int = SEED):
         return np.zeros(bits, np.int32), np.arange(bits, dtype=np.int32), 1
     if name == "row_leg_32":
         n = int(ROW_LEG_SHARDS * bits * COUNT_DENSITY)
-        flat = np.unique(rng.integers(0, ROW_LEG_SHARDS * bits, n))
+        flat = distinct(rng.integers(0, ROW_LEG_SHARDS * bits, n))
         return (flat // bits).astype(np.int32), (flat % bits).astype(np.int32), ROW_LEG_SHARDS
     if name == "empty_rows":  # rows 0, 2 and 5 of 7 empty, the sink too
         sizes = (0, 40_000, 0, 17, 3, 0, 90_001)
@@ -3076,7 +3109,7 @@ def bsi_data(n_shards: int, seed: int):
     rng = np.random.default_rng(seed)
     # distinct columns without a 1B-entry permutation: oversample, dedupe,
     # keep k of them at random
-    u = np.unique(rng.integers(0, n_cols, int(k * 1.05) + 16, dtype=np.int64))
+    u = distinct(rng.integers(0, n_cols, int(k * 1.05) + 16, dtype=np.int64))
     cols = np.sort(u[rng.permutation(len(u))[:k]])
     vals = rng.integers(BSI_MIN, BSI_MAX, k, dtype=np.int64)
     n_filt = max(1, BSI_FILTER_BITS * n_shards // COUNT_SHARDS)
@@ -3084,23 +3117,30 @@ def bsi_data(n_shards: int, seed: int):
     return n_cols, cols, vals, fpos
 
 
-def bsi_planes(cols: np.ndarray, vals: np.ndarray, n_shards: int, depth: int):
-    """[2 + depth, n_shards, W] uint32 planes (exists, sign, magnitude
-    bits) of distinct columns, built with one bincount per plane: the bits
-    of a word are distinct, so their sum is their OR."""
-    from pilosa_tpu_torch.config import WORDS_PER_SHARD
+def bsi_shard_planes(cols: np.ndarray, vals: np.ndarray, n_shards: int, depth: int):
+    """Yield (shard, [2 + depth, W] uint32 planes): the exists, sign and
+    magnitude bits of the distinct sorted columns ``cols`` in each shard,
+    one bincount a plane over the shard's slice (the bits of a word are
+    distinct, so their sum is their OR). A shard at a time keeps the
+    bincounts in cache and never holds the whole [2 + depth, n_shards, W]
+    image."""
+    from pilosa_tpu_torch.config import SHARD_WIDTH, WORDS_PER_SHARD
 
-    gword = cols >> 5  # column // 32 is (shard, word) in row-major order
-    bit = np.left_shift(np.uint64(1), (cols & 31).astype(np.uint64)).astype(np.float64)
-    mag = np.abs(vals)
-    masks = [None, vals < 0] + [((mag >> i) & 1) == 1 for i in range(depth)]
-    out = np.empty((2 + depth, n_shards, WORDS_PER_SHARD), dtype=np.uint32)
-    for j, m in enumerate(masks):
-        w = np.bincount(gword if m is None else gword[m],
-                        weights=bit if m is None else bit[m],
-                        minlength=n_shards * WORDS_PER_SHARD)
-        out[j] = w.astype(np.uint32).reshape(n_shards, WORDS_PER_SHARD)
-    return out
+    exp = SHARD_WIDTH.bit_length() - 1
+    bounds = np.searchsorted(cols, np.arange(n_shards + 1, dtype=np.int64) << exp)
+    for shard in range(n_shards):
+        c = cols[bounds[shard]:bounds[shard + 1]]
+        v = vals[bounds[shard]:bounds[shard + 1]]
+        word = (c & (SHARD_WIDTH - 1)) >> 5
+        bit = np.left_shift(np.uint64(1), (c & 31).astype(np.uint64)).astype(np.float64)
+        mag = np.abs(v)
+        masks = [None, v < 0] + [((mag >> i) & 1) == 1 for i in range(depth)]
+        out = np.empty((2 + depth, WORDS_PER_SHARD), dtype=np.uint32)
+        for j, m in enumerate(masks):
+            out[j] = np.bincount(word if m is None else word[m],
+                                 weights=bit if m is None else bit[m],
+                                 minlength=WORDS_PER_SHARD)
+        yield shard, out
 
 
 def bsi_oracles(cols: np.ndarray, vals: np.ndarray, fpos: np.ndarray) -> dict:
@@ -3199,19 +3239,19 @@ def phase_data(torch, card: str, data: dict, device: str = "cuda",
 
     t0 = time.perf_counter()
     n_cols, cols, vals, fpos = bsi_data(bsi_shards, SEED + 2)
+    made_s = time.perf_counter() - t0
     idx = h.index_or_raise("bsi")
     opts = idx.field("v").options
-    planes = bsi_planes(cols, vals, bsi_shards, idx.field("v").bsi_group.bit_depth)
     from pilosa_tpu_torch import interop
-    for shard in range(bsi_shards):
-        interop.load_bsi_planes(h, "bsi", "v", shard, planes[:, shard], opts)
-    del planes
+    for shard, planes in bsi_shard_planes(cols, vals, bsi_shards,
+                                          idx.field("v").bsi_group.bit_depth):
+        interop.load_bsi_planes(h, "bsi", "v", shard, planes, opts)
     idx.field("f").import_bits(np.ones(len(fpos), dtype=np.uint64),
                                fpos.astype(np.uint64))
     log(f"bsi index: {bsi_shards} shards, {n_cols} columns, {len(vals)} values in "
         f"[{BSI_MIN}, {BSI_MAX}) at depth {idx.field('v').bsi_group.bit_depth}, "
         f"filter of {len(fpos)} positions; made and loaded through interop in "
-        f"{time.perf_counter() - t0:.3f} s (host)")
+        f"{time.perf_counter() - t0:.3f} s (host; the values made in {made_s:.3f})")
     data["want_bsi"] = bsi_oracles(cols, vals, fpos)
     held = cols < PERSIST_SHARDS * SHARD_WIDTH
     data["want_bsi_persist"] = bsi_oracles(cols[held], vals[held], fpos)
@@ -3434,13 +3474,18 @@ def phase_bsi(torch, card: str, data: dict, runs: int = QUERY_RUNS) -> dict:
 
 
 def bsi_import_ab(idx, cols, vals, card: str) -> None:
-    """The whole field's import into a fresh field under each mode of
-    BSI_IMPORT_AB (PILOSA_TPU_INGEST_TRANSPOSE), on one host clock: past
-    the native scatter's 1 GiB guard, so every fragment takes the device
-    transpose under ``on`` and the host plane loop under ``off``. A
-    record, not a claim."""
+    """The values of the last BSI_AB_SHARDS shards imported into a fresh
+    field under each mode of BSI_IMPORT_AB (PILOSA_TPU_INGEST_TRANSPOSE),
+    on one host clock: past the native scatter's 1 GiB guard, so every
+    fragment takes the device transpose under ``on`` and the host plane
+    loop under ``off``. A record, not a claim."""
+    from pilosa_tpu_torch.config import SHARD_WIDTH
     from pilosa_tpu_torch.core import FieldOptions
     from pilosa_tpu_torch.ops import kernels
+
+    n_shards = int(cols.max()) // SHARD_WIDTH + 1
+    held = cols >= (n_shards - BSI_AB_SHARDS) * SHARD_WIDTH
+    cols, vals = cols[held], vals[held]
 
     old = os.environ.get("PILOSA_TPU_INGEST_TRANSPOSE")
     secs = {m: [] for m in BSI_IMPORT_AB}
@@ -3454,14 +3499,15 @@ def bsi_import_ab(idx, cols, vals, card: str) -> None:
             secs[mode].append(time.perf_counter() - t0)
             n = kernels.LAUNCHES["plane_scatter"] - before
             idx.delete_field("vt")
-            log(f"whole-field import under {mode}: {secs[mode][-1]:.3f} s, "
+            log(f"import of the last {BSI_AB_SHARDS} shards under {mode}: "
+                f"{secs[mode][-1]:.3f} s, "
                 f"{len(cols)} values, plane_scatter launches {n} (host clock)  [{card}]")
     finally:
         if old is None:
             os.environ.pop("PILOSA_TPU_INGEST_TRANSPOSE", None)
         else:
             os.environ["PILOSA_TPU_INGEST_TRANSPOSE"] = old
-    log(f"whole-field import, {' '.join(BSI_IMPORT_AB)}: "
+    log(f"import of the last {BSI_AB_SHARDS} shards, {' '.join(BSI_IMPORT_AB)}: "
         + ", ".join(f"{m} {statistics.median(v):.3f} s" for m, v in secs.items())
         + f" (median of each mode)  [{card}]")
 
@@ -3498,11 +3544,11 @@ def http_import_check(conn, data: dict, card: str) -> None:
     t0 = time.perf_counter()
     expect_ok(conn, "POST", "/index/bench/field/j/import", body)
     bits_ms = (time.perf_counter() - t0) * 1e3
-    pairs = np.unique(rows * n_cols + cols)
+    pairs = distinct(rows * n_cols + cols)
     checks = [("bench", f"Count(Row(j={r}))", int((pairs // n_cols == r).sum()))
               for r in range(4)]
 
-    vcols = np.unique(rng.integers(0, data["bsi_cols"], HTTP_IMPORT_N, dtype=np.int64))
+    vcols = distinct(rng.integers(0, data["bsi_cols"], HTTP_IMPORT_N, dtype=np.int64))
     vals = rng.integers(BSI_MIN, BSI_MAX, len(vcols), dtype=np.int64)
     expect_ok(conn, "POST", "/index/bsi/field/w",
               {"options": {"type": "int", "min": BSI_MIN, "max": BSI_MAX}})
@@ -4185,7 +4231,7 @@ def persist_crash(root: Path, device: str, card: str) -> None:
         expect_ok(c, "POST", "/index/c/field/v/import",
                   {"columnIDs": vcols.tolist(), "values": vals.tolist()})
         values.update(zip(vcols.tolist(), vals.tolist()))
-        local = np.unique(rng.integers(0, SHARD_WIDTH, 3000).astype(np.uint64))
+        local = distinct(rng.integers(0, SHARD_WIDTH, 3000).astype(np.uint64))
         expect_ok(c, "POST", "/index/c/field/f/import-roaring/1",
                   native.encode_roaring(np.uint64(5 * SHARD_WIDTH) + local))
         bits.update((5, SHARD_WIDTH + int(x)) for x in local)
@@ -5361,7 +5407,7 @@ FIELDS_KERNELS = ("row_counts", "tree_count", "group_count")
 def unique_pairs(cols: np.ndarray, rows: np.ndarray, n_rows: int):
     """The distinct (column, row) bits of a batch, sorted by column then
     row: what a set field holds after importing it."""
-    key = np.unique(cols.astype(np.int64) * n_rows + rows.astype(np.int64))
+    key = distinct(cols.astype(np.int64) * n_rows + rows.astype(np.int64))
     return key // n_rows, key % n_rows
 
 
@@ -5514,7 +5560,7 @@ def phase_fields(torch, card: str, data: dict, runs: int = FIELDS_RUNS,
     expect_ok(conn, "POST", "/index/bench/field/t/import",
               {"rowIDs": [7] * FIELDS_HTTP_BITS, "columnIDs": http_cols.tolist(),
                "timestamps": http_secs.tolist()})
-    want_http = len(np.unique(http_cols[http_hours >= 31 * 24]))
+    want_http = len(distinct(http_cols[http_hours >= 31 * 24]))
 
     # numpy oracles.
     t_oracle = time.perf_counter()
@@ -5529,11 +5575,11 @@ def phase_fields(torch, card: str, data: dict, runs: int = FIELDS_RUNS,
     want = {}
     for key, (lo_t, hi_t, lo_h, hi_h) in WINDOWS.items():
         sel = (t_rows == 1) & (t_hours >= lo_h) & (t_hours < hi_h)
-        in_window = np.unique(t_cols[sel])
+        in_window = distinct(t_cols[sel])
         want[f"time{key}"] = len(in_window)
         if key == "32":
             want["time_and"] = int(in_g2(in_window).sum())
-            rows = set(np.unique(t_rows[(t_hours >= lo_h) & (t_hours < hi_h)]).tolist())
+            rows = set(distinct(t_rows[(t_hours >= lo_h) & (t_hours < hi_h)]).tolist())
             if ((http_hours >= lo_h) & (http_hours < hi_h)).any():
                 rows.add(7)
             want["time_rows"] = {"rows": sorted(int(r) for r in rows)}
@@ -5745,15 +5791,20 @@ DISTINCT_QUERIES = {
     "distinct_p16": "Count(Distinct(field=v, precision=16))",
     "distinct_exact": "Count(Distinct(Row(f=1), field=v, threshold=200000))",
 }
+#: the first shards a variant asks (a cold first call builds each shard's
+#: planes on the host): precision 16 and the exact leg, each a cut of the
+#: default-precision runs over all 954 shards.
+DISTINCT_SHARDS = {"distinct_p16": 96, "distinct_exact": 96}
 #: SimilarTopN on bench's b (the fields phase's 8 rows over 1B columns:
 #: an [8, 1024, 32768] cube, 1 GiB, SIM_CUBE_MAX_BYTES), both metrics.
 SIMILAR_QUERIES = {
     "similar_jaccard": ("SimilarTopN(b, Row(a=1), n=5)", "jaccard"),
     "similar_overlap": ("SimilarTopN(b, Row(a=1), n=5, metric=overlap)", "overlap"),
 }
-#: the keyed index: 1,000,000 column keys, 1,024 row keys, one row a
-#: column, imported over HTTP by keys in batches.
-KEYS_COLS = 1_000_000
+#: the keyed index: 500,000 column keys (1,000,000 until the cluster
+#: phase's backup and restore came in), 1,024 row keys, one row a column,
+#: imported over HTTP by keys in batches.
+KEYS_COLS = 500_000
 KEYS_ROWS = 1024
 KEYS_BATCH = 100_000
 #: row keys of the keyed Union (a batch past the key plane's auto
@@ -5775,7 +5826,7 @@ def distinct_oracle(stored: np.ndarray, p: int, threshold: int) -> int:
 
     est = hll.sketch_values(stored, p).estimate()
     if threshold and est < threshold:
-        return int(len(np.unique(stored)))
+        return int(len(distinct(stored)))
     return int(round(est))
 
 
@@ -5785,8 +5836,8 @@ def similar_oracle(a_pairs, b_pairs, a_row: int, n: int, metric: str) -> list:
     then row id."""
     a_cols, a_rows = a_pairs
     b_cols, b_rows = b_pairs
-    filt = np.unique(a_cols[a_rows == a_row])
-    ids = np.unique(b_rows)
+    filt = distinct(a_cols[a_rows == a_row])
+    ids = distinct(b_rows)
     hit = np.isin(b_cols, filt)
     overlap = np.array([int((hit & (b_rows == r)).sum()) for r in ids])
     selfcnt = np.array([int((b_rows == r).sum()) for r in ids])
@@ -5854,7 +5905,7 @@ def phase_keys(torch, card: str, data: dict, runs: int = KEYS_RUNS) -> dict:
     similar_count over a 1 GiB cube), each equal to its numpy oracle and
     (but the exact leg, a host walk of every shard asked once in process)
     over HTTP to the in-process JSON. Then a keyed index on a node with a
-    data dir: 1M column keys and 1,024 row keys imported over HTTP by keys;
+    data dir: 500,000 column keys and 1,024 row keys imported over HTTP by keys;
     keyed Row, Count and TopN bodies equal the oracle built from the id
     map; a Union of 300 keyed rows under ``auto`` is ONE plane_lookup once
     the plane is built (``/debug/translate`` shows it); the bodies equal
@@ -5868,14 +5919,17 @@ def phase_keys(torch, card: str, data: dict, runs: int = KEYS_RUNS) -> dict:
     base = h.field("bsi", "v").bsi_group.base
     stored = vals - base
     in_f = np.isin(cols, fpos)
+    from pilosa_tpu_torch.config import SHARD_WIDTH
+    cut = {name: cols < n * SHARD_WIDTH for name, n in DISTINCT_SHARDS.items()}
     want = {"distinct": distinct_oracle(stored, 12, 1024),
             "distinct_filtered": distinct_oracle(stored[in_f], 12, 1024),
-            "distinct_p16": distinct_oracle(stored, 16, 1024),
-            "distinct_exact": distinct_oracle(stored[in_f], 12, 200000)}
+            "distinct_p16": distinct_oracle(stored[cut["distinct_p16"]], 16, 1024),
+            "distinct_exact": distinct_oracle(stored[in_f & cut["distinct_exact"]], 12,
+                                              200000)}
     a_pairs, b_pairs = data.pop("similar_pairs")
     for name, (_, metric) in SIMILAR_QUERIES.items():
         want[name] = similar_oracle(a_pairs, b_pairs, 1, 5, metric)
-    del cols, vals, fpos, stored, in_f, a_pairs, b_pairs
+    del cols, vals, fpos, stored, in_f, cut, a_pairs, b_pairs
     planner = Planner(h, max_cache_bytes=KEYS_STACK_BYTES)
     ex = Executor(h, planner=planner)
     node_planner = node.executor.planner
@@ -5888,26 +5942,31 @@ def phase_keys(torch, card: str, data: dict, runs: int = KEYS_RUNS) -> dict:
         for name, q in {**DISTINCT_QUERIES,
                         **{k: q for k, (q, _) in SIMILAR_QUERIES.items()}}.items():
             index = "bsi" if name.startswith("distinct") else "bench"
+            shards = (list(range(DISTINCT_SHARDS[name])) if name in DISTINCT_SHARDS
+                      else None)
+            path = QUERY_PATH.format(index) + (
+                "&shards=" + ",".join(map(str, shards)) if shards else "")
             t0 = time.perf_counter()
             got, launched = launches_of(lambda: result_to_json(
-                ex.execute(index, q, cache=False))[0])
+                ex.execute(index, q, shards=shards, cache=False))[0])
             first = (time.perf_counter() - t0) * 1e3
             if got != want[name]:
                 raise AssertionError(f"{q}: {got}, oracle {want[name]}")
             per_query[name] = {k: v for k, v in launched.items() if v}
+            over = f" over shards 0-{len(shards) - 1}" if shards else ""
             if name == "distinct_exact":
-                # Its exact leg walks every shard on the host, about 10 s a
-                # call: asked once, in process.
-                log(f"keys {q} = {json.dumps(got)} (oracle equal); first {first:.3f} ms, "
-                    f"launches {per_query[name]}  [{card}]")
+                # Its exact leg walks every shard asked on the host: asked
+                # once, in process.
+                log(f"keys {q}{over} = {json.dumps(got)} (oracle equal); first {first:.3f} "
+                    f"ms, launches {per_query[name]}  [{card}]")
                 continue
-            body = expect_ok(conn, "POST", QUERY_PATH.format(index), q)
+            body = expect_ok(conn, "POST", path, q)
             if json.loads(body)["results"] != [got]:
                 raise AssertionError(f"HTTP {q}: {body[:300]!r}, in process {got}")
-            p50, spread = p50_ms(lambda: ex.execute(index, q, cache=False), runs)
-            http_p50, http_spread = p50_ms(
-                lambda: expect_ok(conn, "POST", QUERY_PATH.format(index), q), runs)
-            log(f"keys {q} = {json.dumps(got)} (oracle equal, HTTP body equal); first "
+            p50, spread = p50_ms(lambda: ex.execute(index, q, shards=shards, cache=False),
+                                 runs)
+            http_p50, http_spread = p50_ms(lambda: expect_ok(conn, "POST", path, q), runs)
+            log(f"keys {q}{over} = {json.dumps(got)} (oracle equal, HTTP body equal); first "
                 f"{first:.3f} ms, launches {per_query[name]}; p50 in process {p50:.4f} ms "
                 f"({spread}), HTTP p50 {http_p50:.4f} ({http_spread}) ms over {runs} runs  "
                 f"[{card}]")
@@ -6063,21 +6122,227 @@ CLUSTER_KERNELS_NODES = ("pair_count", "tree_count")
 #: the phase's cluster and its joiner read from a config file, the wait
 #: for a resize or a repair, the acknowledged Set/Clear pairs sent through
 #: the coordinator while the grow runs, the bits cleared in shards that
-#: move off node A, the keyed index's column keys and row keys, and the
-#: kernels each node's launches over the part must include.
+#: move off node A, the keyed index's column keys (a quarter of the keys
+#: phase's million: the allocation path is the same at any count) and row
+#: keys, and the kernels each node's launches over the part must include.
 ELASTIC_SYNC_S = 5.0
 ELASTIC_WAIT_S = 300
 ELASTIC_WRITES = 6
 ELASTIC_CLEARS = 8
-ELASTIC_KEYS = 1_000_000
+ELASTIC_KEYS = 250_000
 ELASTIC_KEY_ROWS = 300
 ELASTIC_KERNELS = ("pair_count", "scatter_bits_grouped", "plane_lookup")
 ELASTIC_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_elastic"
+#: the cluster's backup and restore: the defaults cluster's data dirs, the
+#: archive they back up into, and the restore target's data dirs (a
+#: cluster of RESTORE_NODES on the CLI's defaults, replica RESTORE_REPLICAS:
+#: each fragment to one owner, half of them on the peer; replica 2 until a
+#: slow host's run passed 950 s).
+BACKUP_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_cluster_backup"
+RESTORE_NODES = 2
+RESTORE_REPLICAS = 1
+#: the restored members' launches over the bodies' checks must include.
+RESTORE_KERNELS = ("pair_count", "row_counts")
+#: the OTLP check: seconds to wait for a trace's spans at the collector
+#: (the exporter flushes every 2 s).
+OTLP_WAIT_S = 20
+
+
+class Collector:
+    """An OTLP/HTTP collector double on loopback: keeps every span POSTed
+    to ``/v1/traces`` with its node's service name."""
+
+    def __init__(self):
+        import http.server
+
+        self.spans: list[tuple[str, dict]] = []
+        lock = threading.Lock()
+        spans = self.spans
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_POST(self):
+                doc = json.loads(self.rfile.read(int(self.headers.get("Content-Length") or 0)))
+                with lock:
+                    for rs in doc["resourceSpans"]:
+                        svc = rs["resource"]["attributes"][0]["value"]["stringValue"]
+                        spans.extend((svc, sp) for ss in rs["scopeSpans"] for sp in ss["spans"])
+                self.send_response(200)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+            def log_message(self, *a):
+                pass
+
+        self.srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        threading.Thread(target=self.srv.serve_forever, daemon=True).start()
+        self.url = f"http://127.0.0.1:{self.srv.server_port}/v1/traces"
+
+    def trace(self, trace_id: str) -> list[tuple[str, dict]]:
+        """The (service, span) pairs of one trace id (the exporter's
+        ``traceId`` is the md5 of the node's trace id)."""
+        import hashlib
+
+        want = hashlib.md5(trace_id.encode()).hexdigest()
+        return [(svc, sp) for svc, sp in list(self.spans) if sp["traceId"] == want]
+
+    def close(self):
+        self.srv.shutdown()
+        self.srv.server_close()
+
+
+def backup_run(port: int, body: dict, what: str) -> tuple[dict, float]:
+    """POST /backup on one member and poll /backup/status to its end, which
+    must be ``done``; the status and the seconds, client clock."""
+    t0 = time.perf_counter()
+    conn = http_client(port)
+    try:
+        expect_ok(conn, "POST", "/backup", body)
+        st = await_job(conn, "/backup/status", what)
+    finally:
+        conn.close()
+    return st, time.perf_counter() - t0
+
+
+def corrupt_first_record(path: Path) -> None:
+    """Flip one bit inside a WAL's first record, whose valid records after
+    it make the copy corrupt on read (mid-file damage, not a torn tail)."""
+    with open(path, "r+b") as f:
+        f.seek(64)
+        b = f.read(1)
+        f.seek(64)
+        f.write(bytes([b[0] ^ 0x10]))
+
+
+def cluster_restore(card: str, device: str, dports: list, s: int, full: dict,
+                    check_all, bodies: dict, collector: Collector, stop_source) -> dict:
+    """The defaults cluster's incremental backup with one copy corrupt, and
+    its restore into a fresh cluster of another size. The writes of the
+    phase went through the defaults cluster after ``full``; shard ``s``
+    holds them. One of its owners (the member the backup runs through) gets a bit flipped
+    in its copy's WAL, so the incremental through that member captures the
+    fragment from the other owner (``backup.skippedQuarantined``). Then
+    the defaults cluster is killed (``stop_source``; its data dirs are
+    thrown away), RESTORE_NODES fresh members with data dirs
+    (booted meanwhile, exporting spans to ``collector``) restore the chain
+    over POST /restore, and every query through each of them equals node
+    A's body and its oracle, with ``pair_count`` and ``row_counts`` among
+    their launches; one query's spans then reach the collector under one
+    trace id from the coordinator and its peer. Returns the restored
+    members' launches and the measurements."""
+    from pilosa_tpu_torch.backup import LocalDirArchive
+
+    archive = BACKUP_DIR / "archive"
+    owners = [n["id"] for n in get_json(dports[0], f"/internal/fragment/nodes?index=bench"
+                                                   f"&shard={s}")]
+    via = next(p for p in dports if f"127.0.0.1:{p}" in owners)
+    other = next(i for i in owners if i != f"127.0.0.1:{via}")
+    # The restore target boots while the incremental runs.
+    booted: list = []
+    boot = threading.Thread(target=lambda: booted.append(cluster_start(
+        device, RESTORE_REPLICAS, (True,), data_dirs=[BACKUP_DIR / "restore"],
+        n_nodes=RESTORE_NODES, extra=["--trace-endpoint", collector.url])[0]))
+    t_boot = time.perf_counter()
+    boot.start()
+    out = {}
+    try:
+        wal = BACKUP_DIR / "defaults" / f"n{dports.index(via)}" / "bench" / "f" / "standard"
+        corrupt_first_record(wal / f"{s}.wal")
+        skipped0 = node_counters(via).get("backup.skippedQuarantined", 0)
+        st, secs = backup_run(via, {"archive": str(archive), "parent": full["id"]},
+                              "the incremental backup")
+        manifest = LocalDirArchive(str(archive)).read_manifest(st["id"])
+        src = {e["source"] for e in manifest["files"]
+               if (e.get("index"), e.get("field"), e.get("shard")) == ("bench", "f", s)}
+        skipped = node_counters(via).get("backup.skippedQuarantined", 0) - skipped0
+        if src != {other} or skipped < 1:
+            raise AssertionError(f"incremental: bench/f/standard/{s} captured from {src}, "
+                                 f"not {other}; {skipped} copies skipped as quarantined")
+        stored = [e for e in manifest["files"] if e.get("stored_in") is None]
+        out["incremental"] = {"s": secs, "files": len(manifest["files"]),
+                              "stored": len(stored), "bytes": sum(e["size"] for e in stored)}
+        log(f"cluster backup, incremental {st['id']} through {via} after the acknowledged "
+            f"writes: {len(stored)} of {len(manifest['files'])} files stored "
+            f"({out['incremental']['bytes']} bytes) in {secs:.3f} s (client clock); "
+            f"bench/f/standard/{s}'s copy on {via} corrupt (a bit flipped in its WAL's "
+            f"first record): captured from the other owner {other}, "
+            f"backup.skippedQuarantined {skipped}; archive {dir_bytes(archive)} bytes  "
+            f"[{card}]")
+    except BaseException:
+        boot.join()
+        for rnodes in booted:
+            cluster_stop(rnodes)
+        raise
+    stop_source()
+    boot.join()
+    t_ready = time.perf_counter()
+    if not booted:
+        raise AssertionError("the restore target did not boot")
+    rnodes = booted[0]
+    rports = [p for _, p in rnodes]
+    try:
+        log(f"restore target: {RESTORE_NODES} cli server processes on {rports} (CLI "
+            f"defaults, replica {RESTORE_REPLICAS}, data dirs, --trace-endpoint), all "
+            f"serving {t_ready - t_boot:.3f} s after their spawn")
+        t0 = time.perf_counter()
+        conn = http_client(rports[0])
+        expect_ok(conn, "POST", "/restore", {"archive": str(archive), "id": st["id"]})
+        rst = await_job(conn, "/restore/status", "the cluster restore")
+        conn.close()
+        secs = time.perf_counter() - t0
+        out["restore"] = {"s": secs, "job_s": rst.get("seconds"),
+                          "fragments": rst.get("totalFragments"), "bytes": rst.get("bytes"),
+                          "data_dir_bytes": dir_bytes(BACKUP_DIR / "restore")}
+        log(f"cluster restore of {st['id']} into the {RESTORE_NODES}-node cluster through "
+            f"{rports[0]}: {rst.get('totalFragments')} fragments, {rst.get('bytes')} archive "
+            f"bytes in {secs:.3f} s (client clock; the job's {rst.get('seconds')} s), each to "
+            f"its owner; data dirs {out['restore']['data_dir_bytes']} bytes  [{card}]")
+        before = {p: node_launches(p) for p in rports}
+        t0 = time.perf_counter()
+        check_all(rports, bodies, "(restored cluster: node A and oracle)")
+        after = {p: node_launches(p) for p in rports}
+        deltas = {p: {k: after[p][k] - before[p][k] for k in after[p]} for p in rports}
+        for p in rports:
+            log(f"restored member {p} launches over the queries: "
+                f"{json.dumps({k: v for k, v in deltas[p].items() if v})}")
+            if device == "cuda" and any(deltas[p][k] < 1 for k in RESTORE_KERNELS):
+                raise AssertionError(f"restored member {p}: no {RESTORE_KERNELS} launch")
+        out["check_s"] = time.perf_counter() - t0
+        out["launches"] = {k: sum(deltas[p][k] for p in rports) for k in deltas[rports[0]]}
+
+        # One query, one trace id: its spans on the coordinator (the call, the
+        # remote leg) and on the peer reach the collector under it.
+        tid = f"chip-smoke-otlp-{os.getpid()}"
+        conn = http_client(rports[0])
+        status, body = request(conn, "POST", "/index/bench/query?noCache=true",
+                               COUNT_QUERIES["count_intersect"], {"X-Pilosa-Trace-Id": tid})
+        conn.close()
+        if status != 200 or body != bodies["count_intersect"]:
+            raise AssertionError(f"traced query: HTTP {status} {body[:200]!r}")
+        t0 = time.perf_counter()
+        names = {f"pilosa-tpu:127.0.0.1:{p}" for p in rports}
+
+        def whole():
+            got = collector.trace(tid)
+            legs = [sp for _, sp in got if sp["name"] == "cluster.remoteLeg"]
+            return got if {svc for svc, _ in got} == names and legs else None
+
+        spans = wait_for("the traced query's spans from both members", whole, OTLP_WAIT_S, 0.25)
+        out["otlp"] = {"spans": len(spans), "s": time.perf_counter() - t0}
+        names_seen = ", ".join(sorted(f"{svc} {sp['name']}" for svc, sp in spans))
+        log(f"OTLP: one Count through {rports[0]} with trace id {tid}: {len(spans)} spans at "
+            f"the collector double under one trace id ({names_seen}) within "
+            f"{out['otlp']['s']:.3f} s of the answer")
+    finally:
+        cluster_stop(rnodes)
+    return out
+
+
 
 
 def cluster_start(device: str, replica_n: int, defaults: tuple = (False,),
-                  configs: list | None = None) -> list:
-    """One cluster a flag of ``defaults``, each CLUSTER_NODES ``cli server
+                  configs: list | None = None, data_dirs: list | None = None,
+                  n_nodes: int = CLUSTER_NODES, extra: list | None = None) -> list:
+    """One cluster a flag of ``defaults``, each ``n_nodes`` ``cli server
     --peers`` processes on loopback, every port picked ahead of boot
     (``--peers`` names them) and every process booting at once; returns a
     [(process, port)] list a cluster, in ring order (by address, the first
@@ -6086,12 +6351,15 @@ def cluster_start(device: str, replica_n: int, defaults: tuple = (False,),
     launch counts are fixed; one whose flag is True runs on the CLI's own
     settings (hedging on, device reduce ``auto``); ``configs`` names the
     config file each node of a False cluster reads, in ring order (None for
-    none)."""
+    none); ``data_dirs`` a data-dir root a cluster (None for none: node i's
+    dir is ``root/n{i}``), ``n_nodes`` the nodes a cluster and ``extra``
+    more flags for every node. Each node's boot split (the CLI's serving
+    line) is logged."""
     import socket
 
     from pilosa_tpu_torch.ops import build
 
-    socks = [socket.socket() for _ in range(CLUSTER_NODES * len(defaults))]
+    socks = [socket.socket() for _ in range(n_nodes * len(defaults))]
     for s in socks:
         s.bind(("127.0.0.1", 0))
     ports = [s.getsockname()[1] for s in socks]
@@ -6101,17 +6369,20 @@ def cluster_start(device: str, replica_n: int, defaults: tuple = (False,),
     spawned = []  # [(process, addr)] a cluster
     for i, own in enumerate(defaults):
         addrs = sorted(f"127.0.0.1:{p}"
-                       for p in ports[i * CLUSTER_NODES:(i + 1) * CLUSTER_NODES])
+                       for p in ports[i * n_nodes:(i + 1) * n_nodes])
         fixed = [] if own else ["--device-reduce", "on", "--hedge", "off"]
         cfg = [None] * len(addrs) if own or not configs else configs
+        root = data_dirs[i] if data_dirs else None
         spawned.append([(subprocess.Popen(
             [sys.executable, "-m", "pilosa_tpu_torch.cli", "server", "--bind", addr,
              "--peers", ",".join(a for a in addrs if a != addr),
              "--replica-n", str(replica_n), "--device", device, *fixed,
              *(["--config", c] if c else []),
+             *(["--data-dir", str(Path(root) / f"n{j}")] if root else []),
+             *(extra or []),
              "--qos-warmup", "", "--compile-cache-dir", str(build.BUILD_DIR)],
             cwd=Path(__file__).resolve().parent, env=env, stderr=subprocess.PIPE,
-            text=True), addr) for addr, c in zip(addrs, cfg)])
+            text=True), addr) for j, (addr, c) in enumerate(zip(addrs, cfg))])
     out = []
     for cluster in spawned:
         out.append([])
@@ -6120,6 +6391,7 @@ def cluster_start(device: str, replica_n: int, defaults: tuple = (False,),
             for line in proc.stderr:
                 seen.append(line)
                 if "serving at" in line:
+                    log(f"cluster node {addr}: {line.strip()}")
                     break
             else:
                 for p, _ in sum(spawned, []):
@@ -6143,6 +6415,16 @@ def cluster_stop(nodes) -> None:
         except subprocess.TimeoutExpired:
             proc.kill()
             proc.wait()
+
+
+def cluster_kill(nodes) -> None:
+    """SIGKILL every process of a cluster whose data dirs are thrown away
+    next: a SIGTERM's close would snapshot every fragment first."""
+    for proc, _ in nodes:
+        if proc.poll() is None:
+            proc.kill()
+    for proc, _ in nodes:
+        proc.wait()
 
 
 def node_launches(port: int) -> dict:
@@ -6175,7 +6457,7 @@ def small_data(seed: int) -> dict:
         w = 1.0 / np.arange(1, rows + 1) if f == "a" else np.ones(rows)
         r = rng.choice(rows, SMALL_BITS[f], p=w / w.sum())
         c = rng.integers(0, n_cols, SMALL_BITS[f])
-        key = np.unique(r.astype(np.int64) * n_cols + c)
+        key = distinct(r.astype(np.int64) * n_cols + c)
         out[f] = (key // n_cols, key % n_cols)
     cols = np.sort(rng.choice(n_cols, SMALL_VALUES, replace=False))
     vals = rng.choice(SMALL_VMAX - SMALL_VMIN, SMALL_VALUES, replace=False) + SMALL_VMIN
@@ -6224,7 +6506,7 @@ def small_oracles(d: dict, base: int) -> dict:
         "min": [{"value": int(vv.min()), "count": 1}],
         "max_filtered": [{"value": int(vv[in_b2].max()), "count": 1}],
         "distinct": [distinct_oracle(vv - base, 12, 1024)],
-        "rows": [{"rows": sorted(int(r) for r in np.unique(ar))}],
+        "rows": [{"rows": sorted(int(r) for r in distinct(ar))}],
         "count": [int(b1.sum())],
         "row_shards": [{"attrs": {}, "columns": sorted(int(c) for c in ac[sel])}],
     }
@@ -6308,6 +6590,7 @@ def node_spawn(device: str, addr: str, args: list) -> subprocess.Popen:
     for line in proc.stderr:
         seen.append(line)
         if "serving at" in line:
+            log(f"node {addr}: {line.strip()}")
             break
     else:
         proc.wait()
@@ -6509,12 +6792,9 @@ def cluster_elastic(card: str, device: str, ports: list, config: str, fw: np.nda
     try:
         job = wait_for("the resize job on A", lambda: get_json(a, "/debug/resize")["job"], 60)
         t_job = time.perf_counter()
-        # Writes start once D holds the schema (its instruction carries it,
-        # and D's first shard cut over): a write fanned out before that
-        # finds no index on D and fails the job (ROADMAP.md Queue 3).
-        wait_for("D's first shard cut over", lambda: (
-            lambda j: j["state"] != "RUNNING" or j["shards"]["migrated"] > 0)(
-                get_json(a, "/debug/resize")["job"]), 120, 0.05)
+        # Writes start with the job: its resize-begin carries the schema, so
+        # a dual write reaching D before its instruction finds the index
+        # (ROADMAP.md Queue 3, F2).
         mid, written = 0, []
         targets = [x for x in to_d if len(bits(x, True)) and len(bits(x, False))]
         while True:
@@ -6590,20 +6870,17 @@ def cluster_elastic(card: str, device: str, ports: list, config: str, fw: np.nda
         if memb["topologyVersion"] != 1 or ring_of(d) != sorted(ids + [d_id]):
             raise AssertionError(f"D restarted without its topology: {memb['topologyVersion']}, "
                                  f"{ring_of(d)}")
-        # A restarted member learns its peers' shards at the start of its
-        # first anti-entropy tick (ROADMAP.md Queue 3); bodies before it are
-        # short.
-        wait_for("D's first availability pull", lambda: len(get_json(
-            d, "/internal/availability")["bench"]["f"]) == n_shards, 4 * ELASTIC_SYNC_S)
-        t_synced = time.perf_counter()
-        check_all([d], bodies, "after D's restart from topology.json",
+        # D merges its peers' shard availability as it boots (ROADMAP.md
+        # Queue 3, F1): its first bodies, right after the boot, are whole.
+        check_all([d], bodies, "right after D's restart from topology.json",
                   (*CLUSTER_BENCH_QUERIES, "row_leg"))
-        out["restart_s"] = time.perf_counter() - t1
+        t_checked = time.perf_counter()
+        out["restart_s"] = t_checked - t1
         log(f"elastic restart: D SIGTERMed and booted again on its data dir with --peers and "
             f"no --join: topology version 1 and the four-node ring from topology.json, the "
-            f"bench's bodies equal via D ({out['restart_s']:.3f} s: closing {t_closed - t1:.3f}, booting "
-            f"{t_booted - t_closed:.3f}, D's first availability pull "
-            f"{t_synced - t_booted:.3f})  [{card}]")
+            f"bench's bodies equal via D right after its boot ({out['restart_s']:.3f} s: "
+            f"closing {t_closed - t1:.3f}, booting {t_booted - t_closed:.3f}, the checks "
+            f"{t_checked - t_booted:.3f})  [{card}]")
 
         # -- 4. shrink: remove D; A streams its shards back
         streamed0 = counters(ports, "cluster.resize.bytesStreamed")
@@ -6765,7 +7042,10 @@ def phase_cluster(torch, card: str, data: dict, runs: int = CLUSTER_RUNS) -> dic
     returned apart from the queries'. A second cluster on the CLI's
     defaults (hedging on, device reduce ``auto``), booted and loaded beside
     the first and given the same writes, gives every body again after the
-    writes (bodies only: hedged legs vary the launch counts) and stops.
+    writes (bodies only: hedged legs vary the launch counts); with data
+    dirs, it is backed up across its members before the writes and again
+    (incremental, one copy corrupt) after them, stops, and
+    ``cluster_restore`` restores the chain into a fresh two-node cluster.
     Then, before the SIGKILL, ``cluster_elastic`` grows the first cluster by
     a fourth member and shrinks it back."""
     from pilosa_tpu_torch.config import SHARD_WIDTH
@@ -6793,14 +7073,19 @@ def phase_cluster(torch, card: str, data: dict, runs: int = CLUSTER_RUNS) -> dic
     config = Path(__file__).resolve().parent / "build" / "chip_smoke_cluster.toml"
     config.parent.mkdir(parents=True, exist_ok=True)
     config.write_text(f"anti-entropy-interval = {ELASTIC_SYNC_S}\n")
+    # The defaults cluster keeps data dirs: the phase backs it up across its
+    # members and restores the archive into a cluster of another size.
+    shutil.rmtree(BACKUP_DIR, ignore_errors=True)
     nodes, dnodes = cluster_start(device, CLUSTER_REPLICAS, (False, True),
-                                  [None, str(config), str(config)])
+                                  [None, str(config), str(config)],
+                                  data_dirs=[None, BACKUP_DIR / "defaults"])
     ports, dports = [p for _, p in nodes], [p for _, p in dnodes]
     coord = ports[0]
     log(f"cluster: {CLUSTER_NODES} cli server processes on ports {ports}, replica "
         f"{CLUSTER_REPLICAS}, and {CLUSTER_NODES} on the CLI's defaults on {dports}, "
         f"booted together in {time.perf_counter() - t0:.3f} s")
     sd = small_data(SEED + 5)
+    collector = Collector()
     try:
         conn = http_client(coord)
         loaded = cluster_load([ports, dports], h, n_shards, sd)
@@ -6922,6 +7207,26 @@ def phase_cluster(torch, card: str, data: dict, runs: int = CLUSTER_RUNS) -> dic
             f"{prof['timings'].get('totalMs', 0):.3f} ms, timings {json.dumps(prof['timings'])}, "
             f"device {prof['dispatch']['deviceMs']:.3f} ms; legs: {legs}  [{card}]")
 
+        # The defaults cluster's full backup across its members, before the
+        # writes: its 954 shards of f=1 and g=2 and the small index.
+        full, secs = backup_run(dports[0], {"archive": str(BACKUP_DIR / "archive")},
+                                "the full cluster backup")
+        from pilosa_tpu_torch.backup import LocalDirArchive
+        manifest = LocalDirArchive(str(BACKUP_DIR / "archive")).read_manifest(full["id"])
+        frags = {(e["index"], e["field"], e["view"], e["shard"]) for e in manifest["files"]
+                 if e["kind"] in ("snap", "wal")}
+        sources = {}
+        for e in manifest["files"]:
+            if "source" in e:
+                sources[e["source"]] = sources.get(e["source"], 0) + 1
+        backup_full = {"s": secs, "fragments": len(frags), "files": len(manifest["files"]),
+                       "bytes": dir_bytes(BACKUP_DIR / "archive")}
+        log(f"cluster backup, full {full['id']} through {dports[0]} (POST /backup): "
+            f"{len(frags)} fragments, {len(manifest['files'])} files, "
+            f"{backup_full['bytes']} archive bytes in {secs:.3f} s (client clock); files by "
+            f"the member they were captured from {json.dumps(sources)}; the members' data "
+            f"dirs {dir_bytes(BACKUP_DIR / 'defaults')} bytes  [{card}]")
+
         # Writes through the coordinator, acknowledged, then node A alike.
         s = leg_shards[len(leg_shards) // 2]
         fb = np.unpackbits(fw[s].view(np.uint8), bitorder="little").astype(bool)
@@ -6960,7 +7265,9 @@ def phase_cluster(torch, card: str, data: dict, runs: int = CLUSTER_RUNS) -> dic
                 f"{now['scatter_bits_grouped'] - before[p]['scatter_bits_grouped']}, "
                 f"scatter_bits {now['scatter_bits'] - before[p]['scatter_bits']}, or_fold "
                 f"{now['or_fold'] - before[p]['or_fold']} (auto's calibration included)")
-        cluster_stop(dnodes)
+        restored = cluster_restore(card, device, dports, s, full, check_all, bodies,
+                                   collector, lambda: cluster_kill(dnodes))
+        restored["full"] = backup_full
 
         for col, on in ((col_set, True), (col_clear, False)):
             word, bit = divmod(col - s * SHARD_WIDTH, 32)
@@ -7064,13 +7371,77 @@ def phase_cluster(torch, card: str, data: dict, runs: int = CLUSTER_RUNS) -> dic
 
     finally:
         cluster_stop(nodes + dnodes)
+        collector.close()
+        shutil.rmtree(BACKUP_DIR, ignore_errors=True)
     launches = {k: sum(deltas[p][k] for p in ports) + elastic["launches"][k]
-                for k in deltas[coord]}
+                + restored["launches"][k] for k in deltas[coord]}
     log(f"cluster path launches (nodes' query legs and coordinators, the elastic part's "
-        f"included): {json.dumps({k: v for k, v in launches.items() if v})}")
+        f"and the restored members' included): "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}")
     log(f"cluster phase body: {time.perf_counter() - t_phase:.3f} s")
     return {"launches": launches, "fold_launches": fold, "elastic": elastic,
-            "p50": {"cluster": p50_c, "node_a": p50_a}, "crossover": xover}
+            "restored": restored, "p50": {"cluster": p50_c, "node_a": p50_a},
+            "crossover": xover}
+
+
+#: loadgen's scenarios the smoke run drives, each gated against its
+#: baseline in scripts/slo_baselines/, and where their reports go.
+LOADGEN_SCENARIOS = ("smoke3", "dr_drill")
+LOADGEN_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_loadgen"
+LOADGEN_TIMEOUT_S = 300
+
+
+def phase_loadgen(torch, card: str, data: dict) -> dict:
+    """``python -m pilosa_tpu_torch.loadgen <scenario> --device <device>``
+    for each of LOADGEN_SCENARIOS: managed port nodes in the loadgen
+    process (on the card), open-loop traffic, chaos (a slow peer that
+    heals; in ``dr_drill`` scheduled backups through a fault-injecting
+    object store, a member resized out with its data dir destroyed, and the
+    archive restored into a recovery cluster), each report gated by
+    ``scripts/slo_gate.py`` against its unchanged baseline."""
+    root = Path(__file__).resolve().parent
+    shutil.rmtree(LOADGEN_DIR, ignore_errors=True)
+    LOADGEN_DIR.mkdir(parents=True)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("PILOSA_TPU_")}
+    out = {}
+    for name in LOADGEN_SCENARIOS:
+        report = LOADGEN_DIR / f"{name}.json"
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "pilosa_tpu_torch.loadgen", name,
+                              "--device", data["device"], "--quiet", "--out", str(report)],
+                             cwd=root, env=env, capture_output=True, text=True,
+                             timeout=LOADGEN_TIMEOUT_S)
+        secs = time.perf_counter() - t0
+        if run.returncode != 0:
+            raise AssertionError(f"loadgen {name}: exit {run.returncode}: {run.stderr[-3000:]}")
+        gate = subprocess.run([sys.executable, str(root / "scripts" / "slo_gate.py"),
+                               str(report), str(root / "scripts" / "slo_baselines" /
+                                                f"{name}.json")],
+                              cwd=root, capture_output=True, text=True, timeout=60)
+        rep = json.loads(report.read_text())
+        classes = "; ".join(
+            f"{cls} client p50 {v['client']['p50Ms']} p99 {v['client']['p99Ms']} ms "
+            f"({v['client']['count']} requests, errorRate {v['errorRate']})"
+            + (f", server p50 {v['server']['p50Ms']} p99 {v['server']['p99Ms']} ms"
+               if v.get("server") else "")
+            for cls, v in sorted(rep["perClass"].items()))
+        log(f"loadgen {name}: {rep['target']['nodes']} managed nodes on {data['device']}, "
+            f"{rep['arrivals']['dispatched']} requests at {rep['arrivals']['rateAchieved']}/s "
+            f"(target {rep['arrivals']['rateTarget']}); {classes}; hedgeFired "
+            f"{rep['rates']['hedgeFired']}, hedgeWon {rep['rates']['hedgeWon']}, cache "
+            f"hitRatio {rep['cache']['hitRatio']}; chaos "
+            f"{[(c['action'], c['ok']) for c in rep['chaos']]}; {secs:.3f} s of command  "
+            f"[{card}]")
+        if rep.get("dr"):
+            log(f"loadgen {name} dr: {json.dumps(rep['dr'], sort_keys=True)}")
+        log(f"loadgen {name} gate: {gate.stdout.strip()}")
+        if gate.returncode != 0:
+            raise AssertionError(f"loadgen {name}: scripts/slo_gate.py exit "
+                                 f"{gate.returncode}: {gate.stdout[-2000:]}")
+        out[name] = {"s": secs, "perClass": rep["perClass"], "rates": rep["rates"],
+                     "dr": rep.get("dr")}
+    shutil.rmtree(LOADGEN_DIR, ignore_errors=True)
+    return out
 
 
 def bitops_columns(words: np.ndarray, base: int) -> np.ndarray:
@@ -7105,7 +7476,9 @@ def main() -> int:
               ("packed", lambda: phase_packed(torch, card, data)),
               ("fields", lambda: phase_fields(torch, card, data)),
               ("keys", lambda: phase_keys(torch, card, data)),
-              ("cluster", lambda: phase_cluster(torch, card, data)))
+              ("cluster", lambda: phase_cluster(torch, card, data)),
+              ("loadgen", lambda: phase_loadgen(torch, card, data)))
+    total = 0.0
     try:
         for name, phase in phases:
             log(f"== phase {name}")
@@ -7119,7 +7492,9 @@ def main() -> int:
                 torch.cuda.empty_cache()  # what the failed phase held
                 if name in ("toolchain", "data"):
                     break
+            total += time.perf_counter() - t0
             log(f"phase {name}: {time.perf_counter() - t0:.3f} s")
+        log(f"phases: {total:.3f} s in all")
     finally:
         if "node" in data:
             data["node"].close()

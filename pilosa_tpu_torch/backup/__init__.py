@@ -1,26 +1,26 @@
-"""Backup, restore, and point-in-time recovery on a single node.
+"""Backup, restore, and point-in-time recovery.
 
-The port's counterpart of pilosa_tpu/backup/: archives of every
-fragment's CRC-verified snapshot + WAL segment plus schema and attr
-stores, written through a small ``ArchiveStore`` interface
-(``LocalDirArchive`` for a directory, ``ObjectArchiveStore`` for an
-S3-compatible object store), in the JAX package's archive format, so an
-archive written by either package restores into the other.
+The port's counterpart of pilosa_tpu/backup/: cluster-consistent archives
+of every fragment's CRC-verified snapshot + WAL segment plus schema, key
+translation and attr stores, written through a small ``ArchiveStore``
+interface (``LocalDirArchive`` for a directory, ``ObjectArchiveStore``
+for an S3-compatible object store), in the JAX package's archive format,
+so an archive written by either package restores into the other.
 
-- ``BackupWriter``   -- full + incremental capture of the node's data
-  dir, rate-limited through the QoS internal class.
-- ``BackupScheduler``-- unattended periodic incrementals (epoch fast
-  path, failure backoff) plus the keep-N-full-chains retention pruner
+- ``BackupWriter``   -- full + incremental capture, coordinated across
+  the cluster so each shard is archived exactly once from a healthy
+  (non-quarantined) replica, rate-limited through the QoS internal
+  class.
+- ``BackupScheduler``-- unattended periodic incrementals (coordinator-
+  only with takeover, epoch fast path, failure backoff, suspended while
+  fenced) plus the keep-N-full-chains retention pruner
   (``retention.prune_archive``).
-- ``RestoreJob``     -- manifest-driven rebuild, preflighted against the
-  archive before it touches a data dir, CRC-verified on ingest, atomic
-  (all-or-nothing per restore).
+- ``RestoreJob``     -- manifest-driven rebuild of a fresh (possibly
+  differently sized) cluster, resharded through the placement layer,
+  preflighted against the archive before it touches a data dir,
+  CRC-verified on ingest, atomic (all-or-nothing per restore).
 - ``verify_archive`` -- offline archive check (manifest completeness,
   per-file CRCs, snapshot footers, WAL chain continuity).
-
-Each runs the JAX package's ``cluster=None`` path, translate stores
-included. Capture and restore across a cluster answer ``NotPortedError``
-(ROADMAP.md Queue 1: cluster and operations).
 """
 
 from .archive import (

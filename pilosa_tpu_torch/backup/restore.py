@@ -1,28 +1,30 @@
-"""RestoreJob -- manifest-driven rebuild + point-in-time recovery.
+"""RestoreJob -- manifest-driven cluster rebuild + point-in-time recovery.
 
-The port's counterpart of pilosa_tpu/backup/restore.py, on a single node.
-Restore runs on the node that received ``/restore``. The manifest is a
-complete logical file list: every fragment is rebuilt locally from its
-archived pair and imported through the fragment's WAL hook, so the restore
-itself is durable.
+The port's counterpart of pilosa_tpu/backup/restore.py. Restore runs on
+one node of the TARGET cluster (any node; whichever received
+``/restore``). The manifest is a complete logical file list, so the
+target's size is free to differ from the source's: every fragment is
+resharded through the target's own placement (``cluster.shard_nodes``)
+and pushed to each current owner -- local fragments are rebuilt in place
+(writing through the WAL so the restore itself is durable), remote ones
+ship over the internal import RPC. A single node (``cluster=None``) owns
+every shard.
 
-Fragment state is reconstructed from the archived pair before any import:
-apply the snapshot's row arrays, then replay the WAL segment with full op
-semantics (set_row/clear_row REPLACE rows -- feeding raw WAL ops to a
-bit-import would corrupt them), and only then flatten to (row, column)
-pairs. ``pitr_ops`` caps that replay at an op offset, which is
-point-in-time recovery: same base snapshot, shorter history.
+Fragment state is reconstructed LOCALLY from the archived pair before
+any import: apply the snapshot's row arrays, then replay the WAL segment
+with full op semantics (set_row/clear_row REPLACE rows -- feeding raw WAL
+ops to a bit-import would corrupt them), and only then flatten to
+(row, column) pairs. ``pitr_ops`` caps that replay at an op offset,
+which is point-in-time recovery: same base snapshot, shorter history.
 
-Failure is atomic: if any archived file fails its CRC, the job deletes
-everything it created and raises -- a half-restored index must never
-become visible as if it were whole.
+Failure is atomic: if any fragment cannot reach a single live owner, or
+any archived file fails its CRC, the job deletes everything it created
+(locally and on every live peer) and raises -- a half-restored index must
+never become visible as if it were whole.
 
 Key-translation files restore into the indexes' and fields' translate
 stores (``apply_entries``), attr files into the attr stores, as in the JAX
-package. A job given a cluster to restore across answers
-``NotPortedError`` (ROADMAP.md Queue 1: cluster and operations) before a
-data dir is touched; the JAX package's ``cluster=None`` path is the one
-this module runs.
+package.
 """
 
 from __future__ import annotations
@@ -43,7 +45,6 @@ from pilosa_tpu_torch.backup.archive import (
     file_crc,
     resolve_files,
 )
-from pilosa_tpu_torch.errors import SLICE_CLUSTER, NotPortedError
 from pilosa_tpu_torch.storage.diskstore import IO_WORKERS
 from pilosa_tpu_torch.storage.integrity import (
     LineCorruptError,
@@ -62,6 +63,13 @@ from pilosa_tpu_torch.storage.wal import (
 
 #: fragments a restore rebuilds and imports at once.
 RESTORE_WORKERS = IO_WORKERS
+
+
+def _distinct(x: np.ndarray) -> np.ndarray:
+    """``np.unique`` of a 1-D array by a sort and a neighbour mask (numpy's
+    own unique is far slower on some hosts' numpy; ROADMAP.md item 20)."""
+    x = np.sort(x)
+    return x[np.concatenate(([True], x[1:] != x[:-1]))] if len(x) else x
 
 
 def rebuild_fragment(snap_bytes: bytes | None, wal_bytes: bytes | None,
@@ -90,7 +98,7 @@ def rebuild_fragment(snap_bytes: bytes | None, wal_bytes: bytes | None,
             pos = positions[int(offsets[i]):int(offsets[i + 1])]
             # Snapshots hold each row sorted and distinct: a check is
             # cheaper than the sort np.unique would do.
-            rows[rid] = pos if np.all(pos[1:] > pos[:-1]) else np.unique(pos)
+            rows[rid] = pos if np.all(pos[1:] > pos[:-1]) else _distinct(pos)
     applied = 0
     if wal_bytes:
         for code, r, c in iter_wal_records(wal_bytes):
@@ -100,18 +108,23 @@ def rebuild_fragment(snap_bytes: bytes | None, wal_bytes: bytes | None,
             local = c.astype(np.int64) - base
             if code in (OP_ADD, OP_REMOVE):
                 n = min(len(r), len(c))
-                rids, inv = np.unique(r[:n], return_inverse=True)
-                for k, rid in enumerate(rids.tolist()):
-                    cols = local[:n][inv == k]
+                order = np.argsort(r[:n], kind="stable")
+                rs, cs = r[:n][order], local[:n][order]
+                cut = np.flatnonzero(rs[1:] != rs[:-1]) + 1
+                for lo, hi in zip(np.concatenate(([0], cut)).tolist(),
+                                  np.concatenate((cut, [n])).tolist()):
+                    if lo == hi:
+                        continue
+                    rid, cols = int(rs[lo]), cs[lo:hi]
                     cur = rows.get(rid)
                     if code == OP_ADD:
-                        rows[rid] = (np.unique(cols) if cur is None
-                                     else np.union1d(cur, cols))
+                        rows[rid] = _distinct(cols if cur is None
+                                              else np.concatenate((cur, cols)))
                     elif cur is not None:
-                        rows[rid] = np.setdiff1d(cur, cols)
+                        rows[rid] = cur[~np.isin(cur, cols)]
             elif code == OP_SET_ROW:
                 rid = int(r[0]) if len(r) else 0
-                rows[rid] = np.unique(local)
+                rows[rid] = _distinct(local)
             elif code == OP_CLEAR_ROW:
                 rid = int(r[0]) if len(r) else 0
                 rows.pop(rid, None)
@@ -187,9 +200,9 @@ class RestoreJob:
     def __init__(self, holder, cluster, client, archive, backup_id: str,
                  store=None, stats=None, logger=None, force: bool = False,
                  pitr_ops: int | None = None, on_fragment=None):
-        if cluster is not None:
-            raise NotPortedError("a restore across a cluster", SLICE_CLUSTER)
         self.holder = holder
+        self.cluster = cluster
+        self.client = client
         self.archive = archive
         self.backup_id = backup_id
         self.store = store
@@ -198,7 +211,7 @@ class RestoreJob:
         self.force = force
         self.pitr_ops = pitr_ops
         #: test hook: called with each fragment key just before its
-        #: import.
+        #: fan-out (the chaos drill kills a node from here).
         self.on_fragment = on_fragment
         self.progress: dict = {"state": "idle"}
         self._lock = threading.Lock()
@@ -221,18 +234,55 @@ class RestoreJob:
                 f"from backup {entry['stored_in']!r}")
         return data
 
-    # -- import ---------------------------------------------------------------
+    def _live_peers(self):
+        if self.cluster is None:
+            return []
+        return [n for n in self.cluster.nodes
+                if n.id != self.cluster.local_id and n.state != "DOWN"]
 
-    def _push_fragment(self, key: tuple, rows, cols) -> None:
-        """Import one rebuilt fragment into this node (the JAX package's
-        ``cluster=None`` path: the local node owns every shard)."""
-        index, field, view, shard = key
+    # -- local/remote import --------------------------------------------------
+
+    def _import_local(self, index, field, view, shard, rows, cols):
         f = self.holder.field(index, field)
         if f is None:
             raise LookupError(f"field not found: {index}/{field}")
         v = f.create_view_if_not_exists(view)
         frag = v.create_fragment_if_not_exists(shard)
         frag.bulk_import(rows, cols)
+
+    def _push_fragment(self, key: tuple, rows, cols) -> None:
+        """Import one rebuilt fragment into every CURRENT owner under the
+        target placement. A DOWN owner is skipped and the shard marked
+        dirty (the scrubber heals it when the node returns) -- but zero
+        reachable owners aborts the whole job."""
+        index, field, view, shard = key
+        delivered = 0
+        skipped = 0
+        if self.cluster is None:
+            self._import_local(index, field, view, shard, rows, cols)
+            delivered += 1
+        else:
+            for node in self.cluster.shard_nodes(index, shard):
+                if node.state == "DOWN":
+                    skipped += 1
+                    continue
+                try:
+                    if node.id == self.cluster.local_id:
+                        self._import_local(index, field, view, shard,
+                                           rows, cols)
+                    else:
+                        self.client.import_bits(node, index, field, view,
+                                                shard, rows, cols, False)
+                    delivered += 1
+                except (ConnectionError, OSError, RuntimeError):
+                    skipped += 1
+        if delivered == 0:
+            raise BackupError(
+                f"restore: no live owner reachable for "
+                f"{index}/{field}/{view}/{shard}")
+        if skipped and self.cluster is not None:
+            self.cluster.dirty_shards.mark(index, shard)
+            self._count("restore.replicasSkipped", skipped)
 
     # -- meta stores --------------------------------------------------------
 
@@ -263,8 +313,8 @@ class RestoreJob:
     # -- rollback -----------------------------------------------------------
 
     def _rollback(self, index_names: list[str]) -> None:
-        """All-or-nothing: tear the half-restored indexes back out so no
-        partially-visible index survives."""
+        """All-or-nothing: tear the half-restored indexes back out of
+        every live node so no partially-visible index survives."""
         for name in index_names:
             if self.holder.index(name) is not None:
                 try:
@@ -276,6 +326,12 @@ class RestoreJob:
                     self.store.delete_subtree_files(name)
                 except Exception:
                     pass
+            for node in self._live_peers():
+                try:
+                    self.client.send_message(
+                        node, {"type": "delete-index", "index": name})
+                except (ConnectionError, RuntimeError, OSError):
+                    pass  # that peer is gone; its cleaner converges later
         self._count("restore.rollbacks")
         self._log("restore: rolled back %s", ",".join(index_names))
 
@@ -314,10 +370,16 @@ class RestoreJob:
         preflight_restore(self.archive, manifest)
         self._count("restore.preflights")
         for name in conflicting:
-            # force: drop the live index before rebuilding.
+            # force: drop the live index everywhere before rebuilding.
             self.holder.delete_index(name)
             if self.store is not None:
                 self.store.delete_subtree_files(name)
+            for node in self._live_peers():
+                try:
+                    self.client.send_message(
+                        node, {"type": "delete-index", "index": name})
+                except (ConnectionError, RuntimeError, OSError):
+                    pass
 
         # Group the fragment entries: one (snap?, wal?) pair per key.
         frags: dict[tuple, dict] = {}
@@ -359,8 +421,10 @@ class RestoreJob:
                 self.progress["bytes"] = restored_bytes
 
         try:
-            # Schema first: imports land in existing fields.
+            # Schema first, everywhere: imports land in existing fields.
             self.holder.apply_schema(schema)
+            for node in self._live_peers():
+                self.client.post_schema(node, schema)
 
             # Fragments are independent: RESTORE_WORKERS at a time (reads,
             # zlib, CRCs and numpy release the interpreter lock). The JAX

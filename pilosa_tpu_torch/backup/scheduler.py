@@ -1,26 +1,24 @@
 """BackupScheduler -- unattended periodic backups with retention.
 
-The port's counterpart of pilosa_tpu/backup/scheduler.py, on a single
-node. Every ``interval`` seconds it drives one ``BackupWriter`` run
-through the QoS internal class, incremental against the last success,
-opening a fresh full chain every ``full_every`` runs so retention has
-something to prune. Design constraints, in order:
+The port's counterpart of pilosa_tpu/backup/scheduler.py. The scheduler
+turns operator-initiated backups into a background habit: every
+``interval`` seconds it drives one ``BackupWriter`` run through the QoS
+internal class, incremental against the last success, opening a fresh
+full chain every ``full_every`` runs so retention has something to
+prune. Design constraints, in order:
 
 - **never hurt the serving path.** A failing archive degrades to
   alerting (counters + log lines), never to blocking queries or
   crashing the node: every run is wrapped, every failure backs off
   exponentially (full jitter, bounded) before the next attempt.
-- **continue the chain.** The first run *adopts* the latest complete
-  backup in the archive as its incremental parent, so a restart doesn't
-  force a full.
+- **coordinator-only, with takeover.** On a cluster every node ticks,
+  but only the current coordinator captures; when the coordinator
+  changes, the new one's next tick picks the duty up and *adopts* the
+  latest complete backup in the archive as its incremental parent, so
+  a handoff doesn't force a full.
 - **no-op cycles are free.** If no index epoch moved since the parent
   manifest, the cycle is skipped without touching a fragment (the
   ``skipped-unchanged`` fast path).
-
-The JAX scheduler's coordinator-only duty, handoff and fencing gate
-belong to a cluster; a scheduler given one answers ``NotPortedError``
-(ROADMAP.md Queue 1: cluster and operations), and a single node is its
-own coordinator and never fenced.
 
 Health surface: ``backup.scheduler.{runs,skipped,failed,overruns,
 consecutiveFailures,lastSuccessEpoch}`` on /debug/vars and /metrics,
@@ -28,8 +26,8 @@ plus ``status()`` behind /debug/backup and a slowlog of runs that
 overran their interval.
 
 Deterministic by construction: the clock, and the jitter rng are
-injectable, so the fake-clock tests replay interval math and backoff
-curves exactly.
+injectable, so the fake-clock tests replay interval math, backoff
+curves, and coordinator handoffs exactly.
 """
 
 from __future__ import annotations
@@ -41,7 +39,6 @@ from collections import deque
 from pilosa_tpu_torch.backup.archive import BackupError
 from pilosa_tpu_torch.backup.retention import prune_archive
 from pilosa_tpu_torch.backup.writer import BackupWriter
-from pilosa_tpu_torch.errors import SLICE_CLUSTER, NotPortedError
 
 #: new full chain every N runs (the incremental chain's max length);
 #: retention prunes whole superseded chains.
@@ -54,6 +51,8 @@ SLOWLOG_KEEP = 16
 #: run_once outcomes
 RAN = "ran"
 SKIP_UNCHANGED = "skipped-unchanged"
+SKIP_NOT_COORDINATOR = "skipped-not-coordinator"
+SKIP_FENCED = "skipped-fenced"
 SKIP_NOT_DUE = "waiting"
 FAILED = "failed"
 
@@ -64,18 +63,18 @@ class BackupScheduler:
     is actually due, and it never raises."""
 
     def __init__(self, *, holder, cluster, client, store, archive,
-                 interval: float,
+                 interval: float, node_id: str | None = None,
                  stats=None, logger=None, admission=None,
                  full_every: int = DEFAULT_FULL_EVERY,
                  keep_chains: int = 0,
                  clock=_time.monotonic, rng=None):
-        if cluster is not None:
-            raise NotPortedError("a backup scheduler across a cluster",
-                                 SLICE_CLUSTER)
         self.holder = holder
+        self.cluster = cluster
+        self.client = client
         self.store = store
         self.archive = archive
         self.interval = interval
+        self.node_id = node_id
         self.stats = stats
         self.logger = logger
         self.admission = admission
@@ -114,9 +113,20 @@ class BackupScheduler:
         if self.logger is not None:
             self.logger.printf(fmt, *args)
 
+    def _is_coordinator(self) -> bool:
+        if self.cluster is None or self.node_id is None:
+            return True
+        coord = self.cluster.coordinator()
+        return coord is None or coord.id == self.node_id
+
     def _is_fenced(self) -> bool:
-        """A single node is never quorum-fenced."""
-        return False
+        """Fencing gate for the coordinator duty: a fenced coordinator
+        is on the minority side of a partition, where the majority may
+        already have a successor ticking -- two schedulers capturing and
+        pruning the same archive is exactly the split-brain retention
+        was not designed to survive."""
+        return (self.cluster is not None
+                and getattr(self.cluster, "fenced", False))
 
     def _current_epochs(self) -> dict:
         epochs = {}
@@ -128,7 +138,7 @@ class BackupScheduler:
         return epochs
 
     def _adopt_latest(self) -> None:
-        """Continue the chain across restarts:
+        """Continue the chain across restarts and coordinator handoffs:
         the latest complete backup in the archive becomes the parent,
         with the chain position recovered by walking its parents."""
         self._adopted = True
@@ -164,7 +174,7 @@ class BackupScheduler:
         return now >= self._next_due and now >= self._backoff_until
 
     def tick(self) -> str:
-        """Timer entry point: run if due, swallow everything — a broken
+        """Timer entry point: run if due, swallow everything -- a broken
         archive must degrade to counters, never take the node down."""
         try:
             if not self.due():
@@ -179,11 +189,26 @@ class BackupScheduler:
                  force: bool = False) -> str:
         """One scheduling decision + (maybe) one backup run. ``force``
         bypasses the due/backoff checks (drills, tests), not the
-        epoch checks."""
+        coordinator or epoch checks."""
         now = self.clock() if now is None else now
         self._next_due = now + self.interval
         if not force and now < self._backoff_until:
             return SKIP_NOT_DUE
+
+        if not self._is_coordinator():
+            # Another node owns the duty; stay warm for takeover.
+            self.skipped += 1
+            self._count("backup.scheduler.skipped")
+            self.last_status = SKIP_NOT_COORDINATOR
+            return SKIP_NOT_COORDINATOR
+
+        if self._is_fenced():
+            # Still nominally coordinator, but we cannot see a majority
+            # of the ring: suspend the duty until the fence lifts.
+            self.skipped += 1
+            self._count("backup.scheduler.skippedFenced")
+            self.last_status = SKIP_FENCED
+            return SKIP_FENCED
 
         if not self._adopted:
             self._adopt_latest()
@@ -194,7 +219,7 @@ class BackupScheduler:
             parent = self.last_manifest["id"]
 
         # Epoch fast path: no index moved since the parent capture and
-        # none appeared or vanished — the cycle is a no-op, skip it
+        # none appeared or vanished -- the cycle is a no-op, skip it
         # without touching a single fragment.
         if parent is not None \
                 and self._current_epochs() == self.last_manifest.get(
@@ -204,7 +229,8 @@ class BackupScheduler:
             self.last_status = SKIP_UNCHANGED
             return SKIP_UNCHANGED
 
-        writer = BackupWriter(self.holder, None, None, self.store, self.archive, stats=self.stats,
+        writer = BackupWriter(self.holder, self.cluster, self.client,
+                              self.store, self.archive, stats=self.stats,
                               logger=self.logger,
                               admission=self.admission)
         try:

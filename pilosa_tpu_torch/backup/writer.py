@@ -1,11 +1,15 @@
-"""BackupWriter -- full + incremental capture of one node.
+"""BackupWriter -- cluster-consistent full + incremental capture.
 
-The port's counterpart of pilosa_tpu/backup/writer.py, on a single node
-(the JAX package's ``cluster=None`` path). For every fragment key of the
-node's DiskStore it captures the on-disk pair -- CRC-verified ``.snap`` +
-the WAL segment's valid prefix -- exactly once. A quarantined or
-corrupt-on-read copy fails the run, so a backup never launders damage
-into the archive.
+The port's counterpart of pilosa_tpu/backup/writer.py. One node drives the
+backup (whichever received ``/backup`` -- any node works; the data plane
+is symmetric). For every fragment key known anywhere in the cluster it
+captures the on-disk pair -- CRC-verified ``.snap`` + the WAL segment's
+valid prefix -- exactly once, from the first healthy owner: the local
+store when this node owns the shard, a peer via the internal backup RPC
+(``backup_keys``/``backup_fragment``) otherwise. A quarantined or
+corrupt-on-read copy fails over to the next replica, so a backup never
+launders damage into the archive. A single node (``cluster=None``) is its
+own only owner.
 
 Snapshots are NOT forced before capture: the archived (snap, wal) pair
 reproduces the live state exactly (that is the load-path contract), and
@@ -14,19 +18,21 @@ a forced snapshot would truncate the very history PITR replays.
 
 Incremental mode captures only what changed since the parent manifest:
 an index whose mutation epoch stands still (same process incarnation)
-is skipped wholesale, and everything else is compared file by file by
-CRC, so an unchanged snapshot with a grown WAL ships just the WAL
-segment.
+is skipped wholesale -- except shards the write fan-out marked dirty --
+and everything else is compared file by file by CRC, so an unchanged
+snapshot with a grown WAL ships just the WAL segment.
 
-Every fragment's work is admitted under the QoS internal class, so a
-backup never starves user queries. A writer given a cluster answers
-``NotPortedError`` (ROADMAP.md Queue 1: cluster and operations).
+Every fragment's work is admitted under the QoS internal class, the
+same gate the scrubber uses, so a backup never starves user queries.
+Fragments are captured CAPTURE_WORKERS at a time (the JAX writer takes
+them one by one); the manifest is the same.
 """
 
 from __future__ import annotations
 
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 from pilosa_tpu_torch.backup.archive import (
     ArchiveStore,
@@ -43,8 +49,8 @@ from pilosa_tpu_torch.backup.archive import (
     new_backup_id,
     resolve_files,
 )
-from pilosa_tpu_torch.errors import SLICE_CLUSTER, NotPortedError
 from pilosa_tpu_torch.qos.admission import CLASS_INTERNAL, QueryShedError
+from pilosa_tpu_torch.storage.diskstore import IO_WORKERS
 from pilosa_tpu_torch.storage.integrity import SnapshotCorruptError, split_snapshot
 from pilosa_tpu_torch.storage.quarantine import ShardCorruptError
 from pilosa_tpu_torch.storage.wal import scan_wal
@@ -54,6 +60,8 @@ from pilosa_tpu_torch.storage.wal import scan_wal
 #: so it backs off and re-admits before giving up on the whole run.
 ADMIT_RETRIES = 40
 ADMIT_RETRY_DELAY = 0.05
+#: fragments a backup captures and stores at once.
+CAPTURE_WORKERS = IO_WORKERS
 
 
 def capture_fragment(store, key: tuple) -> dict:
@@ -61,10 +69,10 @@ def capture_fragment(store, key: tuple) -> dict:
 
     Returns ``{"snap": bytes|None, "wal": bytes|None, "ops": int}``.
     Raises ``ShardCorruptError`` when the local copy is quarantined or
-    fails verification on read and
+    fails verification on read (the caller fails over to a replica) and
     ``LookupError`` when the fragment has no durable files at all."""
     if store.quarantine.get(key) is not None:
-        # Any quarantine state — routed, unavailable, even degraded —
+        # Any quarantine state -- routed, unavailable, even degraded --
         # means this copy is not the full acknowledged truth.
         raise ShardCorruptError()
     import os
@@ -100,9 +108,9 @@ class BackupWriter:
     def __init__(self, holder, cluster, client, store,
                  archive: ArchiveStore, stats=None, logger=None,
                  admission=None):
-        if cluster is not None:
-            raise NotPortedError("a backup across a cluster", SLICE_CLUSTER)
         self.holder = holder
+        self.cluster = cluster
+        self.client = client
         self.store = store
         self.archive = archive
         self.stats = stats
@@ -134,31 +142,101 @@ class BackupWriter:
         raise BackupError("backup shed by admission control: node "
                           "overloaded, retry later")
 
+    def _local_id(self) -> str | None:
+        return self.cluster.local_id if self.cluster is not None else None
+
+    def _live_peers(self):
+        if self.cluster is None:
+            return []
+        return [n for n in self.cluster.nodes
+                if n.id != self.cluster.local_id and n.state != "DOWN"]
+
+    # -- enumeration -------------------------------------------------------
+
+    def _all_keys(self) -> dict[tuple, list]:
+        """Every fragment key known cluster-wide -> nodes listing it
+        (local node first when present)."""
+        keys: dict[tuple, list] = {}
+        for key in self.store.all_fragment_keys():
+            keys.setdefault(key, []).append(None)  # None = local
+        for node in self._live_peers():
+            try:
+                listed = self.client.backup_keys(node)
+            except (ConnectionError, RuntimeError, OSError):
+                self._count("backup.nodesUnreachable")
+                self._log("backup: cannot list fragments on %s", node.id)
+                continue
+            for item in listed:
+                keys.setdefault(tuple(item[:3]) + (int(item[3]),),
+                                []).append(node)
+        return keys
+
+    def _candidates(self, key: tuple, listers: list):
+        """Capture order: owners under current placement (local first),
+        then any non-owner that listed the key (stale former owners
+        still hold restorable bytes)."""
+        index, _field, _view, shard = key
+        out, seen = [], set()
+
+        def add(node):
+            nid = node.id if node is not None else None
+            if nid not in seen:
+                seen.add(nid)
+                out.append(node)
+
+        if self.cluster is not None:
+            for n in self.cluster.shard_nodes(index, shard):
+                if n.state == "DOWN":
+                    continue
+                add(None if n.id == self.cluster.local_id else n)
+        else:
+            add(None)
+        for n in listers:
+            add(n)
+        return out
+
     # -- capture -----------------------------------------------------------
 
-    def _capture(self, key: tuple) -> dict | None:
-        """One fragment's pair from the local store; None when the
-        fragment has no durable files (deleted mid-backup)."""
+    def _capture(self, key: tuple, listers: list) -> dict | None:
+        """Fetch one fragment from the first healthy candidate; None
+        when the fragment vanished everywhere (deleted mid-backup)."""
         index, field, view, shard = key
-        try:
-            pair = capture_fragment(self.store, key)
-        except ShardCorruptError:
-            self._count("backup.skippedQuarantined")
-            self._log("backup: %s/%s/%s/%d unhealthy on local", index, field,
-                      view, shard)
+        found = False
+        for node in self._candidates(key, listers):
+            try:
+                if node is None:
+                    pair = capture_fragment(self.store, key)
+                else:
+                    raw = self.client.backup_fragment(node, index, field,
+                                                      view, shard)
+                    pair = {"snap": raw.get("snap"), "wal": raw.get("wal"),
+                            "ops": int(raw.get("ops") or 0)}
+                    self._count("backup.fragmentsRemote")
+                pair["source"] = node.id if node is not None \
+                    else (self._local_id() or "local")
+                return pair
+            except ShardCorruptError:
+                found = True
+                self._count("backup.skippedQuarantined")
+                self._log("backup: %s/%s/%s/%d unhealthy on %s, trying "
+                          "next replica", index, field, view, shard,
+                          node.id if node is not None else "local")
+            except LookupError:
+                continue
+            except (ConnectionError, OSError, RuntimeError):
+                found = True
+                self._count("backup.fetchErrors")
+        if found:
             raise BackupError(
                 f"no healthy copy of {index}/{field}/{view}/{shard} "
-                "reachable: backup would be incomplete") from None
-        except LookupError:
-            return None
-        pair["source"] = "local"
-        return pair
+                "reachable: backup would be incomplete")
+        return None  # listed nowhere anymore: deleted mid-backup
 
     # -- meta stores -------------------------------------------------------
 
     def _meta_files(self) -> list[tuple[str, str, str, str | None, bytes]]:
         """[(rel_path, kind, index, field, jsonl bytes)] for every
-        non-empty translate and attr store, serialized from the in-memory
+        non-empty translate/attr store, serialized from the in-memory
         truth with the same checksummed line frames the data dir uses."""
         import json as _json
 
@@ -186,7 +264,8 @@ class BackupWriter:
             for fname, f in sorted(idx.fields.items()):
                 entries = f.translate_store.entries_since(0)
                 if entries:
-                    out.append((meta_rel_path(iname, fname, "translate.jsonl"),
+                    out.append((meta_rel_path(iname, fname,
+                                              "translate.jsonl"),
                                 KIND_TRANSLATE, iname, fname,
                                 jsonl([[i, k] for i, k in entries])))
                 ids = f.row_attr_store.ids()
@@ -214,13 +293,17 @@ class BackupWriter:
             parent_manifest = self.archive.read_manifest(parent)
             parent_files = resolve_files(parent_manifest)
 
-        keys = self._admitted(self.store.all_fragment_keys)
+        keys = self._admitted(self._all_keys)
+        dirty = set()
+        if self.cluster is not None:
+            dirty = self.cluster.dirty_shards.peek()
 
         # Epoch fast path: an index whose (instance, epoch) pair matches
-        # the parent's had no mutation since that capture — reference
-        # its fragment files wholesale. instance_id pins the comparison
-        # to one process incarnation: epochs restart at 0 across
-        # restarts.
+        # the parent's had no mutation since that capture -- reference
+        # its fragment files wholesale, except dirty shards (a DOWN
+        # replica missed a write there; re-capture settles which copy
+        # the archive trusts). instance_id pins the comparison to one
+        # process incarnation: epochs restart at 0 across restarts.
         epochs = {}
         for iname in self.holder.index_names():
             idx = self.holder.index(iname)
@@ -249,46 +332,65 @@ class BackupWriter:
                      "size": len(data), **extra}
             if pe is not None and pe.get("crc") == crc:
                 entry["stored_in"] = pe.get("stored_in", parent)
-                self.progress["unchanged"] += 1
+                with self._lock:
+                    self.progress["unchanged"] += 1
                 self._count("backup.skippedUnchanged")
             else:
                 self.archive.write(backup_id, rel, data)
-                stored_bytes += len(data)
-                self.progress["files"] += 1
-                self.progress["bytes"] = stored_bytes
+                with self._lock:
+                    stored_bytes += len(data)
+                    self.progress["files"] += 1
+                    self.progress["bytes"] = stored_bytes
             return entry
 
-        try:
-            for key in keys:
-                index, field, view, shard = key
-                if index in unchanged_indexes:
-                    for ext in ("snap", "wal"):
-                        rel = fragment_rel_path(index, field, view, shard,
-                                                ext)
-                        pe = parent_files.get(rel)
-                        if pe is not None:
-                            files.append(dict(pe))
+        def fragment_files(key: tuple) -> list[dict]:
+            """One fragment key's manifest entries, in snap, wal order."""
+            index, field, view, shard = key
+            out = []
+            if (index in unchanged_indexes
+                    and (index, shard) not in dirty):
+                for ext in ("snap", "wal"):
+                    rel = fragment_rel_path(index, field, view, shard, ext)
+                    pe = parent_files.get(rel)
+                    if pe is not None:
+                        out.append(dict(pe))
+                        with self._lock:
                             self.progress["unchanged"] += 1
+                with self._lock:
                     self.progress["doneFragments"] += 1
-                    continue
-                pair = self._admitted(lambda k=key: self._capture(k))
-                if pair is None:
-                    self.progress["doneFragments"] += 1
-                    continue
+                return out
+            pair = self._admitted(lambda: self._capture(key, keys[key]))
+            if pair is not None:
                 base = {"index": index, "field": field, "view": view,
                         "shard": shard, "source": pair["source"]}
                 if pair["snap"] is not None:
-                    files.append(store_file(
-                        fragment_rel_path(index, field, view, shard,
-                                          "snap"),
+                    out.append(store_file(
+                        fragment_rel_path(index, field, view, shard, "snap"),
                         KIND_SNAP, pair["snap"], **base))
                 if pair["wal"] is not None:
-                    files.append(store_file(
-                        fragment_rel_path(index, field, view, shard,
-                                          "wal"),
+                    out.append(store_file(
+                        fragment_rel_path(index, field, view, shard, "wal"),
                         KIND_WAL, pair["wal"], ops=pair["ops"], **base))
                 self._count("backup.fragments")
+            with self._lock:
                 self.progress["doneFragments"] += 1
+            return out
+
+        try:
+            # Fragments are independent: CAPTURE_WORKERS at a time (peer
+            # fetches, file reads, CRCs and archive writes overlap). The
+            # JAX writer takes them one by one; the manifest lists the same
+            # entries in the same key order. The first failure cancels what
+            # has not started.
+            with ThreadPoolExecutor(max_workers=CAPTURE_WORKERS) as pool:
+                futures = [pool.submit(fragment_files, key) for key in sorted(keys)]
+                try:
+                    for fut in futures:
+                        files.extend(fut.result())
+                except BaseException:
+                    for fut in futures:
+                        fut.cancel()
+                    raise
 
             for rel, kind_, iname, fname, data in self._meta_files():
                 files.append(store_file(rel, kind_, data, index=iname,
@@ -305,7 +407,12 @@ class BackupWriter:
                 "parent": parent,
                 "kind": kind,
                 "created": time.time(),
-                "cluster": {"nodes": 1, "replicaN": 1},
+                "cluster": {
+                    "nodes": (len(self.cluster.nodes)
+                              if self.cluster is not None else 1),
+                    "replicaN": (self.cluster.replica_n
+                                 if self.cluster is not None else 1),
+                },
                 "epochs": epochs,
                 "schema": schema,
                 "files": files,

@@ -4,9 +4,8 @@ the config.
 
 The port's counterpart of pilosa_tpu/cli.py's ``server``, ``import``,
 ``export``, ``check``, ``inspect``, ``backup``, ``restore``,
-``backup-verify``, ``config`` and ``generate-config`` commands. ``server`` takes the same flags, plus
-``--device``; a flag of a feature this slice does not carry exits with
-status 2 and names the ROADMAP.md slice that brings it. Config precedence
+``backup-verify``, ``config`` and ``generate-config`` commands.
+``server`` takes the same flags, plus ``--device``. Config precedence
 is the JAX package's: flags > env (``PILOSA_TPU_*``) > TOML file
 (``--config``).
 
@@ -39,14 +38,11 @@ import time
 import urllib.error
 import urllib.request
 
-from pilosa_tpu_torch.errors import SLICE_CLUSTER
 
 #: the JAX CLI's config table, key for key and value for value, so
 #: ``config`` prints what that CLI prints and a file either CLI writes
-#: configures both; the keys of features this slice does not carry are
-#: refused by ``server`` when set to anything but their default
-#: (``_UNPORTED``). The comments are the JAX CLI's: where they speak of XLA
-#: compiles, the port builds its CUDA kernels instead.
+#: configures both. The comments are the JAX CLI's: where they speak of
+#: XLA compiles, the port builds its CUDA kernels instead.
 _DEFAULTS = {
     "bind": "127.0.0.1:10101",
     "data_dir": "",
@@ -204,10 +200,6 @@ _PORT_DEFAULTS = {
     "device": "cuda",
 }
 
-#: server flags (by argparse dest) of features later slices bring, each
-#: with the ROADMAP.md Queue 1 slice that ports it.
-_UNPORTED = {"trace_endpoint": SLICE_CLUSTER}
-
 
 def _load_config(path: str | None, extra: dict | None = None) -> dict:
     cfg = dict(_DEFAULTS, **(extra or {}))
@@ -231,20 +223,8 @@ def _load_config(path: str | None, extra: dict | None = None) -> dict:
     return cfg
 
 
-def _refuse_unported(args, parser: argparse.ArgumentParser, cfg: dict) -> None:
-    """Exit 2 (argparse's usage error) on a flag, or a config key other
-    than its default, of a feature this slice does not carry."""
-    for dest, slice_name in _UNPORTED.items():
-        given = getattr(args, dest) != parser.get_default(dest)
-        if given or cfg.get(dest) != _DEFAULTS.get(dest):
-            flag = "--" + dest.replace("_", "-")
-            parser.error(f"{flag} is not ported to pilosa_tpu_torch yet "
-                         f"(ROADMAP.md Queue 1: {slice_name})")
-
-
 def cmd_server(args, parser: argparse.ArgumentParser) -> int:
     cfg = _load_config(args.config, _PORT_DEFAULTS)
-    _refuse_unported(args, parser, cfg)
     if args.bind:
         cfg["bind"] = args.bind
     if args.device:
@@ -265,6 +245,8 @@ def cmd_server(args, parser: argparse.ArgumentParser) -> int:
         cfg["tls_ca_cert"] = args.tls_ca_cert
     if args.tls_skip_verify:
         cfg["tls_skip_verify"] = "true"
+    if args.trace_endpoint:
+        cfg["trace_endpoint"] = args.trace_endpoint
     if args.breaker_threshold is not None:
         cfg["breaker_threshold"] = args.breaker_threshold
     if args.breaker_cooldown is not None:
@@ -354,7 +336,9 @@ def cmd_server(args, parser: argparse.ArgumentParser) -> int:
     if args.compile_cache_dir is not None:
         cfg["compile_cache_dir"] = args.compile_cache_dir
 
+    t_import = time.perf_counter()
     from pilosa_tpu_torch.server.node import ServerNode
+    t_node = time.perf_counter()
     node = ServerNode(
         bind=cfg["bind"],
         device=cfg["device"],
@@ -417,11 +401,18 @@ def cmd_server(args, parser: argparse.ArgumentParser) -> int:
         join=str(cfg["join"]) or None,
         chaos_faults=bool(cfg["chaos_faults"]),
         ingest_max_inflight_mb=int(cfg["ingest_max_inflight_mb"]),
+        trace_endpoint=str(cfg["trace_endpoint"]) or None,
     )
+    t_open = time.perf_counter()
     node.open()
+    t_served = time.perf_counter()
     where = f", data dir {cfg['data_dir']}" if cfg["data_dir"] else ""
+    # Where the boot's seconds went: the imports (torch among them), the
+    # node (device, data dir load, cluster view), open (listener, timers).
     print(f"pilosa-tpu-torch serving at {node.address} on "
-          f"{node.holder.device}{where}", file=sys.stderr, flush=True)
+          f"{node.holder.device}{where} (boot: imports {t_node - t_import:.3f} s, "
+          f"node {t_open - t_node:.3f} s, open {t_served - t_open:.3f} s)",
+          file=sys.stderr, flush=True)
     # Orchestrators stop nodes with SIGTERM; ctrl-C keeps its
     # KeyboardInterrupt path.
     stop = threading.Event()
@@ -936,7 +927,8 @@ def _server_parser(sub) -> argparse.ArgumentParser:
     s.add_argument("--chaos-faults", action="store_true",
                    help="mount POST /internal/fault (chaos testing "
                         "only; never on production nodes)")
-    s.add_argument("--trace-endpoint", default="")
+    s.add_argument("--trace-endpoint", default="",
+                   help="OTLP/HTTP collector URL for trace export")
     s.add_argument("--compile-cache-dir", default=None)
     s.add_argument("--plan-buckets", choices=("pow2", "none"), default=None,
                    help="stack-height bucketing of the planner")

@@ -290,6 +290,17 @@ class LocalClient:
     def nodes(self, node) -> list[dict]:
         return self._peer(node).handle_nodes()
 
+    def backup_keys(self, node) -> list:
+        """Fragment keys a peer holds durable files for (backup
+        coordinator enumeration)."""
+        return self._peer(node).handle_backup_keys()
+
+    def backup_fragment(self, node, index, field, view, shard) -> dict:
+        """One fragment's verified (snap, wal) pair from a peer; raises
+        ShardCorruptError when that copy is unhealthy."""
+        return self._peer(node).handle_backup_fragment(index, field, view,
+                                                       shard)
+
     def attr_blocks(self, node, index, field):
         return self._peer(node).handle_attr_blocks(index, field)
 

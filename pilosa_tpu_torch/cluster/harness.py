@@ -148,7 +148,7 @@ class ClusterNode:
             apply_cluster_state(self.cluster, message["state"])
         elif t == "resize-begin":
             from pilosa_tpu_torch.cluster.resize import apply_resize_begin
-            apply_resize_begin(self.cluster, message)
+            apply_resize_begin(self.cluster, message, holder=self.holder)
         elif t == "resize-end":
             from pilosa_tpu_torch.cluster.resize import apply_resize_end
             apply_resize_end(self.cluster, message)
@@ -269,6 +269,22 @@ class ClusterNode:
     def handle_translate_entries(self, index, field, after_id):
         from pilosa_tpu_torch.cluster.translate_sync import translate_entries
         return translate_entries(self.holder, index, field, after_id)
+
+    def handle_backup_keys(self):
+        """Fragment keys this node holds durable files for (the backup
+        coordinator's cluster-wide enumeration)."""
+        if self.store is None:
+            return []
+        return [list(k) for k in self.store.all_fragment_keys()]
+
+    def handle_backup_fragment(self, index, field, view, shard):
+        """One fragment's archived pair for the backup coordinator:
+        raises ShardCorruptError when the local copy is quarantined or
+        fails verification (the coordinator fails over to a replica)."""
+        if self.store is None:
+            raise LookupError("node has no durable store")
+        from pilosa_tpu_torch.backup.writer import capture_fragment
+        return capture_fragment(self.store, (index, field, view, shard))
 
     def _attr_store(self, index, field):
         idx = self.holder.index(index)

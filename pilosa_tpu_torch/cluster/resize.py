@@ -101,7 +101,7 @@ def deliver_cutover(message: dict, cluster: Cluster | None = None) -> None:
             mig.mark_cutover(message["index"], int(message["shard"]))
 
 
-def apply_resize_begin(cluster: Cluster, message: dict) -> None:
+def apply_resize_begin(cluster: Cluster, message: dict, holder=None) -> None:
     """Peer half of the serve-through handshake: install the migration
     table so every write fanned out by THIS member also lands on the
     shard's future owners. Replaces any stale table — one job at a time
@@ -109,9 +109,13 @@ def apply_resize_begin(cluster: Cluster, message: dict) -> None:
     the previous job is dead. A begin carrying a STALE fencing token is
     from a coordinator deposed by a takeover/commit we already adopted:
     installing its table would dual-apply writes toward a ring that
-    will never commit, so it is rejected outright."""
+    will never commit, so it is rejected outright. The begin's schema
+    goes into ``holder`` first, so a joiner has every index before the
+    first dual write reaches it."""
     if not cluster.check_fencing_token(message):
         return
+    if holder is not None and message.get("schema"):
+        holder.apply_schema(message["schema"])
     from pilosa_tpu_torch.cluster.migration import MigrationTable
     cluster.migration = MigrationTable.from_message(cluster, message)
 
@@ -685,6 +689,11 @@ class ResizeJob:
                  "nodes": [n.to_json() for n in new_nodes],
                  "replicaN": self.cluster.replica_n,
                  "partitionN": self.cluster.partition_n,
+                 # The schema, as the instruction carries it: a joiner
+                 # takes dual writes from this broadcast on, and a write
+                 # fanned out before its instruction must find its index
+                 # (ROADMAP.md Queue 3, F2; the JAX begin carries none).
+                 "schema": self.holder.schema(),
                  # Fencing token: peers reject this begin if they have
                  # already adopted a newer topology (deposed coordinator).
                  "fencingToken": self.cluster.fencing_token()}

@@ -589,22 +589,31 @@ class Field:
         cut = np.flatnonzero(shards[1:] != shards[:-1]) + 1
         bounds = np.concatenate(([0], cut, [len(shards)])).tolist()
         touched = shards[bounds[:-1]].tolist()
+        changed_shards = []
+        landed = False
         try:
             for i, shard in enumerate(touched):
                 lo, hi = bounds[i], bounds[i + 1]
+                fresh = view.fragments.get(shard) is None
                 frag = view.create_fragment_if_not_exists(shard, bump_epoch=False)
                 if mutex:
                     base = np.uint64(shard * SHARD_WIDTH)
-                    frag.bulk_import_mutex(rows[lo:hi],
-                                           local[lo:hi].astype(np.uint64) + base)
+                    changed = frag.bulk_import_mutex(
+                        rows[lo:hi], local[lo:hi].astype(np.uint64) + base)
                 else:
-                    frag.bulk_import_sorted_local(rows[lo:hi], local[lo:hi],
-                                                  clear=clear, bump_epoch=False)
+                    changed = frag.bulk_import_sorted_local(
+                        rows[lo:hi], local[lo:hi], clear=clear, bump_epoch=False)
+                if changed or fresh:
+                    changed_shards.append(shard)
+            landed = True
         finally:
-            # ONE epoch bump for the batch's shards (their fragments were
-            # made and written without one), also when a shard fails.
+            # ONE epoch bump for the shards the batch made or changed
+            # (their fragments were written without one), as the JAX
+            # per-fragment imports bump only on a change: a repeated
+            # import (the existence bits of a value import) leaves cached
+            # results valid. Every touched shard when a shard fails.
             if self.epoch is not None:
-                self.epoch.bump_shards(touched)
+                self.epoch.bump_shards(changed_shards if landed else touched)
 
     #: the scatter import applies when the batch has at most this many
     #: distinct rows (each row costs one O(n) mask + one scatter).
@@ -665,14 +674,17 @@ class Field:
                 for shard in shards.tolist():
                     frag = view.create_fragment_if_not_exists(int(shard))
                     row = blocks[shard] if adopt else blocks[shard].copy()
-                    frag.merge_row_words(int(rid), row,
-                                         bit_count=int(counts[shard]),
-                                         bump_epoch=False)
-                    touched_shards.add(int(shard))
+                    if frag.merge_row_words(int(rid), row,
+                                            bit_count=int(counts[shard]),
+                                            bump_epoch=False):
+                        touched_shards.add(int(shard))
         finally:
             # ONE index-epoch bump for the whole batch, also when a later
             # row fails after earlier rows merged; shard-tagged, so cached
-            # results over other shards stay valid.
+            # results over other shards stay valid. A shard the batch
+            # changed no bit of keeps its epoch, as under the per-fragment
+            # rule, so a repeated import (the existence bits of a value
+            # import) leaves cached results valid.
             if touched_shards and self.epoch is not None:
                 self.epoch.bump_shards(sorted(touched_shards))
         return True

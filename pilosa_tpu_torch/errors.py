@@ -105,10 +105,6 @@ class FragmentNotFoundError(PilosaError):
     message = "fragment not found"
 
 
-#: The later slice of the port, by its heading in ROADMAP.md Queue 1.
-SLICE_CLUSTER = "cluster and operations"
-
-
 class NotPortedError(PilosaError):
     """A feature of the JAX package that this slice of the port does not
     carry yet. The message names the ROADMAP.md slice that brings it."""

@@ -106,7 +106,7 @@ from pilosa_tpu_torch.exec.result import (
     merge_row_ids,
     sort_pairs,
 )
-from pilosa_tpu_torch.obs import NopStats
+from pilosa_tpu_torch.obs import NopStats, start_span
 from pilosa_tpu_torch.obs import profile as _profile
 from pilosa_tpu_torch.ops import bitops
 from pilosa_tpu_torch.pql import BETWEEN, GT, GTE, LT, LTE, NEQ, Call, Condition, Query, parse
@@ -473,6 +473,18 @@ class Executor:
 
     def _execute_call(self, idx: Index, c: Call, shards: list[int],
                       opt: ExecOptions) -> Any:
+        # One span a call (the JAX executor's): with an exporter behind
+        # the tracer, a query's spans on every node it touched share its
+        # trace id.
+        with start_span(f"Executor.execute{c.name}") as span:
+            before = _fuse.fused_steps()
+            try:
+                return self._execute_call_inner(idx, c, shards, opt)
+            finally:
+                span.set_tag("exec.fusedSteps", _fuse.fused_steps() - before)
+
+    def _execute_call_inner(self, idx: Index, c: Call, shards: list[int],
+                            opt: ExecOptions) -> Any:
         name = c.name
         if name == "Count":
             return self._execute_count(idx, c, shards, opt)

@@ -2,8 +2,7 @@
 
 The port's copy of pilosa_tpu/obs/ (``heap.py`` and ``runtime.py`` read
 the codec's pool through the port's own loader, pilosa_tpu_torch.native),
-without ``otlp.py`` (the trace exporter, ROADMAP.md Queue 1: cluster and
-operations).
+with ``otlp.py``, the OTLP/HTTP trace exporter behind ``--trace-endpoint``.
 
 Reference: stats/ (StatsClient stats.go:31, expvar default, statsd/,
 prometheus/), tracing/ (Tracer/Span tracing.go:32, global singleton :23),
@@ -16,6 +15,7 @@ from pilosa_tpu_torch.obs.histogram import (
     LogHistogram,
 )
 from pilosa_tpu_torch.obs.logger import Logger, NopLogger, StandardLogger
+from pilosa_tpu_torch.obs.otlp import OTLPTracer
 from pilosa_tpu_torch.obs.profile import ProfileRing, QueryProfile
 from pilosa_tpu_torch.obs.profiler import sample_profile
 from pilosa_tpu_torch.obs.stats import (
@@ -43,7 +43,7 @@ __all__ = [
     "MemoryStats", "NopStats", "StatsClient", "StatsdStats",
     "ProfileRing", "QueryProfile",
     "prometheus_text",
-    "NopTracer", "SimpleTracer", "Span", "Tracer",
+    "NopTracer", "OTLPTracer", "SimpleTracer", "Span", "Tracer",
     "current_trace_id", "get_tracer", "new_trace_id", "sample_profile",
     "set_tracer", "start_span",
 ]

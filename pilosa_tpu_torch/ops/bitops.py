@@ -73,11 +73,10 @@ def np_clear_bit(words: np.ndarray, pos: int) -> bool:
     return True
 
 
-_POPCNT8 = np.array([bin(i).count("1") for i in range(256)], dtype=np.uint8)
-
-
 def np_count(words: np.ndarray) -> int:
-    return int(_POPCNT8[words.view(np.uint8)].sum())
+    """Set bits of a host word array of any integer type (its words read as
+    unsigned, so a signed word's sign bit counts)."""
+    return int(np.bitwise_count(words.view(f"u{words.dtype.itemsize}")).sum())
 
 
 def np_range_mask(start: int, stop: int, words: int = WORDS_PER_SHARD) -> np.ndarray:
@@ -166,8 +165,13 @@ def b_andnot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def popcount_words(a: torch.Tensor) -> torch.Tensor:
-    """Per-word popcount of int32 bit patterns, as int32. SWAR on int64, so
-    no step depends on how int32 shifts or overflows."""
+    """Per-word popcount of int32 bit patterns, as int32. On the CPU,
+    numpy's ``bitwise_count`` over the words as uint32 (no temporaries);
+    elsewhere SWAR on int64, so no step depends on how int32 shifts or
+    overflows. Both give the same counts."""
+    if a.device.type == "cpu" and a.dtype == torch.int32:
+        words = a.detach().contiguous().numpy().view(np.uint32)
+        return torch.from_numpy(np.bitwise_count(words).astype(np.int32))
     v = a.to(torch.int64) & 0xFFFFFFFF
     v = v - ((v >> 1) & 0x55555555)
     v = (v & 0x33333333) + ((v >> 2) & 0x33333333)

@@ -88,6 +88,15 @@ class API:
         self.profile_ring = None
         #: profile every query into the ring, not only ?profile=true ones.
         self.profile_default = True
+        #: set once a cluster member has merged its peers' schema and shard
+        #: availability after boot (ServerNode.open); a query that is not
+        #: a remote leg waits for it, at most PEER_MERGE_WAIT_S. None: no
+        #: wait (a standalone node, a joiner).
+        self.peers_merged = None
+
+    #: how long a query waits on a member's first merge of its peers'
+    #: shards before it runs on what the node knows.
+    PEER_MERGE_WAIT_S = 60.0
 
     #: method-availability matrix per cluster state (reference
     #: api.go:99-105 validAPIMethods + :1379-1411 method sets): during
@@ -150,6 +159,12 @@ class API:
         # Remote legs are coordinator-internal: a fenced node still answers
         # the majority's fan-out (it may hold their replica).
         self._validate("query", internal=remote)
+        merged = self.peers_merged
+        if merged is not None and not remote:
+            # A member just (re)started answers no query short of the
+            # shards its peers created while it was down (ROADMAP.md
+            # Queue 3, F1). Remote legs name their shards: no wait.
+            merged.wait(self.PEER_MERGE_WAIT_S)
         opt = ExecOptions(remote=remote, column_attrs=column_attrs,
                           exclude_row_attrs=exclude_row_attrs,
                           exclude_columns=exclude_columns)

@@ -1063,6 +1063,16 @@ class HTTPInternalClient:
         — the additive NodeStatus half, server.go:640)."""
         return self._request(node, "GET", "/internal/availability")
 
+    def debug_query_profile(self, node, trace: str) -> dict | None:
+        """One peer's retained profile for ``trace``, or None when that
+        peer's ring doesn't have it. ``local=true`` stops the peer from
+        fanning out in turn (resolution is one hop, never a cycle)."""
+        try:
+            return self._request(
+                node, "GET", f"/debug/queries/{trace}?local=true")
+        except LookupError:
+            return None
+
     def post_schema(self, node, schema: list[dict]) -> None:
         """Push a schema to one peer (reference PostSchema fan-out from
         API.ApplySchema, api.go:747; remote=true stops re-fan-out)."""
@@ -1074,6 +1084,35 @@ class HTTPInternalClient:
         server.go:640 handles it on receive)."""
         resp = self._request(node, "GET", "/schema")
         return resp["indexes"]
+
+    def backup_keys(self, node) -> list:
+        """Fragment keys a peer holds durable files for (backup
+        coordinator enumeration)."""
+        resp = self._request(node, "GET", "/internal/backup/keys")
+        return resp.get("keys", [])
+
+    def backup_fragment(self, node, index, field, view, shard) -> dict:
+        """One fragment's verified (snap, wal) pair from a peer. A 503
+        means that copy is quarantined -- surface the typed error so the
+        coordinator fails over to a replica."""
+        import base64
+        q = urllib.parse.urlencode({"index": index, "field": field,
+                                    "view": view, "shard": shard})
+        try:
+            resp = self._request(node, "GET",
+                                 f"/internal/backup/fragment?{q}")
+        except NodeHTTPError as e:
+            if e.code == 503 and "quarantined" in str(e):
+                from pilosa_tpu_torch.storage.quarantine import ShardCorruptError
+                raise ShardCorruptError() from e
+            raise
+        return {
+            "snap": (base64.b64decode(resp["snap"])
+                     if resp.get("snap") else None),
+            "wal": (base64.b64decode(resp["wal"])
+                    if resp.get("wal") else None),
+            "ops": int(resp.get("ops") or 0),
+        }
 
     def attr_blocks(self, node, index, field):
         path = f"/internal/attr/blocks?index={index}"

@@ -7,9 +7,10 @@ node's table is mounted in the same order and matched by the same
 pattern, the cluster's internal RPC among them (remote query legs in
 binary frames, the PTM1 query mux, routed imports and the PTS1 import
 stream, control messages, probes, fragment block sync, the resize routes,
-and, on a node started with chaos faults, ``POST /internal/fault``). A
-feature of a later slice (a backup across a cluster) answers 501 with a
-body that names the ROADMAP.md slice that brings it.
+the backup RPC, and, on a node started with chaos faults, ``POST
+/internal/fault``). ``/debug/queries/<trace>`` asks the peers on a local
+miss. A ``NotPortedError`` from a later slice's entry point answers 501
+with a body that names the ROADMAP.md slice that brings it.
 """
 
 from __future__ import annotations
@@ -795,13 +796,46 @@ def _build_routes(api: API):
         return 200, {"queries": ring.snapshot(), "capacity": ring.capacity}
 
     def get_debug_query_profile(pv, params, body):
-        """One retained profile by trace id. A standalone node has no
-        peers to ask on a miss."""
+        """One retained profile by trace id -- the target of /metrics
+        exemplars and slow-query-log ``profile`` pointers.
+
+        Remote fan-out legs never record into the serving node's ring
+        (the coordinator retains the whole nested ledger), so a trace id
+        scraped off a *remote* node's exemplars would 404 there. On a
+        local miss, ask the peers -- whichever node coordinated the query
+        answers with the full nested profile. ``local=true`` bounds the
+        search to one hop."""
         ring = api.profile_ring
         doc = ring.get(pv["trace"]) if ring is not None else None
+        if doc is None and params.get("local") != "true":
+            doc = _peer_query_profile(pv["trace"])
         if doc is None:
             return 404, {"error": f"no retained profile for {pv['trace']}"}
         return 200, doc
+
+    def _peer_query_profile(trace):
+        cluster = api.cluster
+        if cluster is None:
+            return None
+        fetch = getattr(cluster.client, "debug_query_profile", None)
+        if fetch is None:
+            return None
+        me = cluster.local_node
+        best = None
+        for node in list(cluster.nodes):
+            if (me is not None and node.id == me.id) or node.state == "DOWN":
+                continue
+            try:
+                doc = fetch(node, trace)
+            except Exception:
+                continue
+            if not doc:
+                continue
+            # Prefer the coordinator's copy: it nests every remote leg.
+            if best is None or (doc.get("remoteLegs")
+                                and not best.get("remoteLegs")):
+                best = doc
+        return best
 
     def get_debug_overload(pv, params, body):
         """Adaptive admission limit, per-tenant quota buckets, per-peer

@@ -26,7 +26,10 @@ block-checksum repair, the holder cleaner), the serve-through resize
 (``join`` to grow, ``POST /cluster/resize/remove-node`` to shrink) with
 ``topology.json`` in the data dir, the scrubber (``scrub_interval``), the
 PTS1 import stream's byte budget (``ingest_max_inflight_mb``) and, with
-``chaos_faults``, ``POST /internal/fault``.
+``chaos_faults``, ``POST /internal/fault``. ``POST /backup`` and
+``/restore`` on a member capture the whole cluster and restore across it
+(``backup_interval`` runs the scheduler on the coordinator only), and
+``trace_endpoint`` exports the node's spans to an OTLP/HTTP collector.
 """
 
 from __future__ import annotations
@@ -155,7 +158,8 @@ class ServerNode:
                  scrub_interval: float | None = None,
                  join: str | None = None,
                  chaos_faults: bool = False,
-                 ingest_max_inflight_mb: int = 0):
+                 ingest_max_inflight_mb: int = 0,
+                 trace_endpoint: str | None = None):
         host, _, port = bind.partition(":")
         self.host, self.port = host or "127.0.0.1", int(port or 10101)
         # The node's identity is its address, as its ring entry's is (an
@@ -163,6 +167,14 @@ class ServerNode:
         self.id = f"{self.host}:{self.port}"
         self.stats = MemoryStats()
         self.logger = StandardLogger()
+        self.tracer = None
+        if trace_endpoint:
+            # Spans from this node stream to the OTLP collector at the
+            # given endpoint (the JAX node's exporter, obs/otlp.py).
+            from pilosa_tpu_torch.obs import OTLPTracer, set_tracer
+            self.tracer = OTLPTracer(endpoint=trace_endpoint,
+                                     service_name=f"pilosa-tpu:{self.id}")
+            set_tracer(self.tracer)
         self._closed = False
         self._backup_interval = float(backup_interval or 0.0)
         self._archive_url = archive_url
@@ -480,7 +492,28 @@ class ServerNode:
         last_saved[0] = version
 
     def open(self) -> None:
+        merge = None
+        if self.cluster is not None and self.join_addr is None:
+            # A member (re)starting into a running cluster merges its
+            # peers' schema and shard availability as soon as it serves,
+            # and holds its queries until then: a query through it must
+            # not miss the shards created while it was down. The JAX node
+            # first merges on its anti-entropy tick, one interval after it
+            # serves (ROADMAP.md Queue 3, F1). The merge runs off this
+            # thread, so members booting together (each one serving before
+            # it asks the others) never wait on each other.
+            merged = threading.Event()
+            self.api.peers_merged = merged
+
+            def merge_peers():
+                try:
+                    self._sync_schema()
+                finally:
+                    merged.set()
+            merge = merge_peers
         self.http.serve_background()
+        if merge is not None:
+            threading.Thread(target=merge, name="peer-merge", daemon=True).start()
         if self._import_pool_mb > 0:
             # Fault the codec's import buffer pool off the serving path,
             # then keep it topped up: dense imports adopt pool-backed
@@ -503,9 +536,11 @@ class ServerNode:
             from pilosa_tpu_torch.backup import BackupScheduler, open_archive
             self.backup_archive = open_archive(self._archive_url, stats=self.stats)
             self.backup_scheduler = BackupScheduler(
-                holder=self.holder, cluster=self.cluster, client=None,
+                holder=self.holder, cluster=self.cluster,
+                client=(self.cluster.client
+                        if self.cluster is not None else None),
                 store=self.store, archive=self.backup_archive,
-                interval=self._backup_interval,
+                interval=self._backup_interval, node_id=self.id,
                 stats=self.stats, logger=self.logger, admission=self.qos,
                 full_every=self._backup_full_every,
                 keep_chains=self._backup_keep_chains)
@@ -540,6 +575,11 @@ class ServerNode:
     def close(self) -> None:
         self._closed = True
         self._pool_stop.set()
+        if self.tracer is not None:
+            from pilosa_tpu_torch.obs import NopTracer, get_tracer, set_tracer
+            if get_tracer() is self.tracer:
+                set_tracer(NopTracer())  # don't leave a closed exporter
+            self.tracer.close()
         if self.dirty is not None:
             self.dirty.close()
         if self.cluster is not None:
@@ -876,7 +916,7 @@ class ServerNode:
             apply_cluster_state(self.cluster, message["state"])
         elif t == "resize-begin" and self.cluster is not None:
             from pilosa_tpu_torch.cluster.resize import apply_resize_begin
-            apply_resize_begin(self.cluster, message)
+            apply_resize_begin(self.cluster, message, holder=self.holder)
         elif t == "resize-end" and self.cluster is not None:
             from pilosa_tpu_torch.cluster.resize import apply_resize_end
             apply_resize_end(self.cluster, message)
@@ -1132,18 +1172,15 @@ class ServerNode:
     # -- backup / restore (reference node.py:1175-1285) --------------------
 
     def handle_backup(self, req: dict) -> dict:
-        """POST /backup: start a backup into the archive named in the
-        request (directory path or object-store URL); returns the backup
-        id immediately (poll /backup/status)."""
+        """POST /backup: start a cluster backup into the archive named in
+        the request (directory path or object-store URL); returns the
+        backup id immediately (poll /backup/status)."""
         from pilosa_tpu_torch.backup import (
             BackupError,
             BackupWriter,
             new_backup_id,
             open_archive,
         )
-        if self.cluster is not None:
-            from pilosa_tpu_torch.errors import SLICE_CLUSTER, NotPortedError
-            raise NotPortedError("a backup across a cluster", SLICE_CLUSTER)
         req = req or {}
         root = req.get("archive")
         if not root:
@@ -1155,8 +1192,10 @@ class ServerNode:
         if not self._backup_gate.acquire(blocking=False):
             raise BackupError("backup already in progress")
         backup_id = new_backup_id("incremental" if parent else "full")
-        writer = BackupWriter(self.holder, self.cluster, None, self.store, archive,
-                              stats=self.stats, admission=self.qos)
+        writer = BackupWriter(
+            self.holder, self.cluster,
+            self.cluster.client if self.cluster is not None else None,
+            self.store, archive, stats=self.stats, admission=self.qos)
         writer.progress = {"state": "starting", "id": backup_id}
         self._backup_writer = writer
 
@@ -1176,19 +1215,16 @@ class ServerNode:
         return dict(w.progress) if w is not None else {"state": "idle"}
 
     def handle_restore(self, req: dict) -> dict:
-        """POST /restore: rebuild the backed-up indexes onto this node from
-        the archive; returns immediately (poll /restore/status). ``id``
-        defaults to the newest complete backup; ``pitrOps`` caps WAL
-        replay for point-in-time recovery."""
+        """POST /restore: rebuild the backed-up indexes onto THIS cluster
+        (any size) from the archive; returns immediately (poll
+        /restore/status). ``id`` defaults to the newest complete backup;
+        ``pitrOps`` caps WAL replay for point-in-time recovery."""
         from pilosa_tpu_torch.backup import (
             BackupError,
             RestoreJob,
             open_archive,
             select_backup_at,
         )
-        if self.cluster is not None:
-            from pilosa_tpu_torch.errors import SLICE_CLUSTER, NotPortedError
-            raise NotPortedError("a restore across a cluster", SLICE_CLUSTER)
         req = req or {}
         root = req.get("archive")
         if not root:
@@ -1205,8 +1241,9 @@ class ServerNode:
         pitr = req.get("pitrOps")
         if not self._restore_gate.acquire(blocking=False):
             raise BackupError("restore already in progress")
-        job = RestoreJob(self.holder, self.cluster, None, archive, backup_id,
-                         store=self.store, stats=self.stats,
+        job = RestoreJob(self.holder, self.cluster,
+                         self.cluster.client if self.cluster is not None else None,
+                         archive, backup_id, store=self.store, stats=self.stats,
                          force=bool(req.get("force")),
                          pitr_ops=int(pitr) if pitr is not None else None)
         job.progress = {"state": "starting", "id": backup_id}

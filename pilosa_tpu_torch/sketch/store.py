@@ -120,10 +120,9 @@ def registers(frag, depth: int, p: int) -> np.ndarray:
 
 
 def _filter_mask(packed: np.ndarray, filt_words: np.ndarray) -> np.ndarray:
-    pos = np.arange(SHARD_WIDTH, dtype=np.int64)
-    bits = (filt_words[pos >> 5] >> (pos & 31).astype(np.uint32)) \
-        & np.uint32(1)
-    return packed * bits.astype(np.int32)
+    bits = np.unpackbits(np.ascontiguousarray(filt_words).view(np.uint8),
+                         bitorder="little")
+    return packed * bits[:SHARD_WIDTH].astype(np.int32)
 
 
 def shard_sketch(frag, depth: int, p: int,

@@ -19,9 +19,10 @@ rows stay writable):
   ``restore``, ``backup-verify``, ``check --archive``, ``config`` and
   ``generate-config`` against the JAX CLI;
 - keyed archives (a keyed index and field, their translate stores) cross
-  packages both ways with equal entries, rows and keyed answers;
-- what the port does not carry yet answers ``NotPortedError``: a writer,
-  job or scheduler given a cluster.
+  packages both ways with equal entries, rows and keyed answers; a
+  writer, job and scheduler given a cluster run on a port cluster
+  (``tests/test_torch_backup_cluster.py`` holds the cluster paths to the
+  JAX package).
 """
 
 import json
@@ -75,7 +76,6 @@ from pilosa_tpu_torch.config import SHARD_WIDTH
 from pilosa_tpu_torch.core import FieldOptions, Holder
 from pilosa_tpu_torch.core.index import IndexOptions
 from pilosa_tpu_torch.core.row import Row
-from pilosa_tpu_torch.errors import NotPortedError
 from pilosa_tpu_torch.exec import Executor
 from pilosa_tpu_torch.exec import result_to_json as t_json
 from pilosa_tpu_torch.obs.stats import MemoryStats
@@ -415,27 +415,49 @@ def test_keyed_manifest_and_cluster_paths_are_not_ported(tmp_path):
     keys-and-sketches slice; now the port restores it (here: the port's
     own keyed archive into a fresh port holder, and into a JAX holder, with
     equal translate entries and answers). A writer, job or scheduler given
-    a cluster still answers NotPortedError."""
+    a cluster answered NotPortedError until the cluster and operations
+    slice; now each runs on a port cluster: the coordinator's scheduler
+    captures the whole ring, and a job restores it into a cluster of
+    another size with the same answers (tests/test_torch_backup_cluster.py
+    holds them to the JAX package)."""
+    from pilosa_tpu_torch.cluster.harness import LocalCluster
+
     side = Side("port", str(tmp_path / "d"))
     _seed(side)
     _seed_keyed(side)
     root = str(tmp_path / "arch")
     m = side.backup(root)
-    a = LocalDirArchive(root)
     for pkg in ("port", "jax"):
         other = Side(pkg, str(tmp_path / f"t-{pkg}"))
         other.restore(root, m["id"])
         assert _keyed_state(other) == _keyed_state(side)
         other.store.close()
     side.store.close()
-    target = Side("port", str(tmp_path / "t"))
-    for make in (lambda: BackupWriter(target.h, object(), None, target.store, a),
-                 lambda: RestoreJob(target.h, object(), None, a, m["id"]),
-                 lambda: BackupScheduler(holder=target.h, cluster=object(), client=None,
-                                         store=target.store, archive=a, interval=1.0)):
-        with pytest.raises(NotPortedError, match="cluster and operations"):
-            make()
-    target.store.close()
+
+    src = LocalCluster(2, replica_n=2, device="cpu",
+                       data_dirs=[str(tmp_path / f"c{i}") for i in range(2)])
+    src.create_index("i")
+    src.create_field("i", "f")
+    for c in range(0, 3 * SHARD_WIDTH, 37_717):
+        src.query("i", f"Set({c}, f={c % 3})")
+    want = [src.query("i", f"Count(Row(f={r}))") for r in range(3)]
+    a = LocalDirArchive(str(tmp_path / "carch"))
+    n0 = src[0]
+    sched = BackupScheduler(holder=n0.holder, cluster=n0.cluster, client=src.client,
+                            store=n0.store, archive=a, interval=1.0, node_id=n0.id)
+    assert sched.run_once(force=True) == RAN
+    (bid,) = a.list_backups()
+    m = BackupWriter(n0.holder, n0.cluster, src.client, n0.store, a).run(parent=bid)
+    assert m["kind"] == "incremental" and m["cluster"] == {"nodes": 2, "replicaN": 2}
+    dst = LocalCluster(3, replica_n=1, device="cpu",
+                       data_dirs=[str(tmp_path / f"r{i}") for i in range(3)])
+    n = dst[1]
+    RestoreJob(n.holder, n.cluster, dst.client, a, m["id"], store=n.store).run()
+    for node in range(3):
+        assert [dst.query("i", f"Count(Row(f={r}))", node=node) for r in range(3)] == want
+    for lc in (src, dst):
+        for cn in lc.nodes:
+            cn.store.close()
 
 
 # -- scheduler and retention (single-node fixtures of test_backup_scheduler) --
@@ -785,8 +807,8 @@ def test_config_and_generate_config_match_the_jax_cli(tmp_path, capsys, monkeypa
 
 
 def test_server_takes_the_generated_config(tmp_path, capsys, monkeypatch):
-    """A file written by ``generate-config`` (every key at its default,
-    those of unported features too) configures the port's server."""
+    """A file written by ``generate-config`` (every key at its default)
+    configures the port's server."""
     from pilosa_tpu_torch.server import node as t_node_mod
     for k in list(os.environ):
         if k.startswith("PILOSA_TPU_"):
@@ -808,14 +830,14 @@ def test_server_takes_the_generated_config(tmp_path, capsys, monkeypatch):
         t_cli.main(["server", "--device", "cpu", "--config", str(cfg)])
     assert (seen["backup_interval"], seen["archive_url"], seen["backup_full_every"],
             seen["backup_keep_chains"], seen["ingest_transpose"]) == (0.0, None, 8, 2, "auto")
-    # ``join`` was refused until the elastic cluster was ported; it now
-    # reaches the node, and a key of a feature still to come is refused.
+    # ``join`` was refused until the elastic cluster was ported, and
+    # ``trace-endpoint`` until the cluster and operations slice; both now
+    # reach the node.
     cfg.write_text(cfg.read_text().replace('join = ""', 'join = "127.0.0.1:1"'))
     with pytest.raises(Stop):
         t_cli.main(["server", "--device", "cpu", "--config", str(cfg)])
     assert seen["join"] == "127.0.0.1:1"
     cfg.write_text(cfg.read_text().replace("# trace-endpoint = ", "trace-endpoint = "))
-    with pytest.raises(SystemExit) as e:
+    with pytest.raises(Stop):
         t_cli.main(["server", "--device", "cpu", "--config", str(cfg)])
-    assert e.value.code == 2
-    assert "cluster and operations" in capsys.readouterr().err
+    assert seen["trace_endpoint"] == "http://127.0.0.1:4318/v1/traces"

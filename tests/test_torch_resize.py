@@ -735,3 +735,92 @@ def test_http_join_then_remove_node(tmp_path):
     finally:
         for n in nodes + ([joiner] if joiner else []):
             n.close()
+
+
+# -- faults the port fixes where it departs from the JAX package ---------------
+
+def test_restarted_member_answers_whole_before_its_first_tick(tmp_path):
+    """A member restarted on its data dir merges its peers' schema and shard
+    availability before it serves (ROADMAP.md Queue 3, F1): its first bodies,
+    with every ticker off, hold the shards created while it was down, equal
+    to a numpy oracle. The JAX node serves first and merges on its first
+    anti-entropy tick, so its first bodies miss those shards."""
+    addrs = sorted(f"127.0.0.1:{p}" for p in _free_ports(3))
+    dirs = [str(tmp_path / f"n{i}") for i in range(3)]
+
+    def boot(i):
+        n = ServerNode(bind=addrs[i], peers=[a for a in addrs if a != addrs[i]],
+                       device="cpu", data_dir=dirs[i], **_QUIET)
+        n.open()
+        return n
+
+    nodes = [boot(i) for i in range(3)]
+    rng = np.random.default_rng(SEED)
+    want = set()
+    try:
+        base = nodes[0].address
+        _json_post(base, "/index/i", "{}")
+        _json_post(base, "/index/i/field/f", "{}")
+
+        def write(shards):
+            for s in shards:
+                cols = (s * SHARD_WIDTH + rng.choice(SHARD_WIDTH, 5, replace=False)).tolist()
+                _json_post(base, "/index/i/query", " ".join(f"Set({c}, f=1)" for c in cols))
+                want.update(cols)
+
+        write(range(3))
+        victim = nodes.pop()
+        victim.close()
+        # Shards the victim does not own, created while it is down.
+        later = [s for s in range(3, 40)
+                 if all(n.id != victim.id for n in nodes[0].cluster.shard_nodes("i", s))][:6]
+        assert len(later) == 6
+        write(later)
+        nodes.append(boot(2))
+        oracle = sorted(want)
+        got = _json_post(nodes[2].address, "/index/i/query?noCache=true", "Row(f=1)")
+        assert got == {"results": [{"attrs": {}, "columns": oracle}]}
+        assert _json_post(nodes[2].address, "/index/i/query?noCache=true",
+                          "Count(Row(f=1))") == {"results": [len(oracle)]}
+    finally:
+        for n in nodes:
+            n.close()
+
+
+def test_dual_write_before_the_instruction_does_not_fail_the_grow(monkeypatch):
+    """The resize-begin broadcast carries the schema (ROADMAP.md Queue 3,
+    F2), so a write fanned out after it and before the joiner's instruction
+    lands on a joiner that booted with no schema, and the grow commits.
+    Every node's bodies then equal a numpy oracle. The JAX begin carries no
+    schema: the dual write finds no index on the joiner and fails the job."""
+    from pilosa_tpu_torch.cluster import resize
+
+    lc = LocalCluster(2, device="cpu")
+    cols = seed(lc)
+    node_id = "node2"
+    member = Node(id=node_id, uri=URI(port=10132))
+    c = Cluster(node_id, _old_ring(lc) + [member], replica_n=1, client=lc.client)
+    c.set_state(STATE_STARTING)
+    joiner = ClusterNode(node_id, c, device="cpu")  # no schema yet
+    lc.client.register(node_id, joiner)
+    lc.nodes.append(joiner)
+    orig = resize.fragment_sources
+    written = []
+
+    def between(old_view, new_view, frags):
+        s = next(s for s in range(64)
+                 if [n.id for n in new_view.shard_nodes("i", s)] == [node_id])
+        col = s * SHARD_WIDTH + 77
+        assert lc.query("i", f"Set({col}, f=1)") == [True]
+        written.append(col)
+        return orig(old_view, new_view, frags)
+
+    monkeypatch.setattr(resize, "fragment_sources", between)
+    job = ResizeJob(lc[0].cluster, lc[0].holder, lc.client)
+    assert job.run(_old_ring(lc) + [member]) == "DONE"
+    assert len(written) == 1
+    oracle = sorted(set(cols) | set(written))
+    for node in range(3):
+        assert [result_to_json(r) for r in lc.query("i", "Row(f=1)", node=node, cache=False)] \
+            == [{"attrs": {}, "columns": oracle}]
+        assert lc.query("i", "Count(Row(f=1))", node=node, cache=False) == [len(oracle)]

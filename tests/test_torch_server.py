@@ -730,29 +730,22 @@ def test_node_defaults_to_the_card(monkeypatch):
         cli.main(["server", "--bind", "127.0.0.1:0"])
 
 
-@pytest.mark.parametrize("argv,slice_name", [
-    (["--chaos-faults"], None),
-    (["--join", "127.0.0.1:1"], None),
-    (["--scrub-interval", "1"], None),
-    (["--trace-endpoint", "http://127.0.0.1:1"], "cluster and operations"),
-    (["--ingest-max-inflight-mb", "64"], None),
+@pytest.mark.parametrize("argv", [
+    ["--chaos-faults"],
+    ["--join", "127.0.0.1:1"],
+    ["--scrub-interval", "1"],
+    ["--trace-endpoint", "http://127.0.0.1:1"],
+    ["--ingest-max-inflight-mb", "64"],
 ])
-def test_cli_refuses_unported_flags(monkeypatch, capsys, argv, slice_name):
-    """``--trace-endpoint`` is still refused, naming its slice; the elastic
-    cluster's flags (refused until it was ported) reach ServerNode with the
+def test_cli_refuses_unported_flags(monkeypatch, argv):
+    """The flags the CLI refused until their features were ported (the
+    elastic cluster's, then ``--trace-endpoint``) reach ServerNode with the
     values the JAX CLI gives its node."""
-    if slice_name is not None:
-        with pytest.raises(SystemExit) as e:
-            cli.main(["server", "--device", "cpu", *argv])
-        assert e.value.code == 2
-        err = capsys.readouterr().err
-        assert "not ported" in err and slice_name in err
-        return
     from pilosa_tpu.server import node as j_node_mod
     from pilosa_tpu_torch.server import node as t_node_mod
 
     keys = ("chaos_faults", "join", "scrub_interval", "ingest_max_inflight_mb",
-            "anti_entropy_interval")
+            "anti_entropy_interval", "trace_endpoint")
     for k in keys:
         monkeypatch.delenv(f"PILOSA_TPU_{k.upper()}", raising=False)
 
