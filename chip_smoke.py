@@ -17,15 +17,17 @@ archive``) against this checkout's, in 10 pairs of processes
 ``group_count`` on its three timed lattices (``GROUP_TIMED``), each side
 through its own interface (``group_count_vs``); ``--packed-vs DIR`` for
 ``packed_count``, ``packed_and_dense_count`` and ``packed_pair_count`` at
-their timed shapes and for the three packed waves at 8 and 32 slots, one
-launch here against DIR's slot-by-slot launches where DIR has no wave
-kernels, beside the one-launch floor (``packed_vs``); ``--plane-scatter-vs DIR``
+their timed shapes and for the three packed waves at 8 and 32 slots (the
+and wave's slots on one plane: the route ``kernels.and_wave_route`` picks,
+staged at 32), one launch here against DIR's slot-by-slot launches where
+DIR has no wave kernels, beside the one-launch floor (``packed_vs``); ``--plane-scatter-vs DIR``
 for ``plane_scatter`` at bench config 3's shard, a full shard and depth 40,
 each side through its own wrapper (a zero fill inside the time where it has
 one), beside the one-launch floor (``plane_scatter_vs``); ``--sketch-vs DIR`` for
 ``hll_expand`` (the keys phase's shape, an all-ones filter, a filter with
-each shard's bits in one chunk, p = 16) and ``plane_lookup`` (65,536 and
-300 probes), beside the one-launch floor (``sketch_vs``; one side alone:
+each shard's bits in one chunk, p = 16), ``plane_lookup`` (65,536 and
+300 probes) and ``hll_reduce`` (``[1024, 2^12]``, ``[1024, 2^16]``,
+``[1, 2^12]``), beside the one-launch floor (``sketch_vs``; one side alone:
 ``--sketch DIR``); ``--reduce-vs DIR`` for the remote Row leg's scatter
 (this checkout's ``scatter_bits_grouped`` against DIR's, or DIR's
 ``scatter_bits`` where it has no grouped form) at the 32-shard leg, a full
@@ -807,14 +809,20 @@ def plane_scatter_vs(parent: str) -> int:
 #: shard's bits all in one chunk (as many a shard as the 5M-bit filter's),
 #: and at p = 16 (the in-place byte branch); plane_lookup on a 2^20-slot
 #: plane at 65,536 probes and at the keyed Union's 300; the one-launch
-#: floor (torch.zeros of 1024 int32).
+#: floor (torch.zeros of 1024 int32); hll_reduce on seeded register
+#: stacks (SKETCH_REDUCE_TIMED).
 SKETCH_TIMED = ("hll_timed", "hll_ones", "hll_one_chunk", "hll_p16", "lookup_65536",
                 "lookup_300", "floor")
+#: ``--sketch``'s hll_reduce cases: name -> (shards, precision): the keys
+#: phase's [1024, 2^12] stack, p = 16, and one shard.
+SKETCH_REDUCE_TIMED = {"reduce_1024_p12": (1024, 12), "reduce_1024_p16": (1024, 16),
+                       "reduce_1_p12": (1, 12)}
 
 
 def sketch_times(repo: str) -> int:
-    """``--sketch REPO``: time ``kernels.hll_expand`` and
-    ``kernels.plane_lookup`` of the package in REPO on SKETCH_TIMED, each
+    """``--sketch REPO``: time ``kernels.hll_expand``,
+    ``kernels.plane_lookup`` and ``kernels.hll_reduce`` of the package in
+    REPO on SKETCH_TIMED and SKETCH_REDUCE_TIMED, each
     through the package's own wrapper and first held exactly to its plain
     version, inputs made on the card from SEED. One JSON object per case:
     the kernel's ms by CUDA events after the device spin, the host's median
@@ -864,6 +872,12 @@ def sketch_times(repo: str) -> int:
         emit(case, lambda plane=plane, ph=ph, pl=pl: kernels.plane_lookup(plane, ph, pl),
              lambda plane=plane, ph=ph, pl=pl: kernels.plane_lookup_plain(plane, ph, pl),
              plane_lookup_bytes(torch, plane, ph, pl), 0)
+    for case, (shards, p) in SKETCH_REDUCE_TIMED.items():
+        regs = torch.from_numpy(np.random.default_rng([SEED, shards, p]).integers(
+            0, 34, (shards, 1 << p), dtype=np.uint8)).to(dev)
+        emit(case, lambda regs=regs: kernels.hll_reduce(regs),
+             lambda regs=regs: kernels.hll_reduce_plain(regs), regs.numel() + (1 << p),
+             regs.numel() // 4)
     emit("floor", lambda: torch.zeros(1024, dtype=torch.int32, device=dev),
          lambda: torch.zeros(1024, dtype=torch.int32, device=dev), 4096, 0)
     return 0
@@ -1362,6 +1376,12 @@ def packed_any_case(name: str, rows: int, seed: int = SEED):
 #: at: one slot, two, the timed 8, and one past a launch's slot table
 #: (kernels.PACKED_WAVE_SLOTS, 32), so the wave splits into two launches.
 PACKED_WAVE_CHECKS = (1, 2, 8, 33)
+#: the wave sizes and_count's wave is held at with every slot on one plane,
+#: under both routes (``kernels.and_wave_route``: the staged route, each
+#: plane row in shared memory once for the launch, and the gather): two,
+#: the timed 8 and 32, and 33 (two launches on the plane, the second of
+#: one slot).
+PACKED_SHARED_CHECKS = (2, 8, 32, 33)
 
 
 def wave_views(torch, x, n: int, sliced: bool) -> list:
@@ -1409,6 +1429,45 @@ def check_packed_waves(torch, kernels, a, b, pl, what, sorted_b_a: bool, check) 
             for xs, ys, side in ((xa, xb, "a, b"), (xb, xa, "b, a"))[:2 if sorted_b_a else 1]:
                 check("packed_pair_count_batched", kernels.packed_pair_count_batched(xs, ys),
                       kernels.packed_pair_count_batched_plain(xs, ys), f"{tag}, {side}")
+    check_shared_plane_waves(torch, kernels, a, b, pl, what, check)
+
+
+def shared_planes(torch, pl) -> dict:
+    """One plane three ways for a wave whose slots all read it: the tensor
+    itself, a view of a stack 8 words wider (another row stride, still
+    16-byte aligned) and a view one word in (an unaligned start: the
+    staged route's coalesced staging in place of the bulk copy)."""
+    rows, words = pl.shape
+    wide = torch.zeros((rows, words + 8), dtype=pl.dtype, device=pl.device)
+    wide[:, 4:4 + words] = pl
+    skew = torch.zeros((rows, words + 8), dtype=pl.dtype, device=pl.device)
+    skew[:, 1:1 + words] = pl
+    return {"shared plane": pl, "shared strided view": wide[:, 4:4 + words],
+            "shared unaligned view": skew[:, 1:1 + words]}
+
+
+def check_shared_plane_waves(torch, kernels, a, b, pl, what, check) -> None:
+    """and_count's wave against its plain version, exact, with every slot
+    on one plane (``shared_planes``), at every PACKED_SHARED_CHECKS size,
+    a's and b's slots whole and sliced (``wave_views``), under each route
+    (``kernels.and_wave_route`` set to each in turn, then restored)."""
+    rule = kernels.and_wave_route
+    try:
+        for plane_kind, plane in shared_planes(torch, pl).items():
+            for n in PACKED_SHARED_CHECKS:
+                planes = [plane] * n
+                for sliced in (False, True):
+                    for x, side in ((a, "a"), (b, "b")):
+                        xs = wave_views(torch, x, n, sliced)
+                        want = kernels.packed_and_dense_count_batched_plain(xs, planes)
+                        for route in (0, 1):
+                            kernels.and_wave_route = lambda *_, route=route: route
+                            check("packed_and_dense_count_batched",
+                                  kernels.packed_and_dense_count_batched(xs, planes), want,
+                                  f"{what}, {plane_kind}, B = {n}, route {route}"
+                                  f"{', sliced' if sliced else ''}, {side}")
+    finally:
+        kernels.and_wave_route = rule
 
 
 def check_packed_cases(torch, kernels, t, dev, errs) -> dict:
@@ -1471,7 +1530,9 @@ def check_packed_cases(torch, kernels, t, dev, errs) -> dict:
         del a, b, pl
     log(f"packed kernels: exact on {', '.join(PACKED_CASES)} and, for and_count and "
         f"pair_count, on {', '.join(PACKED_ANY_CASES)} at 1024 rows; the wave kernels on "
-        f"both at B = {', '.join(map(str, PACKED_WAVE_CHECKS))}")
+        f"both at B = {', '.join(map(str, PACKED_WAVE_CHECKS))}; and_count's wave on one "
+        f"plane (itself, a strided view, an unaligned view) at B = "
+        f"{', '.join(map(str, PACKED_SHARED_CHECKS))} under both routes")
     return out
 
 
@@ -1568,6 +1629,14 @@ def packed_wave_cases(torch, kernels, packed, n: int) -> list:
          n * (rows * k + rows * kb + rows) * 4, ((kb - 1).bit_length() + 3) * n * rows * k, 0,
          library("packed_pair_count", sa, sb)),
     ]
+
+
+def staged_wave_bytes(n: int, a, pl) -> int:
+    """The bytes the staged route of and_count's wave moves for ``n`` slots
+    of ``a``'s shape on the plane ``pl``: the plane read whole once, every
+    slot's entries once, the counts written once."""
+    rows, k = a.shape
+    return (n * rows * k + pl.numel() + n * rows) * 4
 
 
 def and_count_timed(kernels, a, pl) -> tuple:
@@ -1948,6 +2017,11 @@ HLL_NARROW_WORDS = 3104
 #: the keys phase's precision, and its plane stack's shards (954 padded).
 HLL_TIMED_P = 12
 HLL_TIMED_ROWS = 1024
+#: hll_reduce's own checks: precisions (the narrowest file, the keys
+#: phase's, the planner's p = 16, the widest) and stacks of one shard,
+#: three, the keys phase's 1024 and one past it.
+HLL_REDUCE_P = (4, 12, 16, 18)
+HLL_REDUCE_ROWS = (1, 3, 1024, 1025)
 #: the key-plane checks: (plane slots, probes, padded to a power of two,
 #: runs: ``key_plane``'s hash 0, a run of equal hashes and a run of equal
 #: high words across the kernel's fences); the last is the timed one. One
@@ -2120,7 +2194,9 @@ def plane_lookup_bytes(torch, plane, probe_hi, probe_lo) -> int:
 def check_sketch_kernels(torch, kernels, t, dev, errs) -> None:
     """hll_expand, hll_reduce, similar_count and plane_lookup against their
     plain versions on the card, exact, on HLL_CHECKS, SIM_CHECKS and
-    KEYPLANE_CHECKS (and hll_reduce on one and on 1024 rows)."""
+    KEYPLANE_CHECKS (hll_reduce on each HLL_CHECKS case's registers, its
+    first row alone, and on seeded, all-zero and all-255 stacks at every
+    HLL_REDUCE_P x HLL_REDUCE_ROWS)."""
     for i, (p, rows, density, kind) in enumerate(HLL_CHECKS):
         packed, filt = hll_case_inputs(kind, hll_planes(torch, rows, p, density, dev, SEED + i),
                                        t(hll_filter(kind, rows, SEED + i)))
@@ -2140,9 +2216,21 @@ def check_sketch_kernels(torch, kernels, t, dev, errs) -> None:
             if err:
                 raise AssertionError(f"hll_reduce [{regs.shape[0]}, 2^{p}]: max |err| {err}")
         del packed, filt, got, want
-    wide = torch.randint(0, 34, (1024, 1 << 16), dtype=torch.uint8, device=dev)
-    if not torch.equal(kernels.hll_reduce(wide), kernels.hll_reduce_plain(wide)):
-        raise AssertionError("hll_reduce [1024, 2^16] differs")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for p in HLL_REDUCE_P:
+        for rows in HLL_REDUCE_ROWS:
+            for kind in ("seeded", "zero", "full"):
+                regs = (torch.randint(0, 34, (rows, 1 << p), dtype=torch.uint8, device=dev,
+                                      generator=gen) if kind == "seeded" else
+                        torch.full((rows, 1 << p), 0 if kind == "zero" else 255,
+                                   dtype=torch.uint8, device=dev))
+                got, want = kernels.hll_reduce(regs), kernels.hll_reduce_plain(regs)
+                torch.cuda.synchronize()
+                err = int((got.int() - want.int()).abs().max())
+                errs["hll_reduce"] = max(errs["hll_reduce"], err)
+                if got.shape != want.shape or got.dtype != torch.uint8 or err:
+                    raise AssertionError(f"hll_reduce [{rows}, 2^{p}] {kind}: max |err| {err}")
+                del regs
     for r, s, w in SIM_CHECKS:
         rng = np.random.default_rng(SEED + r)
         cube = torch.randint(-2**31, 2**31 - 1, (r, s, w), dtype=torch.int32, device=dev)
@@ -2165,7 +2253,9 @@ def check_sketch_kernels(torch, kernels, t, dev, errs) -> None:
             raise AssertionError(f"plane_lookup H={mat.shape[1]} Q={q} runs={runs}: "
                                  f"{err} ids differ")
     log("sketch and key-plane kernels: exact on hll_expand at "
-        f"{', '.join(f'p = {c[0]} {c[3]}' for c in HLL_CHECKS)}; hll_reduce, "
+        f"{', '.join(f'p = {c[0]} {c[3]}' for c in HLL_CHECKS)}; hll_reduce on each "
+        f"HLL_CHECKS case's registers and at p = {', '.join(map(str, HLL_REDUCE_P))} x S = "
+        f"{', '.join(map(str, HLL_REDUCE_ROWS))} (seeded, all-zero, all-255); "
         f"similar_count on {len(SIM_CHECKS)} cubes, plane_lookup on "
         f"{len(KEYPLANE_CHECKS)} planes")
 
@@ -2225,6 +2315,10 @@ def sketch_kernel_timings(torch, kernels, t, dev, card: str) -> dict:
     timed("hll_reduce", f"[{rows}, 2^{p}]", lambda: kernels.hll_reduce(regs),
           lambda: kernels.hll_reduce_plain(regs), lambda: regs.amax(0),
           rows * (1 << p) + (1 << p), rows * (1 << p) // 4, 0)
+    floor = time_cuda_ms(torch, lambda: torch.zeros(1024, dtype=torch.int32, device=dev),
+                         KERNEL_RUNS)
+    log(f"kernel hll_reduce [{rows}, 2^{p}]: {out['hll_reduce'][0] - floor:.4f} ms above the "
+        f"one-launch floor ({floor:.4f} ms, torch.zeros of 1024 int32)  [{card}]")
     del regs
     r, s, _ = SIM_CHECKS[0]
     cube = torch.randint(-2**31, 2**31 - 1, (r, s, w), dtype=torch.int32, device=dev)
@@ -2906,6 +3000,7 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
                                  "differ from the plain version")
         cases.append((name, shape, fn, plain_fn, *work))
         library.setdefault(name, {})[shape] = lib_fn
+    streaming = {}  # the and wave's shape -> (the staged route's streaming bound, route)
     for n in PACKED_WAVE_TIMED:
         for name, shape, fn, plain_fn, *work, lib_fn in packed_wave_cases(
                 torch, kernels, packed, n):
@@ -2915,6 +3010,10 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
                                      "differ from the plain version")
             cases.append((name, shape, fn, plain_fn, *work))
             library.setdefault(name, {})[shape] = lib_fn
+            if name == "packed_and_dense_count_batched":
+                a, _, pl = packed["k1024"]
+                streaming[shape] = (bound_ms(torch, staged_wave_bytes(n, a, pl), 0, 0)[0],
+                                    kernels.and_wave_route(True, n, a.shape[1], pl.shape[1]))
     tree3 = [big_a, big_b, t(seeded_words(rng, (1024, w)))]
     # The path the 3-leaf Count took before tree_count: two elementwise
     # torch ops writing 128 MiB planes, then row_counts.
@@ -2951,6 +3050,11 @@ def phase_kernels(torch, card: str, device: str = "cuda") -> dict:
         if name.startswith("packed_") and name != "packed_expand":
             share = f"{bound / (ms - floor):.1%}" if ms > floor else "n/a"
             lib_text += f"; above the one-launch floor {ms - floor:.4f} ms, {share} of bound"
+        if shape in streaming:
+            stream_ms, route = streaming[shape]
+            lib_text += (f"; {['gather', 'staged'][route]} route; the staged route's "
+                         f"streaming bound {stream_ms:.4f} ms (the plane read whole), "
+                         f"{stream_ms / ms:.1%} of it")
         log(f"kernel {name} {shape}: {ms:.4f} ms, bound {bound:.4f} ms ({term}), "
             f"{bound / ms:.1%} of bound; plain {plain:.4f} ms{lib_text}  [{card}]")
         timings.setdefault(name, (ms, plain, bound, by, lib))

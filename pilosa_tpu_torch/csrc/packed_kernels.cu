@@ -33,8 +33,9 @@
 // stream with no table copied to the card ahead of it. A single call is
 // the one-slot table; a wave takes tables of kWaveSlots (the coalescer's
 // largest wave), and a longer wave is split into the fewest launches that
-// hold it. blockIdx.y is the slot; the slots of a wave share their shapes
-// (S rows, K entries), not their tensors or strides.
+// hold it. blockIdx.y is the slot (blockIdx.x in and_count's gather); the
+// slots of a wave share their shapes (S rows, K entries), not their
+// tensors or strides.
 //
 // Words of a dense plane are 32-bit bit patterns (int32 tensors on the
 // torch side), read and written as uint32, so bit 31 is a bit like any
@@ -55,7 +56,33 @@
 //    HBM, which it serves well below its streaming rate: at [1024, 1024]
 //    against a [1024, 32768] plane (488,207 distinct sectors) the gathers take 7.5
 //    us more from HBM than from L2, under any L2 fetch granularity; the
-//    kernel takes 7.8 us with them removed and 17.1 us with them.
+//    kernel takes 7.8 us with them removed and 17.1 us with them. A wave
+//    whose slots all read one plane re-read its sectors once a slot from
+//    HBM in its first form (slot z's blocks ran after every row of slot z -
+//    1, long after the 128 MiB plane had left the 50 MB L2): 0.0968 ms at
+//    8 slots of [1024, 1024] and 0.3639 at 32 (36.3% and 21.8% of the
+//    distinct-sector bound). Two routes now, either one launch
+//    (kernels.and_wave_route picks, from the times below):
+//    - where the slots share one plane the gather's grid takes the slot
+//      fastest, so a row block's slots run back to back and meet each
+//      other's sectors in L2: 0.0622 ms at 8 slots, 0.1388 at 32, 0.1033
+//      at 8 slots of K = 4096 (a wave on planes of their own keeps the
+//      row blocks fastest: 0.1049 ms at 8 slots, 0.1056 the other way);
+//    - the staged route (packed_and_staged_kernel, a launch whose slots
+//      share one plane) copies each plane row into shared memory once and
+//      counts every slot's entries against it: the plane streamed whole
+//      (128 MiB, 0.0401 ms at 3.35 TB/s) and each entry read once. 0.1032
+//      ms at 32 slots (the streaming bound of plane and entries 0.0802),
+//      0.0774 at 8 (there the sectors the slots touch are 2.6M of the
+//      plane's 4.2M, so the gather reads less), 0.0578 at one slot of K =
+//      8: a row pass is a bulk copy of 128 KiB, one block an SM.
+//    Taken where slots x K reach the plane row's words (32 slots of K =
+//    1024, 8 of K = 4096; 0.2424 against the gather's 0.3074 at 32 of K =
+//    4096), from 2 slots. H100 80GB HBM3, 700 W, scripts/packed_probe.py,
+//    one call; also timed there: a row in 64 KiB tiles (3 blocks an SM,
+//    entries re-read a tile) 0.1360 at 32 slots, 512 threads 0.1145, 2 or
+//    8 entry loads a lane 0.1089 and 0.1227, a persistent block an SM
+//    0.1075.
 //  * pair_count reads both stacks once; its binary searches run in shared
 //    memory, log2(Kb) probes per entry of a. At [1024, 1024] x [1024,
 //    2048] it takes 8.6 us with the searches removed and 10.9 us with
@@ -91,6 +118,13 @@ __host__ __device__ constexpr int count_batch() {
 // Entries of a row one and_count thread holds at a time, their plane
 // gathers all in flight together (8 took 17.3 us against 17.1 at K = 1024).
 constexpr int kAndBatch = 16;
+// The staged and_count route: threads a block, the most plane words a
+// block stages at once (128 KiB of shared memory: a whole 32768-word shard
+// row), and the entry loads a lane issues before it counts any (16-byte
+// loads where the slots' rows allow, 4 entries each; else 4-byte).
+constexpr int kStagedThreads = 1024;
+constexpr int64_t kStageWords = 32768;
+constexpr int kStagedBatch = 4;
 // Entries of a one pair_count thread searches at a time, interleaved.
 constexpr int kPairBatch = 4;
 // Slots of one wave launch: the coalescer's largest wave
@@ -219,7 +253,10 @@ packed_count_kernel(const __grid_constant__ Slots<N> slots, int32_t* __restrict_
 // ---------------------------------------------------------------------------
 // packed_and_dense_count: 2^lanes_log2 threads a row (the fewest that
 // cover the row in one batch of kAndBatch entries each, at most a block),
-// blockDim / that many rows a block, blockIdx.y the slot. A thread's
+// blockDim / that many rows a block, blockIdx.y the slot and blockIdx.x
+// the row block; where a launch's slots all read one plane (slot_x) the
+// other way round, so a row block's slots run back to back and meet each
+// other's plane sectors in L2. A thread's
 // batch is loaded whole (load_entries), then every plane gather of the
 // batch is issued before the first is consumed, and the next batch's entries load while those
 // gathers are in flight: about one round trip to device memory a batch
@@ -244,13 +281,14 @@ template <int N>
 __global__ void __launch_bounds__(kThreads)
 packed_and_dense_kernel(const __grid_constant__ Slots<N> slots, int32_t* __restrict__ out,
                         int64_t rows, int64_t k, int64_t words, int32_t sentinel,
-                        int lanes_log2) {
+                        int lanes_log2, bool slot_x) {
   __shared__ int scratch[kThreads / 32];
   const int lanes = 1 << lanes_log2;
   const int lane = threadIdx.x & (lanes - 1);
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> lanes_log2) +
+  const int64_t row = static_cast<int64_t>(slot_x ? blockIdx.y : blockIdx.x) *
+                          (blockDim.x >> lanes_log2) +
                       (threadIdx.x >> lanes_log2);
-  const int slot = N == 1 ? 0 : blockIdx.y;
+  const int slot = N == 1 ? 0 : (slot_x ? blockIdx.x : blockIdx.y);
   const int64_t step = static_cast<int64_t>(kAndBatch) * lanes;
   int c = 0;
   if (row < rows) {
@@ -278,6 +316,108 @@ packed_and_dense_kernel(const __grid_constant__ Slots<N> slots, int32_t* __restr
     }
   }
   store_row_sum(c, lanes, lane, row < rows, out + slot * rows + row, scratch);
+}
+
+// ---------------------------------------------------------------------------
+// packed_and_dense_count, staged (a launch whose slots all read one plane:
+// one base address, one row stride). A block owns a plane row (blockIdx.x,
+// then every gridDim.x-th): thread 0 brings the row's words into dynamic
+// shared memory with one bulk copy on an mbarrier (BULK: the row 16-byte
+// aligned and W a multiple of 4; otherwise the block stages it with
+// coalesced loads), at most kStageWords at a time (a wider row is walked
+// in tiles, each thread testing its entries against each tile). While the
+// row lands the warps load their first entries: the block's warps split
+// the launch's slots, kStagedThreads / 32 / m warps a slot where the slots
+// are fewer than the warps (a unit: a slot and a part of its row), and
+// the lanes of a warp take neighbouring 16-byte words of entries (VEC) or
+// neighbouring entries, kStagedBatch loads in flight a lane. Each entry i
+// (i < sentinel) whose word clamp(i >> 5, 0, W - 1) lies in the tile adds
+// bit (i & 31) of it from shared memory, an unsigned shift; the JAX
+// function's meaning on any input, with no reliance on order. A unit's
+// lanes sum by shuffles and add into the slot's shared counter; the first
+// m threads store the row's counts. So the launch reads the plane once,
+// not once a slot, and each entry once.
+// ---------------------------------------------------------------------------
+template <bool BULK, bool VEC, int N>
+__global__ void __launch_bounds__(kStagedThreads)
+packed_and_staged_kernel(const __grid_constant__ Slots<N> slots, int m,
+                         int32_t* __restrict__ out, int64_t rows, int64_t k, int64_t words,
+                         int32_t sentinel) {
+  extern __shared__ __align__(16) uint32_t stage[];
+  __shared__ int cnt[N];
+  __shared__ uint64_t bar;
+  constexpr int kWarps = kStagedThreads / 32;
+  constexpr int kPer = VEC ? 4 : 1;  // entries a load
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int parts = m >= kWarps ? 1 : kWarps / m;
+  const int units = m * parts;
+  const int64_t loads = k / kPer;  // a row's loads
+  if (BULK && threadIdx.x == 0) {
+    mbar_init(&bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  uint32_t phase = 0;
+  for (int64_t r = blockIdx.x; r < rows; r += gridDim.x) {
+    const uint32_t* prow =
+        reinterpret_cast<const uint32_t*>(slots.b[0]) + r * slots.b_stride[0];
+    if (threadIdx.x < N) cnt[threadIdx.x] = 0;  // this thread stored it last row
+    for (int64_t t0 = 0; t0 < words; t0 += kStageWords) {
+      const int64_t tw = words - t0 < kStageWords ? words - t0 : kStageWords;
+      __syncthreads();  // the stage free, the counters zeroed, the barrier seen
+      if (BULK) {
+        if (threadIdx.x == 0) {
+          const uint32_t bytes = static_cast<uint32_t>(tw * sizeof(uint32_t));
+          mbar_expect_tx(&bar, bytes);
+          bulk_load(stage, prow + t0, bytes, &bar);
+        }
+      } else {
+        for (int64_t j = threadIdx.x; j < tw; j += kStagedThreads) stage[j] = __ldg(prow + t0 + j);
+        __syncthreads();
+      }
+      bool ready = !BULK;
+      for (int u = warp; u < units; u += kWarps) {
+        const int z = u / parts;
+        const int32_t* p = slots.a[z] + r * slots.a_stride[z];
+        int c = 0;
+        for (int64_t base = static_cast<int64_t>(u % parts) * 32 + lane; base < loads;
+             base += static_cast<int64_t>(32) * parts * kStagedBatch) {
+          int32_t e[kStagedBatch * kPer];
+#pragma unroll
+          for (int b = 0; b < kStagedBatch; ++b) {
+            const int64_t q = base + static_cast<int64_t>(b) * 32 * parts;
+            if (VEC) {
+              const int4 v = q < loads ? __ldg(reinterpret_cast<const int4*>(p) + q)
+                                       : make_int4(sentinel, sentinel, sentinel, sentinel);
+              e[4 * b] = v.x;
+              e[4 * b + 1] = v.y;
+              e[4 * b + 2] = v.z;
+              e[4 * b + 3] = v.w;
+            } else {
+              e[b] = q < loads ? __ldg(p + q) : sentinel;
+            }
+          }
+          if (!ready) {
+            mbar_wait(&bar, phase);
+            ready = true;
+          }
+#pragma unroll
+          for (int j = 0; j < kStagedBatch * kPer; ++j) {
+            int64_t wi = e[j] >> 5;
+            wi = (wi < 0 ? 0 : (wi >= words ? words - 1 : wi)) - t0;
+            if (e[j] < sentinel && wi >= 0 && wi < tw) c += (stage[wi] >> (e[j] & 31)) & 1u;
+          }
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) c += __shfl_xor_sync(0xffffffffu, c, o);
+        if (lane == 0 && c) atomicAdd(&cnt[z], c);
+      }
+      if (!ready) mbar_wait(&bar, phase);  // no unit here: the copy has still landed
+      phase ^= 1u;
+    }
+    __syncthreads();  // every unit's count added
+    if (threadIdx.x < m) out[static_cast<int64_t>(threadIdx.x) * rows + r] = cnt[threadIdx.x];
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -495,36 +635,88 @@ cudaError_t launch_count(const Slots<N>& t, int m, int32_t* out, int64_t rows, i
   return cudaGetLastError();
 }
 
-template <int N>
-cudaError_t launch_and(const Slots<N>& t, int m, int32_t* out, int64_t rows, int64_t k,
-                       int64_t words, int32_t sentinel, cudaStream_t s) {
-  const int lanes_log2 = row_lanes_log2(k, kAndBatch);
-  const int threads = spread_threads(rows, m, 1 << lanes_log2);
-  const int64_t bx = row_blocks(rows, 1 << lanes_log2, threads);
-  if (bx > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const dim3 grid(static_cast<unsigned>(bx), static_cast<unsigned>(m));
-  packed_and_dense_kernel<N><<<grid, threads, 0, s>>>(t, out, rows, k, words, sentinel,
-                                                      lanes_log2);
-  return cudaGetLastError();
+// Above 48 KiB a block's dynamic shared memory must be asked for, for
+// each form of a kernel; asked once a process (*opted), for `most` bytes.
+cudaError_t smem_opt_in(const void* const* forms, int n, int most, bool* opted) {
+  if (*opted) return cudaSuccess;
+  for (int i = 0; i < n; ++i) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(forms[i], cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    if (err != cudaSuccess) return err;
+  }
+  *opted = true;
+  return cudaSuccess;
 }
 
-// Above 48 KiB a block's dynamic shared memory must be asked for, for
-// each of pair_count's forms; asked once a process, for the most it takes.
 cudaError_t pair_smem_opt_in(size_t smem) {
   static bool opted = false;
-  if (smem <= (48 << 10) || opted) return cudaSuccess;
-  const int most = static_cast<int>(kMaxPairEntries * sizeof(int32_t));
+  if (smem <= (48 << 10)) return cudaSuccess;
   const void* forms[] = {reinterpret_cast<const void*>(packed_pair_kernel<true, 1>),
                          reinterpret_cast<const void*>(packed_pair_kernel<false, 1>),
                          reinterpret_cast<const void*>(packed_pair_kernel<true, kWaveSlots>),
                          reinterpret_cast<const void*>(packed_pair_kernel<false, kWaveSlots>)};
-  for (const void* fn : forms) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
-    if (err != cudaSuccess) return err;
-  }
-  opted = true;
-  return cudaSuccess;
+  return smem_opt_in(forms, 4, static_cast<int>(kMaxPairEntries * sizeof(int32_t)), &opted);
+}
+
+template <int N>
+void staged_forms(const void** forms) {
+  forms[0] = reinterpret_cast<const void*>(packed_and_staged_kernel<true, true, N>);
+  forms[1] = reinterpret_cast<const void*>(packed_and_staged_kernel<true, false, N>);
+  forms[2] = reinterpret_cast<const void*>(packed_and_staged_kernel<false, true, N>);
+  forms[3] = reinterpret_cast<const void*>(packed_and_staged_kernel<false, false, N>);
+}
+
+cudaError_t staged_smem_opt_in(size_t smem) {
+  static bool opted = false;
+  if (smem <= (48 << 10)) return cudaSuccess;
+  const void* forms[8];
+  staged_forms<1>(forms);
+  staged_forms<kWaveSlots>(forms + 4);
+  return smem_opt_in(forms, 8, static_cast<int>(kStageWords * sizeof(uint32_t)), &opted);
+}
+
+// The gather route: the slot fastest where the launch's slots share one
+// plane (slot_x), the row blocks fastest otherwise.
+template <int N>
+cudaError_t launch_and(const Slots<N>& t, int m, int32_t* out, int64_t rows, int64_t k,
+                       int64_t words, int32_t sentinel, bool shared, cudaStream_t s) {
+  const int lanes_log2 = row_lanes_log2(k, kAndBatch);
+  const int threads = spread_threads(rows, m, 1 << lanes_log2);
+  const int64_t bx = row_blocks(rows, 1 << lanes_log2, threads);
+  const bool slot_x = shared && m > 1;
+  if (bx > (slot_x ? 65535LL : 0x7fffffffLL)) return cudaErrorInvalidValue;
+  const dim3 grid = slot_x ? dim3(static_cast<unsigned>(m), static_cast<unsigned>(bx))
+                           : dim3(static_cast<unsigned>(bx), static_cast<unsigned>(m));
+  packed_and_dense_kernel<N><<<grid, threads, 0, s>>>(t, out, rows, k, words, sentinel,
+                                                      lanes_log2, slot_x);
+  return cudaGetLastError();
+}
+
+// The staged route: a block a plane row, the row's words in shared
+// memory. bulk: the plane's rows 16-byte aligned and W a multiple of 4;
+// vec: every slot's entry rows too, and K a multiple of 4.
+template <int N>
+cudaError_t launch_staged(const Slots<N>& t, int m, int32_t* out, int64_t rows, int64_t k,
+                          int64_t words, int32_t sentinel, bool bulk, bool vec,
+                          cudaStream_t s) {
+  const size_t smem = static_cast<size_t>(words < kStageWords ? words : kStageWords) *
+                      sizeof(uint32_t);
+  const cudaError_t err = staged_smem_opt_in(smem);
+  if (err != cudaSuccess) return err;
+  const unsigned grid = static_cast<unsigned>(rows);
+  if (bulk && vec)
+    packed_and_staged_kernel<true, true, N><<<grid, kStagedThreads, smem, s>>>(
+        t, m, out, rows, k, words, sentinel);
+  else if (bulk)
+    packed_and_staged_kernel<true, false, N><<<grid, kStagedThreads, smem, s>>>(
+        t, m, out, rows, k, words, sentinel);
+  else if (vec)
+    packed_and_staged_kernel<false, true, N><<<grid, kStagedThreads, smem, s>>>(
+        t, m, out, rows, k, words, sentinel);
+  else
+    packed_and_staged_kernel<false, false, N><<<grid, kStagedThreads, smem, s>>>(
+        t, m, out, rows, k, words, sentinel);
+  return cudaGetLastError();
 }
 
 template <int N>
@@ -570,18 +762,33 @@ extern "C" int pilosa_packed_count_batched(const void* const* idx, const int64_t
 // (i & 31) of plane_r[clamp(i >> 5, 0, words - 1)], idx_r = idx[z] + r *
 // idx_strides[z] and plane_r = planes[z] + r * plane_strides[z], for the n
 // slots of one [rows, k] x [rows, words] shape, in ceil(n / kWaveSlots)
-// launches. Returns the first CUDA error.
+// launches. staged (the caller's route, kernels.and_wave_route): every
+// slot's plane has slot 0's base and row stride, and each launch stages
+// the plane's rows once for all its slots; otherwise each entry gathers
+// its word. Returns the first CUDA error.
 extern "C" int pilosa_packed_and_dense_count_batched(
     const void* const* idx, const int64_t* idx_strides, const void* const* planes,
     const int64_t* plane_strides, int n, void* out, int64_t rows, int64_t k, int64_t words,
-    int sentinel, void* stream) {
+    int staged, int sentinel, void* stream) {
   if (n <= 0 || rows < 0 || k <= 0 || words <= 0 || rows > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   if (rows == 0) return static_cast<int>(cudaSuccess);
   auto s = static_cast<cudaStream_t>(stream);
+  bool shared = true, vec = true;
+  for (int z = 0; z < n; ++z) {
+    shared = shared && planes[z] == planes[0] && plane_strides[z] == plane_strides[0];
+    vec = vec && aligned16(idx[z], idx_strides[z], k);
+  }
+  if (!staged)
+    return each_launch(n, idx, idx_strides, planes, plane_strides, rows, out,
+                       [&](const auto& t, int m, int32_t* o) {
+                         return launch_and(t, m, o, rows, k, words, sentinel, shared, s);
+                       });
+  if (!shared) return static_cast<int>(cudaErrorInvalidValue);
+  const bool bulk = aligned16(planes[0], plane_strides[0], words);
   return each_launch(n, idx, idx_strides, planes, plane_strides, rows, out,
                      [&](const auto& t, int m, int32_t* o) {
-                       return launch_and(t, m, o, rows, k, words, sentinel, s);
+                       return launch_staged(t, m, o, rows, k, words, sentinel, bulk, vec, s);
                      });
 }
 

@@ -71,12 +71,27 @@
 //    320 nibbles at the keys phase's 5M-bit filter) near a thread's worth
 //    of loads a block, and at p = 12 a block takes 40 KiB of shared memory
 //    and 32 registers a thread, so four blocks share an SM.
-//  * hll_reduce: a block owns 32 words (128 registers) of the row; its 32
-//    warps split the shard rows (warp w takes rows w, w + 32, ...), lane l
-//    word l, and fold them with __vmaxu4 (4 byte maxes an instruction),
-//    eight independent loads in flight a thread; the warps' partial maxima
-//    meet in shared memory and warp 0 writes each output word once. One
-//    launch, no zero fill, no atomics.
+//  * hll_reduce: its first form gave a block 32 words of the row and 32
+//    warps, so at p = 12 (a 1,024-word row) 32 blocks on the H100's 132
+//    SMs streamed the 4 MiB stack, 2.9 us above the 5.0 us one-launch
+//    floor against a 1.3 us bound. Now reduce_shape picks the geometry from
+//    m, S and the SM count: a block owns the widest band of 32, 16 or 8
+//    words (whole 32-byte sectors of each row) that still gives every SM a
+//    block, else 8 words (128 blocks at p = 12, 512 at p = 16; 32 words
+//    for a few rows), and takes its rows with 16-byte loads, kReduceLoads
+//    in flight a thread, so the block's rows are one round trip at S =
+//    1024; a block of one warp where the rows fit it. One launch, no zero
+//    fill, no atomics, each output vector written once. On an H100 80GB
+//    HBM3 at 700 W (scripts/sketch_probe.py, one call): 0.0073 ms at [1024,
+//    2^12] against the first form's 0.0079 (2.3 us above the 5.0 us floor:
+//    the stack's one round trip; bands of 4 words, half sectors, took
+//    0.0084 in another call), 0.0285 against 0.0292 at [1024, 2^16] (512
+//    threads a block), 0.0057 against 0.0057 at [1, 2^12] (0.0058 with
+//    8-word bands). The shard axis split over 2 to 8 blocks a band, folded
+//    in the same launch by the last block to take a ticket, took
+//    0.0089-0.0105; the same split as a thread-block cluster folding in
+//    distributed shared memory 0.0089-0.0092: each second step costs more
+//    than the blocks it adds save.
 //  * similar_count: a block owns one span of the flattened [S * W] words,
 //    holds the filter's span in registers (16 words a thread), and walks
 //    every candidate row's span against it: every cube word and every
@@ -276,29 +291,114 @@ __global__ void __launch_bounds__(kExpandThreads)
   }
 }
 
-constexpr int kReduceWarps = 32;
+// hll_reduce: a block owns a band of kVecs 16-byte vectors (4 * kVecs
+// words) of the register row; thread t takes vector t % kVecs of rows
+// t / kVecs, + kThreads / kVecs, ..., kReduceLoads of them in flight before
+// it folds any (__vmaxu4: four byte maxes an instruction). The lanes of a
+// warp that share a vector fold by shuffles, the warps in shared memory,
+// and the block's first kVecs threads write each output vector once.
+constexpr int kReduceLoads = 8;
 
-__global__ void __launch_bounds__(kReduceWarps * 32)
-    hll_reduce_kernel(const uint32_t* __restrict__ regs, unsigned int* __restrict__ out,
-                      int64_t rows, int64_t row_words) {
-  __shared__ unsigned int part[kReduceWarps][33];
+__device__ __forceinline__ uint4 vmax4(uint4 a, uint4 b) {
+  return make_uint4(__vmaxu4(a.x, b.x), __vmaxu4(a.y, b.y), __vmaxu4(a.z, b.z),
+                    __vmaxu4(a.w, b.w));
+}
+
+// The max of rows [0, rows) of the band's vector `col` (the block's
+// vectors blockIdx-wise), valid in the block's first kVecs threads. Every
+// thread of the block must call it.
+template <int kVecs, int kThreads>
+__device__ __forceinline__ uint4 band_max(const uint4* __restrict__ regs, int64_t rows,
+                                          int64_t row_vecs, int64_t col) {
+  constexpr int kRowsPerPass = kThreads / kVecs;
+  __shared__ uint4 part[kThreads / 32][kVecs];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int64_t col = static_cast<int64_t>(blockIdx.x) * 32 + lane;
-  unsigned int acc = 0u;
-  if (col < row_words) {
-#pragma unroll 8
-    for (int64_t r = warp; r < rows; r += kReduceWarps)
-      acc = __vmaxu4(acc, __ldg(regs + r * row_words + col));
-  }
-  part[warp][lane] = acc;
-  __syncthreads();
-  if (warp == 0 && col < row_words) {
-    unsigned int m = 0u;
+  uint4 acc = make_uint4(0u, 0u, 0u, 0u);
+  if (col < row_vecs) {
+    const uint4* p = regs + col;
+    for (int64_t r0 = threadIdx.x / kVecs; r0 < rows;
+         r0 += static_cast<int64_t>(kRowsPerPass) * kReduceLoads) {
+      uint4 x[kReduceLoads];
 #pragma unroll
-    for (int w = 0; w < kReduceWarps; ++w) m = __vmaxu4(m, part[w][lane]);
-    out[col] = m;
+      for (int u = 0; u < kReduceLoads; ++u) {
+        const int64_t r = r0 + static_cast<int64_t>(u) * kRowsPerPass;
+        x[u] = r < rows ? __ldg(p + r * row_vecs) : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+      for (int u = 0; u < kReduceLoads; ++u) acc = vmax4(acc, x[u]);
+    }
   }
+#pragma unroll
+  for (int o = 16; o >= kVecs; o >>= 1) {
+    acc.x = __vmaxu4(acc.x, __shfl_xor_sync(0xffffffffu, acc.x, o));
+    acc.y = __vmaxu4(acc.y, __shfl_xor_sync(0xffffffffu, acc.y, o));
+    acc.z = __vmaxu4(acc.z, __shfl_xor_sync(0xffffffffu, acc.z, o));
+    acc.w = __vmaxu4(acc.w, __shfl_xor_sync(0xffffffffu, acc.w, o));
+  }
+  if (lane < kVecs) part[warp][lane] = acc;
+  __syncthreads();
+  uint4 m = make_uint4(0u, 0u, 0u, 0u);
+  if (threadIdx.x < kVecs) {
+#pragma unroll
+    for (int w = 0; w < kThreads / 32; ++w) m = vmax4(m, part[w][threadIdx.x]);
+  }
+  return m;
+}
+
+template <int kVecs, int kThreads>
+__global__ void __launch_bounds__(kThreads)
+    hll_reduce_kernel(const uint4* __restrict__ regs, uint4* __restrict__ out, int64_t rows,
+                      int64_t row_vecs) {
+  const int64_t col = static_cast<int64_t>(blockIdx.x) * kVecs + threadIdx.x % kVecs;
+  const uint4 m = band_max<kVecs, kThreads>(regs, rows, row_vecs, col);
+  if (threadIdx.x < kVecs && col < row_vecs) out[col] = m;
+}
+
+// The current device's SMs, read once a process.
+int device_sms() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0, n = 0;
+    if (cudaGetDevice(&dev) == cudaSuccess &&
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) == cudaSuccess)
+      sms = n;
+    else
+      sms = 132;
+  }
+  return sms;
+}
+
+// The launch geometry of hll_reduce: the band, in 16-byte vectors, and the
+// block. The band is the widest of 32, 16 and 8 words (whole 32-byte
+// sectors a row) that still gives every SM a block, else 8 words; 32 words
+// for kFewRows rows or fewer, where each block has one short pass (and the
+// whole row where it is narrower). The block is one warp where the rows
+// fit it, 512 threads for a 32-word band of many rows, else 256.
+constexpr int64_t kFewRows = 16;
+
+struct ReduceShape {
+  int vecs;
+  int threads;
+};
+
+ReduceShape reduce_shape(int64_t rows, int64_t row_vecs) {
+  int vecs = 8;
+  while (rows > kFewRows && vecs > 2 && row_vecs / vecs < device_sms()) vecs >>= 1;
+  if (vecs > row_vecs) vecs = static_cast<int>(row_vecs);
+  const int threads = rows * vecs <= 32 ? 32 : (vecs == 8 && rows * vecs > 256 ? 512 : 256);
+  return {vecs, threads};
+}
+
+template <int kVecs>
+void launch_reduce(int threads, unsigned grid, const uint4* r, uint4* o, int64_t rows,
+                   int64_t row_vecs, cudaStream_t s) {
+  if (threads == 32)
+    hll_reduce_kernel<kVecs, 32><<<grid, 32, 0, s>>>(r, o, rows, row_vecs);
+  else if (threads == 256)
+    hll_reduce_kernel<kVecs, 256><<<grid, 256, 0, s>>>(r, o, rows, row_vecs);
+  else
+    hll_reduce_kernel<kVecs, 512><<<grid, 512, 0, s>>>(r, o, rows, row_vecs);
 }
 
 constexpr int kSimThreads = 256;
@@ -394,15 +494,25 @@ extern "C" int pilosa_hll_expand(const void* packed, const void* filt, void* out
 }
 
 // out[j] = max over r of regs[r, j]: regs [rows, m] uint8 contiguous and
-// 4-byte aligned, m a multiple of 4 (m = 2^p, p >= 4); out [m] uint8,
-// 4-byte aligned, written whole.
+// 16-byte aligned, m a multiple of 16 (m = 2^p, p >= 4); out [m] uint8,
+// 16-byte aligned, written whole.
 extern "C" int pilosa_hll_reduce(const void* regs, void* out, int64_t rows, int64_t m,
                                  void* stream) {
-  if (rows <= 0 || m <= 0 || m % 4) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t row_words = m / 4;
-  const dim3 grid(static_cast<unsigned int>((row_words + 31) / 32));
-  hll_reduce_kernel<<<grid, kReduceWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(regs), static_cast<unsigned int*>(out), rows, row_words);
+  if (rows <= 0 || m <= 0 || m % 16) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t row_vecs = m / 16;
+  const ReduceShape shape = reduce_shape(rows, row_vecs);
+  const int64_t blocks = (row_vecs + shape.vecs - 1) / shape.vecs;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* r = static_cast<const uint4*>(regs);
+  auto* o = static_cast<uint4*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  const unsigned grid = static_cast<unsigned>(blocks);
+  switch (shape.vecs) {
+    case 8: launch_reduce<8>(shape.threads, grid, r, o, rows, row_vecs, s); break;
+    case 4: launch_reduce<4>(shape.threads, grid, r, o, rows, row_vecs, s); break;
+    case 2: launch_reduce<2>(shape.threads, grid, r, o, rows, row_vecs, s); break;
+    default: launch_reduce<1>(shape.threads, grid, r, o, rows, row_vecs, s);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

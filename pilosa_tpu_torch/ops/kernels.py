@@ -152,7 +152,7 @@ _SIGNATURES = {
         "pilosa_packed_expand": [_VP, _VP, _I64, _I64, _I64, _I64, _VP],
         "pilosa_packed_count_batched": [_VP, _VP, _I32, _VP, _I64, _I64, _I32, _VP],
         "pilosa_packed_and_dense_count_batched": [_VP, _VP, _VP, _VP, _I32, _VP, _I64,
-                                                  _I64, _I64, _I32, _VP],
+                                                  _I64, _I64, _I32, _I32, _VP],
         "pilosa_packed_pair_count_batched": [_VP, _VP, _VP, _VP, _I32, _VP, _I64, _I64,
                                              _I64, _I32, _VP],
     },
@@ -1421,6 +1421,38 @@ def packed_count(idx: torch.Tensor) -> torch.Tensor:
                                (idx.shape[1],), idx.device)[0]
 
 
+#: the fewest slots of a launch that the staged route of
+#: packed_and_dense_count takes (a single call keeps the gather).
+AND_STAGED_MIN_SLOTS = 2
+
+
+def and_wave_route(shared: bool, slots: int, k: int, words: int) -> int:
+    """The route of one packed_and_dense_count launch of ``slots`` slots of
+    ``[S, k]`` entries against ``[S, words]`` planes: 1, staged (each plane
+    row copied once into shared memory for all the slots), where every slot
+    reads one plane (``shared``: one base address and one row stride), from
+    AND_STAGED_MIN_SLOTS slots, once the launch's entries a row (slots x
+    k) reach the row's words; 0, gather (each entry reads its 32-byte
+    sector), otherwise. The crossover is the H100's: both routes timed at
+    1, 2, 8 and 32 slots and k = 8, 1024 and 4096 on a [1024, 32768] plane
+    (scripts/packed_probe.py; the gather faster below it, the staged route
+    from 32 slots of 1024, the two equal at 8 slots of 4096)."""
+    return int(shared and slots >= AND_STAGED_MIN_SLOTS and slots * k >= words)
+
+
+def one_plane(ptrs, strides) -> bool:
+    """Whether a launch's planes, given by their base addresses and row
+    strides, are one plane to the kernel: one address and one stride (two
+    views of one stack with other strides, or other first rows, are not)."""
+    return len(set(ptrs)) == 1 and len(set(strides)) == 1
+
+
+def _and_route(k: int, words: int):
+    """``route`` for ``_launch_packed_wave``: ``and_wave_route`` of one
+    launch's (idx, plane) layouts."""
+    return lambda _, planes: and_wave_route(one_plane(*planes), len(planes[0]), k, words)
+
+
 def packed_and_dense_count(idx: torch.Tensor, plane: torch.Tensor) -> torch.Tensor:
     """|packed AND dense| per row: for each entry ``i`` of ``idx``'s row
     below PACK_SENTINEL, bit ``i & 31`` of word ``clip(i >> 5, 0, W - 1)``
@@ -1438,7 +1470,7 @@ def packed_and_dense_count(idx: torch.Tensor, plane: torch.Tensor) -> torch.Tens
     _require_cuda(idx)
     return _launch_packed_wave("packed_and_dense_count", "packed_and_dense_count",
                                [[idx], [plane]], idx.shape[0], (idx.shape[1], plane.shape[1]),
-                               idx.device)[0]
+                               idx.device, _and_route(idx.shape[1], plane.shape[1]))[0]
 
 
 def packed_pair_count(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -1480,26 +1512,33 @@ def _packed_slots(slots, what: str) -> torch.Tensor:
 
 
 def _launch_packed_wave(kernel: str, name: str, operands, rows: int, shape_args,
-                        device) -> torch.Tensor:
+                        device, route=None) -> torch.Tensor:
     """``pilosa_<kernel>_batched`` over a wave (a single call is a wave of
-    one), each launch counted as ``name``: each list of ``operands`` passes
-    as a host array of the slots' base addresses and one of their row
-    strides, by value; ``shape_args`` follow the output. ``[B, rows]``
-    int32."""
+    one), one launch for each PACKED_WAVE_SLOTS slots, each counted as
+    ``name``: each list of ``operands`` passes as a host array of the
+    launch's slots' base addresses and one of their row strides, by value;
+    ``shape_args`` follow the output, then, where a route is given,
+    ``route(*layouts)`` of the launch's (addresses, strides) per operand.
+    ``[B, rows]`` int32."""
     n = len(operands[0])
     out = torch.empty((n, rows), dtype=torch.int32, device=device)
     if rows == 0:
         return out
-    tables = []
-    for slots in operands:
-        tables += [(ctypes.c_void_p * n)(*[x.data_ptr() for x in slots]),
-                   (ctypes.c_int64 * n)(*[x.stride(0) for x in slots])]
-    with torch.cuda.device(device):
-        err = getattr(_library("packed_kernels.cu"), f"pilosa_{kernel}_batched")(
-            *tables, n, out.data_ptr(), rows, *shape_args, PACK_SENTINEL, _stream(device))
-    if err:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    for _ in range(-(-n // PACKED_WAVE_SLOTS)):
+    fn = getattr(_library("packed_kernels.cu"), f"pilosa_{kernel}_batched")
+    for first in range(0, n, PACKED_WAVE_SLOTS):
+        layouts = [([x.data_ptr() for x in slots[first:first + PACKED_WAVE_SLOTS]],
+                    [x.stride(0) for x in slots[first:first + PACKED_WAVE_SLOTS]])
+                   for slots in operands]
+        m = len(layouts[0][0])
+        tables = []
+        for ptrs, strides in layouts:
+            tables += [(ctypes.c_void_p * m)(*ptrs), (ctypes.c_int64 * m)(*strides)]
+        extra = () if route is None else (route(*layouts),)
+        with torch.cuda.device(device):
+            err = fn(*tables, m, out[first].data_ptr(), rows, *shape_args, *extra,
+                     PACK_SENTINEL, _stream(device))
+        if err:
+            raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
         _count_launch(name)
     return out
 
@@ -1519,7 +1558,11 @@ def packed_and_dense_count_batched(idx_slots, plane_slots) -> torch.Tensor:
     """``packed_and_dense_count(idx_slots[z], plane_slots[z])`` for every
     slot z of a wave: ``[B, S]`` int32, one launch for up to
     PACKED_WAVE_SLOTS slots. The slots of a Count wave often push one
-    plane (``Intersect(Row(f=k), Row(g=1))`` for several k)."""
+    plane (``Intersect(Row(f=k), Row(g=1))`` for several k): a launch
+    whose slots all read one plane (``one_plane``) with entries enough
+    takes the staged route (``and_wave_route``), which copies each plane
+    row into shared memory once for all its slots; any other launch
+    gathers each entry's word."""
     if len(idx_slots) != len(plane_slots):
         raise ValueError(f"{len(idx_slots)} idx slots against {len(plane_slots)} "
                          "plane slots")
@@ -1536,7 +1579,7 @@ def packed_and_dense_count_batched(idx_slots, plane_slots) -> torch.Tensor:
     rows, k = first.shape
     return _launch_packed_wave("packed_and_dense_count", "packed_and_dense_count_batched",
                                [idx_slots, plane_slots], rows, (k, plane.shape[1]),
-                               first.device)
+                               first.device, _and_route(k, plane.shape[1]))
 
 
 def packed_pair_count_batched(a_slots, b_slots) -> torch.Tensor:
@@ -1714,7 +1757,7 @@ def hll_reduce(regs: torch.Tensor) -> torch.Tensor:
     if regs.shape[0] == 0:
         return torch.zeros(m, dtype=torch.uint8, device=regs.device)
     out = torch.empty(m, dtype=torch.uint8, device=regs.device)
-    regs = _aligned(regs, 4)
+    regs = _aligned(regs)  # the kernel's 16-byte loads
     with torch.cuda.device(regs.device):
         err = _library("sketch_kernels.cu").pilosa_hll_reduce(
             regs.data_ptr(), out.data_ptr(), regs.shape[0], m, _stream(regs.device))

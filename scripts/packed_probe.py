@@ -1,38 +1,45 @@
 #!/usr/bin/env python3
-"""Timed variants of the port's packed_count kernel, its wave and the slot table.
+"""Timed routes and forms of the port's packed AND dense wave.
 
-    python3 scripts/packed_probe.py
+    python3 scripts/packed_probe.py [FORM ...]
 
 Run on a machine with one NVIDIA GPU and nvcc, from the root of a
-checkout. It compiles variants of ``pilosa_tpu_torch/csrc/packed_kernels.cu``
-(text edits of a copy, under ``build/packed_probe/``), loads each in place
-of the package's library and times ``packed_count`` at ``chip_smoke.py``'s
-timed shapes ([1024, 1024] and [1024, 2048]), ``packed_count_batched``
-at 8 and 32 slots of [1024, 1024] (``chip_smoke.packed_wave_cases``) and
-``packed_and_dense_count`` at [1024, 1024] x [1024, 32768] with its timer
-(CUDA events after a device spin), in alternating rounds. The variants
-take one cost out, or put one design back, at a time:
+checkout (a few minutes of command). It compiles forms of
+``pilosa_tpu_torch/csrc/packed_kernels.cu`` (text edits of a copy, under
+``build/packed_probe/``), loads each in place of the package's library,
+holds ``kernels.packed_and_dense_count_batched`` exactly to its plain
+version, and times it with ``chip_smoke.py``'s timer (CUDA events after a
+device spin), in alternating rounds, on waves whose slots all read row
+1's ``[1024, 32768]`` plane (``chip_smoke.packed_case("k1024")``), each
+slot a row permutation of a ``[1024, K]`` case stack in memory of its own.
 
-- ``kernel``: the source as it is;
-- ``no_loads``: the count's 16-byte loads gone (each lane counts its
-  positions as if they were entries): what is left is the launch, the
-  grid's ramp and the row sums;
-- ``single_e4``, ``single_e16``, ``single_e32``: other entries a thread
-  than the source's 8 on a single launch (``kSingleCountBatch``; a block
-  a row at 4 and K = 1024, a warp a row at 32); ``wave_e8``,
-  ``wave_e16``: fewer than its 32 on a wave's (``kWaveCountBatch``);
-- ``slot_indexed``: a one-slot table's slot read by blockIdx.y, as a
-  wave's is, where the kernels take slot 0 as a constant.
+- ``route``: the source as it is, both routes forced in turn
+  (``kernels.and_wave_route``), at 1, 2, 8 and 32 slots and K = 8, 1024
+  and 4096: the times the route's crossover is set from;
+- staged forms, at 8 and 32 slots of K = 1024, 8 of K = 8 and 8 of
+  K = 4096, the staged route forced: ``tile16384`` (a row staged in 2
+  tiles of 64 KiB, so 3 blocks share an SM; each tile re-reads the row's
+  entries), ``threads512`` (``kStagedThreads`` 512, not 1024),
+  ``threads512_batch2``, ``batch2`` and ``batch8`` (``kStagedBatch``, not
+  4), ``persistent`` (as many blocks as fit the card at once, each walking
+  rows, not a block a row);
+- ``row_major``: the gather route forced, its grid in the first form's
+  order (row blocks fastest, a slot's rows all before the next slot's)
+  where the source takes the slot fastest for a launch whose slots share
+  one plane (a row block's slots back to back, their plane sectors meeting
+  in L2); ``slot_fastest``: the slot fastest for every launch.
+
+Both gather orders are also timed on a wave of 8 slots of K = 1024 whose
+slots read planes of their own (row permutations of the plane).
 
 Besides: ``torch.zeros`` of 1024 int32, the least time one launch takes
-under the same timer. ``no_loads`` computes another function and is not
-checked. Prints one JSON object per case and variant, then the card's
-name and power limit.
+under the same timer. Prints one JSON object per case and form, then the
+card's name and power limit.
 
-Its variants are text edits of lines of the kernel source, and it raises
+Its forms are text edits of lines of the kernel source, and it raises
 where such a line is gone: when ``packed_kernels.cu`` changes, rewrite the
-variants for the new source or delete this script, rather than grow it
-into a general harness.
+forms for the new source or delete this script, rather than grow it into
+a general harness.
 """
 
 import ctypes
@@ -52,6 +59,14 @@ import chip_smoke as cs  # noqa: E402
 
 ROUNDS = 4
 OUT_DIR = ROOT / "build" / "packed_probe"
+SLOTS = (1, 2, 8, 32)
+#: K -> (PACKED_CASES case, side: 0 a, 1 b) of the slots' stacks.
+WIDTHS = {8: ("k8", 0), 1024: ("k1024", 0), 4096: ("ka8_kb4096", 1)}
+#: the (K, slots) cases the forms are timed at.
+FORM_CASES = ((1024, 8), (1024, 32), (8, 8), (4096, 8))
+#: the case of a wave of OWN_SLOTS slots of K = 1024 on planes of their own.
+OWN = "own planes"
+OWN_SLOTS = 8
 
 
 def edit(src: str, *pairs) -> str:
@@ -63,20 +78,28 @@ def edit(src: str, *pairs) -> str:
 
 
 def variants(src: str) -> dict:
-    single, wave = "constexpr int kSingleCountBatch = 8;", "constexpr int kWaveCountBatch = 32;"
-    fixed = {**{f"single_e{e}": edit(src, (single, f"constexpr int kSingleCountBatch = {e};"))
-                for e in (4, 16, 32)},
-             **{f"wave_e{e}": edit(src, (wave, f"constexpr int kWaveCountBatch = {e};"))
-                for e in (8, 16)}}
-    return {
-        "kernel": src,
-        "no_loads": edit(src, (
-            "v[u] = q < k4 ? __ldg(p4 + q) : make_int4(sentinel, sentinel, sentinel, sentinel);",
-            "v[u] = make_int4(q, q + 1, q + 2, q < k4 ? q + 3 : sentinel);")),
-        **fixed,
-        "slot_indexed": edit(src, ("const int slot = N == 1 ? 0 : blockIdx.y;",
-                                   "const int slot = blockIdx.y;")),
+    """{form: (text, forced route)}."""
+    threads = ("constexpr int kStagedThreads = 1024;", "constexpr int kStagedThreads = 512;")
+    staged = {
+        "tile16384": edit(src, ("constexpr int64_t kStageWords = 32768;",
+                                "constexpr int64_t kStageWords = 16384;")),
+        "threads512": edit(src, threads),
+        "threads512_batch2": edit(src, threads, ("constexpr int kStagedBatch = 4;",
+                                                 "constexpr int kStagedBatch = 2;")),
+        **{f"batch{n}": edit(src, ("constexpr int kStagedBatch = 4;",
+                                   f"constexpr int kStagedBatch = {n};")) for n in (2, 8)},
+        "persistent": edit(src, ("  const unsigned grid = static_cast<unsigned>(rows);", '''  int per_sm = 1;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, packed_and_staged_kernel<true, true, N>, kStagedThreads, smem);
+  const int64_t most = static_cast<int64_t>(per_sm < 1 ? 1 : per_sm) * device_sms();
+  const unsigned grid = static_cast<unsigned>(rows < most ? rows : most);''')),
     }
+    row_major = edit(src, ("  const bool slot_x = shared && m > 1;",
+                           "  const bool slot_x = false;"))
+    slot_fastest = edit(src, ("  const bool slot_x = shared && m > 1;",
+                              "  const bool slot_x = m > 1;"))
+    return {"route": (src, None), **{k: (v, 1) for k, v in staged.items()},
+            "row_major": (row_major, 0), "slot_fastest": (slot_fastest, 0)}
 
 
 def build_all(srcs: dict) -> dict:
@@ -116,42 +139,59 @@ def main() -> int:
     from pilosa_tpu_torch.ops import kernels
 
     card = cs.card_line()
-    libs = build_all(variants((ROOT / "pilosa_tpu_torch/csrc/packed_kernels.cu").read_text()))
+    forms = variants((ROOT / "pilosa_tpu_torch/csrc/packed_kernels.cu").read_text())
+    forms = {k: v for k, v in forms.items() if k in sys.argv[1:] or len(sys.argv) < 2}
+    libs = build_all({name: text for name, (text, _) in forms.items()})
     dev = torch.device("cuda")
-    packed = {case: tuple(torch.from_numpy(x.view(np.int32)).to(dev)
-                          for x in cs.packed_case(case, 1024)) for case in ("k1024", "k2048")}
-    a, _, pl = packed["k1024"]
-    a2 = packed["k2048"][0]
-    cases = {"packed_count [1024, 1024]": (lambda: kernels.packed_count(a),
-                                           lambda: kernels.packed_count_plain(a)),
-             "packed_count [1024, 2048]": (lambda: kernels.packed_count(a2),
-                                           lambda: kernels.packed_count_plain(a2)),
-             "packed_and_dense_count [1024, 1024] x [1024, 32768]": (
-                 lambda: kernels.packed_and_dense_count(a, pl),
-                 lambda: kernels.packed_and_dense_count_plain(a, pl))}
-    for n in cs.PACKED_WAVE_TIMED:
-        name, shape, fn, plain, *_ = cs.packed_wave_cases(torch, kernels, packed, n)[0]
-        cases[f"{name} {shape}"] = (fn, plain)
-    for name in (n for n in libs if n != "no_loads"):
-        kernels._libs["packed_kernels.cu"] = libs[name]
-        for case, (fn, plain) in cases.items():
-            if not torch.equal(fn(), plain()):
-                raise AssertionError(f"{name}: {case}: counts differ from the plain version")
+    stacks = {case: tuple(torch.from_numpy(x.view(np.int32)).to(dev)
+                          for x in cs.packed_case(case, 1024))
+              for case in {c for c, _ in WIDTHS.values()}}
+    plane = stacks["k1024"][2]
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    def case(slots, planes):
+        return (lambda: kernels.packed_and_dense_count_batched(slots, planes),
+                kernels.packed_and_dense_count_batched_plain(slots, planes))
+
+    cases, waves = {}, {}
+    for k, (name, side) in WIDTHS.items():
+        for n in SLOTS:
+            x = stacks[name][side]
+            waves[(k, n)] = [x[torch.randperm(x.shape[0], generator=gen, device=dev)]
+                             for _ in range(n)]
+            cases[(k, n)] = case(waves[(k, n)], [plane] * n)
+    # a wave whose slots read planes of their own (row permutations of the
+    # plane): the gather route only
+    cases[OWN] = case(waves[(1024, OWN_SLOTS)],
+                      [plane[torch.randperm(plane.shape[0], generator=gen, device=dev)]
+                       for _ in range(OWN_SLOTS)])
+    route_rule = kernels.and_wave_route
+    runs = [(form, route, case) for form, (_, forced) in forms.items()
+            for case in (cases if forced is None else FORM_CASES + ((OWN,) if forced == 0 else ()))
+            for route in ((0,) if case == OWN else (0, 1) if forced is None else (forced,))]
+    for form, route, case in runs:
+        kernels._libs["packed_kernels.cu"] = libs[form]
+        kernels.and_wave_route = lambda *_, route=route: route
+        fn, want = cases[case]
+        if not torch.equal(fn(), want):
+            raise AssertionError(f"{form} route {route}: K, slots {case}: counts differ from "
+                                 "the plain version")
     times: dict = {}
-    order = list(libs)
     for r in range(ROUNDS):
-        for name in order if r % 2 == 0 else order[::-1]:
-            kernels._libs["packed_kernels.cu"] = libs[name]
-            for case, (fn, _) in cases.items():
-                times.setdefault((case, name), []).append(
-                    cs.time_cuda_ms(torch, fn, cs.KERNEL_RUNS))
-    kernels._libs["packed_kernels.cu"] = libs["kernel"]
-    times[("torch.zeros(1024, int32)", "-")] = [
-        cs.time_cuda_ms(torch, lambda: torch.zeros(1024, dtype=torch.int32, device=dev),
-                        cs.KERNEL_RUNS) for _ in range(ROUNDS)]
-    for (case, name), ms in times.items():
-        print(json.dumps({"case": case, "variant": name, "ms": statistics.median(ms),
-                          "runs": ms}), flush=True)
+        for form, route, case in runs if r % 2 == 0 else runs[::-1]:
+            kernels._libs["packed_kernels.cu"] = libs[form]
+            kernels.and_wave_route = lambda *_, route=route: route
+            times.setdefault((form, route, case), []).append(
+                cs.time_cuda_ms(torch, cases[case][0], cs.KERNEL_RUNS))
+    kernels.and_wave_route = route_rule
+    floor = [cs.time_cuda_ms(torch, lambda: torch.zeros(1024, dtype=torch.int32, device=dev),
+                             cs.KERNEL_RUNS) for _ in range(ROUNDS)]
+    for (form, route, case), ms in times.items():
+        k, n, planes = (1024, OWN_SLOTS, "own") if case == OWN else (*case, "one")
+        print(json.dumps({"form": form, "route": ["gather", "staged"][route], "k": k,
+                          "slots": n, "planes": planes,
+                          "rule": route_rule(planes == "one", n, k, plane.shape[1]),
+                          "ms": statistics.median(ms), "runs": ms}), flush=True)
+    print(json.dumps({"form": "floor", "ms": statistics.median(floor), "runs": floor}))
     print(card, flush=True)
     return 0
 

@@ -320,10 +320,11 @@ def test_wave_plain_versions_match_jax_vmap(kind, case, n):
     """Each wave form's plain version, and its wrapper on CPU tensors,
     equals ``jax.vmap`` of the JAX residency function over the stacked
     slots, exactly: count of a's and b's slots, and_count of a's and b's
-    against planes, pair_count of a against b (and b against a on the
-    sorted cases), whole and sliced. The any-input cases' narrower planes
-    go to the JAX function widened by their last word, as in
-    test_any_input_matches_jax."""
+    against planes (each slot its own, and every slot on one plane: the
+    plane, a strided view of it, a view one word in), pair_count of a
+    against b (and b against a on the sorted cases), whole and sliced. The
+    any-input cases' narrower planes go to the JAX function widened by
+    their last word, as in test_any_input_matches_jax."""
     rows = WAVE_ROWS + n - 1
     if kind == "sorted":
         a, b, plane = chip_smoke.packed_case(case, rows, words=WORDS_PER_SHARD)
@@ -333,6 +334,15 @@ def test_wave_plain_versions_match_jax_vmap(kind, case, n):
     jplanes = jnp.asarray(np.stack([np.concatenate(
         [x, np.repeat(x[:, -1:], WORDS_PER_SHARD - x.shape[1], axis=1)], axis=1)
         for x in (p.numpy().view(np.uint32) for p in planes)]))
+    own = torch.from_numpy(plane.view(np.int32))[:WAVE_ROWS]
+    shared = [own]
+    for skew in (4, 1):
+        wide = torch.full((WAVE_ROWS, own.shape[1] + 8), -1, dtype=torch.int32)
+        wide[:, skew:skew + own.shape[1]] = own
+        shared.append(wide[:, skew:skew + own.shape[1]])
+    jshared = jnp.asarray(np.stack([np.concatenate(
+        [x, np.repeat(x[:, -1:], WORDS_PER_SHARD - x.shape[1], axis=1)], axis=1)
+        for x in [own.numpy().view(np.uint32)] * n]))
     v_count = jax.jit(jax.vmap(jres.packed_count))
     v_and = jax.jit(jax.vmap(jres.packed_and_dense_count))
     v_pair = jax.jit(jax.vmap(jres.packed_pair_count))
@@ -351,6 +361,13 @@ def test_wave_plain_versions_match_jax_vmap(kind, case, n):
             want = v_and(jx, jplanes)
             same(kernels.packed_and_dense_count_batched_plain(xs, planes), want)
             same(kernels.packed_and_dense_count_batched(xs, planes), want)
+            # every slot on one plane: the plane itself, a strided view of
+            # it and a view one word in (the card's staged route, bulk
+            # copied or staged by loads)
+            want = v_and(jx, jshared)
+            for one in shared:
+                same(kernels.packed_and_dense_count_batched_plain(xs, [one] * n), want)
+                same(kernels.packed_and_dense_count_batched(xs, [one] * n), want)
         pairs = [(xa, xb, ja, jb)] + ([(xb, xa, jb, ja)] if kind == "sorted" else [])
         for xs, ys, jx, jy in pairs:
             want = v_pair(jx, jy)
@@ -385,6 +402,44 @@ def test_wave_wrappers_refuse():
         kernels.packed_count_batched([a, a.long()])
     with pytest.raises(TypeError):
         kernels.packed_and_dense_count_batched([a], [plane.long()])
+
+
+def test_and_wave_route():
+    """The and wave's route: the gather for a single call at every timed
+    width, for a wave whose slots read different planes, and for waves
+    whose entries are few against the plane row (K = 8; 8 slots of 1024;
+    2 of 4096); the staged route from a plane row's worth of entries (32
+    slots of 1024, 8 and 32 of 4096), the crossover on the H100 (see
+    kernels.and_wave_route)."""
+    words = WORDS_PER_SHARD
+    route = kernels.and_wave_route
+    for k in (8, 1024, 4096):
+        assert route(True, 1, k, words) == 0
+        assert route(False, 32, k, words) == 0
+    for n in (1, 2, 8, 32):
+        assert route(True, n, 8, words) == 0
+    assert [route(True, n, 1024, words) for n in (2, 8, 32)] == [0, 0, 1]
+    assert [route(True, n, 4096, words) for n in (2, 8, 32)] == [0, 1, 1]
+    assert route(True, 2, 16384, words) == 1
+    assert route(True, 2, 8, 16) == 1  # a narrow plane: a row's worth at 16 entries
+
+
+def test_one_plane():
+    """A launch's planes are one plane only where every slot has slot 0's
+    base address and row stride: the same tensor, or views that start at
+    the same row and step alike; not copies, not two views of one stack
+    with different row strides, not views that start on other rows."""
+    def one(*planes):
+        return kernels.one_plane([x.data_ptr() for x in planes], [x.stride(0) for x in planes])
+
+    stack = torch.zeros((12, 64), dtype=torch.int32)
+    flat = stack.view(-1)
+    assert one(stack, stack, stack)
+    assert one(stack, stack[:, :64], stack.view(12, 64))
+    assert not one(stack[:6], stack[:6, 1:])
+    assert not one(stack, stack.clone())
+    assert not one(flat.as_strided((6, 64), (64, 1)), flat.as_strided((6, 64), (128, 1)))
+    assert not one(stack[:6], stack[1:7])
 
 
 def test_wave_slot_count():

@@ -160,6 +160,28 @@ def test_hll_expand_and_reduce_match_jax(p):
         np.testing.assert_array_equal(want[s], jhll.registers_from_plane(masked, p))
 
 
+@pytest.mark.parametrize("shards", [1, 3, 1025])
+@pytest.mark.parametrize("p", [4, 18])
+def test_hll_reduce_matches_jax(p, shards):
+    """hll_reduce_plain and the CPU wrapper against the JAX hll_reduce on
+    seeded, all-zero and all-255 register stacks of one shard, three and
+    1025 (one past the keys phase's 1024), at the narrowest and widest
+    precisions; the seeded stack's last shard holds some of the maxima."""
+    rng = np.random.default_rng([p, shards])
+    for kind in ("seeded", "zero", "full"):
+        if kind == "seeded":
+            regs = rng.integers(0, 34, (shards, 1 << p), dtype=np.uint8)
+            regs[-1, ::7] = 60
+        else:
+            regs = np.full((shards, 1 << p), 0 if kind == "zero" else 255, dtype=np.uint8)
+        want = np.asarray(jsk.hll_reduce(jnp.asarray(regs)))
+        for fn in (kernels.hll_reduce_plain, kernels.hll_reduce):
+            got = fn(torch.from_numpy(regs))
+            assert got.dtype == torch.uint8, kind
+            np.testing.assert_array_equal(got.numpy(), want, err_msg=kind)
+        del regs, want
+
+
 #: chip_smoke.HLL_CHECKS's precisions and filter kinds (the card holds the
 #: kernel to the plain version on them), and the first case's own inputs.
 HLL_EDGE_CASES = ["one_row"] + [f"p{p}-{kind}" for p, _, _, kind in chip_smoke.HLL_CHECKS]
